@@ -41,6 +41,7 @@ from jax.sharding import Mesh  # noqa: E402
 
 
 def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card (the PyTorch port's CUDA kernels have no CPU mode); skips without one")
     config.addinivalue_line(
         "markers",
         "slow: second-tier tests (models, tutorials, large shapes, "
