@@ -18,7 +18,21 @@ Phases, each printed as a JSON line, each fatal on failure:
    then a torch.profiler look at three decode steps (device busy share);
 5. the contiguous-cache path (K2 decode) at the same width, 4 layers;
 6. parity: f32, 2 layers at full width, greedy tokens of the kernel path on
-   the card identical to the plain path (the wrappers' CPU twins).
+   the card identical to the plain path (the wrappers' CPU twins);
+7. world 4, every rank on the one card (the rank runtime of
+   ``parallel/mesh.py``): the barrier K4 (1000 back to back under per-rank
+   skew), the full-mesh allgather K5 (bit-exact), AG-GEMM K6 and GEMM-RS K7
+   at the per-rank shapes of a 4-way Llama-3.1-70B, each against its plain
+   version and timed beside its bound; a stuck wait that must raise with
+   its record instead of hanging;
+8. ``serve_tp4``: ``ServingEngine`` at world 4 serving a Llama-3.1-70B-wide
+   model cut to 8 of its 80 layers (bf16, random seeded weights), paged
+   cache, bulk prefill, 8 requests — with the launch counts that show K1,
+   K3-K7 carried it (plain versions: 0) — and its prefill logits against
+   the world-1 plain-GEMM forward on the same weights;
+9. parity at world 4: f32, 2 layers at full 70B width, greedy tokens of the
+   kernel path on the card identical to the world-4 plain path (the
+   wrappers' CPU twins, the ranks as CPU threads).
 
 The line before the last lists every kernel with its readings; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -34,6 +48,10 @@ import os
 import subprocess
 import sys
 import time
+
+# the world-4 rank runtime gives each rank two streams with hardware queues
+# of their own; the count is read when the process first touches the card
+os.environ.setdefault("CUDA_DEVICE_MAX_CONNECTIONS", "32")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense tensor-core peak
@@ -78,15 +96,24 @@ class Counters:
     versions, reset just before a main-path run and read just after it."""
 
     def __init__(self):
+        from triton_dist_tpu_torch.ops import allgather, allgather_gemm, common, gemm
         from triton_dist_tpu_torch.ops import flash_decode as fd
-        from triton_dist_tpu_torch.ops import gemm
+        from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
 
         self.kernels = {
             "gemm": gemm.matmul,
             "flash_decode": fd.flash_decode,
             "paged_flash_decode": fd.paged_flash_decode,
+            "barrier": common.barrier_all_op,
+            "all_gather": allgather.all_gather,
+            "ag_gemm": allgather_gemm.ag_gemm,
+            "gemm_rs": grs.gemm_rs,
         }
-        self.plain = {"gemm": gemm._matmul_plain, "decode": fd._xla_decode}
+        self.plain = {
+            "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
+            "barrier": common._barrier_plain, "all_gather": allgather._all_gather_xla,
+            "ag_gemm": allgather_gemm._ag_gemm_xla, "gemm_rs": grs._gemm_rs_xla,
+        }
 
     def reset(self) -> None:
         for fn in self.kernels.values():
@@ -538,6 +565,444 @@ def phase_f32_parity() -> None:
           "max_new_tokens": max_new, "identical": True, "cpu_reference_s": t_cpu})
 
 
+# --------------------------------------------------- world 4 on one card ----
+
+WORLD = 4
+TP_MODEL = "llama-3.1-70b"
+
+
+def dist_ms(ctx, fn, iters: int, warmup: int = 2) -> float:
+    """Device time of one call of `fn` on every rank at once: CUDA events
+    on each rank's stream around `iters` calls, the slowest rank's span
+    over `iters`. The ranks' kernels wait on each other through device
+    flags and the host meets them between a signal and its wait, so this
+    is a time per call with the host's rendezvous in it (no CUDA graph can
+    hold the ranks' cross-stream waits)."""
+    import torch
+
+    ctx.run(lambda: [fn() for _ in range(warmup)])
+
+    def body():
+        stream = torch.cuda.current_stream()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record(stream)
+        for _ in range(iters):
+            fn()
+        t1.record(stream)
+        return t0, t1
+
+    spans = ctx.run(body)
+    return max(t0.elapsed_time(t1) for t0, t1 in spans) / iters
+
+
+def host_ms(ctx, fn, iters: int) -> float:
+    """Host time of one call of `fn` on every rank (for the plain barrier,
+    which is a host rendezvous)."""
+    ctx.run(fn)
+    t0 = time.perf_counter()
+    ctx.run(lambda: [fn() for _ in range(iters)])
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_barrier(ctx) -> dict:
+    """K4: 1000 back-to-back barriers, every rank's stream held for a
+    rank- and round-dependent 0-6 µs of device time before each, no wait
+    may expire; then the time of one barrier with no skew."""
+    from triton_dist_tpu_torch.ops import common
+
+    def stress():
+        for i in range(1000):
+            common.sleep_on_stream(((ctx.rank * 7 + i) % WORLD) * 2000)
+            common.barrier_all_op(ctx)
+
+    t0 = time.perf_counter()
+    ctx.run(stress)  # raises DistTimeoutError if any wait expired
+    stress_s = time.perf_counter() - t0
+    nbytes = 2.0 * WORLD * WORLD * 4  # each flag written once, read once
+    b_ms, by = bound(0.0, nbytes)
+    entry = dict(
+        name="barrier", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
+        replaces="triton_dist_tpu/ops/common.py:918",
+        max_abs_err=0.0,
+        ms=dist_ms(ctx, lambda: common.barrier_all_op(ctx), iters=100),
+        plain_ms=host_ms(ctx, lambda: common._barrier_plain(ctx), iters=100),
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+        shapes=f"world {WORLD} on one card, int32[{WORLD}] epoch flags",
+    )
+    emit({"phase": "kernel", "kernel": "barrier", "stress_barriers": 1000,
+          "stress_s": stress_s, "timeouts": 0,
+          **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "shapes")}})
+    return entry
+
+
+def phase_all_gather(ctx) -> dict:
+    """K5 at the SP combine's payload of the world-4 decode: [b*hq +
+    ceil(b*hq/d), d] f32 = [516, 128] a rank (b 8, hq 64, d 128);
+    bit-exact against torch.cat of the ranks' shards."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows, d = 8 * 64 + math.ceil(8 * 64 / 128), 128
+    shards = [torch.randn((rows, d), generator=g, device="cuda") for _ in range(WORLD)]
+    want = torch.cat(shards)
+    for got in ctx.run(lambda: allgather.all_gather(shards[ctx.rank], ctx=ctx)):
+        if not torch.equal(got, want):
+            raise AssertionError("all_gather: not bit-exact")
+    nbytes = WORLD * (rows * d * 4) * (1 + WORLD)
+    b_ms, by = bound(0.0, nbytes)
+    entry = dict(
+        name="all_gather", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
+        replaces="triton_dist_tpu/ops/allgather.py:258", max_abs_err=0.0,
+        ms=dist_ms(ctx, lambda: allgather.all_gather(shards[ctx.rank], ctx=ctx), iters=50),
+        plain_ms=dist_ms(ctx, lambda: allgather._all_gather_xla(shards[ctx.rank], ctx), iters=50),
+        bound_ms=b_ms, bound_by=by,
+        library_ms=cuda_ms(lambda: [torch.cat(shards) for _ in range(WORLD)], iters=20),
+        shapes=f"world {WORLD}, [{rows}, {d}] f32 a rank",
+    )
+    emit({"phase": "kernel", "kernel": "all_gather",
+          **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shapes")}})
+    return entry
+
+
+def _check_bf16(name, got, ref, factor=1.0):
+    """bf16 output: one bf16 ulp of the output scale (both round an f32
+    sum once, in another order); `factor` 2 where the kernel also rounds
+    each peer's partial to bf16 before its f32 epilogue adds it."""
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = factor * 2.0**-7 * ref.float().abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs err {err} > {tol}")
+    return err, tol
+
+
+def phase_ag_gemm(ctx) -> dict:
+    """K6 at the per-rank shapes of a 4-way Llama-3.1-70B prefill (8
+    sequences x 256 tokens = 2048 rows, 512 a rank): the column
+    projections wqkv (n_loc 2560), gate/up (14336) and the LM head (32064)."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather_gemm, gemm
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    m_loc, k = 512, 8192
+    rows, worst, total = [], 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
+                                       bytes=0.0)
+    for name, n_loc in (("wqkv", 2560), ("gate_up", 14336), ("lm_head", 32064)):
+        a = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16()
+             for _ in range(WORLD)]
+        b = [(torch.randn((k, n_loc), generator=g, device="cuda") / k**0.5).bfloat16()
+             for _ in range(WORLD)]
+        a_full = torch.cat(a)
+        outs = ctx.run(lambda: allgather_gemm.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx))
+        errs = [_check_bf16(f"ag_gemm {name} rank {r}", out,
+                            gemm._matmul_plain(a_full, b[r], torch.bfloat16))
+                for r, out in enumerate(outs)]
+        err, tol = max(errs)
+        worst = max(worst, err)
+        flops = WORLD * 2.0 * WORLD * m_loc * k * n_loc
+        nbytes = 2.0 * (WORLD * m_loc * k + WORLD * k * n_loc + WORLD * WORLD * m_loc * n_loc)
+        row = dict(
+            shape=[m_loc, k, n_loc], max_abs_err=err, tol=tol,
+            ms=dist_ms(ctx, lambda: allgather_gemm.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx),
+                       iters=5),
+            plain_ms=dist_ms(ctx, lambda: gemm._matmul_plain(torch.cat(a), b[ctx.rank],
+                                                             torch.bfloat16), iters=2),
+            library_ms=cuda_ms(lambda: [torch.matmul(torch.cat(a), b[r]) for r in range(WORLD)],
+                               iters=3),
+            bound_ms=bound(flops, nbytes)[0],
+        )
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows.append({name: row})
+        for key in ("ms", "plain_ms", "library_ms"):
+            total[key] += row[key]
+        total["flops"] += flops
+        total["bytes"] += nbytes
+        del a, b, a_full, outs
+    emit({"phase": "kernel", "kernel": "ag_gemm", "world": WORLD, "per_shape": rows})
+    b_ms, by = bound(total["flops"], total["bytes"])
+    return dict(
+        name="ag_gemm", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
+        replaces="triton_dist_tpu/ops/allgather_gemm.py:69", max_abs_err=worst,
+        ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
+        library_ms=total["library_ms"],
+        shapes=f"world {WORLD}: a [512, 8192] a rank; n_loc 2560, 14336, 32064 (summed)",
+    )
+
+
+def phase_gemm_rs(ctx) -> dict:
+    """K7 at the per-rank shapes of a 4-way Llama-3.1-70B prefill (2048
+    rows): the row projections wo (k_loc 2048) and down (7168), N 8192."""
+    import torch
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    m_tot, n = 2048, 8192
+    m_loc = m_tot // WORLD
+    rows, worst, total = [], 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
+                                       bytes=0.0)
+    for name, k_loc in (("wo", 2048), ("down", 7168)):
+        a = [torch.randn((m_tot, k_loc), generator=g, device="cuda").bfloat16()
+             for _ in range(WORLD)]
+        b = [(torch.randn((k_loc, n), generator=g, device="cuda") / (WORLD * k_loc)**0.5)
+             .bfloat16() for _ in range(WORLD)]
+
+        def plain():
+            # f32 product per rank, summed over ranks, split
+            return sum(a[r].float() @ b[r].float() for r in range(WORLD)).bfloat16()
+
+        full = plain()
+        outs = ctx.run(lambda: grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx))
+        errs = [_check_bf16(f"gemm_rs {name} rank {r}", out, full[r * m_loc:(r + 1) * m_loc],
+                            factor=2.0)
+                for r, out in enumerate(outs)]
+        err, tol = max(errs)
+        worst = max(worst, err)
+        flops = WORLD * 2.0 * m_tot * k_loc * n
+        nbytes = 2.0 * (WORLD * m_tot * k_loc + WORLD * k_loc * n + m_tot * n)
+        row = dict(
+            shape=[m_tot, k_loc, n], max_abs_err=err, tol=tol,
+            ms=dist_ms(ctx, lambda: grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx), iters=5),
+            plain_ms=cuda_ms(plain, iters=2),
+            library_ms=cuda_ms(lambda: sum(torch.matmul(a[r], b[r]) for r in range(WORLD)),
+                               iters=3),
+            bound_ms=bound(flops, nbytes)[0],
+        )
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows.append({name: row})
+        for key in ("ms", "plain_ms", "library_ms"):
+            total[key] += row[key]
+        total["flops"] += flops
+        total["bytes"] += nbytes
+        del a, b, full, outs
+    emit({"phase": "kernel", "kernel": "gemm_rs", "world": WORLD, "per_shape": rows})
+    b_ms, by = bound(total["flops"], total["bytes"])
+    return dict(
+        name="gemm_rs", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
+        replaces="triton_dist_tpu/ops/gemm_reduce_scatter.py:99", max_abs_err=worst,
+        ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
+        library_ms=total["library_ms"],
+        shapes=f"world {WORLD}: a [2048, k_loc] a rank, k_loc 2048 and 7168, N 8192 (summed)",
+    )
+
+
+def phase_stuck_wait() -> None:
+    """A peer that arrives far too late: rank 1's stream is held 2 s before
+    its barrier arrival, the wait timeout is 0.2 s. The run must raise
+    with a record naming rank 0, the barrier and site 1 — not hang."""
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    ctx = initialize_distributed(2)
+    ctx.run(lambda: common.barrier_all_op(ctx))
+
+    def body():
+        if ctx.rank == 1:
+            common.sleep_on_stream(2_000_000_000)
+        common.barrier_all_op(ctx)
+
+    t0 = time.perf_counter()
+    try:
+        with config.wait_timeout(0.2):
+            ctx.run(body)
+    except DistTimeoutError as err:
+        recs = err.records
+    else:
+        raise AssertionError("a stuck wait did not raise")
+    if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, "barrier", 1)]:
+        raise AssertionError(f"stuck wait: unexpected records {recs}")
+    emit({"phase": "stuck_wait", "raised_after_s": time.perf_counter() - t0,
+          "records": recs})
+    ctx.close()
+
+
+def phase_serve_tp4(counters: Counters) -> dict:
+    """World 4 on one card: Llama-3.1-70B widths (hidden 8192, ffn 28672,
+    64 q / 8 kv heads, head dim 128, vocab 128256) cut to 8 of 80 layers,
+    bf16, batch 8, s_max 1024 (256 positions a rank), 16-token pages, bulk
+    prefill, 8 requests of 32-256 prompt tokens and 32 new tokens."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import (
+        TPTransformer, init_params, shard_params,
+    )
+    from triton_dist_tpu_torch.ops.gemm import _matmul_plain
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.serving.engine import ServingConfig, ServingEngine
+
+    n_layers, s_max, max_new = 8, 1024, 32
+    cfg = presets.preset(TP_MODEL, n_layers=n_layers, batch=8, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=10)
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    reqs = _requests(cfg.vocab, lengths, max_new, seed=15)
+    ctx = initialize_distributed(WORLD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, s_max=s_max, page_size=16, prefill=True, ctx=ctx,
+                        serving=ServingConfig(max_queue=64))
+    counters.reset()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(done) != sorted(r.uid for r in reqs):
+        raise AssertionError(f"serve_tp4 finished {sorted(done)}")
+    for uid, res in done.items():
+        if len(res.tokens) != max_new or not all(0 <= t < cfg.vocab for t in res.tokens):
+            raise AssertionError(f"{uid}: bad tokens {res.tokens}")
+    launches, plain = counts["launches"], counts["plain_calls"]
+    used = ("gemm", "ag_gemm", "gemm_rs", "all_gather", "paged_flash_decode", "barrier")
+    if any(launches[k] <= 0 for k in used):
+        raise AssertionError(f"serve_tp4 skipped a kernel: {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the card path: {plain}")
+    n_tok = sum(len(r.tokens) for r in done.values())
+    snap = eng.snapshot()
+    emit({"phase": "serve_tp4", "model": TP_MODEL, "n_layers": n_layers, "world": WORLD,
+          "world_size": snap["engine"]["world_size"], "batch": 8, "s_max": s_max,
+          "page_size": 16, "prompt_lens": lengths, "max_new_tokens": max_new,
+          "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+          "ttft_ms": sorted(r.ttft_ms for r in done.values()),
+          "decode_steps": snap["requests"]["steps"], "peak_mem_gb": peak / 1e9, **counts})
+    del eng
+
+    # prefill last-row logits at world 4 (K6/K7) against the world-1
+    # plain-GEMM forward on the same card, same weights, same prompts (bf16)
+    L = 128
+    tokens = torch.zeros((cfg.batch, L), dtype=torch.long, device="cuda")
+    for i, r in enumerate(reqs):
+        n = min(L, len(r.prompt))
+        tokens[i, :n] = torch.tensor(r.prompt[:n])
+    pcfg = dataclasses.replace(cfg, seq=L)
+    flat = tokens.reshape(-1)
+    rows = torch.arange(cfg.batch, device="cuda") * L + L - 1
+    shards = shard_params(params, WORLD, ctx.devices)
+    m_loc = flat.numel() // WORLD
+
+    def rank_logits():
+        r = ctx.rank
+        out = TPTransformer(pcfg, ctx=ctx)(flat[r * m_loc:(r + 1) * m_loc], shards[r])
+        return out[rows].float()
+
+    got = torch.cat(ctx.run(rank_logits), dim=1)
+    del shards
+
+    class PlainTransformer(TPTransformer):
+        def _col(self, x, w):
+            return _matmul_plain(x, w, x.dtype)
+
+        _row = _col
+
+    with torch.inference_mode():
+        ref = PlainTransformer(pcfg)(flat, params)[rows].float()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    # bf16 rounds each of the ~7 stored activations per layer at 2^-9
+    # relative, in two summation orders (and K7 rounds each rank's partial)
+    if not (torch.isfinite(got).all().item() and rel <= 5e-2):
+        raise AssertionError(f"world-4 prefill logits vs world-1 plain: rel L2 err {rel}")
+    emit({"phase": "serve_tp4_logits", "rows": cfg.batch, "prompt_len": L,
+          "rel_l2_err": rel, "max_abs_err": (got - ref).abs().max().item(),
+          "argmax_agree": (got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+          "tol_rel_l2": 5e-2, "reference": "world 1, plain GEMMs"})
+    phase_decode_profile_tp4(cfg, params, ctx)
+    ctx.close()
+    return launches
+
+
+def phase_decode_profile_tp4(cfg, params, ctx) -> None:
+    """Where a world-4 decode step's time goes: host wall per step (eight
+    steps, profiler off), torch.profiler over three steps (kernel time
+    summed over the four ranks' streams, launches per step, top kernels),
+    and the cost of one bare host rendezvous of the four rank threads."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+
+    batcher = ContinuousBatcher(cfg, params, s_max=1024, page_size=16, prefill=True, ctx=ctx)
+    for r in _requests(cfg.vocab, [64] * cfg.batch, 24, seed=18):
+        batcher.submit(r)
+    for _ in range(3):  # admission + warm decode steps
+        batcher.step()
+    walls = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batcher.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[len(walls) // 2]
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            batcher.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    n = 200
+    t0 = time.perf_counter()
+    ctx.run(lambda: [ctx.rendezvous() for _ in range(n)])
+    rendezvous_us = (time.perf_counter() - t0) * 1e6 / n
+    emit({"phase": "decode_profile_tp4", "world": WORLD, "steps": steps,
+          "step_wall_ms_median": wall_ms, "step_wall_ms_min_max": [min(walls), max(walls)],
+          "kernel_ms_per_step_all_ranks": busy_ms,
+          "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+          "rendezvous_us": rendezvous_us,
+          "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
+                                      for e in top}})
+    del batcher
+
+
+def phase_f32_parity_tp4() -> None:
+    """f32, 2 layers at full 70B width, world 4: greedy tokens of the kernel
+    path on the card (K6/K7 f32 engines, K3, K5) identical to the world-4
+    plain path (the wrappers' CPU twins, ranks as CPU threads)."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+    from triton_dist_tpu_torch.models.tp_transformer import init_params
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = presets.preset(TP_MODEL, n_layers=2, batch=4, dtype=torch.float32)
+    params = init_params(cfg, seed=3)
+    params_cpu = {
+        "embed": params["embed"].cpu(), "final_norm": params["final_norm"].cpu(),
+        "lm_head": params["lm_head"].cpu(),
+        "layers": [{k: v.cpu() for k, v in p.items()} for p in params["layers"]],
+    }
+    lengths, max_new = [12, 20, 33, 40], 8
+
+    def run(p, device):
+        ctx = initialize_distributed(WORLD, device=device)
+        b = ContinuousBatcher(cfg, p, s_max=256, page_size=16, prefill=True, device=device,
+                              ctx=ctx)
+        for r in _requests(cfg.vocab, lengths, max_new, seed=17):
+            b.submit(r)
+        out = dict(b.run())
+        ctx.close()
+        return out
+
+    t0 = time.perf_counter()
+    want = run(params_cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    del params_cpu
+    t0 = time.perf_counter()
+    got = run(params, "cuda")
+    t_card = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"world-4 f32 greedy tokens differ: {got} vs {want}")
+    emit({"phase": "f32_parity_tp4", "model": TP_MODEL, "n_layers": 2, "world": WORLD,
+          "requests": len(lengths), "max_new_tokens": max_new, "identical": True,
+          "cpu_reference_s": t_cpu, "card_s": t_card})
+
+
 def main() -> int:
     try:
         import torch
@@ -565,9 +1030,24 @@ def main() -> int:
     contiguous = phase_contiguous(counters)
     torch.cuda.empty_cache()
     phase_f32_parity()
+    torch.cuda.empty_cache()
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    ctx = initialize_distributed(WORLD)
+    dist_entries = [phase_barrier(ctx), phase_all_gather(ctx), phase_ag_gemm(ctx),
+                    phase_gemm_rs(ctx)]
+    ctx.close()
+    phase_stuck_wait()
+    torch.cuda.empty_cache()
+    tp4 = phase_serve_tp4(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_tp4()
     entries[0]["launches"] = paged["gemm"]
     entries[1]["launches"] = contiguous["flash_decode"]
     entries[2]["launches"] = paged["paged_flash_decode"]
+    for entry, key in zip(dist_entries, ("barrier", "all_gather", "ag_gemm", "gemm_rs")):
+        entry["launches"] = tp4[key]
+    entries += dist_entries
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,17 +1,33 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions on
-the card (GEMM K1, flash decode K2, paged flash decode K3). Every test here
-carries the ``cuda`` marker and skips without a card. The file imports
-neither JAX nor the JAX package, so it also runs where JAX is absent:
+the card (GEMM K1, flash decode K2, paged flash decode K3, and at world 2
+and 4 with every rank on the one card: barrier K4, full-mesh allgather K5,
+AG-GEMM K6, GEMM-RS K7, plus a stuck wait that must raise with its
+record). Every test here carries the ``cuda`` marker and skips without a
+card. The file imports neither JAX nor the JAX package, so it also runs
+where JAX is absent:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 """
 
-import numpy as np
-import pytest
-import torch
+import os
 
-from triton_dist_tpu_torch.ops import flash_decode as tfd
-from triton_dist_tpu_torch.ops import gemm as tgemm
+# the rank runtime gives each rank two streams with hardware queues of
+# their own; the count is read when the process first touches the card
+os.environ.setdefault("CUDA_DEVICE_MAX_CONNECTIONS", "32")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from triton_dist_tpu_torch import config  # noqa: E402
+from triton_dist_tpu_torch.ops import allgather as tag  # noqa: E402
+from triton_dist_tpu_torch.ops import allgather_gemm as tagg  # noqa: E402
+from triton_dist_tpu_torch.ops import common as tcommon  # noqa: E402
+from triton_dist_tpu_torch.ops import flash_decode as tfd  # noqa: E402
+from triton_dist_tpu_torch.ops import gemm as tgemm  # noqa: E402
+from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs  # noqa: E402
+from triton_dist_tpu_torch.parallel.mesh import initialize_distributed  # noqa: E402
+from triton_dist_tpu_torch.resilience.records import DistTimeoutError  # noqa: E402
 
 
 @pytest.fixture
@@ -77,3 +93,106 @@ def test_flash_decode_kernels_match_plain(cuda, dtype, name):
     for o, lse in (got, pgot):
         torch.testing.assert_close(o, want[0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(lse, want[1], rtol=1e-4, atol=1e-4)
+
+
+# ---- world > 1: every rank on the one card, each on its own stream ----
+
+
+def _tol(dtype, ref):
+    """bf16 output: one bf16 ulp of the output scale (both round an f32 sum
+    once, in another order); f32: the sums differ only in order."""
+    scale = ref.abs().max().item()
+    return (2.0**-7 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_barrier_kernel_under_skew(cuda, world):
+    ctx = initialize_distributed(world)
+    before = tcommon.barrier_all_op.launches
+
+    def body():
+        for i in range(200):
+            # rank-dependent device skew before every barrier
+            tcommon.sleep_on_stream(((ctx.rank + i) % world) * 2000)
+            tcommon.barrier_all_op(ctx)
+
+    ctx.run(body)  # raises DistTimeoutError if any wait expired
+    assert tcommon.barrier_all_op.launches == before + 200 * world
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_all_gather_kernel_is_exact(cuda, world):
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(world)
+    for rows, dtype in ((516, torch.float32), (7, torch.bfloat16), (3, torch.float32)):
+        shards = [torch.randn((rows, 128), generator=g, device=cuda).to(dtype)
+                  for _ in range(world)]
+        outs = ctx.run(lambda: [tag.all_gather(shards[ctx.rank] * (i + 1), ctx=ctx)
+                                for i in range(3)])
+        for per_rank in outs:
+            for i, got in enumerate(per_rank):
+                assert torch.equal(got, torch.cat(shards) * (i + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ag_gemm_kernel_matches_plain(cuda, world, dtype):
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    # two shapes back to back: the workspace grows, epochs rise, and the
+    # second call reuses what the first left
+    for m_loc, k, n_loc in ((64, 256, 300), (100, 512, 96)):
+        a = [torch.randn((m_loc, k), generator=g, device=cuda).to(dtype) for _ in range(world)]
+        b = (torch.randn((k, n_loc), generator=g, device=cuda) / k**0.5).to(dtype)
+        want = tgemm._matmul_plain(torch.cat(a), b, dtype)
+        outs = ctx.run(lambda: tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, gather_output=True))
+        for out, ag in outs:
+            assert torch.equal(ag, torch.cat(a))
+            assert (out.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_rs_kernel_matches_plain(cuda, world, dtype):
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for m_loc, k_loc, n in ((64, 256, 300), (40, 128, 520)):
+        a = [torch.randn((world * m_loc, k_loc), generator=g, device=cuda).to(dtype)
+             for _ in range(world)]
+        b = [(torch.randn((k_loc, n), generator=g, device=cuda) / k_loc**0.5).to(dtype)
+             for _ in range(world)]
+        full = sum(a[r].float() @ b[r].float() for r in range(world))
+        outs = ctx.run(lambda: tgrs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx))
+        for r, out in enumerate(outs):
+            want = full[r * m_loc:(r + 1) * m_loc]
+            # bf16: each partial rounds to bf16 before the epilogue adds it
+            tol = _tol(dtype, want) * (2 if dtype == torch.bfloat16 else 1)
+            assert (out.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_stuck_wait_raises_with_its_record(cuda):
+    """Rank 1's stream is held for 2 s of device time before its barrier
+    arrival: rank 0's bounded wait (0.2 s) expires and the run raises with a
+    record naming rank 0, the barrier family and site 1 (the arrival of
+    rank 1) — it does not hang."""
+    ctx = initialize_distributed(2)
+    ctx.run(lambda: tcommon.barrier_all_op(ctx))  # the flags exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        tcommon.barrier_all_op(ctx)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    (rec,) = err.value.records
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (0, "barrier", 1, "barrier_all")
+    assert rec["expected"] == 2 and rec["observed"] == 1
+    with pytest.raises(RuntimeError, match="failed earlier"):
+        ctx.run(body)

@@ -3,23 +3,30 @@ flash_decode.py``) against the JAX package's ``flash_decode`` and
 ``paged_flash_decode`` (Pallas kernels in interpret mode, as the JAX tests
 run them on the CPU), same numpy inputs: lengths 0 / partial / full, GQA
 groups of 1 and 4, a non-power-of-2 head dim, the soft cap, and a shuffled
-block table with junk entries past each length. The CUDA kernels are held
-against the plain versions in ``test_torch_cuda_kernels.py``.
+block table with junk entries past each length; and the sequence-parallel
+entries at world 2 and 4 (the port's ranks threads of one CPU
+``DistContext``, the JAX side under ``shard_map``). The CUDA kernels are
+held against the plain versions in ``test_torch_cuda_kernels.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh, PartitionSpec as P
 
 from triton_dist_tpu.ops.flash_decode import (
     FlashDecodeConfig as JaxFDConfig,
     _kernel_head_dim as jax_kernel_head_dim,
     combine_partials as jax_combine,
     flash_decode as jax_flash_decode,
+    flash_decode_distributed as jax_fd_distributed,
     paged_flash_decode as jax_paged_flash_decode,
+    paged_flash_decode_distributed as jax_paged_fd_distributed,
 )
 from triton_dist_tpu_torch.ops import flash_decode as tfd
+from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
 
 # f32 caches on both sides; the Pallas kernel's chunked online softmax and
 # the plain single-pass softmax differ only in summation order
@@ -126,8 +133,20 @@ def test_head_dim_rule_and_world1_entries():
         tfd.flash_decode_distributed(q, k, v, lens).numpy(),
         tfd.flash_decode(q, k, v, lens).numpy(),
     )
-    with pytest.raises(NotImplementedError, match="A3"):
-        tfd.flash_decode_distributed(q, k, v, lens, world=2)
+    # world 2 (no longer refused): each rank holds half the sequence, and
+    # the SP combine of the two partials is the whole-cache decode
+    ctx = initialize_distributed(2, device="cpu")
+
+    def rank_half():
+        r = ctx.rank
+        lens_r = torch.clamp(lens - 8 * r, 0, 8).to(torch.int32)
+        return tfd.flash_decode_distributed(
+            q, k[:, :, 8 * r:8 * r + 8].contiguous(), v[:, :, 8 * r:8 * r + 8].contiguous(),
+            lens_r, ctx=ctx)
+
+    for got in ctx.run(rank_half):
+        np.testing.assert_allclose(got.numpy(), tfd.flash_decode(q, k, v, lens).numpy(),
+                                   rtol=TOL, atol=TOL)
     table = torch.arange(4, dtype=torch.int32).reshape(2, 2)
     pages = k.reshape(2, 2, 2, 8, 8).transpose(1, 2).reshape(4, 2, 8, 8)
     vpages = v.reshape(2, 2, 2, 8, 8).transpose(1, 2).reshape(4, 2, 8, 8)
@@ -135,3 +154,55 @@ def test_head_dim_rule_and_world1_entries():
         tfd.paged_flash_decode_distributed(q, pages, vpages, lens, table).numpy(),
         tfd.flash_decode(q, k, v, lens).numpy(),
     )
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sp_decode_distributed_matches_jax(world):
+    """``flash_decode_distributed`` and ``paged_flash_decode_distributed``
+    at world 2 and 4 against the JAX package's under ``shard_map``: each
+    rank holds an 8-position sequence shard (contiguous, and as its own page
+    pool behind a shuffled block table); sequence 0 fills every shard,
+    sequence 1 ends 3 positions into rank 1's, so later ranks hold none of
+    it. The partials meet through the full-mesh push allgather and merge."""
+    b, hq, h_kv, d, s_loc, page = 2, 4, 2, 8, 8, 4
+    pps = s_loc // page
+    rng = np.random.default_rng(40 + world)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((world, b, h_kv, s_loc, d)).astype(np.float32)
+            for _ in range(2))
+    total = np.array([world * s_loc, s_loc + 3])
+    lens = np.stack([np.clip(total - r * s_loc, 0, s_loc) for r in range(world)]).astype(np.int32)
+    perm = rng.permutation(b * pps)
+    table = np.stack([perm.reshape(b, pps)] * world).astype(np.int32)
+
+    def paginate(x):  # [world, b, h_kv, s_loc, d] -> each rank's pool, pages at perm
+        pages = x.reshape(world, b, h_kv, pps, page, d).transpose(0, 1, 3, 2, 4, 5)
+        pool = np.empty((world, b * pps, h_kv, page, d), np.float32)
+        pool[:, perm] = pages.reshape(world, b * pps, h_kv, page, d)
+        return pool
+
+    kp, vp = paginate(k), paginate(v)
+
+    def jprogram(q, k, v, lens, kp, vp, table):
+        c = jax_fd_distributed(q, k[0], v[0], lens[0], axis="tp",
+                               config=JaxFDConfig(block_s=s_loc))
+        p = jax_paged_fd_distributed(q, kp[0], vp[0], lens[0], table[0], axis="tp")
+        return c[None], p[None]
+
+    mesh = Mesh(np.array(jax.devices()[:world]), ("tp",))
+    want_c, want_p = jax.jit(jax.shard_map(
+        jprogram, mesh=mesh, in_specs=(P(None),) + (P("tp"),) * 6,
+        out_specs=(P("tp"), P("tp")), check_vma=False,
+    ))(*(jnp.asarray(x) for x in (q, k, v, lens, kp, vp, table)))
+    ctx = initialize_distributed(world, device="cpu")
+    tq = torch.from_numpy(q)
+    tk, tv, tl, tkp, tvp, tt = (torch.from_numpy(x) for x in (k, v, lens, kp, vp, table))
+
+    def rank():
+        r = ctx.rank
+        return (tfd.flash_decode_distributed(tq, tk[r], tv[r], tl[r], ctx=ctx),
+                tfd.paged_flash_decode_distributed(tq, tkp[r], tvp[r], tl[r], tt[r], ctx=ctx))
+
+    for r, (c, p) in enumerate(ctx.run(rank)):
+        np.testing.assert_allclose(c.numpy(), np.asarray(want_c)[r], rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(p.numpy(), np.asarray(want_p)[r], rtol=TOL, atol=TOL)

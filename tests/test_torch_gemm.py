@@ -20,6 +20,7 @@ from triton_dist_tpu_torch.ops import gemm as tgemm
 from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.common import gemm_only
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
+from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
 
 # f32 products and f32 sums on both sides over K <= 128 terms of O(1/sqrt(K))
 # size; only the summation order differs, a few f32 ulps of O(1) outputs
@@ -55,10 +56,20 @@ def test_world1_ag_gemm_and_gemm_rs_match_jax():
     assert gathered is ta  # world 1: the gather is the identity
     want_rs = gemm_rs_op(jnp.asarray(a), jnp.asarray(b), mesh1, config=GemmRSConfig(8, 16, 16))
     np.testing.assert_allclose(gemm_rs(ta, tb).numpy(), np.asarray(want_rs), rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError, match="A4"):
-        ag_gemm(ta, tb, world=2)
-    with pytest.raises(NotImplementedError, match="A4"):
-        gemm_rs(ta, tb, world=2)
+    # world 2 (no longer refused): the gathered product and the reduced
+    # one are the world-1 products, split over the two CPU ranks
+    ctx = initialize_distributed(2, device="cpu")
+    ag_outs = ctx.run(lambda: ag_gemm(ta[8 * ctx.rank:8 * ctx.rank + 8], tb, ctx=ctx))
+    for got in ag_outs:
+        np.testing.assert_allclose(got.numpy(), out.numpy(), rtol=TOL, atol=TOL)
+    rs_outs = ctx.run(lambda: gemm_rs(ta[:, 16 * ctx.rank:16 * ctx.rank + 16].contiguous(),
+                                      tb[16 * ctx.rank:16 * ctx.rank + 16], ctx=ctx))
+    np.testing.assert_allclose(torch.cat(rs_outs).numpy(), np.asarray(want_rs),
+                               rtol=TOL, atol=TOL)
+    # the epilogue adds of gemm_add_pipeline: O = A @ B + sum(adds)
+    adds = [torch.ones(16, 48), torch.full((16, 48), 2.0)]
+    np.testing.assert_allclose(tgemm.matmul(ta, tb, adds=adds).numpy(), out.numpy() + 3.0,
+                               rtol=TOL, atol=TOL)
 
 
 def test_matmul_bf16_out_and_shape_check():

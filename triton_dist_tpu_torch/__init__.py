@@ -15,5 +15,7 @@ tests) and launches the kernel, or raises, for tensors on the card.
 
 Entry points (``ContinuousBatcher``, ``ServingEngine``, ``init_params``,
 ``generate``) run on ``cuda`` unless the caller passes ``device="cpu"``;
-with no card and no explicit CPU request they raise.
+with no card and no explicit CPU request they raise. Passed ``ctx`` (a
+``parallel.mesh.DistContext``), they serve tensor-parallel at its world,
+every rank a thread of this process (all on one card, or one card each).
 """

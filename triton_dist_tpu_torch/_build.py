@@ -4,8 +4,9 @@
 
 Each source builds at first use, all sources at once (one ``nvcc`` process
 each), into ``build/`` beside this file — a directory ``.gitignore`` lists.
-The library name carries a hash of its source and flags, so an edited
-source never loads a stale build. Nothing here runs at import time: the
+The library name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+build. Nothing here runs at import time: the
 CPU tests import every module of the port on a machine without ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
@@ -26,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("gemm", "flash_decode")
+SOURCES = ("gemm", "flash_decode", "dist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,7 +49,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

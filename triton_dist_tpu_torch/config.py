@@ -1,13 +1,26 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and the bounded-wait
+timeout of its distributed kernels.
 
 The JAX package's ``config.py`` holds interpret-mode and watchdog knobs;
-CUDA has no interpret mode, so the only decision left is where an entry
-point runs: on the card unless the caller explicitly asks for the CPU.
+CUDA has no interpret mode, so what is left is where an entry point runs
+(on the card unless the caller explicitly asks for the CPU) and how long a
+device-side wait spins before it gives up with a record (≙
+``config.timeout_iters``, counted here in seconds of ``%globaltimer``, not
+poll iterations).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
+
+# How long one device-side wait (flag, barrier round) may spin before it
+# writes a timeout record and returns. Generous: the ranks' host threads
+# share one interpreter lock, so a peer may be many launches behind.
+# TDT_TORCH_WAIT_TIMEOUT_S overrides it at import.
+wait_timeout_s: float = float(os.environ.get("TDT_TORCH_WAIT_TIMEOUT_S", "60"))
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -22,3 +35,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "versions on the CPU"
         )
     return dev
+
+
+def wait_timeout_ns() -> int:
+    return int(wait_timeout_s * 1e9)
+
+
+@contextlib.contextmanager
+def wait_timeout(seconds: float):
+    """Run a block with another device-wait timeout (tests of a stuck
+    wait use a short one)."""
+    global wait_timeout_s
+    old, wait_timeout_s = wait_timeout_s, float(seconds)
+    try:
+        yield
+    finally:
+        wait_timeout_s = old

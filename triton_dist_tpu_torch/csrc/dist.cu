@@ -1,0 +1,353 @@
+// The distributed kernels of the tensor-parallel path, all ranks of one
+// process (parallel/mesh.py) on one card or on peer-accessible cards:
+//
+//   K4 tdt_barrier_{arrive,wait}        ≙ ops/common.py:918
+//                                         barrier_all_op._kernel
+//   K5 tdt_all_gather_{push,collect}    ≙ ops/allgather.py:258
+//                                         _full_mesh_push_kernel
+//   K6 tdt_ag_gemm_consumer             ≙ ops/allgather_gemm.py:69
+//                                         _ag_gemm_kernel
+//   K7 tdt_gemm_rs_reduce               ≙ ops/gemm_reduce_scatter.py:99
+//                                         _gemm_rs_scatter_kernel (its
+//                                         own-chunk GEMM with the n-1
+//                                         landed chunks in the epilogue)
+//
+// plus the producer side of K6/K7: tdt_put_signal (copy-engine puts, then
+// one flag kernel), and tdt_sleep (a per-rank skew for barrier stress).
+// The device surface (puts, signals, bounded waits, barrier) is shmem.cuh.
+//
+// What bounds them on the H100. K4 and K5 are latency-bound: a barrier is
+// one flag round trip through L2 (or NVLink), K5's payload at the served
+// shape is 264 KB a rank. K6 and K7 are the K1 GEMM with waits in front of
+// its tiles, bound by tensor-core throughput at prefill shapes.
+//
+// What the design does about it. The ranks share the card and their
+// kernels run at once on their own streams, which raises two hazards the
+// TPU never had:
+//
+// - A kernel that spins on a flag holds its SMs. The consumers K6/K7 run a
+//   persistent grid of at most floor(SMs / ranks) - 2 blocks, each walking
+//   output tiles, so every rank's spinning blocks fit on the card at once
+//   with SMs to spare for the small kernels and the producers. The
+//   producers move data on copy engines (cudaMemcpyAsync) and set flags
+//   with a one-warp kernel, holding no SM while data is in flight.
+// - The runtime serialises streams at some calls (a device allocation, a
+//   copy within one card): work issued after such a call waits for work
+//   issued before it. A kernel that waits for a peer's work issued LATER
+//   than itself could then wait forever. So every wait here is for work
+//   every rank has already issued: the host meets all ranks (a thread
+//   rendezvous, parallel/mesh.py) between issuing the signals and issuing
+//   the waits. A barrier is an arrive kernel, the rendezvous, a wait
+//   kernel; K5 is a push kernel, the rendezvous, a collect kernel; K6/K7
+//   issue their producers, meet, then launch the consumer.
+//
+// K6 walks shards in arrival order (me, me-1, ...), as the TPU ring does,
+// and waits on a shard's flag before the first of its tiles; K7 runs its
+// own chunk's k loop first and waits for the landed chunks only before the
+// epilogue that adds them. Every wait is bounded (shmem.cuh). K5 moves its
+// small payload with SM stores (putmem_signal_nbi_block), one block a peer.
+
+#include "gemm_core.cuh"
+#include "shmem.cuh"
+
+namespace {
+
+using namespace tdt;
+using shmem::WaitCtx;
+
+constexpr int MAX_WORLD = 8;
+
+// ------------------------------------------------------------------ K4 ----
+__global__ void barrier_arrive_kernel(const long long* flags, int world, int me, int epoch) {
+  shmem::barrier_arrive_warp(flags, world, me, epoch);
+}
+
+__global__ void barrier_wait_kernel(const long long* flags, int world, int me, int epoch,
+                                    WaitCtx w) {
+  shmem::barrier_wait_warp(flags, world, me, epoch, w);
+}
+
+// ------------------------------------------------------------------ K5 ----
+// Push (after the entry barrier: every peer's workspace is free): block j
+// puts this rank's shard into peer j's workspace slot `me` and signals it;
+// block `me` copies the shard to out[me]. Collect: block j waits for peer
+// j's shard in this rank's workspace and copies it to out[j].
+__global__ void all_gather_push_kernel(const unsigned char* x, unsigned char* out,
+                                       long long shard_bytes, const long long* ws,
+                                       const long long* data, int me, int epoch) {
+  const int j = blockIdx.x;
+  if (j == me) {
+    shmem::putmem_nbi_block(out + me * shard_bytes, x, shard_bytes);
+    return;
+  }
+  shmem::putmem_signal_nbi_block(shmem::peer_ptr<unsigned char>(ws, j) + me * shard_bytes, x,
+                                 shard_bytes, shmem::peer_ptr<int>(data, j) + me, epoch);
+}
+
+__global__ void all_gather_collect_kernel(unsigned char* out, long long shard_bytes,
+                                          const long long* ws, const long long* data, int world,
+                                          int me, int epoch, WaitCtx w) {
+  const int j = blockIdx.x;
+  if (j == me) return;
+  shmem::wait_block(shmem::peer_ptr<int>(data, me) + j, epoch, w, world + j,
+                    shmem::KIND_SIGNAL);
+  shmem::putmem_nbi_block(out + j * shard_bytes,
+                          shmem::peer_ptr<unsigned char>(ws, me) + j * shard_bytes,
+                          shard_bytes);
+}
+
+// ------------------------------------------------------------------ K6 ----
+// out[c*m_loc:(c+1)*m_loc] = ws[c*m_loc:(c+1)*m_loc] @ b for every shard
+// c, shards in arrival order me, me-1, ..., tiles of a shard n-fastest.
+template <class E, typename TOut>
+__global__ void __launch_bounds__(E::THREADS, 1)
+    ag_gemm_kernel(const typename E::TIn* __restrict__ ws, const typename E::TIn* __restrict__ b,
+                   TOut* __restrict__ out, int m_loc, int n, int k, int vec, int world, int me,
+                   const int* flags, int epoch, WaitCtx w) {
+  const int tiles_n = cdiv(n, E::BN);
+  const int per_shard = cdiv(m_loc, E::BM) * tiles_n;
+  const int total = per_shard * world;
+  const AddList<TOut> none = {};
+  int waited = -1;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int step = t / per_shard, r = t % per_shard;
+    const int c = (me - step + world) % world;
+    if (c != waited) {  // flags only rise: one wait per shard and block
+      shmem::wait_block(flags + c, epoch, w, world + c, shmem::KIND_WAIT);
+      waited = c;
+    }
+    __syncthreads();  // the previous tile's last reads of shared memory
+    const int m0 = (r / tiles_n) * E::BM, n0 = (r % tiles_n) * E::BN;
+    typename E::Acc acc;
+    E::mainloop(ws + (size_t)c * m_loc * k, b, m_loc, n, k, m0, n0, vec, acc);
+    E::template store<false>(acc, out + (size_t)c * m_loc * n, m_loc, n, m0, n0, none);
+  }
+}
+
+// ------------------------------------------------------------------ K7 ----
+// out = a_own @ b + recv[0] + ... + recv[world-2]: the k loop first, then
+// one wait for every landed chunk (slot d-1 holds the chunk from rank
+// me-d), then the epilogue adds them in slot order in f32.
+template <class E, typename TOut>
+__global__ void __launch_bounds__(E::THREADS, 1)
+    gemm_rs_kernel(const typename E::TIn* __restrict__ a, const typename E::TIn* __restrict__ b,
+                   TOut* __restrict__ out, int m_loc, int n, int k, int vec, int world,
+                   const int* flags, int epoch, AddList<TOut> adds, WaitCtx w) {
+  const int tiles_n = cdiv(n, E::BN);
+  const int total = cdiv(m_loc, E::BM) * tiles_n;
+  bool landed = false;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    __syncthreads();
+    const int m0 = (t / tiles_n) * E::BM, n0 = (t % tiles_n) * E::BN;
+    typename E::Acc acc;
+    E::mainloop(a, b, m_loc, n, k, m0, n0, vec, acc);
+    if (!landed) {
+      const int d = threadIdx.x;
+      if (d < world - 1) shmem::wait_until_ge(flags + d, epoch, w, world + d, shmem::KIND_SIGNAL);
+      __threadfence();
+      __syncthreads();
+      landed = true;
+    }
+    E::template store<true>(acc, out, m_loc, n, m0, n0, adds);
+  }
+}
+
+// the flags a producer sets after its copies, by value in the arguments
+struct FlagList {
+  long long p[MAX_WORLD];
+  int n;
+};
+
+__global__ void signal_list_kernel(FlagList f, int value) {
+  const int t = threadIdx.x;
+  if (t < f.n) shmem::signal_set(reinterpret_cast<int*>(f.p[t]), value);
+}
+
+__global__ void sleep_kernel(long long ns) {
+  const unsigned long long t0 = shmem::globaltimer();
+  while (shmem::globaltimer() - t0 < static_cast<unsigned long long>(ns)) __nanosleep(1000);
+}
+
+WaitCtx wait_ctx(void* diag, long long timeout_ns, int rank, int family) {
+  WaitCtx w;
+  w.diag = static_cast<int*>(diag);
+  w.timeout_ns = timeout_ns;
+  w.rank = rank;
+  w.family = family;
+  return w;
+}
+
+// grid of a persistent consumer: no more blocks than tiles or than the
+// caller's co-residency cap
+int persistent_grid(int tiles, int max_blocks) {
+  return tiles < max_blocks ? tiles : (max_blocks > 0 ? max_blocks : 1);
+}
+
+}  // namespace
+
+// K4, in two launches: flags is the device peer table of the family's
+// int32[world] flags. Every rank's arrive is issued before any wait.
+extern "C" int tdt_barrier_arrive(const void* flags, int world, int me, int epoch,
+                                  void* stream) {
+  if (world < 1 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  barrier_arrive_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(flags), world, me, epoch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tdt_barrier_wait(const void* flags, int world, int me, int epoch, void* diag,
+                                long long timeout_ns, int family, void* stream) {
+  if (world < 1 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  barrier_wait_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(flags), world, me, epoch,
+      wait_ctx(diag, timeout_ns, me, family));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5, in two launches: out [world * shard_bytes] private; ws/data device
+// peer tables of the workspace [world * shard_bytes] and the int32[world]
+// data flags. Every rank's push is issued before any collect.
+extern "C" int tdt_all_gather_push(const void* x, void* out, long long shard_bytes,
+                                   const void* ws, const void* data, int world, int me,
+                                   int epoch, void* stream) {
+  if (world < 1 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  all_gather_push_kernel<<<world, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out), shard_bytes,
+      static_cast<const long long*>(ws), static_cast<const long long*>(data), me, epoch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tdt_all_gather_collect(void* out, long long shard_bytes, const void* ws,
+                                      const void* data, int world, int me, int epoch,
+                                      void* diag, long long timeout_ns, int family,
+                                      void* stream) {
+  if (world < 1 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  all_gather_collect_kernel<<<world, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned char*>(out), shard_bytes, static_cast<const long long*>(ws),
+      static_cast<const long long*>(data), world, me, epoch,
+      wait_ctx(diag, timeout_ns, me, family));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Copy-engine put of `bytes` from `src` to each of n_dst destinations,
+// then one flag kernel that sets each of n_flags flags to `value`
+// (putmem_signal on the host side of the stream: the flag write orders
+// after the copies by stream order).
+extern "C" int tdt_put_signal(int n_dst, const long long* dsts, const void* src,
+                              long long bytes, int n_flags, const long long* flags,
+                              int value, void* stream) {
+  if (n_flags < 0 || n_flags > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < n_dst; ++i) {
+    cudaError_t err = cudaMemcpyAsync(reinterpret_cast<void*>(dsts[i]), src, bytes,
+                                      cudaMemcpyDefault, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  FlagList f;
+  f.n = n_flags;
+  for (int i = 0; i < MAX_WORLD; ++i) f.p[i] = i < n_flags ? flags[i] : 0;
+  signal_list_kernel<<<1, 32, 0, s>>>(f, value);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: ws [world * m_loc, k] (this rank's gather workspace), b [k, n], out
+// [world * m_loc, n]; flags this rank's int32[world] arrival flags.
+extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, int m_loc,
+                                    int n, int k, int in_dtype, int out_dtype, int world,
+                                    int me, const void* flags, int epoch, int max_blocks,
+                                    void* diag, long long timeout_ns, int family,
+                                    void* stream) {
+  if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
+  cudaError_t err = dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
+    using E = decltype(e);
+    using TOut = decltype(t);
+    const int vec = in_dtype == kBF16 ? bf16_vec_ok(ws, b, n, k) : 0;
+    if (E::SMEM_BYTES > 0) {
+      cudaError_t attr = cudaFuncSetAttribute(ag_gemm_kernel<E, TOut>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              E::SMEM_BYTES);
+      if (attr != cudaSuccess) return attr;
+    }
+    const int tiles = cdiv(m_loc, E::BM) * cdiv(n, E::BN) * world;
+    ag_gemm_kernel<E, TOut><<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
+        static_cast<const typename E::TIn*>(ws), static_cast<const typename E::TIn*>(b),
+        static_cast<TOut*>(out), m_loc, n, k, vec, world, me,
+        static_cast<const int*>(flags), epoch, w);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: a [m_loc, k] (this rank's own row chunk of A), b [k, n], out
+// [m_loc, n]; recv: host array of the world-1 landing slots [m_loc, n] in
+// the output type; flags this rank's int32[world-1] landing flags.
+extern "C" int tdt_gemm_rs_reduce(const void* a, const void* b, void* out, int m_loc, int n,
+                                  int k, int in_dtype, int out_dtype, int world,
+                                  const void* const* recv, int me, const void* flags,
+                                  int epoch, int max_blocks, void* diag,
+                                  long long timeout_ns, int family, void* stream) {
+  if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
+  cudaError_t err = dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
+    using E = decltype(e);
+    using TOut = decltype(t);
+    const int vec = in_dtype == kBF16 ? bf16_vec_ok(a, b, n, k) : 0;
+    if (E::SMEM_BYTES > 0) {
+      cudaError_t attr = cudaFuncSetAttribute(gemm_rs_kernel<E, TOut>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              E::SMEM_BYTES);
+      if (attr != cudaSuccess) return attr;
+    }
+    const int tiles = cdiv(m_loc, E::BM) * cdiv(n, E::BN);
+    gemm_rs_kernel<E, TOut><<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
+        static_cast<const typename E::TIn*>(a), static_cast<const typename E::TIn*>(b),
+        static_cast<TOut*>(out), m_loc, n, k, vec, world, static_cast<const int*>(flags),
+        epoch, make_adds<TOut>(recv, world - 1), w);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tdt_sleep(long long ns, void* stream) {
+  sleep_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A non-blocking stream of its own for a rank (high priority for the comm
+// streams, so the block scheduler serves the producers first). Streams
+// created one after the other get distinct hardware queues (up to
+// CUDA_DEVICE_MAX_CONNECTIONS), so one rank's spinning kernel never sits
+// in front of a peer's producer in a shared queue.
+extern "C" int tdt_stream_create(int high_priority, void** out) {
+  int least = 0, greatest = 0;
+  cudaError_t err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaStreamCreateWithPriority(reinterpret_cast<cudaStream_t*>(out),
+                                                       cudaStreamNonBlocking,
+                                                       high_priority ? greatest : least));
+}
+
+// Peer access between two cards (UVA pointers into the peer's memory);
+// already-enabled counts as success.
+extern "C" int tdt_enable_peer_access(int device, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    err = cudaSuccess;
+  }
+  cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+extern "C" const char* tdt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,170 @@
+// B1 · the device side of the SHMEM surface the distributed kernels share
+// (≙ triton_dist_tpu/shmem/device.py): puts, put-with-signal, signal,
+// bounded waits, quiet and the all-rank barrier.
+//
+// Symmetric memory: every rank holds one allocation of the same shape per
+// symmetric buffer, and a device-side int64[world] table of the ranks'
+// base addresses (shmem/host.py). A kernel reaches a peer's buffer through
+// that table. With all ranks on one card these are plain device pointers;
+// across cards they are UVA pointers after cudaDeviceEnablePeerAccess.
+//
+// Flags are int32 and carry epochs: a family's n-th launch signals the
+// value n and waits for flag >= n, so no flag is ever reset under a peer
+// (the cross-launch aliasing that shmem/device.py:702-709 describes for the
+// TPU's barrier semaphore cannot happen).
+//
+// Memory ordering: data is written before its flag, the flag with
+// st.release.sys after __threadfence_system(); waits read with
+// ld.acquire.sys. The .sys scope holds across cards too.
+//
+// Bounded waits (≙ resilience/watchdog.py:122 bounded_wait): a wait spins
+// on %globaltimer up to WaitCtx::timeout_ns; on expiry it writes one record
+// into the rank's diagnostic buffer (first record wins, layout of
+// resilience/records.py) and returns false. The kernel goes on and issues
+// its later signals, so a rank that timed out never stalls its peers; its
+// later waits fail at once. The host reads the buffer after the rank's
+// stream syncs and raises with the record.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace shmem {
+
+// records.py slots and status / kind codes (sites.py)
+enum { F_STATUS = 0, F_FAMILY, F_RANK, F_SITE, F_KIND, F_EXPECTED, F_OBSERVED, F_TIMEOUT_US };
+enum { STATUS_OK = 0, STATUS_TIMEOUT = 1 };
+enum { KIND_SIGNAL = 1, KIND_WAIT = 2, KIND_BARRIER = 3 };
+
+struct WaitCtx {
+  int* diag;             // int32[8] of this rank
+  long long timeout_ns;  // per wait
+  int rank;
+  int family;
+};
+
+__device__ __forceinline__ int ld_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ void red_add_release_sys(int* p, int v) {
+  asm volatile("red.release.sys.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+template <typename T>
+__device__ __forceinline__ T* peer_ptr(const long long* table, int rank) {
+  return reinterpret_cast<T*>(table[rank]);
+}
+
+// Write the timeout record, once per rank buffer.
+__device__ __forceinline__ void record_timeout(const WaitCtx& w, int site, int kind,
+                                               int expected, int observed) {
+  if (atomicCAS(w.diag + F_STATUS, STATUS_OK, STATUS_TIMEOUT) == STATUS_OK) {
+    w.diag[F_FAMILY] = w.family;
+    w.diag[F_RANK] = w.rank;
+    w.diag[F_SITE] = site;
+    w.diag[F_KIND] = kind;
+    w.diag[F_EXPECTED] = expected;
+    w.diag[F_OBSERVED] = observed;
+    w.diag[F_TIMEOUT_US] = static_cast<int>(w.timeout_ns / 1000);
+    __threadfence_system();
+  }
+}
+
+// signal_wait_until / wait (shmem/device.py:638, :647): spin until
+// *flag >= expected, bounded. Returns false on timeout (record written) or
+// at once when this rank already recorded one (fast fail).
+__device__ __forceinline__ bool wait_until_ge(const int* flag, int expected, const WaitCtx& w,
+                                              int site, int kind) {
+  int seen = ld_acquire_sys(flag);
+  if (seen >= expected) return true;
+  if (*reinterpret_cast<volatile int*>(w.diag + F_STATUS) != STATUS_OK) return false;
+  const unsigned long long t0 = globaltimer();
+  while (true) {
+    __nanosleep(64);
+    seen = ld_acquire_sys(flag);
+    if (seen >= expected) return true;
+    if (globaltimer() - t0 > static_cast<unsigned long long>(w.timeout_ns)) break;
+  }
+  record_timeout(w, site, kind, expected, seen);
+  return false;
+}
+
+// The block waits on one flag: thread 0 spins, the block meets after it.
+__device__ __forceinline__ void wait_block(const int* flag, int expected, const WaitCtx& w,
+                                           int site, int kind) {
+  if (threadIdx.x == 0) {
+    wait_until_ge(flag, expected, w, site, kind);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// signal_op (shmem/device.py:596): SET (release store) or ADD (release
+// reduction) on a local or peer flag.
+__device__ __forceinline__ void signal_set(int* flag, int value) { st_release_sys(flag, value); }
+__device__ __forceinline__ void signal_add(int* flag, int inc) { red_add_release_sys(flag, inc); }
+
+// quiet (shmem/device.py:668): every store this thread issued, local or
+// peer, is complete and visible system-wide.
+__device__ __forceinline__ void quiet() { __threadfence_system(); }
+
+// putmem_nbi_block (shmem/device.py:207): the block copies `bytes` from
+// local `src` into `dst` (a peer's symmetric buffer): 16-byte vectors while
+// both ends are 16-byte aligned, bytes for the tail.
+__device__ __forceinline__ void putmem_nbi_block(void* dst, const void* src, long long bytes) {
+  const bool vec = (reinterpret_cast<uintptr_t>(dst) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(src) % 16 == 0);
+  long long done = 0;
+  if (vec) {
+    const long long n16 = bytes / 16;
+    uint4* d = static_cast<uint4*>(dst);
+    const uint4* s = static_cast<const uint4*>(src);
+    for (long long i = threadIdx.x; i < n16; i += blockDim.x) d[i] = s[i];
+    done = n16 * 16;
+  }
+  unsigned char* d8 = static_cast<unsigned char*>(dst);
+  const unsigned char* s8 = static_cast<const unsigned char*>(src);
+  for (long long i = done + threadIdx.x; i < bytes; i += blockDim.x) d8[i] = s8[i];
+}
+
+// putmem_signal_nbi_block (shmem/device.py:239): the put, then one flag
+// write that orders after every thread's part of it.
+__device__ __forceinline__ void putmem_signal_nbi_block(void* dst, const void* src,
+                                                        long long bytes, int* sig, int value) {
+  putmem_nbi_block(dst, src, bytes);
+  quiet();
+  __syncthreads();
+  if (threadIdx.x == 0) signal_set(sig, value);
+}
+
+// barrier_all (shmem/device.py:693) on a full mesh, in its two halves.
+// Arrive: thread t < world writes epoch into peer t's slot `me` of the
+// int32[world] flag set (`flags` is its peer table). Wait: thread t waits
+// for its own slot t to reach epoch; the sites are the peer ranks. One warp
+// each. The host issues every rank's arrive before any rank's wait (see
+// csrc/dist.cu), so a wait never depends on work issued after it.
+__device__ __forceinline__ void barrier_arrive_warp(const long long* flags, int world, int me,
+                                                    int epoch) {
+  const int t = threadIdx.x;
+  if (t < world && t != me) signal_set(peer_ptr<int>(flags, t) + me, epoch);
+}
+
+__device__ __forceinline__ void barrier_wait_warp(const long long* flags, int world, int me,
+                                                  int epoch, const WaitCtx& w) {
+  const int t = threadIdx.x;
+  if (t < world && t != me) wait_until_ge(peer_ptr<int>(flags, me) + t, epoch, w, t, KIND_BARRIER);
+  __syncwarp();
+}
+
+}  // namespace shmem

@@ -1,18 +1,27 @@
 """Serving-side decode for the dense transformer (≙ ``triton_dist_tpu/
-models/decode.py``) at world 1: the KV cache strategies, one decode step,
-the bulk prefill, greedy ``generate`` and the ``ContinuousBatcher``.
+models/decode.py``): the KV cache strategies, one decode step, the bulk
+prefill, greedy ``generate`` and the ``ContinuousBatcher``, at any world.
 
-Decode projections are plain ``h @ W`` (the JAX package leaves them to
-XLA); attention goes through the K2 (contiguous cache) or K3 (paged cache)
-flash-decode kernels via the spec's ``update_and_attend``. Prefill runs
-the full forward (K1 GEMMs) and writes every prompt position's K/V in one
-pass. The cache is updated IN PLACE (the JAX package donates the old cache
-buffer instead; in place saves the same copy), and each function still
-returns it so call sites read like the reference.
+Layout at world n (the JAX package's): activations at decode are ``[b,
+H]`` and replicated on every rank; decode projections are plain ``h @ W``
+on the rank's weight shard (the JAX package leaves them to XLA), with the
+host collectives of the runtime where the JAX body has XLA's (a head
+all-gather of qkv, ``psum`` after ``wo`` and ``w_down``, a vocab
+all-gather of the logits). The KV cache is SEQUENCE-sharded: rank ``r``
+owns positions ``[r * s_shard, (r+1) * s_shard)``, and each step the
+owning rank appends a sequence's k/v; attention goes through the K2
+(contiguous cache) or K3 (paged cache) flash-decode kernels on the rank's
+shard, merged over the ranks by the SP combine (K5 allgather). Prefill
+runs the per-rank forward (K6/K7 at world > 1, K1 at world 1) and writes
+every prompt position's K/V into its owner's shard in one pass. The cache
+is updated IN PLACE (the JAX package donates the old cache buffer instead;
+in place saves the same copy), and each function still returns it so call
+sites read like the reference.
 
-At world 1 one rank owns every position below ``s_max``; a position at or
-past ``s_max`` is owned by no rank, so its write is dropped — the JAX
-package's ownership rule, kept so parked rows behave alike.
+A position at or past ``s_max`` is owned by no rank, so its write is
+dropped — the JAX package's ownership rule, kept so parked rows behave
+alike. At world > 1 the step functions run once per rank inside
+``ctx.run`` (``parallel/mesh.py``); the batcher drives them.
 
 Later slices: prefix caching, chunked and ranged prefill, hierarchical
 EP serving (these raise ``NotImplementedError``).
@@ -33,12 +42,28 @@ from triton_dist_tpu_torch.models.tp_transformer import (
     apply_rope,
     rmsnorm,
     rope_tables,
+    shard_params,
 )
 from triton_dist_tpu_torch.ops.flash_decode import (
     FlashDecodeConfig,
     flash_decode_distributed,
     paged_flash_decode_distributed,
 )
+from triton_dist_tpu_torch.utils import axis_index, axis_size
+
+
+def _shard_of(s_max: int, n: int) -> int:
+    """Per-rank sequence shard; positions past ``(s_max // n) * n`` would
+    be owned by no rank, so require even division."""
+    if s_max % n != 0:
+        raise ValueError(f"s_max={s_max} must divide evenly over {n} PEs")
+    return s_max // n
+
+
+def _local_lens(pos_h: np.ndarray, me: int, s_shard: int) -> np.ndarray:
+    """Per-rank valid prefix per sequence: positions are global; rank
+    `me`'s shard covers ``[me * s_shard, (me+1) * s_shard)``."""
+    return np.clip(pos_h + 1 - me * s_shard, 0, s_shard).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,51 +79,61 @@ class _StepPlan:
     lens: torch.Tensor
 
 
-def _rows_and_lens(pos_h: np.ndarray, s_max: int, device):
-    own = pos_h < s_max
+def _rows_and_lens(pos_h: np.ndarray, s_shard: int, me: int, device):
+    """The rows whose position this rank owns (a slice when all do) and
+    the rank's valid lengths (≙ ``_mask_store_and_lens``, ``:101``)."""
+    own = pos_h // s_shard == me
     rows = slice(None) if own.all() else torch.as_tensor(np.flatnonzero(own), device=device)
-    lens = torch.as_tensor(np.clip(pos_h + 1, 0, s_max).astype(np.int32), device=device)
+    lens = torch.as_tensor(_local_lens(pos_h, me, s_shard), device=device)
     return rows, lens
 
 
 @dataclasses.dataclass(frozen=True)
 class KVCacheSpec:
-    """Contiguous cache: per layer ``[b, h_kv, s_max, d]``. The spec is also
-    the cache STRATEGY: ``pre_step``, ``step_plan`` and ``update_and_attend``
-    are the only places decode touches the cache."""
+    """Contiguous cache: per layer ``[b, h_kv, s_max / world, d]`` on each
+    rank (its sequence shard). The spec is also the cache STRATEGY:
+    ``pre_step``, ``step_plan`` and ``update_and_attend`` are the only
+    places decode touches the cache."""
 
     s_max: int
 
-    def init(self, cfg: TransformerConfig, device) -> dict:
-        shape = (cfg.n_layers, cfg.batch, cfg.n_kv_heads, self.s_max, cfg.head_dim)
+    def init(self, cfg: TransformerConfig, device, n: int = 1) -> dict:
+        """One rank's cache at world `n`."""
+        s_shard = _shard_of(self.s_max, n)
+        shape = (cfg.n_layers, cfg.batch, cfg.n_kv_heads, s_shard, cfg.head_dim)
         return dict(
             k=torch.zeros(shape, dtype=cfg.dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.dtype, device=device),
         )
 
-    def pre_step(self, cfg, cache: dict, pos_b) -> dict:
+    def pre_step(self, cfg, cache: dict, pos_b, me: int = 0, n: int = 1) -> dict:
         return cache
 
-    def step_plan(self, cfg, cache, pos_h: np.ndarray, pos_b) -> _StepPlan:
-        rows, lens = _rows_and_lens(pos_h, self.s_max, pos_b.device)
+    def step_plan(self, cfg, cache, pos_h: np.ndarray, pos_b, me: int = 0,
+                  n: int = 1) -> _StepPlan:
+        s_shard = _shard_of(self.s_max, n)
+        rows, lens = _rows_and_lens(pos_h, s_shard, me, pos_b.device)
         bidx = torch.arange(cfg.batch, device=pos_b.device)
-        return _StepPlan(rows, (bidx[rows], slice(None), pos_b[rows]), lens)
+        return _StepPlan(rows, (bidx[rows], slice(None), pos_b[rows] % s_shard), lens)
 
-    def update_and_attend(self, cfg, cache, li, k_new, v_new, q, plan, fd_config):
-        """Append each owned sequence's k/v at ITS position (ragged), then
-        flash-decode over the valid prefix. Returns ``(attn [b, hq, d] f32,
-        cache)``."""
+    def update_and_attend(self, cfg, cache, li, k_new, v_new, q, plan, fd_config,
+                          ctx=None):
+        """The owning rank appends each sequence's k/v at ITS position
+        (ragged); then SP flash decode over the valid prefixes. Returns
+        ``(attn [b, hq, d] f32, cache)``."""
         kc, vc = cache["k"][li], cache["v"][li]
         kc[plan.at] = k_new[plan.rows].to(kc.dtype)
         vc[plan.at] = v_new[plan.rows].to(vc.dtype)
-        attn = flash_decode_distributed(q.to(kc.dtype), kc, vc, plan.lens, config=fd_config)
+        attn = flash_decode_distributed(q.to(kc.dtype), kc, vc, plan.lens,
+                                        config=fd_config, ctx=ctx)
         return attn, cache
 
 
 @dataclasses.dataclass(frozen=True)
 class PagedKVCacheSpec:
-    """Paged cache: a page POOL ``[L, n_pages, h_kv, page, d]`` plus a
-    per-sequence block table ``[1, b, pages_per_seq]``. ``static_table``
+    """Paged cache: on each rank a page POOL ``[L, n_pages, h_kv, page, d]``
+    covering its sequence shard, plus a per-sequence block table ``[1, b,
+    pages_per_seq]``. ``static_table``
     pre-assigns each slot its own page range (what continuous batching and
     the bulk prefill need); otherwise a bump allocator hands out a page the
     first time a position opens one."""
@@ -107,16 +142,19 @@ class PagedKVCacheSpec:
     page_size: int
     static_table: bool = False
 
-    def _geometry(self, cfg) -> tuple[int, int]:
-        if self.s_max % self.page_size:
+    def _geometry(self, cfg, n: int = 1) -> tuple[int, int]:
+        s_shard = _shard_of(self.s_max, n)
+        if s_shard % self.page_size:
             raise ValueError(
-                f"page_size={self.page_size} must divide s_max={self.s_max}"
+                f"page_size={self.page_size} must divide the per-PE "
+                f"sequence shard {s_shard}"
             )
-        pages_per_seq = self.s_max // self.page_size
+        pages_per_seq = s_shard // self.page_size
         return pages_per_seq, cfg.batch * pages_per_seq
 
-    def init(self, cfg: TransformerConfig, device) -> dict:
-        pps, n_pages = self._geometry(cfg)
+    def init(self, cfg: TransformerConfig, device, n: int = 1) -> dict:
+        """One rank's pool, table and allocator at world `n`."""
+        pps, n_pages = self._geometry(cfg, n)
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, self.page_size, cfg.head_dim)
         if self.static_table:
             bt = (
@@ -132,38 +170,43 @@ class PagedKVCacheSpec:
             n_alloc=torch.zeros((1,), dtype=torch.int32, device=device),
         )
 
-    def pre_step(self, cfg, cache: dict, pos_b) -> dict:
+    def pre_step(self, cfg, cache: dict, pos_b, me: int = 0, n: int = 1) -> dict:
         """Bump-allocate a physical page for each sequence whose position
-        opens a new logical page (ragged: the needing sequences claim
-        consecutive ids, in slot order)."""
+        opens a new logical page on the owning rank (ragged: the needing
+        sequences claim consecutive ids, in slot order)."""
         if self.static_table:
             return cache
-        need = (pos_b < self.s_max) & (pos_b % self.page_size == 0)
+        s_shard = _shard_of(self.s_max, n)
+        off = pos_b % s_shard
+        need = (pos_b // s_shard == me) & (off % self.page_size == 0)
         need_i = need.to(torch.int32)
         order = torch.cumsum(need_i, 0, dtype=torch.int32) - need_i
         bidx = torch.arange(cfg.batch, device=pos_b.device)
-        page_idx = (pos_b % self.s_max) // self.page_size
+        page_idx = off // self.page_size
         bt = cache["block_table"]
         cur = bt[0, bidx, page_idx]
         bt[0, bidx, page_idx] = torch.where(need, cache["n_alloc"][0] + order, cur)
         cache["n_alloc"] += need.sum().to(torch.int32)
         return cache
 
-    def step_plan(self, cfg, cache, pos_h: np.ndarray, pos_b) -> _StepPlan:
+    def step_plan(self, cfg, cache, pos_h: np.ndarray, pos_b, me: int = 0,
+                  n: int = 1) -> _StepPlan:
         """Reads the block table after ``pre_step`` allocated this step's
         pages."""
-        rows, lens = _rows_and_lens(pos_h, self.s_max, pos_b.device)
-        pos = pos_b[rows]
+        s_shard = _shard_of(self.s_max, n)
+        rows, lens = _rows_and_lens(pos_h, s_shard, me, pos_b.device)
+        off = pos_b[rows] % s_shard
         bidx = torch.arange(cfg.batch, device=pos_b.device)[rows]
-        pages = cache["block_table"][0][bidx, pos // self.page_size].long()
-        return _StepPlan(rows, (pages, slice(None), pos % self.page_size), lens)
+        pages = cache["block_table"][0][bidx, off // self.page_size].long()
+        return _StepPlan(rows, (pages, slice(None), off % self.page_size), lens)
 
-    def update_and_attend(self, cfg, cache, li, k_new, v_new, q, plan, fd_config):
+    def update_and_attend(self, cfg, cache, li, k_new, v_new, q, plan, fd_config,
+                          ctx=None):
         kc, vc = cache["k"][li], cache["v"][li]
         kc[plan.at] = k_new[plan.rows].to(kc.dtype)
         vc[plan.at] = v_new[plan.rows].to(vc.dtype)
         attn = paged_flash_decode_distributed(
-            q.to(kc.dtype), kc, vc, plan.lens, cache["block_table"][0],
+            q.to(kc.dtype), kc, vc, plan.lens, cache["block_table"][0], ctx=ctx,
         )
         return attn, cache
 
@@ -177,54 +220,76 @@ def decode_step(
     *,
     spec: KVCacheSpec | PagedKVCacheSpec,
     fd_config: FlashDecodeConfig | None = None,
+    ctx=None,
 ) -> tuple[torch.Tensor, dict]:
-    """One decode step: returns ``(logits [b, vocab], cache)``. Positions are
-    host data, so which rows own their position (``< s_max``) is decided on
-    the host and the step never waits on the card; what depends only on the
-    positions (RoPE tables, cache-write indices, valid lengths) is computed
-    once for all layers."""
+    """One decode step of one rank (inside ``ctx.run``; ``ctx`` None is
+    world 1): returns ``(logits [b, vocab], cache)``, the logits
+    replicated. Positions are host data, so which rows this rank owns is
+    decided on the host and the step never waits on the card; what depends
+    only on the positions (RoPE tables, cache-write indices, valid lengths)
+    is computed once for all layers."""
     c = cfg
+    n, me = axis_size(ctx), axis_index(ctx)
+    if c.n_kv_heads % n:
+        raise ValueError(f"n_kv_heads={c.n_kv_heads} must split over {n} ranks")
     g = c.n_q_heads // c.n_kv_heads
     d = c.head_dim
+    hq_loc = c.n_q_heads // n
     dev = tokens.device
     pos_h = np.array(np.broadcast_to(np.asarray(pos, dtype=np.int64), (c.batch,)))
     pos_b = torch.as_tensor(pos_h, device=dev)
     tokens = tokens.long()
-    x = params["embed"][tokens]                          # [b, H]
-    cache = spec.pre_step(c, cache, pos_b)
-    plan = spec.step_plan(c, cache, pos_h, pos_b)
+    x = params["embed"][tokens]                          # [b, H] replicated
+    cache = spec.pre_step(c, cache, pos_b, me, n)
+    plan = spec.step_plan(c, cache, pos_h, pos_b, me, n)
     cos, sin = rope_tables(pos_b[:, None], d, c.rope_theta)
     for li, p in enumerate(params["layers"]):
         h = rmsnorm(x, p["attn_norm"], c.norm_eps)
-        qkv = (h @ p["wqkv"].reshape(c.hidden, -1)).reshape(c.batch, c.n_kv_heads, g + 2, d)
+        # head-complete qkv: rank-major concat == kv-group-major (the groups
+        # are sharded contiguously)
+        qkv = _all_gather(ctx, h @ p["wqkv"].reshape(c.hidden, -1), dim=1)
+        qkv = qkv.reshape(c.batch, c.n_kv_heads, g + 2, d)
         q = qkv[:, :, :g, :].reshape(c.batch, 1, c.n_q_heads, d)
         k_new = qkv[:, :, g, :].reshape(c.batch, 1, c.n_kv_heads, d)
         v_new = qkv[:, :, g + 1, :]                      # [b, h_kv, d]
         q = apply_rope(q, cos, sin)[:, 0]                # [b, hq, d]
         k_new = apply_rope(k_new, cos, sin)[:, 0]        # [b, h_kv, d]
         attn, cache = spec.update_and_attend(
-            c, cache, li, k_new, v_new, q, plan, fd_config
+            c, cache, li, k_new, v_new, q, plan, fd_config, ctx
         )
-        attn = attn.reshape(c.batch, -1).to(x.dtype)
-        x = x + attn @ p["wo"]
+        # row-parallel out-projection on the rank's head slice, then psum
+        attn = attn[:, me * hq_loc:(me + 1) * hq_loc].reshape(c.batch, -1).to(x.dtype)
+        x = x + _psum(ctx, attn @ p["wo"])
         h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
         gu = (h @ p["w_gate_up"].reshape(c.hidden, -1)).reshape(c.batch, -1, 2)
         act = torch.nn.functional.silu(gu[..., 0].float()).to(x.dtype) * gu[..., 1]
-        x = x + act @ p["w_down"]
+        x = x + _psum(ctx, act @ p["w_down"])
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    return x @ params["lm_head"], cache
+    return _all_gather(ctx, x @ params["lm_head"], dim=1), cache
+
+
+def _all_gather(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+    return x if ctx is None else ctx.all_gather(x, dim)
+
+
+def _psum(ctx, x: torch.Tensor) -> torch.Tensor:
+    return x if ctx is None else ctx.psum(x)
 
 
 def prefill_cache(
-    cfg, params, cache, prompt_flat, spec, s_max, slot_mask=None, pick=None
+    cfg, params, cache, prompt_flat, spec, s_max, slot_mask=None, pick=None, ctx=None
 ):
-    """Bulk prefill: the full forward over the flattened prompt (``cfg.batch
-    * cfg.seq`` tokens, batch-major) writes every position's post-RoPE k/v
-    into the cache in one pass, positions ``[L, s_max)`` zeroed. A paged
-    cache needs the static table: each slot's page range is written whole.
-    ``slot_mask [b] bool`` (host) restricts the write to chosen sequences;
-    ``pick [b]`` chooses each sequence's logit row (default ``L-1``). Returns
-    ``(cache, last_logits [b, vocab])``."""
+    """Bulk prefill of one rank (inside ``ctx.run``; ``ctx`` None is world
+    1): the per-rank forward over this rank's token shard of the flattened
+    prompt (``cfg.batch * cfg.seq`` tokens, batch-major, replicated in
+    `prompt_flat`) writes every position's post-RoPE k/v into its owner's
+    cache shard in one pass: the rank's heads are gathered to all heads
+    (``:1584-1635``), and each rank keeps its sequence window ``[me *
+    s_shard, (me+1) * s_shard)``, zero past the prompt. A paged cache needs
+    the static table: each slot's page range is written whole. ``slot_mask
+    [b] bool`` (host) restricts the write to chosen sequences; ``pick
+    [b]`` chooses each sequence's logit row (default ``L-1``). Returns
+    ``(cache, last_logits [b, vocab])``, the logits replicated."""
     paged = isinstance(spec, PagedKVCacheSpec)
     if paged and not spec.static_table:
         raise ValueError(
@@ -232,24 +297,33 @@ def prefill_cache(
             "ranges): the bump allocator cannot batch-claim a prompt"
         )
     c = cfg
+    n, me = axis_size(ctx), axis_index(ctx)
     b, L = c.batch, c.seq
+    if (b * L) % n:
+        raise ValueError(f"prefill needs b*L={b * L} divisible over {n} PEs")
+    s_shard = _shard_of(s_max, n)
     dev = prompt_flat.device
-    model = TPTransformer(c, kv_sink=[])
-    logits = model(prompt_flat.long(), params)          # [b*L, V]
+    m_loc = b * L // n
+    model = TPTransformer(c, kv_sink=[], ctx=ctx)
+    logits = model(prompt_flat[me * m_loc:(me + 1) * m_loc].long(), params)  # [b*L, V/n]
     sel = torch.as_tensor(
         np.arange(b) if slot_mask is None else np.flatnonzero(np.asarray(slot_mask)),
         device=dev,
     )
+    lo, hi = me * s_shard, min(L, (me + 1) * s_shard)
     for li, (k_l, v_l) in enumerate(model.kv_sink):
         kd = cache["k"].dtype
-        # [b, L, h_kv, d] → this slot's window [0, s_max), zero past L
-        k_new = torch.zeros((b, c.n_kv_heads, s_max, c.head_dim), dtype=kd, device=dev)
+        k_l = _all_gather(ctx, k_l, dim=2)                 # [b, L, h_kv, d]
+        v_l = _all_gather(ctx, v_l, dim=2)
+        # [b, L, h_kv, d] → this rank's window, zero past L
+        k_new = torch.zeros((b, c.n_kv_heads, s_shard, c.head_dim), dtype=kd, device=dev)
         v_new = torch.zeros_like(k_new)
-        k_new[:, :, :L] = k_l.transpose(1, 2)
-        v_new[:, :, :L] = v_l.transpose(1, 2)
+        if hi > lo:
+            k_new[:, :, :hi - lo] = k_l[:, lo:hi].transpose(1, 2)
+            v_new[:, :, :hi - lo] = v_l[:, lo:hi].transpose(1, 2)
         if paged:
             ps = spec.page_size
-            pps = s_max // ps
+            pps = s_shard // ps
             kp = k_new.reshape(b, c.n_kv_heads, pps, ps, c.head_dim).transpose(1, 2)
             vp = v_new.reshape(b, c.n_kv_heads, pps, ps, c.head_dim).transpose(1, 2)
             ids = cache["block_table"][0][sel].long().reshape(-1)
@@ -261,7 +335,8 @@ def prefill_cache(
     if pick is None:
         pick = torch.full((b,), L - 1, dtype=torch.int64, device=dev)
     rows = torch.arange(b, device=dev) * L + torch.clamp(pick.to(dev).long(), 0, L - 1)
-    return cache, logits[rows]
+    # the row is picked BEFORE the vocab gather: only [b, V] materializes
+    return cache, _all_gather(ctx, logits[rows], dim=1)
 
 
 def _make_spec(s_max, page_size, fd_config, static_table):
@@ -275,6 +350,45 @@ def _make_spec(s_max, page_size, fd_config, static_table):
     return KVCacheSpec(s_max)
 
 
+class _Ranks:
+    """The per-rank parameters and caches of a serving loop, and how one
+    step runs on every rank: directly at world 1 (``ctx`` None), through
+    ``ctx.run`` otherwise, where each rank's step builds its inputs on its
+    own device and the replicated output of rank 0 is returned."""
+
+    def __init__(self, cfg, params: dict, spec, device: torch.device, ctx=None):
+        self.ctx = ctx
+        if ctx is None:
+            self.devices = [device]
+            self.params = [_to_device(params, device)]
+        else:
+            if ctx.device.type != device.type:
+                raise ValueError(
+                    f"the rank runtime runs on {ctx.device.type}, the batcher "
+                    f"was asked for {device}"
+                )
+            self.devices = ctx.devices
+            self.params = shard_params(params, ctx.world, ctx.devices)
+        n = axis_size(ctx)
+        self.caches = [spec.init(cfg, d, n) for d in self.devices]
+
+    def run(self, step):
+        """``step(params, cache, device) -> (cache, out)`` on every rank;
+        returns rank 0's ``out``."""
+        if self.ctx is None:
+            with torch.inference_mode():
+                self.caches[0], out = step(self.params[0], self.caches[0], self.devices[0])
+            return out
+
+        def body():
+            r = self.ctx.rank
+            return step(self.params[r], self.caches[r], self.devices[r])
+
+        results = self.ctx.run(body)
+        self.caches = [cache for cache, _ in results]
+        return results[0][1]
+
+
 def generate(
     cfg: TransformerConfig,
     params: dict,
@@ -286,13 +400,15 @@ def generate(
     fd_config: FlashDecodeConfig | None = None,
     prefill: bool = False,
     device=None,
+    ctx=None,
 ) -> torch.Tensor:
     """Greedy generation: process the prompt (token by token, or in one
     bulk forward with ``prefill=True``), then decode ``n_steps`` new
-    tokens. Returns ``[b, n_steps]`` int32 on `device`."""
+    tokens. Returns ``[b, n_steps]`` int32 on `device`. ``ctx`` (a rank
+    runtime) serves at its world; ``None`` is world 1."""
     dev = resolve_device(device)
-    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64, device=dev)
-    b, prompt_len = prompt.shape
+    prompt_h = np.asarray(prompt).astype(np.int64)
+    b, prompt_len = prompt_h.shape
     if b != cfg.batch:
         raise ValueError(f"prompt batch {b} != cfg.batch {cfg.batch}")
     if prompt_len + n_steps > s_max:
@@ -301,31 +417,42 @@ def generate(
             f"cache capacity s_max={s_max}"
         )
     spec = _make_spec(s_max, page_size, fd_config, static_table=prefill)
-    params = _to_device(params, dev)
-    cache = spec.init(cfg, dev)
-    with torch.inference_mode():
-        if prefill:
-            pcfg = dataclasses.replace(cfg, seq=prompt_len)
-            cache, last = prefill_cache(pcfg, params, cache, prompt.reshape(-1), spec, s_max)
-            tok = last.argmax(dim=-1)
-            outs = [tok]
-            for i in range(n_steps - 1):
-                logits, cache = decode_step(
-                    cfg, params, cache, tok, prompt_len + i, spec=spec, fd_config=fd_config
-                )
-                tok = logits.argmax(dim=-1)
-                outs.append(tok)
-            return torch.stack(outs, dim=1)[:, :n_steps].to(torch.int32)
-        tok = prompt[:, 0]
-        outs = []
-        for i in range(prompt_len + n_steps - 1):
+    ranks = _Ranks(cfg, params, spec, dev, ctx)
+
+    def step_fn(tok, i):
+        def step(p, cache, d):
             logits, cache = decode_step(
-                cfg, params, cache, tok, i, spec=spec, fd_config=fd_config
+                cfg, p, cache, torch.as_tensor(tok, device=d), i, spec=spec,
+                fd_config=fd_config, ctx=ctx,
             )
-            nxt = logits.argmax(dim=-1)
+            return cache, logits.argmax(dim=-1).cpu().numpy()
+        return step
+
+    outs = []
+    if prefill:
+        pcfg = dataclasses.replace(cfg, seq=prompt_len)
+
+        def first(p, cache, d):
+            cache, last = prefill_cache(
+                pcfg, p, cache, torch.as_tensor(prompt_h.reshape(-1), device=d), spec,
+                s_max, ctx=ctx,
+            )
+            return cache, last.argmax(dim=-1).cpu().numpy()
+
+        tok = ranks.run(first)
+        outs.append(tok)
+        for i in range(n_steps - 1):
+            tok = ranks.run(step_fn(tok, prompt_len + i))
+            outs.append(tok)
+        out = np.stack(outs, axis=1)[:, :n_steps]
+    else:
+        tok = prompt_h[:, 0]
+        for i in range(prompt_len + n_steps - 1):
+            nxt = ranks.run(step_fn(tok, i))
             outs.append(nxt)
-            tok = prompt[:, i + 1] if i + 1 < prompt_len else nxt
-        return torch.stack(outs[prompt_len - 1:], dim=1).to(torch.int32)
+            tok = prompt_h[:, i + 1] if i + 1 < prompt_len else nxt
+        out = np.stack(outs[prompt_len - 1:], axis=1)
+    return torch.as_tensor(out.astype(np.int32), device=dev)
 
 
 def _to_device(params: dict, dev: torch.device) -> dict:
@@ -403,9 +530,12 @@ class ContinuousBatcher:
     decode step for every slot (static shapes, per-slot positions); the host
     picks each slot's next token (prompt feed, argmax or sample), admits
     queued requests into free slots, and collects finished sequences.
-    ``prefill=True`` admits a prompt in one bulk forward (K1 GEMMs) instead
-    of token by token; ``page_size`` selects the paged cache (K3 decode),
-    otherwise the contiguous one (K2).
+    ``prefill=True`` admits a prompt in one bulk forward (K1 GEMMs at world
+    1, K6/K7 at world > 1) instead of token by token; ``page_size`` selects
+    the paged cache (K3 decode), otherwise the contiguous one (K2). With
+    ``ctx`` (a rank runtime, ``parallel/mesh.py``) every device step runs
+    on all its ranks over sharded weights and a sequence-sharded cache;
+    ``None`` is world 1.
 
         batcher = ContinuousBatcher(cfg, params, s_max=256)
         batcher.submit(Request([1, 2, 3], max_new_tokens=8))
@@ -424,6 +554,7 @@ class ContinuousBatcher:
         prefill_chunk_tokens: int | None = None,
         prefix_cache: Any = None,
         device=None,
+        ctx=None,
     ):
         if prefix_cache is not None:
             raise NotImplementedError("prefix caching is a later slice (ROADMAP A9)")
@@ -431,13 +562,14 @@ class ContinuousBatcher:
             raise NotImplementedError("chunked prefill is a later slice (ROADMAP A8)")
         self.device = resolve_device(device)
         self.cfg, self.s_max = cfg, s_max
+        self.ctx = ctx
+        self.world = axis_size(ctx)
         self.prefill = prefill
         self._fd_config = fd_config
         # static tables: slots reset mid-run, which the bump allocator
         # cannot reclaim
         self.spec = _make_spec(s_max, page_size, fd_config, static_table=True)
-        self.cache = self.spec.init(cfg, self.device)
-        self.params = _to_device(params, self.device)
+        self._ranks = _Ranks(cfg, params, self.spec, self.device, ctx)
         self._buckets: set[int] = set()
         # cumulative real prompt tokens through the bulk prefill, and the
         # prefill WORK in swept query x key token pairs (bucket x bucket per
@@ -472,12 +604,26 @@ class ContinuousBatcher:
         self.validate_request(req)
         self.queue.append(req)
 
+    @property
+    def cache(self) -> dict:
+        """Rank 0's cache (at world 1, the cache)."""
+        return self._ranks.caches[0]
+
     def _bucket(self, length: int) -> int:
-        """Padded prompt length: the next power of two, capped at s_max."""
+        """Padded prompt length: the next power of two, capped at s_max,
+        with ``batch * bucket`` divisible over the ranks (the prompt's
+        token shard)."""
+        n, b = self.world, self.cfg.batch
         bucket = 1
-        while bucket < min(length, self.s_max):
+        while bucket < self.s_max and (bucket < length or (b * bucket) % n):
             bucket *= 2
-        return min(bucket, self.s_max)
+        bucket = min(bucket, self.s_max)
+        if bucket < length or (b * bucket) % n:
+            raise ValueError(
+                f"no prefill bucket <= s_max={self.s_max} fits prompt "
+                f"length {length} with b*bucket divisible over {n} PEs"
+            )
+        return bucket
 
     def _admit_prefill(self, i: int, req: Request) -> None:
         """One masked full-forward pass writes slot ``i``'s whole prompt KV
@@ -489,18 +635,20 @@ class ContinuousBatcher:
         pick = np.zeros(self.cfg.batch, np.int64)
         pick[i] = L - 1
         pcfg = dataclasses.replace(self.cfg, seq=bucket)
-        dev = self.device
-        with torch.inference_mode():
-            self.cache, last = prefill_cache(
-                pcfg, self.params, self.cache,
-                torch.as_tensor(prompt.reshape(-1), device=dev), self.spec,
-                self.s_max, slot_mask=np.arange(self.cfg.batch) == i,
-                pick=torch.as_tensor(pick, device=dev),
+
+        def admit(params, cache, dev):
+            cache, last = prefill_cache(
+                pcfg, params, cache, torch.as_tensor(prompt.reshape(-1), device=dev),
+                self.spec, self.s_max, slot_mask=np.arange(self.cfg.batch) == i,
+                pick=torch.as_tensor(pick, device=dev), ctx=self.ctx,
             )
+            return cache, last[i].float().cpu().numpy()
+
+        last_i = self._ranks.run(admit)
         self._buckets.add(bucket)
         self.prefill_tokens_total += L
         self.prefill_work_total += bucket * bucket
-        t0 = req.sample(last[i].float().cpu().numpy(), self.slot_rng[i])
+        t0 = req.sample(last_i, self.slot_rng[i])
         self.slot_fed[i] = L
         self.slot_out[i] = [t0]
         self.tok[i] = t0
@@ -568,22 +716,24 @@ class ContinuousBatcher:
         self._decode_round()
 
     def _decode_round(self) -> None:
-        dev = self.device
-        with torch.inference_mode():
-            logits, self.cache = decode_step(
-                self.cfg, self.params, self.cache,
-                torch.as_tensor(self.tok, device=dev), self.pos,
-                spec=self.spec, fd_config=self._fd_config,
+        tok, pos = self.tok.copy(), self.pos.copy()
+        # greedy slots need only the argmax; the full logit rows cross to
+        # the host only when an active request samples
+        sampling = any(
+            r is not None and r.temperature > 0.0
+            and self.slot_fed[i] >= len(r.prompt)
+            for i, r in enumerate(self.slot_req)
+        )
+
+        def step(params, cache, dev):
+            logits, cache = decode_step(
+                self.cfg, params, cache, torch.as_tensor(tok, device=dev), pos,
+                spec=self.spec, fd_config=self._fd_config, ctx=self.ctx,
             )
-            # greedy slots need only the argmax; the full logit rows cross
-            # to the host only when an active request samples
             nxt = logits.argmax(dim=-1).cpu().numpy()
-            sampling = any(
-                r is not None and r.temperature > 0.0
-                and self.slot_fed[i] >= len(r.prompt)
-                for i, r in enumerate(self.slot_req)
-            )
-            logits_h = logits.float().cpu().numpy() if sampling else None
+            return cache, (nxt, logits.float().cpu().numpy() if sampling else None)
+
+        nxt, logits_h = self._ranks.run(step)
         for i, req in enumerate(self.slot_req):
             if req is None:
                 continue  # idle slot decoded a dummy token; ignore

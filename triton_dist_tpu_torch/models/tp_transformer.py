@@ -1,15 +1,21 @@
 """The dense LLaMA-class decoder (≙ ``triton_dist_tpu/models/
-tp_transformer.py``), forward only, at world 1.
+tp_transformer.py``), forward only, at any world.
 
 Layouts match the JAX package at every public function: weights are
 ``[K, N]`` (``x @ W``), ``wqkv`` is kv-group-major ``[H, n_kv, (g+2)*d]``
 (each group's g query heads, its K head, its V head), gate/up are
-interleaved per FFN unit ``[H, F, 2]``. The column projections (QKV,
-gate/up, LM head) go through ``ag_gemm`` and the row projections
-(attention out, MLP down) through ``gemm_rs``; at world 1 both are the K1
-GEMM kernel. RMSNorm, RoPE and the prefill attention are plain PyTorch, as
-the JAX package leaves them to XLA. The loss and train step are a later
-slice.
+interleaved per FFN unit ``[H, F, 2]``. :func:`shard_params` lays the
+weights out over the ranks as ``param_specs`` (``:116``) does: column
+weights split on their output dim, row weights on their input dim, the LM
+head vocab-parallel, norms and embedding replicated.
+
+The forward is the per-rank Megatron body (``:190-238``): the residual
+stream is token-sharded ``[m_loc, H]``; the column projections (QKV,
+gate/up, LM head) go through ``ag_gemm`` (K6; K1 at world 1) and the row
+projections (attention out, MLP down) through ``gemm_rs`` (K7; K1 at world
+1); attention runs on the rank's local heads over the whole sequence.
+RMSNorm, RoPE and the prefill attention are plain PyTorch, as the JAX
+package leaves them to XLA. The loss and train step are a later slice.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from triton_dist_tpu_torch.config import resolve_device
 from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
+from triton_dist_tpu_torch.utils import axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +116,38 @@ def params_from_numpy(tree: dict, device, dtype: torch.dtype) -> dict:
     )
 
 
+# where each weight is split over the ranks (≙ param_specs): the dim, or
+# None for a replicated tensor
+_LAYER_SPLIT = dict(attn_norm=None, wqkv=1, wo=0, mlp_norm=None, w_gate_up=1, w_down=0)
+
+
+def shard_params(params: dict, world: int, devices=None) -> list[dict]:
+    """Per-rank parameters (≙ ``param_specs`` + ``jax.device_put``): rank
+    ``r`` gets slice ``r`` of each split weight, contiguous, on
+    ``devices[r]`` (default: where the weight is). Replicated tensors are
+    shared, not copied, between ranks on one device."""
+    devices = devices or [None] * world
+
+    def part(x, dim, r):
+        dev = devices[r] or x.device
+        if dim is None:
+            return x.to(dev)
+        if x.shape[dim] % world:
+            raise ValueError(f"shape {tuple(x.shape)} dim {dim} does not split over {world}")
+        return x.chunk(world, dim)[r].to(dev).contiguous()
+
+    return [
+        dict(
+            embed=part(params["embed"], None, r),
+            layers=[{k: part(v, _LAYER_SPLIT[k], r) for k, v in p.items()}
+                    for p in params["layers"]],
+            final_norm=part(params["final_norm"], None, r),
+            lm_head=part(params["lm_head"], 1, r),
+        )
+        for r in range(world)
+    ]
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
@@ -156,29 +195,34 @@ def _causal_gqa_attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
 
 @dataclasses.dataclass
 class TPTransformer:
-    """Decoder-only forward over the flattened token stream (``cfg.batch *
-    cfg.seq`` tokens, batch-major). ``kv_sink``, when a list, collects each
-    layer's post-RoPE ``(k, v)`` ``[b, s, h_kv, d]`` for the prefill cache
-    write (``models/decode.prefill_cache``)."""
+    """Decoder-only forward of one rank (call inside ``ctx.run``; ``ctx``
+    None is world 1) over its token shard of the flattened stream
+    (``cfg.batch * cfg.seq`` tokens, batch-major, ``m_loc`` of them a
+    rank). ``kv_sink``, when a list, collects each layer's post-RoPE ``(k,
+    v)`` ``[b, s, h_kv / world, d]`` (the rank's heads) for the prefill
+    cache write (``models/decode.prefill_cache``)."""
 
     cfg: TransformerConfig
     kv_sink: list | None = None
+    ctx: object = None
 
     def _col(self, x, w):
-        return ag_gemm(x, w)
+        return ag_gemm(x, w, ctx=self.ctx)
 
     def _row(self, x, w):
-        return gemm_rs(x, w)
+        return gemm_rs(x, w, ctx=self.ctx)
 
     def block(self, x: torch.Tensor, p: dict) -> torch.Tensor:
         c = self.cfg
+        n = axis_size(self.ctx)
         b, s = c.batch, c.seq
+        hq_loc, hkv_loc = c.n_q_heads // n, c.n_kv_heads // n
         g = c.n_q_heads // c.n_kv_heads
         d = c.head_dim
         h = rmsnorm(x, p["attn_norm"], c.norm_eps)
         qkv = self._col(h, p["wqkv"].reshape(c.hidden, -1))
-        qkv = qkv.reshape(b, s, c.n_kv_heads, g + 2, d)
-        q = qkv[..., :g, :].reshape(b, s, c.n_q_heads, d)
+        qkv = qkv.reshape(b, s, hkv_loc, g + 2, d)   # the rank's kv groups
+        q = qkv[..., :g, :].reshape(b, s, hq_loc, d)
         k = qkv[..., g, :]
         v = qkv[..., g + 1, :]
         pos = torch.arange(s, device=x.device)
@@ -186,20 +230,21 @@ class TPTransformer:
         k = rope(k, pos, c.rope_theta)
         if self.kv_sink is not None:
             self.kv_sink.append((k, v))
-        attn = _causal_gqa_attention(q, k, v, c)
-        x = x + self._row(attn.reshape(b * s, c.q_dim), p["wo"])
+        attn = _causal_gqa_attention(q, k, v, c)       # [b, s, hq_loc * d]
+        x = x + self._row(attn.reshape(b * s, hq_loc * d), p["wo"])
         return x + self._mlp(x, p)
 
     def _mlp(self, x: torch.Tensor, p: dict) -> torch.Tensor:
         c = self.cfg
         h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
         gu = self._col(h, p["w_gate_up"].reshape(c.hidden, -1))
-        gu = gu.reshape(c.batch * c.seq, -1, 2)
+        gu = gu.reshape(c.batch * c.seq, -1, 2)        # [m, F / world, 2]
         act = torch.nn.functional.silu(gu[..., 0].float()).to(x.dtype) * gu[..., 1]
         return self._row(act.contiguous(), p["w_down"])
 
     def __call__(self, tokens: torch.Tensor, params: dict) -> torch.Tensor:
-        """tokens ``[b * s]`` → logits ``[b * s, vocab]`` in ``cfg.dtype``."""
+        """tokens ``[m_loc]`` (this rank's shard of the ``b * s`` stream) →
+        vocab-sharded logits ``[b * s, vocab / world]`` in ``cfg.dtype``."""
         c = self.cfg
         x = params["embed"][tokens]
         for p in params["layers"]:

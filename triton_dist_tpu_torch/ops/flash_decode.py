@@ -11,8 +11,10 @@ h_kv, page, d]`` with ``block_table [b, max_pages]`` int32, valid prefix
 ``csrc/flash_decode.cu`` (split-KV, see its source note) for tensors on
 the card and run their plain twins :func:`_xla_decode` and
 :func:`_xla_paged_decode` for tensors on the CPU. The SP entries
-(``*_distributed``) are world-1: the all-gather combine of the JAX
-package returns the local result at world 1 (``flash_decode.py:1903``).
+(``*_distributed``) run the local partial decode on a rank's sequence
+shard, then gather every rank's ``(out, lse)`` payload with the full-mesh
+push allgather (K5, ``ops/allgather.py``) and merge them
+(:func:`combine_partials`), as ``_sp_allgather_combine`` (``:1895``) does.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import math
 import torch
 
 from triton_dist_tpu_torch import _build
-from triton_dist_tpu_torch.utils import cdiv
+from triton_dist_tpu_torch.ops.allgather import all_gather
+from triton_dist_tpu_torch.utils import axis_size, cdiv, count_call, count_launch
 
 NEG_INF = float("-inf")
 
@@ -75,7 +78,7 @@ def _xla_decode(q, k, v, kv_lens, *, return_lse, soft_cap=0.0):
     """Plain version of the decode (the JAX package's XLA-native twin of its
     Pallas kernel): masked softmax attention with f32 scores and
     probabilities, any head dim."""
-    _xla_decode.calls += 1
+    count_call(_xla_decode)
     b, hq, d = q.shape
     _, h_kv, s_len, _ = k.shape
     g = hq // h_kv
@@ -214,7 +217,7 @@ def flash_decode(
     if q.device.type == "cpu":
         return _xla_decode(q, k, v, kv_lens, return_lse=return_lse, soft_cap=soft_cap)
     out, lse = _launch_decode(q, k, v, kv_lens, None, soft_cap)
-    flash_decode.launches += 1
+    count_launch(flash_decode)
     return (out, lse) if return_lse else out
 
 
@@ -246,7 +249,7 @@ def paged_flash_decode(
             return_lse=return_lse, soft_cap=soft_cap,
         )
     out, lse = _launch_decode(q, k_pages, v_pages, kv_lens, block_table, soft_cap)
-    paged_flash_decode.launches += 1
+    count_launch(paged_flash_decode)
     return (out, lse) if return_lse else out
 
 
@@ -266,33 +269,57 @@ def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nbh,nbhd->bhd", w, outs) / denom[..., None]
 
 
-def _world_one(world: int) -> None:
-    if world != 1:
-        raise NotImplementedError(
-            "sequence-parallel decode at world > 1 needs the (out, lse) "
-            "all-gather (ROADMAP A3); this port runs world 1 only"
-        )
+def _sp_allgather_combine(out, lse, ctx, ag_method: str = "full_mesh_push"):
+    """The SP tail (≙ ``_sp_allgather_combine``): gather each rank's
+    ``(out, lse)`` payload and merge. One flat f32 payload per rank:
+    ``[b*hq, d]`` out rows, then the ``b*hq`` lse values packed densely into
+    ``ceil(b*hq / d)`` more rows."""
+    n = axis_size(ctx)
+    if n == 1:
+        return out
+    b, hq, d = out.shape
+    rows = b * hq
+    lse_rows = cdiv(rows, d)
+    lse_packed = torch.nn.functional.pad(lse.reshape(-1), (0, lse_rows * d - rows))
+    payload = torch.cat([out.reshape(rows, d), lse_packed.reshape(lse_rows, d)])
+    gathered = all_gather(payload, ctx=ctx, method=ag_method)
+    gathered = gathered.reshape(n, rows + lse_rows, d)
+    outs = gathered[:, :rows, :].reshape(n, b, hq, d)
+    lses = gathered[:, rows:, :].reshape(n, lse_rows * d)[:, :rows].reshape(n, b, hq)
+    return combine_partials(outs, lses)
 
 
 def flash_decode_distributed(
     q, k_shard, v_shard, kv_lens_shard, *,
-    config: FlashDecodeConfig | None = None, world: int = 1,
+    config: FlashDecodeConfig | None = None, ctx=None, ag_method: str = "full_mesh_push",
 ):
-    """SP decode over a sequence-sharded contiguous cache. At world 1 the
-    shard is the whole cache and the merge is the identity."""
-    _world_one(world)
-    return flash_decode(q, k_shard, v_shard, kv_lens_shard, config=config)
+    """SP decode over a sequence-sharded contiguous cache (call inside
+    ``ctx.run``): every rank holds the full q and its shard of the cache
+    (``kv_lens_shard`` = valid positions in the LOCAL shard). At world 1
+    the shard is the whole cache and the merge is the identity."""
+    if axis_size(ctx) == 1:
+        return flash_decode(q, k_shard, v_shard, kv_lens_shard, config=config)
+    out, lse = flash_decode(q, k_shard, v_shard, kv_lens_shard, config=config,
+                            return_lse=True)
+    return _sp_allgather_combine(out, lse, ctx, ag_method)
 
 
 def paged_flash_decode_distributed(
     q, k_pages, v_pages, kv_lens_shard, block_table, *,
     fuse_heads: bool | None = None, pages_per_step: int | None = None,
-    soft_cap: float = 0.0, world: int = 1,
+    soft_cap: float = 0.0, ctx=None, ag_method: str = "full_mesh_push",
 ):
-    """SP decode over a paged, sequence-sharded cache (world 1)."""
-    _world_one(world)
-    return paged_flash_decode(
+    """SP decode over a paged, sequence-sharded cache: each rank's page
+    pool and block table cover its sequence shard."""
+    if axis_size(ctx) == 1:
+        return paged_flash_decode(
+            q, k_pages, v_pages, kv_lens_shard, block_table,
+            fuse_heads=fuse_heads, pages_per_step=pages_per_step,
+            soft_cap=soft_cap,
+        )
+    out, lse = paged_flash_decode(
         q, k_pages, v_pages, kv_lens_shard, block_table,
         fuse_heads=fuse_heads, pages_per_step=pages_per_step,
-        soft_cap=soft_cap,
+        soft_cap=soft_cap, return_lse=True,
     )
+    return _sp_allgather_combine(out, lse, ctx, ag_method)

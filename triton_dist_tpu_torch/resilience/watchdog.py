@@ -1,0 +1,41 @@
+"""Bounded waits: the host half (≙ ``triton_dist_tpu/resilience/
+watchdog.py``: ``kernel_scope`` at ``:95``, ``bounded_wait`` at ``:122``).
+
+The wait itself is device code (``csrc/shmem.cuh::wait_until_ge``): it
+spins on ``%globaltimer`` up to the timeout of :mod:`config` and, on
+expiry, writes a record into the rank's diagnostic buffer and returns, so
+the kernel still issues its later signals and no peer is stalled by it.
+This module is what every launch wrapper passes to that code
+(:func:`wait_args`) and what the runtime does with the buffer once the
+rank's streams have synced (:func:`check`): decode it and raise. A lost
+peer is an error with a record naming the rank and the wait site, never a
+hang.
+"""
+
+from __future__ import annotations
+
+from triton_dist_tpu_torch import config
+from triton_dist_tpu_torch.resilience import records as R
+from triton_dist_tpu_torch.resilience import sites
+
+
+def wait_args(diag, family: str) -> tuple[int, int, int]:
+    """``(diag pointer, timeout ns, family code)``: the bounded-wait
+    arguments of one launch (≙ entering ``kernel_scope``)."""
+    return diag.data_ptr(), config.wait_timeout_ns(), sites.FAMILIES[family]
+
+
+def records(diag_rows, world: int) -> list[dict]:
+    """The timeout records among the ranks' host copies of their buffers."""
+    return [
+        R.decode_record(row, world) for row in diag_rows
+        if int(row[R.F_STATUS]) != R.STATUS_OK
+    ]
+
+
+def check(diag_rows, world: int) -> None:
+    """Raise :class:`~records.DistTimeoutError` if any rank recorded a
+    timeout."""
+    recs = records(diag_rows, world)
+    if recs:
+        raise R.DistTimeoutError(recs, world)

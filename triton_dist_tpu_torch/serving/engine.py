@@ -134,7 +134,8 @@ class _ReqState:
 class ServingEngine:
     """See module docstring. Construction mirrors ``ContinuousBatcher``
     (cfg/params/s_max plus its keyword surface: ``page_size``,
-    ``fd_config``, ``prefill``, ``device``)::
+    ``fd_config``, ``prefill``, ``device``, and ``ctx``, the rank runtime
+    that serves at world > 1)::
 
         eng = ServingEngine(cfg, params, s_max=256,
                             serving=ServingConfig(max_queue=64))
@@ -371,8 +372,8 @@ class ServingEngine:
             self.metrics.tokens_goodput / elapsed, 6
         )
         snap["engine"] = {
-            "world_size": 1,
-            "full_world_size": 1,
+            "world_size": self._batcher.world,
+            "full_world_size": self._batcher.world,
             "rebuilds": 0,
             "queue_depth": len(self._pending),
             "in_flight": len(self._states) - len(self._pending),
