@@ -32,7 +32,22 @@ Phases, each printed as a JSON line, each fatal on failure:
    the world-1 plain-GEMM forward on the same weights;
 9. parity at world 4: f32, 2 layers at full 70B width, greedy tokens of the
    kernel path on the card identical to the world-4 plain path (the
-   wrappers' CPU twins, the ranks as CPU threads).
+   wrappers' CPU twins, the ranks as CPU threads);
+10. the MoE kernels at the served Mixtral-8x7B shapes, each against its
+   plain version: the grouped GEMM K8 (world-1 prefill of 2048 tokens,
+   t_pad 5120: the up-projection and the down-projection with the GELU
+   fused), and at world 4 the AG-GroupGEMM K9 and the MoE-Reduce-RS K10
+   (512 tokens a rank, F shard 3584), with a stuck K10 wait that must raise;
+11. ``serve_moe``: ``ServingEngine`` at world 1 serving Mixtral-8x7B widths
+   (8 experts, top-2) cut to 8 of 32 layers, the same traffic as phase 4 —
+   launch counts show K8, K1 and K3 carried it — and its bf16 prefill
+   logits against the world-1 plain-kernel forward;
+12. ``serve_moe_tp4``: the same model at world 4 on the one card (per-rank
+   F shard 3584, 8 q / 2 kv heads) — K9, K10, K6, K7, K4, K5, K3 — and its
+   logits against the same world-1 plain forward; a torch.profiler look at
+   one admission step and three decode steps at both worlds;
+13. ``f32_parity_moe``: f32, 2 MoE layers at full width, greedy tokens on the
+   card identical to the CPU plain path at world 1 and at world 4.
 
 The line before the last lists every kernel with its readings; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -57,7 +72,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense tensor-core peak
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -84,6 +104,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def event_ms(fn, iters: int = 3, warmup: int = 1) -> float:
+    """Time of one call of `fn` between two CUDA events on the current
+    stream, without a graph: for the plain versions that cross to the host
+    (expert counts), which a CUDA graph cannot hold."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time (ms) the card could take: bf16 operations at the
     tensor-core peak or bytes at the HBM rate, whichever is larger."""
@@ -98,7 +137,10 @@ class Counters:
     def __init__(self):
         from triton_dist_tpu_torch.ops import allgather, allgather_gemm, common, gemm
         from triton_dist_tpu_torch.ops import flash_decode as fd
+        from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
         from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+        from triton_dist_tpu_torch.ops import group_gemm as gg
+        from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
 
         self.kernels = {
             "gemm": gemm.matmul,
@@ -108,11 +150,16 @@ class Counters:
             "all_gather": allgather.all_gather,
             "ag_gemm": allgather_gemm.ag_gemm,
             "gemm_rs": grs.gemm_rs,
+            "group_gemm": gg.group_gemm,
+            "ag_group_gemm": aggg.ag_group_gemm_overlap,
+            "moe_reduce_rs": mrs.moe_reduce_rs_overlap,
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
             "barrier": common._barrier_plain, "all_gather": allgather._all_gather_xla,
             "ag_gemm": allgather_gemm._ag_gemm_xla, "gemm_rs": grs._gemm_rs_xla,
+            "group_gemm": gg._group_gemm_plain, "ag_group_gemm": aggg._ag_overlap_xla,
+            "moe_reduce_rs": mrs._moe_rs_overlap_xla,
         }
 
     def reset(self) -> None:
@@ -1003,6 +1050,614 @@ def phase_f32_parity_tp4() -> None:
           "cpu_reference_s": t_cpu, "card_s": t_card})
 
 
+# ------------------------------------------------------------ MoE (slice 3) ----
+
+MOE_MODEL = "mixtral-8x7b"
+MOE_BLOCK = 128  # the alignment block = the grouped GEMMs' M tile
+
+
+def _moe_route(gen, tokens, n_exp, topk):
+    """Top-k routing of random router logits (the port's select_experts)."""
+    import torch
+    from triton_dist_tpu_torch.ops.moe_utils import select_experts
+
+    return select_experts(torch.randn((tokens, n_exp), generator=gen, device="cuda"), topk)
+
+
+def _grouped_mm_library(a, b, expert_ids, act, out_dtype):
+    """One library call for the grouped GEMM over expert-sorted row blocks
+    (nondecreasing `expert_ids`): ``torch._grouped_mm`` with the experts' row
+    offsets where this torch has it for bf16, else a ``torch.matmul`` per
+    expert's run of rows. Returns ``(fn, name)``; the offsets are computed
+    once, outside the timed call."""
+    import torch
+
+    n_exp = b.shape[0]
+    bm = a.shape[0] // expert_ids.numel()
+    counts = torch.bincount(expert_ids.long(), minlength=n_exp) * bm
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+
+    def act_a():
+        return a if act is None else act(a.float()).to(a.dtype)
+
+    tries = (
+        ("torch._grouped_mm", lambda: torch._grouped_mm(act_a(), b, offs=offs,
+                                                        out_dtype=out_dtype)),
+        ("torch._grouped_mm (then a cast)",
+         lambda: torch._grouped_mm(act_a(), b, offs=offs).to(out_dtype)),
+    )
+    for name, fn in tries:
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn, name
+        except Exception:  # noqa: BLE001 — this torch lacks it: next candidate
+            continue
+    ends = offs.tolist()
+
+    def per_expert():
+        x = act_a()
+        return torch.cat([torch.matmul(x[lo:hi], b[e]).to(out_dtype)
+                          for e, (lo, hi) in enumerate(zip([0] + ends[:-1], ends)) if hi > lo])
+
+    return per_expert, "torch.matmul per expert"
+
+
+def phase_group_gemm() -> dict:
+    """K8 at the world-1 MoE prefill shapes: 2048 tokens (8 x 256) routed
+    top-2 over 8 experts, t_pad 5120 rows: the up-projection [5120, 4096] x
+    [8, 4096, 14336] and the down-projection with the GELU fused [5120,
+    14336] x [8, 14336, 4096] to f32; first a few ragged shapes and the f32
+    engine."""
+    import torch
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    n_exp, topk, bm = 8, 2, MOE_BLOCK
+    bf16, f32 = torch.bfloat16, torch.float32
+    for tokens, k, n, dtype, out_dtype, act in ((7, 72, 40, bf16, bf16, gg.gelu),
+                                                (100, 256, 300, f32, f32, gg.gelu),
+                                                (33, 128, 520, bf16, f32, None)):
+        _, ids = _moe_route(g, tokens, n_exp, topk)
+        al = mu.moe_align_block_size(ids.reshape(-1), n_exp, bm)
+        a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g, device="cuda").to(dtype)
+        b = (torch.randn((n_exp, k, n), generator=g, device="cuda") / k**0.5).to(dtype)
+        got = gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype, act_fn=act)
+        ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act)
+        if dtype == bf16:
+            _check_bf16(f"group_gemm {tokens}x{k}x{n}", got, ref)
+        elif not (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item():
+            raise AssertionError(f"group_gemm f32 {tokens}x{k}x{n}")
+
+    tokens = 8 * 256
+    _, ids = _moe_route(g, tokens, n_exp, topk)
+    al = mu.moe_align_block_size(ids.reshape(-1), n_exp, bm)
+    t_pad = al.sorted_token_ids.shape[0]
+    used = int((torch.bincount(ids.reshape(-1).long(), minlength=n_exp) > 0).sum().item())
+    rows, worst = [], 0.0
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    libs = set()
+    for name, (k, n, act, out_dtype) in {"up": (4096, 14336, None, bf16),
+                                         "down_gelu": (14336, 4096, gg.gelu, f32)}.items():
+        a = torch.randn((t_pad, k), generator=g, device="cuda").to(bf16)
+        b = (torch.randn((n_exp, k, n), generator=g, device="cuda") / k**0.5).to(bf16)
+        got = gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype, act_fn=act)
+        ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act)
+        err, tol = _check_bf16(f"group_gemm {name}", got, ref)
+        worst = max(worst, err)
+        del got, ref
+        flops = 2.0 * t_pad * k * n
+        nbytes = 2.0 * t_pad * k + 2.0 * used * k * n + t_pad * n * (4 if out_dtype == f32 else 2)
+        lib_fn, lib_name = _grouped_mm_library(a, b, al.expert_ids, act, out_dtype)
+        libs.add(lib_name)
+        row = dict(
+            shape=[t_pad, k, n], gelu=act is not None, max_abs_err=err, tol=tol,
+            ms=cuda_ms(lambda: gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype,
+                                             act_fn=act), iters=10),
+            plain_ms=event_ms(lambda: gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype,
+                                                           act), iters=2),
+            library_ms=event_ms(lib_fn, iters=10), library=lib_name,
+            bound_ms=bound(flops, nbytes)[0],
+        )
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows.append({name: row})
+        for key in ("ms", "plain_ms", "library_ms"):
+            total[key] += row[key]
+        total["flops"] += flops
+        total["bytes"] += nbytes
+        del a, b
+    emit({"phase": "kernel", "kernel": "group_gemm", "t_pad": t_pad, "experts_used": used,
+          "per_shape": rows})
+    b_ms, by = bound(total["flops"], total["bytes"])
+    return dict(
+        name="group_gemm", route="cuda", source="triton_dist_tpu_torch/csrc/group_gemm.cu",
+        replaces="triton_dist_tpu/ops/gg_pipeline.py:87", max_abs_err=worst,
+        ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
+        library_ms=total["library_ms"], library=" + ".join(sorted(libs)),
+        shapes=f"t_pad {t_pad} (2048 tokens, top-2 of 8): up 4096->14336, down 14336->4096 "
+               f"with GELU, f32 out (summed)",
+    )
+
+
+def _moe_tp4_inputs(g, m_loc):
+    """The world-4 routing: 4 x m_loc tokens top-2 over 8 experts, aligned
+    per rank."""
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    tw, ids = _moe_route(g, WORLD * m_loc, 8, 2)
+    ral = mu.moe_align_ranked(ids.reshape(WORLD, -1), 8, MOE_BLOCK, m_loc)
+    return ral, tw
+
+
+def phase_ag_group_gemm(ctx) -> dict:
+    """K9 at the per-rank shapes of the world-4 MoE prefill: 2048 tokens,
+    512 a rank, top-2 over 8 experts (t_pad_loc 2048 a rank), H 4096 ->
+    F shard 3584, bf16."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    m_loc, k, n_loc, n_exp = 512, 4096, 3584, 8
+    ral, _ = _moe_tp4_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    x = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16() for _ in range(WORLD)]
+    b = [(torch.randn((n_exp, k, n_loc), generator=g, device="cuda") / k**0.5).bfloat16()
+         for _ in range(WORLD)]
+    slabs = [x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(WORLD)]
+    gathered = torch.cat(slabs)
+    ids_flat = ral.expert_ids.reshape(-1)
+    outs = ctx.run(lambda: aggg.ag_group_gemm_overlap(x[ctx.rank], b[ctx.rank], ral, ctx=ctx))
+    err, tol = max(_check_bf16(f"ag_group_gemm rank {r}", out,
+                               gg._group_gemm_plain(gathered, b[r], ids_flat, MOE_BLOCK,
+                                                    torch.bfloat16, None))
+                   for r, out in enumerate(outs))
+    del outs
+    libs = [[_grouped_mm_library(slabs[c], b[r], ral.expert_ids[c], None, torch.bfloat16)
+             for c in range(WORLD)] for r in range(WORLD)]
+
+    def library():
+        for r in range(WORLD):
+            torch.cat(slabs)
+            for fn, _ in libs[r]:
+                fn()
+
+    rows = WORLD * t_pad_loc
+    flops = WORLD * 2.0 * rows * k * n_loc
+    nbytes = 2.0 * (rows * k + WORLD * n_exp * k * n_loc + WORLD * rows * n_loc)
+    b_ms, by = bound(flops, nbytes)
+    entry = dict(
+        name="ag_group_gemm", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
+        replaces="triton_dist_tpu/ops/gg_pipeline.py:288", max_abs_err=err,
+        ms=dist_ms(ctx, lambda: aggg.ag_group_gemm_overlap(x[ctx.rank], b[ctx.rank], ral,
+                                                           ctx=ctx), iters=5),
+        plain_ms=dist_ms(ctx, lambda: aggg._ag_overlap_xla(
+            aggg.presort_local_rows(x[ctx.rank], ral, ctx), b[ctx.rank], ral, ctx, False,
+            torch.bfloat16), iters=2),
+        bound_ms=b_ms, bound_by=by, library_ms=event_ms(library, iters=3),
+        library="torch.cat + " + libs[0][0][1] + " per source slab",
+        shapes=f"world {WORLD}: [{m_loc}, {k}] tokens a rank, t_pad_loc {t_pad_loc}, "
+               f"w_up shard [{n_exp}, {k}, {n_loc}]",
+    )
+    entry["tflops"] = flops / entry["ms"] / 1e9
+    emit({"phase": "kernel", "kernel": "ag_group_gemm", "world": WORLD, "tol": tol,
+          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "library_ms", "library", "tflops", "shapes")}})
+    return entry
+
+
+def phase_moe_reduce_rs(ctx) -> dict:
+    """K10 at the per-rank shapes of the world-4 MoE prefill: the rank-major
+    rows [4 x 2048, F shard 3584] bf16 against w_down [8, 3584, 4096], 512
+    tokens out a rank."""
+    import torch
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    m_loc, f_loc, h, n_exp = 512, 3584, 4096, 8
+    ral, tw = _moe_tp4_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    dst, w_rows = mu.ranked_scatter_meta(ral, tw)
+    inv = mu.ranked_combine_rows(ral, m_loc, 2)
+    hs = [torch.randn((WORLD * t_pad_loc, f_loc), generator=g, device="cuda").bfloat16()
+          for _ in range(WORLD)]
+    wd = [(torch.randn((n_exp, f_loc, h), generator=g, device="cuda") / f_loc**0.5).bfloat16()
+          for _ in range(WORLD)]
+
+    def kernel():
+        r = ctx.rank
+        return mrs.moe_reduce_rs_overlap(hs[r], wd[r], ral.expert_ids, dst, w_rows, ctx=ctx,
+                                         m_out=m_loc, combine_rows=inv)
+
+    def plain():
+        r = ctx.rank
+        return mrs._moe_rs_overlap_xla(hs[r], wd[r], ral.expert_ids, dst, w_rows, ctx, m_loc,
+                                       torch.bfloat16)
+
+    outs = ctx.run(lambda: (kernel(), plain()))
+    err, tol = max(_check_bf16(f"moe_reduce_rs rank {r}", got, want, factor=2.0)
+                   for r, (got, want) in enumerate(outs))
+    del outs
+    libs = [[_grouped_mm_library(hs[r][c * t_pad_loc:(c + 1) * t_pad_loc], wd[r],
+                                 ral.expert_ids[c], None, torch.float32)[0]
+             for c in range(WORLD)] for r in range(WORLD)]
+    dst_l = dst.reshape(WORLD, -1).long()
+    w_l = w_rows.reshape(WORLD, -1, 1)
+
+    def library():
+        parts = [[torch.zeros((m_loc, h), device="cuda").index_add_(0, dst_l[c], libs[r][c]()
+                                                                    * w_l[c])
+                  for c in range(WORLD)] for r in range(WORLD)]
+        return [sum(parts[r][c] for r in range(WORLD)).bfloat16() for c in range(WORLD)]
+
+    rows = WORLD * t_pad_loc
+    flops = WORLD * 2.0 * rows * f_loc * h
+    nbytes = 2.0 * (WORLD * rows * f_loc + WORLD * n_exp * f_loc * h + WORLD * m_loc * h)
+    b_ms, by = bound(flops, nbytes)
+    entry = dict(
+        name="moe_reduce_rs", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
+        replaces="triton_dist_tpu/ops/gg_pipeline.py:576", max_abs_err=err,
+        ms=dist_ms(ctx, kernel, iters=5), plain_ms=dist_ms(ctx, plain, iters=2),
+        bound_ms=b_ms, bound_by=by, library_ms=event_ms(library, iters=3),
+        library="_grouped_mm_library per (rank, destination) + index_add_ + a sum",
+        shapes=f"world {WORLD}: h [{rows}, {f_loc}] a rank, w_down shard "
+               f"[{n_exp}, {f_loc}, {h}], {m_loc} tokens out a rank",
+    )
+    entry["tflops"] = flops / entry["ms"] / 1e9
+    emit({"phase": "kernel", "kernel": "moe_reduce_rs", "world": WORLD, "tol": tol,
+          "combine": "gather form, k order, one launch a destination; reduce in rank order",
+          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "library_ms", "tflops", "shapes")}})
+    return entry
+
+
+def phase_stuck_wait_moe() -> None:
+    """K10's entry barrier with a peer far too late (rank 1's stream held 2
+    s, timeout 0.2 s): the run must raise with rank 0's record for the
+    moe_rs family, site 1."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    tw, ids = _moe_route(g, 32, 8, 2)
+    ral = mu.moe_align_ranked(ids.reshape(2, -1), 8, MOE_BLOCK, 16)
+    dst, w_rows = mu.ranked_scatter_meta(ral, tw)
+    inv = mu.ranked_combine_rows(ral, 16, 2)
+    hs = torch.randn((2 * ral.t_pad_loc, 64), generator=g, device="cuda")
+    wd = torch.randn((8, 64, 32), generator=g, device="cuda")
+
+    def call():
+        if ctx.rank == 1 and stuck:
+            common.sleep_on_stream(2_000_000_000)
+        return mrs.moe_reduce_rs_overlap(hs, wd, ral.expert_ids, dst, w_rows, ctx=ctx,
+                                         m_out=16, combine_rows=inv)
+
+    stuck = False
+    ctx.run(call)
+    stuck = True
+    try:
+        with config.wait_timeout(0.2):
+            ctx.run(call)
+    except DistTimeoutError as err:
+        recs = err.records
+    else:
+        raise AssertionError("a stuck K10 wait did not raise")
+    if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, "moe_rs", 1)]:
+        raise AssertionError(f"stuck K10 wait: unexpected records {recs}")
+    emit({"phase": "stuck_wait_moe", "records": recs})
+    ctx.close()
+
+
+def _moe_models():
+    """The two forwards of the MoE logits check, each keeping its layers'
+    routing ``(weights, ids)`` in ``.routes``:
+
+    - the served forward (``TPMoETransformer``, kernels), unchanged: each
+      layer's routing is recomputed after the layer from the same input by
+      the same operations, so it is bitwise the routing the layer used;
+    - the world-1 reference: plain GEMMs for the projections and the plain
+      grouped GEMMs for the experts (the sequential composition of
+      ``ops/moe_mlp.py`` with every kernel replaced by its plain version).
+      Given ``replay`` (one ``(weights, ids)`` a layer), it takes those
+      expert choices instead of its own.
+    """
+    import torch
+    from triton_dist_tpu_torch.models.tp_transformer import TPMoETransformer, rmsnorm
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+    from triton_dist_tpu_torch.ops.gemm import _matmul_plain
+
+    def route(cfg, x, p):
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        return h, mu.select_experts(h.float() @ p["router"].float(), cfg.topk)
+
+    class Served(TPMoETransformer):
+        def _mlp(self, x, p):
+            out = super()._mlp(x, p)
+            self.routes.append(route(self.cfg, x, p)[1])
+            return out
+
+    class Plain(TPMoETransformer):
+        replay = None
+
+        def _col(self, x, w):
+            return _matmul_plain(x, w, x.dtype)
+
+        _row = _col
+
+        def _mlp(self, x, p):
+            c = self.cfg
+            h, (tw, ids) = route(c, x, p)
+            if self.replay is not None:
+                tw, ids = self.replay[len(self.routes)]
+            self.routes.append((tw, ids))
+            al = mu.moe_align_block_size(ids.reshape(-1), c.n_experts, MOE_BLOCK)
+            hs = gg._group_gemm_plain(mu.gather_sorted_rows(h, al, c.topk), p["w_up"],
+                                      al.expert_ids, MOE_BLOCK, h.dtype, None)
+            y = gg._group_gemm_plain(hs, p["w_down"], al.expert_ids, MOE_BLOCK, torch.float32,
+                                     gg.gelu)
+            return mu.scatter_add_unsorted(y, al, tw, h.shape[0]).to(x.dtype)
+
+    def make(cls, cfg, replay=None, ctx=None):
+        model = cls(cfg, ctx=ctx)
+        model.routes, model.replay = [], replay
+        return model
+
+    return (lambda cfg, ctx=None: make(Served, cfg, ctx=ctx),
+            lambda cfg, replay=None: make(Plain, cfg, replay))
+
+
+def _serve(cfg, params, reqs, counters, ctx=None):
+    """One ServingEngine serve of `reqs` (paged, 16-token pages, bulk
+    prefill, s_max 1024) with the launch counts reset just before it and
+    read just after."""
+    import torch
+    from triton_dist_tpu_torch.serving.engine import ServingConfig, ServingEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, s_max=1024, page_size=16, prefill=True, ctx=ctx,
+                        serving=ServingConfig(max_queue=64))
+    counters.reset()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    if sorted(done) != sorted(r.uid for r in reqs):
+        raise AssertionError(f"serve finished {sorted(done)}")
+    for uid, res in done.items():
+        if len(res.tokens) != reqs[0].max_new_tokens or not all(
+                0 <= t < cfg.vocab for t in res.tokens):
+            raise AssertionError(f"{uid}: bad tokens {res.tokens}")
+    if any(counts["plain_calls"].values()):
+        raise AssertionError(f"plain versions ran on the card path: {counts['plain_calls']}")
+    n_tok = sum(len(r.tokens) for r in done.values())
+    snap = eng.snapshot()
+    return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                ttft_ms=sorted(r.ttft_ms for r in done.values()),
+                decode_steps=snap["requests"]["steps"],
+                world_size=snap["engine"]["world_size"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **counts)
+
+
+def _prompt_tokens(reqs, batch, length):
+    import torch
+
+    tokens = torch.zeros((batch, length), dtype=torch.long, device="cuda")
+    for i, r in enumerate(reqs):
+        n = min(length, len(r.prompt))
+        tokens[i, :n] = torch.tensor(r.prompt[:n])
+    return tokens.reshape(-1)
+
+
+def _check_moe_logits(name, got, routes, make_plain, cfg, flat, params, rows):
+    """The bf16 prefill logits of the served MoE forward (`got`, its layers'
+    routing `routes`) against the world-1 plain forward on the same tokens
+    and weights.
+
+    Top-2 routing is discontinuous: where a token's second and third expert
+    scores lie within the bf16 rounding of the two paths, the two pick
+    different experts, and every later layer carries that difference, so
+    two correct paths drift apart. The checked comparison therefore gives
+    the plain forward the served path's expert choices: relative L2 within
+    5e-2, and every row's argmax the same unless the reference's two
+    largest logits lie closer than twice that row's largest difference (a
+    tie within the measured rounding). The free-running comparison (each
+    path routing on its own) is reported beside it with the share of tokens
+    whose expert pair differs at each layer."""
+    import torch
+
+    with torch.inference_mode():
+        free = make_plain(cfg)
+        free_logits = free(flat, params)[rows].float()
+        ref = make_plain(cfg, replay=routes)(flat, params)[rows].float()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    row_err = (got - ref).abs().amax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= 2 * row_err
+    agree = got.argmax(-1) == ref.argmax(-1)
+    flips = [(torch.sort(a[1], 1).values != torch.sort(b[1], 1).values).any(1)
+             .float().mean().item() for a, b in zip(routes, free.routes)]
+    emit({"phase": name, "rows": got.shape[0],
+          "reference": "world 1, plain kernels, the served path's expert choices",
+          "rel_l2_err": rel, "max_abs_err": row_err.max().item(),
+          "argmax_agree": agree.float().mean().item(),
+          "rows_disagreeing_within_a_tie": int((~agree & tie).sum().item()),
+          "tol_rel_l2": 5e-2,
+          "free_running": {
+              "rel_l2_err": ((got - free_logits).norm() / free_logits.norm()).item(),
+              "argmax_agree": (got.argmax(-1) == free_logits.argmax(-1)).float().mean().item(),
+              "routing_flip_share_per_layer": flips}})
+    if not (got.isfinite().all().item() and rel <= 5e-2 and bool((agree | tie).all())):
+        raise AssertionError(f"{name}: rel L2 {rel}, argmax {agree.tolist()}, "
+                             f"within a tie {tie.tolist()}")
+
+
+def phase_moe_profile(cfg, params, ctx=None) -> None:
+    """Where an MoE cell's time goes, at world 1 (`ctx` None) or on the
+    ranks of `ctx`: torch.profiler over the batcher step that admits one
+    256-token request (its bulk prefill over the batch's 8 x 256 rows, then
+    one decode round) and over three decode steps; each against its host
+    wall time (synchronised), with the kernel time summed over every stream
+    (at world 4, the four ranks'), the launches and the costliest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+
+    batcher = ContinuousBatcher(cfg, params, s_max=1024, page_size=16, prefill=True, ctx=ctx)
+    warm, req = _requests(cfg.vocab, [256, 256], 24, seed=34)
+    batcher.submit(warm)
+    for _ in range(2):  # admission + decode warm-up
+        batcher.step()
+
+    def window(fn, steps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+        return {"wall_ms": wall, "kernel_ms_all_streams": busy,
+                "launches": sum(e.count for e in kernels) / steps,
+                "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 / steps
+                                   for e in top}}
+
+    batcher.submit(req)
+    admit = window(batcher.step, 1)
+    decode = window(batcher.step, 3)
+    emit({"phase": "moe_profile", "world": 1 if ctx is None else ctx.world,
+          "admission_step": admit, "decode_step": decode,
+          "note": "admission step = one bulk prefill (8 x 256 rows) + one decode round"})
+    del batcher
+
+
+def phase_serve_moe(counters: Counters) -> tuple[dict, dict]:
+    """World 1: Mixtral-8x7B widths (hidden 4096, ffn 14336, 8 experts,
+    top-2, 32 q / 8 kv heads, head dim 128, vocab 32000) cut to 8 of 32
+    layers, bf16, batch 8, s_max 1024, 16-token pages, bulk prefill, the 8
+    requests of phase 4; then world 4 on the one card (phase 12) on the
+    same weights, and both serves' prefill logits against the world-1
+    plain-kernel forward."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import init_moe_params, shard_params
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    n_layers = 8
+    cfg = presets.preset(MOE_MODEL, n_layers=n_layers, batch=8, dtype=torch.bfloat16)
+    params = init_moe_params(cfg, seed=30)
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    reqs = _requests(cfg.vocab, lengths, 32, seed=31)
+    one = _serve(cfg, params, reqs, counters)
+    launches = one["launches"]
+    if any(launches[k] <= 0 for k in ("group_gemm", "gemm", "paged_flash_decode")):
+        raise AssertionError(f"serve_moe skipped a kernel: {launches}")
+    emit({"phase": "serve_moe", "model": MOE_MODEL, "n_layers": n_layers, "world": 1,
+          "batch": 8, "s_max": 1024, "page_size": 16, "prompt_lens": lengths,
+          "max_new_tokens": 32, **one})
+
+    L = 128
+    flat = _prompt_tokens(reqs, cfg.batch, L)
+    pcfg = dataclasses.replace(cfg, seq=L)
+    rows = torch.arange(cfg.batch, device="cuda") * L + L - 1
+    make_served, make_plain = _moe_models()
+    served = make_served(pcfg)
+    with torch.inference_mode():
+        got = served(flat, params)[rows].float()
+    _check_moe_logits("serve_moe_logits", got, served.routes, make_plain, pcfg, flat, params,
+                      rows)
+    phase_moe_profile(cfg, params)
+
+    ctx = initialize_distributed(WORLD)
+    tp4 = _serve(cfg, params, reqs, counters, ctx=ctx)
+    launches4 = tp4["launches"]
+    used = ("ag_group_gemm", "moe_reduce_rs", "group_gemm", "ag_gemm", "gemm_rs", "gemm",
+            "all_gather", "paged_flash_decode", "barrier")
+    if any(launches4[k] <= 0 for k in used):
+        raise AssertionError(f"serve_moe_tp4 skipped a kernel: {launches4}")
+    emit({"phase": "serve_moe_tp4", "model": MOE_MODEL, "n_layers": n_layers, "world": WORLD,
+          "batch": 8, "s_max": 1024, "page_size": 16, "prompt_lens": lengths,
+          "max_new_tokens": 32, **tp4})
+    shards = shard_params(params, WORLD, ctx.devices)
+    m_loc = flat.numel() // WORLD
+
+    def rank_logits():
+        r = ctx.rank
+        model = make_served(pcfg, ctx=ctx)
+        out = model(flat[r * m_loc:(r + 1) * m_loc], shards[r])
+        return out[rows].float(), model.routes
+
+    outs = ctx.run(rank_logits)
+    del shards
+    # the ranks route their own token shards: rank order is token order
+    routes = [tuple(torch.cat([o[1][li][j] for o in outs]) for j in (0, 1))
+              for li in range(n_layers)]
+    _check_moe_logits("serve_moe_tp4_logits", torch.cat([o[0] for o in outs], dim=1), routes,
+                      make_plain, pcfg, flat, params, rows)
+    phase_moe_profile(cfg, params, ctx)
+    ctx.close()
+    return launches, launches4
+
+
+def phase_f32_parity_moe() -> None:
+    """f32, 2 MoE layers at full Mixtral width: greedy tokens of the kernel
+    path on the card (K8 f32 at world 1; K9, K10, K6, K7 f32 at world 4)
+    identical to the plain path on the CPU (the wrappers' twins), TF32 off."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+    from triton_dist_tpu_torch.models.tp_transformer import init_moe_params
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = presets.preset(MOE_MODEL, n_layers=2, batch=4, dtype=torch.float32)
+    params = init_moe_params(cfg, seed=32)
+    params_cpu = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    params_cpu["layers"] = [{k: v.cpu() for k, v in p.items()} for p in params["layers"]]
+    lengths, max_new = [12, 20, 33, 40], 8
+
+    def run(p, device, world):
+        ctx = initialize_distributed(world, device=device) if world > 1 else None
+        b = ContinuousBatcher(cfg, p, s_max=256, page_size=16, prefill=True, device=device,
+                              ctx=ctx)
+        for r in _requests(cfg.vocab, lengths, max_new, seed=33):
+            b.submit(r)
+        out = dict(b.run())
+        if ctx is not None:
+            ctx.close()
+        return out
+
+    times = {}
+    for world in (1, WORLD):
+        t0 = time.perf_counter()
+        want = run(params_cpu, "cpu", world)
+        t1 = time.perf_counter()
+        got = run(params, "cuda", world)
+        times[world] = (t1 - t0, time.perf_counter() - t1)
+        if got != want:
+            raise AssertionError(f"world-{world} MoE f32 greedy tokens differ: {got} vs {want}")
+    emit({"phase": "f32_parity_moe", "model": MOE_MODEL, "n_layers": 2, "worlds": [1, WORLD],
+          "requests": len(lengths), "max_new_tokens": max_new, "identical": True,
+          "cpu_reference_s": {w: t[0] for w, t in times.items()},
+          "card_s": {w: t[1] for w, t in times.items()}})
+
+
 def main() -> int:
     try:
         import torch
@@ -1024,6 +1679,7 @@ def main() -> int:
     phase_build()
     counters = Counters()
     entries = [phase_gemm(), phase_flash_decode(), phase_paged_flash_decode()]
+    moe_entries = [phase_group_gemm()]
     torch.cuda.empty_cache()
     paged = phase_serve(counters)
     torch.cuda.empty_cache()
@@ -1036,18 +1692,28 @@ def main() -> int:
     ctx = initialize_distributed(WORLD)
     dist_entries = [phase_barrier(ctx), phase_all_gather(ctx), phase_ag_gemm(ctx),
                     phase_gemm_rs(ctx)]
+    moe_entries += [phase_ag_group_gemm(ctx), phase_moe_reduce_rs(ctx)]
     ctx.close()
     phase_stuck_wait()
+    phase_stuck_wait_moe()
     torch.cuda.empty_cache()
     tp4 = phase_serve_tp4(counters)
     torch.cuda.empty_cache()
     phase_f32_parity_tp4()
+    torch.cuda.empty_cache()
+    moe1, moe4 = phase_serve_moe(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_moe()
     entries[0]["launches"] = paged["gemm"]
     entries[1]["launches"] = contiguous["flash_decode"]
     entries[2]["launches"] = paged["paged_flash_decode"]
     for entry, key in zip(dist_entries, ("barrier", "all_gather", "ag_gemm", "gemm_rs")):
         entry["launches"] = tp4[key]
     entries += dist_entries
+    moe_entries[0]["launches"] = moe1["group_gemm"]
+    moe_entries[1]["launches"] = moe4["ag_group_gemm"]
+    moe_entries[2]["launches"] = moe4["moe_reduce_rs"]
+    entries += moe_entries
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

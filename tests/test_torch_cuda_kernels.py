@@ -1,10 +1,11 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions on
-the card (GEMM K1, flash decode K2, paged flash decode K3, and at world 2
-and 4 with every rank on the one card: barrier K4, full-mesh allgather K5,
-AG-GEMM K6, GEMM-RS K7, plus a stuck wait that must raise with its
-record). Every test here carries the ``cuda`` marker and skips without a
-card. The file imports neither JAX nor the JAX package, so it also runs
-where JAX is absent:
+the card (GEMM K1, flash decode K2, paged flash decode K3, grouped GEMM K8,
+and at world 2 and 4 with every rank on the one card: barrier K4,
+full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7, AG-GroupGEMM K9,
+MoE-Reduce-RS K10, plus stuck waits that must raise with their records).
+Every test here carries the ``cuda`` marker and skips without a card. The
+file imports neither JAX nor the JAX package, so it also runs where JAX is
+absent:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 """
@@ -22,10 +23,14 @@ import torch  # noqa: E402
 from triton_dist_tpu_torch import config  # noqa: E402
 from triton_dist_tpu_torch.ops import allgather as tag  # noqa: E402
 from triton_dist_tpu_torch.ops import allgather_gemm as tagg  # noqa: E402
+from triton_dist_tpu_torch.ops import allgather_group_gemm as taggg  # noqa: E402
 from triton_dist_tpu_torch.ops import common as tcommon  # noqa: E402
 from triton_dist_tpu_torch.ops import flash_decode as tfd  # noqa: E402
 from triton_dist_tpu_torch.ops import gemm as tgemm  # noqa: E402
 from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs  # noqa: E402
+from triton_dist_tpu_torch.ops import group_gemm as tgg  # noqa: E402
+from triton_dist_tpu_torch.ops import moe_reduce_rs as tmrs  # noqa: E402
+from triton_dist_tpu_torch.ops import moe_utils as tmu  # noqa: E402
 from triton_dist_tpu_torch.parallel.mesh import initialize_distributed  # noqa: E402
 from triton_dist_tpu_torch.resilience.records import DistTimeoutError  # noqa: E402
 
@@ -93,6 +98,39 @@ def test_flash_decode_kernels_match_plain(cuda, dtype, name):
     for o, lse in (got, pgot):
         torch.testing.assert_close(o, want[0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(lse, want[1], rtol=1e-4, atol=1e-4)
+
+
+def _moe_routing(gen, tokens, n_exp, topk, device):
+    """Distinct top-k experts per token, skewed towards the low ids."""
+    scores = torch.rand((tokens, n_exp), generator=gen, device=device)
+    scores += torch.linspace(0.5, 0.0, n_exp, device=device)
+    ids = scores.argsort(dim=1, descending=True)[:, :topk].to(torch.int32)
+    w = torch.rand((tokens, topk), generator=gen, device=device) + 0.1
+    return ids, w / w.sum(dim=1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32)])
+@pytest.mark.parametrize("act", [False, True], ids=["plain", "gelu"])
+@pytest.mark.parametrize("tokens,k,n", [(100, 256, 300), (7, 72, 40)])
+def test_group_gemm_kernel_matches_plain(cuda, dtype, out_dtype, act, tokens, k, n):
+    n_exp, topk, bm = 4, 2, 128
+    g = torch.Generator(device="cuda").manual_seed(tokens)
+    ids, _ = _moe_routing(g, tokens, n_exp, topk, cuda)
+    al = tmu.moe_align_block_size(ids.reshape(-1), n_exp, bm)
+    a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g, device=cuda).to(dtype)
+    b = (torch.randn((n_exp, k, n), generator=g, device=cuda) / k**0.5).to(dtype)
+    act_fn = tgg.gelu if act else None
+    before = tgg.group_gemm.launches
+    got = tgg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype, act_fn=act_fn)
+    torch.cuda.synchronize()
+    assert tgg.group_gemm.launches == before + 1
+    want = tgg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act_fn)
+    # bf16 inputs: one bf16 ulp of the output scale (the GELU may round an
+    # A element the other way too); f32: the sums differ only in order
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want.float())
 
 
 # ---- world > 1: every rank on the one card, each on its own stream ----
@@ -196,3 +234,98 @@ def test_stuck_wait_raises_with_its_record(cuda):
     assert rec["expected"] == 2 and rec["observed"] == 1
     with pytest.raises(RuntimeError, match="failed earlier"):
         ctx.run(body)
+
+
+def _ranked_inputs(gen, world, m_loc, n_exp, topk, bm, device):
+    ids, w = _moe_routing(gen, world * m_loc, n_exp, topk, device)
+    ral = tmu.moe_align_ranked(ids.reshape(world, -1), n_exp, bm, m_loc)
+    return ral, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ag_group_gemm_kernel_matches_plain(cuda, world, dtype):
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(world)
+    n_exp, topk, bm = 4, 2, 128
+    # two shapes back to back: the workspace grows, epochs rise
+    for m_loc, k, n_loc in ((40, 256, 300), (100, 128, 96)):
+        ral, _ = _ranked_inputs(g, world, m_loc, n_exp, topk, bm, cuda)
+        x = [torch.randn((m_loc, k), generator=g, device=cuda).to(dtype) for _ in range(world)]
+        b = (torch.randn((n_exp, k, n_loc), generator=g, device=cuda) / k**0.5).to(dtype)
+        # every rank's expert-sorted slab, rank-major
+        slabs = torch.cat([x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(world)])
+        want = tgg._group_gemm_plain(slabs, b, ral.expert_ids.reshape(-1), bm, dtype, None)
+        before = taggg.ag_group_gemm_overlap.launches
+        outs = ctx.run(lambda: taggg.ag_group_gemm_overlap(x[ctx.rank], b, ral, ctx=ctx,
+                                                           gather_output=True))
+        assert taggg.ag_group_gemm_overlap.launches == before + world
+        for out, ag in outs:
+            assert torch.equal(ag, slabs)
+            assert (out.float() - want.float()).abs().max().item() <= _tol(dtype, want.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_reduce_rs_kernel_matches_plain(cuda, world, dtype):
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(10 + world)
+    n_exp, topk, bm = 4, 2, 128
+    for m_loc, f_loc, h in ((40, 256, 300), (100, 128, 520)):
+        ral, w = _ranked_inputs(g, world, m_loc, n_exp, topk, bm, cuda)
+        dst, w_rows = tmu.ranked_scatter_meta(ral, w)
+        inv = tmu.ranked_combine_rows(ral, m_loc, topk)
+        rows = world * ral.t_pad_loc
+        hs = [torch.randn((rows, f_loc), generator=g, device=cuda).to(dtype)
+              for _ in range(world)]
+        wd = [(torch.randn((n_exp, f_loc, h), generator=g, device=cuda) / f_loc**0.5).to(dtype)
+              for _ in range(world)]
+
+        def body():
+            r = ctx.rank
+            got = tmrs.moe_reduce_rs_overlap(hs[r], wd[r], ral.expert_ids, dst, w_rows,
+                                             ctx=ctx, m_out=m_loc, combine_rows=inv)
+            want = tmrs._moe_rs_overlap_xla(hs[r], wd[r], ral.expert_ids, dst, w_rows, ctx,
+                                            m_loc, dtype)
+            return got, want
+
+        before = tmrs.moe_reduce_rs_overlap.launches
+        outs = ctx.run(body)
+        assert tmrs.moe_reduce_rs_overlap.launches == before + world
+        for got, want in outs:
+            # bf16: each peer's partial is rounded to bf16 before the sum
+            tol = _tol(dtype, want.float()) * (2 if dtype == torch.bfloat16 else 1)
+            assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_moe_reduce_rs_stuck_wait_raises_with_its_record(cuda):
+    """Rank 1's stream is held for 2 s before its MoE-Reduce-RS: rank 0's
+    entry-barrier wait (0.2 s) expires and the run raises with a record
+    naming rank 0, the moe_rs family and site 1 — it does not hang."""
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ral, w = _ranked_inputs(g, 2, 16, 4, 2, 128, cuda)
+    dst, w_rows = tmu.ranked_scatter_meta(ral, w)
+    inv = tmu.ranked_combine_rows(ral, 16, 2)
+    hs = torch.randn((2 * ral.t_pad_loc, 64), generator=g, device=cuda)
+    wd = torch.randn((4, 64, 32), generator=g, device=cuda)
+
+    def call():
+        return tmrs.moe_reduce_rs_overlap(hs, wd, ral.expert_ids, dst, w_rows, ctx=ctx,
+                                          m_out=16, combine_rows=inv)
+
+    ctx.run(call)  # the buffers and flags exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return call()
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    (rec,) = err.value.records
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (0, "moe_rs", 1, "barrier_all")

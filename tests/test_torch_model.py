@@ -127,8 +127,9 @@ def test_presets_and_seeded_init():
     assert (cfg.hidden, cfg.ffn, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.vocab, cfg.n_layers, cfg.dtype) == (
         4096, 14336, 32, 8, 128, 128256, 32, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tpresets.preset("mixtral-8x7b")
+    assert isinstance(tpresets.preset("mixtral-8x7b"), ttm.MoETransformerConfig)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tpresets.preset("mixtral-8x7b:ep")
     with pytest.raises(KeyError):
         tpresets.preset("no-such-model")
     # CPU only on request: the seeded init is reproducible there

@@ -11,6 +11,15 @@
 //                                         _gemm_rs_scatter_kernel (its
 //                                         own-chunk GEMM with the n-1
 //                                         landed chunks in the epilogue)
+//   K9 tdt_ag_group_gemm_consumer       ≙ ops/gg_pipeline.py:288
+//                                         make_ag_overlap_kernel, launched
+//                                         at ops/allgather_group_gemm.py:235
+//                                         (K6's consumer over expert banks)
+//   K10 tdt_moe_combine_push,           ≙ ops/gg_pipeline.py:576
+//       tdt_moe_rs_reduce                 make_moe_rs_overlap_kernel,
+//                                         launched at ops/moe_reduce_rs.py:236
+//                                         (its grouped GEMMs are K8,
+//                                         csrc/group_gemm.cu)
 //
 // plus the producer side of K6/K7: tdt_put_signal (copy-engine puts, then
 // one flag kernel), and tdt_sleep (a per-rank skew for barrier stress).
@@ -19,7 +28,11 @@
 // What bounds them on the H100. K4 and K5 are latency-bound: a barrier is
 // one flag round trip through L2 (or NVLink), K5's payload at the served
 // shape is 264 KB a rank. K6 and K7 are the K1 GEMM with waits in front of
-// its tiles, bound by tensor-core throughput at prefill shapes.
+// its tiles, bound by tensor-core throughput at prefill shapes; so is K9,
+// whose B operand hops between experts. K10's combine and reduce stream
+// bytes: each destination's [m_out, H] partial is gathered from two f32
+// rows a token, written once into the owner's landing slot and read once
+// by the owner's reduce.
 //
 // What the design does about it. The ranks share the card and their
 // kernels run at once on their own streams, which raises two hazards the
@@ -42,10 +55,19 @@
 //   issue their producers, meet, then launch the consumer.
 //
 // K6 walks shards in arrival order (me, me-1, ...), as the TPU ring does,
-// and waits on a shard's flag before the first of its tiles; K7 runs its
-// own chunk's k loop first and waits for the landed chunks only before the
-// epilogue that adds them. Every wait is bounded (shmem.cuh). K5 moves its
-// small payload with SM stores (putmem_signal_nbi_block), one block a peer.
+// and waits on a shard's flag before the first of its tiles; K9 is the same
+// consumer over a gathered workspace of expert-sorted slabs, each M tile
+// multiplying the expert bank its row block names. K7 runs its own chunk's
+// k loop first and waits for the landed chunks only before the epilogue
+// that adds them. K10 is three steps per destination c (own chunk last):
+// K8 computes c's aligned rows into a private f32 buffer, the combine
+// kernel gathers each token's topk rows and sums them in k order (the
+// gather form: deterministic, no atomics) straight into c's landing slot
+// for this rank, and a one-warp kernel raises c's flag; after the host
+// rendezvous the reduce kernel waits for the peers' flags and sums the n
+// slots in rank order in f32. Every wait is bounded (shmem.cuh). K5 moves
+// its small payload with SM stores (putmem_signal_nbi_block), one block a
+// peer.
 
 #include "gemm_core.cuh"
 #include "shmem.cuh"
@@ -96,14 +118,16 @@ __global__ void all_gather_collect_kernel(unsigned char* out, long long shard_by
                           shard_bytes);
 }
 
-// ------------------------------------------------------------------ K6 ----
+// -------------------------------------------------------------- K6, K9 ----
 // out[c*m_loc:(c+1)*m_loc] = ws[c*m_loc:(c+1)*m_loc] @ b for every shard
 // c, shards in arrival order me, me-1, ..., tiles of a shard n-fastest.
-template <class E, typename TOut>
+// GROUPED (K9): b is an expert bank and the B of a tile is the one its row
+// block names in shard c's expert ids (g.ids + c * m_loc / block_m).
+template <class E, typename TOut, bool GROUPED>
 __global__ void __launch_bounds__(E::THREADS, 1)
     ag_gemm_kernel(const typename E::TIn* __restrict__ ws, const typename E::TIn* __restrict__ b,
                    TOut* __restrict__ out, int m_loc, int n, int k, int vec, int world, int me,
-                   const int* flags, int epoch, WaitCtx w) {
+                   const int* flags, int epoch, WaitCtx w, Groups g) {
   const int tiles_n = cdiv(n, E::BN);
   const int per_shard = cdiv(m_loc, E::BM) * tiles_n;
   const int total = per_shard * world;
@@ -118,8 +142,14 @@ __global__ void __launch_bounds__(E::THREADS, 1)
     }
     __syncthreads();  // the previous tile's last reads of shared memory
     const int m0 = (r / tiles_n) * E::BM, n0 = (r % tiles_n) * E::BN;
+    size_t b_off = 0;
+    if constexpr (GROUPED) {
+      Groups gc = g;
+      gc.ids += c * (m_loc / g.block_m);
+      b_off = gc.b_offset(m0, k, n);
+    }
     typename E::Acc acc;
-    E::mainloop(ws + (size_t)c * m_loc * k, b, m_loc, n, k, m0, n0, vec, acc);
+    E::mainloop(ws + (size_t)c * m_loc * k, b + b_off, m_loc, n, k, m0, n0, vec, acc);
     E::template store<false>(acc, out + (size_t)c * m_loc * n, m_loc, n, m0, n0, none);
   }
 }
@@ -150,6 +180,55 @@ __global__ void __launch_bounds__(E::THREADS, 1)
     }
     E::template store<true>(acc, out, m_loc, n, m0, n0, adds);
   }
+}
+
+// ----------------------------------------------------------------- K10 ----
+// One destination's partial: dst[t, :] = sum_k w[rows[t,k]] * y[rows[t,k], :]
+// for the m_out tokens t of the chunk (rows: the aligned row of each
+// token's k-th assignment). f32, the products and sums rounded one by one
+// in k order, as the plain scatter-add does them; the stores go straight
+// into the destination's landing slot (a peer's memory), fenced at
+// system scope so the flag raised after this kernel orders after them.
+template <typename TOut>
+__global__ void moe_combine_kernel(const float* __restrict__ y, const int* __restrict__ rows,
+                                   const float* __restrict__ w, TOut* dst, int h, int topk) {
+  const int t = blockIdx.y;
+  const int* r = rows + (size_t)t * topk;
+  for (int col = blockIdx.x * blockDim.x + threadIdx.x; col < h; col += gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int kk = 0; kk < topk; ++kk) {
+      const int row = r[kk];
+      acc = __fadd_rn(acc, __fmul_rn(w[row], y[(size_t)row * h + col]));
+    }
+    dst[(size_t)t * h + col] = from_f32<TOut>(acc);
+  }
+  shmem::quiet();
+}
+
+// out[i] = slots[0][i] + ... + slots[world-1][i] in f32 (slot r: rank r's
+// partial of this rank's tokens), once every peer's flag has risen; every
+// block waits for every peer before it reads.
+template <typename TOut>
+__global__ void moe_rs_reduce_kernel(const TOut* __restrict__ slots, TOut* __restrict__ out,
+                                     long long count, int world, int me, const int* flags,
+                                     int epoch, WaitCtx w) {
+  const int d = threadIdx.x;
+  if (d < world && d != me) shmem::wait_until_ge(flags + d, epoch, w, world + d, shmem::KIND_SIGNAL);
+  __threadfence();
+  __syncthreads();
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = to_f32<TOut>(slots[i]);
+    for (int r = 1; r < world; ++r) acc = __fadd_rn(acc, to_f32<TOut>(slots[r * count + i]));
+    out[i] = from_f32<TOut>(acc);
+  }
+}
+
+template <typename F>
+cudaError_t dispatch_out(int out_dtype, F&& f) {
+  if (out_dtype == kF32) return f(float{});
+  if (out_dtype == kBF16) return f(bf16{});
+  return cudaErrorInvalidValue;
 }
 
 // the flags a producer sets after its copies, by value in the arguments
@@ -250,6 +329,35 @@ extern "C" int tdt_put_signal(int n_dst, const long long* dsts, const void* src,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <bool GROUPED>
+cudaError_t launch_ag_consumer(const void* ws, const void* b, void* out, int m_loc, int n,
+                               int k, int in_dtype, int out_dtype, int world, int me,
+                               const void* flags, int epoch, int max_blocks, const WaitCtx& w,
+                               const Groups& g, cudaStream_t s) {
+  return dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
+    using E = decltype(e);
+    using TOut = decltype(t);
+    const int vec = in_dtype == kBF16 ? bf16_vec_ok(ws, b, n, k) : 0;
+    if (E::SMEM_BYTES > 0) {
+      cudaError_t attr = cudaFuncSetAttribute(ag_gemm_kernel<E, TOut, GROUPED>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              E::SMEM_BYTES);
+      if (attr != cudaSuccess) return attr;
+    }
+    const int tiles = cdiv(m_loc, E::BM) * cdiv(n, E::BN) * world;
+    ag_gemm_kernel<E, TOut, GROUPED>
+        <<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
+            static_cast<const typename E::TIn*>(ws), static_cast<const typename E::TIn*>(b),
+            static_cast<TOut*>(out), m_loc, n, k, vec, world, me,
+            static_cast<const int*>(flags), epoch, w, g);
+    return cudaSuccess;
+  });
+}
+
+}  // namespace
+
 // K6: ws [world * m_loc, k] (this rank's gather workspace), b [k, n], out
 // [world * m_loc, n]; flags this rank's int32[world] arrival flags.
 extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, int m_loc,
@@ -258,25 +366,30 @@ extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, in
                                     void* diag, long long timeout_ns, int family,
                                     void* stream) {
   if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
-  cudaError_t err = dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
-    using E = decltype(e);
-    using TOut = decltype(t);
-    const int vec = in_dtype == kBF16 ? bf16_vec_ok(ws, b, n, k) : 0;
-    if (E::SMEM_BYTES > 0) {
-      cudaError_t attr = cudaFuncSetAttribute(ag_gemm_kernel<E, TOut>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              E::SMEM_BYTES);
-      if (attr != cudaSuccess) return attr;
-    }
-    const int tiles = cdiv(m_loc, E::BM) * cdiv(n, E::BN) * world;
-    ag_gemm_kernel<E, TOut><<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
-        static_cast<const typename E::TIn*>(ws), static_cast<const typename E::TIn*>(b),
-        static_cast<TOut*>(out), m_loc, n, k, vec, world, me,
-        static_cast<const int*>(flags), epoch, w);
-    return cudaSuccess;
-  });
+  const Groups none = {nullptr, 1, 1};
+  cudaError_t err = launch_ag_consumer<false>(
+      ws, b, out, m_loc, n, k, in_dtype, out_dtype, world, me, flags, epoch, max_blocks,
+      wait_ctx(diag, timeout_ns, me, family), none, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9: ws [world * t_pad_loc, k] (the gathered expert-sorted slabs), b
+// [n_exp, k, n], expert_ids int32 [world, t_pad_loc / block_m], out
+// [world * t_pad_loc, n]; block_m a multiple of 128 dividing t_pad_loc.
+extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b,
+                                          const void* expert_ids, void* out, int t_pad_loc,
+                                          int n, int k, int n_exp, int block_m, int in_dtype,
+                                          int out_dtype, int world, int me, const void* flags,
+                                          int epoch, int max_blocks, void* diag,
+                                          long long timeout_ns, int family, void* stream) {
+  if (world < 2 || world > MAX_WORLD || block_m <= 0 || block_m % 128 != 0 ||
+      t_pad_loc % block_m != 0 || n_exp < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp};
+  cudaError_t err = launch_ag_consumer<true>(
+      ws, b, out, t_pad_loc, n, k, in_dtype, out_dtype, world, me, flags, epoch, max_blocks,
+      wait_ctx(diag, timeout_ns, me, family), g, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -307,6 +420,52 @@ extern "C" int tdt_gemm_rs_reduce(const void* a, const void* b, void* out, int m
         static_cast<const typename E::TIn*>(a), static_cast<const typename E::TIn*>(b),
         static_cast<TOut*>(out), m_loc, n, k, vec, world, static_cast<const int*>(flags),
         epoch, make_adds<TOut>(recv, world - 1), w);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10, the combine of one destination: y [t_pad_loc, h] f32 (that
+// destination's grouped-GEMM rows), rows int32 [m_out, topk], w f32
+// [t_pad_loc], dst [m_out, h] in the output type (the destination's
+// landing slot for this rank).
+extern "C" int tdt_moe_combine_push(const void* y, const void* rows, const void* w, void* dst,
+                                    int m_out, int h, int topk, int out_dtype, void* stream) {
+  if (m_out < 0 || m_out > 65535 || h < 1 || topk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m_out == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dispatch_out(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    const dim3 grid(cdiv(h, 256) < 8 ? cdiv(h, 256) : 8, m_out);
+    moe_combine_kernel<TOut><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(y), static_cast<const int*>(rows),
+        static_cast<const float*>(w), static_cast<TOut*>(dst), h, topk);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10, the owner's reduce: slots [world, count] in the output type (this
+// rank's landing slots), out [count]; flags this rank's int32[world]
+// landing flags (slot me is its own, written earlier on this stream).
+extern "C" int tdt_moe_rs_reduce(const void* slots, void* out, long long count, int out_dtype,
+                                 int world, int me, const void* flags, int epoch,
+                                 int max_blocks, void* diag, long long timeout_ns, int family,
+                                 void* stream) {
+  if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
+  cudaError_t err = dispatch_out(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    const long long want = (count + 255) / 256;
+    const int blocks = persistent_grid(want < (1 << 30) ? static_cast<int>(want) : (1 << 30),
+                                       max_blocks);
+    moe_rs_reduce_kernel<TOut><<<blocks, 256, 0, s>>>(
+        static_cast<const TOut*>(slots), static_cast<TOut*>(out), count, world, me,
+        static_cast<const int*>(flags), epoch, w);
     return cudaSuccess;
   });
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -11,6 +11,11 @@
 // (no TF32), the reference precision. Ragged edges are zero-filled on load
 // and masked on store. The source note in csrc/gemm.cu says what bounds
 // them and why.
+//
+// mainloop<true> applies the tanh GELU to every A element once it is in
+// shared memory, in f32, rounded back to A's type: the fused producer
+// activation of the grouped GEMM (csrc/group_gemm.cu). Groups selects the
+// B operand of an M tile by its row block's expert (the grouped GEMMs).
 
 #pragma once
 
@@ -43,6 +48,31 @@ template <typename T> struct AddList {
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The tanh form of GELU (jax.nn.gelu's default, torch's approximate="tanh"),
+// in torch's operation order.
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k_beta = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float k_kappa = 0.044715f;
+  const float inner = k_beta * (x + k_kappa * (x * x * x));
+  return 0.5f * x * (1.f + tanhf(inner));
+}
+
+// Expert banks of a grouped GEMM: B is [n_exp, k, n]; rows [i*block_m,
+// (i+1)*block_m) of A multiply B[ids[i]] (ids clamped into the bank, as
+// the JAX package's golden clamps them). block_m is a multiple of every
+// engine's BM, so an M tile never straddles two experts.
+struct Groups {
+  const int* ids;
+  int block_m;
+  int n_exp;
+
+  __device__ __forceinline__ size_t b_offset(int m0, int k, int n) const {
+    int e = ids[m0 / block_m];
+    e = e < 0 ? 0 : (e >= n_exp ? n_exp - 1 : e);
+    return (size_t)e * k * n;
+  }
+};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -152,6 +182,7 @@ struct Bf16Engine {
   // A block that runs several tiles (the persistent consumers) calls
   // __syncthreads() between them: the prologue below overwrites stages the
   // previous tile's last step read.
+  template <bool ACT = false>
   __device__ static __forceinline__ void mainloop(const bf16* __restrict__ a,
                                                   const bf16* __restrict__ b, int m, int n,
                                                   int k, int m0, int n0, int vec, Acc& acc) {
@@ -181,6 +212,14 @@ struct Bf16Engine {
       // tile kt has landed for every thread, and every warp has finished
       // reading the stage the next prefetch overwrites (tile kt - 1's)
       __syncthreads();
+      if constexpr (ACT) {
+        bf16* at_w = as + (kt % STAGES) * A_STAGE;
+        for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
+          bf16* p = at_w + (i / BK) * A_LD + i % BK;
+          *p = __float2bfloat16(gelu_tanh(__bfloat162float(*p)));
+        }
+        __syncthreads();
+      }
       const int pre = kt + STAGES - 1;
       if (pre < nk) {
         const int ps = pre % STAGES;
@@ -253,6 +292,7 @@ struct F32Engine {
     float v[4][4];
   };
 
+  template <bool ACT = false>
   __device__ static __forceinline__ void mainloop(const float* __restrict__ a,
                                                   const float* __restrict__ b, int m, int n,
                                                   int k, int m0, int n0, int, Acc& acc) {
@@ -268,7 +308,8 @@ struct F32Engine {
       for (int i = 0; i < 4; ++i) {
         const int e = tid + i * 256;
         const int ra = e / FK, ka = e % FK;
-        as[ka][ra] = (m0 + ra < m && k0 + ka < k) ? a[(size_t)(m0 + ra) * k + k0 + ka] : 0.f;
+        const float av = (m0 + ra < m && k0 + ka < k) ? a[(size_t)(m0 + ra) * k + k0 + ka] : 0.f;
+        as[ka][ra] = ACT ? gelu_tanh(av) : av;
         const int kb = e / BN, cb = e % BN;
         bs[kb][cb] = (k0 + kb < k && n0 + cb < n) ? b[(size_t)(k0 + kb) * n + n0 + cb] : 0.f;
       }

@@ -23,6 +23,12 @@ dropped — the JAX package's ownership rule, kept so parked rows behave
 alike. At world > 1 the step functions run once per rank inside
 ``ctx.run`` (``parallel/mesh.py``); the batcher drives them.
 
+A :class:`~triton_dist_tpu_torch.models.tp_transformer.MoETransformerConfig`
+serves the MoE decoder: prefill runs ``TPMoETransformer`` (K8 at world 1,
+K9/K10 at world > 1), and a decode step's MLP computes every expert on its
+few rows with dense einsums, a one-hot top-k combine and the ``psum``, in
+plain PyTorch as the JAX package leaves it to XLA (``:446-481``).
+
 Later slices: prefix caching, chunked and ranged prefill, hierarchical
 EP serving (these raise ``NotImplementedError``).
 """
@@ -37,18 +43,23 @@ import torch
 
 from triton_dist_tpu_torch.config import resolve_device
 from triton_dist_tpu_torch.models.tp_transformer import (
+    MoETransformerConfig,
+    TPMoETransformer,
     TPTransformer,
     TransformerConfig,
     apply_rope,
     rmsnorm,
     rope_tables,
+    check_moe_params,
     shard_params,
 )
+from triton_dist_tpu_torch.ops.group_gemm import gelu
 from triton_dist_tpu_torch.ops.flash_decode import (
     FlashDecodeConfig,
     flash_decode_distributed,
     paged_flash_decode_distributed,
 )
+from triton_dist_tpu_torch.ops.moe_utils import select_experts
 from triton_dist_tpu_torch.utils import axis_index, axis_size
 
 
@@ -260,12 +271,32 @@ def decode_step(
         # row-parallel out-projection on the rank's head slice, then psum
         attn = attn[:, me * hq_loc:(me + 1) * hq_loc].reshape(c.batch, -1).to(x.dtype)
         x = x + _psum(ctx, attn @ p["wo"])
-        h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
-        gu = (h @ p["w_gate_up"].reshape(c.hidden, -1)).reshape(c.batch, -1, 2)
-        act = torch.nn.functional.silu(gu[..., 0].float()).to(x.dtype) * gu[..., 1]
-        x = x + _psum(ctx, act @ p["w_down"])
+        x = _decode_mlp(c, x, p, ctx)
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
     return _all_gather(ctx, x @ params["lm_head"], dim=1), cache
+
+
+def _decode_mlp(c, x: torch.Tensor, p: dict, ctx) -> torch.Tensor:
+    """The MLP residual of a decode step on the ``[m, H]`` replicated rows
+    (≙ ``_decode_mlp``, ``:407``): dense SwiGLU, or for the MoE decoder
+    every expert's F shard on every row (dense einsums: at decode row counts
+    every expert's weights stream anyway) and a one-hot top-k combine; then
+    the ``psum`` of the rank's partial."""
+    m = x.shape[0]
+    h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
+    if not isinstance(c, MoETransformerConfig):
+        gu = (h @ p["w_gate_up"].reshape(c.hidden, -1)).reshape(m, -1, 2)
+        act = torch.nn.functional.silu(gu[..., 0].float()).to(x.dtype) * gu[..., 1]
+        return x + _psum(ctx, act @ p["w_down"])
+    tw, ids = select_experts(h.float() @ p["router"].float(), c.topk)    # [m, topk]
+    # matmul broadcasts h over the experts; einsum would copy the bank
+    h_e = torch.matmul(h, p["w_up"]).float()                             # [E, m, F/n]
+    act = gelu(h_e).to(x.dtype)
+    y_e = torch.einsum("ebf,efh->ebh", act, p["w_down"]).float()
+    w_e = torch.zeros((m, c.n_experts), dtype=torch.float32, device=x.device)
+    w_e.scatter_add_(1, ids.long(), tw)
+    y = torch.einsum("be,ebh->bh", w_e, y_e)
+    return x + _psum(ctx, y.to(x.dtype))
 
 
 def _all_gather(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -304,7 +335,8 @@ def prefill_cache(
     s_shard = _shard_of(s_max, n)
     dev = prompt_flat.device
     m_loc = b * L // n
-    model = TPTransformer(c, kv_sink=[], ctx=ctx)
+    model_cls = TPMoETransformer if isinstance(c, MoETransformerConfig) else TPTransformer
+    model = model_cls(c, kv_sink=[], ctx=ctx)
     logits = model(prompt_flat[me * m_loc:(me + 1) * m_loc].long(), params)  # [b*L, V/n]
     sel = torch.as_tensor(
         np.arange(b) if slot_mask is None else np.flatnonzero(np.asarray(slot_mask)),
@@ -357,6 +389,7 @@ class _Ranks:
     own device and the replicated output of rank 0 is returned."""
 
     def __init__(self, cfg, params: dict, spec, device: torch.device, ctx=None):
+        check_moe_params(params)
         self.ctx = ctx
         if ctx is None:
             self.devices = [device]

@@ -1,16 +1,19 @@
 """Named model-shape presets (≙ ``triton_dist_tpu/models/presets.py``):
 the public architecture shapes of open-weight models as ready-to-run
-configs. Dense presets only; the MoE preset needs the expert kernels
-(ROADMAP A11) and raises.
+configs. The MoE preset builds the tensor-parallel
+:class:`~triton_dist_tpu_torch.models.tp_transformer.MoETransformerConfig`;
+its expert-parallel deployments (``":ep"``, ``":ep-hier"``) need the
+all-to-all layers (ROADMAP A12) and raise.
 
     cfg = presets.preset("llama-3.1-8b", batch=8, n_layers=32)
+    cfg = presets.preset("mixtral-8x7b", batch=8, n_layers=8)
 """
 
 from __future__ import annotations
 
 import torch
 
-from triton_dist_tpu_torch.models.tp_transformer import TransformerConfig
+from triton_dist_tpu_torch.models.tp_transformer import MoETransformerConfig, TransformerConfig
 
 # name → (hidden, ffn, n_q_heads, n_kv_heads, head_dim, vocab)
 _DENSE = {
@@ -21,7 +24,10 @@ _DENSE = {
     "mistral-7b": (4096, 14336, 32, 8, 128, 32768),
     "qwen2-72b": (8192, 29568, 64, 8, 128, 152064),
 }
-_MOE = ("mixtral-8x7b",)
+# name → (hidden, ffn, n_q_heads, n_kv_heads, head_dim, vocab, E, topk)
+_MOE = {
+    "mixtral-8x7b": (4096, 14336, 32, 8, 128, 32000, 8, 2),
+}
 
 PRESETS = tuple(sorted((*_DENSE, *_MOE)))
 
@@ -38,10 +44,17 @@ def preset(
     """Build the named model's config. `n_layers` defaults to 1 (one
     decoder block); pass the real depth for full-model runs. Extra keyword
     arguments override any config field."""
-    if name in _MOE or name.split(":")[0] in _MOE:
+    if name.endswith((":ep", ":ep-hier")):
         raise NotImplementedError(
-            f"preset {name!r} is a mixture of experts: the grouped-GEMM "
-            f"kernels it needs are not ported yet (ROADMAP A11)"
+            f"preset {name!r} with expert parallelism: the all-to-all EP layers "
+            f"are not ported yet (ROADMAP A12)"
+        )
+    if name in _MOE:
+        h, f, q, kv, d, vocab, n_exp, topk = _MOE[name]
+        return MoETransformerConfig(
+            vocab=vocab, hidden=h, ffn=f, n_layers=n_layers or 1,
+            n_q_heads=q, n_kv_heads=kv, head_dim=d, batch=batch, seq=seq,
+            dtype=dtype, n_experts=n_exp, topk=topk, **overrides,
         )
     if name not in _DENSE:
         raise KeyError(f"unknown preset {name!r}; have {PRESETS}")

@@ -16,6 +16,11 @@ projections (attention out, MLP down) through ``gemm_rs`` (K7; K1 at world
 1); attention runs on the rank's local heads over the whole sequence.
 RMSNorm, RoPE and the prefill attention are plain PyTorch, as the JAX
 package leaves them to XLA. The loss and train step are a later slice.
+
+The MoE decoder (:class:`TPMoETransformer`, ``:352``) keeps the attention
+and replaces the MLP by a router and a tensor-parallel expert bank: a
+single up-projection ``w_up [E, H, F]``, the tanh GELU, ``w_down [E, F,
+H]`` (no gate), both sharded on F, through ``ops/moe_mlp.tp_moe_mlp``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ import torch
 from triton_dist_tpu_torch.config import resolve_device
 from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
+from triton_dist_tpu_torch.ops.group_gemm import check_config
+from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
+from triton_dist_tpu_torch.ops.moe_utils import select_experts
 from triton_dist_tpu_torch.utils import axis_size
 
 
@@ -62,12 +70,27 @@ class TransformerConfig:
         return self.q_dim + 2 * self.kv_dim
 
 
+@dataclasses.dataclass(frozen=True)
+class MoETransformerConfig(TransformerConfig):
+    """MoE decoder: dense attention + tensor-parallel expert MLPs (≙
+    ``MoETransformerConfig``, ``:267``). ``gg_config`` is an
+    ``ops.group_gemm.GroupGemmConfig`` (None: the default)."""
+
+    n_experts: int = 8
+    topk: int = 2
+    gg_config: object = None
+
+    def __post_init__(self):
+        check_config(self.gg_config)
+
+
 def init_params(cfg: TransformerConfig, seed: int = 0, *, device=None) -> dict:
     """Seeded random parameters in the JAX package's tree and layouts,
     drawn with a ``torch.Generator`` on `device` (the card unless the caller
     asks for the CPU). The draws differ from ``jax.random``'s; tests that
     need both packages to compute one function carry JAX's weights over with
-    :func:`params_from_numpy` instead."""
+    :func:`params_from_numpy` instead. A :class:`MoETransformerConfig` gets
+    each layer's router and expert banks (:func:`init_moe_params`)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -80,14 +103,21 @@ def init_params(cfg: TransformerConfig, seed: int = 0, *, device=None) -> dict:
 
     h, f = cfg.hidden, cfg.ffn
     g = cfg.n_q_heads // cfg.n_kv_heads
+
+    def mlp():
+        if isinstance(cfg, MoETransformerConfig):
+            e = cfg.n_experts
+            return dict(router=w((h, e), h**-0.5), w_up=w((e, h, f), h**-0.5),
+                        w_down=w((e, f, h), f**-0.5))
+        return dict(w_gate_up=w((h, f, 2), h**-0.5), w_down=w((f, h), f**-0.5))
+
     layers = [
         dict(
             attn_norm=ones(h),
             wqkv=w((h, cfg.n_kv_heads, (g + 2) * cfg.head_dim), h**-0.5),
             wo=w((cfg.q_dim, h), cfg.q_dim**-0.5),
             mlp_norm=ones(h),
-            w_gate_up=w((h, f, 2), h**-0.5),
-            w_down=w((f, h), f**-0.5),
+            **mlp(),
         )
         for _ in range(cfg.n_layers)
     ]
@@ -97,6 +127,29 @@ def init_params(cfg: TransformerConfig, seed: int = 0, *, device=None) -> dict:
         final_norm=ones(h),
         lm_head=w((h, cfg.vocab), h**-0.5),
     )
+
+
+def init_moe_params(cfg: MoETransformerConfig, seed: int = 0, *, device=None) -> dict:
+    """Seeded random MoE parameters (≙ ``init_moe_params``, ``:277``): the
+    attention weights of :func:`init_params`, and per layer a router ``[H,
+    E]``, ``w_up [E, H, F]`` and ``w_down [E, F, H]`` in place of the dense
+    MLP."""
+    if not isinstance(cfg, MoETransformerConfig):
+        raise TypeError("init_moe_params takes a MoETransformerConfig")
+    return init_params(cfg, seed, device=device)
+
+
+def _refuse_quantized_banks() -> None:
+    raise NotImplementedError(
+        "quantized expert banks (quantize_moe_serving_params) are not ported yet "
+        "(ROADMAP B16, w8/fp8)")
+
+
+def check_moe_params(params: dict) -> None:
+    """Raise for parameters the port cannot serve yet: quantized expert
+    banks (a ``w_up_scale`` beside ``w_up``)."""
+    if any("w_up_scale" in p for p in params["layers"]):
+        _refuse_quantized_banks()
 
 
 def params_from_numpy(tree: dict, device, dtype: torch.dtype) -> dict:
@@ -116,9 +169,10 @@ def params_from_numpy(tree: dict, device, dtype: torch.dtype) -> dict:
     )
 
 
-# where each weight is split over the ranks (≙ param_specs): the dim, or
-# None for a replicated tensor
+# where each weight is split over the ranks (≙ param_specs, and for an MoE
+# layer moe_param_specs, :295): the dim, or None for a replicated tensor
 _LAYER_SPLIT = dict(attn_norm=None, wqkv=1, wo=0, mlp_norm=None, w_gate_up=1, w_down=0)
+_MOE_LAYER_SPLIT = dict(_LAYER_SPLIT, router=None, w_up=2, w_down=1)
 
 
 def shard_params(params: dict, world: int, devices=None) -> list[dict]:
@@ -139,7 +193,8 @@ def shard_params(params: dict, world: int, devices=None) -> list[dict]:
     return [
         dict(
             embed=part(params["embed"], None, r),
-            layers=[{k: part(v, _LAYER_SPLIT[k], r) for k, v in p.items()}
+            layers=[{k: part(v, (_MOE_LAYER_SPLIT if "router" in p else _LAYER_SPLIT)[k], r)
+                     for k, v in p.items()}
                     for p in params["layers"]],
             final_norm=part(params["final_norm"], None, r),
             lm_head=part(params["lm_head"], 1, r),
@@ -251,3 +306,19 @@ class TPTransformer:
             x = self.block(x, p)
         x = rmsnorm(x, params["final_norm"], c.norm_eps)
         return self._col(x, params["lm_head"])
+
+
+@dataclasses.dataclass
+class TPMoETransformer(TPTransformer):
+    """MoE decoder of one rank (≙ ``TPMoETransformer``, ``:352``): the
+    dense MLP half replaced by the router, the softmax top-k routing and
+    the tensor-parallel expert MLP (K8 at world 1, K9/K10 at world > 1)."""
+
+    def _mlp(self, x: torch.Tensor, p: dict) -> torch.Tensor:
+        c = self.cfg
+        if "w_up_scale" in p:
+            _refuse_quantized_banks()
+        h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
+        tw, ids = select_experts(h.float() @ p["router"].float(), c.topk)
+        return tp_moe_mlp(h, p["w_up"], p["w_down"], ids, tw, ctx=self.ctx,
+                          gg_config=c.gg_config).to(x.dtype)

@@ -86,21 +86,22 @@ def ag_gemm(
 ag_gemm.launches = 0
 
 
-def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype):
-    check_operands(a, b, out_dtype, "ag_gemm")
+def push_shards(ctx, a: torch.Tensor, family: str):
+    """The producer side of K6 and K9, on the rank's comm stream: once `a`
+    is ready, the family's entry barrier (every rank has finished reading
+    its gather workspace from the previous call), one copy-engine put of
+    `a` into slot ``me`` of every rank's workspace and a one-warp kernel
+    that raises each rank's flag ``me`` to this launch's epoch; then the
+    host rendezvous (every rank's producer is issued before any consumer
+    waits). Returns ``(launch, this rank's gathered workspace [world *
+    rows, K], this rank's flag address)``."""
     n, me = ctx.world, ctx.rank
-    m_loc, k = a.shape
-    n_loc = b.shape[1]
-    shard = m_loc * k * a.element_size()
-    ws = ctx.symmetric("ag_gemm.ws", n * shard)
-    arrive = symmetric_flags(ctx, "ag_gemm.arrive")
-    flags = symmetric_flags(ctx, "ag_gemm.flags")
-    out = torch.empty((n * m_loc, n_loc), dtype=out_dtype, device=a.device)
-    launch = dist_launch(ctx, "ag_gemm")
+    shard = a.numel() * a.element_size()
+    ws = ctx.symmetric(f"{family}.ws", n * shard)
+    arrive = symmetric_flags(ctx, f"{family}.arrive")
+    flags = symmetric_flags(ctx, f"{family}.flags")
+    launch = dist_launch(ctx, family)
     comp, comm = torch.cuda.current_stream(), ctx.comm_stream
-
-    # producer: a is ready (and this rank's last consumer is done with
-    # its workspace) -> entry barrier -> puts -> flags
     ready = torch.cuda.Event()
     ready.record(comp)
     comm.wait_event(ready)
@@ -109,16 +110,27 @@ def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype):
     sigs = (ctypes.c_longlong * n)(*[flags.peer_addr(p, 4 * me) for p in range(n)])
     rc = launch.lib.tdt_put_signal(n, dsts, a.data_ptr(), shard, n, sigs, launch.epoch,
                                    stream_ptr(comm))
-    _build.check(launch.lib, rc, "ag_gemm put")
+    _build.check(launch.lib, rc, f"{family} put")
     a.record_stream(comm)
     ctx.rendezvous()
+    gathered = ws.view(me, (n * a.shape[0], *a.shape[1:]), a.dtype)
+    return launch, gathered, flags.peer_addr(me)
+
+
+def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype):
+    check_operands(a, b, out_dtype, "ag_gemm")
+    n, me = ctx.world, ctx.rank
+    m_loc, k = a.shape
+    n_loc = b.shape[1]
+    out = torch.empty((n * m_loc, n_loc), dtype=out_dtype, device=a.device)
+    launch, gathered, flags = push_shards(ctx, a, "ag_gemm")
 
     # consumer: shards in arrival order, a bounded flag wait per shard
-    gathered = ws.view(me, (n * m_loc, k), a.dtype)
     rc = launch.lib.tdt_ag_gemm_consumer(
         gathered.data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_loc, k,
-        DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], n, me, flags.peer_addr(me),
-        launch.epoch, max_consumer_blocks(ctx), *launch.wait, stream_ptr(comp),
+        DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], n, me, flags,
+        launch.epoch, max_consumer_blocks(ctx), *launch.wait,
+        stream_ptr(torch.cuda.current_stream()),
     )
     _build.check(launch.lib, rc, "ag_gemm")
     count_launch(ag_gemm)

@@ -29,6 +29,9 @@ DIST_PROTOTYPES = {
     "tdt_put_signal": [_I, ctypes.POINTER(_LL), _P, _LL, _I, ctypes.POINTER(_LL), _I, _P],
     "tdt_ag_gemm_consumer": [_P] * 3 + [_I] * 7 + [_P, _I, _I] + _WAIT,
     "tdt_gemm_rs_reduce": [_P] * 3 + [_I] * 6 + [ctypes.POINTER(_P), _I, _P, _I, _I] + _WAIT,
+    "tdt_ag_group_gemm_consumer": [_P] * 4 + [_I] * 9 + [_P, _I, _I] + _WAIT,
+    "tdt_moe_combine_push": [_P] * 4 + [_I] * 4 + [_P],
+    "tdt_moe_rs_reduce": [_P, _P, _LL, _I, _I, _I, _P, _I, _I] + _WAIT,
     "tdt_sleep": [_LL, _P],
     "tdt_stream_create": [_I, ctypes.POINTER(_P)],
     "tdt_enable_peer_access": [_I, _I],

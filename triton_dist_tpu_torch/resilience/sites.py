@@ -15,7 +15,11 @@ Site numbering per family, for a launch at world ``n``:
 - ``ag_gemm``: site ``n + c`` is a consumer block's wait for shard ``c``
   (kind ``wait``);
 - ``gemm_rs``: site ``n + d`` is the wait for the chunk in landing slot
-  ``d``, sent by rank ``me - d - 1`` (kind ``signal_wait_until``).
+  ``d``, sent by rank ``me - d - 1`` (kind ``signal_wait_until``);
+- ``ag_group_gemm``: site ``n + c`` is a consumer block's wait for the
+  sorted slab of rank ``c`` (kind ``wait``);
+- ``moe_rs``: site ``n + p`` is the reduce's wait for the partial of rank
+  ``p`` in landing slot ``p`` (kind ``signal_wait_until``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ KIND_NAMES = {
 }
 
 # kernel families: the small ints the device records carry
-FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4}
+FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group_gemm": 5,
+            "moe_rs": 6}
 FAMILY_NAMES = {code: name for name, code in FAMILIES.items()}
 
 
@@ -54,4 +59,8 @@ def site_name(family: str, site: int, world: int) -> str:
         return f"shard {p} in the gather workspace"
     if family == "gemm_rs":
         return f"landing slot {p}"
+    if family == "ag_group_gemm":
+        return f"sorted slab of rank {p} in the gather workspace"
+    if family == "moe_rs":
+        return f"partial of rank {p} in landing slot {p}"
     return f"site {site}"
