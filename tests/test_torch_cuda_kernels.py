@@ -1,8 +1,10 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions on
 the card (GEMM K1, flash decode K2, paged flash decode K3, grouped GEMM K8,
-and at world 2 and 4 with every rank on the one card: barrier K4,
-full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7, AG-GroupGEMM K9,
-MoE-Reduce-RS K10, plus stuck waits that must raise with their records).
+its weight gradient K11, and at world 2 and 4 with every rank on the one
+card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
+AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, plus stuck waits
+that must raise with their records), and a world-4 MoE train step that
+must finish (each rank's backward meets its peers on the host).
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 absent:
@@ -31,6 +33,8 @@ from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs  # noqa: E402
 from triton_dist_tpu_torch.ops import group_gemm as tgg  # noqa: E402
 from triton_dist_tpu_torch.ops import moe_reduce_rs as tmrs  # noqa: E402
 from triton_dist_tpu_torch.ops import moe_utils as tmu  # noqa: E402
+from triton_dist_tpu_torch.ops import reduce_scatter as trs  # noqa: E402
+from triton_dist_tpu_torch.models import tp_transformer as ttm  # noqa: E402
 from triton_dist_tpu_torch.parallel.mesh import initialize_distributed  # noqa: E402
 from triton_dist_tpu_torch.resilience.records import DistTimeoutError  # noqa: E402
 
@@ -329,3 +333,116 @@ def test_moe_reduce_rs_stuck_wait_raises_with_its_record(cuda):
             ctx.run(body)
     (rec,) = err.value.records
     assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (0, "moe_rs", 1, "barrier_all")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["sorted", "rank_major", "empty_expert"])
+def test_group_gemm_dw_kernel_matches_plain(cuda, dtype, layout):
+    """K11: expert-sorted blocks (world 1), the rank-major layout of the
+    overlapped pair (world > 1, not sorted), and ids with an expert that
+    owns no block (exactly zero) and one beyond the bank (clamped); tile
+    edges on both output dims, with and without the 16-byte loads."""
+    n_exp, bm = 4, 128
+    g = torch.Generator(device="cuda").manual_seed(len(layout))
+    if layout == "sorted":
+        ids, _ = _moe_routing(g, 300, n_exp, 2, cuda)
+        expert_ids = tmu.moe_align_block_size(ids.reshape(-1), n_exp, bm).expert_ids
+    elif layout == "rank_major":
+        ids, _ = _moe_routing(g, 2 * 150, n_exp, 2, cuda)
+        expert_ids = tmu.moe_align_ranked(ids.reshape(2, -1), n_exp, bm, 150).expert_ids
+        expert_ids = expert_ids.reshape(-1)
+    else:
+        expert_ids = torch.tensor([0, 3, 1, 0, 9, 3], dtype=torch.int32, device=cuda)
+    t_pad = bm * expert_ids.numel()
+    for k, n in ((200, 264), (36, 40)):
+        a = torch.randn((t_pad, k), generator=g, device=cuda).to(dtype)
+        gr = torch.randn((t_pad, n), generator=g, device=cuda).to(dtype)
+        before = tgg.group_gemm_dw.launches
+        got = tgg.group_gemm_dw(a, gr, expert_ids, n_exp, config=tgg.GroupGemmConfig(bm))
+        torch.cuda.synchronize()
+        assert tgg.group_gemm_dw.launches == before + 1
+        want = tgg._group_gemm_dw_plain(a, gr, expert_ids.clamp(0, n_exp - 1), n_exp, bm)
+        # the same exact products, f32 sums in another order
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        if layout == "empty_expert":
+            assert torch.all(got[2] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_reduce_scatter_kernel_matches_plain(cuda, world, dtype):
+    """K12 against the plain psum_scatter: two shapes back to back (the
+    landing buffer grows, epochs rise); the sums differ only in order (own
+    chunk first, then the landing slots, against rank order)."""
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(30 + world)
+    for m_loc, n in ((64, 300), (16, 4096)):
+        x = [torch.randn((world * m_loc, n), generator=g, device=cuda).to(dtype)
+             for _ in range(world)]
+        before = trs.reduce_scatter.launches
+        outs = ctx.run(lambda: (trs.reduce_scatter(x[ctx.rank], ctx=ctx),
+                                trs._reduce_scatter_xla(x[ctx.rank], ctx)))
+        assert trs.reduce_scatter.launches == before + world
+        for got, want in outs:
+            scale = want.float().abs().max().item()
+            tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-6) * scale
+            assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_reduce_scatter_stuck_wait_raises_with_its_record(cuda):
+    """Rank 1's stream is held for 2 s before its reduce-scatter: rank 0's
+    entry-barrier wait (0.2 s) expires and the run raises with a record
+    naming rank 0, the reduce_scatter family and site 1."""
+    ctx = initialize_distributed(2)
+    x = torch.randn((32, 64), device=cuda)
+    ctx.run(lambda: trs.reduce_scatter(x, ctx=ctx))  # the buffers and flags exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return trs.reduce_scatter(x, ctx=ctx)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    (rec,) = err.value.records
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
+        0, "reduce_scatter", 1, "barrier_all")
+
+
+@pytest.mark.cuda
+def test_world4_moe_train_step_finishes(cuda):
+    """One f32 MoE train step at world 4 on the card (K6, K7, K9, K10
+    forward; K6, K7, K8, K11, K12 backward, every rank's backward on its
+    own thread) finishes under a 30 s wait timeout and matches the world-1
+    step on the card."""
+    cfg = ttm.MoETransformerConfig(vocab=512, hidden=256, ffn=512, n_layers=1, n_q_heads=8,
+                                   n_kv_heads=4, head_dim=32, batch=2, seq=64, n_experts=4,
+                                   topk=2, gg_config=tgg.GroupGemmConfig(128))
+    params = ttm.init_moe_params(cfg, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
+    targets = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
+    want, want_loss = ttm.train_step(ttm.TPMoETransformer(cfg), params, tokens, targets, lr=0.1)
+    ctx = initialize_distributed(4)
+    shards = ttm.shard_params(params, 4, ctx.devices)
+    before = (tgg.group_gemm_dw.launches, trs.reduce_scatter.launches)
+
+    def body():
+        r = ctx.rank
+        return ttm.train_step(ttm.TPMoETransformer(cfg, ctx=ctx), shards[r],
+                              tokens[r * 32:(r + 1) * 32], targets, lr=0.1)
+
+    with config.wait_timeout(30):
+        outs = ctx.run(body, grad=True)
+    assert tgg.group_gemm_dw.launches >= before[0] + 8
+    assert trs.reduce_scatter.launches == before[1] + 4
+    for _, loss in outs:
+        assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    got = ttm._tree_map(lambda first, dim, *rest: first if dim is None
+                        else torch.cat([first, *rest], dim),
+                        outs[0][0], ttm.specs_for(cfg), *[o[0] for o in outs[1:]])
+    ttm._tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5), got, want)

@@ -20,6 +20,10 @@
 //                                         launched at ops/moe_reduce_rs.py:236
 //                                         (its grouped GEMMs are K8,
 //                                         csrc/group_gemm.cu)
+//   K12 tdt_scatter_reduce              ≙ ops/reduce_scatter.py:227
+//                                         _scatter_reduce_kernel, launched
+//                                         at :410 (its puts are
+//                                         tdt_put_signal)
 //
 // plus the producer side of K6/K7: tdt_put_signal (copy-engine puts, then
 // one flag kernel), and tdt_sleep (a per-rank skew for barrier stress).
@@ -32,7 +36,10 @@
 // whose B operand hops between experts. K10's combine and reduce stream
 // bytes: each destination's [m_out, H] partial is gathered from two f32
 // rows a token, written once into the owner's landing slot and read once
-// by the owner's reduce.
+// by the owner's reduce. K12 streams bytes: each rank's [m_tot, N] partial
+// is read once (n-1 chunks by the copy engines, its own chunk by the
+// reduce), the landed chunks once more by the reduce, and its [m_tot / n,
+// N] slice written once.
 //
 // What the design does about it. The ranks share the card and their
 // kernels run at once on their own streams, which raises two hazards the
@@ -65,7 +72,11 @@
 // gather form: deterministic, no atomics) straight into c's landing slot
 // for this rank, and a one-warp kernel raises c's flag; after the host
 // rendezvous the reduce kernel waits for the peers' flags and sums the n
-// slots in rank order in f32. Every wait is bounded (shmem.cuh). K5 moves
+// slots in rank order in f32. K12 is K7 without the GEMM: the copy engines
+// put chunk me+d into landing slot d-1 of rank me+d with a flag each, and
+// after the rendezvous the reduce waits for the n-1 flags and sums the own
+// chunk, then slots 0 .. n-2 (the TPU kernel's order), in f32, cast once.
+// Every wait is bounded (shmem.cuh). K5 moves
 // its small payload with SM stores (putmem_signal_nbi_block), one block a
 // peer.
 
@@ -221,6 +232,26 @@ __global__ void moe_rs_reduce_kernel(const TOut* __restrict__ slots, TOut* __res
     float acc = to_f32<TOut>(slots[i]);
     for (int r = 1; r < world; ++r) acc = __fadd_rn(acc, to_f32<TOut>(slots[r * count + i]));
     out[i] = from_f32<TOut>(acc);
+  }
+}
+
+// ----------------------------------------------------------------- K12 ----
+// out[i] = own[i] + slots[0][i] + ... + slots[world-2][i] in f32, cast once
+// (slot d holds the chunk from rank me-d-1), once the n-1 landing flags
+// have risen; every block waits for every flag before it reads.
+template <typename T>
+__global__ void scatter_reduce_kernel(const T* __restrict__ own, const T* __restrict__ slots,
+                                      T* __restrict__ out, long long count, int world,
+                                      const int* flags, int epoch, WaitCtx w) {
+  const int d = threadIdx.x;
+  if (d < world - 1) shmem::wait_until_ge(flags + d, epoch, w, world + d, shmem::KIND_SIGNAL);
+  __threadfence();
+  __syncthreads();
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = to_f32<T>(own[i]);
+    for (int s = 0; s < world - 1; ++s) acc = __fadd_rn(acc, to_f32<T>(slots[s * count + i]));
+    out[i] = from_f32<T>(acc);
   }
 }
 
@@ -466,6 +497,31 @@ extern "C" int tdt_moe_rs_reduce(const void* slots, void* out, long long count, 
     moe_rs_reduce_kernel<TOut><<<blocks, 256, 0, s>>>(
         static_cast<const TOut*>(slots), static_cast<TOut*>(out), count, world, me,
         static_cast<const int*>(flags), epoch, w);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12, the owner's reduce: own [count] (this rank's own chunk of its
+// partial), slots [world-1, count] (its landing slots), out [count], all in
+// one type; flags this rank's int32[world-1] landing flags.
+extern "C" int tdt_scatter_reduce(const void* own, const void* slots, void* out,
+                                  long long count, int dtype, int world, int me,
+                                  const void* flags, int epoch, int max_blocks, void* diag,
+                                  long long timeout_ns, int family, void* stream) {
+  if (world < 2 || world > MAX_WORLD || count < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (count == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
+  cudaError_t err = dispatch_out(dtype, [&](auto t) {
+    using T = decltype(t);
+    const long long want = (count + 255) / 256;
+    const int blocks = persistent_grid(want < (1 << 30) ? static_cast<int>(want) : (1 << 30),
+                                       max_blocks);
+    scatter_reduce_kernel<T><<<blocks, 256, 0, s>>>(
+        static_cast<const T*>(own), static_cast<const T*>(slots), static_cast<T*>(out), count,
+        world, static_cast<const int*>(flags), epoch, w);
     return cudaSuccess;
   });
   if (err != cudaSuccess) return static_cast<int>(err);

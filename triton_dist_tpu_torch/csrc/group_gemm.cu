@@ -27,6 +27,34 @@
 // k step; the A tile is re-read from L2 for each N tile. An expert-major
 // schedule that keeps B panels resident, wgmma and TMA are later work.
 
+// K11 · the grouped-GEMM weight gradient (tdt_group_gemm_dw):
+//   dW[e] = sum over the row blocks i with expert_ids[i] == e of A_i^T . G_i
+// a_sorted [t_pad, k] and g_sorted [t_pad, n] in one type (bf16 or f32),
+// block-aligned in the same order; dW [n_exp, k, n] f32; ids clamped into
+// the bank; an expert with no blocks comes back exactly zero.
+//
+// Replaces triton_dist_tpu/ops/gg_pipeline.py:159 make_group_gemm_dw_kernel
+// (non-ragged), launched by triton_dist_tpu/ops/group_gemm.py:534
+// _group_gemm_dw_fused. The TPU grid walks the row blocks innermost and
+// accumulates an expert's consecutive run in VMEM, so its wrapper sorts the
+// blocks by expert first (two permutation copies of the operands) unless
+// the caller vouches for the order.
+//
+// What bounds it on the H100: at the training shapes (t_pad 5120, k and n
+// 4096 / 14336) the products are 6e11 operations and the f32 output 1.9 GB;
+// operations (0.61 ms at the bf16 peak) and bytes (0.56 ms) are close.
+//
+// What the design does about it: one CTA per output tile [128 x 256] of
+// dW[e] (grid: N tiles, K tiles, experts). The CTA lists its expert's row
+// blocks in block order (a ballot compaction of the ids in shared memory,
+// no host sync, no argsort) and runs K1's pipeline over their rows: 64
+// rows a step, a three-stage cp.async ring, mma.sync m16n8k16 with the A
+// fragments read transposed from the [rows, k] tile (ldmatrix.trans). The
+// sum order per element is the rows of the expert's blocks in block order
+// for any layout, sorted (world 1) or rank-major (world > 1), so no
+// permutation copy is made. The f32 tile is written once. The f32 operands
+// take the FMA tile of F32Engine (reference precision).
+
 #include "gemm_core.cuh"
 
 namespace {
@@ -61,7 +89,263 @@ cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k, i
   return cudaSuccess;
 }
 
+// ------------------------------------------------------------------ K11 ----
+constexpr int DW_LIST = 1024;  // row blocks listed per pass
+
+// The row blocks of expert e among blocks [base, base + count) (count <=
+// DW_LIST), in block order, into list; returns how many. Every thread of
+// the block takes part and gets the same count.
+__device__ int list_blocks(const int* __restrict__ ids, int base, int count, int e, int n_exp,
+                           int* list, int* warp_counts) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  int total = 0;
+  for (int c0 = 0; c0 < count; c0 += blockDim.x) {
+    const int i = c0 + threadIdx.x;
+    bool hit = false;
+    if (i < count) {
+      int id = ids[base + i];
+      id = id < 0 ? 0 : (id >= n_exp ? n_exp - 1 : id);
+      hit = id == e;
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_counts[warp] = __popc(mask);
+    __syncthreads();
+    int before = total, sum = 0;
+    for (int w = 0; w < warps; ++w) {
+      if (w < warp) before += warp_counts[w];
+      sum += warp_counts[w];
+    }
+    if (hit) list[before + __popc(mask & ((1u << lane) - 1u))] = base + i;
+    __syncthreads();  // warp_counts is rewritten by the next round
+    total += sum;
+  }
+  return total;
+}
+
+// bf16: K1's tile engine with the roles turned: the output tile is
+// [BM of k] x [BN of n], the reduction runs over the listed rows, BR a step.
+struct DwBf16 {
+  typedef bf16 TIn;
+  typedef Bf16Engine::Acc Acc;  // same warp tiling: Bf16Engine::store writes it
+  static constexpr int BM = 128, BN = 256, BR = 64, THREADS = 256, STAGES = 3;
+  static constexpr int A_LD = BM + 8;  // 272-byte rows: the 8 rows an
+  static constexpr int B_LD = BN + 8;  // ldmatrix reads in 8 bank groups
+  static constexpr int WM = 64, WN = 64, MT = WM / 16, NT = WN / 8;
+  static constexpr int A_STAGE = BR * A_LD, B_STAGE = BR * B_LD;  // elements
+  static constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * 2;
+
+  __device__ static __forceinline__ void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc.v[i][j][e] = 0.f;
+  }
+
+  // rows [r0, r0 + BR): A[:, k0:k0+BM] as [BR][BM] and G[:, n0:n0+BN] as
+  // [BR][BN], both as stored (row-major, rows outermost)
+  __device__ static __forceinline__ void load_step(bf16* as, bf16* bs,
+                                                   const bf16* __restrict__ a,
+                                                   const bf16* __restrict__ g, int m, int k,
+                                                   int n, int r0, int k0, int n0, int vec) {
+#pragma unroll
+    for (int i = 0; i < BR * BM / 8 / THREADS; ++i) {
+      const int chunk = threadIdx.x + i * THREADS;
+      const int r = chunk / (BM / 8), c = (chunk % (BM / 8)) * 8;
+      Bf16Engine::load_chunk(as + r * A_LD + c, a, r0 + r, k0 + c, m, k, vec);
+    }
+#pragma unroll
+    for (int i = 0; i < BR * BN / 8 / THREADS; ++i) {
+      const int chunk = threadIdx.x + i * THREADS;
+      const int r = chunk / (BN / 8), c = (chunk % (BN / 8)) * 8;
+      Bf16Engine::load_chunk(bs + r * B_LD + c, g, r0 + r, n0 + c, m, n, vec);
+    }
+  }
+
+  // acc += A[rows]^T . G[rows] over the steps of the listed blocks (step s:
+  // rows list[s / spb] * bm + (s % spb) * BR, BR of them). The dynamic
+  // shared memory is declared here, inside the loop's function.
+  __device__ static __forceinline__ void mainloop(const bf16* __restrict__ a,
+                                                  const bf16* __restrict__ g, int m, int k,
+                                                  int n, int k0, int n0, int vec,
+                                                  const int* list, int steps, int spb, int bm,
+                                                  Acc& acc) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    bf16* as = reinterpret_cast<bf16*>(smem);  // [STAGES][BR][A_LD]
+    bf16* bs = as + STAGES * A_STAGE;          // [STAGES][BR][B_LD]
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int wm = warp / (BN / WN), wn = warp % (BN / WN);
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < steps)
+        load_step(as + st * A_STAGE, bs + st * B_STAGE, a, g, m, k, n,
+                  list[st / spb] * bm + (st % spb) * BR, k0, n0, vec);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < steps; ++kt) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int pre = kt + STAGES - 1;
+      if (pre < steps) {
+        const int ps = pre % STAGES;
+        load_step(as + ps * A_STAGE, bs + ps * B_STAGE, a, g, m, k, n,
+                  list[pre / spb] * bm + (pre % spb) * BR, k0, n0, vec);
+      }
+      cp_async_commit();
+      const bf16* at = as + (kt % STAGES) * A_STAGE;
+      const bf16* bt = bs + (kt % STAGES) * B_STAGE;
+#pragma unroll
+      for (int kk = 0; kk < BR; kk += 16) {
+        unsigned af[MT][4], bfr[NT][2];
+        // A^T fragments from the [rows][k] tile: lanes 0-7 / 8-15 address
+        // rows kk..kk+7 at k columns +0 / +8, lanes 16-31 rows kk+8..kk+15;
+        // the transposing load hands each thread the row-major m16k16
+        // pieces a0..a3
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          ldmatrix_x4_trans(af[i], at + (kk + lane % 8 + (lane / 16) * 8) * A_LD + wm * WM +
+                                       i * 16 + ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, bt + (kk + lane % 8 + ((lane / 8) % 2) * 8) * B_LD +
+                                   wn * WN + j * 8 + (lane / 16) * 8);
+          bfr[j][0] = r[0];
+          bfr[j][1] = r[1];
+          bfr[j + 1][0] = r[2];
+          bfr[j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc.v[i][j], af[i], bfr[j]);
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  __device__ static __forceinline__ void store(const Acc& acc, float* c, int k, int n, int k0,
+                                               int n0) {
+    const AddList<float> none = {};
+    Bf16Engine::store<false>(acc, c, k, n, k0, n0, none);
+  }
+};
+
+// f32: F32Engine's FMA tile; its shared tiles are [rows][cols] already
+struct DwF32 {
+  typedef float TIn;
+  typedef F32Engine::Acc Acc;
+  static constexpr int BM = 64, BN = 64, BR = 16, THREADS = 256;
+  static constexpr int SMEM_BYTES = 0;
+
+  __device__ static __forceinline__ void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc.v[i][j] = 0.f;
+  }
+
+  __device__ static __forceinline__ void mainloop(const float* __restrict__ a,
+                                                  const float* __restrict__ g, int, int k,
+                                                  int n, int k0, int n0, int,
+                                                  const int* list, int steps, int spb, int bm,
+                                                  Acc& acc) {
+    __shared__ float as[BR][BM + 4];
+    __shared__ float bs[BR][BN + 4];
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+    for (int s = 0; s < steps; ++s) {
+      const size_t r0 = (size_t)list[s / spb] * bm + (s % spb) * BR;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = tid + i * THREADS;
+        const int ra = e / BM, ca = e % BM;
+        as[ra][ca] = k0 + ca < k ? a[(r0 + ra) * k + k0 + ca] : 0.f;
+        const int rb = e / BN, cb = e % BN;
+        bs[rb][cb] = n0 + cb < n ? g[(r0 + rb) * n + n0 + cb] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BR; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = as[kk][ty * 4 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc.v[i][j] = fmaf(av[i], bv[j], acc.v[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+  __device__ static __forceinline__ void store(const Acc& acc, float* c, int k, int n, int k0,
+                                               int n0) {
+    const AddList<float> none = {};
+    F32Engine::store<false>(acc, c, k, n, k0, n0, none);
+  }
+};
+
+template <class D>
+__global__ void __launch_bounds__(D::THREADS, 1)
+    group_gemm_dw_kernel(const typename D::TIn* __restrict__ a,
+                         const typename D::TIn* __restrict__ g, const int* __restrict__ ids,
+                         float* __restrict__ dw, int m, int k, int n, int n_exp, int bm,
+                         int vec) {
+  __shared__ int list[DW_LIST];
+  __shared__ int warp_counts[D::THREADS / 32];
+  const int e = blockIdx.z, k0 = blockIdx.y * D::BM, n0 = blockIdx.x * D::BN;
+  const int nb = m / bm, spb = bm / D::BR;
+  typename D::Acc acc;
+  D::zero(acc);
+  for (int base = 0; base < nb; base += DW_LIST) {
+    const int cnt = list_blocks(ids, base, nb - base < DW_LIST ? nb - base : DW_LIST, e, n_exp,
+                                list, warp_counts);
+    if (cnt > 0) D::mainloop(a, g, m, k, n, k0, n0, vec, list, cnt * spb, spb, bm, acc);
+    __syncthreads();  // every thread is done with list and the stages
+  }
+  D::store(acc, dw + (size_t)e * k * n, k, n, k0, n0);
+}
+
+template <class D>
+cudaError_t launch_dw(const void* a, const void* g, const int* ids, float* dw, int m, int k,
+                      int n, int n_exp, int bm, int vec, cudaStream_t s) {
+  if (D::SMEM_BYTES > 0) {
+    cudaError_t attr = cudaFuncSetAttribute(group_gemm_dw_kernel<D>,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            D::SMEM_BYTES);
+    if (attr != cudaSuccess) return attr;
+  }
+  const dim3 grid(cdiv(n, D::BN), cdiv(k, D::BM), n_exp);
+  group_gemm_dw_kernel<D><<<grid, D::THREADS, D::SMEM_BYTES, s>>>(
+      static_cast<const typename D::TIn*>(a), static_cast<const typename D::TIn*>(g), ids, dw,
+      m, k, n, n_exp, bm, vec);
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// K11: a [m, k], g [m, n] in one type, expert_ids int32 [m / block_m], dw
+// [n_exp, k, n] f32; block_m a multiple of 64 that divides m.
+extern "C" int tdt_group_gemm_dw(const void* a, const void* g, const void* expert_ids, void* dw,
+                                 int m, int k, int n, int n_exp, int block_m, int dtype,
+                                 void* stream) {
+  if (block_m <= 0 || block_m % DwBf16::BR != 0 || m % block_m != 0 || n_exp < 1 ||
+      n_exp > 65535 || k < 1 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ids = static_cast<const int*>(expert_ids);
+  float* out = static_cast<float*>(dw);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    err = launch_dw<DwBf16>(a, g, ids, out, m, k, n, n_exp, block_m, bf16_vec_ok(a, g, n, k), s);
+  else if (dtype == kF32)
+    err = launch_dw<DwF32>(a, g, ids, out, m, k, n, n_exp, block_m, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // a [m, k], b [n_exp, k, n], expert_ids int32 [m / block_m], c [m, n];
 // block_m a multiple of 128 that divides m; act 1 = tanh GELU on A.

@@ -1,5 +1,6 @@
-"""The dense LLaMA-class decoder (≙ ``triton_dist_tpu/models/
-tp_transformer.py``), forward only, at any world.
+"""The dense and MoE LLaMA-class decoders (≙ ``triton_dist_tpu/models/
+tp_transformer.py``), forward, vocab-parallel loss and SGD train step, at
+any world.
 
 Layouts match the JAX package at every public function: weights are
 ``[K, N]`` (``x @ W``), ``wqkv`` is kv-group-major ``[H, n_kv, (g+2)*d]``
@@ -15,7 +16,15 @@ gate/up, LM head) go through ``ag_gemm`` (K6; K1 at world 1) and the row
 projections (attention out, MLP down) through ``gemm_rs`` (K7; K1 at world
 1); attention runs on the rank's local heads over the whole sequence.
 RMSNorm, RoPE and the prefill attention are plain PyTorch, as the JAX
-package leaves them to XLA. The loss and train step are a later slice.
+package leaves them to XLA. With grad mode on (training; serving runs in
+inference mode) the projections go through the differentiable ops of
+``ops/grads.py``, whose backward passes run the same kernels.
+
+:meth:`TPTransformer.loss` is the vocab-parallel cross-entropy and
+:func:`train_step` one SGD step (``:547``) with the JAX package's gradient
+accounting; call both per rank inside ``ctx.run(..., grad=True)`` (world 1:
+directly). The data-parallel axis and optimizer transforms (``dp_axis``,
+``opt=``) are not ported.
 
 The MoE decoder (:class:`TPMoETransformer`, ``:352``) keeps the attention
 and replaces the MLP by a router and a tensor-parallel expert bank: a
@@ -32,12 +41,13 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.config import resolve_device
+from triton_dist_tpu_torch.ops import grads
 from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
 from triton_dist_tpu_torch.ops.group_gemm import check_config
 from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
 from triton_dist_tpu_torch.ops.moe_utils import select_experts
-from triton_dist_tpu_torch.utils import axis_size
+from triton_dist_tpu_torch.utils import axis_index, axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,8 +181,22 @@ def params_from_numpy(tree: dict, device, dtype: torch.dtype) -> dict:
 
 # where each weight is split over the ranks (≙ param_specs, and for an MoE
 # layer moe_param_specs, :295): the dim, or None for a replicated tensor
+_TOP_SPLIT = dict(embed=None, final_norm=None, lm_head=1)
 _LAYER_SPLIT = dict(attn_norm=None, wqkv=1, wo=0, mlp_norm=None, w_gate_up=1, w_down=0)
-_MOE_LAYER_SPLIT = dict(_LAYER_SPLIT, router=None, w_up=2, w_down=1)
+_MOE_LAYER_SPLIT = dict(attn_norm=None, wqkv=1, wo=0, mlp_norm=None, router=None, w_up=2,
+                        w_down=1)
+
+
+def specs_for(cfg: TransformerConfig) -> dict:
+    """Where each parameter is split over the ranks (≙ ``specs_for``,
+    ``:501``): the parameter tree with the split dim at each leaf, or None
+    for a replicated leaf."""
+    layer = _MOE_LAYER_SPLIT if isinstance(cfg, MoETransformerConfig) else _LAYER_SPLIT
+    return dict(_TOP_SPLIT, layers=[dict(layer) for _ in range(cfg.n_layers)])
+
+
+def _layer_split(p: dict) -> dict:
+    return _MOE_LAYER_SPLIT if "router" in p else _LAYER_SPLIT
 
 
 def shard_params(params: dict, world: int, devices=None) -> list[dict]:
@@ -190,17 +214,14 @@ def shard_params(params: dict, world: int, devices=None) -> list[dict]:
             raise ValueError(f"shape {tuple(x.shape)} dim {dim} does not split over {world}")
         return x.chunk(world, dim)[r].to(dev).contiguous()
 
-    return [
-        dict(
-            embed=part(params["embed"], None, r),
-            layers=[{k: part(v, (_MOE_LAYER_SPLIT if "router" in p else _LAYER_SPLIT)[k], r)
-                     for k, v in p.items()}
-                    for p in params["layers"]],
-            final_norm=part(params["final_norm"], None, r),
-            lm_head=part(params["lm_head"], 1, r),
-        )
-        for r in range(world)
-    ]
+    def rank(r):
+        return {
+            k: [{n: part(w, _layer_split(p)[n], r) for n, w in p.items()} for p in v]
+            if k == "layers" else part(v, _TOP_SPLIT[k], r)
+            for k, v in params.items()
+        }
+
+    return [rank(r) for r in range(world)]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -262,9 +283,13 @@ class TPTransformer:
     ctx: object = None
 
     def _col(self, x, w):
+        if torch.is_grad_enabled():
+            return grads.ag_gemm_grad(x, w, ctx=self.ctx)
         return ag_gemm(x, w, ctx=self.ctx)
 
     def _row(self, x, w):
+        if torch.is_grad_enabled():
+            return grads.gemm_rs_grad(x, w, ctx=self.ctx)
         return gemm_rs(x, w, ctx=self.ctx)
 
     def block(self, x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -307,6 +332,26 @@ class TPTransformer:
         x = rmsnorm(x, params["final_norm"], c.norm_eps)
         return self._col(x, params["lm_head"])
 
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor, params: dict) -> torch.Tensor:
+        """Vocab-parallel cross-entropy (≙ ``loss``, ``:240``): no rank sees
+        the whole logits; the log-sum-exp and the target logit are
+        assembled with psums over the vocab shards. The max shift is
+        detached (its gradient cancels). targets ``[b * s]`` int, the whole
+        stream on every rank. Returns the mean over the stream (every rank
+        the same value)."""
+        ctx = self.ctx
+        v_loc = self.cfg.vocab // axis_size(ctx)
+        logits = self(tokens, params).float()                  # [m, V / world]
+        row_max = logits.detach().amax(-1)
+        m_sh = row_max if axis_size(ctx) == 1 else ctx.all_gather(row_max[None], 0).amax(0)
+        se = grads.psum(torch.exp(logits - m_sh[:, None]).sum(-1), ctx)
+        lse = m_sh + torch.log(se)
+        local = targets.long() - axis_index(ctx) * v_loc
+        in_shard = (local >= 0) & (local < v_loc)
+        tl = logits.gather(1, local.clamp(0, v_loc - 1)[:, None])[:, 0]
+        target_logit = grads.psum(torch.where(in_shard, tl, 0.0), ctx)
+        return (lse - target_logit).mean()
+
 
 @dataclasses.dataclass
 class TPMoETransformer(TPTransformer):
@@ -320,5 +365,91 @@ class TPMoETransformer(TPTransformer):
             _refuse_quantized_banks()
         h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
         tw, ids = select_experts(h.float() @ p["router"].float(), c.topk)
-        return tp_moe_mlp(h, p["w_up"], p["w_down"], ids, tw, ctx=self.ctx,
-                          gg_config=c.gg_config).to(x.dtype)
+        # the router trains through the routing weights
+        mlp = grads.tp_moe_mlp_grad if torch.is_grad_enabled() else tp_moe_mlp
+        return mlp(h, p["w_up"], p["w_down"], ids, tw, ctx=self.ctx,
+                   gg_config=c.gg_config).to(x.dtype)
+
+
+def _tree_map(fn, tree, *rest):
+    """`fn` over the leaves of a parameter tree (dicts and lists of
+    tensors); `rest` are trees of the same keys (extra keys are ignored)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _tree_leaves(tree) -> list:
+    leaves = []
+    _tree_map(leaves.append, tree)
+    return leaves
+
+
+def _loss_and_grads(model, params, tokens, targets):
+    """One rank's loss and the gradients ``train_step`` applies (≙ its
+    ``value_and_grad`` and ``fix``), a list in the order of
+    ``_tree_leaves(params)``: each rank differentiates its copy of the
+    loss, so every gradient comes back scaled by the world; a replicated
+    parameter's gradient covers only this rank's tokens and is psum-ed over
+    the ranks; then every gradient is divided by the world."""
+    if not torch.is_grad_enabled() or torch.is_inference_mode_enabled():
+        raise RuntimeError("train_step takes gradients: at world > 1 call it inside "
+                           "ctx.run(..., grad=True), not in an inference-mode run")
+    ctx = model.ctx
+    world = axis_size(ctx)
+    work = _tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
+    leaves = _tree_leaves(work)
+    live = [p for p in leaves if p.requires_grad]
+    loss = model.loss(tokens, targets, work)
+    flat = dict(zip(map(id, live), torch.autograd.grad(loss, live, allow_unused=True)))
+    flat = [flat.pop(id(p), None) for p in leaves]
+    splits = _tree_leaves(_tree_map(lambda _, split: split, params, specs_for(model.cfg)))
+    for i, (g, split) in enumerate(zip(flat, splits)):
+        g = torch.zeros_like(leaves[i]) if g is None else g
+        if split is None and world > 1:
+            g = ctx.psum(g)
+        flat[i] = g / world
+    return loss.detach(), flat
+
+
+def train_step(
+    model: TPTransformer, params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+    lr: float = 1e-2, dp_axis=None, opt=None, opt_state=None, skip_nonfinite: bool = False,
+):
+    """One SGD step of one rank (≙ ``train_step``, ``:547``, on a pure-TP
+    mesh): call inside ``ctx.run(..., grad=True)`` with the rank's
+    parameter shard (``shard_params``) and token shard, the world being
+    ``model.ctx``; at world 1 call it directly. Returns ``(params, loss)``
+    — new tensors, the inputs are not changed — and with
+    ``skip_nonfinite`` also ``skipped`` (int32, 1 when the step was
+    dropped).
+
+    Gradient accounting as in the JAX package (:func:`_loss_and_grads`).
+    ``skip_nonfinite`` gates the update on ``grads_all_finite`` over the
+    gradients and the loss on every rank: a dropped step returns the
+    parameters bit for bit."""
+    if dp_axis is not None:
+        raise NotImplementedError(
+            "train_step dp_axis: the data-parallel axis (a 2-D DistContext) is not "
+            "ported yet (ROADMAP A5, dp axis)")
+    if opt is not None or opt_state is not None:
+        raise NotImplementedError(
+            "train_step opt=: optimizer transforms and their state are not ported yet "
+            "(ROADMAP A5, optimizers); the port trains with SGD at `lr`")
+    loss, flat = _loss_and_grads(model, params, tokens, targets)
+    ok = grads.grads_all_finite((flat, loss), model.ctx) if skip_nonfinite else None
+    order = iter(range(len(flat)))
+
+    def update(p):
+        i = next(order)
+        g, flat[i] = flat[i], None  # each gradient is freed once applied
+        new = p - lr * g.to(p.dtype)
+        return new if ok is None else torch.where(ok, new, p)
+
+    with torch.no_grad():
+        new_params = _tree_map(update, params)
+    if ok is None:
+        return new_params, loss
+    return new_params, loss, (~ok).to(torch.int32)

@@ -54,18 +54,22 @@ def ag_group_gemm(
     *,
     ctx=None,
     config=None,
+    gather_output: bool = False,
 ):
     """Sequential MoE up-projection (≙ ``ag_group_gemm``, ``:73``; call
     inside ``ctx.run``). a ``[m_loc, K]`` token shard, b ``[E, K, n_loc]``
     expert bank sharded on its columns, topk_ids ``[m_loc, topk]`` →
-    ``(h_sorted [t_pad, n_loc], alignment)`` over the gathered tokens."""
+    ``(h_sorted [t_pad, n_loc], alignment)`` over the gathered tokens, and
+    with `gather_output` also the block-aligned rows ``a_sorted [t_pad,
+    K]`` the GEMM read (the backward's residual)."""
     cfg = check_config(config)
     topk = topk_ids.shape[1]
     a_full = all_gather(a, ctx=ctx)
     ids_full = topk_ids if axis_size(ctx) == 1 else ctx.all_gather(topk_ids, 0)
     alignment = moe_align_block_size(ids_full.reshape(-1), b.shape[0], cfg.block_m)
     a_sorted = gather_sorted_rows(a_full, alignment, topk)
-    return group_gemm(a_sorted, b, alignment.expert_ids, config=cfg), alignment
+    h_sorted = group_gemm(a_sorted, b, alignment.expert_ids, config=cfg)
+    return (h_sorted, alignment, a_sorted) if gather_output else (h_sorted, alignment)
 
 
 def presort_local_rows(a: torch.Tensor, ral: RankedAlignment, ctx=None) -> torch.Tensor:

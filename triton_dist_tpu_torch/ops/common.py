@@ -32,6 +32,7 @@ DIST_PROTOTYPES = {
     "tdt_ag_group_gemm_consumer": [_P] * 4 + [_I] * 9 + [_P, _I, _I] + _WAIT,
     "tdt_moe_combine_push": [_P] * 4 + [_I] * 4 + [_P],
     "tdt_moe_rs_reduce": [_P, _P, _LL, _I, _I, _I, _P, _I, _I] + _WAIT,
+    "tdt_scatter_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _I, _I] + _WAIT,
     "tdt_sleep": [_LL, _P],
     "tdt_stream_create": [_I, ctypes.POINTER(_P)],
     "tdt_enable_peer_access": [_I, _I],

@@ -1,7 +1,9 @@
 """K8 · the block-aligned grouped GEMM of the MoE expert compute (≙
 ``triton_dist_tpu/ops/group_gemm.py::group_gemm``; its Pallas site is
 ``_group_gemm_fused`` at ``:299`` with the body
-``ops/gg_pipeline.py:87 make_group_gemm_kernel``).
+``ops/gg_pipeline.py:87 make_group_gemm_kernel``), and K11, its weight
+gradient (≙ ``group_gemm_dw``, ``:553``; Pallas site ``:534``, body
+``gg_pipeline.py:159 make_group_gemm_dw_kernel``).
 
 Rows of ``a_sorted`` are sorted by expert and padded so every ``block_m``
 rows belong to one expert (``moe_utils.moe_align_block_size``); block ``i``
@@ -14,12 +16,12 @@ counterpart here (the CUDA kernel fixes its own tiles); ``block_m`` is the
 alignment block and must be a multiple of 128 on the card, so a 128-row M
 tile never straddles two experts.
 
-The bf16/f32 padded path is ported. The int8 and fp8 weight formats
-(``w8``, ``fp8``; pre-quantized ``scale=`` banks are not taken), ragged
-rows, the ``ragged_dot`` backend, the chunked overlap schedules
-(``chunks_per_shard > 1``, span policies) and the transpose kernel of the
-backward (``gg_pipeline.py:159``) are not: asking for them through the
-config raises ``NotImplementedError`` naming their ROADMAP item.
+The bf16/f32 padded path is ported, forward and weight gradient. The int8
+and fp8 weight formats (``w8``, ``fp8``; pre-quantized ``scale=`` banks
+are not taken), ragged rows, the ``ragged_dot`` backend and the chunked
+overlap schedules (``chunks_per_shard > 1``, span policies) are not:
+asking for them through the config raises ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, check_operands
 from triton_dist_tpu_torch.utils import count_call, count_launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PROTOTYPES = {"tdt_group_gemm": [_P] * 4 + [_I] * 8 + [_P]}
+_PROTOTYPES = {"tdt_group_gemm": [_P] * 4 + [_I] * 8 + [_P],
+               "tdt_group_gemm_dw": [_P] * 4 + [_I] * 6 + [_P]}
 # the M tile of the bf16 engine (csrc/gemm_core.cuh Bf16Engine::BM); the f32
 # engine's 64 divides it
 TILE_M = 128
@@ -173,3 +176,73 @@ def group_gemm(
 
 
 group_gemm.launches = 0
+
+
+def _group_gemm_dw_plain(a_sorted, g_sorted, expert_ids, n_exp, bm):
+    """Plain version (≙ ``_group_gemm_dw_xla``): for each expert, the sum
+    of ``A_blkᵀ · G_blk`` over its row blocks in block order, each product
+    and the sum in f32; an expert with no blocks is zero. The ids cross to
+    the host."""
+    count_call(_group_gemm_dw_plain)
+    nb = expert_ids.shape[0]
+    k, n = a_sorted.shape[1], g_sorted.shape[1]
+    a3 = a_sorted.reshape(nb, bm, k)
+    g3 = g_sorted.reshape(nb, bm, n)
+    out = torch.zeros((n_exp, k, n), dtype=torch.float32, device=a_sorted.device)
+    for i, e in enumerate(expert_ids.tolist()):
+        out[e] += a3[i].float().t() @ g3[i].float()
+    return out
+
+
+_group_gemm_dw_plain.calls = 0
+
+
+def group_gemm_dw(
+    a_sorted: torch.Tensor,
+    g_sorted: torch.Tensor,
+    expert_ids: torch.Tensor,
+    n_exp: int,
+    *,
+    config: GroupGemmConfig | None = None,
+) -> torch.Tensor:
+    """Transpose grouped GEMM, the expert-weight gradient of
+    :func:`group_gemm`: ``dW[e] = Σ_{blocks i of e} A_iᵀ · G_i``.
+    a_sorted ``[t_pad, K]`` and g_sorted ``[t_pad, N]`` block-aligned rows
+    in the same order (bf16 or f32, one type), expert_ids ``[t_pad /
+    block_m]`` (clamped into ``[0, n_exp)`` first) → ``[n_exp, K, N]`` f32;
+    an expert with no rows comes back exactly zero.
+
+    Each expert's blocks are summed in block order whatever the layout, so
+    the port needs no ``assume_sorted`` (the JAX package's licence to skip
+    its grouping permutation): the rank-major rows take the same path."""
+    cfg = check_config(config)
+    t_pad, k = a_sorted.shape
+    n = g_sorted.shape[1]
+    nb = expert_ids.shape[0]
+    if g_sorted.shape[0] != t_pad or nb == 0 or t_pad % nb or t_pad // nb != cfg.block_m:
+        raise ValueError(f"group_gemm_dw shapes {tuple(a_sorted.shape)}, "
+                         f"{tuple(g_sorted.shape)}, {nb} blocks of {cfg.block_m} rows")
+    bm = cfg.block_m
+    ids = expert_ids.clamp(0, n_exp - 1).contiguous()
+    if a_sorted.device.type == "cpu":
+        return _group_gemm_dw_plain(a_sorted, g_sorted, ids, n_exp, bm)
+    check_operands(a_sorted, g_sorted, torch.float32, "group_gemm_dw")
+    if ids.dtype != torch.int32 or ids.device != a_sorted.device:
+        raise ValueError(f"group_gemm_dw: expert_ids must be int32 on {a_sorted.device}")
+    if bm % TILE_M:
+        raise ValueError(f"group_gemm_dw: block_m={bm} must be a multiple of {TILE_M} "
+                         f"on the card")
+    out = torch.empty((n_exp, k, n), dtype=torch.float32, device=a_sorted.device)
+    if k == 0 or n == 0:
+        return out.zero_()
+    lib = _build.library("group_gemm", _PROTOTYPES)
+    rc = lib.tdt_group_gemm_dw(
+        a_sorted.data_ptr(), g_sorted.data_ptr(), ids.data_ptr(), out.data_ptr(),
+        t_pad, k, n, n_exp, bm, DTYPE_CODE[a_sorted.dtype], _build.stream_of(a_sorted),
+    )
+    _build.check(lib, rc, "group_gemm_dw")
+    count_launch(group_gemm_dw)
+    return out
+
+
+group_gemm_dw.launches = 0

@@ -9,8 +9,9 @@ Two entries, as in the JAX package:
 - :func:`moe_reduce_rs`, the sequential composition: the grouped GEMM (K8,
   with the activation fused on its A tiles and an f32 output), the top-k
   combine (``moe_utils.scatter_add_unsorted``, plain PyTorch as XLA's work
-  is in the JAX package), and the reduce-scatter, which is the identity at
-  world 1. The tensor-parallel MoE forward takes it at world 1.
+  is in the JAX package), and the reduce-scatter (K12 on the card; the
+  identity at world 1). The tensor-parallel MoE forward takes it at world
+  1.
 - :func:`moe_reduce_rs_overlap`, over the rank-major rows of the
   overlapped up-projection. After the entry barrier (K4: every rank has
   read its landing slots from the previous call), for each destination
@@ -50,19 +51,8 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     group_gemm,
 )
 from triton_dist_tpu_torch.ops.moe_utils import MoEAlignment, scatter_add_unsorted
-from triton_dist_tpu_torch.ops.reduce_scatter import _reduce_scatter_xla
+from triton_dist_tpu_torch.ops.reduce_scatter import reduce_scatter
 from triton_dist_tpu_torch.utils import axis_index, axis_size, count_call, count_launch
-
-
-def _reduce_scatter(x: torch.Tensor, ctx) -> torch.Tensor:
-    if axis_size(ctx) == 1:
-        return x
-    if x.device.type == "cpu":
-        return _reduce_scatter_xla(x, ctx)
-    raise NotImplementedError(
-        "the standalone reduce-scatter kernels are not ported yet (ROADMAP B12); at "
-        "world > 1 the MoE forward takes moe_reduce_rs_overlap (K10)"
-    )
 
 
 def moe_reduce_rs(
@@ -86,7 +76,7 @@ def moe_reduce_rs(
     y_sorted = group_gemm(h_sorted, w_down, alignment.expert_ids, config=config,
                           out_dtype=torch.float32, act_fn=act_fn)
     partial = scatter_add_unsorted(y_sorted, alignment, topk_weights, n_tokens)
-    return _reduce_scatter(partial.to(out_dtype), ctx)
+    return reduce_scatter(partial.to(out_dtype), ctx=ctx)
 
 
 def _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out, out_dtype):

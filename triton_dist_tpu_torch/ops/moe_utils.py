@@ -168,8 +168,8 @@ def ranked_global_view(al: RankedAlignment, m_loc: int, topk: int) -> MoEAlignme
     return MoEAlignment(
         sorted_token_ids=sorted_token_ids.reshape(-1).to(torch.int32),
         expert_ids=al.expert_ids.reshape(-1),
-        num_tokens_post_pad=torch.tensor(n * t_pad_loc, dtype=torch.int32,
-                                         device=al.local_ids.device),
+        num_tokens_post_pad=torch.full((), n * t_pad_loc, dtype=torch.int32,
+                                       device=al.local_ids.device),
     )
 
 

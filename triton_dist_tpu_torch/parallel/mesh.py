@@ -29,6 +29,7 @@ CPU the same runtime runs the plain versions with plain threads.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import sys
 import threading
@@ -118,10 +119,20 @@ class DistContext:
 
     # -- the SPMD runner ----------------------------------------------------
 
-    def run(self, fn, *args, check: bool = True) -> list:
+    def run(self, fn, *args, grad: bool = False, check: bool = True) -> list:
         """Call ``fn(*args)`` once per rank, each on its own thread with
         ``ctx.rank`` set, the rank's device and compute stream current and
         inference mode on. Returns the ranks' results in rank order.
+
+        ``grad=True`` runs a body that takes gradients (``train_step``):
+        no inference mode, grad mode on, and the autograd engine's
+        multithreading off, so each rank's backward runs on the rank's own
+        thread. With it on, PyTorch runs every CUDA backward node on one
+        worker thread per device, shared by the ranks: a node that meets
+        its peers at a host collective would block the others' nodes
+        behind it, and ``ctx.rank`` (thread-local) would not be set there.
+        Tensors made in a ``grad=False`` run are inference tensors and
+        cannot be saved for a backward: make parameters outside such runs.
 
         The ranks' streams first wait for the caller's current stream, and
         the caller's stream waits for theirs at the end. With ``check`` each
@@ -152,7 +163,7 @@ class DistContext:
         sys.setswitchinterval(min(switch, SWITCH_INTERVAL_S))
         try:
             futures = [
-                self._pool.submit(self._body, r, fn, args, starts, check)
+                self._pool.submit(self._body, r, fn, args, starts, grad, check)
                 for r in range(self.world)
             ]
             results, diag_rows, errors = [], [], []
@@ -185,17 +196,17 @@ class DistContext:
             raise
         return results
 
-    def _body(self, r, fn, args, starts, check):
+    def _body(self, r, fn, args, starts, grad, check):
         self._local.rank = r
         try:
             if not self.cuda:
-                with torch.inference_mode():
+                with _grad_mode(grad):
                     return fn(*args), None
             dev, s, comm = self.devices[r], self.streams[r], self.comm_streams[r]
             torch.cuda.set_device(dev)
             s.wait_event(starts[dev])
             comm.wait_event(starts[dev])
-            with torch.cuda.stream(s), torch.inference_mode():
+            with torch.cuda.stream(s), _grad_mode(grad):
                 out = fn(*args)
                 s.wait_stream(comm)
                 diag = self.diag[r].cpu().tolist() if check else None
@@ -314,6 +325,19 @@ class DistContext:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+
+
+@contextlib.contextmanager
+def _grad_mode(grad: bool):
+    """A rank body's autograd state: inference mode for serving; for
+    training grad mode on and the backward on the calling thread (both
+    thread-local)."""
+    if not grad:
+        with torch.inference_mode():
+            yield
+        return
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
+        yield
 
 
 def _check_connections(ranks_per_device: int) -> None:

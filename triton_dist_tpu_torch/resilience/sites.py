@@ -19,7 +19,10 @@ Site numbering per family, for a launch at world ``n``:
 - ``ag_group_gemm``: site ``n + c`` is a consumer block's wait for the
   sorted slab of rank ``c`` (kind ``wait``);
 - ``moe_rs``: site ``n + p`` is the reduce's wait for the partial of rank
-  ``p`` in landing slot ``p`` (kind ``signal_wait_until``).
+  ``p`` in landing slot ``p`` (kind ``signal_wait_until``);
+- ``reduce_scatter`` (and its entry barrier, sites ``p < n``): site ``n +
+  d`` is the reduce's wait for the chunk in landing slot ``d``, sent by
+  rank ``me - d - 1`` (kind ``signal_wait_until``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ KIND_NAMES = {
 
 # kernel families: the small ints the device records carry
 FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group_gemm": 5,
-            "moe_rs": 6}
+            "moe_rs": 6, "reduce_scatter": 7}
 FAMILY_NAMES = {code: name for name, code in FAMILIES.items()}
 
 
@@ -57,7 +60,7 @@ def site_name(family: str, site: int, world: int) -> str:
         return f"shard of rank {p}"
     if family == "ag_gemm":
         return f"shard {p} in the gather workspace"
-    if family == "gemm_rs":
+    if family in ("gemm_rs", "reduce_scatter"):
         return f"landing slot {p}"
     if family == "ag_group_gemm":
         return f"sorted slab of rank {p} in the gather workspace"
