@@ -62,7 +62,22 @@ Phases, each printed as a JSON line, each fatal on failure:
    backward);
 17. ``f32_parity_train``: f32, 2 MoE layers at full width, one train step at
    world 1 and at world 4 against the plain path differentiated by PyTorch
-   (loss, every gradient shard, every updated parameter).
+   (loss, every gradient shard, every updated parameter);
+18. the multi-position verify kernels K13 (contiguous) and K14 (paged, rows
+   sharing prefix pages) at 8B widths, batch 8, a 2048-position cache,
+   S = 256 and 8 with parked, ragged and empty rows, soft cap, d = 96, bf16
+   and f32, each against its plain version;
+19. ``serve_chunked``: Llama-3.1-8B widths, 32 layers, bf16, batch 8, paged,
+   s_max 2048, 8 prompts of 512-1536 tokens admitted in 256-token ranged
+   chunks (K14, K3) — tokens/s, TTFT, the longest decode stall while a
+   chunk lands — against the same requests admitted in bulk; then
+   ``serve_prefix``: 8 requests sharing a 512-token system prompt with the
+   radix prefix cache (one miss, seven hits) against no cache;
+   ``serve_chunked_contiguous`` (K13, K2, 4 layers);
+20. ``f32_parity_ranged``: 2 layers, world 1 and 4: chunked = bulk =
+   token-fed and prefix hit = miss = token-fed greedy tokens, a Mixtral
+   MoE chunked = token-fed, K13/K14 chunk calls bit for bit equal to the
+   whole-range call, ``prefill_cache_ranged`` composition and CPU twin.
 
 The line before the last lists every kernel with its readings; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -171,6 +186,8 @@ class Counters:
             "moe_reduce_rs": mrs.moe_reduce_rs_overlap,
             "group_gemm_dw": gg.group_gemm_dw,
             "reduce_scatter": rs.reduce_scatter,
+            "flash_verify": fd.flash_verify,
+            "paged_flash_verify": fd.paged_flash_verify,
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -179,6 +196,7 @@ class Counters:
             "group_gemm": gg._group_gemm_plain, "ag_group_gemm": aggg._ag_overlap_xla,
             "moe_reduce_rs": mrs._moe_rs_overlap_xla,
             "group_gemm_dw": gg._group_gemm_dw_plain, "reduce_scatter": rs._reduce_scatter_xla,
+            "verify": fd._xla_verify,
         }
 
     def reset(self) -> None:
@@ -2196,6 +2214,573 @@ def phase_f32_parity_train() -> None:
           "tol": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "param_rel_l2": 1e-4}})
 
 
+# ------------------------------------------------ ranged prefill (slice 5) ----
+
+VERIFY_SHAPE = dict(b=8, hq=32, h_kv=8, d=128, s=2048)   # Llama-3.1-8B decode widths
+
+
+def _verify_tol(ref, dtype) -> float:
+    """bf16 cache: one bf16 ulp of the output scale (the kernel rounds the
+    probabilities to bf16 before P.V, as the TPU kernel does; the plain
+    version keeps them in f32); f32: 1e-5 of the output scale (the same
+    f32 products in another order)."""
+    import torch
+
+    scale = ref[torch.isfinite(ref)].abs().max().item()
+    if dtype == torch.float32:
+        return 1e-5 * scale
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _check_verify(name, got, ref, lens, dtype) -> float:
+    """max |out| and |lse| errors within their tolerances; rows with
+    kv_len == 0 must give out = 0 and lse = -inf exactly."""
+    import torch
+
+    (o, l), (ro, rl) = got, ref
+    empty = lens == 0
+    live = ~empty[..., None].expand_as(l)
+    err_o, err_l = (o - ro).abs().max().item(), (l[live] - rl[live]).abs().max().item()
+    tol_o, tol_l = _verify_tol(ro, dtype), _verify_tol(rl, dtype)
+    if not (err_o <= tol_o and err_l <= tol_l):
+        raise AssertionError(f"{name}: out err {err_o} (tol {tol_o}), lse err {err_l} "
+                             f"(tol {tol_l})")
+    if empty.any() and not ((o[empty] == 0).all().item()
+                            and torch.isneginf(l[empty]).all().item()):
+        raise AssertionError(f"{name}: kv_len == 0 must give out 0, lse -inf")
+    return max(err_o / tol_o, err_l / tol_l)
+
+
+def _ranged_lens(b, S, s, gen):
+    """Per-row prefix lengths of a batcher's ranged pass over an s-position
+    cache: sequence 0 the range's target, rows attend pos0 + i + 1;
+    sequences 1.. parked at s_max (every row its whole cache), with one
+    more target-like row set and a zero-length row (a rank that holds none
+    of the prefix yet) for coverage."""
+    import torch
+
+    pos0 = torch.randint(0, s - S + 1, (b,), generator=gen, device="cuda")
+    lens = pos0[:, None] + torch.arange(1, S + 1, device="cuda")[None, :]
+    lens[2:] = s                          # parked slots
+    lens[1] = torch.arange(1, S + 1)      # a first chunk (pos0 = 0)
+    lens[1, 0] = 0
+    return lens.clamp(0, s).to(torch.int32).contiguous()
+
+
+def _verify_bound(lens, S, hq, h_kv, d, itemsize) -> tuple[float, str]:
+    """Operations and bytes this run's lengths need: 4 FLOPs per (row,
+    head, cached position, head-dim column); q read, each sequence's cache
+    up to its longest row read once, out and lse written."""
+    b = lens.shape[0]
+    flops = 4.0 * hq * d * float(lens.sum().item())
+    max_len = lens.max(dim=1).values.sum().item()
+    nbytes = (b * S * hq * d * itemsize + 2 * h_kv * max_len * d * itemsize
+              + b * S * hq * (d + 1) * 4 + 4 * b * S)
+    return bound(flops, nbytes)
+
+
+def _verify_library(q, k, v, lens):
+    """SDPA on the same rows (q [b, hq, S, d], a [b, 1, S, s] length
+    mask): the library yardstick, timed and used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    mask = (torch.arange(k.shape[2], device="cuda")[None, None, :]
+            < lens[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def _verify_inputs(S, dtype, seed, d=None):
+    """q, k, v at the served shapes (another head dim with `d`) and the
+    ranged pass's per-row lengths."""
+    import torch
+
+    sh = dict(VERIFY_SHAPE, d=d or VERIFY_SHAPE["d"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((sh["b"], S, sh["hq"], sh["d"]), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((sh["b"], sh["h_kv"], sh["s"], sh["d"]), generator=gen,
+                    device="cuda").to(dtype)
+    v = torch.randn((sh["b"], sh["h_kv"], sh["s"], sh["d"]), generator=gen,
+                    device="cuda").to(dtype)
+    return q, k, v, _ranged_lens(sh["b"], S, sh["s"], gen)
+
+
+def phase_flash_verify() -> dict:
+    """K13 at the served shapes: 8B widths (32 query / 8 kv heads, d 128),
+    batch 8, a 2048-position cache, S = 256 (a prefill chunk) and S = 8
+    (a speculative verify), parked-full, ragged and empty rows; a soft-cap
+    case and a d = 96 case; bf16 and f32."""
+    import torch
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    worst = 0.0
+    for S, dtype, cap, d in ((256, torch.bfloat16, 0.0, None), (8, torch.bfloat16, 0.0, None),
+                             (64, torch.bfloat16, 30.0, None), (64, torch.bfloat16, 0.0, 96),
+                             (64, torch.float32, 0.0, None), (37, torch.float32, 5.0, 96)):
+        q, k, v, lens = _verify_inputs(S, dtype, seed=11 + S, d=d)
+        cfg = fd.FlashDecodeConfig(soft_cap=cap)
+        worst = max(worst, _check_verify(
+            f"flash_verify S={S} {dtype} cap={cap} d={q.shape[-1]}",
+            fd.flash_verify(q, k, v, lens, config=cfg, return_lse=True),
+            fd._xla_verify(q, k, v, lens, return_lse=True, soft_cap=cap), lens, dtype))
+    S = 256
+    q, k, v, lens = _verify_inputs(S, torch.bfloat16, seed=11 + S)
+    sh = VERIFY_SHAPE
+    b_ms, by = _verify_bound(lens, S, sh["hq"], sh["h_kv"], sh["d"], 2)
+    entry = dict(
+        name="flash_verify", route="cuda",
+        source="triton_dist_tpu_torch/csrc/flash_verify.cu",
+        replaces="triton_dist_tpu/ops/flash_decode.py:618",
+        max_abs_err=(fd.flash_verify(q, k, v, lens, return_lse=True)[0]
+                     - fd._xla_verify(q, k, v, lens, return_lse=True)[0]).abs().max().item(),
+        ms=cuda_ms(lambda: fd.flash_verify(q, k, v, lens, return_lse=True), iters=10),
+        plain_ms=cuda_ms(lambda: fd._xla_verify(q, k, v, lens, return_lse=True), iters=3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=by,
+        library_ms=cuda_ms(_verify_library(q, k, v, lens), iters=10),
+        shapes=f"b=8 S={S} hq=32 h_kv=8 d=128 s=2048, 6 of 8 sequences parked (full "
+               f"cache), bf16",
+    )
+    emit({"phase": "kernel", "kernel": "flash_verify", "worst_err_over_tol": worst,
+          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "library_ms", "shapes")}})
+    return entry
+
+
+def _paged_pool(k, v, page, gen, share: int):
+    """The cache as a page pool behind a shuffled block table in which
+    sequences 2.. name sequence 1's first `share` pages: shared prefix
+    pages, as under the prefix cache."""
+    import torch
+
+    b, h_kv, s, d = k.shape
+    pps = s // page
+    table = torch.randperm(b * pps, generator=gen, device="cuda").reshape(b, pps)
+    table[2:, :share] = table[1, :share]
+
+    def pool(x):
+        pages = x.reshape(b, h_kv, pps, page, d).transpose(1, 2)   # [b, pps, h_kv, page, d]
+        p = torch.zeros((b * pps, h_kv, page, d), dtype=x.dtype, device="cuda")
+        p[table[:, share:].reshape(-1)] = pages[:, share:].reshape(-1, h_kv, page, d)
+        p[table[:2, :share].reshape(-1)] = pages[:2, :share].reshape(-1, h_kv, page, d)
+        return p
+
+    return pool(k), pool(v), table.to(torch.int32).contiguous()
+
+
+def phase_paged_flash_verify() -> dict:
+    """K14 at the served shapes: the engine's pool of 16-token pages, a
+    shuffled block table whose rows share prefix pages, S = 256 and 8, a
+    soft-cap case and a d = 96 case; bf16 and f32."""
+    import torch
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    page = 16
+    worst = 0.0
+    for S, dtype, cap, d in ((256, torch.bfloat16, 0.0, None), (8, torch.bfloat16, 0.0, None),
+                             (64, torch.bfloat16, 30.0, None), (64, torch.bfloat16, 0.0, 96),
+                             (64, torch.float32, 0.0, None), (37, torch.float32, 5.0, 96)):
+        q, k, v, lens = _verify_inputs(S, dtype, seed=21 + S, d=d)
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        kp, vp, table = _paged_pool(k, v, page, gen, share=32)
+        worst = max(worst, _check_verify(
+            f"paged_flash_verify S={S} {dtype} cap={cap} d={q.shape[-1]}",
+            fd.paged_flash_verify(q, kp, vp, lens, table, soft_cap=cap, return_lse=True),
+            fd._xla_paged_verify(q, kp, vp, lens, table, return_lse=True, soft_cap=cap),
+            lens, dtype))
+    S = 256
+    q, k, v, lens = _verify_inputs(S, torch.bfloat16, seed=21 + S)
+    kp, vp, table = _paged_pool(k, v, page, torch.Generator(device="cuda").manual_seed(S),
+                                share=32)
+    kc, vc = fd._paged_to_contiguous(kp, table), fd._paged_to_contiguous(vp, table)
+    sh = VERIFY_SHAPE
+    b_ms, by = _verify_bound(lens, S, sh["hq"], sh["h_kv"], sh["d"], 2)
+    entry = dict(
+        name="paged_flash_verify", route="cuda",
+        source="triton_dist_tpu_torch/csrc/flash_verify.cu",
+        replaces="triton_dist_tpu/ops/flash_decode.py:846",
+        max_abs_err=(fd.paged_flash_verify(q, kp, vp, lens, table, return_lse=True)[0]
+                     - fd._xla_paged_verify(q, kp, vp, lens, table, return_lse=True)[0]
+                     ).abs().max().item(),
+        ms=cuda_ms(lambda: fd.paged_flash_verify(q, kp, vp, lens, table, return_lse=True),
+                   iters=10),
+        plain_ms=cuda_ms(lambda: fd._xla_paged_verify(q, kp, vp, lens, table,
+                                                      return_lse=True), iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=by,
+        library_ms=cuda_ms(_verify_library(q, kc, vc, lens), iters=10),
+        shapes=f"b=8 S={S} hq=32 h_kv=8 d=128 page=16 pages/seq=128 (32 shared), 6 of 8 "
+               f"sequences parked, bf16",
+    )
+    emit({"phase": "kernel", "kernel": "paged_flash_verify", "worst_err_over_tol": worst,
+          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "library_ms", "shapes")}})
+    return entry
+
+
+def _timed_serve(eng, reqs, spacing_s: float) -> dict:
+    """Serve `reqs` arriving `spacing_s` apart (engine clock) and record,
+    for every decode round, the host wall time since the previous one ended
+    and whether prefill work (a bulk admission or ranged chunks) ran in
+    between: the decode stall an admission causes."""
+    import torch
+    from triton_dist_tpu_torch.serving.traffic import Arrival
+
+    b = eng._batcher
+    decode_round = b._decode_round
+    gaps = []
+    mark = {"t": time.perf_counter(), "work": b.prefill_work_total}
+
+    def timed():
+        decode_round()  # ends in a device-to-host read of the step's tokens
+        now = time.perf_counter()
+        gaps.append((now - mark["t"], b.prefill_work_total > mark["work"]))
+        mark["t"], mark["work"] = now, b.prefill_work_total
+
+    b._decode_round = timed
+    t_base = eng.clock.monotonic()
+    traffic = [Arrival(t_s=t_base + i * spacing_s, request=r) for i, r in enumerate(reqs)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mark["t"] = t0
+    done = eng.serve(traffic)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(done) != sorted(r.uid for r in reqs):
+        raise AssertionError(f"serve finished {sorted(done)}")
+    for uid, res in done.items():
+        if len(res.tokens) != reqs[0].max_new_tokens or not all(
+                0 <= t < eng.cfg.vocab for t in res.tokens):
+            raise AssertionError(f"{uid}: bad tokens {res.tokens}")
+    n_tok = sum(len(r.tokens) for r in done.values())
+    ttft = [done[r.uid].ttft_ms for r in reqs]
+    with_prefill = [g for g, w in gaps if w]
+    decode_only = sorted(g for g, w in gaps if not w)
+    return dict(
+        wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall, ttft_ms=ttft,
+        ttft_ms_max=max(ttft), ttft_ms_median=sorted(ttft)[len(ttft) // 2],
+        decode_rounds=len(gaps),
+        max_gap_with_prefill_ms=1e3 * max(with_prefill) if with_prefill else None,
+        median_gap_decode_only_ms=(1e3 * decode_only[len(decode_only) // 2]
+                                   if decode_only else None),
+        prefill_work=b.prefill_work_total, prefill_tokens=b.prefill_tokens_total,
+        done=done,
+    )
+
+
+def phase_ranged_serving(counters: Counters) -> tuple[dict, dict]:
+    """``serve_chunked`` and ``serve_prefix``: Llama-3.1-8B widths, 32
+    layers, bf16, batch 8, paged cache of 16-token pages, prefill=True.
+    Chunked: 8 prompts of 512-1536 tokens (2-6 chunks of 256), 32 new
+    tokens each, arriving 0.25 s apart, s_max 2048; then the same requests
+    admitted in bulk. Prefix: 8 requests sharing one 512-token system
+    prompt, each with its own 32-128 token suffix, 32 new tokens, arriving
+    0.25 s apart, s_max 1024, with the radix prefix cache; then the same
+    requests without it. The main-path runs (chunked, cached) read the
+    launch counts: K14 and K3 carried them, no plain version ran."""
+    import numpy as np
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher, Request
+    from triton_dist_tpu_torch.models.prefix_cache import PrefixCacheConfig
+    from triton_dist_tpu_torch.models.tp_transformer import init_params
+    from triton_dist_tpu_torch.serving.engine import ServingConfig, ServingEngine
+
+    cfg = presets.preset("llama-3.1-8b", n_layers=32, batch=8, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    max_new, spacing = 32, 0.25
+
+    def main_path(name, run):
+        counters.reset()
+        out = run()
+        counts = counters.read()
+        launches, plain = counts["launches"], counts["plain_calls"]
+        if launches["paged_flash_verify"] <= 0 or launches["paged_flash_decode"] <= 0:
+            raise AssertionError(f"{name}: served path skipped a kernel: {launches}")
+        if any(plain.values()):
+            raise AssertionError(f"{name}: plain versions ran on the card path: {plain}")
+        return out, launches
+
+    # serve_chunked
+    lengths = [512, 640, 768, 896, 1024, 1152, 1280, 1536]
+    reqs = _requests(cfg.vocab, lengths, max_new, seed=21)
+
+    def engine(s_max, **serving):
+        return ServingEngine(cfg, params, s_max=s_max, page_size=16, prefill=True,
+                             serving=ServingConfig(max_queue=64, **serving))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunked, ch_launches = main_path("serve_chunked", lambda: _timed_serve(
+        engine(2048, prefill_chunk_tokens=256), reqs, spacing))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bulk = _timed_serve(engine(2048), reqs, spacing)
+    same = sum(chunked["done"][r.uid].tokens == bulk["done"][r.uid].tokens for r in reqs)
+    # one 256-token chunk (positions [256, 512) of a 1024-token prompt)
+    # profiled: K14's share of the pass, and the share of K14's work that
+    # goes to the seven parked slots (each row attends all 2048 positions)
+    bt = ContinuousBatcher(cfg, params, s_max=2048, page_size=16, prefill=True,
+                           prefill_chunk_tokens=256)
+    bt.submit(_requests(cfg.vocab, [1024], max_new, seed=26)[0])
+    bt._admit()
+    bt._chunk_pass()            # the first chunk, a warm-up
+    prof = _profile(bt._chunk_pass)
+    del bt
+    target = sum(256 + i + 1 for i in range(256))
+    parked = (cfg.batch - 1) * 256 * 2048
+    prof["paged_flash_verify_ms"] = sum(ms for name, ms in prof["top_kernels_ms"].items()
+                                        if "verify_mma_kernel" in name)
+    prof["parked_share_of_verify_work"] = parked / (parked + target)
+    drop = ("done",)
+    emit({"phase": "serve_chunked", "model": "llama-3.1-8b", "n_layers": 32, "batch": 8,
+          "s_max": 2048, "page_size": 16, "prefill_chunk_tokens": 256,
+          "prompt_lens": lengths, "max_new_tokens": max_new, "arrival_spacing_s": spacing,
+          "chunked": {k_: v_ for k_, v_ in chunked.items() if k_ not in drop},
+          "bulk": {k_: v_ for k_, v_ in bulk.items() if k_ not in drop},
+          "requests_with_identical_tokens": same, "peak_mem_gb": peak,
+          "chunk_profile": prof, "launches": ch_launches})
+
+    # serve_prefix
+    rng = np.random.default_rng(22)
+    system = [int(t) for t in rng.integers(0, cfg.vocab, 512)]
+    suffixes = [32, 45, 64, 77, 90, 100, 115, 128]
+    preqs = [Request(system + [int(t) for t in rng.integers(0, cfg.vocab, n)],
+                     max_new_tokens=max_new, uid=f"p{i}") for i, n in enumerate(suffixes)]
+    holder = {}
+
+    def cached_run():
+        eng = engine(1024, prefix_cache=PrefixCacheConfig())
+        holder["eng"] = eng
+        return _timed_serve(eng, preqs, spacing)
+
+    cached, px_launches = main_path("serve_prefix", cached_run)
+    stats = holder.pop("eng").snapshot()["prefix_cache"]
+    if stats["hits"] != len(preqs) - 1 or stats["prefill_tokens_saved"] <= 0:
+        raise AssertionError(f"serve_prefix: expected one miss and 7 hits: {stats}")
+    uncached = _timed_serve(engine(1024), preqs, spacing)
+    same_px = sum(cached["done"][r.uid].tokens == uncached["done"][r.uid].tokens
+                  for r in preqs)
+
+    def split(res):
+        out = {k_: v_ for k_, v_ in res.items() if k_ not in drop}
+        out["ttft_ms_miss"] = res["ttft_ms"][0]
+        out["ttft_ms_hits_median"] = sorted(res["ttft_ms"][1:])[len(preqs[1:]) // 2]
+        return out
+
+    emit({"phase": "serve_prefix", "model": "llama-3.1-8b", "n_layers": 32, "batch": 8,
+          "s_max": 1024, "page_size": 16, "system_prompt": 512, "suffix_lens": suffixes,
+          "max_new_tokens": max_new, "arrival_spacing_s": spacing,
+          "cached": split(cached), "uncached": split(uncached),
+          "prefix_cache": stats, "requests_with_identical_tokens": same_px,
+          "launches": px_launches})
+    return ch_launches, px_launches
+
+
+def phase_chunked_contiguous(counters: Counters) -> dict:
+    """Chunked prefill over the contiguous cache (K13 and K2) at 8B widths,
+    4 layers: 4 prompts of 300-700 tokens in 128-token chunks."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+    from triton_dist_tpu_torch.models.tp_transformer import init_params
+
+    cfg = presets.preset("llama-3.1-8b", n_layers=4, batch=4, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=1)
+    batcher = ContinuousBatcher(cfg, params, s_max=1024, prefill=True,
+                                prefill_chunk_tokens=128)
+    reqs = _requests(cfg.vocab, [300, 420, 555, 700], 16, seed=23)
+    counters.reset()
+    t0 = time.perf_counter()
+    for r in reqs:
+        batcher.submit(r)
+    done = dict(batcher.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    launches, plain = counts["launches"], counts["plain_calls"]
+    if len(done) != len(reqs) or any(len(t) != 16 for t in done.values()):
+        raise AssertionError("chunked contiguous serve did not finish every request")
+    if launches["flash_verify"] <= 0 or launches["flash_decode"] <= 0 or any(plain.values()):
+        raise AssertionError(f"chunked contiguous path: {counts}")
+    emit({"phase": "serve_chunked_contiguous", "n_layers": 4, "wall_s": wall,
+          "prefill_chunk_tokens": 128, "tokens": sum(len(t) for t in done.values()),
+          **counts})
+    return launches
+
+
+def _verify_composes(fd, dtype, paged) -> None:
+    """K13/K14: a whole-range ranged call and the calls over its chunks
+    give every row's (out, lse) bit for bit, at 8B widths."""
+    import torch
+
+    b, S, hq, h_kv, d, s, page = 4, 256, 32, 8, 128, 2048, 16
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((b, S, hq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, h_kv, s, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, h_kv, s, d), generator=gen, device="cuda").to(dtype)
+    pos0 = torch.tensor([0, 300, 1792, s], device="cuda")   # the last row parked
+    if paged:
+        kp, vp, table = _paged_pool(k, v, page, gen, share=8)
+        run = lambda qq, ll: fd.paged_flash_verify(qq, kp, vp, ll, table,  # noqa: E731
+                                                   return_lse=True)
+    else:
+        run = lambda qq, ll: fd.flash_verify(qq, k, v, ll, return_lse=True)  # noqa: E731
+    whole = run(q, fd._ranged_local_lens(pos0, S, 0, s))
+    for lo, hi in ((0, 1), (1, 100), (100, 256)):
+        part = run(q[:, lo:hi].contiguous(), fd._ranged_local_lens(pos0 + lo, hi - lo, 0, s))
+        if not (torch.equal(part[0], whole[0][:, lo:hi])
+                and torch.equal(part[1], whole[1][:, lo:hi])):
+            raise AssertionError(f"{'paged_' if paged else ''}flash_verify {dtype}: chunk "
+                                 f"[{lo}, {hi}) differs from the whole-range call")
+
+
+def phase_f32_parity_ranged() -> None:
+    """f32, 2 layers at 8B widths, world 1 and world 4 on the card, TF32
+    off: chunked = bulk = token-fed greedy tokens; prefix-cache hit = miss
+    = token-fed prefix-cache run; a 2-layer Mixtral-width MoE chunked =
+    token-fed at world 1. K13/K14 whole-range = chunk calls bit for bit
+    (f32 and bf16). ``prefill_cache_ranged``: a whole range and its
+    composition from chunks padded to the same rows, as the batcher pads
+    them, within 1e-6 relative L2 (logits rows, written K/V) at world 1
+    and 4; unpadded chunks within 1e-5; its logits within 1e-5 relative L2
+    of the CPU twin and of the world-1 pass at world 4."""
+    import numpy as np
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models import decode as dec
+    from triton_dist_tpu_torch.models.prefix_cache import PrefixCacheConfig
+    from triton_dist_tpu_torch.models.tp_transformer import (
+        init_moe_params, init_params, shard_params,
+    )
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for paged in (False, True):
+            _verify_composes(fd, dtype, paged)
+
+    def tokens(cfg, params, reqs, ctx=None, sequential=False, **kw):
+        b = dec.ContinuousBatcher(cfg, params, s_max=256, device="cuda", ctx=ctx, **kw)
+        out = {}
+        for group in ([[r] for r in reqs] if sequential else [reqs]):
+            for r in group:
+                b.submit(r)
+            out.update(dict(b.run()))
+        return out, b
+
+    cfg = presets.preset("llama-3.1-8b", n_layers=2, batch=4, dtype=torch.float32)
+    params = init_params(cfg, seed=5)
+    rng = np.random.default_rng(24)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab, 48)]
+    tail = lambda n: [int(t) for t in rng.integers(0, cfg.vocab, n)]  # noqa: E731
+    cls_reqs = _requests(cfg.vocab, [40, 57, 70], 6, seed=25)
+    a = prefix + tail(13)
+    px_reqs = [dec.Request(a, max_new_tokens=6, uid="a"),
+               dec.Request(list(a), max_new_tokens=6, uid="b"),
+               dec.Request(prefix + tail(21), max_new_tokens=6, uid="c")]
+    report = {}
+    for world in (1, WORLD):
+        ctx = initialize_distributed(world) if world > 1 else None
+        tok, _ = tokens(cfg, params, cls_reqs, ctx, page_size=16)
+        bulk, _ = tokens(cfg, params, cls_reqs, ctx, page_size=16, prefill=True)
+        chunk, _ = tokens(cfg, params, cls_reqs, ctx, page_size=16, prefill=True,
+                          prefill_chunk_tokens=16)
+        if not tok == bulk == chunk:
+            raise AssertionError(f"world {world}: chunked {chunk} / bulk {bulk} / token-fed "
+                                 f"{tok} differ")
+        px_kw = dict(page_size=16, prefix_cache=PrefixCacheConfig())
+        px_tok, _ = tokens(cfg, params, px_reqs, ctx, sequential=True, **px_kw)
+        px_pre, bt = tokens(cfg, params, px_reqs, ctx, sequential=True, prefill=True, **px_kw)
+        stats = bt.prefix_cache_stats()
+        if not (px_pre == px_tok and px_pre["a"] == px_pre["b"] and stats["hits"] >= 2):
+            raise AssertionError(f"world {world}: prefix hit/miss/token-fed differ: "
+                                 f"{px_pre} vs {px_tok} ({stats})")
+        report[world] = dict(prefix_hits=stats["hits"],
+                             prefill_tokens_saved=stats["prefill_tokens_saved"])
+        if ctx is not None:
+            ctx.close()
+
+    # prefill_cache_ranged: whole range vs chunks (world 1 and 4), vs the CPU
+    # twin (world 1), on the paged cache. As the batcher runs them, the
+    # chunks are padded to the whole range's row count (their pad rows write
+    # junk past the chunk, which the next chunk overwrites), so every
+    # projection runs at the same M: cuBLAS picks its algorithm by M, and
+    # unpadded chunks (other M) differ from the whole pass by f32
+    # summation-order noise at K = 4096, held to 1e-5 and reported.
+    spec = dec.PagedKVCacheSpec(256, 16, static_table=True)
+    L = 64
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (cfg.batch, L)))
+
+    def ranged(p, device, splits, ctx=None, pad=False):
+        cache = spec.init(cfg, device, 1 if ctx is None else ctx.world)
+        rows, lo = [], 0
+        for hi in splits:
+            t = toks[:, lo:hi]
+            if pad:
+                t = torch.nn.functional.pad(t, (0, L - (hi - lo)))
+            logits, cache = dec.prefill_cache_ranged(cfg, p, cache, t.to(device), lo,
+                                                     spec=spec, ctx=ctx)
+            rows.append(logits[:, :hi - lo].float())
+            lo = hi
+        # K/V of positions [0, L) (this rank's part of them): logical pages
+        # 0 .. L/16 - 1 of every slot, on the rank that owns them
+        pages = cache["block_table"][0][:, :L // 16].reshape(-1).long()
+        own = ctx is None or ctx.rank * (256 // ctx.world) < L
+        kv = (cache["k"][:, pages], cache["v"][:, pages]) if own else None
+        return torch.cat(rows, dim=1), kv
+
+    def composition(whole, parts):
+        out = {"logits": _rel_l2(parts[0], whole[0])}
+        if whole[1] is not None:
+            out.update(k=_rel_l2(parts[1][0], whole[1][0]), v=_rel_l2(parts[1][1], whole[1][1]))
+        return max(out.values())
+
+    with torch.inference_mode():
+        whole = ranged(params, "cuda", [L])
+        comp = composition(whole, ranged(params, "cuda", [24, L], pad=True))
+        comp_unpadded = composition(whole, ranged(params, "cuda", [24, L]))
+        params_cpu = {k_: v_.cpu() for k_, v_ in params.items() if k_ != "layers"}
+        params_cpu["layers"] = [{k_: v_.cpu() for k_, v_ in p.items()} for p in params["layers"]]
+        twin = ranged(params_cpu, "cpu", [L])
+        del params_cpu
+    twin_err = _rel_l2(whole[0].cpu(), twin[0])
+    ctx = initialize_distributed(WORLD)
+    shards = shard_params(params, WORLD, ctx.devices)
+    w4 = ctx.run(lambda: (ranged(shards[ctx.rank], "cuda", [L], ctx),
+                          ranged(shards[ctx.rank], "cuda", [24, L], ctx, pad=True)))
+    ctx.close()
+    comp4 = max(composition(w_, p_) for w_, p_ in w4)
+    w4_vs_w1 = _rel_l2(w4[0][0][0], whole[0])
+    if not (comp <= 1e-6 and comp4 <= 1e-6 and comp_unpadded <= 1e-5 and twin_err <= 1e-5
+            and w4_vs_w1 <= 1e-5):
+        raise AssertionError(f"ranged pass: composition {comp} (unpadded {comp_unpadded}) / "
+                             f"world 4 {comp4}, CPU twin {twin_err}, world 4 vs 1 {w4_vs_w1}")
+
+    # MoE: chunked = token-fed at world 1
+    mcfg = presets.preset(MOE_MODEL, n_layers=2, batch=4, dtype=torch.float32)
+    del params, shards
+    torch.cuda.empty_cache()
+    mparams = init_moe_params(mcfg, seed=34)
+    m_reqs = _requests(mcfg.vocab, [33, 50], 6, seed=35)
+    m_tok, _ = tokens(mcfg, mparams, m_reqs, page_size=16)
+    m_chunk, _ = tokens(mcfg, mparams, m_reqs, page_size=16, prefill=True,
+                        prefill_chunk_tokens=16)
+    if m_tok != m_chunk:
+        raise AssertionError(f"MoE chunked {m_chunk} vs token-fed {m_tok}")
+    emit({"phase": "f32_parity_ranged", "n_layers": 2, "worlds": [1, WORLD],
+          "identical": True, "verify_chunks_bit_identical": True,
+          "ranged_composition_rel_l2": comp, "ranged_composition_rel_l2_world4": comp4,
+          "ranged_composition_unpadded_rel_l2": comp_unpadded,
+          "ranged_vs_cpu_twin_rel_l2": twin_err, "ranged_world4_vs_world1_rel_l2": w4_vs_w1,
+          "prefix": report, "moe_chunked_identical": True,
+          "tol": {"composition_rel_l2": 1e-6, "composition_unpadded_rel_l2": 1e-5,
+                  "cpu_twin_rel_l2": 1e-5, "world4_vs_world1_rel_l2": 1e-5},
+          "seconds": time.perf_counter() - t_start})
+
+
 def main() -> int:
     try:
         import torch
@@ -2217,6 +2802,7 @@ def main() -> int:
     phase_build()
     counters = Counters()
     entries = [phase_gemm(), phase_flash_decode(), phase_paged_flash_decode()]
+    verify_entries = [phase_flash_verify(), phase_paged_flash_verify()]
     moe_entries = [phase_group_gemm()]
     train_entries = [phase_group_gemm_dw()]
     torch.cuda.empty_cache()
@@ -2225,6 +2811,12 @@ def main() -> int:
     contiguous = phase_contiguous(counters)
     torch.cuda.empty_cache()
     phase_f32_parity()
+    torch.cuda.empty_cache()
+    chunked, prefix = phase_ranged_serving(counters)
+    torch.cuda.empty_cache()
+    chunked_contiguous = phase_chunked_contiguous(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_ranged()
     torch.cuda.empty_cache()
     from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
 
@@ -2264,6 +2856,10 @@ def main() -> int:
     train_entries[0]["launches"] = train1["group_gemm_dw"] + train4["group_gemm_dw"]
     train_entries[1]["launches"] = train4["reduce_scatter"]
     entries += train_entries
+    verify_entries[0]["launches"] = chunked_contiguous["flash_verify"]
+    verify_entries[1]["launches"] = (chunked["paged_flash_verify"]
+                                     + prefix["paged_flash_verify"])
+    entries += verify_entries
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

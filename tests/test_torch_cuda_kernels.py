@@ -1,6 +1,8 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions on
 the card (GEMM K1, flash decode K2, paged flash decode K3, grouped GEMM K8,
-its weight gradient K11, and at world 2 and 4 with every rank on the one
+its weight gradient K11, the multi-position verify K13 and its paged twin
+K14 — over shared pages, and chunk calls bit-equal to the whole-range
+call — and at world 2 and 4 with every rank on the one
 card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
 AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, plus stuck waits
 that must raise with their records), and a world-4 MoE train step that
@@ -102,6 +104,100 @@ def test_flash_decode_kernels_match_plain(cuda, dtype, name):
     for o, lse in (got, pgot):
         torch.testing.assert_close(o, want[0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(lse, want[1], rtol=1e-4, atol=1e-4)
+
+
+VERIFY_CASES = {
+    # name: (b, S, hq, h_kv, s, d, soft_cap, page)
+    "s5_g4_d128": (2, 5, 8, 2, 200, 128, 0.0, 8),
+    "s37_g4_cap": (2, 37, 8, 2, 144, 64, 5.0, 16),
+    "s3_g1_d96": (3, 3, 2, 2, 96, 96, 0.0, 8),
+    "s70_g8_d8": (1, 70, 8, 1, 64, 8, 0.0, 4),
+}
+
+
+def _verify_tol(ref: torch.Tensor, dtype) -> float:
+    """bf16: one bf16 ulp of the output scale (the kernel rounds the
+    probabilities to bf16 before P.V, as the TPU kernel does); f32: 1e-5 of
+    it (the same f32 products in another order)."""
+    scale = ref[torch.isfinite(ref)].abs().max().item()
+    if dtype == torch.float32:
+        return 1e-5 * scale
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(VERIFY_CASES))
+def test_verify_kernels_match_plain(cuda, dtype, name):
+    """K13/K14 against their plain versions: ragged per-row lengths with
+    empty and full rows; the paged pool is shared — every sequence's first
+    page is one physical page, as under the prefix cache."""
+    b, S, hq, h_kv, s, d, cap, page = VERIFY_CASES[name]
+    assert s % page == 0
+    rng = np.random.default_rng(9)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda, dtype)  # noqa: E731
+    q = t(rng.standard_normal((b, S, hq, d)))
+    k1 = rng.standard_normal((h_kv, s, d))
+    v1 = rng.standard_normal((h_kv, s, d))
+    kc = np.repeat(k1[None], b, 0) + 0.1 * rng.standard_normal((b, h_kv, s, d))
+    vc = np.repeat(v1[None], b, 0) + 0.1 * rng.standard_normal((b, h_kv, s, d))
+    kc[:, :, :page], vc[:, :, :page] = k1[:, :page], v1[:, :page]  # a shared first page
+    lens = rng.integers(0, s + 1, (b, S)).astype(np.int32)
+    lens[0, 0], lens[-1, -1] = 0, s
+    tl = torch.from_numpy(lens).to(cuda)
+    got = tfd.flash_verify(q, t(kc), t(vc), tl, config=tfd.FlashDecodeConfig(soft_cap=cap),
+                           return_lse=True)
+    want = tfd._xla_verify(q, t(kc), t(vc), tl, return_lse=True, soft_cap=cap)
+    # pool: page 0 shared by every sequence, the rest private and shuffled
+    pps = s // page
+    n_pages = 1 + b * (pps - 1)
+    perm = rng.permutation(n_pages - 1) + 1
+    table = np.zeros((b, pps), np.int32)
+    table[:, 1:] = perm.reshape(b, pps - 1)
+    kp, vp = np.zeros((n_pages, h_kv, page, d)), np.zeros((n_pages, h_kv, page, d))
+    for bi in range(b):
+        for ci in range(pps):
+            kp[table[bi, ci]] = kc[bi, :, ci * page:(ci + 1) * page]
+            vp[table[bi, ci]] = vc[bi, :, ci * page:(ci + 1) * page]
+    pgot = tfd.paged_flash_verify(q, t(kp), t(vp), tl, torch.from_numpy(table).to(cuda),
+                                  soft_cap=cap, return_lse=True)
+    torch.cuda.synchronize()
+    empty = torch.from_numpy(lens == 0).to(cuda)
+    for o, lse in (got, pgot):
+        assert (o - want[0]).abs().max().item() <= _verify_tol(want[0], dtype)
+        live = ~empty[..., None].expand_as(lse)
+        assert (lse[live] - want[1][live]).abs().max().item() <= _verify_tol(want[1], dtype)
+        assert (o[empty] == 0).all() and torch.isneginf(lse[empty]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_verify_kernels_compose_bit_for_bit(cuda, dtype, paged):
+    """A whole-range ranged-prefill call and the calls over its chunks give
+    every row the same (out, lse) bits: a row's result depends on neither S
+    nor its neighbours."""
+    b, S, hq, h_kv, s, d, page = 3, 150, 32, 8, 512, 128, 16
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((b, S, hq, d), generator=gen, device=cuda).to(dtype)
+    if paged:
+        pps = s // page
+        k = torch.randn((b * pps, h_kv, page, d), generator=gen, device=cuda).to(dtype)
+        v = torch.randn((b * pps, h_kv, page, d), generator=gen, device=cuda).to(dtype)
+        table = torch.randperm(b * pps, generator=gen, device=cuda).reshape(b, pps)
+        table = table.to(torch.int32)
+        run = lambda qq, lens: tfd.paged_flash_verify(  # noqa: E731
+            qq, k, v, lens, table, return_lse=True)
+    else:
+        k = torch.randn((b, h_kv, s, d), generator=gen, device=cuda).to(dtype)
+        v = torch.randn((b, h_kv, s, d), generator=gen, device=cuda).to(dtype)
+        run = lambda qq, lens: tfd.flash_verify(qq, k, v, lens, return_lse=True)  # noqa: E731
+    pos0 = torch.tensor([0, 77, s], device=cuda)  # the last row parked past the cache
+    whole = run(q, tfd._ranged_local_lens(pos0, S, 0, s).to(cuda))
+    for lo, hi in ((0, 1), (1, 64), (64, 150)):
+        part = run(q[:, lo:hi].contiguous(), tfd._ranged_local_lens(pos0 + lo, hi - lo, 0, s))
+        assert torch.equal(part[0], whole[0][:, lo:hi]), (lo, hi)
+        assert torch.equal(part[1], whole[1][:, lo:hi]), (lo, hi)
 
 
 def _moe_routing(gen, tokens, n_exp, topk, device):

@@ -23,6 +23,7 @@ from triton_dist_tpu.serving import engine as jeng
 from triton_dist_tpu.serving import metrics as jmetrics
 from triton_dist_tpu.serving import traffic as jtraffic
 from triton_dist_tpu_torch.models import decode as tdec
+from triton_dist_tpu_torch.models.prefix_cache import PrefixCacheConfig
 from triton_dist_tpu_torch.models import tp_transformer as ttm
 from triton_dist_tpu_torch.resilience import retry as tretry
 from triton_dist_tpu_torch.serving import engine as teng
@@ -144,12 +145,17 @@ def test_batcher_and_generate_match_jax(tiny):
 
 def test_later_slices_refuse_loudly(tiny):
     _, _, tcfg, tparams, _ = tiny
-    for name in ("overload", "prefix_cache", "speculative", "prefill_chunk_tokens"):
+    for name in ("overload", "speculative"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             teng.ServingConfig(**{name: 1}).validate()
-    with pytest.raises(NotImplementedError):
-        tdec.ContinuousBatcher(tcfg, tparams, s_max=S_MAX, prefix_cache=object(),
-                               device="cpu")
+    # the ranged-prefill modes are ported: accepted, validated, passed on
+    px = teng.ServingConfig(prefix_cache=PrefixCacheConfig(), prefill_chunk_tokens=4).validate()
+    armed = teng.ServingEngine(tcfg, tparams, s_max=S_MAX, clock=tretry.FakeClock(),
+                               device="cpu", page_size=4, prefill=True, serving=px)
+    assert armed._batcher.prefill_chunk_tokens == 4
+    assert armed._batcher.prefix_cache is not None
+    with pytest.raises(ValueError, match="prefill_chunk_tokens"):
+        teng.ServingConfig(prefill_chunk_tokens=0).validate()
     eng = teng.ServingEngine(tcfg, tparams, s_max=S_MAX, clock=tretry.FakeClock(),
                              device="cpu", serving=teng.ServingConfig(max_queue=1))
     uids = [eng.submit(tdec.Request([1, 2], max_new_tokens=2, uid=i)) for i in range(4)]

@@ -1,0 +1,586 @@
+// K13 · multi-position verify and K14 · its paged twin: S query positions
+// of each sequence attend the KV cache in one pass, each position masked by
+// its own prefix length, with grouped-query heads. Returns
+// (out f32 [b, S, hq, d], lse f32 [b, S, hq]).
+//
+// Replaces triton_dist_tpu/ops/flash_decode.py:618 _flash_verify_kernel
+// (K13, wrapper _flash_verify_fused at :703) and :846
+// _paged_flash_verify_kernel (K14, both of its grids). The math is that of
+// _online_softmax_step (:195) and _finalize_softmax (:242): scores scaled
+// by 1/sqrt(true head dim), the optional soft cap before the length mask,
+// m_safe = max(m, -1e30) so a fully masked row never computes inf - inf,
+// kv_len = 0 gives out = 0, lse = -inf; the probabilities meet V in the
+// cache dtype (bf16 on the MXU there, on the tensor cores here) and are
+// summed into l in f32.
+//
+// What bounds it on the H100: the S*g query rows of a (sequence, kv head)
+// share one pass over its cache, so at a prefill chunk (S = 256, g = 4:
+// 1024 rows) it does ~1024 FLOPs per cached byte, far above the ~295
+// FLOP/byte ridge: it is bound by operations, and in bf16 only the tensor
+// cores can approach that bound.
+//
+// What the design does about it. The TPU kernel holds all S*g rows of a
+// (sequence, kv head) in VMEM and walks the KV chunks in sequence; Hopper
+// has no sequential grid carry and a block holds far fewer rows, so each
+// block owns a tile of rows and walks the whole KV range itself (no split
+// over KV, no merge pass), up to the largest prefix length among its rows
+// (the per-sequence chunk gate of the TPU kernel, per row tile here).
+// bf16 caches: 64 rows a block, 16 a warp; Q.K^T and P.V are m16n8k16
+// mma.sync products fed by ldmatrix from shared memory, K and V tiles of 64
+// positions double-buffered with 16-byte cp.async, the online-softmax
+// carry in registers (each row's max and sum reduced over the 4 threads
+// that hold it). f32 caches (the reference precision): 32 rows a block,
+// scores, softmax and P.V in f32 FMA from shared memory.
+//
+// A row's result depends on nothing but its own q row, its own length and
+// the cache: the tiles are the same 64-position tiles from position 0 for
+// every row; skipping a tile that is masked for every row of a block is
+// exact (alpha = 1, p = 0); no choice depends on S or on the row count.
+// So a whole-range call and the calls over its chunks agree bit for bit
+// row by row, which the ranged prefill's composition rests on.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+enum DType { kF32 = 0, kBF16 = 1 };
+typedef __nv_bfloat16 bf16;
+
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 64;      // cache positions per online-softmax step
+constexpr int MMA_ROWS = 64;  // query rows a block (bf16): 16 a warp
+constexpr int FMA_ROWS = 32;  // query rows a block (f32)
+
+// Where rows and cache positions live. Row r of (sequence bi, kv head h) is
+// position s = r / g, group member j = r % g: q[bi, s, h*g + j, :].
+struct Geo {
+  int b, S, hq, h_kv, g, d, s_len, page, max_pages;
+};
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Element offset of cache row (sequence bi, kv head h, position pos):
+// contiguous [b, h_kv, s_len, d], or the page pool [n_pages, h_kv, page, d]
+// through block_table [b, max_pages].
+template <bool PAGED>
+__device__ __forceinline__ int64_t cache_row(const Geo& G, const int* __restrict__ table,
+                                             int bi, int h, int pos) {
+  if (PAGED) {
+    const int pid = table[(int64_t)bi * G.max_pages + pos / G.page];
+    return (((int64_t)pid * G.h_kv + h) * G.page + pos % G.page) * G.d;
+  }
+  return (((int64_t)bi * G.h_kv + h) * G.s_len + pos) * G.d;
+}
+
+__device__ __forceinline__ int64_t q_row(const Geo& G, int bi, int h, int r) {
+  const int s = r / G.g, j = r % G.g;
+  return ((int64_t)bi * G.S + s) * G.hq + (int64_t)h * G.g + j;
+}
+
+// This row's prefix length, clamped into the cache; 0 for a row past S*g.
+__device__ __forceinline__ int row_len(const Geo& G, const int* __restrict__ lens, int bi,
+                                       int r) {
+  if (r >= G.S * G.g) return 0;
+  return min(max(lens[(int64_t)bi * G.S + r / G.g], 0), G.s_len);
+}
+
+// Stage cache positions [t0, t0 + TILE) of (bi, h) into `dst` (rows of
+// `ld` elements, dp columns): positions below `valid` are loaded (16-byte
+// cp.async when `vec`), the rest and the columns past d are zero, so a
+// masked probability of 0 never meets stale shared memory.
+template <typename T, bool PAGED>
+__device__ __forceinline__ void stage_tile(T* dst, int ld, int dp, const T* __restrict__ src,
+                                           const Geo& G, const int* __restrict__ table,
+                                           int bi, int h, int t0, int valid, bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  const int cpr = dp / E;
+  for (int e = threadIdx.x; e < TILE * cpr; e += THREADS) {
+    const int p = e / cpr, c = (e % cpr) * E;
+    T* out = dst + p * ld + c;
+    if (t0 + p < valid && c < G.d) {
+      const T* row = src + cache_row<PAGED>(G, table, bi, h, t0 + p);
+      if (vec) {
+        cp_async16(out, row + c);
+      } else {
+#pragma unroll
+        for (int i = 0; i < E; ++i) out[i] = c + i < G.d ? row[c + i] : zero<T>();
+      }
+    } else {
+      *reinterpret_cast<uint4*>(out) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// The block's KV extent: the largest prefix length among its rows.
+__device__ __forceinline__ int block_extent(const Geo& G, const int* __restrict__ lens, int bi,
+                                            int row0, int rows, int* red) {
+  if (threadIdx.x == 0) *red = 0;
+  __syncthreads();
+  if (threadIdx.x < rows) atomicMax(red, row_len(G, lens, bi, row0 + threadIdx.x));
+  __syncthreads();
+  return *red;
+}
+
+// ------------------------------------------------------------ bf16 (mma) --
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+// d += a . b for one m16n8k16 tile, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Grid (row tiles of 64, h_kv, b), 128 threads. Warp w owns rows
+// [16w, 16w + 16) of the tile; in mma fragment terms a thread holds rows
+// gid and gid + 8 (gid = lane / 4) and, of each 8-wide n tile, the columns
+// 2 * (lane % 4) and +1.
+template <int DP, bool PAGED>
+__global__ void __launch_bounds__(THREADS) verify_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ lens, const int* __restrict__ table, float* __restrict__ out,
+    float* __restrict__ lse, Geo G, float scale, float soft_cap, int vec) {
+  constexpr int LD = DP + 8;  // +16 bytes a row staggers ldmatrix banks
+  constexpr int NT = DP / 8;  // 8-wide head-dim tiles of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);        // [64][LD]
+  bf16* k_s = q_s + MMA_ROWS * LD;                  // [2][TILE][LD]
+  bf16* v_s = k_s + 2 * TILE * LD;                  // [2][TILE][LD]
+  __shared__ int extent_s;
+
+  const int bi = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * MMA_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int extent = block_extent(G, lens, bi, row0, MMA_ROWS, &extent_s);
+  const int n_tiles = cdiv(extent, TILE);
+  // this thread's two rows and their prefix lengths
+  const int r_lo = row0 + warp * 16 + gid, r_hi = r_lo + 8;
+  const int len_lo = row_len(G, lens, bi, r_lo), len_hi = row_len(G, lens, bi, r_hi);
+
+  // q rows of the tile, zero past S*g and past d
+  for (int e = threadIdx.x; e < MMA_ROWS * (DP / 8); e += THREADS) {
+    const int rr = e / (DP / 8), c = (e % (DP / 8)) * 8;
+    bf16* dst = q_s + rr * LD + c;
+    const int r = row0 + rr;
+    if (r < G.S * G.g && c < G.d) {
+      const bf16* src = q + q_row(G, bi, h, r) * G.d + c;
+      if (vec) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dst[i] = c + i < G.d ? src[i] : __float2bfloat16(0.f);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  if (n_tiles > 0) {
+    stage_tile<bf16, PAGED>(k_s, LD, DP, k, G, table, bi, h, 0, extent, vec);
+    stage_tile<bf16, PAGED>(v_s, LD, DP, v, G, table, bi, h, 0, extent, vec);
+  }
+  cp_async_commit();
+
+  float o[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const bf16* q_w = q_s + warp * 16 * LD;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nb = buf ^ 1;
+      stage_tile<bf16, PAGED>(k_s + nb * TILE * LD, LD, DP, k, G, table, bi, h,
+                              (it + 1) * TILE, extent, vec);
+      stage_tile<bf16, PAGED>(v_s + nb * TILE * LD, LD, DP, v, G, table, bi, h,
+                              (it + 1) * TILE, extent, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = k_s + buf * TILE * LD;
+    const bf16* vt = v_s + buf * TILE * LD;
+    const int t0 = it * TILE;
+
+    // (a) S = Q . K^T over the tile: 8 n tiles of 8 positions
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, q_w + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned bfr[4];
+        const int mi = lane / 8;
+        ldmatrix_x4(bfr, kt + (np * 16 + (mi / 2) * 8 + lane % 8) * LD + kk * 16 + (mi % 2) * 8);
+        mma_bf16(s[2 * np], a, bfr);
+        mma_bf16(s[2 * np + 1], a, bfr + 2);
+      }
+    }
+    // (b) scale, soft cap, length mask; the online-softmax update of the
+    // thread's two rows
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = t0 + nt * 8 + 2 * tig + (e & 1);
+        float sc = s[nt][e] * scale;
+        if (soft_cap > 0.f) sc = soft_cap * tanhf(sc / soft_cap);
+        sc = pos < (e < 2 ? len_lo : len_hi) ? sc : -INFINITY;
+        s[nt][e] = sc;
+        if (e < 2) mx_lo = fmaxf(mx_lo, sc); else mx_hi = fmaxf(mx_hi, sc);
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float ms_lo = fmaxf(mn_lo, -1e30f), ms_hi = fmaxf(mn_hi, -1e30f);
+    const float al_lo = expf(m_lo - ms_lo), al_hi = expf(m_hi - ms_hi);
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = expf(s[nt][0] - ms_lo);
+      s[nt][1] = expf(s[nt][1] - ms_lo);
+      s[nt][2] = expf(s[nt][2] - ms_hi);
+      s[nt][3] = expf(s[nt][3] - ms_hi);
+      sum_lo += s[nt][0] + s[nt][1];
+      sum_hi += s[nt][2] + s[nt][3];
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o_);
+      sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o_);
+    }
+    l_lo = l_lo * al_lo + sum_lo;
+    l_hi = l_hi * al_hi + sum_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      o[nt][0] *= al_lo;
+      o[nt][1] *= al_lo;
+      o[nt][2] *= al_hi;
+      o[nt][3] *= al_hi;
+    }
+    // (c) O += P . V, P rounded to bf16 (the accumulator layout of two
+    // neighbouring n tiles is the A fragment of one 16-deep k step)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      unsigned a[4];
+      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned bfr[4];
+        const int mi = lane / 8;
+        ldmatrix_x4_trans(bfr, vt + (j * 16 + (mi % 2) * 8 + lane % 8) * LD + np * 16 +
+                                   (mi / 2) * 8);
+        mma_bf16(o[2 * np], a, bfr);
+        mma_bf16(o[2 * np + 1], a, bfr + 2);
+      }
+    }
+    __syncthreads();
+  }
+
+  cp_async_wait<0>();  // nothing in flight at exit (n_tiles == 0)
+  // (out, lse) as _finalize_softmax
+  const int rows = G.S * G.g;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r_hi : r_lo;
+    if (r >= rows) continue;
+    const float l = half ? l_hi : l_lo, m = half ? m_hi : m_lo;
+    const int64_t qr = q_row(G, bi, h, r);
+    float* orow = out + qr * G.d;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * tig + e;
+        if (c < G.d) orow[c] = l > 0.f ? o[nt][2 * half + e] / l : 0.f;
+      }
+    }
+    if (tig == 0) lse[qr] = l > 0.f ? m + logf(l) : -INFINITY;
+  }
+}
+
+// ------------------------------------------------------------- f32 (FMA) --
+
+// Grid (row tiles of 32, h_kv, b), 128 threads. Per 64-position tile:
+// thread t scores position t % 64 against rows t / 64, +2, ...; one warp
+// per row updates its (m, l); then thread t owns output column t (and
+// t + 128) of every row.
+template <bool PAGED>
+__global__ void __launch_bounds__(THREADS) verify_fma_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ lens, const int* __restrict__ table, float* __restrict__ out,
+    float* __restrict__ lse, Geo G, int dp, float scale, float soft_cap, int vec) {
+  constexpr int R = FMA_ROWS;
+  constexpr int HALF = R / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = dp + 4;
+  float* q_s = reinterpret_cast<float*>(smem);  // [R][dp]
+  float* k_s = q_s + R * dp;                     // [TILE][ld]
+  float* v_s = k_s + TILE * ld;                  // [TILE][ld]
+  float* p_s = v_s + TILE * ld;                  // [R][TILE]
+  float* m_s = p_s + R * TILE;                   // [R]
+  float* l_s = m_s + R;
+  float* alpha_s = l_s + R;
+  int* len_s = reinterpret_cast<int*>(alpha_s + R);
+  __shared__ int extent_s;
+
+  const int bi = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int extent = block_extent(G, lens, bi, row0, R, &extent_s);
+  const int rows = G.S * G.g;
+  for (int e = threadIdx.x; e < R * dp; e += THREADS) {
+    const int rr = e / dp, c = e % dp, r = row0 + rr;
+    q_s[e] = (r < rows && c < G.d) ? q[q_row(G, bi, h, r) * G.d + c] : 0.f;
+  }
+  if (threadIdx.x < R) {
+    m_s[threadIdx.x] = -INFINITY;
+    l_s[threadIdx.x] = 0.f;
+    len_s[threadIdx.x] = row_len(G, lens, bi, row0 + threadIdx.x);
+  }
+  float acc[2][R];
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[cc][r] = 0.f;
+  const int p_own = threadIdx.x % TILE, rh = threadIdx.x / TILE;
+
+  for (int t0 = 0; t0 < extent; t0 += TILE) {
+    stage_tile<float, PAGED>(k_s, ld, dp, k, G, table, bi, h, t0, extent, vec);
+    stage_tile<float, PAGED>(v_s, ld, dp, v, G, table, bi, h, t0, extent, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // (a) scores of position p_own against rows rh, rh + 2, ...
+    {
+      float s[HALF];
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) s[i] = 0.f;
+      const float* kr = k_s + p_own * ld;
+      for (int c = 0; c < dp; c += 4) {
+        const float4 kf = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+        for (int i = 0; i < HALF; ++i) {
+          const float4 qf = *reinterpret_cast<const float4*>(q_s + (rh + 2 * i) * dp + c);
+          s[i] = fmaf(qf.x, kf.x, s[i]);
+          s[i] = fmaf(qf.y, kf.y, s[i]);
+          s[i] = fmaf(qf.z, kf.z, s[i]);
+          s[i] = fmaf(qf.w, kf.w, s[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) {
+        const int r = rh + 2 * i;
+        float sc = s[i] * scale;
+        if (soft_cap > 0.f) sc = soft_cap * tanhf(sc / soft_cap);
+        p_s[r * TILE + p_own] = t0 + p_own < len_s[r] ? sc : -INFINITY;
+      }
+    }
+    __syncthreads();
+    // (b) each row's online-softmax update; p_s becomes exp(s - m_safe)
+    for (int r = warp; r < R; r += WARPS) {
+      float* pr = p_s + r * TILE;
+      float mx = fmaxf(pr[lane], pr[lane + 32]);
+#pragma unroll
+      for (int o_ = 16; o_ > 0; o_ >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float m_safe = fmaxf(m_new, -1e30f);
+      const float e0 = expf(pr[lane] - m_safe), e1 = expf(pr[lane + 32] - m_safe);
+      pr[lane] = e0;
+      pr[lane + 32] = e1;
+      float sum = e0 + e1;
+#pragma unroll
+      for (int o_ = 16; o_ > 0; o_ >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o_);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_safe);
+        alpha_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // (c) acc = acc * alpha + P . V over this thread's columns
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = threadIdx.x + cc * THREADS;
+      if (c < dp) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[cc][r] *= alpha_s[r];
+        for (int p = 0; p < TILE; ++p) {
+          const float vv = v_s[p * ld + c];
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[cc][r] = fmaf(p_s[r * TILE + p], vv, acc[cc][r]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    const int c = threadIdx.x + cc * THREADS;
+    if (c >= G.d) continue;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (row0 + r < rows) {
+        const float l = l_s[r];
+        out[q_row(G, bi, h, row0 + r) * G.d + c] = l > 0.f ? acc[cc][r] / l : 0.f;
+      }
+    }
+  }
+  if (threadIdx.x < R && row0 + threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    const float l = l_s[r];
+    lse[q_row(G, bi, h, row0 + r)] = l > 0.f ? m_s[r] + logf(l) : -INFINITY;
+  }
+}
+
+// ------------------------------------------------------------- launchers --
+
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+int pow2_at_least(int d, int lo) {
+  int p = lo;
+  while (p < d) p <<= 1;
+  return p;
+}
+
+template <int DP, bool PAGED>
+int launch_mma(const void* q, const void* k, const void* v, const void* lens,
+               const void* table, float* out, float* lse, const Geo& G, float scale,
+               float soft_cap, cudaStream_t st) {
+  constexpr int LD = DP + 8;
+  const size_t smem = (size_t)(MMA_ROWS + 4 * TILE) * LD * sizeof(bf16);
+  auto kernel = verify_mma_kernel<DP, PAGED>;
+  if (int rc = set_smem(kernel, smem)) return rc;
+  const int vec = (G.d % 8 == 0) && (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(v) % 16 == 0);
+  const dim3 grid(cdiv(G.S * G.g, MMA_ROWS), G.h_kv, G.b);
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(lens), static_cast<const int*>(table), out, lse, G, scale,
+      soft_cap, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PAGED>
+int launch_fma(const void* q, const void* k, const void* v, const void* lens,
+               const void* table, float* out, float* lse, const Geo& G, float scale,
+               float soft_cap, cudaStream_t st) {
+  const int dp = pow2_at_least(G.d, 4);  // at least one 16-byte chunk a row
+  const size_t smem = ((size_t)FMA_ROWS * dp + 2 * (size_t)TILE * (dp + 4) +
+                       (size_t)FMA_ROWS * TILE + 4 * FMA_ROWS) * sizeof(float);
+  auto kernel = verify_fma_kernel<PAGED>;
+  if (int rc = set_smem(kernel, smem)) return rc;
+  const int vec = (G.d % 4 == 0) && (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(v) % 16 == 0);
+  const dim3 grid(cdiv(G.S * G.g, FMA_ROWS), G.h_kv, G.b);
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(lens),
+      static_cast<const int*>(table), out, lse, G, dp, scale, soft_cap, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PAGED>
+int launch(const void* q, const void* k, const void* v, const void* lens, const void* table,
+           void* out, void* lse, int dtype, Geo G, float scale, float soft_cap,
+           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float *o = static_cast<float*>(out), *l = static_cast<float*>(lse);
+  if (G.h_kv <= 0 || G.hq % G.h_kv != 0 || G.d < 1 || G.d > 256 || G.b < 1 || G.S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  G.g = G.hq / G.h_kv;
+  if (dtype == kF32) return launch_fma<PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
+  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  // the mma head dim: the power of two >= d (_kernel_head_dim), at least 64
+  switch (pow2_at_least(G.d, 64)) {
+    case 64:
+      return launch_mma<64, PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
+    case 128:
+      return launch_mma<128, PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
+    default:
+      return launch_mma<256, PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
+  }
+}
+
+}  // namespace
+
+extern "C" int tdt_flash_verify(const void* q, const void* k, const void* v,
+                                const void* kv_lens, void* out, void* lse, int dtype, int b,
+                                int S, int hq, int h_kv, int d, int s_len, float scale,
+                                float soft_cap, void* stream) {
+  const Geo G{b, S, hq, h_kv, 1, d, s_len, 1, 1};
+  return launch<false>(q, k, v, kv_lens, nullptr, out, lse, dtype, G, scale, soft_cap, stream);
+}
+
+extern "C" int tdt_paged_flash_verify(const void* q, const void* k, const void* v,
+                                      const void* kv_lens, const void* table, void* out,
+                                      void* lse, int dtype, int b, int S, int hq, int h_kv,
+                                      int d, int page, int max_pages, float scale,
+                                      float soft_cap, void* stream) {
+  const Geo G{b, S, hq, h_kv, 1, d, page * max_pages, page, max_pages};
+  return launch<true>(q, k, v, kv_lens, table, out, lse, dtype, G, scale, soft_cap, stream);
+}
+
+extern "C" const char* tdt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -29,8 +29,18 @@ K9/K10 at world > 1), and a decode step's MLP computes every expert on its
 few rows with dense einsums, a one-hot top-k combine and the ``psum``, in
 plain PyTorch as the JAX package leaves it to XLA (``:446-481``).
 
-Later slices: prefix caching, chunked and ranged prefill, hierarchical
-EP serving (these raise ``NotImplementedError``).
+The suffix-only ranged prefill (:func:`prefill_cache_ranged`) runs the
+decode-shaped forward over a prompt range ``[pos0, pos0 + S)`` of every
+sequence, attending already-landed KV through the multi-position verify
+kernels (K13 contiguous, K14 paged). The batcher admits through it in two
+serving modes: chunked prefill (``prefill_chunk_tokens``: a long prompt
+lands in bounded chunks between decode steps) and the radix prefix cache
+(``prefix_cache``, ``models/prefix_cache.py``: a trie hit's pages are the
+range's prior, only the divergent suffix runs).
+
+Not ported yet: hierarchical EP serving, and the prefix cache's
+poisoned-page strike (the integrity tier's eviction of every reader of a
+poisoned shared page).
 """
 
 from __future__ import annotations
@@ -57,7 +67,9 @@ from triton_dist_tpu_torch.ops.group_gemm import gelu
 from triton_dist_tpu_torch.ops.flash_decode import (
     FlashDecodeConfig,
     flash_decode_distributed,
+    flash_ranged_prefill_distributed,
     paged_flash_decode_distributed,
+    paged_flash_ranged_prefill_distributed,
 )
 from triton_dist_tpu_torch.ops.moe_utils import select_experts
 from triton_dist_tpu_torch.utils import axis_index, axis_size
@@ -100,6 +112,29 @@ def _rows_and_lens(pos_h: np.ndarray, s_shard: int, me: int, device):
 
 
 @dataclasses.dataclass(frozen=True)
+class _RangePlan:
+    """What one ranged pass's cache writes and attention need, computed once
+    for all layers from the range's first positions: the (sequence, range
+    row) pairs whose position this rank owns (indices into the ``b * S``
+    flattened rows), where each lands in one layer's cache, and the first
+    positions on the device, from which the ranged attention entries derive
+    each row's prefix."""
+
+    src: torch.Tensor
+    at: tuple
+    pos0: torch.Tensor
+
+
+def _owned_range(pos0_h: np.ndarray, S: int, s_shard: int, me: int):
+    """Flat ``[b * S]`` indices of the range rows whose position rank `me`
+    owns (ownership-gated appends: a position no rank owns, as every row
+    of a slot parked at ``s_max``, is dropped), and those positions."""
+    pos = pos0_h[:, None].astype(np.int64) + np.arange(S)[None, :]
+    flat = np.flatnonzero(pos // s_shard == me)
+    return flat, pos.reshape(-1)[flat]
+
+
+@dataclasses.dataclass(frozen=True)
 class KVCacheSpec:
     """Contiguous cache: per layer ``[b, h_kv, s_max / world, d]`` on each
     rank (its sequence shard). The spec is also the cache STRATEGY:
@@ -139,6 +174,28 @@ class KVCacheSpec:
                                         config=fd_config, ctx=ctx)
         return attn, cache
 
+    def range_plan(self, cfg, cache, pos0_h: np.ndarray, S: int, me: int, n: int,
+                   device) -> _RangePlan:
+        s_shard = _shard_of(self.s_max, n)
+        flat, pos = _owned_range(pos0_h, S, s_shard, me)
+        at = (torch.as_tensor(flat // S, device=device), slice(None),
+              torch.as_tensor(pos % s_shard, device=device))
+        return _RangePlan(torch.as_tensor(flat, device=device), at,
+                          torch.as_tensor(pos0_h, device=device))
+
+    def update_multi_and_attend(self, cfg, cache, li, k_new, v_new, q, plan, fd_config,
+                                ctx=None):
+        """Append S consecutive positions per sequence (owner-gated per
+        position: a range may straddle shard boundaries), then the SP
+        ranged attention (K13). k_new, v_new ``[b, S, h_kv, d]``; q ``[b,
+        S, hq, d]``. Returns ``(attn [b, S, hq, d] f32, cache)``
+        (≙ ``:178``)."""
+        kc, vc = cache["k"][li], cache["v"][li]
+        _append_range(kc, vc, k_new, v_new, plan)
+        attn = flash_ranged_prefill_distributed(q.to(kc.dtype), kc, vc, plan.pos0,
+                                                config=fd_config, ctx=ctx)
+        return attn, cache
+
 
 @dataclasses.dataclass(frozen=True)
 class PagedKVCacheSpec:
@@ -152,6 +209,10 @@ class PagedKVCacheSpec:
     s_max: int
     page_size: int
     static_table: bool = False
+    # physical pages past the table-assigned ranges; the prefix cache
+    # reserves one as the scratch page that released slots' rows park on,
+    # so an idle slot's dummy decode write never lands on a reissued page
+    extra_pages: int = 0
 
     def _geometry(self, cfg, n: int = 1) -> tuple[int, int]:
         s_shard = _shard_of(self.s_max, n)
@@ -166,7 +227,8 @@ class PagedKVCacheSpec:
     def init(self, cfg: TransformerConfig, device, n: int = 1) -> dict:
         """One rank's pool, table and allocator at world `n`."""
         pps, n_pages = self._geometry(cfg, n)
-        shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, self.page_size, cfg.head_dim)
+        shape = (cfg.n_layers, n_pages + self.extra_pages, cfg.n_kv_heads, self.page_size,
+                 cfg.head_dim)
         if self.static_table:
             bt = (
                 torch.arange(cfg.batch, dtype=torch.int32, device=device)[:, None] * pps
@@ -220,6 +282,43 @@ class PagedKVCacheSpec:
             q.to(kc.dtype), kc, vc, plan.lens, cache["block_table"][0], ctx=ctx,
         )
         return attn, cache
+
+    def range_plan(self, cfg, cache, pos0_h: np.ndarray, S: int, me: int, n: int,
+                   device) -> _RangePlan:
+        """Reads the block table: push the table before the plan."""
+        if not self.static_table:
+            raise NotImplementedError(
+                "ranged prefill on the paged cache needs static_table=True "
+                "(pre-assigned page ranges)"
+            )
+        s_shard = _shard_of(self.s_max, n)
+        flat, pos = _owned_range(pos0_h, S, s_shard, me)
+        off = pos % s_shard
+        bidx = torch.as_tensor(flat // S, device=device)
+        pages = cache["block_table"][0][
+            bidx, torch.as_tensor(off // self.page_size, device=device)].long()
+        at = (pages, slice(None), torch.as_tensor(off % self.page_size, device=device))
+        return _RangePlan(torch.as_tensor(flat, device=device), at,
+                          torch.as_tensor(pos0_h, device=device))
+
+    def update_multi_and_attend(self, cfg, cache, li, k_new, v_new, q, plan, fd_config,
+                                ctx=None):
+        """The ranged append on the page pool, onto the slot's own pages
+        only (the plan's pairs are owned positions; shared prefix pages lie
+        below every range), then the paged ranged attention (K14) through
+        the same table (≙ ``:359``)."""
+        kc, vc = cache["k"][li], cache["v"][li]
+        _append_range(kc, vc, k_new, v_new, plan)
+        attn = paged_flash_ranged_prefill_distributed(
+            q.to(kc.dtype), kc, vc, plan.pos0, cache["block_table"][0], ctx=ctx,
+        )
+        return attn, cache
+
+
+def _append_range(kc, vc, k_new, v_new, plan: _RangePlan) -> None:
+    b, S = k_new.shape[:2]
+    kc[plan.at] = k_new.reshape(b * S, *k_new.shape[2:])[plan.src].to(kc.dtype)
+    vc[plan.at] = v_new.reshape(b * S, *v_new.shape[2:])[plan.src].to(vc.dtype)
 
 
 def decode_step(
@@ -371,14 +470,83 @@ def prefill_cache(
     return cache, _all_gather(ctx, logits[rows], dim=1)
 
 
-def _make_spec(s_max, page_size, fd_config, static_table):
+def prefill_cache_ranged(
+    cfg: TransformerConfig,
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,   # [b, S] int — range inputs per sequence
+    pos0,                   # int or [b] int on the host — first range position
+    *,
+    spec: KVCacheSpec | PagedKVCacheSpec,
+    fd_config: FlashDecodeConfig | None = None,
+    ctx=None,
+) -> tuple[torch.Tensor, dict]:
+    """Suffix-only ranged prefill of one rank (inside ``ctx.run``; ``ctx``
+    None is world 1; ≙ ``prefill_cache_ranged``, ``:1647``): the forward
+    over a prompt range ``[pos0, pos0 + S)`` of every sequence, attending
+    the KV already landed below it — each row's causal prefix comes from
+    the ranged attention entries (K13/K14, via the spec's
+    ``update_multi_and_attend``). Returns ``(logits [b, S, vocab], cache)``,
+    the logits replicated: row i is the next-token distribution after
+    ``..., tokens[:, i]``, what S successive :func:`decode_step` calls
+    would give. Composing consecutive ranges gives every row the same mask
+    as one whole-range pass.
+
+    It is the decode step's forward on ``m = b * S`` replicated rows: the
+    projections are ``h @ W`` on the rank's weight shard (the JAX package
+    leaves them to XLA), with the qkv head all-gather, the ``wo`` and MLP
+    ``psum`` and the vocab all-gather of the logits; the MLP is
+    :func:`_decode_mlp`, so the MoE decoder rides the same path. The
+    positions are host data: which rows this rank owns, where they land
+    and the RoPE tables are computed once for all layers. A paged cache
+    needs the static table."""
+    c = cfg
+    n, me = axis_size(ctx), axis_index(ctx)
+    if c.n_kv_heads % n:
+        raise ValueError(f"n_kv_heads={c.n_kv_heads} must split over {n} ranks")
+    b, S = tokens.shape
+    if b != c.batch:
+        raise ValueError(f"tokens batch {b} != cfg.batch {c.batch}")
+    g, d = c.n_q_heads // c.n_kv_heads, c.head_dim
+    hq_loc = c.n_q_heads // n
+    m = b * S
+    dev = tokens.device
+    pos0_h = np.array(np.broadcast_to(np.asarray(pos0, dtype=np.int64), (b,)))
+    pos_flat = torch.as_tensor((pos0_h[:, None] + np.arange(S)[None, :]).reshape(-1),
+                               device=dev)
+    plan = spec.range_plan(c, cache, pos0_h, S, me, n, dev)
+    cos, sin = rope_tables(pos_flat[:, None], d, c.rope_theta)
+    x = params["embed"][tokens.reshape(-1).long()]          # [m, H] b-major
+    for li, p in enumerate(params["layers"]):
+        h = rmsnorm(x, p["attn_norm"], c.norm_eps)
+        qkv = _all_gather(ctx, h @ p["wqkv"].reshape(c.hidden, -1), dim=1)
+        qkv = qkv.reshape(m, c.n_kv_heads, g + 2, d)
+        q = qkv[:, :, :g, :].reshape(m, 1, c.n_q_heads, d)
+        k_new = qkv[:, :, g, :].reshape(m, 1, c.n_kv_heads, d)
+        v_new = qkv[:, :, g + 1, :]                          # [m, h_kv, d]
+        q = apply_rope(q, cos, sin)[:, 0]                    # [m, hq, d]
+        k_new = apply_rope(k_new, cos, sin)[:, 0]            # [m, h_kv, d]
+        attn, cache = spec.update_multi_and_attend(
+            c, cache, li, k_new.reshape(b, S, c.n_kv_heads, d),
+            v_new.reshape(b, S, c.n_kv_heads, d), q.reshape(b, S, c.n_q_heads, d),
+            plan, fd_config, ctx,
+        )                                                    # [b, S, hq, d] f32
+        attn = attn.reshape(m, c.n_q_heads, d)[:, me * hq_loc:(me + 1) * hq_loc]
+        x = x + _psum(ctx, attn.reshape(m, -1).to(x.dtype) @ p["wo"])
+        x = _decode_mlp(c, x, p, ctx)
+    x = rmsnorm(x, params["final_norm"], c.norm_eps)
+    return _all_gather(ctx, x @ params["lm_head"], dim=1).reshape(b, S, -1), cache
+
+
+def _make_spec(s_max, page_size, fd_config, static_table, extra_pages=0):
     if page_size and fd_config is not None:
         raise ValueError(
             "fd_config tiles the contiguous kernel; with page_size the page "
             "is the block — pass one or the other"
         )
     if page_size:
-        return PagedKVCacheSpec(s_max, page_size, static_table=static_table)
+        return PagedKVCacheSpec(s_max, page_size, static_table=static_table,
+                                extra_pages=extra_pages)
     return KVCacheSpec(s_max)
 
 
@@ -570,6 +738,17 @@ class ContinuousBatcher:
     on all its ranks over sharded weights and a sequence-sharded cache;
     ``None`` is world 1.
 
+    ``prefill_chunk_tokens`` (with ``prefill=True``): a prompt longer than
+    this is admitted in bounded ranged chunks (:func:`prefill_cache_ranged`,
+    K13/K14), one per step between decode steps, while its slot is parked at
+    ``pos = s_max`` (owned by no rank: its dummy decode writes drop).
+    ``prefix_cache`` (a :class:`~triton_dist_tpu_torch.models.prefix_cache.
+    PrefixCacheConfig`, paged cache only): admission takes the longest
+    prefix of whole pages the trie already holds and feeds only the rest —
+    token by token, or with ``prefill=True`` through one ranged pass (or
+    chunks) from the first unshared position; a miss rides the same ranged
+    pass from 0, so a hit gives the tokens of its miss.
+
         batcher = ContinuousBatcher(cfg, params, s_max=256)
         batcher.submit(Request([1, 2, 3], max_new_tokens=8))
         done = batcher.run()
@@ -590,23 +769,40 @@ class ContinuousBatcher:
         ctx=None,
     ):
         if prefix_cache is not None:
-            raise NotImplementedError("prefix caching is a later slice (ROADMAP A9)")
+            prefix_cache.validate()
+            if not page_size:
+                raise ValueError(
+                    "prefix_cache shares refcounted chains of PHYSICAL "
+                    "pages — it needs the paged cache (pass page_size)"
+                )
         if prefill_chunk_tokens is not None:
-            raise NotImplementedError("chunked prefill is a later slice (ROADMAP A8)")
+            if not prefill:
+                raise ValueError(
+                    "prefill_chunk_tokens bounds the ranged chunks of bulk "
+                    "admission — it needs prefill=True (token-fed admission "
+                    "already interleaves one token per step)"
+                )
+            if prefill_chunk_tokens < 1:
+                raise ValueError("prefill_chunk_tokens must be >= 1")
         self.device = resolve_device(device)
         self.cfg, self.s_max = cfg, s_max
         self.ctx = ctx
         self.world = axis_size(ctx)
         self.prefill = prefill
+        self.prefill_chunk_tokens = prefill_chunk_tokens
         self._fd_config = fd_config
         # static tables: slots reset mid-run, which the bump allocator
         # cannot reclaim
-        self.spec = _make_spec(s_max, page_size, fd_config, static_table=True)
+        self.spec = _make_spec(s_max, page_size, fd_config, static_table=True,
+                               extra_pages=1 if prefix_cache is not None else 0)
         self._ranks = _Ranks(cfg, params, self.spec, self.device, ctx)
         self._buckets: set[int] = set()
-        # cumulative real prompt tokens through the bulk prefill, and the
-        # prefill WORK in swept query x key token pairs (bucket x bucket per
-        # admission) that the serving engine's prefill charge bills
+        # chunked prefill: slot -> next unfed prompt position
+        self._chunk: dict[int, int] = {}
+        # cumulative real prompt tokens through the bulk and ranged prefill,
+        # and the prefill WORK in swept query x key token pairs that the
+        # serving engine's prefill charge bills: bucket x bucket per bulk
+        # admission, chunk bucket x hi per ranged pass
         self.prefill_tokens_total = 0
         self.prefill_work_total = 0
         b = cfg.batch
@@ -618,6 +814,17 @@ class ContinuousBatcher:
         self.slot_out: list[list] = [[] for _ in range(b)]
         self.queue: list[Request] = []
         self.finished: list[tuple[Any, list]] = []
+        # the radix prefix cache: a host-managed block table over the pool
+        self._px = None
+        self._px_dirty = False
+        if prefix_cache is not None:
+            from triton_dist_tpu_torch.models.prefix_cache import PagePrefixCache
+
+            self._px = PagePrefixCache(
+                prefix_cache, n_slots=b, page=page_size,
+                pps_local=(s_max // self.world) // page_size, n_pes=self.world,
+            )
+            self._px_dirty = True   # park every row on scratch before step 1
 
     def validate_request(self, req: Request) -> None:
         """Admissibility checks (the serving engine runs them at enqueue)."""
@@ -658,6 +865,75 @@ class ContinuousBatcher:
             )
         return bucket
 
+    def _push_px_table(self) -> None:
+        """Copy the prefix cache's block table (admissions repointed rows at
+        shared chains and fresh private pages, releases parked rows on
+        scratch) into each rank's cache, on the rank's own stream. It must
+        land before any pass whose cache writes or attention read it."""
+        table = self._px.table
+
+        def push(params, cache, dev):
+            cache["block_table"] = torch.tensor(table[axis_index(self.ctx)][None], device=dev)
+            return cache, None
+
+        self._ranks.run(push)
+        self._px_dirty = False
+
+    def _ranged_pass(self, i: int, req: Request, lo: int, hi: int) -> None:
+        """One suffix-only ranged pass for slot ``i`` over prompt positions
+        ``[lo, hi)``, padded to a power-of-two chunk bucket (the pad rows of
+        the target slot write junk KV at positions ``>= hi``, which the next
+        chunk or decode step overwrites before any length exposes it); every
+        other slot is parked at ``pos0 = s_max``. When ``hi`` reaches the
+        prompt's end, the first token samples from position ``L - 1``'s
+        row, as in :meth:`_admit_prefill`."""
+        L, S = len(req.prompt), hi - lo
+        bucket = 1
+        while bucket < S:
+            bucket *= 2
+        tokens = np.zeros((self.cfg.batch, bucket), np.int64)
+        tokens[i, :S] = req.prompt[lo:hi]
+        pos0 = np.full(self.cfg.batch, self.s_max, np.int64)  # parked rows
+        pos0[i] = lo
+        if self._px is not None and self._px_dirty:
+            self._push_px_table()
+
+        def ranged(params, cache, dev):
+            logits, cache = prefill_cache_ranged(
+                self.cfg, params, cache, torch.as_tensor(tokens, device=dev), pos0,
+                spec=self.spec, fd_config=self._fd_config, ctx=self.ctx,
+            )
+            return cache, logits[i, S - 1].float().cpu().numpy() if hi == L else None
+
+        last_i = self._ranks.run(ranged)
+        self.prefill_tokens_total += S
+        self.prefill_work_total += bucket * hi
+        if self._px is not None:
+            # publish-on-completion, batch form: every prompt page fully
+            # covered by [0, hi) enters the trie now
+            pg = self._px.page
+            while True:
+                g = self._px.next_publish(i)
+                if (g + 1) * pg > hi or (g + 1) * pg > L:
+                    break
+                if self._px.publish(i, g, req.prompt[g * pg:(g + 1) * pg]):
+                    self._px_dirty = True
+        if hi == L:
+            self._first_token(i, req, last_i)
+
+    def _admit_ranged(self, i: int, req: Request, lo: int) -> None:
+        """Feed prompt positions ``[lo, L)`` (the suffix past a trie hit, or
+        the whole prompt) through one ranged pass, or park the slot for
+        bounded chunks when ``prefill_chunk_tokens`` is set and shorter."""
+        ct = self.prefill_chunk_tokens
+        if ct is not None and len(req.prompt) - lo > ct:
+            self._chunk[i] = lo
+            self.pos[i] = self.s_max      # parked: owned by no rank
+            self.tok[i] = 0
+            self.slot_fed[i] = 0
+            return
+        self._ranged_pass(i, req, lo, len(req.prompt))
+
     def _admit_prefill(self, i: int, req: Request) -> None:
         """One masked full-forward pass writes slot ``i``'s whole prompt KV
         and yields its first generated token."""
@@ -681,6 +957,12 @@ class ContinuousBatcher:
         self._buckets.add(bucket)
         self.prefill_tokens_total += L
         self.prefill_work_total += bucket * bucket
+        self._first_token(i, req, last_i)
+
+    def _first_token(self, i: int, req: Request, last_i: np.ndarray) -> None:
+        """Complete a bulk or ranged admission: sample the first token from
+        the prompt's last logit row."""
+        L = len(req.prompt)
         t0 = req.sample(last_i, self.slot_rng[i])
         self.slot_fed[i] = L
         self.slot_out[i] = [t0]
@@ -689,8 +971,14 @@ class ContinuousBatcher:
         if len(self.slot_out[i]) >= req.max_new_tokens or (
             req.eos_id is not None and t0 == req.eos_id
         ):
-            self.finished.append((req.uid, self.slot_out[i]))
-            self.slot_req[i] = None
+            self._finish(i, req)
+
+    def _finish(self, i: int, req: Request) -> None:
+        self.finished.append((req.uid, self.slot_out[i]))
+        self.slot_req[i] = None
+        if self._px is not None:
+            self._px.release(i)
+            self._px_dirty = True
 
     def _admit(self) -> None:
         # an admission can free the slot it just filled (max_new_tokens=1 or
@@ -709,7 +997,26 @@ class ContinuousBatcher:
                         else np.random.default_rng(req.seed)
                     )
                     if self.prefill and len(req.prompt) > 1:
-                        self._admit_prefill(i, req)
+                        if self._px is not None:
+                            # the trie hit's pages are the ranged pass's
+                            # prior; a miss runs the same pass from 0
+                            n_hit = self._px.acquire(i, req.prompt, req.max_new_tokens)
+                            self._px_dirty = True
+                            self._admit_ranged(i, req, n_hit)
+                        elif (self.prefill_chunk_tokens is not None
+                              and len(req.prompt) > self.prefill_chunk_tokens):
+                            self._admit_ranged(i, req, 0)
+                        else:
+                            self._admit_prefill(i, req)
+                    elif self._px is not None:
+                        # token-fed: the feed starts at the first token whose
+                        # KV the trie does not hold; the divergent page
+                        # onward is private (copy-on-write)
+                        n_hit = self._px.acquire(i, req.prompt, req.max_new_tokens)
+                        self._px_dirty = True
+                        self.pos[i] = n_hit
+                        self.tok[i] = req.prompt[n_hit]
+                        self.slot_fed[i] = n_hit + 1
                     else:
                         self.pos[i] = 0
                         self.tok[i] = req.prompt[0]
@@ -741,14 +1048,52 @@ class ContinuousBatcher:
         out, self.finished = self.finished, []
         return out
 
+    def prefix_cache_stats(self) -> dict | None:
+        """The prefix cache's counters and gauges, or None when disarmed."""
+        return None if self._px is None else self._px.stats()
+
+    @property
+    def prefix_cache(self):
+        """The live :class:`~triton_dist_tpu_torch.models.prefix_cache.
+        PagePrefixCache`, or None."""
+        return self._px
+
     def step(self) -> None:
-        """One ragged decode step for every slot + host scheduling."""
+        """One ragged decode step for every slot + host scheduling: first
+        one bounded ranged chunk for each slot admitted in chunks."""
         self._admit()
         if self.idle:
             return
+        self._chunk_pass()
         self._decode_round()
 
+    def _chunk_pass(self) -> None:
+        # decode rows never mix across the batch, so a chunk pass leaves
+        # every neighbour's stream as it was
+        for i in sorted(self._chunk):
+            req = self.slot_req[i]
+            lo = self._chunk[i]
+            hi = min(lo + self.prefill_chunk_tokens, len(req.prompt))
+            if hi < len(req.prompt):
+                self._chunk[i] = hi
+            else:
+                del self._chunk[i]    # final chunk: _ranged_pass admits
+            self._ranged_pass(i, req, lo, hi)
+
+    def _publish_step(self, i: int, req: Request) -> None:
+        # publish-on-completion: a prompt page enters the trie once its last
+        # position's KV is written; pages touching generated positions stay
+        # private
+        p, pg = int(self.pos[i]), self._px.page
+        if p % pg == 0:
+            g = p // pg - 1
+            if g == self._px.next_publish(i) and (g + 1) * pg <= len(req.prompt):
+                if self._px.publish(i, g, req.prompt[g * pg:(g + 1) * pg]):
+                    self._px_dirty = True
+
     def _decode_round(self) -> None:
+        if self._px is not None and self._px_dirty:
+            self._push_px_table()
         tok, pos = self.tok.copy(), self.pos.copy()
         # greedy slots need only the argmax; the full logit rows cross to
         # the host only when an active request samples
@@ -768,8 +1113,10 @@ class ContinuousBatcher:
 
         nxt, logits_h = self._ranks.run(step)
         for i, req in enumerate(self.slot_req):
-            if req is None:
-                continue  # idle slot decoded a dummy token; ignore
+            if req is None or i in self._chunk:
+                # an idle slot decoded a dummy token; a slot parked between
+                # chunks decoded at s_max (nothing written): ignore both
+                continue
             if self.slot_fed[i] < len(req.prompt):
                 self.tok[i] = req.prompt[self.slot_fed[i]]
                 self.slot_fed[i] += 1
@@ -783,10 +1130,11 @@ class ContinuousBatcher:
                 if len(self.slot_out[i]) >= req.max_new_tokens or (
                     req.eos_id is not None and t == req.eos_id
                 ):
-                    self.finished.append((req.uid, self.slot_out[i]))
-                    self.slot_req[i] = None
+                    self._finish(i, req)
                     continue
             self.pos[i] += 1
+            if self._px is not None:
+                self._publish_step(i, req)
 
     def run(self, max_steps: int = 100000) -> list[tuple[Any, list]]:
         """Drive until every queued request finishes; returns ``[(uid,

@@ -1,5 +1,5 @@
-"""K2/K3 · GQA flash decode over a contiguous or paged KV cache (≙
-``triton_dist_tpu/ops/flash_decode.py``).
+"""K2/K3 · GQA flash decode and K13/K14 · multi-position verify over a
+contiguous or paged KV cache (≙ ``triton_dist_tpu/ops/flash_decode.py``).
 
 Layouts are the JAX package's: q ``[b, hq, d]`` (one decode token per
 sequence), contiguous k/v ``[b, h_kv, s, d]`` or page pools ``[n_pages,
@@ -15,6 +15,16 @@ the card and run their plain twins :func:`_xla_decode` and
 shard, then gather every rank's ``(out, lse)`` payload with the full-mesh
 push allgather (K5, ``ops/allgather.py``) and merge them
 (:func:`combine_partials`), as ``_sp_allgather_combine`` (``:1895``) does.
+
+The verify family scores S query positions of each sequence in one pass
+over the cache: q ``[b, S, hq, d]``, per-row prefix lengths ``kv_lens [b,
+S]``, results ``out f32 [b, S, hq, d]`` and ``lse f32 [b, S, hq]``.
+:func:`flash_verify` and :func:`paged_flash_verify` launch
+``csrc/flash_verify.cu`` (K13, K14) on the card and run
+:func:`_xla_verify` / :func:`_xla_paged_verify` on the CPU. The ranged
+prefill entries derive each row's prefix in the rank's shard from the
+range's first position (:func:`_ranged_local_lens`), so composing
+consecutive ranges gives every row the same mask as one whole-range pass.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ import torch
 
 from triton_dist_tpu_torch import _build
 from triton_dist_tpu_torch.ops.allgather import all_gather
-from triton_dist_tpu_torch.utils import axis_size, cdiv, count_call, count_launch
+from triton_dist_tpu_torch.utils import axis_index, axis_size, cdiv, count_call, count_launch
 
 NEG_INF = float("-inf")
 
@@ -42,6 +52,10 @@ _F = ctypes.c_float
 _PROTOTYPES = {
     "tdt_flash_decode": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
     "tdt_paged_flash_decode": [_P] * 9 + [_I] * 10 + [_F, _F, _P],
+}
+_VERIFY_PROTOTYPES = {
+    "tdt_flash_verify": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+    "tdt_paged_flash_verify": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
 }
 
 
@@ -140,7 +154,7 @@ def _split_plan(device: torch.device, blocks: int, s_len: int) -> tuple[int, int
     return cdiv(s_len, chunk), chunk
 
 
-def _check_operands(q, k, v, kv_lens, block_table=None):
+def _check_operands(q, k, v, kv_lens, block_table=None, max_g=_MAX_G):
     tensors = [q, k, v, kv_lens] + ([] if block_table is None else [block_table])
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash decode operands must share one CUDA device")
@@ -152,11 +166,11 @@ def _check_operands(q, k, v, kv_lens, block_table=None):
         raise TypeError("kv_lens and block_table are int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash decode takes contiguous operands")
-    b, hq, d = q.shape
+    hq, d = q.shape[-2:]
     h_kv = k.shape[1]
-    if hq % h_kv or hq // h_kv > _MAX_G or _kernel_head_dim(d) > _MAX_D:
+    if hq % h_kv or hq // h_kv > max_g or _kernel_head_dim(d) > _MAX_D:
         raise ValueError(
-            f"flash decode kernel takes hq/h_kv <= {_MAX_G} whole groups and "
+            f"flash decode kernel takes hq/h_kv <= {max_g} whole groups and "
             f"head dim <= {_MAX_D}; got hq={hq}, h_kv={h_kv}, d={d}"
         )
 
@@ -323,3 +337,236 @@ def paged_flash_decode_distributed(
         soft_cap=soft_cap, return_lse=True,
     )
     return _sp_allgather_combine(out, lse, ctx, ag_method)
+
+
+# ------------------------------------------------ multi-position verify ----
+
+
+def _xla_verify(q, k, v, kv_lens, *, return_lse, soft_cap=0.0):
+    """Plain version of the multi-position verify (≙ ``_xla_verify``,
+    ``:632``): per-(sequence, position) prefix masks over one einsum, f32
+    scores and probabilities, any head dim."""
+    count_call(_xla_verify)
+    b, S, hq, d = q.shape
+    _, h_kv, s_len, _ = k.shape
+    g = hq // h_kv
+    q5 = q.reshape(b, S, h_kv, g, d).float()
+    s = torch.einsum("bshgd,bhtd->bshgt", q5, k.float()) / math.sqrt(d)
+    if soft_cap:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    span = torch.arange(s_len, device=q.device)
+    mask = span[None, None, :] < kv_lens.long()[:, :, None]      # [b, S, t]
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.clamp(m, min=-1e30)  # kv_len == 0 rows: avoid inf - inf
+    p = torch.exp(s - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bshgt,bhtd->bshgd", p, v.float())
+    out = (out / torch.clamp(l, min=1e-30)).reshape(b, S, hq, d)
+    out = torch.where(l.reshape(b, S, hq, 1) > 0, out, 0.0)
+    if not return_lse:
+        return out
+    lse = (m_safe + torch.log(torch.clamp(l, min=1e-30))).reshape(b, S, hq)
+    lse = torch.where(l.reshape(b, S, hq) > 0, lse, NEG_INF)
+    return out, lse
+
+
+_xla_verify.calls = 0
+
+
+def _xla_paged_verify(q, k_pages, v_pages, kv_lens, block_table, *,
+                      return_lse=False, soft_cap=0.0):
+    """Plain version of the paged verify (≙ ``_xla_paged_verify``,
+    ``:836``): gather the pages back into a contiguous cache, then
+    :func:`_xla_verify`."""
+    return _xla_verify(
+        q, _paged_to_contiguous(k_pages, block_table),
+        _paged_to_contiguous(v_pages, block_table),
+        kv_lens, return_lse=return_lse, soft_cap=soft_cap,
+    )
+
+
+def _launch_verify(q, k, v, kv_lens, block_table, soft_cap):
+    """Launch K13 (contiguous) or K14 (paged); returns (out, lse)."""
+    b, S, hq, d = q.shape
+    h_kv = k.shape[1]
+    q = q.to(k.dtype).contiguous()  # the kernel reads q in the cache dtype
+    _check_operands(q, k, v, kv_lens, block_table, max_g=hq)
+    if kv_lens.shape != (b, S):
+        raise ValueError(f"kv_lens must be [b, S] = {(b, S)}, got {tuple(kv_lens.shape)}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((b, S, hq, d), **f32)
+    lse = torch.empty((b, S, hq), **f32)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr())
+    common = (out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[k.dtype], b, S, hq, h_kv, d)
+    tail = (1.0 / math.sqrt(d), float(soft_cap), _build.stream_of(q))
+    lib = _build.library("flash_verify", _VERIFY_PROTOTYPES)
+    if block_table is None:
+        rc = lib.tdt_flash_verify(*head, *common, k.shape[2], *tail)
+        _build.check(lib, rc, "flash_verify")
+    else:
+        rc = lib.tdt_paged_flash_verify(
+            *head, block_table.data_ptr(), *common, k.shape[2], block_table.shape[1],
+            *tail,
+        )
+        _build.check(lib, rc, "paged_flash_verify")
+    return out, lse
+
+
+def _refuse_quantized(what: str):
+    raise NotImplementedError(
+        f"{what}: quantized (int8/fp8) KV caches are not ported yet "
+        "(ROADMAP A7, B13)"
+    )
+
+
+def flash_verify(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    config: FlashDecodeConfig | None = None,
+    return_lse: bool = False,
+    scales=None,
+):
+    """Multi-position GQA decode over a contiguous cache (K13, ≙
+    ``flash_verify``, ``:662``): q ``[b, S, hq, d]`` (the S positions' own
+    k/v already written), k, v ``[b, h_kv, s, d]``, kv_lens ``[b, S]``
+    int32 — row (b, i) attends cache positions ``< kv_lens[b, i]``.
+    Returns f32 ``out [b, S, hq, d]`` (and ``lse [b, S, hq]``).
+    ``scales`` (a quantized cache's row scales) is refused."""
+    if scales is not None:
+        _refuse_quantized("flash_verify(scales=...)")
+    soft_cap = (config or FlashDecodeConfig()).soft_cap
+    if q.device.type == "cpu":
+        return _xla_verify(q, k, v, kv_lens, return_lse=return_lse, soft_cap=soft_cap)
+    out, lse = _launch_verify(q, k, v, kv_lens, None, soft_cap)
+    count_launch(flash_verify)
+    return (out, lse) if return_lse else out
+
+
+flash_verify.launches = 0
+
+
+def paged_flash_verify(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    kv_lens: torch.Tensor,
+    block_table: torch.Tensor,
+    *,
+    fuse_heads: bool | None = None,
+    pages_per_step: int | None = None,
+    soft_cap: float = 0.0,
+    return_lse: bool = False,
+):
+    """Multi-position decode over a paged cache (K14, ≙
+    ``paged_flash_verify``, ``:893``): :func:`flash_verify` through the
+    block table of :func:`paged_flash_decode`. ``fuse_heads`` and
+    ``pages_per_step`` pick the TPU kernel's grid and span; the CUDA kernel
+    accepts and needs neither."""
+    del fuse_heads, pages_per_step
+    if q.device.type == "cpu":
+        return _xla_paged_verify(
+            q, k_pages, v_pages, kv_lens, block_table,
+            return_lse=return_lse, soft_cap=soft_cap,
+        )
+    out, lse = _launch_verify(q, k_pages, v_pages, kv_lens, block_table, soft_cap)
+    count_launch(paged_flash_verify)
+    return (out, lse) if return_lse else out
+
+
+paged_flash_verify.launches = 0
+
+
+def _sp_merge_rows(out, lse, ctx, ag_method):
+    """The SP tail of the verify family: S folds into the payload's row
+    dim (``:805-810``)."""
+    b, S, hq, d = out.shape
+    merged = _sp_allgather_combine(
+        out.reshape(b * S, hq, d), lse.reshape(b * S, hq), ctx, ag_method
+    )
+    return merged.reshape(b, S, hq, d)
+
+
+def flash_verify_distributed(
+    q, k_shard, v_shard, lens_shard, *,
+    config: FlashDecodeConfig | None = None, ctx=None, ag_method: str = "full_mesh_push",
+):
+    """SP form of :func:`flash_verify` (call inside ``ctx.run``; ≙
+    ``:786``): per-shard multi-position partials, then the (out, lse)
+    allgather merge of the single-token SP decode."""
+    if axis_size(ctx) == 1:
+        return flash_verify(q, k_shard, v_shard, lens_shard, config=config)
+    out, lse = flash_verify(q, k_shard, v_shard, lens_shard, config=config,
+                            return_lse=True)
+    return _sp_merge_rows(out, lse, ctx, ag_method)
+
+
+def paged_flash_verify_distributed(
+    q, k_pages, v_pages, lens_shard, block_table, *,
+    fuse_heads: bool | None = None, pages_per_step: int | None = None,
+    soft_cap: float = 0.0, ctx=None, ag_method: str = "full_mesh_push",
+):
+    """SP form of :func:`paged_flash_verify` (≙ ``:1111``): per-shard
+    partials over each rank's page pool, merged by the same tail."""
+    kw = dict(fuse_heads=fuse_heads, pages_per_step=pages_per_step, soft_cap=soft_cap)
+    if axis_size(ctx) == 1:
+        return paged_flash_verify(q, k_pages, v_pages, lens_shard, block_table, **kw)
+    out, lse = paged_flash_verify(q, k_pages, v_pages, lens_shard, block_table,
+                                  return_lse=True, **kw)
+    return _sp_merge_rows(out, lse, ctx, ag_method)
+
+
+def _ranged_local_lens(pos0, S: int, me: int, s_shard: int) -> torch.Tensor:
+    """Per-(sequence, range-row) valid prefix in rank `me`'s sequence shard
+    for a suffix-only ranged prefill (≙ ``:1141``): row i of the range
+    attends global positions ``<= pos0 + i``, and the rank covers ``[me *
+    s_shard, (me+1) * s_shard)``. `pos0` is ``[b]`` (a tensor or host
+    array); the result is int32 ``[b, S]`` on `pos0`'s device."""
+    pos0 = torch.as_tensor(pos0).to(torch.int64)
+    pos_mat = pos0.reshape(-1, 1) + torch.arange(S, device=pos0.device)[None, :]
+    return torch.clamp(pos_mat + 1 - me * s_shard, 0, s_shard).to(torch.int32)
+
+
+def flash_ranged_prefill_distributed(
+    q, k_shard, v_shard, pos0, *,
+    config: FlashDecodeConfig | None = None, ctx=None, ag_method: str = "full_mesh_push",
+):
+    """Suffix-only ranged prefill over a contiguous SP cache (≙ ``:1154``):
+    q ``[b, S, hq, d]`` holds a prompt range's rows at global positions
+    ``pos0 .. pos0+S-1`` whose own k/v are already written; row i attends
+    every landed position ``<= pos0 + i``. Composing consecutive ranges
+    gives each row the same mask as one whole-range pass."""
+    lens = _ranged_local_lens(pos0, q.shape[1], axis_index(ctx), k_shard.shape[2])
+    return flash_verify_distributed(q, k_shard, v_shard, lens.to(q.device),
+                                    config=config, ctx=ctx, ag_method=ag_method)
+
+
+def paged_flash_ranged_prefill_distributed(
+    q, k_pages, v_pages, pos0, block_table, *,
+    fuse_heads: bool | None = None, pages_per_step: int | None = None,
+    soft_cap: float = 0.0, ctx=None, ag_method: str = "full_mesh_push",
+):
+    """Paged twin of :func:`flash_ranged_prefill_distributed` (≙
+    ``:1182``): the range's prior pages named by `block_table`."""
+    s_shard = block_table.shape[1] * k_pages.shape[2]
+    lens = _ranged_local_lens(pos0, q.shape[1], axis_index(ctx), s_shard)
+    return paged_flash_verify_distributed(
+        q, k_pages, v_pages, lens.to(q.device), block_table,
+        fuse_heads=fuse_heads, pages_per_step=pages_per_step, soft_cap=soft_cap,
+        ctx=ctx, ag_method=ag_method,
+    )
+
+
+def flash_verify_fp8(q, k_q, v_q, k_scale, v_scale, kv_lens, **_):
+    """≙ ``flash_verify_fp8`` (``:1349``): refused until A7/B13."""
+    _refuse_quantized("flash_verify_fp8")
+
+
+def flash_ranged_prefill_fp8_distributed(q, k_q_shard, v_q_shard, k_scale, v_scale,
+                                         pos0, **_):
+    """≙ ``flash_ranged_prefill_fp8_distributed`` (``:1383``): refused until
+    A7/B13."""
+    _refuse_quantized("flash_ranged_prefill_fp8_distributed")

@@ -12,9 +12,11 @@ the same serve)::
        │            │ backpressure
        └ Rejected ◄─┘ (reject-on-full | block)
 
-This is the engine core. The overload controller, the prefix cache,
-speculative decoding and the elastic rebuild arrive in later slices with
-the observability, health and elastic tiers; asking for them raises.
+Chunked prefill (``prefill_chunk_tokens``) and the radix prefix cache
+(``prefix_cache``) are the batcher's ranged-prefill modes. The overload
+controller, speculative decoding and the elastic rebuild arrive in later
+slices with the observability, health and elastic tiers; asking for them
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from collections import deque
 from typing import Any
 
 from triton_dist_tpu_torch.models.decode import ContinuousBatcher, Request
+from triton_dist_tpu_torch.models.prefix_cache import PX_COUNTERS, PX_GAUGES
 from triton_dist_tpu_torch.resilience import retry as _retry
 from triton_dist_tpu_torch.serving.metrics import ServingMetrics, SLOTargets
 
@@ -43,11 +46,20 @@ class ServingConfig:
     virtual_step_s:   charge each decode step this much time on the engine
                       clock (pair with a ``FakeClock``); None = real time.
     slo:              latency targets scored per finished request.
-    virtual_prefill_work_s: charge each unit of bulk-prefill work — a swept
-                      query x key token pair, bucket x bucket per admission
-                      — this much time on the engine clock.
-    overload, prefix_cache, prefill_chunk_tokens, speculative: later
-                      slices (ROADMAP A9, A8, A10); anything but None raises.
+    virtual_prefill_work_s: charge each unit of prefill work — a swept
+                      query x key token pair: bucket x bucket per bulk
+                      admission, chunk bucket x hi per ranged pass — this
+                      much time on the engine clock.
+    prefix_cache:     a :class:`~triton_dist_tpu_torch.models.prefix_cache.
+                      PrefixCacheConfig` arms the radix prefix cache: an
+                      admission skips the feed of every fully shared page
+                      (copy-on-write past it, refcounted release). Needs
+                      the paged batcher (``page_size=``).
+    prefill_chunk_tokens: prompts longer than this admit through bounded
+                      ranged chunks between decode steps. Needs
+                      ``prefill=True``.
+    overload, speculative: later slices (ROADMAP A9, A10); anything but
+                      None raises.
     """
 
     max_queue: int = 256
@@ -62,16 +74,17 @@ class ServingConfig:
     speculative: Any = None
 
     def validate(self) -> "ServingConfig":
-        for name, item in (
-            ("overload", "A9"), ("prefix_cache", "A9"),
-            ("prefill_chunk_tokens", "A8"), ("speculative", "A10"),
-        ):
+        for name, item in (("overload", "A9"), ("speculative", "A10")):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"ServingConfig.{name} is not ported yet (ROADMAP {item})"
                 )
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.prefill_chunk_tokens is not None and self.prefill_chunk_tokens < 1:
+            raise ValueError("prefill_chunk_tokens must be >= 1 (or None)")
+        if self.prefix_cache is not None:
+            self.prefix_cache.validate()
         if self.backpressure not in BACKPRESSURE:
             raise ValueError(
                 f"backpressure must be one of {BACKPRESSURE}, "
@@ -167,6 +180,9 @@ class ServingEngine:
         self.results: dict[Any, Finished] = {}
         self._uid_counter = 0
         self._stopping = False
+        for name in ("prefix_cache", "prefill_chunk_tokens"):
+            if getattr(self.serving, name) is not None:
+                batcher_kw[name] = getattr(self.serving, name)
         self._batcher = ContinuousBatcher(cfg, params, s_max=self.s_max, **batcher_kw)
         self._prefill_work_seen = 0
         self._t0 = self.clock.monotonic()
@@ -380,4 +396,10 @@ class ServingEngine:
             "prefill_bucket_programs": self._batcher.prefill_bucket_count,
             "clock_s": round(now - self._t0, 9),
         }
+        px = self._batcher.prefix_cache_stats()
+        if px is not None:
+            # counters and gauges of the live batcher's cache (the engine
+            # never rebuilds its batcher, so there is nothing to fold in)
+            snap["prefix_cache"] = {k: px[k] for k in PX_COUNTERS + PX_GAUGES}
+            snap["prefix_cache"]["hit_rate"] = round(px["hits"] / max(1, px["lookups"]), 6)
         return snap

@@ -16,7 +16,8 @@ Length distributions are small tagged tuples (JSON-able, hashable):
 - ``("uniform", lo, hi)``          — inclusive integer range
 - ``("mix", ((w, lo, hi), ...))``  — weighted mixture of uniform ranges
 
-:func:`preset_mix` derives a multi-tenant-looking mixture from a
+:func:`shared_prefix_mix` is the shared-system-prompt workload of the
+prefix cache. :func:`preset_mix` derives a multi-tenant-looking mixture from a
 ``models/presets.py`` shape: the preset supplies the vocabulary and its
 context length sets the scale, clamped into the serving cache budget
 (``s_max``) so every generated request is admissible by construction.
@@ -406,6 +407,53 @@ def trace_fingerprint(trace: tuple[Arrival, ...]) -> str:
             a.request.seed, a.request.uid, *extra,
         )).encode())
     return h.hexdigest()
+
+
+def shared_prefix_mix(
+    *,
+    s_max: int,
+    rate_rps: float,
+    n_requests: int,
+    n_prefixes: int = 4,
+    prefix_tokens: int = 12,
+    share: float = 1.0,
+    zipf: float = 1.2,
+    suffix_len: tuple = ("uniform", 2, 6),
+    output_len: tuple = ("uniform", 2, 8),
+    vocab: int = 256,
+    seed: int = 0,
+    **overrides: Any,
+) -> TrafficSpec:
+    """The shared-prefix serving workload (≙ ``shared_prefix_mix``): Zipf
+    over ``n_prefixes`` seed-derived system prompts of ``prefix_tokens``
+    tokens, each prepended with probability ``share`` to a per-request
+    suffix drawn from ``suffix_len``. Sized so the worst-case ``prefix +
+    suffix + output`` fits ``s_max``: every request is admissible. It is
+    the traffic the prefix cache exists for: at high share almost every
+    admission's feed shrinks to its divergent suffix."""
+    spec = TrafficSpec(
+        rate_rps=rate_rps,
+        n_requests=n_requests,
+        prompt_len=suffix_len,
+        output_len=output_len,
+        vocab=vocab,
+        seed=seed,
+        prefix_pool=n_prefixes,
+        prefix_len=("fixed", prefix_tokens),
+        prefix_zipf=zipf,
+        prefix_share=share,
+        **overrides,
+    ).validate()
+    worst = (prefix_tokens + max_length(spec.prompt_len)
+             + max_length(spec.output_len))
+    if worst > s_max:
+        raise ValueError(
+            f"shared_prefix_mix: worst-case prefix({prefix_tokens}) + "
+            f"suffix({max_length(spec.prompt_len)}) + "
+            f"output({max_length(spec.output_len)}) = {worst} exceeds "
+            f"s_max={s_max}"
+        )
+    return spec
 
 
 def preset_mix(
