@@ -77,7 +77,20 @@ Phases, each printed as a JSON line, each fatal on failure:
 20. ``f32_parity_ranged``: 2 layers, world 1 and 4: chunked = bulk =
    token-fed and prefix hit = miss = token-fed greedy tokens, a Mixtral
    MoE chunked = token-fed, K13/K14 chunk calls bit for bit equal to the
-   whole-range call, ``prefill_cache_ranged`` composition and CPU twin.
+   whole-range call, ``prefill_cache_ranged`` composition and CPU twin;
+21. the rings (``csrc/ring.cu``), the world-4 context re-declared a ring
+   (``ctx.full_mesh = False``): the ring AG-GEMM K15 at K6's shapes (one
+   span and two), the ring GEMM-RS K16 and its spans K17 at K7's (chunks
+   1, 2, 3), the ring reduce-scatter K18 at K12's, each against its
+   ring-order plain version and the library golden; a stuck ring wait that
+   must raise with its record;
+22. ``serve_tp4_ring``: ``serve_tp4``'s model, weights and traffic on a
+   ring context with two spans a shard (K15, K17; no K6/K7) and its bf16
+   logits; ``f32_parity_tp4_ring``: f32 greedy tokens on a ring against
+   the world-4 CPU twins on a ring;
+23. ``train_ring``: one f32 train step at world 4 on a ring, Mixtral widths
+   cut to 2 layers (K15, K16, K18), loss, gradients and updated
+   parameters against the plain path differentiated by PyTorch.
 
 The line before the last lists every kernel with its readings; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -188,6 +201,10 @@ class Counters:
             "reduce_scatter": rs.reduce_scatter,
             "flash_verify": fd.flash_verify,
             "paged_flash_verify": fd.paged_flash_verify,
+            "ag_gemm_ring": allgather_gemm._ag_gemm_ring,
+            "gemm_rs_ring": grs._gemm_rs_ring,
+            "gemm_rs_ring_chunked": grs._gemm_rs_ring_chunked,
+            "reduce_scatter_ring": rs._ring_reduce_scatter,
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -196,7 +213,9 @@ class Counters:
             "group_gemm": gg._group_gemm_plain, "ag_group_gemm": aggg._ag_overlap_xla,
             "moe_reduce_rs": mrs._moe_rs_overlap_xla,
             "group_gemm_dw": gg._group_gemm_dw_plain, "reduce_scatter": rs._reduce_scatter_xla,
-            "verify": fd._xla_verify,
+            "verify": fd._xla_verify, "ag_gemm_ring": allgather_gemm._ag_gemm_ring_plain,
+            "gemm_rs_ring": grs._gemm_rs_ring_plain,
+            "reduce_scatter_ring": rs._reduce_scatter_ring_plain,
         }
 
     def reset(self) -> None:
@@ -908,10 +927,7 @@ def phase_serve_tp4(counters: Counters) -> dict:
     prefill, 8 requests of 32-256 prompt tokens and 32 new tokens."""
     import torch
     from triton_dist_tpu_torch.models import presets
-    from triton_dist_tpu_torch.models.tp_transformer import (
-        TPTransformer, init_params, shard_params,
-    )
-    from triton_dist_tpu_torch.ops.gemm import _matmul_plain
+    from triton_dist_tpu_torch.models.tp_transformer import init_params
     from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
     from triton_dist_tpu_torch.serving.engine import ServingConfig, ServingEngine
 
@@ -954,16 +970,23 @@ def phase_serve_tp4(counters: Counters) -> dict:
           "ttft_ms": sorted(r.ttft_ms for r in done.values()),
           "decode_steps": snap["requests"]["steps"], "peak_mem_gb": peak / 1e9, **counts})
     del eng
+    _check_tp4_logits("serve_tp4_logits", cfg, params, reqs, ctx)
+    phase_decode_profile_tp4(cfg, params, ctx)
+    ctx.close()
+    return launches
 
-    # prefill last-row logits at world 4 (K6/K7) against the world-1
-    # plain-GEMM forward on the same card, same weights, same prompts (bf16)
+
+def _check_tp4_logits(name, cfg, params, reqs, ctx) -> None:
+    """Prefill last-row logits at world 4 (the projections on ``ctx``'s
+    kernels) against the world-1 plain-GEMM forward on the same card, same
+    weights, same prompts (bf16)."""
+    import torch
+    from triton_dist_tpu_torch.models.tp_transformer import TPTransformer, shard_params
+    from triton_dist_tpu_torch.ops.gemm import _matmul_plain
+
     L = 128
-    tokens = torch.zeros((cfg.batch, L), dtype=torch.long, device="cuda")
-    for i, r in enumerate(reqs):
-        n = min(L, len(r.prompt))
-        tokens[i, :n] = torch.tensor(r.prompt[:n])
     pcfg = dataclasses.replace(cfg, seq=L)
-    flat = tokens.reshape(-1)
+    flat = _prompt_tokens(reqs, cfg.batch, L)
     rows = torch.arange(cfg.batch, device="cuda") * L + L - 1
     shards = shard_params(params, WORLD, ctx.devices)
     m_loc = flat.numel() // WORLD
@@ -986,16 +1009,14 @@ def phase_serve_tp4(counters: Counters) -> dict:
         ref = PlainTransformer(pcfg)(flat, params)[rows].float()
     rel = ((got - ref).norm() / ref.norm()).item()
     # bf16 rounds each of the ~7 stored activations per layer at 2^-9
-    # relative, in two summation orders (and K7 rounds each rank's partial)
+    # relative, in two summation orders (and K7 rounds each rank's partial,
+    # the ring at every hop)
     if not (torch.isfinite(got).all().item() and rel <= 5e-2):
-        raise AssertionError(f"world-4 prefill logits vs world-1 plain: rel L2 err {rel}")
-    emit({"phase": "serve_tp4_logits", "rows": cfg.batch, "prompt_len": L,
+        raise AssertionError(f"{name}: world-4 prefill logits vs world-1 plain: rel L2 {rel}")
+    emit({"phase": name, "rows": cfg.batch, "prompt_len": L,
           "rel_l2_err": rel, "max_abs_err": (got - ref).abs().max().item(),
           "argmax_agree": (got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
           "tol_rel_l2": 5e-2, "reference": "world 1, plain GEMMs"})
-    phase_decode_profile_tp4(cfg, params, ctx)
-    ctx.close()
-    return launches
 
 
 def phase_decode_profile_tp4(cfg, params, ctx) -> None:
@@ -1042,10 +1063,11 @@ def phase_decode_profile_tp4(cfg, params, ctx) -> None:
     del batcher
 
 
-def phase_f32_parity_tp4() -> None:
+def phase_f32_parity_tp4(ring: bool = False) -> None:
     """f32, 2 layers at full 70B width, world 4: greedy tokens of the kernel
-    path on the card (K6/K7 f32 engines, K3, K5) identical to the world-4
-    plain path (the wrappers' CPU twins, ranks as CPU threads)."""
+    path on the card (K6/K7 f32 engines, K3, K5; with `ring` a ring context
+    and two spans a shard: K15, K17) identical to the world-4 plain path
+    (the wrappers' CPU twins, ranks as CPU threads, the same context)."""
     import torch
     from triton_dist_tpu_torch.models import presets
     from triton_dist_tpu_torch.models.decode import ContinuousBatcher
@@ -1055,16 +1077,20 @@ def phase_f32_parity_tp4() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = presets.preset(TP_MODEL, n_layers=2, batch=4, dtype=torch.float32)
+    if ring:
+        cfg = _ring_tp_cfg(cfg)
     params = init_params(cfg, seed=3)
     params_cpu = {
         "embed": params["embed"].cpu(), "final_norm": params["final_norm"].cpu(),
         "lm_head": params["lm_head"].cpu(),
         "layers": [{k: v.cpu() for k, v in p.items()} for p in params["layers"]],
     }
-    lengths, max_new = [12, 20, 33, 40], 8
+    # the ring check feeds fewer new tokens: its CPU reference is the cost
+    lengths, max_new = [12, 20, 33, 40], 4 if ring else 8
 
     def run(p, device):
         ctx = initialize_distributed(WORLD, device=device)
+        ctx.full_mesh = not ring
         b = ContinuousBatcher(cfg, p, s_max=256, page_size=16, prefill=True, device=device,
                               ctx=ctx)
         for r in _requests(cfg.vocab, lengths, max_new, seed=17):
@@ -1080,11 +1106,12 @@ def phase_f32_parity_tp4() -> None:
     t0 = time.perf_counter()
     got = run(params, "cuda")
     t_card = time.perf_counter() - t0
+    name = "f32_parity_tp4_ring" if ring else "f32_parity_tp4"
     if got != want:
-        raise AssertionError(f"world-4 f32 greedy tokens differ: {got} vs {want}")
-    emit({"phase": "f32_parity_tp4", "model": TP_MODEL, "n_layers": 2, "world": WORLD,
-          "requests": len(lengths), "max_new_tokens": max_new, "identical": True,
-          "cpu_reference_s": t_cpu, "card_s": t_card})
+        raise AssertionError(f"{name}: world-4 f32 greedy tokens differ: {got} vs {want}")
+    emit({"phase": name, "model": TP_MODEL, "n_layers": 2, "world": WORLD,
+          "full_mesh": not ring, "requests": len(lengths), "max_new_tokens": max_new,
+          "identical": True, "cpu_reference_s": t_cpu, "card_s": t_card})
 
 
 # ------------------------------------------------------------ MoE (slice 3) ----
@@ -2131,6 +2158,28 @@ def _rel_l2(got, want) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
 
 
+def _train_worst(world, rank_outs, ref, params, cfg) -> dict:
+    """The worst relative errors of each rank's ``(loss, gradients, (new
+    params, step loss))`` against the plain path's ``(loss, gradients)`` on
+    the whole parameters: each split leaf compared on the rank's shard."""
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+
+    loss_ref, g_ref = ref
+    splits = ttm._tree_leaves(ttm._tree_map(lambda _, s: s, params, ttm.specs_for(cfg)))
+    leaves = ttm._tree_leaves(params)
+    worst = dict(loss_rel=0.0, grad_rel_l2=0.0, param_rel_l2=0.0)
+    for r, (loss, grads, (new, step_loss)) in enumerate(rank_outs):
+        worst["loss_rel"] = max(worst["loss_rel"], abs(loss - loss_ref.item()) / abs(
+            loss_ref.item()), abs(step_loss - loss_ref.item()) / abs(loss_ref.item()))
+        for g, want, p, split, q in zip(grads, g_ref, leaves, splits, ttm._tree_leaves(new)):
+            if split is not None and world > 1:
+                want = want.chunk(world, split)[r]
+                p = p.chunk(world, split)[r]
+            worst["grad_rel_l2"] = max(worst["grad_rel_l2"], _rel_l2(g, want))
+            worst["param_rel_l2"] = max(worst["param_rel_l2"], _rel_l2(q, p - TRAIN_LR * want))
+    return worst
+
+
 def phase_f32_parity_train() -> None:
     """f32, 2 MoE layers at full Mixtral width, batch 2 x 1024: one
     train_step at world 1 and at world 4 on the card against the plain
@@ -2149,8 +2198,6 @@ def phase_f32_parity_train() -> None:
                          dtype=torch.float32)
     tokens, targets = _train_batch(cfg.vocab, seed=55)
     params = ttm.init_moe_params(cfg, seed=54)
-    splits = ttm._tree_leaves(ttm._tree_map(lambda _, s: s, params, ttm.specs_for(cfg)))
-    leaves = ttm._tree_leaves(params)
     make_recorded, make_plain = _train_models()
     report = {}
 
@@ -2158,20 +2205,7 @@ def phase_f32_parity_train() -> None:
         return ttm._loss_and_grads(make_plain(cfg, replay=routes), params, tokens, targets)
 
     def compare(world, rank_outs, ref):
-        loss_ref, g_ref = ref
-        worst = dict(loss_rel=0.0, grad_rel_l2=0.0, param_rel_l2=0.0)
-        for r, (loss, grads, (new, step_loss)) in enumerate(rank_outs):
-            worst["loss_rel"] = max(worst["loss_rel"], abs(loss - loss_ref.item()) / abs(
-                loss_ref.item()), abs(step_loss - loss_ref.item()) / abs(loss_ref.item()))
-            for g, want, p, split, q in zip(grads, g_ref, leaves, splits,
-                                            ttm._tree_leaves(new)):
-                if split is not None and world > 1:
-                    want = want.chunk(world, split)[r]
-                    p = p.chunk(world, split)[r]
-                worst["grad_rel_l2"] = max(worst["grad_rel_l2"], _rel_l2(g, want))
-                worst["param_rel_l2"] = max(worst["param_rel_l2"],
-                                            _rel_l2(q, p - TRAIN_LR * want))
-        report[world] = worst
+        worst = report[world] = _train_worst(world, rank_outs, ref, params, cfg)
         if not (worst["loss_rel"] <= 1e-5 and worst["grad_rel_l2"] <= 1e-4
                 and worst["param_rel_l2"] <= 1e-4):
             raise AssertionError(f"f32 train parity at world {world}: {worst}")
@@ -2781,6 +2815,378 @@ def phase_f32_parity_ranged() -> None:
           "seconds": time.perf_counter() - t_start})
 
 
+# ------------------------------------------------------ the rings (slice 6) ----
+
+RING_CHUNKS = 2  # AGGemmConfig / GemmRSConfig chunks_per_shard of serve_tp4_ring
+
+
+def _check_ring(name, got, plain, library, world):
+    """A ring kernel's bf16 output against its plain version (the ring's
+    own hop order and rounding, one bf16 ulp of the output scale) and the
+    library golden (one f32 sum rounded once: the ring rounds n-1 times,
+    so n-1 ulps); f32 within 1e-5 of the scale against both."""
+    import torch
+
+    scale = plain.float().abs().max().item()
+    bf16 = got.dtype == torch.bfloat16
+    err = (got.float() - plain.float()).abs().max().item()
+    err_lib = (got.float() - library.float()).abs().max().item()
+    tol = (2.0**-7 if bf16 else 1e-5) * scale
+    tol_lib = (2.0**-7 * (world - 1) if bf16 else 1e-5) * scale
+    if not (err <= tol and err_lib <= tol_lib):
+        raise AssertionError(f"{name}: max abs err {err} (tol {tol}) against the plain ring, "
+                             f"{err_lib} (tol {tol_lib}) against the library")
+    return err, err_lib
+
+
+def phase_ag_gemm_ring(ctx) -> dict:
+    """K15 on a ring context at K6's shapes (a 4-way Llama-3.1-70B prefill,
+    512 rows a rank: wqkv, gate/up, LM head), one span and two a shard:
+    bf16 against the ring's plain version and the gathered A bit-exact; f32
+    at the wqkv shape. The bound is K6's: the same work and bytes."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.ops.common import ring_spans
+
+    g = torch.Generator(device="cuda").manual_seed(62)
+    m_loc, k = 512, 8192
+    rows, worst = [], 0.0
+    total = dict(ms=0.0, ms_one_span=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    for name, n_loc in (("wqkv", 2560), ("gate_up", 14336), ("lm_head", 32064)):
+        # f32 first: the timings below read the last (bf16) operands
+        dtypes = (torch.float32, torch.bfloat16) if name == "wqkv" else (torch.bfloat16,)
+        row = dict(shape=[m_loc, k, n_loc])
+        for dtype in dtypes:
+            a = [torch.randn((m_loc, k), generator=g, device="cuda").to(dtype)
+                 for _ in range(WORLD)]
+            b = [(torch.randn((k, n_loc), generator=g, device="cuda") / k**0.5).to(dtype)
+                 for _ in range(WORLD)]
+            for chunks in (1, RING_CHUNKS):
+                cfg = agg.AGGemmConfig(chunks_per_shard=chunks)
+                spans = ring_spans(m_loc, chunks, cfg.block_m)
+                outs = ctx.run(lambda: (
+                    agg.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg,
+                                gather_output=True),
+                    agg._ag_gemm_ring_plain(a[ctx.rank], b[ctx.rank], ctx, False, dtype, spans)))
+                a_full = torch.cat(a)
+                err = 0.0
+                for r, ((out, ag), plain) in enumerate(outs):
+                    if not torch.equal(ag, a_full):
+                        raise AssertionError(f"ag_gemm ring {name}: gathered A not bit-exact")
+                    err = max(err, _check_ring(f"ag_gemm ring {name} chunks {chunks} rank {r}",
+                                               out, plain, plain, WORLD)[0])
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                row[f"max_abs_err_{str(dtype)[6:]}_chunks{chunks}"] = err
+                del outs
+                if dtype == torch.bfloat16:
+                    row[f"ms_chunks{chunks}"] = dist_ms(ctx, lambda: agg.ag_gemm(
+                        a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg), iters=5)
+        row["plain_ms"] = dist_ms(ctx, lambda: agg._ag_gemm_ring_plain(
+            a[ctx.rank], b[ctx.rank], ctx, False, torch.bfloat16, spans), iters=2)
+        row["library_ms"] = cuda_ms(lambda: [torch.matmul(torch.cat(a), b[r])
+                                             for r in range(WORLD)], iters=3)
+        flops = WORLD * 2.0 * WORLD * m_loc * k * n_loc
+        nbytes = 2.0 * (WORLD * m_loc * k + WORLD * k * n_loc + WORLD * WORLD * m_loc * n_loc)
+        row["bound_ms"] = bound(flops, nbytes)[0]
+        rows.append({name: row})
+        total["ms"] += row[f"ms_chunks{RING_CHUNKS}"]
+        total["ms_one_span"] += row["ms_chunks1"]
+        for key in ("plain_ms", "library_ms"):
+            total[key] += row[key]
+        total["flops"] += flops
+        total["bytes"] += nbytes
+        del a, b
+    emit({"phase": "kernel", "kernel": "ag_gemm_ring", "world": WORLD, "per_shape": rows,
+          "ms_chunks1_summed": total["ms_one_span"],
+          f"ms_chunks{RING_CHUNKS}_summed": total["ms"]})
+    b_ms, by = bound(total["flops"], total["bytes"])
+    return dict(
+        name="ag_gemm_ring", route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
+        replaces="triton_dist_tpu/ops/allgather_gemm.py:109", max_abs_err=worst,
+        ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
+        library_ms=total["library_ms"], ms_one_span=total["ms_one_span"],
+        shapes=f"world {WORLD} ring: a [512, 8192] a rank; n_loc 2560, 14336, 32064 "
+               f"(summed); ms at chunks_per_shard {RING_CHUNKS}, ms_one_span at 1",
+    )
+
+
+def phase_gemm_rs_ring(ctx) -> list[dict]:
+    """K16 (one span) and K17 (chunks 2 and 3; its one-span launch
+    bit-equal to K16) on a ring context at K7's shapes (2048 rows, wo and
+    down, N 8192): bf16 against the ring's plain version and the library
+    golden; f32 at the wo shape. The bound is K7's."""
+    import torch
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.ops.common import ring_spans
+
+    g = torch.Generator(device="cuda").manual_seed(63)
+    m_tot, n = 2048, 8192
+    m_loc = m_tot // WORLD
+    chunk_set = (1, RING_CHUNKS, 3)
+    rows, worst = [], {c: 0.0 for c in chunk_set}
+    total = {c: 0.0 for c in chunk_set}
+    total.update(plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    for name, k_loc in (("wo", 2048), ("down", 7168)):
+        # f32 first: the timings below read the last (bf16) operands
+        dtypes = (torch.float32, torch.bfloat16) if name == "wo" else (torch.bfloat16,)
+        row = dict(shape=[m_tot, k_loc, n])
+        for dtype in dtypes:
+            a = [torch.randn((m_tot, k_loc), generator=g, device="cuda").to(dtype)
+                 for _ in range(WORLD)]
+            b = [(torch.randn((k_loc, n), generator=g, device="cuda") / (WORLD * k_loc)**0.5)
+                 .to(dtype) for _ in range(WORLD)]
+            library = sum(a[r].float() @ b[r].float() for r in range(WORLD)).to(dtype)
+            for chunks in chunk_set:
+                cfg = grs.GemmRSConfig(chunks_per_shard=chunks)
+                spans = ring_spans(m_loc, chunks, cfg.block_m)
+                outs = ctx.run(lambda: (
+                    grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, method="ring", config=cfg),
+                    grs._gemm_rs_ring_plain(a[ctx.rank], b[ctx.rank], ctx, dtype, spans)))
+                err = err_lib = 0.0
+                for r, (out, plain) in enumerate(outs):
+                    e = _check_ring(f"gemm_rs ring {name} chunks {chunks} rank {r}", out, plain,
+                                    library[r * m_loc:(r + 1) * m_loc], WORLD)
+                    err, err_lib = max(err, e[0]), max(err_lib, e[1])
+                if dtype == torch.bfloat16:
+                    worst[chunks] = max(worst[chunks], err)
+                row[f"max_abs_err_{str(dtype)[6:]}_chunks{chunks}"] = err
+                row[f"max_abs_err_library_{str(dtype)[6:]}_chunks{chunks}"] = err_lib
+                if chunks == 1:  # K17 with one span is K16, bit for bit
+                    one = ctx.run(lambda: grs._gemm_rs_ring_chunked(
+                        a[ctx.rank], b[ctx.rank], ctx, dtype, ((0, m_loc),)))
+                    if not all(torch.equal(x, o) for x, (o, _) in zip(one, outs)):
+                        raise AssertionError(f"gemm_rs ring {name}: one span not bit-equal")
+                del outs
+                if dtype == torch.bfloat16:
+                    row[f"ms_chunks{chunks}"] = dist_ms(ctx, lambda: grs.gemm_rs(
+                        a[ctx.rank], b[ctx.rank], ctx=ctx, method="ring", config=cfg), iters=5)
+        row["plain_ms"] = dist_ms(ctx, lambda: grs._gemm_rs_ring_plain(
+            a[ctx.rank], b[ctx.rank], ctx, torch.bfloat16, ((0, m_loc),)), iters=2)
+        row["library_ms"] = cuda_ms(lambda: sum(torch.matmul(a[r], b[r])
+                                                for r in range(WORLD)), iters=3)
+        flops = WORLD * 2.0 * m_tot * k_loc * n
+        nbytes = 2.0 * (WORLD * m_tot * k_loc + WORLD * k_loc * n + m_tot * n)
+        row["bound_ms"] = bound(flops, nbytes)[0]
+        rows.append({name: row})
+        for c in chunk_set:
+            total[c] += row[f"ms_chunks{c}"]
+        for key in ("plain_ms", "library_ms"):
+            total[key] += row[key]
+        total["flops"] += flops
+        total["bytes"] += nbytes
+        del a, b, library
+    emit({"phase": "kernel", "kernel": "gemm_rs_ring", "world": WORLD, "per_shape": rows,
+          **{f"ms_chunks{c}_summed": total[c] for c in chunk_set}})
+    b_ms, by = bound(total["flops"], total["bytes"])
+    common = dict(route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
+                  plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
+                  library_ms=total["library_ms"])
+    shapes = f"world {WORLD} ring: a [2048, k_loc] a rank, k_loc 2048 and 7168, N 8192 (summed)"
+    return [
+        dict(name="gemm_rs_ring", replaces="triton_dist_tpu/ops/gemm_reduce_scatter.py:147",
+             max_abs_err=worst[1], ms=total[1], shapes=shapes, **common),
+        dict(name="gemm_rs_ring_chunked",
+             replaces="triton_dist_tpu/ops/gemm_reduce_scatter.py:187",
+             max_abs_err=max(worst[RING_CHUNKS], worst[3]), ms=total[RING_CHUNKS],
+             ms_chunks3=total[3], shapes=f"{shapes}; ms at chunks_per_shard {RING_CHUNKS}",
+             **common),
+    ]
+
+
+def phase_reduce_scatter_ring(ctx) -> dict:
+    """K18 on a ring context at K12's shape (the MoE backward's dx at world
+    4, [2048, 4096] a rank), f32 and bf16, against the ring's plain version
+    (the same adds in the same order: bit-exact) and the library golden.
+    The bound is K12's."""
+    import torch
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+
+    g = torch.Generator(device="cuda").manual_seed(64)
+    m_tot, n = TRAIN_B * TRAIN_S, 4096
+    m_loc = m_tot // WORLD
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = [torch.randn((m_tot, n), generator=g, device="cuda").to(dtype)
+             for _ in range(WORLD)]
+        library = sum(t.float() for t in x).to(dtype)
+        outs = ctx.run(lambda: (rs.reduce_scatter(x[ctx.rank], ctx=ctx, method="ring"),
+                                rs._reduce_scatter_ring_plain(x[ctx.rank], ctx)))
+        worst = (0.0, 0.0)
+        for r, (got, plain) in enumerate(outs):
+            e = _check_ring(f"reduce_scatter ring {dtype} rank {r}", got, plain,
+                            library[r * m_loc:(r + 1) * m_loc], WORLD)
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        errs[str(dtype)] = dict(max_abs_err=worst[0], max_abs_err_library=worst[1])
+        del outs
+
+    def library_fn():
+        return [torch.stack([x[p][r * m_loc:(r + 1) * m_loc] for p in range(WORLD)]).sum(0)
+                for r in range(WORLD)]
+
+    nbytes = 4.0 * WORLD * (m_tot * n + m_loc * n)
+    b_ms, by = bound(WORLD * (WORLD - 1) * m_loc * n, nbytes)
+    entry = dict(
+        name="reduce_scatter_ring", route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
+        replaces="triton_dist_tpu/ops/reduce_scatter.py:102",
+        max_abs_err=errs[str(torch.float32)]["max_abs_err"],
+        ms=dist_ms(ctx, lambda: rs.reduce_scatter(x[ctx.rank], ctx=ctx, method="ring"),
+                   iters=10),
+        plain_ms=dist_ms(ctx, lambda: rs._reduce_scatter_ring_plain(x[ctx.rank], ctx), iters=5),
+        bound_ms=b_ms, bound_by=by, library_ms=event_ms(library_fn, iters=5),
+        library="torch.stack + sum of the four ranks' slices",
+        shapes=f"world {WORLD} ring: [{m_tot}, {n}] f32 a rank -> [{m_loc}, {n}]",
+    )
+    emit({"phase": "kernel", "kernel": "reduce_scatter_ring", "world": WORLD, "checks": errs,
+          **{k_: entry[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms", "shapes")}})
+    return entry
+
+
+def phase_stuck_wait_ring() -> None:
+    """A ring kernel whose neighbour never comes in time: rank 1's stream
+    is held 2 s before its ring GEMM-RS, the wait timeout is 0.2 s. Rank 0
+    must raise with its record (the gemm_rs_ring family, site 1: the
+    arrival of its right neighbour, rank 1), not hang."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    ctx = initialize_distributed(2)
+    ctx.full_mesh = False
+    a = torch.randn((64, 128), device="cuda")
+    b = torch.randn((128, 256), device="cuda")
+
+    def call():
+        if ctx.rank == 1 and stuck:
+            common.sleep_on_stream(2_000_000_000)
+        return grs.gemm_rs(a, b, ctx=ctx)
+
+    stuck = False
+    ctx.run(call)  # the buffers and flags exist
+    stuck = True
+    t0 = time.perf_counter()
+    try:
+        with config.wait_timeout(0.2):
+            ctx.run(call)
+    except DistTimeoutError as err:
+        recs = err.records
+    else:
+        raise AssertionError("a stuck ring wait did not raise")
+    if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, "gemm_rs_ring", 1)]:
+        raise AssertionError(f"stuck ring wait: unexpected records {recs}")
+    emit({"phase": "stuck_wait_ring", "raised_after_s": time.perf_counter() - t0,
+          "records": recs})
+    ctx.close()
+
+
+def _ring_tp_cfg(cfg):
+    from triton_dist_tpu_torch.ops.allgather_gemm import AGGemmConfig
+    from triton_dist_tpu_torch.ops.gemm_reduce_scatter import GemmRSConfig
+
+    return dataclasses.replace(cfg, ag_config=AGGemmConfig(chunks_per_shard=RING_CHUNKS),
+                               rs_config=GemmRSConfig(chunks_per_shard=RING_CHUNKS))
+
+
+def phase_serve_tp4_ring(counters: Counters) -> dict:
+    """``serve_tp4`` on a ring context: the same model, weights and traffic
+    (Llama-3.1-70B widths, 8 of 80 layers, bf16, batch 8, 8 requests),
+    ``ctx.full_mesh = False`` and ``ag_config``/``rs_config`` with two
+    spans a shard: the column projections of every prefill run K15, the
+    row projections K17; no full-mesh projection kernel (K6, K7) runs.
+    Then its prefill logits against the world-1 plain forward."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import init_params
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    n_layers, max_new = 8, 32
+    cfg = _ring_tp_cfg(presets.preset(TP_MODEL, n_layers=n_layers, batch=8,
+                                      dtype=torch.bfloat16))
+    params = init_params(cfg, seed=10)
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    reqs = _requests(cfg.vocab, lengths, max_new, seed=15)
+    ctx = initialize_distributed(WORLD)
+    ctx.full_mesh = False
+    res = _serve(cfg, params, reqs, counters, ctx=ctx)
+    launches = res["launches"]
+    used = ("ag_gemm_ring", "gemm_rs_ring_chunked", "all_gather", "paged_flash_decode")
+    if any(launches[k] <= 0 for k in used) or launches["ag_gemm"] or launches["gemm_rs"]:
+        raise AssertionError(f"serve_tp4_ring did not run on the ring kernels: {launches}")
+    emit({"phase": "serve_tp4_ring", "model": TP_MODEL, "n_layers": n_layers, "world": WORLD,
+          "full_mesh": False, "chunks_per_shard": RING_CHUNKS, "batch": 8, "s_max": 1024,
+          "page_size": 16, "prompt_lens": lengths, "max_new_tokens": max_new, **res})
+    _check_tp4_logits("serve_tp4_ring_logits", cfg, params, reqs, ctx)
+    ctx.close()
+    return launches
+
+
+def phase_train_ring(counters: Counters) -> dict:
+    """One f32 train step at world 4 on a ring context, Mixtral-8x7B widths
+    cut to 2 layers (batch 2 x 1024, default configs: one span), against
+    the plain path on the card differentiated by PyTorch given the same
+    expert choices: the loss within 1e-5 relative, every gradient shard and
+    updated parameter within 1e-4 relative L2. The projections run K15 and
+    K16 forward and backward, the MoE backward's dx K18; K6, K7 and K12 do
+    not run."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = presets.preset(MOE_MODEL, n_layers=2, batch=TRAIN_B, seq=TRAIN_S,
+                         dtype=torch.float32)
+    tokens, targets = _train_batch(cfg.vocab, seed=57)
+    params = ttm.init_moe_params(cfg, seed=56)
+    make_recorded, make_plain = _train_models()
+    ctx = initialize_distributed(WORLD)
+    ctx.full_mesh = False
+    shards = ttm.shard_params(params, WORLD, ctx.devices)
+    m_loc = tokens.numel() // WORLD
+
+    def rank():
+        r = ctx.rank
+        t = tokens[r * m_loc:(r + 1) * m_loc]
+        model = make_recorded(cfg, ctx=ctx)
+        loss, grads = ttm._loss_and_grads(model, shards[r], t, targets)
+        new, step_loss = ttm.train_step(make_recorded(cfg, ctx=ctx), shards[r], t, targets,
+                                        lr=TRAIN_LR)
+        return (loss.item(), grads, (new, step_loss.item())), model.routes
+
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    outs = ctx.run(rank, grad=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    launches, plain = counts["launches"], counts["plain_calls"]
+    used = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring", "ag_group_gemm",
+            "moe_reduce_rs", "group_gemm", "group_gemm_dw")
+    if (any(launches[k] <= 0 for k in used) or launches["ag_gemm"] or launches["gemm_rs"]
+            or launches["reduce_scatter"]):
+        raise AssertionError(f"train_ring did not run on the ring kernels: {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the card path: {plain}")
+    routes = [torch.cat([o[1][li] for o in outs]) for li in range(cfg.n_layers)]
+    ref = ttm._loss_and_grads(make_plain(cfg, replay=routes), params, tokens, targets)
+    worst = _train_worst(WORLD, [o[0] for o in outs], ref, params, cfg)
+    ctx.close()
+    tol = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "param_rel_l2": 1e-4}
+    if any(worst[k] > v for k, v in tol.items()):
+        raise AssertionError(f"train_ring against the plain path: {worst}")
+    emit({"phase": "train_ring", "model": MOE_MODEL, "n_layers": 2, "world": WORLD,
+          "full_mesh": False, "tokens": TRAIN_B * TRAIN_S, "step_wall_s": wall,
+          "loss": outs[0][0][0], "worst": worst, "tol": tol,
+          "reference": "world 1, plain kernels on the card, PyTorch autograd, the ring "
+                       "path's expert choices", **counts})
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2825,14 +3231,22 @@ def main() -> int:
                     phase_gemm_rs(ctx)]
     moe_entries += [phase_ag_group_gemm(ctx), phase_moe_reduce_rs(ctx)]
     train_entries.append(phase_reduce_scatter(ctx))
+    ctx.full_mesh = False  # the same ranks, declared a ring
+    ring_entries = [phase_ag_gemm_ring(ctx), *phase_gemm_rs_ring(ctx),
+                    phase_reduce_scatter_ring(ctx)]
     ctx.close()
     phase_stuck_wait()
     phase_stuck_wait_moe()
     phase_stuck_wait_rs()
+    phase_stuck_wait_ring()
     torch.cuda.empty_cache()
     tp4 = phase_serve_tp4(counters)
     torch.cuda.empty_cache()
+    tp4_ring = phase_serve_tp4_ring(counters)
+    torch.cuda.empty_cache()
     phase_f32_parity_tp4()
+    torch.cuda.empty_cache()
+    phase_f32_parity_tp4(ring=True)
     torch.cuda.empty_cache()
     moe1, moe4 = phase_serve_moe(counters)
     torch.cuda.empty_cache()
@@ -2843,6 +3257,8 @@ def main() -> int:
     phase_train_dense(counters)
     torch.cuda.empty_cache()
     phase_f32_parity_train()
+    torch.cuda.empty_cache()
+    train_ring = phase_train_ring(counters)
     entries[0]["launches"] = paged["gemm"]
     entries[1]["launches"] = contiguous["flash_decode"]
     entries[2]["launches"] = paged["paged_flash_decode"]
@@ -2860,6 +3276,15 @@ def main() -> int:
     verify_entries[1]["launches"] = (chunked["paged_flash_verify"]
                                      + prefix["paged_flash_verify"])
     entries += verify_entries
+    ring_entries[0]["launches"] = tp4_ring["ag_gemm_ring"] + train_ring["ag_gemm_ring"]
+    ring_entries[1]["launches"] = tp4_ring["gemm_rs_ring"] + train_ring["gemm_rs_ring"]
+    ring_entries[2]["launches"] = (tp4_ring["gemm_rs_ring_chunked"]
+                                   + train_ring["gemm_rs_ring_chunked"])
+    ring_entries[3]["launches"] = train_ring["reduce_scatter_ring"]
+    entries += ring_entries
+    if any(e["launches"] <= 0 for e in entries):
+        raise AssertionError(f"a kernel of the path was not launched: "
+                             f"{[(e['name'], e['launches']) for e in entries]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

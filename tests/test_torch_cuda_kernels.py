@@ -4,9 +4,11 @@ its weight gradient K11, the multi-position verify K13 and its paged twin
 K14 — over shared pages, and chunk calls bit-equal to the whole-range
 call — and at world 2 and 4 with every rank on the one
 card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
-AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, plus stuck waits
-that must raise with their records), and a world-4 MoE train step that
-must finish (each rank's backward meets its peers on the host).
+AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, and on a ring
+context the ring AG-GEMM K15, the ring GEMM-RS K16/K17 and the ring
+reduce-scatter K18, plus stuck waits that must raise with their records),
+and world-4 MoE train steps, full mesh and ring, that must finish (each
+rank's backward meets its peers on the host).
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 absent:
@@ -536,6 +538,152 @@ def test_world4_moe_train_step_finishes(cuda):
         outs = ctx.run(body, grad=True)
     assert tgg.group_gemm_dw.launches >= before[0] + 8
     assert trs.reduce_scatter.launches == before[1] + 4
+    for _, loss in outs:
+        assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    got = ttm._tree_map(lambda first, dim, *rest: first if dim is None
+                        else torch.cat([first, *rest], dim),
+                        outs[0][0], ttm.specs_for(cfg), *[o[0] for o in outs[1:]])
+    ttm._tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5), got, want)
+
+
+def _ring_ctx(world):
+    ctx = initialize_distributed(world)
+    ctx.full_mesh = False
+    return ctx
+
+
+def _ring_tol(dtype, ref):
+    """Against the ring's own plain version (the same hop order and
+    roundings): one bf16 ulp of the output scale; f32 1e-5 of it."""
+    return (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_ag_gemm_kernel_matches_plain(cuda, world, dtype, chunks):
+    """K15 on a ring context (spans of ``chunks_per_shard``): two shapes
+    back to back (the workspace grows, epochs rise), against the ring's
+    plain version; the gathered A bit-exact."""
+    ctx = _ring_ctx(world)
+    g = torch.Generator(device="cuda").manual_seed(60 + chunks)
+    for m_loc, k, n_loc in ((64, 256, 300), (100, 512, 96), (2, 128, 64)):
+        cfg = tagg.AGGemmConfig(chunks_per_shard=chunks)
+        spans = tcommon.ring_spans(m_loc, chunks, cfg.block_m)
+        a = [torch.randn((m_loc, k), generator=g, device=cuda).to(dtype) for _ in range(world)]
+        b = (torch.randn((k, n_loc), generator=g, device=cuda) / k**0.5).to(dtype)
+        before = tagg._ag_gemm_ring.launches
+        outs = ctx.run(lambda: (
+            tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, config=cfg, gather_output=True),
+            tagg._ag_gemm_ring_plain(a[ctx.rank], b, ctx, False, dtype, spans)))
+        assert tagg._ag_gemm_ring.launches == before + world
+        for (out, ag), want in outs:
+            assert torch.equal(ag, torch.cat(a))
+            assert (out.float() - want.float()).abs().max().item() <= _ring_tol(dtype, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_gemm_rs_kernel_matches_plain(cuda, world, dtype, chunks):
+    """K16 (one span) and K17 (spans) on a ring context against the
+    ring's plain version; K17 launched with one span is K16 bit for bit."""
+    ctx = _ring_ctx(world)
+    g = torch.Generator(device="cuda").manual_seed(70 + chunks)
+    for m_loc, k_loc, n in ((64, 256, 300), (40, 128, 520), (2, 64, 128)):
+        cfg = tgrs.GemmRSConfig(chunks_per_shard=chunks)
+        spans = tcommon.ring_spans(m_loc, chunks, cfg.block_m)
+        a = [torch.randn((world * m_loc, k_loc), generator=g, device=cuda).to(dtype)
+             for _ in range(world)]
+        b = [(torch.randn((k_loc, n), generator=g, device=cuda) / k_loc**0.5).to(dtype)
+             for _ in range(world)]
+        counter = tgrs._gemm_rs_ring if len(spans) == 1 else tgrs._gemm_rs_ring_chunked
+        before = counter.launches
+        outs = ctx.run(lambda: (
+            tgrs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg),
+            tgrs._gemm_rs_ring_plain(a[ctx.rank], b[ctx.rank], ctx, dtype, spans)))
+        assert counter.launches == before + world
+        for got, want in outs:
+            assert (got.float() - want.float()).abs().max().item() <= _ring_tol(dtype, want)
+        if len(spans) == 1:
+            one = ctx.run(lambda: tgrs._gemm_rs_ring_chunked(a[ctx.rank], b[ctx.rank], ctx,
+                                                             dtype, spans))
+            assert all(torch.equal(x, got) for x, (got, _) in zip(one, outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_reduce_scatter_kernel_matches_plain(cuda, world, dtype):
+    """K18 against the ring's plain version: the same f32 adds in the same
+    hop order, so bit for bit; two shapes back to back."""
+    ctx = _ring_ctx(world)
+    g = torch.Generator(device="cuda").manual_seed(80 + world)
+    for m_loc, n in ((64, 300), (16, 4096), (1, 7)):
+        x = [torch.randn((world * m_loc, n), generator=g, device=cuda).to(dtype)
+             for _ in range(world)]
+        before = trs._ring_reduce_scatter.launches
+        outs = ctx.run(lambda: (trs.reduce_scatter(x[ctx.rank], ctx=ctx),
+                                trs._reduce_scatter_ring_plain(x[ctx.rank], ctx)))
+        assert trs._ring_reduce_scatter.launches == before + world
+        for got, want in outs:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ring_stuck_wait_raises_with_its_record(cuda):
+    """Rank 1's stream is held for 2 s before its ring GEMM-RS: rank 0's
+    wait for its right neighbour's arrival (0.2 s) expires and the run
+    raises with a record naming rank 0, the gemm_rs_ring family and site
+    1 — it does not hang."""
+    ctx = _ring_ctx(2)
+    a, b = torch.randn((64, 128), device=cuda), torch.randn((128, 256), device=cuda)
+    ctx.run(lambda: tgrs.gemm_rs(a, b, ctx=ctx))  # the buffers and flags exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return tgrs.gemm_rs(a, b, ctx=ctx)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    (rec,) = err.value.records
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
+        0, "gemm_rs_ring", 1, "barrier_all")
+
+
+@pytest.mark.cuda
+def test_world4_ring_moe_train_step_finishes(cuda):
+    """The world-4 MoE train step of the full-mesh test on a ring context:
+    K15/K16 forward and backward, K18 for the MoE backward's dx; it
+    finishes under a 30 s wait timeout and matches the world-1 step."""
+    cfg = ttm.MoETransformerConfig(vocab=512, hidden=256, ffn=512, n_layers=1, n_q_heads=8,
+                                   n_kv_heads=4, head_dim=32, batch=2, seq=64, n_experts=4,
+                                   topk=2, gg_config=tgg.GroupGemmConfig(128))
+    params = ttm.init_moe_params(cfg, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
+    targets = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
+    want, want_loss = ttm.train_step(ttm.TPMoETransformer(cfg), params, tokens, targets, lr=0.1)
+    ctx = _ring_ctx(4)
+    shards = ttm.shard_params(params, 4, ctx.devices)
+    before = (tagg._ag_gemm_ring.launches, tgrs._gemm_rs_ring.launches,
+              trs._ring_reduce_scatter.launches, tagg.ag_gemm.launches)
+
+    def body():
+        r = ctx.rank
+        return ttm.train_step(ttm.TPMoETransformer(cfg, ctx=ctx), shards[r],
+                              tokens[r * 32:(r + 1) * 32], targets, lr=0.1)
+
+    with config.wait_timeout(30):
+        outs = ctx.run(body, grad=True)
+    assert tagg._ag_gemm_ring.launches > before[0]
+    assert tgrs._gemm_rs_ring.launches > before[1]
+    assert trs._ring_reduce_scatter.launches == before[2] + 4
+    assert tagg.ag_gemm.launches == before[3]
     for _, loss in outs:
         assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
     got = ttm._tree_map(lambda first, dim, *rest: first if dim is None

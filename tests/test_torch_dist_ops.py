@@ -1,6 +1,7 @@
 """The PyTorch port's distributed ops at world 2 and 4 against the JAX
-package, on the CPU: ``ag_gemm``, ``gemm_rs`` (``scatter``),
-``all_gather`` (``full_mesh_push``) and ``barrier_all_op``. The port's ranks are threads of one ``DistContext`` on
+package, on the CPU: ``ag_gemm`` (one span and two), ``gemm_rs``
+(``scatter`` and ``ring``), ``all_gather`` (``full_mesh_push``) and
+``barrier_all_op``. The port's ranks are threads of one ``DistContext`` on
 the CPU, running the ops' plain versions; the JAX side runs under
 ``shard_map`` on the virtual CPU devices of ``tests/conftest.py`` with its
 Pallas kernels interpreted. Inputs come from numpy with a seed; payloads
@@ -73,8 +74,16 @@ def test_ag_gemm_matches_jax(world):
     np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
     for _, ag in outs:
         np.testing.assert_array_equal(ag.numpy(), np.asarray(want_ag))
-    with pytest.raises(NotImplementedError, match="B10"):
-        tagg.ag_gemm(torch.zeros(2, 2), torch.zeros(2, 2), chunks_per_shard=2)
+    # two spans a shard: the ring AG-GEMM (K15's plain version), same result
+    cfg = tagg.AGGemmConfig(8, 32, 64, chunks_per_shard=2)
+    outs = ctx.run(lambda: tagg.ag_gemm(
+        torch.from_numpy(a[ctx.rank * m_loc:(ctx.rank + 1) * m_loc]),
+        torch.from_numpy(b[:, ctx.rank * n_loc:(ctx.rank + 1) * n_loc]),
+        ctx=ctx, config=cfg, gather_output=True))
+    got = torch.cat([out for out, _ in outs], dim=1).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+    for _, ag in outs:
+        np.testing.assert_array_equal(ag.numpy(), np.asarray(want_ag))
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -106,9 +115,12 @@ def test_gemm_rs_matches_jax(world):
                                                             ctx))).numpy()
     np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
     assert trs.get_auto_reduce_scatter_method(1 << 20, world, True) == "scatter_reduce"
-    with pytest.raises(NotImplementedError, match="B11"):
-        ctx.run(lambda: tgrs.gemm_rs(torch.zeros(world, 2), torch.zeros(2, 2), ctx=ctx,
-                                     method="ring"))
+    # the ring method (K16's plain version, a rounding per hop) agrees too
+    got = torch.cat(ctx.run(lambda: tgrs.gemm_rs(
+        torch.from_numpy(a[:, ctx.rank * k_loc:(ctx.rank + 1) * k_loc].copy()),
+        torch.from_numpy(b[ctx.rank * k_loc:(ctx.rank + 1) * k_loc]), ctx=ctx,
+        method="ring"))).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -154,6 +154,9 @@ def test_symmetric_views_and_bounds():
 
 
 def test_method_choice_off_a_full_mesh_names_the_later_slices():
+    """Off a full mesh ``auto`` picks the rings: the ring allgathers are a
+    later slice and refused by their id (B6); ``gemm_rs`` runs its ring
+    (the reduced product, its plain version on the CPU)."""
     assert tag.get_auto_all_gather_method(1 << 20, 4, full_mesh=False) == "ring_1d"
     assert trs.get_auto_reduce_scatter_method(1 << 20, 4, full_mesh=False) == "ring"
     ctx = initialize_distributed(2, device="cpu")
@@ -162,5 +165,9 @@ def test_method_choice_off_a_full_mesh_names_the_later_slices():
         ctx.run(lambda: tag.all_gather(torch.zeros(2, 2), ctx=ctx))
     ctx = initialize_distributed(2, device="cpu")
     ctx.full_mesh = False
-    with pytest.raises(NotImplementedError, match="B11"):
-        ctx.run(lambda: tgrs.gemm_rs(torch.zeros(4, 2), torch.zeros(2, 2), ctx=ctx))
+    a = [torch.arange(8.0).reshape(4, 2) + r for r in range(2)]
+    b = torch.tensor([[1.0, 2.0], [3.0, 4.0]])
+    calls = tgrs._gemm_rs_ring_plain.calls
+    got = torch.cat(ctx.run(lambda: tgrs.gemm_rs(a[ctx.rank], b, ctx=ctx)))
+    assert tgrs._gemm_rs_ring_plain.calls == calls + 2
+    assert torch.equal(got, (a[0] + a[1]) @ b)

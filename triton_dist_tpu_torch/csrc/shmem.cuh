@@ -1,6 +1,8 @@
 // B1 · the device side of the SHMEM surface the distributed kernels share
 // (≙ triton_dist_tpu/shmem/device.py): puts, put-with-signal, signal,
-// bounded waits, quiet and the all-rank barrier.
+// bounded waits, quiet, the all-rank barrier, and the chunked surface of
+// the ring kernels (csrc/ring.cu): per-(step, chunk) puts with a flag slot
+// of their own and the bounded per-chunk wait.
 //
 // Symmetric memory: every rank holds one allocation of the same shape per
 // symmetric buffer, and a device-side int64[world] table of the ranks'
@@ -165,6 +167,68 @@ __device__ __forceinline__ void barrier_wait_warp(const long long* flags, int wo
   const int t = threadIdx.x;
   if (t < world && t != me) wait_until_ge(peer_ptr<int>(flags, me) + t, epoch, w, t, KIND_BARRIER);
   __syncwarp();
+}
+
+// ------------------------------------------------- the chunked surface ----
+//
+// A ring kernel moves each hop's payload in spans ("chunks") of a shard's
+// rows (chunk_schedule, ops/common.py). Chunk j of step s has flag slot
+// s * MAX_SPANS + j in the receiver's int32 flag set; the sender raises it
+// to the launch's epoch once every piece of the chunk has landed, and the
+// receiver's wait on that slot is its landing view of the chunk.
+
+constexpr int MAX_SPANS = 16;
+
+// The spans of a shard, by value: span j covers rows [off[j], off[j] +
+// rows[j]) of it.
+struct Spans {
+  int off[MAX_SPANS];
+  int rows[MAX_SPANS];
+  int n;
+};
+
+// ChunkedPutHandle (shmem/device.py:248): where one launch's (step,
+// chunk) slots live. `mine` are this rank's arrival flags (raised by its
+// left neighbour), `right` its right neighbour's, `count` this rank's
+// per-slot count of finished pieces (zero between launches).
+struct ChunkFlags {
+  int* mine;
+  int* right;
+  int* count;
+  int epoch;
+
+  static __device__ __forceinline__ int slot(int step, int chunk) {
+    return step * MAX_SPANS + chunk;
+  }
+};
+
+// putmem_signal_chunked_nbi_block / putmem_signal2_nbi_block
+// (shmem/device.py:308, :435), the signal half: the block has stored its
+// piece of chunk `chunk` of step `step` (a put, or an epilogue's stores
+// into the peer's landing view); once all `pieces` pieces are in, the
+// block that finishes last raises the peer's slot, ordered after every
+// piece by the fences (the count is reset for the next launch first).
+__device__ __forceinline__ void chunk_piece_done(const ChunkFlags& f, int step, int chunk,
+                                                 int pieces) {
+  quiet();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int s = ChunkFlags::slot(step, chunk);
+    if (atomicAdd(f.count + s, 1) == pieces - 1) {
+      f.count[s] = 0;
+      __threadfence_system();
+      signal_set(f.right + s, f.epoch);
+    }
+  }
+}
+
+// wait_chunk (shmem/device.py:492): the block waits, bounded, until chunk
+// `chunk` of the left neighbour's step-`step` put has landed. The site is
+// world + slot (resilience/sites.py).
+__device__ __forceinline__ void wait_chunk(const ChunkFlags& f, int step, int chunk, int world,
+                                           const WaitCtx& w) {
+  const int s = ChunkFlags::slot(step, chunk);
+  wait_block(f.mine + s, f.epoch, w, world + s, KIND_SIGNAL);
 }
 
 }  // namespace shmem

@@ -43,7 +43,8 @@ def preset(
 ) -> TransformerConfig:
     """Build the named model's config. `n_layers` defaults to 1 (one
     decoder block); pass the real depth for full-model runs. Extra keyword
-    arguments override any config field."""
+    arguments override any config field (≙ ``:73``), e.g.
+    ``ag_config=AGGemmConfig(chunks_per_shard=2)``."""
     if name.endswith((":ep", ":ep-hier")):
         raise NotImplementedError(
             f"preset {name!r} with expert parallelism: the all-to-all EP layers "

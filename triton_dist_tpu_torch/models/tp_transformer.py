@@ -12,9 +12,10 @@ head vocab-parallel, norms and embedding replicated.
 
 The forward is the per-rank Megatron body (``:190-238``): the residual
 stream is token-sharded ``[m_loc, H]``; the column projections (QKV,
-gate/up, LM head) go through ``ag_gemm`` (K6; K1 at world 1) and the row
-projections (attention out, MLP down) through ``gemm_rs`` (K7; K1 at world
-1); attention runs on the rank's local heads over the whole sequence.
+gate/up, LM head) go through ``ag_gemm`` (K6, or K15 on a ring; K1 at
+world 1) and the row projections (attention out, MLP down) through
+``gemm_rs`` (K7, or K16/K17 on a ring; K1 at world 1), with the config's
+``ag_config``/``rs_config`` (``:183``, ``:188``); attention runs on the rank's local heads over the whole sequence.
 RMSNorm, RoPE and the prefill attention are plain PyTorch, as the JAX
 package leaves them to XLA. With grad mode on (training; serving runs in
 inference mode) the projections go through the differentiable ops of
@@ -42,8 +43,8 @@ import torch
 
 from triton_dist_tpu_torch.config import resolve_device
 from triton_dist_tpu_torch.ops import grads
-from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
-from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
+from triton_dist_tpu_torch.ops.allgather_gemm import AGGemmConfig, ag_gemm
+from triton_dist_tpu_torch.ops.gemm_reduce_scatter import GemmRSConfig, gemm_rs
 from triton_dist_tpu_torch.ops.group_gemm import check_config
 from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
 from triton_dist_tpu_torch.ops.moe_utils import select_experts
@@ -52,7 +53,9 @@ from triton_dist_tpu_torch.utils import axis_index, axis_size
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """LLaMA-class decoder config (``dtype`` is a torch dtype)."""
+    """LLaMA-class decoder config (``dtype`` is a torch dtype). ``ag_config``
+    and ``rs_config`` (≙ ``:60-61``) reach every column and row projection,
+    forward and backward (None: the defaults)."""
 
     vocab: int = 256
     hidden: int = 128
@@ -66,6 +69,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
+    ag_config: AGGemmConfig | None = None
+    rs_config: GemmRSConfig | None = None
 
     @property
     def q_dim(self) -> int:
@@ -283,14 +288,18 @@ class TPTransformer:
     ctx: object = None
 
     def _col(self, x, w):
+        c = self.cfg
         if torch.is_grad_enabled():
-            return grads.ag_gemm_grad(x, w, ctx=self.ctx)
-        return ag_gemm(x, w, ctx=self.ctx)
+            return grads.ag_gemm_grad(x, w, ctx=self.ctx, ag_config=c.ag_config,
+                                      rs_config=c.rs_config)
+        return ag_gemm(x, w, ctx=self.ctx, config=c.ag_config)
 
     def _row(self, x, w):
+        c = self.cfg
         if torch.is_grad_enabled():
-            return grads.gemm_rs_grad(x, w, ctx=self.ctx)
-        return gemm_rs(x, w, ctx=self.ctx)
+            return grads.gemm_rs_grad(x, w, ctx=self.ctx, rs_config=c.rs_config,
+                                      ag_config=c.ag_config)
+        return gemm_rs(x, w, ctx=self.ctx, config=c.rs_config)
 
     def block(self, x: torch.Tensor, p: dict) -> torch.Tensor:
         c = self.cfg

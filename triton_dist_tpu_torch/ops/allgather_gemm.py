@@ -1,7 +1,9 @@
 """Column-parallel projection ``all_gather(a) @ b`` (≙
 ``triton_dist_tpu/ops/allgather_gemm.py::ag_gemm``; its fused path
-``_ag_gemm_fused`` at ``:341`` launches ``_ag_gemm_kernel`` at ``:69``) →
-K6 at world > 1, K1 (``gemm_only``) at world 1.
+``_ag_gemm_fused`` at ``:341`` launches ``_ag_gemm_kernel`` at ``:69``, or
+``_ag_gemm_chunked_kernel`` at ``:109`` when ``AGGemmConfig.chunks_per_shard
+> 1`` splits a shard into spans, ``:443-470``) → K6 on a full mesh with one
+span, K15 on a ring or with spans, K1 (``gemm_only``) at world 1.
 
 The TPU kernel rides a ring: step s forwards shard ``me - s`` to the right
 neighbour while the MXU multiplies it, so compute order equals arrival
@@ -20,12 +22,21 @@ copy engines and a persistent consumer waits per shard:
   arrival order ``me, me-1, ...`` and waits (bounded) for a shard's flag
   before its first tile of it.
 
-``chunks_per_shard > 1`` (the chunked ring, ``:109``) is a later slice.
+On a context whose ranks do not form a full mesh (``ctx.full_mesh``
+False), or with more than one span, the shards ride the ring as on the
+TPU: K15 (``csrc/ring.cu``), one persistent kernel a rank that walks steps
+s = 0 .. n-1 over shard ``me - s``, forwards each span to the right
+neighbour before its GEMM tiles and waits (bounded) for the left
+neighbour's span of the step before. With one span it is
+``_ag_gemm_kernel``'s own ring schedule. The spans are
+``ops/common.py::ring_spans``, the JAX package's. On the CPU the ring runs
+its plain version over the rank threads, span by span in arrival order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -35,11 +46,26 @@ from triton_dist_tpu_torch.ops.common import (
     gemm_only,
     launch_barrier,
     max_consumer_blocks,
+    ring_launch,
+    ring_spans,
     stream_ptr,
     symmetric_flags,
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, _matmul_plain, check_operands
 from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+
+
+@dataclasses.dataclass(frozen=True)
+class AGGemmConfig:
+    """Tunables (≙ ``AGGemmConfig``, ``:50-66``, field for field). The CUDA
+    kernels fix their own tiles, so ``block_n``/``block_k`` are carried for
+    the mapping only; ``block_m`` quantizes the spans as in the JAX package;
+    ``chunks_per_shard`` > 1 splits each ring hop's shard into spans."""
+
+    block_m: int = 512
+    block_n: int = 2048
+    block_k: int = 512
+    chunks_per_shard: int = 1
 
 
 def _ag_gemm_xla(a, b, ctx, gather_output, out_dtype):
@@ -54,32 +80,55 @@ def _ag_gemm_xla(a, b, ctx, gather_output, out_dtype):
 _ag_gemm_xla.calls = 0
 
 
+def _ag_gemm_ring_plain(a, b, ctx, gather_output, out_dtype, spans):
+    """Plain version of K15: gather on the host rendezvous, then each
+    shard's spans in the ring's arrival order ``me, me-1, ...``, f32
+    products cast once."""
+    count_call(_ag_gemm_ring_plain)
+    n, me = ctx.world, ctx.rank
+    m_loc = a.shape[0]
+    ag = ctx.all_gather(a, 0)
+    out = torch.empty((n * m_loc, b.shape[1]), dtype=out_dtype, device=a.device)
+    bf = b.float()
+    for s in range(n):
+        c = (me - s) % n
+        for off, rows in spans:
+            lo = c * m_loc + off
+            out[lo:lo + rows] = (ag[lo:lo + rows].float() @ bf).to(out_dtype)
+    return (out, ag) if gather_output else out
+
+
+_ag_gemm_ring_plain.calls = 0
+
+
 def ag_gemm(
     a: torch.Tensor,
     b: torch.Tensor,
     *,
     ctx=None,
+    config: AGGemmConfig | None = None,
     gather_output: bool = False,
     out_dtype: torch.dtype | None = None,
-    chunks_per_shard: int = 1,
 ):
     """a ``[m_loc, K]`` token shard, b ``[K, n_loc]`` column shard →
     ``[world * m_loc, n_loc]`` (plus the gathered ``[world * m_loc, K]`` A
     if `gather_output`). Call inside ``ctx.run``; ``ctx=None`` is world 1,
     where the gather is the identity and this is :func:`gemm_only`."""
+    cfg = config or AGGemmConfig()
     out_dtype = out_dtype or a.dtype
-    if chunks_per_shard != 1:
-        raise NotImplementedError(
-            "ag_gemm chunks_per_shard > 1 (the chunked ring, "
-            "allgather_gemm.py:109) is a later slice (ROADMAP B10)"
-        )
     if axis_size(ctx) == 1:
         out = gemm_only(a, b, out_dtype=out_dtype)
         return (out, a) if gather_output else out
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"ag_gemm shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    spans = ring_spans(a.shape[0], cfg.chunks_per_shard, cfg.block_m)
+    ring = len(spans) > 1 or not ctx.full_mesh
     if a.device.type == "cpu":
+        if ring:
+            return _ag_gemm_ring_plain(a, b, ctx, gather_output, out_dtype, spans)
         return _ag_gemm_xla(a, b, ctx, gather_output, out_dtype)
+    if ring:
+        return _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans)
     return _ag_gemm_fused(a, b, ctx, gather_output, out_dtype)
 
 
@@ -139,3 +188,32 @@ def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype):
         # after the consumer has seen every shard land
         return out, gathered.clone()
     return out
+
+
+def _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans):
+    """K15 (``csrc/ring.cu``): every allocation, then the ranks meet, then
+    only the launch, then they meet again."""
+    check_operands(a, b, out_dtype, "ag_gemm")
+    n, me = ctx.world, ctx.rank
+    m_loc, k = a.shape
+    n_loc = b.shape[1]
+    ws = ctx.symmetric("ag_gemm_ring.ws", n * m_loc * k * a.element_size())
+    out = torch.empty((n * m_loc, n_loc), dtype=out_dtype, device=a.device)
+    ring = ring_launch(ctx, "ag_gemm_ring", spans)
+    ctx.rendezvous()
+    rc = ring.lib.tdt_ring_ag_gemm(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.peer_addr(me), ws.peer_addr(ring.right),
+        m_loc, n_loc, k, DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], ring.spans,
+        ring.n_spans, n, me, *ring.flags, ring.launch.epoch, max_consumer_blocks(ctx),
+        *ring.launch.wait, stream_ptr(torch.cuda.current_stream()),
+    )
+    _build.check(ring.lib, rc, "ag_gemm ring")
+    count_launch(_ag_gemm_ring)
+    ctx.rendezvous()  # every rank's kernel is issued before any rank goes on
+    if gather_output:
+        # the workspace is the next call's landing buffer: hand out a copy
+        return out, ws.view(me, (n * m_loc, k), a.dtype).clone()
+    return out
+
+
+_ag_gemm_ring.launches = 0

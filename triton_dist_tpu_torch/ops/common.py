@@ -2,8 +2,11 @@
 ``triton_dist_tpu/ops/common.py``): the world-1 GEMM (``gemm_only``, whose
 Pallas body is ``gemm_add_pipeline`` at ``:468`` launched as
 ``gemm_only._kernel`` at ``:523``), the launch wrapper every distributed
-kernel goes through (≙ ``dist_pallas_call``, ``:72``), and the standalone
-device barrier ``barrier_all_op`` (``:913``, kernel ``:918``) → K4.
+kernel goes through (≙ ``dist_pallas_call``, ``:72``), the standalone
+device barrier ``barrier_all_op`` (``:913``, kernel ``:918``) → K4, and
+what the ring kernels K15–K18 share: the span schedule (``chunk_schedule``,
+``:283``), the per-launch flag sets of ``csrc/ring.cu`` and the ring's
+hop-order sum that their plain versions follow.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from triton_dist_tpu_torch import _build
 from triton_dist_tpu_torch.ops.gemm import matmul
 from triton_dist_tpu_torch.resilience import watchdog
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
+from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, pick_block
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _WAIT = [_P, _LL, _I, _P]  # diag, timeout ns, family code, stream
@@ -39,9 +43,24 @@ DIST_PROTOTYPES = {
 }
 
 
+_RING = [_P, _P, _P, _P, _P]  # entry wait, entry signal, flags mine, flags right, counters
+RING_PROTOTYPES = {
+    "tdt_ring_ag_gemm": [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I), _I, _I, _I] + _RING
+    + [_I, _I] + _WAIT,
+    "tdt_ring_gemm_rs": [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I), _I, _I, _I] + _RING
+    + [_I, _I] + _WAIT,
+    "tdt_ring_reduce_scatter": [_P] * 4 + [_LL, _I, _I, _I] + _RING + [_I, _I] + _WAIT,
+}
+
+
 def dist_lib() -> ctypes.CDLL:
     """``csrc/dist.cu``, built at first use."""
     return _build.library("dist", DIST_PROTOTYPES)
+
+
+def ring_lib() -> ctypes.CDLL:
+    """``csrc/ring.cu``, built at first use."""
+    return _build.library("ring", RING_PROTOTYPES)
 
 
 def gemm_only(
@@ -162,3 +181,94 @@ def create_stream(device: torch.device, high_priority: bool):
         _build.check(lib, lib.tdt_stream_create(int(high_priority), ctypes.byref(ptr)),
                      "stream create")
     return torch.cuda.ExternalStream(ptr.value, device=device)
+
+
+# ------------------------------------------------------- the ring family ----
+
+def chunk_schedule(rows: int, chunks: int, quantum: int = 1) -> tuple[tuple[int, int], ...]:
+    """Static ``(offset, rows)`` spans splitting a shard's `rows` into
+    `chunks` contiguous near-equal chunks (≙ ``chunk_schedule``, ``:283``,
+    the same spans for the same arguments): every span boundary is a
+    multiple of `quantum`, the last span takes the sub-quantum tail, and a
+    request for more chunks than quanta clamps."""
+    if rows < 1:
+        raise ValueError(f"chunk_schedule: rows must be >= 1, got {rows}")
+    if chunks < 1:
+        raise ValueError(f"chunk_schedule: chunks must be >= 1, got {chunks}")
+    quantum = max(1, min(int(quantum), rows))
+    units = rows // quantum
+    chunks = min(chunks, max(1, units))
+    base, extra = divmod(units, chunks)
+    spans, off = [], 0
+    for j in range(chunks):
+        sz = (base + (1 if j < extra else 0)) * quantum
+        if j == chunks - 1:
+            sz += rows - units * quantum
+        spans.append((off, sz))
+        off += sz
+    return tuple(spans)
+
+
+def ring_spans(m_loc: int, chunks_per_shard: int, block_m: int) -> tuple[tuple[int, int], ...]:
+    """The spans of one ring hop's `m_loc` rows, quantized as the JAX
+    callers quantize them (``ops/allgather_gemm.py:443-451``,
+    ``ops/gemm_reduce_scatter.py:431``, ``ops/reduce_scatter.py:381-384``):
+    to the row tile a chunk of ``m_loc / chunks`` rows would pick."""
+    if block_m < 1:
+        raise ValueError(f"block_m={block_m}: the ring kernels need a row tile >= 1 "
+                         f"(block_m=0 is the world-1 XLA sentinel)")
+    chunks = max(1, int(chunks_per_shard))
+    spans = chunk_schedule(
+        m_loc, chunks, quantum=pick_block(m_loc, min(block_m, max(1, m_loc // chunks))))
+    if len(spans) > MAX_SPANS:
+        raise ValueError(f"chunks_per_shard={chunks_per_shard}: the ring kernels take at "
+                         f"most {MAX_SPANS} spans a shard")
+    return spans
+
+
+def ring_order_sum(parts, me: int, world: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """The ring's reduction of this rank's chunk, in its own hop order:
+    rank me+1 starts it (its part rounded to `out_dtype`), then each next
+    rank adds its part in f32 and rounds again (≙ ``gemm_add_pipeline``'s
+    epilogue at every hop, ``:468``), rank `me` last. ``parts[r]`` is rank
+    r's f32 part."""
+    acc = parts[(me + 1) % world].to(out_dtype)
+    for s in range(1, world):
+        acc = (parts[(me + 1 + s) % world].float() + acc.float()).to(out_dtype)
+    return acc
+
+
+@dataclasses.dataclass(frozen=True)
+class RingLaunch:
+    """One rank's side of one launch of a ring kernel (``csrc/ring.cu``):
+    the launch (epoch, bounded-wait arguments), the pointers of its flag
+    sets — this rank's slot of its right neighbour's arrival, its left
+    neighbour's slot of its own, its (step, chunk) arrival flags, its right
+    neighbour's, its completion counters — and the spans as a C array."""
+
+    launch: Launch
+    lib: ctypes.CDLL
+    left: int
+    right: int
+    flags: tuple
+    spans: ctypes.Array
+    n_spans: int
+
+
+def ring_launch(ctx, family: str, spans) -> RingLaunch:
+    """Open one launch of the ring kernel `family` (inside ``ctx.run``):
+    its flag sets are symmetric and allocated once (fixed sizes), so this
+    allocates nothing after the first call."""
+    n, me = ctx.world, ctx.rank
+    left, right = (me - 1) % n, (me + 1) % n
+    entry = symmetric_flags(ctx, f"{family}.entry")
+    slots = 4 * (n - 1) * MAX_SPANS
+    arrive = ctx.symmetric(f"{family}.flags", slots)
+    count = ctx.symmetric(f"{family}.count", slots)
+    flat = [v for span in spans for v in span]
+    return RingLaunch(
+        dist_launch(ctx, family), ring_lib(), left, right,
+        (entry.peer_addr(me, 4 * right), entry.peer_addr(left, 4 * me),
+         arrive.peer_addr(me), arrive.peer_addr(right), count.peer_addr(me)),
+        (ctypes.c_int * len(flat))(*flat), len(spans),
+    )

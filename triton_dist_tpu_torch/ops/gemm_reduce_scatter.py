@@ -1,7 +1,9 @@
 """Row-parallel projection ``psum_scatter(a @ b)`` (≙
-``triton_dist_tpu/ops/gemm_reduce_scatter.py::gemm_rs``; its ``scatter``
-method ``_gemm_rs_scatter_kernel`` at ``:99``, dispatched at ``:328``) →
-K7 at world > 1, K1 (``gemm_only``) at world 1.
+``triton_dist_tpu/ops/gemm_reduce_scatter.py::gemm_rs``, dispatched at
+``:417-445``): the ``scatter`` method ``_gemm_rs_scatter_kernel`` (``:99``)
+→ K7, the ``ring`` method ``_gemm_rs_ring_kernel`` (``:147``) → K16 and,
+with ``GemmRSConfig.chunks_per_shard > 1``, ``_gemm_rs_ring_chunked_kernel``
+(``:187``) → K17; K1 (``gemm_only``) at world 1.
 
 The TPU kernel GEMMs the chunk for peer ``me+d`` (d = 1 .. n-1, own chunk
 last) into a two-slot send buffer, pushes it into the peer's landing slot
@@ -21,12 +23,21 @@ port keeps that schedule:
   chunk's k loop, waits (bounded) for the n-1 landing flags, and adds the
   landed chunks in its f32 epilogue.
 
-``ring`` and ``ring_chunked`` (``:147``, ``:187``) are a later slice.
+The ring (``csrc/ring.cu``, chosen by ``auto`` off a full mesh): one
+persistent kernel a rank. At step s it GEMMs row chunk ``me-1-s``, adds the
+partial that landed from the left in its f32 epilogue, rounds once to the
+output type and stores straight into the right neighbour's landing slot s;
+the last step's chunk is its own, fully reduced. K17 does the same per
+span, with a flag per (step, span); one span is K16. So the ring rounds at
+every hop (n - 1 times) where ``scatter`` rounds once: the plain version
+:func:`_gemm_rs_ring_plain` follows the ring's hop order and rounding, and
+runs on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -36,12 +47,28 @@ from triton_dist_tpu_torch.ops.common import (
     gemm_only,
     launch_barrier,
     max_consumer_blocks,
+    ring_launch,
+    ring_order_sum,
+    ring_spans,
     stream_ptr,
     symmetric_flags,
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, check_operands, matmul, pointer_array
 from triton_dist_tpu_torch.ops.reduce_scatter import get_auto_reduce_scatter_method
 from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmRSConfig:
+    """Tunables (≙ ``GemmRSConfig``, ``:74-88``, field for field): the CUDA
+    kernels fix their own tiles, ``block_m`` quantizes the spans, and
+    ``chunks_per_shard`` > 1 splits each ring hop into spans (ring method
+    only, as in the JAX package)."""
+
+    block_m: int = 256
+    block_n: int = 1024
+    block_k: int = 512
+    chunks_per_shard: int = 1
 
 
 def _gemm_rs_xla(a, b, ctx, out_dtype):
@@ -54,12 +81,30 @@ def _gemm_rs_xla(a, b, ctx, out_dtype):
 _gemm_rs_xla.calls = 0
 
 
+def _gemm_rs_ring_plain(a, b, ctx, out_dtype, spans):
+    """Plain version of K16/K17: every rank's f32 product, exchanged on
+    the host rendezvous, then this rank's chunk reduced span by span in the
+    ring's hop order with a rounding to `out_dtype` at every hop."""
+    count_call(_gemm_rs_ring_plain)
+    n, me = ctx.world, ctx.rank
+    m_loc = a.shape[0] // n
+    parts = ctx.all_gather((a.float() @ b.float())[None], 0)[:, me * m_loc:(me + 1) * m_loc]
+    out = torch.empty((m_loc, b.shape[1]), dtype=out_dtype, device=a.device)
+    for off, rows in spans:
+        out[off:off + rows] = ring_order_sum(parts[:, off:off + rows], me, n, out_dtype)
+    return out
+
+
+_gemm_rs_ring_plain.calls = 0
+
+
 def gemm_rs(
     a: torch.Tensor,
     b: torch.Tensor,
     *,
     ctx=None,
     method: str = "auto",
+    config: GemmRSConfig | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """a ``[M, k_loc]``, b ``[k_loc, N]`` → this rank's ``[M / world, N]``
@@ -80,16 +125,19 @@ def gemm_rs(
             n, ctx.full_mesh,
         )
     method = {"scatter_reduce": "scatter"}.get(method, method)
-    if method in ("ring", "ring_chunked"):
-        raise NotImplementedError(
-            f"gemm_rs method {method!r}: the fused ring GEMM-RS is a later "
-            f"slice (ROADMAP B11); use 'scatter'"
-        )
-    if method != "scatter":
+    if method not in ("scatter", "ring"):
         raise ValueError(f"unknown gemm_rs method: {method!r} (want scatter|ring)")
+    if method == "scatter":
+        if a.device.type == "cpu":
+            return _gemm_rs_xla(a, b, ctx, out_dtype)
+        return _gemm_rs_scatter(a, b, ctx, out_dtype)
+    cfg = config or GemmRSConfig()
+    spans = ring_spans(a.shape[0] // n, cfg.chunks_per_shard, cfg.block_m)
     if a.device.type == "cpu":
-        return _gemm_rs_xla(a, b, ctx, out_dtype)
-    return _gemm_rs_scatter(a, b, ctx, out_dtype)
+        return _gemm_rs_ring_plain(a, b, ctx, out_dtype, spans)
+    if len(spans) == 1:
+        return _gemm_rs_ring(a, b, ctx, out_dtype)
+    return _gemm_rs_ring_chunked(a, b, ctx, out_dtype, spans)
 
 
 gemm_rs.launches = 0
@@ -144,3 +192,49 @@ def _gemm_rs_scatter(a, b, ctx, out_dtype):
     # the next call's GEMMs overwrite the send slots these puts read
     comp.wait_stream(comm)
     return out
+
+
+def _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans):
+    """K16/K17 (``csrc/ring.cu``): every allocation, then the ranks meet,
+    then only the launch, then they meet again."""
+    check_operands(a, b, out_dtype, "gemm_rs")
+    n, me = ctx.world, ctx.rank
+    m_tot, k_loc = a.shape
+    n_dim = b.shape[1]
+    m_loc = m_tot // n
+    elt = torch.empty((), dtype=out_dtype).element_size()
+    recv = ctx.symmetric("gemm_rs_ring.recv", (n - 1) * m_loc * n_dim * elt)
+    out = torch.empty((m_loc, n_dim), dtype=out_dtype, device=a.device)
+    ring = ring_launch(ctx, "gemm_rs_ring", spans)
+    ctx.rendezvous()
+    rc = ring.lib.tdt_ring_gemm_rs(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), recv.peer_addr(me),
+        recv.peer_addr(ring.right), m_loc, n_dim, k_loc, DTYPE_CODE[a.dtype],
+        DTYPE_CODE[out_dtype], ring.spans, ring.n_spans, n, me, *ring.flags,
+        ring.launch.epoch, max_consumer_blocks(ctx), *ring.launch.wait,
+        stream_ptr(torch.cuda.current_stream()),
+    )
+    _build.check(ring.lib, rc, "gemm_rs ring")
+    return out
+
+
+def _gemm_rs_ring(a, b, ctx, out_dtype):
+    """K16: the ring with one span a hop."""
+    out = _ring_gemm_rs_launch(a, b, ctx, out_dtype, ((0, a.shape[0] // ctx.world),))
+    count_launch(_gemm_rs_ring)
+    ctx.rendezvous()  # every rank's kernel is issued before any rank goes on
+    return out
+
+
+_gemm_rs_ring.launches = 0
+
+
+def _gemm_rs_ring_chunked(a, b, ctx, out_dtype, spans):
+    """K17: the ring with a flag per (step, span)."""
+    out = _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans)
+    count_launch(_gemm_rs_ring_chunked)
+    ctx.rendezvous()
+    return out
+
+
+_gemm_rs_ring_chunked.launches = 0

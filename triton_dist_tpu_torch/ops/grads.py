@@ -44,48 +44,54 @@ def _t(w: torch.Tensor) -> torch.Tensor:
 
 class _AGGemm(torch.autograd.Function):
     @staticmethod
-    def forward(fc, a, b, ctx):
-        out, a_full = ag_gemm(a, b, ctx=ctx, gather_output=True)
+    def forward(fc, a, b, ctx, ag_config, rs_config):
+        out, a_full = ag_gemm(a, b, ctx=ctx, config=ag_config, gather_output=True)
         fc.save_for_backward(a_full, b)
-        fc.dist = ctx
+        fc.dist, fc.rs_config = ctx, rs_config
         return out
 
     @staticmethod
     def backward(fc, dc):
         a_full, b = fc.saved_tensors
         dc = dc.contiguous()
-        da = gemm_rs(dc, _t(b), ctx=fc.dist, out_dtype=dc.dtype)
+        da = gemm_rs(dc, _t(b), ctx=fc.dist, config=fc.rs_config, out_dtype=dc.dtype)
         db = torch.matmul(a_full.t(), dc).to(b.dtype)
-        return da, db, None
+        return da, db, None, None, None
 
 
-def ag_gemm_grad(a: torch.Tensor, b: torch.Tensor, *, ctx=None) -> torch.Tensor:
+def ag_gemm_grad(a: torch.Tensor, b: torch.Tensor, *, ctx=None, ag_config=None,
+                 rs_config=None) -> torch.Tensor:
     """Differentiable ``all_gather(a) @ b`` (≙ ``ag_gemm_grad``, ``:38``):
-    forward K6 (K1 at world 1), backward ``gemm_rs`` (K7; K1 at world 1)."""
-    return _AGGemm.apply(a, b, ctx)
+    forward ``ag_gemm`` with `ag_config` (K6 on a full mesh, K15 on a ring
+    or with spans; K1 at world 1), backward ``gemm_rs`` with `rs_config`
+    (K7, or K16/K17 on a ring; K1 at world 1)."""
+    return _AGGemm.apply(a, b, ctx, ag_config, rs_config)
 
 
 class _GemmRS(torch.autograd.Function):
     @staticmethod
-    def forward(fc, a, b, ctx):
+    def forward(fc, a, b, ctx, rs_config, ag_config):
         fc.save_for_backward(a, b)
-        fc.dist = ctx
-        return gemm_rs(a, b, ctx=ctx)
+        fc.dist, fc.ag_config = ctx, ag_config
+        return gemm_rs(a, b, ctx=ctx, config=rs_config)
 
     @staticmethod
     def backward(fc, dc):
         a, b = fc.saved_tensors
         # world 1: dc_full is dc and the product is K1's
-        da, dc_full = ag_gemm(dc.contiguous(), _t(b), ctx=fc.dist, gather_output=True,
-                              out_dtype=a.dtype)
+        da, dc_full = ag_gemm(dc.contiguous(), _t(b), ctx=fc.dist, config=fc.ag_config,
+                              gather_output=True, out_dtype=a.dtype)
         db = torch.matmul(a.t(), dc_full).to(b.dtype)
-        return da, db, None
+        return da, db, None, None, None
 
 
-def gemm_rs_grad(a: torch.Tensor, b: torch.Tensor, *, ctx=None) -> torch.Tensor:
+def gemm_rs_grad(a: torch.Tensor, b: torch.Tensor, *, ctx=None, rs_config=None,
+                 ag_config=None) -> torch.Tensor:
     """Differentiable ``psum_scatter(a @ b)`` (≙ ``gemm_rs_grad``, ``:73``):
-    forward K7 (K1 at world 1), backward ``ag_gemm`` (K6; K1 at world 1)."""
-    return _GemmRS.apply(a, b, ctx)
+    forward ``gemm_rs`` with `rs_config` (K7, or K16/K17 on a ring; K1 at
+    world 1), backward ``ag_gemm`` with `ag_config` (K6, or K15; K1 at
+    world 1)."""
+    return _GemmRS.apply(a, b, ctx, rs_config, ag_config)
 
 
 def _group_gemm_bwd(a_sorted, b, expert_ids, g, cfg):
@@ -198,7 +204,8 @@ def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_con
     and the two transposed grouped GEMMs on K8 (f32 out), ``dw_up`` and
     ``dw_down`` on K11, the GELU's VJP and the token scatter-add plain,
     ``d topk_weights`` through ``psum_scatter`` and ``dx`` through
-    ``reduce_scatter`` (K12). ``topk_ids`` gets no gradient."""
+    ``reduce_scatter`` (K12; K18 off a full mesh). ``topk_ids`` gets no
+    gradient."""
     return _TPMoE.apply(x, w_up, w_down, topk_ids, topk_weights, ctx,
                         check_config(gg_config))
 

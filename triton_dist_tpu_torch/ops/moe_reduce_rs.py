@@ -64,6 +64,8 @@ def moe_reduce_rs(
     ctx=None,
     n_tokens: int,
     config=None,
+    rs_config=None,
+    rs_method: str = "auto",
     out_dtype: torch.dtype | None = None,
     act_fn=None,
 ) -> torch.Tensor:
@@ -71,12 +73,14 @@ def moe_reduce_rs(
     inside ``ctx.run``). h_sorted ``[t_pad, f_loc]`` aligned rows (with
     ``act_fn``, pre-activation: the activation rides the grouped GEMM's A
     tiles), w_down ``[E, f_loc, H]``, topk_weights ``[n_tokens, topk]`` of
-    the gathered tokens → this rank's ``[n_tokens / world, H]``."""
+    the gathered tokens → this rank's ``[n_tokens / world, H]``; the
+    reduce-scatter takes `rs_method` and `rs_config`
+    (``ops/reduce_scatter.py``) as at ``:104``."""
     out_dtype = out_dtype or h_sorted.dtype
     y_sorted = group_gemm(h_sorted, w_down, alignment.expert_ids, config=config,
                           out_dtype=torch.float32, act_fn=act_fn)
     partial = scatter_add_unsorted(y_sorted, alignment, topk_weights, n_tokens)
-    return reduce_scatter(partial.to(out_dtype), ctx=ctx)
+    return reduce_scatter(partial.to(out_dtype), ctx=ctx, method=rs_method, config=rs_config)
 
 
 def _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out, out_dtype):

@@ -1,9 +1,11 @@
-"""K12 · the standalone reduce-scatter (≙
-``triton_dist_tpu/ops/reduce_scatter.py::reduce_scatter``, ``:280``; its
-``scatter_reduce`` method runs ``_scatter_reduce_kernel`` at ``:227``,
-launched at ``:410``), with the method choice
-(``get_auto_reduce_scatter_method``, ``:68``) and the plain version
-(``_reduce_scatter_xla``, ``:45``).
+"""K12 and K18 · the standalone reduce-scatter (≙
+``triton_dist_tpu/ops/reduce_scatter.py::reduce_scatter``, ``:280``): its
+``scatter_reduce`` method runs ``_scatter_reduce_kernel`` (``:227``,
+launched at ``:410``) → K12, its ``ring`` method ``_ring_rs_kernel``
+(``:102``, the branch at ``:392-395``) → K18; with the method choice
+(``get_auto_reduce_scatter_method``, ``:68``), the config
+(``ReduceScatterConfig``, ``:52``) and the plain versions
+(``_reduce_scatter_xla``, ``:45``, and the ring's hop-order twin).
 
 The TPU kernel pushes chunk ``me+d`` of this rank's partial straight into
 landing slot ``d-1`` of rank ``me+d``, waits for its n-1 arrivals and sums
@@ -19,12 +21,19 @@ and the world-4 rules of the other fused kernels (``csrc/dist.cu``):
   ranks) - 2 blocks that waits (bounded) for the n-1 flags and sums the
   own chunk, then slots 0 .. n-2, in f32, cast once.
 
-The rings (``:102``, ``:152``) are not ported (ROADMAP B12, rings).
+The ring K18 (``csrc/ring.cu``, chosen by ``auto`` off a full mesh) is
+one persistent kernel a rank: step 0 sends chunk ``me-1`` into the right
+neighbour's landing slot 0 as it is; step s adds chunk ``me-1-s`` to the
+partial that landed from the left in f32, rounds to the dtype and stores
+into the right neighbour's slot s; the last step's sum is this rank's
+chunk. ``chunks_per_shard > 1`` (``_ring_rs_chunked_kernel``, ``:152``) is
+not ported yet and raises (ROADMAP B12 chunked).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -33,11 +42,27 @@ from triton_dist_tpu_torch.ops.common import (
     dist_launch,
     launch_barrier,
     max_consumer_blocks,
+    ring_launch,
+    ring_order_sum,
+    ring_spans,
     stream_ptr,
     symmetric_flags,
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE
 from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceScatterConfig:
+    """Tunables (≙ ``ReduceScatterConfig``, ``:52``, field for field):
+    ``method`` pins the kernel family when the call asks for "auto";
+    ``block_m`` quantizes the spans; ``chunks_per_shard`` > 1 is the
+    chunked ring (not ported yet)."""
+
+    block_m: int = 256
+    block_n: int = 1024
+    method: str | None = None
+    chunks_per_shard: int = 1
 
 
 def _reduce_scatter_xla(x: torch.Tensor, ctx) -> torch.Tensor:
@@ -51,31 +76,55 @@ def _reduce_scatter_xla(x: torch.Tensor, ctx) -> torch.Tensor:
 _reduce_scatter_xla.calls = 0
 
 
+def _reduce_scatter_ring_plain(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Plain version of K18: every rank's partial, exchanged on the host
+    rendezvous, then this rank's chunk summed in the ring's hop order with
+    a rounding to the dtype at every hop."""
+    count_call(_reduce_scatter_ring_plain)
+    n, me = ctx.world, ctx.rank
+    m_loc = x.shape[0] // n
+    parts = ctx.all_gather(x[None], 0)[:, me * m_loc:(me + 1) * m_loc]
+    return ring_order_sum(parts, me, n, x.dtype)
+
+
+_reduce_scatter_ring_plain.calls = 0
+
+
 def get_auto_reduce_scatter_method(chunk_bytes: int, n_pes: int, full_mesh: bool = True) -> str:
     """Topology-based choice (≙ ``get_auto_reduce_scatter_method``): on a
     full mesh each chunk goes straight to its owner ("scatter_reduce",
-    which ``gemm_rs`` calls "scatter"); without one a ring would (not
-    ported). No TPU crossover is carried over."""
+    which ``gemm_rs`` calls "scatter"); without one it rides the ring
+    ("ring"). No TPU crossover is carried over."""
     del chunk_bytes, n_pes
     return "scatter_reduce" if full_mesh else "ring"
 
 
-def reduce_scatter(x: torch.Tensor, *, ctx=None, method: str = "auto") -> torch.Tensor:
+def reduce_scatter(
+    x: torch.Tensor, *, ctx=None, method: str = "auto",
+    config: ReduceScatterConfig | None = None,
+) -> torch.Tensor:
     """x ``[m_tot, N]``, this rank's full partial array → this rank's
     ``[m_tot / world, N]`` row slice of the sum over ranks (call inside
     ``ctx.run``). ``ctx=None`` is world 1, where it is the identity."""
+    cfg = config or ReduceScatterConfig()
     n = axis_size(ctx)
     if n == 1:
         return x
     if x.ndim != 2 or x.shape[0] % n:
         raise ValueError(f"reduce_scatter: {tuple(x.shape)} rows must divide over {n} ranks")
+    if cfg.method is not None and method == "auto":
+        method = cfg.method
     if method == "auto":
         method = get_auto_reduce_scatter_method(
             x.shape[0] // n * x.shape[1] * x.element_size(), n, ctx.full_mesh)
-    if method in ("ring", "ring_chunked"):
-        raise NotImplementedError(
-            f"reduce_scatter method {method!r}: the ring kernels are not ported yet "
-            f"(ROADMAP B12, rings); use 'scatter_reduce'")
+    if method == "ring":
+        if len(ring_spans(x.shape[0] // n, cfg.chunks_per_shard, cfg.block_m)) > 1:
+            raise NotImplementedError(
+                "reduce_scatter ring with chunks_per_shard > 1: _ring_rs_chunked_kernel "
+                "(reduce_scatter.py:152) is not ported yet (ROADMAP B12 chunked)")
+        if x.device.type == "cpu":
+            return _reduce_scatter_ring_plain(x, ctx)
+        return _ring_reduce_scatter(x, ctx)
     if method != "scatter_reduce":
         raise ValueError(f"unknown reduce_scatter method: {method!r}")
     if x.device.type == "cpu":
@@ -121,3 +170,29 @@ def _scatter_reduce(x, ctx):
     _build.check(launch.lib, rc, "reduce_scatter")
     count_launch(reduce_scatter)
     return out
+
+
+def _ring_reduce_scatter(x, ctx):
+    """K18 (``csrc/ring.cu``): every allocation, then the ranks meet, then
+    only the launch, then they meet again."""
+    if x.dtype not in DTYPE_CODE:
+        raise TypeError(f"reduce_scatter takes bf16 or f32 on the card, not {x.dtype}")
+    n, me = ctx.world, ctx.rank
+    x = x.contiguous()
+    m_loc, n_dim = x.shape[0] // n, x.shape[1]
+    recv = ctx.symmetric("reduce_scatter_ring.recv", (n - 1) * m_loc * n_dim * x.element_size())
+    out = torch.empty((m_loc, n_dim), dtype=x.dtype, device=x.device)
+    ring = ring_launch(ctx, "reduce_scatter_ring", ((0, m_loc),))
+    ctx.rendezvous()
+    rc = ring.lib.tdt_ring_reduce_scatter(
+        x.data_ptr(), out.data_ptr(), recv.peer_addr(me), recv.peer_addr(ring.right),
+        m_loc * n_dim, DTYPE_CODE[x.dtype], n, me, *ring.flags, ring.launch.epoch,
+        max_consumer_blocks(ctx), *ring.launch.wait, stream_ptr(torch.cuda.current_stream()),
+    )
+    _build.check(ring.lib, rc, "reduce_scatter ring")
+    count_launch(_ring_reduce_scatter)
+    ctx.rendezvous()  # every rank's kernel is issued before any rank goes on
+    return out
+
+
+_ring_reduce_scatter.launches = 0
