@@ -90,11 +90,28 @@ Phases, each printed as a JSON line, each fatal on failure:
    the world-4 CPU twins on a ring;
 23. ``train_ring``: one f32 train step at world 4 on a ring, Mixtral widths
    cut to 2 layers (K15, K16, K18), loss, gradients and updated
-   parameters against the plain path differentiated by PyTorch.
+   parameters against the plain path differentiated by PyTorch;
+24. ``ring_collectives``, world 4 on a ring: the ring allgathers K19-K22
+   (one way and both, one span and spans) at the SP combine's payload and
+   the Mixtral token slab, bit-exact against the plain gather; the chunked
+   ring reduce-scatter K23 at K12's shape, bit-equal to K18; a second pass
+   of every ring kernel (K15-K23) with the race-shaking delay on, whose
+   outputs must be bit-identical; a stuck bidirectional-ring wait at world
+   3 that must raise with its fixed site;
+25. ``layers_ring``: the layer tier at full width on a ring (one counted
+   run): ``SpGQAFlashDecodeAttention(ag_method="ring_bidir")`` contiguous
+   and paged at 70B decode widths against ``full_mesh_push``, ``TPMLP`` at
+   70B widths with two-span ring configs, ``TPMoEMLP`` sequential and
+   overlapped at Mixtral widths (the gather K21 and K18 against K9/K10),
+   the op-level sequential pair with ``ag_method="ring_1d"`` and a
+   two-span reduce-scatter (K19, K23), the token gather with two spans
+   (K20, K22), and one f32 forward + backward of the sequential
+   ``TPMoEMLP`` against the plain path differentiated by PyTorch.
 
-The line before the last lists every kernel with its readings; the last is
-``{"ok": true, "device": {...}}``. With no CUDA device, or without the
-port beside it, the script prints no result and exits non-zero.
+The line before the last lists every kernel (K1-K23) with its readings;
+the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
+without the port beside it, the script prints no result and exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -205,6 +222,11 @@ class Counters:
             "gemm_rs_ring": grs._gemm_rs_ring,
             "gemm_rs_ring_chunked": grs._gemm_rs_ring_chunked,
             "reduce_scatter_ring": rs._ring_reduce_scatter,
+            "reduce_scatter_ring_chunked": rs._ring_reduce_scatter_chunked,
+            "all_gather_ring_1d": allgather._all_gather_ring_1d,
+            "all_gather_ring_1d_chunked": allgather._all_gather_ring_1d_chunked,
+            "all_gather_ring_bidir": allgather._all_gather_ring_bidir,
+            "all_gather_ring_bidir_chunked": allgather._all_gather_ring_bidir_chunked,
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -3187,6 +3209,471 @@ def phase_train_ring(counters: Counters) -> dict:
     return launches
 
 
+# ------------------------------- the ring collectives and the layer tier ----
+
+# (kernels-line name, method, chunked, the Pallas kernel it replaces)
+RING_GATHERS = (
+    ("all_gather_ring_1d", "ring_1d", False, "triton_dist_tpu/ops/allgather.py:73"),
+    ("all_gather_ring_1d_chunked", "ring_1d", True, "triton_dist_tpu/ops/allgather.py:144"),
+    ("all_gather_ring_bidir", "ring_bidir", False, "triton_dist_tpu/ops/allgather.py:102"),
+    ("all_gather_ring_bidir_chunked", "ring_bidir", True,
+     "triton_dist_tpu/ops/allgather.py:191"),
+)
+JITTER = 100_000  # comm_jitter's base in the race-shaking pass: ~0.2-2 ms a rank
+
+
+def _gather_shapes():
+    """The two payloads of the ring gathers, each with the chunk counts it
+    runs at: the SP combine at Llama-3.1-70B decode widths ([b*hq +
+    ceil(b*hq/d), d] f32 a rank, K5's shape) and the Mixtral token slab of
+    the sequential MoE MLP ([512, 4096] bf16 a rank)."""
+    import torch
+
+    rows = 8 * 64 + math.ceil(8 * 64 / 128)
+    return {"sp_combine": ((rows, 128), torch.float32, (1, 2)),
+            "moe_tokens": ((512, 4096), torch.bfloat16, (1, 2, 4))}
+
+
+def phase_ring_collectives(ctx) -> list[dict]:
+    """On the world-4 ring context: K19-K22 at the two payloads of
+    :func:`_gather_shapes`, each held bit for bit to the plain gather
+    (``_all_gather_xla``, also the golden: a gather is a copy); K23 at
+    K12's shape ([2048, 4096] a rank, f32 and bf16, chunks 2 and 3), bit
+    for bit equal to K18 and to its ring-order plain version, and within
+    n-1 bf16 ulps (f32 1e-5) of the library golden; then a second pass of
+    every ring kernel (K15-K23) with the race-shaking delay on, whose
+    outputs must be bit-identical to the first pass's."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    from triton_dist_tpu_torch.ops.common import ring_spans
+
+    g = torch.Generator(device="cuda").manual_seed(71)
+    shapes = _gather_shapes()
+    xs = {name: [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for _ in range(WORLD)] for name, (shape, dtype, _) in shapes.items()}
+    per_shape = {}
+    for name, (shape, dtype, _) in shapes.items():
+        x = xs[name]
+        shard = x[0].numel() * x[0].element_size()
+        per_shape[name] = dict(
+            plain_ms=dist_ms(ctx, lambda: ag._all_gather_xla(x[ctx.rank], ctx), iters=20),
+            library_ms=cuda_ms(lambda: [torch.cat(x) for _ in range(WORLD)], iters=20),
+            bytes=WORLD * shard * (1.0 + WORLD))
+    entries = []
+    for kname, method, chunked, replaces in RING_GATHERS:
+        row = {}
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0)
+        for name, (shape, dtype, chunk_set) in shapes.items():
+            x, want = xs[name], torch.cat(xs[name])
+            runs = [c for c in chunk_set if (c > 1) == chunked]
+            for c in runs:
+                outs = ctx.run(lambda: (
+                    ag.all_gather(x[ctx.rank], ctx=ctx, method=method, chunks_per_shard=c),
+                    ag._all_gather_xla(x[ctx.rank], ctx)))
+                if not all(torch.equal(got, want) and torch.equal(got, plain)
+                           for got, plain in outs):
+                    raise AssertionError(f"{kname} {name} chunks {c}: not bit-exact")
+                del outs
+                row[f"{name}_ms_chunks{c}"] = dist_ms(ctx, lambda: ag.all_gather(
+                    x[ctx.rank], ctx=ctx, method=method, chunks_per_shard=c), iters=20)
+            total["ms"] += row[f"{name}_ms_chunks{runs[0]}"]
+            for key in ("plain_ms", "library_ms", "bytes"):
+                total[key] += per_shape[name][key]
+        b_ms, by = bound(0.0, total["bytes"])
+        entries.append(dict(
+            name=kname, route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
+            replaces=replaces, max_abs_err=0.0, ms=total["ms"], plain_ms=total["plain_ms"],
+            bound_ms=b_ms, bound_by=by, library_ms=total["library_ms"],
+            library="torch.cat of the shards", per_shape=row,
+            shapes=f"world {WORLD} ring: [{shapes['sp_combine'][0][0]}, 128] f32 + "
+                   f"[512, 4096] bf16 a rank (summed)"
+                   + ("; ms at chunks_per_shard 2" if chunked else "")))
+        emit({"phase": "kernel", "kernel": kname, "world": WORLD, **row,
+              **{k_: entries[-1][k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "shapes")}})
+
+    # K23 at K12's shape
+    m_tot, n = TRAIN_B * TRAIN_S, 4096
+    m_loc = m_tot // WORLD
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = [torch.randn((m_tot, n), generator=g, device="cuda").to(dtype)
+             for _ in range(WORLD)]
+        library = sum(t.float() for t in x).to(dtype)
+        for chunks in (2, 3):
+            cfg = rs.ReduceScatterConfig(chunks_per_shard=chunks)
+            if len(ring_spans(m_loc, chunks, cfg.block_m)) != chunks:
+                raise AssertionError(f"reduce_scatter ring chunks {chunks}: spans collapsed")
+            outs = ctx.run(lambda: (rs.reduce_scatter(x[ctx.rank], ctx=ctx, config=cfg),
+                                    rs.reduce_scatter(x[ctx.rank], ctx=ctx, method="ring"),
+                                    rs._reduce_scatter_ring_plain(x[ctx.rank], ctx)))
+            worst = 0.0
+            for r, (got, k18, plain) in enumerate(outs):
+                if not (torch.equal(got, k18) and torch.equal(got, plain)):
+                    raise AssertionError(f"reduce_scatter ring chunks {chunks} {dtype} rank "
+                                         f"{r}: not bit-equal to K18 and the plain ring")
+                worst = max(worst, _check_ring(
+                    f"reduce_scatter ring chunks {chunks} {dtype} rank {r}", got, plain,
+                    library[r * m_loc:(r + 1) * m_loc], WORLD)[1])
+            errs[f"{str(dtype)[6:]}_chunks{chunks}"] = dict(max_abs_err=0.0,
+                                                           max_abs_err_library=worst)
+            del outs
+
+    def library_fn():
+        return [torch.stack([x[p][r * m_loc:(r + 1) * m_loc] for p in range(WORLD)]).sum(0)
+                for r in range(WORLD)]
+
+    def k23(chunks):
+        cfg = rs.ReduceScatterConfig(chunks_per_shard=chunks)
+        return dist_ms(ctx, lambda: rs.reduce_scatter(x[ctx.rank], ctx=ctx, config=cfg),
+                       iters=10)
+
+    b_ms, by = bound(WORLD * (WORLD - 1) * m_loc * n, 4.0 * WORLD * (m_tot * n + m_loc * n))
+    entries.append(dict(
+        name="reduce_scatter_ring_chunked", route="cuda",
+        source="triton_dist_tpu_torch/csrc/ring.cu",
+        replaces="triton_dist_tpu/ops/reduce_scatter.py:152", max_abs_err=0.0,
+        ms=k23(2), ms_chunks3=k23(3),
+        plain_ms=dist_ms(ctx, lambda: rs._reduce_scatter_ring_plain(x[ctx.rank], ctx),
+                         iters=5),
+        bound_ms=b_ms, bound_by=by, library_ms=event_ms(library_fn, iters=5),
+        library="torch.stack + sum of the four ranks' slices", checks=errs,
+        shapes=f"world {WORLD} ring: [{m_tot}, {n}] f32 a rank -> [{m_loc}, {n}]; ms at "
+               f"chunks_per_shard 2, ms_chunks3 at 3"))
+    emit({"phase": "kernel", "kernel": "reduce_scatter_ring_chunked", "world": WORLD,
+          **{k_: entries[-1][k_] for k_ in ("checks", "ms", "ms_chunks3", "plain_ms",
+                                            "bound_ms", "library_ms", "shapes")}})
+    del x, library
+    _jitter_pass(ctx, xs["moe_tokens"], g)
+    return entries
+
+
+def _jitter_pass(ctx, tokens, g) -> None:
+    """Every ring kernel once without and once with ``config.comm_delay``
+    (each rank starts each kernel a different 1x-8x of JITTER steps late):
+    K15 at the wqkv shape, K16/K17 at wo's, K18/K23 at K12's, K19-K22 at
+    the token slab, one span and two each. The outputs must be
+    bit-identical."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+
+    a = [torch.randn((512, 8192), generator=g, device="cuda").bfloat16() for _ in range(WORLD)]
+    b = (torch.randn((8192, 2560), generator=g, device="cuda") / 8192**0.5).bfloat16()
+    a_rs = [torch.randn((2048, 2048), generator=g, device="cuda").bfloat16()
+            for _ in range(WORLD)]
+    b_rs = (torch.randn((2048, 8192), generator=g, device="cuda") / 4096).bfloat16()
+    x = [torch.randn((TRAIN_B * TRAIN_S, 4096), generator=g, device="cuda")
+         for _ in range(WORLD)]
+
+    def calls():
+        r, out = ctx.rank, []
+        for c in (1, RING_CHUNKS):
+            out += [agg.ag_gemm(a[r], b, ctx=ctx, config=agg.AGGemmConfig(chunks_per_shard=c)),
+                    grs.gemm_rs(a_rs[r], b_rs, ctx=ctx,
+                                config=grs.GemmRSConfig(chunks_per_shard=c)),
+                    rs.reduce_scatter(x[r], ctx=ctx,
+                                      config=rs.ReduceScatterConfig(chunks_per_shard=c)),
+                    *[ag.all_gather(tokens[r], ctx=ctx, method=m, chunks_per_shard=c)
+                      for m in ("ring_1d", "ring_bidir")]]
+        return out
+
+    want = ctx.run(calls)  # also grows the workspaces: the timed passes allocate nothing
+    passes = {}
+    for name, base in (("plain", 0), ("jitter", JITTER)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with config.comm_delay(base):
+            got = ctx.run(calls)
+        torch.cuda.synchronize()
+        passes[f"{name}_pass_s"] = time.perf_counter() - t0
+        same = [all(torch.equal(u, v) for u, v in zip(w, o)) for w, o in zip(want, got)]
+        if not all(same) or len(want[0]) != 10:
+            raise AssertionError(f"the {name} pass changed a ring kernel's output: {same}")
+    emit({"phase": "ring_jitter", "world": WORLD, "comm_delay": JITTER,
+          "kernels": "K15-K23, one span and two", "calls_a_rank": len(want[0]),
+          "bit_identical": True, **passes})
+
+
+def phase_stuck_wait_ring_bidir() -> None:
+    """The bidirectional ring allgather at world 3 whose middle rank comes
+    far too late: rank 1's stream is held 2 s, the wait timeout is 0.2 s.
+    Its two neighbours must raise with the same fixed site, rank 1's
+    arrival: rank 0, whose right neighbour it is, and rank 2, whose left
+    neighbour it is."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    ctx = initialize_distributed(3)
+    ctx.full_mesh = False
+    x = torch.randn((516, 128), device="cuda")
+
+    def call():
+        if ctx.rank == 1 and stuck:
+            common.sleep_on_stream(2_000_000_000)
+        return ag.all_gather(x, ctx=ctx, method="ring_bidir")
+
+    stuck = False
+    ctx.run(call)  # the buffers and flags exist
+    stuck = True
+    t0 = time.perf_counter()
+    try:
+        with config.wait_timeout(0.2):
+            ctx.run(call)
+    except DistTimeoutError as err:
+        recs = err.records
+    else:
+        raise AssertionError("a stuck bidirectional ring wait did not raise")
+    got = sorted((r["pe"], r["family"], r["site"]) for r in recs)
+    if got != [(0, "all_gather_ring_bidir", 1), (2, "all_gather_ring_bidir", 1)]:
+        raise AssertionError(f"stuck bidirectional ring wait: unexpected records {recs}")
+    emit({"phase": "stuck_wait_ring_bidir", "world": 3,
+          "raised_after_s": time.perf_counter() - t0, "records": recs})
+    ctx.close()
+
+
+def _moe_mlp_plain(x, w_up, w_down, ids, tw):
+    """The MoE MLP in plain PyTorch, differentiable: every token's top-k
+    experts' tanh-GELU MLPs, weighted and summed (full, unsharded banks)."""
+    import torch
+    from triton_dist_tpu_torch.ops.group_gemm import gelu
+
+    out = torch.zeros_like(x)
+    for e in range(w_up.shape[0]):
+        tok, slot = (ids == e).nonzero(as_tuple=True)
+        y = gelu(x[tok] @ w_up[e]) @ w_down[e]
+        out = out.index_add(0, tok, y * tw[tok, slot][:, None])
+    return out
+
+
+def phase_layers_ring(counters: Counters) -> dict:
+    """The layer tier at full width, world 4 on a ring context, one counted
+    run of every layer (then the comparisons, then the timings):
+
+    - ``SpGQAFlashDecodeAttention(ag_method="ring_bidir")``, contiguous
+      and paged, batch 8, 64 q / 8 kv heads, d 128, 1024 positions sharded
+      four ways (bf16): K2, K3, K21; held to the same layer with
+      ``full_mesh_push`` (K5) within the decode tolerance;
+    - ``TPMLP`` at Llama-3.1-70B widths, 512 tokens a rank, ring configs
+      with two spans (K15, K17), held to the composition of the rings'
+      plain versions within 2 bf16 ulps of the output scale;
+    - ``TPMoEMLP(overlap=False)`` and ``(overlap=True)`` at Mixtral-8x7B
+      widths, 512 tokens a rank, the same routing, bf16: the gather K21,
+      K8 and K18 against K9 and K10; the two within 1e-2 relative L2 (a
+      few bf16 roundings in other places); the op-level sequential pair
+      with ``ag_method="ring_1d"`` and a two-span reduce-scatter (K19,
+      K23) bit-equal to the sequential layer; the token gather with two
+      spans, one way and both (``all_gather(chunks_per_shard=2)``: K20,
+      K22), bit-exact;
+    - one f32 forward + backward of ``TPMoEMLP(overlap=False)`` against
+      the plain MoE MLP on the card differentiated by PyTorch: output
+      within 1e-5, every gradient within 1e-4 relative L2.
+
+    No plain version may run on the counted path (no B6 fallback)."""
+    import torch
+    from triton_dist_tpu_torch import layers
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    from triton_dist_tpu_torch.ops.common import ring_spans
+    from triton_dist_tpu_torch.ops.flash_decode import FlashDecodeConfig
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = initialize_distributed(WORLD)
+    ctx.full_mesh = False
+    g = torch.Generator(device="cuda").manual_seed(73)
+    bf16 = torch.bfloat16
+
+    # SP decode: each rank holds 256 of the 1024 positions, contiguous and
+    # as its own pool of 16-token pages behind a shuffled block table
+    b, hq, h_kv, d, page = 8, 64, 8, 128, 16
+    s_loc = 1024 // WORLD
+    pps = s_loc // page
+    q = torch.randn((b, hq, d), generator=g, device="cuda").to(bf16)
+    kv = [[torch.randn((b, h_kv, s_loc, d), generator=g, device="cuda").to(bf16)
+           for _ in range(2)] for _ in range(WORLD)]
+    total = torch.tensor([1024, 1, 255, 256, 257, 600, 999, 0], dtype=torch.int32,
+                         device="cuda")
+    perm = torch.randperm(b * pps, generator=g, device="cuda")
+    table = perm.reshape(b, pps).to(torch.int32)
+
+    def pool(x):
+        pages = x.reshape(b, h_kv, pps, page, d).permute(0, 2, 1, 3, 4).reshape(
+            b * pps, h_kv, page, d)
+        out = torch.empty_like(pages)
+        out[perm] = pages
+        return out
+
+    pools = [[pool(t) for t in pair] for pair in kv]
+    sp_ring = layers.SpGQAFlashDecodeAttention(ctx, FlashDecodeConfig(), ag_method="ring_bidir")
+    sp_mesh = layers.SpGQAFlashDecodeAttention(ctx, FlashDecodeConfig(),
+                                               ag_method="full_mesh_push")
+
+    def sp(layer):
+        r = ctx.rank
+        lens = layer.local_lens_from_global(total, s_loc).to(torch.int32)
+        return (layer(q, kv[r][0], kv[r][1], lens),
+                layer.forward_paged(q, pools[r][0], pools[r][1], lens, table))
+
+    # TPMLP at 70B widths
+    hid, f_loc, m_loc = 8192, 28672 // WORLD, 512
+    x70 = [torch.randn((m_loc, hid), generator=g, device="cuda").to(bf16) for _ in range(WORLD)]
+    wu70 = [(torch.randn((hid, f_loc), generator=g, device="cuda") / hid**0.5).to(bf16)
+            for _ in range(WORLD)]
+    wd70 = [(torch.randn((f_loc, hid), generator=g, device="cuda") / (4 * f_loc)**0.5).to(bf16)
+            for _ in range(WORLD)]
+    ag_cfg = agg.AGGemmConfig(chunks_per_shard=RING_CHUNKS)
+    rs_cfg = grs.GemmRSConfig(chunks_per_shard=RING_CHUNKS)
+    mlp = layers.TPMLP(ctx, ag_config=ag_cfg, rs_config=rs_cfg)
+
+    # the MoE MLP at Mixtral widths, one routing
+    h_moe, f_moe, n_exp = 4096, 14336 // WORLD, 8
+    tw, ids = _moe_route(g, WORLD * m_loc, n_exp, 2)
+    xm = [torch.randn((m_loc, h_moe), generator=g, device="cuda").to(bf16) for _ in range(WORLD)]
+    wum = [(torch.randn((n_exp, h_moe, f_moe), generator=g, device="cuda") / h_moe**0.5)
+           .to(bf16) for _ in range(WORLD)]
+    wdm = [(torch.randn((n_exp, f_moe, h_moe), generator=g, device="cuda")
+            / (4 * f_moe)**0.5).to(bf16) for _ in range(WORLD)]
+    moe_seq = layers.TPMoEMLP(ctx, overlap=False)
+    moe_ovl = layers.TPMoEMLP(ctx, overlap=True)
+    rs2 = rs.ReduceScatterConfig(chunks_per_shard=RING_CHUNKS)
+
+    def rows(t):
+        return t[ctx.rank * m_loc:(ctx.rank + 1) * m_loc]
+
+    def moe(layer):
+        r = ctx.rank
+        return layer(xm[r], wum[r], wdm[r], rows(ids), rows(tw))
+
+    def moe_ops():
+        """The sequential pair at the op level, the gather pinned one way
+        and the reduce-scatter in two spans."""
+        r = ctx.rank
+        h, al = aggg.ag_group_gemm(xm[r], wum[r], rows(ids), ctx=ctx, ag_method="ring_1d")
+        return mrs.moe_reduce_rs(h, wdm[r], al, tw, ctx=ctx, n_tokens=WORLD * m_loc,
+                                 rs_config=rs2, out_dtype=bf16, act_fn=gg.gelu)
+
+    # the f32 step of the sequential layer
+    f32 = torch.float32
+    xf = [t.float() for t in xm]
+    wuf = [t.float() for t in wum]
+    wdf = [t.float() for t in wdm]
+    dout = torch.randn((WORLD * m_loc, h_moe), generator=g, device="cuda")
+
+    def moe_f32_step():
+        r = ctx.rank
+        leaves = [t.clone().requires_grad_() for t in (xf[r], wuf[r], wdf[r], rows(tw))]
+        out = moe_seq(leaves[0], leaves[1], leaves[2], rows(ids), leaves[3])
+        torch.autograd.backward(out, rows(dout))
+        return out.detach(), [t.grad for t in leaves]
+
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    sp_outs = ctx.run(lambda: sp(sp_ring))
+    mlp_outs = ctx.run(lambda: mlp(x70[ctx.rank], wu70[ctx.rank], wd70[ctx.rank]))
+    seq_outs = ctx.run(lambda: moe(moe_seq))
+    ovl_outs = ctx.run(lambda: moe(moe_ovl))
+    op_outs = ctx.run(moe_ops)
+    gathered = ctx.run(lambda: [ag.all_gather(xm[ctx.rank], ctx=ctx, method=m,
+                                              chunks_per_shard=RING_CHUNKS)
+                                for m in ("ring_1d", "ring_bidir")])
+    step_outs = ctx.run(moe_f32_step, grad=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    launches, plain = counts["launches"], counts["plain_calls"]
+    used = ("flash_decode", "paged_flash_decode", "all_gather_ring_1d",
+            "all_gather_ring_1d_chunked", "all_gather_ring_bidir",
+            "all_gather_ring_bidir_chunked", "ag_gemm_ring", "gemm_rs_ring_chunked",
+            "group_gemm", "group_gemm_dw", "ag_group_gemm", "moe_reduce_rs",
+            "reduce_scatter_ring", "reduce_scatter_ring_chunked")
+    if any(launches[k] <= 0 for k in used):
+        raise AssertionError(f"layers_ring did not run on the kernels: {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the layers' path: {plain}")
+
+    checks = {}
+    # SP decode: the same layer with the full-mesh push
+    ref = ctx.run(lambda: sp(sp_mesh))
+    checks["sp_decode_max_abs_err"] = max(
+        (a - b_).float().abs().max().item() for got, want in zip(sp_outs, ref)
+        for a, b_ in zip(got, want))
+    if not checks["sp_decode_max_abs_err"] <= DECODE_TOL:
+        raise AssertionError(f"SP decode ring_bidir against full_mesh_push: {checks}")
+    # TPMLP against the rings' plain composition
+    spans_ag = ring_spans(m_loc, RING_CHUNKS, ag_cfg.block_m)
+    spans_rs = ring_spans(m_loc, RING_CHUNKS, rs_cfg.block_m)
+    mlp_ref = ctx.run(lambda: grs._gemm_rs_ring_plain(
+        gg.gelu(agg._ag_gemm_ring_plain(x70[ctx.rank], wu70[ctx.rank], ctx, False, bf16,
+                                        spans_ag)),
+        wd70[ctx.rank], ctx, bf16, spans_rs))
+    err = max((a.float() - b_.float()).abs().max().item() for a, b_ in zip(mlp_outs, mlp_ref))
+    tol = 2 * 2.0**-7 * max(t.float().abs().max().item() for t in mlp_ref)
+    checks["tp_mlp"] = dict(max_abs_err=err, tol=tol)
+    if not err <= tol:
+        raise AssertionError(f"TPMLP on a ring against its plain composition: {checks}")
+    # the MoE MLP: sequential against overlapped, the op-level pair, the gathers
+    seq, ovl = torch.cat(seq_outs).float(), torch.cat(ovl_outs).float()
+    checks["moe_seq_vs_overlap_rel_l2"] = _rel_l2(seq, ovl)
+    if not checks["moe_seq_vs_overlap_rel_l2"] <= 1e-2:
+        raise AssertionError(f"TPMoEMLP sequential against overlapped: {checks}")
+    if not all(torch.equal(a, b_) for a, b_ in zip(op_outs, seq_outs)):
+        raise AssertionError("the op-level sequential pair is not bit-equal to the layer")
+    if not all(torch.equal(one, torch.cat(xm)) and torch.equal(both, torch.cat(xm))
+               for one, both in gathered):
+        raise AssertionError("the token gather with two spans: not bit-exact")
+    # the f32 step against the plain MLP differentiated by PyTorch
+    full = [torch.cat([t.detach() for t in w], dim) for w, dim in ((wuf, 2), (wdf, 1))]
+    leaves = [t.clone().requires_grad_() for t in (torch.cat(xf), *full, tw)]
+    want = _moe_mlp_plain(leaves[0], leaves[1], leaves[2], ids.long(), leaves[3])
+    torch.autograd.backward(want, dout)
+    got_out = torch.cat([o for o, _ in step_outs])
+    checks["f32_out_rel_l2"] = _rel_l2(got_out, want.detach())
+    grads = {
+        "dx": (torch.cat([gr[0] for _, gr in step_outs]), leaves[0].grad),
+        "dw_up": (torch.cat([gr[1] for _, gr in step_outs], 2), leaves[1].grad),
+        "dw_down": (torch.cat([gr[2] for _, gr in step_outs], 1), leaves[2].grad),
+        "d_topk_weights": (torch.cat([gr[3] for _, gr in step_outs]), leaves[3].grad),
+    }
+    checks["f32_grad_rel_l2"] = {k_: _rel_l2(a, b_) for k_, (a, b_) in grads.items()}
+    if not (checks["f32_out_rel_l2"] <= 1e-5
+            and all(v <= 1e-4 for v in checks["f32_grad_rel_l2"].values())):
+        raise AssertionError(f"TPMoEMLP(overlap=False) f32 step against the plain path: "
+                             f"{checks}")
+    del step_outs, leaves, want, full, grads
+
+    timings = dict(
+        sp_decode_ring_bidir_ms=dist_ms(ctx, lambda: sp(sp_ring), iters=10),
+        sp_decode_full_mesh_ms=dist_ms(ctx, lambda: sp(sp_mesh), iters=10),
+        tp_mlp_ms=dist_ms(ctx, lambda: mlp(x70[ctx.rank], wu70[ctx.rank], wd70[ctx.rank]),
+                          iters=5),
+        tp_moe_mlp_sequential_ms=dist_ms(ctx, lambda: moe(moe_seq), iters=5),
+        tp_moe_mlp_overlap_ms=dist_ms(ctx, lambda: moe(moe_ovl), iters=5),
+    )
+    emit({"phase": "layers_ring", "world": WORLD, "full_mesh": False,
+          "chunks_per_shard": RING_CHUNKS, "counted_run_wall_s": wall, "checks": checks,
+          "timings": timings, "sp_decode": f"b {b}, hq {hq}, h_kv {h_kv}, d {d}, 1024 "
+          f"positions, {s_loc} a rank, bf16", "tp_mlp": f"{TP_MODEL} widths, [{m_loc}, {hid}] "
+          f"a rank, F shard {f_loc}", "tp_moe_mlp": f"{MOE_MODEL} widths, [{m_loc}, {h_moe}] "
+          f"a rank, F shard {f_moe}, top-2 of {n_exp}", **counts})
+    ctx.close()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3259,6 +3746,14 @@ def main() -> int:
     phase_f32_parity_train()
     torch.cuda.empty_cache()
     train_ring = phase_train_ring(counters)
+    torch.cuda.empty_cache()
+    ctx = initialize_distributed(WORLD)
+    ctx.full_mesh = False
+    gather_entries = phase_ring_collectives(ctx)
+    ctx.close()
+    phase_stuck_wait_ring_bidir()
+    torch.cuda.empty_cache()
+    layers_ring = phase_layers_ring(counters)
     entries[0]["launches"] = paged["gemm"]
     entries[1]["launches"] = contiguous["flash_decode"]
     entries[2]["launches"] = paged["paged_flash_decode"]
@@ -3282,6 +3777,9 @@ def main() -> int:
                                    + train_ring["gemm_rs_ring_chunked"])
     ring_entries[3]["launches"] = train_ring["reduce_scatter_ring"]
     entries += ring_entries
+    for entry in gather_entries:
+        entry["launches"] = layers_ring[entry["name"]]
+    entries += gather_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

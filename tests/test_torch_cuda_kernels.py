@@ -5,10 +5,12 @@ K14 — over shared pages, and chunk calls bit-equal to the whole-range
 call — and at world 2 and 4 with every rank on the one
 card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
 AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, and on a ring
-context the ring AG-GEMM K15, the ring GEMM-RS K16/K17 and the ring
-reduce-scatter K18, plus stuck waits that must raise with their records),
-and world-4 MoE train steps, full mesh and ring, that must finish (each
-rank's backward meets its peers on the host).
+context the ring AG-GEMM K15, the ring GEMM-RS K16/K17, the ring
+reduce-scatter K18 and its spans K23 (bit-equal to K18), and the ring
+allgathers K19-K22 (bit-exact), plus stuck waits that must raise with
+their records and a race-shaking pass (``config.comm_delay``) whose
+outputs must be bit-identical), and world-4 MoE train steps, full mesh and
+ring, that must finish (each rank's backward meets its peers on the host).
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 absent:
@@ -630,6 +632,116 @@ def test_ring_reduce_scatter_kernel_matches_plain(cuda, world, dtype):
         assert trs._ring_reduce_scatter.launches == before + world
         for got, want in outs:
             assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("method", ["ring_1d", "ring_bidir"])
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_ring_all_gather_kernel_is_exact(cuda, world, method, chunks):
+    """K19-K22 on a ring context against the plain gather, bit for bit:
+    f32 rows, a 1-D shard of 512 (spans 171/171/170 at chunks 3), bf16
+    rows of 200 bytes (no 16-byte alignment: the byte path) and a 2-row
+    shard with more chunks than rows, back to back (the workspace grows,
+    epochs rise); world 2 sends nothing left, world 3 one step each way."""
+    ctx = _ring_ctx(world)
+    g = torch.Generator(device="cuda").manual_seed(90 + world)
+    for shape, dtype in (((6, 16), torch.float32), ((512,), torch.float32),
+                         ((13, 100), torch.bfloat16), ((2, 64), torch.float32)):
+        x = [torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(world)]
+        spans = tcommon.chunk_schedule(shape[0], chunks)
+        before = tag._RING_WRAPPERS[method, len(spans) > 1].launches
+        outs = ctx.run(lambda: tag.all_gather(x[ctx.rank], ctx=ctx, method=method,
+                                              chunks_per_shard=chunks))
+        assert tag._RING_WRAPPERS[method, len(spans) > 1].launches == before + world
+        for got in outs:
+            assert torch.equal(got, torch.cat(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [2, 3])
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_reduce_scatter_chunked_kernel_is_k18(cuda, world, dtype, chunks):
+    """K23 against K18 and the ring's plain version, bit for bit: the same
+    adds in the same hop order, only cut into spans."""
+    ctx = _ring_ctx(world)
+    g = torch.Generator(device="cuda").manual_seed(100 + world)
+    for m_loc, n in ((64, 300), (16, 4096), (3, 7)):
+        cfg = trs.ReduceScatterConfig(block_m=8, chunks_per_shard=chunks)
+        spans = tcommon.ring_spans(m_loc, chunks, cfg.block_m)
+        x = [torch.randn((world * m_loc, n), generator=g, device=cuda).to(dtype)
+             for _ in range(world)]
+        before = (trs._ring_reduce_scatter_chunked.launches, trs._ring_reduce_scatter.launches)
+        outs = ctx.run(lambda: (trs.reduce_scatter(x[ctx.rank], ctx=ctx, config=cfg),
+                                trs.reduce_scatter(x[ctx.rank], ctx=ctx),
+                                trs._reduce_scatter_ring_plain(x[ctx.rank], ctx)))
+        assert trs._ring_reduce_scatter_chunked.launches == before[0] + (
+            world if len(spans) > 1 else 0)
+        assert trs._ring_reduce_scatter.launches == before[1] + (
+            2 * world if len(spans) == 1 else world)
+        for chunked, one, want in outs:
+            assert torch.equal(chunked, one) and torch.equal(chunked, want)
+
+
+@pytest.mark.cuda
+def test_ring_kernels_under_jitter_are_bit_identical(cuda):
+    """Every ring kernel (K15-K23) at world 4 on a ring context, then again
+    with the race-shaking delay on (each rank starts each kernel a
+    different 1x-8x of the base later): the outputs are bit-identical."""
+    world = 4
+    ctx = _ring_ctx(world)
+    g = torch.Generator(device="cuda").manual_seed(110)
+    a = [torch.randn((64, 256), generator=g, device=cuda).bfloat16() for _ in range(world)]
+    b = (torch.randn((256, 96), generator=g, device=cuda) / 16).bfloat16()
+    a_rs = [torch.randn((world * 64, 128), generator=g, device=cuda).bfloat16()
+            for _ in range(world)]
+    b_rs = (torch.randn((128, 200), generator=g, device=cuda) / 12).bfloat16()
+    x = [torch.randn((96, 40), generator=g, device=cuda) for _ in range(world)]
+    two = dict(chunks_per_shard=2)
+
+    def calls():
+        r = ctx.rank
+        return (
+            tagg.ag_gemm(a[r], b, ctx=ctx),
+            tagg.ag_gemm(a[r], b, ctx=ctx, config=tagg.AGGemmConfig(**two)),
+            tgrs.gemm_rs(a_rs[r], b_rs, ctx=ctx),
+            tgrs.gemm_rs(a_rs[r], b_rs, ctx=ctx, config=tgrs.GemmRSConfig(**two)),
+            trs.reduce_scatter(x[r], ctx=ctx),
+            trs.reduce_scatter(x[r], ctx=ctx, config=trs.ReduceScatterConfig(8, **two)),
+            *[tag.all_gather(x[r], ctx=ctx, method=m, chunks_per_shard=c)
+              for m in ("ring_1d", "ring_bidir") for c in (1, 2)],
+        )
+
+    want = ctx.run(calls)
+    with config.comm_delay(20_000):
+        got = ctx.run(calls)
+    for w_rank, g_rank in zip(want, got):
+        assert len(w_rank) == 10
+        assert all(torch.equal(u, v) for u, v in zip(w_rank, g_rank))
+
+
+@pytest.mark.cuda
+def test_ring_bidir_stuck_wait_raises_with_its_record(cuda):
+    """World 3, the bidirectional ring allgather: rank 1's stream is held
+    2 s, the wait timeout is 0.2 s. Its two neighbours record the same
+    fixed site, rank 1's arrival: rank 0 (whose right neighbour it is)
+    and rank 2 (whose left neighbour it is); the run raises, not hangs."""
+    ctx = _ring_ctx(3)
+    x = torch.randn((64, 32), device=cuda)
+    ctx.run(lambda: tag.all_gather(x, ctx=ctx, method="ring_bidir"))  # buffers and flags
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return tag.all_gather(x, ctx=ctx, method="ring_bidir")
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    got = sorted((r["pe"], r["family"], r["site"], r["kind"]) for r in err.value.records)
+    assert got == [(0, "all_gather_ring_bidir", 1, "barrier_all"),
+                   (2, "all_gather_ring_bidir", 1, "barrier_all")]
 
 
 @pytest.mark.cuda

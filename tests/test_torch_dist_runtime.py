@@ -154,15 +154,19 @@ def test_symmetric_views_and_bounds():
 
 
 def test_method_choice_off_a_full_mesh_names_the_later_slices():
-    """Off a full mesh ``auto`` picks the rings: the ring allgathers are a
-    later slice and refused by their id (B6); ``gemm_rs`` runs its ring
-    (the reduced product, its plain version on the CPU)."""
-    assert tag.get_auto_all_gather_method(1 << 20, 4, full_mesh=False) == "ring_1d"
+    """Off a full mesh ``auto`` picks the rings: the ring allgathers
+    (``ring_1d`` at two ranks, ``ring_bidir`` beyond; their plain version
+    on the CPU) and ``gemm_rs``'s ring (the reduced product)."""
+    assert tag.get_auto_all_gather_method(1 << 20, 2, full_mesh=False) == "ring_1d"
+    assert tag.get_auto_all_gather_method(1 << 20, 4, full_mesh=False) == "ring_bidir"
     assert trs.get_auto_reduce_scatter_method(1 << 20, 4, full_mesh=False) == "ring"
     ctx = initialize_distributed(2, device="cpu")
     ctx.full_mesh = False
-    with pytest.raises(NotImplementedError, match="B6"):
-        ctx.run(lambda: tag.all_gather(torch.zeros(2, 2), ctx=ctx))
+    x = [torch.full((2, 2), float(r)) for r in range(2)]
+    calls = tag._all_gather_xla.calls
+    for got in ctx.run(lambda: tag.all_gather(x[ctx.rank], ctx=ctx)):
+        assert torch.equal(got, torch.cat(x))
+    assert tag._all_gather_xla.calls == calls + 2
     ctx = initialize_distributed(2, device="cpu")
     ctx.full_mesh = False
     a = [torch.arange(8.0).reshape(4, 2) + r for r in range(2)]

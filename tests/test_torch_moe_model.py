@@ -9,6 +9,8 @@ weights (``init_moe_params``) are carried over with ``params_from_numpy``;
 JAX runs under ``shard_map`` with its Pallas kernels interpreted, the
 port's ranks are threads of a CPU ``DistContext`` running the plain
 versions. One decoder block, hidden 32, 4 experts, top-2, 8-row blocks.
+The JAX weights are ``init_moe_params``' tree filled from numpy (its shapes
+from ``jax.eval_shape``: no ``jax.random`` program to compile).
 
 f32 throughout, the packages differ only in summation order: 1e-4 on
 logits; tokens, timestamps and the trace fingerprint must be identical.
@@ -59,7 +61,15 @@ def moe():
     jcfg = JaxMoEConfig(**DIMS, ag_config=AGGemmConfig(16, 128, 128),
                         rs_config=GemmRSConfig(16, 128, 128),
                         gg_config=JaxGGConfig(8, 64, 64))
-    jparams = jax_init_moe_params(jax.random.PRNGKey(0), jcfg)
+    # init_moe_params' tree at its scales: norms at one, the embedding at
+    # 0.02, every matrix at one over the square root of its fan-in
+    rng = np.random.default_rng(0)
+    shapes = jax.eval_shape(lambda key: jax_init_moe_params(key, jcfg), jax.random.PRNGKey(0))
+    jparams = jax.tree_util.tree_map_with_path(
+        lambda path, x: jnp.ones(x.shape, x.dtype) if "norm" in str(path[-1])
+        else jnp.asarray(rng.standard_normal(x.shape) * (0.02 if "embed" in str(path[-1]) else (
+            DIMS["ffn"] if "w_down" in str(path[-1]) else DIMS["hidden"]) ** -0.5), x.dtype),
+        shapes)
     tcfg = ttm.MoETransformerConfig(**DIMS, gg_config=GroupGemmConfig(8, 16, 16))
     tparams = ttm.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu",
                                     torch.float32)

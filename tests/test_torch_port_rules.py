@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX
-package, its entry points run on the card unless the caller asks for the
-CPU (and raise with no card), and ``chip_smoke.py`` refuses to report
-without a card or without the port beside it."""
+package (every module, the layer tier ``layers/`` included), its entry
+points run on the card unless the caller asks for the CPU (and raise with
+no card), its layers hold no parameters of their own, and ``chip_smoke.py``
+refuses to report without a card or without the port beside it."""
 
 import ast
 import os
@@ -37,6 +38,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'triton_dist_tpu'))\n"
         "assert len(names) >= 15, names\n"
+        "layers = [n for n in names if n.startswith('triton_dist_tpu_torch.layers.')]\n"
+        "assert len(layers) == 3, layers\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
@@ -82,6 +85,20 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     b = tdec.ContinuousBatcher(cfg, params, s_max=8, device="cpu")
     b.submit(tdec.Request([1, 2], max_new_tokens=2, uid="x"))
     assert [uid for uid, _ in b.run()] == ["x"]
+
+
+def test_layers_take_their_weights_per_call():
+    """The layer tier's modules are the JAX package's names (the EP layers
+    and ``ElasticStep`` still to port) and own no parameters or buffers:
+    like the JAX layers they take their weights per call."""
+    from triton_dist_tpu_torch import layers
+
+    assert [n for n in dir(layers) if n[0].isupper()] == [
+        "AllGatherLayer", "SpGQAFlashDecodeAttention", "TPMLP", "TPMoEMLP"]
+    for layer in (layers.AllGatherLayer(), layers.SpGQAFlashDecodeAttention(),
+                  layers.TPMLP(), layers.TPMoEMLP(overlap=False)):
+        assert isinstance(layer, torch.nn.Module)
+        assert not list(layer.parameters()) and not list(layer.buffers())
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_port(tmp_path):

@@ -8,6 +8,9 @@ port's ranks are threads of a CPU ``DistContext`` running ``ctx.run(...,
 grad=True)``. The gradients compared are each rank's own (scaled by the
 world, replicated leaves unsummed: the accounting ``train_step`` fixes),
 so a collective with the wrong transpose shows. One block, hidden 32.
+The JAX weights are the JAX init's tree filled from numpy (its shapes from
+``jax.eval_shape``: no ``jax.random`` program to compile), made once a
+model kind; each (kind, world) traces and compiles one JAX program.
 
 f32 throughout; the packages differ in summation order: the loss to 1e-5
 relative, gradients and updated parameters to 1e-4. Then, on the port
@@ -15,6 +18,7 @@ alone: three steps lower the loss, ``skip_nonfinite`` drops a poisoned
 step bit for bit on every rank, and the refusals.
 """
 
+import functools
 from unittest import mock
 
 import jax
@@ -40,14 +44,34 @@ MOE = dict(DENSE, n_experts=4, topk=2)
 JAX_TILES = dict(ag_config=AGGemmConfig(16, 128, 128), rs_config=GemmRSConfig(16, 128, 128))
 
 
+def _numpy_params(init, jcfg, seed):
+    """The JAX init's tree, filled from numpy at the init's scales: norms
+    at one, the embedding at 0.02, every matrix at one over the square root
+    of its fan-in (the FFN width for ``w_down``, the hidden width else)."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda key: init(key, jcfg), jax.random.PRNGKey(0))
+
+    def leaf(path, x):
+        name = str(path[-1])
+        if "norm" in name:
+            return jnp.ones(x.shape, x.dtype)
+        std = 0.02 if "embed" in name else 1 / np.sqrt(
+            DENSE["ffn"] if "w_down" in name else DENSE["hidden"])
+        return jnp.asarray(rng.standard_normal(x.shape) * std, x.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@functools.lru_cache(maxsize=None)
 def _models(kind):
-    """(JAX config, JAX params as numpy, port config, port model class)."""
+    """(JAX config, JAX params, port config, port model class), made once
+    a kind."""
     if kind == "dense":
         jcfg = jtm.TransformerConfig(**DENSE, **JAX_TILES)
-        jparams = jtm.init_params(jax.random.PRNGKey(3), jcfg)
+        jparams = _numpy_params(jtm.init_params, jcfg, 3)
         return jcfg, jparams, ttm.TransformerConfig(**DENSE), ttm.TPTransformer
     jcfg = jtm.MoETransformerConfig(**MOE, **JAX_TILES, gg_config=JaxGGConfig(8, 64, 64))
-    jparams = jtm.init_moe_params(jax.random.PRNGKey(4), jcfg)
+    jparams = _numpy_params(jtm.init_moe_params, jcfg, 4)
     return (jcfg, jparams, ttm.MoETransformerConfig(**MOE, gg_config=GroupGemmConfig(8)),
             ttm.TPMoETransformer)
 

@@ -3,10 +3,11 @@ timeout of its distributed kernels.
 
 The JAX package's ``config.py`` holds interpret-mode and watchdog knobs;
 CUDA has no interpret mode, so what is left is where an entry point runs
-(on the card unless the caller explicitly asks for the CPU) and how long a
+(on the card unless the caller explicitly asks for the CPU), how long a
 device-side wait spins before it gives up with a record (≙
 ``config.timeout_iters``, counted here in seconds of ``%globaltimer``, not
-poll iterations).
+poll iterations), and the race-shaking delay of the communicating kernels
+(≙ ``config.debug_comm_delay``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,15 @@ import torch
 # share one interpreter lock, so a peer may be many launches behind.
 # TDT_TORCH_WAIT_TIMEOUT_S overrides it at import.
 wait_timeout_s: float = float(os.environ.get("TDT_TORCH_WAIT_TIMEOUT_S", "60"))
+
+# Race shaking (≙ the JAX package's ``debug_comm_delay``): > 0 makes every
+# communicating kernel (csrc/dist.cu K5-K7 and K12, csrc/ring.cu K15-K23)
+# spin a per-rank delay of base * (1 + (rank * 7919 + salt * 104729) mod 8)
+# dependent integer steps at its top (shmem.cuh ``comm_jitter``), so the
+# ranks issue their stores and waits at visibly different times. It moves
+# timing only, never a result. Debug and stress only; TDT_COMM_DELAY sets it
+# at import.
+debug_comm_delay: int = int(os.environ.get("TDT_COMM_DELAY", "0"))
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -51,3 +61,15 @@ def wait_timeout(seconds: float):
         yield
     finally:
         wait_timeout_s = old
+
+
+@contextlib.contextmanager
+def comm_delay(base: int):
+    """Run a block with another race-shaking delay (the jitter passes of
+    the card tests and ``chip_smoke.py``)."""
+    global debug_comm_delay
+    old, debug_comm_delay = debug_comm_delay, int(base)
+    try:
+        yield
+    finally:
+        debug_comm_delay = old

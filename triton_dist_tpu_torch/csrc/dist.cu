@@ -78,7 +78,9 @@
 // chunk, then slots 0 .. n-2 (the TPU kernel's order), in f32, cast once.
 // Every wait is bounded (shmem.cuh). K5 moves
 // its small payload with SM stores (putmem_signal_nbi_block), one block a
-// peer.
+// peer. K5's push, K6, K7 and K12 start with the race-shaking delay
+// (shmem.cuh comm_jitter, the JAX kernels' salts 3, 8, 10 and 7), a no-op
+// unless the launch asks for it.
 
 #include "gemm_core.cuh"
 #include "shmem.cuh"
@@ -107,7 +109,9 @@ __global__ void barrier_wait_kernel(const long long* flags, int world, int me, i
 // j's shard in this rank's workspace and copies it to out[j].
 __global__ void all_gather_push_kernel(const unsigned char* x, unsigned char* out,
                                        long long shard_bytes, const long long* ws,
-                                       const long long* data, int me, int epoch) {
+                                       const long long* data, int world, int me, int epoch,
+                                       int jitter) {
+  shmem::comm_jitter(me, 3, jitter, world);
   const int j = blockIdx.x;
   if (j == me) {
     shmem::putmem_nbi_block(out + me * shard_bytes, x, shard_bytes);
@@ -138,7 +142,8 @@ template <class E, typename TOut, bool GROUPED>
 __global__ void __launch_bounds__(E::THREADS, 1)
     ag_gemm_kernel(const typename E::TIn* __restrict__ ws, const typename E::TIn* __restrict__ b,
                    TOut* __restrict__ out, int m_loc, int n, int k, int vec, int world, int me,
-                   const int* flags, int epoch, WaitCtx w, Groups g) {
+                   const int* flags, int epoch, WaitCtx w, Groups g, int jitter) {
+  shmem::comm_jitter(me, 8, jitter, world);  // K6's; K9 passes 0
   const int tiles_n = cdiv(n, E::BN);
   const int per_shard = cdiv(m_loc, E::BM) * tiles_n;
   const int total = per_shard * world;
@@ -173,7 +178,8 @@ template <class E, typename TOut>
 __global__ void __launch_bounds__(E::THREADS, 1)
     gemm_rs_kernel(const typename E::TIn* __restrict__ a, const typename E::TIn* __restrict__ b,
                    TOut* __restrict__ out, int m_loc, int n, int k, int vec, int world,
-                   const int* flags, int epoch, AddList<TOut> adds, WaitCtx w) {
+                   const int* flags, int epoch, AddList<TOut> adds, WaitCtx w, int jitter) {
+  shmem::comm_jitter(w.rank, 10, jitter, world);
   const int tiles_n = cdiv(n, E::BN);
   const int total = cdiv(m_loc, E::BM) * tiles_n;
   bool landed = false;
@@ -242,7 +248,8 @@ __global__ void moe_rs_reduce_kernel(const TOut* __restrict__ slots, TOut* __res
 template <typename T>
 __global__ void scatter_reduce_kernel(const T* __restrict__ own, const T* __restrict__ slots,
                                       T* __restrict__ out, long long count, int world,
-                                      const int* flags, int epoch, WaitCtx w) {
+                                      const int* flags, int epoch, WaitCtx w, int jitter) {
+  shmem::comm_jitter(w.rank, 7, jitter, world);
   const int d = threadIdx.x;
   if (d < world - 1) shmem::wait_until_ge(flags + d, epoch, w, world + d, shmem::KIND_SIGNAL);
   __threadfence();
@@ -319,11 +326,12 @@ extern "C" int tdt_barrier_wait(const void* flags, int world, int me, int epoch,
 // data flags. Every rank's push is issued before any collect.
 extern "C" int tdt_all_gather_push(const void* x, void* out, long long shard_bytes,
                                    const void* ws, const void* data, int world, int me,
-                                   int epoch, void* stream) {
+                                   int epoch, int jitter, void* stream) {
   if (world < 1 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
   all_gather_push_kernel<<<world, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out), shard_bytes,
-      static_cast<const long long*>(ws), static_cast<const long long*>(data), me, epoch);
+      static_cast<const long long*>(ws), static_cast<const long long*>(data), world, me, epoch,
+      jitter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,7 +374,7 @@ template <bool GROUPED>
 cudaError_t launch_ag_consumer(const void* ws, const void* b, void* out, int m_loc, int n,
                                int k, int in_dtype, int out_dtype, int world, int me,
                                const void* flags, int epoch, int max_blocks, const WaitCtx& w,
-                               const Groups& g, cudaStream_t s) {
+                               const Groups& g, int jitter, cudaStream_t s) {
   return dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
     using E = decltype(e);
     using TOut = decltype(t);
@@ -382,7 +390,7 @@ cudaError_t launch_ag_consumer(const void* ws, const void* b, void* out, int m_l
         <<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
             static_cast<const typename E::TIn*>(ws), static_cast<const typename E::TIn*>(b),
             static_cast<TOut*>(out), m_loc, n, k, vec, world, me,
-            static_cast<const int*>(flags), epoch, w, g);
+            static_cast<const int*>(flags), epoch, w, g, jitter);
     return cudaSuccess;
   });
 }
@@ -394,13 +402,13 @@ cudaError_t launch_ag_consumer(const void* ws, const void* b, void* out, int m_l
 extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, int m_loc,
                                     int n, int k, int in_dtype, int out_dtype, int world,
                                     int me, const void* flags, int epoch, int max_blocks,
-                                    void* diag, long long timeout_ns, int family,
+                                    int jitter, void* diag, long long timeout_ns, int family,
                                     void* stream) {
   if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
   const Groups none = {nullptr, 1, 1};
   cudaError_t err = launch_ag_consumer<false>(
       ws, b, out, m_loc, n, k, in_dtype, out_dtype, world, me, flags, epoch, max_blocks,
-      wait_ctx(diag, timeout_ns, me, family), none, static_cast<cudaStream_t>(stream));
+      wait_ctx(diag, timeout_ns, me, family), none, jitter, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -420,7 +428,7 @@ extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b,
   const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp};
   cudaError_t err = launch_ag_consumer<true>(
       ws, b, out, t_pad_loc, n, k, in_dtype, out_dtype, world, me, flags, epoch, max_blocks,
-      wait_ctx(diag, timeout_ns, me, family), g, static_cast<cudaStream_t>(stream));
+      wait_ctx(diag, timeout_ns, me, family), g, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -431,7 +439,7 @@ extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b,
 extern "C" int tdt_gemm_rs_reduce(const void* a, const void* b, void* out, int m_loc, int n,
                                   int k, int in_dtype, int out_dtype, int world,
                                   const void* const* recv, int me, const void* flags,
-                                  int epoch, int max_blocks, void* diag,
+                                  int epoch, int max_blocks, int jitter, void* diag,
                                   long long timeout_ns, int family, void* stream) {
   if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -450,7 +458,7 @@ extern "C" int tdt_gemm_rs_reduce(const void* a, const void* b, void* out, int m
     gemm_rs_kernel<E, TOut><<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
         static_cast<const typename E::TIn*>(a), static_cast<const typename E::TIn*>(b),
         static_cast<TOut*>(out), m_loc, n, k, vec, world, static_cast<const int*>(flags),
-        epoch, make_adds<TOut>(recv, world - 1), w);
+        epoch, make_adds<TOut>(recv, world - 1), w, jitter);
     return cudaSuccess;
   });
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -508,8 +516,9 @@ extern "C" int tdt_moe_rs_reduce(const void* slots, void* out, long long count, 
 // one type; flags this rank's int32[world-1] landing flags.
 extern "C" int tdt_scatter_reduce(const void* own, const void* slots, void* out,
                                   long long count, int dtype, int world, int me,
-                                  const void* flags, int epoch, int max_blocks, void* diag,
-                                  long long timeout_ns, int family, void* stream) {
+                                  const void* flags, int epoch, int max_blocks, int jitter,
+                                  void* diag, long long timeout_ns, int family,
+                                  void* stream) {
   if (world < 2 || world > MAX_WORLD || count < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (count == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -521,7 +530,7 @@ extern "C" int tdt_scatter_reduce(const void* own, const void* slots, void* out,
                                        max_blocks);
     scatter_reduce_kernel<T><<<blocks, 256, 0, s>>>(
         static_cast<const T*>(own), static_cast<const T*>(slots), static_cast<T*>(out), count,
-        world, static_cast<const int*>(flags), epoch, w);
+        world, static_cast<const int*>(flags), epoch, w, jitter);
     return cudaSuccess;
   });
   if (err != cudaSuccess) return static_cast<int>(err);

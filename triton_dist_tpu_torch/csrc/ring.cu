@@ -10,6 +10,16 @@
 //   K17 tdt_ring_gemm_rs          ≙ ops/gemm_reduce_scatter.py:187
 //       (spans)                     _gemm_rs_ring_chunked_kernel
 //   K18 tdt_ring_reduce_scatter   ≙ ops/reduce_scatter.py:102 _ring_rs_kernel
+//       (one span)
+//   K23 tdt_ring_reduce_scatter   ≙ ops/reduce_scatter.py:152
+//       (spans)                     _ring_rs_chunked_kernel
+//   K19 tdt_ring_all_gather       ≙ ops/allgather.py:73 _ring_1d_kernel
+//       (one direction, one span)
+//   K20 (one direction, spans)    ≙ ops/allgather.py:144 _ring_1d_chunked_kernel
+//   K21 (two directions, one      ≙ ops/allgather.py:102 _ring_bidir_kernel
+//       span)
+//   K22 (two directions, spans)   ≙ ops/allgather.py:191
+//                                   _ring_bidir_chunked_kernel
 //
 // What they compute. K15: out[c] = A_c @ B for every shard c, in the ring's
 // arrival order c = me, me-1, ...; chunk j of shard c is forwarded to the
@@ -21,12 +31,23 @@
 // hops its own chunk, fully reduced, is in `out`. K18 is K16 without the
 // GEMM: step 0 sends chunk me-1 of x as it is, step s adds chunk me-1-s to
 // the landed partial in f32 and rounds. The rounding per hop is the TPU
-// kernels' (gemm_add_pipeline, ops/common.py:468, casts at every hop).
+// kernels' (gemm_add_pipeline, ops/common.py:468, casts at every hop). K23
+// is K18 per span: span j of step s goes on as soon as span j of the left
+// partial has landed; every element keeps K18's hop order and its rounding
+// per hop, so K23 equals K18 bit for bit. K19-K22 gather the ranks' shards:
+// going right, step s forwards shard me-s to the right neighbour (n-1 steps
+// in the one-way ring, ceil((n-1)/2) in the bidirectional one); going left,
+// step s forwards shard me+s to the left neighbour (floor((n-1)/2) steps,
+// none at world 2); span j of step s > 0 goes on once span j of step s-1
+// has landed, and each landed shard is copied to out.
 //
 // What bounds them on the H100. K15-K17 are K1's tile loop (gemm_core.cuh)
 // with waits in front of a chunk's tiles: tensor-core throughput at prefill
-// shapes. K18 streams bytes: each rank reads its n chunks once, the landed
-// partials once, and writes n-1 hops plus its own chunk.
+// shapes. K18/K23 stream bytes: each rank reads its n chunks once, the
+// landed partials once, and writes n-1 hops plus its own chunk. K19-K22
+// stream bytes too: each rank reads every shard once (its own from x, the
+// others from its workspace as they land) and writes it once into out and,
+// unless the shard ends its trip here, once into a neighbour's workspace.
 //
 // The design. A ring step waits on the left neighbour's previous step, so
 // the waits sit inside the kernel that issues the puts: one persistent
@@ -34,18 +55,28 @@
 // caller's cap), so every rank's blocks are resident together. Its work is
 // one list of items in (step, chunk) order, dealt to the blocks
 // round-robin: K15 a chunk's forward pieces then its GEMM tiles, K16/K17 a
-// chunk's tiles, K18 a step's element pieces. An item of step s > 0 first
-// waits (bounded, shmem.cuh wait_chunk) for the left neighbour's chunk of
-// step s-1, which sits earlier in the left neighbour's list, so by
-// induction over the steps every wait is met. Every store towards the
+// chunk's tiles, K18/K23 a span's element pieces, K19-K22 a span's byte
+// pieces (the bidirectional ring lists a step's right-moving spans, then
+// its left-moving ones). An item of step s > 0 first waits (bounded,
+// shmem.cuh wait_chunk) for the sending neighbour's chunk of step s-1,
+// which sits earlier in that neighbour's list, so by induction over the
+// steps every wait is met. Every store towards the
 // right neighbour goes straight into its landing view through the peer
-// table (K16/K17's epilogue, K15's and K18's pieces): no send buffer, no
-// reuse wait. The block that finishes a chunk's last piece raises the
-// neighbour's (step, chunk) flag (chunk_piece_done). Each slot of the
-// landing buffers is written once per call; across calls the neighbour's
-// arrival guards them: a kernel first tells its left neighbour it has
-// started (so its reads of the previous call are over), and every block
-// waits for the right neighbour's arrival before anything else.
+// table (K16/K17's epilogue, K15's, K18's and the gathers' pieces): no send
+// buffer, no reuse wait. The block that finishes a chunk's last piece
+// raises the neighbour's (step, chunk) flag (chunk_piece_done); the
+// bidirectional ring keeps a second flag set for the chunks that travel
+// left (per direction, not per neighbour: at world 2 both neighbours are
+// one rank). Each slot of the landing buffers is written once per call;
+// across calls the neighbour's arrival guards them: a kernel first tells
+// its left neighbour it has started (so its reads of the previous call are
+// over), and every block waits for the right neighbour's arrival before
+// anything else. The bidirectional ring stores into both neighbours, so
+// its blocks first complete barrier_neighbors: right neighbour, then left,
+// so a missing neighbour is always named by the same site. Every ring
+// kernel starts with the race-shaking delay (shmem.cuh comm_jitter, the
+// JAX kernels' salts: gathers 1 and 2, reduce-scatter 6, AG-GEMM 8,
+// GEMM-RS 11), a no-op unless the launch asks for it.
 //
 // The host issues every allocation before a rendezvous of all ranks, then
 // only the launch, then meets the ranks again (ops/common.py ring_launch and
@@ -65,7 +96,8 @@ using shmem::WaitCtx;
 
 constexpr int MAX_WORLD = 8;
 constexpr long long PIECE_BYTES = 256 * 1024;  // one forward piece of K15
-constexpr long long PIECE_ELEMS = 64 * 1024;   // one element piece of K18
+constexpr long long PIECE_ELEMS = 64 * 1024;   // one element piece of K18/K23
+constexpr long long GATHER_PIECE = 32 * 1024;  // one byte piece of K19-K22
 
 struct Ring {
   int world, me;
@@ -73,8 +105,10 @@ struct Ring {
   int* entry_signal;      // the left neighbour's slot of this rank's arrival
   ChunkFlags f;
   WaitCtx w;
+  int jitter;             // comm_jitter's base (0: none)
 
   __device__ __forceinline__ int right() const { return (me + 1) % world; }
+  __device__ __forceinline__ int left() const { return (me - 1 + world) % world; }
 
   // a kernel's first act: tell the left neighbour this rank has started,
   // then wait (bounded) until the right neighbour has, before any store
@@ -95,6 +129,15 @@ struct Ring {
   }
 };
 
+// The bidirectional ring's second half: the flag set of the chunks that
+// travel left (this rank's slots raised by its right neighbour, the left
+// neighbour's raised by this rank) and the entry handshake's other side.
+struct RingLeft {
+  const int* entry_wait;  // this rank's slot of its left neighbour's arrival
+  int* entry_signal;      // the right neighbour's slot of this rank's arrival
+  ChunkFlags f;
+};
+
 // ----------------------------------------------------------------- K15 ----
 // a [m_loc, k] this rank's shard, b [k, n], out [world * m_loc, n]; ws_me
 // / ws_right this rank's / the right neighbour's gather workspace [world *
@@ -107,6 +150,7 @@ __global__ void __launch_bounds__(E::THREADS, 1)
                         typename E::TIn* ws_me, typename E::TIn* ws_right, int m_loc, int n,
                         int k, int vec, Spans sp, Ring r) {
   using T = typename E::TIn;
+  shmem::comm_jitter(r.me, 8, r.jitter, r.world);
   r.enter();
   const int tiles_n = cdiv(n, E::BN);
   int fwd[shmem::MAX_SPANS], tiles[shmem::MAX_SPANS];
@@ -171,6 +215,7 @@ __global__ void __launch_bounds__(E::THREADS, 1)
                         const typename E::TIn* __restrict__ b, TOut* __restrict__ out,
                         const TOut* recv_me, TOut* recv_right, int m_loc, int n, int k, int vec,
                         Spans sp, Ring r) {
+  shmem::comm_jitter(r.me, 11, r.jitter, r.world);
   r.enter();
   const int tiles_n = cdiv(n, E::BN);
   int tiles[shmem::MAX_SPANS];
@@ -207,24 +252,36 @@ __global__ void __launch_bounds__(E::THREADS, 1)
   }
 }
 
-// ----------------------------------------------------------------- K18 ----
-// x [world * count] (chunk c = elements c*count ..), out [count]; recv_me /
-// recv_right [world - 1, count]. Items of step s: `pieces` element pieces.
+// ------------------------------------------------------------- K18/K23 ----
+// x [world * m_loc, n] (row chunk c = rows c*m_loc ..), out [m_loc, n];
+// recv_me / recv_right [world - 1, m_loc, n]. Items of step s, span j:
+// pieces[j] element pieces of the span's rows. The adds are element-wise,
+// so how the spans cut the rows changes no result.
 template <typename T>
 __global__ void ring_reduce_scatter_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                           const T* recv_me, T* recv_right, long long count,
-                                           Ring r) {
+                                           const T* recv_me, T* recv_right, int m_loc,
+                                           long long n, Spans sp, Ring r) {
+  shmem::comm_jitter(r.me, 6, r.jitter, r.world);
   r.enter();
-  const int pieces = static_cast<int>((count + PIECE_ELEMS - 1) / PIECE_ELEMS);
-  const int total = r.world * pieces;
+  const long long count = m_loc * n;
+  int pieces[shmem::MAX_SPANS];
+  int per_step = 0;
+  for (int j = 0; j < sp.n; ++j) {
+    pieces[j] = static_cast<int>((sp.rows[j] * n + PIECE_ELEMS - 1) / PIECE_ELEMS);
+    per_step += pieces[j];
+  }
+  const int total = r.world * per_step;
   int waited = -1;
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
-    const int s = t / pieces;
-    const long long lo = static_cast<long long>(t - s * pieces) * PIECE_ELEMS;
-    const long long hi = min(count, lo + PIECE_ELEMS);
+    const int s = t / per_step;
+    int rest = t - s * per_step, j = 0;
+    for (; j < sp.n && rest >= pieces[j]; ++j) rest -= pieces[j];
+    const long long end = (sp.off[j] + sp.rows[j]) * n;
+    const long long lo = sp.off[j] * n + static_cast<long long>(rest) * PIECE_ELEMS;
+    const long long hi = min(end, lo + PIECE_ELEMS);
     const int c = (r.me - 1 - s + 2 * r.world) % r.world;
     const bool last = s == r.world - 1;
-    r.wait_landed(s, 0, waited);
+    r.wait_landed(s, j, waited);
     const T* xc = x + (size_t)c * count;
     if (s == 0) {
       shmem::putmem_nbi_block(recv_right + lo, xc + lo, (hi - lo) * sizeof(T));
@@ -234,7 +291,105 @@ __global__ void ring_reduce_scatter_kernel(const T* __restrict__ x, T* __restric
       for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
         dst[i] = from_f32<T>(__fadd_rn(to_f32<T>(xc[i]), to_f32<T>(landed[i])));
     }
-    if (!last) shmem::chunk_piece_done(r.f, s, 0, pieces);
+    if (!last) shmem::chunk_piece_done(r.f, s, j, pieces[j]);
+  }
+}
+
+// -------------------------------------------------------------- K19-K22 ----
+// The block copies `bytes` from `src` into `out` and into `fwd` (one load,
+// two stores), either of which may be null: 16-byte vectors while every
+// pointer is 16-byte aligned, bytes for the tail.
+__device__ __forceinline__ void copy2_block(unsigned char* out, unsigned char* fwd,
+                                            const unsigned char* src, long long bytes) {
+  const bool vec = (reinterpret_cast<uintptr_t>(src) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(fwd) % 16 == 0);
+  long long done = 0;
+  if (vec) {
+    const long long n16 = bytes / 16;
+    const uint4* s16 = reinterpret_cast<const uint4*>(src);
+    for (long long i = threadIdx.x; i < n16; i += blockDim.x) {
+      const uint4 v = s16[i];
+      if (out) reinterpret_cast<uint4*>(out)[i] = v;
+      if (fwd) reinterpret_cast<uint4*>(fwd)[i] = v;
+    }
+    done = n16 * 16;
+  }
+  for (long long i = done + threadIdx.x; i < bytes; i += blockDim.x) {
+    const unsigned char v = src[i];
+    if (out) out[i] = v;
+    if (fwd) fwd[i] = v;
+  }
+}
+
+// x [m rows of row_bytes] this rank's shard, out [world * m rows]; ws_me /
+// ws_right / ws_left this rank's and its neighbours' gather workspaces
+// [world * m rows]. Direction 0 carries shards right (shard me-s at step
+// s), direction 1 left (shard me+s). A direction with `steps` forwarding
+// steps lists steps 0 .. steps: step s < steps copies its shard to out and
+// forwards it, the last one copies its landed shard to out only. Items of
+// step s: for each direction that has it, for each span j, pieces[j] byte
+// pieces. Shard me goes to out once, in direction 0's step 0.
+__global__ void ring_all_gather_kernel(const unsigned char* __restrict__ x,
+                                       unsigned char* __restrict__ out,
+                                       const unsigned char* ws_me, unsigned char* ws_right,
+                                       unsigned char* ws_left, long long row_bytes, Spans sp,
+                                       int m, int dirs, Ring r, RingLeft rl) {
+  shmem::comm_jitter(r.me, dirs == 2 ? 2 : 1, r.jitter, r.world);
+  if (dirs == 2) {
+    const shmem::Neighbours nb = {r.entry_signal, rl.entry_signal, r.entry_wait,
+                                  rl.entry_wait,  r.left(),        r.right()};
+    shmem::barrier_neighbors(nb, r.f.epoch, r.w);
+  } else {
+    r.enter();
+  }
+  const int n = r.world;
+  const int steps[2] = {dirs == 2 ? n / 2 : n - 1, dirs == 2 ? (n - 1) / 2 : 0};
+  int pieces[shmem::MAX_SPANS];
+  int per_dir = 0;
+  for (int j = 0; j < sp.n; ++j) {
+    pieces[j] = static_cast<int>((sp.rows[j] * row_bytes + GATHER_PIECE - 1) / GATHER_PIECE);
+    per_dir += pieces[j];
+  }
+  int total = 0;
+  for (int d = 0; d < 2; ++d) total += steps[d] > 0 ? (steps[d] + 1) * per_dir : 0;
+  const long long shard = m * row_bytes;
+  int waited = -1;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    // (step, direction) of item t: step-major, direction 0 first
+    int rest = t, s = 0, d = 0;
+    for (;; ++s) {
+      if (s <= steps[0]) {
+        if (rest < per_dir) break;
+        rest -= per_dir;
+      }
+      if (s <= steps[1] && steps[1] > 0) {
+        if (rest < per_dir) {
+          d = 1;
+          break;
+        }
+        rest -= per_dir;
+      }
+    }
+    int j = 0;
+    for (; j < sp.n && rest >= pieces[j]; ++j) rest -= pieces[j];
+    const ChunkFlags& f = d == 0 ? r.f : rl.f;
+    const int c = d == 0 ? (r.me - s + n) % n : (r.me + s) % n;
+    if (s > 0) {
+      const int key = d * n * shmem::MAX_SPANS + ChunkFlags::slot(s, j);
+      if (key != waited) {
+        shmem::wait_chunk(f, s - 1, j, d == 0 ? n : n + (n - 1) * shmem::MAX_SPANS, r.w);
+        waited = key;
+      }
+    }
+    const long long lo = static_cast<long long>(rest) * GATHER_PIECE;
+    const long long len = min(GATHER_PIECE, sp.rows[j] * row_bytes - lo);
+    const long long at = c * shard + sp.off[j] * row_bytes + lo;
+    const unsigned char* src = s == 0 ? x + sp.off[j] * row_bytes + lo : ws_me + at;
+    const bool forward = s < steps[d];
+    copy2_block(d == 1 && s == 0 ? nullptr : out + at,
+                forward ? (d == 0 ? ws_right : ws_left) + at : nullptr, src, len);
+    if (forward) shmem::chunk_piece_done(f, s, j, pieces[j]);
   }
 }
 
@@ -251,21 +406,22 @@ int persistent_grid(long long items, int max_blocks) {
 }
 
 bool make_ring(int world, int me, int epoch, void* entry_wait, void* entry_signal,
-               void* flags_me, void* flags_right, void* count, void* diag,
+               void* flags_me, void* flags_right, void* count, int jitter, void* diag,
                long long timeout_ns, int family, Ring& r) {
-  if (world < 2 || world > MAX_WORLD || me < 0 || me >= world) return false;
+  if (world < 2 || world > MAX_WORLD || me < 0 || me >= world || jitter < 0) return false;
   r.world = world;
   r.me = me;
   r.entry_wait = static_cast<const int*>(entry_wait);
   r.entry_signal = static_cast<int*>(entry_signal);
   r.f.mine = static_cast<int*>(flags_me);
-  r.f.right = static_cast<int*>(flags_right);
+  r.f.peer = static_cast<int*>(flags_right);
   r.f.count = static_cast<int*>(count);
   r.f.epoch = epoch;
   r.w.diag = static_cast<int*>(diag);
   r.w.timeout_ns = timeout_ns;
   r.w.rank = me;
   r.w.family = family;
+  r.jitter = jitter;
   return true;
 }
 
@@ -290,11 +446,12 @@ extern "C" int tdt_ring_ag_gemm(const void* a, const void* b, void* out, void* w
                                 int out_dtype, const int* spans, int n_spans, int world, int me,
                                 void* entry_wait, void* entry_signal, void* flags_me,
                                 void* flags_right, void* count, int epoch, int max_blocks,
-                                void* diag, long long timeout_ns, int family, void* stream) {
+                                int jitter, void* diag, long long timeout_ns, int family,
+                                void* stream) {
   Ring r;
   Spans sp;
-  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count, diag,
-                 timeout_ns, family, r) ||
+  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count,
+                 jitter, diag, timeout_ns, family, r) ||
       !make_spans(spans, n_spans, m_loc, sp) || n < 1 || k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -329,11 +486,12 @@ extern "C" int tdt_ring_gemm_rs(const void* a, const void* b, void* out, void* r
                                 int out_dtype, const int* spans, int n_spans, int world, int me,
                                 void* entry_wait, void* entry_signal, void* flags_me,
                                 void* flags_right, void* count, int epoch, int max_blocks,
-                                void* diag, long long timeout_ns, int family, void* stream) {
+                                int jitter, void* diag, long long timeout_ns, int family,
+                                void* stream) {
   Ring r;
   Spans sp;
-  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count, diag,
-                 timeout_ns, family, r) ||
+  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count,
+                 jitter, diag, timeout_ns, family, r) ||
       !make_spans(spans, n_spans, m_loc, sp) || n < 1 || k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -359,28 +517,73 @@ extern "C" int tdt_ring_gemm_rs(const void* a, const void* b, void* out, void* r
   return static_cast<int>(cudaGetLastError());
 }
 
-// K18. x [world * count], out [count], recv_* [world - 1, count], one type.
+// K18 (one span) and K23. x [world * m_loc, n], out [m_loc, n], recv_*
+// [world - 1, m_loc, n], one type; spans as K15's, covering m_loc.
 extern "C" int tdt_ring_reduce_scatter(const void* x, void* out, void* recv_me,
-                                       void* recv_right, long long count, int dtype, int world,
-                                       int me, void* entry_wait, void* entry_signal,
-                                       void* flags_me, void* flags_right, void* count_ptr,
-                                       int epoch, int max_blocks, void* diag,
+                                       void* recv_right, int m_loc, long long n, int dtype,
+                                       const int* spans, int n_spans, int world, int me,
+                                       void* entry_wait, void* entry_signal, void* flags_me,
+                                       void* flags_right, void* count, int epoch,
+                                       int max_blocks, int jitter, void* diag,
                                        long long timeout_ns, int family, void* stream) {
   Ring r;
-  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count_ptr,
-                 diag, timeout_ns, family, r) ||
-      count < 1)
+  Spans sp;
+  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count,
+                 jitter, diag, timeout_ns, family, r) ||
+      !make_spans(spans, n_spans, m_loc, sp) || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dispatch_one(dtype, [&](auto t) {
     using T = decltype(t);
-    const long long items = world * ((count + PIECE_ELEMS - 1) / PIECE_ELEMS);
-    ring_reduce_scatter_kernel<T><<<persistent_grid(items, max_blocks), 256, 0, s>>>(
+    long long items = 0;
+    for (int j = 0; j < n_spans; ++j) items += (sp.rows[j] * n + PIECE_ELEMS - 1) / PIECE_ELEMS;
+    ring_reduce_scatter_kernel<T><<<persistent_grid(world * items, max_blocks), 256, 0, s>>>(
         static_cast<const T*>(x), static_cast<T*>(out), static_cast<const T*>(recv_me),
-        static_cast<T*>(recv_right), count, r);
+        static_cast<T*>(recv_right), m_loc, n, sp, r);
     return cudaSuccess;
   });
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K19-K22. x [m rows of row_bytes], out [world * m rows], ws_* the gather
+// workspaces [world * m rows]; dirs 1 (one-way) or 2 (bidirectional: the
+// *_left arguments are the left-moving half, null at dirs 1); spans as
+// K15's, covering m.
+extern "C" int tdt_ring_all_gather(const void* x, void* out, void* ws_me, void* ws_right,
+                                   void* ws_left, long long row_bytes, int m, const int* spans,
+                                   int n_spans, int dirs, int world, int me, void* entry_wait,
+                                   void* entry_signal, void* flags_me, void* flags_right,
+                                   void* count, void* entry_wait_left, void* entry_signal_right,
+                                   void* flags_me_left, void* flags_left, void* count_left,
+                                   int epoch, int max_blocks, int jitter, void* diag,
+                                   long long timeout_ns, int family, void* stream) {
+  Ring r;
+  Spans sp;
+  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count,
+                 jitter, diag, timeout_ns, family, r) ||
+      !make_spans(spans, n_spans, m, sp) || row_bytes < 1 || (dirs != 1 && dirs != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RingLeft rl = {};
+  if (dirs == 2) {
+    if (!entry_wait_left || !entry_signal_right || !flags_me_left || !flags_left ||
+        !count_left || !ws_left)
+      return static_cast<int>(cudaErrorInvalidValue);
+    rl.entry_wait = static_cast<const int*>(entry_wait_left);
+    rl.entry_signal = static_cast<int*>(entry_signal_right);
+    rl.f.mine = static_cast<int*>(flags_me_left);
+    rl.f.peer = static_cast<int*>(flags_left);
+    rl.f.count = static_cast<int*>(count_left);
+    rl.f.epoch = epoch;
+  }
+  long long per_dir = 0;
+  for (int j = 0; j < n_spans; ++j)
+    per_dir += (sp.rows[j] * row_bytes + GATHER_PIECE - 1) / GATHER_PIECE;
+  ring_all_gather_kernel<<<persistent_grid(world * per_dir, max_blocks), 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out),
+      static_cast<const unsigned char*>(ws_me), static_cast<unsigned char*>(ws_right),
+      static_cast<unsigned char*>(ws_left), row_bytes, sp, m, dirs, r, rl);
   return static_cast<int>(cudaGetLastError());
 }
 

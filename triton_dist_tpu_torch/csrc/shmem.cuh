@@ -1,8 +1,9 @@
 // B1 · the device side of the SHMEM surface the distributed kernels share
 // (≙ triton_dist_tpu/shmem/device.py): puts, put-with-signal, signal,
-// bounded waits, quiet, the all-rank barrier, and the chunked surface of
-// the ring kernels (csrc/ring.cu): per-(step, chunk) puts with a flag slot
-// of their own and the bounded per-chunk wait.
+// bounded waits, quiet, the all-rank barrier, the ring neighbours' barrier,
+// the race-shaking delay, and the chunked surface of the ring kernels
+// (csrc/ring.cu): per-(step, chunk) puts with a flag slot of their own and
+// the bounded per-chunk wait.
 //
 // Symmetric memory: every rank holds one allocation of the same shape per
 // symmetric buffer, and a device-side int64[world] table of the ranks'
@@ -169,6 +170,55 @@ __device__ __forceinline__ void barrier_wait_warp(const long long* flags, int wo
   __syncwarp();
 }
 
+// barrier_neighbors (shmem/device.py:756): a bounded barrier with the two
+// ring neighbours only, the entry handshake of the bidirectional ring.
+// Block 0 writes `epoch` into both neighbours' slots of this rank's
+// arrival; every block then waits for the right neighbour's arrival, and
+// only once it has come for the left one's. So a neighbour that never comes
+// is always named by the same site (its rank), whichever block's clock runs
+// out first. At world 2 both neighbours are one rank and one slot.
+struct Neighbours {
+  int* to_left;           // the left neighbour's slot of this rank's arrival
+  int* to_right;          // the right neighbour's slot of it
+  const int* from_right;  // this rank's slot of the right neighbour's arrival
+  const int* from_left;   // and of the left neighbour's
+  int left, right;
+};
+
+__device__ __forceinline__ void barrier_neighbors(const Neighbours& nb, int epoch,
+                                                  const WaitCtx& w) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    signal_set(nb.to_left, epoch);
+    signal_set(nb.to_right, epoch);
+  }
+  if (threadIdx.x == 0) {
+    if (wait_until_ge(nb.from_right, epoch, w, nb.right, KIND_BARRIER))
+      wait_until_ge(nb.from_left, epoch, w, nb.left, KIND_BARRIER);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// comm_jitter (shmem/device.py:116): race shaking. Thread 0 of every block
+// runs base * (1 + (rank * 7919 + salt * 104729) mod 8) dependent integer
+// steps (the JAX package's spread, 1x to 8x per (rank, salt)) while the
+// block waits, so the ranks issue their stores and waits at different
+// times. A no-op when base is 0 and at world 1; it changes when a kernel
+// acts, never what it computes.
+__device__ __forceinline__ void comm_jitter(int rank, int salt, int base, int world) {
+  if (base <= 0 || world <= 1) return;
+  if (threadIdx.x == 0) {
+    const long long iters =
+        static_cast<long long>(base) * (1 + (rank * 7919 + salt * 104729) % 8);
+    unsigned v = static_cast<unsigned>(rank);
+    for (long long i = 0; i < iters; ++i) {
+      v = v * 1664525u + 1013904223u;
+      asm volatile("" : "+r"(v));  // one step per iteration: nothing to fold
+    }
+  }
+  __syncthreads();
+}
+
 // ------------------------------------------------- the chunked surface ----
 //
 // A ring kernel moves each hop's payload in spans ("chunks") of a shard's
@@ -188,12 +238,13 @@ struct Spans {
 };
 
 // ChunkedPutHandle (shmem/device.py:248): where one launch's (step,
-// chunk) slots live. `mine` are this rank's arrival flags (raised by its
-// left neighbour), `right` its right neighbour's, `count` this rank's
-// per-slot count of finished pieces (zero between launches).
+// chunk) slots of one direction live. `mine` are this rank's arrival flags
+// (raised by the neighbour it receives from), `peer` the flags of the
+// neighbour it sends to, `count` this rank's per-slot count of finished
+// pieces (zero between launches).
 struct ChunkFlags {
   int* mine;
-  int* right;
+  int* peer;
   int* count;
   int epoch;
 
@@ -217,18 +268,20 @@ __device__ __forceinline__ void chunk_piece_done(const ChunkFlags& f, int step, 
     if (atomicAdd(f.count + s, 1) == pieces - 1) {
       f.count[s] = 0;
       __threadfence_system();
-      signal_set(f.right + s, f.epoch);
+      signal_set(f.peer + s, f.epoch);
     }
   }
 }
 
 // wait_chunk (shmem/device.py:492): the block waits, bounded, until chunk
-// `chunk` of the left neighbour's step-`step` put has landed. The site is
-// world + slot (resilience/sites.py).
-__device__ __forceinline__ void wait_chunk(const ChunkFlags& f, int step, int chunk, int world,
-                                           const WaitCtx& w) {
+// `chunk` of the sending neighbour's step-`step` put has landed. The site
+// is site_base + slot (resilience/sites.py: site_base is the world for the
+// chunks that travel right, world + (world - 1) * MAX_SPANS for those that
+// travel left).
+__device__ __forceinline__ void wait_chunk(const ChunkFlags& f, int step, int chunk,
+                                           int site_base, const WaitCtx& w) {
   const int s = ChunkFlags::slot(step, chunk);
-  wait_block(f.mine + s, f.epoch, w, world + s, KIND_SIGNAL);
+  wait_block(f.mine + s, f.epoch, w, site_base + s, KIND_SIGNAL);
 }
 
 }  // namespace shmem

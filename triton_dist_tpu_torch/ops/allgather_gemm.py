@@ -178,7 +178,7 @@ def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype):
     rc = launch.lib.tdt_ag_gemm_consumer(
         gathered.data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_loc, k,
         DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], n, me, flags,
-        launch.epoch, max_consumer_blocks(ctx), *launch.wait,
+        launch.epoch, max_consumer_blocks(ctx), launch.jitter, *launch.wait,
         stream_ptr(torch.cuda.current_stream()),
     )
     _build.check(launch.lib, rc, "ag_gemm")
@@ -205,7 +205,7 @@ def _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans):
         a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.peer_addr(me), ws.peer_addr(ring.right),
         m_loc, n_loc, k, DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], ring.spans,
         ring.n_spans, n, me, *ring.flags, ring.launch.epoch, max_consumer_blocks(ctx),
-        *ring.launch.wait, stream_ptr(torch.cuda.current_stream()),
+        ring.launch.jitter, *ring.launch.wait, stream_ptr(torch.cuda.current_stream()),
     )
     _build.check(ring.lib, rc, "ag_gemm ring")
     count_launch(_ag_gemm_ring)

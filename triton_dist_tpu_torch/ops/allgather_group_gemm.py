@@ -7,8 +7,10 @@ world 1.
 Two entries, as in the JAX package:
 
 - :func:`ag_group_gemm`, the sequential composition: gather the tokens
-  and their routing, align them globally, gather the aligned rows, one
-  grouped GEMM (K8). The tensor-parallel MoE forward takes it at world 1.
+  (``all_gather`` with ``ag_method``: K5 on a full mesh, the ring
+  allgathers K19-K22 off one) and their routing, align them globally,
+  gather the aligned rows, one grouped GEMM (K8). The tensor-parallel MoE
+  forward takes it at world 1 and, with ``overlap=False``, at any world.
 - :func:`ag_group_gemm_overlap`, sort-before-gather: each rank pre-sorts
   its own tokens into expert-aligned order (:func:`presort_local_rows`,
   over the per-rank alignment of ``moe_utils.moe_align_ranked``), the
@@ -54,6 +56,7 @@ def ag_group_gemm(
     *,
     ctx=None,
     config=None,
+    ag_method: str = "auto",
     gather_output: bool = False,
 ):
     """Sequential MoE up-projection (≙ ``ag_group_gemm``, ``:73``; call
@@ -61,10 +64,11 @@ def ag_group_gemm(
     expert bank sharded on its columns, topk_ids ``[m_loc, topk]`` →
     ``(h_sorted [t_pad, n_loc], alignment)`` over the gathered tokens, and
     with `gather_output` also the block-aligned rows ``a_sorted [t_pad,
-    K]`` the GEMM read (the backward's residual)."""
+    K]`` the GEMM read (the backward's residual). The tokens are gathered
+    with ``all_gather(method=ag_method)`` (``:101``)."""
     cfg = check_config(config)
     topk = topk_ids.shape[1]
-    a_full = all_gather(a, ctx=ctx)
+    a_full = all_gather(a, ctx=ctx, method=ag_method)
     ids_full = topk_ids if axis_size(ctx) == 1 else ctx.all_gather(topk_ids, 0)
     alignment = moe_align_block_size(ids_full.reshape(-1), b.shape[0], cfg.block_m)
     a_sorted = gather_sorted_rows(a_full, alignment, topk)

@@ -4,9 +4,9 @@ Pallas body is ``gemm_add_pipeline`` at ``:468`` launched as
 ``gemm_only._kernel`` at ``:523``), the launch wrapper every distributed
 kernel goes through (≙ ``dist_pallas_call``, ``:72``), the standalone
 device barrier ``barrier_all_op`` (``:913``, kernel ``:918``) → K4, and
-what the ring kernels K15–K18 share: the span schedule (``chunk_schedule``,
-``:283``), the per-launch flag sets of ``csrc/ring.cu`` and the ring's
-hop-order sum that their plain versions follow.
+what the ring kernels K15–K23 share: the span schedule (``chunk_schedule``,
+``:283``), the per-launch flag sets of ``csrc/ring.cu`` in one direction or
+both, and the ring's hop-order sum that their plain versions follow.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from triton_dist_tpu_torch import _build
+from triton_dist_tpu_torch import _build, config
 from triton_dist_tpu_torch.ops.gemm import matmul
 from triton_dist_tpu_torch.resilience import watchdog
 from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
@@ -28,28 +28,32 @@ _WAIT = [_P, _LL, _I, _P]  # diag, timeout ns, family code, stream
 DIST_PROTOTYPES = {
     "tdt_barrier_arrive": [_P, _I, _I, _I, _P],
     "tdt_barrier_wait": [_P, _I, _I, _I] + _WAIT,
-    "tdt_all_gather_push": [_P, _P, _LL, _P, _P, _I, _I, _I, _P],
+    "tdt_all_gather_push": [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
     "tdt_all_gather_collect": [_P, _LL, _P, _P, _I, _I, _I] + _WAIT,
     "tdt_put_signal": [_I, ctypes.POINTER(_LL), _P, _LL, _I, ctypes.POINTER(_LL), _I, _P],
-    "tdt_ag_gemm_consumer": [_P] * 3 + [_I] * 7 + [_P, _I, _I] + _WAIT,
-    "tdt_gemm_rs_reduce": [_P] * 3 + [_I] * 6 + [ctypes.POINTER(_P), _I, _P, _I, _I] + _WAIT,
+    "tdt_ag_gemm_consumer": [_P] * 3 + [_I] * 7 + [_P, _I, _I, _I] + _WAIT,
+    "tdt_gemm_rs_reduce": [_P] * 3 + [_I] * 6 + [ctypes.POINTER(_P), _I, _P, _I, _I, _I]
+    + _WAIT,
     "tdt_ag_group_gemm_consumer": [_P] * 4 + [_I] * 9 + [_P, _I, _I] + _WAIT,
     "tdt_moe_combine_push": [_P] * 4 + [_I] * 4 + [_P],
     "tdt_moe_rs_reduce": [_P, _P, _LL, _I, _I, _I, _P, _I, _I] + _WAIT,
-    "tdt_scatter_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _I, _I] + _WAIT,
+    "tdt_scatter_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _I, _I, _I] + _WAIT,
     "tdt_sleep": [_LL, _P],
     "tdt_stream_create": [_I, ctypes.POINTER(_P)],
     "tdt_enable_peer_access": [_I, _I],
 }
 
 
-_RING = [_P, _P, _P, _P, _P]  # entry wait, entry signal, flags mine, flags right, counters
+_RING = [_P, _P, _P, _P, _P]  # entry wait, entry signal, flags mine, flags peer, counters
+_SPANS = [ctypes.POINTER(_I), _I]
+_LAUNCH = [_I, _I, _I]  # epoch, grid cap, jitter
 RING_PROTOTYPES = {
-    "tdt_ring_ag_gemm": [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I), _I, _I, _I] + _RING
-    + [_I, _I] + _WAIT,
-    "tdt_ring_gemm_rs": [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I), _I, _I, _I] + _RING
-    + [_I, _I] + _WAIT,
-    "tdt_ring_reduce_scatter": [_P] * 4 + [_LL, _I, _I, _I] + _RING + [_I, _I] + _WAIT,
+    "tdt_ring_ag_gemm": [_P] * 5 + [_I] * 5 + _SPANS + [_I, _I] + _RING + _LAUNCH + _WAIT,
+    "tdt_ring_gemm_rs": [_P] * 5 + [_I] * 5 + _SPANS + [_I, _I] + _RING + _LAUNCH + _WAIT,
+    "tdt_ring_reduce_scatter": [_P] * 4 + [_I, _LL, _I] + _SPANS + [_I, _I] + _RING
+    + _LAUNCH + _WAIT,
+    "tdt_ring_all_gather": [_P] * 5 + [_LL, _I] + _SPANS + [_I, _I, _I] + _RING + _RING
+    + _LAUNCH + _WAIT,
 }
 
 
@@ -75,15 +79,17 @@ def gemm_only(
 class Launch:
     """One rank's side of one launch of a distributed kernel family (≙
     what ``dist_pallas_call`` adds to every kernel): the family's next
-    epoch, which the launch's flags carry and its waits wait for, and the
+    epoch, which the launch's flags carry and its waits wait for, the
     bounded-wait arguments (the rank's diagnostic buffer, the timeout,
-    the family code)."""
+    the family code) and the race-shaking delay (``config.debug_comm_delay``
+    when the launch opened)."""
 
     lib: ctypes.CDLL
     rank: int
     world: int
     epoch: int
     wait: tuple  # (diag pointer, timeout ns, family code)
+    jitter: int
 
 
 def dist_launch(ctx, family: str) -> Launch:
@@ -91,7 +97,7 @@ def dist_launch(ctx, family: str) -> Launch:
     r = ctx.rank
     return Launch(
         dist_lib(), r, ctx.world, ctx.next_epoch(family),
-        watchdog.wait_args(ctx.diag[r], family),
+        watchdog.wait_args(ctx.diag[r], family), int(config.debug_comm_delay),
     )
 
 
@@ -241,34 +247,48 @@ def ring_order_sum(parts, me: int, world: int, out_dtype: torch.dtype) -> torch.
 @dataclasses.dataclass(frozen=True)
 class RingLaunch:
     """One rank's side of one launch of a ring kernel (``csrc/ring.cu``):
-    the launch (epoch, bounded-wait arguments), the pointers of its flag
-    sets — this rank's slot of its right neighbour's arrival, its left
+    the launch (epoch, bounded-wait arguments, jitter), the pointers of its
+    flag sets — this rank's slot of its right neighbour's arrival, its left
     neighbour's slot of its own, its (step, chunk) arrival flags, its right
-    neighbour's, its completion counters — and the spans as a C array."""
+    neighbour's, its completion counters — and, for a ring in both
+    directions, the same five for the left-moving half (this rank's slot
+    of its left neighbour's arrival, its right neighbour's slot of its own,
+    the left-moving flags: its own, its left neighbour's, its counters; all
+    null in one direction), and the spans as a C array."""
 
     launch: Launch
     lib: ctypes.CDLL
     left: int
     right: int
     flags: tuple
+    flags_left: tuple
     spans: ctypes.Array
     n_spans: int
 
 
-def ring_launch(ctx, family: str, spans) -> RingLaunch:
-    """Open one launch of the ring kernel `family` (inside ``ctx.run``):
-    its flag sets are symmetric and allocated once (fixed sizes), so this
-    allocates nothing after the first call."""
+def ring_launch(ctx, family: str, spans, directions: int = 1) -> RingLaunch:
+    """Open one launch of the ring kernel `family` (inside ``ctx.run``),
+    its flags in one direction (right) or both: each direction has a
+    (step, span) flag set and counters of its own, since at world 2 the
+    left and the right neighbour are the same rank. The sets are
+    symmetric and allocated once (fixed sizes), so this allocates nothing
+    after the first call."""
     n, me = ctx.world, ctx.rank
     left, right = (me - 1) % n, (me + 1) % n
     entry = symmetric_flags(ctx, f"{family}.entry")
     slots = 4 * (n - 1) * MAX_SPANS
     arrive = ctx.symmetric(f"{family}.flags", slots)
     count = ctx.symmetric(f"{family}.count", slots)
+    flags_left = (0,) * 5
+    if directions == 2:
+        arrive_l = ctx.symmetric(f"{family}.flags_left", slots)
+        count_l = ctx.symmetric(f"{family}.count_left", slots)
+        flags_left = (entry.peer_addr(me, 4 * left), entry.peer_addr(right, 4 * me),
+                      arrive_l.peer_addr(me), arrive_l.peer_addr(left), count_l.peer_addr(me))
     flat = [v for span in spans for v in span]
     return RingLaunch(
         dist_launch(ctx, family), ring_lib(), left, right,
         (entry.peer_addr(me, 4 * right), entry.peer_addr(left, 4 * me),
          arrive.peer_addr(me), arrive.peer_addr(right), count.peer_addr(me)),
-        (ctypes.c_int * len(flat))(*flat), len(spans),
+        flags_left, (ctypes.c_int * len(flat))(*flat), len(spans),
     )

@@ -185,7 +185,8 @@ def _gemm_rs_scatter(a, b, ctx, out_dtype):
     rc = launch.lib.tdt_gemm_rs_reduce(
         own.data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_dim, k_loc,
         DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], n, ptrs, me, flags.peer_addr(me),
-        launch.epoch, max_consumer_blocks(ctx), *launch.wait, stream_ptr(comp),
+        launch.epoch, max_consumer_blocks(ctx), launch.jitter, *launch.wait,
+        stream_ptr(comp),
     )
     _build.check(launch.lib, rc, "gemm_rs")
     count_launch(gemm_rs)
@@ -211,7 +212,7 @@ def _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans):
         a.data_ptr(), b.data_ptr(), out.data_ptr(), recv.peer_addr(me),
         recv.peer_addr(ring.right), m_loc, n_dim, k_loc, DTYPE_CODE[a.dtype],
         DTYPE_CODE[out_dtype], ring.spans, ring.n_spans, n, me, *ring.flags,
-        ring.launch.epoch, max_consumer_blocks(ctx), *ring.launch.wait,
+        ring.launch.epoch, max_consumer_blocks(ctx), ring.launch.jitter, *ring.launch.wait,
         stream_ptr(torch.cuda.current_stream()),
     )
     _build.check(ring.lib, rc, "gemm_rs ring")

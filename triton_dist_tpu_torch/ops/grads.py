@@ -133,16 +133,18 @@ def group_gemm_grad(a_sorted, b, expert_ids, *, config=None, out_dtype=None):
 
 class _TPMoE(torch.autograd.Function):
     @staticmethod
-    def forward(fc, x, w_up, w_down, topk_ids, topk_weights, ctx, cfg):
+    def forward(fc, x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, overlap):
         out, res = _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg,
-                                        residuals=True)
+                                        residuals=True, overlap=overlap)
         fc.save_for_backward(w_up, w_down)
         fc.res, fc.dist, fc.cfg = res, ctx, cfg
         return out
 
     @staticmethod
     def backward(fc, dout):
-        """``_tp_moe_bwd`` (``:417-534``) step for step."""
+        """``_tp_moe_bwd`` (``:417-534``) step for step, over the global
+        alignment: the sequential composition's own, or the global view of
+        the overlapped pair's rank-major one."""
         w_up, w_down = fc.saved_tensors
         res, ctx, cfg = fc.res, fc.dist, fc.cfg
         fc.res = None
@@ -193,13 +195,16 @@ class _TPMoE(torch.autograd.Function):
         da_full = torch.zeros((m_tot, da_sorted.shape[1]), dtype=f32, device=dout.device)
         da_full.index_add_(0, token_of_row, torch.where(valid[:, None], da_sorted, 0.0))
         dx = reduce_scatter(da_full, ctx=ctx).to(dtype)
-        return dx, dw_up, dw_down, None, dtw, None, None
+        return dx, dw_up, dw_down, None, dtw, None, None, None
 
 
-def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_config=None):
+def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_config=None,
+                    overlap: bool = True):
     """Differentiable tensor-parallel MoE MLP (≙ ``tp_moe_mlp_grad``,
     ``:345``; call inside ``ctx.run(..., grad=True)``). Forward
-    ``ops/moe_mlp.py`` (K8 at world 1; K9, K10 at world > 1). Backward:
+    ``ops/moe_mlp.py`` (K8 at world 1; K9, K10 at world > 1, or with
+    ``overlap=False`` the sequential composition: the token gather, K8,
+    K8 and the reduce-scatter). Backward:
     the all-gather of ``dout`` (host collective), the remat of ``y_sorted``
     and the two transposed grouped GEMMs on K8 (f32 out), ``dw_up`` and
     ``dw_down`` on K11, the GELU's VJP and the token scatter-add plain,
@@ -207,7 +212,7 @@ def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_con
     ``reduce_scatter`` (K12; K18 off a full mesh). ``topk_ids`` gets no
     gradient."""
     return _TPMoE.apply(x, w_up, w_down, topk_ids, topk_weights, ctx,
-                        check_config(gg_config))
+                        check_config(gg_config), overlap)
 
 
 class _PSum(torch.autograd.Function):

@@ -2,13 +2,16 @@
 ``triton_dist_tpu/ops/grads.py::_tp_moe_forward_impl``, ``:238-342``, for
 bf16 and f32 expert banks).
 
-World > 1 takes the overlapped pair: the routing is gathered (host
-collectives, ≙ XLA's ``all_gather``), aligned per rank
-(``moe_align_ranked``), the up-projection runs as K9, the GELU as a plain
-elementwise pass, the down-projection + combine + reduce-scatter as K10.
-World 1 has nothing to overlap and takes the sequential composition, as
-``:288-294`` routes it: ``ag_group_gemm`` then ``moe_reduce_rs`` with the
-GELU fused into the down-projection's A tiles (two K8 launches).
+World > 1 takes the overlapped pair by default (``overlap=True``): the
+routing is gathered (host collectives, ≙ XLA's ``all_gather``), aligned
+per rank (``moe_align_ranked``), the up-projection runs as K9, the GELU as
+a plain elementwise pass, the down-projection + combine + reduce-scatter
+as K10. ``overlap=False`` takes the sequential composition at any world
+(``:320-333``): ``ag_group_gemm`` (the token gather K5, or K19/K21 on a
+ring, then K8) over the global alignment, then ``moe_reduce_rs`` with the
+GELU fused into the down-projection's A tiles (K8) and its
+reduce-scatter (K12, or K18 on a ring). World 1 has nothing to overlap
+and always takes the sequential composition, as ``:288-294`` routes it.
 
 Asked for them, both also return the residuals the backward needs
 (``ops/grads.py``'s ``tp_moe_mlp_grad``); serving does not ask, and pays
@@ -41,8 +44,9 @@ class MoEResiduals:
     ``a_sorted [t_pad, H]`` (sentinel rows hold clamped junk), the
     pre-activation up-projection ``h_sorted [t_pad, F / world]``, the
     gathered routing weights ``tw_full [m_tot, topk]`` and the alignment
-    the rows follow: the global one at world 1, the rank-major one of the
-    overlapped pair at world > 1 (the backward takes its global view)."""
+    the rows follow: the global one of the sequential composition, the
+    rank-major one of the overlapped pair (the backward takes its global
+    view)."""
 
     a_sorted: torch.Tensor
     h_sorted: torch.Tensor
@@ -50,14 +54,15 @@ class MoEResiduals:
     alignment: MoEAlignment | RankedAlignment
 
 
-def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, residuals=False):
+def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, residuals=False,
+                         overlap=True):
     """One rank's MoE MLP: ``(out [m_loc, H], res)``, `res` the
     :class:`MoEResiduals` with `residuals`, else None."""
     n = axis_size(ctx)
     m_loc = x.shape[0]
     topk = topk_ids.shape[1]
     tw_full = topk_weights if n == 1 else ctx.all_gather(topk_weights, 0)
-    if n > 1:
+    if n > 1 and overlap:
         ids_full = ctx.all_gather(topk_ids, 0)
         ral = moe_align_ranked(ids_full.reshape(n, m_loc * topk), w_up.shape[0], cfg.block_m,
                                m_loc)
@@ -92,11 +97,13 @@ def tp_moe_mlp(
     *,
     ctx=None,
     gg_config=None,
+    overlap: bool = True,
 ) -> torch.Tensor:
     """One rank's MoE MLP (call inside ``ctx.run``): x ``[m_loc, H]`` token
     shard, w_up ``[E, H, F / world]``, w_down ``[E, F / world, H]``, the
     local tokens' routing ``topk_ids [m_loc, topk]`` and f32
     ``topk_weights`` → ``[m_loc, H]`` in x's dtype. The activation is the
-    tanh GELU, the one the kernels fuse."""
+    tanh GELU, the one the kernels fuse. ``overlap`` picks the overlapped
+    pair (True) or the sequential composition at world > 1."""
     return _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx,
-                                check_config(gg_config))[0]
+                                check_config(gg_config), overlap=overlap)[0]

@@ -1,8 +1,10 @@
-"""K12 and K18 · the standalone reduce-scatter (≙
+"""K12, K18 and K23 · the standalone reduce-scatter (≙
 ``triton_dist_tpu/ops/reduce_scatter.py::reduce_scatter``, ``:280``): its
 ``scatter_reduce`` method runs ``_scatter_reduce_kernel`` (``:227``,
 launched at ``:410``) → K12, its ``ring`` method ``_ring_rs_kernel``
-(``:102``, the branch at ``:392-395``) → K18; with the method choice
+(``:102``, the branch at ``:392-395``) → K18 and, with
+``chunks_per_shard > 1``, ``_ring_rs_chunked_kernel`` (``:152``) → K23;
+with the method choice
 (``get_auto_reduce_scatter_method``, ``:68``), the config
 (``ReduceScatterConfig``, ``:52``) and the plain versions
 (``_reduce_scatter_xla``, ``:45``, and the ring's hop-order twin).
@@ -26,8 +28,11 @@ one persistent kernel a rank: step 0 sends chunk ``me-1`` into the right
 neighbour's landing slot 0 as it is; step s adds chunk ``me-1-s`` to the
 partial that landed from the left in f32, rounds to the dtype and stores
 into the right neighbour's slot s; the last step's sum is this rank's
-chunk. ``chunks_per_shard > 1`` (``_ring_rs_chunked_kernel``, ``:152``) is
-not ported yet and raises (ROADMAP B12 chunked).
+chunk. K23 is the same kernel over spans of the chunk's rows (quantized
+as ``:381-384`` quantizes them, ``ring_spans``): span j of step s goes on
+as soon as span j of the left partial has landed. Every element keeps
+K18's hop order and its rounding per hop, so K23 equals K18 bit for bit
+and both are held to one plain version.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ class ReduceScatterConfig:
     """Tunables (≙ ``ReduceScatterConfig``, ``:52``, field for field):
     ``method`` pins the kernel family when the call asks for "auto";
     ``block_m`` quantizes the spans; ``chunks_per_shard`` > 1 is the
-    chunked ring (not ported yet)."""
+    chunked ring (K23)."""
 
     block_m: int = 256
     block_n: int = 1024
@@ -77,9 +82,10 @@ _reduce_scatter_xla.calls = 0
 
 
 def _reduce_scatter_ring_plain(x: torch.Tensor, ctx) -> torch.Tensor:
-    """Plain version of K18: every rank's partial, exchanged on the host
-    rendezvous, then this rank's chunk summed in the ring's hop order with
-    a rounding to the dtype at every hop."""
+    """Plain version of K18 and K23: every rank's partial, exchanged on the
+    host rendezvous, then this rank's chunk summed in the ring's hop order
+    with a rounding to the dtype at every hop (element-wise, so the spans
+    do not enter)."""
     count_call(_reduce_scatter_ring_plain)
     n, me = ctx.world, ctx.rank
     m_loc = x.shape[0] // n
@@ -118,13 +124,12 @@ def reduce_scatter(
         method = get_auto_reduce_scatter_method(
             x.shape[0] // n * x.shape[1] * x.element_size(), n, ctx.full_mesh)
     if method == "ring":
-        if len(ring_spans(x.shape[0] // n, cfg.chunks_per_shard, cfg.block_m)) > 1:
-            raise NotImplementedError(
-                "reduce_scatter ring with chunks_per_shard > 1: _ring_rs_chunked_kernel "
-                "(reduce_scatter.py:152) is not ported yet (ROADMAP B12 chunked)")
+        spans = ring_spans(x.shape[0] // n, cfg.chunks_per_shard, cfg.block_m)
         if x.device.type == "cpu":
             return _reduce_scatter_ring_plain(x, ctx)
-        return _ring_reduce_scatter(x, ctx)
+        if len(spans) == 1:
+            return _ring_reduce_scatter(x, ctx)
+        return _ring_reduce_scatter_chunked(x, ctx, spans)
     if method != "scatter_reduce":
         raise ValueError(f"unknown reduce_scatter method: {method!r}")
     if x.device.type == "cpu":
@@ -165,16 +170,16 @@ def _scatter_reduce(x, ctx):
     rc = launch.lib.tdt_scatter_reduce(
         x.data_ptr() + me * chunk, recv.peer_addr(me), out.data_ptr(), m_loc * n_dim,
         DTYPE_CODE[x.dtype], n, me, flags.peer_addr(me), launch.epoch,
-        max_consumer_blocks(ctx), *launch.wait, stream_ptr(comp),
+        max_consumer_blocks(ctx), launch.jitter, *launch.wait, stream_ptr(comp),
     )
     _build.check(launch.lib, rc, "reduce_scatter")
     count_launch(reduce_scatter)
     return out
 
 
-def _ring_reduce_scatter(x, ctx):
-    """K18 (``csrc/ring.cu``): every allocation, then the ranks meet, then
-    only the launch, then they meet again."""
+def _ring_rs_launch(x, ctx, spans):
+    """K18/K23 (``csrc/ring.cu``): every allocation, then the ranks meet,
+    then only the launch."""
     if x.dtype not in DTYPE_CODE:
         raise TypeError(f"reduce_scatter takes bf16 or f32 on the card, not {x.dtype}")
     n, me = ctx.world, ctx.rank
@@ -182,17 +187,35 @@ def _ring_reduce_scatter(x, ctx):
     m_loc, n_dim = x.shape[0] // n, x.shape[1]
     recv = ctx.symmetric("reduce_scatter_ring.recv", (n - 1) * m_loc * n_dim * x.element_size())
     out = torch.empty((m_loc, n_dim), dtype=x.dtype, device=x.device)
-    ring = ring_launch(ctx, "reduce_scatter_ring", ((0, m_loc),))
+    ring = ring_launch(ctx, "reduce_scatter_ring", spans)
     ctx.rendezvous()
     rc = ring.lib.tdt_ring_reduce_scatter(
-        x.data_ptr(), out.data_ptr(), recv.peer_addr(me), recv.peer_addr(ring.right),
-        m_loc * n_dim, DTYPE_CODE[x.dtype], n, me, *ring.flags, ring.launch.epoch,
-        max_consumer_blocks(ctx), *ring.launch.wait, stream_ptr(torch.cuda.current_stream()),
+        x.data_ptr(), out.data_ptr(), recv.peer_addr(me), recv.peer_addr(ring.right), m_loc,
+        n_dim, DTYPE_CODE[x.dtype], ring.spans, ring.n_spans, n, me, *ring.flags,
+        ring.launch.epoch, max_consumer_blocks(ctx), ring.launch.jitter, *ring.launch.wait,
+        stream_ptr(torch.cuda.current_stream()),
     )
     _build.check(ring.lib, rc, "reduce_scatter ring")
+    return out
+
+
+def _ring_reduce_scatter(x, ctx):
+    """K18: the ring with one span a hop."""
+    out = _ring_rs_launch(x, ctx, ((0, x.shape[0] // ctx.world),))
     count_launch(_ring_reduce_scatter)
     ctx.rendezvous()  # every rank's kernel is issued before any rank goes on
     return out
 
 
 _ring_reduce_scatter.launches = 0
+
+
+def _ring_reduce_scatter_chunked(x, ctx, spans):
+    """K23: the ring with a flag per (step, span)."""
+    out = _ring_rs_launch(x, ctx, spans)
+    count_launch(_ring_reduce_scatter_chunked)
+    ctx.rendezvous()
+    return out
+
+
+_ring_reduce_scatter_chunked.launches = 0

@@ -23,12 +23,16 @@ Site numbering per family, for a launch at world ``n``:
 - ``reduce_scatter`` (and its entry barrier, sites ``p < n``): site ``n +
   d`` is the reduce's wait for the chunk in landing slot ``d``, sent by
   rank ``me - d - 1`` (kind ``signal_wait_until``);
-- the ring kernels ``ag_gemm_ring``, ``gemm_rs_ring`` and
-  ``reduce_scatter_ring`` (``csrc/ring.cu``): site ``p < n`` is the wait
-  for the arrival of the right neighbour ``p`` before the first store into
-  its buffers (kind ``barrier_all``); site ``n + s * MAX_SPANS + j`` is
-  the wait for chunk ``j`` of the left neighbour's step-``s`` put (kind
-  ``signal_wait_until``).
+- the ring kernels ``ag_gemm_ring``, ``gemm_rs_ring``,
+  ``reduce_scatter_ring``, ``all_gather_ring_1d`` and
+  ``all_gather_ring_bidir`` (``csrc/ring.cu``): site ``p < n`` is the wait
+  for the arrival of the neighbour ``p`` before the first store into its
+  buffers (kind ``barrier_all``; the right neighbour, and in the
+  bidirectional ring then the left one); site ``n + s * MAX_SPANS + j`` is
+  the wait for chunk ``j`` of the left neighbour's step-``s`` put, and in
+  the bidirectional ring site ``n + (n - 1 + s) * MAX_SPANS + j`` the wait
+  for chunk ``j`` of the right neighbour's step-``s`` put of the chunks
+  that travel left (kind ``signal_wait_until``).
 """
 
 from __future__ import annotations
@@ -46,8 +50,9 @@ KIND_NAMES = {
 # kernel families: the small ints the device records carry
 FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group_gemm": 5,
             "moe_rs": 6, "reduce_scatter": 7, "ag_gemm_ring": 8, "gemm_rs_ring": 9,
-            "reduce_scatter_ring": 10}
-RING_FAMILIES = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring")
+            "reduce_scatter_ring": 10, "all_gather_ring_1d": 11, "all_gather_ring_bidir": 12}
+RING_FAMILIES = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring", "all_gather_ring_1d",
+                 "all_gather_ring_bidir")
 MAX_SPANS = 16  # csrc/shmem.cuh MAX_SPANS: the (step, chunk) flag slots a step owns
 FAMILY_NAMES = {code: name for name, code in FAMILIES.items()}
 
@@ -67,6 +72,9 @@ def site_name(family: str, site: int, world: int) -> str:
     p = site - world
     if family in RING_FAMILIES:
         step, chunk = divmod(p, MAX_SPANS)
+        if step >= world - 1:
+            return (f"chunk {chunk} of the right neighbour's step {step - (world - 1)} "
+                    f"(travelling left)")
         return f"chunk {chunk} of the left neighbour's step {step}"
     if family == "all_gather":
         return f"shard of rank {p}"
