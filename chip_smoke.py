@@ -108,7 +108,22 @@ Phases, each printed as a JSON line, each fatal on failure:
    (K20, K22), and one f32 forward + backward of the sequential
    ``TPMoEMLP`` against the plain path differentiated by PyTorch.
 
-The line before the last lists every kernel (K1-K23) with its readings;
+26. the int8 / fp8 expert banks: the scaled grouped GEMM K24 at K8's
+   Mixtral prefill shapes (up-projection, and down-projection with the GELU
+   fused) and the f32 engine at small shapes; at world 4 the scaled
+   AG-GroupGEMM K25 and MoE-Reduce-RS K26 at K9's and K10's shapes, each
+   format held to its plain twin and timed beside its bound, its plain
+   twin and the library (the pool upcast to bf16, ``torch._grouped_mm``,
+   the scale fold); ``serve_moe_w8`` and ``serve_moe_fp8``:
+   ``serve_moe``'s model and requests from banks quantized by
+   ``quantize_moe_serving_params`` (the float banks freed first: peak
+   memory and the banks' GB), ``serve_moe_tp4_w8`` at world 4 (K25, K26),
+   each serve's bf16 prefill logits against the plain scaled forward; and
+   ``f32_parity_moe_quant``: one f32 layer, both formats, world 1 and 4,
+   greedy tokens on the card equal to the CPU plain path, two runs built
+   from float banks so the engine's quantize-once branch runs on the card.
+
+The line before the last lists every kernel (K1-K26) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -227,6 +242,10 @@ class Counters:
             "all_gather_ring_1d_chunked": allgather._all_gather_ring_1d_chunked,
             "all_gather_ring_bidir": allgather._all_gather_ring_bidir,
             "all_gather_ring_bidir_chunked": allgather._all_gather_ring_bidir_chunked,
+            # the int8 / fp8 formats of K8, K9, K10 count apart (K24-K26)
+            "group_gemm_scaled": (gg.group_gemm, "scaled_launches"),
+            "ag_group_gemm_scaled": (aggg.ag_group_gemm_overlap, "scaled_launches"),
+            "moe_reduce_rs_scaled": (mrs.moe_reduce_rs_overlap, "scaled_launches"),
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -240,15 +259,19 @@ class Counters:
             "reduce_scatter_ring": rs._reduce_scatter_ring_plain,
         }
 
+    def _counters(self):
+        for name, fn in self.kernels.items():
+            yield (name, *fn) if isinstance(fn, tuple) else (name, fn, "launches")
+
     def reset(self) -> None:
-        for fn in self.kernels.values():
-            fn.launches = 0
+        for _, fn, key in self._counters():
+            setattr(fn, key, 0)
         for fn in self.plain.values():
             fn.calls = 0
 
     def read(self) -> dict:
         return {
-            "launches": {k: fn.launches for k, fn in self.kernels.items()},
+            "launches": {name: getattr(fn, key) for name, fn, key in self._counters()},
             "plain_calls": {k: fn.calls for k, fn in self.plain.items()},
         }
 
@@ -1486,10 +1509,12 @@ def _moe_models():
                 tw, ids = self.replay[len(self.routes)]
             self.routes.append((tw, ids))
             al = mu.moe_align_block_size(ids.reshape(-1), c.n_experts, MOE_BLOCK)
+            # quantized banks: the plain scaled twins (upcast, fold)
             hs = gg._group_gemm_plain(mu.gather_sorted_rows(h, al, c.topk), p["w_up"],
-                                      al.expert_ids, MOE_BLOCK, h.dtype, None)
+                                      al.expert_ids, MOE_BLOCK, h.dtype, None,
+                                      p.get("w_up_scale"))
             y = gg._group_gemm_plain(hs, p["w_down"], al.expert_ids, MOE_BLOCK, torch.float32,
-                                     gg.gelu)
+                                     gg.gelu, p.get("w_down_scale"))
             return mu.scatter_add_unsorted(y, al, tw, h.shape[0]).to(x.dtype)
 
     def make(cls, cfg, replay=None, ctx=None):
@@ -3674,6 +3699,453 @@ def phase_layers_ring(counters: Counters) -> dict:
     return launches
 
 
+# ------------------------------------------- int8 / fp8 expert banks (K24-K26) ----
+
+FORMATS = ("int8", "fp8")
+
+
+def _quant_bank(gen, shape, fmt):
+    """A random bf16-scale bank ``[E, K, N]`` quantized to `fmt`: ``(pool,
+    scale)``."""
+    import torch
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    b = torch.randn(shape, generator=gen, device="cuda") / shape[1]**0.5
+    quantize = gg.quantize_expert_weights if fmt == "int8" else gg.quantize_expert_weights_fp8
+    return quantize(b)
+
+
+def _gg_config(fmt):
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+
+    return GroupGemmConfig(MOE_BLOCK, w8=fmt == "int8", fp8=fmt == "fp8")
+
+
+def _scaled_library(a, expert_ids, scale, act, out_dtype):
+    """The library yardstick of a scaled grouped GEMM over expert-sorted
+    blocks: ``fn(bank_bf16)`` runs ``torch._grouped_mm`` on A against the
+    pool upcast to bf16 (bf16 out: this torch takes no f32 out for bf16
+    operands) and folds each block's expert scale row in f32; the caller
+    times the upcast with it. Returns ``(fn, name)``."""
+    import torch
+
+    n_exp = scale.shape[0]
+    nb = expert_ids.numel()
+    bm = a.shape[0] // nb
+    counts = torch.bincount(expert_ids.long(), minlength=n_exp) * bm
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    rows = scale[expert_ids.long()]  # [nb, 1, N]
+
+    def fn(b):
+        x = a if act is None else act(a.float()).to(a.dtype)
+        y = torch._grouped_mm(x, b, offs=offs)
+        return (y.view(nb, bm, -1).float() * rows).view(a.shape[0], -1).to(out_dtype)
+
+    return fn, "pool upcast + torch._grouped_mm + scale fold"
+
+
+def _format_entry(name, source, replaces, per_fmt, shapes, library):
+    """One kernels-line entry for a scaled kernel: the int8 readings as its
+    columns (the format the serve cells run first), both formats' under
+    ``formats``, the worst error of either."""
+    head = per_fmt["int8"]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        max_abs_err=max(f["max_abs_err"] for f in per_fmt.values()),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"], library=library,
+        formats=per_fmt, shapes=shapes,
+    )
+
+
+def phase_group_gemm_scaled() -> dict:
+    """K24, int8 and fp8, at the world-1 MoE prefill shapes of K8 (2048
+    tokens top-2 over 8 experts, t_pad 5120, bf16 activations): the
+    up-projection [5120, 4096] x [8, 4096, 14336] to bf16 and the
+    down-projection with the GELU fused [5120, 14336] x [8, 14336, 4096] to
+    f32, each within one bf16 ulp of the output scale of its plain twin;
+    first the f32 engine and ragged edges at small shapes (1e-5 of the
+    scale)."""
+    import torch
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    n_exp, topk, bm = 8, 2, MOE_BLOCK
+    bf16, f32 = torch.bfloat16, torch.float32
+    small = {}
+    for fmt in FORMATS:
+        worst = 0.0
+        for tokens, k, n, dtype, out_dtype, act in ((100, 256, 304, f32, f32, gg.gelu),
+                                                    (300, 512, 1024, f32, f32, None),
+                                                    (33, 100, 272, bf16, bf16, gg.gelu)):
+            _, ids = _moe_route(g, tokens, n_exp, topk)
+            al = mu.moe_align_block_size(ids.reshape(-1), n_exp, bm)
+            a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g,
+                            device="cuda").to(dtype)
+            b, sc = _quant_bank(g, (n_exp, k, n), fmt)
+            got = gg.group_gemm(a, b, al.expert_ids, scale=sc, out_dtype=out_dtype, act_fn=act)
+            ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act, sc)
+            if dtype == bf16:
+                _check_bf16(f"group_gemm {fmt} {tokens}x{k}x{n}", got, ref)
+            else:
+                rel = ((got - ref).abs().max() / ref.abs().max()).item()
+                if not rel <= 1e-5:
+                    raise AssertionError(f"group_gemm {fmt} f32 {tokens}x{k}x{n}: {rel}")
+                worst = max(worst, rel)
+        small[fmt] = worst
+
+    tokens = 8 * 256
+    _, ids = _moe_route(g, tokens, n_exp, topk)
+    al = mu.moe_align_block_size(ids.reshape(-1), n_exp, bm)
+    t_pad = al.sorted_token_ids.shape[0]
+    used = int((torch.bincount(ids.reshape(-1).long(), minlength=n_exp) > 0).sum().item())
+    per_fmt, rows, lib_name = {}, [], ""
+    for fmt in FORMATS:
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+        for name, (k, n, act, out_dtype) in {"up": (4096, 14336, None, bf16),
+                                             "down_gelu": (14336, 4096, gg.gelu, f32)}.items():
+            a = torch.randn((t_pad, k), generator=g, device="cuda").to(bf16)
+            b, sc = _quant_bank(g, (n_exp, k, n), fmt)
+            got = gg.group_gemm(a, b, al.expert_ids, scale=sc, out_dtype=out_dtype, act_fn=act)
+            ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act, sc)
+            err, tol = _check_bf16(f"group_gemm {fmt} {name}", got, ref)
+            del got, ref
+            flops = 2.0 * t_pad * k * n
+            nbytes = (2.0 * t_pad * k + 1.0 * used * k * n + 4.0 * used * n
+                      + t_pad * n * (4 if out_dtype == f32 else 2))
+            lib_fn, lib_name = _scaled_library(a, al.expert_ids, sc, act, out_dtype)
+            row = dict(
+                format=fmt, shape=[t_pad, k, n], gelu=act is not None, max_abs_err=err, tol=tol,
+                ms=cuda_ms(lambda: gg.group_gemm(a, b, al.expert_ids, scale=sc,
+                                                 out_dtype=out_dtype, act_fn=act), iters=10),
+                plain_ms=event_ms(lambda: gg._group_gemm_plain(a, b, al.expert_ids, bm,
+                                                               out_dtype, act, sc), iters=2),
+                library_ms=event_ms(lambda: lib_fn(b.to(bf16)), iters=5),
+                bound_ms=bound(flops, nbytes)[0],
+            )
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows.append({name: row})
+            for key in ("ms", "plain_ms", "library_ms"):
+                total[key] += row[key]
+            total["flops"] += flops
+            total["bytes"] += nbytes
+            total["err"] = max(total["err"], err)
+            del a, b, sc
+        b_ms, by = bound(total["flops"], total["bytes"])
+        per_fmt[fmt] = dict(ms=total["ms"], plain_ms=total["plain_ms"],
+                            library_ms=total["library_ms"], bound_ms=b_ms, bound_by=by,
+                            max_abs_err=total["err"], f32_engine_rel_err=small[fmt])
+    emit({"phase": "kernel", "kernel": "group_gemm_scaled", "t_pad": t_pad,
+          "experts_used": used, "per_shape": rows, "f32_engine_rel_err": small})
+    return _format_entry(
+        "group_gemm_scaled", "triton_dist_tpu_torch/csrc/group_gemm.cu",
+        "triton_dist_tpu/ops/gg_pipeline.py:87", per_fmt,
+        f"t_pad {t_pad} (2048 tokens, top-2 of 8): up 4096->14336 bf16 out, down 14336->4096 "
+        f"with GELU, f32 out (summed); int8 and fp8 e4m3 banks", lib_name)
+
+
+def phase_ag_group_gemm_scaled(ctx) -> dict:
+    """K25, int8 and fp8, at K9's shapes (world 4: 512 tokens a rank,
+    t_pad_loc 2048, H 4096 -> F shard 3584, bf16), each rank's bank
+    quantized on its own shard, held to its plain twin as K9 is."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    g = torch.Generator(device="cuda").manual_seed(42)
+    m_loc, k, n_loc, n_exp = 512, 4096, 3584, 8
+    ral, _ = _moe_tp4_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    x = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16() for _ in range(WORLD)]
+    slabs = [x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(WORLD)]
+    gathered = torch.cat(slabs)
+    ids_flat = ral.expert_ids.reshape(-1)
+    rows = WORLD * t_pad_loc
+    flops = WORLD * 2.0 * rows * k * n_loc
+    nbytes = (2.0 * rows * k + WORLD * (n_exp * k * n_loc + 4.0 * n_exp * n_loc)
+              + 2.0 * WORLD * rows * n_loc)
+    b_ms, by = bound(flops, nbytes)
+    per_fmt, lib_name = {}, ""
+    for fmt in FORMATS:
+        banks = [_quant_bank(g, (n_exp, k, n_loc), fmt) for _ in range(WORLD)]
+
+        def kernel():
+            bq, sc = banks[ctx.rank]
+            return aggg.ag_group_gemm_overlap(x[ctx.rank], bq, ral, ctx=ctx, scale=sc)
+
+        outs = ctx.run(kernel)
+        err, tol = max(_check_bf16(f"ag_group_gemm {fmt} rank {r}", out,
+                                   gg._group_gemm_plain(gathered, banks[r][0], ids_flat,
+                                                        MOE_BLOCK, torch.bfloat16, None,
+                                                        banks[r][1]))
+                       for r, out in enumerate(outs))
+        del outs
+        libs = [[_scaled_library(slabs[c], ral.expert_ids[c], banks[r][1], None,
+                                 torch.bfloat16) for c in range(WORLD)] for r in range(WORLD)]
+        lib_name = libs[0][0][1] + ", per source slab, after torch.cat"
+
+        def library():
+            for r in range(WORLD):
+                torch.cat(slabs)
+                up = banks[r][0].to(torch.bfloat16)
+                for fn, _ in libs[r]:
+                    fn(up)
+
+        per_fmt[fmt] = dict(
+            ms=dist_ms(ctx, kernel, iters=5),
+            plain_ms=dist_ms(ctx, lambda: aggg._ag_overlap_xla(
+                aggg.presort_local_rows(x[ctx.rank], ral, ctx), banks[ctx.rank][0], ral, ctx,
+                False, torch.bfloat16, banks[ctx.rank][1]), iters=2),
+            library_ms=event_ms(library, iters=3), bound_ms=b_ms, bound_by=by,
+            max_abs_err=err, tol=tol)
+        per_fmt[fmt]["tflops"] = flops / per_fmt[fmt]["ms"] / 1e9
+        del banks, libs
+    emit({"phase": "kernel", "kernel": "ag_group_gemm_scaled", "world": WORLD,
+          "formats": per_fmt})
+    return _format_entry(
+        "ag_group_gemm_scaled", "triton_dist_tpu_torch/csrc/dist.cu",
+        "triton_dist_tpu/ops/gg_pipeline.py:288", per_fmt,
+        f"world {WORLD}: [{m_loc}, {k}] tokens a rank, t_pad_loc {t_pad_loc}, w_up shard "
+        f"[{n_exp}, {k}, {n_loc}] int8 / fp8 e4m3", lib_name)
+
+
+def phase_moe_reduce_rs_scaled(ctx) -> dict:
+    """K26, int8 and fp8, at K10's shapes (world 4: rank-major rows [4 x
+    2048, 3584] bf16 against the W_down shard [8, 3584, 4096], 512 tokens
+    out a rank), held to its plain twin as K10 is (two bf16 ulps: each
+    peer's partial is rounded to bf16)."""
+    import torch
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+    m_loc, f_loc, h, n_exp = 512, 3584, 4096, 8
+    ral, tw = _moe_tp4_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    dst, w_rows = mu.ranked_scatter_meta(ral, tw)
+    inv = mu.ranked_combine_rows(ral, m_loc, 2)
+    hs = [torch.randn((WORLD * t_pad_loc, f_loc), generator=g, device="cuda").bfloat16()
+          for _ in range(WORLD)]
+    rows = WORLD * t_pad_loc
+    flops = WORLD * 2.0 * rows * f_loc * h
+    nbytes = (2.0 * WORLD * rows * f_loc + WORLD * (n_exp * f_loc * h + 4.0 * n_exp * h)
+              + 2.0 * WORLD * m_loc * h)
+    b_ms, by = bound(flops, nbytes)
+    dst_l = dst.reshape(WORLD, -1).long()
+    w_l = w_rows.reshape(WORLD, -1, 1)
+    per_fmt, lib_name = {}, ""
+    for fmt in FORMATS:
+        banks = [_quant_bank(g, (n_exp, f_loc, h), fmt) for _ in range(WORLD)]
+
+        def kernel():
+            wd, sc = banks[ctx.rank]
+            return mrs.moe_reduce_rs_overlap(hs[ctx.rank], wd, ral.expert_ids, dst, w_rows,
+                                             ctx=ctx, m_out=m_loc, combine_rows=inv, scale=sc)
+
+        def plain():
+            wd, sc = banks[ctx.rank]
+            return mrs._moe_rs_overlap_xla(hs[ctx.rank], wd, ral.expert_ids, dst, w_rows, ctx,
+                                           m_loc, torch.bfloat16, sc)
+
+        outs = ctx.run(lambda: (kernel(), plain()))
+        err, tol = max(_check_bf16(f"moe_reduce_rs {fmt} rank {r}", got, want, factor=2.0)
+                       for r, (got, want) in enumerate(outs))
+        del outs
+        libs = [[_scaled_library(hs[r][c * t_pad_loc:(c + 1) * t_pad_loc], ral.expert_ids[c],
+                                 banks[r][1], None, torch.float32)
+                 for c in range(WORLD)] for r in range(WORLD)]
+        lib_name = libs[0][0][1] + ", per (rank, destination), + index_add_ + a sum"
+
+        def library():
+            parts = []
+            for r in range(WORLD):
+                up = banks[r][0].to(torch.bfloat16)
+                parts.append([torch.zeros((m_loc, h), device="cuda").index_add_(
+                    0, dst_l[c], libs[r][c][0](up) * w_l[c]) for c in range(WORLD)])
+            return [sum(parts[r][c] for r in range(WORLD)).bfloat16() for c in range(WORLD)]
+
+        per_fmt[fmt] = dict(ms=dist_ms(ctx, kernel, iters=5), plain_ms=dist_ms(ctx, plain, iters=2),
+                            library_ms=event_ms(library, iters=3), bound_ms=b_ms, bound_by=by,
+                            max_abs_err=err, tol=tol)
+        per_fmt[fmt]["tflops"] = flops / per_fmt[fmt]["ms"] / 1e9
+        del banks, libs
+    emit({"phase": "kernel", "kernel": "moe_reduce_rs_scaled", "world": WORLD,
+          "formats": per_fmt})
+    return _format_entry(
+        "moe_reduce_rs_scaled", "triton_dist_tpu_torch/csrc/dist.cu",
+        "triton_dist_tpu/ops/gg_pipeline.py:576", per_fmt,
+        f"world {WORLD}: h [{rows}, {f_loc}] a rank, W_down shard [{n_exp}, {f_loc}, {h}] "
+        f"int8 / fp8 e4m3, {m_loc} tokens out a rank", lib_name)
+
+
+def _bank_gb(params) -> float:
+    """The expert banks' bytes (pools and scales) over every layer, GB."""
+    return sum(p[n].numel() * p[n].element_size() for p in params["layers"]
+               for n in ("w_up", "w_down", "w_up_scale", "w_down_scale") if n in p) / 1e9
+
+
+def phase_serve_moe_quant(counters: Counters) -> tuple[dict, dict, dict]:
+    """``serve_moe_w8`` and ``serve_moe_fp8``: ``serve_moe``'s model
+    (Mixtral-8x7B widths, 8 of 32 layers, bf16, the same seed) and its 8
+    requests, served from banks quantized by ``quantize_moe_serving_params``
+    with the float banks freed first (so the peak shows the format), the
+    config asking for the format (K24 in prefill; decode upcasts the pools
+    in plain PyTorch); each serve's bf16 prefill logits against the world-1
+    plain scaled forward under the served path's expert choices; then
+    ``serve_moe_tp4_w8``: the int8 banks at world 4 on the one card (K25,
+    K26) and its logits."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import (
+        init_moe_params, quantize_moe_serving_params, shard_params,
+    )
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    n_layers = 8
+    base = presets.preset(MOE_MODEL, n_layers=n_layers, batch=8, dtype=torch.bfloat16)
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    reqs = _requests(base.vocab, lengths, 32, seed=31)
+    L = 128
+    flat = _prompt_tokens(reqs, base.batch, L)
+    rows = torch.arange(base.batch, device="cuda") * L + L - 1
+    make_served, make_plain = _moe_models()
+    out = {}
+    for fmt in FORMATS:
+        cfg = dataclasses.replace(base, gg_config=_gg_config(fmt))
+        params = init_moe_params(base, seed=30)  # serve_moe's weights
+        float_gb = _bank_gb(params)
+        params = quantize_moe_serving_params(params, fmt=fmt)  # the float banks go
+        torch.cuda.empty_cache()
+        res = _serve(cfg, params, reqs, counters)
+        launches = res["launches"]
+        if (any(launches[k] <= 0 for k in ("group_gemm_scaled", "gemm", "paged_flash_decode"))
+                or launches["group_gemm"]):
+            raise AssertionError(f"serve_moe_{fmt} took the wrong kernels: {launches}")
+        name = "serve_moe_w8" if fmt == "int8" else "serve_moe_fp8"
+        emit({"phase": name, "model": MOE_MODEL, "n_layers": n_layers, "world": 1,
+              "format": fmt, "batch": 8, "s_max": 1024, "page_size": 16,
+              "prompt_lens": lengths, "max_new_tokens": 32, "expert_bank_gb": _bank_gb(params),
+              "float_bank_gb": float_gb, **res})
+        out[fmt] = launches
+        pcfg = dataclasses.replace(cfg, seq=L)
+        served = make_served(pcfg)
+        with torch.inference_mode():
+            got = served(flat, params)[rows].float()
+        _check_moe_logits(f"{name}_logits", got, served.routes, make_plain, pcfg, flat, params,
+                          rows)
+        if fmt == "int8":
+            ctx = initialize_distributed(WORLD)
+            tp4 = _serve(cfg, params, reqs, counters, ctx=ctx)
+            launches4 = tp4["launches"]
+            used = ("ag_group_gemm_scaled", "moe_reduce_rs_scaled", "group_gemm_scaled",
+                    "ag_gemm", "gemm_rs", "gemm", "all_gather", "paged_flash_decode", "barrier")
+            if any(launches4[k] <= 0 for k in used) or any(
+                    launches4[k] for k in ("ag_group_gemm", "moe_reduce_rs", "group_gemm")):
+                raise AssertionError(f"serve_moe_tp4_w8 took the wrong kernels: {launches4}")
+            emit({"phase": "serve_moe_tp4_w8", "model": MOE_MODEL, "n_layers": n_layers,
+                  "world": WORLD, "format": fmt, "batch": 8, "s_max": 1024, "page_size": 16,
+                  "prompt_lens": lengths, "max_new_tokens": 32,
+                  "expert_bank_gb": _bank_gb(params), **tp4})
+            out["tp4"] = launches4
+            shards = shard_params(params, WORLD, ctx.devices)
+            m_loc = flat.numel() // WORLD
+
+            def rank_logits():
+                r = ctx.rank
+                model = make_served(pcfg, ctx=ctx)
+                logits = model(flat[r * m_loc:(r + 1) * m_loc], shards[r])
+                return logits[rows].float(), model.routes
+
+            outs = ctx.run(rank_logits)
+            del shards
+            routes = [tuple(torch.cat([o[1][li][j] for o in outs]) for j in (0, 1))
+                      for li in range(n_layers)]
+            _check_moe_logits("serve_moe_tp4_w8_logits", torch.cat([o[0] for o in outs], dim=1),
+                              routes, make_plain, pcfg, flat, params, rows)
+            ctx.close()
+        del params, served
+        torch.cuda.empty_cache()
+    return out["int8"], out["fp8"], out["tp4"]
+
+
+def phase_f32_parity_moe_quant() -> None:
+    """f32, one MoE layer at full Mixtral width, int8 and fp8 banks: greedy
+    tokens of the kernel path on the card (K24 at world 1; K25, K26 at world
+    4) identical to the plain path on the CPU. Two of the four runs build a
+    ``ServingEngine`` from float banks with the format in ``gg_config``, so
+    the engine's quantize-once branch runs (and the pools it makes on the
+    card must equal the CPU's byte for byte); the others feed pre-quantized
+    banks to the batcher. TF32 off."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+    from triton_dist_tpu_torch.models.tp_transformer import (
+        init_moe_params, quantize_moe_serving_params,
+    )
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.serving.engine import ServingConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = presets.preset(MOE_MODEL, n_layers=1, batch=2, dtype=torch.float32)
+    params = init_moe_params(base, seed=35)
+    cpu = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    cpu["layers"] = [{k: v.cpu() for k, v in p.items()} for p in params["layers"]]
+    lengths, max_new = [12, 33], 4
+    reqs = lambda: _requests(base.vocab, lengths, max_new, seed=36)  # noqa: E731
+    same_bytes = {}
+    for fmt in FORMATS:
+        card_q = quantize_moe_serving_params(params, fmt=fmt)["layers"][0]
+        cpu_q = quantize_moe_serving_params(cpu, fmt=fmt)["layers"][0]
+        same_bytes[fmt] = all(
+            torch.equal(card_q[n].cpu().view(torch.uint8) if fmt == "fp8" and "scale" not in n
+                        else card_q[n].cpu(),
+                        cpu_q[n].view(torch.uint8) if fmt == "fp8" and "scale" not in n
+                        else cpu_q[n])
+            for n in ("w_up", "w_down", "w_up_scale", "w_down_scale"))
+        if not same_bytes[fmt]:
+            raise AssertionError(f"{fmt} pools or scales quantized on the card differ from the CPU's")
+        del card_q, cpu_q
+
+    def run(p, device, world, fmt, float_banks):
+        cfg = dataclasses.replace(base, gg_config=_gg_config(fmt))
+        ctx = initialize_distributed(world, device=device) if world > 1 else None
+        if float_banks:
+            eng = ServingEngine(cfg, p, s_max=256, page_size=16, prefill=True, device=device,
+                                ctx=ctx, serving=ServingConfig(max_queue=8))
+            if eng._serving_params() is p:
+                raise AssertionError("the engine did not quantize the float banks")
+            for r in reqs():
+                eng.submit(r)
+            got = {u: r.tokens for u, r in eng.run_until_idle().items()}
+        else:
+            b = ContinuousBatcher(cfg, quantize_moe_serving_params(p, fmt=fmt), s_max=256,
+                                  page_size=16, prefill=True, device=device, ctx=ctx)
+            for r in reqs():
+                b.submit(r)
+            got = dict(b.run())
+        if ctx is not None:
+            ctx.close()
+        return got
+
+    times = {}
+    for world, fmt, float_banks in ((1, "int8", True), (1, "fp8", False), (WORLD, "int8", False),
+                                    (WORLD, "fp8", True)):
+        t0 = time.perf_counter()
+        want = run(cpu, "cpu", world, fmt, float_banks)
+        t1 = time.perf_counter()
+        got = run(params, "cuda", world, fmt, float_banks)
+        times[f"world{world}_{fmt}"] = (t1 - t0, time.perf_counter() - t1)
+        if got != want:
+            raise AssertionError(f"world-{world} {fmt} f32 greedy tokens differ: {got} vs {want}")
+    emit({"phase": "f32_parity_moe_quant", "model": MOE_MODEL, "n_layers": 1,
+          "runs": list(times), "requests": len(lengths), "max_new_tokens": max_new,
+          "identical": True, "card_quantized_bytes_equal_cpu": same_bytes,
+          "cpu_reference_s": {k: t[0] for k, t in times.items()},
+          "card_s": {k: t[1] for k, t in times.items()}})
+
+
 def main() -> int:
     try:
         import torch
@@ -3697,6 +4169,7 @@ def main() -> int:
     entries = [phase_gemm(), phase_flash_decode(), phase_paged_flash_decode()]
     verify_entries = [phase_flash_verify(), phase_paged_flash_verify()]
     moe_entries = [phase_group_gemm()]
+    scaled_entries = [phase_group_gemm_scaled()]
     train_entries = [phase_group_gemm_dw()]
     torch.cuda.empty_cache()
     paged = phase_serve(counters)
@@ -3717,6 +4190,7 @@ def main() -> int:
     dist_entries = [phase_barrier(ctx), phase_all_gather(ctx), phase_ag_gemm(ctx),
                     phase_gemm_rs(ctx)]
     moe_entries += [phase_ag_group_gemm(ctx), phase_moe_reduce_rs(ctx)]
+    scaled_entries += [phase_ag_group_gemm_scaled(ctx), phase_moe_reduce_rs_scaled(ctx)]
     train_entries.append(phase_reduce_scatter(ctx))
     ctx.full_mesh = False  # the same ranks, declared a ring
     ring_entries = [phase_ag_gemm_ring(ctx), *phase_gemm_rs_ring(ctx),
@@ -3738,6 +4212,10 @@ def main() -> int:
     moe1, moe4 = phase_serve_moe(counters)
     torch.cuda.empty_cache()
     phase_f32_parity_moe()
+    torch.cuda.empty_cache()
+    moe_w8, moe_fp8, moe_tp4_w8 = phase_serve_moe_quant(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_moe_quant()
     torch.cuda.empty_cache()
     train1, train4 = phase_train_moe(counters)
     torch.cuda.empty_cache()
@@ -3780,6 +4258,10 @@ def main() -> int:
     for entry in gather_entries:
         entry["launches"] = layers_ring[entry["name"]]
     entries += gather_entries
+    scaled_entries[0]["launches"] = moe_w8["group_gemm_scaled"] + moe_fp8["group_gemm_scaled"]
+    scaled_entries[1]["launches"] = moe_tp4_w8["ag_group_gemm_scaled"]
+    scaled_entries[2]["launches"] = moe_tp4_w8["moe_reduce_rs_scaled"]
+    entries += scaled_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

@@ -4,7 +4,9 @@ its weight gradient K11, the multi-position verify K13 and its paged twin
 K14 — over shared pages, and chunk calls bit-equal to the whole-range
 call — and at world 2 and 4 with every rank on the one
 card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
-AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, and on a ring
+AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, the scaled
+int8 / fp8 formats of the grouped GEMM K24, of K9 (K25) and of K10 (K26),
+and on a ring
 context the ring AG-GEMM K15, the ring GEMM-RS K16/K17, the ring
 reduce-scatter K18 and its spans K23 (bit-equal to K18), and the ring
 allgathers K19-K22 (bit-exact), plus stuck waits that must raise with
@@ -433,6 +435,140 @@ def test_moe_reduce_rs_stuck_wait_raises_with_its_record(cuda):
             ctx.run(body)
     (rec,) = err.value.records
     assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (0, "moe_rs", 1, "barrier_all")
+
+
+# ---- the scaled weight formats: K24 (K8), K25 (K9), K26 (K10) over int8 /
+# fp8 e4m3 banks with per-(expert, out-column) scales ----
+
+QUANTIZERS = {"int8": tgg.quantize_expert_weights, "fp8": tgg.quantize_expert_weights_fp8}
+
+
+def _quant_bank(gen, shape, fmt, device):
+    """A float bank quantized to `fmt`: ``(pool, scale)``, with the scales
+    spread over two decades so a misplaced scale column shows."""
+    b = torch.randn(shape, generator=gen, device=device) / shape[1]**0.5
+    b = b * torch.logspace(-1, 1, shape[2], device=device)
+    return QUANTIZERS[fmt](b)
+
+
+def _scaled_tol(dtype, ref):
+    """bf16 activations: one bf16 ulp of the output scale (the weights are
+    upcast exactly; the f32 sums differ in order, both round once); f32:
+    1e-5 of the scale (FMA sums in another order)."""
+    return (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32)])
+@pytest.mark.parametrize("act", [False, True], ids=["plain", "gelu"])
+@pytest.mark.parametrize("tokens,k,n", [(100, 256, 304), (7, 72, 48), (60, 100, 272)])
+def test_scaled_group_gemm_kernel_matches_plain(cuda, fmt, dtype, out_dtype, act, tokens, k, n):
+    n_exp, topk, bm = 4, 2, 128
+    g = torch.Generator(device="cuda").manual_seed(tokens + k)
+    ids, _ = _moe_routing(g, tokens, n_exp, topk, cuda)
+    al = tmu.moe_align_block_size(ids.reshape(-1), n_exp, bm)
+    eids = al.expert_ids.clone()
+    eids[-1] = n_exp + 3  # a sentinel block reads the clamped expert's bank and scale
+    a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g, device=cuda).to(dtype)
+    b, scale = _quant_bank(g, (n_exp, k, n), fmt, cuda)
+    act_fn = tgg.gelu if act else None
+    before = (tgg.group_gemm.launches, tgg.group_gemm.scaled_launches)
+    got = tgg.group_gemm(a, b, eids, scale=scale, out_dtype=out_dtype, act_fn=act_fn)
+    torch.cuda.synchronize()
+    assert (tgg.group_gemm.launches, tgg.group_gemm.scaled_launches) == (before[0],
+                                                                        before[1] + 1)
+    want = tgg._group_gemm_plain(a, b, eids, bm, out_dtype, act_fn, scale)
+    assert (got.float() - want.float()).abs().max().item() <= _scaled_tol(dtype, want.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantizers_on_the_card_equal_the_cpu(cuda, fmt):
+    """The card's pools and scales equal the CPU's bit for bit (so a bank
+    quantized on the card is the JAX package's): every division in the
+    quantizer is exact on both."""
+    g = torch.Generator().manual_seed(5)
+    b = torch.randn((4, 512, 384), generator=g) * torch.logspace(-4, 3, 384)
+    cq, cs = QUANTIZERS[fmt](b)
+    gq, gs = QUANTIZERS[fmt](b.to(cuda))
+    assert torch.equal(gs.cpu(), cs)
+    assert torch.equal(gq.cpu().view(torch.uint8), cq.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_scaled_group_gemm_refuses_unaligned_rows(cuda):
+    """A one-byte bank's rows ride 16-byte copies: N = 40 is refused, not
+    computed some other way."""
+    a = torch.zeros((128, 64), device=cuda, dtype=torch.bfloat16)
+    b, scale = tgg.quantize_expert_weights(torch.randn((2, 64, 40), device=cuda))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tgg.group_gemm(a, b, torch.zeros(1, dtype=torch.int32, device=cuda), scale=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scaled_ag_group_gemm_kernel_matches_plain(cuda, world, fmt, dtype):
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(world + 40)
+    n_exp, topk, bm = 4, 2, 128
+    for m_loc, k, n_loc in ((40, 256, 304), (100, 128, 96)):
+        ral, _ = _ranked_inputs(g, world, m_loc, n_exp, topk, bm, cuda)
+        x = [torch.randn((m_loc, k), generator=g, device=cuda).to(dtype) for _ in range(world)]
+        b, scale = _quant_bank(g, (n_exp, k, n_loc), fmt, cuda)
+        slabs = torch.cat([x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(world)])
+        want = tgg._group_gemm_plain(slabs, b, ral.expert_ids.reshape(-1), bm, dtype, None,
+                                     scale)
+        before = (taggg.ag_group_gemm_overlap.launches,
+                  taggg.ag_group_gemm_overlap.scaled_launches)
+        outs = ctx.run(lambda: taggg.ag_group_gemm_overlap(x[ctx.rank], b, ral, ctx=ctx,
+                                                           scale=scale))
+        assert (taggg.ag_group_gemm_overlap.launches,
+                taggg.ag_group_gemm_overlap.scaled_launches) == (before[0], before[1] + world)
+        for out in outs:
+            assert (out.float() - want.float()).abs().max().item() <= _scaled_tol(
+                dtype, want.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scaled_moe_reduce_rs_kernel_matches_plain(cuda, world, fmt, dtype):
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(50 + world)
+    n_exp, topk, bm = 4, 2, 128
+    for m_loc, f_loc, h in ((40, 256, 304), (100, 128, 528)):
+        ral, w = _ranked_inputs(g, world, m_loc, n_exp, topk, bm, cuda)
+        dst, w_rows = tmu.ranked_scatter_meta(ral, w)
+        inv = tmu.ranked_combine_rows(ral, m_loc, topk)
+        rows = world * ral.t_pad_loc
+        hs = [torch.randn((rows, f_loc), generator=g, device=cuda).to(dtype)
+              for _ in range(world)]
+        banks = [_quant_bank(g, (n_exp, f_loc, h), fmt, cuda) for _ in range(world)]
+
+        def body():
+            r = ctx.rank
+            wd, sc = banks[r]
+            got = tmrs.moe_reduce_rs_overlap(hs[r], wd, ral.expert_ids, dst, w_rows, ctx=ctx,
+                                             m_out=m_loc, combine_rows=inv, scale=sc)
+            want = tmrs._moe_rs_overlap_xla(hs[r], wd, ral.expert_ids, dst, w_rows, ctx,
+                                            m_loc, dtype, sc)
+            return got, want
+
+        before = (tmrs.moe_reduce_rs_overlap.launches,
+                  tmrs.moe_reduce_rs_overlap.scaled_launches)
+        outs = ctx.run(body)
+        assert (tmrs.moe_reduce_rs_overlap.launches,
+                tmrs.moe_reduce_rs_overlap.scaled_launches) == (before[0], before[1] + world)
+        for got, want in outs:
+            # bf16: each peer's partial is rounded to bf16 before the sum
+            tol = _scaled_tol(dtype, want.float()) * (2 if dtype == torch.bfloat16 else 1)
+            assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 @pytest.mark.cuda

@@ -206,11 +206,17 @@ def test_moe_preset_init_and_refusals(moe):
     assert "w_gate_up" not in layer
     assert torch.equal(layer["w_up"], ttm.init_moe_params(tcfg, seed=1, device="cpu")
                        ["layers"][0]["w_up"])
-    with pytest.raises(NotImplementedError, match="B16, w8/fp8"):
-        ttm.MoETransformerConfig(**DIMS, gg_config=GroupGemmConfig(8, w8=True))
-    quant = dict(tparams, layers=[dict(tparams["layers"][0], w_up_scale=torch.ones(4, 1, 64))])
-    with pytest.raises(NotImplementedError, match="B16, w8/fp8"):
-        tdec.ContinuousBatcher(tcfg, quant, s_max=S_MAX, device="cpu")
+    # the int8/fp8 expert banks are served: the config builds, and a batcher
+    # fed pre-quantized banks (with their scales) serves them
+    w8cfg = ttm.MoETransformerConfig(**DIMS, gg_config=GroupGemmConfig(8, w8=True))
+    assert w8cfg.gg_config.w8
+    quant = ttm.quantize_moe_serving_params(tparams)
+    assert quant["layers"][0]["w_up"].dtype == torch.int8
+    assert quant["layers"][0]["w_up_scale"].shape == (4, 1, 64)
+    qb = tdec.ContinuousBatcher(w8cfg, quant, s_max=S_MAX, device="cpu")
+    qb.submit(tdec.Request([1, 2, 3], max_new_tokens=2, uid="q"))
+    done = dict(qb.run(max_steps=20))
+    assert list(done) == ["q"] and len(done["q"]) == 2
     with pytest.raises(NotImplementedError, match="A10"):
         teng.ServingEngine(tcfg, tparams, s_max=S_MAX, device="cpu",
                            serving=teng.ServingConfig(speculative=object()))

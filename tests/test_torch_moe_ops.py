@@ -153,9 +153,7 @@ def test_group_gemm_plain_matches_xla(act, out_dtype):
 
 def test_group_gemm_refuses_what_is_not_ported():
     a, b, e = torch.zeros(8, 4), torch.zeros(2, 4, 4), torch.zeros(1, dtype=torch.int32)
-    for cfg, item in ((tgg.GroupGemmConfig(8, w8=True), "w8/fp8"),
-                      (tgg.GroupGemmConfig(8, fp8=True), "w8/fp8"),
-                      (tgg.GroupGemmConfig(8, ragged=True), "ragged"),
+    for cfg, item in ((tgg.GroupGemmConfig(8, ragged=True), "ragged"),
                       (tgg.GroupGemmConfig(8, backend="ragged_dot"), "ragged_dot"),
                       (tgg.GroupGemmConfig(8, chunks_per_shard=2), "chunked"),
                       (tgg.GroupGemmConfig(8, span_policy="window"), "span")):

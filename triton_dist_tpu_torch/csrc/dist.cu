@@ -15,11 +15,20 @@
 //                                         make_ag_overlap_kernel, launched
 //                                         at ops/allgather_group_gemm.py:235
 //                                         (K6's consumer over expert banks)
+//   K25 the same, int8 / fp8 banks      ≙ the same kernel under
+//                                         OperandFormat.scaled: K24's
+//                                         one-byte B stager and scale fold
 //   K10 tdt_moe_combine_push,           ≙ ops/gg_pipeline.py:576
 //       tdt_moe_rs_reduce                 make_moe_rs_overlap_kernel,
 //                                         launched at ops/moe_reduce_rs.py:236
 //                                         (its grouped GEMMs are K8,
 //                                         csrc/group_gemm.cu)
+//   K26 the same, int8 / fp8 W_down     ≙ the same kernel under
+//                                         OperandFormat.scaled: its grouped
+//                                         GEMMs are K24, whose store folds
+//                                         the scale before the combine
+//                                         kernel's routing weights multiply
+//                                         the rows (gg_pipeline.py:718-721)
 //   K12 tdt_scatter_reduce              ≙ ops/reduce_scatter.py:227
 //                                         _scatter_reduce_kernel, launched
 //                                         at :410 (its puts are
@@ -137,12 +146,14 @@ __global__ void all_gather_collect_kernel(unsigned char* out, long long shard_by
 // out[c*m_loc:(c+1)*m_loc] = ws[c*m_loc:(c+1)*m_loc] @ b for every shard
 // c, shards in arrival order me, me-1, ..., tiles of a shard n-fastest.
 // GROUPED (K9): b is an expert bank and the B of a tile is the one its row
-// block names in shard c's expert ids (g.ids + c * m_loc / block_m).
-template <class E, typename TOut, bool GROUPED>
+// block names in shard c's expert ids (g.ids + c * m_loc / block_m); with
+// a one-byte bank (K25) the same expert's scale row folds into the store.
+template <class E, typename TB, typename TOut, bool GROUPED>
 __global__ void __launch_bounds__(E::THREADS, 1)
-    ag_gemm_kernel(const typename E::TIn* __restrict__ ws, const typename E::TIn* __restrict__ b,
-                   TOut* __restrict__ out, int m_loc, int n, int k, int vec, int world, int me,
-                   const int* flags, int epoch, WaitCtx w, Groups g, int jitter) {
+    ag_gemm_kernel(const typename E::TIn* __restrict__ ws, const TB* __restrict__ b,
+                   const float* __restrict__ scale, TOut* __restrict__ out, int m_loc, int n,
+                   int k, int vec, int world, int me, const int* flags, int epoch, WaitCtx w,
+                   Groups g, int jitter) {
   shmem::comm_jitter(me, 8, jitter, world);  // K6's; K9 passes 0
   const int tiles_n = cdiv(n, E::BN);
   const int per_shard = cdiv(m_loc, E::BM) * tiles_n;
@@ -159,14 +170,16 @@ __global__ void __launch_bounds__(E::THREADS, 1)
     __syncthreads();  // the previous tile's last reads of shared memory
     const int m0 = (r / tiles_n) * E::BM, n0 = (r % tiles_n) * E::BN;
     size_t b_off = 0;
+    const float* srow = nullptr;
     if constexpr (GROUPED) {
       Groups gc = g;
       gc.ids += c * (m_loc / g.block_m);
       b_off = gc.b_offset(m0, k, n);
+      srow = gc.scale_row(scale, m0, n);
     }
     typename E::Acc acc;
     E::mainloop(ws + (size_t)c * m_loc * k, b + b_off, m_loc, n, k, m0, n0, vec, acc);
-    E::template store<false>(acc, out + (size_t)c * m_loc * n, m_loc, n, m0, n0, none);
+    E::template store<false>(acc, out + (size_t)c * m_loc * n, m_loc, n, m0, n0, none, srow);
   }
 }
 
@@ -371,27 +384,36 @@ extern "C" int tdt_put_signal(int n_dst, const long long* dsts, const void* src,
 namespace {
 
 template <bool GROUPED>
-cudaError_t launch_ag_consumer(const void* ws, const void* b, void* out, int m_loc, int n,
-                               int k, int in_dtype, int out_dtype, int world, int me,
-                               const void* flags, int epoch, int max_blocks, const WaitCtx& w,
-                               const Groups& g, int jitter, cudaStream_t s) {
+cudaError_t launch_ag_consumer(const void* ws, const void* b, const float* scale, void* out,
+                               int m_loc, int n, int k, int in_dtype, int b_dtype,
+                               int out_dtype, int world, int me, const void* flags, int epoch,
+                               int max_blocks, const WaitCtx& w, const Groups& g, int jitter,
+                               cudaStream_t s) {
   return dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
     using E = decltype(e);
     using TOut = decltype(t);
-    const int vec = in_dtype == kBF16 ? bf16_vec_ok(ws, b, n, k) : 0;
-    if (E::SMEM_BYTES > 0) {
-      cudaError_t attr = cudaFuncSetAttribute(ag_gemm_kernel<E, TOut, GROUPED>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              E::SMEM_BYTES);
-      if (attr != cudaSuccess) return attr;
-    }
-    const int tiles = cdiv(m_loc, E::BM) * cdiv(n, E::BN) * world;
-    ag_gemm_kernel<E, TOut, GROUPED>
-        <<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
-            static_cast<const typename E::TIn*>(ws), static_cast<const typename E::TIn*>(b),
-            static_cast<TOut*>(out), m_loc, n, k, vec, world, me,
-            static_cast<const int*>(flags), epoch, w, g, jitter);
-    return cudaSuccess;
+    auto go = [&](auto wt) {
+      using TB = decltype(wt);
+      int vec = 0;
+      if (in_dtype == kBF16)
+        vec = sizeof(TB) == 1 ? (k % 8 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0)
+                              : bf16_vec_ok(ws, b, n, k);
+      if (E::SMEM_BYTES > 0) {
+        cudaError_t attr = cudaFuncSetAttribute(ag_gemm_kernel<E, TB, TOut, GROUPED>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                E::SMEM_BYTES);
+        if (attr != cudaSuccess) return attr;
+      }
+      const int tiles = cdiv(m_loc, E::BM) * cdiv(n, E::BN) * world;
+      ag_gemm_kernel<E, TB, TOut, GROUPED>
+          <<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
+              static_cast<const typename E::TIn*>(ws), static_cast<const TB*>(b), scale,
+              static_cast<TOut*>(out), m_loc, n, k, vec, world, me,
+              static_cast<const int*>(flags), epoch, w, g, jitter);
+      return cudaSuccess;
+    };
+    if constexpr (GROUPED) return dispatch_weights<typename E::TIn>(in_dtype, b_dtype, go);
+    else return b_dtype == in_dtype ? go(typename E::TIn{}) : cudaErrorInvalidValue;
   });
 }
 
@@ -407,28 +429,36 @@ extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, in
   if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
   const Groups none = {nullptr, 1, 1};
   cudaError_t err = launch_ag_consumer<false>(
-      ws, b, out, m_loc, n, k, in_dtype, out_dtype, world, me, flags, epoch, max_blocks,
-      wait_ctx(diag, timeout_ns, me, family), none, jitter, static_cast<cudaStream_t>(stream));
+      ws, b, nullptr, out, m_loc, n, k, in_dtype, in_dtype, out_dtype, world, me, flags, epoch,
+      max_blocks, wait_ctx(diag, timeout_ns, me, family), none, jitter,
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K9: ws [world * t_pad_loc, k] (the gathered expert-sorted slabs), b
 // [n_exp, k, n], expert_ids int32 [world, t_pad_loc / block_m], out
-// [world * t_pad_loc, n]; block_m a multiple of 128 dividing t_pad_loc.
-extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b,
+// [world * t_pad_loc, n]; block_m a multiple of 128 dividing t_pad_loc. K25:
+// b int8 / fp8 e4m3 (b_dtype) with its f32 scale bank [n_exp, 1, n] (n a
+// multiple of 16, b 16-byte aligned); otherwise b in the slabs' type and
+// scale null.
+extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b, const void* scale,
                                           const void* expert_ids, void* out, int t_pad_loc,
                                           int n, int k, int n_exp, int block_m, int in_dtype,
-                                          int out_dtype, int world, int me, const void* flags,
-                                          int epoch, int max_blocks, void* diag,
-                                          long long timeout_ns, int family, void* stream) {
+                                          int b_dtype, int out_dtype, int world, int me,
+                                          const void* flags, int epoch, int max_blocks,
+                                          void* diag, long long timeout_ns, int family,
+                                          void* stream) {
+  const bool scaled = b_dtype == kI8 || b_dtype == kFP8;
   if (world < 2 || world > MAX_WORLD || block_m <= 0 || block_m % 128 != 0 ||
-      t_pad_loc % block_m != 0 || n_exp < 1)
+      t_pad_loc % block_m != 0 || n_exp < 1 || scaled != (scale != nullptr) ||
+      (scaled && !byte_b_ok(b, n)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp};
   cudaError_t err = launch_ag_consumer<true>(
-      ws, b, out, t_pad_loc, n, k, in_dtype, out_dtype, world, me, flags, epoch, max_blocks,
-      wait_ctx(diag, timeout_ns, me, family), g, 0, static_cast<cudaStream_t>(stream));
+      ws, b, static_cast<const float*>(scale), out, t_pad_loc, n, k, in_dtype, b_dtype,
+      out_dtype, world, me, flags, epoch, max_blocks, wait_ctx(diag, timeout_ns, me, family), g,
+      0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

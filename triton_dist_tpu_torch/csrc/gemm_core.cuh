@@ -16,17 +16,30 @@
 // shared memory, in f32, rounded back to A's type: the fused producer
 // activation of the grouped GEMM (csrc/group_gemm.cu). Groups selects the
 // B operand of an M tile by its row block's expert (the grouped GEMMs).
+//
+// The scaled weight formats (K24-K26; triton_dist_tpu/ops/gg_pipeline.py:43
+// OperandFormat): B may be int8 or fp8 e4m3 (TB of one byte) under A of
+// either type. B is upcast to A's type before the product (OperandFormat.
+// mxu_b; exact: |q| <= 127 and every e4m3 value fit bf16), and `store`
+// multiplies the f32 accumulator by the expert's scale row once, before
+// the cast (OperandFormat.fold). Bf16Engine stages the one-byte B tile raw
+// through 16-byte cp.async (16 weights a copy, a quarter of the bf16 B
+// stage's shared memory), and converts the landed stage into one bf16 tile
+// behind the k step's __syncthreads, from which the unchanged ldmatrix.trans
+// fragment loads read; F32Engine converts each weight as it loads it.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tdt {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
 typedef __nv_bfloat16 bf16;
+typedef __nv_fp8_e4m3 fp8;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -37,6 +50,20 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
+}
+// a weight of any B format as f32, exactly
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+template <> __device__ __forceinline__ float to_f32<fp8>(fp8 x) { return static_cast<float>(x); }
+// two one-byte weights packed low byte first, as f32
+template <typename TB> __device__ __forceinline__ float2 pair_to_f32(unsigned short two);
+template <> __device__ __forceinline__ float2 pair_to_f32<int8_t>(unsigned short two) {
+  return make_float2(static_cast<float>(static_cast<signed char>(two & 0xff)),
+                     static_cast<float>(static_cast<signed char>(two >> 8)));
+}
+template <> __device__ __forceinline__ float2 pair_to_f32<fp8>(unsigned short two) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3)));
 }
 
 // Epilogue adds: up to world - 1 = 7 row-major [m, n] matrices in the
@@ -62,15 +89,23 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // (i+1)*block_m) of A multiply B[ids[i]] (ids clamped into the bank, as
 // the JAX package's golden clamps them). block_m is a multiple of every
 // engine's BM, so an M tile never straddles two experts.
+// The scale row of a tile's expert is the clamped expert's too, as the
+// golden clamps it (triton_dist_tpu/ops/group_gemm.py:231).
 struct Groups {
   const int* ids;
   int block_m;
   int n_exp;
 
+  __device__ __forceinline__ int expert(int m0) const {
+    const int e = ids[m0 / block_m];
+    return e < 0 ? 0 : (e >= n_exp ? n_exp - 1 : e);
+  }
   __device__ __forceinline__ size_t b_offset(int m0, int k, int n) const {
-    int e = ids[m0 / block_m];
-    e = e < 0 ? 0 : (e >= n_exp ? n_exp - 1 : e);
-    return (size_t)e * k * n;
+    return (size_t)expert(m0) * k * n;
+  }
+  // the expert's [n] scale row in an [n_exp, 1, n] bank, or none
+  __device__ __forceinline__ const float* scale_row(const float* scale, int m0, int n) const {
+    return scale ? scale + (size_t)expert(m0) * n : nullptr;
   }
 };
 
@@ -103,12 +138,14 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, const unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One stored element: the accumulator plus (with ADDS) the epilogue adds,
-// in f32. Without ADDS the store is the plain cast, no add code at all.
+// One stored element: the accumulator times the column's scale (the scaled
+// formats' fold, `scale` non-null), plus (with ADDS) the epilogue adds, in
+// f32. Without ADDS the store is the plain cast, no add code at all.
 template <bool ADDS, typename TOut>
 __device__ __forceinline__ void store_elem(TOut* c, int n, int rr, int cc, float v,
-                                           const AddList<TOut>& adds) {
+                                           const AddList<TOut>& adds, const float* scale) {
   const size_t at = (size_t)rr * n + cc;
+  if (scale) v *= scale[cc];
   if (ADDS) {
     // constant indices keep the pointer array in the parameter bank
 #pragma unroll
@@ -129,6 +166,11 @@ struct Bf16Engine {
   static constexpr int MT = WM / 16, NT = WN / 8;  // m16n8k16 tiles per warp
   static constexpr int A_STAGE = BM * A_LD, B_STAGE = BK * B_LD;  // elements
   static constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * 2;
+  // one-byte B: STAGES raw [BK][BN] byte stages after the A stages, then
+  // one bf16 [BK][B_LD] tile converted from the stage in use
+  static constexpr int BRAW_STAGE = BK * BN;  // bytes
+  static_assert(STAGES * A_STAGE * 2 + STAGES * BRAW_STAGE + B_STAGE * 2 <= SMEM_BYTES,
+                "the one-byte B layout fits the bf16 footprint");
 
   struct Acc {
     float v[MT][NT][4];
@@ -158,9 +200,13 @@ struct Bf16Engine {
 
   // Stage the k tile at k0: A[m0:m0+BM, k0:k0+BK] (1024 chunks of 8, four
   // per thread) and B[k0:k0+BK, n0:n0+BN] (2048 chunks, eight per thread).
-  __device__ static __forceinline__ void load_tile(bf16* as, bf16* bs,
+  // A one-byte B goes raw into `bs` ([BK][BN] bytes): 1024 chunks of 16,
+  // four per thread, always by cp.async (the caller guarantees n % 16 == 0
+  // and a 16-byte aligned bank, so a chunk is wholly inside or outside).
+  template <typename TB>
+  __device__ static __forceinline__ void load_tile(bf16* as, void* bs,
                                                    const bf16* __restrict__ a,
-                                                   const bf16* __restrict__ b, int m,
+                                                   const TB* __restrict__ b, int m,
                                                    int n, int k, int m0, int n0, int k0,
                                                    int vec) {
 #pragma unroll
@@ -169,11 +215,46 @@ struct Bf16Engine {
       const int r = chunk / (BK / 8), c = (chunk % (BK / 8)) * 8;
       load_chunk(as + r * A_LD + c, a, m0 + r, k0 + c, m, k, vec);
     }
+    if constexpr (sizeof(TB) == 1) {
+      unsigned char* raw = static_cast<unsigned char*>(bs);
 #pragma unroll
-    for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+      for (int i = 0; i < BK * BN / 16 / THREADS; ++i) {
+        const int chunk = threadIdx.x + i * THREADS;
+        const int r = chunk / (BN / 16), c = (chunk % (BN / 16)) * 16;
+        if (k0 + r < k && n0 + c < n) {
+          cp_async16(raw + r * BN + c, b + (size_t)(k0 + r) * n + n0 + c);
+        } else {
+          *reinterpret_cast<uint4*>(raw + r * BN + c) = make_uint4(0, 0, 0, 0);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+        const int chunk = threadIdx.x + i * THREADS;
+        const int r = chunk / (BN / 8), c = (chunk % (BN / 8)) * 8;
+        load_chunk(static_cast<bf16*>(bs) + r * B_LD + c, b, k0 + r, n0 + c, k, n, vec);
+      }
+    }
+  }
+
+  // The landed raw stage of a one-byte B as bf16 into the [BK][B_LD] tile:
+  // 16 weights a thread and step (one 16-byte shared load, two stores).
+  template <typename TB>
+  __device__ static __forceinline__ void convert_b(const unsigned char* raw, bf16* bt) {
+#pragma unroll
+    for (int i = 0; i < BK * BN / 16 / THREADS; ++i) {
       const int chunk = threadIdx.x + i * THREADS;
-      const int r = chunk / (BN / 8), c = (chunk % (BN / 8)) * 8;
-      load_chunk(bs + r * B_LD + c, b, k0 + r, n0 + c, k, n, vec);
+      const int r = chunk / (BN / 16), c = (chunk % (BN / 16)) * 16;
+      const uint4 q = *reinterpret_cast<const uint4*>(raw + r * BN + c);
+      const unsigned words[4] = {q.x, q.y, q.z, q.w};
+      __nv_bfloat162 h[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        h[e] = __float22bfloat162_rn(
+            pair_to_f32<TB>(static_cast<unsigned short>(words[e / 2] >> (16 * (e % 2)))));
+      uint4* dst = reinterpret_cast<uint4*>(bt + r * B_LD + c);
+      dst[0] = *reinterpret_cast<const uint4*>(&h[0]);
+      dst[1] = *reinterpret_cast<const uint4*>(&h[4]);
     }
   }
 
@@ -182,13 +263,22 @@ struct Bf16Engine {
   // A block that runs several tiles (the persistent consumers) calls
   // __syncthreads() between them: the prologue below overwrites stages the
   // previous tile's last step read.
-  template <bool ACT = false>
+  template <bool ACT = false, typename TB = bf16>
   __device__ static __forceinline__ void mainloop(const bf16* __restrict__ a,
-                                                  const bf16* __restrict__ b, int m, int n,
+                                                  const TB* __restrict__ b, int m, int n,
                                                   int k, int m0, int n0, int vec, Acc& acc) {
+    constexpr bool BYTE_B = sizeof(TB) == 1;
+    static_assert(BYTE_B || sizeof(TB) == 2, "B is bf16 or a one-byte format");
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* as = reinterpret_cast<bf16*>(smem);  // [STAGES][BM][A_LD]
-    bf16* bs = as + STAGES * A_STAGE;          // [STAGES][BK][B_LD]
+    bf16* bs = as + STAGES * A_STAGE;          // [STAGES][BK][B_LD] (bf16 B)
+    // one-byte B: [STAGES][BK][BN] raw bytes at bs, the converted tile after
+    unsigned char* braw = reinterpret_cast<unsigned char*>(bs);
+    bf16* bcv = reinterpret_cast<bf16*>(braw + STAGES * BRAW_STAGE);
+    auto stage_b = [&](int st) -> void* {
+      return BYTE_B ? static_cast<void*>(braw + st * BRAW_STAGE)
+                    : static_cast<void*>(bs + st * B_STAGE);
+    };
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int wm = warp / (BN / WN), wn = warp % (BN / WN);
 #pragma unroll
@@ -203,31 +293,32 @@ struct Bf16Engine {
     // empty, so the wait counts below stay uniform)
 #pragma unroll
     for (int st = 0; st < STAGES - 1; ++st) {
-      if (st < nk)
-        load_tile(as + st * A_STAGE, bs + st * B_STAGE, a, b, m, n, k, m0, n0, st * BK, vec);
+      if (st < nk) load_tile(as + st * A_STAGE, stage_b(st), a, b, m, n, k, m0, n0, st * BK, vec);
       cp_async_commit();
     }
     for (int kt = 0; kt < nk; ++kt) {
       cp_async_wait<STAGES - 2>();
       // tile kt has landed for every thread, and every warp has finished
-      // reading the stage the next prefetch overwrites (tile kt - 1's)
+      // reading the stage the next prefetch overwrites (tile kt - 1's) and
+      // the converted B tile
       __syncthreads();
+      if constexpr (BYTE_B) convert_b<TB>(braw + (kt % STAGES) * BRAW_STAGE, bcv);
       if constexpr (ACT) {
         bf16* at_w = as + (kt % STAGES) * A_STAGE;
         for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
           bf16* p = at_w + (i / BK) * A_LD + i % BK;
           *p = __float2bfloat16(gelu_tanh(__bfloat162float(*p)));
         }
-        __syncthreads();
       }
+      if constexpr (ACT || BYTE_B) __syncthreads();
       const int pre = kt + STAGES - 1;
       if (pre < nk) {
         const int ps = pre % STAGES;
-        load_tile(as + ps * A_STAGE, bs + ps * B_STAGE, a, b, m, n, k, m0, n0, pre * BK, vec);
+        load_tile(as + ps * A_STAGE, stage_b(ps), a, b, m, n, k, m0, n0, pre * BK, vec);
       }
       cp_async_commit();
       const bf16* at = as + (kt % STAGES) * A_STAGE;
-      const bf16* bt = bs + (kt % STAGES) * B_STAGE;
+      const bf16* bt = BYTE_B ? bcv : bs + (kt % STAGES) * B_STAGE;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         unsigned af[MT][4], bfr[NT][2];
@@ -263,7 +354,8 @@ struct Bf16Engine {
   template <bool ADDS, typename TOut>
   __device__ static __forceinline__ void store(const Acc& acc, TOut* __restrict__ c, int m,
                                                int n, int m0, int n0,
-                                               const AddList<TOut>& adds) {
+                                               const AddList<TOut>& adds,
+                                               const float* scale = nullptr) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int wm = warp / (BN / WN), wn = warp % (BN / WN);
 #pragma unroll
@@ -275,7 +367,7 @@ struct Bf16Engine {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int rr = r + (e / 2) * 8, cc = col + e % 2;
-          if (rr < m && cc < n) store_elem<ADDS>(c, n, rr, cc, acc.v[i][j][e], adds);
+          if (rr < m && cc < n) store_elem<ADDS>(c, n, rr, cc, acc.v[i][j][e], adds, scale);
         }
       }
     }
@@ -292,9 +384,9 @@ struct F32Engine {
     float v[4][4];
   };
 
-  template <bool ACT = false>
+  template <bool ACT = false, typename TB = float>
   __device__ static __forceinline__ void mainloop(const float* __restrict__ a,
-                                                  const float* __restrict__ b, int m, int n,
+                                                  const TB* __restrict__ b, int m, int n,
                                                   int k, int m0, int n0, int, Acc& acc) {
     __shared__ float as[FK][BM + 4];  // transposed: as[kk][row]
     __shared__ float bs[FK][BN + 4];
@@ -311,7 +403,8 @@ struct F32Engine {
         const float av = (m0 + ra < m && k0 + ka < k) ? a[(size_t)(m0 + ra) * k + k0 + ka] : 0.f;
         as[ka][ra] = ACT ? gelu_tanh(av) : av;
         const int kb = e / BN, cb = e % BN;
-        bs[kb][cb] = (k0 + kb < k && n0 + cb < n) ? b[(size_t)(k0 + kb) * n + n0 + cb] : 0.f;
+        bs[kb][cb] =
+            (k0 + kb < k && n0 + cb < n) ? to_f32<TB>(b[(size_t)(k0 + kb) * n + n0 + cb]) : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -333,7 +426,8 @@ struct F32Engine {
   template <bool ADDS, typename TOut>
   __device__ static __forceinline__ void store(const Acc& acc, TOut* __restrict__ c, int m,
                                                int n, int m0, int n0,
-                                               const AddList<TOut>& adds) {
+                                               const AddList<TOut>& adds,
+                                               const float* scale = nullptr) {
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -341,7 +435,7 @@ struct F32Engine {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + tx * 4 + j;
-        if (r < m && col < n) store_elem<ADDS>(c, n, r, col, acc.v[i][j], adds);
+        if (r < m && col < n) store_elem<ADDS>(c, n, r, col, acc.v[i][j], adds, scale);
       }
     }
   }
@@ -351,6 +445,23 @@ struct F32Engine {
 inline int bf16_vec_ok(const void* a, const void* b, int n, int k) {
   return (k % 8 == 0) && (n % 8 == 0) && (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
          (reinterpret_cast<uintptr_t>(b) % 16 == 0);
+}
+
+// A one-byte bank rides 16-byte cp.async: its rows must be 16-byte multiples
+// on a 16-byte aligned base (the wrappers refuse other widths)
+inline int byte_b_ok(const void* b, int n) {
+  return (n % 16 == 0) && (reinterpret_cast<uintptr_t>(b) % 16 == 0);
+}
+
+// Call f(TB{}) for the weight dtype code under activations of type TIn: the
+// activation's own type, or a one-byte scaled format; cudaErrorInvalidValue
+// for anything else.
+template <typename TIn, typename F>
+cudaError_t dispatch_weights(int in_dtype, int b_dtype, F&& f) {
+  if (b_dtype == in_dtype) return f(TIn{});
+  if (b_dtype == kI8) return f(int8_t{});
+  if (b_dtype == kFP8) return f(fp8{});
+  return cudaErrorInvalidValue;
 }
 
 // Call f(Engine{}, TOut{}) for the (input, output) dtype codes; returns

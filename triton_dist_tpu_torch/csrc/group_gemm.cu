@@ -1,4 +1,5 @@
-// K8 · grouped GEMM over block-aligned expert rows:
+// K8 · grouped GEMM over block-aligned expert rows (K24: its scaled weight
+// formats, below):
 //   out[i*bm:(i+1)*bm] = act?(a_sorted[i*bm:(i+1)*bm]) . b[expert_ids[i]]
 // with an f32 accumulator, the result cast to the output type. a_sorted
 // [t_pad, k] row-major in bf16 or f32, b [n_exp, k, n], expert_ids
@@ -26,6 +27,22 @@
 // the tile's arrival and its MMA, which costs one extra __syncthreads per
 // k step; the A tile is re-read from L2 for each N tile. An expert-major
 // schedule that keeps B panels resident, wgmma and TMA are later work.
+
+// K24 · K8 with int8 or fp8 e4m3 expert banks and their per-(expert,
+// out-column) f32 scales (tdt_group_gemm with b_dtype int8/fp8):
+//   out[i*bm:(i+1)*bm] = (act?(A_i) . upcast(b[e_i])) * scale[e_i]
+// Replaces gg_pipeline.py:87 make_group_gemm_kernel under
+// OperandFormat.scaled (w8, fp8), launched by triton_dist_tpu/ops/
+// group_gemm.py:299 (group_gemm_w8 / group_gemm_fp8); the fold is
+// gg_pipeline.py:145. What bounds it at the Mixtral prefill shapes:
+// operations, as K8 (B at one byte moves ~0.47 GB, A and the output more;
+// the products are the same 1.2e15-scale work) plus the B conversion on the
+// CUDA cores. The design: K8's tile with gemm_core.cuh's one-byte B stager
+// (16 weights a cp.async, a quarter of the bf16 stage) and a per-step
+// conversion into one bf16 tile; the expert's scale row (clamped like its
+// bank) multiplies the f32 accumulator in the store, before the cast and
+// before anything downstream (the combine weights of K10/K26). Tensor-core
+// fp8 math with a quantized A, wgmma and TMA are later work.
 
 // K11 · the grouped-GEMM weight gradient (tdt_group_gemm_dw):
 //   dW[e] = sum over the row blocks i with expert_ids[i] == e of A_i^T . G_i
@@ -61,30 +78,30 @@ namespace {
 
 using namespace tdt;
 
-template <class E, typename TOut, bool ACT>
+template <class E, typename TB, typename TOut, bool ACT>
 __global__ void __launch_bounds__(E::THREADS, 1)
-    group_gemm_kernel(const typename E::TIn* __restrict__ a,
-                      const typename E::TIn* __restrict__ b, TOut* __restrict__ c, int m,
-                      int n, int k, int vec, Groups g) {
+    group_gemm_kernel(const typename E::TIn* __restrict__ a, const TB* __restrict__ b,
+                      const float* __restrict__ scale, TOut* __restrict__ c, int m, int n,
+                      int k, int vec, Groups g) {
   const int m0 = blockIdx.y * E::BM, n0 = blockIdx.x * E::BN;
   const AddList<TOut> none = {};
   typename E::Acc acc;
   E::template mainloop<ACT>(a, b + g.b_offset(m0, k, n), m, n, k, m0, n0, vec, acc);
-  E::template store<false>(acc, c, m, n, m0, n0, none);
+  E::template store<false>(acc, c, m, n, m0, n0, none, g.scale_row(scale, m0, n));
 }
 
-template <class E, typename TOut, bool ACT>
-cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k, int vec,
-                   const Groups& g, cudaStream_t s) {
+template <class E, typename TB, typename TOut, bool ACT>
+cudaError_t launch(const void* a, const void* b, const float* scale, void* c, int m, int n,
+                   int k, int vec, const Groups& g, cudaStream_t s) {
   if (E::SMEM_BYTES > 0) {
-    cudaError_t attr = cudaFuncSetAttribute(group_gemm_kernel<E, TOut, ACT>,
+    cudaError_t attr = cudaFuncSetAttribute(group_gemm_kernel<E, TB, TOut, ACT>,
                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                                             E::SMEM_BYTES);
     if (attr != cudaSuccess) return attr;
   }
   const dim3 grid(cdiv(n, E::BN), m / E::BM);
-  group_gemm_kernel<E, TOut, ACT><<<grid, E::THREADS, E::SMEM_BYTES, s>>>(
-      static_cast<const typename E::TIn*>(a), static_cast<const typename E::TIn*>(b),
+  group_gemm_kernel<E, TB, TOut, ACT><<<grid, E::THREADS, E::SMEM_BYTES, s>>>(
+      static_cast<const typename E::TIn*>(a), static_cast<const TB*>(b), scale,
       static_cast<TOut*>(c), m, n, k, vec, g);
   return cudaSuccess;
 }
@@ -348,20 +365,33 @@ extern "C" int tdt_group_gemm_dw(const void* a, const void* g, const void* exper
 }
 
 // a [m, k], b [n_exp, k, n], expert_ids int32 [m / block_m], c [m, n];
-// block_m a multiple of 128 that divides m; act 1 = tanh GELU on A.
-extern "C" int tdt_group_gemm(const void* a, const void* b, const void* expert_ids, void* c,
-                              int m, int n, int k, int n_exp, int block_m, int in_dtype,
-                              int out_dtype, int act, void* stream) {
-  if (block_m <= 0 || block_m % 128 != 0 || m % block_m != 0 || n_exp < 1)
+// block_m a multiple of 128 that divides m; act 1 = tanh GELU on A. b is in
+// A's type (b_dtype == in_dtype, scale null: K8) or int8 / fp8 e4m3 with
+// its f32 scale bank [n_exp, 1, n] (K24; n a multiple of 16, b 16-byte
+// aligned).
+extern "C" int tdt_group_gemm(const void* a, const void* b, const void* scale,
+                              const void* expert_ids, void* c, int m, int n, int k, int n_exp,
+                              int block_m, int in_dtype, int b_dtype, int out_dtype, int act,
+                              void* stream) {
+  const bool scaled = b_dtype == kI8 || b_dtype == kFP8;
+  if (block_m <= 0 || block_m % 128 != 0 || m % block_m != 0 || n_exp < 1 ||
+      scaled != (scale != nullptr) || (scaled && !byte_b_ok(b, n)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp};
+  const float* sc = static_cast<const float*>(scale);
   cudaError_t err = dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
     using E = decltype(e);
     using TOut = decltype(t);
-    const int vec = in_dtype == kBF16 ? bf16_vec_ok(a, b, n, k) : 0;
-    return act ? launch<E, TOut, true>(a, b, c, m, n, k, vec, g, s)
-               : launch<E, TOut, false>(a, b, c, m, n, k, vec, g, s);
+    return dispatch_weights<typename E::TIn>(in_dtype, b_dtype, [&](auto w) {
+      using TB = decltype(w);
+      int vec = 0;
+      if (in_dtype == kBF16)
+        vec = scaled ? (k % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0)
+                     : bf16_vec_ok(a, b, n, k);
+      return act ? launch<E, TB, TOut, true>(a, b, sc, c, m, n, k, vec, g, s)
+                 : launch<E, TB, TOut, false>(a, b, sc, c, m, n, k, vec, g, s);
+    });
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

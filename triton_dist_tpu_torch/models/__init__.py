@@ -13,6 +13,7 @@ from triton_dist_tpu_torch.models.tp_transformer import (  # noqa: F401
     init_moe_params,
     init_params,
     params_from_numpy,
+    quantize_moe_serving_params,
     shard_params,
     specs_for,
     train_step,

@@ -25,9 +25,10 @@ alike. At world > 1 the step functions run once per rank inside
 
 A :class:`~triton_dist_tpu_torch.models.tp_transformer.MoETransformerConfig`
 serves the MoE decoder: prefill runs ``TPMoETransformer`` (K8 at world 1,
-K9/K10 at world > 1), and a decode step's MLP computes every expert on its
-few rows with dense einsums, a one-hot top-k combine and the ``psum``, in
-plain PyTorch as the JAX package leaves it to XLA (``:446-481``).
+K9/K10 at world > 1; over int8 or fp8 banks K24, and K25/K26), and a decode
+step's MLP computes every expert on its few rows with dense einsums, a
+one-hot top-k combine and the ``psum``, in plain PyTorch as the JAX package
+leaves it to XLA (``:446-481``).
 
 The suffix-only ranged prefill (:func:`prefill_cache_ranged`) runs the
 decode-shaped forward over a prompt range ``[pos0, pos0 + S)`` of every
@@ -60,7 +61,6 @@ from triton_dist_tpu_torch.models.tp_transformer import (
     apply_rope,
     rmsnorm,
     rope_tables,
-    check_moe_params,
     shard_params,
 )
 from triton_dist_tpu_torch.ops.group_gemm import gelu
@@ -380,7 +380,13 @@ def _decode_mlp(c, x: torch.Tensor, p: dict, ctx) -> torch.Tensor:
     (≙ ``_decode_mlp``, ``:407``): dense SwiGLU, or for the MoE decoder
     every expert's F shard on every row (dense einsums: at decode row counts
     every expert's weights stream anyway) and a one-hot top-k combine; then
-    the ``psum`` of the rank's partial."""
+    the ``psum`` of the rank's partial.
+
+    Quantized banks (``:456-478``): each pool is upcast to the activation
+    dtype for its einsum and its scale multiplies the f32 result after the
+    contraction (exact: the scale is constant over the contracted dim),
+    before the GELU and before the combine. Eager PyTorch materialises each
+    upcast bank every step where XLA fuses the convert into the dot."""
     m = x.shape[0]
     h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
     if not isinstance(c, MoETransformerConfig):
@@ -388,10 +394,17 @@ def _decode_mlp(c, x: torch.Tensor, p: dict, ctx) -> torch.Tensor:
         act = torch.nn.functional.silu(gu[..., 0].float()).to(x.dtype) * gu[..., 1]
         return x + _psum(ctx, act @ p["w_down"])
     tw, ids = select_experts(h.float() @ p["router"].float(), c.topk)    # [m, topk]
+    quant = "w_up_scale" in p
+    w_up = p["w_up"].to(h.dtype) if quant else p["w_up"]
+    w_down = p["w_down"].to(x.dtype) if quant else p["w_down"]
     # matmul broadcasts h over the experts; einsum would copy the bank
-    h_e = torch.matmul(h, p["w_up"]).float()                             # [E, m, F/n]
+    h_e = torch.matmul(h, w_up).float()                                  # [E, m, F/n]
+    if quant:
+        h_e = h_e * p["w_up_scale"]                                      # [E, 1, F/n]
     act = gelu(h_e).to(x.dtype)
-    y_e = torch.einsum("ebf,efh->ebh", act, p["w_down"]).float()
+    y_e = torch.einsum("ebf,efh->ebh", act, w_down).float()
+    if quant:
+        y_e = y_e * p["w_down_scale"]
     w_e = torch.zeros((m, c.n_experts), dtype=torch.float32, device=x.device)
     w_e.scatter_add_(1, ids.long(), tw)
     y = torch.einsum("be,ebh->bh", w_e, y_e)
@@ -557,7 +570,6 @@ class _Ranks:
     own device and the replicated output of rank 0 is returned."""
 
     def __init__(self, cfg, params: dict, spec, device: torch.device, ctx=None):
-        check_moe_params(params)
         self.ctx = ctx
         if ctx is None:
             self.devices = [device]

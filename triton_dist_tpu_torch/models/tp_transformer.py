@@ -31,6 +31,8 @@ The MoE decoder (:class:`TPMoETransformer`, ``:352``) keeps the attention
 and replaces the MLP by a router and a tensor-parallel expert bank: a
 single up-projection ``w_up [E, H, F]``, the tanh GELU, ``w_down [E, F,
 H]`` (no gate), both sharded on F, through ``ops/moe_mlp.tp_moe_mlp``.
+:func:`quantize_moe_serving_params` (``:306``) turns the banks into int8 or
+fp8 e4m3 pools with per-(expert, out-column) scales for serving.
 """
 
 from __future__ import annotations
@@ -45,7 +47,12 @@ from triton_dist_tpu_torch.config import resolve_device
 from triton_dist_tpu_torch.ops import grads
 from triton_dist_tpu_torch.ops.allgather_gemm import AGGemmConfig, ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import GemmRSConfig, gemm_rs
-from triton_dist_tpu_torch.ops.group_gemm import check_config
+from triton_dist_tpu_torch.ops.group_gemm import (
+    FP8_DTYPE,
+    check_config,
+    quantize_expert_weights,
+    quantize_expert_weights_fp8,
+)
 from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
 from triton_dist_tpu_torch.ops.moe_utils import select_experts
 from triton_dist_tpu_torch.utils import axis_index, axis_size
@@ -154,34 +161,52 @@ def init_moe_params(cfg: MoETransformerConfig, seed: int = 0, *, device=None) ->
     return init_params(cfg, seed, device=device)
 
 
-def _refuse_quantized_banks() -> None:
-    raise NotImplementedError(
-        "quantized expert banks (quantize_moe_serving_params) are not ported yet "
-        "(ROADMAP B16, w8/fp8)")
-
-
-def check_moe_params(params: dict) -> None:
-    """Raise for parameters the port cannot serve yet: quantized expert
-    banks (a ``w_up_scale`` beside ``w_up``)."""
-    if any("w_up_scale" in p for p in params["layers"]):
-        _refuse_quantized_banks()
-
-
 def params_from_numpy(tree: dict, device, dtype: torch.dtype) -> dict:
     """The JAX package's ``init_params`` tree, as numpy arrays, to this
-    port's parameters (same keys, same layouts) on `device` in `dtype`."""
+    port's parameters (same keys, same layouts) on `device`: float leaves
+    in `dtype`, except the quantized serving banks of
+    :func:`quantize_moe_serving_params`: int8 pools stay ``torch.int8``,
+    fp8 pools keep their bytes (through a ``uint8`` view), scales stay
+    f32."""
 
-    def conv(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(
-            device=device, dtype=dtype
-        )
+    def conv(name, x):
+        a = np.asarray(x)
+        if a.dtype == np.int8:
+            return torch.from_numpy(a.copy()).to(device)
+        if a.dtype.itemsize == 1:  # float8_e4m3fn, numpy's ml_dtypes
+            return torch.from_numpy(a.view(np.uint8).copy()).view(FP8_DTYPE).to(device)
+        out_dtype = torch.float32 if name.endswith("_scale") else dtype
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=out_dtype)
 
     return dict(
-        embed=conv(tree["embed"]),
-        layers=[{k: conv(v) for k, v in p.items()} for p in tree["layers"]],
-        final_norm=conv(tree["final_norm"]),
-        lm_head=conv(tree["lm_head"]),
+        embed=conv("embed", tree["embed"]),
+        layers=[{k: conv(k, v) for k, v in p.items()} for p in tree["layers"]],
+        final_norm=conv("final_norm", tree["final_norm"]),
+        lm_head=conv("lm_head", tree["lm_head"]),
     )
+
+
+def quantize_moe_serving_params(params: dict, fmt: str = "int8") -> dict:
+    """Quantize every layer's expert banks for serving (≙
+    ``quantize_moe_serving_params``, ``:306``; weight-only, per-(expert,
+    out-column) scales): ``w_up``/``w_down`` become int8 (``fmt="int8"``)
+    or fp8 e4m3 (``fmt="fp8"``) pools and ``w_up_scale``/``w_down_scale``
+    ``[E, 1, N]`` f32 join them. Returns a new tree; the other leaves are
+    shared, not copied."""
+    if fmt not in ("int8", "fp8"):
+        raise ValueError(f"fmt must be 'int8' or 'fp8', got {fmt!r}")
+    quantize = quantize_expert_weights_fp8 if fmt == "fp8" else quantize_expert_weights
+    params = dict(params)
+    params["layers"] = [dict(p) for p in params["layers"]]
+    for p in params["layers"]:
+        for name in ("w_up", "w_down"):
+            p[name], p[name + "_scale"] = quantize(p[name])
+    return params
+
+
+def is_quantized_params(params: dict) -> bool:
+    """Whether a parameter tree holds quantized serving banks."""
+    return bool(params["layers"]) and "w_up_scale" in params["layers"][0]
 
 
 # where each weight is split over the ranks (≙ param_specs, and for an MoE
@@ -190,18 +215,29 @@ _TOP_SPLIT = dict(embed=None, final_norm=None, lm_head=1)
 _LAYER_SPLIT = dict(attn_norm=None, wqkv=1, wo=0, mlp_norm=None, w_gate_up=1, w_down=0)
 _MOE_LAYER_SPLIT = dict(attn_norm=None, wqkv=1, wo=0, mlp_norm=None, router=None, w_up=2,
                         w_down=1)
+# the quantized serving banks (≙ moe_quantized_param_specs, :339): the pools
+# keep their banks' splits; a scale [E, 1, N] splits with its OUT dim, so
+# w_up's F columns split and w_down's H stays whole
+_MOE_QUANT_LAYER_SPLIT = dict(_MOE_LAYER_SPLIT, w_up_scale=2, w_down_scale=None)
 
 
-def specs_for(cfg: TransformerConfig) -> dict:
+def specs_for(cfg: TransformerConfig, params: dict | None = None) -> dict:
     """Where each parameter is split over the ranks (≙ ``specs_for``,
     ``:501``): the parameter tree with the split dim at each leaf, or None
-    for a replicated leaf."""
-    layer = _MOE_LAYER_SPLIT if isinstance(cfg, MoETransformerConfig) else _LAYER_SPLIT
+    for a replicated leaf. Pass `params` when they may hold quantized
+    serving banks (:func:`quantize_moe_serving_params`)."""
+    if isinstance(cfg, MoETransformerConfig):
+        quant = params is not None and is_quantized_params(params)
+        layer = _MOE_QUANT_LAYER_SPLIT if quant else _MOE_LAYER_SPLIT
+    else:
+        layer = _LAYER_SPLIT
     return dict(_TOP_SPLIT, layers=[dict(layer) for _ in range(cfg.n_layers)])
 
 
 def _layer_split(p: dict) -> dict:
-    return _MOE_LAYER_SPLIT if "router" in p else _LAYER_SPLIT
+    if "router" not in p:
+        return _LAYER_SPLIT
+    return _MOE_QUANT_LAYER_SPLIT if "w_up_scale" in p else _MOE_LAYER_SPLIT
 
 
 def shard_params(params: dict, world: int, devices=None) -> list[dict]:
@@ -366,18 +402,30 @@ class TPTransformer:
 class TPMoETransformer(TPTransformer):
     """MoE decoder of one rank (≙ ``TPMoETransformer``, ``:352``): the
     dense MLP half replaced by the router, the softmax top-k routing and
-    the tensor-parallel expert MLP (K8 at world 1, K9/K10 at world > 1)."""
+    the tensor-parallel expert MLP (K8 at world 1, K9/K10 at world > 1;
+    with quantized banks under a ``w8``/``fp8`` config K24, K25/K26)."""
 
     def _mlp(self, x: torch.Tensor, p: dict) -> torch.Tensor:
         c = self.cfg
-        if "w_up_scale" in p:
-            _refuse_quantized_banks()
         h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
         tw, ids = select_experts(h.float() @ p["router"].float(), c.topk)
+        w_up, w_down = p["w_up"], p["w_down"]
+        scales = {}
+        if "w_up_scale" in p:
+            gg = c.gg_config
+            if gg is not None and (gg.w8 or gg.fp8):
+                # the scaled formats' single pass (``:360-376``): the pools
+                # and scales go straight to the grouped GEMMs (K24-K26)
+                scales = dict(w_up_scale=p["w_up_scale"], w_down_scale=p["w_down_scale"])
+            else:
+                # quantized banks under a float config: dequantized to the
+                # activation dtype on every call (``:378-390``)
+                w_up = (w_up.float() * p["w_up_scale"]).to(x.dtype)
+                w_down = (w_down.float() * p["w_down_scale"]).to(x.dtype)
         # the router trains through the routing weights
         mlp = grads.tp_moe_mlp_grad if torch.is_grad_enabled() else tp_moe_mlp
-        return mlp(h, p["w_up"], p["w_down"], ids, tw, ctx=self.ctx,
-                   gg_config=c.gg_config).to(x.dtype)
+        return mlp(h, w_up, w_down, ids, tw, ctx=self.ctx, gg_config=c.gg_config,
+                   **scales).to(x.dtype)
 
 
 def _tree_map(fn, tree, *rest):
@@ -396,6 +444,12 @@ def _tree_leaves(tree) -> list:
     return leaves
 
 
+def _trainable(p: torch.Tensor) -> bool:
+    """A leaf SGD updates: a float tensor, not a quantized serving pool
+    (int8 or fp8), which takes a zero cotangent as in the JAX package."""
+    return p.is_floating_point() and p.dtype != FP8_DTYPE
+
+
 def _loss_and_grads(model, params, tokens, targets):
     """One rank's loss and the gradients ``train_step`` applies (≙ its
     ``value_and_grad`` and ``fix``), a list in the order of
@@ -408,14 +462,18 @@ def _loss_and_grads(model, params, tokens, targets):
                            "ctx.run(..., grad=True), not in an inference-mode run")
     ctx = model.ctx
     world = axis_size(ctx)
-    work = _tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
+    work = _tree_map(lambda p: p.detach().requires_grad_(_trainable(p)), params)
     leaves = _tree_leaves(work)
     live = [p for p in leaves if p.requires_grad]
     loss = model.loss(tokens, targets, work)
     flat = dict(zip(map(id, live), torch.autograd.grad(loss, live, allow_unused=True)))
     flat = [flat.pop(id(p), None) for p in leaves]
-    splits = _tree_leaves(_tree_map(lambda _, split: split, params, specs_for(model.cfg)))
+    splits = _tree_leaves(_tree_map(lambda _, split: split, params,
+                                    specs_for(model.cfg, params)))
     for i, (g, split) in enumerate(zip(flat, splits)):
+        if not _trainable(leaves[i]):
+            flat[i] = torch.zeros((), device=leaves[i].device)  # a pool's zero cotangent
+            continue
         g = torch.zeros_like(leaves[i]) if g is None else g
         if split is None and world > 1:
             g = ctx.psum(g)
@@ -454,6 +512,8 @@ def train_step(
     def update(p):
         i = next(order)
         g, flat[i] = flat[i], None  # each gradient is freed once applied
+        if not _trainable(p):
+            return p
         new = p - lr * g.to(p.dtype)
         return new if ok is None else torch.where(ok, new, p)
 

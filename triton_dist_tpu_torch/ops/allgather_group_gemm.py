@@ -24,6 +24,12 @@ Two entries, as in the JAX package:
   ``me, me-1, ...``, waits (bounded) for a source's flag before its first
   tile, and multiplies each 128-row tile by the expert bank its block
   names in that source's expert ids.
+
+Both take ``scale=`` (``[E, 1, n_loc]`` f32), which marks `b` as an int8 or
+fp8 e4m3 pool, or ``config.w8``/``.fp8``, which quantizes a float bank at
+the op boundary (``group_gemm.resolve_w8``): the grouped GEMM is then K24
+and the overlapped consumer K25, K9 over one-byte weight slabs with the
+scale row folded per tile.
 """
 
 from __future__ import annotations
@@ -39,7 +45,10 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     _group_gemm_plain,
     check_config,
     check_group_operands,
+    check_scale,
     group_gemm,
+    resolve_w8,
+    weight_code,
 )
 from triton_dist_tpu_torch.ops.moe_utils import (
     RankedAlignment,
@@ -58,6 +67,7 @@ def ag_group_gemm(
     config=None,
     ag_method: str = "auto",
     gather_output: bool = False,
+    scale: torch.Tensor | None = None,
 ):
     """Sequential MoE up-projection (≙ ``ag_group_gemm``, ``:73``; call
     inside ``ctx.run``). a ``[m_loc, K]`` token shard, b ``[E, K, n_loc]``
@@ -65,14 +75,15 @@ def ag_group_gemm(
     ``(h_sorted [t_pad, n_loc], alignment)`` over the gathered tokens, and
     with `gather_output` also the block-aligned rows ``a_sorted [t_pad,
     K]`` the GEMM read (the backward's residual). The tokens are gathered
-    with ``all_gather(method=ag_method)`` (``:101``)."""
+    with ``all_gather(method=ag_method)`` (``:101``). ``scale`` marks `b`
+    as an int8/fp8 pool (``:107-111``)."""
     cfg = check_config(config)
     topk = topk_ids.shape[1]
     a_full = all_gather(a, ctx=ctx, method=ag_method)
     ids_full = topk_ids if axis_size(ctx) == 1 else ctx.all_gather(topk_ids, 0)
     alignment = moe_align_block_size(ids_full.reshape(-1), b.shape[0], cfg.block_m)
     a_sorted = gather_sorted_rows(a_full, alignment, topk)
-    h_sorted = group_gemm(a_sorted, b, alignment.expert_ids, config=cfg)
+    h_sorted = group_gemm(a_sorted, b, alignment.expert_ids, scale=scale, config=cfg)
     return (h_sorted, alignment, a_sorted) if gather_output else (h_sorted, alignment)
 
 
@@ -84,13 +95,14 @@ def presort_local_rows(a: torch.Tensor, ral: RankedAlignment, ctx=None) -> torch
     return a[(ral.src_rows[me] - me * a.shape[0]).long()]
 
 
-def _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype):
+def _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype, scale=None):
     """Plain version (≙ ``_ag_overlap_xla``, ``:140``): gather the sorted
     slabs on the host rendezvous, then the plain grouped GEMM over the
     rank-major layout."""
     count_call(_ag_overlap_xla)
     ag = ctx.all_gather(a_srt, 0)
-    out = _group_gemm_plain(ag, b, ral.expert_ids.reshape(-1), ral.block_m, out_dtype, None)
+    out = _group_gemm_plain(ag, b, ral.expert_ids.reshape(-1), ral.block_m, out_dtype, None,
+                            scale)
     return (out, ag) if gather_output else out
 
 
@@ -106,45 +118,54 @@ def ag_group_gemm_overlap(
     config=None,
     gather_output: bool = False,
     out_dtype: torch.dtype | None = None,
+    scale: torch.Tensor | None = None,
 ):
     """Overlapped MoE up-projection (≙ ``ag_group_gemm_overlap``, ``:270``;
     call inside ``ctx.run``). a ``[m_loc, K]``, b ``[E, K, n_loc]``, `ral`
     from ``moe_align_ranked`` over the gathered routing ids → ``[n *
     t_pad_loc, n_loc]`` in rank-major aligned order (plus the gathered
     sorted slabs ``[n * t_pad_loc, K]`` with `gather_output`). World 1 is
-    the grouped GEMM (K8) over the pre-sorted slab."""
+    the grouped GEMM (K8) over the pre-sorted slab. ``scale`` (``[E, 1,
+    n_loc]``) marks `b` as an int8/fp8 pool (K25; K24 at world 1), as does
+    ``config.w8``/``.fp8`` over this rank's float shard (``:295-351``)."""
     cfg = check_config(config)
     out_dtype = out_dtype or a.dtype
     if ral.block_m != cfg.block_m:
         raise ValueError(f"alignment block {ral.block_m} != config.block_m {cfg.block_m}")
+    b, scale = resolve_w8(b, scale, cfg)
+    check_scale(b, scale, "ag_group_gemm_overlap")
     a_srt = presort_local_rows(a, ral, ctx)
     if axis_size(ctx) == 1:
-        h = group_gemm(a_srt, b, ral.expert_ids[0], config=cfg, out_dtype=out_dtype)
+        h = group_gemm(a_srt, b, ral.expert_ids[0], scale=scale, config=cfg,
+                       out_dtype=out_dtype)
         return (h, a_srt) if gather_output else h
     if a.device.type == "cpu":
-        return _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype)
-    return _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype)
+        return _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype, scale)
+    return _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype, scale)
 
 
-ag_group_gemm_overlap.launches = 0
+ag_group_gemm_overlap.launches = 0         # K9
+ag_group_gemm_overlap.scaled_launches = 0  # K25
 
 
-def _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype):
+def _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype, scale):
     n, me = ctx.world, ctx.rank
     ids = ral.expert_ids
-    bm = check_group_operands(a_srt, b, ids[me], out_dtype, None, "ag_group_gemm_overlap")
+    bm = check_group_operands(a_srt, b, ids[me], out_dtype, None, "ag_group_gemm_overlap",
+                              scale)
     t_pad_loc, k = a_srt.shape
     n_exp, _, n_loc = b.shape
     out = torch.empty((n * t_pad_loc, n_loc), dtype=out_dtype, device=a_srt.device)
     launch, gathered, flags = push_shards(ctx, a_srt, "ag_group_gemm")
     rc = launch.lib.tdt_ag_group_gemm_consumer(
-        gathered.data_ptr(), b.data_ptr(), ids.data_ptr(), out.data_ptr(), t_pad_loc, n_loc,
-        k, n_exp, bm, DTYPE_CODE[a_srt.dtype], DTYPE_CODE[out_dtype], n, me, flags,
+        gathered.data_ptr(), b.data_ptr(), None if scale is None else scale.data_ptr(),
+        ids.data_ptr(), out.data_ptr(), t_pad_loc, n_loc, k, n_exp, bm,
+        DTYPE_CODE[a_srt.dtype], weight_code(a_srt, b), DTYPE_CODE[out_dtype], n, me, flags,
         launch.epoch, max_consumer_blocks(ctx), *launch.wait,
         stream_ptr(torch.cuda.current_stream()),
     )
     _build.check(launch.lib, rc, "ag_group_gemm_overlap")
-    count_launch(ag_group_gemm_overlap)
+    count_launch(ag_group_gemm_overlap, "launches" if scale is None else "scaled_launches")
     if gather_output:
         # the workspace is reused by the next call
         return out, gathered.clone()

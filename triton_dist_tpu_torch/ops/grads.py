@@ -25,6 +25,8 @@ the kernels take transposed (``Bᵀ``, the expert banks' ``W.transpose(1,
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
@@ -94,14 +96,16 @@ def gemm_rs_grad(a: torch.Tensor, b: torch.Tensor, *, ctx=None, rs_config=None,
     return _GemmRS.apply(a, b, ctx, rs_config, ag_config)
 
 
-def _group_gemm_bwd(a_sorted, b, expert_ids, g, cfg):
+def _group_gemm_bwd(a_sorted, b, expert_ids, g, cfg, need_db=True):
     """Both gradients of ``group_gemm(a_sorted, b)`` for the cotangent `g`
     (≙ ``_gg_bwd``): dA ``[t_pad, K]`` f32 from K8 over the transposed bank
     (g in a_sorted's dtype), dB ``[E, K, N]`` in b's dtype from K11 (both
     operands in f32 where their dtypes differ, as the JAX kernel takes
-    them)."""
+    them); dB None without `need_db`."""
     da = group_gemm(g.to(a_sorted.dtype), _t(b), expert_ids, config=cfg,
                     out_dtype=torch.float32)
+    if not need_db:
+        return da, None
     a = a_sorted
     if g.dtype != a.dtype:
         a, g = a.float(), g.float()
@@ -133,21 +137,30 @@ def group_gemm_grad(a_sorted, b, expert_ids, *, config=None, out_dtype=None):
 
 class _TPMoE(torch.autograd.Function):
     @staticmethod
-    def forward(fc, x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, overlap):
+    def forward(fc, x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, overlap, w_up_scale,
+                w_down_scale):
         out, res = _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg,
-                                        residuals=True, overlap=overlap)
+                                        residuals=True, overlap=overlap,
+                                        w_up_scale=w_up_scale, w_down_scale=w_down_scale)
         fc.save_for_backward(w_up, w_down)
         fc.res, fc.dist, fc.cfg = res, ctx, cfg
+        fc.scales = (w_up_scale, w_down_scale)
         return out
 
     @staticmethod
     def backward(fc, dout):
-        """``_tp_moe_bwd`` (``:417-534``) step for step, over the global
+        """``_tp_moe_bwd`` (``:414-534``) step for step, over the global
         alignment: the sequential composition's own, or the global view of
-        the overlapped pair's rank-major one."""
+        the overlapped pair's rank-major one. Straight-through for the
+        scaled formats (``:414-430``): ``w8``/``fp8`` are stripped from the
+        config, pre-quantized banks are dequantized once and differentiated
+        against, and the banks and their scales get zero cotangents (the
+        int8 banks none: they take no gradient in PyTorch)."""
         w_up, w_down = fc.saved_tensors
         res, ctx, cfg = fc.res, fc.dist, fc.cfg
-        fc.res = None
+        w_up_scale, w_down_scale = fc.scales
+        fc.res = fc.scales = None
+        cfg = dataclasses.replace(cfg, w8=False, fp8=False)
         al, tw_full, h_sorted = res.alignment, res.tw_full, res.h_sorted
         f32 = torch.float32
         m_tot, topk = tw_full.shape
@@ -155,6 +168,10 @@ class _TPMoE(torch.autograd.Function):
             al = ranked_global_view(al, m_tot // al.n_ranks, topk)
         t = m_tot * topk
         dtype = res.a_sorted.dtype
+        quantized = w_up_scale is not None
+        if quantized:
+            w_up = (w_up.float() * w_up_scale).to(dtype)
+            w_down = (w_down.float() * w_down_scale).to(dtype)
 
         # the reduce-scatter's transpose: every rank sees the whole dout
         dpartial = (dout if axis_size(ctx) == 1 else ctx.all_gather(dout.contiguous(), 0)).float()
@@ -180,7 +197,9 @@ class _TPMoE(torch.autograd.Function):
         # back through the weighted combine and the down grouped GEMM
         dy_sorted = (dpart_rows * w_row[:, None]).to(dtype)
         del dpart_rows
-        dact, dw_down = _group_gemm_bwd(act, w_down, al.expert_ids, dy_sorted, cfg)
+        # pre-quantized banks take no gradient: no K11 pass for them (``:490``)
+        dact, dw_down = _group_gemm_bwd(act, w_down, al.expert_ids, dy_sorted, cfg,
+                                        need_db=not quantized)
         del act, dy_sorted
         # through the activation, then the up grouped GEMM; sentinel rows of
         # the residual hold clamped junk: zero them
@@ -188,18 +207,22 @@ class _TPMoE(torch.autograd.Function):
                                                  approximate="tanh").to(dtype)
         del dact
         a_sorted = torch.where(valid[:, None], res.a_sorted, 0)
-        da_sorted, dw_up = _group_gemm_bwd(a_sorted, w_up, al.expert_ids, dh_sorted, cfg)
+        da_sorted, dw_up = _group_gemm_bwd(a_sorted, w_up, al.expert_ids, dh_sorted, cfg,
+                                           need_db=not quantized)
         del a_sorted, dh_sorted
         # the unsorted scatter-add back to the tokens, then the all-gather's
         # transpose
         da_full = torch.zeros((m_tot, da_sorted.shape[1]), dtype=f32, device=dout.device)
         da_full.index_add_(0, token_of_row, torch.where(valid[:, None], da_sorted, 0.0))
         dx = reduce_scatter(da_full, ctx=ctx).to(dtype)
-        return dx, dw_up, dw_down, None, dtw, None, None, None
+        if quantized:
+            return (dx, None, None, None, dtw, None, None, None,
+                    torch.zeros_like(w_up_scale), torch.zeros_like(w_down_scale))
+        return dx, dw_up, dw_down, None, dtw, None, None, None, None, None
 
 
 def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_config=None,
-                    overlap: bool = True):
+                    overlap: bool = True, w_up_scale=None, w_down_scale=None):
     """Differentiable tensor-parallel MoE MLP (≙ ``tp_moe_mlp_grad``,
     ``:345``; call inside ``ctx.run(..., grad=True)``). Forward
     ``ops/moe_mlp.py`` (K8 at world 1; K9, K10 at world > 1, or with
@@ -210,9 +233,11 @@ def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_con
     ``dw_down`` on K11, the GELU's VJP and the token scatter-add plain,
     ``d topk_weights`` through ``psum_scatter`` and ``dx`` through
     ``reduce_scatter`` (K12; K18 off a full mesh). ``topk_ids`` gets no
-    gradient."""
+    gradient. ``w_up_scale``/``w_down_scale`` mark pre-quantized int8/fp8
+    banks (K24, K25, K26 in the forward; ``:346-395``); the backward is
+    straight-through (``_TPMoE.backward``)."""
     return _TPMoE.apply(x, w_up, w_down, topk_ids, topk_weights, ctx,
-                        check_config(gg_config), overlap)
+                        check_config(gg_config), overlap, w_up_scale, w_down_scale)
 
 
 class _PSum(torch.autograd.Function):

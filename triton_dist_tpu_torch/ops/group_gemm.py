@@ -1,8 +1,11 @@
 """K8 · the block-aligned grouped GEMM of the MoE expert compute (≙
 ``triton_dist_tpu/ops/group_gemm.py::group_gemm``; its Pallas site is
 ``_group_gemm_fused`` at ``:299`` with the body
-``ops/gg_pipeline.py:87 make_group_gemm_kernel``), and K11, its weight
-gradient (≙ ``group_gemm_dw``, ``:553``; Pallas site ``:534``, body
+``ops/gg_pipeline.py:87 make_group_gemm_kernel``), K24, the same kernel
+over int8 or fp8 expert banks with their per-(expert, out-column) scales
+(``group_gemm_w8`` / ``group_gemm_fp8``, ``:400``/``:427``, the kernel body
+under ``OperandFormat.scaled``), and K11, its weight gradient (≙
+``group_gemm_dw``, ``:553``; Pallas site ``:534``, body
 ``gg_pipeline.py:159 make_group_gemm_dw_kernel``).
 
 Rows of ``a_sorted`` are sorted by expert and padded so every ``block_m``
@@ -16,12 +19,13 @@ counterpart here (the CUDA kernel fixes its own tiles); ``block_m`` is the
 alignment block and must be a multiple of 128 on the card, so a 128-row M
 tile never straddles two experts.
 
-The bf16/f32 padded path is ported, forward and weight gradient. The int8
-and fp8 weight formats (``w8``, ``fp8``; pre-quantized ``scale=`` banks
-are not taken), ragged rows, the ``ragged_dot`` backend and the chunked
-overlap schedules (``chunks_per_shard > 1``, span policies) are not:
-asking for them through the config raises ``NotImplementedError`` naming
-their ROADMAP item.
+The operand format is keyed off the bank's dtype, as the JAX package keys
+it (``:286``): ``torch.int8`` is w8, ``torch.float8_e4m3fn`` fp8, each with
+an f32 ``scale [E, 1, N]``; ``config.w8``/``.fp8`` quantize a float bank at
+the op boundary (:func:`resolve_w8`). Ragged rows, the ``ragged_dot``
+backend and the chunked overlap schedules (``chunks_per_shard > 1``, span
+policies) are not ported: asking for them through the config raises
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,11 +40,21 @@ from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, check_operands
 from triton_dist_tpu_torch.utils import count_call, count_launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PROTOTYPES = {"tdt_group_gemm": [_P] * 4 + [_I] * 8 + [_P],
+_PROTOTYPES = {"tdt_group_gemm": [_P] * 5 + [_I] * 9 + [_P],
                "tdt_group_gemm_dw": [_P] * 4 + [_I] * 6 + [_P]}
 # the M tile of the bf16 engine (csrc/gemm_core.cuh Bf16Engine::BM); the f32
 # engine's 64 divides it
 TILE_M = 128
+
+# fp8_e4m3fn, the finite-max e4m3 variant (≙ ``FP8_DTYPE``/``_FP8_MAX``,
+# ``:138-139``): 448 is its largest normal, the absmax maps onto it as 127
+# does for int8
+FP8_DTYPE = torch.float8_e4m3fn
+_FP8_MAX = 448.0
+# the weight dtype codes of csrc/gemm_core.cuh (DType): a one-byte bank
+WEIGHT_CODE = {torch.int8: 2, FP8_DTYPE: 3}
+# a one-byte bank's rows ride 16-byte cp.async copies on the card
+WEIGHT_ROW_QUANTUM = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +83,6 @@ def check_config(cfg: GroupGemmConfig | None) -> GroupGemmConfig:
     for an option that is not ported."""
     cfg = cfg or GroupGemmConfig()
     refused = (
-        (cfg.w8 or cfg.fp8, "int8/fp8 expert weights (w8, fp8)", "B16, w8/fp8"),
         (cfg.ragged, "ragged rows", "B16, ragged"),
         (cfg.backend != "pallas", f"backend={cfg.backend!r}", "B16, ragged_dot"),
         (cfg.chunks_per_shard != 1, "chunks_per_shard > 1", "B17/B18, chunked"),
@@ -83,16 +96,96 @@ def check_config(cfg: GroupGemmConfig | None) -> GroupGemmConfig:
     return cfg
 
 
+def _absmax_scale(bf: torch.Tensor, q_max: float) -> torch.Tensor:
+    """``max(absmax over K / q_max, 1e-8)`` in f32, divided exactly: the
+    divisor is a tensor, because PyTorch's CUDA division by a Python scalar
+    multiplies by its rounded reciprocal, one ulp off the JAX package's
+    scales for some columns."""
+    amax = bf.abs().amax(dim=1, keepdim=True)
+    return torch.clamp(amax / amax.new_full((), q_max), min=1e-8)
+
+
+def quantize_expert_weights(b: torch.Tensor):
+    """Per-(expert, out-column) absmax int8 quantization of expert weights
+    ``[E, K, N]`` → ``(b_q int8, scale f32 [E, 1, N])`` (≙
+    ``quantize_expert_weights``, ``:123``; the same f32 operations, so the
+    pools and scales equal the JAX package's)."""
+    bf = b.float()
+    scale = _absmax_scale(bf, 127.0)
+    return torch.clamp(torch.round(bf / scale), -127, 127).to(torch.int8), scale
+
+
+def quantize_expert_weights_fp8(b: torch.Tensor):
+    """Per-(expert, out-column) absmax fp8 e4m3 quantization (≙
+    ``quantize_expert_weights_fp8``, ``:142``): 448 in 127's seat, the
+    rounding left to the dtype cast (nearest even)."""
+    bf = b.float()
+    scale = _absmax_scale(bf, _FP8_MAX)
+    return torch.clamp(bf / scale, -_FP8_MAX, _FP8_MAX).to(FP8_DTYPE), scale
+
+
+def is_quantized(b: torch.Tensor) -> bool:
+    """A one-byte scaled bank: int8 (w8) or fp8 e4m3."""
+    return b.dtype in WEIGHT_CODE
+
+
+def resolve_w8(b: torch.Tensor, scale: torch.Tensor | None, cfg: GroupGemmConfig):
+    """The scaled-format config axes at an op boundary (≙ ``resolve_w8``,
+    ``:159``): with ``cfg.w8`` or ``cfg.fp8`` and no caller scale, quantize
+    the float bank now; an explicit ``scale`` (the pre-quantized serving
+    path) wins. Returns ``(b, scale)``."""
+    if scale is not None or not (cfg.w8 or cfg.fp8):
+        return b, scale
+    if not b.is_floating_point() or b.dtype == FP8_DTYPE:
+        fmt = "fp8" if cfg.fp8 else "w8"
+        raise ValueError(
+            f"GroupGemmConfig.{fmt} with a pre-quantized weight bank needs the matching "
+            f"per-(expert, out-column) scale (pass scale=, from quantize_expert_weights"
+            f"{'_fp8' if cfg.fp8 else ''})")
+    return (quantize_expert_weights_fp8 if cfg.fp8 else quantize_expert_weights)(b)
+
+
+def check_scale(b: torch.Tensor, scale: torch.Tensor | None, what: str) -> None:
+    """A scale marks a one-byte bank and has its ``[E, 1, N]`` shape; a
+    one-byte bank needs one."""
+    if scale is None:
+        if is_quantized(b):
+            raise ValueError(f"{what}: an {b.dtype} bank needs its scale [E, 1, N]")
+        return
+    if not is_quantized(b):
+        raise ValueError(f"{what}: a scale marks an int8/fp8 bank, got {b.dtype}")
+    if tuple(scale.shape) != (b.shape[0], 1, b.shape[2]):
+        raise ValueError(f"{what}: scale {tuple(scale.shape)} for a bank {tuple(b.shape)}")
+
+
+class OperandFormat:
+    """The weight operand format of the plain twins (≙ ``OperandFormat``,
+    ``ops/gg_pipeline.py:43-80``; the CUDA kernels do the same in
+    ``csrc/gemm_core.cuh``): with a scale, the B tile is upcast to A's type
+    before the product (exact: |q| <= 127 and every e4m3 value fit bf16),
+    and the f32 accumulator is multiplied by the scale row once, before the
+    output cast and anything downstream."""
+
+    @staticmethod
+    def mxu_b(b_tile: torch.Tensor, a_dtype: torch.dtype, scale) -> torch.Tensor:
+        return b_tile.to(a_dtype) if scale is not None else b_tile
+
+    @staticmethod
+    def fold(acc: torch.Tensor, s_row) -> torch.Tensor:
+        return acc * s_row if s_row is not None else acc
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh form of GELU: ``jax.nn.gelu``'s default, and the one
     activation the kernels fuse."""
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn):
+def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale=None):
     """Plain version (≙ ``_group_gemm_xla``): sort the blocks by expert
     (stable), one f32 product per expert's run of blocks, unsort; padded
-    rows are computed as rows of their block's clamped expert. The expert
+    rows are computed as rows of their block's clamped expert (and scale).
+    With a ``scale``, :class:`OperandFormat`'s upcast and fold. The expert
     counts cross to the host."""
     count_call(_group_gemm_plain)
     n_exp, k, n = b.shape
@@ -104,7 +197,8 @@ def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn):
     parts, start = [], 0
     for e, c in enumerate(torch.bincount(ids, minlength=n_exp).tolist()):
         if c:
-            parts.append(a3[start * bm:(start + c) * bm] @ b[e].float())
+            y = a3[start * bm:(start + c) * bm] @ OperandFormat.mxu_b(b[e], a.dtype, scale).float()
+            parts.append(OperandFormat.fold(y, None if scale is None else scale[e].float()))
             start += c
     y = torch.cat(parts).reshape(nb, bm, n) if parts else a3.new_zeros((0, bm, n))
     out = torch.empty_like(y)
@@ -115,9 +209,22 @@ def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn):
 _group_gemm_plain.calls = 0
 
 
-def check_group_operands(a, b, expert_ids, out_dtype, act_fn, what) -> int:
-    """What K8 and K9 take on the card; returns the row block size."""
-    check_operands(a, b, out_dtype, what)
+def check_group_operands(a, b, expert_ids, out_dtype, act_fn, what, scale=None) -> int:
+    """What K8/K24 and K9/K25 take on the card; returns the row block size.
+    A one-byte bank comes with its f32 scale on the same device, both
+    contiguous, and rows of a multiple of 16 weights."""
+    if scale is None:
+        check_operands(a, b, out_dtype, what)
+    else:
+        check_operands(a, a, out_dtype, what)
+        if b.device != a.device or scale.device != a.device or scale.dtype != torch.float32:
+            raise ValueError(f"{what}: the bank and its f32 scale must be on {a.device}")
+        if not (b.is_contiguous() and scale.is_contiguous()):
+            raise ValueError(f"{what} takes a contiguous bank and scale")
+        if b.shape[2] % WEIGHT_ROW_QUANTUM:
+            raise ValueError(
+                f"{what}: an {b.dtype} bank's rows ride 16-byte copies on the card; "
+                f"N={b.shape[2]} must be a multiple of {WEIGHT_ROW_QUANTUM}")
     if act_fn not in (None, gelu):
         raise ValueError(f"{what}: the kernel fuses only the tanh GELU (group_gemm.gelu)")
     if expert_ids.dtype != torch.int32 or expert_ids.device != a.device \
@@ -136,6 +243,7 @@ def group_gemm(
     b: torch.Tensor,
     expert_ids: torch.Tensor,
     *,
+    scale: torch.Tensor | None = None,
     config: GroupGemmConfig | None = None,
     out_dtype: torch.dtype | None = None,
     act_fn=None,
@@ -145,8 +253,15 @@ def group_gemm(
     N]`` of the same type, expert_ids ``[t_pad / block_m]`` int32 (read on
     the card, no host sync) → ``[t_pad, N]`` in ``out_dtype`` (default A's).
     ``act_fn`` (:func:`gelu`) runs on every A element in f32, rounded back
-    to A's type, before the product."""
+    to A's type, before the product.
+
+    With ``scale`` (``[E, 1, N]`` f32), `b` is an int8 or fp8 e4m3 pool
+    (K24): ``(act?(A_i) @ upcast(b[e])) * scale[e]``, the scale folded into
+    the f32 accumulator before the cast. ``config.w8``/``.fp8`` quantize a
+    float bank first (:func:`resolve_w8`)."""
     cfg = check_config(config)
+    b, scale = resolve_w8(b, scale, cfg)
+    check_scale(b, scale, "group_gemm")
     out_dtype = out_dtype or a_sorted.dtype
     t_pad, k = a_sorted.shape
     n_exp, kb, n = b.shape
@@ -159,23 +274,46 @@ def group_gemm(
         raise ValueError(f"rows per block {bm} != config.block_m {cfg.block_m}: "
                          f"alignment and GEMM must use the same block size")
     if a_sorted.device.type == "cpu":
-        return _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn)
-    check_group_operands(a_sorted, b, expert_ids, out_dtype, act_fn, "group_gemm")
+        return _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale)
+    check_group_operands(a_sorted, b, expert_ids, out_dtype, act_fn, "group_gemm", scale)
     out = torch.empty((t_pad, n), dtype=out_dtype, device=a_sorted.device)
     if n == 0:
         return out
     lib = _build.library("group_gemm", _PROTOTYPES)
     rc = lib.tdt_group_gemm(
-        a_sorted.data_ptr(), b.data_ptr(), expert_ids.data_ptr(), out.data_ptr(),
-        t_pad, n, k, n_exp, bm, DTYPE_CODE[a_sorted.dtype], DTYPE_CODE[out_dtype],
+        a_sorted.data_ptr(), b.data_ptr(), None if scale is None else scale.data_ptr(),
+        expert_ids.data_ptr(), out.data_ptr(), t_pad, n, k, n_exp, bm,
+        DTYPE_CODE[a_sorted.dtype], weight_code(a_sorted, b), DTYPE_CODE[out_dtype],
         int(act_fn is not None), _build.stream_of(a_sorted),
     )
     _build.check(lib, rc, "group_gemm")
-    count_launch(group_gemm)
+    count_launch(group_gemm, "launches" if scale is None else "scaled_launches")
     return out
 
 
-group_gemm.launches = 0
+group_gemm.launches = 0         # K8
+group_gemm.scaled_launches = 0  # K24
+
+
+def weight_code(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The kernels' dtype code of bank `b` under activations `a`."""
+    return WEIGHT_CODE[b.dtype] if is_quantized(b) else DTYPE_CODE[a.dtype]
+
+
+def group_gemm_w8(a_sorted, b_q, scale, expert_ids, *, config=None, out_dtype=None,
+                  act_fn=None):
+    """:func:`group_gemm` over an int8 pool from
+    :func:`quantize_expert_weights` (≙ ``group_gemm_w8``, ``:400``)."""
+    return group_gemm(a_sorted, b_q, expert_ids, scale=scale, config=config,
+                      out_dtype=out_dtype, act_fn=act_fn)
+
+
+def group_gemm_fp8(a_sorted, b_q, scale, expert_ids, *, config=None, out_dtype=None,
+                   act_fn=None):
+    """:func:`group_gemm` over an fp8 e4m3 pool from
+    :func:`quantize_expert_weights_fp8` (≙ ``group_gemm_fp8``, ``:427``)."""
+    return group_gemm(a_sorted, b_q, expert_ids, scale=scale, config=config,
+                      out_dtype=out_dtype, act_fn=act_fn)
 
 
 def _group_gemm_dw_plain(a_sorted, g_sorted, expert_ids, n_exp, bm):

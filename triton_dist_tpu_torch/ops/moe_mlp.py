@@ -15,7 +15,15 @@ and always takes the sequential composition, as ``:288-294`` routes it.
 
 Asked for them, both also return the residuals the backward needs
 (``ops/grads.py``'s ``tp_moe_mlp_grad``); serving does not ask, and pays
-for none. Pre-quantized banks come with B16's w8/fp8 formats.
+for none.
+
+``w_up_scale``/``w_down_scale`` (``[E, 1, F / world]`` and ``[E, 1, H]``
+f32) mark the banks as pre-quantized int8 or fp8 e4m3 pools: every grouped
+GEMM takes them as its ``scale`` (K24 at world 1, K25 and K26 at world >
+1). ``gg_config.w8``/``.fp8`` with float banks quantizes each rank's own
+shard at every op boundary instead, as the JAX package does inside
+``shard_map`` (``w_down`` is split on its contracted dim, so those per-shard
+scales differ from the whole bank's).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import dataclasses
 import torch
 
 from triton_dist_tpu_torch.ops.allgather_group_gemm import ag_group_gemm, ag_group_gemm_overlap
-from triton_dist_tpu_torch.ops.group_gemm import check_config, gelu
+from triton_dist_tpu_torch.ops.group_gemm import check_config, gelu, is_quantized
 from triton_dist_tpu_torch.ops.moe_reduce_rs import moe_reduce_rs, moe_reduce_rs_overlap
 from triton_dist_tpu_torch.ops.moe_utils import (
     MoEAlignment,
@@ -54,10 +62,24 @@ class MoEResiduals:
     alignment: MoEAlignment | RankedAlignment
 
 
+def check_scales(w_up, w_down, w_up_scale, w_down_scale) -> None:
+    """The scale contracts of ``_tp_moe_forward_impl`` (``ops/grads.py:
+    253-266``): both scales or neither, and explicit scales need int8 or
+    fp8 pools."""
+    if (w_up_scale is None) != (w_down_scale is None):
+        raise ValueError("pass both w_up_scale and w_down_scale (pre-quantized serving "
+                         "banks), or neither")
+    if w_up_scale is not None and not (is_quantized(w_up) and is_quantized(w_down)):
+        raise ValueError(f"explicit scales mark the banks as int8/fp8 pools; got w_up "
+                         f"{w_up.dtype}, w_down {w_down.dtype} (quantize with "
+                         f"quantize_expert_weights(_fp8) first)")
+
+
 def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, residuals=False,
-                         overlap=True):
+                         overlap=True, w_up_scale=None, w_down_scale=None):
     """One rank's MoE MLP: ``(out [m_loc, H], res)``, `res` the
     :class:`MoEResiduals` with `residuals`, else None."""
+    check_scales(w_up, w_down, w_up_scale, w_down_scale)
     n = axis_size(ctx)
     m_loc = x.shape[0]
     topk = topk_ids.shape[1]
@@ -67,23 +89,24 @@ def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, resi
         ral = moe_align_ranked(ids_full.reshape(n, m_loc * topk), w_up.shape[0], cfg.block_m,
                                m_loc)
         # the gathered slab is a copy of the workspace: made only when kept
-        up = ag_group_gemm_overlap(x, w_up, ral, ctx=ctx, config=cfg, gather_output=residuals)
+        up = ag_group_gemm_overlap(x, w_up, ral, ctx=ctx, config=cfg, gather_output=residuals,
+                                   scale=w_up_scale)
         h_sorted, a_sorted = up if residuals else (up, None)
         act = gelu(h_sorted.float()).to(x.dtype)
         dst_ids, w_rows = ranked_scatter_meta(ral, tw_full)
         out = moe_reduce_rs_overlap(
             act, w_down, ral.expert_ids, dst_ids, w_rows, ctx=ctx, m_out=m_loc,
             combine_rows=ranked_combine_rows(ral, m_loc, topk), config=cfg,
-            out_dtype=x.dtype,
+            out_dtype=x.dtype, scale=w_down_scale,
         )
         alignment = ral
     else:
         # the activation rides the down-projection's A tiles; h_sorted
         # stays pre-activation, which is what the backward wants
         h_sorted, alignment, a_sorted = ag_group_gemm(x, w_up, topk_ids, ctx=ctx, config=cfg,
-                                                      gather_output=True)
+                                                      gather_output=True, scale=w_up_scale)
         out = moe_reduce_rs(h_sorted, w_down, alignment, tw_full, ctx=ctx, n_tokens=n * m_loc,
-                            config=cfg, out_dtype=x.dtype, act_fn=gelu)
+                            config=cfg, out_dtype=x.dtype, act_fn=gelu, scale=w_down_scale)
     res = MoEResiduals(a_sorted, h_sorted, tw_full, alignment) if residuals else None
     return out.to(x.dtype), res
 
@@ -98,12 +121,16 @@ def tp_moe_mlp(
     ctx=None,
     gg_config=None,
     overlap: bool = True,
+    w_up_scale: torch.Tensor | None = None,
+    w_down_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One rank's MoE MLP (call inside ``ctx.run``): x ``[m_loc, H]`` token
     shard, w_up ``[E, H, F / world]``, w_down ``[E, F / world, H]``, the
     local tokens' routing ``topk_ids [m_loc, topk]`` and f32
     ``topk_weights`` → ``[m_loc, H]`` in x's dtype. The activation is the
     tanh GELU, the one the kernels fuse. ``overlap`` picks the overlapped
-    pair (True) or the sequential composition at world > 1."""
+    pair (True) or the sequential composition at world > 1. The scales
+    mark pre-quantized int8/fp8 banks (module docstring)."""
     return _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx,
-                                check_config(gg_config), overlap=overlap)[0]
+                                check_config(gg_config), overlap=overlap,
+                                w_up_scale=w_up_scale, w_down_scale=w_down_scale)[0]

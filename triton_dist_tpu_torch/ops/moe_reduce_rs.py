@@ -26,6 +26,12 @@ Two entries, as in the JAX package:
   flags and sums the n slots in rank order in f32. The partials travel in
   the output type, as the TPU kernel's pushes do, so a bf16 output carries
   one rounding of each peer's partial more than the plain version.
+
+Both take ``scale=`` (``[E, 1, H]`` f32) for an int8 or fp8 e4m3 ``w_down``,
+or ``config.w8``/``.fp8`` to quantize a float one at the op boundary: the
+grouped GEMMs are then K24, whose store folds the scale into each row
+before the combine weights multiply it (``gg_pipeline.py:718-721``); the
+overlapped entry over K24 is K26.
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     _group_gemm_plain,
     check_config,
     check_group_operands,
+    check_scale,
     group_gemm,
+    resolve_w8,
 )
 from triton_dist_tpu_torch.ops.moe_utils import MoEAlignment, scatter_add_unsorted
 from triton_dist_tpu_torch.ops.reduce_scatter import reduce_scatter
@@ -68,6 +76,7 @@ def moe_reduce_rs(
     rs_method: str = "auto",
     out_dtype: torch.dtype | None = None,
     act_fn=None,
+    scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sequential MoE down-projection (≙ ``moe_reduce_rs``, ``:63``; call
     inside ``ctx.run``). h_sorted ``[t_pad, f_loc]`` aligned rows (with
@@ -75,24 +84,26 @@ def moe_reduce_rs(
     tiles), w_down ``[E, f_loc, H]``, topk_weights ``[n_tokens, topk]`` of
     the gathered tokens → this rank's ``[n_tokens / world, H]``; the
     reduce-scatter takes `rs_method` and `rs_config`
-    (``ops/reduce_scatter.py``) as at ``:104``."""
+    (``ops/reduce_scatter.py``) as at ``:104``. ``scale`` marks `w_down`
+    as an int8/fp8 pool (``:93-97``)."""
     out_dtype = out_dtype or h_sorted.dtype
-    y_sorted = group_gemm(h_sorted, w_down, alignment.expert_ids, config=config,
+    y_sorted = group_gemm(h_sorted, w_down, alignment.expert_ids, scale=scale, config=config,
                           out_dtype=torch.float32, act_fn=act_fn)
     partial = scatter_add_unsorted(y_sorted, alignment, topk_weights, n_tokens)
     return reduce_scatter(partial.to(out_dtype), ctx=ctx, method=rs_method, config=rs_config)
 
 
-def _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out, out_dtype):
+def _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out, out_dtype,
+                        scale=None):
     """Plain version (≙ ``_moe_rs_overlap_xla``, ``:125``): the plain
-    grouped GEMM over every row in f32, a scatter-add combine per
-    destination chunk (rows in order), then the f32 sum over ranks of this
-    rank's chunk, cast."""
+    grouped GEMM over every row in f32 (the scale folded), a scatter-add
+    combine per destination chunk (rows in order), then the f32 sum over
+    ranks of this rank's chunk, cast."""
     count_call(_moe_rs_overlap_xla)
     n, nb, bm = dst_ids.shape
     h = w_down.shape[2]
     y = _group_gemm_plain(h_sorted, w_down, expert_ids.reshape(-1), bm, torch.float32,
-                          None).reshape(n, nb * bm, h)
+                          None, scale).reshape(n, nb * bm, h)
     w = w_rows.reshape(n, nb * bm, 1).float()
     dst = dst_ids.reshape(n, nb * bm).long()
     partial = torch.zeros((n, m_out, h), dtype=torch.float32, device=h_sorted.device)
@@ -119,6 +130,7 @@ def moe_reduce_rs_overlap(
     combine_rows: torch.Tensor | None = None,
     config=None,
     out_dtype: torch.dtype | None = None,
+    scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Overlapped MoE down-projection + combine + reduce-scatter (≙
     ``moe_reduce_rs_overlap``, ``:281``; call inside ``ctx.run``).
@@ -129,35 +141,41 @@ def moe_reduce_rs_overlap(
     topk]`` from ``ranked_combine_rows`` (the kernel's gather-form combine
     reads it; the plain version scatters by ``dst_ids``) → this rank's
     fully reduced ``[m_out, H]``. World 1 has nothing to reduce over and
-    takes :func:`moe_reduce_rs` on the card, as the MoE forward routes it."""
+    takes :func:`moe_reduce_rs` on the card, as the MoE forward routes it.
+    ``scale`` (``[E, 1, H]``) marks `w_down` as an int8/fp8 pool (K26), as
+    does ``config.w8``/``.fp8`` over this rank's float shard
+    (``:300-342``)."""
     cfg = check_config(config)
     out_dtype = out_dtype or h_sorted.dtype
     bm = dst_ids.shape[2]
     if bm != cfg.block_m:
         raise ValueError(f"alignment block {bm} != config.block_m {cfg.block_m}")
+    w_down, scale = resolve_w8(w_down, scale, cfg)
+    check_scale(w_down, scale, "moe_reduce_rs_overlap")
     if h_sorted.device.type == "cpu":
         return _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out,
-                                   out_dtype)
+                                   out_dtype, scale)
     if axis_size(ctx) == 1:
         raise ValueError("moe_reduce_rs_overlap at world 1 on the card: take moe_reduce_rs")
     if combine_rows is None:
         raise ValueError("moe_reduce_rs_overlap on the card combines by the inverse rows: "
                          "pass combine_rows (moe_utils.ranked_combine_rows)")
     return _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ctx,
-                                 m_out, out_dtype, cfg)
+                                 m_out, out_dtype, cfg, scale)
 
 
-moe_reduce_rs_overlap.launches = 0
+moe_reduce_rs_overlap.launches = 0         # K10
+moe_reduce_rs_overlap.scaled_launches = 0  # K26
 
 
 def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ctx, m_out,
-                          out_dtype, cfg):
+                          out_dtype, cfg, scale):
     n, me = axis_size(ctx), axis_index(ctx)
     t_pad_loc = h_sorted.shape[0] // n
     h = w_down.shape[2]
     topk = combine_rows.shape[2]
     check_group_operands(h_sorted[:t_pad_loc], w_down, expert_ids[0], torch.float32, None,
-                         "moe_reduce_rs_overlap")
+                         "moe_reduce_rs_overlap", scale)
     if combine_rows.shape != (n, m_out, topk) or combine_rows.dtype != torch.int32:
         raise ValueError(f"combine_rows must be int32 [{n}, {m_out}, topk]")
     rows = combine_rows.contiguous()
@@ -176,7 +194,7 @@ def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ct
     for s in range(1, n + 1):
         c = (me + s) % n  # own chunk last
         y = group_gemm(h_sorted[c * t_pad_loc:(c + 1) * t_pad_loc], w_down, expert_ids[c],
-                       config=cfg, out_dtype=torch.float32)
+                       scale=scale, config=cfg, out_dtype=torch.float32)
         rc = lib.tdt_moe_combine_push(y.data_ptr(), rows[c].data_ptr(), w[c].data_ptr(),
                                       recv.peer_addr(c, me * slot), m_out, h, topk, code,
                                       stream)
@@ -191,5 +209,5 @@ def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ct
                                flags.peer_addr(me), launch.epoch, max_consumer_blocks(ctx),
                                *launch.wait, stream)
     _build.check(lib, rc, "moe_reduce_rs_overlap reduce")
-    count_launch(moe_reduce_rs_overlap)
+    count_launch(moe_reduce_rs_overlap, "launches" if scale is None else "scaled_launches")
     return out

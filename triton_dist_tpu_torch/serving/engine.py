@@ -13,10 +13,13 @@ the same serve)::
        └ Rejected ◄─┘ (reject-on-full | block)
 
 Chunked prefill (``prefill_chunk_tokens``) and the radix prefix cache
-(``prefix_cache``) are the batcher's ranged-prefill modes. The overload
-controller, speculative decoding and the elastic rebuild arrive in later
-slices with the observability, health and elastic tiers; asking for them
-raises.
+(``prefix_cache``) are the batcher's ranged-prefill modes. An MoE config
+whose ``gg_config`` asks for ``w8`` or ``fp8`` serves float expert banks
+quantized once, here, into int8 or fp8 pools with their scales
+(:meth:`ServingEngine._serving_params`); pre-quantized banks pass through.
+The overload controller, speculative decoding and the elastic rebuild
+arrive in later slices with the observability, health and elastic tiers;
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Any
 
 from triton_dist_tpu_torch.models.decode import ContinuousBatcher, Request
 from triton_dist_tpu_torch.models.prefix_cache import PX_COUNTERS, PX_GAUGES
+from triton_dist_tpu_torch.models.tp_transformer import quantize_moe_serving_params
 from triton_dist_tpu_torch.resilience import retry as _retry
 from triton_dist_tpu_torch.serving.metrics import ServingMetrics, SLOTargets
 
@@ -171,6 +175,9 @@ class ServingEngine:
         **batcher_kw: Any,
     ):
         self.cfg = cfg
+        self.params = params
+        self._w8_params = None   # the once-quantized serving banks
+        self._fp8_params = None  # ... and the fp8 ones
         self.s_max = int(s_max)
         self.serving = (serving or ServingConfig()).validate()
         self.clock = clock if clock is not None else _retry.get_clock()
@@ -183,9 +190,34 @@ class ServingEngine:
         for name in ("prefix_cache", "prefill_chunk_tokens"):
             if getattr(self.serving, name) is not None:
                 batcher_kw[name] = getattr(self.serving, name)
-        self._batcher = ContinuousBatcher(cfg, params, s_max=self.s_max, **batcher_kw)
+        self._batcher = ContinuousBatcher(cfg, self._serving_params(), s_max=self.s_max,
+                                          **batcher_kw)
         self._prefill_work_seen = 0
         self._t0 = self.clock.monotonic()
+
+    def _serving_params(self):
+        """The parameter tree the batcher serves (≙ ``_serving_params``,
+        ``:445-491``): under an MoE config with ``gg_config.w8`` or ``.fp8``
+        and float expert banks, the banks quantized once
+        (``quantize_moe_serving_params``), cached per format, so no call
+        quantizes on the fly; bit-identical to the on-the-fly path, which
+        uses the same quantizer. Non-MoE trees, pre-quantized banks (a
+        ``w_up_scale``) and non-float banks pass through unchanged (the last
+        stay loud downstream)."""
+        gg = getattr(self.cfg, "gg_config", None)
+        if gg is None or not (gg.w8 or gg.fp8):
+            return self.params
+        layer = self.params["layers"][0] if self.params["layers"] else {}
+        if ("w_up" not in layer or "w_up_scale" in layer
+                or not layer["w_up"].is_floating_point()):
+            return self.params
+        if gg.fp8:
+            if self._fp8_params is None:
+                self._fp8_params = quantize_moe_serving_params(self.params, fmt="fp8")
+            return self._fp8_params
+        if self._w8_params is None:
+            self._w8_params = quantize_moe_serving_params(self.params)
+        return self._w8_params
 
     # -- submission / admission ----------------------------------------
 
