@@ -122,8 +122,21 @@ Phases, each printed as a JSON line, each fatal on failure:
    ``f32_parity_moe_quant``: one f32 layer, both formats, world 1 and 4,
    greedy tokens on the card equal to the CPU plain path, two runs built
    from float banks so the engine's quantize-once branch runs on the card.
+27. expert parallelism (``csrc/a2a.cu``): the padded-slab all-to-all K27
+   and its chunked form K28 (2 and 3 spans) at the EP serve's prefill and
+   decode slabs, with and without the payload, and on the int8 wire,
+   bit-exact against the plain host exchange and timed beside the byte
+   bound and ``torch.stack``; ``stuck_wait_a2a`` (a late peer raises, naming
+   its slab's site); ``serve_moe_ep4``: ``ServingEngine`` at world 4 on
+   ``preset("mixtral-8x7b:ep", n_layers=8)`` (``serve_moe``'s weights and
+   requests; K27, K8, K6/K7, K3/K5) with the padding share of K8's rows,
+   its bf16 logits and a profile; ``serve_moe_ep4_q`` (the int8 wire over
+   int8 banks, K24); ``f32_parity_ep`` (one f32 layer, world 4, both
+   wires, greedy tokens on the card equal to the CPU plain path); and, at
+   the end, ``layers_ep``: ``EPMoEMLP`` at Mixtral widths with two and three
+   spans (K28), bit-identical to the whole-slab layer.
 
-The line before the last lists every kernel (K1-K26) with its readings;
+The line before the last lists every kernel (K1-K28) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -210,6 +223,7 @@ class Counters:
     versions, reset just before a main-path run and read just after it."""
 
     def __init__(self):
+        from triton_dist_tpu_torch.ops import all_to_all as a2a
         from triton_dist_tpu_torch.ops import allgather, allgather_gemm, common, gemm
         from triton_dist_tpu_torch.ops import flash_decode as fd
         from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
@@ -246,6 +260,8 @@ class Counters:
             "group_gemm_scaled": (gg.group_gemm, "scaled_launches"),
             "ag_group_gemm_scaled": (aggg.ag_group_gemm_overlap, "scaled_launches"),
             "moe_reduce_rs_scaled": (mrs.moe_reduce_rs_overlap, "scaled_launches"),
+            "all_to_all": a2a._a2a,
+            "all_to_all_chunked": a2a._a2a_chunked,
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -257,6 +273,7 @@ class Counters:
             "verify": fd._xla_verify, "ag_gemm_ring": allgather_gemm._ag_gemm_ring_plain,
             "gemm_rs_ring": grs._gemm_rs_ring_plain,
             "reduce_scatter_ring": rs._reduce_scatter_ring_plain,
+            "all_to_all": a2a._fast_all_to_all_xla,
         }
 
     def _counters(self):
@@ -1469,7 +1486,8 @@ def _moe_models():
     """The two forwards of the MoE logits check, each keeping its layers'
     routing ``(weights, ids)`` in ``.routes``:
 
-    - the served forward (``TPMoETransformer``, kernels), unchanged: each
+    - the served forward (``TPMoETransformer``, or ``EPMoETransformer``
+      for an expert-parallel config; kernels), unchanged: each
       layer's routing is recomputed after the layer from the same input by
       the same operations, so it is bitwise the routing the layer used;
     - the world-1 reference: plain GEMMs for the projections and the plain
@@ -1479,7 +1497,9 @@ def _moe_models():
       expert choices instead of its own.
     """
     import torch
-    from triton_dist_tpu_torch.models.tp_transformer import TPMoETransformer, rmsnorm
+    from triton_dist_tpu_torch.models.tp_transformer import (
+        EPMoETransformer, EPMoETransformerConfig, TPMoETransformer, rmsnorm,
+    )
     from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import moe_utils as mu
     from triton_dist_tpu_torch.ops.gemm import _matmul_plain
@@ -1488,11 +1508,17 @@ def _moe_models():
         h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
         return h, mu.select_experts(h.float() @ p["router"].float(), cfg.topk)
 
-    class Served(TPMoETransformer):
-        def _mlp(self, x, p):
-            out = super()._mlp(x, p)
-            self.routes.append(route(self.cfg, x, p)[1])
-            return out
+    def recording(base):
+        class Served(base):
+            def _mlp(self, x, p):
+                out = super()._mlp(x, p)
+                self.routes.append(route(self.cfg, x, p)[1])
+                return out
+
+        return Served
+
+    # the tensor-parallel and the expert-parallel served forwards
+    served = {False: recording(TPMoETransformer), True: recording(EPMoETransformer)}
 
     class Plain(TPMoETransformer):
         replay = None
@@ -1522,7 +1548,8 @@ def _moe_models():
         model.routes, model.replay = [], replay
         return model
 
-    return (lambda cfg, ctx=None: make(Served, cfg, ctx=ctx),
+    return (lambda cfg, ctx=None: make(served[isinstance(cfg, EPMoETransformerConfig)], cfg,
+                                       ctx=ctx),
             lambda cfg, replay=None: make(Plain, cfg, replay))
 
 
@@ -4146,6 +4173,328 @@ def phase_f32_parity_moe_quant() -> None:
           "card_s": {k: t[1] for k, t in times.items()}})
 
 
+# ------------------------------------------------- expert parallelism ----
+
+EP_MODEL = "mixtral-8x7b:ep"
+EP_HIDDEN = 4096  # the Mixtral token row
+EP_SHAPES = {  # name: (max_m, dtype name, payload metadata ints a slab)
+    # prefill: 8 x 256 tokens, 512 a rank, top-2: max_m = 1024, ids ride along
+    "prefill_dispatch": (1024, "bfloat16", 1024),
+    "prefill_combine": (1024, "bfloat16", 0),
+    # decode: 8 rows, 2 a rank: max_m = 4
+    "decode_dispatch": (4, "bfloat16", 4),
+    "decode_combine": (4, "bfloat16", 0),
+    # the int8 wire: ids and the bitcast row scales on the payload
+    "prefill_dispatch_int8": (1024, "int8", 2048),
+}
+
+
+def _a2a_inputs(g, max_m, dtype_name, meta_w):
+    """Every rank's send slabs [4, max_m, 4096], counts and payload
+    metadata (None without)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    shape = (WORLD, max_m, EP_HIDDEN)
+    if dtype == torch.int8:
+        slabs = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                               dtype=torch.int32).to(dtype) for _ in range(WORLD)]
+    else:
+        slabs = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(WORLD)]
+    splits = [torch.randint(0, max_m + 1, (WORLD,), generator=g, device="cuda")
+              for _ in range(WORLD)]
+    meta = None if not meta_w else [
+        torch.randint(-1, 2, (WORLD, meta_w), generator=g, device="cuda", dtype=torch.int32)
+        for _ in range(WORLD)]
+    return slabs, splits, meta
+
+
+def phase_all_to_all(ctx) -> list[dict]:
+    """K27 (one chunk a slab) and K28 (2 and 3 spans) at the shapes of the
+    world-4 EP serve (``serve_moe_ep4``): the prefill dispatch [4, 1024,
+    4096] bf16 a rank with its payload [4, 1025] int32 (counts and expert
+    ids), the combine (no metadata), the decode slabs [4, 4, 4096], and the
+    int8 wire with its payload [4, 2049] (ids and bitcast row scales); every
+    call bit-exact against the plain host exchange. Then timed at the
+    prefill dispatch shape (and K27 at the decode one): the kernel, the
+    plain version, and ``torch.stack`` of the peers' slabs for every rank
+    (the library yardstick); the bound is every rank's slabs and payload
+    read once and written once at the HBM rate."""
+    import torch
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+
+    g = torch.Generator(device="cuda").manual_seed(90)
+    checked = {}
+    for name, (max_m, dtype_name, meta_w) in EP_SHAPES.items():
+        slabs, splits, meta = _a2a_inputs(g, max_m, dtype_name, meta_w)
+        for chunks in (1, 2, 3):
+            cfg = a2a.A2AConfig(chunks_per_shard=chunks)
+
+            def body():
+                r = ctx.rank
+                m = None if meta is None else meta[r]
+                return (a2a.fast_all_to_all(slabs[r], splits[r], meta=m, ctx=ctx, config=cfg),
+                        a2a._fast_all_to_all_xla(slabs[r], splits[r], ctx, meta=m))
+
+            for got, want in ctx.run(body):
+                if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"all_to_all {name} chunks {chunks}: not bit-exact")
+        checked[name] = f"[{WORLD}, {max_m}, {EP_HIDDEN}] {dtype_name}, payload [{WORLD}, " \
+                        f"{1 + meta_w}] int32: chunks 1, 2, 3 bit-exact"
+        del slabs, splits, meta
+
+    def timed(max_m, meta_w):
+        slabs, splits, meta = _a2a_inputs(g, max_m, "bfloat16", meta_w)
+
+        def call(chunks):
+            cfg = a2a.A2AConfig(chunks_per_shard=chunks)
+            return lambda: a2a.fast_all_to_all(slabs[ctx.rank], splits[ctx.rank],
+                                               meta=meta[ctx.rank], ctx=ctx, config=cfg)
+
+        ms = {c: dist_ms(ctx, call(c), iters=20) for c in ((1, 2, 3) if max_m > 4 else (1,))}
+        plain = dist_ms(ctx, lambda: a2a._fast_all_to_all_xla(
+            slabs[ctx.rank], splits[ctx.rank], ctx, meta=meta[ctx.rank]), iters=5)
+        library = cuda_ms(lambda: [torch.stack([slabs[p][r] for p in range(WORLD)])
+                                   for r in range(WORLD)], iters=20)
+        nbytes = 2.0 * WORLD * (slabs[0].numel() * 2 + meta[0].numel() * 4 + WORLD * 4)
+        return ms, plain, library, bound(0.0, nbytes)
+
+    ms, plain, library, (b_ms, by) = timed(1024, 1024)
+    decode_ms, decode_plain, decode_library, (decode_b, _) = timed(4, 4)
+    common = dict(route="cuda", source="triton_dist_tpu_torch/csrc/a2a.cu", max_abs_err=0.0,
+                  plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=library,
+                  library="torch.stack of the peers' slabs, every rank",
+                  shapes=f"world {WORLD}: [{WORLD}, 1024, {EP_HIDDEN}] bf16 a rank, payload "
+                         f"[{WORLD}, 1025] int32")
+    k27 = dict(name="all_to_all", replaces="triton_dist_tpu/ops/all_to_all.py:92", ms=ms[1],
+               decode=dict(ms=decode_ms[1], plain_ms=decode_plain, library_ms=decode_library,
+                           bound_ms=decode_b, shapes=f"[{WORLD}, 4, {EP_HIDDEN}] bf16 a rank"),
+               **common)
+    k28 = dict(name="all_to_all_chunked", replaces="triton_dist_tpu/ops/all_to_all.py:136",
+               ms=ms[2], ms_3_spans=ms[3], spans=2, **common)
+    emit({"phase": "kernel", "kernel": "all_to_all", "world": WORLD, "checks": checked,
+          "ms_by_spans": ms, "plain_ms": plain, "bound_ms": b_ms, "library_ms": library,
+          "decode": k27["decode"]})
+    return [k27, k28]
+
+
+def phase_stuck_wait_a2a() -> None:
+    """K27 and K28 (3 spans) at world 2 with rank 1's stream held 2 s
+    before its push (wait timeout 0.2 s): rank 0's collect must raise with
+    the record of its wait for rank 1's slab — chunk 0 of it with spans —
+    site 2 + 1 * 16 + 0, not hang."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    x, s = torch.randn((2, 48, 64), device="cuda"), torch.tensor([3, 48], device="cuda")
+    recs = {}
+    for chunks, family in ((1, "all_to_all"), (3, "all_to_all_chunked")):
+        ctx = initialize_distributed(2)
+        cfg = a2a.A2AConfig(chunks_per_shard=chunks)
+        stuck = False
+
+        def call():
+            if ctx.rank == 1 and stuck:
+                common.sleep_on_stream(2_000_000_000)
+            return a2a.fast_all_to_all(x, s, ctx=ctx, config=cfg)
+
+        ctx.run(call)
+        stuck = True
+        try:
+            with config.wait_timeout(0.2):
+                ctx.run(call)
+        except DistTimeoutError as err:
+            recs[family] = err.records
+        else:
+            raise AssertionError(f"a stuck {family} wait did not raise")
+        if [(r["pe"], r["family"], r["site"]) for r in recs[family]] != [(0, family, 18)]:
+            raise AssertionError(f"stuck {family} wait: unexpected records {recs[family]}")
+        ctx.close()
+    emit({"phase": "stuck_wait_a2a", "records": recs})
+
+
+def phase_serve_moe_ep(counters: Counters) -> tuple[dict, dict]:
+    """``serve_moe_ep4``: ``ServingEngine`` at world 4 on the one card on
+    ``preset("mixtral-8x7b:ep", n_layers=8)`` (whole experts, two a rank;
+    ``serve_moe``'s weights and its 8 requests; bf16, s_max 1024, 16-token
+    pages, bulk prefill): K27 in every MoE layer's dispatch and combine,
+    K8 on each rank's received rows, K6/K7 attention, K3/K5 decode; the
+    share of K8's rows that are slab padding (the padded contract); its
+    bf16 prefill logits against the world-1 plain forward under the served
+    path's expert choices; a profile of one admission and three decode
+    steps. Then ``serve_moe_ep4_q``: the same serve with the int8 wire
+    (``ep_quant="int8"``) over int8 banks (``quantize_moe_serving_params``,
+    the float banks freed first; K24 at each rank), and its logits."""
+    import torch
+    from triton_dist_tpu_torch.layers.ep_moe_mlp import EPMoEMLP
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import (
+        init_moe_params, quantize_moe_serving_params, shard_params,
+    )
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    n_layers = 8
+    cfg = presets.preset(EP_MODEL, n_layers=n_layers, batch=8, dtype=torch.bfloat16)
+    params = init_moe_params(cfg, seed=30)  # serve_moe's weights
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    reqs = _requests(cfg.vocab, lengths, 32, seed=31)
+    L = 128
+    flat = _prompt_tokens(reqs, cfg.batch, L)
+    rows = torch.arange(cfg.batch, device="cuda") * L + L - 1
+    m_loc = flat.numel() // WORLD
+    make_served, make_plain = _moe_models()
+    ctx = initialize_distributed(WORLD)
+    out = {}
+    for name, quant in (("serve_moe_ep4", None), ("serve_moe_ep4_q", "int8")):
+        if quant is not None:
+            cfg = dataclasses.replace(cfg, ep_quant=quant,
+                                      gg_config=GroupGemmConfig(MOE_BLOCK, w8=True))
+            params = quantize_moe_serving_params(params)  # the float banks go
+            torch.cuda.empty_cache()
+        EPMoEMLP.rows = EPMoEMLP.assignments = 0
+        res = _serve(cfg, params, reqs, counters, ctx=ctx)
+        gemm_rows, assigned = EPMoEMLP.rows, EPMoEMLP.assignments
+        launches = res["launches"]
+        experts = "group_gemm" if quant is None else "group_gemm_scaled"
+        used = ("all_to_all", experts, "ag_gemm", "gemm_rs", "gemm", "all_gather",
+                "paged_flash_decode", "barrier")
+        unused = ("ag_group_gemm", "moe_reduce_rs", "ag_group_gemm_scaled",
+                  "moe_reduce_rs_scaled", "all_to_all_chunked",
+                  "group_gemm_scaled" if quant is None else "group_gemm")
+        if any(launches[k] <= 0 for k in used) or any(launches[k] for k in unused):
+            raise AssertionError(f"{name} took the wrong kernels: {launches}")
+        emit({"phase": name, "model": EP_MODEL, "n_layers": n_layers, "world": WORLD,
+              "wire": quant or "bf16", "banks": "int8" if quant else "bf16", "batch": 8,
+              "s_max": 1024, "page_size": 16, "prompt_lens": lengths, "max_new_tokens": 32,
+              "expert_bank_gb": _bank_gb(params), "expert_gemm_rows": gemm_rows,
+              "assignments": assigned, "padding_row_share": 1 - assigned / gemm_rows, **res})
+        out[name] = launches
+        pcfg = dataclasses.replace(cfg, seq=L)
+        shards = shard_params(params, WORLD, ctx.devices, cfg=pcfg)
+
+        def rank_logits():
+            r = ctx.rank
+            model = make_served(pcfg, ctx=ctx)
+            logits = model(flat[r * m_loc:(r + 1) * m_loc], shards[r])
+            return logits[rows].float(), model.routes
+
+        outs = ctx.run(rank_logits)
+        del shards
+        # the ranks route their own token shards: rank order is token order
+        routes = [tuple(torch.cat([o[1][li][j] for o in outs]) for j in (0, 1))
+                  for li in range(n_layers)]
+        _check_moe_logits(f"{name}_logits", torch.cat([o[0] for o in outs], dim=1), routes,
+                          make_plain, pcfg, flat, params, rows)
+        del outs
+        if quant is None:
+            phase_moe_profile(cfg, params, ctx)
+    ctx.close()
+    return out["serve_moe_ep4"], out["serve_moe_ep4_q"]
+
+
+def phase_f32_parity_ep() -> None:
+    """f32, one layer at full Mixtral width, world 4: greedy tokens of
+    expert-parallel serving on the card (K27, K8 f32, K6, K7, K3, K5)
+    identical to the plain path on the CPU, on the f32 and on the int8
+    wire (``tests/test_decode.py``'s EP tokens check). Batch 4 (one decode
+    row a rank), 2 requests, paged, bulk prefill; TF32 off."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+    from triton_dist_tpu_torch.models.tp_transformer import init_moe_params
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = presets.preset(EP_MODEL, n_layers=1, batch=4, dtype=torch.float32)
+    params = init_moe_params(base, seed=37)
+    cpu = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    cpu["layers"] = [{k: v.cpu() for k, v in p.items()} for p in params["layers"]]
+    lengths, max_new = [12, 33], 4
+
+    def run(cfg, p, device):
+        ctx = initialize_distributed(WORLD, device=device)
+        b = ContinuousBatcher(cfg, p, s_max=256, page_size=16, prefill=True, device=device,
+                              ctx=ctx)
+        for r in _requests(cfg.vocab, lengths, max_new, seed=38):
+            b.submit(r)
+        got = dict(b.run())
+        ctx.close()
+        return got
+
+    times = {}
+    for wire in (None, "int8"):
+        cfg = dataclasses.replace(base, ep_quant=wire)
+        t0 = time.perf_counter()
+        want = run(cfg, cpu, "cpu")
+        t1 = time.perf_counter()
+        got = run(cfg, params, "cuda")
+        times[wire or "f32"] = (t1 - t0, time.perf_counter() - t1)
+        if got != want:
+            raise AssertionError(f"EP {wire or 'f32'} wire: greedy tokens differ: {got} vs {want}")
+    emit({"phase": "f32_parity_ep", "model": EP_MODEL, "n_layers": 1, "world": WORLD,
+          "wires": list(times), "requests": len(lengths), "max_new_tokens": max_new,
+          "identical": True, "cpu_reference_s": {k: t[0] for k, t in times.items()},
+          "card_s": {k: t[1] for k, t in times.items()}})
+
+
+def phase_layers_ep(counters: Counters) -> dict:
+    """The EP layer at full width, world 4 (one counted run): ``EPMoEMLP``
+    at Mixtral widths (512 tokens a rank, two whole experts a rank, top-2,
+    bf16) with the chunked transport ``A2AConfig(chunks_per_shard=2)`` and
+    ``3`` (K28 in dispatch and combine, K8), each bit-identical to the
+    whole-slab layer (K27: the exchange is a copy, so the schedule cannot
+    change a bit); then each layer call timed."""
+    import torch
+    from triton_dist_tpu_torch.layers.ep_moe_mlp import EPMoEMLP
+    from triton_dist_tpu_torch.ops.all_to_all import A2AConfig
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+    from triton_dist_tpu_torch.ops.moe_utils import select_experts
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    m_loc, n_exp, topk, f = 512, 8, 2, 14336
+    epr = n_exp // WORLD
+    g = torch.Generator(device="cuda").manual_seed(91)
+    x = [torch.randn((m_loc, EP_HIDDEN), generator=g, device="cuda").to(torch.bfloat16)
+         for _ in range(WORLD)]
+    w_up = [(torch.randn((epr, EP_HIDDEN, f), generator=g, device="cuda") * EP_HIDDEN**-0.5)
+            .to(torch.bfloat16) for _ in range(WORLD)]
+    w_down = [(torch.randn((epr, f, EP_HIDDEN), generator=g, device="cuda") * f**-0.5)
+              .to(torch.bfloat16) for _ in range(WORLD)]
+    routes = [select_experts(torch.randn((m_loc, n_exp), generator=g, device="cuda"), topk)
+              for _ in range(WORLD)]
+    tw, ids = [r[0] for r in routes], [r[1] for r in routes]
+    ctx = initialize_distributed(WORLD)
+
+    def layer(chunks):
+        def call():
+            r = ctx.rank
+            mlp = EPMoEMLP(n_exp, topk, m_loc * topk, ctx, gg_config=GroupGemmConfig(MOE_BLOCK),
+                           a2a_config=A2AConfig(chunks_per_shard=chunks))
+            return mlp(x[r], w_up[r], w_down[r], ids[r], tw[r])
+        return call
+
+    counters.reset()
+    chunked = {c: ctx.run(layer(c)) for c in (2, 3)}
+    counts = counters.read()["launches"]
+    if counts["all_to_all_chunked"] <= 0 or counts["group_gemm"] <= 0 or counts["all_to_all"]:
+        raise AssertionError(f"layers_ep took the wrong kernels: {counts}")
+    whole = ctx.run(layer(1))
+    for c, outs in chunked.items():
+        if not all(torch.equal(a, b) for a, b in zip(outs, whole)):
+            raise AssertionError(f"EPMoEMLP with {c} spans differs from the whole-slab layer")
+    timings = {f"chunks_{c}_ms": dist_ms(ctx, layer(c), iters=5) for c in (1, 2, 3)}
+    ctx.close()
+    emit({"phase": "layers_ep", "world": WORLD, "tokens_a_rank": m_loc, "experts": n_exp,
+          "bit_identical_to_whole_slab": True, "launches": counts, "timings": timings})
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4192,6 +4541,7 @@ def main() -> int:
     moe_entries += [phase_ag_group_gemm(ctx), phase_moe_reduce_rs(ctx)]
     scaled_entries += [phase_ag_group_gemm_scaled(ctx), phase_moe_reduce_rs_scaled(ctx)]
     train_entries.append(phase_reduce_scatter(ctx))
+    ep_entries = phase_all_to_all(ctx)
     ctx.full_mesh = False  # the same ranks, declared a ring
     ring_entries = [phase_ag_gemm_ring(ctx), *phase_gemm_rs_ring(ctx),
                     phase_reduce_scatter_ring(ctx)]
@@ -4200,6 +4550,7 @@ def main() -> int:
     phase_stuck_wait_moe()
     phase_stuck_wait_rs()
     phase_stuck_wait_ring()
+    phase_stuck_wait_a2a()
     torch.cuda.empty_cache()
     tp4 = phase_serve_tp4(counters)
     torch.cuda.empty_cache()
@@ -4217,6 +4568,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_f32_parity_moe_quant()
     torch.cuda.empty_cache()
+    moe_ep4, moe_ep4_q = phase_serve_moe_ep(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_ep()
+    torch.cuda.empty_cache()
     train1, train4 = phase_train_moe(counters)
     torch.cuda.empty_cache()
     phase_train_dense(counters)
@@ -4232,6 +4587,8 @@ def main() -> int:
     phase_stuck_wait_ring_bidir()
     torch.cuda.empty_cache()
     layers_ring = phase_layers_ring(counters)
+    torch.cuda.empty_cache()
+    layers_ep = phase_layers_ep(counters)
     entries[0]["launches"] = paged["gemm"]
     entries[1]["launches"] = contiguous["flash_decode"]
     entries[2]["launches"] = paged["paged_flash_decode"]
@@ -4262,6 +4619,9 @@ def main() -> int:
     scaled_entries[1]["launches"] = moe_tp4_w8["ag_group_gemm_scaled"]
     scaled_entries[2]["launches"] = moe_tp4_w8["moe_reduce_rs_scaled"]
     entries += scaled_entries
+    ep_entries[0]["launches"] = moe_ep4["all_to_all"] + moe_ep4_q["all_to_all"]
+    ep_entries[1]["launches"] = layers_ep["all_to_all_chunked"]
+    entries += ep_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

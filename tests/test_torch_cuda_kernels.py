@@ -9,7 +9,9 @@ int8 / fp8 formats of the grouped GEMM K24, of K9 (K25) and of K10 (K26),
 and on a ring
 context the ring AG-GEMM K15, the ring GEMM-RS K16/K17, the ring
 reduce-scatter K18 and its spans K23 (bit-equal to K18), and the ring
-allgathers K19-K22 (bit-exact), plus stuck waits that must raise with
+allgathers K19-K22 (bit-exact), the padded-slab all-to-all K27 and its
+chunked form K28 (bit-exact, and the expert-parallel MoE MLP over them
+against its CPU run), plus stuck waits that must raise with
 their records and a race-shaking pass (``config.comm_delay``) whose
 outputs must be bit-identical), and world-4 MoE train steps, full mesh and
 ring, that must finish (each rank's backward meets its peers on the host).
@@ -31,6 +33,8 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from triton_dist_tpu_torch import config  # noqa: E402
+from triton_dist_tpu_torch.layers import ep_moe_mlp as tepmlp  # noqa: E402
+from triton_dist_tpu_torch.ops import all_to_all as ta2a  # noqa: E402
 from triton_dist_tpu_torch.ops import allgather as tag  # noqa: E402
 from triton_dist_tpu_torch.ops import allgather_gemm as tagg  # noqa: E402
 from triton_dist_tpu_torch.ops import allgather_group_gemm as taggg  # noqa: E402
@@ -938,3 +942,135 @@ def test_world4_ring_moe_train_step_finishes(cuda):
                         else torch.cat([first, *rest], dim),
                         outs[0][0], ttm.specs_for(cfg), *[o[0] for o in outs[1:]])
     ttm._tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5), got, want)
+
+
+def _a2a_inputs(world, max_m, hidden, dtype, g, cuda):
+    """Every rank's send slabs [world, max_m, hidden], counts and a payload
+    of int32 metadata."""
+    if dtype == torch.int8:
+        slabs = [torch.randint(-127, 128, (world, max_m, hidden), generator=g, device=cuda,
+                               dtype=torch.int32).to(torch.int8) for _ in range(world)]
+    else:
+        slabs = [torch.randn((world, max_m, hidden), generator=g, device=cuda).to(dtype)
+                 for _ in range(world)]
+    splits = [torch.randint(0, max_m + 1, (world,), generator=g, device=cuda)
+              for _ in range(world)]
+    meta = [torch.randint(-9, 9, (world, 2 * max_m), generator=g, device=cuda,
+                          dtype=torch.int32) for _ in range(world)]
+    return slabs, splits, meta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+@pytest.mark.parametrize("world", [2, 4])
+def test_all_to_all_kernel_is_exact(cuda, world, chunks):
+    """K27 (one chunk) and K28 (spans) against the plain host exchange, bit
+    for bit, with and without the payload's metadata, bf16, f32 and the
+    one-byte wire, at three shapes back to back (the workspace grows, the
+    epochs and their parity alternate), one of them cut into several
+    pieces a chunk; the launch counts show which kernel ran."""
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device=cuda).manual_seed(60 + world + chunks)
+    cfg = ta2a.A2AConfig(puts_per_slab=2, chunks_per_shard=chunks)
+    wrapper = ta2a._a2a if chunks == 1 else ta2a._a2a_chunked
+    for max_m, hidden, dtype in ((5, 48, torch.bfloat16), (64, 4096, torch.bfloat16),
+                                 (7, 40, torch.float32), (4, 4096, torch.int8)):
+        slabs, splits, meta = _a2a_inputs(world, max_m, hidden, dtype, g, cuda)
+        for with_meta in (False, True):
+            before = wrapper.launches
+
+            def body():
+                r = ctx.rank
+                m = meta[r] if with_meta else None
+                return (ta2a.fast_all_to_all(slabs[r], splits[r], meta=m, ctx=ctx, config=cfg),
+                        ta2a._fast_all_to_all_xla(slabs[r], splits[r], ctx, meta=m))
+
+            for got, want in ctx.run(body):
+                assert len(got) == len(want) == 2 + with_meta
+                for a, b in zip(got, want):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
+            assert wrapper.launches == before + world
+
+
+@pytest.mark.cuda
+def test_all_to_all_under_jitter_is_bit_identical(cuda):
+    """World 4, K27 and K28 with the race-shaking delay on: the same bytes."""
+    ctx = initialize_distributed(4)
+    g = torch.Generator(device=cuda).manual_seed(70)
+    slabs, splits, meta = _a2a_inputs(4, 32, 512, torch.bfloat16, g, cuda)
+    for chunks in (1, 2):
+        cfg = ta2a.A2AConfig(chunks_per_shard=chunks)
+
+        def body():
+            r = ctx.rank
+            return ta2a.fast_all_to_all(slabs[r], splits[r], meta=meta[r], ctx=ctx, config=cfg)
+
+        calm = ctx.run(body)
+        with config.comm_delay(100_000):
+            shaken = ctx.run(body)
+        for a, b in zip(calm, shaken):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_all_to_all_stuck_wait_raises_with_its_record(cuda, chunks):
+    """Rank 1's stream is held 2 s before its push: rank 0's collect waits
+    (0.2 s) for rank 1's slab — chunk 0 of it with spans — expire, and the
+    run raises with a record naming that site; it does not hang."""
+    ctx = initialize_distributed(2)
+    x, s = torch.randn((2, 48, 64), device=cuda), torch.tensor([3, 48], device=cuda)
+    cfg = ta2a.A2AConfig(chunks_per_shard=chunks)
+    ctx.run(lambda: ta2a.fast_all_to_all(x, s, ctx=ctx, config=cfg))  # buffers and flags
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return ta2a.fast_all_to_all(x, s, ctx=ctx, config=cfg)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    (rec,) = err.value.records
+    family = "all_to_all" if chunks == 1 else "all_to_all_chunked"
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
+        0, family, 2 + 1 * 16 + 0, "signal_wait_until")
+    assert "rank 1" in rec["waits_for"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, "int8"])
+def test_ep_moe_mlp_on_the_card_matches_the_cpu(cuda, wire):
+    """``EPMoEMLP`` at world 4 on the card (K27, K8) against the same layer
+    on the CPU (the plain versions), f32, on the f32 and the int8 wire:
+    within 1e-5 of the output's scale (the wire quantizer rounds alike on
+    both)."""
+    world, m_loc, hid, ffn, n_exp, topk = 4, 48, 256, 512, 8, 2
+    g = np.random.default_rng(71)
+    x = torch.from_numpy(g.standard_normal((world * m_loc, hid)).astype(np.float32))
+    w_up = torch.from_numpy((g.standard_normal((n_exp, hid, ffn)) / 16).astype(np.float32))
+    w_down = torch.from_numpy((g.standard_normal((n_exp, ffn, hid)) / 22).astype(np.float32))
+    ids = torch.from_numpy(np.argsort(g.random((world * m_loc, n_exp)), 1)[:, :topk]
+                           .astype(np.int32))
+    tw = torch.softmax(torch.from_numpy(g.standard_normal((world * m_loc, topk))
+                                        .astype(np.float32)), -1)
+    epr = n_exp // world
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ctx = initialize_distributed(world, device=dev)
+
+        def body():
+            r = ctx.rank
+            rows, ex = slice(r * m_loc, (r + 1) * m_loc), slice(r * epr, (r + 1) * epr)
+            layer = tepmlp.EPMoEMLP(n_exp, topk, m_loc * topk, ctx, quant=wire,
+                                    gg_config=tgg.GroupGemmConfig(128))
+            return layer(*(t.to(dev) for t in (x[rows], w_up[ex], w_down[ex], ids[rows],
+                                               tw[rows]))).cpu()
+
+        before = (ta2a._a2a.launches, tgg.group_gemm.launches)
+        outs[dev] = torch.cat(ctx.run(body))
+        if dev == "cuda":
+            assert ta2a._a2a.launches == before[0] + 2 * world
+            assert tgg.group_gemm.launches == before[1] + 2 * world
+    scale = outs["cpu"].abs().max().item()
+    assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-5 * scale

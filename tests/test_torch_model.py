@@ -128,8 +128,12 @@ def test_presets_and_seeded_init():
             cfg.vocab, cfg.n_layers, cfg.dtype) == (
         4096, 14336, 32, 8, 128, 128256, 32, torch.bfloat16)
     assert isinstance(tpresets.preset("mixtral-8x7b"), ttm.MoETransformerConfig)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpresets.preset("mixtral-8x7b:ep")
+    ep = tpresets.preset("mixtral-8x7b:ep")
+    assert isinstance(ep, ttm.EPMoETransformerConfig)
+    assert (ep.hidden, ep.ffn, ep.n_q_heads, ep.n_kv_heads, ep.vocab, ep.n_experts,
+            ep.topk) == (4096, 14336, 32, 8, 32000, 8, 2)
+    with pytest.raises(NotImplementedError, match="A5"):
+        tpresets.preset("mixtral-8x7b:ep-hier")
     with pytest.raises(KeyError):
         tpresets.preset("no-such-model")
     # CPU only on request: the seeded init is reproducible there

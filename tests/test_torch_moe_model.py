@@ -196,9 +196,12 @@ def test_moe_preset_init_and_refusals(moe):
     assert (cfg.hidden, cfg.ffn, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab,
             cfg.n_experts, cfg.topk, cfg.n_layers, cfg.dtype) == (
         4096, 14336, 32, 8, 128, 32000, 8, 2, 8, torch.bfloat16)
-    for name in ("mixtral-8x7b:ep", "mixtral-8x7b:ep-hier"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tpresets.preset(name)
+    ep = tpresets.preset("mixtral-8x7b:ep", n_layers=8, batch=8)
+    assert isinstance(ep, ttm.EPMoETransformerConfig)
+    assert dataclasses.asdict(ep) == dict(dataclasses.asdict(cfg), ep_outer=None,
+                                          ep_max_m=None, ep_quant=None)
+    with pytest.raises(NotImplementedError, match="A5"):
+        tpresets.preset("mixtral-8x7b:ep-hier")
     p = ttm.init_moe_params(tcfg, seed=1, device="cpu")
     layer = p["layers"][0]
     assert (layer["router"].shape, layer["w_up"].shape, layer["w_down"].shape) == (

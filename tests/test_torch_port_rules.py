@@ -39,7 +39,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'triton_dist_tpu'))\n"
         "assert len(names) >= 15, names\n"
         "layers = [n for n in names if n.startswith('triton_dist_tpu_torch.layers.')]\n"
-        "assert len(layers) == 3, layers\n"
+        "assert len(layers) == 5, layers\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
@@ -88,17 +88,21 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_layers_take_their_weights_per_call():
-    """The layer tier's modules are the JAX package's names (the EP layers
-    and ``ElasticStep`` still to port) and own no parameters or buffers:
-    like the JAX layers they take their weights per call."""
+    """The layer tier's modules are the JAX package's names (``ElasticStep``
+    still to port; ``HierEPAll2AllLayer`` refuses, naming the 2-D runtime)
+    and own no parameters or buffers: like the JAX layers they take their
+    weights per call."""
     from triton_dist_tpu_torch import layers
 
     assert [n for n in dir(layers) if n[0].isupper()] == [
-        "AllGatherLayer", "SpGQAFlashDecodeAttention", "TPMLP", "TPMoEMLP"]
+        "AllGatherLayer", "EPAll2AllLayer", "EPMoEMLP", "HierEPAll2AllLayer",
+        "SpGQAFlashDecodeAttention", "TPMLP", "TPMoEMLP"]
     for layer in (layers.AllGatherLayer(), layers.SpGQAFlashDecodeAttention(),
-                  layers.TPMLP(), layers.TPMoEMLP(overlap=False)):
+                  layers.TPMLP(), layers.TPMoEMLP(overlap=False), layers.EPMoEMLP(8, 2, 4)):
         assert isinstance(layer, torch.nn.Module)
         assert not list(layer.parameters()) and not list(layer.buffers())
+    with pytest.raises(NotImplementedError, match="A5"):
+        layers.HierEPAll2AllLayer(n_experts=8, topk=2, max_m1=4, max_m2=8)
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_port(tmp_path):

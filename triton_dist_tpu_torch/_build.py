@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("gemm", "flash_decode", "flash_verify", "dist", "group_gemm", "ring")
+SOURCES = ("gemm", "flash_decode", "flash_verify", "dist", "group_gemm", "ring", "a2a")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

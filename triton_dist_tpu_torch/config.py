@@ -6,8 +6,9 @@ CUDA has no interpret mode, so what is left is where an entry point runs
 (on the card unless the caller explicitly asks for the CPU), how long a
 device-side wait spins before it gives up with a record (≙
 ``config.timeout_iters``, counted here in seconds of ``%globaltimer``, not
-poll iterations), and the race-shaking delay of the communicating kernels
-(≙ ``config.debug_comm_delay``).
+poll iterations), the race-shaking delay of the communicating kernels
+(≙ ``config.debug_comm_delay``) and the expert-parallel overflow check
+(≙ ``config.debug_ep_overflow``).
 """
 
 from __future__ import annotations
@@ -24,13 +25,20 @@ import torch
 wait_timeout_s: float = float(os.environ.get("TDT_TORCH_WAIT_TIMEOUT_S", "60"))
 
 # Race shaking (≙ the JAX package's ``debug_comm_delay``): > 0 makes every
-# communicating kernel (csrc/dist.cu K5-K7 and K12, csrc/ring.cu K15-K23)
-# spin a per-rank delay of base * (1 + (rank * 7919 + salt * 104729) mod 8)
-# dependent integer steps at its top (shmem.cuh ``comm_jitter``), so the
-# ranks issue their stores and waits at visibly different times. It moves
-# timing only, never a result. Debug and stress only; TDT_COMM_DELAY sets it
-# at import.
+# communicating kernel (csrc/dist.cu K5-K7 and K12, csrc/ring.cu K15-K23,
+# csrc/a2a.cu K27/K28) spin a per-rank delay of base * (1 + (rank * 7919 +
+# salt * 104729) mod 8) dependent integer steps at its top (shmem.cuh
+# ``comm_jitter``), so the ranks issue their stores and waits at visibly
+# different times. It moves timing only, never a result. Debug and stress
+# only; TDT_COMM_DELAY sets it at import.
 debug_comm_delay: int = int(os.environ.get("TDT_COMM_DELAY", "0"))
+
+# Fail loudly when an expert-parallel dispatch drops assignments to slab
+# overflow (≙ the JAX package's ``debug_ep_overflow``): ``EPMoEMLP`` prints
+# the dropped count to stderr and poisons its output with NaN, so an
+# undersized ``ep_max_m`` never zeroes expert contributions silently. The
+# check reads the count on the host (a sync a layer): debug runs only.
+debug_ep_overflow: bool = False
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -61,6 +69,17 @@ def wait_timeout(seconds: float):
         yield
     finally:
         wait_timeout_s = old
+
+
+@contextlib.contextmanager
+def ep_overflow_check(on: bool = True):
+    """Run a block with the expert-parallel overflow check on (or off)."""
+    global debug_ep_overflow
+    old, debug_ep_overflow = debug_ep_overflow, bool(on)
+    try:
+        yield
+    finally:
+        debug_ep_overflow = old
 
 
 @contextlib.contextmanager

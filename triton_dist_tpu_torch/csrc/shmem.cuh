@@ -1,9 +1,10 @@
 // B1 · the device side of the SHMEM surface the distributed kernels share
 // (≙ triton_dist_tpu/shmem/device.py): puts, put-with-signal, signal,
 // bounded waits, quiet, the all-rank barrier, the ring neighbours' barrier,
-// the race-shaking delay, and the chunked surface of the ring kernels
+// the race-shaking delay, the chunked surface of the ring kernels
 // (csrc/ring.cu): per-(step, chunk) puts with a flag slot of their own and
-// the bounded per-chunk wait.
+// the bounded per-chunk wait, and the all-to-all's chunked put with a flag
+// slot per (sender, chunk) (csrc/a2a.cu).
 //
 // Symmetric memory: every rank holds one allocation of the same shape per
 // symmetric buffer, and a device-side int64[world] table of the ranks'
@@ -271,6 +272,25 @@ __device__ __forceinline__ void chunk_piece_done(const ChunkFlags& f, int step, 
       signal_set(f.peer + s, f.epoch);
     }
   }
+}
+
+// putmem_signal_chunked_a2a_nbi_block (shmem/device.py:373), the
+// all-to-all's chunked put (csrc/a2a.cu): the block puts its piece of
+// chunk `chunk` of the slab bound for rank `dst` into that rank's landing
+// view, and the block that lands the chunk's last of `pieces` pieces raises
+// the receiver's (sender, chunk) slot, me * MAX_SPANS + chunk of the flag
+// set whose peer table is `flags`. `count` is this rank's int32[world *
+// MAX_SPANS] of finished pieces per (destination, chunk).
+__device__ __forceinline__ void putmem_signal_chunked_a2a_block(void* dst_ptr, const void* src,
+                                                                long long bytes,
+                                                                const long long* flags,
+                                                                int* count, int dst, int me,
+                                                                int chunk, int pieces,
+                                                                int epoch) {
+  putmem_nbi_block(dst_ptr, src, bytes);
+  const ChunkFlags f = {nullptr, peer_ptr<int>(flags, dst) + me * MAX_SPANS,
+                        count + dst * MAX_SPANS, epoch};
+  chunk_piece_done(f, 0, chunk, pieces);
 }
 
 // wait_chunk (shmem/device.py:492): the block waits, bounded, until chunk

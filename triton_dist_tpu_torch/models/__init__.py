@@ -1,4 +1,4 @@
-"""The dense and MoE decoders, their presets, training step, the
+"""The dense, MoE and expert-parallel MoE decoders, their presets, training step, the
 serving-side decode and the prefix cache (≙ ``triton_dist_tpu/models``).
 The model and training entry points and the prefix cache's configuration
 are re-exported here; import ``decode``, ``prefix_cache`` and ``presets``
@@ -6,10 +6,13 @@ directly for the rest."""
 
 from triton_dist_tpu_torch.models.prefix_cache import PrefixCacheConfig  # noqa: F401
 from triton_dist_tpu_torch.models.tp_transformer import (  # noqa: F401
+    EPMoETransformer,
+    EPMoETransformerConfig,
     MoETransformerConfig,
     TPMoETransformer,
     TPTransformer,
     TransformerConfig,
+    ep_moe_apply,
     init_moe_params,
     init_params,
     params_from_numpy,

@@ -39,6 +39,13 @@ lands in bounded chunks between decode steps) and the radix prefix cache
 (``prefix_cache``, ``models/prefix_cache.py``: a trie hit's pages are the
 range's prior, only the divergent suffix runs).
 
+An :class:`~triton_dist_tpu_torch.models.tp_transformer.EPMoETransformerConfig`
+serves the expert-parallel decoder (flat EP): prefill runs
+``EPMoETransformer`` on the token shards, and a decode step or a ranged
+pass dispatches each rank's slice of the rows to the experts' owners over
+the all-to-all (K27/K28) and gathers the combined slices (``:414-444``);
+the ranks hold whole experts (``shard_params`` with the config).
+
 Not ported yet: hierarchical EP serving, and the prefix cache's
 poisoned-page strike (the integrity tier's eviction of every reader of a
 poisoned shared page).
@@ -54,11 +61,14 @@ import torch
 
 from triton_dist_tpu_torch.config import resolve_device
 from triton_dist_tpu_torch.models.tp_transformer import (
+    EPMoETransformer,
+    EPMoETransformerConfig,
     MoETransformerConfig,
     TPMoETransformer,
     TPTransformer,
     TransformerConfig,
     apply_rope,
+    ep_moe_apply,
     rmsnorm,
     rope_tables,
     shard_params,
@@ -380,7 +390,9 @@ def _decode_mlp(c, x: torch.Tensor, p: dict, ctx) -> torch.Tensor:
     (≙ ``_decode_mlp``, ``:407``): dense SwiGLU, or for the MoE decoder
     every expert's F shard on every row (dense einsums: at decode row counts
     every expert's weights stream anyway) and a one-hot top-k combine; then
-    the ``psum`` of the rank's partial.
+    the ``psum`` of the rank's partial. The expert-parallel decoder
+    dispatches each rank's ``m / world`` rows over the all-to-all instead
+    (K27, the grouped GEMMs K8 or K24) and gathers the results.
 
     Quantized banks (``:456-478``): each pool is upcast to the activation
     dtype for its einsum and its scale multiplies the f32 result after the
@@ -389,6 +401,17 @@ def _decode_mlp(c, x: torch.Tensor, p: dict, ctx) -> torch.Tensor:
     upcast bank every step where XLA fuses the convert into the dot."""
     m = x.shape[0]
     h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
+    if isinstance(c, EPMoETransformerConfig):  # before its base class, MoE
+        # expert-parallel (``:414-444``): each rank dispatches its row slice
+        # to the expert owners, and the combined slices are gathered back
+        n, me = axis_size(ctx), axis_index(ctx)
+        if m % n:
+            raise ValueError(f"EP serving decode shards its rows over the ranks: rows={m} "
+                             f"must divide evenly over {n} ranks")
+        m_loc = m // n
+        y = ep_moe_apply(c, h[me * m_loc:(me + 1) * m_loc], p, c.ep_max_m or m_loc * c.topk,
+                         ctx=ctx)
+        return x + _all_gather(ctx, y, dim=0).to(x.dtype)
     if not isinstance(c, MoETransformerConfig):
         gu = (h @ p["w_gate_up"].reshape(c.hidden, -1)).reshape(m, -1, 2)
         act = torch.nn.functional.silu(gu[..., 0].float()).to(x.dtype) * gu[..., 1]
@@ -447,7 +470,12 @@ def prefill_cache(
     s_shard = _shard_of(s_max, n)
     dev = prompt_flat.device
     m_loc = b * L // n
-    model_cls = TPMoETransformer if isinstance(c, MoETransformerConfig) else TPTransformer
+    if isinstance(c, EPMoETransformerConfig):
+        model_cls = EPMoETransformer
+    elif isinstance(c, MoETransformerConfig):
+        model_cls = TPMoETransformer
+    else:
+        model_cls = TPTransformer
     model = model_cls(c, kv_sink=[], ctx=ctx)
     logits = model(prompt_flat[me * m_loc:(me + 1) * m_loc].long(), params)  # [b*L, V/n]
     sel = torch.as_tensor(
@@ -581,7 +609,7 @@ class _Ranks:
                     f"was asked for {device}"
                 )
             self.devices = ctx.devices
-            self.params = shard_params(params, ctx.world, ctx.devices)
+            self.params = shard_params(params, ctx.world, ctx.devices, cfg=cfg)
         n = axis_size(ctx)
         self.caches = [spec.init(cfg, d, n) for d in self.devices]
 

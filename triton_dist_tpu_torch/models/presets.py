@@ -2,18 +2,25 @@
 the public architecture shapes of open-weight models as ready-to-run
 configs. The MoE preset builds the tensor-parallel
 :class:`~triton_dist_tpu_torch.models.tp_transformer.MoETransformerConfig`;
-its expert-parallel deployments (``":ep"``, ``":ep-hier"``) need the
-all-to-all layers (ROADMAP A12) and raise.
+``":ep"`` (or ``ep=True``) its expert-parallel deployment, an
+:class:`~triton_dist_tpu_torch.models.tp_transformer.EPMoETransformerConfig`
+(≙ ``:82-100``). ``":ep-hier"`` (the hierarchical dispatch over an (outer,
+inner) mesh) needs the 2-D rank runtime (ROADMAP A5) and raises.
 
     cfg = presets.preset("llama-3.1-8b", batch=8, n_layers=32)
     cfg = presets.preset("mixtral-8x7b", batch=8, n_layers=8)
+    cfg = presets.preset("mixtral-8x7b:ep", batch=8, n_layers=8)
 """
 
 from __future__ import annotations
 
 import torch
 
-from triton_dist_tpu_torch.models.tp_transformer import MoETransformerConfig, TransformerConfig
+from triton_dist_tpu_torch.models.tp_transformer import (
+    EPMoETransformerConfig,
+    MoETransformerConfig,
+    TransformerConfig,
+)
 
 # name → (hidden, ffn, n_q_heads, n_kv_heads, head_dim, vocab)
 _DENSE = {
@@ -39,26 +46,33 @@ def preset(
     seq: int = 8192,
     n_layers: int | None = None,
     dtype: torch.dtype = torch.bfloat16,
+    ep: bool = False,
     **overrides,
 ) -> TransformerConfig:
     """Build the named model's config. `n_layers` defaults to 1 (one
     decoder block); pass the real depth for full-model runs. Extra keyword
     arguments override any config field (≙ ``:73``), e.g.
-    ``ag_config=AGGemmConfig(chunks_per_shard=2)``."""
-    if name.endswith((":ep", ":ep-hier")):
+    ``ag_config=AGGemmConfig(chunks_per_shard=2)``. ``ep=True`` (or the
+    suffix ``":ep"``) builds an MoE preset's expert-parallel config."""
+    if name.endswith(":ep-hier"):
         raise NotImplementedError(
-            f"preset {name!r} with expert parallelism: the all-to-all EP layers "
-            f"are not ported yet (ROADMAP A12)"
+            f"preset {name!r}: hierarchical expert parallelism needs the 2-D "
+            f"DistContext (an outer and an inner axis, ROADMAP A5)"
         )
+    if name.endswith(":ep"):
+        name, ep = name[:-len(":ep")], True
     if name in _MOE:
         h, f, q, kv, d, vocab, n_exp, topk = _MOE[name]
-        return MoETransformerConfig(
+        return (EPMoETransformerConfig if ep else MoETransformerConfig)(
             vocab=vocab, hidden=h, ffn=f, n_layers=n_layers or 1,
             n_q_heads=q, n_kv_heads=kv, head_dim=d, batch=batch, seq=seq,
             dtype=dtype, n_experts=n_exp, topk=topk, **overrides,
         )
     if name not in _DENSE:
         raise KeyError(f"unknown preset {name!r}; have {PRESETS}")
+    if ep:
+        raise ValueError(f"preset {name!r} is dense: expert parallelism applies to the MoE "
+                         f"presets {sorted(_MOE)}")
     h, f, q, kv, d, vocab = _DENSE[name]
     return TransformerConfig(
         vocab=vocab, hidden=h, ffn=f, n_layers=n_layers or 1,

@@ -33,6 +33,12 @@ single up-projection ``w_up [E, H, F]``, the tanh GELU, ``w_down [E, F,
 H]`` (no gate), both sharded on F, through ``ops/moe_mlp.tp_moe_mlp``.
 :func:`quantize_moe_serving_params` (``:306``) turns the banks into int8 or
 fp8 e4m3 pools with per-(expert, out-column) scales for serving.
+
+The expert-parallel decoder (:class:`EPMoETransformer`, ``:447``) keeps the
+same parameter tree but holds whole experts a rank (:func:`shard_params`
+with the config splits the banks on the expert dim) and moves the tokens
+to them over the all-to-all (``layers/ep_moe_mlp.py``); flat EP only, and
+serving only.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.config import resolve_device
+from triton_dist_tpu_torch.layers.ep_a2a_layer import _check_quant
 from triton_dist_tpu_torch.ops import grads
 from triton_dist_tpu_torch.ops.allgather_gemm import AGGemmConfig, ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import GemmRSConfig, gemm_rs
@@ -104,6 +111,30 @@ class MoETransformerConfig(TransformerConfig):
 
     def __post_init__(self):
         check_config(self.gg_config)
+
+
+@dataclasses.dataclass(frozen=True)
+class EPMoETransformerConfig(MoETransformerConfig):
+    """Expert-parallel MoE decoder (≙ ``EPMoETransformerConfig``, ``:399``):
+    the attention stays tensor-parallel, the experts are whole and spread
+    over the ranks, the tokens travel to them over the all-to-all.
+    ``ep_max_m`` is the per-(source, destination) slab capacity (None: the
+    worst case, which never drops; an undersized one drops assignments,
+    loudly under ``config.debug_ep_overflow``); ``ep_quant`` the one-byte
+    dispatch wire (serving only). ``ep_outer`` (the hierarchical dispatch)
+    needs the 2-D rank runtime and refuses."""
+
+    ep_outer: str | None = None
+    ep_max_m: int | None = None
+    ep_quant: str | None = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.ep_outer is not None:
+            raise NotImplementedError(
+                f"ep_outer={self.ep_outer!r}: hierarchical EP needs the 2-D DistContext "
+                f"(ROADMAP A5)")
+        _check_quant(self.ep_quant)
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0, *, device=None) -> dict:
@@ -219,6 +250,16 @@ _MOE_LAYER_SPLIT = dict(attn_norm=None, wqkv=1, wo=0, mlp_norm=None, router=None
 # keep their banks' splits; a scale [E, 1, N] splits with its OUT dim, so
 # w_up's F columns split and w_down's H stays whole
 _MOE_QUANT_LAYER_SPLIT = dict(_MOE_LAYER_SPLIT, w_up_scale=2, w_down_scale=None)
+# expert parallelism (≙ ep_moe_param_specs / ep_moe_quantized_param_specs,
+# :420, :433): the banks, and the scales with them, split on the EXPERT dim
+_EP_LAYER_SPLIT = dict(_MOE_LAYER_SPLIT, w_up=0, w_down=0)
+_EP_QUANT_LAYER_SPLIT = dict(_EP_LAYER_SPLIT, w_up_scale=0, w_down_scale=0)
+
+
+def _moe_split(ep: bool, quant: bool) -> dict:
+    if ep:
+        return _EP_QUANT_LAYER_SPLIT if quant else _EP_LAYER_SPLIT
+    return _MOE_QUANT_LAYER_SPLIT if quant else _MOE_LAYER_SPLIT
 
 
 def specs_for(cfg: TransformerConfig, params: dict | None = None) -> dict:
@@ -228,23 +269,26 @@ def specs_for(cfg: TransformerConfig, params: dict | None = None) -> dict:
     serving banks (:func:`quantize_moe_serving_params`)."""
     if isinstance(cfg, MoETransformerConfig):
         quant = params is not None and is_quantized_params(params)
-        layer = _MOE_QUANT_LAYER_SPLIT if quant else _MOE_LAYER_SPLIT
+        layer = _moe_split(isinstance(cfg, EPMoETransformerConfig), quant)
     else:
         layer = _LAYER_SPLIT
     return dict(_TOP_SPLIT, layers=[dict(layer) for _ in range(cfg.n_layers)])
 
 
-def _layer_split(p: dict) -> dict:
+def _layer_split(p: dict, cfg) -> dict:
     if "router" not in p:
         return _LAYER_SPLIT
-    return _MOE_QUANT_LAYER_SPLIT if "w_up_scale" in p else _MOE_LAYER_SPLIT
+    return _moe_split(isinstance(cfg, EPMoETransformerConfig), "w_up_scale" in p)
 
 
-def shard_params(params: dict, world: int, devices=None) -> list[dict]:
-    """Per-rank parameters (≙ ``param_specs`` + ``jax.device_put``): rank
+def shard_params(params: dict, world: int, devices=None, cfg=None) -> list[dict]:
+    """Per-rank parameters (≙ ``specs_for`` + ``jax.device_put``): rank
     ``r`` gets slice ``r`` of each split weight, contiguous, on
     ``devices[r]`` (default: where the weight is). Replicated tensors are
-    shared, not copied, between ranks on one device."""
+    shared, not copied, between ranks on one device. The tree alone cannot
+    tell the MoE layouts apart: pass the model's `cfg` so an
+    :class:`EPMoETransformerConfig` gets its banks split on the expert dim
+    (without it an MoE tree takes the tensor-parallel F split)."""
     devices = devices or [None] * world
 
     def part(x, dim, r):
@@ -257,7 +301,7 @@ def shard_params(params: dict, world: int, devices=None) -> list[dict]:
 
     def rank(r):
         return {
-            k: [{n: part(w, _layer_split(p)[n], r) for n, w in p.items()} for p in v]
+            k: [{n: part(w, _layer_split(p, cfg)[n], r) for n, w in p.items()} for p in v]
             if k == "layers" else part(v, _TOP_SPLIT[k], r)
             for k, v in params.items()
         }
@@ -426,6 +470,44 @@ class TPMoETransformer(TPTransformer):
         mlp = grads.tp_moe_mlp_grad if torch.is_grad_enabled() else tp_moe_mlp
         return mlp(h, w_up, w_down, ids, tw, ctx=self.ctx, gg_config=c.gg_config,
                    **scales).to(x.dtype)
+
+
+@dataclasses.dataclass
+class EPMoETransformer(TPMoETransformer):
+    """MoE decoder of one rank with expert-parallel MLPs (≙
+    ``EPMoETransformer``, ``:447``): router → :class:`~triton_dist_tpu_torch.
+    layers.ep_moe_mlp.EPMoEMLP` (the dispatch all-to-all K27/K28, the local
+    grouped GEMMs K8 or K24, the combine). Parameters from
+    :func:`shard_params` with ``cfg``: each rank holds ``[E / world, H, F]``
+    whole experts. Serving only here: training an EP model is queued after
+    ROADMAP A5."""
+
+    def _mlp(self, x: torch.Tensor, p: dict) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "training an expert-parallel model is not ported yet (ROADMAP A12, EP "
+                "training, after A5); serve it, or train the tensor-parallel MoE model")
+        c = self.cfg
+        h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
+        # flat dispatch can send all of a rank's topk assignments to one rank
+        return ep_moe_apply(c, h, p, c.ep_max_m or x.shape[0] * c.topk, ctx=self.ctx)
+
+
+def ep_moe_apply(cfg: EPMoETransformerConfig, h: torch.Tensor, p: dict, max_m: int,
+                 ctx=None) -> torch.Tensor:
+    """Router → EP dispatch → expert GEMMs → combine on a token shard (≙
+    ``ep_moe_apply``, ``:469``): the one implementation of the model
+    forward and the serving decode, which differ in how they shard the
+    tokens and bound ``max_m``. Quantized serving banks (a ``w_up_scale``)
+    pass their scales through."""
+    from triton_dist_tpu_torch.layers.ep_moe_mlp import EPMoEMLP
+
+    tw, ids = select_experts(h.float() @ p["router"].float(), cfg.topk)
+    moe = EPMoEMLP(cfg.n_experts, cfg.topk, max_m, ctx, gg_config=cfg.gg_config,
+                   quant=cfg.ep_quant)
+    scales = ({"w_up_scale": p["w_up_scale"], "w_down_scale": p["w_down_scale"]}
+              if "w_up_scale" in p else {})
+    return moe(h, p["w_up"], p["w_down"], ids, tw, **scales)
 
 
 def _tree_map(fn, tree, *rest):

@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 
+from triton_dist_tpu_torch.ops.all_to_all import fast_all_to_all
 from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
 from triton_dist_tpu_torch.ops.group_gemm import check_config, gelu, group_gemm, group_gemm_dw
@@ -238,6 +239,34 @@ def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_con
     straight-through (``_TPMoE.backward``)."""
     return _TPMoE.apply(x, w_up, w_down, topk_ids, topk_weights, ctx,
                         check_config(gg_config), overlap, w_up_scale, w_down_scale)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, tokens, splits, meta, ctx, config):
+        out = fast_all_to_all(tokens, splits, meta=meta, ctx=ctx, config=config)
+        fc.dist, fc.config = ctx, config
+        fc.save_for_backward(out[1])
+        fc.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(fc, d_recv, *_):
+        (recv_splits,) = fc.saved_tensors
+        dx, _ = fast_all_to_all(d_recv.contiguous(), recv_splits, ctx=fc.dist, config=fc.config)
+        return dx, None, None, None, None
+
+
+def fast_all_to_all_grad(tokens: torch.Tensor, splits: torch.Tensor,
+                         meta: torch.Tensor | None = None, *, ctx=None, config=None):
+    """Differentiable padded-slab all-to-all (≙ ``fast_all_to_all_grad``,
+    ``:541``): the exchange is its own inverse (slab j of rank i ↔ slab i
+    of rank j; full slabs always move), so the backward is the same
+    exchange of the cotangent with the received splits, through the same
+    kernel (`config` applies both ways); splits and meta take no gradient.
+    Always returns ``(recv, recv_splits, recv_meta or None)``."""
+    out = _AllToAll.apply(tokens, splits, meta, ctx, config)
+    return out if meta is not None else (*out, None)
 
 
 class _PSum(torch.autograd.Function):

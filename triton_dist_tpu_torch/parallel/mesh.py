@@ -17,8 +17,9 @@ buffer for the bounded device waits, and per-family epoch counters that
 its kernels signal and wait on.
 
 Host collectives: the XLA collectives of the JAX bodies (``psum``,
-``all_gather``, ``psum_scatter`` in ``models/decode.py``) become
-:meth:`all_gather`, :meth:`psum` and :meth:`psum_scatter`: each rank
+``all_gather``, ``psum_scatter`` in ``models/decode.py``, ``all_to_all``
+in ``ops/all_to_all.py``) become :meth:`all_gather`, :meth:`psum`,
+:meth:`psum_scatter` and :meth:`all_to_all`: each rank
 publishes its tensor and a CUDA event at a thread rendezvous, waits on its
 peers' events on its own stream, and concatenates or sums there, in rank
 order, so every rank gets bitwise the same result. They are the twins of
@@ -274,6 +275,17 @@ class DistContext:
         for t in parts[1:]:
             acc = acc + t.float()
         return acc.to(x.dtype)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Slab ``p`` of every rank's ``x [world, ...]`` to rank ``p``,
+        stacked in source-rank order (≙ ``jax.lax.all_to_all(x, axis, 0,
+        0, tiled=True)``)."""
+        if self.world == 1:
+            return x
+        if x.shape[0] != self.world:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} must be the world "
+                             f"{self.world}")
+        return torch.stack([t[self.rank] for t in self._exchange(x.contiguous())])
 
     def psum_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's `dim` slice of the sum over ranks (≙

@@ -32,7 +32,11 @@ Site numbering per family, for a launch at world ``n``:
   the wait for chunk ``j`` of the left neighbour's step-``s`` put, and in
   the bidirectional ring site ``n + (n - 1 + s) * MAX_SPANS + j`` the wait
   for chunk ``j`` of the right neighbour's step-``s`` put of the chunks
-  that travel left (kind ``signal_wait_until``).
+  that travel left (kind ``signal_wait_until``);
+- ``all_to_all`` and ``all_to_all_chunked`` (``csrc/a2a.cu``; one epoch
+  counter, one flag set): site ``n + p * MAX_SPANS + j`` is the collect's
+  wait for chunk ``j`` of rank ``p``'s slab (one chunk, ``j`` 0, in the
+  whole-slab kernel; kind ``signal_wait_until``).
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ KIND_NAMES = {
 # kernel families: the small ints the device records carry
 FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group_gemm": 5,
             "moe_rs": 6, "reduce_scatter": 7, "ag_gemm_ring": 8, "gemm_rs_ring": 9,
-            "reduce_scatter_ring": 10, "all_gather_ring_1d": 11, "all_gather_ring_bidir": 12}
+            "reduce_scatter_ring": 10, "all_gather_ring_1d": 11, "all_gather_ring_bidir": 12,
+            "all_to_all": 13, "all_to_all_chunked": 14}
 RING_FAMILIES = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring", "all_gather_ring_1d",
                  "all_gather_ring_bidir")
 MAX_SPANS = 16  # csrc/shmem.cuh MAX_SPANS: the (step, chunk) flag slots a step owns
@@ -84,6 +89,10 @@ def site_name(family: str, site: int, world: int) -> str:
         return f"landing slot {p}"
     if family == "ag_group_gemm":
         return f"sorted slab of rank {p} in the gather workspace"
+    if family == "all_to_all":
+        return f"slab of rank {p // MAX_SPANS}"
+    if family == "all_to_all_chunked":
+        return f"chunk {p % MAX_SPANS} of rank {p // MAX_SPANS}'s slab"
     if family == "moe_rs":
         return f"partial of rank {p} in landing slot {p}"
     return f"site {site}"

@@ -17,6 +17,8 @@ Chunked prefill (``prefill_chunk_tokens``) and the radix prefix cache
 whose ``gg_config`` asks for ``w8`` or ``fp8`` serves float expert banks
 quantized once, here, into int8 or fp8 pools with their scales
 (:meth:`ServingEngine._serving_params`); pre-quantized banks pass through.
+An expert-parallel config (``preset("mixtral-8x7b:ep")``) serves the same
+way, its banks (and scales) split on the expert dim by the batcher.
 The overload controller, speculative decoding and the elastic rebuild
 arrive in later slices with the observability, health and elastic tiers;
 asking for them raises.

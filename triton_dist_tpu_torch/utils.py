@@ -33,13 +33,13 @@ def axis_index(ctx) -> int:
     return 0 if ctx is None else ctx.rank
 
 
-def count_launch(fn, key: str = "launches") -> None:
-    """``fn.launches += 1`` (or the counter `key`, e.g. a wrapper's
+def count_launch(fn, key: str = "launches", by: int = 1) -> None:
+    """``fn.launches += by`` (or the counter `key`, e.g. a wrapper's
     ``scaled_launches`` of its int8/fp8 kernel) under a lock: the ranks'
     threads launch concurrently, and the read-modify-write would lose
     counts."""
     with _count_lock:
-        setattr(fn, key, getattr(fn, key) + 1)
+        setattr(fn, key, getattr(fn, key) + by)
 
 
 def count_call(fn) -> None:
