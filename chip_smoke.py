@@ -46,7 +46,7 @@ Phases, each printed as a JSON line, each fatal on failure:
    F shard 3584, 8 q / 2 kv heads) — K9, K10, K6, K7, K4, K5, K3 — and its
    logits against the same world-1 plain forward; a torch.profiler look at
    one admission step and three decode steps at both worlds;
-13. ``f32_parity_moe``: f32, 2 MoE layers at full width, greedy tokens on the
+13. ``f32_parity_moe``: f32, 1 MoE layer at full width, greedy tokens on the
    card identical to the CPU plain path at world 1 and at world 4;
 14. the training kernels, each against its plain version: the grouped-GEMM
    weight gradient K11 at the shapes of the Mixtral backward (t_pad 5120,
@@ -135,8 +135,24 @@ Phases, each printed as a JSON line, each fatal on failure:
    wires, greedy tokens on the card equal to the CPU plain path); and, at
    the end, ``layers_ep``: ``EPMoEMLP`` at Mixtral widths with two and three
    spans (K28), bit-identical to the whole-slab layer.
+28. ragged expert rows (``GroupGemmConfig(ragged=True)``): the ragged
+   grouped GEMM K29 (bf16, int8, fp8) on ``serve_moe_ep4``'s received
+   prefill slab, and at world 4 the ragged AG-GroupGEMM K30 and
+   MoE-Reduce-RS K31 at ``serve_moe_tp4``'s shard shapes, each against its
+   plain twin and its padded kernel on the same inputs (live rows
+   bit-equal, dead rows zero; K31 bit-equal), timed beside the padded
+   kernel, the plain twin and the library over the packed live rows, the
+   bound counting the live work; ``stuck_wait_ragged`` (K30 with a rank
+   whose blocks are all dead still waits for it and raises with its
+   record); ``serve_moe_ep4_ragged`` and ``serve_moe_tp4_ragged``: the
+   padded serves' weights and requests under the ragged config, with the
+   padding share of the rows computed beside the padded twin's, their
+   tokens and bf16 logits against the padded serve's and the plain
+   forward; ``f32_parity_ragged``: one f32 layer, world 4, EP and TP,
+   greedy tokens on the card equal to the CPU plain path's and the padded
+   serve's.
 
-The line before the last lists every kernel (K1-K28) with its readings;
+The line before the last lists every kernel (K1-K31) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -262,6 +278,10 @@ class Counters:
             "moe_reduce_rs_scaled": (mrs.moe_reduce_rs_overlap, "scaled_launches"),
             "all_to_all": a2a._a2a,
             "all_to_all_chunked": a2a._a2a_chunked,
+            # the ragged-row forms of K8/K24, K9/K25, K10/K26 count apart (K29-K31)
+            "group_gemm_ragged": (gg.group_gemm, "ragged_launches"),
+            "ag_group_gemm_ragged": (aggg.ag_group_gemm_overlap, "ragged_launches"),
+            "moe_reduce_rs_ragged": (mrs.moe_reduce_rs_overlap, "ragged_launches"),
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -1553,6 +1573,11 @@ def _moe_models():
             lambda cfg, replay=None: make(Plain, cfg, replay))
 
 
+# the MoE serves' readings and greedy tokens by phase name, for the ragged
+# serves' comparison with their padded twins in the same run
+SERVES = {}
+
+
 def _serve(cfg, params, reqs, counters, ctx=None):
     """One ServingEngine serve of `reqs` (paged, 16-token pages, bulk
     prefill, s_max 1024) with the launch counts reset just before it and
@@ -1581,6 +1606,7 @@ def _serve(cfg, params, reqs, counters, ctx=None):
     if any(counts["plain_calls"].values()):
         raise AssertionError(f"plain versions ran on the card path: {counts['plain_calls']}")
     n_tok = sum(len(r.tokens) for r in done.values())
+    _serve.outputs = {uid: res.tokens for uid, res in done.items()}
     snap = eng.snapshot()
     return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
                 ttft_ms=sorted(r.ttft_ms for r in done.values()),
@@ -1694,7 +1720,9 @@ def phase_serve_moe(counters: Counters) -> tuple[dict, dict]:
     import torch
     from triton_dist_tpu_torch.models import presets
     from triton_dist_tpu_torch.models.tp_transformer import init_moe_params, shard_params
+    from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
     from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.utils import tally
 
     n_layers = 8
     cfg = presets.preset(MOE_MODEL, n_layers=n_layers, batch=8, dtype=torch.bfloat16)
@@ -1722,7 +1750,11 @@ def phase_serve_moe(counters: Counters) -> tuple[dict, dict]:
     phase_moe_profile(cfg, params)
 
     ctx = initialize_distributed(WORLD)
+    tp_moe_mlp.rows = tp_moe_mlp.assignments = 0
+    tp_moe_mlp.live_rows = {}
     tp4 = _serve(cfg, params, reqs, counters, ctx=ctx)
+    tp4["padding_row_share"] = 1 - tp_moe_mlp.assignments / tally(tp_moe_mlp.live_rows)
+    SERVES["serve_moe_tp4"] = dict(tp4, outputs=_serve.outputs)
     launches4 = tp4["launches"]
     used = ("ag_group_gemm", "moe_reduce_rs", "group_gemm", "ag_gemm", "gemm_rs", "gemm",
             "all_gather", "paged_flash_decode", "barrier")
@@ -1753,7 +1785,9 @@ def phase_serve_moe(counters: Counters) -> tuple[dict, dict]:
 
 
 def phase_f32_parity_moe() -> None:
-    """f32, 2 MoE layers at full Mixtral width: greedy tokens of the kernel
+    """f32, one MoE layer at full Mixtral width (cut from two to keep the
+    script near half its time limit: the world-4 CPU reference was ~100 s
+    at two): greedy tokens of the kernel
     path on the card (K8 f32 at world 1; K9, K10, K6, K7 f32 at world 4)
     identical to the plain path on the CPU (the wrappers' twins), TF32 off."""
     import torch
@@ -1764,7 +1798,7 @@ def phase_f32_parity_moe() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = presets.preset(MOE_MODEL, n_layers=2, batch=4, dtype=torch.float32)
+    cfg = presets.preset(MOE_MODEL, n_layers=1, batch=4, dtype=torch.float32)
     params = init_moe_params(cfg, seed=32)
     params_cpu = {k: v.cpu() for k, v in params.items() if k != "layers"}
     params_cpu["layers"] = [{k: v.cpu() for k, v in p.items()} for p in params["layers"]]
@@ -1790,7 +1824,7 @@ def phase_f32_parity_moe() -> None:
         times[world] = (t1 - t0, time.perf_counter() - t1)
         if got != want:
             raise AssertionError(f"world-{world} MoE f32 greedy tokens differ: {got} vs {want}")
-    emit({"phase": "f32_parity_moe", "model": MOE_MODEL, "n_layers": 2, "worlds": [1, WORLD],
+    emit({"phase": "f32_parity_moe", "model": MOE_MODEL, "n_layers": 1, "worlds": [1, WORLD],
           "requests": len(lengths), "max_new_tokens": max_new, "identical": True,
           "cpu_reference_s": {w: t[0] for w, t in times.items()},
           "card_s": {w: t[1] for w, t in times.items()}})
@@ -4364,7 +4398,7 @@ def phase_serve_moe_ep(counters: Counters) -> tuple[dict, dict]:
         used = ("all_to_all", experts, "ag_gemm", "gemm_rs", "gemm", "all_gather",
                 "paged_flash_decode", "barrier")
         unused = ("ag_group_gemm", "moe_reduce_rs", "ag_group_gemm_scaled",
-                  "moe_reduce_rs_scaled", "all_to_all_chunked",
+                  "moe_reduce_rs_scaled", "all_to_all_chunked", "group_gemm_ragged",
                   "group_gemm_scaled" if quant is None else "group_gemm")
         if any(launches[k] <= 0 for k in used) or any(launches[k] for k in unused):
             raise AssertionError(f"{name} took the wrong kernels: {launches}")
@@ -4373,6 +4407,8 @@ def phase_serve_moe_ep(counters: Counters) -> tuple[dict, dict]:
               "s_max": 1024, "page_size": 16, "prompt_lens": lengths, "max_new_tokens": 32,
               "expert_bank_gb": _bank_gb(params), "expert_gemm_rows": gemm_rows,
               "assignments": assigned, "padding_row_share": 1 - assigned / gemm_rows, **res})
+        SERVES[name] = dict(res, padding_row_share=1 - assigned / gemm_rows,
+                            outputs=_serve.outputs)
         out[name] = launches
         pcfg = dataclasses.replace(cfg, seq=L)
         shards = shard_params(params, WORLD, ctx.devices, cfg=pcfg)
@@ -4495,6 +4531,618 @@ def phase_layers_ep(counters: Counters) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ ragged rows ----
+
+RAGGED_FORMATS = ("bf16", "int8", "fp8")
+EP_TOKENS, EP_EPR = 8 * 256, 2  # serve_moe_ep4's prefill; two whole experts a rank
+
+
+def _ragged_bank(gen, shape, fmt, dtype=None):
+    """A float bank in `dtype` (bf16) with no scale, or a one-byte pool
+    with its scale: ``(bank, scale)``."""
+    import torch
+
+    if fmt == "bf16":
+        b = torch.randn(shape, generator=gen, device="cuda") / shape[1]**0.5
+        return b.to(dtype or torch.bfloat16), None
+    return _quant_bank(gen, shape, fmt)
+
+
+def _ep_receiver_alignment(gen):
+    """Rank 0's received rows in ``serve_moe_ep4``'s prefill: 2048 tokens,
+    512 a rank, routed top-2 over 8 experts from seeded logits; each
+    source's assignments to experts 0 and 1, in dispatch order, fill its
+    slab of ``max_m`` 1024, aligned by local expert with the ragged map
+    (``_align_received``: the virtual padding expert's blocks dead).
+    Returns ``(alignment, assignments received)``."""
+    import torch
+    from triton_dist_tpu_torch.layers.ep_a2a_layer import _align_received
+
+    _, ids = _moe_route(gen, EP_TOKENS, 8, 2)
+    m_loc = EP_TOKENS // WORLD
+    max_m = 2 * m_loc
+    recv = torch.full((WORLD, max_m), -1, dtype=torch.int32, device="cuda")
+    splits = torch.zeros(WORLD, dtype=torch.int32, device="cuda")
+    for s in range(WORLD):
+        flat = ids[s * m_loc:(s + 1) * m_loc].reshape(-1)
+        mine = flat[flat // EP_EPR == 0] % EP_EPR
+        recv[s, :mine.numel()] = mine
+        splits[s] = mine.numel()
+    al = _align_received(recv, splits, max_m, EP_EPR, MOE_BLOCK, ragged=True)
+    return al, int(splits.sum().item())
+
+
+def _live_mask(valid, bm):
+    """The rows before their block's live count, over the aligned layout."""
+    import torch
+
+    rows = torch.arange(valid.numel() * bm, device=valid.device)
+    return rows % bm < valid.reshape(-1).long().repeat_interleave(bm)
+
+
+def _expert_counts(expert_ids, valid, n_exp):
+    """Live rows a expert under the ragged map."""
+    import torch
+
+    return torch.zeros(n_exp, dtype=torch.long, device=valid.device).index_add_(
+        0, expert_ids.reshape(-1).long(), valid.reshape(-1).long())
+
+
+def _check_ragged(name, got, padded, plain, live, factor=1.0):
+    """The ragged kernels' checks: dead rows exact zeros, live rows
+    bit-equal to the padded kernel on the same inputs, and the whole within
+    `factor` bf16 ulps of the output scale of the plain twin."""
+    live_err = (got[live].float() - padded[live].float()).abs().max().item()
+    dead_nonzero = int((got[~live] != 0).any(dim=-1).sum().item())
+    if live_err != 0.0 or dead_nonzero:
+        raise AssertionError(f"{name}: live rows off the padded kernel by {live_err}, "
+                             f"{dead_nonzero} dead rows nonzero")
+    err, tol = _check_bf16(name, got, plain, factor)
+    return dict(max_abs_err=err, tol=tol, live_vs_padded_max_abs_err=live_err,
+                dead_rows_nonzero=dead_nonzero)
+
+
+def _packed_library(a, counts, b, scale, act, out_dtype):
+    """The library yardstick of a ragged grouped GEMM: ``torch._grouped_mm``
+    over the packed live rows `a` (expert-sorted, ``counts`` a expert)
+    against the bank (a one-byte pool upcast to bf16 in the call, its scale
+    folded after), or a ``torch.matmul`` per expert where this torch
+    refuses the offsets. Returns ``(fn, name)``."""
+    import torch
+
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    row_e = torch.repeat_interleave(torch.arange(counts.numel(), device=a.device), counts)
+    ends = offs.tolist()
+
+    def operands():
+        x = a if act is None else act(a.float()).to(a.dtype)
+        return x, (b if scale is None else b.to(torch.bfloat16))
+
+    def finish(y):
+        return (y if scale is None else y.float() * scale[row_e, 0]).to(out_dtype)
+
+    def grouped():
+        x, bank = operands()
+        return finish(torch._grouped_mm(x, bank, offs=offs))
+
+    def per_expert():
+        x, bank = operands()
+        return finish(torch.cat([x[lo:hi] @ bank[e] for e, (lo, hi)
+                                 in enumerate(zip([0] + ends[:-1], ends))]))
+
+    tail = "" if scale is None else " (pool upcast, scale fold)"
+    try:
+        grouped()
+        torch.cuda.synchronize()
+        return grouped, "torch._grouped_mm over the packed live rows" + tail
+    except Exception:  # noqa: BLE001 — this torch refuses these offsets
+        return per_expert, "torch.matmul per expert over the packed live rows" + tail
+
+
+def _ragged_entry(name, source, replaces, per_fmt, shapes, library):
+    """One kernels-line entry of a ragged kernel: the bf16 readings as its
+    columns, all three formats' under ``formats``, the worst error."""
+    head = per_fmt["bf16"]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, policy="ragged rows",
+        max_abs_err=max(f["max_abs_err"] for f in per_fmt.values()),
+        ms=head["ms"], padded_ms=head["padded_ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
+        library=library, formats=per_fmt, shapes=shapes,
+    )
+
+
+def _sum_rows(rows):
+    keys = ("ms", "padded_ms", "plain_ms", "library_ms", "flops", "bytes")
+    keys += ("all_dead_ms",) if "all_dead_ms" in rows[0] else ()
+    out = {k: sum(r[k] for r in rows) for k in keys}
+    out["bound_ms"], out["bound_by"] = bound(out.pop("flops"), out.pop("bytes"))
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["dead_rows_nonzero"] = sum(r["dead_rows_nonzero"] for r in rows)
+    return out
+
+
+def phase_group_gemm_ragged() -> dict:
+    """K29 in bf16, int8 and fp8 at ``serve_moe_ep4``'s prefill shapes:
+    rank 0's received slab (``_ep_receiver_alignment``, t_pad 4480) against
+    its two whole experts, the up-projection [4480, 4096] x [2, 4096, 14336]
+    and the down-projection with the GELU fused [4480, 14336] x [2, 14336,
+    4096], bf16 out, as ``EPMoEMLP`` runs them; first the f32 engine and
+    256-row blocks at small shapes. Each against its plain twin, against
+    K8/K24 on the same inputs (live rows bit-equal, dead rows zero), timed
+    beside K8/K24, the plain twin, the library over the packed live rows,
+    and itself with every tile dead (what the skipped tiles cost: one map
+    read each and their zero stores); the bound counts the live work
+    only."""
+    import torch
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    g = torch.Generator(device="cuda").manual_seed(101)
+    bf16, f32 = torch.bfloat16, torch.float32
+    small = {}
+    for fmt in RAGGED_FORMATS:
+        worst = 0.0
+        for tokens, k, n, dtype, bm, act in ((100, 256, 304, f32, 128, gg.gelu),
+                                             (150, 192, 272, bf16, 256, None)):
+            _, ids = _moe_route(g, tokens, 4, 2)
+            al = mu.moe_align_block_size(ids.reshape(-1), 4, bm, ragged=True)
+            a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g,
+                            device="cuda").to(dtype)
+            b, sc = _ragged_bank(g, (4, k, n), fmt, dtype)
+            got = gg.group_gemm(a, b, al.expert_ids, valid_rows=al.valid_rows, scale=sc,
+                                config=gg.GroupGemmConfig(bm, ragged=True), act_fn=act)
+            pad = gg.group_gemm(a, b, al.expert_ids, scale=sc, config=gg.GroupGemmConfig(bm),
+                                act_fn=act)
+            ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, dtype, act, sc, al.valid_rows)
+            live = _live_mask(al.valid_rows, bm)
+            name = f"group_gemm_ragged {fmt} {tokens}x{k}x{n} bm {bm}"
+            if dtype == bf16:
+                _check_ragged(name, got, pad, ref, live)
+                continue
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            if not (rel <= (1e-4 if sc is None else 1e-5) and torch.equal(got[live], pad[live])
+                    and not got[~live].any()):
+                raise AssertionError(f"{name}: rel {rel}, or live/dead rows off")
+            worst = max(worst, rel)
+        small[fmt] = worst
+
+    al, assigned = _ep_receiver_alignment(g)
+    t_pad = al.sorted_token_ids.shape[0]
+    valid = al.valid_rows
+    live = _live_mask(valid, MOE_BLOCK)
+    live_idx = live.nonzero().squeeze(1)
+    counts = _expert_counts(al.expert_ids, valid, EP_EPR)
+    used = int((counts > 0).sum().item())
+    dead = torch.zeros_like(valid)  # every tile dead: what the skipped tiles cost
+    cfg, pcfg = gg.GroupGemmConfig(MOE_BLOCK, ragged=True), gg.GroupGemmConfig(MOE_BLOCK)
+    per_fmt, rows, lib_name = {}, [], ""
+    for fmt in RAGGED_FORMATS:
+        fmt_rows = []
+        for name, (k, n, act) in {"up": (4096, 14336, None),
+                                  "down_gelu": (14336, 4096, gg.gelu)}.items():
+            a = torch.randn((t_pad, k), generator=g, device="cuda").to(bf16)
+            b, sc = _ragged_bank(g, (EP_EPR, k, n), fmt)
+
+            def kern():
+                return gg.group_gemm(a, b, al.expert_ids, valid_rows=valid, scale=sc,
+                                     config=cfg, act_fn=act)
+
+            def padded():
+                return gg.group_gemm(a, b, al.expert_ids, scale=sc, config=pcfg, act_fn=act)
+
+            def plain():
+                return gg._group_gemm_plain(a, b, al.expert_ids, MOE_BLOCK, bf16, act, sc,
+                                            valid)
+
+            chk = _check_ragged(f"group_gemm_ragged {fmt} {name}", kern(), padded(), plain(),
+                                live)
+            lib_fn, lib_name = _packed_library(a[live_idx], counts, b, sc, act, bf16)
+            flops = 2.0 * assigned * k * n
+            nbytes = (2.0 * assigned * k + (2.0 if sc is None else 1.0) * used * k * n
+                      + (0.0 if sc is None else 4.0 * used * n) + 2.0 * assigned * n)
+            row = dict(format=fmt, gemm=name, shape=[t_pad, k, n], live_rows=assigned, **chk,
+                       ms=cuda_ms(kern, iters=10), padded_ms=cuda_ms(padded, iters=10),
+                       all_dead_ms=cuda_ms(lambda: gg.group_gemm(
+                           a, b, al.expert_ids, valid_rows=dead, scale=sc, config=cfg,
+                           act_fn=act), iters=10),
+                       plain_ms=event_ms(plain, iters=2), library_ms=event_ms(lib_fn, iters=5),
+                       bound_ms=bound(flops, nbytes)[0], flops=flops, bytes=nbytes)
+            fmt_rows.append(row)
+            rows.append({k_: v for k_, v in row.items() if k_ not in ("flops", "bytes")})
+            del a, b, sc
+        per_fmt[fmt] = _sum_rows(fmt_rows)
+        per_fmt[fmt]["f32_engine_rel_err"] = small[fmt]
+    emit({"phase": "kernel", "kernel": "group_gemm_ragged", "t_pad": t_pad,
+          "live_rows": assigned, "row_tiles": t_pad // MOE_BLOCK,
+          "live_row_tiles": int((valid > 0).sum().item()), "per_shape": rows})
+    return _ragged_entry(
+        "group_gemm_ragged", "triton_dist_tpu_torch/csrc/group_gemm.cu",
+        "triton_dist_tpu/ops/gg_pipeline.py:87", per_fmt,
+        f"serve_moe_ep4's prefill slab of rank 0: t_pad {t_pad}, {assigned} live rows, "
+        f"2 experts; up 4096->14336 and down 14336->4096 with GELU, bf16 out (summed)",
+        lib_name)
+
+
+def _tp4_ragged_inputs(gen, m_loc):
+    """``serve_moe_tp4``'s prefill routing at world 4 (512 tokens a rank,
+    top-2 over 8 experts), aligned per rank with the ragged map."""
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    tw, ids = _moe_route(gen, WORLD * m_loc, 8, 2)
+    return mu.moe_align_ranked(ids.reshape(WORLD, -1), 8, MOE_BLOCK, m_loc, ragged=True), tw
+
+
+def phase_ag_group_gemm_ragged(ctx) -> dict:
+    """K30 in bf16, int8 and fp8 at ``serve_moe_tp4``'s shard shapes (world
+    4, 512 tokens a rank, t_pad_loc 2048, H 4096 -> F shard 3584, bf16
+    slabs): every rank's output against the plain twin over the gathered
+    slabs and against K9/K25 on the same inputs (live rows bit-equal, dead
+    rows zero); timed beside K9/K25, the plain twin and the library (the
+    gather, then ``torch._grouped_mm`` over each source slab's packed live
+    rows); the bound counts the live rows only."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    g = torch.Generator(device="cuda").manual_seed(102)
+    m_loc, k, n_loc, n_exp = 512, 4096, 3584, 8
+    ral, _ = _tp4_ragged_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    x = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16() for _ in range(WORLD)]
+    slabs = [x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(WORLD)]
+    gathered = torch.cat(slabs)
+    ids_flat, valid_flat = ral.expert_ids.reshape(-1), ral.valid_rows.reshape(-1)
+    live = _live_mask(valid_flat, MOE_BLOCK)
+    live_c = [_live_mask(ral.valid_rows[c], MOE_BLOCK).nonzero().squeeze(1)
+              for c in range(WORLD)]
+    counts_c = [_expert_counts(ral.expert_ids[c], ral.valid_rows[c], n_exp)
+                for c in range(WORLD)]
+    n_live = int(valid_flat.sum().item())
+    cfg, pcfg = gg.GroupGemmConfig(MOE_BLOCK, ragged=True), gg.GroupGemmConfig(MOE_BLOCK)
+    per_fmt, lib_name = {}, ""
+    for fmt in RAGGED_FORMATS:
+        banks = [_ragged_bank(g, (n_exp, k, n_loc), fmt) for _ in range(WORLD)]
+
+        def call(config):
+            def run():
+                b, sc = banks[ctx.rank]
+                return aggg.ag_group_gemm_overlap(x[ctx.rank], b, ral, ctx=ctx, config=config,
+                                                  scale=sc)
+            return run
+
+        def plain():
+            b, sc = banks[ctx.rank]
+            return aggg._ag_overlap_xla(aggg.presort_local_rows(x[ctx.rank], ral, ctx), b, ral,
+                                        ctx, False, torch.bfloat16, sc, True)
+
+        outs = ctx.run(lambda: (call(cfg)(), call(pcfg)()))
+        checks = [_check_ragged(f"ag_group_gemm_ragged {fmt} rank {r}", got, pad,
+                                gg._group_gemm_plain(gathered, banks[r][0], ids_flat, MOE_BLOCK,
+                                                     torch.bfloat16, None, banks[r][1],
+                                                     valid_flat), live)
+                  for r, (got, pad) in enumerate(outs)]
+        del outs
+        libs = [[_packed_library(slabs[c][live_c[c]], counts_c[c], banks[r][0], banks[r][1],
+                                 None, torch.bfloat16) for c in range(WORLD)]
+                for r in range(WORLD)]
+        lib_name = "torch.cat + " + libs[0][0][1] + ", per source slab"
+
+        def library():
+            for r in range(WORLD):
+                torch.cat(slabs)
+                for fn, _ in libs[r]:
+                    fn()
+
+        wbytes = 2.0 if banks[0][1] is None else 1.0
+        flops = WORLD * 2.0 * n_live * k * n_loc
+        nbytes = (2.0 * n_live * k + WORLD * wbytes * n_exp * k * n_loc
+                  + 2.0 * WORLD * n_live * n_loc)
+        b_ms, by = bound(flops, nbytes)
+        per_fmt[fmt] = dict(
+            ms=dist_ms(ctx, call(cfg), iters=5), padded_ms=dist_ms(ctx, call(pcfg), iters=5),
+            plain_ms=dist_ms(ctx, plain, iters=2), library_ms=event_ms(library, iters=3),
+            bound_ms=b_ms, bound_by=by, **{k_: max(c[k_] for c in checks) for k_ in (
+                "max_abs_err", "tol", "live_vs_padded_max_abs_err", "dead_rows_nonzero")})
+        del banks, libs
+    emit({"phase": "kernel", "kernel": "ag_group_gemm_ragged", "world": WORLD,
+          "t_pad_loc": t_pad_loc, "live_rows": n_live, "formats": per_fmt})
+    return _ragged_entry(
+        "ag_group_gemm_ragged", "triton_dist_tpu_torch/csrc/dist.cu",
+        "triton_dist_tpu/ops/gg_pipeline.py:288", per_fmt,
+        f"world {WORLD}: [{m_loc}, {k}] tokens a rank, t_pad_loc {t_pad_loc} ({n_live} live "
+        f"rows of {WORLD * t_pad_loc}), w_up shard [{n_exp}, {k}, {n_loc}]", lib_name)
+
+
+def phase_moe_reduce_rs_ragged(ctx) -> dict:
+    """K31 in bf16, int8 and fp8 at ``serve_moe_tp4``'s shard shapes (world
+    4: rank-major rows [4 x 2048, 3584] bf16 against the W_down shard [8,
+    3584, 4096], 512 tokens out a rank): bit-equal to K10/K26 on the same
+    inputs, within two bf16 ulps of its plain twin; its grouped GEMM (K29)
+    on one destination's slab with zero nonzero dead rows; timed beside
+    K10/K26, the plain twin and the library over the packed live rows."""
+    import torch
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    g = torch.Generator(device="cuda").manual_seed(103)
+    m_loc, f_loc, h, n_exp = 512, 3584, 4096, 8
+    ral, tw = _tp4_ragged_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    dst, w_rows = mu.ranked_scatter_meta(ral, tw)
+    inv = mu.ranked_combine_rows(ral, m_loc, 2)
+    hs = [torch.randn((WORLD * t_pad_loc, f_loc), generator=g, device="cuda").bfloat16()
+          for _ in range(WORLD)]
+    live_c = [_live_mask(ral.valid_rows[c], MOE_BLOCK).nonzero().squeeze(1)
+              for c in range(WORLD)]
+    counts_c = [_expert_counts(ral.expert_ids[c], ral.valid_rows[c], n_exp)
+                for c in range(WORLD)]
+    n_live = int(ral.valid_rows.sum().item())
+    dst_l = [dst[c].reshape(-1).long()[live_c[c]] for c in range(WORLD)]
+    w_l = [w_rows[c].reshape(-1, 1)[live_c[c]] for c in range(WORLD)]
+    cfg, pcfg = gg.GroupGemmConfig(MOE_BLOCK, ragged=True), gg.GroupGemmConfig(MOE_BLOCK)
+    per_fmt, lib_name = {}, ""
+    for fmt in RAGGED_FORMATS:
+        banks = [_ragged_bank(g, (n_exp, f_loc, h), fmt) for _ in range(WORLD)]
+
+        def call(config, valid):
+            def run():
+                wd, sc = banks[ctx.rank]
+                return mrs.moe_reduce_rs_overlap(hs[ctx.rank], wd, ral.expert_ids, dst, w_rows,
+                                                 ctx=ctx, m_out=m_loc, combine_rows=inv,
+                                                 valid_rows=valid, config=config, scale=sc)
+            return run
+
+        def plain():
+            wd, sc = banks[ctx.rank]
+            return mrs._moe_rs_overlap_xla(hs[ctx.rank], wd, ral.expert_ids, dst, w_rows, ctx,
+                                           m_loc, torch.bfloat16, sc, ral.valid_rows)
+
+        kernel, padded = call(cfg, ral.valid_rows), call(pcfg, None)
+        outs = ctx.run(lambda: (kernel(), padded(), plain()))
+        if not all(torch.equal(got, pad) for got, pad, _ in outs):
+            raise AssertionError(f"moe_reduce_rs_ragged {fmt}: not bit-equal to the padded K10")
+        err, tol = max(_check_bf16(f"moe_reduce_rs_ragged {fmt} rank {r}", got, want, 2.0)
+                       for r, (got, _, want) in enumerate(outs))
+        del outs
+        # its grouped GEMM on destination 0's slab: dead rows exact zeros
+        y = gg.group_gemm(hs[0][:t_pad_loc], banks[0][0], ral.expert_ids[0],
+                          valid_rows=ral.valid_rows[0], scale=banks[0][1], config=cfg,
+                          out_dtype=torch.float32)
+        dead_nonzero = int((y[~_live_mask(ral.valid_rows[0], MOE_BLOCK)] != 0).any(-1)
+                           .sum().item())
+        if dead_nonzero:
+            raise AssertionError(f"moe_reduce_rs_ragged {fmt}: {dead_nonzero} dead rows nonzero")
+        del y
+        libs = [[_packed_library(hs[r][c * t_pad_loc:(c + 1) * t_pad_loc][live_c[c]],
+                                 counts_c[c], banks[r][0], banks[r][1], None, torch.float32)[0]
+                 for c in range(WORLD)] for r in range(WORLD)]
+        lib_name = ("torch._grouped_mm over the packed live rows per (rank, destination) + "
+                    "index_add_ + a sum")
+
+        def library():
+            parts = [[torch.zeros((m_loc, h), device="cuda").index_add_(
+                0, dst_l[c], libs[r][c]() * w_l[c]) for c in range(WORLD)] for r in range(WORLD)]
+            return [sum(parts[r][c] for r in range(WORLD)).bfloat16() for c in range(WORLD)]
+
+        wbytes = 2.0 if banks[0][1] is None else 1.0
+        flops = WORLD * 2.0 * n_live * f_loc * h
+        nbytes = (2.0 * WORLD * n_live * f_loc + WORLD * wbytes * n_exp * f_loc * h
+                  + 2.0 * WORLD * m_loc * h)
+        b_ms, by = bound(flops, nbytes)
+        per_fmt[fmt] = dict(
+            ms=dist_ms(ctx, kernel, iters=5), padded_ms=dist_ms(ctx, padded, iters=5),
+            plain_ms=dist_ms(ctx, plain, iters=2), library_ms=event_ms(library, iters=3),
+            bound_ms=b_ms, bound_by=by, max_abs_err=err, tol=tol, bit_equal_to_padded=True,
+            dead_rows_nonzero=dead_nonzero)
+        del banks, libs
+    emit({"phase": "kernel", "kernel": "moe_reduce_rs_ragged", "world": WORLD,
+          "t_pad_loc": t_pad_loc, "live_rows": n_live, "formats": per_fmt})
+    return _ragged_entry(
+        "moe_reduce_rs_ragged", "triton_dist_tpu_torch/csrc/dist.cu",
+        "triton_dist_tpu/ops/gg_pipeline.py:576", per_fmt,
+        f"world {WORLD}: h [{WORLD * t_pad_loc}, {f_loc}] a rank ({n_live} live rows), W_down "
+        f"shard [{n_exp}, {f_loc}, {h}], {m_loc} tokens out a rank", lib_name)
+
+
+def phase_stuck_wait_ragged() -> None:
+    """K30 at world 2 with every block of rank 1 dead and rank 1's stream
+    held 2 s (wait timeout 0.2 s): rank 0 still waits for rank 1 (its entry
+    barrier, site 1, and the slab it skips, site 2 + 1) and the run must
+    raise with records naming rank 1, not hang or finish early."""
+    import dataclasses as dc
+
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(104)
+    _, ids = _moe_route(g, 32, 8, 2)
+    ral = mu.moe_align_ranked(ids.reshape(2, -1), 8, MOE_BLOCK, 16, ragged=True)
+    valid = ral.valid_rows.clone()
+    valid[1] = 0
+    ral = dc.replace(ral, valid_rows=valid)
+    x = torch.randn((16, 64), generator=g, device="cuda")
+    b = torch.randn((8, 64, 32), generator=g, device="cuda")
+    cfg = gg.GroupGemmConfig(MOE_BLOCK, ragged=True)
+    stuck = False
+
+    def call():
+        if ctx.rank == 1 and stuck:
+            common.sleep_on_stream(2_000_000_000)
+        return aggg.ag_group_gemm_overlap(x, b, ral, ctx=ctx, config=cfg)
+
+    ctx.run(call)
+    stuck = True
+    try:
+        with config.wait_timeout(0.2):
+            ctx.run(call)
+    except DistTimeoutError as err:
+        recs = err.records
+    else:
+        raise AssertionError("a stuck K30 wait did not raise")
+    if not recs or any((r["pe"], r["family"]) != (0, "ag_group_gemm") or r["site"] not in (1, 3)
+                       for r in recs):
+        raise AssertionError(f"stuck K30 wait: unexpected records {recs}")
+    emit({"phase": "stuck_wait_ragged", "records": recs})
+    ctx.close()
+
+
+def _served_logits(make_served, pcfg, params, flat, rows, ctx, n_layers):
+    """The served forward's prefill logits at world 4 (each rank its token
+    shard) and its layers' routing, rank order being token order."""
+    import torch
+    from triton_dist_tpu_torch.models.tp_transformer import (
+        EPMoETransformerConfig, shard_params,
+    )
+
+    ep = isinstance(pcfg, EPMoETransformerConfig)
+    shards = shard_params(params, WORLD, ctx.devices, cfg=pcfg if ep else None)
+    m_loc = flat.numel() // WORLD
+
+    def rank_logits():
+        r = ctx.rank
+        model = make_served(pcfg, ctx=ctx)
+        logits = model(flat[r * m_loc:(r + 1) * m_loc], shards[r])
+        return logits[rows].float(), model.routes
+
+    with torch.inference_mode():
+        outs = ctx.run(rank_logits)
+    routes = [tuple(torch.cat([o[1][li][j] for o in outs]) for j in (0, 1))
+              for li in range(n_layers)]
+    return torch.cat([o[0] for o in outs], dim=1), routes
+
+
+def phase_serve_moe_ragged(counters: Counters) -> tuple[dict, dict]:
+    """``serve_moe_ep4_ragged`` and ``serve_moe_tp4_ragged``: the padded
+    serves' models, weights and requests (Mixtral-8x7B widths, 8 of 32
+    layers, bf16, world 4 on the one card) under ``gg_config=
+    GroupGemmConfig(ragged=True)``: EP with K27 and K29 (no K8), TP with K30
+    and K31 (K29 inside; no K9/K10). Each prints tokens/s, TTFT, peak GB and
+    the padding share of the rows computed beside its padded twin's of this
+    run, whether its greedy tokens equal the padded serve's, its bf16
+    prefill logits against the world-1 plain forward under its own expert
+    choices, and whether those logits are bit-equal to the padded served
+    forward's."""
+    import torch
+    from triton_dist_tpu_torch.layers.ep_moe_mlp import EPMoEMLP
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import init_moe_params
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+    from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.utils import tally
+
+    n_layers, L = 8, 128
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    ragged = GroupGemmConfig(MOE_BLOCK, ragged=True)
+    make_served, make_plain = _moe_models()
+    ctx = initialize_distributed(WORLD)
+    out = {}
+    cells = (("serve_moe_ep4_ragged", EP_MODEL, "serve_moe_ep4", EPMoEMLP,
+              ("all_to_all", "group_gemm_ragged"),
+              ("group_gemm", "ag_group_gemm", "moe_reduce_rs", "ag_group_gemm_ragged",
+               "moe_reduce_rs_ragged")),
+             ("serve_moe_tp4_ragged", MOE_MODEL, "serve_moe_tp4", tp_moe_mlp,
+              ("ag_group_gemm_ragged", "moe_reduce_rs_ragged", "group_gemm_ragged"),
+              ("group_gemm", "ag_group_gemm", "moe_reduce_rs", "all_to_all")))
+    for name, model, twin, counted, used, unused in cells:
+        base = presets.preset(model, n_layers=n_layers, batch=8, dtype=torch.bfloat16)
+        cfg = dataclasses.replace(base, gg_config=ragged)
+        params = init_moe_params(cfg, seed=30)  # the padded serves' weights
+        reqs = _requests(cfg.vocab, lengths, 32, seed=31)
+        counted.rows = counted.assignments = 0
+        counted.live_rows = {}
+        res = _serve(cfg, params, reqs, counters, ctx=ctx)
+        share = 1 - counted.assignments / tally(counted.live_rows)
+        launches = res["launches"]
+        used = used + ("ag_gemm", "gemm_rs", "gemm", "all_gather", "paged_flash_decode",
+                       "barrier")
+        if any(launches[k] <= 0 for k in used) or any(launches[k] for k in unused):
+            raise AssertionError(f"{name} took the wrong kernels: {launches}")
+        pad = SERVES[twin]
+        emit({"phase": name, "model": model, "n_layers": n_layers, "world": WORLD,
+              "gg_config": "GroupGemmConfig(128, ragged=True)", "batch": 8, "s_max": 1024,
+              "page_size": 16, "prompt_lens": lengths, "max_new_tokens": 32,
+              "layout_rows": counted.rows, "computed_rows": tally(counted.live_rows),
+              "assignments": counted.assignments, "padding_row_share": share,
+              "tokens_equal_padded": _serve.outputs == pad["outputs"],
+              "padded_twin": {k: pad[k] for k in ("tokens_per_s", "ttft_ms", "peak_mem_gb",
+                                                  "wall_s", "padding_row_share")},
+              **res})
+        out[name] = launches
+        flat = _prompt_tokens(reqs, cfg.batch, L)
+        rows = torch.arange(cfg.batch, device="cuda") * L + L - 1
+        got, routes = _served_logits(make_served, dataclasses.replace(cfg, seq=L), params, flat,
+                                     rows, ctx, n_layers)
+        _check_moe_logits(f"{name}_logits", got, routes, make_plain,
+                          dataclasses.replace(cfg, seq=L), flat, params, rows)
+        padded, _ = _served_logits(make_served, dataclasses.replace(base, seq=L), params, flat,
+                                   rows, ctx, n_layers)
+        emit({"phase": f"{name}_vs_padded", "logits_bit_equal": torch.equal(got, padded),
+              "max_abs_diff": (got - padded).abs().max().item()})
+        del params, got, padded
+        torch.cuda.empty_cache()
+    ctx.close()
+    return out["serve_moe_ep4_ragged"], out["serve_moe_tp4_ragged"]
+
+
+def phase_f32_parity_ragged() -> None:
+    """f32, one layer at full Mixtral width, world 4: greedy tokens of the
+    ragged EP and TP serves on the card (K29; K30, K31) identical to the
+    CPU plain path's (the ragged twins) and to the padded serve's on the
+    card. Batch 4, 2 requests, paged, bulk prefill; TF32 off."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+    from triton_dist_tpu_torch.models.tp_transformer import init_moe_params
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lengths, max_new = [12, 33], 4
+
+    def run(cfg, p, device):
+        ctx = initialize_distributed(WORLD, device=device)
+        b = ContinuousBatcher(cfg, p, s_max=256, page_size=16, prefill=True, device=device,
+                              ctx=ctx)
+        for r in _requests(cfg.vocab, lengths, max_new, seed=38):
+            b.submit(r)
+        got = dict(b.run())
+        ctx.close()
+        return got
+
+    times = {}
+    for model in (EP_MODEL, MOE_MODEL):
+        base = presets.preset(model, n_layers=1, batch=4, dtype=torch.float32)
+        params = init_moe_params(base, seed=37)
+        cpu = {k: v.cpu() for k, v in params.items() if k != "layers"}
+        cpu["layers"] = [{k: v.cpu() for k, v in p.items()} for p in params["layers"]]
+        cfg = dataclasses.replace(base, gg_config=GroupGemmConfig(MOE_BLOCK, ragged=True))
+        t0 = time.perf_counter()
+        want = run(cfg, cpu, "cpu")
+        t1 = time.perf_counter()
+        got = run(cfg, params, "cuda")
+        t2 = time.perf_counter()
+        padded = run(base, params, "cuda")
+        times[model] = dict(cpu_reference_s=t1 - t0, card_s=t2 - t1)
+        if not got == want == padded:
+            raise AssertionError(f"{model} ragged f32 greedy tokens: card {got}, CPU {want}, "
+                                 f"padded {padded}")
+        del params, cpu
+    emit({"phase": "f32_parity_ragged", "models": list(times), "n_layers": 1, "world": WORLD,
+          "requests": len(lengths), "max_new_tokens": max_new, "identical": True,
+          "times": times})
+
+
 def main() -> int:
     try:
         import torch
@@ -4519,6 +5167,7 @@ def main() -> int:
     verify_entries = [phase_flash_verify(), phase_paged_flash_verify()]
     moe_entries = [phase_group_gemm()]
     scaled_entries = [phase_group_gemm_scaled()]
+    ragged_entries = [phase_group_gemm_ragged()]
     train_entries = [phase_group_gemm_dw()]
     torch.cuda.empty_cache()
     paged = phase_serve(counters)
@@ -4540,6 +5189,7 @@ def main() -> int:
                     phase_gemm_rs(ctx)]
     moe_entries += [phase_ag_group_gemm(ctx), phase_moe_reduce_rs(ctx)]
     scaled_entries += [phase_ag_group_gemm_scaled(ctx), phase_moe_reduce_rs_scaled(ctx)]
+    ragged_entries += [phase_ag_group_gemm_ragged(ctx), phase_moe_reduce_rs_ragged(ctx)]
     train_entries.append(phase_reduce_scatter(ctx))
     ep_entries = phase_all_to_all(ctx)
     ctx.full_mesh = False  # the same ranks, declared a ring
@@ -4551,6 +5201,7 @@ def main() -> int:
     phase_stuck_wait_rs()
     phase_stuck_wait_ring()
     phase_stuck_wait_a2a()
+    phase_stuck_wait_ragged()
     torch.cuda.empty_cache()
     tp4 = phase_serve_tp4(counters)
     torch.cuda.empty_cache()
@@ -4571,6 +5222,10 @@ def main() -> int:
     moe_ep4, moe_ep4_q = phase_serve_moe_ep(counters)
     torch.cuda.empty_cache()
     phase_f32_parity_ep()
+    torch.cuda.empty_cache()
+    moe_ep4_r, moe_tp4_r = phase_serve_moe_ragged(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_ragged()
     torch.cuda.empty_cache()
     train1, train4 = phase_train_moe(counters)
     torch.cuda.empty_cache()
@@ -4622,6 +5277,11 @@ def main() -> int:
     ep_entries[0]["launches"] = moe_ep4["all_to_all"] + moe_ep4_q["all_to_all"]
     ep_entries[1]["launches"] = layers_ep["all_to_all_chunked"]
     entries += ep_entries
+    ragged_entries[0]["launches"] = (moe_ep4_r["group_gemm_ragged"]
+                                     + moe_tp4_r["group_gemm_ragged"])
+    ragged_entries[1]["launches"] = moe_tp4_r["ag_group_gemm_ragged"]
+    ragged_entries[2]["launches"] = moe_tp4_r["moe_reduce_rs_ragged"]
+    entries += ragged_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

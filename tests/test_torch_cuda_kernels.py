@@ -6,6 +6,9 @@ call — and at world 2 and 4 with every rank on the one
 card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
 AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, the scaled
 int8 / fp8 formats of the grouped GEMM K24, of K9 (K25) and of K10 (K26),
+their ragged-row forms K29-K31 (bit-equal to the padded kernels on the
+live rows, dead rows zero, a rank whose blocks are all dead, a stuck
+wait, the EP layer),
 and on a ring
 context the ring AG-GEMM K15, the ring GEMM-RS K16/K17, the ring
 reduce-scatter K18 and its spans K23 (bit-equal to K18), and the ring
@@ -22,6 +25,7 @@ absent:
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 """
 
+import dataclasses
 import os
 
 # the rank runtime gives each rank two streams with hardware queues of
@@ -1072,5 +1076,221 @@ def test_ep_moe_mlp_on_the_card_matches_the_cpu(cuda, wire):
         if dev == "cuda":
             assert ta2a._a2a.launches == before[0] + 2 * world
             assert tgg.group_gemm.launches == before[1] + 2 * world
+    scale = outs["cpu"].abs().max().item()
+    assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-5 * scale
+
+
+# ---- the ragged-row policy: K29 (K8/K24), K30 (K9/K25), K31 (K10/K26) ----
+
+def _banks(gen, shape, fmt, dtype, device):
+    """A float bank in `dtype`, or a one-byte one with its scale."""
+    if fmt is None:
+        return (torch.randn(shape, generator=gen, device=device) / shape[1]**0.5).to(dtype), None
+    return _quant_bank(gen, shape, fmt, device)
+
+
+def _dead_rows(valid, bm):
+    """Rows at or past their block's live count, as a mask over the layout."""
+    rows = torch.arange(valid.numel() * bm, device=valid.device)
+    return rows % bm >= valid.reshape(-1).repeat_interleave(bm)
+
+
+def _ragged_counts(fn):
+    return (fn.launches, fn.scaled_launches, fn.ragged_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"], ids=["float", "int8", "fp8"])
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32)])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_ragged_group_gemm_kernel_matches_plain(cuda, fmt, dtype, out_dtype, bm):
+    """K29 against its plain twin (an expert with no rows, tails of one row
+    and more, the trailing dead blocks; a 256-row block skips its second
+    tile): dead rows exact zeros, live rows bit-equal to K8/K24 on the same
+    inputs, the GELU fused."""
+    n_exp, tokens, k, n = 4, 150, 256, 304
+    g = torch.Generator(device="cuda").manual_seed(bm + k)
+    ids, _ = _moe_routing(g, tokens, n_exp, 2, cuda)
+    ids[ids == 1] = 2  # expert 1 gets no rows
+    ids[0, 0] = 3
+    al = tmu.moe_align_block_size(ids.reshape(-1), n_exp, bm, ragged=True)
+    assert (al.valid_rows == 0).any() and ((al.valid_rows > 0) & (al.valid_rows < bm)).any()
+    a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g, device=cuda).to(dtype)
+    b, scale = _banks(g, (n_exp, k, n), fmt, dtype, cuda)
+    cfg = tgg.GroupGemmConfig(bm, ragged=True)
+    for act_fn in (None, tgg.gelu):
+        before = _ragged_counts(tgg.group_gemm)
+        got = tgg.group_gemm(a, b, al.expert_ids, valid_rows=al.valid_rows, scale=scale,
+                             config=cfg, out_dtype=out_dtype, act_fn=act_fn)
+        padded = tgg.group_gemm(a, b, al.expert_ids, scale=scale,
+                                config=tgg.GroupGemmConfig(bm), out_dtype=out_dtype,
+                                act_fn=act_fn)
+        torch.cuda.synchronize()
+        after = _ragged_counts(tgg.group_gemm)
+        assert after[2] == before[2] + 1 and after[0] + after[1] == before[0] + before[1] + 1
+        want = tgg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act_fn, scale,
+                                     al.valid_rows)
+        dead = _dead_rows(al.valid_rows, bm)
+        assert not got[dead].any()
+        assert torch.equal(got[~dead], padded[~dead])
+        tol = _tol(dtype, want.float()) if fmt is None else _scaled_tol(dtype, want.float())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _all_dead(ral, rank):
+    """`ral` with every block of `rank` dead."""
+    valid = ral.valid_rows.clone()
+    valid[rank] = 0
+    return dataclasses.replace(ral, valid_rows=valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"], ids=["float", "int8", "fp8"])
+def test_ragged_ag_group_gemm_kernel_matches_plain(cuda, world, fmt):
+    """K30 (bf16 slabs) against its plain twin, live rows bit-equal to K9/K25,
+    dead rows zero; then with every block of rank 1 dead: the gathered
+    slabs are still whole (each tile waits for its slab before it skips)."""
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(world + 60)
+    n_exp, topk, bm, m_loc, k, n_loc = 4, 2, 128, 100, 256, 304
+    ids, _ = _moe_routing(g, world * m_loc, n_exp, topk, cuda)
+    ral = tmu.moe_align_ranked(ids.reshape(world, -1), n_exp, bm, m_loc, ragged=True)
+    x = [torch.randn((m_loc, k), generator=g, device=cuda).bfloat16() for _ in range(world)]
+    b, scale = _banks(g, (n_exp, k, n_loc), fmt, torch.bfloat16, cuda)
+    slabs = torch.cat([x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(world)])
+    cfg = tgg.GroupGemmConfig(bm, ragged=True)
+    for al in (ral, _all_dead(ral, 1)):
+        valid = al.valid_rows.reshape(-1)
+        want = tgg._group_gemm_plain(slabs, b, al.expert_ids.reshape(-1), bm, torch.bfloat16,
+                                     None, scale, valid)
+        before = _ragged_counts(taggg.ag_group_gemm_overlap)
+        outs = ctx.run(lambda: taggg.ag_group_gemm_overlap(
+            x[ctx.rank], b, al, ctx=ctx, config=cfg, scale=scale, gather_output=True))
+        padded = ctx.run(lambda: taggg.ag_group_gemm_overlap(x[ctx.rank], b, al, ctx=ctx,
+                                                             scale=scale))
+        after = _ragged_counts(taggg.ag_group_gemm_overlap)
+        assert after[2] == before[2] + world
+        dead = _dead_rows(valid, bm)
+        for (out, ag), pad in zip(outs, padded):
+            assert torch.equal(ag, slabs)
+            assert not out[dead].any() and torch.equal(out[~dead], pad[~dead])
+            tol = _tol(torch.bfloat16, want.float()) if fmt is None else _scaled_tol(
+                torch.bfloat16, want.float())
+            assert (out.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"], ids=["float", "int8", "fp8"])
+def test_ragged_moe_reduce_rs_kernel_matches_k10(cuda, world, fmt):
+    """K31 (bf16) bit-equal to K10/K26 under the alignment's own map (the
+    combine reads only live rows); with every block of rank 1's chunk dead
+    it still finishes (the push and flag go out) and matches its plain
+    twin."""
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(70 + world)
+    n_exp, topk, bm, m_loc, f_loc, h = 4, 2, 128, 100, 256, 528
+    ids, w = _moe_routing(g, world * m_loc, n_exp, topk, cuda)
+    ral = tmu.moe_align_ranked(ids.reshape(world, -1), n_exp, bm, m_loc, ragged=True)
+    dst, w_rows = tmu.ranked_scatter_meta(ral, w)
+    inv = tmu.ranked_combine_rows(ral, m_loc, topk)
+    hs = [torch.randn((world * ral.t_pad_loc, f_loc), generator=g, device=cuda).bfloat16()
+          for _ in range(world)]
+    banks = [_banks(g, (n_exp, f_loc, h), fmt, torch.bfloat16, cuda) for _ in range(world)]
+    cfg = tgg.GroupGemmConfig(bm, ragged=True)
+
+    def run(valid, config):
+        def body():
+            r = ctx.rank
+            wd, sc = banks[r]
+            got = tmrs.moe_reduce_rs_overlap(hs[r], wd, ral.expert_ids, dst, w_rows, ctx=ctx,
+                                             m_out=m_loc, combine_rows=inv, valid_rows=valid,
+                                             config=config, scale=sc)
+            want = tmrs._moe_rs_overlap_xla(hs[r], wd, ral.expert_ids, dst, w_rows, ctx,
+                                            m_loc, torch.bfloat16, sc, valid)
+            return got, want
+        return ctx.run(body)
+
+    before = _ragged_counts(tmrs.moe_reduce_rs_overlap)
+    ragged = run(ral.valid_rows, cfg)
+    assert _ragged_counts(tmrs.moe_reduce_rs_overlap)[2] == before[2] + world
+    padded = run(None, tgg.GroupGemmConfig(bm))
+    for (got, _), (pad, _) in zip(ragged, padded):
+        assert torch.equal(got, pad)
+    for got, want in run(_all_dead(ral, 1).valid_rows, cfg):
+        tol = 2 * (_tol(torch.bfloat16, want.float()) if fmt is None else _scaled_tol(
+            torch.bfloat16, want.float()))
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_ragged_ag_group_gemm_stuck_wait_raises_with_its_record(cuda):
+    """K30 with every block of rank 1 dead and rank 1's stream held 2 s:
+    rank 0 still waits for rank 1 (its entry barrier, then the slab) and
+    the run raises with records naming rank 1 — it does not hang, and it
+    does not finish before the slab it skips has landed."""
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    ids, _ = _moe_routing(g, 32, 4, 2, cuda)
+    ral = _all_dead(tmu.moe_align_ranked(ids.reshape(2, -1), 4, 128, 16, ragged=True), 1)
+    x = torch.randn((16, 64), generator=g, device=cuda)
+    b = torch.randn((4, 64, 32), generator=g, device=cuda)
+    cfg = tgg.GroupGemmConfig(128, ragged=True)
+
+    def call():
+        return taggg.ag_group_gemm_overlap(x, b, ral, ctx=ctx, config=cfg)
+
+    ctx.run(call)  # the workspace and flags exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return call()
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    recs = err.value.records
+    assert recs and all(r["pe"] == 0 and r["family"] == "ag_group_gemm" for r in recs)
+    assert {r["site"] for r in recs} <= {1, 2 + 1} and all("rank 1" in r["waits_for"]
+                                                          for r in recs)
+
+
+@pytest.mark.cuda
+def test_ragged_ep_moe_mlp_on_the_card_matches_the_cpu(cuda):
+    """``EPMoEMLP`` at world 4 on the card with a ragged config (K27, K29)
+    against the same layer on the CPU, f32, within 1e-5 of the output's
+    scale; fewer rows computed than the layout holds."""
+    world, m_loc, hid, ffn, n_exp, topk = 4, 48, 256, 512, 8, 2
+    g = np.random.default_rng(72)
+    x = torch.from_numpy(g.standard_normal((world * m_loc, hid)).astype(np.float32))
+    w_up = torch.from_numpy((g.standard_normal((n_exp, hid, ffn)) / 16).astype(np.float32))
+    w_down = torch.from_numpy((g.standard_normal((n_exp, ffn, hid)) / 22).astype(np.float32))
+    ids = torch.from_numpy(np.argsort(g.random((world * m_loc, n_exp)), 1)[:, :topk]
+                           .astype(np.int32))
+    tw = torch.softmax(torch.from_numpy(g.standard_normal((world * m_loc, topk))
+                                        .astype(np.float32)), -1)
+    epr = n_exp // world
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ctx = initialize_distributed(world, device=dev)
+        tepmlp.EPMoEMLP.rows, tepmlp.EPMoEMLP.live_rows = 0, {}
+
+        def body():
+            r = ctx.rank
+            rows, ex = slice(r * m_loc, (r + 1) * m_loc), slice(r * epr, (r + 1) * epr)
+            layer = tepmlp.EPMoEMLP(n_exp, topk, m_loc * topk, ctx,
+                                    gg_config=tgg.GroupGemmConfig(128, ragged=True))
+            return layer(*(t.to(dev) for t in (x[rows], w_up[ex], w_down[ex], ids[rows],
+                                               tw[rows]))).cpu()
+
+        before = tgg.group_gemm.ragged_launches
+        outs[dev] = torch.cat(ctx.run(body))
+        if dev == "cuda":
+            assert tgg.group_gemm.ragged_launches == before + 2 * world
+            assert 0 < tepmlp.EPMoEMLP.live_row_count() < tepmlp.EPMoEMLP.rows
     scale = outs["cpu"].abs().max().item()
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-5 * scale

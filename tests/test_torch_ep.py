@@ -513,8 +513,9 @@ def test_ep_serving_engine_matches_tp(ep, case):
 
 def test_ep_presets_and_refusals(ep):
     """``:ep`` builds the EP config; hierarchical EP refuses naming A5 (the
-    preset, the config field, the layers); ragged alignment, decode rows
-    that do not divide over the ranks and EP training refuse too."""
+    preset, the config field, the layers); training with ragged rows (its
+    dW is not ported), decode rows that do not divide over the ranks and
+    EP training refuse too."""
     cfg = tpresets.preset("mixtral-8x7b:ep", n_layers=8, batch=8)
     assert isinstance(cfg, ttm.EPMoETransformerConfig)
     assert (cfg.hidden, cfg.ffn, cfg.n_experts, cfg.topk, cfg.ep_max_m, cfg.ep_quant) == (
@@ -530,16 +531,15 @@ def test_ep_presets_and_refusals(ep):
     with pytest.raises(ValueError, match="quant"):
         ttm.EPMoETransformerConfig(**DIMS, ep_quant="int4")
     _, _, tcfg, tparams = ep
-    layer = tlayer.EPAll2AllLayer(E, TOPK, 4)
-    _, info = layer.dispatch(torch.zeros((2, HID)), torch.zeros((2, TOPK), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="B16"):
-        layer.receiver_alignment(info, BM, ragged=True)
+    tokens = torch.zeros(DIMS["batch"] * DIMS["seq"], dtype=torch.long)
+    params = ttm.init_moe_params(tcfg, seed=1, device="cpu")
+    ragged = dataclasses.replace(tcfg, gg_config=tgg.GroupGemmConfig(BM, ragged=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
+        ttm.train_step(ttm.EPMoETransformer(ragged), params, tokens, tokens, lr=0.1)
     ctx = initialize_distributed(WORLD, device="cpu")
     shards = ttm.shard_params(tparams, WORLD, cfg=tcfg)
     x = torch.zeros((6, HID))
     with pytest.raises(ValueError, match="divide evenly"):
         ctx.run(lambda: tdec._decode_mlp(tcfg, x, shards[ctx.rank]["layers"][0], ctx))
-    tokens = torch.zeros(DIMS["batch"] * DIMS["seq"], dtype=torch.long)
-    params = ttm.init_moe_params(tcfg, seed=1, device="cpu")
     with pytest.raises(NotImplementedError, match="EP training"):
         ttm.train_step(ttm.EPMoETransformer(tcfg), params, tokens, tokens, lr=0.1)

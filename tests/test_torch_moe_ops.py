@@ -153,16 +153,18 @@ def test_group_gemm_plain_matches_xla(act, out_dtype):
 
 def test_group_gemm_refuses_what_is_not_ported():
     a, b, e = torch.zeros(8, 4), torch.zeros(2, 4, 4), torch.zeros(1, dtype=torch.int32)
-    for cfg, item in ((tgg.GroupGemmConfig(8, ragged=True), "ragged"),
-                      (tgg.GroupGemmConfig(8, backend="ragged_dot"), "ragged_dot"),
+    for cfg, item in ((tgg.GroupGemmConfig(8, backend="ragged_dot"), "ragged_dot"),
                       (tgg.GroupGemmConfig(8, chunks_per_shard=2), "chunked"),
                       (tgg.GroupGemmConfig(8, span_policy="window"), "span")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP B1[678].*{item}"):
             tgg.group_gemm(a, b, e, config=cfg)
+    # ragged rows are served; their weight gradient is not ported
+    with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
+        tgg.group_gemm_dw(a, a, e, 2, config=tgg.GroupGemmConfig(8, ragged=True))
     with pytest.raises(ValueError, match="block_m"):
         tgg.group_gemm(a, b, e, config=tgg.GroupGemmConfig(4))
-    with pytest.raises(NotImplementedError, match="ragged"):
-        tmu.moe_align_block_size(torch.zeros(4, dtype=torch.int32), 2, 4, ragged=True)
+    with pytest.raises(ValueError, match="valid_rows"):
+        tgg.group_gemm(a, b, e, config=tgg.GroupGemmConfig(8, ragged=True))
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -520,8 +520,10 @@ def test_scaled_contracts_are_loud(moe):
     with pytest.raises(ValueError, match="int8/fp8 pools"):
         tmlp.tp_moe_mlp(x, b, torch.randn(E, 16, HID), ids, tw,
                         gg_config=tgg.GroupGemmConfig(BM), w_up_scale=s, w_down_scale=sd)
-    # the formats that stay unported keep their queue ids
-    with pytest.raises(NotImplementedError, match="B16, ragged"):
+    # ragged rows serve the scaled formats; their backward keeps its queue id
+    with pytest.raises(NotImplementedError, match="B16, ragged dW"):
+        tgg.group_gemm_dw(a, a, e, E, config=tgg.GroupGemmConfig(BM, ragged=True, w8=True))
+    with pytest.raises(ValueError, match="valid_rows"):
         tgg.group_gemm(a, q, e, scale=s, config=tgg.GroupGemmConfig(BM, ragged=True))
     with pytest.raises(ValueError, match="fmt"):
         ttm.quantize_moe_serving_params(tparams, fmt="int4")

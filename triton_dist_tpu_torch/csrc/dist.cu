@@ -23,6 +23,15 @@
 //                                         launched at ops/moe_reduce_rs.py:236
 //                                         (its grouped GEMMs are K8,
 //                                         csrc/group_gemm.cu)
+//   K30 K9/K25 under the ragged-row     ≙ ops/gg_pipeline.py:288 with
+//       policy (a valid_rows map)         ragged=True (_ragged_block_emit,
+//                                         :218), launched at
+//                                         ops/allgather_group_gemm.py:235
+//   K31 K10/K26 under the ragged-row    ≙ ops/gg_pipeline.py:576 with
+//       policy                            ragged=True (_moe_ragged_blk,
+//                                         :253), launched at
+//                                         ops/moe_reduce_rs.py:236 (its
+//                                         grouped GEMMs are K29)
 //   K26 the same, int8 / fp8 W_down     ≙ the same kernel under
 //                                         OperandFormat.scaled: its grouped
 //                                         GEMMs are K24, whose store folds
@@ -73,7 +82,17 @@
 // K6 walks shards in arrival order (me, me-1, ...), as the TPU ring does,
 // and waits on a shard's flag before the first of its tiles; K9 is the same
 // consumer over a gathered workspace of expert-sorted slabs, each M tile
-// multiplying the expert bank its row block names. K7 runs its own chunk's
+// multiplying the expert bank its row block names. K30 is K9 with the
+// ragged map: a tile at or past its block's live count stores zeros and
+// skips the mainloop, and a live tile's rows past the count store zeros.
+// The shard wait stays before that test, so a block that holds only dead
+// tiles of a shard still waits for it: the kernel never ends before every
+// slab has landed (the gathered output is whole, and the next call's
+// entry barrier cannot overtake a put still in flight). K31 is K10 with
+// K29 as each destination's grouped GEMM: the combine reads only the rows
+// of real assignments, which are live rows, so its output is K10's bit for
+// bit, and every destination's push and flag are raised as before, even
+// one whose blocks are all dead. K7 runs its own chunk's
 // k loop first and waits for the landed chunks only before the epilogue
 // that adds them. K10 is three steps per destination c (own chunk last):
 // K8 computes c's aligned rows into a private f32 buffer, the combine
@@ -169,17 +188,27 @@ __global__ void __launch_bounds__(E::THREADS, 1)
     }
     __syncthreads();  // the previous tile's last reads of shared memory
     const int m0 = (r / tiles_n) * E::BM, n0 = (r % tiles_n) * E::BN;
+    TOut* out_c = out + (size_t)c * m_loc * n;
     size_t b_off = 0;
     const float* srow = nullptr;
+    int live_end = ALL_ROWS;
     if constexpr (GROUPED) {
       Groups gc = g;
-      gc.ids += c * (m_loc / g.block_m);
+      const int shard_blocks = m_loc / g.block_m;
+      gc.ids += c * shard_blocks;
+      if (gc.valid) gc.valid += c * shard_blocks;
+      const int live = gc.live_rows(m0);
+      if (live <= 0) {  // K30: a dead tile, after its shard's wait above
+        store_zero_tile<E::BM, E::BN, E::THREADS>(out_c, m_loc, n, m0, n0);
+        continue;
+      }
+      live_end = m0 + live;
       b_off = gc.b_offset(m0, k, n);
       srow = gc.scale_row(scale, m0, n);
     }
     typename E::Acc acc;
     E::mainloop(ws + (size_t)c * m_loc * k, b + b_off, m_loc, n, k, m0, n0, vec, acc);
-    E::template store<false>(acc, out + (size_t)c * m_loc * n, m_loc, n, m0, n0, none, srow);
+    E::template store<false>(acc, out_c, m_loc, n, m0, n0, none, srow, live_end);
   }
 }
 
@@ -427,7 +456,7 @@ extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, in
                                     int jitter, void* diag, long long timeout_ns, int family,
                                     void* stream) {
   if (world < 2 || world > MAX_WORLD) return static_cast<int>(cudaErrorInvalidValue);
-  const Groups none = {nullptr, 1, 1};
+  const Groups none = {nullptr, 1, 1, nullptr};
   cudaError_t err = launch_ag_consumer<false>(
       ws, b, nullptr, out, m_loc, n, k, in_dtype, in_dtype, out_dtype, world, me, flags, epoch,
       max_blocks, wait_ctx(diag, timeout_ns, me, family), none, jitter,
@@ -441,9 +470,11 @@ extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, in
 // [world * t_pad_loc, n]; block_m a multiple of 128 dividing t_pad_loc. K25:
 // b int8 / fp8 e4m3 (b_dtype) with its f32 scale bank [n_exp, 1, n] (n a
 // multiple of 16, b 16-byte aligned); otherwise b in the slabs' type and
-// scale null.
+// scale null. K30: valid_rows int32 [world, t_pad_loc / block_m], each
+// block's live rows (null: padded).
 extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b, const void* scale,
-                                          const void* expert_ids, void* out, int t_pad_loc,
+                                          const void* expert_ids, const void* valid_rows,
+                                          void* out, int t_pad_loc,
                                           int n, int k, int n_exp, int block_m, int in_dtype,
                                           int b_dtype, int out_dtype, int world, int me,
                                           const void* flags, int epoch, int max_blocks,
@@ -454,7 +485,8 @@ extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b, const v
       t_pad_loc % block_m != 0 || n_exp < 1 || scaled != (scale != nullptr) ||
       (scaled && !byte_b_ok(b, n)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp};
+  const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp,
+                    static_cast<const int*>(valid_rows)};
   cudaError_t err = launch_ag_consumer<true>(
       ws, b, static_cast<const float*>(scale), out, t_pad_loc, n, k, in_dtype, b_dtype,
       out_dtype, world, me, flags, epoch, max_blocks, wait_ctx(diag, timeout_ns, me, family), g,

@@ -17,6 +17,13 @@
 // activation of the grouped GEMM (csrc/group_gemm.cu). Groups selects the
 // B operand of an M tile by its row block's expert (the grouped GEMMs).
 //
+// The ragged-row policy (K29-K31; triton_dist_tpu/ops/gg_pipeline.py:110-152):
+// Groups may carry the per-block live-row map `valid`. A tile whose first
+// row lies at or past its block's live count is dead: the kernel stores it
+// as zeros (store_zero_tile) and reads no B. A live tile runs the unchanged
+// mainloop, and `store` writes rows at or past `live_end` as zeros, after
+// the scale fold, so its live rows are the padded kernel's bit for bit.
+//
 // The scaled weight formats (K24-K26; triton_dist_tpu/ops/gg_pipeline.py:43
 // OperandFormat): B may be int8 or fp8 e4m3 (TB of one byte) under A of
 // either type. B is upcast to A's type before the product (OperandFormat.
@@ -76,6 +83,21 @@ template <typename T> struct AddList {
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// `store`'s live_end when every row of the tile is live
+constexpr int ALL_ROWS = 0x7fffffff;
+
+// A dead tile of the ragged policy: C[m0:m0+BM, n0:n0+BN] (inside [m, n])
+// written as zeros, neighbouring threads on neighbouring columns.
+template <int BM, int BN, int THREADS, typename TOut>
+__device__ __forceinline__ void store_zero_tile(TOut* __restrict__ c, int m, int n, int m0,
+                                                int n0) {
+  const TOut zero = from_f32<TOut>(0.f);
+  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+    const int rr = m0 + i / BN, cc = n0 + i % BN;
+    if (rr < m && cc < n) c[(size_t)rr * n + cc] = zero;
+  }
+}
+
 // The tanh form of GELU (jax.nn.gelu's default, torch's approximate="tanh"),
 // in torch's operation order.
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -95,6 +117,13 @@ struct Groups {
   const int* ids;
   int block_m;
   int n_exp;
+  const int* valid;  // [blocks] live rows of each block, or null: all live
+
+  // rows of the tile at m0 that lie before its block's live count (<= 0:
+  // the tile is dead); the rest of the block without a map
+  __device__ __forceinline__ int live_rows(int m0) const {
+    return (valid ? valid[m0 / block_m] : block_m) - m0 % block_m;
+  }
 
   __device__ __forceinline__ int expert(int m0) const {
     const int e = ids[m0 / block_m];
@@ -350,12 +379,14 @@ struct Bf16Engine {
   }
 
   // epilogue: thread holds rows lane/4 and lane/4 + 8, columns 2*(lane%4)
-  // and +1, of each m16n8 tile; the ragged edge is masked
+  // and +1, of each m16n8 tile; the ragged edge is masked, rows at or past
+  // live_end are written as zeros
   template <bool ADDS, typename TOut>
   __device__ static __forceinline__ void store(const Acc& acc, TOut* __restrict__ c, int m,
                                                int n, int m0, int n0,
                                                const AddList<TOut>& adds,
-                                               const float* scale = nullptr) {
+                                               const float* scale = nullptr,
+                                               int live_end = ALL_ROWS) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int wm = warp / (BN / WN), wn = warp % (BN / WN);
 #pragma unroll
@@ -367,7 +398,10 @@ struct Bf16Engine {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int rr = r + (e / 2) * 8, cc = col + e % 2;
-          if (rr < m && cc < n) store_elem<ADDS>(c, n, rr, cc, acc.v[i][j][e], adds, scale);
+          if (rr < m && cc < n) {
+            if (rr < live_end) store_elem<ADDS>(c, n, rr, cc, acc.v[i][j][e], adds, scale);
+            else c[(size_t)rr * n + cc] = from_f32<TOut>(0.f);
+          }
         }
       }
     }
@@ -427,7 +461,8 @@ struct F32Engine {
   __device__ static __forceinline__ void store(const Acc& acc, TOut* __restrict__ c, int m,
                                                int n, int m0, int n0,
                                                const AddList<TOut>& adds,
-                                               const float* scale = nullptr) {
+                                               const float* scale = nullptr,
+                                               int live_end = ALL_ROWS) {
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -435,7 +470,10 @@ struct F32Engine {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + tx * 4 + j;
-        if (r < m && col < n) store_elem<ADDS>(c, n, r, col, acc.v[i][j], adds, scale);
+        if (r < m && col < n) {
+          if (r < live_end) store_elem<ADDS>(c, n, r, col, acc.v[i][j], adds, scale);
+          else c[(size_t)r * n + col] = from_f32<TOut>(0.f);
+        }
       }
     }
   }

@@ -44,6 +44,27 @@
 // before anything downstream (the combine weights of K10/K26). Tensor-core
 // fp8 math with a quantized A, wgmma and TMA are later work.
 
+// K29 · K8/K24 under the ragged-row policy (tdt_group_gemm with a
+// valid_rows map, bf16 / f32 A over a bank of its type, int8 or fp8):
+//   out[i*bm + r] = r < valid[i] ? (act?(A_i) . B[e_i] (* scale[e_i]))[r] : 0
+// Replaces gg_pipeline.py:87 make_group_gemm_kernel with ragged=True (the
+// panel-guarded dots and the masked store, :110-152), launched by
+// triton_dist_tpu/ops/group_gemm.py:299 with its valid_rows map.
+//
+// What bounds it: the live rows' products (operations, as K8) plus the
+// zeros of the dead rows written once (bytes); a dead tile's CTA reads one
+// int of the map and exits after its stores.
+//
+// What the design does about it: the grid keeps every 128-row tile of the
+// padded layout (t_pad / 128 row tiles, no host sync to size it), and
+// each CTA reads its block's live count first. A tile at or past it
+// (gemm_core.cuh Groups::live_rows <= 0) writes zeros and returns without
+// reading A or B, which is the TPU kernel's skipped panel (its panel is 128
+// rows at bm >= 128, _panel_for). A live tile runs K8's mainloop unchanged,
+// so its live rows are bit-equal to K8/K24's; the store writes the rows
+// past the live count as zeros after the scale fold. The f32 engine's
+// 64-row tiles skip at 64 rows and give the same output.
+
 // K11 · the grouped-GEMM weight gradient (tdt_group_gemm_dw):
 //   dW[e] = sum over the row blocks i with expert_ids[i] == e of A_i^T . G_i
 // a_sorted [t_pad, k] and g_sorted [t_pad, n] in one type (bf16 or f32),
@@ -84,10 +105,16 @@ __global__ void __launch_bounds__(E::THREADS, 1)
                       const float* __restrict__ scale, TOut* __restrict__ c, int m, int n,
                       int k, int vec, Groups g) {
   const int m0 = blockIdx.y * E::BM, n0 = blockIdx.x * E::BN;
+  const int live = g.live_rows(m0);
+  if (live <= 0) {  // K29: a dead tile reads the map once, no A and no B
+    store_zero_tile<E::BM, E::BN, E::THREADS>(c, m, n, m0, n0);
+    return;
+  }
   const AddList<TOut> none = {};
   typename E::Acc acc;
   E::template mainloop<ACT>(a, b + g.b_offset(m0, k, n), m, n, k, m0, n0, vec, acc);
-  E::template store<false>(acc, c, m, n, m0, n0, none, g.scale_row(scale, m0, n));
+  E::template store<false>(acc, c, m, n, m0, n0, none, g.scale_row(scale, m0, n),
+                           m0 + live);
 }
 
 template <class E, typename TB, typename TOut, bool ACT>
@@ -368,17 +395,19 @@ extern "C" int tdt_group_gemm_dw(const void* a, const void* g, const void* exper
 // block_m a multiple of 128 that divides m; act 1 = tanh GELU on A. b is in
 // A's type (b_dtype == in_dtype, scale null: K8) or int8 / fp8 e4m3 with
 // its f32 scale bank [n_exp, 1, n] (K24; n a multiple of 16, b 16-byte
-// aligned).
+// aligned). valid_rows: null (padded), or int32 [m / block_m], each block's
+// live rows (K29, any of the formats).
 extern "C" int tdt_group_gemm(const void* a, const void* b, const void* scale,
-                              const void* expert_ids, void* c, int m, int n, int k, int n_exp,
-                              int block_m, int in_dtype, int b_dtype, int out_dtype, int act,
-                              void* stream) {
+                              const void* expert_ids, const void* valid_rows, void* c, int m,
+                              int n, int k, int n_exp, int block_m, int in_dtype, int b_dtype,
+                              int out_dtype, int act, void* stream) {
   const bool scaled = b_dtype == kI8 || b_dtype == kFP8;
   if (block_m <= 0 || block_m % 128 != 0 || m % block_m != 0 || n_exp < 1 ||
       scaled != (scale != nullptr) || (scaled && !byte_b_ok(b, n)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp};
+  const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp,
+                    static_cast<const int*>(valid_rows)};
   const float* sc = static_cast<const float*>(scale);
   cudaError_t err = dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
     using E = decltype(e);

@@ -170,7 +170,9 @@ class EPAll2AllLayer:
                            ragged: bool = False) -> MoEAlignment:
         """Block-align the received rows by local expert for the grouped
         GEMMs; padding rows go to a virtual trailing expert whose blocks
-        compute on the clamped last expert, and the combine drops them."""
+        compute on the clamped last expert, and the combine drops them.
+        ``ragged`` adds the ``valid_rows`` map, with the virtual expert's
+        blocks dead (0 live rows), so the ragged GEMMs skip them."""
         return _align_received(info.recv_expert, info.recv_splits, self.max_m, self._epr(),
                                block_m, ragged=ragged)
 
@@ -209,11 +211,15 @@ def _align_received(recv_expert, recv_splits, max_m: int, epr: int, block_m: int
                     ragged: bool = False) -> MoEAlignment:
     """Receiver-side block alignment (≙ ``_align_received``): the rows past
     a slab's count go to the virtual expert ``epr``, whose blocks keep the
-    clamped id ``epr - 1``."""
+    clamped id ``epr - 1``; with `ragged` their live rows are 0
+    (``:597-600``)."""
     flat = recv_expert.reshape(-1)
     idx = torch.arange(flat.shape[0], device=flat.device)
     valid = idx % max_m < recv_splits.long()[idx // max_m]
     al = moe_align_block_size(torch.where(valid, flat, epr), epr + 1, block_m, ragged=ragged)
+    valid_rows = None
+    if ragged:
+        valid_rows = torch.where(al.expert_ids >= epr, 0, al.valid_rows).to(torch.int32)
     return MoEAlignment(sorted_token_ids=al.sorted_token_ids,
                         expert_ids=torch.clamp(al.expert_ids, max=epr - 1),
-                        num_tokens_post_pad=al.num_tokens_post_pad)
+                        num_tokens_post_pad=al.num_tokens_post_pad, valid_rows=valid_rows)

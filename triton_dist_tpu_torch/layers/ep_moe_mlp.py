@@ -6,10 +6,15 @@ them: dispatch over the all-to-all (``EPAll2AllLayer``, K27/K28), the
 local grouped GEMMs on the block-aligned received rows (K8, or K24 over
 int8 / fp8 banks, with the GELU fused into the down-projection's A), the
 rows back into the slab layout, and the combine (the all-to-all in
-reverse and the top-k weighted sum). The padded contract of the JAX
-package holds: every slab row runs through the GEMMs, the padding rows on
-the clamped last expert, and the combine drops them. The class counters
-``rows`` (grouped-GEMM rows, the padded ``t_pad`` a call) and
+reverse and the top-k weighted sum). Under the padded contract of the JAX
+package every slab row runs through the GEMMs, the padding rows on the
+clamped last expert, and the combine drops them. ``gg_config.ragged``
+(≙ ``:174-185``) gives the alignment its ``valid_rows`` map, in which the
+virtual padding expert's blocks are dead, and both grouped GEMMs (K29)
+skip every dead 128-row tile. The class counters ``rows`` (grouped-GEMM
+rows of the layout, the padded ``t_pad`` a call), ``live_rows`` (the rows
+of the 128-row tiles the GEMMs compute: ``rows`` when padded, the live
+tiles' rows when ragged; a block below 128 rows is its own tile) and
 ``assignments`` (the (token, k) pairs a call dispatches) measure how much
 of that work is padding.
 
@@ -28,13 +33,15 @@ from triton_dist_tpu_torch import config
 from triton_dist_tpu_torch.layers.ep_a2a_layer import EPAll2AllLayer, HierEPAll2AllLayer
 from triton_dist_tpu_torch.ops.all_to_all import A2AConfig
 from triton_dist_tpu_torch.ops.group_gemm import (
+    TILE_M,
     GroupGemmConfig,
     check_config,
     gelu,
     group_gemm,
     quantize_expert_weights,
 )
-from triton_dist_tpu_torch.utils import axis_size, count_launch
+from triton_dist_tpu_torch.ops.moe_utils import live_tile_rows
+from triton_dist_tpu_torch.utils import axis_index, axis_size, count_launch, count_rows, tally
 
 
 def _overflow_message(ov: int) -> str:
@@ -59,8 +66,17 @@ class EPMoEMLP(torch.nn.Module):
     slab capacity; ``quant`` the one-byte dispatch wire; ``gg_config`` the
     grouped GEMMs' (``w8`` quantizes float banks here, once a call)."""
 
-    rows = 0         # grouped-GEMM rows run (both GEMMs run the same rows)
+    rows = 0         # grouped-GEMM rows of the layout (both GEMMs run the same rows)
     assignments = 0  # (token, k) assignments dispatched
+    # rank -> rows of the 128-row tiles computed: a device scalar under the
+    # ragged map, read once after a serve (live_row_count): no host sync
+    live_rows: dict = {}
+
+    @classmethod
+    def live_row_count(cls) -> int:
+        """Every rank's ``live_rows``, summed (a sync: read it after the
+        work it counts)."""
+        return tally(cls.live_rows)
 
     def __init__(self, n_experts: int, topk: int, max_m: int, ctx=None, *,
                  outer: str | None = None, inner: str | None = None,
@@ -95,14 +111,15 @@ class EPMoEMLP(torch.nn.Module):
             w_down, w_down_scale = quantize_expert_weights(w_down)
         m_loc, hidden = x.shape
         recv, info = layer.dispatch(x, topk_ids)
-        al = layer.receiver_alignment(info, cfg.block_m)
+        al = layer.receiver_alignment(info, cfg.block_m, ragged=cfg.ragged)
         rows = recv.reshape(-1, hidden)
         r_cap = rows.shape[0]
         ids = al.sorted_token_ids.long()
         a_sorted = rows[torch.clamp(ids, max=r_cap - 1)]
-        h1 = group_gemm(a_sorted, w_up, al.expert_ids, scale=w_up_scale, config=cfg)
-        y_sorted = group_gemm(h1, w_down, al.expert_ids, scale=w_down_scale, config=cfg,
-                              act_fn=gelu)
+        h1 = group_gemm(a_sorted, w_up, al.expert_ids, valid_rows=al.valid_rows,
+                        scale=w_up_scale, config=cfg)
+        y_sorted = group_gemm(h1, w_down, al.expert_ids, valid_rows=al.valid_rows,
+                              scale=w_down_scale, config=cfg, act_fn=gelu)
         # back to the received slab layout; the sentinel rows land in a scratch row
         y = torch.zeros((r_cap + 1, y_sorted.shape[1]), dtype=x.dtype, device=x.device)
         y[ids] = y_sorted.to(x.dtype)
@@ -110,6 +127,9 @@ class EPMoEMLP(torch.nn.Module):
                             topk_weights, m_loc).to(x.dtype)
         count_launch(EPMoEMLP, "rows", ids.shape[0])
         count_launch(EPMoEMLP, "assignments", topk_ids.numel())
+        live = ids.shape[0] if al.valid_rows is None else live_tile_rows(
+            al.valid_rows, cfg.block_m, TILE_M)
+        count_rows(EPMoEMLP, "live_rows", axis_index(self.ctx), live)
         if config.debug_ep_overflow:
             ov = int(info.overflow)  # a host sync: debug runs only
             if ov > 0:

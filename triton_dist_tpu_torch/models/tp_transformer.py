@@ -59,6 +59,7 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     check_config,
     quantize_expert_weights,
     quantize_expert_weights_fp8,
+    refuse_ragged_backward,
 )
 from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
 from triton_dist_tpu_torch.ops.moe_utils import select_experts
@@ -578,7 +579,9 @@ def train_step(
     Gradient accounting as in the JAX package (:func:`_loss_and_grads`).
     ``skip_nonfinite`` gates the update on ``grads_all_finite`` over the
     gradients and the loss on every rank: a dropped step returns the
-    parameters bit for bit."""
+    parameters bit for bit. A ragged ``gg_config`` refuses before any step
+    runs: the ragged backward is not ported (ROADMAP B16, ragged dW)."""
+    refuse_ragged_backward(check_config(getattr(model.cfg, "gg_config", None)))
     if dp_axis is not None:
         raise NotImplementedError(
             "train_step dp_axis: the data-parallel axis (a 2-D DistContext) is not "

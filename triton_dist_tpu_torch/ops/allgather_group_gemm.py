@@ -30,6 +30,12 @@ fp8 e4m3 pool, or ``config.w8``/``.fp8``, which quantizes a float bank at
 the op boundary (``group_gemm.resolve_w8``): the grouped GEMM is then K24
 and the overlapped consumer K25, K9 over one-byte weight slabs with the
 scale row folded per tile.
+
+Both take ``config.ragged`` (the ragged-row policy): the sequential entry
+aligns with the ``valid_rows`` map and runs K29; the overlapped one reads
+``ral.valid_rows`` (``moe_align_ranked(..., ragged=True)``) and runs K30,
+K9 whose tiles at or past their block's live count store zeros and skip
+the mainloop (each after its slab's wait, so every slab still lands).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     check_group_operands,
     check_scale,
     group_gemm,
+    launch_key,
     resolve_w8,
     weight_code,
 )
@@ -76,14 +83,18 @@ def ag_group_gemm(
     with `gather_output` also the block-aligned rows ``a_sorted [t_pad,
     K]`` the GEMM read (the backward's residual). The tokens are gathered
     with ``all_gather(method=ag_method)`` (``:101``). ``scale`` marks `b`
-    as an int8/fp8 pool (``:107-111``)."""
+    as an int8/fp8 pool (``:107-111``); ``config.ragged`` builds the
+    alignment's ``valid_rows`` map and hands it to the grouped GEMM (K29,
+    ``:104-110``)."""
     cfg = check_config(config)
     topk = topk_ids.shape[1]
     a_full = all_gather(a, ctx=ctx, method=ag_method)
     ids_full = topk_ids if axis_size(ctx) == 1 else ctx.all_gather(topk_ids, 0)
-    alignment = moe_align_block_size(ids_full.reshape(-1), b.shape[0], cfg.block_m)
+    alignment = moe_align_block_size(ids_full.reshape(-1), b.shape[0], cfg.block_m,
+                                     ragged=cfg.ragged)
     a_sorted = gather_sorted_rows(a_full, alignment, topk)
-    h_sorted = group_gemm(a_sorted, b, alignment.expert_ids, scale=scale, config=cfg)
+    h_sorted = group_gemm(a_sorted, b, alignment.expert_ids, valid_rows=alignment.valid_rows,
+                          scale=scale, config=cfg)
     return (h_sorted, alignment, a_sorted) if gather_output else (h_sorted, alignment)
 
 
@@ -95,14 +106,17 @@ def presort_local_rows(a: torch.Tensor, ral: RankedAlignment, ctx=None) -> torch
     return a[(ral.src_rows[me] - me * a.shape[0]).long()]
 
 
-def _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype, scale=None):
+def _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype, scale=None,
+                    ragged=False):
     """Plain version (≙ ``_ag_overlap_xla``, ``:140``): gather the sorted
     slabs on the host rendezvous, then the plain grouped GEMM over the
-    rank-major layout."""
+    rank-major layout; with `ragged`, its dead rows zero
+    (``ral.valid_rows``)."""
     count_call(_ag_overlap_xla)
     ag = ctx.all_gather(a_srt, 0)
+    valid = ral.valid_rows.reshape(-1) if ragged else None
     out = _group_gemm_plain(ag, b, ral.expert_ids.reshape(-1), ral.block_m, out_dtype, None,
-                            scale)
+                            scale, valid)
     return (out, ag) if gather_output else out
 
 
@@ -127,45 +141,56 @@ def ag_group_gemm_overlap(
     sorted slabs ``[n * t_pad_loc, K]`` with `gather_output`). World 1 is
     the grouped GEMM (K8) over the pre-sorted slab. ``scale`` (``[E, 1,
     n_loc]``) marks `b` as an int8/fp8 pool (K25; K24 at world 1), as does
-    ``config.w8``/``.fp8`` over this rank's float shard (``:295-351``)."""
+    ``config.w8``/``.fp8`` over this rank's float shard (``:295-351``).
+    ``config.ragged`` needs ``ral.valid_rows`` and takes K30 (K29 at world
+    1)."""
     cfg = check_config(config)
     out_dtype = out_dtype or a.dtype
     if ral.block_m != cfg.block_m:
         raise ValueError(f"alignment block {ral.block_m} != config.block_m {cfg.block_m}")
+    if cfg.ragged and ral.valid_rows is None:
+        raise ValueError("GroupGemmConfig.ragged needs a ragged RankedAlignment — build it "
+                         "with moe_align_ranked(..., ragged=True)")
+    valid = ral.valid_rows if cfg.ragged else None
     b, scale = resolve_w8(b, scale, cfg)
     check_scale(b, scale, "ag_group_gemm_overlap")
     a_srt = presort_local_rows(a, ral, ctx)
     if axis_size(ctx) == 1:
-        h = group_gemm(a_srt, b, ral.expert_ids[0], scale=scale, config=cfg,
-                       out_dtype=out_dtype)
+        h = group_gemm(a_srt, b, ral.expert_ids[0], valid_rows=None if valid is None else
+                       valid[0], scale=scale, config=cfg, out_dtype=out_dtype)
         return (h, a_srt) if gather_output else h
     if a.device.type == "cpu":
-        return _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype, scale)
-    return _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype, scale)
+        return _ag_overlap_xla(a_srt, b, ral, ctx, gather_output, out_dtype, scale,
+                               cfg.ragged)
+    return _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype, scale, valid)
 
 
 ag_group_gemm_overlap.launches = 0         # K9
 ag_group_gemm_overlap.scaled_launches = 0  # K25
+ag_group_gemm_overlap.ragged_launches = 0  # K30, all three formats
 
 
-def _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype, scale):
+def _ag_overlap_fused(a_srt, b, ral, ctx, gather_output, out_dtype, scale, valid):
     n, me = ctx.world, ctx.rank
     ids = ral.expert_ids
     bm = check_group_operands(a_srt, b, ids[me], out_dtype, None, "ag_group_gemm_overlap",
-                              scale)
+                              scale, None if valid is None else valid[me])
+    if valid is not None and not valid.is_contiguous():
+        raise ValueError("ag_group_gemm_overlap: ral.valid_rows must be contiguous")
     t_pad_loc, k = a_srt.shape
     n_exp, _, n_loc = b.shape
     out = torch.empty((n * t_pad_loc, n_loc), dtype=out_dtype, device=a_srt.device)
     launch, gathered, flags = push_shards(ctx, a_srt, "ag_group_gemm")
     rc = launch.lib.tdt_ag_group_gemm_consumer(
         gathered.data_ptr(), b.data_ptr(), None if scale is None else scale.data_ptr(),
-        ids.data_ptr(), out.data_ptr(), t_pad_loc, n_loc, k, n_exp, bm,
+        ids.data_ptr(), None if valid is None else valid.data_ptr(), out.data_ptr(),
+        t_pad_loc, n_loc, k, n_exp, bm,
         DTYPE_CODE[a_srt.dtype], weight_code(a_srt, b), DTYPE_CODE[out_dtype], n, me, flags,
         launch.epoch, max_consumer_blocks(ctx), *launch.wait,
         stream_ptr(torch.cuda.current_stream()),
     )
     _build.check(launch.lib, rc, "ag_group_gemm_overlap")
-    count_launch(ag_group_gemm_overlap, "launches" if scale is None else "scaled_launches")
+    count_launch(ag_group_gemm_overlap, launch_key(scale, valid))
     if gather_output:
         # the workspace is reused by the next call
         return out, gathered.clone()

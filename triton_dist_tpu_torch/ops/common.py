@@ -34,7 +34,7 @@ DIST_PROTOTYPES = {
     "tdt_ag_gemm_consumer": [_P] * 3 + [_I] * 7 + [_P, _I, _I, _I] + _WAIT,
     "tdt_gemm_rs_reduce": [_P] * 3 + [_I] * 6 + [ctypes.POINTER(_P), _I, _P, _I, _I, _I]
     + _WAIT,
-    "tdt_ag_group_gemm_consumer": [_P] * 5 + [_I] * 10 + [_P, _I, _I] + _WAIT,
+    "tdt_ag_group_gemm_consumer": [_P] * 6 + [_I] * 10 + [_P, _I, _I] + _WAIT,
     "tdt_moe_combine_push": [_P] * 4 + [_I] * 4 + [_P],
     "tdt_moe_rs_reduce": [_P, _P, _LL, _I, _I, _I, _P, _I, _I] + _WAIT,
     "tdt_scatter_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _I, _I, _I] + _WAIT,

@@ -32,7 +32,13 @@ import torch
 from triton_dist_tpu_torch.ops.all_to_all import fast_all_to_all
 from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
-from triton_dist_tpu_torch.ops.group_gemm import check_config, gelu, group_gemm, group_gemm_dw
+from triton_dist_tpu_torch.ops.group_gemm import (
+    check_config,
+    gelu,
+    group_gemm,
+    group_gemm_dw,
+    refuse_ragged_backward,
+)
 from triton_dist_tpu_torch.ops.moe_mlp import _tp_moe_forward_impl
 from triton_dist_tpu_torch.ops.moe_utils import RankedAlignment, ranked_global_view
 from triton_dist_tpu_torch.ops.reduce_scatter import reduce_scatter
@@ -131,9 +137,11 @@ class _GroupGemm(torch.autograd.Function):
 def group_gemm_grad(a_sorted, b, expert_ids, *, config=None, out_dtype=None):
     """Differentiable block-aligned grouped GEMM (≙ ``group_gemm_grad``,
     ``:595``): forward K8; backward K8 with the transposed bank for dA and
-    K11 for dB. ``expert_ids`` gets no gradient."""
-    return _GroupGemm.apply(a_sorted, b, expert_ids, check_config(config),
-                            out_dtype or a_sorted.dtype)
+    K11 for dB. ``expert_ids`` gets no gradient. A ragged config refuses:
+    its dW kernel is not ported (ROADMAP B16, ragged dW)."""
+    cfg = check_config(config)
+    refuse_ragged_backward(cfg)
+    return _GroupGemm.apply(a_sorted, b, expert_ids, cfg, out_dtype or a_sorted.dtype)
 
 
 class _TPMoE(torch.autograd.Function):
@@ -236,9 +244,12 @@ def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_con
     ``reduce_scatter`` (K12; K18 off a full mesh). ``topk_ids`` gets no
     gradient. ``w_up_scale``/``w_down_scale`` mark pre-quantized int8/fp8
     banks (K24, K25, K26 in the forward; ``:346-395``); the backward is
-    straight-through (``_TPMoE.backward``)."""
-    return _TPMoE.apply(x, w_up, w_down, topk_ids, topk_weights, ctx,
-                        check_config(gg_config), overlap, w_up_scale, w_down_scale)
+    straight-through (``_TPMoE.backward``). A ragged ``gg_config`` refuses
+    before the forward runs (ROADMAP B16, ragged dW)."""
+    cfg = check_config(gg_config)
+    refuse_ragged_backward(cfg)
+    return _TPMoE.apply(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, overlap,
+                        w_up_scale, w_down_scale)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -4,7 +4,10 @@
 ``ops/gg_pipeline.py:87 make_group_gemm_kernel``), K24, the same kernel
 over int8 or fp8 expert banks with their per-(expert, out-column) scales
 (``group_gemm_w8`` / ``group_gemm_fp8``, ``:400``/``:427``, the kernel body
-under ``OperandFormat.scaled``), and K11, its weight gradient (≙
+under ``OperandFormat.scaled``), K29, the same kernel under the ragged-row
+policy in all three formats (``GroupGemmConfig.ragged`` with the
+alignment's ``valid_rows`` map; the body's ragged branch,
+``gg_pipeline.py:110-152``), and K11, its weight gradient (≙
 ``group_gemm_dw``, ``:553``; Pallas site ``:534``, body
 ``gg_pipeline.py:159 make_group_gemm_dw_kernel``).
 
@@ -22,10 +25,12 @@ tile never straddles two experts.
 The operand format is keyed off the bank's dtype, as the JAX package keys
 it (``:286``): ``torch.int8`` is w8, ``torch.float8_e4m3fn`` fp8, each with
 an f32 ``scale [E, 1, N]``; ``config.w8``/``.fp8`` quantize a float bank at
-the op boundary (:func:`resolve_w8`). Ragged rows, the ``ragged_dot``
-backend and the chunked overlap schedules (``chunks_per_shard > 1``, span
-policies) are not ported: asking for them through the config raises
-``NotImplementedError`` naming their ROADMAP item.
+the op boundary (:func:`resolve_w8`). Under ``config.ragged`` the kernel
+skips every 128-row tile at or past its block's live count and writes it
+as zeros; dead rows of a live tile are zeroed after the scale fold. The
+``ragged_dot`` backend, the chunked overlap schedules (``chunks_per_shard >
+1``, span policies) and the ragged weight gradient are not ported: asking
+for them raises ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, check_operands
 from triton_dist_tpu_torch.utils import count_call, count_launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PROTOTYPES = {"tdt_group_gemm": [_P] * 5 + [_I] * 9 + [_P],
+_PROTOTYPES = {"tdt_group_gemm": [_P] * 6 + [_I] * 9 + [_P],
                "tdt_group_gemm_dw": [_P] * 4 + [_I] * 6 + [_P]}
 # the M tile of the bf16 engine (csrc/gemm_core.cuh Bf16Engine::BM); the f32
 # engine's 64 divides it
@@ -60,8 +65,9 @@ WEIGHT_ROW_QUANTUM = 16
 @dataclasses.dataclass(frozen=True)
 class GroupGemmConfig:
     """The JAX package's grouped-GEMM config, field for field (positional
-    constructions keep their meaning). The ported path reads ``block_m``;
-    :func:`check_config` refuses the options that are not ported."""
+    constructions keep their meaning). The ported path reads ``block_m``,
+    ``ragged`` and the formats; :func:`check_config` refuses the options
+    that are not ported."""
 
     block_m: int = 128
     block_n: int = 1024
@@ -83,7 +89,6 @@ def check_config(cfg: GroupGemmConfig | None) -> GroupGemmConfig:
     for an option that is not ported."""
     cfg = cfg or GroupGemmConfig()
     refused = (
-        (cfg.ragged, "ragged rows", "B16, ragged"),
         (cfg.backend != "pallas", f"backend={cfg.backend!r}", "B16, ragged_dot"),
         (cfg.chunks_per_shard != 1, "chunks_per_shard > 1", "B17/B18, chunked"),
         (cfg.span_policy != "contig", f"span_policy={cfg.span_policy!r}",
@@ -181,12 +186,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale=None):
+def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale=None,
+                      valid_rows=None):
     """Plain version (≙ ``_group_gemm_xla``): sort the blocks by expert
     (stable), one f32 product per expert's run of blocks, unsort; padded
     rows are computed as rows of their block's clamped expert (and scale).
-    With a ``scale``, :class:`OperandFormat`'s upcast and fold. The expert
-    counts cross to the host."""
+    With a ``scale``, :class:`OperandFormat`'s upcast and fold. With the
+    ragged map ``valid_rows``, rows at or past their block's live count are
+    exact zeros, masked after the fold (``:204-238``). The expert counts
+    cross to the host."""
     count_call(_group_gemm_plain)
     n_exp, k, n = b.shape
     nb = expert_ids.shape[0]
@@ -203,16 +211,22 @@ def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale=None
     y = torch.cat(parts).reshape(nb, bm, n) if parts else a3.new_zeros((0, bm, n))
     out = torch.empty_like(y)
     out[order] = y
+    if valid_rows is not None:
+        live = torch.arange(bm, device=out.device)[None, :, None] < valid_rows.to(
+            out.device).long()[:, None, None]
+        out = torch.where(live, out, 0.0)
     return out.reshape(nb * bm, n).to(out_dtype)
 
 
 _group_gemm_plain.calls = 0
 
 
-def check_group_operands(a, b, expert_ids, out_dtype, act_fn, what, scale=None) -> int:
-    """What K8/K24 and K9/K25 take on the card; returns the row block size.
-    A one-byte bank comes with its f32 scale on the same device, both
-    contiguous, and rows of a multiple of 16 weights."""
+def check_group_operands(a, b, expert_ids, out_dtype, act_fn, what, scale=None,
+                         valid_rows=None) -> int:
+    """What K8/K24/K29 and K9/K25/K30 take on the card; returns the row
+    block size. A one-byte bank comes with its f32 scale on the same
+    device, both contiguous, and rows of a multiple of 16 weights; a ragged
+    map is contiguous int32 of the ids' shape."""
     if scale is None:
         check_operands(a, b, out_dtype, what)
     else:
@@ -227,9 +241,11 @@ def check_group_operands(a, b, expert_ids, out_dtype, act_fn, what, scale=None) 
                 f"N={b.shape[2]} must be a multiple of {WEIGHT_ROW_QUANTUM}")
     if act_fn not in (None, gelu):
         raise ValueError(f"{what}: the kernel fuses only the tanh GELU (group_gemm.gelu)")
-    if expert_ids.dtype != torch.int32 or expert_ids.device != a.device \
-            or not expert_ids.is_contiguous():
-        raise ValueError(f"{what}: expert_ids must be contiguous int32 on {a.device}")
+    for name, ids in (("expert_ids", expert_ids), ("valid_rows", valid_rows)):
+        if ids is not None and (ids.dtype != torch.int32 or ids.device != a.device
+                                or not ids.is_contiguous() or ids.shape != expert_ids.shape):
+            raise ValueError(f"{what}: {name} must be contiguous int32 {tuple(expert_ids.shape)} "
+                             f"on {a.device}")
     bm = a.shape[0] // max(1, expert_ids.numel())
     if bm % TILE_M or bm * expert_ids.numel() != a.shape[0]:
         raise ValueError(
@@ -243,6 +259,7 @@ def group_gemm(
     b: torch.Tensor,
     expert_ids: torch.Tensor,
     *,
+    valid_rows: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     config: GroupGemmConfig | None = None,
     out_dtype: torch.dtype | None = None,
@@ -258,8 +275,21 @@ def group_gemm(
     With ``scale`` (``[E, 1, N]`` f32), `b` is an int8 or fp8 e4m3 pool
     (K24): ``(act?(A_i) @ upcast(b[e])) * scale[e]``, the scale folded into
     the f32 accumulator before the cast. ``config.w8``/``.fp8`` quantize a
-    float bank first (:func:`resolve_w8`)."""
+    float bank first (:func:`resolve_w8`).
+
+    With ``config.ragged`` (K29), ``valid_rows`` (``[t_pad / block_m]``
+    int32, the alignment's map from ``moe_align_block_size(...,
+    ragged=True)``) bounds each block's live rows: a 128-row tile at or
+    past it is not computed and comes back zero, and so do the dead rows
+    of a live tile, after the scale fold. Live rows equal the padded
+    kernel's bit for bit (the same tile, the same sum order)."""
     cfg = check_config(config)
+    if cfg.ragged and valid_rows is None:
+        raise ValueError(
+            "GroupGemmConfig.ragged needs the alignment's per-block valid_rows map — build "
+            "it with moe_align_block_size(..., ragged=True) / moe_align_ranked(..., "
+            "ragged=True)")
+    valid_rows = valid_rows if cfg.ragged else None
     b, scale = resolve_w8(b, scale, cfg)
     check_scale(b, scale, "group_gemm")
     out_dtype = out_dtype or a_sorted.dtype
@@ -274,25 +304,37 @@ def group_gemm(
         raise ValueError(f"rows per block {bm} != config.block_m {cfg.block_m}: "
                          f"alignment and GEMM must use the same block size")
     if a_sorted.device.type == "cpu":
-        return _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale)
-    check_group_operands(a_sorted, b, expert_ids, out_dtype, act_fn, "group_gemm", scale)
+        return _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale,
+                                 valid_rows)
+    check_group_operands(a_sorted, b, expert_ids, out_dtype, act_fn, "group_gemm", scale,
+                         valid_rows)
     out = torch.empty((t_pad, n), dtype=out_dtype, device=a_sorted.device)
     if n == 0:
         return out
     lib = _build.library("group_gemm", _PROTOTYPES)
     rc = lib.tdt_group_gemm(
         a_sorted.data_ptr(), b.data_ptr(), None if scale is None else scale.data_ptr(),
-        expert_ids.data_ptr(), out.data_ptr(), t_pad, n, k, n_exp, bm,
-        DTYPE_CODE[a_sorted.dtype], weight_code(a_sorted, b), DTYPE_CODE[out_dtype],
-        int(act_fn is not None), _build.stream_of(a_sorted),
+        expert_ids.data_ptr(), None if valid_rows is None else valid_rows.data_ptr(),
+        out.data_ptr(), t_pad, n, k, n_exp, bm, DTYPE_CODE[a_sorted.dtype],
+        weight_code(a_sorted, b), DTYPE_CODE[out_dtype], int(act_fn is not None),
+        _build.stream_of(a_sorted),
     )
     _build.check(lib, rc, "group_gemm")
-    count_launch(group_gemm, "launches" if scale is None else "scaled_launches")
+    count_launch(group_gemm, launch_key(scale, valid_rows))
     return out
 
 
 group_gemm.launches = 0         # K8
 group_gemm.scaled_launches = 0  # K24
+group_gemm.ragged_launches = 0  # K29, all three formats
+
+
+def launch_key(scale, valid_rows) -> str:
+    """The counter a grouped launch bumps: the ragged kernel (any format),
+    else the padded one by format."""
+    if valid_rows is not None:
+        return "ragged_launches"
+    return "launches" if scale is None else "scaled_launches"
 
 
 def weight_code(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -300,20 +342,20 @@ def weight_code(a: torch.Tensor, b: torch.Tensor) -> int:
     return WEIGHT_CODE[b.dtype] if is_quantized(b) else DTYPE_CODE[a.dtype]
 
 
-def group_gemm_w8(a_sorted, b_q, scale, expert_ids, *, config=None, out_dtype=None,
-                  act_fn=None):
+def group_gemm_w8(a_sorted, b_q, scale, expert_ids, *, valid_rows=None, config=None,
+                  out_dtype=None, act_fn=None):
     """:func:`group_gemm` over an int8 pool from
     :func:`quantize_expert_weights` (≙ ``group_gemm_w8``, ``:400``)."""
-    return group_gemm(a_sorted, b_q, expert_ids, scale=scale, config=config,
-                      out_dtype=out_dtype, act_fn=act_fn)
+    return group_gemm(a_sorted, b_q, expert_ids, valid_rows=valid_rows, scale=scale,
+                      config=config, out_dtype=out_dtype, act_fn=act_fn)
 
 
-def group_gemm_fp8(a_sorted, b_q, scale, expert_ids, *, config=None, out_dtype=None,
-                   act_fn=None):
+def group_gemm_fp8(a_sorted, b_q, scale, expert_ids, *, valid_rows=None, config=None,
+                   out_dtype=None, act_fn=None):
     """:func:`group_gemm` over an fp8 e4m3 pool from
     :func:`quantize_expert_weights_fp8` (≙ ``group_gemm_fp8``, ``:427``)."""
-    return group_gemm(a_sorted, b_q, expert_ids, scale=scale, config=config,
-                      out_dtype=out_dtype, act_fn=act_fn)
+    return group_gemm(a_sorted, b_q, expert_ids, valid_rows=valid_rows, scale=scale,
+                      config=config, out_dtype=out_dtype, act_fn=act_fn)
 
 
 def _group_gemm_dw_plain(a_sorted, g_sorted, expert_ids, n_exp, bm):
@@ -352,8 +394,10 @@ def group_gemm_dw(
 
     Each expert's blocks are summed in block order whatever the layout, so
     the port needs no ``assume_sorted`` (the JAX package's licence to skip
-    its grouping permutation): the rank-major rows take the same path."""
+    its grouping permutation): the rank-major rows take the same path.
+    A ragged config is refused: its dW kernel is not ported."""
     cfg = check_config(config)
+    refuse_ragged_backward(cfg)
     t_pad, k = a_sorted.shape
     n = g_sorted.shape[1]
     nb = expert_ids.shape[0]
@@ -384,3 +428,12 @@ def group_gemm_dw(
 
 
 group_gemm_dw.launches = 0
+
+
+def refuse_ragged_backward(cfg: GroupGemmConfig) -> None:
+    """The backward of a ragged config needs the ragged dW kernel
+    (``gg_pipeline.py:159`` with ``ragged=True``), which is not ported."""
+    if cfg.ragged:
+        raise NotImplementedError(
+            "the grouped-GEMM backward with ragged rows (GroupGemmConfig.ragged) is not "
+            "ported yet (ROADMAP B16, ragged dW): serve with ragged rows, train padded")

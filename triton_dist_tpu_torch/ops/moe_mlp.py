@@ -24,6 +24,19 @@ GEMM takes them as its ``scale`` (K24 at world 1, K25 and K26 at world >
 shard at every op boundary instead, as the JAX package does inside
 ``shard_map`` (``w_down`` is split on its contracted dim, so those per-shard
 scales differ from the whole bank's).
+
+``gg_config.ragged`` (the ragged-row policy, ≙ ``:303-320``): the
+alignments carry their ``valid_rows`` maps and every grouped GEMM skips
+the dead tiles: K30 and K31 in the overlapped pair, K29 in the
+sequential composition. Serving only: the backward refuses it
+(``ops/grads.py``).
+
+The counters on :func:`tp_moe_mlp` measure the padding of every forward
+(both entries): ``rows`` (the aligned rows a rank's grouped GEMMs run
+over, summed over the ranks), ``live_rows`` (per rank: the rows of the
+128-row tiles they compute, ``rows`` when padded; a device scalar under
+the ragged map, read after the work) and ``assignments`` (the gathered
+(token, k) pairs each rank's GEMMs serve, summed over the ranks).
 """
 
 from __future__ import annotations
@@ -33,16 +46,17 @@ import dataclasses
 import torch
 
 from triton_dist_tpu_torch.ops.allgather_group_gemm import ag_group_gemm, ag_group_gemm_overlap
-from triton_dist_tpu_torch.ops.group_gemm import check_config, gelu, is_quantized
+from triton_dist_tpu_torch.ops.group_gemm import TILE_M, check_config, gelu, is_quantized
 from triton_dist_tpu_torch.ops.moe_reduce_rs import moe_reduce_rs, moe_reduce_rs_overlap
 from triton_dist_tpu_torch.ops.moe_utils import (
     MoEAlignment,
     RankedAlignment,
+    live_tile_rows,
     moe_align_ranked,
     ranked_combine_rows,
     ranked_scatter_meta,
 )
-from triton_dist_tpu_torch.utils import axis_size
+from triton_dist_tpu_torch.utils import axis_index, axis_size, count_launch, count_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +101,7 @@ def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, resi
     if n > 1 and overlap:
         ids_full = ctx.all_gather(topk_ids, 0)
         ral = moe_align_ranked(ids_full.reshape(n, m_loc * topk), w_up.shape[0], cfg.block_m,
-                               m_loc)
+                               m_loc, ragged=cfg.ragged)
         # the gathered slab is a copy of the workspace: made only when kept
         up = ag_group_gemm_overlap(x, w_up, ral, ctx=ctx, config=cfg, gather_output=residuals,
                                    scale=w_up_scale)
@@ -96,8 +110,8 @@ def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, resi
         dst_ids, w_rows = ranked_scatter_meta(ral, tw_full)
         out = moe_reduce_rs_overlap(
             act, w_down, ral.expert_ids, dst_ids, w_rows, ctx=ctx, m_out=m_loc,
-            combine_rows=ranked_combine_rows(ral, m_loc, topk), config=cfg,
-            out_dtype=x.dtype, scale=w_down_scale,
+            combine_rows=ranked_combine_rows(ral, m_loc, topk), valid_rows=ral.valid_rows,
+            config=cfg, out_dtype=x.dtype, scale=w_down_scale,
         )
         alignment = ral
     else:
@@ -107,6 +121,11 @@ def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, resi
                                                       gather_output=True, scale=w_up_scale)
         out = moe_reduce_rs(h_sorted, w_down, alignment, tw_full, ctx=ctx, n_tokens=n * m_loc,
                             config=cfg, out_dtype=x.dtype, act_fn=gelu, scale=w_down_scale)
+    rows = alignment.local_ids.numel() if n > 1 and overlap else h_sorted.shape[0]
+    count_launch(tp_moe_mlp, "rows", rows)
+    count_launch(tp_moe_mlp, "assignments", n * m_loc * topk)
+    count_rows(tp_moe_mlp, "live_rows", axis_index(ctx), rows if alignment.valid_rows is None
+               else live_tile_rows(alignment.valid_rows, cfg.block_m, TILE_M))
     res = MoEResiduals(a_sorted, h_sorted, tw_full, alignment) if residuals else None
     return out.to(x.dtype), res
 
@@ -134,3 +153,8 @@ def tp_moe_mlp(
     return _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx,
                                 check_config(gg_config), overlap=overlap,
                                 w_up_scale=w_up_scale, w_down_scale=w_down_scale)[0]
+
+
+tp_moe_mlp.rows = 0
+tp_moe_mlp.live_rows = {}
+tp_moe_mlp.assignments = 0

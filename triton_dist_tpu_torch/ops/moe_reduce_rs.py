@@ -32,6 +32,13 @@ or ``config.w8``/``.fp8`` to quantize a float one at the op boundary: the
 grouped GEMMs are then K24, whose store folds the scale into each row
 before the combine weights multiply it (``gg_pipeline.py:718-721``); the
 overlapped entry over K24 is K26.
+
+Both take ``valid_rows=`` under ``config.ragged`` (the ragged-row policy):
+the grouped GEMMs are then K29, which skip the dead tiles and write dead
+rows as zeros. The combine reads only the rows of real assignments, all
+live, so the overlapped entry (K31) gives K10's output bit for bit, and it
+still pushes and flags every destination, even one whose blocks are all
+dead (its receiver waits for it).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     check_group_operands,
     check_scale,
     group_gemm,
+    launch_key,
     resolve_w8,
 )
 from triton_dist_tpu_torch.ops.moe_utils import MoEAlignment, scatter_add_unsorted
@@ -77,6 +85,7 @@ def moe_reduce_rs(
     out_dtype: torch.dtype | None = None,
     act_fn=None,
     scale: torch.Tensor | None = None,
+    valid_rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sequential MoE down-projection (≙ ``moe_reduce_rs``, ``:63``; call
     inside ``ctx.run``). h_sorted ``[t_pad, f_loc]`` aligned rows (with
@@ -85,25 +94,30 @@ def moe_reduce_rs(
     the gathered tokens → this rank's ``[n_tokens / world, H]``; the
     reduce-scatter takes `rs_method` and `rs_config`
     (``ops/reduce_scatter.py``) as at ``:104``. ``scale`` marks `w_down`
-    as an int8/fp8 pool (``:93-97``)."""
+    as an int8/fp8 pool (``:93-97``). Under ``config.ragged`` the grouped
+    GEMM (K29) takes `valid_rows`, by default the alignment's map."""
     out_dtype = out_dtype or h_sorted.dtype
-    y_sorted = group_gemm(h_sorted, w_down, alignment.expert_ids, scale=scale, config=config,
-                          out_dtype=torch.float32, act_fn=act_fn)
+    if valid_rows is None:
+        valid_rows = alignment.valid_rows
+    y_sorted = group_gemm(h_sorted, w_down, alignment.expert_ids, valid_rows=valid_rows,
+                          scale=scale, config=config, out_dtype=torch.float32, act_fn=act_fn)
     partial = scatter_add_unsorted(y_sorted, alignment, topk_weights, n_tokens)
     return reduce_scatter(partial.to(out_dtype), ctx=ctx, method=rs_method, config=rs_config)
 
 
 def _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out, out_dtype,
-                        scale=None):
+                        scale=None, valid_rows=None):
     """Plain version (≙ ``_moe_rs_overlap_xla``, ``:125``): the plain
-    grouped GEMM over every row in f32 (the scale folded), a scatter-add
-    combine per destination chunk (rows in order), then the f32 sum over
-    ranks of this rank's chunk, cast."""
+    grouped GEMM over every row in f32 (the scale folded; with the ragged
+    map `valid_rows`, dead rows zero), a scatter-add combine per
+    destination chunk (rows in order), then the f32 sum over ranks of this
+    rank's chunk, cast."""
     count_call(_moe_rs_overlap_xla)
     n, nb, bm = dst_ids.shape
     h = w_down.shape[2]
+    valid = None if valid_rows is None else valid_rows.reshape(-1)
     y = _group_gemm_plain(h_sorted, w_down, expert_ids.reshape(-1), bm, torch.float32,
-                          None, scale).reshape(n, nb * bm, h)
+                          None, scale, valid).reshape(n, nb * bm, h)
     w = w_rows.reshape(n, nb * bm, 1).float()
     dst = dst_ids.reshape(n, nb * bm).long()
     partial = torch.zeros((n, m_out, h), dtype=torch.float32, device=h_sorted.device)
@@ -128,6 +142,7 @@ def moe_reduce_rs_overlap(
     ctx=None,
     m_out: int,
     combine_rows: torch.Tensor | None = None,
+    valid_rows: torch.Tensor | None = None,
     config=None,
     out_dtype: torch.dtype | None = None,
     scale: torch.Tensor | None = None,
@@ -144,32 +159,38 @@ def moe_reduce_rs_overlap(
     takes :func:`moe_reduce_rs` on the card, as the MoE forward routes it.
     ``scale`` (``[E, 1, H]``) marks `w_down` as an int8/fp8 pool (K26), as
     does ``config.w8``/``.fp8`` over this rank's float shard
-    (``:300-342``)."""
+    (``:300-342``). ``config.ragged`` needs ``valid_rows`` ``[n, nb]`` (the
+    ranked alignment's map) and takes K31."""
     cfg = check_config(config)
     out_dtype = out_dtype or h_sorted.dtype
     bm = dst_ids.shape[2]
     if bm != cfg.block_m:
         raise ValueError(f"alignment block {bm} != config.block_m {cfg.block_m}")
+    if cfg.ragged and valid_rows is None:
+        raise ValueError("GroupGemmConfig.ragged needs the ranked alignment's valid_rows map "
+                         "(moe_align_ranked(..., ragged=True))")
+    valid_rows = valid_rows if cfg.ragged else None
     w_down, scale = resolve_w8(w_down, scale, cfg)
     check_scale(w_down, scale, "moe_reduce_rs_overlap")
     if h_sorted.device.type == "cpu":
         return _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out,
-                                   out_dtype, scale)
+                                   out_dtype, scale, valid_rows)
     if axis_size(ctx) == 1:
         raise ValueError("moe_reduce_rs_overlap at world 1 on the card: take moe_reduce_rs")
     if combine_rows is None:
         raise ValueError("moe_reduce_rs_overlap on the card combines by the inverse rows: "
                          "pass combine_rows (moe_utils.ranked_combine_rows)")
     return _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ctx,
-                                 m_out, out_dtype, cfg, scale)
+                                 m_out, out_dtype, cfg, scale, valid_rows)
 
 
 moe_reduce_rs_overlap.launches = 0         # K10
 moe_reduce_rs_overlap.scaled_launches = 0  # K26
+moe_reduce_rs_overlap.ragged_launches = 0  # K31, all three formats
 
 
 def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ctx, m_out,
-                          out_dtype, cfg, scale):
+                          out_dtype, cfg, scale, valid_rows):
     n, me = axis_size(ctx), axis_index(ctx)
     t_pad_loc = h_sorted.shape[0] // n
     h = w_down.shape[2]
@@ -194,6 +215,7 @@ def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ct
     for s in range(1, n + 1):
         c = (me + s) % n  # own chunk last
         y = group_gemm(h_sorted[c * t_pad_loc:(c + 1) * t_pad_loc], w_down, expert_ids[c],
+                       valid_rows=None if valid_rows is None else valid_rows[c],
                        scale=scale, config=cfg, out_dtype=torch.float32)
         rc = lib.tdt_moe_combine_push(y.data_ptr(), rows[c].data_ptr(), w[c].data_ptr(),
                                       recv.peer_addr(c, me * slot), m_out, h, topk, code,
@@ -209,5 +231,5 @@ def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ct
                                flags.peer_addr(me), launch.epoch, max_consumer_blocks(ctx),
                                *launch.wait, stream)
     _build.check(lib, rc, "moe_reduce_rs_overlap reduce")
-    count_launch(moe_reduce_rs_overlap, "launches" if scale is None else "scaled_launches")
+    count_launch(moe_reduce_rs_overlap, launch_key(scale, valid_rows))
     return out

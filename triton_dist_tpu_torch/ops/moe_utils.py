@@ -46,26 +46,20 @@ class MoEAlignment:
       row block (every block holds one expert's rows).
     num_tokens_post_pad: scalar int32 — rows inside the experts' padded
       segments.
-
-    The ragged per-block live-row map (``valid_rows``) is not ported
-    (ROADMAP B16, ragged).
+    valid_rows: ``[t_pad // block_m]`` int32 or None — the ragged map: the
+      live rows of each block (a prefix of it; 0 for the trailing blocks
+      past every segment), None under the padded contract. The ragged
+      grouped GEMMs skip what lies past it and write it as zeros.
     """
 
     sorted_token_ids: torch.Tensor
     expert_ids: torch.Tensor
     num_tokens_post_pad: torch.Tensor
+    valid_rows: torch.Tensor | None = None
 
     @property
     def block_m(self) -> int:
         return self.sorted_token_ids.shape[0] // self.expert_ids.shape[0]
-
-
-def _refuse_ragged(ragged: bool) -> None:
-    if ragged:
-        raise NotImplementedError(
-            "ragged alignment (the per-block valid_rows map) is not ported yet "
-            "(ROADMAP B16, ragged)"
-        )
 
 
 def moe_align_block_size(
@@ -74,8 +68,9 @@ def moe_align_block_size(
     """Sort assignments by expert, each expert's segment padded to a
     multiple of `block_m` (≙ ``moe_align_block_size``, ``:73``). topk_ids
     ``[T]`` flat assignments; a stable sort keeps token order within an
-    expert; blocks past every segment keep a clamped (valid) expert id."""
-    _refuse_ragged(ragged)
+    expert; blocks past every segment keep a clamped (valid) expert id.
+    ``ragged`` also builds the ``valid_rows`` map (``:116-126``): how far
+    each block's expert's real rows reach into it, on the device."""
     dev = topk_ids.device
     t = topk_ids.shape[0]
     t_pad = round_up(t + n_experts * (block_m - 1), block_m)
@@ -94,11 +89,33 @@ def moe_align_block_size(
         0, target, order.to(torch.int32))
     block_starts = torch.arange(t_pad // block_m, device=dev) * block_m
     expert_ids = torch.searchsorted(ends, block_starts, right=True).clamp_max(n_experts - 1)
+    valid_rows = None
+    if ragged:
+        # the trailing blocks' clamped expert never owns them: 0 live rows
+        offs = block_starts - seg_starts[expert_ids]
+        valid_rows = torch.clamp(counts[expert_ids] - offs, 0, block_m).to(torch.int32)
     return MoEAlignment(
         sorted_token_ids=sorted_token_ids,
         expert_ids=expert_ids.to(torch.int32),
         num_tokens_post_pad=padded.sum().to(torch.int32),
+        valid_rows=valid_rows,
     )
+
+
+def live_tile_rows(valid_rows: torch.Tensor, block_m: int, tile: int = 128) -> torch.Tensor:
+    """The rows of the `tile`-row M tiles a ragged grouped GEMM computes
+    under the map `valid_rows` (a block below `tile` rows is its own tile):
+    a device scalar, no host sync."""
+    tile = min(tile, block_m)
+    return ((valid_rows.long() + tile - 1) // tile).sum() * tile
+
+
+def valid_rows_from_sorted(sorted_token_ids: torch.Tensor, block_m: int,
+                           sentinel: int) -> torch.Tensor:
+    """The ragged map of an alignment whose padding rows carry `sentinel`
+    (≙ ``valid_rows_from_sorted``, ``:133``): real rows pack from each
+    block's start, so the count of non-sentinel rows a block is the map."""
+    return (sorted_token_ids.reshape(-1, block_m) < sentinel).sum(1).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,11 +130,14 @@ class RankedAlignment:
       aligned row (``c * m_loc + token``); sentinels clamp to row 0 of their
       own chunk.
     expert_ids: ``[n, nb]`` int32 — the owning expert of each row block.
+    valid_rows: ``[n, nb]`` int32 or None — the ragged map of each rank's
+      blocks (:attr:`MoEAlignment.valid_rows`).
     """
 
     local_ids: torch.Tensor
     src_rows: torch.Tensor
     expert_ids: torch.Tensor
+    valid_rows: torch.Tensor | None = None
 
     @property
     def n_ranks(self) -> int:
@@ -140,11 +160,12 @@ def moe_align_ranked(
     ids_full: torch.Tensor, n_experts: int, block_m: int, m_loc: int, *, ragged: bool = False
 ) -> RankedAlignment:
     """Align each rank's routing independently (≙ ``moe_align_ranked``,
-    ``:228``). ids_full ``[n, m_loc * topk]``: the gathered flat top-k ids."""
-    _refuse_ragged(ragged)
+    ``:228``). ids_full ``[n, m_loc * topk]``: the gathered flat top-k ids;
+    ``ragged`` carries each rank's ``valid_rows`` map through."""
     n, t_loc = ids_full.shape
     topk = t_loc // m_loc
-    als = [moe_align_block_size(ids_full[c], n_experts, block_m) for c in range(n)]
+    als = [moe_align_block_size(ids_full[c], n_experts, block_m, ragged=ragged)
+           for c in range(n)]
     local_ids = torch.stack([al.sorted_token_ids for al in als])
     token_of = torch.clamp(local_ids // topk, 0, m_loc - 1)
     c = torch.arange(n, dtype=torch.int32, device=ids_full.device)[:, None]
@@ -153,6 +174,7 @@ def moe_align_ranked(
         local_ids=local_ids,
         src_rows=src_rows.to(torch.int32),
         expert_ids=torch.stack([al.expert_ids for al in als]),
+        valid_rows=torch.stack([al.valid_rows for al in als]) if ragged else None,
     )
 
 
@@ -170,6 +192,7 @@ def ranked_global_view(al: RankedAlignment, m_loc: int, topk: int) -> MoEAlignme
         expert_ids=al.expert_ids.reshape(-1),
         num_tokens_post_pad=torch.full((), n * t_pad_loc, dtype=torch.int32,
                                        device=al.local_ids.device),
+        valid_rows=None if al.valid_rows is None else al.valid_rows.reshape(-1),
     )
 
 

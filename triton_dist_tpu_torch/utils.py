@@ -42,6 +42,20 @@ def count_launch(fn, key: str = "launches", by: int = 1) -> None:
         setattr(fn, key, getattr(fn, key) + by)
 
 
+def count_rows(fn, key: str, rank: int, value) -> None:
+    """``fn.<key>[rank] += value``: a per-rank tally (a dict) whose value
+    may be a device scalar, added on the rank's own stream, so counting
+    adds no host sync; read it once the work is done (:func:`tally`)."""
+    tallies = getattr(fn, key)
+    tallies[rank] = tallies.get(rank, 0) + value
+
+
+def tally(tallies: dict) -> int:
+    """A per-rank tally of :func:`count_rows`, summed on the host (a sync
+    where the values lie on the card)."""
+    return int(sum(int(v) for v in tallies.values()))
+
+
 def count_call(fn) -> None:
     """``fn.calls += 1`` for a plain version, under the same lock."""
     with _count_lock:
