@@ -152,7 +152,24 @@ Phases, each printed as a JSON line, each fatal on failure:
    greedy tokens on the card equal to the CPU plain path's and the padded
    serve's.
 
-The line before the last lists every kernel (K1-K31) with its readings;
+29. the chunked schedules (``GroupGemmConfig(chunks_per_shard=...,
+   span_policy=...)``): at world 4, the chunked AG-GroupGEMM K32 at K9's
+   served shapes (two spans at the default gather group, three or four
+   with ``gather_group_blocks=4``, under ``contig``, ``window`` and
+   ``torus2d``; int8, fp8 and ragged rows at two) and the chunked
+   MoE-Reduce-RS K33 at K10's (two and three chunks under all four
+   policies; int8, fp8, ragged at two), each bit-equal to its one-span
+   kernel and timed beside it; a stuck K33 wait that must name chunk 0 of
+   the late rank (in ``stuck_wait_moe``); ``serve_moe_tp4_chunked``:
+   ``serve_moe_tp4``'s weights and requests under ``chunks_per_shard=2``
+   (K32/K33 at prefill, K9/K10 at decode), greedy tokens equal to
+   ``serve_moe_tp4``'s and bf16 prefill logits bit-equal to the one-span
+   forward's; in ``layers_ring`` the overlapped ``TPMoEMLP`` at two spans
+   (bit-equal to one span, timed beside the sequential and one-span
+   layers) and one f32 ``tp_moe_mlp`` with ``backend="ragged_dot"``
+   against the ``pallas`` backend.
+
+The line before the last lists every kernel (K1-K33) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -282,6 +299,9 @@ class Counters:
             "group_gemm_ragged": (gg.group_gemm, "ragged_launches"),
             "ag_group_gemm_ragged": (aggg.ag_group_gemm_overlap, "ragged_launches"),
             "moe_reduce_rs_ragged": (mrs.moe_reduce_rs_overlap, "ragged_launches"),
+            # the chunked schedules of K9/K25/K30 and K10/K26/K31 (K32, K33)
+            "ag_group_gemm_chunked": (aggg.ag_group_gemm_overlap, "chunked_launches"),
+            "moe_reduce_rs_chunked": (mrs.moe_reduce_rs_overlap, "chunked_launches"),
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -1462,10 +1482,13 @@ def phase_moe_reduce_rs(ctx) -> dict:
 def phase_stuck_wait_moe() -> None:
     """K10's entry barrier with a peer far too late (rank 1's stream held 2
     s, timeout 0.2 s): the run must raise with rank 0's record for the
-    moe_rs family, site 1."""
+    moe_rs family, site 1. Then K33 (two spans) with rank 1 held just after
+    its entry barrier: rank 0's record must name chunk 0 of rank 1
+    (family moe_rs_chunked, site 18)."""
     import torch
     from triton_dist_tpu_torch import config
     from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
     from triton_dist_tpu_torch.ops import moe_utils as mu
     from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
@@ -1498,7 +1521,46 @@ def phase_stuck_wait_moe() -> None:
         raise AssertionError("a stuck K10 wait did not raise")
     if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, "moe_rs", 1)]:
         raise AssertionError(f"stuck K10 wait: unexpected records {recs}")
-    emit({"phase": "stuck_wait_moe", "records": recs})
+    ctx.close()
+
+    # K33 with two spans, rank 1 held 2 s just after its entry barrier (its
+    # barrier passes, its spans are late): rank 0's reduce must name chunk
+    # 0 of rank 1, site 2 + 1 * MAX_SPANS + 0
+    ctx = initialize_distributed(2)
+    tw, ids = _moe_route(g, 512, 8, 2)
+    ral = mu.moe_align_ranked(ids.reshape(2, -1), 8, MOE_BLOCK, 256)
+    dst, w_rows = mu.ranked_scatter_meta(ral, tw)
+    inv = mu.ranked_combine_rows(ral, 256, 2)
+    hs = torch.randn((2 * ral.t_pad_loc, 64), generator=g, device="cuda")
+    cfg = gg.GroupGemmConfig(MOE_BLOCK, chunks_per_shard=2)
+    barrier = mrs.launch_barrier
+
+    def late(ctx_, launch, flags, stream):
+        barrier(ctx_, launch, flags, stream)
+        if ctx_.rank == 1 and stuck:
+            with torch.cuda.stream(stream):
+                common.sleep_on_stream(2_000_000_000)
+
+    def chunked():
+        return mrs.moe_reduce_rs_overlap(hs, wd, ral.expert_ids, dst, w_rows, ctx=ctx,
+                                         m_out=256, combine_rows=inv, config=cfg)
+
+    mrs.launch_barrier = late
+    try:
+        stuck = False
+        ctx.run(chunked)
+        stuck = True
+        with config.wait_timeout(0.2):
+            ctx.run(chunked)
+    except DistTimeoutError as err:
+        chunk_recs = err.records
+    else:
+        raise AssertionError("a stuck K33 wait did not raise")
+    finally:
+        mrs.launch_barrier = barrier
+    if [(r["pe"], r["family"], r["site"]) for r in chunk_recs] != [(0, "moe_rs_chunked", 18)]:
+        raise AssertionError(f"stuck K33 wait: unexpected records {chunk_recs}")
+    emit({"phase": "stuck_wait_moe", "records": recs, "chunked_records": chunk_recs})
     ctx.close()
 
 
@@ -3571,6 +3633,7 @@ def phase_layers_ring(counters: Counters) -> dict:
     from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
     from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_mlp as tmlp
     from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
     from triton_dist_tpu_torch.ops import reduce_scatter as rs
     from triton_dist_tpu_torch.ops.common import ring_spans
@@ -3635,6 +3698,8 @@ def phase_layers_ring(counters: Counters) -> dict:
             / (4 * f_moe)**0.5).to(bf16) for _ in range(WORLD)]
     moe_seq = layers.TPMoEMLP(ctx, overlap=False)
     moe_ovl = layers.TPMoEMLP(ctx, overlap=True)
+    moe_chunk = layers.TPMoEMLP(ctx, gg.GroupGemmConfig(MOE_BLOCK, chunks_per_shard=2),
+                                overlap=True)
     rs2 = rs.ReduceScatterConfig(chunks_per_shard=RING_CHUNKS)
 
     def rows(t):
@@ -3673,6 +3738,7 @@ def phase_layers_ring(counters: Counters) -> dict:
     mlp_outs = ctx.run(lambda: mlp(x70[ctx.rank], wu70[ctx.rank], wd70[ctx.rank]))
     seq_outs = ctx.run(lambda: moe(moe_seq))
     ovl_outs = ctx.run(lambda: moe(moe_ovl))
+    chunk_outs = ctx.run(lambda: moe(moe_chunk))
     op_outs = ctx.run(moe_ops)
     gathered = ctx.run(lambda: [ag.all_gather(xm[ctx.rank], ctx=ctx, method=m,
                                               chunks_per_shard=RING_CHUNKS)
@@ -3686,7 +3752,8 @@ def phase_layers_ring(counters: Counters) -> dict:
             "all_gather_ring_1d_chunked", "all_gather_ring_bidir",
             "all_gather_ring_bidir_chunked", "ag_gemm_ring", "gemm_rs_ring_chunked",
             "group_gemm", "group_gemm_dw", "ag_group_gemm", "moe_reduce_rs",
-            "reduce_scatter_ring", "reduce_scatter_ring_chunked")
+            "ag_group_gemm_chunked", "moe_reduce_rs_chunked", "reduce_scatter_ring",
+            "reduce_scatter_ring_chunked")
     if any(launches[k] <= 0 for k in used):
         raise AssertionError(f"layers_ring did not run on the kernels: {launches}")
     if any(plain.values()):
@@ -3717,6 +3784,9 @@ def phase_layers_ring(counters: Counters) -> dict:
     checks["moe_seq_vs_overlap_rel_l2"] = _rel_l2(seq, ovl)
     if not checks["moe_seq_vs_overlap_rel_l2"] <= 1e-2:
         raise AssertionError(f"TPMoEMLP sequential against overlapped: {checks}")
+    if not all(torch.equal(a, b_) for a, b_ in zip(chunk_outs, ovl_outs)):
+        raise AssertionError("TPMoEMLP overlapped at two spans (K32, K33) is not bit-equal to "
+                             "one span (K9, K10)")
     if not all(torch.equal(a, b_) for a, b_ in zip(op_outs, seq_outs)):
         raise AssertionError("the op-level sequential pair is not bit-equal to the layer")
     if not all(torch.equal(one, torch.cat(xm)) and torch.equal(both, torch.cat(xm))
@@ -3741,6 +3811,18 @@ def phase_layers_ring(counters: Counters) -> dict:
         raise AssertionError(f"TPMoEMLP(overlap=False) f32 step against the plain path: "
                              f"{checks}")
     del step_outs, leaves, want, full, grads
+    # the ragged_dot backend (plain PyTorch, the sequential composition) in
+    # f32 against the pallas backend (K9, K10) on the same inputs
+    sentinel = gg.GroupGemmConfig(MOE_BLOCK, backend="ragged_dot")
+    rd = ctx.run(lambda: [tmlp.tp_moe_mlp(xf[ctx.rank], wuf[ctx.rank], wdf[ctx.rank],
+                                          rows(ids), rows(tw), ctx=ctx, gg_config=cfg_)
+                          for cfg_ in (sentinel, gg.GroupGemmConfig(MOE_BLOCK))])
+    got_rd, want_rd = torch.cat([a for a, _ in rd]), torch.cat([b_ for _, b_ in rd])
+    checks["f32_ragged_dot_vs_pallas_max_abs_err"] = (got_rd - want_rd).abs().max().item()
+    checks["f32_ragged_dot_tol"] = 1e-5 * want_rd.abs().max().item()
+    if not checks["f32_ragged_dot_vs_pallas_max_abs_err"] <= checks["f32_ragged_dot_tol"]:
+        raise AssertionError(f"tp_moe_mlp ragged_dot against pallas in f32: {checks}")
+    del rd, got_rd, want_rd
 
     timings = dict(
         sp_decode_ring_bidir_ms=dist_ms(ctx, lambda: sp(sp_ring), iters=10),
@@ -3749,6 +3831,7 @@ def phase_layers_ring(counters: Counters) -> dict:
                           iters=5),
         tp_moe_mlp_sequential_ms=dist_ms(ctx, lambda: moe(moe_seq), iters=5),
         tp_moe_mlp_overlap_ms=dist_ms(ctx, lambda: moe(moe_ovl), iters=5),
+        tp_moe_mlp_overlap_chunked_ms=dist_ms(ctx, lambda: moe(moe_chunk), iters=5),
     )
     emit({"phase": "layers_ring", "world": WORLD, "full_mesh": False,
           "chunks_per_shard": RING_CHUNKS, "counted_run_wall_s": wall, "checks": checks,
@@ -4995,6 +5078,276 @@ def phase_stuck_wait_ragged() -> None:
     ctx.close()
 
 
+# --------------------------------------------- chunked schedules (K32, K33) ----
+
+# (label, format, ragged, chunks_per_shard, span_policy, gather_group_blocks)
+AG_CHUNK_CELLS = (
+    ("bf16 contig c2", "bf16", False, 2, "contig", None),
+    ("bf16 window c2", "bf16", False, 2, "window", None),
+    ("bf16 torus2d c2", "bf16", False, 2, "torus2d", None),
+    ("bf16 contig c3 g4", "bf16", False, 3, "contig", 4),
+    ("bf16 window c3 g4", "bf16", False, 3, "window", 4),
+    ("bf16 torus2d c3 g4", "bf16", False, 3, "torus2d", 4),
+    ("int8 contig c2", "int8", False, 2, "contig", None),
+    ("fp8 contig c2", "fp8", False, 2, "contig", None),
+    ("bf16 ragged contig c2", "bf16", True, 2, "contig", None),
+)
+RS_CHUNK_CELLS = tuple((f"bf16 {p} c{c}", "bf16", False, c, p, None)
+                       for c in (2, 3) for p in ("contig", "window", "interleave", "torus2d"))
+RS_CHUNK_CELLS += (("int8 contig c2", "int8", False, 2, "contig", None),
+                   ("fp8 contig c2", "fp8", False, 2, "contig", None),
+                   ("bf16 ragged contig c2", "bf16", True, 2, "contig", None))
+
+
+def _chunk_entry(name, replaces, cells, head, plain_ms, library_ms, library, shapes, b_ms, by):
+    """One kernels-line entry of a chunked kernel: the readings of its
+    bf16 contig two-span cell as its columns, every cell's under
+    ``cells``, the worst error of any."""
+    return dict(name=name, route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
+                replaces=replaces, policy="chunked spans",
+                max_abs_err=max(c["max_abs_err"] for c in cells.values()),
+                ms=cells[head]["ms"], one_span_ms=cells[head]["one_span_ms"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                library=library, cells=cells, shapes=shapes)
+
+
+def phase_ag_group_gemm_chunked(ctx) -> dict:
+    """K32 at K9's served shapes (world 4, 512 tokens a rank, top-2 over 8
+    experts, t_pad_loc 2048, H 4096 -> F shard 3584, bf16 slabs): two spans
+    a slab at the default gather group (8 blocks) and three or four with
+    ``gather_group_blocks=4``, under ``contig``, ``window`` and
+    ``torus2d``; int8, fp8 and ragged rows at two spans. Each cell
+    bit-equal to the one-span kernel (K9/K25/K30) on the same inputs,
+    within one bf16 ulp of the output scale of the plain twin, and timed
+    beside that one-span kernel in this run."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops.common import resolve_spans
+
+    g = torch.Generator(device="cuda").manual_seed(110)
+    m_loc, k, n_loc, n_exp = 512, 4096, 3584, 8
+    ral, _ = _tp4_ragged_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    x = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16() for _ in range(WORLD)]
+    slabs = [x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(WORLD)]
+    gathered = torch.cat(slabs)
+    ids_flat, valid_flat = ral.expert_ids.reshape(-1), ral.valid_rows.reshape(-1)
+    banks = {fmt: [_ragged_bank(g, (n_exp, k, n_loc), fmt) for _ in range(WORLD)]
+             for fmt in RAGGED_FORMATS}
+    cells = {}
+    for label, fmt, ragged, chunks, policy, groups in AG_CHUNK_CELLS:
+        one = gg.GroupGemmConfig(MOE_BLOCK, ragged=ragged)
+        cfg = dataclasses.replace(one, chunks_per_shard=chunks, span_policy=policy)
+        bpg = groups or aggg.gather_group_blocks_for(ral.blocks_per_rank, MOE_BLOCK, k, 2)
+        spans = resolve_spans(t_pad_loc, chunks, bpg * MOE_BLOCK, policy=policy, world=WORLD,
+                              side="ag")
+        if len(spans) < 2:
+            raise AssertionError(f"ag_group_gemm_chunked {label}: one span {spans}")
+
+        def call(config):
+            def run():
+                b, sc = banks[fmt][ctx.rank]
+                return aggg.ag_group_gemm_overlap(x[ctx.rank], b, ral, ctx=ctx, config=config,
+                                                  scale=sc, gather_group_blocks=groups)
+            return run
+
+        before = aggg.ag_group_gemm_overlap.chunked_launches
+        outs = ctx.run(lambda: (call(cfg)(), call(one)()))
+        if aggg.ag_group_gemm_overlap.chunked_launches != before + WORLD:
+            raise AssertionError(f"ag_group_gemm_chunked {label}: K32 was not launched")
+        if not all(torch.equal(got, ref) for got, ref in outs):
+            raise AssertionError(f"ag_group_gemm_chunked {label}: not bit-equal to one span")
+        err, tol = max(_check_bf16(f"ag_group_gemm_chunked {label} rank {r}", got,
+                                   gg._group_gemm_plain(gathered, banks[fmt][r][0], ids_flat,
+                                                        MOE_BLOCK, torch.bfloat16, None,
+                                                        banks[fmt][r][1],
+                                                        valid_flat if ragged else None))
+                       for r, (got, _) in enumerate(outs))
+        del outs
+        cells[label] = dict(spans=[list(sp) for sp in spans], max_abs_err=err, tol=tol,
+                            bit_equal_to_one_span=True, ms=dist_ms(ctx, call(cfg), iters=5),
+                            one_span_ms=dist_ms(ctx, call(one), iters=5))
+    b0 = banks["bf16"]
+    plain_ms = dist_ms(ctx, lambda: aggg._ag_overlap_xla(
+        aggg.presort_local_rows(x[ctx.rank], ral, ctx), b0[ctx.rank][0], ral, ctx, False,
+        torch.bfloat16), iters=2)
+    libs = [[_grouped_mm_library(slabs[c], b0[r][0], ral.expert_ids[c], None, torch.bfloat16)
+             for c in range(WORLD)] for r in range(WORLD)]
+
+    def library():
+        for r in range(WORLD):
+            torch.cat(slabs)
+            for fn, _ in libs[r]:
+                fn()
+
+    library_ms = event_ms(library, iters=3)
+    rows = WORLD * t_pad_loc
+    b_ms, by = bound(WORLD * 2.0 * rows * k * n_loc,
+                     2.0 * (rows * k + WORLD * n_exp * k * n_loc + WORLD * rows * n_loc))
+    emit({"phase": "kernel", "kernel": "ag_group_gemm_chunked", "world": WORLD,
+          "t_pad_loc": t_pad_loc, "cells": cells, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": b_ms})
+    return _chunk_entry(
+        "ag_group_gemm_chunked", "triton_dist_tpu/ops/gg_pipeline.py:288", cells,
+        "bf16 contig c2", plain_ms, library_ms,
+        "torch.cat + " + libs[0][0][1] + " per source slab",
+        f"world {WORLD}: [{m_loc}, {k}] tokens a rank, t_pad_loc {t_pad_loc}, w_up shard "
+        f"[{n_exp}, {k}, {n_loc}]", b_ms, by)
+
+
+def phase_moe_reduce_rs_chunked(ctx) -> dict:
+    """K33 at K10's served shapes (world 4: rank-major rows [4 x 2048, 3584]
+    bf16 against the W_down shard [8, 3584, 4096], 512 tokens out a rank):
+    two and three chunks under all four policies (two to four 128-row-quantum
+    spans of the 512 token rows; ``interleave`` issues them from both
+    ends), int8, fp8 and ragged rows at two; each cell bit-equal to the
+    one-span kernel (K10/K26/K31) on the same inputs, within two bf16 ulps
+    of the plain twin, and timed beside the one-span kernel."""
+    import torch
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+    from triton_dist_tpu_torch.ops.common import resolve_spans
+
+    g = torch.Generator(device="cuda").manual_seed(111)
+    m_loc, f_loc, h, n_exp = 512, 3584, 4096, 8
+    ral, tw = _tp4_ragged_inputs(g, m_loc)
+    t_pad_loc = ral.t_pad_loc
+    dst, w_rows = mu.ranked_scatter_meta(ral, tw)
+    inv = mu.ranked_combine_rows(ral, m_loc, 2)
+    hs = [torch.randn((WORLD * t_pad_loc, f_loc), generator=g, device="cuda").bfloat16()
+          for _ in range(WORLD)]
+    banks = {fmt: [_ragged_bank(g, (n_exp, f_loc, h), fmt) for _ in range(WORLD)]
+             for fmt in RAGGED_FORMATS}
+    cells = {}
+    for label, fmt, ragged, chunks, policy, _ in RS_CHUNK_CELLS:
+        one = gg.GroupGemmConfig(MOE_BLOCK, ragged=ragged)
+        cfg = dataclasses.replace(one, chunks_per_shard=chunks, span_policy=policy)
+        spans = resolve_spans(m_loc, chunks, 128, policy=policy, world=WORLD)
+        valid = ral.valid_rows if ragged else None
+
+        def call(config):
+            def run():
+                wd, sc = banks[fmt][ctx.rank]
+                return mrs.moe_reduce_rs_overlap(hs[ctx.rank], wd, ral.expert_ids, dst, w_rows,
+                                                 ctx=ctx, m_out=m_loc, combine_rows=inv,
+                                                 valid_rows=valid, config=config, scale=sc)
+            return run
+
+        def plain():
+            wd, sc = banks[fmt][ctx.rank]
+            return mrs._moe_rs_overlap_xla(hs[ctx.rank], wd, ral.expert_ids, dst, w_rows, ctx,
+                                           m_loc, torch.bfloat16, sc, valid)
+
+        before = mrs.moe_reduce_rs_overlap.chunked_launches
+        outs = ctx.run(lambda: (call(cfg)(), call(one)(), plain()))
+        if mrs.moe_reduce_rs_overlap.chunked_launches != before + WORLD:
+            raise AssertionError(f"moe_reduce_rs_chunked {label}: K33 was not launched")
+        if not all(torch.equal(got, ref) for got, ref, _ in outs):
+            raise AssertionError(f"moe_reduce_rs_chunked {label}: not bit-equal to one span")
+        err, tol = max(_check_bf16(f"moe_reduce_rs_chunked {label} rank {r}", got, want, 2.0)
+                       for r, (got, _, want) in enumerate(outs))
+        del outs
+        cells[label] = dict(spans=[list(sp) for sp in spans], max_abs_err=err, tol=tol,
+                            bit_equal_to_one_span=True, ms=dist_ms(ctx, call(cfg), iters=5),
+                            one_span_ms=dist_ms(ctx, call(one), iters=5))
+    b0 = banks["bf16"]
+    plain_ms = dist_ms(ctx, lambda: mrs._moe_rs_overlap_xla(
+        hs[ctx.rank], b0[ctx.rank][0], ral.expert_ids, dst, w_rows, ctx, m_loc,
+        torch.bfloat16), iters=2)
+    libs = [[_grouped_mm_library(hs[r][c * t_pad_loc:(c + 1) * t_pad_loc], b0[r][0],
+                                 ral.expert_ids[c], None, torch.float32)[0]
+             for c in range(WORLD)] for r in range(WORLD)]
+    dst_l = dst.reshape(WORLD, -1).long()
+    w_l = w_rows.reshape(WORLD, -1, 1)
+
+    def library():
+        parts = [[torch.zeros((m_loc, h), device="cuda").index_add_(0, dst_l[c], libs[r][c]()
+                                                                    * w_l[c])
+                  for c in range(WORLD)] for r in range(WORLD)]
+        return [sum(parts[r][c] for r in range(WORLD)).bfloat16() for c in range(WORLD)]
+
+    library_ms = event_ms(library, iters=3)
+    rows = WORLD * t_pad_loc
+    b_ms, by = bound(WORLD * 2.0 * rows * f_loc * h,
+                     2.0 * (WORLD * rows * f_loc + WORLD * n_exp * f_loc * h + WORLD * m_loc * h))
+    emit({"phase": "kernel", "kernel": "moe_reduce_rs_chunked", "world": WORLD,
+          "t_pad_loc": t_pad_loc, "cells": cells, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": b_ms})
+    return _chunk_entry(
+        "moe_reduce_rs_chunked", "triton_dist_tpu/ops/gg_pipeline.py:576", cells,
+        "bf16 contig c2", plain_ms, library_ms,
+        "_grouped_mm_library per (rank, destination) + index_add_ + a sum",
+        f"world {WORLD}: h [{rows}, {f_loc}] a rank, w_down shard [{n_exp}, {f_loc}, {h}], "
+        f"{m_loc} tokens out a rank", b_ms, by)
+
+
+def phase_serve_moe_chunked(counters: Counters) -> dict:
+    """``serve_moe_tp4_chunked``: ``serve_moe_tp4``'s model, weights and
+    requests (Mixtral-8x7B widths, 8 of 32 layers, bf16, world 4 on the one
+    card, batch 8, 32 new tokens) under ``gg_config=GroupGemmConfig(128,
+    chunks_per_shard=2)``: K32 and K33 wherever a slab or a partial holds
+    two spans (the bulk prefill), K9/K10 where it holds one (decode).
+    Prints tokens/s, TTFT, peak GB and both ``chunked_launches`` counts,
+    whether its greedy tokens equal ``serve_moe_tp4``'s of this run, and
+    whether the served forward's bf16 prefill logits (256 tokens a
+    sequence: two spans on both sides) equal the one-span forward's bit
+    for bit."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import init_moe_params
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    n_layers, L = 8, 256
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    base = presets.preset(MOE_MODEL, n_layers=n_layers, batch=8, dtype=torch.bfloat16)
+    cfg = dataclasses.replace(base, gg_config=GroupGemmConfig(MOE_BLOCK, chunks_per_shard=2))
+    params = init_moe_params(cfg, seed=30)  # serve_moe_tp4's weights
+    reqs = _requests(cfg.vocab, lengths, 32, seed=31)
+    ctx = initialize_distributed(WORLD)
+    res = _serve(cfg, params, reqs, counters, ctx=ctx)
+    launches = res["launches"]
+    used = ("ag_group_gemm_chunked", "moe_reduce_rs_chunked", "ag_group_gemm", "moe_reduce_rs",
+            "group_gemm", "ag_gemm", "gemm_rs", "gemm", "all_gather", "paged_flash_decode",
+            "barrier")
+    if any(launches[k] <= 0 for k in used):
+        raise AssertionError(f"serve_moe_tp4_chunked took the wrong kernels: {launches}")
+    twin = SERVES["serve_moe_tp4"]
+    same = _serve.outputs == twin["outputs"]
+    emit({"phase": "serve_moe_tp4_chunked", "model": MOE_MODEL, "n_layers": n_layers,
+          "world": WORLD, "gg_config": "GroupGemmConfig(128, chunks_per_shard=2)", "batch": 8,
+          "s_max": 1024, "page_size": 16, "prompt_lens": lengths, "max_new_tokens": 32,
+          "tokens_equal_one_span": same,
+          "one_span_twin": {k: twin[k] for k in ("tokens_per_s", "ttft_ms", "peak_mem_gb",
+                                                 "wall_s")},
+          **res})
+    if not same:
+        raise AssertionError("serve_moe_tp4_chunked: greedy tokens differ from serve_moe_tp4's")
+    make_served, _ = _moe_models()
+    flat = _prompt_tokens(reqs, cfg.batch, L)
+    rows = torch.arange(cfg.batch, device="cuda") * L + L - 1
+    counters.reset()
+    got, _ = _served_logits(make_served, dataclasses.replace(cfg, seq=L), params, flat, rows,
+                            ctx, n_layers)
+    chunked = counters.read()["launches"]
+    one, _ = _served_logits(make_served, dataclasses.replace(base, seq=L), params, flat, rows,
+                            ctx, n_layers)
+    equal = torch.equal(got, one)
+    emit({"phase": "serve_moe_tp4_chunked_vs_one_span", "logits_bit_equal": equal,
+          "max_abs_diff": (got - one).abs().max().item(),
+          "chunked_launches": {k: chunked[k] for k in ("ag_group_gemm_chunked",
+                                                       "moe_reduce_rs_chunked")}})
+    if not (equal and got.isfinite().all().item() and chunked["ag_group_gemm_chunked"] > 0
+            and chunked["moe_reduce_rs_chunked"] > 0):
+        raise AssertionError("serve_moe_tp4_chunked: prefill logits not bit-equal to the "
+                             "one-span forward's, or the forward ran one span")
+    del params, got, one
+    ctx.close()
+    return launches
+
+
 def _served_logits(make_served, pcfg, params, flat, rows, ctx, n_layers):
     """The served forward's prefill logits at world 4 (each rank its token
     shard) and its layers' routing, rank order being token order."""
@@ -5190,6 +5543,7 @@ def main() -> int:
     moe_entries += [phase_ag_group_gemm(ctx), phase_moe_reduce_rs(ctx)]
     scaled_entries += [phase_ag_group_gemm_scaled(ctx), phase_moe_reduce_rs_scaled(ctx)]
     ragged_entries += [phase_ag_group_gemm_ragged(ctx), phase_moe_reduce_rs_ragged(ctx)]
+    chunked_entries = [phase_ag_group_gemm_chunked(ctx), phase_moe_reduce_rs_chunked(ctx)]
     train_entries.append(phase_reduce_scatter(ctx))
     ep_entries = phase_all_to_all(ctx)
     ctx.full_mesh = False  # the same ranks, declared a ring
@@ -5224,6 +5578,8 @@ def main() -> int:
     phase_f32_parity_ep()
     torch.cuda.empty_cache()
     moe_ep4_r, moe_tp4_r = phase_serve_moe_ragged(counters)
+    torch.cuda.empty_cache()
+    moe_tp4_c = phase_serve_moe_chunked(counters)
     torch.cuda.empty_cache()
     phase_f32_parity_ragged()
     torch.cuda.empty_cache()
@@ -5282,6 +5638,9 @@ def main() -> int:
     ragged_entries[1]["launches"] = moe_tp4_r["ag_group_gemm_ragged"]
     ragged_entries[2]["launches"] = moe_tp4_r["moe_reduce_rs_ragged"]
     entries += ragged_entries
+    chunked_entries[0]["launches"] = moe_tp4_c["ag_group_gemm_chunked"]
+    chunked_entries[1]["launches"] = moe_tp4_c["moe_reduce_rs_chunked"]
+    entries += chunked_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

@@ -1294,3 +1294,144 @@ def test_ragged_ep_moe_mlp_on_the_card_matches_the_cpu(cuda):
             assert 0 < tepmlp.EPMoEMLP.live_row_count() < tepmlp.EPMoEMLP.rows
     scale = outs["cpu"].abs().max().item()
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-5 * scale
+
+
+# ---- the chunked schedules: K32 (K9/K25/K30 with spans), K33 (K10/K26/K31
+# with spans), bit-equal to their one-span kernels ----
+
+# name: (format, ragged, chunks, policy)
+CHUNK_CASES = {"bf16-c2": (None, False, 2, "contig"),
+               "int8-ragged-c3-window": ("int8", True, 3, "window"),
+               "fp8-c2-torus2d": ("fp8", False, 2, "torus2d"),
+               "bf16-ragged-c3-interleave": (None, True, 3, "interleave")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", [c for c in CHUNK_CASES if "interleave" not in c])
+def test_chunked_ag_group_gemm_kernel_matches_one_span(cuda, world, case):
+    """K32 (bf16 slabs, 128-row gather groups: two or three spans a slab)
+    bit-equal to K9/K25/K30 on the same inputs, its gathered slabs whole,
+    and within the one-span kernel's tolerance of the plain twin."""
+    fmt, ragged, chunks, policy = CHUNK_CASES[case]
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(world + 80)
+    n_exp, topk, bm, m_loc, k, n_loc = 4, 2, 128, 160, 256, 304
+    ids, _ = _moe_routing(g, world * m_loc, n_exp, topk, cuda)
+    ral = tmu.moe_align_ranked(ids.reshape(world, -1), n_exp, bm, m_loc, ragged=ragged)
+    spans = tcommon.resolve_spans(ral.t_pad_loc, chunks, bm, policy=policy, world=world,
+                                  side="ag")
+    assert len(spans) > 1
+    x = [torch.randn((m_loc, k), generator=g, device=cuda).bfloat16() for _ in range(world)]
+    b, scale = _banks(g, (n_exp, k, n_loc), fmt, torch.bfloat16, cuda)
+    slabs = torch.cat([x[r][(ral.src_rows[r] - r * m_loc).long()] for r in range(world)])
+    one = tgg.GroupGemmConfig(bm, ragged=ragged)
+    cfg = dataclasses.replace(one, chunks_per_shard=chunks, span_policy=policy)
+
+    def call(config):
+        return lambda: taggg.ag_group_gemm_overlap(x[ctx.rank], b, ral, ctx=ctx, config=config,
+                                                   scale=scale, gather_output=True,
+                                                   gather_group_blocks=1)
+
+    before = taggg.ag_group_gemm_overlap.chunked_launches
+    outs = ctx.run(call(cfg))
+    assert taggg.ag_group_gemm_overlap.chunked_launches == before + world
+    ones = ctx.run(call(one))
+    want = tgg._group_gemm_plain(slabs, b, ral.expert_ids.reshape(-1), bm, torch.bfloat16,
+                                 None, scale, ral.valid_rows.reshape(-1) if ragged else None)
+    for (out, ag), (ref, _) in zip(outs, ones):
+        assert torch.equal(ag, slabs) and torch.equal(out, ref)
+        tol = _tol(torch.bfloat16, want.float()) if fmt is None else _scaled_tol(
+            torch.bfloat16, want.float())
+        assert (out.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", [c for c in CHUNK_CASES if "torus2d" not in c])
+def test_chunked_moe_reduce_rs_kernel_matches_one_span(cuda, world, case):
+    """K33 (bf16; 256 or 384 tokens out a rank: two or three 128-row spans,
+    or more under a policy) bit-equal to K10/K26/K31 on the same inputs."""
+    fmt, ragged, chunks, policy = CHUNK_CASES[case]
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(world + 90)
+    n_exp, topk, bm, f_loc, h = 4, 2, 128, 256, 528
+    m_loc = 128 * chunks
+    ids, w = _moe_routing(g, world * m_loc, n_exp, topk, cuda)
+    ral = tmu.moe_align_ranked(ids.reshape(world, -1), n_exp, bm, m_loc, ragged=ragged)
+    assert len(tcommon.resolve_spans(m_loc, chunks, 128, policy=policy, world=world)) > 1
+    dst, w_rows = tmu.ranked_scatter_meta(ral, w)
+    inv = tmu.ranked_combine_rows(ral, m_loc, topk)
+    hs = [torch.randn((world * ral.t_pad_loc, f_loc), generator=g, device=cuda).bfloat16()
+          for _ in range(world)]
+    banks = [_banks(g, (n_exp, f_loc, h), fmt, torch.bfloat16, cuda) for _ in range(world)]
+    one = tgg.GroupGemmConfig(bm, ragged=ragged)
+    cfg = dataclasses.replace(one, chunks_per_shard=chunks, span_policy=policy)
+
+    def call(config):
+        def body():
+            r = ctx.rank
+            wd, sc = banks[r]
+            return tmrs.moe_reduce_rs_overlap(hs[r], wd, ral.expert_ids, dst, w_rows, ctx=ctx,
+                                              m_out=m_loc, combine_rows=inv,
+                                              valid_rows=ral.valid_rows, config=config,
+                                              scale=sc)
+        return body
+
+    before = tmrs.moe_reduce_rs_overlap.chunked_launches
+    got = ctx.run(call(cfg))
+    assert tmrs.moe_reduce_rs_overlap.chunked_launches == before + world
+    for out, ref in zip(got, ctx.run(call(one))):
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ag_group_gemm", "moe_rs"])
+def test_chunked_stuck_wait_names_chunk_zero(cuda, kernel, monkeypatch):
+    """K32 / K33 at world 2, two spans, with rank 1 held 2 s just after its
+    entry barrier (so the barrier passes and its chunks are late): the
+    waits on rank 1's spans expire (0.2 s) and every record names chunk 0
+    of rank 1 (site 2 + 1 * 16 + 0), whichever block's clock ran out."""
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    ids, w = _moe_routing(g, 512, 4, 2, cuda)
+    ral = tmu.moe_align_ranked(ids.reshape(2, -1), 4, 128, 256)
+    cfg = tgg.GroupGemmConfig(128, chunks_per_shard=2)
+    if kernel == "ag_group_gemm":
+        module = tagg  # push_shards' entry barrier
+        x = torch.randn((256, 64), generator=g, device=cuda)
+        b = torch.randn((4, 64, 32), generator=g, device=cuda)
+
+        def call():
+            return taggg.ag_group_gemm_overlap(x, b, ral, ctx=ctx, config=cfg,
+                                               gather_group_blocks=1)
+    else:
+        module = tmrs
+        dst, w_rows = tmu.ranked_scatter_meta(ral, w)
+        inv = tmu.ranked_combine_rows(ral, 256, 2)
+        hs = torch.randn((2 * ral.t_pad_loc, 64), generator=g, device=cuda)
+        wd = torch.randn((4, 64, 32), generator=g, device=cuda)
+
+        def call():
+            return tmrs.moe_reduce_rs_overlap(hs, wd, ral.expert_ids, dst, w_rows, ctx=ctx,
+                                              m_out=256, combine_rows=inv, config=cfg)
+
+    ctx.run(call)  # the buffers and flags exist
+    barrier = module.launch_barrier
+
+    def late(ctx_, launch, flags, stream):
+        barrier(ctx_, launch, flags, stream)
+        if ctx_.rank == 1:
+            with torch.cuda.stream(stream):
+                tcommon.sleep_on_stream(2_000_000_000)
+
+    monkeypatch.setattr(module, "launch_barrier", late)
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(call)
+    recs = err.value.records
+    assert recs and all((r["family"], r["site"]) == (f"{kernel}_chunked", 2 + 16)
+                        for r in recs), recs
+    assert all(r["waits_for"] == f"chunk 0 of rank 1's "
+               f"{'sorted slab' if kernel == 'ag_group_gemm' else 'partial'}" for r in recs)
+    assert 0 in {r["pe"] for r in recs}

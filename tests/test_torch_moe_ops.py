@@ -152,12 +152,18 @@ def test_group_gemm_plain_matches_xla(act, out_dtype):
 
 
 def test_group_gemm_refuses_what_is_not_ported():
-    a, b, e = torch.zeros(8, 4), torch.zeros(2, 4, 4), torch.zeros(1, dtype=torch.int32)
-    for cfg, item in ((tgg.GroupGemmConfig(8, backend="ragged_dot"), "ragged_dot"),
-                      (tgg.GroupGemmConfig(8, chunks_per_shard=2), "chunked"),
-                      (tgg.GroupGemmConfig(8, span_policy="window"), "span")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP B1[678].*{item}"):
-            tgg.group_gemm(a, b, e, config=cfg)
+    """The options this grid GEMM once refused run: ``ragged_dot`` (the
+    plain sentinel) equals the padded kernel's twin, and the chunked
+    schedule's fields (read only by the overlapped pair) change nothing;
+    the ragged weight gradient still refuses (ROADMAP B16, ragged dW)."""
+    g = torch.Generator().manual_seed(3)
+    a, b = torch.randn(8, 4, generator=g), torch.randn(2, 4, 4, generator=g)
+    e = torch.ones(1, dtype=torch.int32)
+    want = tgg.group_gemm(a, b, e, config=tgg.GroupGemmConfig(8))
+    for cfg in (tgg.GroupGemmConfig(8, backend="ragged_dot"),
+                tgg.GroupGemmConfig(8, chunks_per_shard=2),
+                tgg.GroupGemmConfig(8, span_policy="window")):
+        assert torch.equal(tgg.group_gemm(a, b, e, config=cfg), want), cfg
     # ragged rows are served; their weight gradient is not ported
     with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
         tgg.group_gemm_dw(a, a, e, 2, config=tgg.GroupGemmConfig(8, ragged=True))

@@ -7,7 +7,7 @@ row panels a block) and against ``jax.lax.ragged_dot`` over the packed live
 rows, the overlapped ops' plain twins (K30's and K31's) at world 2, the MoE
 MLP at world 1 and 2, ``EPMoEMLP`` at world 4, greedy tokens of ragged
 ``generate`` and ``ServingEngine`` serves (EP at world 4, tensor-parallel
-at world 2), and the refusals that remain (the ragged backward,
+at world 2), and the refusals that remain (the ragged backward; once
 ``ragged_dot``, chunks, span policies).
 
 Inputs come from numpy with a seed: hidden 32, ffn 64, 4 or 8 experts,
@@ -437,7 +437,8 @@ def test_ragged_serves_match_padded_and_jax(moe, case):
 def test_ragged_refusals_that_remain(moe):
     """The ragged backward refuses (ROADMAP B16, ragged dW) at every entry,
     ``train_step`` before its first step; ``ragged_dot``, chunks and span
-    policies refuse with their items, ragged or not."""
+    policies, once refused, run, ragged or not: the sentinel ignores the
+    ragged map, and this grid GEMM has nothing to chunk."""
     a, b = torch.zeros(8, 4), torch.zeros(2, 4, 4)
     e, v = torch.zeros(1, dtype=torch.int32), torch.full((1,), 8, dtype=torch.int32)
     ragged = tgg.GroupGemmConfig(8, ragged=True)
@@ -454,13 +455,15 @@ def test_ragged_refusals_that_remain(moe):
     with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
         ttm.train_step(ttm.TPMoETransformer(tcfg), tparams, tokens, tokens, lr=0.1)
     assert all(torch.equal(p, q) for p, q in zip(before, tparams["layers"][0].values()))
-    for fields, item in ((dict(backend="ragged_dot"), "B16, ragged_dot"),
-                         (dict(chunks_per_shard=2), "B17/B18, chunked"),
-                         (dict(span_policy="window"), "B17/B18, span")):
+    g = torch.Generator().manual_seed(5)
+    ra, rb = torch.randn(8, 4, generator=g), torch.randn(2, 4, 4, generator=g)
+    padded = tgg.group_gemm(ra, rb, e, config=tgg.GroupGemmConfig(8))
+    for fields in (dict(backend="ragged_dot"), dict(chunks_per_shard=2),
+                   dict(span_policy="window")):
         for rag in (False, True):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                tgg.group_gemm(a, b, e, valid_rows=v,
-                               config=tgg.GroupGemmConfig(8, ragged=rag, **fields))
+            got = tgg.group_gemm(ra, rb, e, valid_rows=v,
+                                 config=tgg.GroupGemmConfig(8, ragged=rag, **fields))
+            assert torch.equal(got, padded), (fields, rag)
     # the ragged forward itself runs: the whole block live is the padded one
     assert torch.equal(tgg.group_gemm(a, b, e, valid_rows=v, config=ragged),
                        tgg.group_gemm(a, b, e, config=tgg.GroupGemmConfig(8)))

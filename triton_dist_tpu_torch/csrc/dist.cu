@@ -38,6 +38,16 @@
 //                                         the scale before the combine
 //                                         kernel's routing weights multiply
 //                                         the rows (gg_pipeline.py:718-721)
+//   K32 K9/K25/K30 with spans:          ≙ ops/gg_pipeline.py:288 with
+//       tdt_ag_group_gemm_consumer        len(spans) > 1 (the chunk protocol,
+//       over a span list                  :398-421), spans from
+//                                         ops/common.py:449 resolve_spans
+//                                         (launched at
+//                                         ops/allgather_group_gemm.py:235)
+//   K33 K10/K26/K31 with spans:         ≙ ops/gg_pipeline.py:576 with
+//       tdt_moe_combine_push_chunked,     len(spans) > 1 (the chunked push,
+//       tdt_moe_rs_reduce_chunked         :746-847), launched at
+//                                         ops/moe_reduce_rs.py:236
 //   K12 tdt_scatter_reduce              ≙ ops/reduce_scatter.py:227
 //                                         _scatter_reduce_kernel, launched
 //                                         at :410 (its puts are
@@ -116,6 +126,8 @@
 namespace {
 
 using namespace tdt;
+using shmem::MAX_SPANS;
+using shmem::Spans;
 using shmem::WaitCtx;
 
 constexpr int MAX_WORLD = 8;
@@ -161,33 +173,46 @@ __global__ void all_gather_collect_kernel(unsigned char* out, long long shard_by
                           shard_bytes);
 }
 
-// -------------------------------------------------------------- K6, K9 ----
+// -------------------------------------------------------- K6, K9, K32 ----
 // out[c*m_loc:(c+1)*m_loc] = ws[c*m_loc:(c+1)*m_loc] @ b for every shard
 // c, shards in arrival order me, me-1, ..., tiles of a shard n-fastest.
 // GROUPED (K9): b is an expert bank and the B of a tile is the one its row
 // block names in shard c's expert ids (g.ids + c * m_loc / block_m); with
 // a one-byte bank (K25) the same expert's scale row folds into the store.
+// One span (sp.n 1): one flag a shard, flags[c]. Spans (K32): flag
+// flags[c * MAX_SPANS + j] for span j of shard c, waited before the first
+// tile of the span, after chunk 0 of the shard.
 template <class E, typename TB, typename TOut, bool GROUPED>
 __global__ void __launch_bounds__(E::THREADS, 1)
     ag_gemm_kernel(const typename E::TIn* __restrict__ ws, const TB* __restrict__ b,
                    const float* __restrict__ scale, TOut* __restrict__ out, int m_loc, int n,
                    int k, int vec, int world, int me, const int* flags, int epoch, WaitCtx w,
-                   Groups g, int jitter) {
+                   Groups g, Spans sp, int jitter) {
   shmem::comm_jitter(me, 8, jitter, world);  // K6's; K9 passes 0
   const int tiles_n = cdiv(n, E::BN);
   const int per_shard = cdiv(m_loc, E::BM) * tiles_n;
   const int total = per_shard * world;
   const AddList<TOut> none = {};
-  int waited = -1;
+  int waited = -1, waited_shard = -1;
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
     const int step = t / per_shard, r = t % per_shard;
     const int c = (me - step + world) % world;
-    if (c != waited) {  // flags only rise: one wait per shard and block
-      shmem::wait_block(flags + c, epoch, w, world + c, shmem::KIND_WAIT);
-      waited = c;
+    const int m0 = (r / tiles_n) * E::BM, n0 = (r % tiles_n) * E::BN;
+    int slot = c;
+    if (sp.n > 1) {
+      int j = 0;
+      while (j < sp.n - 1 && m0 >= sp.off[j] + sp.rows[j]) ++j;
+      slot = c * MAX_SPANS + j;
+      if (j > 0 && c != waited_shard)  // chunk 0 first: a late shard names its chunk-0 site
+        shmem::wait_block(flags + c * MAX_SPANS, epoch, w, world + c * MAX_SPANS,
+                          shmem::KIND_WAIT);
+    }
+    if (slot != waited) {  // flags only rise: one wait per (shard, span) and block
+      shmem::wait_block(flags + slot, epoch, w, world + slot, shmem::KIND_WAIT);
+      waited = slot;
+      waited_shard = c;
     }
     __syncthreads();  // the previous tile's last reads of shared memory
-    const int m0 = (r / tiles_n) * E::BM, n0 = (r % tiles_n) * E::BN;
     TOut* out_c = out + (size_t)c * m_loc * n;
     size_t b_off = 0;
     const float* srow = nullptr;
@@ -249,9 +274,10 @@ __global__ void __launch_bounds__(E::THREADS, 1)
 // into the destination's landing slot (a peer's memory), fenced at
 // system scope so the flag raised after this kernel orders after them.
 template <typename TOut>
-__global__ void moe_combine_kernel(const float* __restrict__ y, const int* __restrict__ rows,
-                                   const float* __restrict__ w, TOut* dst, int h, int topk) {
-  const int t = blockIdx.y;
+__device__ __forceinline__ void combine_token(const float* __restrict__ y,
+                                              const int* __restrict__ rows,
+                                              const float* __restrict__ w, TOut* dst, int h,
+                                              int topk, int t) {
   const int* r = rows + (size_t)t * topk;
   for (int col = blockIdx.x * blockDim.x + threadIdx.x; col < h; col += gridDim.x * blockDim.x) {
     float acc = 0.f;
@@ -261,7 +287,27 @@ __global__ void moe_combine_kernel(const float* __restrict__ y, const int* __res
     }
     dst[(size_t)t * h + col] = from_f32<TOut>(acc);
   }
+}
+
+template <typename TOut>
+__global__ void moe_combine_kernel(const float* __restrict__ y, const int* __restrict__ rows,
+                                   const float* __restrict__ w, TOut* dst, int h, int topk) {
+  combine_token(y, rows, w, dst, h, topk, blockIdx.y);
   shmem::quiet();
+}
+
+// K33: the same combine for a peer destination, blockIdx.y walking the
+// tokens span by span in the list order of `sp`; the block that stores the
+// last of span j's gridDim.x * rows[j] pieces raises f's slot j.
+template <typename TOut>
+__global__ void moe_combine_chunked_kernel(const float* __restrict__ y,
+                                           const int* __restrict__ rows,
+                                           const float* __restrict__ w, TOut* dst, int h,
+                                           int topk, Spans sp, shmem::ChunkFlags f) {
+  int i = blockIdx.y, j = 0;
+  while (i >= sp.rows[j]) i -= sp.rows[j++];
+  combine_token(y, rows, w, dst, h, topk, sp.off[j] + i);
+  shmem::chunk_piece_done(f, 0, j, gridDim.x * sp.rows[j]);
 }
 
 // out[i] = slots[0][i] + ... + slots[world-1][i] in f32 (slot r: rank r's
@@ -280,6 +326,31 @@ __global__ void moe_rs_reduce_kernel(const TOut* __restrict__ slots, TOut* __res
     float acc = to_f32<TOut>(slots[i]);
     for (int r = 1; r < world; ++r) acc = __fadd_rn(acc, to_f32<TOut>(slots[r * count + i]));
     out[i] = from_f32<TOut>(acc);
+  }
+}
+
+// K33's reduce: the spans in list order; for each, every block waits for
+// every peer's slot d * MAX_SPANS + j, then sums the span's rows of the n
+// slots in rank order in f32, as K10 does (slot stride `count`).
+template <typename TOut>
+__global__ void moe_rs_reduce_chunked_kernel(const TOut* __restrict__ slots,
+                                             TOut* __restrict__ out, long long count, int h,
+                                             int world, int me, const int* flags, Spans sp,
+                                             int epoch, WaitCtx w) {
+  const int d = threadIdx.x;
+  for (int j = 0; j < sp.n; ++j) {
+    const int slot = d * MAX_SPANS + j;
+    if (d < world && d != me)
+      shmem::wait_until_ge(flags + slot, epoch, w, world + slot, shmem::KIND_SIGNAL);
+    __threadfence();
+    __syncthreads();
+    const long long lo = (long long)sp.off[j] * h, hi = lo + (long long)sp.rows[j] * h;
+    for (long long i = lo + blockIdx.x * (long long)blockDim.x + threadIdx.x; i < hi;
+         i += (long long)gridDim.x * blockDim.x) {
+      float acc = to_f32<TOut>(slots[i]);
+      for (int r = 1; r < world; ++r) acc = __fadd_rn(acc, to_f32<TOut>(slots[r * count + i]));
+      out[i] = from_f32<TOut>(acc);
+    }
   }
 }
 
@@ -340,6 +411,34 @@ WaitCtx wait_ctx(void* diag, long long timeout_ns, int rank, int family) {
 // caller's co-residency cap
 int persistent_grid(int tiles, int max_blocks) {
   return tiles < max_blocks ? tiles : (max_blocks > 0 ? max_blocks : 1);
+}
+
+// A span list (host int32[2 * n]: (offset, rows) pairs) that tiles [0,
+// rows) exactly, in any order, into `sp`; `quantum` > 1 also asks for
+// ascending spans whose boundaries are multiples of it (K32's tiles).
+bool make_spans(const int* spans, int n_spans, int rows, int quantum, Spans& sp) {
+  if (n_spans < 1 || n_spans > MAX_SPANS || spans == nullptr) return false;
+  sp.n = n_spans;
+  long long total = 0;
+  for (int j = 0; j < MAX_SPANS; ++j) {
+    sp.off[j] = j < n_spans ? spans[2 * j] : 0;
+    sp.rows[j] = j < n_spans ? spans[2 * j + 1] : 0;
+    if (j >= n_spans) continue;
+    if (sp.rows[j] < 1 || sp.off[j] < 0 || sp.off[j] + sp.rows[j] > rows) return false;
+    if (quantum > 1 && (sp.off[j] != total || sp.off[j] % quantum != 0)) return false;
+    for (int i = 0; i < j; ++i)
+      if (sp.off[j] < sp.off[i] + sp.rows[i] && sp.off[i] < sp.off[j] + sp.rows[j]) return false;
+    total += sp.rows[j];
+  }
+  return total == rows;
+}
+
+Spans one_span(int rows) {
+  Spans sp = {};
+  sp.off[0] = 0;
+  sp.rows[0] = rows;
+  sp.n = 1;
+  return sp;
 }
 
 }  // namespace
@@ -416,8 +515,8 @@ template <bool GROUPED>
 cudaError_t launch_ag_consumer(const void* ws, const void* b, const float* scale, void* out,
                                int m_loc, int n, int k, int in_dtype, int b_dtype,
                                int out_dtype, int world, int me, const void* flags, int epoch,
-                               int max_blocks, const WaitCtx& w, const Groups& g, int jitter,
-                               cudaStream_t s) {
+                               int max_blocks, const WaitCtx& w, const Groups& g,
+                               const Spans& sp, int jitter, cudaStream_t s) {
   return dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
     using E = decltype(e);
     using TOut = decltype(t);
@@ -438,7 +537,7 @@ cudaError_t launch_ag_consumer(const void* ws, const void* b, const float* scale
           <<<persistent_grid(tiles, max_blocks), E::THREADS, E::SMEM_BYTES, s>>>(
               static_cast<const typename E::TIn*>(ws), static_cast<const TB*>(b), scale,
               static_cast<TOut*>(out), m_loc, n, k, vec, world, me,
-              static_cast<const int*>(flags), epoch, w, g, jitter);
+              static_cast<const int*>(flags), epoch, w, g, sp, jitter);
       return cudaSuccess;
     };
     if constexpr (GROUPED) return dispatch_weights<typename E::TIn>(in_dtype, b_dtype, go);
@@ -459,7 +558,7 @@ extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, in
   const Groups none = {nullptr, 1, 1, nullptr};
   cudaError_t err = launch_ag_consumer<false>(
       ws, b, nullptr, out, m_loc, n, k, in_dtype, in_dtype, out_dtype, world, me, flags, epoch,
-      max_blocks, wait_ctx(diag, timeout_ns, me, family), none, jitter,
+      max_blocks, wait_ctx(diag, timeout_ns, me, family), none, one_span(m_loc), jitter,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -471,26 +570,32 @@ extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, in
 // b int8 / fp8 e4m3 (b_dtype) with its f32 scale bank [n_exp, 1, n] (n a
 // multiple of 16, b 16-byte aligned); otherwise b in the slabs' type and
 // scale null. K30: valid_rows int32 [world, t_pad_loc / block_m], each
-// block's live rows (null: padded).
+// block's live rows (null: padded). spans: host int32[2 * n_spans], the
+// (offset, rows) spans of a slab, ascending, contiguous, boundaries
+// multiples of 128; one span: flags is this rank's int32[world] arrival
+// flags (K9/K25/K30); more (K32): its int32[world * MAX_SPANS] (source,
+// span) flags.
 extern "C" int tdt_ag_group_gemm_consumer(const void* ws, const void* b, const void* scale,
                                           const void* expert_ids, const void* valid_rows,
                                           void* out, int t_pad_loc,
                                           int n, int k, int n_exp, int block_m, int in_dtype,
-                                          int b_dtype, int out_dtype, int world, int me,
+                                          int b_dtype, int out_dtype, const int* spans,
+                                          int n_spans, int world, int me,
                                           const void* flags, int epoch, int max_blocks,
                                           void* diag, long long timeout_ns, int family,
                                           void* stream) {
   const bool scaled = b_dtype == kI8 || b_dtype == kFP8;
+  Spans sp;
   if (world < 2 || world > MAX_WORLD || block_m <= 0 || block_m % 128 != 0 ||
       t_pad_loc % block_m != 0 || n_exp < 1 || scaled != (scale != nullptr) ||
-      (scaled && !byte_b_ok(b, n)))
+      (scaled && !byte_b_ok(b, n)) || !make_spans(spans, n_spans, t_pad_loc, 128, sp))
     return static_cast<int>(cudaErrorInvalidValue);
   const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp,
                     static_cast<const int*>(valid_rows)};
   cudaError_t err = launch_ag_consumer<true>(
       ws, b, static_cast<const float*>(scale), out, t_pad_loc, n, k, in_dtype, b_dtype,
       out_dtype, world, me, flags, epoch, max_blocks, wait_ctx(diag, timeout_ns, me, family), g,
-      0, static_cast<cudaStream_t>(stream));
+      sp, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -543,6 +648,67 @@ extern "C" int tdt_moe_combine_push(const void* y, const void* rows, const void*
     moe_combine_kernel<TOut><<<grid, 256, 0, s>>>(
         static_cast<const float*>(y), static_cast<const int*>(rows),
         static_cast<const float*>(w), static_cast<TOut*>(dst), h, topk);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K33, the combine of one peer destination span by span: the arguments of
+// tdt_moe_combine_push, the spans (host int32[2 * n_spans] (offset, rows)
+// tiling [0, m_out), in the policy's list order), peer_flags the
+// destination's int32[MAX_SPANS] slots of this rank (slot j for span j),
+// count this rank's int32[MAX_SPANS] piece counts for that destination
+// (zero between launches), epoch the launch's.
+extern "C" int tdt_moe_combine_push_chunked(const void* y, const void* rows, const void* w,
+                                            void* dst, int m_out, int h, int topk,
+                                            int out_dtype, const int* spans, int n_spans,
+                                            void* peer_flags, void* count, int epoch,
+                                            void* stream) {
+  Spans sp;
+  if (m_out < 1 || m_out > 65535 || h < 1 || topk < 1 || peer_flags == nullptr ||
+      count == nullptr || !make_spans(spans, n_spans, m_out, 1, sp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const shmem::ChunkFlags f = {nullptr, static_cast<int*>(peer_flags), static_cast<int*>(count),
+                               epoch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dispatch_out(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    const dim3 grid(cdiv(h, 256) < 8 ? cdiv(h, 256) : 8, m_out);
+    moe_combine_chunked_kernel<TOut><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(y), static_cast<const int*>(rows),
+        static_cast<const float*>(w), static_cast<TOut*>(dst), h, topk, sp, f);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K33, the owner's reduce: slots [world, m_out, h] in the output type (this
+// rank's landing slots), out [m_out, h]; flags this rank's int32[world *
+// MAX_SPANS] (source, span) flags; the spans as for the combine.
+extern "C" int tdt_moe_rs_reduce_chunked(const void* slots, void* out, int m_out, int h,
+                                         int out_dtype, int world, int me, const void* flags,
+                                         const int* spans, int n_spans, int epoch,
+                                         int max_blocks, void* diag, long long timeout_ns,
+                                         int family, void* stream) {
+  Spans sp;
+  if (world < 2 || world > MAX_WORLD || m_out < 1 || h < 1 ||
+      !make_spans(spans, n_spans, m_out, 1, sp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
+  const long long count = (long long)m_out * h;
+  cudaError_t err = dispatch_out(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    int widest = 0;
+    for (int j = 0; j < n_spans; ++j) widest = sp.rows[j] > widest ? sp.rows[j] : widest;
+    const long long want = ((long long)widest * h + 255) / 256;
+    const int blocks = persistent_grid(want < (1 << 30) ? static_cast<int>(want) : (1 << 30),
+                                       max_blocks);
+    moe_rs_reduce_chunked_kernel<TOut><<<blocks, 256, 0, s>>>(
+        static_cast<const TOut*>(slots), static_cast<TOut*>(out), count, h, world, me,
+        static_cast<const int*>(flags), sp, epoch, w);
     return cudaSuccess;
   });
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -4,8 +4,10 @@ configs. The MoE preset builds the tensor-parallel
 :class:`~triton_dist_tpu_torch.models.tp_transformer.MoETransformerConfig`;
 ``":ep"`` (or ``ep=True``) its expert-parallel deployment, an
 :class:`~triton_dist_tpu_torch.models.tp_transformer.EPMoETransformerConfig`
-(≙ ``:82-100``). ``":ep-hier"`` (the hierarchical dispatch over an (outer,
-inner) mesh) needs the 2-D rank runtime (ROADMAP A5) and raises.
+(≙ ``:82-100``). ``":ep-hier"`` and ``ep_outer=`` (the hierarchical
+dispatch over an (outer, inner) mesh) build a config that needs the 2-D
+rank runtime (ROADMAP A5), which refuses. ``tp_check=`` holds the config to a TP degree
+(:func:`validate_tp`, ≙ ``:45``).
 
     cfg = presets.preset("llama-3.1-8b", batch=8, n_layers=32)
     cfg = presets.preset("mixtral-8x7b", batch=8, n_layers=8)
@@ -39,6 +41,16 @@ _MOE = {
 PRESETS = tuple(sorted((*_DENSE, *_MOE)))
 
 
+def validate_tp(cfg: TransformerConfig, tp: int) -> None:
+    """Raise if the preset's global shapes do not divide across `tp` ranks
+    (≙ ``validate_tp``, ``:45``: kv heads bound attention TP; ``ffn``, the
+    width the dense and the expert MLPs share, bounds the MLP TP)."""
+    if cfg.n_kv_heads % tp:
+        raise ValueError(f"tp={tp} does not divide n_kv_heads={cfg.n_kv_heads}")
+    if cfg.ffn % tp:
+        raise ValueError(f"tp={tp} does not divide ffn={cfg.ffn}")
+
+
 def preset(
     name: str,
     *,
@@ -46,36 +58,43 @@ def preset(
     seq: int = 8192,
     n_layers: int | None = None,
     dtype: torch.dtype = torch.bfloat16,
+    tp_check: int | None = None,
     ep: bool = False,
+    ep_outer: str | None = None,
     **overrides,
 ) -> TransformerConfig:
     """Build the named model's config. `n_layers` defaults to 1 (one
     decoder block); pass the real depth for full-model runs. Extra keyword
     arguments override any config field (≙ ``:73``), e.g.
     ``ag_config=AGGemmConfig(chunks_per_shard=2)``. ``ep=True`` (or the
-    suffix ``":ep"``) builds an MoE preset's expert-parallel config."""
+    suffix ``":ep"``) builds an MoE preset's expert-parallel config;
+    ``tp_check`` raises the reference's ``ValueError`` when that TP degree
+    does not divide the shapes."""
     if name.endswith(":ep-hier"):
-        raise NotImplementedError(
-            f"preset {name!r}: hierarchical expert parallelism needs the 2-D "
-            f"DistContext (an outer and an inner axis, ROADMAP A5)"
-        )
-    if name.endswith(":ep"):
+        name, ep, ep_outer = name[:-len(":ep-hier")], True, ep_outer or "dcn"
+    elif name.endswith(":ep"):
         name, ep = name[:-len(":ep")], True
     if name in _MOE:
         h, f, q, kv, d, vocab, n_exp, topk = _MOE[name]
-        return (EPMoETransformerConfig if ep else MoETransformerConfig)(
+        if ep_outer is not None:  # the config refuses it (ROADMAP A5)
+            overrides = dict(overrides, ep_outer=ep_outer)
+        cfg = (EPMoETransformerConfig if ep or ep_outer else MoETransformerConfig)(
             vocab=vocab, hidden=h, ffn=f, n_layers=n_layers or 1,
             n_q_heads=q, n_kv_heads=kv, head_dim=d, batch=batch, seq=seq,
             dtype=dtype, n_experts=n_exp, topk=topk, **overrides,
         )
-    if name not in _DENSE:
+    elif name in _DENSE:
+        if ep or ep_outer:
+            raise ValueError(f"preset {name!r} is dense: expert parallelism applies to the "
+                             f"MoE presets {sorted(_MOE)}")
+        h, f, q, kv, d, vocab = _DENSE[name]
+        cfg = TransformerConfig(
+            vocab=vocab, hidden=h, ffn=f, n_layers=n_layers or 1,
+            n_q_heads=q, n_kv_heads=kv, head_dim=d, batch=batch, seq=seq,
+            dtype=dtype, **overrides,
+        )
+    else:
         raise KeyError(f"unknown preset {name!r}; have {PRESETS}")
-    if ep:
-        raise ValueError(f"preset {name!r} is dense: expert parallelism applies to the MoE "
-                         f"presets {sorted(_MOE)}")
-    h, f, q, kv, d, vocab = _DENSE[name]
-    return TransformerConfig(
-        vocab=vocab, hidden=h, ffn=f, n_layers=n_layers or 1,
-        n_q_heads=q, n_kv_heads=kv, head_dim=d, batch=batch, seq=seq,
-        dtype=dtype, **overrides,
-    )
+    if tp_check is not None:
+        validate_tp(cfg, tp_check)
+    return cfg

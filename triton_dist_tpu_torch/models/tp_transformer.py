@@ -110,9 +110,6 @@ class MoETransformerConfig(TransformerConfig):
     topk: int = 2
     gg_config: object = None
 
-    def __post_init__(self):
-        check_config(self.gg_config)
-
 
 @dataclasses.dataclass(frozen=True)
 class EPMoETransformerConfig(MoETransformerConfig):
@@ -130,7 +127,6 @@ class EPMoETransformerConfig(MoETransformerConfig):
     ep_quant: str | None = None
 
     def __post_init__(self):
-        super().__post_init__()
         if self.ep_outer is not None:
             raise NotImplementedError(
                 f"ep_outer={self.ep_outer!r}: hierarchical EP needs the 2-D DistContext "

@@ -52,6 +52,7 @@ from triton_dist_tpu_torch.ops.common import (
     symmetric_flags,
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, _matmul_plain, check_operands
+from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
 from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
 
 
@@ -135,31 +136,43 @@ def ag_gemm(
 ag_gemm.launches = 0
 
 
-def push_shards(ctx, a: torch.Tensor, family: str):
-    """The producer side of K6 and K9, on the rank's comm stream: once `a`
-    is ready, the family's entry barrier (every rank has finished reading
-    its gather workspace from the previous call), one copy-engine put of
-    `a` into slot ``me`` of every rank's workspace and a one-warp kernel
-    that raises each rank's flag ``me`` to this launch's epoch; then the
-    host rendezvous (every rank's producer is issued before any consumer
-    waits). Returns ``(launch, this rank's gathered workspace [world *
-    rows, K], this rank's flag address)``."""
+def push_shards(ctx, a: torch.Tensor, family: str, spans=None):
+    """The producer side of K6, K9 and K32, on the rank's comm stream: once
+    `a` is ready, the family's entry barrier (every rank has finished
+    reading its gather workspace from the previous call), one copy-engine
+    put of `a` into slot ``me`` of every rank's workspace and a one-warp
+    kernel that raises each rank's flag ``me`` to this launch's epoch; then
+    the host rendezvous (every rank's producer is issued before any
+    consumer waits). With more than one of `spans` (``(offset, rows)`` of
+    `a`'s rows, K32), one put per span in list order instead, each raising
+    slot ``me * MAX_SPANS + j`` of every rank's chunk flags, and the waits
+    record the family ``{family}_chunked``. Returns ``(launch, this rank's
+    gathered workspace [world * rows, K], this rank's flag address)``."""
     n, me = ctx.world, ctx.rank
     shard = a.numel() * a.element_size()
+    row = shard // max(1, a.shape[0])
     ws = ctx.symmetric(f"{family}.ws", n * shard)
     arrive = symmetric_flags(ctx, f"{family}.arrive")
-    flags = symmetric_flags(ctx, f"{family}.flags")
-    launch = dist_launch(ctx, family)
+    if spans is None or len(spans) == 1:
+        flags = symmetric_flags(ctx, f"{family}.flags")
+        puts = [(0, a.shape[0], 4 * me)]
+        launch = dist_launch(ctx, family)
+    else:
+        flags = ctx.symmetric(f"{family}.chunk_flags", 4 * n * MAX_SPANS)
+        puts = [(off, rows, 4 * (me * MAX_SPANS + j)) for j, (off, rows) in enumerate(spans)]
+        launch = dist_launch(ctx, family, f"{family}_chunked")
     comp, comm = torch.cuda.current_stream(), ctx.comm_stream
     ready = torch.cuda.Event()
     ready.record(comp)
     comm.wait_event(ready)
     launch_barrier(ctx, launch, arrive, comm)
-    dsts = (ctypes.c_longlong * n)(*[ws.peer_addr(p, me * shard) for p in range(n)])
-    sigs = (ctypes.c_longlong * n)(*[flags.peer_addr(p, 4 * me) for p in range(n)])
-    rc = launch.lib.tdt_put_signal(n, dsts, a.data_ptr(), shard, n, sigs, launch.epoch,
-                                   stream_ptr(comm))
-    _build.check(launch.lib, rc, f"{family} put")
+    for off, rows, slot in puts:
+        dsts = (ctypes.c_longlong * n)(*[ws.peer_addr(p, me * shard + off * row)
+                                         for p in range(n)])
+        sigs = (ctypes.c_longlong * n)(*[flags.peer_addr(p, slot) for p in range(n)])
+        rc = launch.lib.tdt_put_signal(n, dsts, a.data_ptr() + off * row, rows * row, n, sigs,
+                                       launch.epoch, stream_ptr(comm))
+        _build.check(launch.lib, rc, f"{family} put")
     a.record_stream(comm)
     ctx.rendezvous()
     gathered = ws.view(me, (n * a.shape[0], *a.shape[1:]), a.dtype)

@@ -6,7 +6,10 @@ kernel goes through (≙ ``dist_pallas_call``, ``:72``), the standalone
 device barrier ``barrier_all_op`` (``:913``, kernel ``:918``) → K4, and
 what the ring kernels K15–K23 share: the span schedule (``chunk_schedule``,
 ``:283``), the per-launch flag sets of ``csrc/ring.cu`` in one direction or
-both, and the ring's hop-order sum that their plain versions follow.
+both, and the ring's hop-order sum that their plain versions follow; and
+the span policies of the chunked MoE overlap kernels K32/K33
+(``span_window_schedule`` … ``resolve_spans``, ``:327-465``), the same
+spans for the same arguments.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from triton_dist_tpu_torch import _build, config
 from triton_dist_tpu_torch.ops.gemm import matmul
+from triton_dist_tpu_torch.parallel.topology import torus_factor
 from triton_dist_tpu_torch.resilience import watchdog
 from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
 from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, pick_block
@@ -34,8 +38,13 @@ DIST_PROTOTYPES = {
     "tdt_ag_gemm_consumer": [_P] * 3 + [_I] * 7 + [_P, _I, _I, _I] + _WAIT,
     "tdt_gemm_rs_reduce": [_P] * 3 + [_I] * 6 + [ctypes.POINTER(_P), _I, _P, _I, _I, _I]
     + _WAIT,
-    "tdt_ag_group_gemm_consumer": [_P] * 6 + [_I] * 10 + [_P, _I, _I] + _WAIT,
+    "tdt_ag_group_gemm_consumer": [_P] * 6 + [_I] * 8 + [ctypes.POINTER(_I), _I, _I, _I, _P,
+                                                         _I, _I] + _WAIT,
     "tdt_moe_combine_push": [_P] * 4 + [_I] * 4 + [_P],
+    "tdt_moe_combine_push_chunked": [_P] * 4 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P, _P, _I,
+                                                           _P],
+    "tdt_moe_rs_reduce_chunked": [_P, _P] + [_I] * 5 + [_P, ctypes.POINTER(_I), _I, _I, _I]
+    + _WAIT,
     "tdt_moe_rs_reduce": [_P, _P, _LL, _I, _I, _I, _P, _I, _I] + _WAIT,
     "tdt_scatter_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _I, _I, _I] + _WAIT,
     "tdt_sleep": [_LL, _P],
@@ -92,12 +101,14 @@ class Launch:
     jitter: int
 
 
-def dist_launch(ctx, family: str) -> Launch:
-    """Open one launch of `family` on this rank (inside ``ctx.run``)."""
+def dist_launch(ctx, family: str, wait_family: str | None = None) -> Launch:
+    """Open one launch of `family` on this rank (inside ``ctx.run``); its
+    bounded waits record `wait_family` (default `family`: a chunked launch
+    shares its one-span twin's epochs but names its own wait sites)."""
     r = ctx.rank
     return Launch(
         dist_lib(), r, ctx.world, ctx.next_epoch(family),
-        watchdog.wait_args(ctx.diag[r], family), int(config.debug_comm_delay),
+        watchdog.wait_args(ctx.diag[r], wait_family or family), int(config.debug_comm_delay),
     )
 
 
@@ -215,6 +226,121 @@ def chunk_schedule(rows: int, chunks: int, quantum: int = 1) -> tuple[tuple[int,
     return tuple(spans)
 
 
+def span_window_schedule(rows: int, chunks: int,
+                         quantum: int = 1) -> tuple[tuple[int, int], ...]:
+    """The ``window`` policy (≙ ``span_window_schedule``, ``:327``):
+    contiguous ascending spans whose sizes roughly double, the first as
+    small as the quantum allows, so the consumer's first wait covers the
+    smallest span; the last span takes the remainder and the sub-quantum
+    tail. One chunk (or too few quanta) is :func:`chunk_schedule`."""
+    if rows < 1:
+        raise ValueError(f"span_window_schedule: rows must be >= 1, got {rows}")
+    if chunks < 1:
+        raise ValueError(f"span_window_schedule: chunks must be >= 1, got {chunks}")
+    quantum = max(1, min(int(quantum), rows))
+    units = rows // quantum
+    chunks = min(chunks, max(1, units))
+    if chunks == 1:
+        return chunk_schedule(rows, 1, quantum)
+    weights = [1 << j for j in range(chunks)]
+    total_w = sum(weights)
+    sizes = [max(1, (units * w) // total_w) for w in weights[:-1]]
+    head = sum(sizes)
+    if head >= units:  # tiny unit budgets: near-equal spans
+        return chunk_schedule(rows, chunks, quantum)
+    sizes.append(units - head)
+    spans, off = [], 0
+    for j, sz_units in enumerate(sizes):
+        sz = sz_units * quantum
+        if j == chunks - 1:
+            sz += rows - units * quantum
+        spans.append((off, sz))
+        off += sz
+    return tuple(spans)
+
+
+def span_interleave_schedule(rows: int, chunks: int,
+                             quantum: int = 1) -> tuple[tuple[int, int], ...]:
+    """The ``interleave`` policy (≙ ``span_interleave_schedule``, ``:370``):
+    :func:`chunk_schedule`'s spans issued alternately from both ends, ``c0,
+    c_{k-1}, c1, c_{k-2}, ...``. Valid only where the consumer drains
+    chunks by slot index (the MoE combine side)."""
+    base = chunk_schedule(rows, chunks, quantum)
+    if len(base) <= 2:
+        return base
+    order, lo, hi = [], 0, len(base) - 1
+    while lo <= hi:
+        order.append(lo)
+        if hi != lo:
+            order.append(hi)
+        lo, hi = lo + 1, hi - 1
+    return tuple(base[i] for i in order)
+
+
+def span_torus2d_schedule(rows: int, chunks: int, quantum: int = 1,
+                          world: int = 1) -> tuple[tuple[int, int], ...]:
+    """The ``torus2d`` policy (≙ ``span_torus2d_schedule``, ``:397``):
+    ``chunks x inner`` near-equal contiguous spans, ``inner`` the inner
+    dimension of the world's most-square factorization
+    (:func:`~triton_dist_tpu_torch.parallel.topology.torus_factor`)."""
+    _, inner = torus_factor(max(1, int(world)))
+    return chunk_schedule(rows, max(1, int(chunks)) * inner, quantum)
+
+
+# the policies ``GroupGemmConfig.span_policy`` names (≙ ``SPAN_POLICIES``,
+# ``:420``): (schedule, needs the world, contiguous and ascending)
+SPAN_POLICIES = {
+    "contig": (chunk_schedule, False, True),
+    "window": (span_window_schedule, False, True),
+    "interleave": (span_interleave_schedule, False, False),
+    "torus2d": (span_torus2d_schedule, True, True),
+}
+
+
+def validate_span_policy(policy: str, side: str) -> None:
+    """Unknown policies, and an order-permuting one on the AG side, raise
+    the reference's ``ValueError`` (≙ ``validate_span_policy``, ``:428``).
+    The overlap entries call it before anything runs."""
+    try:
+        _, _, ascending = SPAN_POLICIES[policy]
+    except KeyError:
+        raise ValueError(
+            f"unknown span_policy {policy!r}; known: {sorted(SPAN_POLICIES)}"
+        ) from None
+    if side == "ag" and not ascending:
+        raise ValueError(
+            f"span_policy {policy!r} emits non-contiguous span order, which "
+            f"the AG gather-group schedule cannot consume (its group "
+            f"coverage is derived from ascending span offsets); valid "
+            f"sides: moe_rs"
+        )
+
+
+def resolve_spans(rows: int, chunks: int, quantum: int, *, policy: str = "contig",
+                  world: int = 1, side: str = "moe_rs") -> tuple[tuple[int, int], ...]:
+    """The spans of one overlap launch under ``policy`` (≙
+    ``resolve_spans``, ``:449``); ``side="ag"`` refuses the
+    order-permuting policies. ``"contig"`` is :func:`chunk_schedule`."""
+    validate_span_policy(policy, side)
+    fn, needs_world, _ = SPAN_POLICIES[policy]
+    if needs_world:
+        return fn(rows, chunks, quantum, world)
+    return fn(rows, chunks, quantum)
+
+
+def span_array(spans) -> ctypes.Array:
+    """A span list as the kernels take it: int32 ``(offset, rows)`` pairs."""
+    flat = [v for span in spans for v in span]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def check_span_count(spans, what: str) -> None:
+    """The chunked kernels keep at most MAX_SPANS flag slots a source."""
+    if len(spans) > MAX_SPANS:
+        raise ValueError(f"{what}: {len(spans)} spans; the chunked kernels take at most "
+                         f"{MAX_SPANS} a slab")
+
+
 def ring_spans(m_loc: int, chunks_per_shard: int, block_m: int) -> tuple[tuple[int, int], ...]:
     """The spans of one ring hop's `m_loc` rows, quantized as the JAX
     callers quantize them (``ops/allgather_gemm.py:443-451``,
@@ -285,10 +411,9 @@ def ring_launch(ctx, family: str, spans, directions: int = 1) -> RingLaunch:
         count_l = ctx.symmetric(f"{family}.count_left", slots)
         flags_left = (entry.peer_addr(me, 4 * left), entry.peer_addr(right, 4 * me),
                       arrive_l.peer_addr(me), arrive_l.peer_addr(left), count_l.peer_addr(me))
-    flat = [v for span in spans for v in span]
     return RingLaunch(
         dist_launch(ctx, family), ring_lib(), left, right,
         (entry.peer_addr(me, 4 * right), entry.peer_addr(left, 4 * me),
          arrive.peer_addr(me), arrive.peer_addr(right), count.peer_addr(me)),
-        flags_left, (ctypes.c_int * len(flat))(*flat), len(spans),
+        flags_left, span_array(spans), len(spans),
     )

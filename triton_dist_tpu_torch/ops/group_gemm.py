@@ -27,10 +27,17 @@ it (``:286``): ``torch.int8`` is w8, ``torch.float8_e4m3fn`` fp8, each with
 an f32 ``scale [E, 1, N]``; ``config.w8``/``.fp8`` quantize a float bank at
 the op boundary (:func:`resolve_w8`). Under ``config.ragged`` the kernel
 skips every 128-row tile at or past its block's live count and writes it
-as zeros; dead rows of a live tile are zeroed after the scale fold. The
-``ragged_dot`` backend, the chunked overlap schedules (``chunks_per_shard >
-1``, span policies) and the ragged weight gradient are not ported: asking
-for them raises ``NotImplementedError`` naming their ROADMAP item.
+as zeros; dead rows of a live tile are zeroed after the scale fold.
+
+``config.backend="ragged_dot"`` is the JAX package's XLA sentinel
+(``_ragged_dot_group_gemm``, ``:177``): not a Pallas kernel but
+``jax.lax.ragged_dot`` over the same padded layout, so the port serves it
+with plain PyTorch (:func:`_group_gemm_plain`), on the card too. It needs
+globally expert-sorted blocks, and ignores ``ragged``. The chunked
+overlap schedules (``chunks_per_shard``, ``span_policy``) are read by the
+overlapped pair (K32/K33); this grid GEMM has nothing to chunk. The ragged
+weight gradient is not ported: asking for it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -65,9 +72,10 @@ WEIGHT_ROW_QUANTUM = 16
 @dataclasses.dataclass(frozen=True)
 class GroupGemmConfig:
     """The JAX package's grouped-GEMM config, field for field (positional
-    constructions keep their meaning). The ported path reads ``block_m``,
-    ``ragged`` and the formats; :func:`check_config` refuses the options
-    that are not ported."""
+    constructions keep their meaning). The kernels read ``block_m``,
+    ``ragged``, the formats and ``backend``; the overlapped pair also
+    ``chunks_per_shard`` and ``span_policy``. The TPU tiles ``block_n`` /
+    ``block_k`` are carried for the mapping only."""
 
     block_m: int = 128
     block_n: int = 1024
@@ -85,20 +93,8 @@ class GroupGemmConfig:
 
 
 def check_config(cfg: GroupGemmConfig | None) -> GroupGemmConfig:
-    """``cfg`` (default ``GroupGemmConfig()``), or ``NotImplementedError``
-    for an option that is not ported."""
-    cfg = cfg or GroupGemmConfig()
-    refused = (
-        (cfg.backend != "pallas", f"backend={cfg.backend!r}", "B16, ragged_dot"),
-        (cfg.chunks_per_shard != 1, "chunks_per_shard > 1", "B17/B18, chunked"),
-        (cfg.span_policy != "contig", f"span_policy={cfg.span_policy!r}",
-         "B17/B18, span policies"),
-    )
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(
-                f"grouped GEMM {what} is not ported yet (ROADMAP {item})")
-    return cfg
+    """``cfg``, or the default ``GroupGemmConfig()``."""
+    return cfg or GroupGemmConfig()
 
 
 def _absmax_scale(bf: torch.Tensor, q_max: float) -> torch.Tensor:
@@ -282,8 +278,24 @@ def group_gemm(
     ragged=True)``) bounds each block's live rows: a 128-row tile at or
     past it is not computed and comes back zero, and so do the dead rows
     of a live tile, after the scale fold. Live rows equal the padded
-    kernel's bit for bit (the same tile, the same sum order)."""
+    kernel's bit for bit (the same tile, the same sum order).
+
+    With ``config.backend="ragged_dot"`` this is
+    :func:`_group_gemm_plain`, plain PyTorch on any device, ``ragged``
+    ignored."""
     cfg = check_config(config)
+    if cfg.backend == "ragged_dot":
+        t_pad, nb = a_sorted.shape[0], expert_ids.shape[0]
+        if nb == 0 or t_pad % nb or t_pad // nb != cfg.block_m:
+            raise ValueError(f"rows per block of {t_pad} rows in {nb} blocks != config.block_m "
+                             f"{cfg.block_m}: alignment and GEMM must use the same block size")
+        # the sentinel's contract on globally expert-sorted blocks (``:177``:
+        # pad rows are rows of their block's clamped expert, a scaled bank
+        # upcast, the scale folded per row after the f32 product) is the
+        # plain twin's: the same per-expert f32 products of the same rows
+        b, scale = resolve_w8(b, scale, cfg)
+        return _group_gemm_plain(a_sorted, b, expert_ids, cfg.block_m,
+                                 out_dtype or a_sorted.dtype, act_fn, scale)
     if cfg.ragged and valid_rows is None:
         raise ValueError(
             "GroupGemmConfig.ragged needs the alignment's per-block valid_rows map — build "

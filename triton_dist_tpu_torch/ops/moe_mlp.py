@@ -11,7 +11,11 @@ as K10. ``overlap=False`` takes the sequential composition at any world
 ring, then K8) over the global alignment, then ``moe_reduce_rs`` with the
 GELU fused into the down-projection's A tiles (K8) and its
 reduce-scatter (K12, or K18 on a ring). World 1 has nothing to overlap
-and always takes the sequential composition, as ``:288-294`` routes it.
+and always takes the sequential composition, as ``:288-294`` routes it;
+so does ``gg_config.backend="ragged_dot"`` (``:295-302``: the sentinel
+needs globally expert-sorted blocks). ``gg_config.chunks_per_shard`` and
+``span_policy`` reach the overlapped pair, which takes K32/K33 wherever a
+slab or a partial holds more than one span.
 
 Asked for them, both also return the residuals the backward needs
 (``ops/grads.py``'s ``tp_moe_mlp_grad``); serving does not ask, and pays
@@ -98,7 +102,7 @@ def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, resi
     m_loc = x.shape[0]
     topk = topk_ids.shape[1]
     tw_full = topk_weights if n == 1 else ctx.all_gather(topk_weights, 0)
-    if n > 1 and overlap:
+    if n > 1 and overlap and cfg.backend == "pallas":
         ids_full = ctx.all_gather(topk_ids, 0)
         ral = moe_align_ranked(ids_full.reshape(n, m_loc * topk), w_up.shape[0], cfg.block_m,
                                m_loc, ragged=cfg.ragged)
@@ -121,7 +125,8 @@ def _tp_moe_forward_impl(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, resi
                                                       gather_output=True, scale=w_up_scale)
         out = moe_reduce_rs(h_sorted, w_down, alignment, tw_full, ctx=ctx, n_tokens=n * m_loc,
                             config=cfg, out_dtype=x.dtype, act_fn=gelu, scale=w_down_scale)
-    rows = alignment.local_ids.numel() if n > 1 and overlap else h_sorted.shape[0]
+    rows = alignment.local_ids.numel() if isinstance(alignment, RankedAlignment) else (
+        h_sorted.shape[0])
     count_launch(tp_moe_mlp, "rows", rows)
     count_launch(tp_moe_mlp, "assignments", n * m_loc * topk)
     count_rows(tp_moe_mlp, "live_rows", axis_index(ctx), rows if alignment.valid_rows is None

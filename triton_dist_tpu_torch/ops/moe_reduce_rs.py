@@ -39,6 +39,18 @@ rows as zeros. The combine reads only the rows of real assignments, all
 live, so the overlapped entry (K31) gives K10's output bit for bit, and it
 still pushes and flags every destination, even one whose blocks are all
 dead (its receiver waits for it).
+
+The overlapped entry reads ``config.chunks_per_shard`` and
+``config.span_policy`` as the JAX package does (``:180-192``): the m_out
+token rows of a destination's partial are cut into the spans of
+``ops/common.py::resolve_spans`` (quantum 128, every policy; one span at
+world 1). More than one span takes K33 (``csrc/dist.cu``): each peer
+destination's combine pushes span by span in the policy's list order, the
+block that lands a span's last piece raising that span's flag, and the
+reduce drains span by span; the output equals K10/K26/K31's bit for bit.
+Unknown policies raise the reference's ``ValueError`` before anything
+runs, and so does the ``ragged_dot`` backend (no fused form: ``tp_moe_mlp``
+routes it to the sequential composition).
 """
 
 from __future__ import annotations
@@ -49,12 +61,16 @@ import torch
 
 from triton_dist_tpu_torch import _build
 from triton_dist_tpu_torch.ops.common import (
+    check_span_count,
     dist_launch,
     dist_lib,
     launch_barrier,
     max_consumer_blocks,
+    resolve_spans,
+    span_array,
     stream_ptr,
     symmetric_flags,
+    validate_span_policy,
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE
 from triton_dist_tpu_torch.ops.group_gemm import (
@@ -68,6 +84,7 @@ from triton_dist_tpu_torch.ops.group_gemm import (
 )
 from triton_dist_tpu_torch.ops.moe_utils import MoEAlignment, scatter_add_unsorted
 from triton_dist_tpu_torch.ops.reduce_scatter import reduce_scatter
+from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
 from triton_dist_tpu_torch.utils import axis_index, axis_size, count_call, count_launch
 
 
@@ -160,18 +177,28 @@ def moe_reduce_rs_overlap(
     ``scale`` (``[E, 1, H]``) marks `w_down` as an int8/fp8 pool (K26), as
     does ``config.w8``/``.fp8`` over this rank's float shard
     (``:300-342``). ``config.ragged`` needs ``valid_rows`` ``[n, nb]`` (the
-    ranked alignment's map) and takes K31."""
+    ranked alignment's map) and takes K31. Partials cut into more than one
+    span (``config.chunks_per_shard``, ``config.span_policy``) take K33 on
+    the card, in every format, padded or ragged."""
     cfg = check_config(config)
     out_dtype = out_dtype or h_sorted.dtype
     bm = dst_ids.shape[2]
     if bm != cfg.block_m:
         raise ValueError(f"alignment block {bm} != config.block_m {cfg.block_m}")
+    if cfg.backend != "pallas":
+        raise ValueError(
+            "the ragged_dot sentinel backend has no fused overlap form — "
+            "route it through the sequential composition (tp_moe_mlp does "
+            "this automatically); timing the Pallas pipeline under the "
+            "sentinel's label would falsify the A/B"
+        )
     if cfg.ragged and valid_rows is None:
         raise ValueError("GroupGemmConfig.ragged needs the ranked alignment's valid_rows map "
                          "(moe_align_ranked(..., ragged=True))")
     valid_rows = valid_rows if cfg.ragged else None
     w_down, scale = resolve_w8(w_down, scale, cfg)
     check_scale(w_down, scale, "moe_reduce_rs_overlap")
+    validate_span_policy(cfg.span_policy, "moe_rs")
     if h_sorted.device.type == "cpu":
         return _moe_rs_overlap_xla(h_sorted, w_down, expert_ids, dst_ids, w_rows, ctx, m_out,
                                    out_dtype, scale, valid_rows)
@@ -180,18 +207,23 @@ def moe_reduce_rs_overlap(
     if combine_rows is None:
         raise ValueError("moe_reduce_rs_overlap on the card combines by the inverse rows: "
                          "pass combine_rows (moe_utils.ranked_combine_rows)")
+    spans = resolve_spans(m_out, max(1, int(cfg.chunks_per_shard)), 128,
+                          policy=cfg.span_policy, world=axis_size(ctx), side="moe_rs")
     return _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ctx,
-                                 m_out, out_dtype, cfg, scale, valid_rows)
+                                 m_out, out_dtype, cfg, scale, valid_rows, spans)
 
 
-moe_reduce_rs_overlap.launches = 0         # K10
-moe_reduce_rs_overlap.scaled_launches = 0  # K26
-moe_reduce_rs_overlap.ragged_launches = 0  # K31, all three formats
+moe_reduce_rs_overlap.launches = 0          # K10
+moe_reduce_rs_overlap.scaled_launches = 0   # K26
+moe_reduce_rs_overlap.ragged_launches = 0   # K31, all three formats
+moe_reduce_rs_overlap.chunked_launches = 0  # K33, every format, padded or ragged
 
 
 def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ctx, m_out,
-                          out_dtype, cfg, scale, valid_rows):
+                          out_dtype, cfg, scale, valid_rows, spans):
     n, me = axis_size(ctx), axis_index(ctx)
+    check_span_count(spans, "moe_reduce_rs_overlap")
+    chunked = len(spans) > 1
     t_pad_loc = h_sorted.shape[0] // n
     h = w_down.shape[2]
     topk = combine_rows.shape[2]
@@ -209,17 +241,30 @@ def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ct
     slot = m_out * h * out.element_size()
     recv = ctx.symmetric("moe_rs.recv", n * slot)
     arrive = symmetric_flags(ctx, "moe_rs.arrive")
-    flags = symmetric_flags(ctx, "moe_rs.flags")
-    launch = dist_launch(ctx, "moe_rs")
+    if chunked:  # K33: a flag per (source, span), piece counts per (destination, span)
+        flags = ctx.symmetric("moe_rs.chunk_flags", 4 * n * MAX_SPANS)
+        count = ctx.symmetric("moe_rs.count", 4 * n * MAX_SPANS)
+        c_spans = span_array(spans)
+        launch = dist_launch(ctx, "moe_rs", "moe_rs_chunked")
+    else:
+        flags = symmetric_flags(ctx, "moe_rs.flags")
+        launch = dist_launch(ctx, "moe_rs")
     launch_barrier(ctx, launch, arrive, torch.cuda.current_stream())
     for s in range(1, n + 1):
         c = (me + s) % n  # own chunk last
         y = group_gemm(h_sorted[c * t_pad_loc:(c + 1) * t_pad_loc], w_down, expert_ids[c],
                        valid_rows=None if valid_rows is None else valid_rows[c],
                        scale=scale, config=cfg, out_dtype=torch.float32)
-        rc = lib.tdt_moe_combine_push(y.data_ptr(), rows[c].data_ptr(), w[c].data_ptr(),
-                                      recv.peer_addr(c, me * slot), m_out, h, topk, code,
-                                      stream)
+        dst = recv.peer_addr(c, me * slot)
+        if chunked and c != me:
+            rc = lib.tdt_moe_combine_push_chunked(
+                y.data_ptr(), rows[c].data_ptr(), w[c].data_ptr(), dst, m_out, h, topk, code,
+                c_spans, len(spans), flags.peer_addr(c, 4 * me * MAX_SPANS),
+                count.peer_addr(me, 4 * c * MAX_SPANS), launch.epoch, stream)
+            _build.check(lib, rc, "moe_reduce_rs_overlap chunked combine")
+            continue
+        rc = lib.tdt_moe_combine_push(y.data_ptr(), rows[c].data_ptr(), w[c].data_ptr(), dst,
+                                      m_out, h, topk, code, stream)
         _build.check(lib, rc, "moe_reduce_rs_overlap combine")
         if c != me:
             sig = (ctypes.c_longlong * 1)(flags.peer_addr(c, 4 * me))
@@ -227,9 +272,16 @@ def _moe_rs_overlap_fused(h_sorted, w_down, expert_ids, w_rows, combine_rows, ct
             _build.check(lib, rc, "moe_reduce_rs_overlap signal")
     ctx.rendezvous()  # every rank's pushes are issued before any reduce waits
     slots = recv.view(me, (n, m_out, h), out_dtype)
-    rc = lib.tdt_moe_rs_reduce(slots.data_ptr(), out.data_ptr(), m_out * h, code, n, me,
-                               flags.peer_addr(me), launch.epoch, max_consumer_blocks(ctx),
-                               *launch.wait, stream)
+    if chunked:
+        rc = lib.tdt_moe_rs_reduce_chunked(slots.data_ptr(), out.data_ptr(), m_out, h, code, n,
+                                           me, flags.peer_addr(me), c_spans, len(spans),
+                                           launch.epoch, max_consumer_blocks(ctx),
+                                           *launch.wait, stream)
+    else:
+        rc = lib.tdt_moe_rs_reduce(slots.data_ptr(), out.data_ptr(), m_out * h, code, n, me,
+                                   flags.peer_addr(me), launch.epoch, max_consumer_blocks(ctx),
+                                   *launch.wait, stream)
     _build.check(lib, rc, "moe_reduce_rs_overlap reduce")
-    count_launch(moe_reduce_rs_overlap, launch_key(scale, valid_rows))
+    count_launch(moe_reduce_rs_overlap,
+                 "chunked_launches" if chunked else launch_key(scale, valid_rows))
     return out

@@ -18,8 +18,16 @@ Site numbering per family, for a launch at world ``n``:
   ``d``, sent by rank ``me - d - 1`` (kind ``signal_wait_until``);
 - ``ag_group_gemm``: site ``n + c`` is a consumer block's wait for the
   sorted slab of rank ``c`` (kind ``wait``);
+- ``ag_group_gemm_chunked`` (K32, the epochs and entry barrier of
+  ``ag_group_gemm``): site ``n + c * MAX_SPANS + j`` is a consumer block's
+  wait for span ``j`` of rank ``c``'s sorted slab, chunk 0 of a slab first
+  (kind ``wait``);
 - ``moe_rs``: site ``n + p`` is the reduce's wait for the partial of rank
   ``p`` in landing slot ``p`` (kind ``signal_wait_until``);
+- ``moe_rs_chunked`` (K33, the epochs and entry barrier of ``moe_rs``):
+  site ``n + p * MAX_SPANS + j`` is the reduce's wait for span ``j`` (in
+  the policy's list order) of rank ``p``'s partial, chunk 0 first (kind
+  ``signal_wait_until``);
 - ``reduce_scatter`` (and its entry barrier, sites ``p < n``): site ``n +
   d`` is the reduce's wait for the chunk in landing slot ``d``, sent by
   rank ``me - d - 1`` (kind ``signal_wait_until``);
@@ -55,7 +63,8 @@ KIND_NAMES = {
 FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group_gemm": 5,
             "moe_rs": 6, "reduce_scatter": 7, "ag_gemm_ring": 8, "gemm_rs_ring": 9,
             "reduce_scatter_ring": 10, "all_gather_ring_1d": 11, "all_gather_ring_bidir": 12,
-            "all_to_all": 13, "all_to_all_chunked": 14}
+            "all_to_all": 13, "all_to_all_chunked": 14, "ag_group_gemm_chunked": 15,
+            "moe_rs_chunked": 16}
 RING_FAMILIES = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring", "all_gather_ring_1d",
                  "all_gather_ring_bidir")
 MAX_SPANS = 16  # csrc/shmem.cuh MAX_SPANS: the (step, chunk) flag slots a step owns
@@ -95,4 +104,8 @@ def site_name(family: str, site: int, world: int) -> str:
         return f"chunk {p % MAX_SPANS} of rank {p // MAX_SPANS}'s slab"
     if family == "moe_rs":
         return f"partial of rank {p} in landing slot {p}"
+    if family == "ag_group_gemm_chunked":
+        return f"chunk {p % MAX_SPANS} of rank {p // MAX_SPANS}'s sorted slab"
+    if family == "moe_rs_chunked":
+        return f"chunk {p % MAX_SPANS} of rank {p // MAX_SPANS}'s partial"
     return f"site {site}"

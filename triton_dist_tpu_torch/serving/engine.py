@@ -51,6 +51,14 @@ class ServingConfig:
     admission:        "fcfs" or "spf" (shortest-prompt-first).
     virtual_step_s:   charge each decode step this much time on the engine
                       clock (pair with a ``FakeClock``); None = real time.
+    probe_interval_steps: steps between the elastic tier's probation probes
+                      (≙ ``:151``); carried and validated, inert until that
+                      tier is ported (the reference reads it only with
+                      ``config.elastic`` armed).
+    max_step_failures, world_ok: the step-failure rebuild and its
+                      degraded-world predicate (≙ ``:152``, ``:154``), not
+                      ported (ROADMAP A9): a step that fails raises, and
+                      anything but the defaults raises.
     slo:              latency targets scored per finished request.
     virtual_prefill_work_s: charge each unit of prefill work — a swept
                       query x key token pair: bucket x bucket per bulk
@@ -72,11 +80,14 @@ class ServingConfig:
     backpressure: str = "reject"
     admission: str = "fcfs"
     virtual_step_s: float | None = None
+    probe_interval_steps: int = 32
+    max_step_failures: int = 8
     slo: SLOTargets | None = None
-    virtual_prefill_work_s: float | None = None
+    world_ok: Any = None
     overload: Any = None
     prefix_cache: Any = None
     prefill_chunk_tokens: int | None = None
+    virtual_prefill_work_s: float | None = None
     speculative: Any = None
 
     def validate(self) -> "ServingConfig":
@@ -84,6 +95,16 @@ class ServingConfig:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"ServingConfig.{name} is not ported yet (ROADMAP {item})"
+                )
+        if self.probe_interval_steps < 1:
+            raise ValueError("probe_interval_steps must be >= 1")
+        if self.max_step_failures < 1:
+            raise ValueError("max_step_failures must be >= 1")
+        for name in ("max_step_failures", "world_ok"):
+            if getattr(self, name) != getattr(ServingConfig, name):
+                raise NotImplementedError(
+                    f"ServingConfig.{name}: the step-failure rebuild is not ported yet "
+                    f"(ROADMAP A9)"
                 )
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
@@ -116,6 +137,7 @@ class Rejected:
     uid: Any
     reason: str
     queue_depth: int
+    priority: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +250,7 @@ class ServingEngine:
         req: Request,
         *,
         arrival_t: float | None = None,
+        priority: str = "interactive",
         deadline_ms: float | None = None,
     ):
         """Enqueue one request. Returns its uid, or a typed :class:`Rejected`
@@ -235,7 +258,10 @@ class ServingEngine:
         steps the engine until space frees). ``arrival_t`` backdates the
         enqueue timestamp to the offered arrival time; a ``deadline_ms``
         budget, measured from it, scores the request SLO-missed when it
-        finishes late."""
+        finishes late. ``priority`` is the overload controller's class
+        (≙ ``:529``): it is accepted and inert here, since overload is not
+        ported, and a rejection carries None in its place, as the
+        reference's does without overload armed."""
         now = self.clock.monotonic() if arrival_t is None else float(arrival_t)
         if req.uid is None:
             req = dataclasses.replace(req, uid=f"r{self._uid_counter}")
