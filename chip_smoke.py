@@ -169,7 +169,22 @@ Phases, each printed as a JSON line, each fatal on failure:
    layers) and one f32 ``tp_moe_mlp`` with ``backend="ragged_dot"``
    against the ``pallas`` backend.
 
-The line before the last lists every kernel (K1-K33) with its readings;
+30. ragged-row MoE training and long-context sequence-parallel training:
+   the ragged weight gradient K34 at K11's Mixtral backward shapes under a
+   real routing's ragged map (bit-equal to K11 on zeroed dead rows, NaN in
+   G's dead rows changes nothing, timed beside K11); at world 4, ring
+   attention K35 at Llama-3.1-8B attention widths, S 16384 (causal
+   contiguous, causal zigzag, non-causal; and one world-1 call), each
+   against its plain version and the SDPA golden; ``stuck_wait_ring_attention``
+   (a late rank: fixed records); ``train_moe_ragged``: ``train_moe``'s
+   configuration under ``GroupGemmConfig(ragged=True)`` beside the padded
+   run (K29, K34; no K8, no K11), then one world-4 step (K30, K31);
+   ``train_sp``: ``SPTransformer`` at Llama-3.1-8B widths, 2 layers, world
+   4, S 8192, contiguous and zigzag (K35); ``f32_parity_sp`` (SP logits,
+   loss, gradients and parameters against the plain path differentiated by
+   PyTorch) and the ragged cases of ``f32_parity_train``.
+
+The line before the last lists every kernel (K1-K35) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -264,6 +279,7 @@ class Counters:
         from triton_dist_tpu_torch.ops import group_gemm as gg
         from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
         from triton_dist_tpu_torch.ops import reduce_scatter as rs
+        from triton_dist_tpu_torch.ops import ring_attention as ra
 
         self.kernels = {
             "gemm": gemm.matmul,
@@ -302,6 +318,9 @@ class Counters:
             # the chunked schedules of K9/K25/K30 and K10/K26/K31 (K32, K33)
             "ag_group_gemm_chunked": (aggg.ag_group_gemm_overlap, "chunked_launches"),
             "moe_reduce_rs_chunked": (mrs.moe_reduce_rs_overlap, "chunked_launches"),
+            # the ragged-row form of K11 (K34) counts apart; ring attention (K35)
+            "group_gemm_dw_ragged": (gg.group_gemm_dw, "ragged_launches"),
+            "ring_attention": ra.ring_attention,
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -314,6 +333,7 @@ class Counters:
             "gemm_rs_ring": grs._gemm_rs_ring_plain,
             "reduce_scatter_ring": rs._reduce_scatter_ring_plain,
             "all_to_all": a2a._fast_all_to_all_xla,
+            "ring_attention": ra._ring_attention_plain,
         }
 
     def _counters(self):
@@ -2245,6 +2265,8 @@ def phase_train_moe(counters: Counters) -> tuple[dict, dict]:
                routing_flip_share_per_layer=_flips(recorded.routes, plain.routes))
     del recorded, plain
     emit(one)
+    TRAIN_READINGS["train_moe"] = {k: one[k] for k in ("losses", "step_wall_s_median",
+                                                       "train_tokens_per_s", "peak_mem_gb")}
     _check_train("train_moe", one["losses"], one["launches"], one["plain_calls"],
                  ("gemm", "group_gemm", "group_gemm_dw"))
     if not rel <= 2e-2:
@@ -2350,16 +2372,45 @@ def _train_worst(world, rank_outs, ref, params, cfg) -> dict:
     return worst
 
 
+def _ragged_vs_padded(model, step_model, params, tokens, targets, padded, routes) -> dict:
+    """The ragged step's loss, gradients and updated parameters against the
+    padded step's ``(loss, gradients, new params)`` on the same weights;
+    the routing (recorded by `model`) must be the padded run's."""
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+
+    loss_p, grads_p, new_p = padded
+    loss, grads = ttm._loss_and_grads(model, params, tokens, targets)
+    worst = dict(loss_rel=abs(loss.item() - loss_p) / abs(loss_p),
+                 grad_rel_l2=max(_rel_l2(g, w) for g, w in zip(grads, grads_p)),
+                 routing_flip_share=_flips(model.routes, routes))
+    del grads
+    new, _ = ttm.train_step(step_model, params, tokens, targets, lr=TRAIN_LR)
+    worst["param_rel_l2"] = max(_rel_l2(q, p) for q, p in zip(ttm._tree_leaves(new),
+                                                              ttm._tree_leaves(new_p)))
+    return worst
+
+
+def _check_ragged_parity(world, worst) -> None:
+    if (any(worst["routing_flip_share"]) or not (worst["loss_rel"] <= 1e-5
+                                                 and worst["grad_rel_l2"] <= 1e-4
+                                                 and worst["param_rel_l2"] <= 1e-4)):
+        raise AssertionError(f"f32 ragged train parity at world {world}: {worst}")
+
+
 def phase_f32_parity_train() -> None:
     """f32, 2 MoE layers at full Mixtral width, batch 2 x 1024: one
     train_step at world 1 and at world 4 on the card against the plain
     path on the card (plain GEMMs and grouped GEMMs, differentiated by
     PyTorch's autograd) on the same weights and expert choices, TF32 off:
     the loss within 1e-5 relative, every gradient leaf (each rank's shard)
-    and every updated parameter within 1e-4 relative L2."""
+    and every updated parameter within 1e-4 relative L2. Then the ragged
+    cases: the same step under ``GroupGemmConfig(ragged=True)`` at world 1
+    and 4 (K29/K30/K31 forward, K29 and K34 backward) against the padded
+    step on the same routing, to the same tolerances."""
     import torch
     from triton_dist_tpu_torch.models import presets
     from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
     from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2386,6 +2437,11 @@ def phase_f32_parity_train() -> None:
     new, step_loss = ttm.train_step(make_recorded(cfg), params, tokens, targets, lr=TRAIN_LR)
     ref = reference(routes)
     compare(1, [(loss.item(), grads, (new, step_loss.item()))], ref)
+    # the ragged step on the same routing against the padded step
+    rcfg = dataclasses.replace(cfg, gg_config=GroupGemmConfig(MOE_BLOCK, ragged=True))
+    ragged = {1: _ragged_vs_padded(make_recorded(rcfg), make_recorded(rcfg), params, tokens,
+                                   targets, (loss.item(), grads, new), routes)}
+    _check_ragged_parity(1, ragged[1])
     del grads, new
     torch.cuda.empty_cache()
 
@@ -2410,10 +2466,27 @@ def phase_f32_parity_train() -> None:
         del ref
         ref = reference(routes4)
     compare(WORLD, [o[0] for o in outs], ref)
+    del ref
+    torch.cuda.empty_cache()
+
+    def rank_ragged():
+        r = ctx.rank
+        t = tokens[r * m_loc:(r + 1) * m_loc]
+        (loss_p, grads_p, (new_p, _)), routes_p = outs[r]
+        return _ragged_vs_padded(make_recorded(rcfg, ctx=ctx), make_recorded(rcfg, ctx=ctx),
+                                 shards[r], t, targets, (loss_p, grads_p, new_p), routes_p)
+
+    worst4 = ctx.run(rank_ragged, grad=True)
+    ragged[WORLD] = {k: max(w[k] for w in worst4) for k in ("loss_rel", "grad_rel_l2",
+                                                           "param_rel_l2")}
+    ragged[WORLD]["routing_flip_share"] = [max(f) for f in zip(*(w["routing_flip_share"]
+                                                                  for w in worst4))]
+    _check_ragged_parity(WORLD, ragged[WORLD])
     ctx.close()
     emit({"phase": "f32_parity_train", "model": MOE_MODEL, "n_layers": 2, "worlds": [1, WORLD],
           "reference": "world 1, plain kernels on the card, PyTorch autograd, the kernel "
                        "path's expert choices", "worst": report,
+          "ragged_vs_padded": ragged,
           "routing_flip_share_world4_vs_world1": flips,
           "tol": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "param_rel_l2": 1e-4}})
 
@@ -5496,6 +5569,484 @@ def phase_f32_parity_ragged() -> None:
           "times": times})
 
 
+
+# ---------------------------------- ragged MoE training, ring attention ----
+
+RING_S, RING_HEADS, RING_D = 16384, 32, 128  # Llama-3.1-8B attention widths: s_loc 4096
+SP_MODEL, SP_S = "llama-3.1-8b", 8192        # train_sp: s_loc 2048 a rank
+TRAIN_READINGS = {}  # the padded train_moe's world-1 readings, for train_moe_ragged
+
+
+def phase_group_gemm_dw_ragged() -> dict:
+    """K34 at K11's shapes, the Mixtral backward (2048 tokens top-2 over 8
+    experts, t_pad 5120) under the ragged alignment of a real routing:
+    dw_up [5120, 4096] x [5120, 14336] and dw_down [5120, 14336] x [5120,
+    4096], bf16, f32 out. Checks: within K11's tolerance (1e-4 x max|ref|)
+    of the plain version; bit-equal to K11 on the same A and G with their
+    dead rows zeroed (an f32 acc + 0 is exact); NaN in G's dead rows
+    changes nothing; an all-dead map gives exact zeros. K11's ms on the
+    same inputs beside K34's. The bound counts the live rows; the library
+    is one torch.matmul per expert over its packed live rows."""
+    import torch
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+
+    g = torch.Generator(device="cuda").manual_seed(81)
+    n_exp, bm, bf16 = 8, MOE_BLOCK, torch.bfloat16
+    _, ids = _moe_route(g, TRAIN_B * TRAIN_S, n_exp, 2)
+    al = mu.moe_align_block_size(ids.reshape(-1), n_exp, bm, ragged=True)
+    eids, valid = al.expert_ids, al.valid_rows
+    t_pad = eids.numel() * bm
+    live = (torch.arange(t_pad, device="cuda") % bm) < valid.long().repeat_interleave(bm)
+    n_live = int(live.sum())
+    rows_of = [torch.nonzero(live & (eids.long().repeat_interleave(bm) == e))[:, 0]
+               for e in range(n_exp)]
+    cfg = gg.GroupGemmConfig(bm, ragged=True)
+    rows = {}
+    total = dict(ms=0.0, k11_ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    for name, (k, n) in {"dw_up": (4096, 14336), "dw_down": (14336, 4096)}.items():
+        a = torch.randn((t_pad, k), generator=g, device="cuda").to(bf16)
+        gr = torch.randn((t_pad, n), generator=g, device="cuda").to(bf16)
+
+        def k34(a=a, gr=gr):
+            return gg.group_gemm_dw(a, gr, eids, n_exp, valid_rows=valid, config=cfg)
+
+        got = k34()
+        ref = gg._group_gemm_dw_plain(a, gr, eids, n_exp, bm, valid)
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()
+        del ref
+        zeroed = [torch.where(live[:, None], x, 0) for x in (a, gr)]
+        bit_equal = torch.equal(got, gg.group_gemm_dw(*zeroed, eids, n_exp))
+        del zeroed
+        junk = torch.where(live[:, None], gr, float("nan"))
+        nan_unchanged = torch.equal(got, gg.group_gemm_dw(a, junk, eids, n_exp, valid_rows=valid,
+                                                          config=cfg))
+        del junk
+        all_dead = bool(torch.all(gg.group_gemm_dw(a, gr, eids, n_exp,
+                                                   valid_rows=torch.zeros_like(valid),
+                                                   config=cfg) == 0))
+        del got
+        if not (err <= tol and bit_equal and nan_unchanged and all_dead):
+            raise AssertionError(f"group_gemm_dw ragged {name}: err {err} (tol {tol}), bit-equal "
+                                 f"to K11 {bit_equal}, NaN dead rows unchanged {nan_unchanged}, "
+                                 f"all-dead zeros {all_dead}")
+        a_e, g_e = [a[r] for r in rows_of if r.numel()], [gr[r] for r in rows_of if r.numel()]
+
+        def library():  # one matmul per expert over its packed live rows
+            return [torch.matmul(x.t(), y) for x, y in zip(a_e, g_e)]
+
+        flops = 2.0 * n_live * k * n
+        nbytes = 2.0 * n_live * (k + n) + 4.0 * n_exp * k * n
+        row = dict(shape=[t_pad, k, n], live_rows=n_live, max_abs_err=err, tol=tol,
+                   bit_equal_k11_on_zeroed_rows=bit_equal, nan_dead_rows_unchanged=nan_unchanged,
+                   all_dead_zero=all_dead, ms=cuda_ms(k34, iters=5),
+                   k11_ms=cuda_ms(lambda: gg.group_gemm_dw(a, gr, eids, n_exp), iters=5),
+                   plain_ms=event_ms(lambda: gg._group_gemm_dw_plain(a, gr, eids, n_exp, bm,
+                                                                     valid), iters=1),
+                   library_ms=event_ms(library, iters=5), bound_ms=bound(flops, nbytes)[0])
+        rows[name] = row
+        for key in ("ms", "k11_ms", "plain_ms", "library_ms"):
+            total[key] += row[key]
+        total["flops"] += flops
+        total["bytes"] += nbytes
+        del a, gr, a_e, g_e
+    emit({"phase": "kernel", "kernel": "group_gemm_dw_ragged", "per_shape": rows,
+          "tol": "1e-4 x max|ref|; bit-equal to K11 on zeroed dead rows"})
+    b_ms, by = bound(total["flops"], total["bytes"])
+    return dict(
+        name="group_gemm_dw_ragged", route="cuda",
+        source="triton_dist_tpu_torch/csrc/group_gemm.cu",
+        replaces="triton_dist_tpu/ops/gg_pipeline.py:159",
+        max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+        ms=total["ms"], k11_ms=total["k11_ms"], plain_ms=total["plain_ms"], bound_ms=b_ms,
+        bound_by=by, library_ms=total["library_ms"],
+        library="torch.matmul(a_e^T, g_e) per expert over its packed live rows",
+        shapes=f"t_pad 5120 (2048 tokens, top-2 of 8), {n_live} live rows, ragged: dw_up "
+               f"[8, 4096, 14336] + dw_down [8, 14336, 4096], f32 out (summed)",
+    )
+
+
+def _check_attention(name, got, got_lse, plain, plain_lse, golden):
+    """K35's bf16 output against its plain version (one bf16 ulp of the
+    output scale), its lse against the plain lse (1e-5 x its scale), and
+    the SDPA golden over the gathered sequence (two ulps: both round P to
+    bf16 for P.V, in other tiles)."""
+    scale = plain.float().abs().max().item()
+    err = (got.float() - plain.float()).abs().max().item()
+    err_lse = (got_lse - plain_lse).abs().max().item()
+    err_lib = (got.float() - golden.float()).abs().max().item()
+    tol, tol_lse = 2.0**-7 * scale, 1e-5 * plain_lse.abs().max().item()
+    if not (err <= tol and err_lse <= tol_lse and err_lib <= 2 * tol):
+        raise AssertionError(f"{name}: max abs err {err} (tol {tol}), lse {err_lse} (tol "
+                             f"{tol_lse}), against SDPA {err_lib} (tol {2 * tol})")
+    return dict(max_abs_err=err, lse_err=err_lse, max_abs_err_sdpa=err_lib)
+
+
+def phase_ring_attention(ctx) -> dict:
+    """K35 at world 4 on the one card with Llama-3.1-8B attention widths
+    (32 heads after the GQA repeat, head_dim 128), b 1, S 16384 (s_loc
+    4096), bf16, in three cells: causal contiguous, causal zigzag (the
+    shards of the permuted sequence) and non-causal. Each cell is held to
+    the plain version on every rank and to F.scaled_dot_product_attention
+    over the gathered sequence (the golden, timed as library_ms: the port
+    never calls it), with its ms (CUDA events on the ranks' streams) and
+    bound (operations: 4 b h s_loc S d a rank, half under the causal mask,
+    summed over the ranks at one card's bf16 peak). Then one world-1 call
+    (S 4096, causal). The entry's columns are the causal contiguous cell's;
+    every cell is under ``cells``."""
+    import torch
+    import torch.nn.functional as F
+    from triton_dist_tpu_torch.ops import ring_attention as ra
+
+    g = torch.Generator(device="cuda").manual_seed(91)
+    S, h, d, n = RING_S, RING_HEADS, RING_D, WORLD
+    s_loc = S // n
+    q, k, v = (torch.randn((1, h, S, d), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    cells = {}
+    for name, (causal, layout) in {"causal contig": (True, "contig"),
+                                   "causal zigzag": (True, "zigzag"),
+                                   "full": (False, "contig")}.items():
+        perm = (torch.from_numpy(ra.zigzag_permutation(n, S)[0]).long().cuda()
+                if layout == "zigzag" else torch.arange(S, device="cuda"))
+        shards = [[x[:, :, perm[r * s_loc:(r + 1) * s_loc]].contiguous() for x in (q, k, v)]
+                  for r in range(n)]
+
+        def call(causal=causal, layout=layout, shards=shards):
+            return ra.ring_attention(*shards[ctx.rank], ctx=ctx, causal=causal, layout=layout,
+                                     return_lse=True)
+
+        def plain(causal=causal, layout=layout, shards=shards):
+            q3, k3, v3 = (x.reshape(h, s_loc, d) for x in shards[ctx.rank])
+            out, m, l_ = ra._ring_attention_plain(q3, k3, v3, ctx, causal, layout)
+            return out.reshape(1, h, s_loc, d), ra.lse_of(m, l_).reshape(1, h, s_loc)
+
+        def library(causal=causal):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        golden = library()[:, :, perm]
+        got, want = ctx.run(call), ctx.run(plain)
+        errs = [_check_attention(f"ring_attention {name} rank {r}", o, lse, p, p_lse,
+                                 golden[:, :, r * s_loc:(r + 1) * s_loc])
+                for r, ((o, lse), (p, p_lse)) in enumerate(zip(got, want))]
+        del got, want, golden
+        flops = 4.0 * h * s_loc * S * d * n * (0.5 if causal else 1.0)
+        nbytes = 2.0 * 4 * h * S * d + 4.0 * h * S
+        b_ms, by = bound(flops, nbytes)
+        cells[name] = dict(
+            max_abs_err=max(e["max_abs_err"] for e in errs),
+            lse_err=max(e["lse_err"] for e in errs),
+            max_abs_err_sdpa=max(e["max_abs_err_sdpa"] for e in errs),
+            ms=dist_ms(ctx, call, iters=3), plain_ms=dist_ms(ctx, plain, iters=1, warmup=1),
+            library_ms=cuda_ms(library, iters=5), bound_ms=b_ms, bound_by=by)
+        emit({"phase": "kernel", "kernel": "ring_attention", "cell": name, "world": n,
+              **cells[name]})
+        del shards
+    q1, k1, v1 = (x[:, :, :s_loc].contiguous() for x in (q, k, v))
+    got, lse = ra.ring_attention(q1, k1, v1, return_lse=True)
+    out, m, l_ = ra._ring_attention_plain(*(x.reshape(h, s_loc, d) for x in (q1, k1, v1)), None,
+                                          True, "contig")
+    golden = F.scaled_dot_product_attention(q1, k1, v1, is_causal=True)
+    one = _check_attention("ring_attention world 1", got, lse, out.reshape(got.shape),
+                           ra.lse_of(m, l_).reshape(lse.shape), golden)
+    b_ms, by = bound(2.0 * h * s_loc * s_loc * d, 2.0 * 4 * h * s_loc * d + 4.0 * h * s_loc)
+    one.update(ms=cuda_ms(lambda: ra.ring_attention(q1, k1, v1), iters=5),
+               plain_ms=event_ms(lambda: ra._ring_attention_plain(
+                   *(x.reshape(h, s_loc, d) for x in (q1, k1, v1)), None, True, "contig"),
+                   iters=2),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q1, k1, v1,
+                                                                         is_causal=True),
+                                  iters=5), bound_ms=b_ms, bound_by=by)
+    cells["world 1, S 4096 causal"] = one
+    emit({"phase": "kernel", "kernel": "ring_attention", "cell": "world 1", **one})
+    head = cells["causal contig"]
+    return dict(
+        name="ring_attention", route="cuda", source="triton_dist_tpu_torch/csrc/ring_attention.cu",
+        replaces="triton_dist_tpu/ops/ring_attention.py:145",
+        max_abs_err=max(c["max_abs_err"] for c in cells.values()),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        library="F.scaled_dot_product_attention over the gathered sequence", cells=cells,
+        shapes=f"world {n}: b 1, {h} heads, d {d}, S {S} (s_loc {s_loc}), bf16, causal "
+               f"contiguous (the columns); zigzag, non-causal and world 1 under cells",
+    )
+
+
+def phase_stuck_wait_ring_attention() -> None:
+    """Ring attention at world 4 whose rank 1 never comes in time (its
+    stream held 2 s, the wait timeout 0.2 s): rank 0's blocks wait first
+    for their right neighbour's arrival and record (0, ring_attention,
+    site 1); rank 2 waits first for the chunk of its left neighbour, rank
+    1 (its step-0 put), and records site world + 0. Rank 3 may also time
+    out on rank 2's step-1 put, which rank 2 issues only after its own
+    wait expired."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.ops import ring_attention as ra
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    ctx = initialize_distributed(WORLD)
+    g = torch.Generator(device="cuda").manual_seed(92)
+    xs = [[torch.randn((1, 4, 256, 128), generator=g, device="cuda").to(torch.bfloat16)
+           for _ in range(3)] for _ in range(WORLD)]
+
+    def call():
+        if ctx.rank == 1 and stuck:
+            common.sleep_on_stream(2_000_000_000)
+        return ra.ring_attention(*xs[ctx.rank], ctx=ctx)
+
+    stuck = False
+    ctx.run(call)  # the buffers and flags exist
+    stuck = True
+    t0 = time.perf_counter()
+    try:
+        with config.wait_timeout(0.2):
+            ctx.run(call)
+    except DistTimeoutError as err:
+        recs = err.records
+    else:
+        raise AssertionError("a stuck ring-attention wait did not raise")
+    got = {(r["pe"], r["family"], r["site"]) for r in recs}
+    fixed = {(0, "ring_attention", 1), (2, "ring_attention", WORLD)}
+    if not (fixed <= got and got - fixed <= {(3, "ring_attention", WORLD + 16)}):
+        raise AssertionError(f"stuck ring-attention wait: unexpected records {recs}")
+    emit({"phase": "stuck_wait_ring_attention", "raised_after_s": time.perf_counter() - t0,
+          "records": recs})
+    ctx.close()
+
+
+def phase_train_moe_ragged(counters: Counters) -> tuple[dict, dict]:
+    """``train_moe``'s configuration (Mixtral-8x7B widths, 8 of 32 layers,
+    bf16, 2 x 1024 tokens, SGD at TRAIN_LR, the same weights and batch)
+    under ``GroupGemmConfig(ragged=True)``: a warm-up and 3 timed steps at
+    world 1 (losses finite and falling; K29 and K34 launched, K8 and K11
+    not; the step-1 loss within 2e-2 relative of the padded run's), its
+    step wall, tokens/s and peak GB beside the padded run's of the same
+    call; then one step at world 4 on the one card (K30, K31, K29, K34)."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    n_layers = 8
+    cfg = presets.preset(MOE_MODEL, n_layers=n_layers, batch=TRAIN_B, seq=TRAIN_S,
+                         dtype=torch.bfloat16, gg_config=GroupGemmConfig(MOE_BLOCK, ragged=True))
+    tokens, targets = _train_batch(cfg.vocab, seed=51)
+    one = _train_world1("train_moe_ragged", ttm.TPMoETransformer(cfg),
+                        lambda: ttm.init_moe_params(cfg, seed=50), tokens, targets, counters,
+                        TRAIN_LR)
+    padded = TRAIN_READINGS["train_moe"]
+    rel = abs(one["losses"][0] - padded["losses"][0]) / abs(padded["losses"][0])
+    one.update(model=MOE_MODEL, n_layers=n_layers, padded=padded,
+               step1_loss_rel_err_vs_padded=rel, tol_step1_loss_rel=2e-2)
+    emit(one)
+    _check_train("train_moe_ragged", one["losses"], one["launches"], one["plain_calls"],
+                 ("gemm", "group_gemm_ragged", "group_gemm_dw_ragged"))
+    if one["launches"]["group_gemm"] or one["launches"]["group_gemm_dw"] or not rel <= 2e-2:
+        raise AssertionError(f"train_moe_ragged: K8 {one['launches']['group_gemm']} / K11 "
+                             f"{one['launches']['group_gemm_dw']} launches, step-1 loss "
+                             f"{one['losses'][0]} against the padded {padded['losses'][0]}")
+    torch.cuda.empty_cache()
+
+    params = ttm.init_moe_params(cfg, seed=50)
+    ctx = initialize_distributed(WORLD)
+    state = ttm.shard_params(params, WORLD, ctx.devices)
+    del params
+    m_loc = tokens.numel() // WORLD
+    models = [ttm.TPMoETransformer(cfg, ctx=ctx) for _ in range(WORLD)]
+
+    def step():
+        r = ctx.rank
+        state[r], loss = ttm.train_step(models[r], state[r], tokens[r * m_loc:(r + 1) * m_loc],
+                                        targets, lr=TRAIN_LR)
+        return loss.item()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    loss = ctx.run(step, grad=True)[0]
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    four = dict(phase="train_moe_ragged_tp4", world=WORLD, loss=loss, step_wall_s=wall,
+                train_tokens_per_s=TRAIN_B * TRAIN_S / wall,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **counts)
+    emit(four)
+    used = ("ag_group_gemm_ragged", "moe_reduce_rs_ragged", "group_gemm_ragged",
+            "group_gemm_dw_ragged")
+    if (not math.isfinite(loss) or any(counts["launches"][k] <= 0 for k in used)
+            or counts["launches"]["group_gemm_dw"] or any(counts["plain_calls"].values())):
+        raise AssertionError(f"train_moe_ragged_tp4: loss {loss}, {counts}")
+    del state, models
+    ctx.close()
+    return one["launches"], counts["launches"]
+
+
+def _sp_batch(vocab, batch, seq, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, vocab, (batch, seq), generator=g, device="cuda")
+    return tokens, torch.roll(tokens, -1, 1)
+
+
+def _sp_config(base, zigzag):
+    from triton_dist_tpu_torch.models.sp_transformer import SPTransformerConfig
+
+    return SPTransformerConfig(**{f.name: getattr(base, f.name)
+                                  for f in dataclasses.fields(base)}, zigzag=zigzag)
+
+
+def phase_train_sp(counters: Counters) -> dict:
+    """``SPTransformer`` at Llama-3.1-8B widths cut to 2 of 32 layers (the
+    train_dense cut), world 4 on the one card, b 1, S 8192 (s_loc 2048),
+    bf16, seeded weights (the dense tree, replicated), contiguous and
+    zigzag: a warm-up and 3 SGD steps at DENSE_LR each (losses finite and
+    falling), K35 launched and no plain attention, step wall, tokens/s
+    (b S / step wall) and peak GB."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models import sp_transformer as spm
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.ops import ring_attention as ra
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    base = presets.preset(SP_MODEL, n_layers=2, batch=1, seq=SP_S, dtype=torch.bfloat16)
+    params = ttm.init_params(base, seed=56)
+    tokens, targets = _sp_batch(base.vocab, 1, SP_S, seed=57)
+    ctx = initialize_distributed(WORLD)
+    s_loc = SP_S // WORLD
+    launches, runs = {}, {}
+    for layout in ("contig", "zigzag"):
+        cfg = _sp_config(base, layout == "zigzag")
+        perm = (torch.from_numpy(ra.zigzag_permutation(WORLD, SP_S)[0]).long().cuda()
+                if layout == "zigzag" else torch.arange(SP_S, device="cuda"))
+        t, y = tokens[:, perm], targets[:, perm]
+        models = [spm.SPTransformer(cfg, ctx=ctx) for _ in range(WORLD)]
+        state = [params] * WORLD
+
+        def step(t=t, y=y, models=models, state=state):
+            r = ctx.rank
+            rows = slice(r * s_loc, (r + 1) * s_loc)
+            state[r], loss = spm.sp_train_step(models[r], state[r], t[:, rows], y[:, rows],
+                                               lr=DENSE_LR)
+            return loss.item()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [ctx.run(step, grad=True)[0]], []
+        counters.reset()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(ctx.run(step, grad=True)[0])
+            walls.append(time.perf_counter() - t0)
+        counts = counters.read()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, models
+        torch.cuda.empty_cache()
+        wall = sorted(walls)[len(walls) // 2]
+        runs[layout] = dict(phase=f"train_sp_{layout}", model=SP_MODEL, n_layers=2, world=WORLD,
+                            batch=1, seq=SP_S, s_loc=s_loc, lr=DENSE_LR, losses=losses,
+                            step_wall_s=walls, step_wall_s_median=wall,
+                            train_tokens_per_s=SP_S / wall, peak_mem_gb=peak, **counts)
+        emit(runs[layout])
+        _check_train(f"train_sp_{layout}", losses, counts["launches"], counts["plain_calls"],
+                     ("ring_attention",))
+        for key, value in counts["launches"].items():
+            launches[key] = launches.get(key, 0) + value
+    ctx.close()
+    return launches
+
+
+def _dense_attention(q, k, v, *, ctx=None, causal=True, config=None, layout="contig"):
+    """The plain path's attention (world 1, natural order): dense causal
+    softmax attention differentiated by PyTorch's autograd."""
+    import torch
+
+    del ctx, config, layout
+    s = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if causal:
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.softmax(s, -1) @ v
+
+
+def phase_f32_parity_sp() -> None:
+    """f32, SP at small width on the card (vocab 2048, hidden 512, 8 query
+    and 2 kv heads of 128, 2 layers, batch 2 x 1024 tokens), world 4,
+    contiguous and zigzag: the logits of every rank's rows, the ranks' mean
+    loss, every gradient and every updated parameter of ``sp_train_step``
+    against the plain path on the card — the same model at world 1 over
+    the whole sequence with dense attention, differentiated by PyTorch —
+    on the same weights, TF32 off: logits, gradients and parameters within
+    1e-4 relative L2, the loss within 1e-5 relative."""
+    import torch
+    from unittest import mock
+    from triton_dist_tpu_torch.models import sp_transformer as spm
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.ops import ring_attention as ra
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = ttm.TransformerConfig(vocab=2048, hidden=512, ffn=1024, n_layers=2, n_q_heads=8,
+                                 n_kv_heads=2, head_dim=128, batch=2, seq=1024)
+    params = ttm.init_params(base, seed=58)
+    tokens, targets = _sp_batch(base.vocab, base.batch, base.seq, seed=59)
+    lr, s_loc = 0.1, base.seq // WORLD
+    with mock.patch.object(spm, "ring_attention_grad", _dense_attention):
+        plain = spm.SPTransformer(_sp_config(base, False))
+        with torch.no_grad():
+            logits_ref = plain(tokens, params)
+        loss_ref, g_ref = spm._sp_loss_and_grads(plain, params, tokens, targets)
+    leaves = ttm._tree_leaves(params)
+    ctx = initialize_distributed(WORLD)
+    report = {}
+    for layout in ("contig", "zigzag"):
+        cfg = _sp_config(base, layout == "zigzag")
+        perm = (torch.from_numpy(ra.zigzag_permutation(WORLD, base.seq)[0]).long().cuda()
+                if layout == "zigzag" else torch.arange(base.seq, device="cuda"))
+
+        def rank(cfg=cfg, perm=perm):
+            r = ctx.rank
+            rows = perm[r * s_loc:(r + 1) * s_loc]
+            model = spm.SPTransformer(cfg, ctx=ctx)
+            t, y = tokens[:, rows], targets[:, rows]
+            with torch.no_grad():
+                logits = model(t, params)
+            loss, grads = spm._sp_loss_and_grads(model, params, t, y)
+            new, step_loss = spm.sp_train_step(model, params, t, y, lr=lr)
+            return logits, loss.item(), grads, ttm._tree_leaves(new), step_loss.item()
+
+        outs = ctx.run(rank, grad=True)
+        logits = torch.empty_like(logits_ref)
+        for r, o in enumerate(outs):
+            logits[:, perm[r * s_loc:(r + 1) * s_loc]] = o[0]
+        worst = dict(logits_rel_l2=_rel_l2(logits, logits_ref), loss_rel=0.0, grad_rel_l2=0.0,
+                     param_rel_l2=0.0)
+        for _, loss, grads, new, step_loss in outs:
+            worst["loss_rel"] = max(worst["loss_rel"], abs(loss - loss_ref.item()) / abs(
+                loss_ref.item()), abs(step_loss - loss_ref.item()) / abs(loss_ref.item()))
+            for g_, want, p, q_ in zip(grads, g_ref, leaves, new):
+                worst["grad_rel_l2"] = max(worst["grad_rel_l2"], _rel_l2(g_, want))
+                worst["param_rel_l2"] = max(worst["param_rel_l2"], _rel_l2(q_, p - lr * want))
+        del outs, logits
+        report[layout] = worst
+        if not (worst["logits_rel_l2"] <= 1e-4 and worst["loss_rel"] <= 1e-5
+                and worst["grad_rel_l2"] <= 1e-4 and worst["param_rel_l2"] <= 1e-4):
+            raise AssertionError(f"f32 SP parity ({layout}): {worst}")
+    ctx.close()
+    emit({"phase": "f32_parity_sp", "world": WORLD, "dims": dataclasses.asdict(base) | {
+        "dtype": "float32"}, "reference": "world 1 over the whole sequence, dense attention, "
+          "PyTorch autograd, on the card", "worst": report,
+          "tol": {"logits_rel_l2": 1e-4, "loss_rel": 1e-5, "grad_rel_l2": 1e-4,
+                  "param_rel_l2": 1e-4}})
+
+
 def main() -> int:
     try:
         import torch
@@ -5522,6 +6073,7 @@ def main() -> int:
     scaled_entries = [phase_group_gemm_scaled()]
     ragged_entries = [phase_group_gemm_ragged()]
     train_entries = [phase_group_gemm_dw()]
+    k34_k35_entries = [phase_group_gemm_dw_ragged()]
     torch.cuda.empty_cache()
     paged = phase_serve(counters)
     torch.cuda.empty_cache()
@@ -5546,6 +6098,9 @@ def main() -> int:
     chunked_entries = [phase_ag_group_gemm_chunked(ctx), phase_moe_reduce_rs_chunked(ctx)]
     train_entries.append(phase_reduce_scatter(ctx))
     ep_entries = phase_all_to_all(ctx)
+    torch.cuda.empty_cache()
+    k34_k35_entries.append(phase_ring_attention(ctx))
+    torch.cuda.empty_cache()
     ctx.full_mesh = False  # the same ranks, declared a ring
     ring_entries = [phase_ag_gemm_ring(ctx), *phase_gemm_rs_ring(ctx),
                     phase_reduce_scatter_ring(ctx)]
@@ -5556,6 +6111,7 @@ def main() -> int:
     phase_stuck_wait_ring()
     phase_stuck_wait_a2a()
     phase_stuck_wait_ragged()
+    phase_stuck_wait_ring_attention()
     torch.cuda.empty_cache()
     tp4 = phase_serve_tp4(counters)
     torch.cuda.empty_cache()
@@ -5585,7 +6141,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train1, train4 = phase_train_moe(counters)
     torch.cuda.empty_cache()
+    train_r1, train_r4 = phase_train_moe_ragged(counters)
+    torch.cuda.empty_cache()
     phase_train_dense(counters)
+    torch.cuda.empty_cache()
+    train_sp = phase_train_sp(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_sp()
     torch.cuda.empty_cache()
     phase_f32_parity_train()
     torch.cuda.empty_cache()
@@ -5641,6 +6203,10 @@ def main() -> int:
     chunked_entries[0]["launches"] = moe_tp4_c["ag_group_gemm_chunked"]
     chunked_entries[1]["launches"] = moe_tp4_c["moe_reduce_rs_chunked"]
     entries += chunked_entries
+    k34_k35_entries[0]["launches"] = (train_r1["group_gemm_dw_ragged"]
+                                      + train_r4["group_gemm_dw_ragged"])
+    k34_k35_entries[1]["launches"] = train_sp["ring_attention"]
+    entries += k34_k35_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

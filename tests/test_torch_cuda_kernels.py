@@ -8,7 +8,9 @@ AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, the scaled
 int8 / fp8 formats of the grouped GEMM K24, of K9 (K25) and of K10 (K26),
 their ragged-row forms K29-K31 (bit-equal to the padded kernels on the
 live rows, dead rows zero, a rank whose blocks are all dead, a stuck
-wait, the EP layer),
+wait, the EP layer), the ragged weight gradient K34 (bit-equal to K11 on
+zeroed dead rows, junk in them changes nothing), ring attention K35 at
+world 1, 2 and 4 (contiguous and zigzag, causal or not, a stuck wait),
 and on a ring
 context the ring AG-GEMM K15, the ring GEMM-RS K16/K17, the ring
 reduce-scatter K18 and its spans K23 (bit-equal to K18), and the ring
@@ -50,6 +52,7 @@ from triton_dist_tpu_torch.ops import group_gemm as tgg  # noqa: E402
 from triton_dist_tpu_torch.ops import moe_reduce_rs as tmrs  # noqa: E402
 from triton_dist_tpu_torch.ops import moe_utils as tmu  # noqa: E402
 from triton_dist_tpu_torch.ops import reduce_scatter as trs  # noqa: E402
+from triton_dist_tpu_torch.ops import ring_attention as tra  # noqa: E402
 from triton_dist_tpu_torch.models import tp_transformer as ttm  # noqa: E402
 from triton_dist_tpu_torch.parallel.mesh import initialize_distributed  # noqa: E402
 from triton_dist_tpu_torch.resilience.records import DistTimeoutError  # noqa: E402
@@ -1435,3 +1438,111 @@ def test_chunked_stuck_wait_names_chunk_zero(cuda, kernel, monkeypatch):
     assert all(r["waits_for"] == f"chunk 0 of rank 1's "
                f"{'sorted slab' if kernel == 'ag_group_gemm' else 'partial'}" for r in recs)
     assert 0 in {r["pe"] for r in recs}
+
+
+# ---------------------------------- the ragged dW K34, ring attention K35 ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_ragged_group_gemm_dw_kernel(cuda, dtype, bm):
+    """K34 on a ragged alignment (an expert with no rows, tails of one row
+    and more, trailing dead blocks): within K11's tolerance of the plain
+    version, bit-equal to K11 on the same A and G with their dead rows
+    zeroed (an f32 acc + 0 is exact), and NaN in the dead rows of A and G
+    changes nothing; an expert whose blocks are all dead is exactly zero."""
+    n_exp, tokens, k, n = 4, 300, 200, 264
+    g = torch.Generator(device="cuda").manual_seed(bm + 3)
+    ids, _ = _moe_routing(g, tokens, n_exp, 2, cuda)
+    ids[ids == 1] = 2  # expert 1 gets no rows
+    ids[0, 0] = 3
+    al = tmu.moe_align_block_size(ids.reshape(-1), n_exp, bm, ragged=True)
+    assert ((al.valid_rows > 0) & (al.valid_rows < bm)).any()
+    t_pad = al.sorted_token_ids.shape[0]
+    live = (torch.arange(t_pad, device=cuda) % bm) < al.valid_rows.long().repeat_interleave(bm)
+    a = torch.randn((t_pad, k), generator=g, device=cuda).to(dtype)
+    gr = torch.randn((t_pad, n), generator=g, device=cuda).to(dtype)
+    cfg = tgg.GroupGemmConfig(bm, ragged=True)
+    before = (tgg.group_gemm_dw.launches, tgg.group_gemm_dw.ragged_launches)
+    got = tgg.group_gemm_dw(a, gr, al.expert_ids, n_exp, valid_rows=al.valid_rows, config=cfg)
+    torch.cuda.synchronize()
+    assert (tgg.group_gemm_dw.launches, tgg.group_gemm_dw.ragged_launches) == (
+        before[0], before[1] + 1)
+    want = tgg._group_gemm_dw_plain(a, gr, al.expert_ids, n_exp, bm, al.valid_rows)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    zeroed = [torch.where(live[:, None], x, 0) for x in (a, gr)]
+    padded = tgg.group_gemm_dw(*zeroed, al.expert_ids, n_exp, config=tgg.GroupGemmConfig(bm))
+    assert torch.equal(got, padded)
+    junk = [torch.where(live[:, None], x, float("nan")) for x in (a, gr)]
+    assert torch.equal(tgg.group_gemm_dw(*junk, al.expert_ids, n_exp, valid_rows=al.valid_rows,
+                                         config=cfg), got)
+    assert torch.all(got[1] == 0)
+    dead = torch.zeros_like(al.valid_rows)
+    assert torch.all(tgg.group_gemm_dw(a, gr, al.expert_ids, n_exp, valid_rows=dead,
+                                       config=cfg) == 0)
+
+
+def _ring_attention_inputs(g, world, b, h, s_loc, d, dtype, device):
+    return [[torch.randn((b, h, s_loc, d), generator=g, device=device).to(dtype)
+             for _ in range(3)] for _ in range(world)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2, 4])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
+                                     (torch.float32, 40)])
+@pytest.mark.parametrize("layout,causal", [("contig", True), ("zigzag", True),
+                                           ("contig", False)])
+def test_ring_attention_kernel_matches_plain(cuda, world, dtype, d, layout, causal):
+    """K35 against its plain version (the ring-order online softmax) on
+    the same shards: out within one bf16 ulp of its scale (f32: 1e-5 of
+    it), lse within 1e-5 x its scale; a shard of 200 rows (stripes of 100)
+    leaves partial query and key tiles, and 20 heads give a persistent
+    block several query tiles a step (a rank runs at most 31 blocks); two
+    calls back to back (the landing buffer and the epochs are reused)."""
+    ctx = None if world == 1 else initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(world * 7 + d)
+    h = 20
+    for s_loc in (200, 64):
+        xs = _ring_attention_inputs(g, world, 1, h, s_loc, d, dtype, cuda)
+
+        def body():
+            r = 0 if ctx is None else ctx.rank
+            got = tra.ring_attention(*xs[r], ctx=ctx, causal=causal, layout=layout,
+                                     return_lse=True)
+            q3, k3, v3 = (x.reshape(h, s_loc, d) for x in xs[r])
+            out, m, l = tra._ring_attention_plain(q3, k3, v3, ctx, causal, layout)
+            return got, (out.reshape(xs[r][0].shape), tra.lse_of(m, l).reshape(1, h, s_loc))
+
+        before = tra.ring_attention.launches
+        outs = [body()] if ctx is None else ctx.run(body)
+        assert tra.ring_attention.launches == before + world
+        for (out, lse), (want, want_lse) in outs:
+            scale = want.float().abs().max().item()
+            tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * scale
+            assert (out.float() - want.float()).abs().max().item() <= tol
+            assert (lse - want_lse).abs().max().item() <= 1e-5 * want_lse.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ring_attention_stuck_wait_raises_with_its_record(cuda):
+    """Rank 1's stream is held for 2 s before its ring attention at world
+    2: rank 0's every block waits first for its right neighbour's arrival
+    (0.2 s), and the run raises with that record: rank 0, the
+    ring_attention family, site 1."""
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = _ring_attention_inputs(g, 2, 1, 2, 128, 64, torch.bfloat16, cuda)
+    ctx.run(lambda: tra.ring_attention(*xs[ctx.rank], ctx=ctx))  # the buffers exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return tra.ring_attention(*xs[ctx.rank], ctx=ctx)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    (rec,) = err.value.records
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
+        0, "ring_attention", 1, "barrier_all")

@@ -513,9 +513,8 @@ def test_ep_serving_engine_matches_tp(ep, case):
 
 def test_ep_presets_and_refusals(ep):
     """``:ep`` builds the EP config; hierarchical EP refuses naming A5 (the
-    preset, the config field, the layers); training with ragged rows (its
-    dW is not ported), decode rows that do not divide over the ranks and
-    EP training refuse too."""
+    preset, the config field, the layers); decode rows that do not divide
+    over the ranks and EP training (with ragged rows too) refuse too."""
     cfg = tpresets.preset("mixtral-8x7b:ep", n_layers=8, batch=8)
     assert isinstance(cfg, ttm.EPMoETransformerConfig)
     assert (cfg.hidden, cfg.ffn, cfg.n_experts, cfg.topk, cfg.ep_max_m, cfg.ep_quant) == (
@@ -534,7 +533,7 @@ def test_ep_presets_and_refusals(ep):
     tokens = torch.zeros(DIMS["batch"] * DIMS["seq"], dtype=torch.long)
     params = ttm.init_moe_params(tcfg, seed=1, device="cpu")
     ragged = dataclasses.replace(tcfg, gg_config=tgg.GroupGemmConfig(BM, ragged=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
+    with pytest.raises(NotImplementedError, match="EP training"):
         ttm.train_step(ttm.EPMoETransformer(ragged), params, tokens, tokens, lr=0.1)
     ctx = initialize_distributed(WORLD, device="cpu")
     shards = ttm.shard_params(tparams, WORLD, cfg=tcfg)

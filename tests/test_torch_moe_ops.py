@@ -155,7 +155,7 @@ def test_group_gemm_refuses_what_is_not_ported():
     """The options this grid GEMM once refused run: ``ragged_dot`` (the
     plain sentinel) equals the padded kernel's twin, and the chunked
     schedule's fields (read only by the overlapped pair) change nothing;
-    the ragged weight gradient still refuses (ROADMAP B16, ragged dW)."""
+    the ragged weight gradient runs, and needs its map."""
     g = torch.Generator().manual_seed(3)
     a, b = torch.randn(8, 4, generator=g), torch.randn(2, 4, 4, generator=g)
     e = torch.ones(1, dtype=torch.int32)
@@ -164,9 +164,13 @@ def test_group_gemm_refuses_what_is_not_ported():
                 tgg.GroupGemmConfig(8, chunks_per_shard=2),
                 tgg.GroupGemmConfig(8, span_policy="window")):
         assert torch.equal(tgg.group_gemm(a, b, e, config=cfg), want), cfg
-    # ragged rows are served; their weight gradient is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
+    # ragged rows are served and trained: the weight gradient takes the map
+    with pytest.raises(ValueError, match="valid_rows"):
         tgg.group_gemm_dw(a, a, e, 2, config=tgg.GroupGemmConfig(8, ragged=True))
+    full = torch.full((1,), 8, dtype=torch.int32)
+    assert torch.equal(tgg.group_gemm_dw(a, a, e, 2, valid_rows=full,
+                                         config=tgg.GroupGemmConfig(8, ragged=True)),
+                       tgg.group_gemm_dw(a, a, e, 2, config=tgg.GroupGemmConfig(8)))
     with pytest.raises(ValueError, match="block_m"):
         tgg.group_gemm(a, b, e, config=tgg.GroupGemmConfig(4))
     with pytest.raises(ValueError, match="valid_rows"):

@@ -1,5 +1,7 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX
-package (every module, the layer tier ``layers/`` included), its entry
+package (every module, the layer tier ``layers/`` and the sequence-parallel
+modules ``ops/ring_attention.py``, ``ops/ulysses.py`` and
+``models/sp_transformer.py`` included), its entry
 points run on the card unless the caller asks for the CPU (and raise with
 no card), its layers hold no parameters of their own, and ``chip_smoke.py``
 refuses to report without a card or without the port beside it."""
@@ -38,6 +40,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'triton_dist_tpu'))\n"
         "assert len(names) >= 15, names\n"
+        "new = {'triton_dist_tpu_torch.ops.ring_attention', 'triton_dist_tpu_torch.ops.ulysses',\n"
+        "       'triton_dist_tpu_torch.models.sp_transformer'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "layers = [n for n in names if n.startswith('triton_dist_tpu_torch.layers.')]\n"
         "assert len(layers) == 5, layers\n"
         "assert not bad, bad\n"

@@ -7,8 +7,8 @@ row panels a block) and against ``jax.lax.ragged_dot`` over the packed live
 rows, the overlapped ops' plain twins (K30's and K31's) at world 2, the MoE
 MLP at world 1 and 2, ``EPMoEMLP`` at world 4, greedy tokens of ragged
 ``generate`` and ``ServingEngine`` serves (EP at world 4, tensor-parallel
-at world 2), and the refusals that remain (the ragged backward; once
-``ragged_dot``, chunks, span policies).
+at world 2), and the refusals that remain (none: the ragged backward
+runs; once ``ragged_dot``, chunks, span policies).
 
 Inputs come from numpy with a seed: hidden 32, ffn 64, 4 or 8 experts,
 top-2, one layer, 8-row blocks (4 in the model tests). JAX runs under
@@ -435,26 +435,31 @@ def test_ragged_serves_match_padded_and_jax(moe, case):
 # ------------------------------------------------------- the refusals ----
 
 def test_ragged_refusals_that_remain(moe):
-    """The ragged backward refuses (ROADMAP B16, ragged dW) at every entry,
-    ``train_step`` before its first step; ``ragged_dot``, chunks and span
-    policies, once refused, run, ragged or not: the sentinel ignores the
-    ragged map, and this grid GEMM has nothing to chunk."""
+    """The ragged backward runs at every entry — its refusal (once ROADMAP
+    B16, ragged dW) is gone: the weight gradient takes the alignment's
+    map, and ``train_step`` takes a ragged step; ``ragged_dot``, chunks and
+    span policies, once refused, run, ragged or not: the sentinel ignores
+    the ragged map, and this grid GEMM has nothing to chunk."""
     a, b = torch.zeros(8, 4), torch.zeros(2, 4, 4)
     e, v = torch.zeros(1, dtype=torch.int32), torch.full((1,), 8, dtype=torch.int32)
     ragged = tgg.GroupGemmConfig(8, ragged=True)
-    for refuse in (lambda: tgg.group_gemm_dw(a, a, e, 2, config=ragged),
-                   lambda: tgrads.group_gemm_grad(a, b, e, config=ragged),
-                   lambda: tgrads.tp_moe_mlp_grad(a[:4], b, b, e.reshape(1, 1).expand(4, 1),
-                                                  torch.ones(4, 1), gg_config=ragged)):
-        with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
-            refuse()
+    assert torch.equal(tgg.group_gemm_dw(a, a, e, 2, valid_rows=v, config=ragged),
+                       tgg.group_gemm_dw(a, a, e, 2, config=tgg.GroupGemmConfig(8)))
+    ta = a.clone().requires_grad_()
+    tgrads.group_gemm_grad(ta, b, e, valid_rows=v, config=ragged).sum().backward()
+    assert ta.grad is not None
+    tx = a[:4].clone().requires_grad_()
+    tgrads.tp_moe_mlp_grad(tx, b, b, e.reshape(1, 1).expand(4, 1), torch.ones(4, 1),
+                           gg_config=ragged).sum().backward()
+    assert tx.grad is not None
     _, tparams = moe
     tcfg = _configs(False, True)[1]
     tokens = torch.zeros(DIMS["batch"] * DIMS["seq"], dtype=torch.long)
     before = [p.clone() for p in tparams["layers"][0].values()]
-    with pytest.raises(NotImplementedError, match="ROADMAP B16, ragged dW"):
-        ttm.train_step(ttm.TPMoETransformer(tcfg), tparams, tokens, tokens, lr=0.1)
+    new, loss = ttm.train_step(ttm.TPMoETransformer(tcfg), tparams, tokens, tokens, lr=0.1)
+    assert torch.isfinite(loss)
     assert all(torch.equal(p, q) for p, q in zip(before, tparams["layers"][0].values()))
+    assert not torch.equal(new["layers"][0]["w_up"], tparams["layers"][0]["w_up"])
     g = torch.Generator().manual_seed(5)
     ra, rb = torch.randn(8, 4, generator=g), torch.randn(2, 4, 4, generator=g)
     padded = tgg.group_gemm(ra, rb, e, config=tgg.GroupGemmConfig(8))

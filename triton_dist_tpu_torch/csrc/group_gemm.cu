@@ -93,6 +93,29 @@
 // permutation copy is made. The f32 tile is written once. The f32 operands
 // take the FMA tile of F32Engine (reference precision).
 
+// K34 · K11 under the ragged-row policy (tdt_group_gemm_dw with a
+// valid_rows map):
+//   dW[e] = sum over the blocks i of e of A_i[:v_i]^T . G_i[:v_i]
+// with v_i the block's live rows. Replaces gg_pipeline.py:159
+// make_group_gemm_dw_kernel with ragged=True (its panel-guarded AᵀG with
+// the tail rows of A zeroed), launched by triton_dist_tpu/ops/
+// group_gemm.py:534 _group_gemm_dw_fused with the alignment's valid_rows.
+//
+// What bounds it: the live rows' products (operations, ~1.6x fewer than
+// K11's at the Mixtral backward's routing) and the f32 output written once
+// (bytes), which no skipping shrinks.
+//
+// What the design does about it: the CTA's list holds steps, not blocks:
+// the 64-row (f32: 16-row) steps of its expert's blocks that start below
+// the block's live count (gemm_core.cuh Groups::live_rows's convention),
+// in block order, each with its live rows. A dead step is never loaded.
+// In a step that straddles the live count the rows at or past it are
+// zeroed in the landed shared-memory stage, in A and in G, before the
+// mma, so junk in G's dead rows (a NaN) changes nothing. With a null map
+// every step is listed whole and the kernel is K11: its sum order is the
+// same steps in the same order, so an f32 acc + 0 for each skipped step is
+// the only difference from K11 on zeroed dead rows, and that is exact.
+
 #include "gemm_core.cuh"
 
 namespace {
@@ -134,22 +157,36 @@ cudaError_t launch(const void* a, const void* b, const float* scale, void* c, in
 }
 
 // ------------------------------------------------------------------ K11 ----
-constexpr int DW_LIST = 1024;  // row blocks listed per pass
+constexpr int DW_LIST = 1024;  // steps listed per pass
 
-// The row blocks of expert e among blocks [base, base + count) (count <=
-// DW_LIST), in block order, into list; returns how many. Every thread of
-// the block takes part and gets the same count.
-__device__ int list_blocks(const int* __restrict__ ids, int base, int count, int e, int n_exp,
-                           int* list, int* warp_counts) {
+// The live steps of expert e among blocks [base, base + blocks) (blocks *
+// spb <= DW_LIST; spb steps of br rows a block of bm rows), in block order,
+// into list (the step's index: its rows start at list[s] * br) and live
+// (its live rows, 1..br: all of them without a map, else the block's
+// valid_rows count less the step's offset); returns how many. Every thread
+// of the block takes part and gets the same count.
+__device__ int list_steps(const int* __restrict__ ids, const int* __restrict__ valid, int base,
+                          int blocks, int spb, int br, int bm, int e, int n_exp, int* list,
+                          int* live, int* warp_counts) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int count = blocks * spb;
   int total = 0;
   for (int c0 = 0; c0 < count; c0 += blockDim.x) {
-    const int i = c0 + threadIdx.x;
+    const int c = c0 + threadIdx.x;
     bool hit = false;
-    if (i < count) {
-      int id = ids[base + i];
+    int rows = 0;
+    if (c < count) {
+      const int i = base + c / spb;
+      int id = ids[i];
       id = id < 0 ? 0 : (id >= n_exp ? n_exp - 1 : id);
-      hit = id == e;
+      rows = br;
+      if (valid != nullptr) {
+        int v = valid[i];
+        v = v < 0 ? 0 : (v > bm ? bm : v);
+        rows = v - (c % spb) * br;
+        rows = rows < 0 ? 0 : (rows > br ? br : rows);
+      }
+      hit = id == e && rows > 0;
     }
     const unsigned mask = __ballot_sync(0xffffffffu, hit);
     if (lane == 0) warp_counts[warp] = __popc(mask);
@@ -159,7 +196,11 @@ __device__ int list_blocks(const int* __restrict__ ids, int base, int count, int
       if (w < warp) before += warp_counts[w];
       sum += warp_counts[w];
     }
-    if (hit) list[before + __popc(mask & ((1u << lane) - 1u))] = base + i;
+    if (hit) {
+      const int at = before + __popc(mask & ((1u << lane) - 1u));
+      list[at] = base * spb + c;
+      live[at] = rows;
+    }
     __syncthreads();  // warp_counts is rewritten by the next round
     total += sum;
   }
@@ -187,6 +228,14 @@ struct DwBf16 {
         for (int e = 0; e < 4; ++e) acc.v[i][j][e] = 0.f;
   }
 
+  // rows [from, BR) of a landed [BR][ld] stage, columns [0, cols), to zero
+  __device__ static __forceinline__ void zero_rows(bf16* st, int ld, int cols, int from) {
+    for (int e = threadIdx.x; e < (BR - from) * (cols / 8); e += THREADS) {
+      const int r = from + e / (cols / 8), c = (e % (cols / 8)) * 8;
+      *reinterpret_cast<uint4*>(st + r * ld + c) = make_uint4(0, 0, 0, 0);
+    }
+  }
+
   // rows [r0, r0 + BR): A[:, k0:k0+BM] as [BR][BM] and G[:, n0:n0+BN] as
   // [BR][BN], both as stored (row-major, rows outermost)
   __device__ static __forceinline__ void load_step(bf16* as, bf16* bs,
@@ -207,13 +256,14 @@ struct DwBf16 {
     }
   }
 
-  // acc += A[rows]^T . G[rows] over the steps of the listed blocks (step s:
-  // rows list[s / spb] * bm + (s % spb) * BR, BR of them). The dynamic
-  // shared memory is declared here, inside the loop's function.
+  // acc += A[rows]^T . G[rows] over the listed steps (step s: rows
+  // list[s] * BR, BR of them, the rows at or past live[s] zeroed once they
+  // have landed). The dynamic shared memory is declared here, inside the
+  // loop's function.
   __device__ static __forceinline__ void mainloop(const bf16* __restrict__ a,
                                                   const bf16* __restrict__ g, int m, int k,
                                                   int n, int k0, int n0, int vec,
-                                                  const int* list, int steps, int spb, int bm,
+                                                  const int* list, const int* live, int steps,
                                                   Acc& acc) {
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* as = reinterpret_cast<bf16*>(smem);  // [STAGES][BR][A_LD]
@@ -223,18 +273,23 @@ struct DwBf16 {
 #pragma unroll
     for (int st = 0; st < STAGES - 1; ++st) {
       if (st < steps)
-        load_step(as + st * A_STAGE, bs + st * B_STAGE, a, g, m, k, n,
-                  list[st / spb] * bm + (st % spb) * BR, k0, n0, vec);
+        load_step(as + st * A_STAGE, bs + st * B_STAGE, a, g, m, k, n, list[st] * BR, k0,
+                  n0, vec);
       cp_async_commit();
     }
     for (int kt = 0; kt < steps; ++kt) {
       cp_async_wait<STAGES - 2>();
       __syncthreads();
+      if (live[kt] < BR) {  // K34: the step straddles its block's live count
+        zero_rows(as + (kt % STAGES) * A_STAGE, A_LD, BM, live[kt]);
+        zero_rows(bs + (kt % STAGES) * B_STAGE, B_LD, BN, live[kt]);
+        __syncthreads();
+      }
       const int pre = kt + STAGES - 1;
       if (pre < steps) {
         const int ps = pre % STAGES;
-        load_step(as + ps * A_STAGE, bs + ps * B_STAGE, a, g, m, k, n,
-                  list[pre / spb] * bm + (pre % spb) * BR, k0, n0, vec);
+        load_step(as + ps * A_STAGE, bs + ps * B_STAGE, a, g, m, k, n, list[pre] * BR, k0,
+                  n0, vec);
       }
       cp_async_commit();
       const bf16* at = as + (kt % STAGES) * A_STAGE;
@@ -293,20 +348,21 @@ struct DwF32 {
   __device__ static __forceinline__ void mainloop(const float* __restrict__ a,
                                                   const float* __restrict__ g, int, int k,
                                                   int n, int k0, int n0, int,
-                                                  const int* list, int steps, int spb, int bm,
+                                                  const int* list, const int* live, int steps,
                                                   Acc& acc) {
     __shared__ float as[BR][BM + 4];
     __shared__ float bs[BR][BN + 4];
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
     for (int s = 0; s < steps; ++s) {
-      const size_t r0 = (size_t)list[s / spb] * bm + (s % spb) * BR;
+      const size_t r0 = (size_t)list[s] * BR;
+      const int lv = live[s];  // K34: rows at or past it are zeros
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int e = tid + i * THREADS;
         const int ra = e / BM, ca = e % BM;
-        as[ra][ca] = k0 + ca < k ? a[(r0 + ra) * k + k0 + ca] : 0.f;
+        as[ra][ca] = ra < lv && k0 + ca < k ? a[(r0 + ra) * k + k0 + ca] : 0.f;
         const int rb = e / BN, cb = e % BN;
-        bs[rb][cb] = n0 + cb < n ? g[(r0 + rb) * n + n0 + cb] : 0.f;
+        bs[rb][cb] = rb < lv && n0 + cb < n ? g[(r0 + rb) * n + n0 + cb] : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -336,26 +392,27 @@ template <class D>
 __global__ void __launch_bounds__(D::THREADS, 1)
     group_gemm_dw_kernel(const typename D::TIn* __restrict__ a,
                          const typename D::TIn* __restrict__ g, const int* __restrict__ ids,
-                         float* __restrict__ dw, int m, int k, int n, int n_exp, int bm,
-                         int vec) {
+                         const int* __restrict__ valid, float* __restrict__ dw, int m, int k,
+                         int n, int n_exp, int bm, int vec) {
   __shared__ int list[DW_LIST];
+  __shared__ int live[DW_LIST];
   __shared__ int warp_counts[D::THREADS / 32];
   const int e = blockIdx.z, k0 = blockIdx.y * D::BM, n0 = blockIdx.x * D::BN;
-  const int nb = m / bm, spb = bm / D::BR;
+  const int nb = m / bm, spb = bm / D::BR, per_pass = DW_LIST / spb;
   typename D::Acc acc;
   D::zero(acc);
-  for (int base = 0; base < nb; base += DW_LIST) {
-    const int cnt = list_blocks(ids, base, nb - base < DW_LIST ? nb - base : DW_LIST, e, n_exp,
-                                list, warp_counts);
-    if (cnt > 0) D::mainloop(a, g, m, k, n, k0, n0, vec, list, cnt * spb, spb, bm, acc);
-    __syncthreads();  // every thread is done with list and the stages
+  for (int base = 0; base < nb; base += per_pass) {
+    const int cnt = list_steps(ids, valid, base, nb - base < per_pass ? nb - base : per_pass,
+                               spb, D::BR, bm, e, n_exp, list, live, warp_counts);
+    if (cnt > 0) D::mainloop(a, g, m, k, n, k0, n0, vec, list, live, cnt, acc);
+    __syncthreads();  // every thread is done with the lists and the stages
   }
   D::store(acc, dw + (size_t)e * k * n, k, n, k0, n0);
 }
 
 template <class D>
-cudaError_t launch_dw(const void* a, const void* g, const int* ids, float* dw, int m, int k,
-                      int n, int n_exp, int bm, int vec, cudaStream_t s) {
+cudaError_t launch_dw(const void* a, const void* g, const int* ids, const int* valid, float* dw,
+                      int m, int k, int n, int n_exp, int bm, int vec, cudaStream_t s) {
   if (D::SMEM_BYTES > 0) {
     cudaError_t attr = cudaFuncSetAttribute(group_gemm_dw_kernel<D>,
                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -364,29 +421,33 @@ cudaError_t launch_dw(const void* a, const void* g, const int* ids, float* dw, i
   }
   const dim3 grid(cdiv(n, D::BN), cdiv(k, D::BM), n_exp);
   group_gemm_dw_kernel<D><<<grid, D::THREADS, D::SMEM_BYTES, s>>>(
-      static_cast<const typename D::TIn*>(a), static_cast<const typename D::TIn*>(g), ids, dw,
-      m, k, n, n_exp, bm, vec);
+      static_cast<const typename D::TIn*>(a), static_cast<const typename D::TIn*>(g), ids,
+      valid, dw, m, k, n, n_exp, bm, vec);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // K11: a [m, k], g [m, n] in one type, expert_ids int32 [m / block_m], dw
-// [n_exp, k, n] f32; block_m a multiple of 64 that divides m.
-extern "C" int tdt_group_gemm_dw(const void* a, const void* g, const void* expert_ids, void* dw,
-                                 int m, int k, int n, int n_exp, int block_m, int dtype,
-                                 void* stream) {
-  if (block_m <= 0 || block_m % DwBf16::BR != 0 || m % block_m != 0 || n_exp < 1 ||
+// [n_exp, k, n] f32; block_m a multiple of 64 that divides m. valid_rows:
+// null (K11), or int32 [m / block_m], each block's live rows (K34).
+extern "C" int tdt_group_gemm_dw(const void* a, const void* g, const void* expert_ids,
+                                 const void* valid_rows, void* dw, int m, int k, int n,
+                                 int n_exp, int block_m, int dtype, void* stream) {
+  if (block_m <= 0 || block_m % DwBf16::BR != 0 || block_m / DwF32::BR > DW_LIST ||
+      m % block_m != 0 || n_exp < 1 ||
       n_exp > 65535 || k < 1 || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ids = static_cast<const int*>(expert_ids);
+  const int* valid = static_cast<const int*>(valid_rows);
   float* out = static_cast<float*>(dw);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kBF16)
-    err = launch_dw<DwBf16>(a, g, ids, out, m, k, n, n_exp, block_m, bf16_vec_ok(a, g, n, k), s);
+    err = launch_dw<DwBf16>(a, g, ids, valid, out, m, k, n, n_exp, block_m,
+                            bf16_vec_ok(a, g, n, k), s);
   else if (dtype == kF32)
-    err = launch_dw<DwF32>(a, g, ids, out, m, k, n, n_exp, block_m, 0, s);
+    err = launch_dw<DwF32>(a, g, ids, valid, out, m, k, n, n_exp, block_m, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

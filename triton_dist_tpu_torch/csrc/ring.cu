@@ -91,43 +91,14 @@ namespace {
 
 using namespace tdt;
 using shmem::ChunkFlags;
+using shmem::make_ring;
+using shmem::Ring;
 using shmem::Spans;
 using shmem::WaitCtx;
 
-constexpr int MAX_WORLD = 8;
 constexpr long long PIECE_BYTES = 256 * 1024;  // one forward piece of K15
 constexpr long long PIECE_ELEMS = 64 * 1024;   // one element piece of K18/K23
 constexpr long long GATHER_PIECE = 32 * 1024;  // one byte piece of K19-K22
-
-struct Ring {
-  int world, me;
-  const int* entry_wait;  // this rank's slot of its right neighbour's arrival
-  int* entry_signal;      // the left neighbour's slot of this rank's arrival
-  ChunkFlags f;
-  WaitCtx w;
-  int jitter;             // comm_jitter's base (0: none)
-
-  __device__ __forceinline__ int right() const { return (me + 1) % world; }
-  __device__ __forceinline__ int left() const { return (me - 1 + world) % world; }
-
-  // a kernel's first act: tell the left neighbour this rank has started,
-  // then wait (bounded) until the right neighbour has, before any store
-  // into its buffers and before any other wait, so a neighbour that never
-  // comes is what a timeout names
-  __device__ __forceinline__ void enter() const {
-    if (blockIdx.x == 0 && threadIdx.x == 0) shmem::signal_set(entry_signal, f.epoch);
-    shmem::wait_block(entry_wait, f.epoch, w, right(), shmem::KIND_BARRIER);
-  }
-
-  // before a block's first item of (step, chunk), step > 0: the left
-  // neighbour's chunk of step - 1 has landed
-  __device__ __forceinline__ void wait_landed(int step, int chunk, int& waited) const {
-    const int key = ChunkFlags::slot(step, chunk);
-    if (step == 0 || key == waited) return;
-    shmem::wait_chunk(f, step - 1, chunk, world, w);
-    waited = key;
-  }
-};
 
 // The bidirectional ring's second half: the flag set of the chunks that
 // travel left (this rank's slots raised by its right neighbour, the left
@@ -403,26 +374,6 @@ cudaError_t dispatch_one(int dtype, F&& f) {
 int persistent_grid(long long items, int max_blocks) {
   const int cap = max_blocks > 0 ? max_blocks : 1;
   return items < cap ? static_cast<int>(items < 1 ? 1 : items) : cap;
-}
-
-bool make_ring(int world, int me, int epoch, void* entry_wait, void* entry_signal,
-               void* flags_me, void* flags_right, void* count, int jitter, void* diag,
-               long long timeout_ns, int family, Ring& r) {
-  if (world < 2 || world > MAX_WORLD || me < 0 || me >= world || jitter < 0) return false;
-  r.world = world;
-  r.me = me;
-  r.entry_wait = static_cast<const int*>(entry_wait);
-  r.entry_signal = static_cast<int*>(entry_signal);
-  r.f.mine = static_cast<int*>(flags_me);
-  r.f.peer = static_cast<int*>(flags_right);
-  r.f.count = static_cast<int*>(count);
-  r.f.epoch = epoch;
-  r.w.diag = static_cast<int*>(diag);
-  r.w.timeout_ns = timeout_ns;
-  r.w.rank = me;
-  r.w.family = family;
-  r.jitter = jitter;
-  return true;
 }
 
 bool make_spans(const int* spans, int n_spans, int m_loc, Spans& sp) {

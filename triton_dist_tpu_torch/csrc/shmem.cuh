@@ -4,7 +4,8 @@
 // the race-shaking delay, the chunked surface of the ring kernels
 // (csrc/ring.cu): per-(step, chunk) puts with a flag slot of their own and
 // the bounded per-chunk wait, and the all-to-all's chunked put with a flag
-// slot per (sender, chunk) (csrc/a2a.cu).
+// slot per (sender, chunk) (csrc/a2a.cu), and the ring launch (Ring) the
+// ring kernels share (csrc/ring.cu, csrc/ring_attention.cu).
 //
 // Symmetric memory: every rank holds one allocation of the same shape per
 // symmetric buffer, and a device-side int64[world] table of the ranks'
@@ -302,6 +303,66 @@ __device__ __forceinline__ void wait_chunk(const ChunkFlags& f, int step, int ch
                                            int site_base, const WaitCtx& w) {
   const int s = ChunkFlags::slot(step, chunk);
   wait_block(f.mine + s, f.epoch, w, site_base + s, KIND_SIGNAL);
+}
+
+// ------------------------------------------------------ a ring launch ----
+//
+// One rank's side of a ring kernel's launch (csrc/ring.cu,
+// csrc/ring_attention.cu): its neighbours, the entry handshake, the
+// (step, chunk) flags of the chunks that travel right, the bounded-wait
+// context and the race-shaking delay.
+
+constexpr int RING_MAX_WORLD = 8;
+
+struct Ring {
+  int world, me;
+  const int* entry_wait;  // this rank's slot of its right neighbour's arrival
+  int* entry_signal;      // the left neighbour's slot of this rank's arrival
+  ChunkFlags f;
+  WaitCtx w;
+  int jitter;             // comm_jitter's base (0: none)
+
+  __device__ __forceinline__ int right() const { return (me + 1) % world; }
+  __device__ __forceinline__ int left() const { return (me - 1 + world) % world; }
+
+  // a kernel's first act: tell the left neighbour this rank has started,
+  // then wait (bounded) until the right neighbour has, before any store
+  // into its buffers and before any other wait, so a neighbour that never
+  // comes is what a timeout names
+  __device__ __forceinline__ void enter() const {
+    if (blockIdx.x == 0 && threadIdx.x == 0) signal_set(entry_signal, f.epoch);
+    wait_block(entry_wait, f.epoch, w, right(), KIND_BARRIER);
+  }
+
+  // before a block's first item of (step, chunk), step > 0: the left
+  // neighbour's chunk of step - 1 has landed
+  __device__ __forceinline__ void wait_landed(int step, int chunk, int& waited) const {
+    const int key = ChunkFlags::slot(step, chunk);
+    if (step == 0 || key == waited) return;
+    wait_chunk(f, step - 1, chunk, world, w);
+    waited = key;
+  }
+};
+
+// A Ring from the host's launch arguments; false for a world it cannot be.
+inline bool make_ring(int world, int me, int epoch, void* entry_wait, void* entry_signal,
+                      void* flags_me, void* flags_right, void* count, int jitter, void* diag,
+                      long long timeout_ns, int family, Ring& r) {
+  if (world < 2 || world > RING_MAX_WORLD || me < 0 || me >= world || jitter < 0) return false;
+  r.world = world;
+  r.me = me;
+  r.entry_wait = static_cast<const int*>(entry_wait);
+  r.entry_signal = static_cast<int*>(entry_signal);
+  r.f.mine = static_cast<int*>(flags_me);
+  r.f.peer = static_cast<int*>(flags_right);
+  r.f.count = static_cast<int*>(count);
+  r.f.epoch = epoch;
+  r.w.diag = static_cast<int*>(diag);
+  r.w.timeout_ns = timeout_ns;
+  r.w.rank = me;
+  r.w.family = family;
+  r.jitter = jitter;
+  return true;
 }
 
 }  // namespace shmem

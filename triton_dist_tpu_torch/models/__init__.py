@@ -1,10 +1,16 @@
-"""The dense, MoE and expert-parallel MoE decoders, their presets, training step, the
-serving-side decode and the prefix cache (≙ ``triton_dist_tpu/models``).
+"""The dense, MoE and expert-parallel MoE decoders, the sequence-parallel
+decoder, their presets, training steps, the serving-side decode and the
+prefix cache (≙ ``triton_dist_tpu/models``).
 The model and training entry points and the prefix cache's configuration
 are re-exported here; import ``decode``, ``prefix_cache`` and ``presets``
 directly for the rest."""
 
 from triton_dist_tpu_torch.models.prefix_cache import PrefixCacheConfig  # noqa: F401
+from triton_dist_tpu_torch.models.sp_transformer import (  # noqa: F401
+    SPTransformer,
+    SPTransformerConfig,
+    sp_train_step,
+)
 from triton_dist_tpu_torch.models.tp_transformer import (  # noqa: F401
     EPMoETransformer,
     EPMoETransformerConfig,

@@ -56,10 +56,8 @@ from triton_dist_tpu_torch.ops.allgather_gemm import AGGemmConfig, ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import GemmRSConfig, gemm_rs
 from triton_dist_tpu_torch.ops.group_gemm import (
     FP8_DTYPE,
-    check_config,
     quantize_expert_weights,
     quantize_expert_weights_fp8,
-    refuse_ragged_backward,
 )
 from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
 from triton_dist_tpu_torch.ops.moe_utils import select_experts
@@ -575,9 +573,8 @@ def train_step(
     Gradient accounting as in the JAX package (:func:`_loss_and_grads`).
     ``skip_nonfinite`` gates the update on ``grads_all_finite`` over the
     gradients and the loss on every rank: a dropped step returns the
-    parameters bit for bit. A ragged ``gg_config`` refuses before any step
-    runs: the ragged backward is not ported (ROADMAP B16, ragged dW)."""
-    refuse_ragged_backward(check_config(getattr(model.cfg, "gg_config", None)))
+    parameters bit for bit. A ragged ``gg_config`` trains on the ragged
+    kernels (K29-K31 forward, K29 and K34 backward)."""
     if dp_axis is not None:
         raise NotImplementedError(
             "train_step dp_axis: the data-parallel axis (a 2-D DistContext) is not "

@@ -1,6 +1,7 @@
 """The differentiable fused ops (≙ ``triton_dist_tpu/ops/grads.py``): each
 ``jax.custom_vjp`` there is a ``torch.autograd.Function`` here whose
-backward runs the same kernels as the JAX backward.
+backward runs the same kernels as the JAX backward (ring attention's
+backward is XLA work there and plain PyTorch here).
 
   C = AG(A) @ B            (column-parallel, ``ag_gemm_grad``)
     dA = gemm_rs(dC, Bᵀ)   dB = AG(A)ᵀ @ dC
@@ -37,12 +38,12 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     gelu,
     group_gemm,
     group_gemm_dw,
-    refuse_ragged_backward,
 )
 from triton_dist_tpu_torch.ops.moe_mlp import _tp_moe_forward_impl
 from triton_dist_tpu_torch.ops.moe_utils import RankedAlignment, ranked_global_view
 from triton_dist_tpu_torch.ops.reduce_scatter import reduce_scatter
-from triton_dist_tpu_torch.utils import axis_size
+from triton_dist_tpu_torch.ops.ring_attention import positions, ring_attention
+from triton_dist_tpu_torch.utils import axis_index, axis_size
 
 
 def _t(w: torch.Tensor) -> torch.Tensor:
@@ -103,45 +104,128 @@ def gemm_rs_grad(a: torch.Tensor, b: torch.Tensor, *, ctx=None, rs_config=None,
     return _GemmRS.apply(a, b, ctx, rs_config, ag_config)
 
 
-def _group_gemm_bwd(a_sorted, b, expert_ids, g, cfg, need_db=True):
+def _ring_attention_bwd(q, k, v, out, lse, dout, ctx, causal, layout):
+    """``_ring_attn_bwd`` (``:149-214``) step for step, plain PyTorch (XLA
+    work in the JAX package, no Pallas kernel): one gather of ``(k ‖ v)``,
+    then for each gathered chunk in chunk order the flash-attention
+    gradient from the saved lse with ``delta = Σ dout·out`` — one ``[bh,
+    s_loc, s_loc]`` f32 block at a time, never the whole ``[s_loc, S]``
+    matrix — and one psum_scatter of ``(dk ‖ dv)`` to the chunks' owners."""
+    b, h, s_loc, d = q.shape
+    bh = b * h
+    n, me = axis_size(ctx), axis_index(ctx)
+    scale = 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    q3 = q.reshape(bh, s_loc, d).to(f32)
+    dout3 = dout.reshape(bh, s_loc, d).to(f32)
+    lse3 = lse.reshape(bh, s_loc)[..., None]
+    delta = (dout3 * out.reshape(bh, s_loc, d).to(f32)).sum(-1, keepdim=True)
+    rows = positions(me, n, s_loc, layout, q.device).long()
+    kv = torch.stack([k.reshape(bh, s_loc, d), v.reshape(bh, s_loc, d)])
+    kv_full = kv if n == 1 else ctx.all_gather(kv.contiguous(), 2)   # [2, bh, S, d]
+    dq3 = torch.zeros_like(q3)
+    dkv = torch.empty((2, bh, n * s_loc, d), dtype=f32, device=q.device)
+    for c in range(n):
+        span = slice(c * s_loc, (c + 1) * s_loc)
+        k_c, v_c = kv_full[0, :, span].to(f32), kv_full[1, :, span].to(f32)
+        s_c = (q3 @ k_c.transpose(1, 2)) * scale
+        if causal:
+            cols = positions(c, n, s_loc, layout, q.device).long()
+            s_c = s_c.masked_fill(~(cols[None, :] <= rows[:, None])[None], float("-inf"))
+        p_c = torch.exp(s_c - lse3)
+        del s_c
+        dkv[1, :, span] = p_c.transpose(1, 2) @ dout3
+        ds_c = p_c * ((dout3 @ v_c.transpose(1, 2)) - delta) * scale
+        del p_c
+        dq3 += ds_c @ k_c
+        dkv[0, :, span] = ds_c.transpose(1, 2) @ q3
+        del ds_c
+    if n > 1:
+        dkv = ctx.psum_scatter(dkv, 2)
+    return (dq3.reshape(q.shape).to(q.dtype), dkv[0].reshape(k.shape).to(k.dtype),
+            dkv[1].reshape(v.shape).to(v.dtype))
+
+
+class _RingAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, q, k, v, ctx, causal, config, layout):
+        out, lse = ring_attention(q, k, v, ctx=ctx, causal=causal, config=config,
+                                  layout=layout, return_lse=True)
+        fc.save_for_backward(q, k, v, out, lse)
+        fc.dist, fc.causal, fc.layout = ctx, causal, layout
+        return out
+
+    @staticmethod
+    def backward(fc, dout):
+        q, k, v, out, lse = fc.saved_tensors
+        return (*_ring_attention_bwd(q, k, v, out, lse, dout.contiguous(), fc.dist, fc.causal,
+                                     fc.layout), None, None, None, None)
+
+
+def ring_attention_grad(q, k, v, *, ctx=None, causal: bool = True, config=None,
+                        layout: str = "contig") -> torch.Tensor:
+    """Differentiable sequence-parallel ring attention (≙
+    ``ring_attention_grad``, ``:112-217``; call inside ``ctx.run(...,
+    grad=True)`` at world > 1): forward ``ring_attention(...,
+    return_lse=True)`` (K35 on the card), backward the flash-attention
+    gradient over the gathered (k ‖ v) in plain PyTorch with two host
+    collectives (:func:`_ring_attention_bwd`). q, k, v ``[b, h, s_loc,
+    d]``."""
+    return _RingAttention.apply(q, k, v, ctx, causal, config, layout)
+
+
+def _group_gemm_bwd(a_sorted, b, expert_ids, g, cfg, need_db=True, valid_rows=None):
     """Both gradients of ``group_gemm(a_sorted, b)`` for the cotangent `g`
     (≙ ``_gg_bwd``): dA ``[t_pad, K]`` f32 from K8 over the transposed bank
     (g in a_sorted's dtype), dB ``[E, K, N]`` in b's dtype from K11 (both
     operands in f32 where their dtypes differ, as the JAX kernel takes
-    them); dB None without `need_db`."""
-    da = group_gemm(g.to(a_sorted.dtype), _t(b), expert_ids, config=cfg,
-                    out_dtype=torch.float32)
+    them); dB None without `need_db`. Under a ragged config the
+    alignment's ``valid_rows`` map reaches both: dA from K29 with its dead
+    rows exact zeros, dB from K34."""
+    da = group_gemm(g.to(a_sorted.dtype), _t(b), expert_ids, valid_rows=valid_rows,
+                    config=cfg, out_dtype=torch.float32)
     if not need_db:
         return da, None
     a = a_sorted
     if g.dtype != a.dtype:
         a, g = a.float(), g.float()
-    db = group_gemm_dw(a, g, expert_ids, b.shape[0], config=cfg).to(b.dtype)
+    db = group_gemm_dw(a, g, expert_ids, b.shape[0], valid_rows=valid_rows,
+                       config=cfg).to(b.dtype)
     return da, db
 
 
 class _GroupGemm(torch.autograd.Function):
     @staticmethod
-    def forward(fc, a_sorted, b, expert_ids, cfg, out_dtype):
-        fc.save_for_backward(a_sorted, b, expert_ids)
+    def forward(fc, a_sorted, b, expert_ids, valid_rows, cfg, out_dtype):
+        fc.save_for_backward(a_sorted, b, expert_ids, valid_rows)
         fc.cfg = cfg
-        return group_gemm(a_sorted, b, expert_ids, config=cfg, out_dtype=out_dtype)
+        return group_gemm(a_sorted, b, expert_ids, valid_rows=valid_rows, config=cfg,
+                          out_dtype=out_dtype)
 
     @staticmethod
     def backward(fc, dout):
-        a_sorted, b, expert_ids = fc.saved_tensors
-        da, db = _group_gemm_bwd(a_sorted, b, expert_ids, dout.contiguous(), fc.cfg)
-        return da.to(a_sorted.dtype), db, None, None, None
+        """Straight-through for the scaled formats (``_gg_bwd``, ``:630-633``):
+        ``w8``/``fp8`` are stripped, the gradients flow through the float
+        bank."""
+        a_sorted, b, expert_ids, valid_rows = fc.saved_tensors
+        cfg = dataclasses.replace(fc.cfg, w8=False, fp8=False)
+        da, db = _group_gemm_bwd(a_sorted, b, expert_ids, dout.contiguous(), cfg,
+                                 valid_rows=valid_rows)
+        return da.to(a_sorted.dtype), db, None, None, None, None
 
 
-def group_gemm_grad(a_sorted, b, expert_ids, *, config=None, out_dtype=None):
+def group_gemm_grad(a_sorted, b, expert_ids, *, valid_rows=None, config=None, out_dtype=None,
+                    assume_sorted: bool = False):
     """Differentiable block-aligned grouped GEMM (≙ ``group_gemm_grad``,
-    ``:595``): forward K8; backward K8 with the transposed bank for dA and
-    K11 for dB. ``expert_ids`` gets no gradient. A ragged config refuses:
-    its dW kernel is not ported (ROADMAP B16, ragged dW)."""
-    cfg = check_config(config)
-    refuse_ragged_backward(cfg)
-    return _GroupGemm.apply(a_sorted, b, expert_ids, cfg, out_dtype or a_sorted.dtype)
+    ``:596-650``): forward K8; backward K8 with the transposed bank for dA
+    and K11 for dB. With a ragged config (and the alignment's
+    ``valid_rows``, required) the forward is K29, dA K29 over the
+    transposed bank (dead rows exact zeros) and dB K34. ``expert_ids`` and
+    ``valid_rows`` get no gradient; ``assume_sorted`` is the JAX package's
+    and changes nothing here (``group_gemm_dw``)."""
+    del assume_sorted
+    return _GroupGemm.apply(a_sorted, b, expert_ids, valid_rows, check_config(config),
+                            out_dtype or a_sorted.dtype)
 
 
 class _TPMoE(torch.autograd.Function):
@@ -164,7 +248,10 @@ class _TPMoE(torch.autograd.Function):
         scaled formats (``:414-430``): ``w8``/``fp8`` are stripped from the
         config, pre-quantized banks are dequantized once and differentiated
         against, and the banks and their scales get zero cotangents (the
-        int8 banks none: they take no gradient in PyTorch)."""
+        int8 banks none: they take no gradient in PyTorch). Under a ragged
+        config every grouped GEMM of the backward takes the forward's
+        ``valid_rows`` map (``:462-514``): K29 for y, dact and dA, K34 for
+        the weight gradients."""
         w_up, w_down = fc.saved_tensors
         res, ctx, cfg = fc.res, fc.dist, fc.cfg
         w_up_scale, w_down_scale = fc.scales
@@ -192,7 +279,9 @@ class _TPMoE(torch.autograd.Function):
 
         # remat the activation and y_sorted
         act = gelu(h_sorted.float()).to(dtype)
-        y_sorted = group_gemm(act, w_down, al.expert_ids, config=cfg, out_dtype=f32)
+        valid_rows = al.valid_rows
+        y_sorted = group_gemm(act, w_down, al.expert_ids, valid_rows=valid_rows, config=cfg,
+                              out_dtype=f32)
         dpart_rows = dpartial[token_of_row]               # [t_pad, H]
         # d topk_weights: <dout row, y row> per live assignment, summed over
         # the ranks (each holds its F shard's part)
@@ -208,7 +297,7 @@ class _TPMoE(torch.autograd.Function):
         del dpart_rows
         # pre-quantized banks take no gradient: no K11 pass for them (``:490``)
         dact, dw_down = _group_gemm_bwd(act, w_down, al.expert_ids, dy_sorted, cfg,
-                                        need_db=not quantized)
+                                        need_db=not quantized, valid_rows=valid_rows)
         del act, dy_sorted
         # through the activation, then the up grouped GEMM; sentinel rows of
         # the residual hold clamped junk: zero them
@@ -217,7 +306,7 @@ class _TPMoE(torch.autograd.Function):
         del dact
         a_sorted = torch.where(valid[:, None], res.a_sorted, 0)
         da_sorted, dw_up = _group_gemm_bwd(a_sorted, w_up, al.expert_ids, dh_sorted, cfg,
-                                           need_db=not quantized)
+                                           need_db=not quantized, valid_rows=valid_rows)
         del a_sorted, dh_sorted
         # the unsorted scatter-add back to the tokens, then the all-gather's
         # transpose
@@ -244,10 +333,9 @@ def tp_moe_mlp_grad(x, w_up, w_down, topk_ids, topk_weights, *, ctx=None, gg_con
     ``reduce_scatter`` (K12; K18 off a full mesh). ``topk_ids`` gets no
     gradient. ``w_up_scale``/``w_down_scale`` mark pre-quantized int8/fp8
     banks (K24, K25, K26 in the forward; ``:346-395``); the backward is
-    straight-through (``_TPMoE.backward``). A ragged ``gg_config`` refuses
-    before the forward runs (ROADMAP B16, ragged dW)."""
+    straight-through (``_TPMoE.backward``). A ragged ``gg_config`` runs
+    K29 (world 1) or K30/K31 forward and K29, K34 backward."""
     cfg = check_config(gg_config)
-    refuse_ragged_backward(cfg)
     return _TPMoE.apply(x, w_up, w_down, topk_ids, topk_weights, ctx, cfg, overlap,
                         w_up_scale, w_down_scale)
 

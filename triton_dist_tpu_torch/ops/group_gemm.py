@@ -35,9 +35,14 @@ as zeros; dead rows of a live tile are zeroed after the scale fold.
 with plain PyTorch (:func:`_group_gemm_plain`), on the card too. It needs
 globally expert-sorted blocks, and ignores ``ragged``. The chunked
 overlap schedules (``chunks_per_shard``, ``span_policy``) are read by the
-overlapped pair (K32/K33); this grid GEMM has nothing to chunk. The ragged
-weight gradient is not ported: asking for it raises
-``NotImplementedError`` naming its ROADMAP item.
+overlapped pair (K32/K33); this grid GEMM has nothing to chunk.
+
+K34 is K11 under the ragged-row policy (``group_gemm_dw`` with
+``config.ragged`` and the alignment's ``valid_rows`` map; the TPU body's
+ragged branch, ``gg_pipeline.py:159`` with ``ragged=True``): each 64-row
+step of a block at or past its live count is skipped, and a step that
+straddles it has the dead rows of A and G zeroed in shared memory before
+the product.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from triton_dist_tpu_torch.utils import count_call, count_launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {"tdt_group_gemm": [_P] * 6 + [_I] * 9 + [_P],
-               "tdt_group_gemm_dw": [_P] * 4 + [_I] * 6 + [_P]}
+               "tdt_group_gemm_dw": [_P] * 5 + [_I] * 6 + [_P]}
 # the M tile of the bf16 engine (csrc/gemm_core.cuh Bf16Engine::BM); the f32
 # engine's 64 divides it
 TILE_M = 128
@@ -370,19 +375,26 @@ def group_gemm_fp8(a_sorted, b_q, scale, expert_ids, *, valid_rows=None, config=
                       config=config, out_dtype=out_dtype, act_fn=act_fn)
 
 
-def _group_gemm_dw_plain(a_sorted, g_sorted, expert_ids, n_exp, bm):
-    """Plain version (≙ ``_group_gemm_dw_xla``): for each expert, the sum
-    of ``A_blkᵀ · G_blk`` over its row blocks in block order, each product
-    and the sum in f32; an expert with no blocks is zero. The ids cross to
-    the host."""
+def _group_gemm_dw_plain(a_sorted, g_sorted, expert_ids, n_exp, bm, valid_rows=None):
+    """Plain version (≙ ``_group_gemm_dw_xla``, ``:453-470``): for each
+    expert, the sum of ``A_blkᵀ · G_blk`` over its row blocks in block
+    order, each product and the sum in f32; an expert with no blocks is
+    zero. With the ragged map ``valid_rows``, each block's rows at or past
+    its live count are zeroed on A first, as the reference does, and on G
+    too, so junk in G's dead rows (a NaN) never reaches a sum. The ids
+    cross to the host."""
     count_call(_group_gemm_dw_plain)
     nb = expert_ids.shape[0]
     k, n = a_sorted.shape[1], g_sorted.shape[1]
-    a3 = a_sorted.reshape(nb, bm, k)
-    g3 = g_sorted.reshape(nb, bm, n)
+    a3 = a_sorted.reshape(nb, bm, k).float()
+    g3 = g_sorted.reshape(nb, bm, n).float()
+    if valid_rows is not None:
+        live = torch.arange(bm, device=a3.device)[None, :, None] < valid_rows.to(
+            a3.device).long()[:, None, None]
+        a3, g3 = torch.where(live, a3, 0.0), torch.where(live, g3, 0.0)
     out = torch.zeros((n_exp, k, n), dtype=torch.float32, device=a_sorted.device)
     for i, e in enumerate(expert_ids.tolist()):
-        out[e] += a3[i].float().t() @ g3[i].float()
+        out[e] += a3[i].t() @ g3[i]
     return out
 
 
@@ -395,34 +407,50 @@ def group_gemm_dw(
     expert_ids: torch.Tensor,
     n_exp: int,
     *,
+    valid_rows: torch.Tensor | None = None,
     config: GroupGemmConfig | None = None,
+    assume_sorted: bool = False,
 ) -> torch.Tensor:
     """Transpose grouped GEMM, the expert-weight gradient of
-    :func:`group_gemm`: ``dW[e] = Σ_{blocks i of e} A_iᵀ · G_i``.
-    a_sorted ``[t_pad, K]`` and g_sorted ``[t_pad, N]`` block-aligned rows
-    in the same order (bf16 or f32, one type), expert_ids ``[t_pad /
-    block_m]`` (clamped into ``[0, n_exp)`` first) → ``[n_exp, K, N]`` f32;
-    an expert with no rows comes back exactly zero.
+    :func:`group_gemm` (≙ ``group_gemm_dw``, ``:553``): ``dW[e] = Σ_{blocks
+    i of e} A_iᵀ · G_i``. a_sorted ``[t_pad, K]`` and g_sorted ``[t_pad,
+    N]`` block-aligned rows in the same order (bf16 or f32, one type),
+    expert_ids ``[t_pad / block_m]`` (clamped into ``[0, n_exp)`` first) →
+    ``[n_exp, K, N]`` f32; an expert with no rows comes back exactly zero.
+    K11 on the card.
+
+    With ``config.ragged`` (K34), ``valid_rows`` (``[t_pad / block_m]``
+    int32, the alignment's map) bounds each block's live rows: the rows at
+    or past it take no part in the sum, whatever A and G hold there.
 
     Each expert's blocks are summed in block order whatever the layout, so
-    the port needs no ``assume_sorted`` (the JAX package's licence to skip
-    its grouping permutation): the rank-major rows take the same path.
-    A ragged config is refused: its dW kernel is not ported."""
+    ``assume_sorted`` (the JAX package's licence to skip its grouping
+    permutation) is taken for the API's sake and changes nothing: the
+    rank-major rows take the same path."""
+    del assume_sorted
     cfg = check_config(config)
-    refuse_ragged_backward(cfg)
     t_pad, k = a_sorted.shape
     n = g_sorted.shape[1]
     nb = expert_ids.shape[0]
     if g_sorted.shape[0] != t_pad or nb == 0 or t_pad % nb or t_pad // nb != cfg.block_m:
         raise ValueError(f"group_gemm_dw shapes {tuple(a_sorted.shape)}, "
                          f"{tuple(g_sorted.shape)}, {nb} blocks of {cfg.block_m} rows")
+    if cfg.ragged and valid_rows is None:
+        raise ValueError(
+            "GroupGemmConfig.ragged needs the alignment's per-block valid_rows map — build "
+            "it with moe_align_block_size(..., ragged=True) / moe_align_ranked(..., "
+            "ragged=True)")
+    valid_rows = valid_rows if cfg.ragged else None
     bm = cfg.block_m
     ids = expert_ids.clamp(0, n_exp - 1).contiguous()
     if a_sorted.device.type == "cpu":
-        return _group_gemm_dw_plain(a_sorted, g_sorted, ids, n_exp, bm)
+        return _group_gemm_dw_plain(a_sorted, g_sorted, ids, n_exp, bm, valid_rows)
     check_operands(a_sorted, g_sorted, torch.float32, "group_gemm_dw")
-    if ids.dtype != torch.int32 or ids.device != a_sorted.device:
-        raise ValueError(f"group_gemm_dw: expert_ids must be int32 on {a_sorted.device}")
+    for name, t in (("expert_ids", ids), ("valid_rows", valid_rows)):
+        if t is not None and (t.dtype != torch.int32 or t.device != a_sorted.device
+                              or not t.is_contiguous() or t.shape != expert_ids.shape):
+            raise ValueError(f"group_gemm_dw: {name} must be contiguous int32 "
+                             f"{tuple(expert_ids.shape)} on {a_sorted.device}")
     if bm % TILE_M:
         raise ValueError(f"group_gemm_dw: block_m={bm} must be a multiple of {TILE_M} "
                          f"on the card")
@@ -431,21 +459,14 @@ def group_gemm_dw(
         return out.zero_()
     lib = _build.library("group_gemm", _PROTOTYPES)
     rc = lib.tdt_group_gemm_dw(
-        a_sorted.data_ptr(), g_sorted.data_ptr(), ids.data_ptr(), out.data_ptr(),
+        a_sorted.data_ptr(), g_sorted.data_ptr(), ids.data_ptr(),
+        None if valid_rows is None else valid_rows.data_ptr(), out.data_ptr(),
         t_pad, k, n, n_exp, bm, DTYPE_CODE[a_sorted.dtype], _build.stream_of(a_sorted),
     )
     _build.check(lib, rc, "group_gemm_dw")
-    count_launch(group_gemm_dw)
+    count_launch(group_gemm_dw, "launches" if valid_rows is None else "ragged_launches")
     return out
 
 
-group_gemm_dw.launches = 0
-
-
-def refuse_ragged_backward(cfg: GroupGemmConfig) -> None:
-    """The backward of a ragged config needs the ragged dW kernel
-    (``gg_pipeline.py:159`` with ``ragged=True``), which is not ported."""
-    if cfg.ragged:
-        raise NotImplementedError(
-            "the grouped-GEMM backward with ragged rows (GroupGemmConfig.ragged) is not "
-            "ported yet (ROADMAP B16, ragged dW): serve with ragged rows, train padded")
+group_gemm_dw.launches = 0         # K11
+group_gemm_dw.ragged_launches = 0  # K34

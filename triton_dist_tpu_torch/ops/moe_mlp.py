@@ -32,8 +32,8 @@ scales differ from the whole bank's).
 ``gg_config.ragged`` (the ragged-row policy, ≙ ``:303-320``): the
 alignments carry their ``valid_rows`` maps and every grouped GEMM skips
 the dead tiles: K30 and K31 in the overlapped pair, K29 in the
-sequential composition. Serving only: the backward refuses it
-(``ops/grads.py``).
+sequential composition; the backward (``ops/grads.py``) takes the same
+maps (K29, and K34 for the weight gradients).
 
 The counters on :func:`tp_moe_mlp` measure the padding of every forward
 (both entries): ``rows`` (the aligned rows a rank's grouped GEMMs run

@@ -33,7 +33,8 @@ Site numbering per family, for a launch at world ``n``:
   rank ``me - d - 1`` (kind ``signal_wait_until``);
 - the ring kernels ``ag_gemm_ring``, ``gemm_rs_ring``,
   ``reduce_scatter_ring``, ``all_gather_ring_1d`` and
-  ``all_gather_ring_bidir`` (``csrc/ring.cu``): site ``p < n`` is the wait
+  ``all_gather_ring_bidir`` (``csrc/ring.cu``), and ``ring_attention``
+  (``csrc/ring_attention.cu``, one chunk a step): site ``p < n`` is the wait
   for the arrival of the neighbour ``p`` before the first store into its
   buffers (kind ``barrier_all``; the right neighbour, and in the
   bidirectional ring then the left one); site ``n + s * MAX_SPANS + j`` is
@@ -64,9 +65,9 @@ FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group
             "moe_rs": 6, "reduce_scatter": 7, "ag_gemm_ring": 8, "gemm_rs_ring": 9,
             "reduce_scatter_ring": 10, "all_gather_ring_1d": 11, "all_gather_ring_bidir": 12,
             "all_to_all": 13, "all_to_all_chunked": 14, "ag_group_gemm_chunked": 15,
-            "moe_rs_chunked": 16}
+            "moe_rs_chunked": 16, "ring_attention": 17}
 RING_FAMILIES = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring", "all_gather_ring_1d",
-                 "all_gather_ring_bidir")
+                 "all_gather_ring_bidir", "ring_attention")
 MAX_SPANS = 16  # csrc/shmem.cuh MAX_SPANS: the (step, chunk) flag slots a step owns
 FAMILY_NAMES = {code: name for name, code in FAMILIES.items()}
 
