@@ -184,7 +184,24 @@ Phases, each printed as a JSON line, each fatal on failure:
    loss, gradients and parameters against the plain path differentiated by
    PyTorch) and the ragged cases of ``f32_parity_train``.
 
-The line before the last lists every kernel (K1-K35) with its readings;
+31. the 2-D rank runtime (``initialize_distributed(mesh_shape=...)``):
+   the hierarchical ring allgather K36 and the 2-D AG-GEMM K37
+   (``csrc/ring.cu``) at 2 x 2, 2 x 4, 4 x 2 and over the swapped pair,
+   K36 bit-exact and equal to K19 over the flattened ring, K37 bit-equal
+   to K15 and within one bf16 ulp of its plain version, a 3-axis gather,
+   each timed at 2 x 2 beside its 1-D twins (K19; K6 and K15);
+   ``stuck_wait_2d`` (a late rank: the same entry-barrier site on every
+   other rank); ``serve_moe_ep_hier``: ``preset("mixtral-8x7b:ep-hier",
+   n_layers=8)`` through ``ServingEngine`` on ``{"dcn": 2, "tp": 2}``
+   (K27 in both dispatch phases) beside ``serve_moe_ep4``; ``train_dp_tp``:
+   ``train_step(dp_axis="dp")`` on ``{"dp": 2, "tp": 2}`` at
+   Llama-3.1-8B widths, 2 layers (replicas bitwise equal across dp);
+   ``layers_2d``: ``TPMLP`` and ``TPMoEMLP`` over ``("dp", "tp")`` at full
+   width (the counted run of K36/K37); ``f32_parity_2d``: hierarchical
+   greedy tokens against the flat EP serve and the CPU, and a dp x tp step
+   against the plain path differentiated by PyTorch.
+
+The line before the last lists every kernel (K1-K37) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -321,6 +338,9 @@ class Counters:
             # the ragged-row form of K11 (K34) counts apart; ring attention (K35)
             "group_gemm_dw_ragged": (gg.group_gemm_dw, "ragged_launches"),
             "ring_attention": ra.ring_attention,
+            # the 2-D rings over an axis pair (K36, K37)
+            "all_gather_2d": allgather._all_gather_ring_2d,
+            "ag_gemm_2d": allgather_gemm._ag_gemm_ring_2d,
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -334,6 +354,7 @@ class Counters:
             "reduce_scatter_ring": rs._reduce_scatter_ring_plain,
             "all_to_all": a2a._fast_all_to_all_xla,
             "ring_attention": ra._ring_attention_plain,
+            "ag_gemm_2d": allgather_gemm._ag_gemm_2d_plain,
         }
 
     def _counters(self):
@@ -2134,13 +2155,13 @@ def _train_world1(name, model, init, tokens, targets, counters, lr, steps=3,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    params, loss = ttm.train_step(warm or model, init(), tokens, targets, lr=lr)
+    params, loss = ttm.train_step(warm or model, init(), tokens, targets, lr=lr, dp_axis=None)
     losses, walls = [loss.item()], []
     counters.reset()
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, loss = ttm.train_step(model, params, tokens, targets, lr=lr)
+        params, loss = ttm.train_step(model, params, tokens, targets, lr=lr, dp_axis=None)
         losses.append(loss.item())
         walls.append(time.perf_counter() - t0)
     counts = counters.read()
@@ -2155,7 +2176,7 @@ def _train_world1(name, model, init, tokens, targets, counters, lr, steps=3,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     del work, loss
-    prof = _profile(lambda: ttm.train_step(model, params, tokens, targets, lr=lr))
+    prof = _profile(lambda: ttm.train_step(model, params, tokens, targets, lr=lr, dp_axis=None))
     wall = sorted(walls)[len(walls) // 2]
     return dict(phase=name, world=1, lr=lr, batch=TRAIN_B, seq=TRAIN_S,
                 losses=losses, step_wall_s=walls, step_wall_s_median=wall,
@@ -2283,7 +2304,7 @@ def phase_train_moe(counters: Counters) -> tuple[dict, dict]:
     def step():
         r = ctx.rank
         state[r], loss = ttm.train_step(models[r], state[r], tokens[r * m_loc:(r + 1) * m_loc],
-                                        targets, lr=TRAIN_LR)
+                                        targets, lr=TRAIN_LR, dp_axis=None)
         return loss.item()
 
     def split():
@@ -2384,7 +2405,7 @@ def _ragged_vs_padded(model, step_model, params, tokens, targets, padded, routes
                  grad_rel_l2=max(_rel_l2(g, w) for g, w in zip(grads, grads_p)),
                  routing_flip_share=_flips(model.routes, routes))
     del grads
-    new, _ = ttm.train_step(step_model, params, tokens, targets, lr=TRAIN_LR)
+    new, _ = ttm.train_step(step_model, params, tokens, targets, lr=TRAIN_LR, dp_axis=None)
     worst["param_rel_l2"] = max(_rel_l2(q, p) for q, p in zip(ttm._tree_leaves(new),
                                                               ttm._tree_leaves(new_p)))
     return worst
@@ -2434,7 +2455,8 @@ def phase_f32_parity_train() -> None:
     model = make_recorded(cfg)
     loss, grads = ttm._loss_and_grads(model, params, tokens, targets)
     routes = model.routes
-    new, step_loss = ttm.train_step(make_recorded(cfg), params, tokens, targets, lr=TRAIN_LR)
+    new, step_loss = ttm.train_step(make_recorded(cfg), params, tokens, targets, lr=TRAIN_LR,
+                                    dp_axis=None)
     ref = reference(routes)
     compare(1, [(loss.item(), grads, (new, step_loss.item()))], ref)
     # the ragged step on the same routing against the padded step
@@ -2455,7 +2477,7 @@ def phase_f32_parity_train() -> None:
         model = make_recorded(cfg, ctx=ctx)
         loss, grads = ttm._loss_and_grads(model, shards[r], t, targets)
         new, step_loss = ttm.train_step(make_recorded(cfg, ctx=ctx), shards[r], t, targets,
-                                        lr=TRAIN_LR)
+                                        lr=TRAIN_LR, dp_axis=None)
         return (loss.item(), grads, (new, step_loss.item())), model.routes
 
     outs = ctx.run(rank, grad=True)
@@ -3397,7 +3419,7 @@ def phase_train_ring(counters: Counters) -> dict:
         model = make_recorded(cfg, ctx=ctx)
         loss, grads = ttm._loss_and_grads(model, shards[r], t, targets)
         new, step_loss = ttm.train_step(make_recorded(cfg, ctx=ctx), shards[r], t, targets,
-                                        lr=TRAIN_LR)
+                                        lr=TRAIN_LR, dp_axis=None)
         return (loss.item(), grads, (new, step_loss.item())), model.routes
 
     torch.cuda.synchronize()
@@ -5862,7 +5884,7 @@ def phase_train_moe_ragged(counters: Counters) -> tuple[dict, dict]:
     def step():
         r = ctx.rank
         state[r], loss = ttm.train_step(models[r], state[r], tokens[r * m_loc:(r + 1) * m_loc],
-                                        targets, lr=TRAIN_LR)
+                                        targets, lr=TRAIN_LR, dp_axis=None)
         return loss.item()
 
     torch.cuda.synchronize()
@@ -6047,6 +6069,563 @@ def phase_f32_parity_sp() -> None:
                   "param_rel_l2": 1e-4}})
 
 
+# ------------------------------------------- the 2-D rank runtime (slice 13) ----
+
+PAIR = {"dp": 2, "tp": 2}
+GRIDS_2D = {  # name: (mesh shape, the axes gathered over: None is the runtime's own)
+    "2x2": ({"dp": 2, "tp": 2}, None),
+    "2x4": ({"dp": 2, "tp": 4}, None),
+    "4x2": ({"dp": 4, "tp": 2}, None),
+    "2x2 (tp, dp)": ({"dp": 2, "tp": 2}, ("tp", "dp")),
+}
+HIER_MODEL = "mixtral-8x7b:ep-hier"
+HIER_MESH = {"dcn": 2, "tp": 2}
+
+
+def _pair_order(shape, axes):
+    """The global ranks in the gathered order of a tuple of axes."""
+    import itertools
+
+    names = list(shape)
+    axes = axes or tuple(names)
+    order = []
+    for idx in itertools.product(*(range(shape[a]) for a in axes)):
+        c = dict(zip(axes, idx))
+        r = 0
+        for a in names:
+            r = r * shape[a] + c[a]
+        order.append(r)
+    return order
+
+
+def phase_all_gather_2d() -> dict:
+    """K36 (``csrc/ring.cu``) over a (dp, tp) pair at K19's payloads (the SP
+    combine [516, 128] f32 and the Mixtral token slab [512, 4096] bf16 a
+    rank), at 2 x 2, 2 x 4, 4 x 2 (world 8 on the one card: rings of four
+    name a wrong neighbour that rings of two hide) and over the swapped
+    pair ("tp", "dp"): bit-exact against the plain gather (a copy), and
+    against K19 over the flattened ring of the same ranks; a 3-axis gather
+    on 2 x 2 x 2 (two pair groups at once, then the staged outer gather).
+    Timed at 2 x 2 beside K19 at world 4 in this call; the bound is K19's
+    (the same bytes), the library ``torch.cat`` of the shards."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    g = torch.Generator(device="cuda").manual_seed(130)
+    shapes = _gather_shapes()
+    checked = {}
+    for grid, (mesh, axes) in GRIDS_2D.items():
+        n = math.prod(mesh.values())
+        ctx = initialize_distributed(mesh_shape=mesh)
+        flat = initialize_distributed(n)
+        flat.full_mesh = False
+        order = _pair_order(mesh, axes)
+        for name, (shape, dtype, _) in shapes.items():
+            x = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(n)]
+            want = torch.cat([x[r] for r in order])
+            outs = ctx.run(lambda: ag.all_gather(x[ctx.rank], ctx=ctx, axis=axes))
+            if not all(torch.equal(got, want) for got in outs):
+                raise AssertionError(f"all_gather_2d {grid} {name}: not bit-exact")
+            if axes is None:
+                ring = flat.run(lambda: ag.all_gather(x[flat.rank], ctx=flat, method="ring_1d"))
+                if not all(torch.equal(a, b) for a, b in zip(outs, ring)):
+                    raise AssertionError(f"all_gather_2d {grid} {name}: differs from K19")
+            del outs, x
+        checked[grid] = "bit-exact" + (", = K19" if axes is None else "")
+        ctx.close()
+        flat.close()
+    ctx = initialize_distributed(mesh_shape={"pp": 2, "dp": 2, "tp": 2})
+    x = [torch.randn((512, 128), generator=g, device="cuda") for _ in range(8)]
+    if not all(torch.equal(got, torch.cat(x))
+               for got in ctx.run(lambda: ag.all_gather(x[ctx.rank], ctx=ctx))):
+        raise AssertionError("all_gather over (pp, dp, tp): not bit-exact")
+    checked["2x2x2 (pp, dp, tp)"] = "bit-exact"
+    ctx.close()
+
+    ctx = initialize_distributed(mesh_shape=PAIR)
+    flat = initialize_distributed(WORLD)
+    flat.full_mesh = False
+    per_shape, total = {}, dict(ms=0.0, k19_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0)
+    for name, (shape, dtype, _) in shapes.items():
+        x = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(WORLD)]
+        shard = x[0].numel() * x[0].element_size()
+        row = dict(
+            ms=dist_ms(ctx, lambda: ag.all_gather(x[ctx.rank], ctx=ctx), iters=20),
+            k19_ms=dist_ms(flat, lambda: ag.all_gather(x[flat.rank], ctx=flat,
+                                                       method="ring_1d"), iters=20),
+            plain_ms=dist_ms(ctx, lambda: ag._all_gather_xla(x[ctx.rank], ctx), iters=20),
+            library_ms=cuda_ms(lambda: [torch.cat(x) for _ in range(WORLD)], iters=20),
+            bytes=WORLD * shard * (1.0 + WORLD))
+        per_shape[name] = row
+        for key in total:
+            total[key] += row[key]
+        del x
+    ctx.close()
+    flat.close()
+    b_ms, by = bound(0.0, total["bytes"])
+    entry = dict(
+        name="all_gather_2d", route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
+        replaces="triton_dist_tpu/ops/allgather.py:284", max_abs_err=0.0, ms=total["ms"],
+        plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
+        library_ms=total["library_ms"], library="torch.cat of the shards",
+        k19_ms_world4_ring=total["k19_ms"], checks=checked, per_shape=per_shape,
+        shapes="(dp 2, tp 2): [516, 128] f32 + [512, 4096] bf16 a rank (summed); checked "
+               "also at 2 x 4, 4 x 2, (tp, dp) and 2 x 2 x 2")
+    emit({"phase": "kernel", "kernel": "all_gather_2d", **{k: entry[k] for k in (
+        "checks", "per_shape", "ms", "k19_ms_world4_ring", "plain_ms", "bound_ms",
+        "library_ms", "shapes")}})
+    return entry
+
+
+def phase_ag_gemm_2d() -> dict:
+    """K37 over a (dp, tp) pair at K6's shapes (a 4-way Llama-3.1-70B
+    prefill's column projections: a [512, 8192] a rank, n_loc 2560, 14336,
+    32064), bf16: every output bit-equal to K15's over the flattened ring
+    (one span: the same K loop over the same rows), within one bf16 ulp of
+    the output scale of its 2-D-order plain version, the gathered A
+    bit-exact; timed beside K6 (full mesh) and K15 in this call, the bound
+    K6's (the same work), the library ``torch.cat`` + ``torch.matmul``.
+    Then 2 x 4, 4 x 2 and (tp, dp) at the wqkv shape, f32 at 2 x 2."""
+    import torch
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    g = torch.Generator(device="cuda").manual_seed(131)
+    m_loc, k = 512, 8192
+
+    def check(grid, ctx, flat, a, b, dtype, axes=None):
+        outs = ctx.run(lambda: (
+            agg.ag_gemm(a[ctx.rank], b, ctx=ctx, axis=axes, gather_output=True),
+            agg._ag_gemm_2d_plain(a[ctx.rank], b, ctx.group(axes) if axes else ctx, False,
+                                  dtype)))
+        order = _pair_order(ctx.mesh_shape, axes)
+        a_full = torch.cat([a[r] for r in order])
+        k15 = None if axes else flat.run(lambda: agg.ag_gemm(a[flat.rank], b, ctx=flat))
+        err = 0.0
+        for r, ((out, ag), plain) in enumerate(outs):
+            if not torch.equal(ag, a_full):
+                raise AssertionError(f"ag_gemm_2d {grid}: gathered A not bit-exact")
+            if k15 is not None and not torch.equal(out, k15[r]):
+                raise AssertionError(f"ag_gemm_2d {grid} rank {r}: not bit-equal to K15")
+            err = max(err, _check_ring(f"ag_gemm_2d {grid} rank {r}", out, plain, plain,
+                                       ctx.world)[0])
+        return err
+
+    checks = {}
+    for grid, (mesh, axes) in GRIDS_2D.items():
+        if grid == "2x2":
+            continue
+        n = math.prod(mesh.values())
+        ctx = initialize_distributed(mesh_shape=mesh)
+        flat = initialize_distributed(n)
+        flat.full_mesh = False
+        a = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16() for _ in range(n)]
+        b = (torch.randn((k, 2560), generator=g, device="cuda") / k**0.5).bfloat16()
+        checks[f"{grid} wqkv bf16"] = check(grid, ctx, flat, a, b, torch.bfloat16, axes)
+        del a, b
+        ctx.close()
+        flat.close()
+    ctx = initialize_distributed(mesh_shape=PAIR)
+    flat = initialize_distributed(WORLD)
+    flat.full_mesh = False
+    mesh = initialize_distributed(WORLD)
+    a = [torch.randn((m_loc, k), generator=g, device="cuda") for _ in range(WORLD)]
+    b = torch.randn((k, 2560), generator=g, device="cuda") / k**0.5
+    checks["2x2 wqkv f32"] = check("2x2 f32", ctx, flat, a, b, torch.float32)
+    rows, worst = [], 0.0
+    total = dict(ms=0.0, k15_ms=0.0, k6_ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
+                 bytes=0.0)
+    for name, n_loc in (("wqkv", 2560), ("gate_up", 14336), ("lm_head", 32064)):
+        a = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16()
+             for _ in range(WORLD)]
+        b = (torch.randn((k, n_loc), generator=g, device="cuda") / k**0.5).bfloat16()
+        err = check(f"2x2 {name}", ctx, flat, a, b, torch.bfloat16)
+        worst = max(worst, err)
+        flops = WORLD * 2.0 * WORLD * m_loc * k * n_loc
+        nbytes = 2.0 * (WORLD * m_loc * k + WORLD * k * n_loc + WORLD * WORLD * m_loc * n_loc)
+        row = dict(
+            shape=[m_loc, k, n_loc], max_abs_err=err,
+            ms=dist_ms(ctx, lambda: agg.ag_gemm(a[ctx.rank], b, ctx=ctx), iters=5),
+            k15_ms=dist_ms(flat, lambda: agg.ag_gemm(a[flat.rank], b, ctx=flat), iters=5),
+            k6_ms=dist_ms(mesh, lambda: agg.ag_gemm(a[mesh.rank], b, ctx=mesh), iters=5),
+            plain_ms=dist_ms(ctx, lambda: agg._ag_gemm_2d_plain(a[ctx.rank], b, ctx, False,
+                                                                torch.bfloat16), iters=2),
+            library_ms=cuda_ms(lambda: [torch.matmul(torch.cat(a), b) for _ in range(WORLD)],
+                               iters=3),
+            bound_ms=bound(flops, nbytes)[0])
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows.append({name: row})
+        for key in ("ms", "k15_ms", "k6_ms", "plain_ms", "library_ms"):
+            total[key] += row[key]
+        total["flops"] += flops
+        total["bytes"] += nbytes
+        del a, b
+    checks["2x2 bf16 (three shapes)"] = worst
+    for c in (ctx, flat, mesh):
+        c.close()
+    emit({"phase": "kernel", "kernel": "ag_gemm_2d", "per_shape": rows, "checks": checks,
+          "k15_ms_summed": total["k15_ms"], "k6_ms_summed": total["k6_ms"]})
+    b_ms, by = bound(total["flops"], total["bytes"])
+    return dict(
+        name="ag_gemm_2d", route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
+        replaces="triton_dist_tpu/ops/allgather_gemm.py:179", max_abs_err=worst,
+        ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
+        library_ms=total["library_ms"], library="torch.cat + torch.matmul",
+        k15_ms_world4_ring=total["k15_ms"], k6_ms_world4=total["k6_ms"], checks=checks,
+        shapes="(dp 2, tp 2): a [512, 8192] a rank; n_loc 2560, 14336, 32064 (summed); "
+               "checked also at 2 x 4, 4 x 2, (tp, dp), f32")
+
+
+def phase_stuck_wait_2d() -> None:
+    """K36 and K37 at 2 x 2 with rank 1's stream held 2 s before the launch
+    (wait timeout 0.2 s): every other rank's entry barrier waits for the
+    pair's ranks in rank order, so ranks 0, 2 and 3 each record site 1
+    (the arrival of rank 1), naming their global rank and the group."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    a = torch.randn((64, 128), device="cuda")
+    b = torch.randn((128, 64), device="cuda")
+    report = {}
+    for family, op in (("all_gather_2d", lambda ctx: ag.all_gather(a, ctx=ctx)),
+                       ("ag_gemm_2d", lambda ctx: agg.ag_gemm(a, b, ctx=ctx))):
+        ctx = initialize_distributed(mesh_shape=PAIR)
+        ctx.run(lambda: op(ctx))  # the buffers and flags exist
+
+        def body():
+            if ctx.rank == 1:
+                common.sleep_on_stream(2_000_000_000)
+            return op(ctx)
+
+        t0 = time.perf_counter()
+        try:
+            with config.wait_timeout(0.2):
+                ctx.run(body)
+        except DistTimeoutError as err:
+            recs = err.records
+        else:
+            raise AssertionError(f"a stuck {family} wait did not raise")
+        got = sorted((r["pe"], r["family"], r["site"], r["rank"], r["group"]) for r in recs)
+        if got != [(p, family, 1, p, "dp,tp") for p in (0, 2, 3)]:
+            raise AssertionError(f"stuck {family} wait: unexpected records {recs}")
+        report[family] = dict(raised_after_s=time.perf_counter() - t0, records=recs)
+        ctx.close()
+    emit({"phase": "stuck_wait_2d", **report})
+
+
+def phase_layers_2d(counters: Counters) -> dict:
+    """The layer tier over an axis pair, world 4 as (dp 2, tp 2), one
+    counted run: ``TPMLP(axis=("dp", "tp"))`` at Llama-3.1-70B widths (2048
+    tokens, 512 a rank; H 8192, F 28672 over the four ranks: K37, then the
+    2-D GEMM-RS, K7 over tp and K12 over dp) and ``TPMoEMLP(axis=("dp",
+    "tp"))`` at Mixtral widths (2048 tokens, H 4096, F 14336 over the four
+    ranks, 8 experts, top-2) overlapped (K9/K10 over the flattened pair)
+    and sequential (K36, K8, K8, the 2-D reduce-scatter), bf16, each
+    against the world-1 plain forward on the card (5e-2 relative L2) and
+    timed a call."""
+    import torch
+    from triton_dist_tpu_torch.layers import TPMLP, TPMoEMLP
+    from triton_dist_tpu_torch.ops.gemm import _matmul_plain
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig, gelu
+    from triton_dist_tpu_torch.ops.moe_utils import select_experts
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    axes = ("dp", "tp")
+    g = torch.Generator(device="cuda").manual_seed(132)
+    m_tot = 2048
+    m_loc = m_tot // WORLD
+    ctx = initialize_distributed(mesh_shape=PAIR)
+    # TPMLP at 70B widths
+    h, f = 8192, 28672
+    f_loc = f // WORLD
+    x = torch.randn((m_tot, h), generator=g, device="cuda").bfloat16()
+    w_up = (torch.randn((h, f), generator=g, device="cuda") / h**0.5).bfloat16()
+    w_down = (torch.randn((f, h), generator=g, device="cuda") / f**0.5).bfloat16()
+    ref_mlp = _matmul_plain(gelu(_matmul_plain(x, w_up, torch.float32)).bfloat16(), w_down,
+                            torch.bfloat16)
+    ups = [w_up[:, r * f_loc:(r + 1) * f_loc].contiguous() for r in range(WORLD)]
+    downs = [w_down[r * f_loc:(r + 1) * f_loc].contiguous() for r in range(WORLD)]
+    del w_up, w_down
+    mlp = TPMLP(ctx, axis=axes)
+
+    def run_mlp():
+        r = ctx.axis_index(axes)
+        return mlp(x[r * m_loc:(r + 1) * m_loc], ups[r], downs[r])
+
+    # TPMoEMLP at Mixtral widths
+    hm, fm, n_exp, topk = 4096, 14336, 8, 2
+    fm_loc = fm // WORLD
+    xm = torch.randn((m_tot, hm), generator=g, device="cuda").bfloat16()
+    wu = (torch.randn((n_exp, hm, fm), generator=g, device="cuda") / hm**0.5).bfloat16()
+    wd = (torch.randn((n_exp, fm, hm), generator=g, device="cuda") / fm**0.5).bfloat16()
+    tw, ids = select_experts(torch.randn((m_tot, n_exp), generator=g, device="cuda"), topk)
+    ref_moe = _moe_mlp_plain(xm.float(), wu.float(), wd.float(), ids, tw).bfloat16()
+    wus = [wu[:, :, r * fm_loc:(r + 1) * fm_loc].contiguous() for r in range(WORLD)]
+    wds = [wd[:, r * fm_loc:(r + 1) * fm_loc].contiguous() for r in range(WORLD)]
+    del wu, wd
+    moes = {ov: TPMoEMLP(ctx, gg_config=GroupGemmConfig(MOE_BLOCK), overlap=ov, axis=axes)
+            for ov in (True, False)}
+
+    def run_moe(ov):
+        r = ctx.axis_index(axes)
+        rows = slice(r * m_loc, (r + 1) * m_loc)
+        return moes[ov](xm[rows], wus[r], wds[r], ids[rows], tw[rows])
+
+    counters.reset()
+    outs = ctx.run(lambda: (run_mlp(), run_moe(True), run_moe(False)))
+    torch.cuda.synchronize()
+    counts = counters.read()
+    errs = {
+        "tp_mlp": _rel_l2(torch.cat([o[0] for o in outs]), ref_mlp),
+        "tp_moe_mlp_overlap": _rel_l2(torch.cat([o[1] for o in outs]), ref_moe),
+        "tp_moe_mlp_sequential": _rel_l2(torch.cat([o[2] for o in outs]), ref_moe),
+    }
+    del outs
+    launches = counts["launches"]
+    used = ("ag_gemm_2d", "gemm_rs", "reduce_scatter", "all_gather_2d", "group_gemm",
+            "ag_group_gemm", "moe_reduce_rs")
+    if any(launches[k] <= 0 for k in used) or any(counts["plain_calls"].values()):
+        raise AssertionError(f"layers_2d: launches {launches}, plain {counts['plain_calls']}")
+    if not all(e <= 5e-2 for e in errs.values()):
+        raise AssertionError(f"layers_2d: relative L2 against the world-1 plain forward {errs}")
+    ms = dict(tp_mlp=dist_ms(ctx, run_mlp, iters=3),
+              tp_moe_mlp_overlap=dist_ms(ctx, lambda: run_moe(True), iters=3),
+              tp_moe_mlp_sequential=dist_ms(ctx, lambda: run_moe(False), iters=3))
+    ctx.close()
+    emit({"phase": "layers_2d", "mesh": PAIR, "tokens": m_tot, "rel_l2": errs,
+          "tol_rel_l2": 5e-2, "ms_a_call": ms,
+          "widths": {"tp_mlp": "llama-3.1-70b H 8192 F 28672",
+                     "tp_moe_mlp": "mixtral-8x7b H 4096 F 14336, 8 experts, top-2"},
+          **counts})
+    return launches
+
+
+def phase_serve_moe_ep_hier(counters: Counters) -> dict:
+    """``serve_moe_ep_hier``: ``ServingEngine`` on a ``{"dcn": 2, "tp": 2}``
+    runtime serving ``preset("mixtral-8x7b:ep-hier", n_layers=8)`` with
+    ``serve_moe``'s weights and requests (batch 8, s_max 1024, 16-token
+    pages, 8 requests of 32-256 prompt tokens, 32 new, bulk prefill): each
+    dcn group serves 4 of the 8 slots with TP attention over its tp pair
+    (K6/K7, K3/K5), the experts spread over the four ranks (two whole
+    experts a rank), the MoE layers' two-phase dispatch over (dcn, tp):
+    K27 in both phases (the dcn and the tp groups' all-to-all epochs both
+    rise) and K8 on the received rows, no plain transport. Reported beside
+    ``serve_moe_ep4`` (the flat EP serve of this call): tokens/s, TTFT,
+    peak and expert-bank GB, and the share of greedy tokens equal to it."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models.tp_transformer import init_moe_params
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    cfg = presets.preset(HIER_MODEL, n_layers=8, batch=8, dtype=torch.bfloat16)
+    params = init_moe_params(cfg, seed=30)  # serve_moe's weights
+    lengths = [32, 48, 64, 100, 128, 160, 200, 256]
+    reqs = _requests(cfg.vocab, lengths, 32, seed=31)
+    ctx = initialize_distributed(mesh_shape=HIER_MESH)
+    res = _serve(cfg, params, reqs, counters, ctx=ctx)
+    launches = res["launches"]
+    used = ("all_to_all", "group_gemm", "ag_gemm", "gemm_rs", "all_gather",
+            "paged_flash_decode", "barrier")
+    unused = ("ag_group_gemm", "moe_reduce_rs", "all_to_all_chunked", "group_gemm_ragged")
+    if any(launches[k] <= 0 for k in used) or any(launches[k] for k in unused):
+        raise AssertionError(f"serve_moe_ep_hier took the wrong kernels: {launches}")
+    phases = {f"{axis}_all_to_all_launches": sum(e[f"{axis}:all_to_all"] for e in ctx._epochs)
+              for axis in HIER_MESH}
+    if not all(v > 0 for v in phases.values()):
+        raise AssertionError(f"serve_moe_ep_hier: a dispatch phase did not run K27: {phases}")
+    flat = SERVES.get("serve_moe_ep4", {})
+    same = None
+    if "outputs" in flat:
+        pairs = [(a, b) for uid in flat["outputs"]
+                 for a, b in zip(flat["outputs"][uid], _serve.outputs[uid])]
+        same = sum(a == b for a, b in pairs) / len(pairs)
+    ctx.close()
+    emit({"phase": "serve_moe_ep_hier", "model": HIER_MODEL, "n_layers": 8, "mesh": HIER_MESH,
+          "batch": 8, "s_max": 1024, "page_size": 16, "prompt_lens": lengths,
+          "max_new_tokens": 32, "expert_bank_gb": _bank_gb(params), **phases,
+          "serve_moe_ep4": {k: flat.get(k) for k in ("tokens_per_s", "ttft_ms", "peak_mem_gb",
+                                                     "wall_s")},
+          "greedy_token_share_equal_to_serve_moe_ep4": same, **res})
+    del params
+    return launches
+
+
+def phase_train_dp_tp(counters: Counters) -> dict:
+    """``train_dp_tp``: ``train_step(dp_axis="dp")`` on a ``{"dp": 2, "tp":
+    2}`` runtime at Llama-3.1-8B widths cut to 2 of 32 layers (the
+    train_dense cut), bf16, seeded weights, 2 x 1024 tokens a dp group (1024
+    a rank), SGD at DENSE_LR: a warm-up and 3 steps, losses finite and
+    falling, every parameter bitwise equal on the two dp groups after each
+    step (the replicas do not drift), K6/K7 over the tp groups, no plain
+    projection; step wall, tokens/s and peak GB."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    cfg = presets.preset("llama-3.1-8b", n_layers=2, batch=TRAIN_B, seq=TRAIN_S,
+                         dtype=torch.bfloat16)
+    dp, tp = PAIR["dp"], PAIR["tp"]
+    m = TRAIN_B * TRAIN_S
+    tokens = torch.cat([_train_batch(cfg.vocab, seed=60 + d)[0] for d in range(dp)])
+    targets = torch.cat([_train_batch(cfg.vocab, seed=60 + d)[1] for d in range(dp)])
+    ctx = initialize_distributed(mesh_shape=PAIR)
+    shards = ttm.shard_params(ttm.init_params(cfg, seed=52), cfg=cfg, ctx=ctx)
+    m_loc = m // tp
+    models = [ttm.TPTransformer(cfg, ctx=ctx) for _ in range(WORLD)]
+
+    def step():
+        r, d = ctx.rank, ctx.axis_index("dp")
+        shards[r], loss = ttm.train_step(models[r], shards[r],
+                                         tokens[r * m_loc:(r + 1) * m_loc],
+                                         targets[d * m:(d + 1) * m], lr=DENSE_LR)
+        return loss.item()
+
+    def replicas_equal():
+        for r in range(tp):
+            for a, b in zip(ttm._tree_leaves(shards[r]), ttm._tree_leaves(shards[tp + r])):
+                if not torch.equal(a, b):
+                    raise AssertionError("train_dp_tp: the dp replicas drifted apart")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [ctx.run(step, grad=True)[0]], []
+    replicas_equal()
+    counters.reset()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(ctx.run(step, grad=True)[0])
+        walls.append(time.perf_counter() - t0)
+        replicas_equal()
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ctx.close()
+    del shards, models
+    wall = sorted(walls)[len(walls) // 2]
+    emit({"phase": "train_dp_tp", "model": "llama-3.1-8b", "n_layers": 2, "mesh": PAIR,
+          "tokens_a_dp_group": m, "lr": DENSE_LR, "losses": losses, "step_wall_s": walls,
+          "step_wall_s_median": wall, "train_tokens_per_s": dp * m / wall,
+          "peak_mem_gb": peak, "replicas_bitwise_equal": True, **counts})
+    _check_train("train_dp_tp", losses, counts["launches"], counts["plain_calls"],
+                 ("ag_gemm", "gemm_rs"))
+    return counts["launches"]
+
+
+def phase_f32_parity_2d() -> None:
+    """f32 at small width on the card, TF32 off: (1) hierarchical EP
+    serving on ``{"dcn": 2, "tp": 2}`` (2 MoE layers, vocab 2048, hidden
+    512, 8 experts, top-2, batch 4, 3 requests, paged, bulk prefill):
+    greedy tokens identical to the flat EP serve at world 4 on the card and
+    to the hierarchical plain path on the CPU; (2) one ``train_step(dp_axis
+    ="dp")`` of a dense 2-layer model (hidden 512, 2 x 256 tokens a dp
+    group) on ``{"dp": 2, "tp": 2}``: the loss and every rank's updated
+    shard within 1e-4 relative L2 of the plain path (world 1 on the card,
+    plain GEMMs, the mean of the two groups' losses differentiated by
+    PyTorch)."""
+    import torch
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.models.decode import ContinuousBatcher
+    from triton_dist_tpu_torch.ops.gemm import _matmul_plain
+    from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hier = ttm.EPMoETransformerConfig(vocab=2048, hidden=512, ffn=1024, n_layers=2,
+                                      n_q_heads=8, n_kv_heads=4, head_dim=64, batch=4,
+                                      seq=256, n_experts=8, topk=2, ep_outer="dcn",
+                                      gg_config=GroupGemmConfig(MOE_BLOCK))
+    params = ttm.init_moe_params(hier, seed=64)
+    cpu = ttm._tree_map(lambda t: t.cpu(), params)
+    lengths, max_new = [12, 33, 70], 4
+
+    def serve(cfg, p, ctx, device):
+        b = ContinuousBatcher(cfg, p, s_max=256, page_size=16, prefill=True, device=device,
+                              ctx=ctx)
+        for r in _requests(cfg.vocab, lengths, max_new, seed=65):
+            b.submit(r)
+        got = dict(b.run())
+        ctx.close()
+        return got
+
+    t0 = time.perf_counter()
+    want = serve(hier, cpu, initialize_distributed(mesh_shape=HIER_MESH, device="cpu"), "cpu")
+    t1 = time.perf_counter()
+    got = serve(hier, params, initialize_distributed(mesh_shape=HIER_MESH), "cuda")
+    flat = serve(dataclasses.replace(hier, ep_outer=None), params,
+                 initialize_distributed(WORLD), "cuda")
+    if not got == want == flat:
+        raise AssertionError(f"hierarchical EP greedy tokens differ: card {got}, CPU {want}, "
+                             f"flat {flat}")
+    del params, cpu
+
+    class Plain(ttm.TPTransformer):
+        def _col(self, x, w):
+            return _matmul_plain(x, w, x.dtype)
+
+        _row = _col
+
+    cfg = ttm.TransformerConfig(vocab=2048, hidden=512, ffn=1024, n_layers=2, n_q_heads=8,
+                                n_kv_heads=2, head_dim=64, batch=2, seq=256)
+    params = ttm.init_params(cfg, seed=66)
+    dp, tp, lr = PAIR["dp"], PAIR["tp"], 0.1
+    m = cfg.batch * cfg.seq
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    tokens = torch.randint(0, cfg.vocab, (dp * m,), generator=gen, device="cuda")
+    targets = torch.randint(0, cfg.vocab, (dp * m,), generator=gen, device="cuda")
+    with torch.enable_grad():
+        work = ttm._tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss_ref = sum(Plain(cfg).loss(tokens[d * m:(d + 1) * m], targets[d * m:(d + 1) * m],
+                                       work) for d in range(dp)) / dp
+        g_ref = torch.autograd.grad(loss_ref, ttm._tree_leaves(work))
+    new_ref = ttm._tree_map(lambda p, g: (p - lr * g).detach(), params,
+                            _unflatten(params, g_ref))
+    ctx = initialize_distributed(mesh_shape=PAIR)
+    want_shards = ttm.shard_params(new_ref, cfg=cfg, ctx=ctx)
+    shards = ttm.shard_params(params, cfg=cfg, ctx=ctx)
+    m_loc = m // tp
+
+    def rank():
+        r, d = ctx.rank, ctx.axis_index("dp")
+        new, loss = ttm.train_step(ttm.TPTransformer(cfg, ctx=ctx), shards[r],
+                                   tokens[r * m_loc:(r + 1) * m_loc],
+                                   targets[d * m:(d + 1) * m], lr=lr)
+        return loss.item(), new
+
+    worst = dict(loss_rel=0.0, param_rel_l2=0.0)
+    for r, (loss, new) in enumerate(ctx.run(rank, grad=True)):
+        worst["loss_rel"] = max(worst["loss_rel"],
+                                abs(loss - loss_ref.item()) / abs(loss_ref.item()))
+        for a, b in zip(ttm._tree_leaves(new), ttm._tree_leaves(want_shards[r])):
+            worst["param_rel_l2"] = max(worst["param_rel_l2"], _rel_l2(a, b))
+    ctx.close()
+    if not (worst["loss_rel"] <= 1e-4 and worst["param_rel_l2"] <= 1e-4):
+        raise AssertionError(f"f32 dp x tp parity: {worst}")
+    emit({"phase": "f32_parity_2d", "hier_serve": {
+        "mesh": HIER_MESH, "n_layers": 2, "requests": len(lengths), "max_new_tokens": max_new,
+        "identical_to": ["flat EP serve at world 4 (card)", "hierarchical plain path (CPU)"],
+        "cpu_reference_s": t1 - t0},
+        "dp_tp_step": {"mesh": PAIR, "n_layers": 2, "tokens_a_dp_group": m, "worst": worst,
+                       "reference": "world 1 on the card, plain GEMMs, mean of the dp "
+                                    "groups' losses, PyTorch autograd",
+                       "tol": {"loss_rel": 1e-4, "param_rel_l2": 1e-4}}})
+
+
+def _unflatten(tree, leaves):
+    """`leaves` (in ``_tree_leaves`` order) in `tree`'s structure."""
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+
+    it = iter(leaves)
+    return ttm._tree_map(lambda _: next(it), tree)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -6105,6 +6684,9 @@ def main() -> int:
     ring_entries = [phase_ag_gemm_ring(ctx), *phase_gemm_rs_ring(ctx),
                     phase_reduce_scatter_ring(ctx)]
     ctx.close()
+    torch.cuda.empty_cache()
+    entries_2d = [phase_all_gather_2d(), phase_ag_gemm_2d()]
+    torch.cuda.empty_cache()
     phase_stuck_wait()
     phase_stuck_wait_moe()
     phase_stuck_wait_rs()
@@ -6112,6 +6694,7 @@ def main() -> int:
     phase_stuck_wait_a2a()
     phase_stuck_wait_ragged()
     phase_stuck_wait_ring_attention()
+    phase_stuck_wait_2d()
     torch.cuda.empty_cache()
     tp4 = phase_serve_tp4(counters)
     torch.cuda.empty_cache()
@@ -6131,6 +6714,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_ep4, moe_ep4_q = phase_serve_moe_ep(counters)
     torch.cuda.empty_cache()
+    moe_ep_hier = phase_serve_moe_ep_hier(counters)
+    torch.cuda.empty_cache()
     phase_f32_parity_ep()
     torch.cuda.empty_cache()
     moe_ep4_r, moe_tp4_r = phase_serve_moe_ragged(counters)
@@ -6144,6 +6729,8 @@ def main() -> int:
     train_r1, train_r4 = phase_train_moe_ragged(counters)
     torch.cuda.empty_cache()
     phase_train_dense(counters)
+    torch.cuda.empty_cache()
+    phase_train_dp_tp(counters)
     torch.cuda.empty_cache()
     train_sp = phase_train_sp(counters)
     torch.cuda.empty_cache()
@@ -6162,6 +6749,10 @@ def main() -> int:
     layers_ring = phase_layers_ring(counters)
     torch.cuda.empty_cache()
     layers_ep = phase_layers_ep(counters)
+    torch.cuda.empty_cache()
+    layers_2d = phase_layers_2d(counters)
+    torch.cuda.empty_cache()
+    phase_f32_parity_2d()
     entries[0]["launches"] = paged["gemm"]
     entries[1]["launches"] = contiguous["flash_decode"]
     entries[2]["launches"] = paged["paged_flash_decode"]
@@ -6192,7 +6783,8 @@ def main() -> int:
     scaled_entries[1]["launches"] = moe_tp4_w8["ag_group_gemm_scaled"]
     scaled_entries[2]["launches"] = moe_tp4_w8["moe_reduce_rs_scaled"]
     entries += scaled_entries
-    ep_entries[0]["launches"] = moe_ep4["all_to_all"] + moe_ep4_q["all_to_all"]
+    ep_entries[0]["launches"] = (moe_ep4["all_to_all"] + moe_ep4_q["all_to_all"]
+                                 + moe_ep_hier["all_to_all"])
     ep_entries[1]["launches"] = layers_ep["all_to_all_chunked"]
     entries += ep_entries
     ragged_entries[0]["launches"] = (moe_ep4_r["group_gemm_ragged"]
@@ -6207,6 +6799,9 @@ def main() -> int:
                                       + train_r4["group_gemm_dw_ragged"])
     k34_k35_entries[1]["launches"] = train_sp["ring_attention"]
     entries += k34_k35_entries
+    entries_2d[0]["launches"] = layers_2d["all_gather_2d"]
+    entries_2d[1]["launches"] = layers_2d["ag_gemm_2d"]
+    entries += entries_2d
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

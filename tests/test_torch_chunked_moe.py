@@ -386,8 +386,8 @@ def test_chunked_tp_moe_serve_matches_jax():
 def test_preset_checks_and_serving_config_match_reference():
     """``preset(tp_check=)`` raises the reference's ``ValueError`` word for
     word (and passes the config through where the degree divides);
-    ``ep_outer=`` builds the expert-parallel config, which refuses (ROADMAP
-    A5); ``ServingConfig`` and ``Rejected`` carry the reference's fields in
+    ``ep_outer=`` builds the hierarchical expert-parallel config;
+    ``ServingConfig`` and ``Rejected`` carry the reference's fields in
     its order; ``submit(priority=)`` is accepted and inert."""
     from triton_dist_tpu.models import presets as jpresets
     from triton_dist_tpu_torch.models import presets as tpresets
@@ -400,8 +400,10 @@ def test_preset_checks_and_serving_config_match_reference():
         assert str(got.value) == str(want.value)
     assert tpresets.preset("mixtral-8x7b", tp_check=4) == tpresets.preset("mixtral-8x7b")
     for kw in (dict(ep_outer="dcn"), dict(ep=True, ep_outer="dcn")):
-        with pytest.raises(NotImplementedError, match="A5"):
-            tpresets.preset("mixtral-8x7b", **kw)
+        got, want = tpresets.preset("mixtral-8x7b", **kw), jpresets.preset("mixtral-8x7b", **kw)
+        assert type(got).__name__ == type(want).__name__ and got.ep_outer == want.ep_outer
+        assert (got.hidden, got.ffn, got.n_experts, got.topk) == (
+            want.hidden, want.ffn, want.n_experts, want.topk)
     for pkg in (jpresets, tpresets):
         with pytest.raises(ValueError, match="is dense"):
             pkg.preset("llama-3.1-8b", ep_outer="dcn")

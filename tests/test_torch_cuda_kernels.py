@@ -19,7 +19,12 @@ chunked form K28 (bit-exact, and the expert-parallel MoE MLP over them
 against its CPU run), plus stuck waits that must raise with
 their records and a race-shaking pass (``config.comm_delay``) whose
 outputs must be bit-identical), and world-4 MoE train steps, full mesh and
-ring, that must finish (each rank's backward meets its peers on the host).
+ring, that must finish (each rank's backward meets its peers on the host);
+and over (dp, tp) pairs of a 2-D runtime at 2 x 2, 2 x 4 and 4 x 2 the
+hierarchical ring allgather K36 (bit-exact, equal to K19 over the
+flattened ring, the swapped pair and three axes too) and the 2-D AG-GEMM
+K37 (bit-equal to K15, one ulp of its plain version), and their stuck
+waits (every other rank names the late rank's entry-barrier site).
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 absent:
@@ -673,7 +678,8 @@ def test_world4_moe_train_step_finishes(cuda):
     g = torch.Generator(device="cuda").manual_seed(6)
     tokens = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
     targets = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
-    want, want_loss = ttm.train_step(ttm.TPMoETransformer(cfg), params, tokens, targets, lr=0.1)
+    want, want_loss = ttm.train_step(ttm.TPMoETransformer(cfg), params, tokens, targets,
+                                     lr=0.1, dp_axis=None)
     ctx = initialize_distributed(4)
     shards = ttm.shard_params(params, 4, ctx.devices)
     before = (tgg.group_gemm_dw.launches, trs.reduce_scatter.launches)
@@ -681,7 +687,7 @@ def test_world4_moe_train_step_finishes(cuda):
     def body():
         r = ctx.rank
         return ttm.train_step(ttm.TPMoETransformer(cfg, ctx=ctx), shards[r],
-                              tokens[r * 32:(r + 1) * 32], targets, lr=0.1)
+                              tokens[r * 32:(r + 1) * 32], targets, lr=0.1, dp_axis=None)
 
     with config.wait_timeout(30):
         outs = ctx.run(body, grad=True)
@@ -926,7 +932,8 @@ def test_world4_ring_moe_train_step_finishes(cuda):
     g = torch.Generator(device="cuda").manual_seed(6)
     tokens = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
     targets = torch.randint(0, cfg.vocab, (128,), generator=g, device=cuda)
-    want, want_loss = ttm.train_step(ttm.TPMoETransformer(cfg), params, tokens, targets, lr=0.1)
+    want, want_loss = ttm.train_step(ttm.TPMoETransformer(cfg), params, tokens, targets,
+                                     lr=0.1, dp_axis=None)
     ctx = _ring_ctx(4)
     shards = ttm.shard_params(params, 4, ctx.devices)
     before = (tagg._ag_gemm_ring.launches, tgrs._gemm_rs_ring.launches,
@@ -935,7 +942,7 @@ def test_world4_ring_moe_train_step_finishes(cuda):
     def body():
         r = ctx.rank
         return ttm.train_step(ttm.TPMoETransformer(cfg, ctx=ctx), shards[r],
-                              tokens[r * 32:(r + 1) * 32], targets, lr=0.1)
+                              tokens[r * 32:(r + 1) * 32], targets, lr=0.1, dp_axis=None)
 
     with config.wait_timeout(30):
         outs = ctx.run(body, grad=True)
@@ -1546,3 +1553,105 @@ def test_ring_attention_stuck_wait_raises_with_its_record(cuda):
     (rec,) = err.value.records
     assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
         0, "ring_attention", 1, "barrier_all")
+
+
+GRIDS_2D = [(2, 2), (2, 4), (4, 2)]
+
+
+def _pair_ctx(n_o, n_i, names=("dp", "tp")):
+    return initialize_distributed(mesh_shape={names[0]: n_o, names[1]: n_i})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", GRIDS_2D, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_ring_2d_all_gather_kernel_is_exact(cuda, grid):
+    """K36 over a (dp, tp) pair against the plain gather, bit for bit, and
+    equal to K19 over the flattened ring of the same ranks: f32 rows, a
+    1-D shard, bf16 rows of 200 bytes (the byte path) and a 1-row shard,
+    back to back (the workspace grows, epochs rise); rings of 4 in either
+    axis name a wrong neighbour that rings of 2 would hide. The swapped
+    pair ("tp", "dp") gathers in its own order."""
+    n_o, n_i = grid
+    n = n_o * n_i
+    ctx = _pair_ctx(n_o, n_i)
+    flat = _ring_ctx(n)
+    g = torch.Generator(device="cuda").manual_seed(300 + n_o)
+    for shape, dtype in (((6, 16), torch.float32), ((512,), torch.float32),
+                         ((13, 100), torch.bfloat16), ((1, 64), torch.float32)):
+        x = [torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(n)]
+        before = tag._all_gather_ring_2d.launches
+        outs = ctx.run(lambda: tag.all_gather(x[ctx.rank], ctx=ctx))
+        assert tag._all_gather_ring_2d.launches == before + n
+        ring = flat.run(lambda: tag.all_gather(x[flat.rank], ctx=flat, method="ring_1d"))
+        for got, k19 in zip(outs, ring):
+            assert torch.equal(got, torch.cat(x)) and torch.equal(got, k19)
+        swapped = ctx.run(lambda: tag.all_gather(x[ctx.rank], ctx=ctx, axis=("tp", "dp")))
+        order = [o * n_i + i for i in range(n_i) for o in range(n_o)]
+        assert all(torch.equal(got, torch.cat([x[r] for r in order])) for got in swapped)
+
+
+@pytest.mark.cuda
+def test_ring_2d_all_gather_over_three_axes(cuda):
+    """The 2-D ring over the two innermost axes of a 2 x 2 x 2 runtime (two
+    pair groups at once), then the staged gather over the outermost."""
+    ctx = initialize_distributed(mesh_shape={"pp": 2, "dp": 2, "tp": 2})
+    g = torch.Generator(device="cuda").manual_seed(310)
+    x = [torch.randn((5, 32), generator=g, device=cuda) for _ in range(8)]
+    outs = ctx.run(lambda: tag.all_gather(x[ctx.rank], ctx=ctx))
+    assert all(torch.equal(got, torch.cat(x)) for got in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", GRIDS_2D, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_2d_ag_gemm_kernel_matches_plain(cuda, grid, dtype):
+    """K37 over a (dp, tp) pair: every output tile bit-equal to K15's over
+    the flattened ring (the same K loop over the same rows), within one
+    bf16 ulp of the output scale (f32: 1e-5) of its 2-D-order plain
+    version, and the gathered A bit-exact; two shapes back to back."""
+    n_o, n_i = grid
+    n = n_o * n_i
+    ctx = _pair_ctx(n_o, n_i)
+    flat = _ring_ctx(n)
+    g = torch.Generator(device="cuda").manual_seed(320 + n_o)
+    for m_loc, k, n_loc in ((64, 256, 300), (100, 512, 96), (2, 128, 64)):
+        a = [torch.randn((m_loc, k), generator=g, device=cuda).to(dtype) for _ in range(n)]
+        b = (torch.randn((k, n_loc), generator=g, device=cuda) / k**0.5).to(dtype)
+        before = tagg._ag_gemm_ring_2d.launches
+        outs = ctx.run(lambda: (
+            tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, gather_output=True),
+            tagg._ag_gemm_2d_plain(a[ctx.rank], b, ctx, False, dtype)))
+        assert tagg._ag_gemm_ring_2d.launches == before + n
+        k15 = flat.run(lambda: tagg.ag_gemm(a[flat.rank], b, ctx=flat))
+        for ((out, ag), want), ring in zip(outs, k15):
+            assert torch.equal(ag, torch.cat(a))
+            assert torch.equal(out, ring)
+            assert (out.float() - want.float()).abs().max().item() <= _ring_tol(dtype, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["all_gather_2d", "ag_gemm_2d"])
+def test_ring_2d_stuck_wait_raises_with_its_record(cuda, family):
+    """Rank 1's stream is held for 2 s before its K36 / K37 at 2 x 2: every
+    other rank's entry barrier waits for the group's ranks in rank order,
+    so each records site 1 (the arrival of rank 1), with its global rank
+    and the group."""
+    ctx = _pair_ctx(2, 2)
+    g = torch.Generator(device="cuda").manual_seed(330)
+    a = [torch.randn((64, 128), generator=g, device=cuda) for _ in range(4)]
+    b = torch.randn((128, 64), generator=g, device=cuda)
+    op = ((lambda r: tag.all_gather(a[r], ctx=ctx)) if family == "all_gather_2d"
+          else (lambda r: tagg.ag_gemm(a[r], b, ctx=ctx)))
+    ctx.run(lambda: op(ctx.rank))  # the buffers exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return op(ctx.rank)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    got = sorted((r["pe"], r["family"], r["site"], r["kind"], r["rank"], r["group"])
+                 for r in err.value.records)
+    assert got == [(p, family, 1, "barrier_all", p, "dp,tp") for p in (0, 2, 3)]

@@ -512,9 +512,10 @@ def test_ep_serving_engine_matches_tp(ep, case):
 
 
 def test_ep_presets_and_refusals(ep):
-    """``:ep`` builds the EP config; hierarchical EP refuses naming A5 (the
-    preset, the config field, the layers); decode rows that do not divide
-    over the ranks and EP training (with ragged rows too) refuse too."""
+    """``:ep`` builds the EP config; hierarchical EP builds too (the preset,
+    the config field, the layer, which needs a runtime with both axes);
+    decode rows that do not divide over the ranks and EP training (with
+    ragged rows too) refuse."""
     cfg = tpresets.preset("mixtral-8x7b:ep", n_layers=8, batch=8)
     assert isinstance(cfg, ttm.EPMoETransformerConfig)
     assert (cfg.hidden, cfg.ffn, cfg.n_experts, cfg.topk, cfg.ep_max_m, cfg.ep_quant) == (
@@ -522,11 +523,12 @@ def test_ep_presets_and_refusals(ep):
     assert tpresets.preset("mixtral-8x7b", ep=True) == tpresets.preset("mixtral-8x7b:ep")
     with pytest.raises(ValueError, match="dense"):
         tpresets.preset("llama-3.1-8b:ep")
-    for refuse in (lambda: tpresets.preset("mixtral-8x7b:ep-hier"),
-                   lambda: ttm.EPMoETransformerConfig(**DIMS, ep_outer="dp"),
-                   lambda: tmlp.EPMoEMLP(E, TOPK, 4, outer="dp", inner="tp")):
-        with pytest.raises(NotImplementedError, match="A5"):
-            refuse()
+    assert tpresets.preset("mixtral-8x7b:ep-hier") == dataclasses.replace(
+        tpresets.preset("mixtral-8x7b:ep"), ep_outer="dcn")
+    assert ttm.EPMoETransformerConfig(**DIMS, ep_outer="dp").ep_outer == "dp"
+    with pytest.raises(ValueError, match="no axis 'dp'|not an axis"):
+        tmlp.EPMoEMLP(E, TOPK, 4, initialize_distributed(WORLD, device="cpu"), outer="dp",
+                      inner="tp")
     with pytest.raises(ValueError, match="quant"):
         ttm.EPMoETransformerConfig(**DIMS, ep_quant="int4")
     _, _, tcfg, tparams = ep
@@ -534,11 +536,13 @@ def test_ep_presets_and_refusals(ep):
     params = ttm.init_moe_params(tcfg, seed=1, device="cpu")
     ragged = dataclasses.replace(tcfg, gg_config=tgg.GroupGemmConfig(BM, ragged=True))
     with pytest.raises(NotImplementedError, match="EP training"):
-        ttm.train_step(ttm.EPMoETransformer(ragged), params, tokens, tokens, lr=0.1)
+        ttm.train_step(ttm.EPMoETransformer(ragged), params, tokens, tokens, lr=0.1,
+                       dp_axis=None)
     ctx = initialize_distributed(WORLD, device="cpu")
     shards = ttm.shard_params(tparams, WORLD, cfg=tcfg)
     x = torch.zeros((6, HID))
     with pytest.raises(ValueError, match="divide evenly"):
         ctx.run(lambda: tdec._decode_mlp(tcfg, x, shards[ctx.rank]["layers"][0], ctx))
     with pytest.raises(NotImplementedError, match="EP training"):
-        ttm.train_step(ttm.EPMoETransformer(tcfg), params, tokens, tokens, lr=0.1)
+        ttm.train_step(ttm.EPMoETransformer(tcfg), params, tokens, tokens, lr=0.1,
+                       dp_axis=None)

@@ -132,8 +132,8 @@ def test_presets_and_seeded_init():
     assert isinstance(ep, ttm.EPMoETransformerConfig)
     assert (ep.hidden, ep.ffn, ep.n_q_heads, ep.n_kv_heads, ep.vocab, ep.n_experts,
             ep.topk) == (4096, 14336, 32, 8, 32000, 8, 2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tpresets.preset("mixtral-8x7b:ep-hier")
+    hier = tpresets.preset("mixtral-8x7b:ep-hier")
+    assert isinstance(hier, ttm.EPMoETransformerConfig) and hier.ep_outer == "dcn"
     with pytest.raises(KeyError):
         tpresets.preset("no-such-model")
     # CPU only on request: the seeded init is reproducible there

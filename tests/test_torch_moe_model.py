@@ -200,8 +200,8 @@ def test_moe_preset_init_and_refusals(moe):
     assert isinstance(ep, ttm.EPMoETransformerConfig)
     assert dataclasses.asdict(ep) == dict(dataclasses.asdict(cfg), ep_outer=None,
                                           ep_max_m=None, ep_quant=None)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tpresets.preset("mixtral-8x7b:ep-hier")
+    assert tpresets.preset("mixtral-8x7b:ep-hier", n_layers=8, batch=8) == dataclasses.replace(
+        ep, ep_outer="dcn")
     p = ttm.init_moe_params(tcfg, seed=1, device="cpu")
     layer = p["layers"][0]
     assert (layer["router"].shape, layer["w_up"].shape, layer["w_down"].shape) == (

@@ -492,7 +492,7 @@ def test_train_step_keeps_quantized_pools(moe):
     quant = ttm.quantize_moe_serving_params(tparams)
     tokens = torch.from_numpy(np.random.default_rng(9).integers(0, 32, 16))
     new, loss = ttm.train_step(ttm.TPMoETransformer(cfg), quant, tokens,
-                               torch.roll(tokens, -1), lr=0.3)
+                               torch.roll(tokens, -1), lr=0.3, dp_axis=None)
     assert torch.isfinite(loss)
     for name in ("w_up", "w_down", "w_up_scale", "w_down_scale"):
         got, want = new["layers"][0][name], quant["layers"][0][name]

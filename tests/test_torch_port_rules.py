@@ -1,7 +1,9 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX
-package (every module, the layer tier ``layers/`` and the sequence-parallel
+package (every module, the layer tier ``layers/``, the sequence-parallel
 modules ``ops/ring_attention.py``, ``ops/ulysses.py`` and
-``models/sp_transformer.py`` included), its entry
+``models/sp_transformer.py``, and the modules the 2-D rank runtime reaches
+— the runtime, the pair collectives, the hierarchical EP layers, the
+models, decode and the engine — included), its entry
 points run on the card unless the caller asks for the CPU (and raise with
 no card), its layers hold no parameters of their own, and ``chip_smoke.py``
 refuses to report without a card or without the port beside it."""
@@ -43,6 +45,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "new = {'triton_dist_tpu_torch.ops.ring_attention', 'triton_dist_tpu_torch.ops.ulysses',\n"
         "       'triton_dist_tpu_torch.models.sp_transformer'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
+        "two_d = {'triton_dist_tpu_torch.' + m for m in (\n"
+        "    'parallel.mesh', 'utils', 'ops.common', 'ops.allgather', 'ops.allgather_gemm',\n"
+        "    'ops.reduce_scatter', 'ops.gemm_reduce_scatter', 'ops.grads', 'ops.all_to_all',\n"
+        "    'layers.tp_mlp', 'layers.allgather_layer', 'layers.ep_a2a_layer',\n"
+        "    'layers.ep_moe_mlp', 'models.tp_transformer', 'models.presets', 'models.decode',\n"
+        "    'serving.engine', 'resilience.records', 'resilience.sites', 'resilience.watchdog')}\n"
+        "assert two_d <= set(names), sorted(two_d - set(names))\n"
         "layers = [n for n in names if n.startswith('triton_dist_tpu_torch.layers.')]\n"
         "assert len(layers) == 5, layers\n"
         "assert not bad, bad\n"
@@ -86,6 +95,10 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         tdec.generate(cfg, params, [[1, 2]], 2, s_max=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tdec.ContinuousBatcher(cfg, params, s_max=8, device="cuda")
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_distributed(mesh_shape={"dp": 2, "tp": 2})
     # asked for explicitly, the CPU runs the plain versions
     b = tdec.ContinuousBatcher(cfg, params, s_max=8, device="cpu")
     b.submit(tdec.Request([1, 2], max_new_tokens=2, uid="x"))
@@ -94,9 +107,9 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
 
 def test_layers_take_their_weights_per_call():
     """The layer tier's modules are the JAX package's names (``ElasticStep``
-    still to port; ``HierEPAll2AllLayer`` refuses, naming the 2-D runtime)
-    and own no parameters or buffers: like the JAX layers they take their
-    weights per call."""
+    still to port) and own no parameters or buffers: like the JAX layers
+    they take their weights per call; ``HierEPAll2AllLayer`` carries the
+    reference's fields."""
     from triton_dist_tpu_torch import layers
 
     assert [n for n in dir(layers) if n[0].isupper()] == [
@@ -106,8 +119,8 @@ def test_layers_take_their_weights_per_call():
                   layers.TPMLP(), layers.TPMoEMLP(overlap=False), layers.EPMoEMLP(8, 2, 4)):
         assert isinstance(layer, torch.nn.Module)
         assert not list(layer.parameters()) and not list(layer.buffers())
-    with pytest.raises(NotImplementedError, match="A5"):
-        layers.HierEPAll2AllLayer(n_experts=8, topk=2, max_m1=4, max_m2=8)
+    hier = layers.HierEPAll2AllLayer(n_experts=8, topk=2, max_m1=4, max_m2=8)
+    assert (hier.outer, hier.inner, hier.quant, hier.a2a_config) == ("dp", "tp", None, None)
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_port(tmp_path):

@@ -456,7 +456,8 @@ def test_ragged_refusals_that_remain(moe):
     tcfg = _configs(False, True)[1]
     tokens = torch.zeros(DIMS["batch"] * DIMS["seq"], dtype=torch.long)
     before = [p.clone() for p in tparams["layers"][0].values()]
-    new, loss = ttm.train_step(ttm.TPMoETransformer(tcfg), tparams, tokens, tokens, lr=0.1)
+    new, loss = ttm.train_step(ttm.TPMoETransformer(tcfg), tparams, tokens, tokens, lr=0.1,
+                               dp_axis=None)
     assert torch.isfinite(loss)
     assert all(torch.equal(p, q) for p, q in zip(before, tparams["layers"][0].values()))
     assert not torch.equal(new["layers"][0]["w_up"], tparams["layers"][0]["w_up"])

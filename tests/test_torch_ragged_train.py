@@ -234,19 +234,19 @@ def test_ragged_train_step_matches_jax(ragged_moe, world):
 
 def test_ragged_training_refusals(ragged_moe):
     """The ragged backward's refusal (once ROADMAP B16) is gone at every
-    entry: a ragged ``train_step`` runs; what remains refuses — the
-    data-parallel axis and optimizers (A5) and expert-parallel training
-    (A12), ragged or not."""
+    entry: a ragged ``train_step`` runs; what remains refuses — a
+    data-parallel axis the runtime lacks, optimizers (A5) and
+    expert-parallel training (A12), ragged or not."""
     _, _, tcfg, tparams, tokens, targets = ragged_moe
     t, y = torch.from_numpy(tokens), torch.from_numpy(targets)
     model = ttm.TPMoETransformer(tcfg)
-    new, loss = ttm.train_step(model, tparams, t, y, lr=LR)
+    new, loss = ttm.train_step(model, tparams, t, y, lr=LR, dp_axis=None)
     assert torch.isfinite(loss) and not torch.equal(new["layers"][0]["w_up"],
                                                     tparams["layers"][0]["w_up"])
-    with pytest.raises(NotImplementedError, match="A5, dp axis"):
+    with pytest.raises(ValueError, match="no axis 'dp'"):
         ttm.train_step(model, tparams, t, y, dp_axis="dp")
     with pytest.raises(NotImplementedError, match="A5, optimizers"):
         ttm.train_step(model, tparams, t, y, opt=object())
     ep_cfg = ttm.EPMoETransformerConfig(**MOE, gg_config=tgg.GroupGemmConfig(8, ragged=True))
     with pytest.raises(NotImplementedError, match="A12, EP"):
-        ttm.train_step(ttm.EPMoETransformer(ep_cfg), tparams, t, y, lr=LR)
+        ttm.train_step(ttm.EPMoETransformer(ep_cfg), tparams, t, y, lr=LR, dp_axis=None)

@@ -376,7 +376,7 @@ def test_ring_train_step_matches_jax(ring_model):
         loss = model.loss(t, y, work)
         flat = iter(torch.autograd.grad(loss, ttm._tree_leaves(work)))
         raw = ttm._tree_map(lambda _: next(flat), work)
-        return loss.detach(), raw, ttm.train_step(model, shards[r], t, y, lr=LR)
+        return loss.detach(), raw, ttm.train_step(model, shards[r], t, y, lr=LR, dp_axis=None)
 
     outs = ctx.run(body, grad=True)
     splits = ttm.specs_for(tcfg)

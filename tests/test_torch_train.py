@@ -139,7 +139,8 @@ def _port_step(tcfg, tcls, tparams, tokens, targets, world, **kw):
         loss = model.loss(t, y, work)
         flat = iter(torch.autograd.grad(loss, ttm._tree_leaves(work)))
         raw = ttm._tree_map(lambda _: next(flat), work)
-        return loss.detach(), raw, ttm.train_step(model, shards[r], t, y, lr=LR, **kw)
+        return loss.detach(), raw, ttm.train_step(model, shards[r], t, y, lr=LR, dp_axis=None,
+                                                  **kw)
 
     return [body()] if ctx is None else ctx.run(body, grad=True)
 
@@ -186,7 +187,7 @@ def test_three_steps_lower_the_loss(setup):
         t = torch.from_numpy(tokens[r * 8:(r + 1) * 8])
         losses = []
         for _ in range(3):
-            p, loss = ttm.train_step(model, p, t, y, lr=LR)
+            p, loss = ttm.train_step(model, p, t, y, lr=LR, dp_axis=None)
             losses.append(loss.item())
         return losses, p
 
@@ -214,7 +215,7 @@ def test_skip_nonfinite_drops_a_poisoned_step():
         shard = ttm.shard_params(params, 2)[r]
         return shard, ttm.train_step(tcls(tcfg, ctx=ctx), shard,
                                      torch.from_numpy(tokens[r * 8:(r + 1) * 8]), y, lr=LR,
-                                     skip_nonfinite=skip)
+                                     dp_axis=None, skip_nonfinite=skip)
 
     for shard, (new, loss, skipped) in ctx.run(lambda: body(poisoned, True), grad=True):
         assert skipped.item() == 1 and not torch.isfinite(loss)
@@ -227,19 +228,23 @@ def test_skip_nonfinite_drops_a_poisoned_step():
 
 
 def test_training_refusals(setup):
-    """What the port refuses loudly: the data-parallel axis, optimizer
-    transforms, a train step in an inference-mode run, and the card by
-    default when there is none."""
+    """What the port refuses loudly: a data-parallel axis the runtime does
+    not have (``dp_axis`` defaults to ``"dp"``, as the reference's),
+    optimizer transforms, a train step in an inference-mode run, and the
+    card by default when there is none."""
     _, _, _, tcfg, tcls, tparams, tokens, targets = setup
     t, y = torch.from_numpy(tokens), torch.from_numpy(targets)
     model = tcls(tcfg)
-    with pytest.raises(NotImplementedError, match="A5, dp axis"):
-        ttm.train_step(model, tparams, t, y, dp_axis="dp")
+    with pytest.raises(ValueError, match="dp_axis='dp': the rank runtime has no axis 'dp'"):
+        ttm.train_step(model, tparams, t, y)
     with pytest.raises(NotImplementedError, match="A5, optimizers"):
-        ttm.train_step(model, tparams, t, y, opt=object())
+        ttm.train_step(model, tparams, t, y, opt=object(), dp_axis=None)
+    ctx = initialize_distributed(2, device="cpu")
+    with pytest.raises(ValueError, match="no axis 'dp'"):
+        ctx.run(lambda: tmodels.train_step(tcls(tcfg, ctx=ctx), tparams, t, y), grad=True)
     ctx = initialize_distributed(2, device="cpu")
     with pytest.raises(RuntimeError, match="grad=True"):
-        ctx.run(lambda: tmodels.train_step(tcls(tcfg, ctx=ctx), tparams, t, y))
+        ctx.run(lambda: tmodels.train_step(tcls(tcfg, ctx=ctx), tparams, t, y, dp_axis=None))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tmodels.init_params(tcfg)

@@ -20,6 +20,9 @@
 //       span)
 //   K22 (two directions, spans)   ≙ ops/allgather.py:191
 //                                   _ring_bidir_chunked_kernel
+//   K36 tdt_ring_all_gather_2d    ≙ ops/allgather.py:284 _ring_2d_kernel
+//   K37 tdt_ring_ag_gemm_2d       ≙ ops/allgather_gemm.py:179
+//                                   _ag_gemm_2d_kernel
 //
 // What they compute. K15: out[c] = A_c @ B for every shard c, in the ring's
 // arrival order c = me, me-1, ...; chunk j of shard c is forwarded to the
@@ -39,7 +42,18 @@
 // in the one-way ring, ceil((n-1)/2) in the bidirectional one); going left,
 // step s forwards shard me+s to the left neighbour (floor((n-1)/2) steps,
 // none at world 2); span j of step s > 0 goes on once span j of step s-1
-// has landed, and each landed shard is copied to out.
+// has landed, and each landed shard is copied to out. K36 gathers over a
+// pair group (outer, inner) of n_o * n_i ranks, rank (o, i) = o * n_i + i,
+// shard (o, i) at rows (o * n_i + i) * m of out: an inner ring gathers this
+// rank's row o, and every chunk goes on down the outer ring the moment it
+// is here. Inner step s moves chunk (me_o, me_i - s): it is copied to out,
+// put to the right inner neighbour (s < n_i - 1) and down the outer ring
+// (outer round 0). Outer round t >= 1 moves chunk (me_o - t, me_i - s) for
+// s = 0 .. n_i - 1 as it lands from above: to out, and on down unless t is
+// the last round. The ranks of an outer ring share their inner index, so
+// sender and receiver name a chunk by the same (t, s) flag slot. K37 is
+// K36's forwarding into the gather workspace with K15's GEMM tiles on each
+// chunk after its forwards, in that 2-D arrival order.
 //
 // What bounds them on the H100. K15-K17 are K1's tile loop (gemm_core.cuh)
 // with waits in front of a chunk's tiles: tensor-core throughput at prefill
@@ -364,6 +378,179 @@ __global__ void ring_all_gather_kernel(const unsigned char* __restrict__ x,
   }
 }
 
+// ------------------------------------------------------------- K36/K37 ----
+// One rank's side of a launch over a pair group: its place, the entry
+// barrier over the whole group (the reference's barrier_all over (outer,
+// inner)), the inner flags (slot s: the chunk of inner step s) and the
+// outer flags (slot t * MAX_SPANS + s: inner chunk s of outer round t).
+struct Ring2D {
+  int n_o, n_i, world, me, me_o, me_i;
+  const long long* entry_table;  // the peers' entry flag sets (int32[world] each)
+  const int* entry_mine;         // this rank's entry flag set
+  ChunkFlags in, out;
+  WaitCtx w;
+  int jitter;
+
+  // every rank of the group has started (its reads of the previous call's
+  // workspace are over) before any store into a peer: block 0 raises this
+  // rank's slot in every peer's set, every block waits for the peers in
+  // rank order, so a late rank is named by the same site on every rank
+  __device__ __forceinline__ void enter() const {
+    const int epoch = in.epoch;
+    if (blockIdx.x == 0 && threadIdx.x < world && threadIdx.x != me)
+      shmem::signal_set(shmem::peer_ptr<int>(entry_table, threadIdx.x) + me, epoch);
+    if (threadIdx.x == 0) {
+      for (int p = 0; p < world; ++p)
+        if (p != me && !shmem::wait_until_ge(entry_mine + p, epoch, w, p, shmem::KIND_BARRIER))
+          break;
+      __threadfence();
+    }
+    __syncthreads();
+  }
+
+  // the chunk of item (t, s) has landed here; (0, 0) is this rank's own
+  __device__ __forceinline__ void wait_chunk(int t, int s, int& waited) const {
+    const int key = t * shmem::MAX_SPANS + s;
+    if ((t == 0 && s == 0) || key == waited) return;
+    if (t == 0)
+      shmem::wait_chunk(in, 0, s - 1, world, w);
+    else
+      shmem::wait_chunk(out, t - 1, s, world + shmem::MAX_SPANS, w);
+    waited = key;
+  }
+
+  // the out slot (row block) of item (t, s)
+  __device__ __forceinline__ int slot(int t, int s) const {
+    return ((me_o - t + n_o) % n_o) * n_i + (me_i - s + n_i) % n_i;
+  }
+};
+
+// The block copies `bytes` from `src` into each non-null destination (one
+// load, up to three stores): 16-byte vectors while every pointer is
+// 16-byte aligned, bytes for the tail.
+__device__ __forceinline__ void copy3_block(unsigned char* d0, unsigned char* d1,
+                                            unsigned char* d2, const unsigned char* src,
+                                            long long bytes) {
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  long long done = 0;
+  if (al(src) && al(d0) && al(d1) && al(d2)) {
+    const long long n16 = bytes / 16;
+    const uint4* s16 = reinterpret_cast<const uint4*>(src);
+    for (long long i = threadIdx.x; i < n16; i += blockDim.x) {
+      const uint4 v = s16[i];
+      if (d0) reinterpret_cast<uint4*>(d0)[i] = v;
+      if (d1) reinterpret_cast<uint4*>(d1)[i] = v;
+      if (d2) reinterpret_cast<uint4*>(d2)[i] = v;
+    }
+    done = n16 * 16;
+  }
+  for (long long i = done + threadIdx.x; i < bytes; i += blockDim.x) {
+    const unsigned char v = src[i];
+    if (d0) d0[i] = v;
+    if (d1) d1[i] = v;
+    if (d2) d2[i] = v;
+  }
+}
+
+// One forward piece of item (t, s): bytes [lo, lo + len) of its chunk, from
+// `src` to `local` (out, or this rank's workspace; may be null) and to the
+// neighbours it goes on to, then the signals of the chunks that piece
+// completes. `shard` is a chunk's size in bytes, at = its slot's offset.
+__device__ __forceinline__ void forward_piece_2d(const Ring2D& r, int t, int s,
+                                                 const unsigned char* src, unsigned char* local,
+                                                 unsigned char* ws_right, unsigned char* ws_down,
+                                                 size_t at, long long lo, long long len,
+                                                 int pieces) {
+  const bool fwd_in = t == 0 && s < r.n_i - 1;
+  const bool fwd_out = t < r.n_o - 1;
+  copy3_block(local ? local + lo : nullptr, fwd_in ? ws_right + at + lo : nullptr,
+              fwd_out ? ws_down + at + lo : nullptr, src + lo, len);
+  if (fwd_in) shmem::chunk_piece_done(r.in, 0, s, pieces);
+  if (fwd_out) shmem::chunk_piece_done(r.out, t, s, pieces);
+}
+
+// K36. x [m rows of row_bytes] this rank's shard, out [world * m rows];
+// ws_me / ws_right / ws_down this rank's, its right inner neighbour's and
+// its outer neighbour below's gather workspaces [world * m rows]. Items
+// in 2-D arrival order: (0, s) for s < n_i, then (t, s) for 1 <= t < n_o;
+// each item is `pieces` byte pieces of its chunk.
+__global__ void ring_all_gather_2d_kernel(const unsigned char* __restrict__ x,
+                                          unsigned char* __restrict__ out,
+                                          const unsigned char* ws_me, unsigned char* ws_right,
+                                          unsigned char* ws_down, long long shard, Ring2D r) {
+  shmem::comm_jitter(r.me, 4, r.jitter, r.world);
+  r.enter();
+  const int pieces = static_cast<int>((shard + GATHER_PIECE - 1) / GATHER_PIECE);
+  const int total = r.world * pieces;
+  int waited = -1;
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    const int chunk = item / pieces, rest = item % pieces;
+    const int t = chunk / r.n_i, s = chunk % r.n_i;
+    r.wait_chunk(t, s, waited);
+    const size_t at = static_cast<size_t>(r.slot(t, s)) * shard;
+    const unsigned char* src = (t == 0 && s == 0) ? x : ws_me + at;
+    const long long lo = static_cast<long long>(rest) * GATHER_PIECE;
+    forward_piece_2d(r, t, s, src, out + at, ws_right, ws_down, at, lo,
+                     min(GATHER_PIECE, shard - lo), pieces);
+  }
+}
+
+// K37. a [m_loc, k] this rank's shard, b [k, n], out [world * m_loc, n];
+// ws_* the gather workspaces [world * m_loc, k] as K36's. Items of chunk
+// (t, s) in K36's order: fwd forward pieces (none when the chunk goes no
+// further), then its GEMM tiles, K15's tile loop over the chunk's rows.
+template <class E, typename TOut>
+__global__ void __launch_bounds__(E::THREADS, 1)
+    ring_ag_gemm_2d_kernel(const typename E::TIn* __restrict__ a,
+                           const typename E::TIn* __restrict__ b, TOut* __restrict__ out,
+                           typename E::TIn* ws_me, typename E::TIn* ws_right,
+                           typename E::TIn* ws_down, int m_loc, int n, int k, int vec,
+                           Ring2D r) {
+  using T = typename E::TIn;
+  shmem::comm_jitter(r.me, 9, r.jitter, r.world);
+  r.enter();
+  const long long shard = static_cast<long long>(m_loc) * k * sizeof(T);
+  const int fwd = static_cast<int>((shard + PIECE_BYTES - 1) / PIECE_BYTES);
+  const int tiles_n = cdiv(n, E::BN);
+  const int tiles = cdiv(m_loc, E::BM) * tiles_n;
+  const AddList<TOut> none = {};
+  int per_chunk[shmem::RING_MAX_WORLD], total = 0;
+  for (int c = 0; c < r.world; ++c) {
+    const int t = c / r.n_i, s = c % r.n_i;
+    // the own chunk always lands in this rank's workspace too
+    const bool moves = (t == 0 && s < r.n_i - 1) || t < r.n_o - 1 || c == 0;
+    per_chunk[c] = (moves ? fwd : 0) + tiles;
+    total += per_chunk[c];
+  }
+  int waited = -1;
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    int c = 0, rest = item;
+    for (; rest >= per_chunk[c]; ++c) rest -= per_chunk[c];
+    const int t = c / r.n_i, s = c % r.n_i;
+    const int n_fwd = per_chunk[c] - tiles;
+    r.wait_chunk(t, s, waited);
+    const size_t row0 = static_cast<size_t>(r.slot(t, s)) * m_loc;
+    const T* src = (t == 0 && s == 0) ? a : ws_me + row0 * k;
+    if (rest < n_fwd) {
+      const long long lo = static_cast<long long>(rest) * PIECE_BYTES;
+      forward_piece_2d(r, t, s, reinterpret_cast<const unsigned char*>(src),
+                       (t == 0 && s == 0) ? reinterpret_cast<unsigned char*>(ws_me) +
+                                                row0 * k * sizeof(T)
+                                          : nullptr,
+                       reinterpret_cast<unsigned char*>(ws_right),
+                       reinterpret_cast<unsigned char*>(ws_down), row0 * k * sizeof(T), lo,
+                       min(PIECE_BYTES, shard - lo), n_fwd);
+    } else {
+      rest -= n_fwd;
+      __syncthreads();  // the previous tile's last reads of shared memory
+      const int m0 = (rest / tiles_n) * E::BM, n0 = (rest % tiles_n) * E::BN;
+      typename E::Acc acc;
+      E::mainloop(src, b, m_loc, n, k, m0, n0, vec, acc);
+      E::template store<false>(acc, out + row0 * n, m_loc, n, m0, n0, none);
+    }
+  }
+}
+
 template <typename F>
 cudaError_t dispatch_one(int dtype, F&& f) {
   if (dtype == kF32) return f(float{});
@@ -389,7 +576,102 @@ bool make_spans(const int* spans, int n_spans, int m_loc, Spans& sp) {
   return next == m_loc;
 }
 
+// A Ring2D from the host's launch arguments; false for a group it cannot be.
+bool make_ring_2d(int n_o, int n_i, int me, int epoch, void* entry_table, void* entry_mine,
+                  void* in_mine, void* in_peer, void* in_count, void* out_mine, void* out_peer,
+                  void* out_count, int jitter, void* diag, long long timeout_ns, int family,
+                  Ring2D& r) {
+  const int world = n_o * n_i;
+  if (n_o < 1 || n_i < 1 || world < 2 || world > shmem::RING_MAX_WORLD || me < 0 ||
+      me >= world || jitter < 0 || n_i > shmem::MAX_SPANS || !entry_table || !entry_mine ||
+      !in_mine || !in_peer || !in_count || !out_mine || !out_peer || !out_count)
+    return false;
+  r.n_o = n_o;
+  r.n_i = n_i;
+  r.world = world;
+  r.me = me;
+  r.me_o = me / n_i;
+  r.me_i = me % n_i;
+  r.entry_table = static_cast<const long long*>(entry_table);
+  r.entry_mine = static_cast<const int*>(entry_mine);
+  r.in = {static_cast<int*>(in_mine), static_cast<int*>(in_peer), static_cast<int*>(in_count),
+          epoch};
+  r.out = {static_cast<int*>(out_mine), static_cast<int*>(out_peer),
+           static_cast<int*>(out_count), epoch};
+  r.w.diag = static_cast<int*>(diag);
+  r.w.timeout_ns = timeout_ns;
+  r.w.rank = me;
+  r.w.family = family;
+  r.jitter = jitter;
+  return true;
+}
+
 }  // namespace
+
+// K36. x [m rows of row_bytes], out [n_o * n_i * m rows]; ws_* the gather
+// workspaces; the flags as make_ring_2d's (entry_table: this rank's copy of
+// the entry set's peer table).
+extern "C" int tdt_ring_all_gather_2d(const void* x, void* out, void* ws_me, void* ws_right,
+                                      void* ws_down, long long row_bytes, int m, int n_o,
+                                      int n_i, int me, void* entry_table, void* entry_mine,
+                                      void* in_mine, void* in_peer, void* in_count,
+                                      void* out_mine, void* out_peer, void* out_count,
+                                      int epoch, int max_blocks, int jitter, void* diag,
+                                      long long timeout_ns, int family, void* stream) {
+  Ring2D r;
+  if (!make_ring_2d(n_o, n_i, me, epoch, entry_table, entry_mine, in_mine, in_peer, in_count,
+                    out_mine, out_peer, out_count, jitter, diag, timeout_ns, family, r) ||
+      row_bytes < 1 || m < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long shard = row_bytes * m;
+  const long long items = r.world * ((shard + GATHER_PIECE - 1) / GATHER_PIECE);
+  ring_all_gather_2d_kernel<<<persistent_grid(items, max_blocks), 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out),
+      static_cast<const unsigned char*>(ws_me), static_cast<unsigned char*>(ws_right),
+      static_cast<unsigned char*>(ws_down), shard, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K37. a [m_loc, k], b [k, n], out [n_o * n_i * m_loc, n]; ws_* the gather
+// workspaces [n_o * n_i * m_loc, k]; flags as K36's.
+extern "C" int tdt_ring_ag_gemm_2d(const void* a, const void* b, void* out, void* ws_me,
+                                   void* ws_right, void* ws_down, int m_loc, int n, int k,
+                                   int in_dtype, int out_dtype, int n_o, int n_i, int me,
+                                   void* entry_table, void* entry_mine, void* in_mine,
+                                   void* in_peer, void* in_count, void* out_mine, void* out_peer,
+                                   void* out_count, int epoch, int max_blocks, int jitter,
+                                   void* diag, long long timeout_ns, int family, void* stream) {
+  Ring2D r;
+  if (!make_ring_2d(n_o, n_i, me, epoch, entry_table, entry_mine, in_mine, in_peer, in_count,
+                    out_mine, out_peer, out_count, jitter, diag, timeout_ns, family, r) ||
+      m_loc < 1 || n < 1 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dispatch_dtypes(in_dtype, out_dtype, [&](auto e, auto t) {
+    using E = decltype(e);
+    using TOut = decltype(t);
+    const int vec = in_dtype == kBF16 ? (bf16_vec_ok(a, b, n, k) && bf16_vec_ok(ws_me, b, n, k))
+                                      : 0;
+    if (E::SMEM_BYTES > 0) {
+      cudaError_t attr = cudaFuncSetAttribute(ring_ag_gemm_2d_kernel<E, TOut>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              E::SMEM_BYTES);
+      if (attr != cudaSuccess) return attr;
+    }
+    ring_ag_gemm_2d_kernel<E, TOut>
+        <<<persistent_grid((long long)cdiv(m_loc, E::BM) * cdiv(n, E::BN) * r.world + r.world,
+                           max_blocks),
+           E::THREADS, E::SMEM_BYTES, s>>>(
+            static_cast<const typename E::TIn*>(a), static_cast<const typename E::TIn*>(b),
+            static_cast<TOut*>(out), static_cast<typename E::TIn*>(ws_me),
+            static_cast<typename E::TIn*>(ws_right), static_cast<typename E::TIn*>(ws_down),
+            m_loc, n, k, vec, r);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K15. spans: host int32[2 * n_spans] of (offset, rows) covering m_loc.
 extern "C" int tdt_ring_ag_gemm(const void* a, const void* b, void* out, void* ws_me,

@@ -5,11 +5,12 @@ the allgather's method (:class:`AllGatherLayer`), the SP decode combine's
 method (:class:`SpGQAFlashDecodeAttention`), the ring configs of the dense
 MLP (:class:`TPMLP`) and the overlapped or sequential MoE MLP
 (:class:`TPMoEMLP`) — and the expert-parallel dispatch and combine
-(:class:`EPAll2AllLayer`) with the MoE MLP over it (:class:`EPMoEMLP`).
-Call them inside ``ctx.run`` at world > 1.
+(:class:`EPAll2AllLayer`, and over a pair of axes the two-phase
+:class:`HierEPAll2AllLayer`) with the MoE MLP over it (:class:`EPMoEMLP`).
+Call them inside ``ctx.run`` at world > 1; ``axis=`` (a name or a pair of
+a 2-D runtime) picks the ranks a layer runs over.
 
-Still to port from the JAX tier: ``HierEPAll2AllLayer`` (it refuses: the
-2-D rank runtime, ROADMAP A5) and ``ElasticStep`` (A9).
+Still to port from the JAX tier: ``ElasticStep`` (A9).
 """
 
 from triton_dist_tpu_torch.layers.allgather_layer import AllGatherLayer  # noqa: F401

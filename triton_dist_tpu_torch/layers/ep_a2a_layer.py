@@ -17,8 +17,16 @@ the JAX package leaves it to XLA, with no host sync: a dropped assignment
 with per-row absmax scales bitcast onto the payload: serving only, since
 the rounding has no gradient; the combine stays in the token dtype.
 
-``HierEPAll2AllLayer`` (the two-phase dispatch over an (outer, inner)
-mesh) needs the 2-D rank runtime of ROADMAP A5 and refuses.
+``HierEPAll2AllLayer`` (``:306``, with ``HierDispatchInfo`` at ``:285``)
+is the two-phase dispatch over an (outer, inner) pair of a 2-D rank
+runtime: phase 1 sends each token over the outer axis once per
+destination outer group (the assignments to one group deduplicated), with
+its top-k ids and f32 weights (bitcast) on the payload; phase 2 at the
+relay scatters each row over the inner axis to the ranks that own its
+experts. The combine is the inner reverse, the relay's weighted sum of its
+group's expert outputs a row, then the outer reverse and the sum a token.
+Both phases ride the padded-slab all-to-all over their group (K27/K28 on
+the card). ``quant`` quantizes the phase-1 wire only.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from triton_dist_tpu_torch.ops.all_to_all import A2AConfig, fast_all_to_all
 from triton_dist_tpu_torch.ops.grads import fast_all_to_all_grad
 from triton_dist_tpu_torch.ops.group_gemm import FP8_DTYPE
 from triton_dist_tpu_torch.ops.moe_utils import MoEAlignment, moe_align_block_size
-from triton_dist_tpu_torch.utils import axis_size
+from triton_dist_tpu_torch.utils import axis_index, axis_size
 
 # the one-byte dispatch wire formats: (dtype, the absmax's image)
 _QUANT_FORMATS = {"int8": (torch.int8, 127.0), "fp8": (FP8_DTYPE, 448.0)}
@@ -197,14 +205,183 @@ class EPAll2AllLayer:
         return out.index_add_(0, assignment // self.topk, contrib)
 
 
-class HierEPAll2AllLayer:
-    """The two-phase dispatch over an (outer, inner) mesh (≙
-    ``HierEPAll2AllLayer``, ``:306``): not ported."""
+@dataclasses.dataclass(frozen=True)
+class HierDispatchInfo:
+    """The two-phase dispatch's bookkeeping (≙ ``HierDispatchInfo``):
+    phase 1 at the source over the outer axis, phase 2 at the relay over
+    the inner axis."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HierEPAll2AllLayer: hierarchical EP needs the 2-D DistContext (an outer and an "
-            "inner axis) that the data-parallel axis brings (ROADMAP A5)")
+    order1: torch.Tensor         # [m_loc * topk] assignment ids sorted by destination group
+    send_splits1: torch.Tensor   # [n_o] rows sent to each outer group
+    send_offsets1: torch.Tensor  # [n_o] each destination's start in `order1`
+    recv_splits1: torch.Tensor   # [n_o] rows received from each source group
+    order2: torch.Tensor         # [R * topk] relay assignment ids sorted by destination
+    send_splits2: torch.Tensor   # [n_i]
+    send_offsets2: torch.Tensor  # [n_i]
+    recv_splits2: torch.Tensor   # [n_i]
+    recv_expert: torch.Tensor    # [n_i, max_m2] local expert of each received row
+    rel_weights: torch.Tensor    # [R, topk] f32 routing weights at the relay
+    overflow: torch.Tensor       # [] assignments dropped to slab overflow (either phase)
+
+
+@dataclasses.dataclass
+class HierEPAll2AllLayer:
+    """Dispatch and combine over a pair of axes ``(outer, inner)`` of a rank
+    runtime (≙ ``HierEPAll2AllLayer``; call inside ``ctx.run``, `ctx` the
+    runtime or any group of it). Expert ``e`` lives on the rank whose
+    flattened (outer-major) pair index is ``e // epr``, as in the flat
+    layer over the flattened pair. ``max_m1`` is the per-(source,
+    destination group) slab of phase 1, ``max_m2`` the per-(relay,
+    destination) slab of phase 2. The routing weights ride phase 1 twice:
+    bitcast f32 on the payload (the value the combine uses) and as top-k
+    slab columns (the differentiable channel, straight through); with
+    ``quant`` (serving only) the slab is one byte a value with per-row
+    scales on the payload, and no weight columns."""
+
+    n_experts: int
+    topk: int
+    max_m1: int
+    max_m2: int
+    ctx: object = None
+    outer: str = "dp"
+    inner: str = "tp"
+    quant: str | None = None
+    a2a_config: A2AConfig | None = None
+
+    def _groups(self):
+        return self.ctx.group(self.outer), self.ctx.group(self.inner)
+
+    def _dims(self) -> tuple[int, int]:
+        return axis_size(self.ctx, self.outer), axis_size(self.ctx, self.inner)
+
+    def _epr(self) -> int:
+        n_o, n_i = self._dims()
+        if self.n_experts % (n_o * n_i) != 0:
+            raise ValueError(f"n_experts={self.n_experts} must divide over the {n_o}x{n_i} mesh")
+        return self.n_experts // (n_o * n_i)
+
+    def dispatch(self, tokens: torch.Tensor, topk_ids: torch.Tensor,
+                 topk_weights: torch.Tensor):
+        """tokens ``[m_loc, hidden]``, topk_ids/weights ``[m_loc, topk]`` →
+        ``(recv [n_i, max_m2, hidden], info)`` in phase 2's slab layout
+        (the local expert of each row in ``info.recv_expert``). The
+        weights travel along, so :meth:`combine` takes none."""
+        n_o, n_i = self._dims()
+        epr = self._epr()
+        _check_quant(self.quant)
+        outer, inner = self._groups()
+        m_loc, hidden = tokens.shape
+        topk, max_m1, max_m2 = self.topk, self.max_m1, self.max_m2
+        my_o = axis_index(self.ctx, self.outer)
+
+        # phase 1: one copy per (token, destination group); an assignment
+        # is a duplicate when an earlier k of its token goes to that group
+        flat_ids = topk_ids.reshape(-1).long()
+        dest_o = (flat_ids // epr) // n_i
+        ids2d = dest_o.reshape(m_loc, topk)
+        dup = torch.zeros((m_loc, topk), dtype=torch.bool, device=tokens.device)
+        for k in range(1, topk):
+            dup[:, k] = (ids2d[:, :k] == ids2d[:, k:k + 1]).any(dim=1)
+        dest1 = torch.where(dup.reshape(-1), n_o, dest_o)
+        order1, slot1, offsets1, clamped1, overflow1 = _pack_slabs(dest1, n_o, max_m1)
+        rows1 = n_o * max_m1
+        src_tok = order1 // topk
+        meta_ids = _scatter_slots(topk_ids.to(torch.int32)[src_tok], slot1, rows1, -1)
+        meta_w = _scatter_slots(topk_weights.float().contiguous().view(torch.int32)[src_tok],
+                                slot1, rows1, 0)
+        meta_ids, meta_w = meta_ids.view(n_o, -1), meta_w.view(n_o, -1)
+        if self.quant is not None:
+            send1 = _scatter_slots(tokens[src_tok], slot1, rows1, 0).view(n_o, max_m1, hidden)
+            send1_q, scale1 = _quantize_rows(send1, self.quant)
+            meta1 = torch.cat([meta_ids, meta_w, scale1.view(torch.int32)], dim=1)
+            recv1_q, recv_splits1, rmeta1 = fast_all_to_all(
+                send1_q, clamped1, meta=meta1, ctx=outer, config=self.a2a_config)
+            k_w = max_m1 * topk
+            rel_ids = rmeta1[:, :k_w].reshape(-1, topk)
+            rel_w = rmeta1[:, k_w:2 * k_w].contiguous().view(torch.float32).reshape(-1, topk)
+            r_scale1 = rmeta1[:, 2 * k_w:].contiguous().view(torch.float32)
+            rows = _dequantize_rows(recv1_q, r_scale1, tokens.dtype).reshape(-1, hidden)
+        else:
+            # the weights ride twice: exact f32 bits on the payload (the
+            # value) and as slab columns (the gradient), straight through
+            payload = torch.cat([tokens, topk_weights.to(tokens.dtype)], dim=1)
+            send1 = _scatter_slots(payload[src_tok], slot1, rows1, 0).view(
+                n_o, max_m1, hidden + topk)
+            recv1, recv_splits1, rmeta1 = fast_all_to_all_grad(
+                send1, clamped1, torch.cat([meta_ids, meta_w], dim=1), ctx=outer,
+                config=self.a2a_config)
+            rmeta1 = rmeta1.reshape(n_o, 2, max_m1, topk)
+            rel_ids = rmeta1[:, 0].reshape(-1, topk)
+            exact_w = rmeta1[:, 1].contiguous().view(torch.float32).reshape(-1, topk)
+            rows_full = recv1.reshape(-1, hidden + topk)
+            rows = rows_full[:, :hidden]
+            slab_w = rows_full[:, hidden:].float()
+            rel_w = exact_w + (slab_w - slab_w.detach())
+
+        # phase 2: the relay scatters each row to the inner ranks that own
+        # its experts of this outer group
+        r_cap = n_o * max_m1
+        idx = torch.arange(r_cap, device=tokens.device)
+        row_valid = idx % max_m1 < recv_splits1.long()[idx // max_m1]
+        g = rel_ids.reshape(-1).long()
+        g_owner = torch.where(g >= 0, g // epr, 0)
+        amask = row_valid.repeat_interleave(topk) & (g >= 0) & (g_owner // n_i == my_o)
+        dest2 = torch.where(amask, g_owner % n_i, n_i)
+        order2, slot2, offsets2, clamped2, overflow2 = _pack_slabs(dest2, n_i, max_m2)
+        rows2 = n_i * max_m2
+        send2 = _scatter_slots(rows[order2 // topk], slot2, rows2, 0).view(n_i, max_m2, hidden)
+        send_exp2 = _scatter_slots(torch.where(g >= 0, g % epr, -1)[order2].to(torch.int32),
+                                   slot2, rows2, -1).view(n_i, max_m2)
+        recv2, recv_splits2, recv_exp2 = fast_all_to_all_grad(
+            send2, clamped2, send_exp2, ctx=inner, config=self.a2a_config)
+        info = HierDispatchInfo(
+            order1=order1, send_splits1=clamped1, send_offsets1=offsets1,
+            recv_splits1=recv_splits1, order2=order2, send_splits2=clamped2,
+            send_offsets2=offsets2, recv_splits2=recv_splits2, recv_expert=recv_exp2,
+            rel_weights=rel_w, overflow=overflow1 + overflow2)
+        return recv2, info
+
+    def receiver_alignment(self, info: HierDispatchInfo, block_m: int, *,
+                           ragged: bool = False) -> MoEAlignment:
+        """Block-align the received rows by local expert, as the flat
+        layer does."""
+        return _align_received(info.recv_expert, info.recv_splits2, self.max_m2, self._epr(),
+                               block_m, ragged=ragged)
+
+    def combine(self, y: torch.Tensor, info: HierDispatchInfo, m_loc: int) -> torch.Tensor:
+        """Return ``y [n_i, max_m2, h]`` (phase 2's slab layout): the inner
+        reverse, the relay's weighted sum per phase-1 row (one partial a
+        (token, outer group) crosses the outer axis back), the outer
+        reverse and the sum per token → ``[m_loc, h]`` f32."""
+        outer, inner = self._groups()
+        n_o, n_i = self._dims()
+        topk, max_m1, max_m2 = self.topk, self.max_m1, self.max_m2
+        h = y.shape[-1]
+        dev = y.device
+        r_cap = n_o * max_m1
+        back2, _, _ = fast_all_to_all_grad(y, info.recv_splits2, ctx=inner,
+                                           config=self.a2a_config)
+        idx2 = torch.arange(n_i * max_m2, device=dev)
+        slab2, pos2 = idx2 // max_m2, idx2 % max_m2
+        valid2 = pos2 < info.send_splits2.long()[slab2]
+        a2 = info.order2[torch.clamp(info.send_offsets2[slab2] + pos2, 0,
+                                     info.order2.shape[0] - 1)]
+        r_row, k_slot = a2 // topk, a2 % topk
+        w = torch.where(valid2, info.rel_weights[r_row, k_slot], 0.0)
+        contrib = torch.where(valid2[:, None], back2.reshape(-1, h).float() * w[:, None], 0.0)
+        partial = torch.zeros((r_cap, h), dtype=torch.float32, device=dev).index_add(
+            0, r_row, contrib)
+        back1, _, _ = fast_all_to_all_grad(partial.view(n_o, max_m1, h).to(y.dtype),
+                                           info.recv_splits1, ctx=outer,
+                                           config=self.a2a_config)
+        idx1 = torch.arange(r_cap, device=dev)
+        slab1, pos1 = idx1 // max_m1, idx1 % max_m1
+        valid1 = pos1 < info.send_splits1.long()[slab1]
+        a1 = info.order1[torch.clamp(info.send_offsets1[slab1] + pos1, 0,
+                                     info.order1.shape[0] - 1)]
+        contrib1 = torch.where(valid1[:, None], back1.reshape(-1, h).float(), 0.0)
+        out = torch.zeros((m_loc, h), dtype=torch.float32, device=dev)
+        return out.index_add(0, a1 // topk, contrib1)
 
 
 def _align_received(recv_expert, recv_splits, max_m: int, epr: int, block_m: int,

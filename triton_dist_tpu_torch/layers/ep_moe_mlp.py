@@ -18,9 +18,12 @@ tiles' rows when ragged; a block below 128 rows is its own tile) and
 ``assignments`` (the (token, k) pairs a call dispatches) measure how much
 of that work is padding.
 
-Only the flat transport is ported: ``outer``/``inner`` (the hierarchical
-two-phase dispatch) need the 2-D rank runtime (ROADMAP A5). Inference only:
-training an EP model is queued after A5.
+``outer``/``inner`` (≙ ``:98-116``) take the hierarchical two-phase
+dispatch over that pair of a 2-D rank runtime (``HierEPAll2AllLayer``):
+each rank holds ``n_experts / (n_o * n_i)`` whole experts, ``max_m`` is
+the phase-1 slab and ``max_m2`` the phase-2 one (default ``n_o * max_m *
+topk``, which never drops). Inference only: training an EP model is
+ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -80,13 +83,23 @@ class EPMoEMLP(torch.nn.Module):
 
     def __init__(self, n_experts: int, topk: int, max_m: int, ctx=None, *,
                  outer: str | None = None, inner: str | None = None,
+                 max_m2: int | None = None,
                  gg_config: GroupGemmConfig | None = None, quant: str | None = None,
                  a2a_config: A2AConfig | None = None):
         super().__init__()
-        if outer is not None or inner is not None:
-            HierEPAll2AllLayer()  # refuses: the 2-D rank runtime (ROADMAP A5)
+        if (outer is None) != (inner is None):
+            raise ValueError("set both outer= and inner=, or neither")
         self.ctx, self.gg_config = ctx, gg_config
-        self.layer = EPAll2AllLayer(n_experts, topk, max_m, ctx, quant, a2a_config)
+        self.hier = outer is not None
+        if self.hier:
+            n_o = axis_size(ctx, outer)
+            self.pair = (outer, inner)
+            self.layer = HierEPAll2AllLayer(n_experts, topk, max_m,
+                                            max_m2 or n_o * max_m * topk, ctx, outer, inner,
+                                            quant, a2a_config)
+        else:
+            self.pair = None
+            self.layer = EPAll2AllLayer(n_experts, topk, max_m, ctx, quant, a2a_config)
 
     def forward(self, x, w_up, w_down, topk_ids, topk_weights, *, with_overflow: bool = False,
                 w_up_scale=None, w_down_scale=None):
@@ -95,7 +108,7 @@ class EPMoEMLP(torch.nn.Module):
         count of assignments dropped to slab overflow."""
         cfg = check_config(self.gg_config)
         layer = self.layer
-        epr = layer.n_experts // axis_size(self.ctx)
+        epr = layer.n_experts // axis_size(self.ctx, self.pair)
         if w_up.shape[0] != epr or w_down.shape[0] != epr:
             raise ValueError(
                 f"EPMoEMLP: a rank holds {epr} whole experts of {layer.n_experts}, got banks "
@@ -110,7 +123,10 @@ class EPMoEMLP(torch.nn.Module):
             w_up, w_up_scale = quantize_expert_weights(w_up)
             w_down, w_down_scale = quantize_expert_weights(w_down)
         m_loc, hidden = x.shape
-        recv, info = layer.dispatch(x, topk_ids)
+        if self.hier:
+            recv, info = layer.dispatch(x, topk_ids, topk_weights)
+        else:
+            recv, info = layer.dispatch(x, topk_ids)
         al = layer.receiver_alignment(info, cfg.block_m, ragged=cfg.ragged)
         rows = recv.reshape(-1, hidden)
         r_cap = rows.shape[0]
@@ -123,13 +139,16 @@ class EPMoEMLP(torch.nn.Module):
         # back to the received slab layout; the sentinel rows land in a scratch row
         y = torch.zeros((r_cap + 1, y_sorted.shape[1]), dtype=x.dtype, device=x.device)
         y[ids] = y_sorted.to(x.dtype)
-        out = layer.combine(y[:r_cap].view(recv.shape[0], recv.shape[1], -1), info,
-                            topk_weights, m_loc).to(x.dtype)
+        y = y[:r_cap].view(recv.shape[0], recv.shape[1], -1)
+        if self.hier:
+            out = layer.combine(y, info, m_loc).to(x.dtype)
+        else:
+            out = layer.combine(y, info, topk_weights, m_loc).to(x.dtype)
         count_launch(EPMoEMLP, "rows", ids.shape[0])
         count_launch(EPMoEMLP, "assignments", topk_ids.numel())
         live = ids.shape[0] if al.valid_rows is None else live_tile_rows(
             al.valid_rows, cfg.block_m, TILE_M)
-        count_rows(EPMoEMLP, "live_rows", axis_index(self.ctx), live)
+        count_rows(EPMoEMLP, "live_rows", axis_index(self.ctx, self.pair), live)
         if config.debug_ep_overflow:
             ov = int(info.overflow)  # a host sync: debug runs only
             if ov > 0:

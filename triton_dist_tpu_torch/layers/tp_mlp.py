@@ -13,6 +13,7 @@ from triton_dist_tpu_torch.ops.allgather_gemm import AGGemmConfig, ag_gemm
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import GemmRSConfig, gemm_rs
 from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig, gelu
 from triton_dist_tpu_torch.ops.moe_mlp import tp_moe_mlp
+from triton_dist_tpu_torch.utils import group_of
 
 
 class TPMLP(torch.nn.Module):
@@ -20,12 +21,17 @@ class TPMLP(torch.nn.Module):
     w_down)``. x ``[m_loc, H]``, w_up ``[H, F / world]``, w_down ``[F /
     world, H]`` → ``[m_loc, H]``. The configs pick the projections' kernels
     as in the model: on a full mesh K6/K7, on a ring (or with spans) K15
-    and K16/K17; K1 at world 1."""
+    and K16/K17; K1 at world 1. ``axis`` (≙ the JAX layer's ``axis``: a
+    name, or a pair such as ``("dp", "tp")``) runs it over ``ctx``'s group
+    over those axes; over a pair the up-projection is K37 and the
+    down-projection the 2-D GEMM-RS (weights split over the flattened
+    pair); None is the whole of ``ctx``."""
 
     def __init__(self, ctx=None, activation: Callable[[torch.Tensor], torch.Tensor] = gelu,
-                 ag_config: AGGemmConfig | None = None, rs_config: GemmRSConfig | None = None):
+                 ag_config: AGGemmConfig | None = None, rs_config: GemmRSConfig | None = None,
+                 axis=None):
         super().__init__()
-        self.ctx, self.activation = ctx, activation
+        self.ctx, self.activation = group_of(ctx, axis), activation
         self.ag_config, self.rs_config = ag_config, rs_config
 
     def forward(self, x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
@@ -41,11 +47,15 @@ class TPMoEMLP(torch.nn.Module):
     mode is on (``ops/grads.py::tp_moe_mlp_grad``). x ``[m_loc, H]``, w_up
     ``[E, H, F / world]``, w_down ``[E, F / world, H]``, the local tokens'
     ``topk_ids`` and ``topk_weights`` ``[m_loc, topk]`` → ``[m_loc, H]``.
-    The activation is the tanh GELU, the one the kernels fuse."""
+    The activation is the tanh GELU, the one the kernels fuse. ``axis`` as
+    :class:`TPMLP`'s: over a pair ``overlap=True`` runs K9/K10 over the
+    flattened pair, as the JAX package's overlap kernels do, and
+    ``overlap=False`` K36, K8, K8 and the 2-D reduce-scatter."""
 
-    def __init__(self, ctx=None, gg_config: GroupGemmConfig | None = None, overlap: bool = True):
+    def __init__(self, ctx=None, gg_config: GroupGemmConfig | None = None, overlap: bool = True,
+                 axis=None):
         super().__init__()
-        self.ctx, self.gg_config, self.overlap = ctx, gg_config, overlap
+        self.ctx, self.gg_config, self.overlap = group_of(ctx, axis), gg_config, overlap
 
     def forward(self, x, w_up, w_down, topk_ids, topk_weights) -> torch.Tensor:
         mlp = grads.tp_moe_mlp_grad if torch.is_grad_enabled() else tp_moe_mlp

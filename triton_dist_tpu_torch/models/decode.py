@@ -46,9 +46,19 @@ pass dispatches each rank's slice of the rows to the experts' owners over
 the all-to-all (K27/K28) and gathers the combined slices (``:414-444``);
 the ranks hold whole experts (``shard_params`` with the config).
 
-Not ported yet: hierarchical EP serving, and the prefix cache's
-poisoned-page strike (the integrity tier's eviction of every reader of a
-poisoned shared page).
+The hierarchical deployment (``cfg.ep_outer`` set; ≙ ``:58-85``,
+``:407-445``, ``:487-571``): on a 2-D rank runtime with axes ``(ep_outer,
+axis)`` each outer group serves its own batch slice (``batch / n_o``
+sequences, DP attention over its cache shards: the caches hold the
+group's slice), the tensor and sequence parallelism run over the group of
+``axis``, the MoE layer's two-phase dispatch spans every rank, and the
+logits gather back over the outer axis to the replicated ``[b, vocab]``
+the host loop schedules against. The prompt shard of the bulk prefill is
+outer-major over both axes (``_prompt_shard``, ``:1503``). The prefix
+cache stays flat-only there, as in the JAX package.
+
+Not ported yet: the prefix cache's poisoned-page strike (the integrity
+tier's eviction of every reader of a poisoned shared page).
 """
 
 from __future__ import annotations
@@ -83,6 +93,53 @@ from triton_dist_tpu_torch.ops.flash_decode import (
 )
 from triton_dist_tpu_torch.ops.moe_utils import select_experts
 from triton_dist_tpu_torch.utils import axis_index, axis_size
+
+
+def _outer_of(cfg) -> str | None:
+    """The serving runtime's outer axis (≙ ``_outer_of``, ``:58``), or
+    None on the flat deployment."""
+    return getattr(cfg, "ep_outer", None)
+
+
+def _tp_of(ctx, cfg):
+    """The group a decode step's tensor and sequence parallelism run over:
+    the ``cfg.axis`` group of the runtime (the runtime itself when 1-D)."""
+    if ctx is None or not hasattr(ctx, "group"):
+        return ctx
+    return ctx.group(cfg.axis)
+
+
+def _outer_dims(cfg, ctx) -> tuple[int, int]:
+    """``(n_o, my_o)`` of the hierarchical deployment, ``(1, 0)`` when flat
+    (≙ ``_outer_dims``, ``:64``); inside ``ctx.run``."""
+    o = _outer_of(cfg)
+    if o is None:
+        return 1, 0
+    return axis_size(ctx, o), axis_index(ctx, o)
+
+
+def _mesh_outer(cfg, ctx) -> int:
+    """The outer axis' size of the serving runtime, host side (≙
+    ``_mesh_outer``, ``:73``): a hierarchical config needs a runtime with
+    that axis, and raises the reference's message without one."""
+    o = _outer_of(cfg)
+    if o is None:
+        return 1
+    shape = {"tp": 1} if ctx is None else dict(ctx.runtime.mesh_shape)
+    if o not in shape:
+        raise ValueError(
+            f"hierarchical EP serving (ep_outer={o!r}) needs a mesh with "
+            f"axes ({o!r}, {cfg.axis!r}); got {shape}"
+        )
+    return shape[o]
+
+
+def _group_cfg(cfg, n_o: int):
+    """The per-outer-group config: ``batch`` is the group's slice (≙
+    ``:523-530``); the flat config itself when ``n_o`` is 1."""
+    if cfg.batch % n_o:
+        raise ValueError(f"batch={cfg.batch} must divide over the {n_o} outer groups")
+    return dataclasses.replace(cfg, batch=cfg.batch // n_o) if n_o > 1 else cfg
 
 
 def _shard_of(s_max: int, n: int) -> int:
@@ -153,10 +210,17 @@ class KVCacheSpec:
 
     s_max: int
 
-    def init(self, cfg: TransformerConfig, device, n: int = 1) -> dict:
-        """One rank's cache at world `n`."""
+    def init(self, cfg: TransformerConfig, device, n: int = 1, n_o: int = 1) -> dict:
+        """One rank's cache at world `n` (the sequence-parallel group); with
+        `n_o` outer groups it holds its group's ``batch / n_o`` slots
+        (≙ ``:123-136``)."""
         s_shard = _shard_of(self.s_max, n)
-        shape = (cfg.n_layers, cfg.batch, cfg.n_kv_heads, s_shard, cfg.head_dim)
+        if cfg.batch % n_o:
+            raise ValueError(
+                f"batch={cfg.batch} must divide over the {n_o} outer "
+                f"(node) groups — each group owns a batch slice"
+            )
+        shape = (cfg.n_layers, cfg.batch // n_o, cfg.n_kv_heads, s_shard, cfg.head_dim)
         return dict(
             k=torch.zeros(shape, dtype=cfg.dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -224,28 +288,36 @@ class PagedKVCacheSpec:
     # so an idle slot's dummy decode write never lands on a reissued page
     extra_pages: int = 0
 
-    def _geometry(self, cfg, n: int = 1) -> tuple[int, int]:
+    def _geometry(self, cfg, n: int = 1, n_o: int = 1) -> tuple[int, int]:
         s_shard = _shard_of(self.s_max, n)
         if s_shard % self.page_size:
             raise ValueError(
                 f"page_size={self.page_size} must divide the per-PE "
                 f"sequence shard {s_shard}"
             )
+        if cfg.batch % n_o:
+            raise ValueError(
+                f"batch={cfg.batch} must divide over the {n_o} outer "
+                f"(node) groups — each group owns a batch slice"
+            )
         pages_per_seq = s_shard // self.page_size
-        return pages_per_seq, cfg.batch * pages_per_seq
+        return pages_per_seq, (cfg.batch // n_o) * pages_per_seq
 
-    def init(self, cfg: TransformerConfig, device, n: int = 1) -> dict:
-        """One rank's pool, table and allocator at world `n`."""
-        pps, n_pages = self._geometry(cfg, n)
+    def init(self, cfg: TransformerConfig, device, n: int = 1, n_o: int = 1) -> dict:
+        """One rank's pool, table and allocator at world `n` (the
+        sequence-parallel group); with `n_o` outer groups the pool covers
+        its group's ``batch / n_o`` slots (≙ ``:246-280``)."""
+        pps, n_pages = self._geometry(cfg, n, n_o)
+        b_att = cfg.batch // n_o
         shape = (cfg.n_layers, n_pages + self.extra_pages, cfg.n_kv_heads, self.page_size,
                  cfg.head_dim)
         if self.static_table:
             bt = (
-                torch.arange(cfg.batch, dtype=torch.int32, device=device)[:, None] * pps
+                torch.arange(b_att, dtype=torch.int32, device=device)[:, None] * pps
                 + torch.arange(pps, dtype=torch.int32, device=device)[None, :]
             )[None]
         else:
-            bt = torch.zeros((1, cfg.batch, pps), dtype=torch.int32, device=device)
+            bt = torch.zeros((1, b_att, pps), dtype=torch.int32, device=device)
         return dict(
             k=torch.zeros(shape, dtype=cfg.dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -347,18 +419,26 @@ def decode_step(
     replicated. Positions are host data, so which rows this rank owns is
     decided on the host and the step never waits on the card; what depends
     only on the positions (RoPE tables, cache-write indices, valid lengths)
-    is computed once for all layers."""
-    c = cfg
-    n, me = axis_size(ctx), axis_index(ctx)
+    is computed once for all layers.
+
+    Hierarchical (``cfg.ep_outer`` on a 2-D runtime; ≙ ``:503-571``): the
+    rank's outer group serves its batch slice (``tokens``, ``pos`` and the
+    logits stay global), its cache holds that slice."""
+    n_o, my_o = _outer_dims(cfg, ctx)
+    c = _group_cfg(cfg, n_o)
+    tp = _tp_of(ctx, cfg)
+    n, me = axis_size(tp), axis_index(tp)
     if c.n_kv_heads % n:
         raise ValueError(f"n_kv_heads={c.n_kv_heads} must split over {n} ranks")
     g = c.n_q_heads // c.n_kv_heads
     d = c.head_dim
     hq_loc = c.n_q_heads // n
     dev = tokens.device
-    pos_h = np.array(np.broadcast_to(np.asarray(pos, dtype=np.int64), (c.batch,)))
+    pos_h = np.array(np.broadcast_to(np.asarray(pos, dtype=np.int64), (cfg.batch,)))
+    rows_o = slice(my_o * c.batch, (my_o + 1) * c.batch)
+    pos_h = pos_h[rows_o]
     pos_b = torch.as_tensor(pos_h, device=dev)
-    tokens = tokens.long()
+    tokens = tokens[rows_o].long()
     x = params["embed"][tokens]                          # [b, H] replicated
     cache = spec.pre_step(c, cache, pos_b, me, n)
     plan = spec.step_plan(c, cache, pos_h, pos_b, me, n)
@@ -367,7 +447,7 @@ def decode_step(
         h = rmsnorm(x, p["attn_norm"], c.norm_eps)
         # head-complete qkv: rank-major concat == kv-group-major (the groups
         # are sharded contiguously)
-        qkv = _all_gather(ctx, h @ p["wqkv"].reshape(c.hidden, -1), dim=1)
+        qkv = _all_gather(tp, h @ p["wqkv"].reshape(c.hidden, -1), dim=1)
         qkv = qkv.reshape(c.batch, c.n_kv_heads, g + 2, d)
         q = qkv[:, :, :g, :].reshape(c.batch, 1, c.n_q_heads, d)
         k_new = qkv[:, :, g, :].reshape(c.batch, 1, c.n_kv_heads, d)
@@ -375,14 +455,18 @@ def decode_step(
         q = apply_rope(q, cos, sin)[:, 0]                # [b, hq, d]
         k_new = apply_rope(k_new, cos, sin)[:, 0]        # [b, h_kv, d]
         attn, cache = spec.update_and_attend(
-            c, cache, li, k_new, v_new, q, plan, fd_config, ctx
+            c, cache, li, k_new, v_new, q, plan, fd_config, tp
         )
         # row-parallel out-projection on the rank's head slice, then psum
         attn = attn[:, me * hq_loc:(me + 1) * hq_loc].reshape(c.batch, -1).to(x.dtype)
-        x = x + _psum(ctx, attn @ p["wo"])
-        x = _decode_mlp(c, x, p, ctx)
+        x = x + _psum(tp, attn @ p["wo"])
+        x = _decode_mlp(c, x, p, tp)
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    return _all_gather(ctx, x @ params["lm_head"], dim=1), cache
+    logits = _all_gather(tp, x @ params["lm_head"], dim=1)
+    if n_o > 1:
+        # back to the replicated [b, vocab]: the outer groups are batch-major
+        logits = ctx.group(_outer_of(cfg)).all_gather(logits, 0)
+    return logits, cache
 
 
 def _decode_mlp(c, x: torch.Tensor, p: dict, ctx) -> torch.Tensor:
@@ -403,14 +487,17 @@ def _decode_mlp(c, x: torch.Tensor, p: dict, ctx) -> torch.Tensor:
     h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
     if isinstance(c, EPMoETransformerConfig):  # before its base class, MoE
         # expert-parallel (``:414-444``): each rank dispatches its row slice
-        # to the expert owners, and the combined slices are gathered back
+        # to the expert owners, and the combined slices are gathered back;
+        # hierarchical, every rank of both axes is a source and a phase-1
+        # slab holds at most one copy of a row
         n, me = axis_size(ctx), axis_index(ctx)
         if m % n:
             raise ValueError(f"EP serving decode shards its rows over the ranks: rows={m} "
                              f"must divide evenly over {n} ranks")
         m_loc = m // n
-        y = ep_moe_apply(c, h[me * m_loc:(me + 1) * m_loc], p, c.ep_max_m or m_loc * c.topk,
-                         ctx=ctx)
+        hier = _outer_of(c) is not None
+        y = ep_moe_apply(c, h[me * m_loc:(me + 1) * m_loc], p,
+                         c.ep_max_m or (m_loc if hier else m_loc * c.topk), ctx=ctx)
         return x + _all_gather(ctx, y, dim=0).to(x.dtype)
     if not isinstance(c, MoETransformerConfig):
         gu = (h @ p["w_gate_up"].reshape(c.hidden, -1)).reshape(m, -1, 2)
@@ -455,14 +542,28 @@ def prefill_cache(
     the static table: each slot's page range is written whole. ``slot_mask
     [b] bool`` (host) restricts the write to chosen sequences; ``pick
     [b]`` chooses each sequence's logit row (default ``L-1``). Returns
-    ``(cache, last_logits [b, vocab])``, the logits replicated."""
+    ``(cache, last_logits [b, vocab])``, the logits replicated.
+
+    Hierarchical (``cfg.ep_outer``; ≙ ``:1503-1540``, ``:1566-1572``): the
+    prompt shard is outer-major over both axes (``_prompt_shard``), so outer
+    group ``o`` runs its sequences ``[o * b / n_o, (o+1) * b / n_o)`` and
+    writes them to its caches; `slot_mask` and `pick` stay global, and so
+    do the logits."""
     paged = isinstance(spec, PagedKVCacheSpec)
     if paged and not spec.static_table:
         raise ValueError(
             "paged prefill needs static_table=True (pre-assigned page "
             "ranges): the bump allocator cannot batch-claim a prompt"
         )
-    c = cfg
+    n_o, my_o = _outer_dims(cfg, ctx)
+    c = _group_cfg(cfg, n_o)
+    rows_o = slice(my_o * c.batch, (my_o + 1) * c.batch)
+    if slot_mask is not None:
+        slot_mask = np.asarray(slot_mask)[rows_o]
+    if pick is not None:
+        pick = pick[rows_o]
+    outer_ctx = ctx
+    ctx = _tp_of(ctx, cfg)
     n, me = axis_size(ctx), axis_index(ctx)
     b, L = c.batch, c.seq
     if (b * L) % n:
@@ -470,6 +571,8 @@ def prefill_cache(
     s_shard = _shard_of(s_max, n)
     dev = prompt_flat.device
     m_loc = b * L // n
+    # this rank's slice of the b-major prompt, outer-major over both axes
+    r = my_o * n + me
     if isinstance(c, EPMoETransformerConfig):
         model_cls = EPMoETransformer
     elif isinstance(c, MoETransformerConfig):
@@ -477,7 +580,7 @@ def prefill_cache(
     else:
         model_cls = TPTransformer
     model = model_cls(c, kv_sink=[], ctx=ctx)
-    logits = model(prompt_flat[me * m_loc:(me + 1) * m_loc].long(), params)  # [b*L, V/n]
+    logits = model(prompt_flat[r * m_loc:(r + 1) * m_loc].long(), params)  # [b*L, V/n]
     sel = torch.as_tensor(
         np.arange(b) if slot_mask is None else np.flatnonzero(np.asarray(slot_mask)),
         device=dev,
@@ -508,7 +611,10 @@ def prefill_cache(
         pick = torch.full((b,), L - 1, dtype=torch.int64, device=dev)
     rows = torch.arange(b, device=dev) * L + torch.clamp(pick.to(dev).long(), 0, L - 1)
     # the row is picked BEFORE the vocab gather: only [b, V] materializes
-    return cache, _all_gather(ctx, logits[rows], dim=1)
+    last = _all_gather(ctx, logits[rows], dim=1)
+    if n_o > 1:
+        last = outer_ctx.group(_outer_of(cfg)).all_gather(last, 0)
+    return cache, last
 
 
 def prefill_cache_ranged(
@@ -540,19 +646,25 @@ def prefill_cache_ranged(
     :func:`_decode_mlp`, so the MoE decoder rides the same path. The
     positions are host data: which rows this rank owns, where they land
     and the RoPE tables are computed once for all layers. A paged cache
-    needs the static table."""
-    c = cfg
+    needs the static table. Hierarchical configs run per outer group as in
+    :func:`decode_step` (≙ ``:1682-1700``); the logits stay global."""
+    n_o, my_o = _outer_dims(cfg, ctx)
+    c = _group_cfg(cfg, n_o)
+    outer_ctx = ctx
+    ctx = _tp_of(ctx, cfg)
     n, me = axis_size(ctx), axis_index(ctx)
     if c.n_kv_heads % n:
         raise ValueError(f"n_kv_heads={c.n_kv_heads} must split over {n} ranks")
+    if tokens.shape[0] != cfg.batch:
+        raise ValueError(f"tokens batch {tokens.shape[0]} != cfg.batch {cfg.batch}")
+    rows_o = slice(my_o * c.batch, (my_o + 1) * c.batch)
+    tokens = tokens[rows_o]
     b, S = tokens.shape
-    if b != c.batch:
-        raise ValueError(f"tokens batch {b} != cfg.batch {c.batch}")
     g, d = c.n_q_heads // c.n_kv_heads, c.head_dim
     hq_loc = c.n_q_heads // n
     m = b * S
     dev = tokens.device
-    pos0_h = np.array(np.broadcast_to(np.asarray(pos0, dtype=np.int64), (b,)))
+    pos0_h = np.array(np.broadcast_to(np.asarray(pos0, dtype=np.int64), (cfg.batch,)))[rows_o]
     pos_flat = torch.as_tensor((pos0_h[:, None] + np.arange(S)[None, :]).reshape(-1),
                                device=dev)
     plan = spec.range_plan(c, cache, pos0_h, S, me, n, dev)
@@ -576,7 +688,10 @@ def prefill_cache_ranged(
         x = x + _psum(ctx, attn.reshape(m, -1).to(x.dtype) @ p["wo"])
         x = _decode_mlp(c, x, p, ctx)
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    return _all_gather(ctx, x @ params["lm_head"], dim=1).reshape(b, S, -1), cache
+    logits = _all_gather(ctx, x @ params["lm_head"], dim=1).reshape(b, S, -1)
+    if n_o > 1:
+        logits = outer_ctx.group(_outer_of(cfg)).all_gather(logits, 0)
+    return logits, cache
 
 
 def _make_spec(s_max, page_size, fd_config, static_table, extra_pages=0):
@@ -599,6 +714,7 @@ class _Ranks:
 
     def __init__(self, cfg, params: dict, spec, device: torch.device, ctx=None):
         self.ctx = ctx
+        n_o = _mesh_outer(cfg, ctx)
         if ctx is None:
             self.devices = [device]
             self.params = [_to_device(params, device)]
@@ -609,9 +725,9 @@ class _Ranks:
                     f"was asked for {device}"
                 )
             self.devices = ctx.devices
-            self.params = shard_params(params, ctx.world, ctx.devices, cfg=cfg)
-        n = axis_size(ctx)
-        self.caches = [spec.init(cfg, d, n) for d in self.devices]
+            self.params = shard_params(params, cfg=cfg, ctx=ctx)
+        n = axis_size(ctx, None if ctx is None else cfg.axis)
+        self.caches = [spec.init(cfg, d, n, n_o) for d in self.devices]
 
     def run(self, step):
         """``step(params, cache, device) -> (cache, out)`` on every rank;
@@ -646,7 +762,9 @@ def generate(
     """Greedy generation: process the prompt (token by token, or in one
     bulk forward with ``prefill=True``), then decode ``n_steps`` new
     tokens. Returns ``[b, n_steps]`` int32 on `device`. ``ctx`` (a rank
-    runtime) serves at its world; ``None`` is world 1."""
+    runtime) serves at its world; ``None`` is world 1. A hierarchical
+    config (``cfg.ep_outer``) needs a runtime with both axes (≙
+    ``:635-650``)."""
     dev = resolve_device(device)
     prompt_h = np.asarray(prompt).astype(np.int64)
     b, prompt_len = prompt_h.shape
@@ -658,6 +776,14 @@ def generate(
             f"cache capacity s_max={s_max}"
         )
     spec = _make_spec(s_max, page_size, fd_config, static_table=prefill)
+    _mesh_outer(cfg, ctx)
+    n_all = axis_size(ctx)
+    if prefill and (b * prompt_len) % n_all:
+        raise ValueError(
+            f"prefill needs b*prompt_len={b * prompt_len} divisible "
+            f"over {n_all} PEs (the prompt shard is the model's "
+            f"token shard)"
+        )
     ranks = _Ranks(cfg, params, spec, dev, ctx)
 
     def step_fn(tok, i):
@@ -776,7 +902,9 @@ class ContinuousBatcher:
     the paged cache (K3 decode), otherwise the contiguous one (K2). With
     ``ctx`` (a rank runtime, ``parallel/mesh.py``) every device step runs
     on all its ranks over sharded weights and a sequence-sharded cache;
-    ``None`` is world 1.
+    ``None`` is world 1. A hierarchical config (``cfg.ep_outer``) serves
+    on a 2-D runtime with axes ``(ep_outer, cfg.axis)``: each outer group
+    its batch slice (≙ ``:823-851``).
 
     ``prefill_chunk_tokens`` (with ``prefill=True``): a prompt longer than
     this is admitted in bounded ranged chunks (:func:`prefill_cache_ranged`,
@@ -828,6 +956,13 @@ class ContinuousBatcher:
         self.cfg, self.s_max = cfg, s_max
         self.ctx = ctx
         self.world = axis_size(ctx)
+        if prefix_cache is not None and _mesh_outer(cfg, ctx) > 1:
+            raise ValueError(
+                "prefix_cache supports flat (1-axis) serving meshes: "
+                "a hierarchical deployment shards the page pool per "
+                "outer batch group, so one trie cannot name pages "
+                "across groups"
+            )
         self.prefill = prefill
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self._fd_config = fd_config

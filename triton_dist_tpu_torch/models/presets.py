@@ -4,14 +4,17 @@ configs. The MoE preset builds the tensor-parallel
 :class:`~triton_dist_tpu_torch.models.tp_transformer.MoETransformerConfig`;
 ``":ep"`` (or ``ep=True``) its expert-parallel deployment, an
 :class:`~triton_dist_tpu_torch.models.tp_transformer.EPMoETransformerConfig`
-(≙ ``:82-100``). ``":ep-hier"`` and ``ep_outer=`` (the hierarchical
-dispatch over an (outer, inner) mesh) build a config that needs the 2-D
-rank runtime (ROADMAP A5), which refuses. ``tp_check=`` holds the config to a TP degree
+(≙ ``:82-100``). ``":ep-hier"`` and ``ep_outer=`` build the hierarchical
+deployment (the two-phase dispatch over an ``(ep_outer, "tp")`` pair;
+``":ep-hier"`` names the outer axis ``"dcn"``), served on a 2-D rank
+runtime such as ``initialize_distributed(mesh_shape={"dcn": 2, "tp":
+2})``. ``tp_check=`` holds the config to a TP degree
 (:func:`validate_tp`, ≙ ``:45``).
 
     cfg = presets.preset("llama-3.1-8b", batch=8, n_layers=32)
     cfg = presets.preset("mixtral-8x7b", batch=8, n_layers=8)
     cfg = presets.preset("mixtral-8x7b:ep", batch=8, n_layers=8)
+    cfg = presets.preset("mixtral-8x7b:ep-hier", batch=8, n_layers=8)
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ def preset(
         name, ep = name[:-len(":ep")], True
     if name in _MOE:
         h, f, q, kv, d, vocab, n_exp, topk = _MOE[name]
-        if ep_outer is not None:  # the config refuses it (ROADMAP A5)
+        if ep_outer is not None:
             overrides = dict(overrides, ep_outer=ep_outer)
         cfg = (EPMoETransformerConfig if ep or ep_outer else MoETransformerConfig)(
             vocab=vocab, hidden=h, ffn=f, n_layers=n_layers or 1,

@@ -23,9 +23,16 @@ inference mode) the projections go through the differentiable ops of
 
 :meth:`TPTransformer.loss` is the vocab-parallel cross-entropy and
 :func:`train_step` one SGD step (``:547``) with the JAX package's gradient
-accounting; call both per rank inside ``ctx.run(..., grad=True)`` (world 1:
-directly). The data-parallel axis and optimizer transforms (``dp_axis``,
-``opt=``) are not ported.
+accounting, over the data-parallel axis ``dp_axis`` of a 2-D runtime too
+(``:595-625``); call both per rank inside ``ctx.run(..., grad=True)``
+(world 1: directly). Optimizer transforms (``opt=``) are not ported.
+
+On a 2-D runtime (``initialize_distributed(mesh_shape={"dp": 2, "tp":
+2})``) a model runs its tensor parallelism over the group of
+``cfg.axis`` (``"tp"``): pass the runtime, and the model takes its group.
+:func:`shard_params` with ``ctx=`` lays the weights out per global rank:
+the TP shards replicated over the other axes, an EP bank split over
+``(ep_outer, axis)`` outer-major.
 
 The MoE decoder (:class:`TPMoETransformer`, ``:352``) keeps the attention
 and replaces the MLP by a router and a tensor-parallel expert bank: a
@@ -37,8 +44,9 @@ fp8 e4m3 pools with per-(expert, out-column) scales for serving.
 The expert-parallel decoder (:class:`EPMoETransformer`, ``:447``) keeps the
 same parameter tree but holds whole experts a rank (:func:`shard_params`
 with the config splits the banks on the expert dim) and moves the tokens
-to them over the all-to-all (``layers/ep_moe_mlp.py``); flat EP only, and
-serving only.
+to them over the all-to-all (``layers/ep_moe_mlp.py``); with ``ep_outer``
+the hierarchical two-phase dispatch over ``(ep_outer, axis)``. Serving
+only.
 """
 
 from __future__ import annotations
@@ -68,7 +76,8 @@ from triton_dist_tpu_torch.utils import axis_index, axis_size
 class TransformerConfig:
     """LLaMA-class decoder config (``dtype`` is a torch dtype). ``ag_config``
     and ``rs_config`` (≙ ``:60-61``) reach every column and row projection,
-    forward and backward (None: the defaults)."""
+    forward and backward (None: the defaults). ``axis`` is the tensor-
+    parallel axis of the rank runtime (≙ ``:59``)."""
 
     vocab: int = 256
     hidden: int = 128
@@ -84,6 +93,7 @@ class TransformerConfig:
     dtype: torch.dtype = torch.float32
     ag_config: AGGemmConfig | None = None
     rs_config: GemmRSConfig | None = None
+    axis: str = "tp"
 
     @property
     def q_dim(self) -> int:
@@ -117,18 +127,16 @@ class EPMoETransformerConfig(MoETransformerConfig):
     ``ep_max_m`` is the per-(source, destination) slab capacity (None: the
     worst case, which never drops; an undersized one drops assignments,
     loudly under ``config.debug_ep_overflow``); ``ep_quant`` the one-byte
-    dispatch wire (serving only). ``ep_outer`` (the hierarchical dispatch)
-    needs the 2-D rank runtime and refuses."""
+    dispatch wire (serving only). ``ep_outer`` names the outer axis of the
+    hierarchical two-phase dispatch over ``(ep_outer, axis)``: the
+    attention stays tensor-parallel over ``axis``, each outer group serves
+    its own batch slice, and the experts spread over both axes."""
 
     ep_outer: str | None = None
     ep_max_m: int | None = None
     ep_quant: str | None = None
 
     def __post_init__(self):
-        if self.ep_outer is not None:
-            raise NotImplementedError(
-                f"ep_outer={self.ep_outer!r}: hierarchical EP needs the 2-D DistContext "
-                f"(ROADMAP A5)")
         _check_quant(self.ep_quant)
 
 
@@ -276,28 +284,57 @@ def _layer_split(p: dict, cfg) -> dict:
     return _moe_split(isinstance(cfg, EPMoETransformerConfig), "w_up_scale" in p)
 
 
-def shard_params(params: dict, world: int, devices=None, cfg=None) -> list[dict]:
+_EP_BANKS = ("w_up", "w_down", "w_up_scale", "w_down_scale")
+
+
+def split_axes(cfg, name: str) -> tuple[str, ...]:
+    """The runtime axes a split leaf `name` is split over (≙ the axes of
+    its ``PartitionSpec`` entry): an EP bank over ``(ep_outer, axis)``
+    outer-major (or ``axis`` when flat), everything else over ``axis``."""
+    axis = getattr(cfg, "axis", "tp")
+    if isinstance(cfg, EPMoETransformerConfig) and name in _EP_BANKS:
+        return (axis,) if cfg.ep_outer is None else (cfg.ep_outer, axis)
+    return (axis,)
+
+
+def shard_params(params: dict, world: int | None = None, devices=None, cfg=None, *,
+                 ctx=None) -> list[dict]:
     """Per-rank parameters (≙ ``specs_for`` + ``jax.device_put``): rank
     ``r`` gets slice ``r`` of each split weight, contiguous, on
     ``devices[r]`` (default: where the weight is). Replicated tensors are
     shared, not copied, between ranks on one device. The tree alone cannot
     tell the MoE layouts apart: pass the model's `cfg` so an
     :class:`EPMoETransformerConfig` gets its banks split on the expert dim
-    (without it an MoE tree takes the tensor-parallel F split)."""
+    (without it an MoE tree takes the tensor-parallel F split).
+
+    With ``ctx`` (a rank runtime, 1-D or 2-D) the list has one entry a
+    global rank, on ``ctx.devices``: a leaf split over axes ``A``
+    (:func:`split_axes`) gets the slice of the rank's flattened index on
+    ``A`` (a TP shard is then replicated over the other axes)."""
+    if ctx is not None:
+        ctx = ctx.runtime
+        world, devices = ctx.world, devices or ctx.devices
     devices = devices or [None] * world
 
-    def part(x, dim, r):
+    def where(name, r):
+        if ctx is None:
+            return r, world
+        axes = split_axes(cfg, name)
+        return ctx.index_of(r, axes), ctx.axis_size(axes)
+
+    def part(x, dim, r, name):
         dev = devices[r] or x.device
         if dim is None:
             return x.to(dev)
-        if x.shape[dim] % world:
-            raise ValueError(f"shape {tuple(x.shape)} dim {dim} does not split over {world}")
-        return x.chunk(world, dim)[r].to(dev).contiguous()
+        i, count = where(name, r)
+        if x.shape[dim] % count:
+            raise ValueError(f"shape {tuple(x.shape)} dim {dim} does not split over {count}")
+        return x.chunk(count, dim)[i].to(dev).contiguous()
 
     def rank(r):
         return {
-            k: [{n: part(w, _layer_split(p, cfg)[n], r) for n, w in p.items()} for p in v]
-            if k == "layers" else part(v, _TOP_SPLIT[k], r)
+            k: [{n: part(w, _layer_split(p, cfg)[n], r, n) for n, w in p.items()} for p in v]
+            if k == "layers" else part(v, _TOP_SPLIT[k], r, k)
             for k, v in params.items()
         }
 
@@ -354,13 +391,19 @@ class TPTransformer:
     """Decoder-only forward of one rank (call inside ``ctx.run``; ``ctx``
     None is world 1) over its token shard of the flattened stream
     (``cfg.batch * cfg.seq`` tokens, batch-major, ``m_loc`` of them a
-    rank). ``kv_sink``, when a list, collects each layer's post-RoPE ``(k,
+    rank). ``ctx`` may be a 2-D runtime: the model runs over its group of
+    ``cfg.axis``. ``kv_sink``, when a list, collects each layer's post-RoPE ``(k,
     v)`` ``[b, s, h_kv / world, d]`` (the rank's heads) for the prefill
     cache write (``models/decode.prefill_cache``)."""
 
     cfg: TransformerConfig
     kv_sink: list | None = None
     ctx: object = None
+
+    def __post_init__(self):
+        # a runtime (or any group of it) runs the model over cfg.axis
+        if self.ctx is not None and hasattr(self.ctx, "group"):
+            self.ctx = self.ctx.group(self.cfg.axis)
 
     def _col(self, x, w):
         c = self.cfg
@@ -472,20 +515,26 @@ class EPMoETransformer(TPMoETransformer):
     """MoE decoder of one rank with expert-parallel MLPs (≙
     ``EPMoETransformer``, ``:447``): router → :class:`~triton_dist_tpu_torch.
     layers.ep_moe_mlp.EPMoEMLP` (the dispatch all-to-all K27/K28, the local
-    grouped GEMMs K8 or K24, the combine). Parameters from
+    grouped GEMMs K8 or K24, the combine); with ``cfg.ep_outer`` the
+    two-phase dispatch over ``(ep_outer, axis)``, whose groups the model's
+    ``ctx`` (the ``axis`` group of a 2-D runtime) reaches. Parameters from
     :func:`shard_params` with ``cfg``: each rank holds ``[E / world, H, F]``
-    whole experts. Serving only here: training an EP model is queued after
-    ROADMAP A5."""
+    whole experts. Serving only here: training an EP model is ROADMAP
+    A12."""
 
     def _mlp(self, x: torch.Tensor, p: dict) -> torch.Tensor:
         if torch.is_grad_enabled() and x.requires_grad:
             raise NotImplementedError(
                 "training an expert-parallel model is not ported yet (ROADMAP A12, EP "
-                "training, after A5); serve it, or train the tensor-parallel MoE model")
+                "training, with A5's training on the 2-D runtime); serve it, or train the "
+                "tensor-parallel MoE model")
         c = self.cfg
         h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
-        # flat dispatch can send all of a rank's topk assignments to one rank
-        return ep_moe_apply(c, h, p, c.ep_max_m or x.shape[0] * c.topk, ctx=self.ctx)
+        # flat dispatch can send all of a rank's topk assignments to one
+        # rank; the hierarchical phase 1 sends at most one copy per (token,
+        # destination group)
+        max_m = c.ep_max_m or (x.shape[0] if c.ep_outer is not None else x.shape[0] * c.topk)
+        return ep_moe_apply(c, h, p, max_m, ctx=self.ctx)
 
 
 def ep_moe_apply(cfg: EPMoETransformerConfig, h: torch.Tensor, p: dict, max_m: int,
@@ -498,7 +547,9 @@ def ep_moe_apply(cfg: EPMoETransformerConfig, h: torch.Tensor, p: dict, max_m: i
     from triton_dist_tpu_torch.layers.ep_moe_mlp import EPMoEMLP
 
     tw, ids = select_experts(h.float() @ p["router"].float(), cfg.topk)
-    moe = EPMoEMLP(cfg.n_experts, cfg.topk, max_m, ctx, gg_config=cfg.gg_config,
+    hier = cfg.ep_outer is not None
+    moe = EPMoEMLP(cfg.n_experts, cfg.topk, max_m, ctx, outer=cfg.ep_outer,
+                   inner=cfg.axis if hier else None, gg_config=cfg.gg_config,
                    quant=cfg.ep_quant)
     scales = ({"w_up_scale": p["w_up_scale"], "w_down_scale": p["w_down_scale"]}
               if "w_up_scale" in p else {})
@@ -527,26 +578,36 @@ def _trainable(p: torch.Tensor) -> bool:
     return p.is_floating_point() and p.dtype != FP8_DTYPE
 
 
-def _loss_and_grads(model, params, tokens, targets):
+def _loss_and_grads(model, params, tokens, targets, dp=None):
     """One rank's loss and the gradients ``train_step`` applies (≙ its
-    ``value_and_grad`` and ``fix``), a list in the order of
+    ``value_and_grad`` and ``fix``, ``:595-613``), a list in the order of
     ``_tree_leaves(params)``: each rank differentiates its copy of the
-    loss, so every gradient comes back scaled by the world; a replicated
-    parameter's gradient covers only this rank's tokens and is psum-ed over
-    the ranks; then every gradient is divided by the world."""
+    loss, so every gradient comes back scaled by the tp world; a leaf not
+    split over the tp axis covers only this rank's tokens and is psum-ed
+    over the tp group; with a dp group `dp` the loss is its mean over dp, a
+    leaf split over the dp axis too (an EP bank over (dp, tp)) is divided
+    by the dp world (its gradient already sums every dp group's share) and
+    any other leaf is averaged over dp; then every gradient is divided by
+    the tp world."""
     if not torch.is_grad_enabled() or torch.is_inference_mode_enabled():
         raise RuntimeError("train_step takes gradients: at world > 1 call it inside "
                            "ctx.run(..., grad=True), not in an inference-mode run")
     ctx = model.ctx
     world = axis_size(ctx)
+    n_dp = axis_size(dp)
     work = _tree_map(lambda p: p.detach().requires_grad_(_trainable(p)), params)
     leaves = _tree_leaves(work)
     live = [p for p in leaves if p.requires_grad]
     loss = model.loss(tokens, targets, work)
     flat = dict(zip(map(id, live), torch.autograd.grad(loss, live, allow_unused=True)))
     flat = [flat.pop(id(p), None) for p in leaves]
-    splits = _tree_leaves(_tree_map(lambda _, split: split, params,
-                                    specs_for(model.cfg, params)))
+    loss = loss.detach()
+    if n_dp > 1:
+        loss = dp.psum(loss) / n_dp
+    cfg = model.cfg
+    splits = _tree_leaves(_tree_map(lambda _, split: split, params, specs_for(cfg, params)))
+    names = _tree_leaves(_tree_names(params))
+    dp_name = dp.axis_names[0] if n_dp > 1 else None
     for i, (g, split) in enumerate(zip(flat, splits)):
         if not _trainable(leaves[i]):
             flat[i] = torch.zeros((), device=leaves[i].device)  # a pool's zero cotangent
@@ -554,37 +615,71 @@ def _loss_and_grads(model, params, tokens, targets):
         g = torch.zeros_like(leaves[i]) if g is None else g
         if split is None and world > 1:
             g = ctx.psum(g)
+        if n_dp > 1:
+            if split is not None and dp_name in split_axes(cfg, names[i]):
+                g = g / n_dp
+            else:
+                g = dp.psum(g) / n_dp
         flat[i] = g / world
-    return loss.detach(), flat
+    return loss, flat
+
+
+def _tree_names(tree, name=None):
+    """Each leaf's key (a layer leaf's name in its layer dict)."""
+    if isinstance(tree, dict):
+        return {k: _tree_names(v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_names(v, name) for v in tree]
+    return name
+
+
+def _dp_group(model, dp_axis):
+    """The data-parallel group of `dp_axis` on the model's runtime; a
+    runtime without that axis raises naming it."""
+    ctx = model.ctx
+    try:
+        if ctx is None or not hasattr(ctx, "group"):
+            raise ValueError("no rank runtime")
+        return ctx.group(dp_axis)
+    except ValueError as err:
+        raise ValueError(
+            f"train_step dp_axis={dp_axis!r}: the rank runtime has no axis {dp_axis!r} "
+            f"({err}); pass dp_axis=None on a pure-TP runtime, or build one with "
+            f"initialize_distributed(mesh_shape={{{dp_axis!r}: n, 'tp': m}})") from None
 
 
 def train_step(
     model: TPTransformer, params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-    lr: float = 1e-2, dp_axis=None, opt=None, opt_state=None, skip_nonfinite: bool = False,
+    lr: float = 1e-2, dp_axis: str | None = "dp", opt=None, opt_state=None,
+    skip_nonfinite: bool = False,
 ):
-    """One SGD step of one rank (≙ ``train_step``, ``:547``, on a pure-TP
-    mesh): call inside ``ctx.run(..., grad=True)`` with the rank's
-    parameter shard (``shard_params``) and token shard, the world being
-    ``model.ctx``; at world 1 call it directly. Returns ``(params, loss)``
-    — new tensors, the inputs are not changed — and with
-    ``skip_nonfinite`` also ``skipped`` (int32, 1 when the step was
-    dropped).
+    """One SGD step of one rank (≙ ``train_step``, ``:547``): call inside
+    ``ctx.run(..., grad=True)`` with the rank's parameter shard
+    (``shard_params``) and token shard; at world 1 call it directly.
+    Returns ``(params, loss)`` — new tensors, the inputs are not changed —
+    and with ``skip_nonfinite`` also ``skipped`` (int32, 1 when the step
+    was dropped).
 
-    Gradient accounting as in the JAX package (:func:`_loss_and_grads`).
-    ``skip_nonfinite`` gates the update on ``grads_all_finite`` over the
-    gradients and the loss on every rank: a dropped step returns the
-    parameters bit for bit. A ragged ``gg_config`` trains on the ragged
-    kernels (K29-K31 forward, K29 and K34 backward)."""
-    if dp_axis is not None:
-        raise NotImplementedError(
-            "train_step dp_axis: the data-parallel axis (a 2-D DistContext) is not "
-            "ported yet (ROADMAP A5, dp axis)")
+    ``dp_axis`` (default ``"dp"``, as the reference's) is the data-parallel
+    axis of a 2-D runtime (``initialize_distributed(mesh_shape={"dp": 2,
+    "tp": 2})``, the model built on it): the tokens are the rank's shard
+    over ``(dp, tp)`` and the targets its dp group's, the loss is averaged
+    over dp and the gradients follow the JAX package's accounting
+    (:func:`_loss_and_grads`). Pass ``dp_axis=None`` on a pure-TP runtime
+    and at world 1; a runtime without the axis raises a ``ValueError``
+    naming it. ``skip_nonfinite`` gates the update on ``grads_all_finite``
+    over the gradients and the loss on every rank of the tp and dp groups:
+    a dropped step returns the parameters bit for bit. A ragged
+    ``gg_config`` trains on the ragged kernels (K29-K31 forward, K29 and
+    K34 backward)."""
     if opt is not None or opt_state is not None:
         raise NotImplementedError(
             "train_step opt=: optimizer transforms and their state are not ported yet "
-            "(ROADMAP A5, optimizers); the port trains with SGD at `lr`")
-    loss, flat = _loss_and_grads(model, params, tokens, targets)
-    ok = grads.grads_all_finite((flat, loss), model.ctx) if skip_nonfinite else None
+            "(ROADMAP A5, optimizers: training on the 2-D runtime); the port trains with "
+            "SGD at `lr`")
+    dp = None if dp_axis is None else _dp_group(model, dp_axis)
+    loss, flat = _loss_and_grads(model, params, tokens, targets, dp)
+    ok = grads.grads_all_finite((flat, loss), model.ctx, dp) if skip_nonfinite else None
     order = iter(range(len(flat)))
 
     def update(p):

@@ -19,6 +19,10 @@ chunk-major, with a flag each (K28). ``puts_per_slab`` is the least number
 of pieces a chunk moves in; the kernel also cuts a chunk into pieces of at
 most 256 KiB so that every slab rides several blocks.
 
+Over a group of a 2-D runtime (``ctx.group("tp")``, the two phases of
+the hierarchical EP dispatch) the same kernels run over the group's
+members, with the group's own workspace, flags and epochs.
+
 The plain version exchanges the slabs over the runtime's host collective
 (``DistContext.all_to_all``, the twin of XLA's ``all_to_all``); the tests
 hold the kernels to it bit for bit (a copy). Unlike the JAX entry, which

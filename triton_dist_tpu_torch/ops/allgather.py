@@ -22,6 +22,19 @@ step moves in spans (``chunk_schedule(m, chunks)``, quantum 1, as
 ``:520`` calls it), and span j goes on as soon as span j of the previous
 step has landed. Each landed shard is copied to ``out``.
 
+Over two or more axes (``axis=("dp", "tp")``, or a ``ctx`` that is a group
+over several axes; ≙ the tuple dispatch at ``:459-498``): the fused 2-D
+ring over the two innermost axes (``all_gather_2d``, ``:372-432``), then
+staged 1-D gathers outward, the outermost last, so shard ``(o, i)`` lands
+at rows ``(o * n_i + i) * m`` as ``jax.lax.all_gather(x, axes,
+tiled=True)`` lays it out. The 2-D ring ``_ring_2d_kernel`` (``:284``) →
+K36 (``csrc/ring.cu``): after an entry barrier over the pair, an inner
+ring gathers this rank's outer row, and every chunk goes on down the
+outer ring the moment it lands (module notes of ``csrc/ring.cu``). A pair
+with one outer or one inner rank is the 1-D gather over the other axis
+(``:404-407``). The port has no DCN axis (every axis rides the card), so
+the reference's DCN peel (``_is_dcn``) is left out.
+
 A gather is a copy, so the plain version is also the golden: every kernel
 is held to it bit for bit. On NVLink — or with every rank on one card —
 all ranks reach all ranks, so a full mesh pushes directly and no TPU
@@ -40,12 +53,14 @@ from triton_dist_tpu_torch.ops.common import (
     dist_launch,
     launch_barrier,
     max_consumer_blocks,
+    pair_dims,
+    ring_2d_launch,
     ring_launch,
     stream_ptr,
     symmetric_flags,
 )
 from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, group_of
 
 METHODS = ("full_mesh_push", "ring_1d", "ring_bidir")
 
@@ -74,12 +89,28 @@ def get_auto_all_gather_method(chunk_bytes: int, n_pes: int, full_mesh: bool = T
 
 def all_gather(
     x: torch.Tensor, *, ctx=None, method: str = "auto", chunks_per_shard: int = 1,
+    axis=None,
 ) -> torch.Tensor:
     """Gather the ranks' shards (call inside ``ctx.run``): `x` is this
     rank's ``(m, ...)``; returns ``(world * m, ...)`` with rank i's shard
     at rows ``[i*m, (i+1)*m)``. ``chunks_per_shard > 1`` moves every ring
     step in that many spans, each forwarded as soon as it lands (ring
-    methods only; the full-mesh push ignores it, as in the JAX package)."""
+    methods only; the full-mesh push ignores it, as in the JAX package).
+    `axis` (a name or a tuple) gathers over ``ctx``'s group over it; over
+    several axes (or a ``ctx`` that spans several) the 2-D hierarchy runs,
+    which takes only ``method="auto"``."""
+    ctx = group_of(ctx, axis)
+    if ctx is not None and len(ctx.axis_names) > 1:
+        if method != "auto":
+            raise ValueError(
+                f"multi-axis all_gather always uses the ring hierarchy; got "
+                f"method={method!r} (only 'auto' is valid with >1 axis)"
+            )
+        axes = ctx.axis_names
+        out = all_gather_2d(x, ctx=ctx.group(axes[-2:]))
+        for a in reversed(axes[:-2]):
+            out = all_gather(out, ctx=ctx.group(a), chunks_per_shard=chunks_per_shard)
+        return out
     n = axis_size(ctx)
     if n == 1:
         return x
@@ -196,3 +227,56 @@ _RING_WRAPPERS = {
     ("ring_bidir", False): _all_gather_ring_bidir,
     ("ring_bidir", True): _all_gather_ring_bidir_chunked,
 }
+
+
+def all_gather_2d(x: torch.Tensor, *, ctx=None, axes=None) -> torch.Tensor:
+    """The hierarchical gather over a pair of axes ``(outer, inner)`` (≙
+    ``all_gather_2d``, ``:372``; call inside ``ctx.run``): `ctx` is the pair
+    group, or a runtime and ``axes`` the pair. Returns ``(n_o * n_i * m,
+    ...)`` with the shard of rank (o, i) at rows ``(o * n_i + i) * m``. On
+    the card K36, on the CPU the pair group's host gather."""
+    pair = group_of(ctx, axes)
+    if pair is None or len(pair.axis_names) != 2:
+        raise ValueError("all_gather_2d gathers over a pair of axes (outer, inner)")
+    outer, inner = pair.axis_names
+    n_o, n_i = pair_dims(pair)
+    if n_o == 1:
+        return all_gather(x, ctx=pair.group(inner))
+    if n_i == 1:
+        return all_gather(x, ctx=pair.group(outer))
+    orig_shape = x.shape
+    if x.ndim == 1:
+        x = x.reshape(x.shape[0], 1)
+    if x.device.type == "cpu":
+        out = _all_gather_xla(x, pair)
+    else:
+        out = _all_gather_ring_2d(x, pair)
+    if len(orig_shape) == 1:
+        out = out.reshape(-1)
+    return out
+
+
+def _all_gather_ring_2d(x: torch.Tensor, pair) -> torch.Tensor:
+    """K36 (``csrc/ring.cu``): every allocation, then the pair's ranks
+    meet, then only the launch, then they meet again."""
+    x = x.contiguous()
+    n, me = pair.world, pair.rank
+    m = x.shape[0]
+    row_bytes = x[0].numel() * x.element_size()
+    ws = pair.symmetric("all_gather_2d.ws", n * m * row_bytes)
+    out = torch.empty((n * m, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    ring = ring_2d_launch(pair, "all_gather_2d")
+    pair.rendezvous()
+    rc = ring.lib.tdt_ring_all_gather_2d(
+        x.data_ptr(), out.data_ptr(), ws.peer_addr(me), ws.peer_addr(ring.right),
+        ws.peer_addr(ring.down), row_bytes, m, ring.n_o, ring.n_i, me, *ring.flags,
+        ring.launch.epoch, max_consumer_blocks(pair), ring.launch.jitter, *ring.launch.wait,
+        stream_ptr(torch.cuda.current_stream()),
+    )
+    _build.check(ring.lib, rc, "all_gather_2d")
+    count_launch(_all_gather_ring_2d)
+    pair.rendezvous()  # every rank's kernel is issued before any rank goes on
+    return out
+
+
+_all_gather_ring_2d.launches = 0

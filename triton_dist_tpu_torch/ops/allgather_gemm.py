@@ -31,6 +31,20 @@ neighbour's span of the step before. With one span it is
 ``_ag_gemm_kernel``'s own ring schedule. The spans are
 ``ops/common.py::ring_spans``, the JAX package's. On the CPU the ring runs
 its plain version over the rank threads, span by span in arrival order.
+
+Over a pair of axes (``axis=("dp", "tp")``, or a ``ctx`` that is a group
+over two axes; ≙ the tuple dispatch at ``:365-423`` and ``_ag_gemm_2d`` at
+``:247-290``): ``_ag_gemm_2d_kernel`` (``:179``) → K37 (``csrc/ring.cu``),
+K36's forwarding of each chunk (an inner ring over this rank's outer row,
+every chunk on down the outer ring as it lands) into the pair's gather
+workspace, with K15's GEMM tiles on each chunk after its forwards are
+issued, in that 2-D arrival order. Rows are in the flattened group's
+order ``(o * n_i + i) * m_loc``, so every output tile runs K15's K loop
+over the same rows. Its plain version gathers on the host and multiplies
+chunk by chunk in the same order. A pair with one outer or one inner rank
+is the 1-D op over the other axis. The port has no DCN axis (every axis
+rides the card), so the reference's DCN branches (``:371-411``) are left
+out; more than two axes raise as the reference's assert does.
 """
 
 from __future__ import annotations
@@ -46,6 +60,8 @@ from triton_dist_tpu_torch.ops.common import (
     gemm_only,
     launch_barrier,
     max_consumer_blocks,
+    pair_dims,
+    ring_2d_launch,
     ring_launch,
     ring_spans,
     stream_ptr,
@@ -53,7 +69,7 @@ from triton_dist_tpu_torch.ops.common import (
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, _matmul_plain, check_operands
 from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, group_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,18 +126,26 @@ def ag_gemm(
     config: AGGemmConfig | None = None,
     gather_output: bool = False,
     out_dtype: torch.dtype | None = None,
+    axis=None,
 ):
     """a ``[m_loc, K]`` token shard, b ``[K, n_loc]`` column shard →
     ``[world * m_loc, n_loc]`` (plus the gathered ``[world * m_loc, K]`` A
     if `gather_output`). Call inside ``ctx.run``; ``ctx=None`` is world 1,
-    where the gather is the identity and this is :func:`gemm_only`."""
+    where the gather is the identity and this is :func:`gemm_only`.
+    `axis` (a name or a pair) runs over ``ctx``'s group over it; over a
+    pair, K37."""
     cfg = config or AGGemmConfig()
     out_dtype = out_dtype or a.dtype
+    ctx = group_of(ctx, axis)
     if axis_size(ctx) == 1:
         out = gemm_only(a, b, out_dtype=out_dtype)
         return (out, a) if gather_output else out
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"ag_gemm shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    if len(ctx.axis_names) > 1:
+        if len(ctx.axis_names) > 2:
+            raise ValueError(f"at most 2 axes supported, got {ctx.axis_names}")
+        return _ag_gemm_2d(a, b, ctx, gather_output, out_dtype)
     spans = ring_spans(a.shape[0], cfg.chunks_per_shard, cfg.block_m)
     ring = len(spans) > 1 or not ctx.full_mesh
     if a.device.type == "cpu":
@@ -230,3 +254,71 @@ def _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans):
 
 
 _ag_gemm_ring.launches = 0
+
+
+def _ag_gemm_2d(a, b, pair, gather_output, out_dtype):
+    """The pair dispatch (≙ ``_ag_gemm_2d``, ``:247``)."""
+    outer, inner = pair.axis_names
+    n_o, n_i = pair_dims(pair)
+    if n_o == 1 or n_i == 1:
+        return ag_gemm(a, b, ctx=pair.group(inner if n_o == 1 else outer),
+                       gather_output=gather_output, out_dtype=out_dtype)
+    if a.device.type == "cpu":
+        return _ag_gemm_2d_plain(a, b, pair, gather_output, out_dtype)
+    return _ag_gemm_ring_2d(a, b, pair, gather_output, out_dtype)
+
+
+def arrival_order_2d(me: int, n_o: int, n_i: int) -> list[int]:
+    """The chunks of a pair's gather in K36/K37's arrival order at rank
+    `me` = (me_o, me_i): this rank's outer row by inner steps ``(me_o, me_i
+    - s)``, then each outer round t's row ``(me_o - t, me_i - s)``."""
+    me_o, me_i = divmod(me, n_i)
+    return [((me_o - t) % n_o) * n_i + (me_i - s) % n_i for t in range(n_o) for s in range(n_i)]
+
+
+def _ag_gemm_2d_plain(a, b, pair, gather_output, out_dtype):
+    """Plain version of K37: gather on the pair's host rendezvous, then
+    each chunk's rows in the 2-D arrival order, f32 products cast once."""
+    count_call(_ag_gemm_2d_plain)
+    n_o, n_i = pair_dims(pair)
+    m_loc = a.shape[0]
+    ag = pair.all_gather(a, 0)
+    out = torch.empty((pair.world * m_loc, b.shape[1]), dtype=out_dtype, device=a.device)
+    bf = b.float()
+    for c in arrival_order_2d(pair.rank, n_o, n_i):
+        lo = c * m_loc
+        out[lo:lo + m_loc] = (ag[lo:lo + m_loc].float() @ bf).to(out_dtype)
+    return (out, ag) if gather_output else out
+
+
+_ag_gemm_2d_plain.calls = 0
+
+
+def _ag_gemm_ring_2d(a, b, pair, gather_output, out_dtype):
+    """K37 (``csrc/ring.cu``): every allocation, then the pair's ranks
+    meet, then only the launch, then they meet again."""
+    check_operands(a, b, out_dtype, "ag_gemm")
+    a, b = a.contiguous(), b.contiguous()
+    n, me = pair.world, pair.rank
+    m_loc, k = a.shape
+    n_loc = b.shape[1]
+    ws = pair.symmetric("ag_gemm_2d.ws", n * m_loc * k * a.element_size())
+    out = torch.empty((n * m_loc, n_loc), dtype=out_dtype, device=a.device)
+    ring = ring_2d_launch(pair, "ag_gemm_2d")
+    pair.rendezvous()
+    rc = ring.lib.tdt_ring_ag_gemm_2d(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.peer_addr(me), ws.peer_addr(ring.right),
+        ws.peer_addr(ring.down), m_loc, n_loc, k, DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype],
+        ring.n_o, ring.n_i, me, *ring.flags, ring.launch.epoch, max_consumer_blocks(pair),
+        ring.launch.jitter, *ring.launch.wait, stream_ptr(torch.cuda.current_stream()),
+    )
+    _build.check(ring.lib, rc, "ag_gemm_2d")
+    count_launch(_ag_gemm_ring_2d)
+    pair.rendezvous()  # every rank's kernel is issued before any rank goes on
+    if gather_output:
+        # the workspace is the next call's landing buffer: hand out a copy
+        return out, ws.view(me, (n * m_loc, k), a.dtype).clone()
+    return out
+
+
+_ag_gemm_ring_2d.launches = 0

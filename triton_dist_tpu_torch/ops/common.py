@@ -63,6 +63,8 @@ RING_PROTOTYPES = {
     + _LAUNCH + _WAIT,
     "tdt_ring_all_gather": [_P] * 5 + [_LL, _I] + _SPANS + [_I, _I, _I] + _RING + _RING
     + _LAUNCH + _WAIT,
+    "tdt_ring_all_gather_2d": [_P] * 5 + [_LL] + [_I] * 4 + [_P] * 8 + _LAUNCH + _WAIT,
+    "tdt_ring_ag_gemm_2d": [_P] * 6 + [_I] * 8 + [_P] * 8 + _LAUNCH + _WAIT,
 }
 
 
@@ -122,9 +124,11 @@ def max_consumer_blocks(ctx) -> int:
     this card each get floor(SMs / ranks) - 2 one-block-per-SM blocks, so
     every rank's spinning blocks fit on the card at once and two SMs a
     rank stay free for the small spinning kernels (barriers) and the
-    peers' producers."""
+    peers' producers. The ranks counted are every rank of the runtime on
+    the card, not only `ctx`'s group: two groups of one 2-D runtime spin
+    on the card at once."""
     dev = ctx.rank_device
-    share = sum(1 for d in ctx.devices if d == dev)
+    share = sum(1 for d in getattr(ctx, "runtime", ctx).devices if d == dev)
     return max(1, _sm_count(dev.index) // share - 2)
 
 
@@ -133,7 +137,8 @@ def stream_ptr(stream) -> ctypes.c_void_p:
 
 
 def symmetric_flags(ctx, name: str):
-    """An int32[world] flag set of every rank (allocated zeroed once)."""
+    """An int32[world] flag set of every rank (allocated zeroed once). Over
+    a group (``ctx.group(axis)``) the set is the group's own."""
     return ctx.symmetric(name, 4 * ctx.world)
 
 
@@ -390,6 +395,55 @@ class RingLaunch:
     flags_left: tuple
     spans: ctypes.Array
     n_spans: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Ring2DLaunch:
+    """One rank's side of one launch of a 2-D ring kernel (K36, K37) over a
+    pair group ``(outer, inner)``: the launch, the grid of the pair, this
+    rank's group rank, its right inner neighbour and its outer neighbour
+    below (whose workspaces it stores into), and the flag pointers in the
+    order the kernels take them: the entry set's peer table on this rank's
+    device and this rank's entry set, then the inner and the outer (step,
+    chunk) sets (this rank's, the neighbour's it raises, its counters)."""
+
+    launch: Launch
+    lib: ctypes.CDLL
+    n_o: int
+    n_i: int
+    me: int
+    right: int
+    down: int
+    flags: tuple
+
+
+def pair_dims(ctx) -> tuple[int, int]:
+    """``(n_o, n_i)`` of a group over two axes (outer, inner)."""
+    outer, inner = ctx.axis_names
+    return ctx.axis_size(outer), ctx.axis_size(inner)
+
+
+def ring_2d_launch(ctx, family: str) -> Ring2DLaunch:
+    """Open one launch of the 2-D ring kernel `family` over the pair group
+    `ctx` (inside ``ctx.run``). Every flag set lives in the group's own
+    symmetric memory, so two pair groups of one runtime never share a
+    flag or an epoch."""
+    n_o, n_i = pair_dims(ctx)
+    n, me = ctx.world, ctx.rank
+    me_o, me_i = divmod(me, n_i)
+    right = me_o * n_i + (me_i + 1) % n_i
+    down = ((me_o + 1) % n_o) * n_i + me_i
+    entry = symmetric_flags(ctx, f"{family}.entry")
+    slots = 4 * n * MAX_SPANS
+    sets = [ctx.symmetric(f"{family}.{name}", slots)
+            for name in ("inner", "inner_count", "outer", "outer_count")]
+    inner, inner_count, outer, outer_count = sets
+    return Ring2DLaunch(
+        dist_launch(ctx, family), ring_lib(), n_o, n_i, me, right, down,
+        (entry.table[me].data_ptr(), entry.peer_addr(me),
+         inner.peer_addr(me), inner.peer_addr(right), inner_count.peer_addr(me),
+         outer.peer_addr(me), outer.peer_addr(down), outer_count.peer_addr(me)),
+    )
 
 
 def ring_launch(ctx, family: str, spans, directions: int = 1) -> RingLaunch:

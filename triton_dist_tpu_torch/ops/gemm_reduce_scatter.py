@@ -3,7 +3,11 @@
 ``:417-445``): the ``scatter`` method ``_gemm_rs_scatter_kernel`` (``:99``)
 → K7, the ``ring`` method ``_gemm_rs_ring_kernel`` (``:147``) → K16 and,
 with ``GemmRSConfig.chunks_per_shard > 1``, ``_gemm_rs_ring_chunked_kernel``
-(``:187``) → K17; K1 (``gemm_only``) at world 1.
+(``:187``) → K17; K1 (``gemm_only``) at world 1. Over a pair of axes
+(``axis=("dp", "tp")``), ``_gemm_rs_2d`` (``:264-295``, dispatched at
+``:343-395``) composes those kernels over the inner group with the
+reduce-scatter over the outer one; the port has no DCN axis, so the
+reference's DCN branches are left out.
 
 The TPU kernel GEMMs the chunk for peer ``me+d`` (d = 1 .. n-1, own chunk
 last) into a two-slot send buffer, pushes it into the peer's landing slot
@@ -55,7 +59,7 @@ from triton_dist_tpu_torch.ops.common import (
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, check_operands, matmul, pointer_array
 from triton_dist_tpu_torch.ops.reduce_scatter import get_auto_reduce_scatter_method
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, group_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,12 +110,19 @@ def gemm_rs(
     method: str = "auto",
     config: GemmRSConfig | None = None,
     out_dtype: torch.dtype | None = None,
+    axis=None,
 ) -> torch.Tensor:
     """a ``[M, k_loc]``, b ``[k_loc, N]`` → this rank's ``[M / world, N]``
     slice of the reduced product (call inside ``ctx.run``). ``ctx=None``
     is world 1, where the reduce-scatter is the identity and this is
-    :func:`gemm_only`."""
+    :func:`gemm_only`. `axis` (a name or a pair) runs over ``ctx``'s group
+    over it; over a pair, the staged composition of ``_gemm_rs_2d``."""
     out_dtype = out_dtype or a.dtype
+    ctx = group_of(ctx, axis)
+    if ctx is not None and len(ctx.axis_names) > 1:
+        if len(ctx.axis_names) > 2:
+            raise ValueError(f"at most 2 axes supported, got {ctx.axis_names}")
+        return _gemm_rs_2d(a, b, ctx, method, config, out_dtype)
     n = axis_size(ctx)
     if n == 1:
         return gemm_only(a, b, out_dtype=out_dtype)
@@ -141,6 +152,32 @@ def gemm_rs(
 
 
 gemm_rs.launches = 0
+
+
+def _gemm_rs_2d(a, b, pair, method, config, out_dtype):
+    """The pair composition (≙ ``_gemm_rs_2d``, ``:264-295``): the GEMM-RS
+    over the inner axis on A's rows permuted slab-major, so inner rank i
+    ends up owning slab ``concat_o (chunk (o, i))`` reduced over the inner
+    group, then the standalone reduce-scatter over the outer axis. No new
+    kernel: K7/K16/K17 over the inner group, then K12/K18 over the outer."""
+    from triton_dist_tpu_torch.ops.reduce_scatter import reduce_scatter
+
+    outer, inner = pair.axis_names
+    n_o, n_i = pair.axis_size(outer), pair.axis_size(inner)
+    if n_o == 1 or n_i == 1:
+        return gemm_rs(a, b, ctx=pair.group(inner if n_o == 1 else outer), method=method,
+                       config=config, out_dtype=out_dtype)
+    m_tot, k_loc = a.shape
+    if m_tot % (n_o * n_i):
+        raise ValueError(f"gemm_rs: M={m_tot} must divide over {n_o * n_i} ranks")
+    m_loc = m_tot // (n_o * n_i)
+    a_perm = a.reshape(n_o, n_i, m_loc, k_loc).transpose(0, 1).reshape(m_tot, k_loc)
+    part = gemm_rs(a_perm, b, ctx=pair.group(inner), method=method, config=config,
+                   out_dtype=out_dtype)
+    # gemm_rs and the standalone reduce-scatter name the scatter method
+    # differently
+    rs_method = {"scatter": "scatter_reduce"}.get(method, method)
+    return reduce_scatter(part, ctx=pair.group(outer), method=rs_method)
 
 
 def _gemm_rs_scatter(a, b, ctx, out_dtype):

@@ -402,11 +402,12 @@ def all_gather(x: torch.Tensor, ctx=None, dim: int = 0) -> torch.Tensor:
     return x if axis_size(ctx) == 1 else _AllGather.apply(x, ctx, dim)
 
 
-def grads_all_finite(grads, ctx=None) -> torch.Tensor:
+def grads_all_finite(grads, ctx=None, *more) -> torch.Tensor:
     """The skip-step gate of ``train_step`` (≙ ``grads_all_finite``,
     ``:718``): a 0-dim bool tensor, true when every floating leaf of
     `grads` (nested lists, tuples and dicts of tensors) is finite on every
-    rank. No host sync."""
+    rank of `ctx` and of each further group in `more` (the tp and the dp
+    group of a 2-D runtime). No host sync."""
     leaves = []
 
     def walk(node):
@@ -422,6 +423,7 @@ def grads_all_finite(grads, ctx=None) -> torch.Tensor:
     if not leaves:
         return torch.tensor(True)
     bad = torch.stack([~torch.isfinite(g).all() for g in leaves]).sum(dtype=torch.int32)
-    if axis_size(ctx) > 1:
-        bad = ctx.psum(bad)
+    for group in (ctx, *more):
+        if axis_size(group) > 1:
+            bad = group.psum(bad)
     return bad == 0

@@ -33,6 +33,15 @@ as ``:381-384`` quantizes them, ``ring_spans``): span j of step s goes on
 as soon as span j of the left partial has landed. Every element keeps
 K18's hop order and its rounding per hop, so K23 equals K18 bit for bit
 and both are held to one plain version.
+
+Over several axes (``axis=("dp", "tp")``, or a ``ctx`` that is a group
+over several axes; ≙ the N-D peel at ``:316-360`` and
+``reduce_scatter_2d`` at ``:430-452``): chunk ``(o, r)`` is laid out
+slab-major ``(r, o)``, the reduce-scatter over the inner axes runs first
+on the permuted rows, then the one over the outermost axis, so every row
+crosses the outer axis once and already reduced over the inner ones. No
+new kernel: K12/K18/K23 over each group. The port has no DCN axis, so the
+reference's DCN branch (``:365-372``) is left out.
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ from triton_dist_tpu_torch.ops.common import (
     symmetric_flags,
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch
+from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, group_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,12 +116,17 @@ def get_auto_reduce_scatter_method(chunk_bytes: int, n_pes: int, full_mesh: bool
 
 def reduce_scatter(
     x: torch.Tensor, *, ctx=None, method: str = "auto",
-    config: ReduceScatterConfig | None = None,
+    config: ReduceScatterConfig | None = None, axis=None,
 ) -> torch.Tensor:
     """x ``[m_tot, N]``, this rank's full partial array → this rank's
     ``[m_tot / world, N]`` row slice of the sum over ranks (call inside
-    ``ctx.run``). ``ctx=None`` is world 1, where it is the identity."""
+    ``ctx.run``). ``ctx=None`` is world 1, where it is the identity.
+    `axis` (a name or a tuple) runs over ``ctx``'s group over it; over
+    several axes the staged composition (module docstring)."""
     cfg = config or ReduceScatterConfig()
+    ctx = group_of(ctx, axis)
+    if ctx is not None and len(ctx.axis_names) > 1:
+        return _reduce_scatter_nd(x, ctx, method, config)
     n = axis_size(ctx)
     if n == 1:
         return x
@@ -138,6 +152,34 @@ def reduce_scatter(
 
 
 reduce_scatter.launches = 0
+
+
+def _reduce_scatter_nd(x, ctx, method, config):
+    """Peel the outermost axis (≙ ``:316-360``): the inner axes'
+    reduce-scatter on the slab-major rows, then the outermost axis'."""
+    a0, rest = ctx.axis_names[0], ctx.axis_names[1:]
+    n0, nr = ctx.axis_size(a0), ctx.axis_size(rest)
+    orig_ndim = x.ndim
+    if x.ndim == 1:
+        x = x.reshape(x.shape[0], 1)
+    m_tot, nd = x.shape
+    if m_tot % (n0 * nr):
+        raise ValueError(f"reduce_scatter: {tuple(x.shape)} rows must divide over "
+                         f"{n0 * nr} ranks")
+    m0 = m_tot // (n0 * nr)
+    xt = x.reshape(n0, nr, m0, nd).transpose(0, 1).reshape(m_tot, nd)
+    part = reduce_scatter(xt, ctx=ctx.group(rest), method=method, config=config)
+    out = reduce_scatter(part, ctx=ctx.group(a0), method=method, config=config)
+    return out.reshape(m0) if orig_ndim == 1 else out
+
+
+def reduce_scatter_2d(x: torch.Tensor, *, ctx=None, axes=None, method: str = "auto",
+                      config: ReduceScatterConfig | None = None) -> torch.Tensor:
+    """The hierarchical reduce-scatter over a pair ``(outer, inner)`` (≙
+    ``reduce_scatter_2d``, ``:430``): the inner stage on permuted rows, then
+    the outer one (module docstring); `ctx` the pair group, or a runtime
+    and ``axes`` the pair."""
+    return reduce_scatter(x, ctx=group_of(ctx, axes), method=method, config=config)
 
 
 def _scatter_reduce(x, ctx):
@@ -208,6 +250,34 @@ def _ring_reduce_scatter(x, ctx):
 
 
 _ring_reduce_scatter.launches = 0
+
+
+def _reduce_scatter_nd(x, ctx, method, config):
+    """Peel the outermost axis (≙ ``:316-360``): the inner axes'
+    reduce-scatter on the slab-major rows, then the outermost axis'."""
+    a0, rest = ctx.axis_names[0], ctx.axis_names[1:]
+    n0, nr = ctx.axis_size(a0), ctx.axis_size(rest)
+    orig_ndim = x.ndim
+    if x.ndim == 1:
+        x = x.reshape(x.shape[0], 1)
+    m_tot, nd = x.shape
+    if m_tot % (n0 * nr):
+        raise ValueError(f"reduce_scatter: {tuple(x.shape)} rows must divide over "
+                         f"{n0 * nr} ranks")
+    m0 = m_tot // (n0 * nr)
+    xt = x.reshape(n0, nr, m0, nd).transpose(0, 1).reshape(m_tot, nd)
+    part = reduce_scatter(xt, ctx=ctx.group(rest), method=method, config=config)
+    out = reduce_scatter(part, ctx=ctx.group(a0), method=method, config=config)
+    return out.reshape(m0) if orig_ndim == 1 else out
+
+
+def reduce_scatter_2d(x: torch.Tensor, *, ctx=None, axes=None, method: str = "auto",
+                      config: ReduceScatterConfig | None = None) -> torch.Tensor:
+    """The hierarchical reduce-scatter over a pair ``(outer, inner)`` (≙
+    ``reduce_scatter_2d``, ``:430``): the inner stage on permuted rows, then
+    the outer one (module docstring); `ctx` the pair group, or a runtime
+    and ``axes`` the pair."""
+    return reduce_scatter(x, ctx=group_of(ctx, axes), method=method, config=config)
 
 
 def _ring_reduce_scatter_chunked(x, ctx, spans):

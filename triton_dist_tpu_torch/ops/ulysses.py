@@ -8,10 +8,10 @@ back to back a slab). The local attention is plain PyTorch, as the JAX
 package leaves it to XLA.
 
 :func:`usp_attention` composes the head exchange over an inner axis with
-ring attention over an outer one; it needs the 2-D rank runtime for an
-inner axis of more than one rank, which the port does not have yet
-(ROADMAP A5): with an inner axis of one rank it is
-``ring_attention_grad``.
+ring attention over an outer one; with an inner axis of one rank it is
+``ring_attention_grad``. A wider inner axis (the two axes of a 2-D rank
+runtime) is not ported yet and raises (ROADMAP A5, training on the 2-D
+runtime).
 """
 
 from __future__ import annotations
@@ -121,12 +121,12 @@ def usp_attention(q, k, v, *, ctx=None, inner=None, causal: bool = True, ring_co
     Ulysses head exchange over the `inner` axis composed with ring
     attention over the outer one, `ctx`. The port has one rank axis: an
     `inner` of one rank (None, or a context of world 1) is ring attention
-    over `ctx` (``ring_attention_grad``); a wider one needs the 2-D rank
-    runtime and raises (ROADMAP A5)."""
+    over `ctx` (``ring_attention_grad``); a wider one is not ported yet
+    and raises (ROADMAP A5, training on the 2-D runtime)."""
     if axis_size(inner) > 1:
         raise NotImplementedError(
-            "usp_attention with an inner axis of more than one rank needs the 2-D "
-            "DistContext (ROADMAP A5); with one rank axis use ulysses_attention or "
-            "ring_attention_grad")
+            "usp_attention with an inner axis of more than one rank is not ported yet "
+            "(ROADMAP A5, training on the 2-D runtime: USP over two axes); with one rank "
+            "axis use ulysses_attention or ring_attention_grad")
     return ring_attention_grad(q, k, v, ctx=ctx, causal=causal, config=ring_config,
                                layout=layout)

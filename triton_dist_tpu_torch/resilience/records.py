@@ -47,7 +47,10 @@ def decode_record(row, world: int) -> dict:
 class DistTimeoutError(RuntimeError):
     """A bounded device-side wait expired: ``records`` holds one decoded
     record per rank that tripped — family, rank, wait site and kind, the
-    flag value expected and the one observed, and the timeout."""
+    flag value expected and the one observed, and the timeout. A record
+    the runtime decoded also names the global ``rank`` and the ``group``
+    (its axes) the kernel ran over: ``pe`` and the site's ranks are group
+    ranks."""
 
     def __init__(self, records: list[dict], world_size: int):
         self.records = records
@@ -56,6 +59,7 @@ class DistTimeoutError(RuntimeError):
             f"rank {r['pe']}: {r['family']} {r['kind']} site {r['site']} "
             f"({r['waits_for']}) expected {r['expected']} observed "
             f"{r['observed']} after {r['budget_us']} us"
+            + (f" [global rank {r['rank']}, group {r['group']}]" if "group" in r else "")
             for r in records
         )
         super().__init__(

@@ -45,7 +45,16 @@ Site numbering per family, for a launch at world ``n``:
 - ``all_to_all`` and ``all_to_all_chunked`` (``csrc/a2a.cu``; one epoch
   counter, one flag set): site ``n + p * MAX_SPANS + j`` is the collect's
   wait for chunk ``j`` of rank ``p``'s slab (one chunk, ``j`` 0, in the
-  whole-slab kernel; kind ``signal_wait_until``).
+  whole-slab kernel; kind ``signal_wait_until``);
+- the 2-D rings ``all_gather_2d`` (K36) and ``ag_gemm_2d`` (K37,
+  ``csrc/ring.cu``), over a pair group of ``n = n_o * n_i`` ranks: site
+  ``p < n`` is the entry barrier's wait for group rank ``p``'s arrival,
+  in rank order (kind ``barrier_all``); site ``n + s`` is the wait for the
+  inner chunk put at the left inner neighbour's inner step ``s``, before
+  this rank's inner step ``s + 1``; site ``n + MAX_SPANS * (1 + t) + s``
+  the wait for inner chunk ``s`` that the outer neighbour above put at its
+  outer round ``t``, before this rank's outer round ``t + 1`` (kind
+  ``signal_wait_until``).
 """
 
 from __future__ import annotations
@@ -65,7 +74,8 @@ FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group
             "moe_rs": 6, "reduce_scatter": 7, "ag_gemm_ring": 8, "gemm_rs_ring": 9,
             "reduce_scatter_ring": 10, "all_gather_ring_1d": 11, "all_gather_ring_bidir": 12,
             "all_to_all": 13, "all_to_all_chunked": 14, "ag_group_gemm_chunked": 15,
-            "moe_rs_chunked": 16, "ring_attention": 17}
+            "moe_rs_chunked": 16, "ring_attention": 17, "all_gather_2d": 18, "ag_gemm_2d": 19}
+RING_2D_FAMILIES = ("all_gather_2d", "ag_gemm_2d")
 RING_FAMILIES = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring", "all_gather_ring_1d",
                  "all_gather_ring_bidir", "ring_attention")
 MAX_SPANS = 16  # csrc/shmem.cuh MAX_SPANS: the (step, chunk) flag slots a step owns
@@ -85,6 +95,11 @@ def site_name(family: str, site: int, world: int) -> str:
     if site < world:
         return f"entry barrier: arrival of rank {site}"
     p = site - world
+    if family in RING_2D_FAMILIES:
+        if p < MAX_SPANS:
+            return f"inner chunk of the left inner neighbour's inner step {p}"
+        t, s = divmod(p - MAX_SPANS, MAX_SPANS)
+        return f"inner chunk {s} of the outer neighbour's outer round {t}"
     if family in RING_FAMILIES:
         step, chunk = divmod(p, MAX_SPANS)
         if step >= world - 1:

@@ -25,17 +25,34 @@ def wait_args(diag, family: str) -> tuple[int, int, int]:
     return diag.data_ptr(), config.wait_timeout_ns(), sites.FAMILIES[family]
 
 
-def records(diag_rows, world: int) -> list[dict]:
-    """The timeout records among the ranks' host copies of their buffers."""
-    return [
-        R.decode_record(row, world) for row in diag_rows
-        if int(row[R.F_STATUS]) != R.STATUS_OK
-    ]
+def records(diag_rows, world: int, groups=None) -> list[dict]:
+    """The timeout records among the ranks' host copies of their buffers.
+    ``groups[r]`` (optional) maps each kernel family rank ``r`` launched to
+    the ``(label, world)`` of the group it launched over: a record then
+    decodes its sites in that group's world and names the global rank and
+    the group."""
+    out = []
+    for r, row in enumerate(diag_rows):
+        if int(row[R.F_STATUS]) == R.STATUS_OK:
+            continue
+        label, w = None, world
+        if groups is not None:
+            family = sites.family_name(int(row[R.F_FAMILY]))
+            launched = groups[r]
+            hit = launched.get(family) or next(
+                (v for k, v in launched.items() if family.startswith(k)), None)
+            if hit is not None:
+                label, w = hit
+        rec = R.decode_record(row, w)
+        if label is not None:
+            rec["rank"], rec["group"] = r, label
+        out.append(rec)
+    return out
 
 
-def check(diag_rows, world: int) -> None:
+def check(diag_rows, world: int, groups=None) -> None:
     """Raise :class:`~records.DistTimeoutError` if any rank recorded a
-    timeout."""
-    recs = records(diag_rows, world)
+    timeout (``groups`` as in :func:`records`)."""
+    recs = records(diag_rows, world, groups)
     if recs:
         raise R.DistTimeoutError(recs, world)

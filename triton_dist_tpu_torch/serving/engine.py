@@ -19,6 +19,10 @@ quantized once, here, into int8 or fp8 pools with their scales
 (:meth:`ServingEngine._serving_params`); pre-quantized banks pass through.
 An expert-parallel config (``preset("mixtral-8x7b:ep")``) serves the same
 way, its banks (and scales) split on the expert dim by the batcher.
+The hierarchical deployment (``preset("mixtral-8x7b:ep-hier")``) serves
+on a 2-D runtime (``initialize_distributed(mesh_shape={"dcn": 2, "tp":
+2})``): the engine's world is every rank, and it serves un-shrunk, as the
+reference's does (``:434-440``; elastic shrink is ROADMAP A9).
 The overload controller, speculative decoding and the elastic rebuild
 arrive in later slices with the observability, health and elastic tiers;
 asking for them raises.

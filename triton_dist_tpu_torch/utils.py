@@ -21,16 +21,30 @@ def pick_block(dim: int, block: int) -> int:
     return max(block, 1)
 
 
-def axis_size(ctx) -> int:
-    """The world of a rank runtime (≙ ``utils.axis_size`` of a mesh axis);
-    ``None`` is world 1."""
-    return 1 if ctx is None else ctx.world
+def axis_size(ctx, axis=None) -> int:
+    """The size of `axis` (a name, or the product over a tuple) of a rank
+    runtime or group (≙ ``utils.axis_size``); ``axis=None`` is the
+    runtime's or group's whole world, and ``ctx=None`` is world 1."""
+    if ctx is None:
+        return 1
+    return ctx.world if axis is None else ctx.axis_size(axis)
 
 
-def axis_index(ctx) -> int:
-    """This rank inside ``ctx.run`` (≙ ``jax.lax.axis_index``); 0 at world
-    1."""
-    return 0 if ctx is None else ctx.rank
+def axis_index(ctx, axis=None) -> int:
+    """This rank's index on `axis` inside ``ctx.run`` (≙
+    ``jax.lax.axis_index``; a tuple flattens outer-major); ``axis=None``
+    is its rank in the runtime or group, and 0 at world 1."""
+    if ctx is None:
+        return 0
+    return ctx.rank if axis is None else ctx.axis_index(axis)
+
+
+def group_of(ctx, axis=None):
+    """The ranks an op runs over: `ctx` itself when `axis` is None, else
+    its group over `axis` (``ctx.group``); ``None`` stays world 1."""
+    if ctx is None or axis is None:
+        return ctx
+    return ctx.group(axis)
 
 
 def count_launch(fn, key: str = "launches", by: int = 1) -> None:
