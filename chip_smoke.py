@@ -201,7 +201,20 @@ Phases, each printed as a JSON line, each fatal on failure:
    greedy tokens against the flat EP serve and the CPU, and a dp x tp step
    against the plain path differentiated by PyTorch.
 
-The line before the last lists every kernel (K1-K37) with its readings;
+32. one-byte KV caches (``quantize_kv``, ``quantize_kv_fp8``): the
+   quantized decode K38 at K2's served shapes, its paged twin K39 at K3's
+   (a shuffled table, junk past each length) and the quantized verify K40
+   at K13's (S 256 and 8 over a 2048-position cache), int8 and fp8, each
+   held to its plain version and timed beside its bound, its plain
+   version, the library (dequantize to bf16, SDPA) and the bf16 kernel
+   (K2, K3, K13) on the same cache; the card's quantizer byte-equal to the
+   CPU's; fp8 ranged-prefill chunk calls bit-equal to the whole-range
+   call; then ``quant_kv_path``, the counted run of the op-level entries
+   (world 1, and the int8 / fp8 SP decode, the fp8 ranged prefill and
+   ``flash_decode_op`` at world 4 on the one card) against the world-1
+   plain path, the SP entries timed.
+
+The line before the last lists every kernel (K1-K40) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -341,6 +354,10 @@ class Counters:
             # the 2-D rings over an axis pair (K36, K37)
             "all_gather_2d": allgather._all_gather_ring_2d,
             "ag_gemm_2d": allgather_gemm._ag_gemm_ring_2d,
+            # one-byte KV caches: K38 decode, K39 paged decode, K40 verify
+            "flash_decode_quant": fd.flash_decode_quant,
+            "paged_flash_decode_quant": (fd.paged_flash_decode, "quant_launches"),
+            "flash_verify_quant": (fd.flash_verify, "quant_launches"),
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -355,6 +372,7 @@ class Counters:
             "all_to_all": a2a._fast_all_to_all_xla,
             "ring_attention": ra._ring_attention_plain,
             "ag_gemm_2d": allgather_gemm._ag_gemm_2d_plain,
+            "decode_quant": fd._plain_decode_quant, "verify_quant": fd._plain_verify_quant,
         }
 
     def _counters(self):
@@ -6617,6 +6635,442 @@ def phase_f32_parity_2d() -> None:
                        "tol": {"loss_rel": 1e-4, "param_rel_l2": 1e-4}}})
 
 
+# ------------------------------------------- quantized KV caches (K38-K40) ----
+
+KV_FORMATS = ("int8", "fp8")
+QUANT_LENS = (0, 1, 17, 300, 513, 777, 1000, 1024)      # K2's lengths
+QUANT_PAGED_LENS = (1024, 0, 16, 17, 255, 600, 999, 1)  # K3's
+
+
+def _kv_quantize(fmt, k, v):
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    return (fd.quantize_kv if fmt == "int8" else fd.quantize_kv_fp8)(k, v)
+
+
+def _dequant_bf16(xq, scale):
+    """The library yardstick's first half: a one-byte cache [.., s, d] back
+    to bf16 with its row scales [.., 1, s]."""
+    import torch
+
+    return (xq.float() * scale.transpose(-1, -2)).to(torch.bfloat16)
+
+
+def _quant_tol(ref) -> float:
+    """One bf16 ulp of the output scale: the kernels round ``p * v_scale`` to
+    bf16 at each 64-position tile's running max, the plain versions at the
+    row's final max, so single terms may round apart."""
+    import torch
+
+    scale = ref[torch.isfinite(ref)].abs().max().item()
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _check_quant_kv(name, got, ref, empty) -> float:
+    """out within one bf16 ulp of its scale, lse within 1e-4 of its scale
+    (the same unrounded sums, in f32, in another order); rows with no cache
+    exactly out 0, lse -inf. Returns the worse error over its tolerance."""
+    import torch
+
+    (o, l), (ro, rl) = got, ref
+    live = ~empty
+    err_o, err_l = (o - ro).abs().max().item(), (l[live] - rl[live]).abs().max().item()
+    tol_o, tol_l = _quant_tol(ro), 1e-4 * rl[live].abs().max().item()
+    if not (err_o <= tol_o and err_l <= tol_l):
+        raise AssertionError(f"{name}: out err {err_o} (tol {tol_o}), lse err {err_l} "
+                             f"(tol {tol_l})")
+    if empty.any() and not ((o[empty] == 0).all().item()
+                            and torch.isneginf(l[empty]).all().item()):
+        raise AssertionError(f"{name}: kv_len == 0 must give out 0, lse -inf")
+    return max(err_o / tol_o, err_l / tol_l)
+
+
+def _quant_decode_bytes(lens, hq, h_kv, d) -> float:
+    """The bytes a one-byte decode must move: q (bf16) read, each sequence's
+    cache up to its length read once (d payload bytes and a 4-byte scale a
+    position, k and v), out and lse written."""
+    b = lens.shape[0]
+    n = float(lens.sum().item())
+    return 2.0 * b * hq * d + 2.0 * h_kv * n * (d + 4) + 4.0 * b + 4.0 * b * hq * (d + 1)
+
+
+def _quant_entry(name, source, replaces, per_fmt, shapes, bf16_ms, bf16_name):
+    entry = _format_entry(name, source, replaces, per_fmt, shapes,
+                          "dequantize to bf16 + SDPA")
+    entry["bf16_kernel"] = {"name": bf16_name, "ms": bf16_ms}
+    return entry
+
+
+def phase_flash_decode_quant() -> dict:
+    """K38, int8 and fp8, at K2's served shapes (batch 8, 32 query / 8 kv
+    heads, d 128, s_max 1024, lengths 0-1024), each against its plain
+    version, timed beside its byte bound, the plain version, the library
+    (dequantize to bf16, SDPA) and K2 on the bf16 cache; first the soft cap,
+    g = 1, d = 96 and d = 24 (one-byte rows of 24 bytes: value-by-value
+    loads) at smaller shapes; the card's quantizer equal to the CPU's."""
+    import torch
+    import torch.nn.functional as F
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    worst = 0.0
+    for fmt in KV_FORMATS:
+        for (bb, qh, kh, dd, ss, cap) in ((4, 8, 8, 96, 300, 0.0), (3, 8, 2, 128, 1000, 5.0),
+                                          (2, 8, 2, 24, 130, 0.0)):
+            l2 = torch.tensor([ss, 0, ss // 3, ss - 1][:bb], dtype=torch.int32, device="cuda")
+            q2, k2, v2 = _decode_inputs(bb, qh, kh, dd, ss, torch.float32, seed=5)
+            qz = _kv_quantize(fmt, k2, v2)
+            cfg = fd.FlashDecodeConfig(soft_cap=cap)
+            worst = max(worst, _check_quant_kv(
+                f"flash_decode_quant {fmt} d={dd} g={qh // kh} cap={cap}",
+                fd.flash_decode_quant(q2, *qz, l2, config=cfg, return_lse=True),
+                fd._plain_decode_quant(q2, *qz, l2, return_lse=True, soft_cap=cap),
+                (l2 == 0)[:, None].expand(bb, qh)))
+
+    b, hq, h_kv, d, s = 8, 32, 8, 128, 1024
+    lens = torch.tensor(QUANT_LENS, dtype=torch.int32, device="cuda")
+    q, k, v = _decode_inputs(b, hq, h_kv, d, s, torch.float32, seed=2)
+    qb, kb, vb = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+    empty = (lens == 0)[:, None].expand(b, hq)
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    b_ms, by = bound(4.0 * hq * d * float(lens.sum().item()),
+                     _quant_decode_bytes(lens, hq, h_kv, d))
+    per_fmt, cpu_equal = {}, {}
+    for fmt in KV_FORMATS:
+        qz = _kv_quantize(fmt, kb, vb)
+        cpu = _kv_quantize(fmt, kb.cpu(), vb.cpu())
+        cpu_equal[fmt] = all(
+            torch.equal(g.cpu().view(torch.uint8) if g.element_size() == 1 else g.cpu(),
+                        c.view(torch.uint8) if c.element_size() == 1 else c)
+            for g, c in zip(qz, cpu))
+        if not cpu_equal[fmt]:
+            raise AssertionError(f"quantize_kv {fmt}: the card's bytes or scales differ "
+                                 f"from the CPU quantizer's")
+        got = fd.flash_decode_quant(qb, *qz, lens, return_lse=True)
+        ref = fd._plain_decode_quant(qb, *qz, lens, return_lse=True)
+        err = _check_quant_kv(f"flash_decode_quant {fmt}", got, ref, empty)
+        kq, vq, ks, vs = qz
+        per_fmt[fmt] = dict(
+            max_abs_err=(got[0] - ref[0]).abs().max().item(), err_over_tol=err,
+            ms=cuda_ms(lambda: fd.flash_decode_quant(qb, *qz, lens, return_lse=True),
+                       iters=50),
+            plain_ms=cuda_ms(lambda: fd._plain_decode_quant(qb, *qz, lens, return_lse=True),
+                             iters=10),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qb[:, :, None, :], _dequant_bf16(kq, ks), _dequant_bf16(vq, vs),
+                attn_mask=mask, enable_gqa=True), iters=50),
+            bound_ms=b_ms, bound_by=by)
+    bf16_ms = cuda_ms(lambda: fd.flash_decode(qb, kb, vb, lens, return_lse=True), iters=50)
+    emit({"phase": "kernel", "kernel": "flash_decode_quant", "small_worst_err_over_tol": worst,
+          "card_quantizer_equals_cpu": cpu_equal, "bf16_k2_ms": bf16_ms, "formats": per_fmt})
+    return _quant_entry(
+        "flash_decode_quant", "triton_dist_tpu_torch/csrc/flash_decode.cu",
+        "triton_dist_tpu/ops/flash_decode.py:1231", per_fmt,
+        f"b={b} hq={hq} h_kv={h_kv} d={d} s_max={s} lens={list(QUANT_LENS)}; int8 and fp8 "
+        f"e4m3 caches", bf16_ms, "flash_decode (K2, bf16 cache)")
+
+
+def _page_layout(gen, lens, b, s, page):
+    """A pool of `page`-token pages behind a shuffled block table with junk
+    (in-range) entries past each length: ``(pool, table)``, where
+    ``pool(x)`` lays a cache ``[b, h_kv, s, e]`` out as ``[b * s / page,
+    h_kv, page, e]`` and ``pool(scales, scale=True)`` its row scales."""
+    import torch
+
+    pps = s // page
+    perm = torch.randperm(b * pps, generator=gen, device="cuda")
+    inv = torch.argsort(perm)
+
+    def pool(x, scale=False):
+        if scale:
+            return pool(x.transpose(2, 3)).transpose(2, 3).contiguous()
+        h_kv, e = x.shape[1], x.shape[-1]
+        return x.reshape(b, h_kv, pps, page, e).transpose(1, 2).reshape(
+            b * pps, h_kv, page, e)[inv].contiguous()
+
+    junk = torch.randint(0, b * pps, (b, pps), generator=gen, device="cuda")
+    used = torch.arange(pps, device="cuda")[None, :] < ((lens + page - 1) // page)[:, None]
+    table = torch.where(used, perm.reshape(b, pps), junk).to(torch.int32).contiguous()
+    return pool, table
+
+
+def _quant_pool(pool, kq, vq, ks, vs):
+    return pool(kq), pool(vq), pool(ks, scale=True), pool(vs, scale=True)
+
+
+def phase_paged_flash_decode_quant() -> dict:
+    """K39, int8 and fp8, at K3's served shapes: 16-token pages, a shuffled
+    block table, junk entries past each length; against its plain version
+    (and the pool read through its table equal to the contiguous plain
+    version), timed beside the byte bound (pages below each length), the
+    plain version, the library (gather + dequantize + SDPA) and K3."""
+    import torch
+    import torch.nn.functional as F
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    b, hq, h_kv, d, s, page = 8, 32, 8, 128, 1024, 16
+    lens = torch.tensor(QUANT_PAGED_LENS, dtype=torch.int32, device="cuda")
+    q, k, v = _decode_inputs(b, hq, h_kv, d, s, torch.bfloat16, seed=4)
+    empty = (lens == 0)[:, None].expand(b, hq)
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    b_ms, by = bound(4.0 * hq * d * float(lens.sum().item()),
+                     _quant_decode_bytes(lens, hq, h_kv, d))
+    pool, table = _page_layout(torch.Generator(device="cuda").manual_seed(44), lens, b, s,
+                               page)
+    per_fmt = {}
+    for fmt in KV_FORMATS:
+        qz = _kv_quantize(fmt, k, v)
+        kp, vp, ksp, vsp = _quant_pool(pool, *qz)
+        got = fd.paged_flash_decode(q, kp, vp, lens, table, k_scales=ksp, v_scales=vsp,
+                                    return_lse=True)
+        ref = fd._plain_paged_decode_quant(q, kp, vp, ksp, vsp, lens, table, return_lse=True)
+        if not torch.equal(ref[0], fd._plain_decode_quant(q, *qz, lens, return_lse=True)[0]):
+            raise AssertionError("paged quant pool through its table != contiguous cache")
+        err = _check_quant_kv(f"paged_flash_decode_quant {fmt}", got, ref, empty)
+
+        def library():
+            kc, vc = fd._paged_to_contiguous(kp, table), fd._paged_to_contiguous(vp, table)
+            ksc = fd._paged_scales_to_contiguous(ksp, table)
+            vsc = fd._paged_scales_to_contiguous(vsp, table)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], _dequant_bf16(kc, ksc), _dequant_bf16(vc, vsc),
+                attn_mask=mask, enable_gqa=True)
+
+        per_fmt[fmt] = dict(
+            max_abs_err=(got[0] - ref[0]).abs().max().item(), err_over_tol=err,
+            ms=cuda_ms(lambda: fd.paged_flash_decode(q, kp, vp, lens, table, k_scales=ksp,
+                                                     v_scales=vsp, return_lse=True), iters=50),
+            plain_ms=cuda_ms(lambda: fd._plain_paged_decode_quant(
+                q, kp, vp, ksp, vsp, lens, table, return_lse=True), iters=10),
+            library_ms=cuda_ms(library, iters=20), bound_ms=b_ms, bound_by=by)
+    kp, vp = pool(k), pool(v)
+    bf16_ms = cuda_ms(lambda: fd.paged_flash_decode(q, kp, vp, lens, table, return_lse=True),
+                      iters=50)
+    emit({"phase": "kernel", "kernel": "paged_flash_decode_quant", "bf16_k3_ms": bf16_ms,
+          "formats": per_fmt})
+    return _quant_entry(
+        "paged_flash_decode_quant", "triton_dist_tpu_torch/csrc/flash_decode.cu",
+        "triton_dist_tpu/ops/flash_decode.py:1414", per_fmt,
+        f"b={b} hq={hq} h_kv={h_kv} d={d} page={page} pages/seq={s // page} shuffled, junk "
+        f"past each length, lens={list(QUANT_PAGED_LENS)}; int8 and fp8 e4m3 pools",
+        bf16_ms, "paged_flash_decode (K3, bf16 pool)")
+
+
+def _quant_verify_bound(lens, S, hq, h_kv, d) -> tuple[float, str]:
+    """K40's least time: 4 FLOPs a (row, head, cached position, column) at
+    the bf16 tensor-core peak (the products run in bf16) against q (bf16)
+    read, each sequence's cache up to its longest row read once in one byte
+    plus a 4-byte scale a position, out and lse written."""
+    b = lens.shape[0]
+    flops = 4.0 * hq * d * float(lens.sum().item())
+    max_len = float(lens.max(dim=1).values.sum().item())
+    nbytes = (2.0 * b * S * hq * d + 2.0 * h_kv * max_len * (d + 4)
+              + 4.0 * b * S * hq * (d + 1) + 4.0 * b * S)
+    return bound(flops, nbytes)
+
+
+def phase_flash_verify_quant() -> dict:
+    """K40, int8 and fp8, at K13's served shapes (8B widths, batch 8, a
+    2048-position cache, S 256 and 8, parked-full, ragged and empty rows),
+    plus a soft-cap and a d = 96 case; each against its plain version; the
+    fp8 ranged-prefill chunk calls bit-equal to the whole-range call;
+    timed at S 256 beside its bound, the plain version, the library
+    (dequantize + SDPA) and K13 on the bf16 cache."""
+    import torch
+    import torch.nn.functional as F
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    worst = 0.0
+    for fmt in KV_FORMATS:
+        for S, cap, d in ((256, 0.0, None), (8, 0.0, None), (64, 30.0, None), (37, 5.0, 96)):
+            q, k, v, lens = _verify_inputs(S, torch.float32, seed=51 + S, d=d)
+            qz = _kv_quantize(fmt, k, v)
+            cfg = fd.FlashDecodeConfig(soft_cap=cap)
+            empty = (lens == 0)[..., None].expand(*lens.shape, q.shape[2])
+            worst = max(worst, _check_quant_kv(
+                f"flash_verify_quant {fmt} S={S} cap={cap} d={q.shape[-1]}",
+                fd.flash_verify(q, qz[0], qz[1], lens, config=cfg, return_lse=True,
+                                scales=qz[2:]),
+                fd._plain_verify_quant(q, *qz, lens, return_lse=True, soft_cap=cap), empty))
+    # the fp8 ranged prefill: chunk calls bit-equal to the whole-range call
+    b, S, hq, h_kv, d, s = 4, 256, 32, 8, 128, 2048
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    qr = torch.randn((b, S, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+    qz = fd.quantize_kv_fp8(torch.randn((b, h_kv, s, d), generator=gen, device="cuda"),
+                            torch.randn((b, h_kv, s, d), generator=gen, device="cuda"))
+    pos0 = torch.tensor([0, 300, 1792, s], device="cuda")
+    whole = fd.flash_verify_fp8(qr, *qz, fd._ranged_local_lens(pos0, S, 0, s), return_lse=True)
+    for lo, hi in ((0, 1), (1, 100), (100, 256)):
+        part = fd.flash_verify_fp8(qr[:, lo:hi].contiguous(), *qz,
+                                   fd._ranged_local_lens(pos0 + lo, hi - lo, 0, s),
+                                   return_lse=True)
+        if not (torch.equal(part[0], whole[0][:, lo:hi])
+                and torch.equal(part[1], whole[1][:, lo:hi])):
+            raise AssertionError(f"flash_verify_fp8: chunk [{lo}, {hi}) differs from the "
+                                 f"whole-range call")
+
+    S = 256
+    q, k, v, lens = _verify_inputs(S, torch.bfloat16, seed=11 + S)
+    sh = VERIFY_SHAPE
+    b_ms, by = _quant_verify_bound(lens, S, sh["hq"], sh["h_kv"], sh["d"])
+    empty = (lens == 0)[..., None].expand(*lens.shape, sh["hq"])
+    mask = (torch.arange(sh["s"], device="cuda")[None, None, :] < lens[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    per_fmt = {}
+    for fmt in KV_FORMATS:
+        kq, vq, ks, vs = _kv_quantize(fmt, k, v)
+        got = fd.flash_verify(q, kq, vq, lens, return_lse=True, scales=(ks, vs))
+        ref = fd._plain_verify_quant(q, kq, vq, ks, vs, lens, return_lse=True)
+        err = _check_quant_kv(f"flash_verify_quant {fmt} served", got, ref, empty)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, _dequant_bf16(kq, ks), _dequant_bf16(vq, vs), attn_mask=mask, enable_gqa=True)
+        per_fmt[fmt] = dict(
+            max_abs_err=(got[0] - ref[0]).abs().max().item(), err_over_tol=err,
+            ms=cuda_ms(lambda: fd.flash_verify(q, kq, vq, lens, return_lse=True,
+                                               scales=(ks, vs)), iters=10),
+            plain_ms=cuda_ms(lambda: fd._plain_verify_quant(q, kq, vq, ks, vs, lens,
+                                                            return_lse=True),
+                             iters=3, warmup=1),
+            library_ms=cuda_ms(lib, iters=10), bound_ms=b_ms, bound_by=by)
+    bf16_ms = cuda_ms(lambda: fd.flash_verify(q, k, v, lens, return_lse=True), iters=10)
+    emit({"phase": "kernel", "kernel": "flash_verify_quant", "worst_err_over_tol": worst,
+          "fp8_chunks_bit_equal": True, "bf16_k13_ms": bf16_ms, "formats": per_fmt})
+    return _quant_entry(
+        "flash_verify_quant", "triton_dist_tpu_torch/csrc/flash_verify.cu",
+        "triton_dist_tpu/ops/flash_decode.py:628", per_fmt,
+        f"b=8 S={S} hq=32 h_kv=8 d=128 s=2048, 6 of 8 sequences parked (full cache); int8 "
+        f"and fp8 e4m3 caches", bf16_ms, "flash_verify (K13, bf16 cache)")
+
+
+QUANT_SP_LENS = (0, 1, 1500, 4096, 3000, 17, 2048, 4095)   # global, over 4 x 1024
+
+
+def phase_quant_kv_path(counters: Counters, ctx) -> dict:
+    """The slice's main path, one counted run: the op-level entries a user
+    calls at the served 8B widths — world 1: ``flash_decode_quant``,
+    ``flash_decode_fp8``, ``paged_flash_decode_quant``/``_fp8``,
+    ``flash_verify(scales=)`` (int8) and ``flash_verify_fp8`` (S 256, and S 8
+    as a speculative verify); world 4 on the one card: the int8 and fp8 SP
+    decode over a 4096-position cache sharded 4 x 1024 (full-mesh push, and
+    the bidirectional ring gather), the fp8 ranged prefill (S 256 straddling
+    shards) and ``flash_decode_op`` (bf16). Then each output against the
+    world-1 plain path over the whole cache, and the SP entries timed (the
+    slowest rank)."""
+    import torch
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    b, hq, h_kv, d, s, page = 8, 32, 8, 128, 1024, 16
+    q, k, v = _decode_inputs(b, hq, h_kv, d, s, torch.bfloat16, seed=61)
+    lens = torch.tensor(QUANT_LENS, dtype=torch.int32, device="cuda")
+    caches = {fmt: _kv_quantize(fmt, k, v) for fmt in KV_FORMATS}
+    pool, table = _page_layout(torch.Generator(device="cuda").manual_seed(62), lens, b, s,
+                               page)
+    pools = {fmt: _quant_pool(pool, *caches[fmt]) for fmt in KV_FORMATS}
+    vrq, vk, vv, vlens = _verify_inputs(256, torch.bfloat16, seed=63)
+    vcaches = {fmt: _kv_quantize(fmt, vk, vv) for fmt in KV_FORMATS}
+    sq, sl_lens = vrq[:, :8].contiguous(), vlens[:, :8].contiguous()
+    n, s_g = ctx.world, 4 * 1024
+    s_loc = s_g // n
+    sp_q, sp_k, sp_v = _decode_inputs(b, hq, h_kv, d, s_g, torch.bfloat16, seed=64)
+    sp_lens = torch.tensor(QUANT_SP_LENS, dtype=torch.int32, device="cuda")
+    sp_caches = {fmt: _kv_quantize(fmt, sp_k, sp_v) for fmt in KV_FORMATS}
+    shard = lambda x, r: x[..., r * s_loc:(r + 1) * s_loc, :].contiguous()  # noqa: E731
+    shard_s = lambda x, r: x[..., r * s_loc:(r + 1) * s_loc].contiguous()  # noqa: E731
+    sp_shards = {fmt: [(shard(kq, r), shard(vq, r), shard_s(ks, r), shard_s(vs, r))
+                       for r in range(n)] for fmt, (kq, vq, ks, vs) in sp_caches.items()}
+    rq = torch.randn((b, 256, hq, d), generator=torch.Generator(device="cuda").manual_seed(65),
+                     device="cuda").to(torch.bfloat16)
+    pos0 = torch.tensor([0, 900, 2000, s_g - 256, 3000, 1, 1023, 4096 - 300], device="cuda")
+    entries = {"int8": fd.flash_decode_quant_distributed, "fp8": fd.flash_decode_fp8_distributed}
+
+    def sp_decode(fmt, method):
+        r = ctx.rank
+        local = torch.clamp(sp_lens - r * s_loc, 0, s_loc).to(torch.int32)
+        return entries[fmt](sp_q, *sp_shards[fmt][r], local, ctx=ctx, ag_method=method)
+
+    def sp_ranged():
+        return fd.flash_ranged_prefill_fp8_distributed(rq, *sp_shards["fp8"][ctx.rank], pos0,
+                                                       ctx=ctx)
+
+    torch.cuda.synchronize()
+    counters.reset()
+    out = {}
+    for fmt in KV_FORMATS:
+        kq, vq, ks, vs = caches[fmt]
+        dec = fd.flash_decode_quant if fmt == "int8" else fd.flash_decode_fp8
+        out[f"decode_{fmt}"] = dec(q, kq, vq, ks, vs, lens)
+        pdec = fd.paged_flash_decode_quant if fmt == "int8" else fd.paged_flash_decode_fp8
+        out[f"paged_{fmt}"] = pdec(q, *pools[fmt], lens, table)
+        vkq, vvq, vks, vvs = vcaches[fmt]
+        if fmt == "int8":
+            out[f"verify_{fmt}"] = fd.flash_verify(vrq, vkq, vvq, vlens, scales=(vks, vvs))
+            out[f"spec_{fmt}"] = fd.flash_verify(sq, vkq, vvq, sl_lens, scales=(vks, vvs))
+        else:
+            out[f"verify_{fmt}"] = fd.flash_verify_fp8(vrq, vkq, vvq, vks, vvs, vlens)
+            out[f"spec_{fmt}"] = fd.flash_verify_fp8(sq, vkq, vvq, vks, vvs, sl_lens)
+        for method in ("full_mesh_push", "ring_bidir"):
+            out[f"sp_{fmt}_{method}"] = ctx.run(lambda: sp_decode(fmt, method))
+    out["sp_ranged_fp8"] = ctx.run(sp_ranged)
+    out["op_bf16"] = fd.flash_decode_op(sp_q, sp_k, sp_v, sp_lens, ctx=ctx)
+    torch.cuda.synchronize()
+    counts = counters.read()
+
+    errs = {}
+
+    def check(name, got, ref, factor=1.0):
+        for g in (got if isinstance(got, list) else [got]):
+            if not torch.isfinite(g).all().item():
+                raise AssertionError(f"quant_kv_path {name}: non-finite output")
+            err = (g - ref).abs().max().item()
+            tol = factor * _quant_tol(ref)
+            if not err <= tol:
+                raise AssertionError(f"quant_kv_path {name}: err {err} > {tol}")
+            errs[name] = max(errs.get(name, 0.0), err / tol)
+
+    for fmt in KV_FORMATS:
+        ref = fd._plain_decode_quant(q, *caches[fmt], lens, return_lse=False)
+        check(f"decode_{fmt}", out[f"decode_{fmt}"], ref)
+        check(f"paged_{fmt}", out[f"paged_{fmt}"], ref)
+        check(f"verify_{fmt}", out[f"verify_{fmt}"],
+              fd._plain_verify_quant(vrq, *vcaches[fmt], vlens, return_lse=False))
+        check(f"spec_{fmt}", out[f"spec_{fmt}"],
+              fd._plain_verify_quant(sq, *vcaches[fmt], sl_lens, return_lse=False))
+        sp_ref = fd._plain_decode_quant(sp_q, *sp_caches[fmt], sp_lens, return_lse=False)
+        for method in ("full_mesh_push", "ring_bidir"):
+            # each rank's partial rounds at its own tiles, then the f32 merge
+            check(f"sp_{fmt}_{method}", out[f"sp_{fmt}_{method}"], sp_ref, factor=2.0)
+    ranged_ref = fd._plain_verify_quant(rq, *sp_caches["fp8"],
+                                        fd._ranged_local_lens(pos0, 256, 0, s_g),
+                                        return_lse=False)
+    check("sp_ranged_fp8", out["sp_ranged_fp8"], ranged_ref, factor=2.0)
+    op_ref = fd._xla_decode(sp_q, sp_k, sp_v, sp_lens, return_lse=False)
+    op_err = (out["op_bf16"] - op_ref).abs().max().item()
+    if not op_err <= DECODE_TOL:
+        raise AssertionError(f"flash_decode_op: err {op_err} > {DECODE_TOL}")
+
+    sp_ms = {f"sp_{fmt}_{method}": dist_ms(ctx, lambda: sp_decode(fmt, method), iters=20)
+             for fmt in KV_FORMATS for method in ("full_mesh_push", "ring_bidir")}
+    sp_ms["sp_ranged_fp8"] = dist_ms(ctx, sp_ranged, iters=10)
+    sp_ms["sp_bf16_full_mesh_push"] = dist_ms(ctx, lambda: fd.flash_decode_distributed(
+        sp_q, shard(sp_k, ctx.rank), shard(sp_v, ctx.rank),
+        torch.clamp(sp_lens - ctx.rank * s_loc, 0, s_loc).to(torch.int32), ctx=ctx), iters=20)
+    launches = counts["launches"]
+    for key in ("flash_decode_quant", "paged_flash_decode_quant", "flash_verify_quant"):
+        if launches[key] <= 0:
+            raise AssertionError(f"quant_kv_path: {key} was not launched")
+    for key in ("decode_quant", "verify_quant"):
+        if counts["plain_calls"][key]:
+            raise AssertionError(f"quant_kv_path: the plain {key} ran on the card path")
+    emit({"phase": "quant_kv_path", "launches": {k_: launches[k_] for k_ in (
+              "flash_decode_quant", "paged_flash_decode_quant", "flash_verify_quant",
+              "flash_decode", "all_gather", "all_gather_ring_bidir")},
+          "plain_calls": {k_: counts["plain_calls"][k_] for k_ in ("decode_quant",
+                                                                  "verify_quant", "decode")},
+          "err_over_tol": errs, "flash_decode_op_err": op_err, "sp_ms": sp_ms,
+          "shapes": f"world 1: b={b} hq={hq} h_kv={h_kv} d={d} s={s}, verify S 256 / 8 over "
+                    f"2048; world {n}: s {s_g} as {n} x {s_loc}, lens={list(QUANT_SP_LENS)}"})
+    return launches
+
+
 def _unflatten(tree, leaves):
     """`leaves` (in ``_tree_leaves`` order) in `tree`'s structure."""
     from triton_dist_tpu_torch.models import tp_transformer as ttm
@@ -6648,6 +7102,8 @@ def main() -> int:
     counters = Counters()
     entries = [phase_gemm(), phase_flash_decode(), phase_paged_flash_decode()]
     verify_entries = [phase_flash_verify(), phase_paged_flash_verify()]
+    quant_entries = [phase_flash_decode_quant(), phase_paged_flash_decode_quant(),
+                     phase_flash_verify_quant()]
     moe_entries = [phase_group_gemm()]
     scaled_entries = [phase_group_gemm_scaled()]
     ragged_entries = [phase_group_gemm_ragged()]
@@ -6679,6 +7135,8 @@ def main() -> int:
     ep_entries = phase_all_to_all(ctx)
     torch.cuda.empty_cache()
     k34_k35_entries.append(phase_ring_attention(ctx))
+    torch.cuda.empty_cache()
+    quant_launches = phase_quant_kv_path(counters, ctx)
     torch.cuda.empty_cache()
     ctx.full_mesh = False  # the same ranks, declared a ring
     ring_entries = [phase_ag_gemm_ring(ctx), *phase_gemm_rs_ring(ctx),
@@ -6802,6 +7260,9 @@ def main() -> int:
     entries_2d[0]["launches"] = layers_2d["all_gather_2d"]
     entries_2d[1]["launches"] = layers_2d["ag_gemm_2d"]
     entries += entries_2d
+    for entry in quant_entries:
+        entry["launches"] = quant_launches[entry["name"]]
+    entries += quant_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

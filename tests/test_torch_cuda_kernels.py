@@ -24,7 +24,11 @@ and over (dp, tp) pairs of a 2-D runtime at 2 x 2, 2 x 4 and 4 x 2 the
 hierarchical ring allgather K36 (bit-exact, equal to K19 over the
 flattened ring, the swapped pair and three axes too) and the 2-D AG-GEMM
 K37 (bit-equal to K15, one ulp of its plain version), and their stuck
-waits (every other rank names the late rank's entry-barrier site).
+waits (every other rank names the late rank's entry-barrier site); and the
+one-byte KV caches: the quantized decode K38, its paged twin K39 and the
+quantized verify K40 in int8 and fp8 against their plain versions, the
+verify's chunk calls bit-equal to the whole-range call, the card's KV
+quantizers equal to the CPU's, and the SP entries at world 2 and 4.
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 absent:
@@ -1655,3 +1659,195 @@ def test_ring_2d_stuck_wait_raises_with_its_record(cuda, family):
     got = sorted((r["pe"], r["family"], r["site"], r["kind"], r["rank"], r["group"])
                  for r in err.value.records)
     assert got == [(p, family, 1, "barrier_all", p, "dp,tp") for p in (0, 2, 3)]
+
+
+# ---- one-byte KV caches: K38 (decode), K39 (paged decode), K40 (verify) ----
+
+KV_QUANTIZERS = {"int8": tfd.quantize_kv, "fp8": tfd.quantize_kv_fp8}
+
+QUANT_DECODE_CASES = {
+    # name: (b, hq, h_kv, s, d, lens, soft_cap)
+    **CASES,
+    "d96_g4_cap": (3, 16, 4, 400, 96, [400, 0, 131], 20.0),
+}
+
+
+def _quant_tol(ref: torch.Tensor) -> float:
+    """One bf16 ulp of the output scale: the kernel rounds ``p * v_scale``
+    to bf16 at each 64-position tile's running max, the plain version at
+    the row's final max, so single terms round apart by up to a bf16 ulp."""
+    scale = ref[torch.isfinite(ref)].abs().max().item()
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def _skewed_cache(rng, shape):
+    """Cache rows whose magnitudes span three decades across positions, so a
+    row scale read at the wrong position shows."""
+    x = rng.standard_normal(shape)
+    return (x * np.logspace(-1.5, 1.5, shape[-2])[rng.permutation(shape[-2])][:, None]
+            ).astype(np.float32)
+
+
+def _check_quant(got, want, empty):
+    """out within :func:`_quant_tol`; lse within 1e-5 of its scale (the same
+    unrounded sums, f32 order only); rows with no cache out 0, lse -inf."""
+    o, lse = got
+    assert (o - want[0]).abs().max().item() <= _quant_tol(want[0])
+    live = ~empty
+    scale = want[1][live].abs().max().item()
+    assert (lse[live] - want[1][live]).abs().max().item() <= 1e-5 * scale
+    assert (o[empty] == 0).all() and torch.isneginf(lse[empty]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("name", sorted(QUANT_DECODE_CASES))
+def test_quant_decode_kernels_match_plain(cuda, fmt, name):
+    """K38 and K39 against their plain versions: lengths 0 / partial / full,
+    g 1 and 4, the soft cap, head dims 16, 24 (one-byte rows not a multiple
+    of 16 bytes: value-by-value loads), 96 and 128; the pool behind a
+    shuffled table with junk entries past each length."""
+    b, hq, h_kv, s, d, lens, cap = QUANT_DECODE_CASES[name]
+    rng = np.random.default_rng(15)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(_skewed_cache(rng, (b, h_kv, s, d))).to(cuda)
+    v = torch.from_numpy(_skewed_cache(rng, (b, h_kv, s, d))).to(cuda)
+    tl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kq, vq, ks, vs = KV_QUANTIZERS[fmt](k, v)
+    before = tfd.flash_decode_quant.launches
+    got = tfd.flash_decode_quant(q, kq, vq, ks, vs, tl, return_lse=True,
+                                 config=tfd.FlashDecodeConfig(soft_cap=cap))
+    want = tfd._plain_decode_quant(q, kq, vq, ks, vs, tl, return_lse=True, soft_cap=cap)
+    page = 8
+    pps = s // page
+    perm = torch.from_numpy(rng.permutation(b * pps)).to(cuda)
+    pool = lambda x: x.reshape(b, h_kv, pps, page, -1).transpose(1, 2).reshape(  # noqa: E731
+        b * pps, h_kv, page, -1)[torch.argsort(perm)].contiguous()
+    table = perm.reshape(b, pps).to(torch.int32)
+    junk = torch.from_numpy(rng.integers(0, b * pps, (b, pps))).to(cuda, torch.int32)
+    used = torch.arange(pps, device=cuda)[None, :] < ((tl + page - 1) // page)[:, None]
+    table = torch.where(used, table, junk).contiguous()
+    kpq, kps, vpq, vps = (pool(x) for x in (kq, ks.transpose(2, 3), vq, vs.transpose(2, 3)))
+    kps, vps = kps.transpose(2, 3).contiguous(), vps.transpose(2, 3).contiguous()
+    pbefore = tfd.paged_flash_decode.quant_launches
+    pgot = tfd.paged_flash_decode(q, kpq, vpq, tl, table, k_scales=kps, v_scales=vps,
+                                  soft_cap=cap, return_lse=True)
+    pwant = tfd._plain_paged_decode_quant(q, kpq, vpq, kps, vps, tl, table, return_lse=True,
+                                          soft_cap=cap)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_quant.launches == before + 1
+    assert tfd.paged_flash_decode.quant_launches == pbefore + 1
+    empty = tl == 0
+    _check_quant(got, want, empty[:, None].expand(b, hq))
+    _check_quant(pgot, pwant, empty[:, None].expand(b, hq))
+    # the pool read through its table is the contiguous cache, bit for bit
+    assert torch.equal(pwant[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("name", sorted(VERIFY_CASES))
+def test_quant_verify_kernel_matches_plain(cuda, fmt, name):
+    """K40 against its plain version: ragged per-row lengths with empty and
+    full rows, the soft cap, head dims 8 (value-by-value loads), 64, 96 and
+    128, groups of 1, 4 and 8."""
+    b, S, hq, h_kv, s, d, cap, _ = VERIFY_CASES[name]
+    rng = np.random.default_rng(19)
+    q = torch.from_numpy(rng.standard_normal((b, S, hq, d)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(_skewed_cache(rng, (b, h_kv, s, d))).to(cuda)
+    v = torch.from_numpy(_skewed_cache(rng, (b, h_kv, s, d))).to(cuda)
+    lens = rng.integers(0, s + 1, (b, S)).astype(np.int32)
+    lens[0, 0], lens[-1, -1] = 0, s
+    tl = torch.from_numpy(lens).to(cuda)
+    kq, vq, ks, vs = KV_QUANTIZERS[fmt](k, v)
+    before = tfd.flash_verify.quant_launches
+    got = tfd.flash_verify(q, kq, vq, tl, config=tfd.FlashDecodeConfig(soft_cap=cap),
+                           return_lse=True, scales=(ks, vs))
+    want = tfd._plain_verify_quant(q, kq, vq, ks, vs, tl, return_lse=True, soft_cap=cap)
+    torch.cuda.synchronize()
+    assert tfd.flash_verify.quant_launches == before + 1
+    _check_quant(got, want, torch.from_numpy(lens == 0).to(cuda)[..., None].expand(b, S, hq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quant_verify_composes_bit_for_bit(cuda, fmt):
+    """A whole-range quantized ranged-prefill call and the calls over its
+    chunks give every row the same (out, lse) bits."""
+    b, S, hq, h_kv, s, d = 3, 150, 32, 8, 512, 128
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, S, hq, d), generator=gen, device=cuda)
+    kq, vq, ks, vs = KV_QUANTIZERS[fmt](
+        torch.randn((b, h_kv, s, d), generator=gen, device=cuda),
+        torch.randn((b, h_kv, s, d), generator=gen, device=cuda))
+    run = lambda qq, lens: tfd.flash_verify_fp8(  # noqa: E731
+        qq, kq, vq, ks, vs, lens, return_lse=True)
+    pos0 = torch.tensor([0, 77, s], device=cuda)
+    whole = run(q, tfd._ranged_local_lens(pos0, S, 0, s))
+    for lo, hi in ((0, 1), (1, 64), (64, 150)):
+        part = run(q[:, lo:hi].contiguous(), tfd._ranged_local_lens(pos0 + lo, hi - lo, 0, s))
+        assert torch.equal(part[0], whole[0][:, lo:hi]), (lo, hi)
+        assert torch.equal(part[1], whole[1][:, lo:hi]), (lo, hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_kv_quantizers_on_the_card_equal_the_cpu(cuda, fmt):
+    """The card's one-byte cache and scales equal the CPU quantizer's (which
+    the CPU tests hold equal to the JAX package's), rows over ten decades."""
+    g = torch.Generator().manual_seed(7)
+    k = torch.randn((2, 4, 96, 128), generator=g) * torch.logspace(-6, 4, 96)[:, None]
+    v = torch.randn((2, 4, 96, 128), generator=g)
+    for got, want in zip(KV_QUANTIZERS[fmt](k.to(cuda), v.to(cuda)), KV_QUANTIZERS[fmt](k, v)):
+        got = got.cpu()
+        if got.element_size() == 1:
+            got, want = got.view(torch.uint8), want.view(torch.uint8)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_quant_sp_entries_match_world1(cuda, world):
+    """The SP entries with every rank on the one card: int8 and fp8 decode
+    and the fp8 ranged prefill over each rank's sequence shard, merged by
+    the full-mesh allgather (and a ring gather), against the world-1 plain
+    path over the whole cache; ``flash_decode_op`` against the world-1
+    bf16 decode."""
+    b, hq, h_kv, d, s = 4, 16, 4, 128, 256 * world
+    s_loc = s // world
+    gen = torch.Generator(device=cuda).manual_seed(8 + world)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda)
+    k = torch.randn((b, h_kv, s, d), generator=gen, device=cuda)
+    v = torch.randn((b, h_kv, s, d), generator=gen, device=cuda)
+    lens = torch.tensor([s, 0, s_loc + 3, s - 5], dtype=torch.int32, device=cuda)
+    ctx = initialize_distributed(world)
+    sl = lambda x, r: x[..., r * s_loc:(r + 1) * s_loc, :].contiguous()  # noqa: E731
+    sl_scale = lambda x, r: x[..., r * s_loc:(r + 1) * s_loc].contiguous()  # noqa: E731
+    for fmt, entry in (("int8", tfd.flash_decode_quant_distributed),
+                       ("fp8", tfd.flash_decode_fp8_distributed)):
+        kq, vq, ks, vs = KV_QUANTIZERS[fmt](k, v)
+        want = tfd._plain_decode_quant(q, kq, vq, ks, vs, lens, return_lse=False)
+        for method in ("full_mesh_push", "ring_bidir"):
+            def body():
+                r = ctx.rank
+                local = torch.clamp(lens - r * s_loc, 0, s_loc).to(torch.int32)
+                return entry(q, sl(kq, r), sl(vq, r), sl_scale(ks, r), sl_scale(vs, r), local,
+                             ctx=ctx, ag_method=method)
+            for got in ctx.run(body):
+                assert (got - want).abs().max().item() <= 2 * _quant_tol(want), (fmt, method)
+    # the fp8 ranged prefill: 40 rows from pos0 straddling a shard boundary
+    S = 40
+    qr = torch.randn((b, S, hq, d), generator=gen, device=cuda)
+    kq, vq, ks, vs = tfd.quantize_kv_fp8(k, v)
+    pos0 = torch.tensor([0, s_loc - 7, s - S, 3], device=cuda)
+    want = tfd._plain_verify_quant(qr, kq, vq, ks, vs, tfd._ranged_local_lens(pos0, S, 0, s),
+                                   return_lse=False)
+    got = ctx.run(lambda: tfd.flash_ranged_prefill_fp8_distributed(
+        qr, sl(kq, ctx.rank), sl(vq, ctx.rank), sl_scale(ks, ctx.rank),
+        sl_scale(vs, ctx.rank), pos0, ctx=ctx))
+    for g_ in got:
+        assert (g_ - want).abs().max().item() <= 2 * _quant_tol(want)
+    kb, vb, qb = k.to(torch.bfloat16), v.to(torch.bfloat16), q.to(torch.bfloat16)
+    want = tfd._xla_decode(qb, kb, vb, lens, return_lse=False)
+    got = tfd.flash_decode_op(qb, kb, vb, lens, ctx=ctx)
+    assert (got - want).abs().max().item() <= 1e-3

@@ -162,18 +162,6 @@ def test_ranged_entries_world2_match_jax(paged):
         _close(got, want)
 
 
-def test_quantized_verify_refused():
-    x = torch.zeros((1, 1, 2, 8))
-    c = torch.zeros((1, 2, 4, 8))
-    lens = torch.ones((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tfd.flash_verify(x, c, c, lens, scales=(c, c))
-    with pytest.raises(NotImplementedError, match="B13"):
-        tfd.flash_verify_fp8(x, c, c, c, c, lens)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tfd.flash_ranged_prefill_fp8_distributed(x, c, c, c, c, np.zeros(1))
-
-
 # ----------------------------------------------------------------- model ----
 
 

@@ -1,6 +1,8 @@
 // K2 · flash decode and K3 · paged flash decode: one query token per
 // sequence attends its KV cache with grouped-query heads, returning
-// (out f32 [b, hq, d], lse f32 [b, hq]).
+// (out f32 [b, hq, d], lse f32 [b, hq]). K38 · quantized decode and K39 ·
+// its paged twin: the same kernel over a one-byte cache (int8 or fp8 e4m3)
+// with f32 row scales per (sequence or page, kv head, position).
 //
 // Replaces triton_dist_tpu/ops/flash_decode.py:284 _flash_decode_kernel
 // (K2; also :340 _flash_decode_fused_heads_kernel, the same function on a
@@ -31,16 +33,34 @@
 // reading. The paged kernel finds each row through the block table and
 // touches only pages below ceil(kv_len / page). Rows are padded in shared
 // memory to the power-of-two head dim (_kernel_head_dim), zero past d.
+//
+// K38/K39 replace :1231 _flash_decode_quant_kernel (body _flash_decode_body
+// :250 with row scales), :350 _flash_decode_fused_heads_quant_kernel (the
+// same function with the kv-head loop inside the TPU body: this grid reads
+// each row once for all heads of its group either way) and :1414
+// _paged_flash_decode_kernel(quant=True). The quantized contract of
+// _online_softmax_step (:195-239): q arrives in bf16, the one-byte payload
+// rises to f32 exactly (every int8 and e4m3 value is a bf16 value), each
+// score column is multiplied by (k_scale[pos] * scale), l sums the unrounded
+// probabilities, and P.V takes (p * v_scale[pos]) rounded to bf16. The
+// payload rides the same 16-byte cp.async copies (16 values a copy, so a
+// row needs d % 16 == 0 for them; other head dims load value by value); a
+// tile's 64 k and v scales are staged beside it, found through the block
+// table like their rows (the scale pool is the payload pool with d = 1).
+// What bounds it: the bytes, 2 * (d + 4) a cached position and kv head
+// against 4 * d for bf16 — the reason a one-byte cache exists.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
 typedef __nv_bfloat16 bf16;
+typedef __nv_fp8_e4m3 fp8;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -53,9 +73,22 @@ template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; 
 template <> __device__ __forceinline__ float to_f32<bf16>(bf16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) { return (float)x; }
+template <> __device__ __forceinline__ float to_f32<fp8>(fp8 x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
+template <> __device__ __forceinline__ int8_t zero<int8_t>() { return 0; }
+template <> __device__ __forceinline__ fp8 zero<fp8>() { return fp8(0.f); }
+
+// The dtype the kernel reads q in: the cache's own, bf16 for a one-byte cache.
+template <typename T> struct QOf { typedef T type; };
+template <> struct QOf<int8_t> { typedef bf16 type; };
+template <> struct QOf<fp8> { typedef bf16 type; };
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // One 16-byte shared-memory chunk (8 bf16 or 4 f32) as floats.
 __device__ __forceinline__ void load_chunk_f32(const bf16* p, float* out) {
@@ -74,6 +107,24 @@ __device__ __forceinline__ void load_chunk_f32(const float* p, float* out) {
   out[1] = f.y;
   out[2] = f.z;
   out[3] = f.w;
+}
+
+// One 16-byte chunk of 16 one-byte values as floats (exact).
+__device__ __forceinline__ void load_chunk_f32(const int8_t* p, float* out) {
+  const int4 u = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = (float)(int8_t)(w[i / 4] >> (8 * (i % 4)));
+}
+__device__ __forceinline__ void load_chunk_f32(const fp8* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_fp8x2_e4m3* f2 = reinterpret_cast<const __nv_fp8x2_e4m3*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f = static_cast<float2>(f2[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -125,14 +176,17 @@ __device__ __forceinline__ void stage_rows(
 // K and V rows land in shared memory (16-byte cp.async); each thread scores
 // one (row, half of the query heads) pair against q held in shared memory;
 // one warp per query head updates its (m, l); each thread then owns two
-// head-dim columns of the P.V accumulator for every query head.
+// head-dim columns of the P.V accumulator for every query head. A one-byte
+// T (K38/K39) also stages the tile's row scales and folds them in.
 template <typename T, bool PAGED>
 __global__ void __launch_bounds__(THREADS) decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ kv_lens, const int* __restrict__ table,
+    const typename QOf<T>::type* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const int* __restrict__ kv_lens, const int* __restrict__ table,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     float* __restrict__ out_part, float* __restrict__ lse_part, int b, int hq,
     int h_kv, int d, int dp, int s_len, int page, int max_pages, int chunk,
     float scale, float soft_cap, int vec) {
+  constexpr bool QUANT = sizeof(T) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = hq / h_kv;
   const int ld = dp + 16 / (int)sizeof(T);  // +16 bytes staggers banks
@@ -141,8 +195,10 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   float* m_s = p_s + g * TILE;                   // [g]
   float* l_s = m_s + g;
   float* alpha_s = l_s + g;
-  T* k_s = reinterpret_cast<T*>(
-      smem + ((((size_t)g * (dp + TILE + 3)) * sizeof(float) + 15) / 16) * 16);
+  float* ks_s = alpha_s + g;                     // [TILE] (QUANT)
+  float* vs_s = ks_s + TILE;                     // [TILE] (QUANT)
+  const int n_f32 = g * (dp + TILE + 3) + (QUANT ? 2 * TILE : 0);
+  T* k_s = reinterpret_cast<T*>(smem + (((size_t)n_f32 * sizeof(float) + 15) / 16) * 16);
   T* v_s = k_s + TILE * ld;
 
   const int bi = blockIdx.x / h_kv, h = blockIdx.x % h_kv, split = blockIdx.y;
@@ -159,7 +215,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     return;
   }
 
-  const T* qb = q + ((int64_t)bi * hq + (int64_t)h * g) * d;
+  const typename QOf<T>::type* qb = q + ((int64_t)bi * hq + (int64_t)h * g) * d;
   for (int e = threadIdx.x; e < g * dp; e += THREADS) {
     const int j = e / dp, dd = e % dp;
     q_s[e] = dd < d ? to_f32(qb[(int64_t)j * d + dd]) : 0.f;
@@ -180,6 +236,13 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
                          table, d, dp, vec);
     stage_rows<T, PAGED>(v_s, ld, v, bi, h, t0, nt, h_kv, s_len, page, max_pages,
                          table, d, dp, vec);
+    if (QUANT && threadIdx.x < TILE) {  // the scale rows are the pool with d = 1
+      const int p = threadIdx.x;
+      const int64_t o = p < nt ? row_offset<PAGED>(bi, h, t0 + p, h_kv, s_len, page,
+                                                   max_pages, table, 1) : 0;
+      ks_s[p] = p < nt ? k_scale[o] : 0.f;  // 0 past the span: p = 0 meets a finite 0
+      vs_s[p] = p < nt ? v_scale[o] : 0.f;
+    }
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
     __syncthreads();
 
@@ -205,11 +268,13 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
           }
         }
       }
+      // the reference's order: dot * (k_scale * scale)
+      const float col_scale = QUANT ? ks_s[p_own] * scale : scale;
 #pragma unroll
       for (int i = 0; i < HALF_G; ++i) {
         const int j = half + 2 * i;
         if (j < g) {
-          float sc = s[i] * scale;
+          float sc = s[i] * col_scale;
           if (soft_cap > 0.f) sc = soft_cap * tanhf(sc / soft_cap);
           p_s[j * TILE + p_own] = p_own < nt ? sc : -INFINITY;
         }
@@ -217,7 +282,8 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     }
     __syncthreads();
     // (b) online-softmax update of each query head's (m, l); p_s becomes
-    // the tile's probabilities exp(s - m_safe)
+    // the tile's probabilities exp(s - m_safe) (QUANT: times v_scale,
+    // rounded to bf16; l sums them unscaled and unrounded)
     for (int j = warp; j < g; j += WARPS) {
       float* pj = p_s + j * TILE;
       float mx = fmaxf(pj[lane], pj[lane + 32]);
@@ -227,8 +293,8 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
       const float m_new = fmaxf(m_old, mx);
       const float m_safe = fmaxf(m_new, -1e30f);
       const float e0 = expf(pj[lane] - m_safe), e1 = expf(pj[lane + 32] - m_safe);
-      pj[lane] = e0;
-      pj[lane + 32] = e1;
+      pj[lane] = QUANT ? round_bf16(e0 * vs_s[lane]) : e0;
+      pj[lane + 32] = QUANT ? round_bf16(e1 * vs_s[lane + 32]) : e1;
       float sum = e0 + e1;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -306,18 +372,20 @@ __global__ void __launch_bounds__(THREADS) decode_combine_kernel(
 
 template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* kv_lens,
-           const void* table, float* out_part, float* lse_part, float* out,
-           float* lse, int b, int hq, int h_kv, int d, int dp, int s_len,
-           int page, int max_pages, int splits, int chunk, float scale,
+           const void* table, const void* k_scale, const void* v_scale, float* out_part,
+           float* lse_part, float* out, float* lse, int b, int hq, int h_kv, int d, int dp,
+           int s_len, int page, int max_pages, int splits, int chunk, float scale,
            float soft_cap, cudaStream_t s) {
   constexpr int E = 16 / sizeof(T);
+  constexpr bool QUANT = sizeof(T) == 1;
   const int g = hq / h_kv;
-  if (g > MAX_G || dp % E != 0 || dp > 2 * THREADS || dp < d) {
+  if (g > MAX_G || dp % E != 0 || dp > 2 * THREADS || dp < d ||
+      (QUANT && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int ld = dp + E;
-  const size_t smem = (((size_t)g * (dp + TILE + 3)) * sizeof(float) + 15) / 16 * 16 +
-                      2 * (size_t)TILE * ld * sizeof(T);
+  const size_t n_f32 = (size_t)g * (dp + TILE + 3) + (QUANT ? 2 * TILE : 0);
+  const size_t smem = (n_f32 * sizeof(float) + 15) / 16 * 16 + 2 * (size_t)TILE * ld * sizeof(T);
   const int vec = (d % E == 0) && (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(v) % 16 == 0);
   auto kernel = decode_split_kernel<T, PAGED>;
@@ -328,10 +396,11 @@ int launch(const void* q, const void* k, const void* v, const void* kv_lens,
   }
   const dim3 grid(b * h_kv, splits);
   kernel<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(table), out_part,
-      lse_part, b, hq, h_kv, d, dp, s_len, page, max_pages, chunk, scale, soft_cap,
-      vec);
+      static_cast<const typename QOf<T>::type*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(kv_lens),
+      static_cast<const int*>(table), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), out_part, lse_part, b, hq, h_kv, d, dp, s_len,
+      page, max_pages, chunk, scale, soft_cap, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<<<b * hq, THREADS, 0, s>>>(out_part, lse_part, out, lse,
@@ -339,44 +408,62 @@ int launch(const void* q, const void* k, const void* v, const void* kv_lens,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int tdt_flash_decode(const void* q, const void* k, const void* v,
-                                const void* kv_lens, void* out_part,
-                                void* lse_part, void* out, void* lse, int dtype,
-                                int b, int hq, int h_kv, int d, int dp,
-                                int s_len, int splits, int chunk, float scale,
-                                float soft_cap, void* stream) {
+template <bool PAGED>
+int dispatch(int dtype, const void* q, const void* k, const void* v, const void* kv_lens,
+             const void* table, const void* ks, const void* vs, void* out_part,
+             void* lse_part, void* out, void* lse, int b, int hq, int h_kv, int d, int dp,
+             int s_len, int page, int max_pages, int splits, int chunk, float scale,
+             float soft_cap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *op = static_cast<float*>(out_part), *lp = static_cast<float*>(lse_part);
   float *o = static_cast<float*>(out), *l = static_cast<float*>(lse);
-  if (dtype == kBF16)
-    return launch<bf16, false>(q, k, v, kv_lens, nullptr, op, lp, o, l, b, hq, h_kv, d, dp,
-                               s_len, 1, 1, splits, chunk, scale, soft_cap, s);
-  if (dtype == kF32)
-    return launch<float, false>(q, k, v, kv_lens, nullptr, op, lp, o, l, b, hq, h_kv, d, dp,
-                                s_len, 1, 1, splits, chunk, scale, soft_cap, s);
+  switch (dtype) {
+    case kBF16:
+      return launch<bf16, PAGED>(q, k, v, kv_lens, table, ks, vs, op, lp, o, l, b, hq, h_kv,
+                                 d, dp, s_len, page, max_pages, splits, chunk, scale,
+                                 soft_cap, s);
+    case kF32:
+      return launch<float, PAGED>(q, k, v, kv_lens, table, ks, vs, op, lp, o, l, b, hq, h_kv,
+                                  d, dp, s_len, page, max_pages, splits, chunk, scale,
+                                  soft_cap, s);
+    case kI8:
+      return launch<int8_t, PAGED>(q, k, v, kv_lens, table, ks, vs, op, lp, o, l, b, hq,
+                                   h_kv, d, dp, s_len, page, max_pages, splits, chunk, scale,
+                                   soft_cap, s);
+    case kFP8:
+      return launch<fp8, PAGED>(q, k, v, kv_lens, table, ks, vs, op, lp, o, l, b, hq, h_kv,
+                                d, dp, s_len, page, max_pages, splits, chunk, scale,
+                                soft_cap, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// k_scale / v_scale: f32 row scales of a one-byte cache (dtype kI8, kFP8),
+// null for a float one.
+extern "C" int tdt_flash_decode(const void* q, const void* k, const void* v,
+                                const void* kv_lens, const void* k_scale,
+                                const void* v_scale, void* out_part, void* lse_part,
+                                void* out, void* lse, int dtype, int b, int hq, int h_kv,
+                                int d, int dp, int s_len, int splits, int chunk,
+                                float scale, float soft_cap, void* stream) {
+  return dispatch<false>(dtype, q, k, v, kv_lens, nullptr, k_scale, v_scale, out_part,
+                         lse_part, out, lse, b, hq, h_kv, d, dp, s_len, 1, 1, splits, chunk,
+                         scale, soft_cap, stream);
 }
 
 extern "C" int tdt_paged_flash_decode(const void* q, const void* k, const void* v,
                                       const void* kv_lens, const void* table,
+                                      const void* k_scale, const void* v_scale,
                                       void* out_part, void* lse_part, void* out,
                                       void* lse, int dtype, int b, int hq,
                                       int h_kv, int d, int dp, int page,
                                       int max_pages, int splits, int chunk,
                                       float scale, float soft_cap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *op = static_cast<float*>(out_part), *lp = static_cast<float*>(lse_part);
-  float *o = static_cast<float*>(out), *l = static_cast<float*>(lse);
-  const int s_len = page * max_pages;
-  if (dtype == kBF16)
-    return launch<bf16, true>(q, k, v, kv_lens, table, op, lp, o, l, b, hq, h_kv, d, dp,
-                              s_len, page, max_pages, splits, chunk, scale, soft_cap, s);
-  if (dtype == kF32)
-    return launch<float, true>(q, k, v, kv_lens, table, op, lp, o, l, b, hq, h_kv, d, dp,
-                               s_len, page, max_pages, splits, chunk, scale, soft_cap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(dtype, q, k, v, kv_lens, table, k_scale, v_scale, out_part,
+                        lse_part, out, lse, b, hq, h_kv, d, dp, page * max_pages, page,
+                        max_pages, splits, chunk, scale, soft_cap, stream);
 }
 
 extern "C" const char* tdt_error_string(int code) {

@@ -38,16 +38,34 @@
 // exact (alpha = 1, p = 0); no choice depends on S or on the row count.
 // So a whole-range call and the calls over its chunks agree bit for bit
 // row by row, which the ranged prefill's composition rests on.
+//
+// K40 · quantized verify: the bf16 kernel over a one-byte cache (int8 or
+// fp8 e4m3) with f32 row scales [b, h_kv, 1, s]. Replaces :628
+// _flash_verify_quant_kernel (_flash_verify_body with scales; wrapper
+// _flash_verify_fused(scales=) at :703). The quantized contract of
+// _online_softmax_step (:195-239): q in bf16, the payload raised to bf16
+// exactly, each score column times (k_scale[pos] * scale), l over the
+// unrounded probabilities, P.V on (p * v_scale[pos]) rounded to bf16. The
+// one-byte K and V tiles ride 16-byte cp.async copies into a double-
+// buffered staging area (half the bytes of a bf16 tile), then rise to a bf16
+// tile in shared memory that ldmatrix reads as before; the tile's scales
+// are staged beside them. k_scale folds into each score fragment's column
+// and v_scale into P's column before the bf16 pack. Nothing here depends on
+// S or on the row count either, so chunk calls stay bit-equal to the
+// whole-range call. What bounds it at a prefill chunk: still operations
+// (the cache bytes halve, the products do not).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
 typedef __nv_bfloat16 bf16;
+typedef __nv_fp8_e4m3 fp8;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -66,6 +84,11 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
+template <> __device__ __forceinline__ int8_t zero<int8_t>() { return 0; }
+template <> __device__ __forceinline__ fp8 zero<fp8>() { return fp8(0.f); }
+
+__device__ __forceinline__ float byte_to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float byte_to_f32(fp8 x) { return (float)x; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -78,17 +101,59 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Element offset of cache row (sequence bi, kv head h, position pos):
-// contiguous [b, h_kv, s_len, d], or the page pool [n_pages, h_kv, page, d]
-// through block_table [b, max_pages].
+// Row index of cache position (sequence bi, kv head h, position pos):
+// contiguous [b, h_kv, s_len, .], or the page pool [n_pages, h_kv, page, .]
+// through block_table [b, max_pages]. Times d it is the payload row's
+// element offset; alone it is the row scale's ([.., h_kv, 1, s_len or page]).
 template <bool PAGED>
-__device__ __forceinline__ int64_t cache_row(const Geo& G, const int* __restrict__ table,
+__device__ __forceinline__ int64_t pos_index(const Geo& G, const int* __restrict__ table,
                                              int bi, int h, int pos) {
   if (PAGED) {
     const int pid = table[(int64_t)bi * G.max_pages + pos / G.page];
-    return (((int64_t)pid * G.h_kv + h) * G.page + pos % G.page) * G.d;
+    return ((int64_t)pid * G.h_kv + h) * G.page + pos % G.page;
   }
-  return (((int64_t)bi * G.h_kv + h) * G.s_len + pos) * G.d;
+  return ((int64_t)bi * G.h_kv + h) * G.s_len + pos;
+}
+template <bool PAGED>
+__device__ __forceinline__ int64_t cache_row(const Geo& G, const int* __restrict__ table,
+                                             int bi, int h, int pos) {
+  return pos_index<PAGED>(G, table, bi, h, pos) * G.d;
+}
+
+// A one-byte cache's k and v scales of positions [t0, t0 + TILE), 0 at and
+// past `valid` (a masked probability of 0 then meets a finite 0).
+template <bool PAGED>
+__device__ __forceinline__ void stage_scales(float* ks_dst, float* vs_dst,
+                                             const float* __restrict__ k_scale,
+                                             const float* __restrict__ v_scale, const Geo& G,
+                                             const int* __restrict__ table, int bi, int h,
+                                             int t0, int valid) {
+  for (int p = threadIdx.x; p < TILE; p += THREADS) {
+    const bool in = t0 + p < valid;
+    const int64_t o = in ? pos_index<PAGED>(G, table, bi, h, t0 + p) : 0;
+    ks_dst[p] = in ? k_scale[o] : 0.f;
+    vs_dst[p] = in ? v_scale[o] : 0.f;
+  }
+}
+
+// A staged one-byte tile [TILE][DP] raised to a bf16 tile [TILE][ld]
+// (exact: every int8 and e4m3 value is a bf16 value).
+template <typename T, int DP>
+__device__ __forceinline__ void raise_tile(bf16* dst, int ld, const T* src) {
+  constexpr int CPR = DP / 16;
+  for (int e = threadIdx.x; e < TILE * CPR; e += THREADS) {
+    const int p = e / CPR, c = (e % CPR) * 16;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + p * DP + c);
+    const T* x = reinterpret_cast<const T*>(&u);
+    uint4 w[2];
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      o2[i] = __floats2bfloat162_rn(byte_to_f32(x[2 * i]), byte_to_f32(x[2 * i + 1]));
+    uint4* out = reinterpret_cast<uint4*>(dst + p * ld + c);
+    out[0] = w[0];
+    out[1] = w[1];
+  }
 }
 
 __device__ __forceinline__ int64_t q_row(const Geo& G, int bi, int h, int r) {
@@ -168,18 +233,29 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // Grid (row tiles of 64, h_kv, b), 128 threads. Warp w owns rows
 // [16w, 16w + 16) of the tile; in mma fragment terms a thread holds rows
 // gid and gid + 8 (gid = lane / 4) and, of each 8-wide n tile, the columns
-// 2 * (lane % 4) and +1.
-template <int DP, bool PAGED>
+// 2 * (lane % 4) and +1. T is the cache's type: bf16 (K13/K14), or int8 /
+// fp8 (K40: staged in one byte, raised to a single bf16 tile, row scales
+// folded in).
+template <int DP, bool PAGED, typename T>
 __global__ void __launch_bounds__(THREADS) verify_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ lens, const int* __restrict__ table, float* __restrict__ out,
-    float* __restrict__ lse, Geo G, float scale, float soft_cap, int vec) {
+    const bf16* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ lens, const int* __restrict__ table,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    float* __restrict__ out, float* __restrict__ lse, Geo G, float scale, float soft_cap,
+    int vec) {
+  constexpr bool QUANT = sizeof(T) == 1;
   constexpr int LD = DP + 8;  // +16 bytes a row staggers ldmatrix banks
   constexpr int NT = DP / 8;  // 8-wide head-dim tiles of the output
+  constexpr int KV_BUFS = QUANT ? 1 : 2;  // bf16 tiles (QUANT: one, raised from staging)
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);        // [64][LD]
-  bf16* k_s = q_s + MMA_ROWS * LD;                  // [2][TILE][LD]
-  bf16* v_s = k_s + 2 * TILE * LD;                  // [2][TILE][LD]
+  bf16* k_s = q_s + MMA_ROWS * LD;                  // [KV_BUFS][TILE][LD]
+  bf16* v_s = k_s + KV_BUFS * TILE * LD;            // [KV_BUFS][TILE][LD]
+  // QUANT: the one-byte staging [2][TILE][DP] each, then the scales [2][TILE] each
+  T* k8_s = reinterpret_cast<T*>(v_s + KV_BUFS * TILE * LD);
+  T* v8_s = k8_s + 2 * TILE * DP;
+  float* ks_s = reinterpret_cast<float*>(v8_s + 2 * TILE * DP);
+  float* vs_s = ks_s + 2 * TILE;
   __shared__ int extent_s;
 
   const int bi = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * MMA_ROWS;
@@ -190,6 +266,24 @@ __global__ void __launch_bounds__(THREADS) verify_mma_kernel(
   // this thread's two rows and their prefix lengths
   const int r_lo = row0 + warp * 16 + gid, r_hi = r_lo + 8;
   const int len_lo = row_len(G, lens, bi, r_lo), len_hi = row_len(G, lens, bi, r_hi);
+
+  // stage cache tile `t` into buffer `nb` (QUANT: the one-byte staging and
+  // its scales)
+  auto stage = [&](int t, int nb) {
+    if constexpr (QUANT) {
+      stage_tile<T, PAGED>(k8_s + nb * TILE * DP, DP, DP, k, G, table, bi, h, t * TILE,
+                           extent, vec);
+      stage_tile<T, PAGED>(v8_s + nb * TILE * DP, DP, DP, v, G, table, bi, h, t * TILE,
+                           extent, vec);
+      stage_scales<PAGED>(ks_s + nb * TILE, vs_s + nb * TILE, k_scale, v_scale, G, table, bi,
+                          h, t * TILE, extent);
+    } else {
+      stage_tile<bf16, PAGED>(k_s + nb * TILE * LD, LD, DP, k, G, table, bi, h, t * TILE,
+                              extent, vec);
+      stage_tile<bf16, PAGED>(v_s + nb * TILE * LD, LD, DP, v, G, table, bi, h, t * TILE,
+                              extent, vec);
+    }
+  };
 
   // q rows of the tile, zero past S*g and past d
   for (int e = threadIdx.x; e < MMA_ROWS * (DP / 8); e += THREADS) {
@@ -208,10 +302,7 @@ __global__ void __launch_bounds__(THREADS) verify_mma_kernel(
       *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
     }
   }
-  if (n_tiles > 0) {
-    stage_tile<bf16, PAGED>(k_s, LD, DP, k, G, table, bi, h, 0, extent, vec);
-    stage_tile<bf16, PAGED>(v_s, LD, DP, v, G, table, bi, h, 0, extent, vec);
-  }
+  if (n_tiles > 0) stage(0, 0);
   cp_async_commit();
 
   float o[NT][4];
@@ -223,19 +314,22 @@ __global__ void __launch_bounds__(THREADS) verify_mma_kernel(
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
-      const int nb = buf ^ 1;
-      stage_tile<bf16, PAGED>(k_s + nb * TILE * LD, LD, DP, k, G, table, bi, h,
-                              (it + 1) * TILE, extent, vec);
-      stage_tile<bf16, PAGED>(v_s + nb * TILE * LD, LD, DP, v, G, table, bi, h,
-                              (it + 1) * TILE, extent, vec);
+      stage(it + 1, buf ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* kt = k_s + buf * TILE * LD;
-    const bf16* vt = v_s + buf * TILE * LD;
+    const bf16* kt = k_s + (QUANT ? 0 : buf) * TILE * LD;
+    const bf16* vt = v_s + (QUANT ? 0 : buf) * TILE * LD;
+    const float* ks_t = ks_s + buf * TILE;
+    const float* vs_t = vs_s + buf * TILE;
+    if constexpr (QUANT) {
+      raise_tile<T, DP>(k_s, LD, k8_s + buf * TILE * DP);
+      raise_tile<T, DP>(v_s, LD, v8_s + buf * TILE * DP);
+      __syncthreads();
+    }
     const int t0 = it * TILE;
 
     // (a) S = Q . K^T over the tile: 8 n tiles of 8 positions
@@ -255,15 +349,17 @@ __global__ void __launch_bounds__(THREADS) verify_mma_kernel(
         mma_bf16(s[2 * np + 1], a, bfr + 2);
       }
     }
-    // (b) scale, soft cap, length mask; the online-softmax update of the
-    // thread's two rows
+    // (b) scale (QUANT: dot * (k_scale * scale), the reference's order),
+    // soft cap, length mask; the online-softmax update of the thread's two
+    // rows
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int pos = t0 + nt * 8 + 2 * tig + (e & 1);
-        float sc = s[nt][e] * scale;
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        const int pos = t0 + col;
+        float sc = s[nt][e] * (QUANT ? ks_t[col] * scale : scale);
         if (soft_cap > 0.f) sc = soft_cap * tanhf(sc / soft_cap);
         sc = pos < (e < 2 ? len_lo : len_hi) ? sc : -INFINITY;
         s[nt][e] = sc;
@@ -303,6 +399,17 @@ __global__ void __launch_bounds__(THREADS) verify_mma_kernel(
       o[nt][1] *= al_lo;
       o[nt][2] *= al_hi;
       o[nt][3] *= al_hi;
+    }
+    // QUANT: P's columns times v_scale (l above summed them unscaled)
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float v0 = vs_t[nt * 8 + 2 * tig], v1 = vs_t[nt * 8 + 2 * tig + 1];
+        s[nt][0] *= v0;
+        s[nt][1] *= v1;
+        s[nt][2] *= v0;
+        s[nt][3] *= v1;
+      }
     }
     // (c) O += P . V, P rounded to bf16 (the accumulator layout of two
     // neighbouring n tiles is the A fragment of one 16-deep k step)
@@ -502,23 +609,50 @@ int pow2_at_least(int d, int lo) {
   return p;
 }
 
-template <int DP, bool PAGED>
+template <int DP, bool PAGED, typename T>
 int launch_mma(const void* q, const void* k, const void* v, const void* lens,
-               const void* table, float* out, float* lse, const Geo& G, float scale,
-               float soft_cap, cudaStream_t st) {
+               const void* table, const void* k_scale, const void* v_scale, float* out,
+               float* lse, const Geo& G, float scale, float soft_cap, cudaStream_t st) {
+  constexpr bool QUANT = sizeof(T) == 1;
   constexpr int LD = DP + 8;
-  const size_t smem = (size_t)(MMA_ROWS + 4 * TILE) * LD * sizeof(bf16);
-  auto kernel = verify_mma_kernel<DP, PAGED>;
+  // q, the bf16 K/V tiles (two buffers, or one raised from the one-byte
+  // staging), and for a one-byte cache the staging and the scales
+  const size_t smem = (size_t)(MMA_ROWS + (QUANT ? 2 : 4) * TILE) * LD * sizeof(bf16) +
+                      (QUANT ? 4 * (size_t)TILE * DP + 4 * TILE * sizeof(float) : 0);
+  if (QUANT && (k_scale == nullptr || v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = verify_mma_kernel<DP, PAGED, T>;
   if (int rc = set_smem(kernel, smem)) return rc;
-  const int vec = (G.d % 8 == 0) && (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
+  // 16-byte copies: 8 bf16 of q, 8 bf16 or 16 one-byte values of the cache
+  const int vec = (G.d % (16 / (int)sizeof(T)) == 0) && (G.d % 8 == 0) &&
+                  (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(v) % 16 == 0);
   const dim3 grid(cdiv(G.S * G.g, MMA_ROWS), G.h_kv, G.b);
   kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(lens), static_cast<const int*>(table), out, lse, G, scale,
-      soft_cap, vec);
+      static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(lens), static_cast<const int*>(table),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), out, lse, G,
+      scale, soft_cap, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the mma head dim: the power of two >= d (_kernel_head_dim), at least 64
+template <bool PAGED, typename T>
+int launch_mma_dp(const void* q, const void* k, const void* v, const void* lens,
+                  const void* table, const void* ks, const void* vs, float* o, float* l,
+                  const Geo& G, float scale, float soft_cap, cudaStream_t st) {
+  switch (pow2_at_least(G.d, 64)) {
+    case 64:
+      return launch_mma<64, PAGED, T>(q, k, v, lens, table, ks, vs, o, l, G, scale, soft_cap,
+                                      st);
+    case 128:
+      return launch_mma<128, PAGED, T>(q, k, v, lens, table, ks, vs, o, l, G, scale,
+                                       soft_cap, st);
+    default:
+      return launch_mma<256, PAGED, T>(q, k, v, lens, table, ks, vs, o, l, G, scale,
+                                       soft_cap, st);
+  }
 }
 
 template <bool PAGED>
@@ -542,43 +676,55 @@ int launch_fma(const void* q, const void* k, const void* v, const void* lens,
 
 template <bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* lens, const void* table,
-           void* out, void* lse, int dtype, Geo G, float scale, float soft_cap,
-           void* stream) {
+           const void* ks, const void* vs, void* out, void* lse, int dtype, Geo G,
+           float scale, float soft_cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float *o = static_cast<float*>(out), *l = static_cast<float*>(lse);
   if (G.h_kv <= 0 || G.hq % G.h_kv != 0 || G.d < 1 || G.d > 256 || G.b < 1 || G.S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   G.g = G.hq / G.h_kv;
-  if (dtype == kF32) return launch_fma<PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
-  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
-  // the mma head dim: the power of two >= d (_kernel_head_dim), at least 64
-  switch (pow2_at_least(G.d, 64)) {
-    case 64:
-      return launch_mma<64, PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
-    case 128:
-      return launch_mma<128, PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
-    default:
-      return launch_mma<256, PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
+  switch (dtype) {
+    case kF32:
+      return launch_fma<PAGED>(q, k, v, lens, table, o, l, G, scale, soft_cap, st);
+    case kBF16:
+      return launch_mma_dp<PAGED, bf16>(q, k, v, lens, table, nullptr, nullptr, o, l, G,
+                                        scale, soft_cap, st);
   }
+  // a one-byte cache: contiguous only, as the reference's quantized verify
+  if constexpr (!PAGED) {
+    if (dtype == kI8)
+      return launch_mma_dp<false, int8_t>(q, k, v, lens, table, ks, vs, o, l, G, scale,
+                                          soft_cap, st);
+    if (dtype == kFP8)
+      return launch_mma_dp<false, fp8>(q, k, v, lens, table, ks, vs, o, l, G, scale,
+                                       soft_cap, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// k_scale / v_scale: f32 row scales of a one-byte cache (dtype kI8, kFP8),
+// null for a float one.
 extern "C" int tdt_flash_verify(const void* q, const void* k, const void* v,
-                                const void* kv_lens, void* out, void* lse, int dtype, int b,
-                                int S, int hq, int h_kv, int d, int s_len, float scale,
-                                float soft_cap, void* stream) {
+                                const void* kv_lens, const void* k_scale, const void* v_scale,
+                                void* out, void* lse, int dtype, int b, int S, int hq,
+                                int h_kv, int d, int s_len, float scale, float soft_cap,
+                                void* stream) {
   const Geo G{b, S, hq, h_kv, 1, d, s_len, 1, 1};
-  return launch<false>(q, k, v, kv_lens, nullptr, out, lse, dtype, G, scale, soft_cap, stream);
+  return launch<false>(q, k, v, kv_lens, nullptr, k_scale, v_scale, out, lse, dtype, G, scale,
+                       soft_cap, stream);
 }
 
 extern "C" int tdt_paged_flash_verify(const void* q, const void* k, const void* v,
-                                      const void* kv_lens, const void* table, void* out,
+                                      const void* kv_lens, const void* table,
+                                      const void* k_scale, const void* v_scale, void* out,
                                       void* lse, int dtype, int b, int S, int hq, int h_kv,
                                       int d, int page, int max_pages, float scale,
                                       float soft_cap, void* stream) {
   const Geo G{b, S, hq, h_kv, 1, d, page * max_pages, page, max_pages};
-  return launch<true>(q, k, v, kv_lens, table, out, lse, dtype, G, scale, soft_cap, stream);
+  return launch<true>(q, k, v, kv_lens, table, k_scale, v_scale, out, lse, dtype, G, scale,
+                      soft_cap, stream);
 }
 
 extern "C" const char* tdt_error_string(int code) {

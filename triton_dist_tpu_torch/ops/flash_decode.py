@@ -25,6 +25,20 @@ S]``, results ``out f32 [b, S, hq, d]`` and ``lse f32 [b, S, hq]``.
 prefill entries derive each row's prefix in the rank's shard from the
 range's first position (:func:`_ranged_local_lens`), so composing
 consecutive ranges gives every row the same mask as one whole-range pass.
+
+Quantized caches (≙ ``:1211-1411``, ``:1766-1821``): :func:`quantize_kv`
+and :func:`quantize_kv_fp8` (and their page-pool twins) store each cache
+row as one byte a value (int8, or fp8 e4m3) with an f32 absmax scale a
+(sequence or page, kv head, position), scales ``[b, h_kv, 1, s]`` or
+``[n_pages, h_kv, 1, page]``. :func:`flash_decode_quant` (K38),
+``paged_flash_decode(k_scales=, v_scales=)`` (K39) and
+``flash_verify(scales=)`` (K40) read them: q rides bf16, the payload
+rises to bf16 exactly, each score column is multiplied by ``k_scale[pos]
+* scale`` and each probability by ``v_scale[pos]`` (rounded to bf16) before
+P.V. Their plain versions (:func:`_plain_decode_quant`,
+:func:`_plain_verify_quant`) do the same in one pass and run on the CPU;
+there is no other fallback, as the reference has no golden slow path for
+a quantized cache.
 """
 
 from __future__ import annotations
@@ -42,7 +56,14 @@ from triton_dist_tpu_torch.utils import axis_index, axis_size, cdiv, count_call,
 
 NEG_INF = float("-inf")
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# fp8 KV cache: the e4m3 variant with a finite max of 448, where the absmax
+# maps (≙ ``FP8_KV_DTYPE``/``_FP8_KV_MAX``, ``:61-62``)
+FP8_KV_DTYPE = torch.float8_e4m3fn
+_FP8_KV_MAX = 448.0
+
+# cache dtype codes of csrc/flash_decode.cu and csrc/flash_verify.cu (DType)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, FP8_KV_DTYPE: 3}
+_QUANT_DTYPES = (torch.int8, FP8_KV_DTYPE)
 _TILE = 64       # positions per online-softmax step (csrc TILE)
 _MAX_G = 16      # query heads per kv head (csrc MAX_G)
 _MAX_D = 256     # padded head dim (csrc: two columns per thread of 128)
@@ -50,12 +71,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _PROTOTYPES = {
-    "tdt_flash_decode": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
-    "tdt_paged_flash_decode": [_P] * 9 + [_I] * 10 + [_F, _F, _P],
+    "tdt_flash_decode": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
+    "tdt_paged_flash_decode": [_P] * 11 + [_I] * 10 + [_F, _F, _P],
 }
 _VERIFY_PROTOTYPES = {
-    "tdt_flash_verify": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
-    "tdt_paged_flash_verify": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
+    "tdt_flash_verify": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    "tdt_paged_flash_verify": [_P] * 9 + [_I] * 8 + [_F, _F, _P],
 }
 
 
@@ -68,7 +89,14 @@ class FlashDecodeConfig:
     kernel reads each K/V row once for all heads of its group on a
     split-KV grid of its own, so it accepts both and needs neither.
     ``soft_cap`` (> 0) squashes the scaled scores through ``soft_cap *
-    tanh(s / soft_cap)`` before the length mask, on every path."""
+    tanh(s / soft_cap)`` before the length mask, on every path.
+
+    The caches the kernels take: bf16 or f32 (q is cast to the cache's
+    dtype), or one byte a value — int8 or fp8 e4m3 with f32 row scales —
+    where q is cast to bf16 (the reference's contract: a quantized cache
+    upcasts to bf16 in the kernel, so f32 queries lose precision there).
+    ``block_s=0`` (the reference's XLA-native path) has no quantized form
+    and is refused for a one-byte cache, as there."""
 
     block_s: int = 2048
     fuse_heads: bool = False
@@ -140,6 +168,119 @@ def _xla_paged_decode(q, k_pages, v_pages, kv_lens, block_table, *,
     )
 
 
+def _quantize_rows(x: torch.Tensor, q_max: float):
+    """Absmax rows over the head dim: ``(x / s[..., None], s)`` in f32, with
+    ``s = max(absmax / q_max, 1e-8)`` over the leading dims. Both divisions
+    are by tensors: PyTorch's CUDA division by a Python scalar multiplies by
+    its rounded reciprocal, which would leave the card's scales an ulp off
+    the CPU's (and the reference's, which divides exactly)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = torch.clamp(amax / amax.new_full((), q_max), min=1e-8)
+    return xf / s[..., None], s
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """Per-(sequence, kv head, position) absmax int8 quantization of a KV
+    cache ``[b, h_kv, s, d]`` (≙ ``quantize_kv``, ``:1211``): ``(k_q, v_q,
+    k_scale, v_scale)``, int8 payloads and f32 scales ``[b, h_kv, 1, s]``;
+    round half to even, clipped to ±127."""
+
+    def q1(x):
+        xs, s = _quantize_rows(x, 127.0)
+        return torch.clamp(torch.round(xs), -127, 127).to(torch.int8), s[..., None, :]
+
+    (k_q, k_s), (v_q, v_s) = q1(k), q1(v)
+    return k_q, v_q, k_s, v_s
+
+
+def quantize_kv_fp8(k: torch.Tensor, v: torch.Tensor):
+    """fp8 e4m3 twin of :func:`quantize_kv` (≙ ``quantize_kv_fp8``,
+    ``:1281``): 448 in 127's seat, clipped, the rounding left to the cast
+    (nearest even)."""
+
+    def q1(x):
+        xs, s = _quantize_rows(x, _FP8_KV_MAX)
+        return torch.clamp(xs, -_FP8_KV_MAX, _FP8_KV_MAX).to(FP8_KV_DTYPE), s[..., None, :]
+
+    (k_q, k_s), (v_q, v_s) = q1(k), q1(v)
+    return k_q, v_q, k_s, v_s
+
+
+def quantize_kv_pages(k_pages: torch.Tensor, v_pages: torch.Tensor):
+    """:func:`quantize_kv` over a page pool ``[n_pages, h_kv, page, d]``
+    (≙ ``:1766``): scales ``[n_pages, h_kv, 1, page]``."""
+    return quantize_kv(k_pages, v_pages)
+
+
+def quantize_kv_pages_fp8(k_pages: torch.Tensor, v_pages: torch.Tensor):
+    """:func:`quantize_kv_fp8` over a page pool (≙ ``:1799``)."""
+    return quantize_kv_fp8(k_pages, v_pages)
+
+
+def _quant_softmax(s, v, vs, valid, soft_cap, spec):
+    """The quantized contract of ``_online_softmax_step`` (``:195-239``) in
+    one pass over scores ``s`` (already ``dot(q, k) * (k_scale * scale)``):
+    soft cap, length mask, ``l`` over the unrounded probabilities, P.V on
+    ``(p * v_scale)`` rounded to bf16 against the bf16 payload, f32 sums;
+    then ``_finalize_softmax`` (``:242``). `spec` is the P.V einsum."""
+    if soft_cap:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.clamp(m, min=-1e30)  # kv_len == 0 rows: avoid inf - inf
+    p = torch.exp(s - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum(spec, (p * vs).to(torch.bfloat16).float(),
+                       v.to(torch.bfloat16).float())
+    out = torch.where(l > 0, acc / torch.clamp(l, min=1e-30), 0.0)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return out, lse
+
+
+def _plain_decode_quant(q, k, v, k_scale, v_scale, kv_lens, *, return_lse, soft_cap=0.0):
+    """Plain version of K38 (the reference's quantized decode body over one
+    chunk spanning the cache): q rounded to bf16, the one-byte payload
+    raised to bf16, the row scales folded as :func:`_quant_softmax`."""
+    count_call(_plain_decode_quant)
+    b, hq, d = q.shape
+    _, h_kv, s_len, _ = k.shape
+    g = hq // h_kv
+    q4 = q.to(torch.bfloat16).float().reshape(b, h_kv, g, d)
+    s = torch.einsum("bhgd,bhsd->bhgs", q4, k.to(torch.bfloat16).float())
+    s = s * (k_scale * (1.0 / math.sqrt(d)))         # [b, h_kv, 1, s] over g
+    span = torch.arange(s_len, device=q.device)
+    valid = span[None, None, None, :] < kv_lens.long()[:, None, None, None]
+    out, lse = _quant_softmax(s, v, v_scale, valid, soft_cap, "bhgs,bhsd->bhgd")
+    out = out.reshape(b, hq, d)
+    return (out, lse.reshape(b, hq)) if return_lse else out
+
+
+_plain_decode_quant.calls = 0
+
+
+def _paged_scales_to_contiguous(scales, block_table):
+    """``[n_pages, h_kv, 1, page]`` + ``[b, max_pages]`` →
+    ``[b, h_kv, 1, max_pages * page]``."""
+    b, max_pages = block_table.shape
+    x = scales[block_table.long()]  # [b, max_pages, h_kv, 1, page]
+    _, _, h_kv, _, page = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(b, h_kv, 1, max_pages * page)
+
+
+def _plain_paged_decode_quant(q, k_pages, v_pages, k_scales, v_scales, kv_lens,
+                              block_table, *, return_lse=False, soft_cap=0.0):
+    """Plain version of K39: payload and scale pages gathered back into a
+    contiguous cache, then :func:`_plain_decode_quant`."""
+    return _plain_decode_quant(
+        q, _paged_to_contiguous(k_pages, block_table),
+        _paged_to_contiguous(v_pages, block_table),
+        _paged_scales_to_contiguous(k_scales, block_table),
+        _paged_scales_to_contiguous(v_scales, block_table),
+        kv_lens, return_lse=return_lse, soft_cap=soft_cap,
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -154,16 +295,28 @@ def _split_plan(device: torch.device, blocks: int, s_len: int) -> tuple[int, int
     return cdiv(s_len, chunk), chunk
 
 
-def _check_operands(q, k, v, kv_lens, block_table=None, max_g=_MAX_G):
+def _check_operands(q, k, v, kv_lens, block_table=None, max_g=_MAX_G, scales=None):
     tensors = [q, k, v, kv_lens] + ([] if block_table is None else [block_table])
+    tensors += [] if scales is None else list(scales)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash decode operands must share one CUDA device")
     if k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
-        raise TypeError(f"flash decode takes a bf16 or f32 cache, got {k.dtype}/{v.dtype}")
+        raise TypeError(
+            "flash decode takes a bf16 or f32 cache, or an int8 or fp8 (e4m3fn) "
+            f"cache with f32 row scales (q then rides bf16); got {k.dtype}/{v.dtype}"
+        )
+    quant = k.dtype in _QUANT_DTYPES
+    if quant != (scales is not None):
+        raise TypeError("an int8 or fp8 cache needs its k and v row scales, a float one none")
     if kv_lens.dtype != torch.int32 or (
         block_table is not None and block_table.dtype != torch.int32
     ):
         raise TypeError("kv_lens and block_table are int32")
+    if quant:
+        want = (*k.shape[:2], 1, k.shape[2])
+        if any(x.dtype != torch.float32 or tuple(x.shape) != want for x in scales):
+            raise ValueError(f"row scales are f32 {list(want)}, got "
+                             f"{[(x.dtype, tuple(x.shape)) for x in scales]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash decode takes contiguous operands")
     hq, d = q.shape[-2:]
@@ -175,12 +328,23 @@ def _check_operands(q, k, v, kv_lens, block_table=None, max_g=_MAX_G):
         )
 
 
-def _launch_decode(q, k, v, kv_lens, block_table, soft_cap):
-    """Launch the split-KV kernel and its merge; returns (out, lse)."""
+def _compute_dtype(k):
+    """The dtype the kernels read q in: bf16 for a one-byte cache (it rises
+    to bf16 in the kernel), else the cache's own."""
+    return torch.bfloat16 if k.dtype in _QUANT_DTYPES else k.dtype
+
+
+def _scale_ptrs(scales):
+    return (None, None) if scales is None else (scales[0].data_ptr(), scales[1].data_ptr())
+
+
+def _launch_decode(q, k, v, kv_lens, block_table, soft_cap, scales=None):
+    """Launch the split-KV kernel and its merge (K2/K3, or K38/K39 with
+    `scales`); returns (out, lse)."""
     b, hq, d = q.shape
     h_kv = k.shape[1]
-    q = q.to(k.dtype).contiguous()  # the kernel reads q in the cache dtype
-    _check_operands(q, k, v, kv_lens, block_table)
+    q = q.to(_compute_dtype(k)).contiguous()
+    _check_operands(q, k, v, kv_lens, block_table, scales=scales)
     if block_table is None:
         s_len = k.shape[2]
     else:
@@ -195,8 +359,8 @@ def _launch_decode(q, k, v, kv_lens, block_table, soft_cap):
     # shared-memory rows: the padded head dim, at least one 16-byte chunk
     dp = max(_kernel_head_dim(d), 16 // k.element_size())
     common = (
-        out_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _DTYPE_CODE[k.dtype], b, hq, h_kv, d, dp,
+        *_scale_ptrs(scales), out_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), _DTYPE_CODE[k.dtype], b, hq, h_kv, d, dp,
     )
     tail = (splits, chunk, 1.0 / math.sqrt(d), float(soft_cap), _build.stream_of(q))
     lib = _build.library("flash_decode", _PROTOTYPES)
@@ -238,6 +402,52 @@ def flash_decode(
 flash_decode.launches = 0
 
 
+def _refuse_xla_native(cfg: FlashDecodeConfig, what: str) -> None:
+    if cfg.block_s == 0:
+        raise ValueError(
+            "block_s=0 (XLA-native) supports only the contiguous bf16 "
+            f"cache; {what} caches need the kernel"
+        )
+
+
+def flash_decode_quant(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    v_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    config: FlashDecodeConfig | None = None,
+    return_lse: bool = False,
+):
+    """GQA batch decode over a one-byte cache (K38, ≙ ``flash_decode_quant``,
+    ``:1235``, and ``flash_decode_fp8``, ``:1303``: the same kernel, the
+    payload dtype decides): k_q, v_q ``[b, h_kv, s, d]`` int8 or fp8 e4m3
+    from :func:`quantize_kv` / :func:`quantize_kv_fp8`, scales f32 ``[b,
+    h_kv, 1, s]``. q rides bf16. Returns like :func:`flash_decode`."""
+    cfg = config or FlashDecodeConfig()
+    _refuse_xla_native(cfg, "int8/fp8")
+    if q.device.type == "cpu":
+        return _plain_decode_quant(q, k_q, v_q, k_scale, v_scale, kv_lens,
+                                   return_lse=return_lse, soft_cap=cfg.soft_cap)
+    out, lse = _launch_decode(q, k_q, v_q, kv_lens, None, cfg.soft_cap,
+                              scales=(k_scale, v_scale))
+    count_launch(flash_decode_quant)
+    return (out, lse) if return_lse else out
+
+
+flash_decode_quant.launches = 0
+
+
+def flash_decode_fp8(q, k_q, v_q, k_scale, v_scale, kv_lens, *, config=None,
+                     return_lse=False):
+    """fp8 twin of :func:`flash_decode_quant` (≙ ``:1303``): the same K38
+    launch over an fp8 e4m3 cache from :func:`quantize_kv_fp8`."""
+    return flash_decode_quant(q, k_q, v_q, k_scale, v_scale, kv_lens, config=config,
+                              return_lse=return_lse)
+
+
 def paged_flash_decode(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -245,6 +455,8 @@ def paged_flash_decode(
     kv_lens: torch.Tensor,
     block_table: torch.Tensor,
     *,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
     fuse_heads: bool | None = None,
     pages_per_step: int | None = None,
     soft_cap: float = 0.0,
@@ -255,19 +467,49 @@ def paged_flash_decode(
     int32 physical page ids (entries past the valid length may be any
     in-range value — the kernel reads only pages below ``ceil(kv_len /
     page)``). ``fuse_heads`` and ``pages_per_step`` pick the TPU kernel's
-    grid and per-step span; the CUDA kernel accepts and needs neither."""
+    grid and per-step span; the CUDA kernel accepts and needs neither.
+
+    ``k_scales``/``v_scales`` (f32 ``[n_pages, h_kv, 1, page]``, from
+    :func:`quantize_kv_pages` / :func:`quantize_kv_pages_fp8`): one-byte
+    pools, read by K39 — each scale row found through the block table like
+    its payload row. Its launches count on ``quant_launches``."""
     del fuse_heads, pages_per_step
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_flash_decode: pass both k_scales and v_scales, or neither")
+    scales = None if k_scales is None else (k_scales, v_scales)
     if q.device.type == "cpu":
+        if scales is not None:
+            return _plain_paged_decode_quant(q, k_pages, v_pages, *scales, kv_lens,
+                                             block_table, return_lse=return_lse,
+                                             soft_cap=soft_cap)
         return _xla_paged_decode(
             q, k_pages, v_pages, kv_lens, block_table,
             return_lse=return_lse, soft_cap=soft_cap,
         )
-    out, lse = _launch_decode(q, k_pages, v_pages, kv_lens, block_table, soft_cap)
-    count_launch(paged_flash_decode)
+    out, lse = _launch_decode(q, k_pages, v_pages, kv_lens, block_table, soft_cap,
+                              scales=scales)
+    count_launch(paged_flash_decode, "launches" if scales is None else "quant_launches")
     return (out, lse) if return_lse else out
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.quant_launches = 0
+
+
+def paged_flash_decode_quant(q, k_pages_q, v_pages_q, k_scales, v_scales, kv_lens,
+                             block_table, **kw):
+    """int8-pool paged decode (≙ ``:1779``): :func:`paged_flash_decode`
+    with the scale pools attached, arguments in the contiguous entry's
+    order."""
+    return paged_flash_decode(q, k_pages_q, v_pages_q, kv_lens, block_table,
+                              k_scales=k_scales, v_scales=v_scales, **kw)
+
+
+def paged_flash_decode_fp8(q, k_pages_q, v_pages_q, k_scales, v_scales, kv_lens,
+                           block_table, **kw):
+    """fp8-pool paged decode (≙ ``:1805``): the same alias over fp8 pools."""
+    return paged_flash_decode(q, k_pages_q, v_pages_q, kv_lens, block_table,
+                              k_scales=k_scales, v_scales=v_scales, **kw)
 
 
 def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
@@ -339,6 +581,60 @@ def paged_flash_decode_distributed(
     return _sp_allgather_combine(out, lse, ctx, ag_method)
 
 
+def flash_decode_quant_distributed(
+    q, k_q, v_q, k_scale, v_scale, kv_lens_shard, *,
+    config: FlashDecodeConfig | None = None, ctx=None, ag_method: str = "full_mesh_push",
+):
+    """SP decode over a sequence-sharded int8 cache (call inside ``ctx.run``;
+    ≙ ``:1259``): each rank's quantized partial (K38), then the (out, lse)
+    allgather merge."""
+    out, lse = flash_decode_quant(q, k_q, v_q, k_scale, v_scale, kv_lens_shard,
+                                  config=config, return_lse=True)
+    return _sp_allgather_combine(out, lse, ctx, ag_method)
+
+
+def flash_decode_fp8_distributed(
+    q, k_q, v_q, k_scale, v_scale, kv_lens_shard, *,
+    config: FlashDecodeConfig | None = None, ctx=None, ag_method: str = "full_mesh_push",
+):
+    """SP decode over a sequence-sharded fp8 cache (≙ ``:1326``)."""
+    out, lse = flash_decode_fp8(q, k_q, v_q, k_scale, v_scale, kv_lens_shard,
+                                config=config, return_lse=True)
+    return _sp_allgather_combine(out, lse, ctx, ag_method)
+
+
+def flash_decode_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    ctx=None,
+    config: FlashDecodeConfig | None = None,
+) -> torch.Tensor:
+    """Host-level SP entry (≙ ``flash_decode_op``, ``:1917``): k, v ``[b,
+    h_kv, S, d]`` over the whole sequence, q and the global ``kv_lens``
+    replicated. Rank r takes positions ``[r S/n, (r+1) S/n)`` (on its
+    device), its local lengths ``clip(kv_lens - r S/n, 0, S/n)``, and every
+    rank returns the merged output; rank 0's comes back on q's device. The
+    reference's autotuner and golden fallback around it are not ported:
+    the kernel runs or raises."""
+    n = axis_size(ctx)
+    if k.shape[2] % n:
+        raise ValueError(f"flash_decode_op: S={k.shape[2]} over {n} ranks")
+    if n == 1:
+        return flash_decode(q, k, v, kv_lens, config=config)
+    s_shard = k.shape[2] // n
+
+    def body():
+        r, dev = ctx.rank, ctx.rank_device
+        part = [x[:, :, r * s_shard:(r + 1) * s_shard].contiguous().to(dev) for x in (k, v)]
+        local = torch.clamp(kv_lens.to(dev).long() - r * s_shard, 0, s_shard).to(torch.int32)
+        return flash_decode_distributed(q.to(dev), *part, local, config=config, ctx=ctx)
+
+    return ctx.run(body)[0].to(q.device)
+
+
 # ------------------------------------------------ multi-position verify ----
 
 
@@ -386,19 +682,44 @@ def _xla_paged_verify(q, k_pages, v_pages, kv_lens, block_table, *,
     )
 
 
-def _launch_verify(q, k, v, kv_lens, block_table, soft_cap):
-    """Launch K13 (contiguous) or K14 (paged); returns (out, lse)."""
+def _plain_verify_quant(q, k, v, k_scale, v_scale, kv_lens, *, return_lse, soft_cap=0.0):
+    """Plain version of K40 (the reference's quantized verify body,
+    ``_flash_verify_body`` with scales, over one chunk spanning the cache):
+    per-(sequence, position) prefix masks, q rounded to bf16, the row scales
+    folded as :func:`_quant_softmax`."""
+    count_call(_plain_verify_quant)
+    b, S, hq, d = q.shape
+    _, h_kv, s_len, _ = k.shape
+    g = hq // h_kv
+    q5 = q.to(torch.bfloat16).float().reshape(b, S, h_kv, g, d)
+    s = torch.einsum("bshgd,bhtd->bshgt", q5, k.to(torch.bfloat16).float())
+    s = s * (k_scale * (1.0 / math.sqrt(d)))[:, None]   # [b, 1, h_kv, 1, t]
+    span = torch.arange(s_len, device=q.device)
+    valid = (span[None, None, :] < kv_lens.long()[:, :, None])[:, :, None, None, :]
+    out, lse = _quant_softmax(s, v, v_scale[:, None], valid, soft_cap,
+                              "bshgt,bhtd->bshgd")
+    out = out.reshape(b, S, hq, d)
+    return (out, lse.reshape(b, S, hq)) if return_lse else out
+
+
+_plain_verify_quant.calls = 0
+
+
+def _launch_verify(q, k, v, kv_lens, block_table, soft_cap, scales=None):
+    """Launch K13 (contiguous), K14 (paged) or, with `scales`, K40; returns
+    (out, lse)."""
     b, S, hq, d = q.shape
     h_kv = k.shape[1]
-    q = q.to(k.dtype).contiguous()  # the kernel reads q in the cache dtype
-    _check_operands(q, k, v, kv_lens, block_table, max_g=hq)
+    q = q.to(_compute_dtype(k)).contiguous()
+    _check_operands(q, k, v, kv_lens, block_table, max_g=hq, scales=scales)
     if kv_lens.shape != (b, S):
         raise ValueError(f"kv_lens must be [b, S] = {(b, S)}, got {tuple(kv_lens.shape)}")
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((b, S, hq, d), **f32)
     lse = torch.empty((b, S, hq), **f32)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr())
-    common = (out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[k.dtype], b, S, hq, h_kv, d)
+    common = (*_scale_ptrs(scales), out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[k.dtype],
+              b, S, hq, h_kv, d)
     tail = (1.0 / math.sqrt(d), float(soft_cap), _build.stream_of(q))
     lib = _build.library("flash_verify", _VERIFY_PROTOTYPES)
     if block_table is None:
@@ -411,13 +732,6 @@ def _launch_verify(q, k, v, kv_lens, block_table, soft_cap):
         )
         _build.check(lib, rc, "paged_flash_verify")
     return out, lse
-
-
-def _refuse_quantized(what: str):
-    raise NotImplementedError(
-        f"{what}: quantized (int8/fp8) KV caches are not ported yet "
-        "(ROADMAP A7, B13)"
-    )
 
 
 def flash_verify(
@@ -435,18 +749,35 @@ def flash_verify(
     k/v already written), k, v ``[b, h_kv, s, d]``, kv_lens ``[b, S]``
     int32 — row (b, i) attends cache positions ``< kv_lens[b, i]``.
     Returns f32 ``out [b, S, hq, d]`` (and ``lse [b, S, hq]``).
-    ``scales`` (a quantized cache's row scales) is refused."""
+
+    ``scales=(k_scale, v_scale)`` (f32 ``[b, h_kv, 1, s]``) reads an int8 or
+    fp8 cache through K40, as the reference's ``_flash_verify_fused(scales=)``
+    (``:703``) does; q rides bf16. Those launches count on
+    ``quant_launches``."""
+    cfg = config or FlashDecodeConfig()
     if scales is not None:
-        _refuse_quantized("flash_verify(scales=...)")
-    soft_cap = (config or FlashDecodeConfig()).soft_cap
+        _refuse_xla_native(cfg, "int8/fp8")
+        scales = tuple(scales)
     if q.device.type == "cpu":
-        return _xla_verify(q, k, v, kv_lens, return_lse=return_lse, soft_cap=soft_cap)
-    out, lse = _launch_verify(q, k, v, kv_lens, None, soft_cap)
-    count_launch(flash_verify)
+        if scales is not None:
+            return _plain_verify_quant(q, k, v, *scales, kv_lens, return_lse=return_lse,
+                                       soft_cap=cfg.soft_cap)
+        return _xla_verify(q, k, v, kv_lens, return_lse=return_lse, soft_cap=cfg.soft_cap)
+    out, lse = _launch_verify(q, k, v, kv_lens, None, cfg.soft_cap, scales=scales)
+    count_launch(flash_verify, "launches" if scales is None else "quant_launches")
     return (out, lse) if return_lse else out
 
 
 flash_verify.launches = 0
+flash_verify.quant_launches = 0
+
+
+def flash_verify_fp8(q, k_q, v_q, k_scale, v_scale, kv_lens, *, config=None,
+                     return_lse=False):
+    """Multi-position verify over an fp8 cache (≙ ``flash_verify_fp8``,
+    ``:1349``): :func:`flash_verify` with the cache's row scales (K40)."""
+    return flash_verify(q, k_q, v_q, kv_lens, config=config, return_lse=return_lse,
+                        scales=(k_scale, v_scale))
 
 
 def paged_flash_verify(
@@ -560,13 +891,14 @@ def paged_flash_ranged_prefill_distributed(
     )
 
 
-def flash_verify_fp8(q, k_q, v_q, k_scale, v_scale, kv_lens, **_):
-    """≙ ``flash_verify_fp8`` (``:1349``): refused until A7/B13."""
-    _refuse_quantized("flash_verify_fp8")
-
-
-def flash_ranged_prefill_fp8_distributed(q, k_q_shard, v_q_shard, k_scale, v_scale,
-                                         pos0, **_):
-    """≙ ``flash_ranged_prefill_fp8_distributed`` (``:1383``): refused until
-    A7/B13."""
-    _refuse_quantized("flash_ranged_prefill_fp8_distributed")
+def flash_ranged_prefill_fp8_distributed(
+    q, k_q_shard, v_q_shard, k_scale, v_scale, pos0, *,
+    config: FlashDecodeConfig | None = None, ctx=None, ag_method: str = "full_mesh_push",
+):
+    """fp8 twin of :func:`flash_ranged_prefill_distributed` (≙ ``:1383``):
+    per-row prefix lengths from ``pos0`` in this rank's shard, the fp8
+    multi-position verify (K40), then the (out, lse) merge."""
+    lens = _ranged_local_lens(pos0, q.shape[1], axis_index(ctx), k_q_shard.shape[2])
+    out, lse = flash_verify_fp8(q, k_q_shard, v_q_shard, k_scale, v_scale,
+                                lens.to(q.device), config=config, return_lse=True)
+    return _sp_merge_rows(out, lse, ctx, ag_method)
