@@ -214,7 +214,23 @@ Phases, each printed as a JSON line, each fatal on failure:
    ``flash_decode_op`` at world 4 on the one card) against the world-1
    plain path, the SP entries timed.
 
-The line before the last lists every kernel (K1-K40) with its readings;
+33. the KV handoff stream: K41 (native wire) and K42 (int8 and fp8
+   wires) at full width (every rank's [65536, 1024] slab, the KV of one
+   Llama-3.1-8B prompt) at world 2 and 4, chunks 1, 2, 4, bit-exact
+   against the plain exchange and timed beside its bound, the plain
+   version and ``Tensor.copy_`` (with the quantize and dequantize on the
+   one-byte wires); ``kv_stream_path``, the counted run of ``kv_stream_op``
+   on every wire at world 4; ``stuck_wait_kv_stream``;
+34. training on the 2-D runtime: ``train_moe_ep4`` (``mixtral-8x7b:ep``,
+   8 layers, 2 x 1024 tokens, world 4) and ``train_moe_ep_hier``
+   (``:ep-hier`` on ``{"dcn": 2, "tp": 2}``, ``dp_axis="dcn"``), each with
+   falling bf16 losses, a moving router and an f32 small-width step
+   against the CPU plain path; ``train_adam`` (``train_dense``'s model
+   with Adam at world 1 and on ``{"dp": 2, "tp": 2}``, f32 Adam steps
+   against the CPU); ``usp_attention`` (S 8192 on ``{"sp": 2, "tp": 2}``,
+   K27 + K35, against the flat world-4 ring and SDPA).
+
+The line before the last lists every kernel (K1-K42) with its readings;
 the last is ``{"ok": true, "device": {...}}``. With no CUDA device, or
 without the port beside it, the script prints no result and exits
 non-zero.
@@ -222,6 +238,7 @@ non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -245,6 +262,27 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator grows segments in place while the block runs
+    (``expandable_segments``), and returns to fixed-size segments after it.
+    For the training phases that run within a few GB of the card's 80 (the
+    dp x tp Adam step ~61 GB, the hierarchical EP step ~73 GB): with
+    fixed-size segments, blocks free but split (16-24 GB seen) ran them out
+    of memory. Every other phase keeps the default allocator."""
+    import torch
+
+    settings = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+                or torch.cuda.memory._set_allocator_settings)  # older torch
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -307,6 +345,7 @@ class Counters:
         from triton_dist_tpu_torch.ops import allgather_group_gemm as aggg
         from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
         from triton_dist_tpu_torch.ops import group_gemm as gg
+        from triton_dist_tpu_torch.ops import kv_stream as kvs
         from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
         from triton_dist_tpu_torch.ops import reduce_scatter as rs
         from triton_dist_tpu_torch.ops import ring_attention as ra
@@ -358,6 +397,10 @@ class Counters:
             "flash_decode_quant": fd.flash_decode_quant,
             "paged_flash_decode_quant": (fd.paged_flash_decode, "quant_launches"),
             "flash_verify_quant": (fd.flash_verify, "quant_launches"),
+            # the KV handoff stream: K41 native, K42 the one-byte wires (fp8 apart too)
+            "kv_stream": kvs._kv_stream,
+            "kv_stream_w8": kvs._kv_stream_w8,
+            "kv_stream_fp8": (kvs._kv_stream_w8, "fp8_launches"),
         }
         self.plain = {
             "gemm": gemm._matmul_plain, "decode": fd._xla_decode,
@@ -373,6 +416,7 @@ class Counters:
             "ring_attention": ra._ring_attention_plain,
             "ag_gemm_2d": allgather_gemm._ag_gemm_2d_plain,
             "decode_quant": fd._plain_decode_quant, "verify_quant": fd._plain_verify_quant,
+            "kv_stream": kvs._kv_stream_xla,
         }
 
     def _counters(self):
@@ -7071,6 +7115,597 @@ def phase_quant_kv_path(counters: Counters, ctx) -> dict:
     return launches
 
 
+# ----------------------------------------- the KV stream, training on 2-D ----
+
+KV_M, KV_W = 65536, 1024  # one Llama-3.1-8B prompt's KV: 32 layers x (K, V) x 1024 positions, 8 x 128
+KV_WIRES = ("native", "int8", "fp8")
+KV_CHUNKS = (1, 2, 4)
+
+
+def _kv_parts(world, wire, seed):
+    """Every rank's bf16 slab [KV_M, KV_W] (rows over six decades) in the
+    wire's form: ``(payload, scales or None)``."""
+    import torch
+    from triton_dist_tpu_torch.ops import kv_stream as kvs
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(world):
+        x = (torch.randn((KV_M, KV_W), generator=g, device="cuda")
+             * torch.logspace(-3, 3, KV_M, device="cuda")[:, None]).to(torch.bfloat16)
+        out.append((x, None) if wire == "native" else kvs.quantize_kv_wire_for(wire, x))
+    return out
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def phase_kv_stream() -> list[dict]:
+    """K41 (native wire) and K42 (int8 and fp8) at full width: every rank's
+    [65536, 1024] slab (the KV of one Llama-3.1-8B prompt, 128 MiB bf16;
+    64 MiB + 256 KiB of scales on the one-byte wires) exchanged with its
+    mirror at world 2 and 4 on the one card, chunks 1, 2 and 4; every cell
+    bit-exact against the plain exchange (a copy), then timed beside the
+    plain version, the bound (every rank's slab and scales read once and
+    written once at the HBM rate) and the library yardstick:
+    ``Tensor.copy_`` of the mirror's payload (and, on the one-byte wires,
+    its scales) on every rank, the same bytes the kernel moves; on the
+    one-byte wires the round trip a bf16 slab would take without the wire
+    format (quantize, copy, dequantize) is reported beside it, not as the
+    yardstick."""
+    import torch
+    from triton_dist_tpu_torch.ops import kv_stream as kvs
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    cells = {}
+    for world in (2, 4):
+        ctx = initialize_distributed(world)
+        for wire in KV_WIRES:
+            parts = _kv_parts(world, wire, seed=100 + world)
+            plain = ctx.run(lambda: kvs._kv_stream_xla(*parts[ctx.rank], ctx=ctx))
+            nbytes = 2.0 * world * sum(t.numel() * t.element_size()
+                                       for t in parts[0] if t is not None)
+            b_ms, by = bound(0.0, nbytes)
+            ms = {}
+            for chunks in KV_CHUNKS:
+                cfg = kvs.KVStreamConfig(chunks_per_shard=chunks, wire=wire)
+
+                def call(cfg=cfg):
+                    return kvs.kv_stream(*parts[ctx.rank], ctx=ctx, config=cfg)
+
+                for r, got in enumerate(ctx.run(call)):
+                    want = plain[r]
+                    ok = (_same_bytes(got, want) if wire == "native" else
+                          _same_bytes(got[0], want[0]) and _same_bytes(got[1], want[1]))
+                    mirror = parts[kvs.mirror_peer(r, world)][0]
+                    if not ok or not _same_bytes(got if wire == "native" else got[0], mirror):
+                        raise AssertionError(f"kv_stream {wire} world {world} chunks {chunks}: "
+                                             f"rank {r} not bit-exact")
+                del got
+                ms[chunks] = dist_ms(ctx, call, iters=10)
+            plain_ms = dist_ms(ctx, lambda: kvs._kv_stream_xla(*parts[ctx.rank], ctx=ctx),
+                               iters=3)
+            mirrors = [t for r in range(world) for t in parts[kvs.mirror_peer(r, world)]
+                       if t is not None]
+            outs = [torch.empty_like(t) for t in mirrors]
+            library_ms = cuda_ms(lambda: [o.copy_(m) for o, m in zip(outs, mirrors)], iters=10)
+            extra = {}
+            if wire != "native":
+                slabs = [kvs.dequantize_kv_wire(*p, torch.bfloat16) for p in parts]
+
+                def roundtrip():
+                    for r in range(world):
+                        q, s = kvs.quantize_kv_wire_for(wire, slabs[kvs.mirror_peer(r, world)])
+                        kvs.dequantize_kv_wire(q, s, torch.bfloat16)
+
+                extra["roundtrip_ms"] = cuda_ms(
+                    lambda: ([o.copy_(m) for o, m in zip(outs, mirrors)], roundtrip()), iters=5)
+                del slabs
+            cells[f"{wire} world {world}"] = dict(
+                ms_by_chunks=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=library_ms, **extra, bytes_a_rank=nbytes / (2 * world))
+            del parts, plain, outs, mirrors
+            torch.cuda.empty_cache()
+        ctx.close()
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "kv_stream", "shape": f"[{KV_M}, {KV_W}] a rank",
+          "bit_exact": "every wire, world 2 and 4, chunks 1, 2, 4", "cells": cells})
+
+    def entry(name, replaces, wire, library):
+        head = cells[f"{wire} world 4"]
+        return dict(name=name, route="cuda", source="triton_dist_tpu_torch/csrc/kv_stream.cu",
+                    replaces=replaces, max_abs_err=0.0, ms=head["ms_by_chunks"][1],
+                    plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                    bound_by=head["bound_by"], library_ms=head["library_ms"], library=library,
+                    shapes=f"world 4 on one card, [{KV_M}, {KV_W}] a rank, one chunk",
+                    cells={k: v for k, v in cells.items() if k.startswith(wire)
+                           or wire == "int8" and k.startswith("fp8")})
+
+    k41 = entry("kv_stream", "triton_dist_tpu/ops/kv_stream.py:172", "native",
+                "Tensor.copy_ of the mirror's slab, every rank")
+    k42 = entry("kv_stream_w8", "triton_dist_tpu/ops/kv_stream.py:204", "int8",
+                "Tensor.copy_ of the mirror's payload and scales, every rank")
+    heads = {w: cells[f"{w} world 4"] for w in ("int8", "fp8")}
+    k42["formats"] = {w: dict(ms=c["ms_by_chunks"][1], library_ms=c["library_ms"],
+                              roundtrip_ms=c["roundtrip_ms"]) for w, c in heads.items()}
+    return [k41, k42]
+
+
+def phase_kv_stream_path(counters: Counters) -> dict:
+    """``kv_stream_path``: the counted run of the host-level entry
+    ``kv_stream_op`` at full width, world 4 on the one card, two chunks a
+    slab: a global [4 x 65536, 1024] bf16 tensor on each wire. The native
+    output is the input with each rank's rows swapped with its mirror's
+    (bit-exact); the one-byte wires equal the plain round trip of the
+    mirror's rows (quantize, dequantize) computed on the card, and stay
+    within the wire's rounding of the input. K41 and K42 launched, no
+    plain exchange; the host wall of a call."""
+    import torch
+    from triton_dist_tpu_torch.ops import kv_stream as kvs
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    g = torch.Generator(device="cuda").manual_seed(110)
+    x = (torch.randn((WORLD * KV_M, KV_W), generator=g, device="cuda")
+         * torch.logspace(-3, 3, WORLD * KV_M, device="cuda")[:, None]).to(torch.bfloat16)
+    swapped = torch.cat([x[kvs.mirror_peer(r, WORLD) * KV_M:][:KV_M] for r in range(WORLD)])
+    ctx = initialize_distributed(WORLD)
+    runs = {}
+    counters.reset()
+    for wire in KV_WIRES:
+        cfg = kvs.KVStreamConfig(chunks_per_shard=2, wire=wire)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = kvs.kv_stream_op(x, ctx=ctx, config=cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if wire == "native":
+            want = swapped
+        else:
+            want = kvs.dequantize_kv_wire(*kvs.quantize_kv_wire_for(wire, swapped),
+                                          torch.bfloat16)
+        if not _same_bytes(got, want):
+            raise AssertionError(f"kv_stream_op {wire}: not the mirror's (round-tripped) rows")
+        rel = (got.float() - swapped.float()).norm() / swapped.float().norm()
+        runs[wire] = {"wall_ms": wall, "rel_l2_to_input_rows": rel.item()}
+        del got, want
+    counts = counters.read()
+    ctx.close()
+    launches = counts["launches"]
+    if (launches["kv_stream"] != WORLD or launches["kv_stream_w8"] != 2 * WORLD
+            or launches["kv_stream_fp8"] != WORLD or any(counts["plain_calls"].values())):
+        raise AssertionError(f"kv_stream_path: launches {launches}, plain {counts['plain_calls']}")
+    emit({"phase": "kv_stream_path", "world": WORLD, "shape": f"[{WORLD * KV_M}, {KV_W}] bf16",
+          "chunks_per_shard": 2, "runs": runs, **counts})
+    del x, swapped
+    return launches
+
+
+def phase_stuck_wait_kv_stream() -> None:
+    """K41 and K42 (4 chunks) at world 2 with rank 1's stream held 2 s
+    before its push (wait timeout 0.2 s): rank 0's collect must raise with
+    the record of its wait for the mirror's payload chunk 0 (site 2 + 0),
+    in the wire's family, not hang."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.ops import kv_stream as kvs
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    x = torch.randn((512, 256), device="cuda").to(torch.bfloat16)
+    recs = {}
+    for wire, family in (("native", "kv_stream"), ("int8", "kv_stream_w8")):
+        ctx = initialize_distributed(2)
+        cfg = kvs.KVStreamConfig(chunks_per_shard=4, wire=wire)
+        args = (x, None) if wire == "native" else kvs.quantize_kv_wire(x)
+        stuck = False
+
+        def call():
+            if ctx.rank == 1 and stuck:
+                common.sleep_on_stream(2_000_000_000)
+            return kvs.kv_stream(*args, ctx=ctx, config=cfg)
+
+        ctx.run(call)
+        stuck = True
+        try:
+            with config.wait_timeout(0.2):
+                ctx.run(call)
+        except DistTimeoutError as err:
+            recs[family] = err.records
+        else:
+            raise AssertionError(f"a stuck {family} wait did not raise")
+        if [(r["pe"], r["family"], r["site"]) for r in recs[family]] != [(0, family, 2)]:
+            raise AssertionError(f"stuck {family} wait: unexpected records {recs[family]}")
+        ctx.close()
+    emit({"phase": "stuck_wait_kv_stream", "records": recs})
+
+
+ADAM_LR = 1e-4
+F32_TRAIN = dict(vocab=2048, hidden=512, ffn=1024, n_layers=1, n_q_heads=8, n_kv_heads=4,
+                 head_dim=64, batch=2, seq=256)
+
+
+def _f32_train_vs_cpu(name, cfg, mesh, dp_axis=None, opt=None, steps=1, seed=70) -> dict:
+    """`steps` f32 train steps of `cfg` on the card (TF32 off) against the
+    same steps on the CPU (the plain versions, the ranks as threads): every
+    rank's gradients at the first step (``_loss_and_grads``, what the step
+    applies) within 1e-4 relative L2 a leaf, the loss within 1e-5 relative,
+    every rank's parameters (and optimizer state) after the steps within
+    1e-4 relative L2. The gradients carry the check where one step moves a
+    leaf by less than 1e-4 of its norm: each leaf's step ``|p' - p| / |p|``
+    on the CPU is reported beside it. `mesh` None is world 1. The tokens
+    are each dp group's 2 x 256."""
+    import numpy as np
+    import torch
+    from triton_dist_tpu_torch import optim
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    moe = isinstance(cfg, ttm.MoETransformerConfig)
+    init = ttm.init_moe_params if moe else ttm.init_params
+    params = init(cfg, seed=seed, device="cpu")
+    n_dp = 1 if dp_axis is None else mesh[dp_axis]
+    m = cfg.batch * cfg.seq
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, n_dp * m))
+    targets = torch.from_numpy(rng.integers(0, cfg.vocab, n_dp * m))
+    cls = (ttm.EPMoETransformer if isinstance(cfg, ttm.EPMoETransformerConfig)
+           else ttm.TPMoETransformer if moe else ttm.TPTransformer)
+    to_cpu = lambda tree: optim.tree_map(  # noqa: E731
+        lambda x: None if x is None else x.detach().cpu(), tree)
+
+    def run(device):
+        t0 = time.perf_counter()
+        p = ttm._tree_map(lambda x: x.to(device), params)
+        tok, tgt = tokens.to(device), targets.to(device)
+        if mesh is None:
+            model = cls(cfg)
+            firsts = [p]
+            grads = [to_cpu(ttm._loss_and_grads(model, p, tok[:m], tgt[:m])[1])]
+            state = None if opt is None else opt.init(p)
+            losses = []
+            for _ in range(steps):
+                out = ttm.train_step(model, p, tok[:m], tgt[:m], lr=DENSE_LR, dp_axis=None,
+                                     opt=opt, opt_state=state)
+                p, state, loss = out if opt is not None else (out[0], None, out[1])
+                losses.append(loss.item())
+            outs = [(p, state)]
+        else:
+            ctx = initialize_distributed(mesh_shape=mesh, device=device)
+            shards = firsts = ttm.shard_params(p, cfg=cfg, ctx=ctx)
+            states = [None if opt is None else opt.init(s) for s in shards]
+            m_loc = m // ctx.axis_size(cfg.axis)
+
+            def rows(r):
+                d = 0 if dp_axis is None else ctx.axis_index(dp_axis)
+                return tok[r * m_loc:(r + 1) * m_loc], tgt[d * m:(d + 1) * m]
+
+            def grad_body():
+                dp = None if dp_axis is None else ctx.group(dp_axis)
+                r = ctx.rank
+                return to_cpu(ttm._loss_and_grads(cls(cfg, ctx=ctx), shards[r], *rows(r), dp)[1])
+
+            grads = ctx.run(grad_body, grad=True)
+            losses = []
+            for _ in range(steps):
+                def body():
+                    r = ctx.rank
+                    out = ttm.train_step(cls(cfg, ctx=ctx), shards[r], *rows(r), lr=DENSE_LR,
+                                         dp_axis=dp_axis, opt=opt, opt_state=states[r])
+                    return out if opt is not None else (out[0], None, out[1])
+
+                res = ctx.run(body, grad=True)
+                shards, states = [o[0] for o in res], [o[1] for o in res]
+                losses.append(res[0][2].item())
+            ctx.close()
+            outs = list(zip(shards, states))
+        moved = [_rel_l2(b, a) for first, (last, _) in zip(firsts, outs)
+                 for a, b in zip(_leaves(first), _leaves(last)) if ttm._trainable(a)]
+        return losses, [to_cpu(o) for o in outs], grads, moved, time.perf_counter() - t0
+
+    want_losses, want, want_grads, moved, cpu_s = run("cpu")
+    got_losses, got, got_grads, _, card_s = run("cuda")
+    worst_grad = max(_rel_l2(x, y) for a, b in zip(got_grads, want_grads) for x, y in zip(a, b))
+    worst = 0.0
+    for a, b in zip(got, want):
+        for x, y in zip(_leaves(a), _leaves(b)):
+            worst = max(worst, _rel_l2(x, y))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got_losses, want_losses))
+    if not (worst_grad <= 1e-4 and loss_rel <= 1e-5 and worst <= 1e-4):
+        raise AssertionError(f"{name}: f32 steps off the CPU plain path: gradients rel L2 "
+                             f"{worst_grad}, loss rel {loss_rel}, worst rel L2 {worst}")
+    return dict(steps=steps, losses=got_losses, worst_grad_rel_l2=worst_grad,
+                loss_rel_err=loss_rel, worst_param_state_rel_l2=worst, tol_grad_rel_l2=1e-4,
+                tol_loss_rel=1e-5, tol_rel_l2=1e-4, step_rel_min=min(moved),
+                step_rel_median=sorted(moved)[len(moved) // 2], cpu_reference_s=cpu_s,
+                card_s=card_s)
+
+
+def _leaves(tree) -> list:
+    from triton_dist_tpu_torch import optim
+
+    out = []
+    optim.tree_map(lambda x: out.append(x) if x is not None else None, tree)
+    return out
+
+
+def _train_counted(name, ctx, step, counters, steps=3) -> dict:
+    """A warm-up step then `steps` counted ones of `step` (a rank body
+    returning its loss) on `ctx`: losses, step walls, peak GB, counts."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [ctx.run(step, grad=True)[0]], []
+    counters.reset()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(ctx.run(step, grad=True)[0])
+        walls.append(time.perf_counter() - t0)
+    counts = counters.read()
+    wall = sorted(walls)[len(walls) // 2]
+    return dict(phase=name, losses=losses, step_wall_s=walls, step_wall_s_median=wall,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **counts)
+
+
+def _train_moe_ep(name, counters, model_name, mesh, dp_axis) -> dict:
+    """An EP model at ``train_moe_tp4``'s depth (8 layers) and tokens (2 x
+    1024 a dp group), bf16, seeded weights, SGD at TRAIN_LR on `mesh`: a
+    warm-up and 3 steps (losses finite and falling), the router moved by
+    the first step, K27 and the grouped GEMMs (K8 forward and dA, K11 dW)
+    launched, no plain transport; then the f32 small-width step against
+    the CPU plain path."""
+    import torch
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    cfg = presets.preset(model_name, n_layers=8, batch=TRAIN_B, seq=TRAIN_S,
+                         dtype=torch.bfloat16)
+    n_dp = 1 if dp_axis is None else mesh[dp_axis]
+    m = TRAIN_B * TRAIN_S
+    batches = [_train_batch(cfg.vocab, seed=80 + d) for d in range(n_dp)]
+    tokens = torch.cat([t for t, _ in batches])
+    targets = torch.cat([y for _, y in batches])
+    ctx = initialize_distributed(mesh_shape=mesh)
+    params = ttm.init_moe_params(cfg, seed=50)
+    shards = ttm.shard_params(params, cfg=cfg, ctx=ctx)
+    del params
+    router0 = [s["layers"][0]["router"].clone() for s in shards]
+    m_loc = m // ctx.axis_size(cfg.axis)
+    models = [ttm.EPMoETransformer(cfg, ctx=ctx) for _ in range(ctx.world)]
+
+    def step():
+        r = ctx.rank
+        d = 0 if dp_axis is None else ctx.axis_index(dp_axis)
+        shards[r], loss = ttm.train_step(models[r], shards[r],
+                                         tokens[r * m_loc:(r + 1) * m_loc],
+                                         targets[d * m:(d + 1) * m], lr=TRAIN_LR,
+                                         dp_axis=dp_axis)
+        return loss.item()
+
+    res = _train_counted(name, ctx, step, counters)
+    moved = max((s["layers"][0]["router"].float() - r0.float()).abs().max().item()
+                for s, r0 in zip(shards, router0))
+    replicas = None
+    if dp_axis is not None:
+        tp = ctx.axis_size(cfg.axis)
+        banks = ("w_up", "w_down")
+        for r in range(tp):
+            a, b = shards[r], shards[tp + r]
+            for la, lb in zip(a["layers"], b["layers"]):
+                for k in la:
+                    if k not in banks and not torch.equal(la[k], lb[k]):
+                        raise AssertionError(f"{name}: the dp replicas of {k} drifted apart")
+            for k in ("embed", "final_norm", "lm_head"):
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"{name}: the dp replicas of {k} drifted apart")
+        replicas = True
+    ctx.close()
+    del shards, models
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(
+        presets.preset(model_name, n_layers=1, dtype=torch.float32), **F32_TRAIN)
+    res.update(model=model_name, n_layers=8, mesh=mesh, dp_axis=dp_axis, lr=TRAIN_LR,
+               tokens_a_dp_group=m, train_tokens_per_s=n_dp * m / res["step_wall_s_median"],
+               router_max_change=moved, replicas_bitwise_equal=replicas,
+               f32=_f32_train_vs_cpu(f"{name} f32", small, mesh, dp_axis))
+    emit(res)
+    _check_train(name, res["losses"], res["launches"], res["plain_calls"],
+                 ("all_to_all", "group_gemm", "group_gemm_dw", "ag_gemm", "gemm_rs"))
+    if not moved > 0:
+        raise AssertionError(f"{name}: the router did not move")
+    return res["launches"]
+
+
+def phase_train_moe_ep4(counters: Counters) -> dict:
+    """``train_moe_ep4``: ``preset("mixtral-8x7b:ep")`` at ``train_moe_tp4``'s
+    depth (8 layers) trained at world 4 on the one card (two whole experts
+    a rank, attention TP over the four ranks), as ``_train_moe_ep``
+    describes."""
+    return _train_moe_ep("train_moe_ep4", counters, EP_MODEL, {"tp": WORLD}, None)
+
+
+def phase_train_moe_ep_hier(counters: Counters) -> dict:
+    """``train_moe_ep_hier``: ``serve_moe_ep_hier``'s model
+    (``mixtral-8x7b:ep-hier``, outer axis ``"dcn"``) on ``{"dcn": 2, "tp":
+    2}`` trained with ``dp_axis="dcn"``: the dispatch's two phases over
+    (dcn, tp), each dcn group's 2 x 1024 tokens; the dp replicas of every
+    replicated parameter stay bitwise equal. A step peaks at ~73 GB of the
+    card's 80 (the relay's grouped GEMMs take 2 x 4096 rows a rank)."""
+    return _train_moe_ep("train_moe_ep_hier", counters, HIER_MODEL, HIER_MESH, "dcn")
+
+
+def phase_train_adam(counters: Counters) -> dict:
+    """``train_adam``: ``train_dense``'s model (Llama-3.1-8B widths, 2
+    layers, bf16, 2 x 1024 tokens a dp group) with ``optim.adam(ADAM_LR)``
+    at world 1 and on ``{"dp": 2, "tp": 2}``: a warm-up and 3 steps each
+    (losses finite and falling), K1 (world 1) and K6/K7 (the pair)
+    launched, no plain projection, the step wall and the peak GB with the
+    Adam state (two moments in the parameters' dtype); then f32 Adam steps
+    at small width against the CPU plain path at both layouts."""
+    import torch
+    from triton_dist_tpu_torch import optim
+    from triton_dist_tpu_torch.models import presets
+    from triton_dist_tpu_torch.models import tp_transformer as ttm
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    cfg = presets.preset("llama-3.1-8b", n_layers=2, batch=TRAIN_B, seq=TRAIN_S,
+                         dtype=torch.bfloat16)
+    adam = optim.adam(ADAM_LR)
+    out, launches = {}, {}
+    tokens, targets = _train_batch(cfg.vocab, seed=61)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = ttm.init_params(cfg, seed=52)
+    state = adam.init(params)
+    model = ttm.TPTransformer(cfg)
+    params, state, loss = ttm.train_step(model, params, tokens, targets, dp_axis=None, opt=adam,
+                                         opt_state=state)
+    losses, walls = [loss.item()], []
+    counters.reset()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = ttm.train_step(model, params, tokens, targets, dp_axis=None,
+                                             opt=adam, opt_state=state)
+        losses.append(loss.item())
+        walls.append(time.perf_counter() - t0)
+    counts = counters.read()
+    wall = sorted(walls)[len(walls) // 2]
+    out["world1"] = dict(losses=losses, step_wall_s=walls, step_wall_s_median=wall,
+                         train_tokens_per_s=TRAIN_B * TRAIN_S / wall,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         state_gb=sum(t.numel() * t.element_size() for t in _leaves(state))
+                         / 1e9, **counts)
+    _check_train("train_adam world 1", losses, counts["launches"], counts["plain_calls"],
+                 ("gemm",))
+    del params, state
+    torch.cuda.empty_cache()
+
+    dp, tp = PAIR["dp"], PAIR["tp"]
+    m = TRAIN_B * TRAIN_S
+    tokens = torch.cat([_train_batch(cfg.vocab, seed=60 + d)[0] for d in range(dp)])
+    targets = torch.cat([_train_batch(cfg.vocab, seed=60 + d)[1] for d in range(dp)])
+    ctx = initialize_distributed(mesh_shape=PAIR)
+    shards = ttm.shard_params(ttm.init_params(cfg, seed=52), cfg=cfg, ctx=ctx)
+    states = [adam.init(s) for s in shards]
+    m_loc = m // tp
+    models = [ttm.TPTransformer(cfg, ctx=ctx) for _ in range(WORLD)]
+
+    def step():
+        r, d = ctx.rank, ctx.axis_index("dp")
+        shards[r], states[r], loss = ttm.train_step(
+            models[r], shards[r], tokens[r * m_loc:(r + 1) * m_loc], targets[d * m:(d + 1) * m],
+            opt=adam, opt_state=states[r])
+        return loss.item()
+
+    res = _train_counted("train_adam_dp_tp", ctx, step, counters)
+    for r in range(tp):
+        for a, b in zip(_leaves((shards[r], states[r])), _leaves((shards[tp + r],
+                                                                   states[tp + r]))):
+            if not torch.equal(a, b):
+                raise AssertionError("train_adam: the dp replicas drifted apart")
+    res["state_gb_a_rank"] = sum(t.numel() * t.element_size() for t in _leaves(states[0])) / 1e9
+    res["train_tokens_per_s"] = dp * m / res["step_wall_s_median"]
+    ctx.close()
+    del shards, states, models
+    torch.cuda.empty_cache()
+    out["dp_tp"] = res
+    _check_train("train_adam dp x tp", res["losses"], res["launches"], res["plain_calls"],
+                 ("ag_gemm", "gemm_rs"))
+    small = dataclasses.replace(presets.preset("llama-3.1-8b", n_layers=1,
+                                               dtype=torch.float32), **F32_TRAIN)
+    out["f32_world1"] = _f32_train_vs_cpu("train_adam f32 world 1", small, None,
+                                          opt=optim.adam(ADAM_LR), steps=2)
+    out["f32_dp_tp"] = _f32_train_vs_cpu("train_adam f32 dp x tp", small, PAIR, "dp",
+                                         opt=optim.adam(ADAM_LR), steps=2)
+    emit({"phase": "train_adam", "model": "llama-3.1-8b", "n_layers": 2, "lr": ADAM_LR,
+          "mesh": PAIR, "replicas_bitwise_equal": True, **out})
+    for key in ("world1", "dp_tp"):
+        for k, v in out[key]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def phase_usp_attention(counters: Counters) -> dict:
+    """``usp_attention``: ``train_sp``'s attention widths (32 heads of 128,
+    b 1) at S 8192 on ``{"sp": 2, "tp": 2}``: the Ulysses head exchange
+    over tp (K27) composed with ring attention over sp (K35), bf16, causal,
+    forward and backward in one counted run (K27 and K35 launched, no plain
+    exchange or attention); its output against ring attention over the
+    flat world 4 (K35 over 2048-row chunks) and SDPA over the whole
+    sequence, each query row (a head's d-vector) on its own scale: every
+    row within 2e-2 relative L2 of both (bf16 rounding is ~4e-3 a row; a
+    ring step dropped for a row takes away a share of its keys, an error of
+    the order of the row), the whole output within 1e-2; the forward timed
+    beside both."""
+    import torch
+    from triton_dist_tpu_torch.ops import ring_attention as ra
+    from triton_dist_tpu_torch.ops import ulysses
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+    h, d, s = 32, 128, SP_S
+    s_loc = s // WORLD
+    g = torch.Generator(device="cuda").manual_seed(120)
+    q, k, v, dout = (torch.randn((1, h, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    rows = lambda x, r: x[:, :, r * s_loc:(r + 1) * s_loc].contiguous()  # noqa: E731
+    mesh = {"sp": 2, "tp": 2}
+    ctx = initialize_distributed(mesh_shape=mesh)
+
+    def usp_step():
+        r = ctx.rank
+        leaves = [rows(x, r).requires_grad_() for x in (q, k, v)]
+        out = ulysses.usp_attention(*leaves, ctx=ctx, outer="sp", inner="tp")
+        grad = torch.autograd.grad(out, leaves, rows(dout, r))
+        return out.detach(), grad
+
+    ctx.run(usp_step, grad=True)
+    counters.reset()
+    res = ctx.run(usp_step, grad=True)
+    counts = counters.read()
+    got = torch.cat([o for o, _ in res], 2)
+    usp_ms = dist_ms(ctx, lambda: ulysses.usp_attention(
+        rows(q, ctx.rank), rows(k, ctx.rank), rows(v, ctx.rank), ctx=ctx, outer="sp",
+        inner="tp"), iters=5)
+    ctx.close()
+    flat = initialize_distributed(WORLD)
+    ring = torch.cat(flat.run(lambda: ra.ring_attention(
+        rows(q, flat.rank), rows(k, flat.rank), rows(v, flat.rank), ctx=flat)), 2)
+    ring_ms = dist_ms(flat, lambda: ra.ring_attention(
+        rows(q, flat.rank), rows(k, flat.rank), rows(v, flat.rank), ctx=flat), iters=5)
+    flat.close()
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=10)
+    errs = {}
+    for ref_name, ref in (("flat_ring", ring), ("sdpa", sdpa)):
+        diff, ref = got.float() - ref.float(), ref.float()
+        rows_rel = diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+        errs[ref_name] = dict(worst_row_rel_l2=rows_rel.max().item(),
+                              rel_l2=(diff.norm() / ref.norm()).item(),
+                              max_abs_err=diff.abs().max().item())
+    launches = counts["launches"]
+    emit({"phase": "usp_attention", "mesh": mesh, "heads": h, "head_dim": d, "seq": s,
+          "s_loc": s_loc, "errors": errs, "tol_row_rel_l2": 2e-2, "tol_rel_l2": 1e-2,
+          "usp_forward_ms": usp_ms, "flat_ring_forward_ms": ring_ms, "sdpa_ms": sdpa_ms,
+          **counts})
+    if any(e["worst_row_rel_l2"] > 2e-2 or e["rel_l2"] > 1e-2 for e in errs.values()):
+        raise AssertionError(f"usp_attention: off ring attention / SDPA: {errs}")
+    if (launches["all_to_all"] <= 0 or launches["ring_attention"] <= 0
+            or any(counts["plain_calls"].values())):
+        raise AssertionError(f"usp_attention: launches {launches}, plain {counts['plain_calls']}")
+    del q, k, v, dout, got, ring, sdpa
+    return launches
+
+
+
 def _unflatten(tree, leaves):
     """`leaves` (in ``_tree_leaves`` order) in `tree`'s structure."""
     from triton_dist_tpu_torch.models import tp_transformer as ttm
@@ -7110,6 +7745,14 @@ def main() -> int:
     train_entries = [phase_group_gemm_dw()]
     k34_k35_entries = [phase_group_gemm_dw_ragged()]
     torch.cuda.empty_cache()
+    # the Adam and EP train steps first: they peak at ~61 and ~73 GB of the
+    # 80, and the serving phases leave ~12 GB held behind them
+    with expandable_segments():
+        phase_train_adam(counters)
+        torch.cuda.empty_cache()
+        phase_train_moe_ep4(counters)
+        torch.cuda.empty_cache()
+        phase_train_moe_ep_hier(counters)
     paged = phase_serve(counters)
     torch.cuda.empty_cache()
     contiguous = phase_contiguous(counters)
@@ -7145,6 +7788,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     entries_2d = [phase_all_gather_2d(), phase_ag_gemm_2d()]
     torch.cuda.empty_cache()
+    kv_entries = phase_kv_stream()
+    torch.cuda.empty_cache()
+    kv_launches = phase_kv_stream_path(counters)
+    torch.cuda.empty_cache()
     phase_stuck_wait()
     phase_stuck_wait_moe()
     phase_stuck_wait_rs()
@@ -7153,6 +7800,7 @@ def main() -> int:
     phase_stuck_wait_ragged()
     phase_stuck_wait_ring_attention()
     phase_stuck_wait_2d()
+    phase_stuck_wait_kv_stream()
     torch.cuda.empty_cache()
     tp4 = phase_serve_tp4(counters)
     torch.cuda.empty_cache()
@@ -7191,6 +7839,8 @@ def main() -> int:
     phase_train_dp_tp(counters)
     torch.cuda.empty_cache()
     train_sp = phase_train_sp(counters)
+    torch.cuda.empty_cache()
+    phase_usp_attention(counters)
     torch.cuda.empty_cache()
     phase_f32_parity_sp()
     torch.cuda.empty_cache()
@@ -7263,6 +7913,9 @@ def main() -> int:
     for entry in quant_entries:
         entry["launches"] = quant_launches[entry["name"]]
     entries += quant_entries
+    kv_entries[0]["launches"] = kv_launches["kv_stream"]
+    kv_entries[1]["launches"] = kv_launches["kv_stream_w8"]
+    entries += kv_entries
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{[(e['name'], e['launches']) for e in entries]}")

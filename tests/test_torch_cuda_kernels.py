@@ -28,8 +28,11 @@ waits (every other rank names the late rank's entry-barrier site); and the
 one-byte KV caches: the quantized decode K38, its paged twin K39 and the
 quantized verify K40 in int8 and fp8 against their plain versions, the
 verify's chunk calls bit-equal to the whole-range call, the card's KV
-quantizers equal to the CPU's, and the SP entries at world 2 and 4.
-Every test here carries the ``cuda`` marker and skips without a card. The
+quantizers equal to the CPU's, and the SP entries at world 2 and 4; and
+the KV handoff stream: K41 (native wire) and K42 (int8, fp8) at world 2
+and 4 with 1, 2 and 4 chunks bit-exact against the plain exchange, the
+card's wire quantizers equal to the CPU's, and a stuck wait at the
+mirror's first payload chunk. Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 absent:
 
@@ -1851,3 +1854,98 @@ def test_quant_sp_entries_match_world1(cuda, world):
     want = tfd._xla_decode(qb, kb, vb, lens, return_lse=False)
     got = tfd.flash_decode_op(qb, kb, vb, lens, ctx=ctx)
     assert (got - want).abs().max().item() <= 1e-3
+
+
+# ------------------------------------------------ the KV handoff stream ----
+
+from triton_dist_tpu_torch.ops import kv_stream as tkv  # noqa: E402
+
+
+def _kv_slabs(world, m, w, dtype, device, seed):
+    """Each rank's slab (rows over six decades) and its wire forms."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((world * m, w), generator=g, device=device)
+    x = (x * torch.logspace(-3, 3, world * m, device=device)[:, None]).to(dtype)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("wire", ["native", "int8", "fp8"])
+def test_kv_stream_kernels_are_exact(cuda, world, chunks, wire):
+    """K41 (native) and K42 (int8, fp8) at world 2 and 4 with every rank on
+    the one card: the landed slab and scales bit-equal to the plain
+    exchange (the mirror's rows; a copy), rows of 1 KiB and a 1000-row slab
+    whose chunk spans cut pieces off 16-byte boundaries, run twice (the
+    flags' epochs rise)."""
+    ctx = initialize_distributed(world)
+    cfg = tkv.KVStreamConfig(chunks_per_shard=chunks, wire=wire)
+    for m, w, dtype in ((1000, 512, torch.bfloat16), (64, 1024, torch.float32)):
+        x = _kv_slabs(world, m, w, dtype, cuda, 11 + world + chunks)
+        if wire == "native":
+            parts = [(x[r * m:(r + 1) * m].contiguous(), None) for r in range(world)]
+        else:
+            q, s = tkv.quantize_kv_wire_for(wire, x)
+            parts = [(q[r * m:(r + 1) * m].contiguous(), s[r * m:(r + 1) * m].contiguous())
+                     for r in range(world)]
+        for _ in range(2):
+            before = (tkv._kv_stream.launches, tkv._kv_stream_w8.launches)
+            outs = ctx.run(lambda: tkv.kv_stream(*parts[ctx.rank], ctx=ctx, config=cfg))
+            torch.cuda.synchronize()
+            after = (tkv._kv_stream.launches, tkv._kv_stream_w8.launches)
+            assert after[wire != "native"] - before[wire != "native"] == world
+            for r, got in enumerate(outs):
+                mirror = parts[tkv.mirror_peer(r, world)]
+                if wire == "native":
+                    assert torch.equal(got.view(torch.uint8), mirror[0].view(torch.uint8))
+                    continue
+                assert torch.equal(got[0].view(torch.uint8), mirror[0].view(torch.uint8))
+                assert torch.equal(got[1], mirror[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+def test_kv_wire_quantizers_on_the_card_equal_the_cpu(cuda, wire):
+    """The card's wire payload and scales equal the CPU quantizer's (which
+    the CPU tests hold equal to the JAX package's), rows over ten decades,
+    an all-zero row included."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((512, 1024), generator=g) * torch.logspace(-6, 4, 512)[:, None]
+    x[5] = 0.0
+    for src in (x, x.to(torch.bfloat16)):
+        (gq, gs), (wq, ws) = (tkv.quantize_kv_wire_for(wire, src.to(cuda)),
+                              tkv.quantize_kv_wire_for(wire, src))
+        assert torch.equal(gq.cpu().view(torch.uint8), wq.view(torch.uint8))
+        assert torch.equal(gs.cpu(), ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["native", "int8"])
+def test_kv_stream_stuck_wait_raises_with_its_record(cuda, wire):
+    """Rank 1's stream is held for 2 s before its push at world 2: rank 0's
+    wait names its first chunk's payload site (world + 0), in the wire's
+    family, whatever the chunk count."""
+    ctx = initialize_distributed(2)
+    cfg = tkv.KVStreamConfig(chunks_per_shard=4, wire=wire)
+    x = _kv_slabs(2, 256, 512, torch.bfloat16, cuda, 9)
+    if wire == "native":
+        parts = [(x[r * 256:(r + 1) * 256].contiguous(), None) for r in range(2)]
+    else:
+        q, s = tkv.quantize_kv_wire(x)
+        parts = [(q[r * 256:(r + 1) * 256].contiguous(), s[r * 256:(r + 1) * 256].contiguous())
+                 for r in range(2)]
+    ctx.run(lambda: tkv.kv_stream(*parts[ctx.rank], ctx=ctx, config=cfg))
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return tkv.kv_stream(*parts[ctx.rank], ctx=ctx, config=cfg)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    (rec,) = err.value.records
+    family = "kv_stream" if wire == "native" else "kv_stream_w8"
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
+        0, family, 2, "signal_wait_until")

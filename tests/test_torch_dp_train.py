@@ -24,6 +24,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from triton_dist_tpu.models import tp_transformer as jtm
 from triton_dist_tpu.ops.allgather_gemm import AGGemmConfig
 from triton_dist_tpu.ops.gemm_reduce_scatter import GemmRSConfig
+from triton_dist_tpu_torch import optim as toptim
 from triton_dist_tpu_torch.models import tp_transformer as ttm
 from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
 
@@ -134,7 +135,8 @@ def test_dp_replicas_stay_bit_equal_and_a_poisoned_group_skips_everywhere(dense)
 def test_dp_axis_names_and_refusals(dense):
     """``dp_axis`` names any axis of the runtime (``"data"`` here, the same
     step as ``"dp"``); one the runtime lacks raises a ``ValueError`` naming
-    it; optimizers stay refused (ROADMAP A5)."""
+    it; an optimizer transform runs on the pair: ``opt=sgd(LR)`` is the
+    SGD step bit for bit on every rank."""
     _, _, tcfg, tparams, tokens, targets = dense
     _, ref = _port_steps(tcfg, tparams, tokens, targets, 1)
     renamed = initialize_distributed(mesh_shape={"data": 2, "tp": 2}, device="cpu")
@@ -145,6 +147,18 @@ def test_dp_axis_names_and_refusals(dense):
     ctx = initialize_distributed(mesh_shape=SHAPE, device="cpu")
     with pytest.raises(ValueError, match="dp_axis='pp': the rank runtime has no axis 'pp'"):
         _port_steps(tcfg, tparams, tokens, targets, 1, ctx=ctx, dp_axis="pp")
-    with pytest.raises(NotImplementedError, match="A5, optimizers"):
-        ttm.train_step(ttm.TPTransformer(tcfg), tparams, torch.zeros(4, dtype=torch.long),
-                       torch.zeros(4, dtype=torch.long), opt=object())
+    m_loc = M // TP
+    sgd = toptim.sgd(LR)
+
+    def body():
+        r, d = ctx.rank, ctx.axis_index("dp")
+        return ttm.train_step(ttm.TPTransformer(tcfg, ctx=ctx), shards[r],
+                              torch.from_numpy(tokens[r * m_loc:(r + 1) * m_loc]),
+                              torch.from_numpy(targets[d * M:(d + 1) * M]), opt=sgd,
+                              opt_state=sgd.init(shards[r]))
+
+    ctx = initialize_distributed(mesh_shape=SHAPE, device="cpu")
+    shards = ttm.shard_params(tparams, cfg=tcfg, ctx=ctx)
+    for (new, _, loss), (want, want_loss) in zip(ctx.run(body, grad=True), ref[0]):
+        assert loss.item() == want_loss.item()
+        ttm._tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0), new, want)

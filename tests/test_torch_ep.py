@@ -8,7 +8,8 @@ quantizer bit-equal), slab overflow (equal counts, the NaN poison),
 greedy ``generate`` tokens equal to the JAX package's and to the port's
 tensor-parallel decoder, ``ServingEngine`` at world 4 (bulk, chunked with
 the prefix cache, the quantize-once int8 banks with the int8 wire), and
-the refusals (hierarchical EP, EP training). JAX runs under ``shard_map``
+the refusals (hierarchical EP's missing axis) and a world-1 EP training
+step (padded and ragged). JAX runs under ``shard_map``
 on the virtual CPU devices of ``tests/conftest.py`` with its Pallas
 kernels interpreted; the port's ranks are threads of a CPU
 ``DistContext`` running the plain versions. Inputs come from numpy with a
@@ -514,8 +515,9 @@ def test_ep_serving_engine_matches_tp(ep, case):
 def test_ep_presets_and_refusals(ep):
     """``:ep`` builds the EP config; hierarchical EP builds too (the preset,
     the config field, the layer, which needs a runtime with both axes);
-    decode rows that do not divide over the ranks and EP training (with
-    ragged rows too) refuse."""
+    decode rows that do not divide over the ranks refuse. EP training (with
+    ragged rows too) runs: a world-1 step of each keeps the loss finite and
+    moves the router (held to JAX's steps in ``test_torch_train2d.py``)."""
     cfg = tpresets.preset("mixtral-8x7b:ep", n_layers=8, batch=8)
     assert isinstance(cfg, ttm.EPMoETransformerConfig)
     assert (cfg.hidden, cfg.ffn, cfg.n_experts, cfg.topk, cfg.ep_max_m, cfg.ep_quant) == (
@@ -535,14 +537,17 @@ def test_ep_presets_and_refusals(ep):
     tokens = torch.zeros(DIMS["batch"] * DIMS["seq"], dtype=torch.long)
     params = ttm.init_moe_params(tcfg, seed=1, device="cpu")
     ragged = dataclasses.replace(tcfg, gg_config=tgg.GroupGemmConfig(BM, ragged=True))
-    with pytest.raises(NotImplementedError, match="EP training"):
-        ttm.train_step(ttm.EPMoETransformer(ragged), params, tokens, tokens, lr=0.1,
-                       dp_axis=None)
+    trained = {}
+    for name, cfg in (("ragged", ragged), ("padded", tcfg)):
+        new, loss = ttm.train_step(ttm.EPMoETransformer(cfg), params, tokens, tokens, lr=0.1,
+                                   dp_axis=None)
+        assert torch.isfinite(loss)
+        assert not torch.equal(new["layers"][0]["router"], params["layers"][0]["router"])
+        trained[name] = (new, loss)
+    # ragged rows change which rows are computed, never a live value
+    assert trained["ragged"][1].item() == trained["padded"][1].item()
     ctx = initialize_distributed(WORLD, device="cpu")
     shards = ttm.shard_params(tparams, WORLD, cfg=tcfg)
     x = torch.zeros((6, HID))
     with pytest.raises(ValueError, match="divide evenly"):
         ctx.run(lambda: tdec._decode_mlp(tcfg, x, shards[ctx.rank]["layers"][0], ctx))
-    with pytest.raises(NotImplementedError, match="EP training"):
-        ttm.train_step(ttm.EPMoETransformer(tcfg), params, tokens, tokens, lr=0.1,
-                       dp_axis=None)

@@ -1,11 +1,13 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX
 package (every module, the layer tier ``layers/``, the sequence-parallel
 modules ``ops/ring_attention.py``, ``ops/ulysses.py`` and
-``models/sp_transformer.py``, and the modules the 2-D rank runtime reaches
+``models/sp_transformer.py``, the KV handoff stream ``ops/kv_stream.py`` and
+the optimizer transforms ``optim.py``, and the modules the 2-D rank runtime reaches
 — the runtime, the pair collectives, the hierarchical EP layers, the
 models, decode and the engine — included), its entry
 points run on the card unless the caller asks for the CPU (and raise with
-no card), its layers hold no parameters of their own, and ``chip_smoke.py``
+no card; the KV stream on a runtime on the card never runs its plain
+version on CPU tensors), its layers hold no parameters of their own, and ``chip_smoke.py``
 refuses to report without a card or without the port beside it."""
 
 import ast
@@ -43,7 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'triton_dist_tpu'))\n"
         "assert len(names) >= 15, names\n"
         "new = {'triton_dist_tpu_torch.ops.ring_attention', 'triton_dist_tpu_torch.ops.ulysses',\n"
-        "       'triton_dist_tpu_torch.models.sp_transformer'}\n"
+        "       'triton_dist_tpu_torch.models.sp_transformer', 'triton_dist_tpu_torch.ops.kv_stream',\n"
+        "       'triton_dist_tpu_torch.optim'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "two_d = {'triton_dist_tpu_torch.' + m for m in (\n"
         "    'parallel.mesh', 'utils', 'ops.common', 'ops.allgather', 'ops.allgather_gemm',\n"
@@ -65,7 +68,7 @@ def test_no_source_names_jax_or_the_jax_package():
     """An AST scan, so an import behind a branch or inside a function that
     the subprocess import never reaches is caught too."""
     offenders = []
-    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "chip_phases.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -99,6 +102,19 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         initialize_distributed(mesh_shape={"dp": 2, "tp": 2})
+    from triton_dist_tpu_torch.ops import kv_stream as tkv
+
+    slab = torch.ones(8, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tkv.kv_stream_op(slab, ctx=initialize_distributed(2, device="cuda"))
+    # a runtime that says it lies on the card: the wrapper raises, it does not
+    # exchange CPU tensors over the plain version
+    ctx = initialize_distributed(2, device="cpu")
+    ctx.cuda = True
+    calls = tkv._kv_stream_xla.calls
+    with pytest.raises(ValueError, match="a runtime on the card takes card tensors"):
+        tkv.kv_stream(slab, ctx=ctx)
+    assert tkv._kv_stream_xla.calls == calls
     # asked for explicitly, the CPU runs the plain versions
     b = tdec.ContinuousBatcher(cfg, params, s_max=8, device="cpu")
     b.submit(tdec.Request([1, 2], max_new_tokens=2, uid="x"))

@@ -31,6 +31,7 @@ from test_torch_train import (JAX_TILES, LOSS_TOL, LR, MOE, _assemble, _check, _
                               _numpy_params, _port_step)
 from triton_dist_tpu.models import tp_transformer as jtm
 from triton_dist_tpu.ops import grads as jgrads
+from triton_dist_tpu_torch import optim as toptim
 from triton_dist_tpu_torch.models import tp_transformer as ttm
 from triton_dist_tpu_torch.ops import grads as tgrads
 from triton_dist_tpu_torch.ops import group_gemm as tgg
@@ -235,8 +236,9 @@ def test_ragged_train_step_matches_jax(ragged_moe, world):
 def test_ragged_training_refusals(ragged_moe):
     """The ragged backward's refusal (once ROADMAP B16) is gone at every
     entry: a ragged ``train_step`` runs; what remains refuses — a
-    data-parallel axis the runtime lacks, optimizers (A5) and
-    expert-parallel training (A12), ragged or not."""
+    data-parallel axis the runtime lacks. Optimizers (``opt=sgd(LR)``, the
+    SGD step bit for bit) and expert-parallel training run ragged too: one
+    ragged EP step at world 1 lowers nothing to NaN and moves the router."""
     _, _, tcfg, tparams, tokens, targets = ragged_moe
     t, y = torch.from_numpy(tokens), torch.from_numpy(targets)
     model = ttm.TPMoETransformer(tcfg)
@@ -245,8 +247,13 @@ def test_ragged_training_refusals(ragged_moe):
                                                     tparams["layers"][0]["w_up"])
     with pytest.raises(ValueError, match="no axis 'dp'"):
         ttm.train_step(model, tparams, t, y, dp_axis="dp")
-    with pytest.raises(NotImplementedError, match="A5, optimizers"):
-        ttm.train_step(model, tparams, t, y, opt=object())
+    sgd = toptim.sgd(LR)
+    got, _, got_loss = ttm.train_step(model, tparams, t, y, opt=sgd, opt_state=sgd.init(tparams),
+                                      dp_axis=None)
+    assert got_loss.item() == loss.item()
+    ttm._tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0), got, new)
     ep_cfg = ttm.EPMoETransformerConfig(**MOE, gg_config=tgg.GroupGemmConfig(8, ragged=True))
-    with pytest.raises(NotImplementedError, match="A12, EP"):
-        ttm.train_step(ttm.EPMoETransformer(ep_cfg), tparams, t, y, lr=LR, dp_axis=None)
+    ep_new, ep_loss = ttm.train_step(ttm.EPMoETransformer(ep_cfg), tparams, t, y, lr=LR,
+                                     dp_axis=None)
+    assert torch.isfinite(ep_loss)
+    assert not torch.equal(ep_new["layers"][0]["router"], tparams["layers"][0]["router"])

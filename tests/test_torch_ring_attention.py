@@ -243,8 +243,10 @@ def test_ulysses_matches_jax(world):
 
 def test_usp_attention_inner_one_and_its_refusal():
     """With an inner axis of one rank ``usp_attention`` is ring attention
-    over the outer one, forward and backward bit for bit; a wider inner
-    axis needs the 2-D runtime and refuses naming ROADMAP A5."""
+    over the outer one, forward and backward bit for bit; with an outer
+    axis of one rank (``{"sp": 1, "tp": 2}``) it is the Ulysses head
+    exchange over the inner one (the ring of one rank its local attention;
+    the two-axis case against JAX is in ``test_torch_train2d.py``)."""
     q, k, v, dout = _inputs(50, 32)
     s_loc = 16
 
@@ -260,7 +262,18 @@ def test_usp_attention_inner_one_and_its_refusal():
 
     for usp, ring in _port(2, fn):
         assert all(torch.equal(a, b) for a, b in zip(usp, ring))
-    inner = initialize_distributed(2, device="cpu")
-    x = _t(q[:, :, :s_loc])
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tuly.usp_attention(x, x, x, inner=inner)
+    ctx = initialize_distributed(mesh_shape={"sp": 1, "tp": 2}, device="cpu")
+
+    def pair():
+        rows = slice(ctx.rank * s_loc, (ctx.rank + 1) * s_loc)
+        outs = []
+        for attn in (lambda *a: tuly.usp_attention(*a, ctx=ctx, outer="sp", inner="tp"),
+                     lambda *a: tuly.ulysses_attention(*a, ctx=ctx.group("tp"))):
+            leaves = [_t(x[:, :, rows]).requires_grad_() for x in (q, k, v)]
+            out = attn(*leaves)
+            outs.append([out, *torch.autograd.grad(out, leaves, _t(dout[:, :, rows]))])
+        return outs
+
+    for usp, uly in ctx.run(pair, grad=True):
+        for a, b in zip(usp, uly):
+            _close(a, b.detach().numpy(), GRAD_TOL)

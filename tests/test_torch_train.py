@@ -33,6 +33,7 @@ from triton_dist_tpu.ops.allgather_gemm import AGGemmConfig
 from triton_dist_tpu.ops.gemm_reduce_scatter import GemmRSConfig
 from triton_dist_tpu.ops.group_gemm import GroupGemmConfig as JaxGGConfig
 from triton_dist_tpu_torch import models as tmodels
+from triton_dist_tpu_torch import optim as toptim
 from triton_dist_tpu_torch.models import tp_transformer as ttm
 from triton_dist_tpu_torch.ops.group_gemm import GroupGemmConfig
 from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
@@ -229,16 +230,23 @@ def test_skip_nonfinite_drops_a_poisoned_step():
 
 def test_training_refusals(setup):
     """What the port refuses loudly: a data-parallel axis the runtime does
-    not have (``dp_axis`` defaults to ``"dp"``, as the reference's),
-    optimizer transforms, a train step in an inference-mode run, and the
-    card by default when there is none."""
+    not have (``dp_axis`` defaults to ``"dp"``, as the reference's), an
+    optimizer without its state, a train step in an inference-mode run,
+    and the card by default when there is none. Optimizer transforms run:
+    ``opt=sgd(lr)`` is the SGD step bit for bit."""
     _, _, _, tcfg, tcls, tparams, tokens, targets = setup
     t, y = torch.from_numpy(tokens), torch.from_numpy(targets)
     model = tcls(tcfg)
     with pytest.raises(ValueError, match="dp_axis='dp': the rank runtime has no axis 'dp'"):
         ttm.train_step(model, tparams, t, y)
-    with pytest.raises(NotImplementedError, match="A5, optimizers"):
-        ttm.train_step(model, tparams, t, y, opt=object(), dp_axis=None)
+    with pytest.raises(ValueError, match="opt= and opt_state= together"):
+        ttm.train_step(model, tparams, t, y, opt=toptim.sgd(0.1), dp_axis=None)
+    sgd = toptim.sgd(0.1)
+    new, state, loss = ttm.train_step(model, tparams, t, y, opt=sgd,
+                                      opt_state=sgd.init(tparams), dp_axis=None)
+    want, want_loss = ttm.train_step(model, tparams, t, y, lr=0.1, dp_axis=None)
+    assert loss.item() == want_loss.item() and len(state) == 2
+    ttm._tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0), new, want)
     ctx = initialize_distributed(2, device="cpu")
     with pytest.raises(ValueError, match="no axis 'dp'"):
         ctx.run(lambda: tmodels.train_step(tcls(tcfg, ctx=ctx), tparams, t, y), grad=True)

@@ -22,8 +22,10 @@ of that work is padding.
 dispatch over that pair of a 2-D rank runtime (``HierEPAll2AllLayer``):
 each rank holds ``n_experts / (n_o * n_i)`` whole experts, ``max_m`` is
 the phase-1 slab and ``max_m2`` the phase-2 one (default ``n_o * max_m *
-topk``, which never drops). Inference only: training an EP model is
-ROADMAP A12.
+topk``, which never drops). Under grad mode over float banks the expert
+GEMMs are ``group_gemm_grad`` (≙ ``:184-193``: K8/K11, or K29/K34 under a
+ragged config) with the GELU between them, so the layer trains; the
+dispatch and combine are differentiable already.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from triton_dist_tpu_torch import config
 from triton_dist_tpu_torch.layers.ep_a2a_layer import EPAll2AllLayer, HierEPAll2AllLayer
 from triton_dist_tpu_torch.ops.all_to_all import A2AConfig
+from triton_dist_tpu_torch.ops.grads import group_gemm_grad
 from triton_dist_tpu_torch.ops.group_gemm import (
     TILE_M,
     GroupGemmConfig,
@@ -132,10 +135,19 @@ class EPMoEMLP(torch.nn.Module):
         r_cap = rows.shape[0]
         ids = al.sorted_token_ids.long()
         a_sorted = rows[torch.clamp(ids, max=r_cap - 1)]
-        h1 = group_gemm(a_sorted, w_up, al.expert_ids, valid_rows=al.valid_rows,
-                        scale=w_up_scale, config=cfg)
-        y_sorted = group_gemm(h1, w_down, al.expert_ids, valid_rows=al.valid_rows,
-                              scale=w_down_scale, config=cfg, act_fn=gelu)
+        if torch.is_grad_enabled() and w_up_scale is None:
+            # training (``:184-193``): the differentiable grouped GEMMs on
+            # the block-aligned rows, the activation between them
+            h1 = group_gemm_grad(a_sorted, w_up, al.expert_ids, valid_rows=al.valid_rows,
+                                 config=cfg, assume_sorted=True)
+            h1 = gelu(h1.float()).to(x.dtype)
+            y_sorted = group_gemm_grad(h1, w_down, al.expert_ids, valid_rows=al.valid_rows,
+                                       config=cfg, assume_sorted=True)
+        else:
+            h1 = group_gemm(a_sorted, w_up, al.expert_ids, valid_rows=al.valid_rows,
+                            scale=w_up_scale, config=cfg)
+            y_sorted = group_gemm(h1, w_down, al.expert_ids, valid_rows=al.valid_rows,
+                                  scale=w_down_scale, config=cfg, act_fn=gelu)
         # back to the received slab layout; the sentinel rows land in a scratch row
         y = torch.zeros((r_cap + 1, y_sorted.shape[1]), dtype=x.dtype, device=x.device)
         y[ids] = y_sorted.to(x.dtype)

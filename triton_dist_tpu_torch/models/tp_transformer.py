@@ -57,6 +57,7 @@ import math
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch import optim
 from triton_dist_tpu_torch.config import resolve_device
 from triton_dist_tpu_torch.layers.ep_a2a_layer import _check_quant
 from triton_dist_tpu_torch.ops import grads
@@ -519,15 +520,13 @@ class EPMoETransformer(TPMoETransformer):
     two-phase dispatch over ``(ep_outer, axis)``, whose groups the model's
     ``ctx`` (the ``axis`` group of a 2-D runtime) reaches. Parameters from
     :func:`shard_params` with ``cfg``: each rank holds ``[E / world, H, F]``
-    whole experts. Serving only here: training an EP model is ROADMAP
-    A12."""
+    whole experts. It trains as the reference's does (``:447-466``): the
+    dispatch and combine through the differentiable all-to-all, the expert
+    GEMMs through ``group_gemm_grad``, and the hierarchical dispatch keeps
+    the router gradient through the slab channel's straight-through
+    weights."""
 
     def _mlp(self, x: torch.Tensor, p: dict) -> torch.Tensor:
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "training an expert-parallel model is not ported yet (ROADMAP A12, EP "
-                "training, with A5's training on the 2-D runtime); serve it, or train the "
-                "tensor-parallel MoE model")
         c = self.cfg
         h = rmsnorm(x, p["mlp_norm"], c.norm_eps)
         # flat dispatch can send all of a rank's topk assignments to one
@@ -653,12 +652,16 @@ def train_step(
     lr: float = 1e-2, dp_axis: str | None = "dp", opt=None, opt_state=None,
     skip_nonfinite: bool = False,
 ):
-    """One SGD step of one rank (≙ ``train_step``, ``:547``): call inside
-    ``ctx.run(..., grad=True)`` with the rank's parameter shard
+    """One optimizer step of one rank (≙ ``train_step``, ``:547``): call
+    inside ``ctx.run(..., grad=True)`` with the rank's parameter shard
     (``shard_params``) and token shard; at world 1 call it directly.
-    Returns ``(params, loss)`` — new tensors, the inputs are not changed —
-    and with ``skip_nonfinite`` also ``skipped`` (int32, 1 when the step
-    was dropped).
+    Default is SGD at `lr`: returns ``(params, loss)`` — new tensors, the
+    inputs are not changed. With ``opt=`` (a transform of
+    :mod:`triton_dist_tpu_torch.optim`, the twins of optax's ``adam`` and
+    ``sgd``) and ``opt_state=`` (``opt.init`` of the rank's shard) `lr` is
+    unused and the return is ``(params, opt_state, loss)``. With
+    ``skip_nonfinite`` either return also ends in ``skipped`` (int32, 1
+    when the step was dropped).
 
     ``dp_axis`` (default ``"dp"``, as the reference's) is the data-parallel
     axis of a 2-D runtime (``initialize_distributed(mesh_shape={"dp": 2,
@@ -669,18 +672,53 @@ def train_step(
     and at world 1; a runtime without the axis raises a ``ValueError``
     naming it. ``skip_nonfinite`` gates the update on ``grads_all_finite``
     over the gradients and the loss on every rank of the tp and dp groups:
-    a dropped step returns the parameters bit for bit. A ragged
-    ``gg_config`` trains on the ragged kernels (K29-K31 forward, K29 and
-    K34 backward)."""
-    if opt is not None or opt_state is not None:
-        raise NotImplementedError(
-            "train_step opt=: optimizer transforms and their state are not ported yet "
-            "(ROADMAP A5, optimizers: training on the 2-D runtime); the port trains with "
-            "SGD at `lr`")
+    a dropped step returns the parameters and the optimizer state bit for
+    bit. A ragged ``gg_config`` trains on the ragged kernels (K29-K31
+    forward, K29 and K34 backward); an expert-parallel model trains through
+    the differentiable all-to-all (K27/K28) and grouped GEMMs, flat or
+    hierarchical (``ep_outer``, its banks split over ``(ep_outer, axis)``);
+    its quantized dispatch wire (``ep_quant``) cuts the router gradient and
+    is refused here, as in the reference (``:581-590``)."""
+    c = model.cfg
+    if getattr(c, "ep_quant", None) is not None:
+        raise ValueError(
+            "train_step with ep_quant="
+            f"{c.ep_quant!r}: the quantized EP dispatch wire is "
+            "inference-only (it cuts the router gradient). Train with "
+            "ep_quant=None and quantize for serving."
+        )
+    if (opt is None) != (opt_state is None):
+        raise ValueError("train_step: pass opt= and opt_state= together (opt_state = "
+                         "opt.init(params), the rank's shard)")
     dp = None if dp_axis is None else _dp_group(model, dp_axis)
     loss, flat = _loss_and_grads(model, params, tokens, targets, dp)
     ok = grads.grads_all_finite((flat, loss), model.ctx, dp) if skip_nonfinite else None
     order = iter(range(len(flat)))
+
+    def gate(new, old):
+        # ok=True is the identity on `new`; ok=False keeps `old` (parameters
+        # and optimizer state: a dropped step leaves no trace)
+        if ok is None:
+            return new
+        return optim.tree_map(lambda a, b: a if a is None or a is b else torch.where(ok, a, b),
+                              new, old)
+
+    if opt is not None:
+        def grad_of(p):
+            i = next(order)
+            g, flat[i] = flat[i], None
+            return g.to(p.dtype) if _trainable(p) else None
+
+        with torch.no_grad():
+            tree = _tree_map(grad_of, params)
+            updates, new_state = opt.update(tree, opt_state, params)
+            del tree  # the gradients are freed before the new parameters exist
+            new_params = gate(optim.apply_updates(params, updates), params)
+            del updates
+            new_state = gate(new_state, opt_state)
+        if ok is None:
+            return new_params, new_state, loss
+        return new_params, new_state, loss, (~ok).to(torch.int32)
 
     def update(p):
         i = next(order)

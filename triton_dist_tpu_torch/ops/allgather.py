@@ -280,3 +280,25 @@ def _all_gather_ring_2d(x: torch.Tensor, pair) -> torch.Tensor:
 
 
 _all_gather_ring_2d.launches = 0
+
+
+def all_gather_op(x: torch.Tensor, *, ctx=None, method: str = "auto",
+                  chunks_per_shard: int = 1) -> torch.Tensor:
+    """Host-level entry (≙ ``all_gather_op``, ``:566``): `x` a global ``[n
+    * m, ...]`` tensor whose rows ``[r m, (r+1) m)`` are rank ``r``'s shard
+    (moved to its device); every rank gathers the shards with `method` and
+    `chunks_per_shard` (K5, or the rings K19-K22), and rank 0's replicated
+    result comes back on `x`'s device. At world 1 the identity."""
+    n = axis_size(ctx)
+    if x.shape[0] % n:
+        raise ValueError(f"all_gather_op: {x.shape[0]} rows over {n} ranks")
+    if n == 1:
+        return x
+    m = x.shape[0] // n
+
+    def body():
+        r = ctx.rank
+        return all_gather(x[r * m:(r + 1) * m].contiguous().to(ctx.rank_device), ctx=ctx,
+                          method=method, chunks_per_shard=chunks_per_shard)
+
+    return ctx.run(body)[0].to(x.device)

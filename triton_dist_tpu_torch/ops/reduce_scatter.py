@@ -289,3 +289,30 @@ def _ring_reduce_scatter_chunked(x, ctx, spans):
 
 
 _ring_reduce_scatter_chunked.launches = 0
+
+
+def reduce_scatter_op(x: torch.Tensor, *, ctx=None, method: str = "auto",
+                      config: ReduceScatterConfig | None = None) -> torch.Tensor:
+    """Host-level entry (≙ ``reduce_scatter_op``, ``:471``): `x` ``[n,
+    m_total]`` or ``[n, m_total, d]``, slice ``r`` rank ``r``'s whole
+    partial array (moved to its device); returns ``[m_total, ...]``, the
+    elementwise sum, rank ``r``'s rows ``[r m_loc, (r+1) m_loc)`` from rank
+    ``r``, on `x`'s device. `method` and ``config.chunks_per_shard`` pick
+    among K12 (``"scatter_reduce"``) and the rings K18/K23 (``"ring"``), as
+    :func:`reduce_scatter` does."""
+    n = axis_size(ctx)
+    if x.shape[0] != n:
+        raise ValueError(f"reduce_scatter_op: dim 0 of {tuple(x.shape)} must be the world {n}")
+    if x.ndim not in (2, 3):
+        raise ValueError(f"reduce_scatter_op wants [n, m] or [n, m, d]; got {tuple(x.shape)}")
+    two_d = x.ndim == 3
+
+    def one(part):
+        part = part if two_d else part[:, None]
+        out = reduce_scatter(part.contiguous(), ctx=ctx, method=method, config=config)
+        return out if two_d else out[:, 0]
+
+    if n == 1:
+        return one(x[0])
+    parts = ctx.run(lambda: one(x[ctx.rank].to(ctx.rank_device)))
+    return torch.cat([p.to(x.device) for p in parts])

@@ -7,11 +7,9 @@ so the slab contract is exact, and q, k and v ride one exchange (their rows
 back to back a slab). The local attention is plain PyTorch, as the JAX
 package leaves it to XLA.
 
-:func:`usp_attention` composes the head exchange over an inner axis with
-ring attention over an outer one; with an inner axis of one rank it is
-``ring_attention_grad``. A wider inner axis (the two axes of a 2-D rank
-runtime) is not ported yet and raises (ROADMAP A5, training on the 2-D
-runtime).
+:func:`usp_attention` composes the head exchange over an inner group
+with ring attention (K35) over an outer one, the two axes of a 2-D rank
+runtime; with an inner axis of one rank it is ``ring_attention_grad``.
 """
 
 from __future__ import annotations
@@ -21,7 +19,7 @@ import math
 import torch
 
 from triton_dist_tpu_torch.ops.grads import fast_all_to_all_grad, ring_attention_grad
-from triton_dist_tpu_torch.utils import axis_size
+from triton_dist_tpu_torch.utils import axis_size, group_of
 
 
 def _exchange(x: torch.Tensor, ctx) -> torch.Tensor:
@@ -115,18 +113,30 @@ def ulysses_attention(q, k, v, *, ctx=None, causal: bool = True) -> torch.Tensor
     return _Ulysses.apply(q, k, v, ctx, causal)
 
 
-def usp_attention(q, k, v, *, ctx=None, inner=None, causal: bool = True, ring_config=None,
-                  layout: str = "contig") -> torch.Tensor:
-    """Unified sequence parallelism (≙ ``usp_attention``, ``:160``): the
-    Ulysses head exchange over the `inner` axis composed with ring
-    attention over the outer one, `ctx`. The port has one rank axis: an
-    `inner` of one rank (None, or a context of world 1) is ring attention
-    over `ctx` (``ring_attention_grad``); a wider one is not ported yet
-    and raises (ROADMAP A5, training on the 2-D runtime)."""
-    if axis_size(inner) > 1:
-        raise NotImplementedError(
-            "usp_attention with an inner axis of more than one rank is not ported yet "
-            "(ROADMAP A5, training on the 2-D runtime: USP over two axes); with one rank "
-            "axis use ulysses_attention or ring_attention_grad")
-    return ring_attention_grad(q, k, v, ctx=ctx, causal=causal, config=ring_config,
-                               layout=layout)
+def usp_attention(q, k, v, *, ctx=None, outer=None, inner=None, causal: bool = True,
+                  ring_config=None, layout: str = "contig") -> torch.Tensor:
+    """Unified sequence parallelism (≙ ``usp_attention``, ``:160``; call
+    inside ``ctx.run``, with ``grad=True`` to differentiate): the Ulysses
+    head exchange over the `inner` group composed with ring attention over
+    the `outer` one. `outer` and `inner` are axis names of the runtime
+    `ctx` (``outer="sp", inner="tp"`` on ``mesh_shape={"sp": 2, "tp":
+    2}``) or groups; `outer` None is `ctx` itself, `inner` None an inner
+    axis of one rank (ring attention over `outer` alone). q, k, v ``[b, h,
+    s_loc, d]`` with the sequence sharded over both axes outer-major and
+    ``h % n_inner == 0``. After the inner exchange each rank holds ``h /
+    n_inner`` heads of its outer group's contiguous sequence block, the
+    ring's contiguous layout over `outer` (``layout="zigzag"`` composes as
+    in the reference: permute the global sequence with
+    ``zigzag_permutation(n_outer, S)``). Differentiable end to end."""
+    outer = group_of(ctx, outer) if isinstance(outer, str) or outer is None else outer
+    inner = group_of(ctx, inner) if isinstance(inner, str) else inner
+    n_i = axis_size(inner)
+    if n_i == 1:
+        return ring_attention_grad(q, k, v, ctx=outer, causal=causal, config=ring_config,
+                                   layout=layout)
+    if q.shape[1] % n_i:
+        raise ValueError(f"usp_attention: {q.shape[1]} heads over an inner axis of {n_i} ranks")
+    qh, kh, vh = _seq_to_heads((q, k, v), inner)
+    oh = ring_attention_grad(qh, kh, vh, ctx=outer, causal=causal, config=ring_config,
+                             layout=layout)
+    return _heads_to_seq((oh,), inner)[0]

@@ -19,7 +19,7 @@ its kernels signal and wait on.
 Host collectives: the XLA collectives of the JAX bodies (``psum``,
 ``all_gather``, ``psum_scatter`` in ``models/decode.py``, ``all_to_all``
 in ``ops/all_to_all.py``) become :meth:`all_gather`, :meth:`psum`,
-:meth:`psum_scatter` and :meth:`all_to_all`: each rank
+:meth:`psum_scatter`, :meth:`all_to_all` and :meth:`ppermute`: each rank
 publishes its tensor and a CUDA event at a thread rendezvous, waits on its
 peers' events on its own stream, and concatenates or sums there, in rank
 order, so every rank gets bitwise the same result. They are the twins of
@@ -69,6 +69,16 @@ MAX_WORLD = 8  # csrc/dist.cu MAX_WORLD, csrc/gemm_core.cuh MAX_ADDS + 1
 SWITCH_INTERVAL_S = 5e-5
 
 
+def _ordered_sum(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The f32 sum of `parts` in rank order, accumulated in place into one
+    f32 buffer: the same bits as summing f32 copies, without a copy of each
+    part (a replicated embedding's gradient is 2 GB in f32)."""
+    acc = parts[0].to(torch.float32, copy=True)
+    for t in parts[1:]:
+        acc.add_(t)
+    return acc
+
+
 class _Collectives:
     """The host collectives over a set of ranks (the runtime, or a group of
     it): each rank publishes its tensor at the set's rendezvous
@@ -87,11 +97,7 @@ class _Collectives:
         ``jax.lax.psum``)."""
         if self.world == 1:
             return x
-        parts = self._exchange(x)
-        acc = parts[0].float()
-        for t in parts[1:]:
-            acc = acc + t.float()
-        return acc.to(x.dtype)
+        return _ordered_sum(self._exchange(x)).to(x.dtype)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """Slab ``p`` of every rank's ``x [world, ...]`` to rank ``p``,
@@ -113,10 +119,20 @@ class _Collectives:
             raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} over {self.world}")
         m = x.shape[dim] // self.world
         parts = [t.narrow(dim, self.rank * m, m) for t in self._exchange(x)]
-        acc = parts[0].float()
-        for t in parts[1:]:
-            acc = acc + t.float()
-        return acc.to(x.dtype)
+        return _ordered_sum(parts).to(x.dtype)
+
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """The tensor of the rank that `perm` (``(source, destination)``
+        pairs, each rank at most once on either side) sends here, zeros
+        where none does (≙ ``jax.lax.ppermute(x, axis, perm)``)."""
+        perm = [(int(s), int(d)) for s, d in perm]
+        srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or any(
+                not 0 <= r < self.world for r in srcs + dsts):
+            raise ValueError(f"ppermute: {perm} is not a permutation of {self.world} ranks")
+        parts = [x] if self.world == 1 else self._exchange(x.contiguous())
+        src = next((s for s, d in perm if d == self.rank), None)
+        return torch.zeros_like(x) if src is None else parts[src].clone()
 
     def _exchange_in(self, state, x: torch.Tensor) -> list[torch.Tensor]:
         """Publish `x` in `state`'s slots, meet at its rendezvous, and

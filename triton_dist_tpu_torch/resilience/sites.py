@@ -54,7 +54,12 @@ Site numbering per family, for a launch at world ``n``:
   this rank's inner step ``s + 1``; site ``n + MAX_SPANS * (1 + t) + s``
   the wait for inner chunk ``s`` that the outer neighbour above put at its
   outer round ``t``, before this rank's outer round ``t + 1`` (kind
-  ``signal_wait_until``).
+  ``signal_wait_until``);
+- the KV handoff stream ``kv_stream`` (K41), ``kv_stream_w8`` and
+  ``kv_stream_fp8`` (K42, ``csrc/kv_stream.cu``): site ``n + j`` is the
+  wait for payload chunk ``j`` of the mirror's slab, site ``n + MAX_SPANS
+  + j`` the wait for its scale chunk ``j``; chunk 0's payload wait comes
+  first (kind ``signal_wait_until``).
 """
 
 from __future__ import annotations
@@ -74,7 +79,9 @@ FAMILIES = {"barrier": 1, "all_gather": 2, "ag_gemm": 3, "gemm_rs": 4, "ag_group
             "moe_rs": 6, "reduce_scatter": 7, "ag_gemm_ring": 8, "gemm_rs_ring": 9,
             "reduce_scatter_ring": 10, "all_gather_ring_1d": 11, "all_gather_ring_bidir": 12,
             "all_to_all": 13, "all_to_all_chunked": 14, "ag_group_gemm_chunked": 15,
-            "moe_rs_chunked": 16, "ring_attention": 17, "all_gather_2d": 18, "ag_gemm_2d": 19}
+            "moe_rs_chunked": 16, "ring_attention": 17, "all_gather_2d": 18, "ag_gemm_2d": 19,
+            "kv_stream": 20, "kv_stream_w8": 21, "kv_stream_fp8": 22}
+KV_STREAM_FAMILIES = ("kv_stream", "kv_stream_w8", "kv_stream_fp8")
 RING_2D_FAMILIES = ("all_gather_2d", "ag_gemm_2d")
 RING_FAMILIES = ("ag_gemm_ring", "gemm_rs_ring", "reduce_scatter_ring", "all_gather_ring_1d",
                  "all_gather_ring_bidir", "ring_attention")
@@ -100,6 +107,9 @@ def site_name(family: str, site: int, world: int) -> str:
             return f"inner chunk of the left inner neighbour's inner step {p}"
         t, s = divmod(p - MAX_SPANS, MAX_SPANS)
         return f"inner chunk {s} of the outer neighbour's outer round {t}"
+    if family in KV_STREAM_FAMILIES:
+        what, j = ("scale", p - MAX_SPANS) if p >= MAX_SPANS else ("payload", p)
+        return f"{what} chunk {j} of the mirror's slab"
     if family in RING_FAMILIES:
         step, chunk = divmod(p, MAX_SPANS)
         if step >= world - 1:
