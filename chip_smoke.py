@@ -14,7 +14,9 @@ Phases, each printed as a JSON line, each fatal on failure:
 4. the slice at full width: ``ServingEngine`` serving a Llama-3.1-8B-wide,
    32-layer bf16 model (random seeded weights) with the paged cache and
    bulk prefill — TTFT, tokens/s, peak memory, and the launch counts that
-   show the K1 GEMM and K3 paged decode carried it (plain versions: 0);
+   show the K1 GEMM and K3 paged decode carried it (plain versions: 0; every
+   product on K1's wgmma + TMA engine, every decode on K3's one-launch
+   kernel);
    then a torch.profiler look at three decode steps (device busy share);
 5. the contiguous-cache path (K2 decode) at the same width, 4 layers;
 6. parity: f32, 2 layers at full width, greedy tokens of the kernel path on
@@ -352,6 +354,11 @@ class Counters:
 
         self.kernels = {
             "gemm": gemm.matmul,
+            # K1's engines: wgmma + TMA, and mma.sync where TMA cannot load
+            "gemm_wgmma": (gemm.matmul, "wgmma_launches"),
+            "gemm_mma": (gemm.matmul, "mma_launches"),
+            # K3 on the one-launch kernel (bf16 pools)
+            "paged_flash_decode_onepass": (fd.paged_flash_decode, "onepass_launches"),
             "flash_decode": fd.flash_decode,
             "paged_flash_decode": fd.paged_flash_decode,
             "barrier": common.barrier_all_op,
@@ -468,8 +475,13 @@ def phase_build() -> None:
 
 def phase_gemm() -> dict:
     """K1 on the five projection shapes of one Llama-3.1-8B prefill at
-    M = 8 x 256 rows, plus ragged shapes and the f32 route."""
+    M = 8 x 256 rows (the wgmma + TMA engine, timed beside the earlier
+    mma.sync engine in the same call), the same weights at the smaller
+    admissions ``serve_paged`` sends (batch 8 x a prompt bucket of 32, 64
+    or 128 tokens: 128x128 against 128x256), ragged shapes, the epilogue
+    adds and the f32 route."""
     import torch
+    from triton_dist_tpu_torch.ops import gemm as G
     from triton_dist_tpu_torch.ops.gemm import _matmul_plain, matmul
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -479,58 +491,88 @@ def phase_gemm() -> dict:
         b = (torch.randn((k, n), generator=g, device="cuda") / math.sqrt(k)).to(dtype)
         return a, b
 
-    # ragged edges (both load paths) and the f32 kernel: max |kernel - plain|
-    # over max |plain| — f32 products and sums in both, only the order
-    # differs, so 1e-4 holds with a wide margin
+    # ragged edges (every engine: TMA-loadable or not) and the f32 kernel:
+    # max |kernel - plain| over max |plain| — f32 products and sums in both,
+    # only the order differs, so 1e-4 holds with a wide margin
+    edges = {}
     for m, n, k, dtype in ((1, 1, 1, torch.bfloat16), (33, 17, 9, torch.bfloat16),
                            (100, 72, 40, torch.bfloat16), (257, 130, 100, torch.bfloat16),
+                           (1, 8, 8, torch.bfloat16), (127, 136, 72, torch.bfloat16),
+                           (129, 136, 200, torch.bfloat16), (2049, 520, 1000, torch.bfloat16),
                            (33, 17, 9, torch.float32), (300, 500, 700, torch.float32)):
         a, b = operands(m, n, k, dtype)
-        got = matmul(a, b, out_dtype=torch.float32)
-        ref = _matmul_plain(a, b, torch.float32)
+        adds = [torch.randn((m, n), generator=g, device="cuda") for _ in range(m % 3)]
+        got = matmul(a, b, out_dtype=torch.float32, adds=adds)
+        ref = _matmul_plain(a, b, torch.float32, adds)
         rel = ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
         if not rel <= 1e-4:
             raise AssertionError(f"gemm {m}x{n}x{k} {dtype}: rel err {rel}")
+        engine = G.plan(m, n, k, dtype).engine
+        edges[engine] = edges.get(engine, 0) + 1
 
     m = 8 * 256
     shapes = {"wqkv": (4096, 6144), "wo": (4096, 4096), "gate_up": (4096, 28672),
               "down": (14336, 4096), "lm_head": (4096, 128256)}
-    rows, total = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                           flops=0.0, bytes=0.0)
+    rows, admissions = [], {}
+    total = dict(ms=0.0, prev_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 flops=0.0, bytes=0.0)
     worst = 0.0
     for name, (k, n) in shapes.items():
         a, b = operands(m, n, k, torch.bfloat16)
-        got, ref = matmul(a, b).float(), _matmul_plain(a, b, torch.bfloat16).float()
-        err = (got - ref).abs().max().item()
+        ref = _matmul_plain(a, b, torch.bfloat16).float()
         # bf16 output: both round an f32 sum to bf16 (2^-8 relative), and the
         # sums differ in order, so a result may land one ulp apart
         tol = 2.0**-7 * ref.abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"gemm {name}: max abs err {err} > {tol}")
-        worst = max(worst, err)
+        errs = {}
+        for engine in ("wgmma", "mma_sync"):
+            errs[engine] = (matmul(a, b, _engine=engine).float() - ref).abs().max().item()
+            if not errs[engine] <= tol:
+                raise AssertionError(f"gemm {name} ({engine}): max abs err {errs[engine]}")
+        worst = max(worst, errs["wgmma"])
         flops, nbytes = 2.0 * m * n * k, 2.0 * (m * k + k * n + m * n)
         b_ms, _ = bound(flops, nbytes)
         row = dict(
-            shape=[m, k, n], max_abs_err=err, tol=tol,
+            shape=[m, k, n], max_abs_err=errs["wgmma"], prev_max_abs_err=errs["mma_sync"],
+            tol=tol, config=G.plan(m, n, k, a.dtype).config,
             ms=cuda_ms(lambda: matmul(a, b), iters=10),
+            prev_ms=cuda_ms(lambda: matmul(a, b, _engine="mma_sync"), iters=10),
             plain_ms=cuda_ms(lambda: _matmul_plain(a, b, torch.bfloat16), iters=5),
             library_ms=cuda_ms(lambda: torch.matmul(a, b), iters=10),
             bound_ms=b_ms,
         )
         row["tflops"] = flops / row["ms"] / 1e9
         rows.append({name: row})
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms"):
             total[key] += row[key]
         total["flops"] += flops
         total["bytes"] += nbytes
-        del a, b, got, ref
-    emit({"phase": "kernel", "kernel": "gemm", "per_shape": rows})
+        # the served admissions below M = 2048: batch 8 x buckets 32, 64 and
+        # 128 (the prompts of 32 to 128 tokens), both wgmma tiles timed
+        for m_adm in (256, 512, 1024):
+            a_adm = a[:m_adm].contiguous()
+            ref_adm = _matmul_plain(a_adm, b, torch.bfloat16).float()
+            err_adm = (matmul(a_adm, b).float() - ref_adm).abs().max().item()
+            if not err_adm <= 2.0**-7 * ref_adm.abs().max().item():
+                raise AssertionError(f"gemm {name} at M={m_adm}: max abs err {err_adm}")
+            admissions.setdefault(f"m{m_adm}", {})[name] = dict(
+                config=G.plan(m_adm, n, k, a.dtype).config,
+                **{f"ms_config{c}": cuda_ms(lambda c=c: matmul(a_adm, b, _config=c), iters=20)
+                   for c in (0, 1)},
+                prev_ms=cuda_ms(lambda: matmul(a_adm, b, _engine="mma_sync"), iters=20),
+                library_ms=cuda_ms(lambda: torch.matmul(a_adm, b), iters=20))
+            del a_adm, ref_adm
+        del a, b, ref
+    emit({"phase": "kernel", "kernel": "gemm", "per_shape": rows,
+          "prev_engine": "mma.sync (csrc/gemm_core.cuh Bf16Engine)",
+          "admissions": admissions, "edge_cells_by_engine": edges,
+          "sums": {k_: total[k_] for k_ in ("ms", "prev_ms", "library_ms", "bound_ms")}})
     b_ms, by = bound(total["flops"], total["bytes"])
     return dict(
         name="gemm", route="cuda", source="triton_dist_tpu_torch/csrc/gemm.cu",
         replaces="triton_dist_tpu/ops/common.py:523",
         max_abs_err=worst, ms=total["ms"], plain_ms=total["plain_ms"],
         bound_ms=b_ms, bound_by=by, library_ms=total["library_ms"],
+        prev_ms=total["prev_ms"], engine="wgmma + TMA (csrc/gemm_sm90.cuh)",
         shapes="one layer's four projections + lm_head at M=2048 (summed)",
     )
 
@@ -639,9 +681,17 @@ def phase_paged_flash_decode() -> dict:
     junk = torch.randint(0, b * pps, (b, pps), generator=g, device="cuda")
     used = torch.arange(pps, device="cuda")[None, :] < ((lens + page - 1) // page)[:, None]
     table = torch.where(used, table, junk).to(torch.int32).contiguous()
+    before = fd.paged_flash_decode.onepass_launches
     got = fd.paged_flash_decode(q, kp, vp, lens, table, return_lse=True)
+    if fd.paged_flash_decode.onepass_launches != before + 1:
+        raise AssertionError("paged_flash_decode: the bf16 pool did not take the one-launch kernel")
     ref = fd._xla_paged_decode(q, kp, vp, lens, table, return_lse=True)
     err = _check_decode("paged_flash_decode", got, ref, lens, DECODE_TOL)
+    prev = fd.paged_flash_decode(q, kp, vp, lens, table, return_lse=True, _engine="split")
+    prev_err = _check_decode("paged_flash_decode (split)", prev, ref, lens, DECODE_TOL)
+    again = fd.paged_flash_decode(q, kp, vp, lens, table, return_lse=True)
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError("paged_flash_decode: two calls differ (merge order or counters)")
 
     kc, vc = fd._paged_to_contiguous(kp, table), fd._paged_to_contiguous(vp, table)
     mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
@@ -659,6 +709,9 @@ def phase_paged_flash_decode() -> dict:
         max_abs_err=err,
         ms=cuda_ms(lambda: fd.paged_flash_decode(q, kp, vp, lens, table, return_lse=True),
                    iters=50),
+        prev_ms=cuda_ms(lambda: fd.paged_flash_decode(q, kp, vp, lens, table, return_lse=True,
+                                                      _engine="split"), iters=50),
+        prev_max_abs_err=prev_err, engine="one launch (paged_onepass_kernel)",
         plain_ms=cuda_ms(lambda: fd._xla_paged_decode(q, kp, vp, lens, table,
                                                       return_lse=True), iters=20),
         bound_ms=b_ms, bound_by=by,
@@ -667,9 +720,12 @@ def phase_paged_flash_decode() -> dict:
         shapes=f"b={b} hq={hq} h_kv={h_kv} d={d} page={page} pages/seq={pps} "
                f"lens={lens.tolist()}",
     )
-    emit({"phase": "kernel", "kernel": "paged_flash_decode",
-          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                      "library_ms", "shapes")}})
+    # the one-launch call's memset of its b * h_kv arrival counters, alone
+    zeroing_ms = cuda_ms(lambda: torch.zeros((b * h_kv,), dtype=torch.int32, device="cuda"),
+                         iters=50)
+    emit({"phase": "kernel", "kernel": "paged_flash_decode", "counter_zeroing_ms": zeroing_ms,
+          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "prev_ms", "prev_max_abs_err",
+                                      "plain_ms", "bound_ms", "library_ms", "shapes")}})
     return entry
 
 
@@ -724,6 +780,13 @@ def phase_serve(counters: Counters) -> dict:
         raise AssertionError(f"served path skipped a kernel: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card path: {plain}")
+    # every served product is TMA-loadable (K, N multiples of 8, aligned), so
+    # the rule sends all of them to the wgmma engine; the bf16 pool sends
+    # every paged decode to the one-launch kernel
+    if launches["gemm_wgmma"] <= 0 or launches["gemm_mma"] != 0:
+        raise AssertionError(f"K1 engines on the served path: {launches}")
+    if launches["paged_flash_decode_onepass"] != launches["paged_flash_decode"]:
+        raise AssertionError(f"K3 engines on the served path: {launches}")
     n_tok = sum(len(r.tokens) for r in done.values())
     ttft = sorted(r.ttft_ms for r in done.values())
     snap = eng.snapshot()
@@ -7844,7 +7907,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_f32_parity_sp()
     torch.cuda.empty_cache()
-    phase_f32_parity_train()
+    # its world-4 ragged step ran out of memory once with 13.3 GB of the 80
+    # free but split (fixed-size segments), as the early training phases did
+    with expandable_segments():
+        phase_f32_parity_train()
     torch.cuda.empty_cache()
     train_ring = phase_train_ring(counters)
     torch.cuda.empty_cache()

@@ -1,5 +1,7 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions on
-the card (GEMM K1, flash decode K2, paged flash decode K3, grouped GEMM K8,
+the card (GEMM K1 — its wgmma + TMA engine at every tile and the engine
+routing by shape —, flash decode K2, paged flash decode K3 — its one-launch
+kernel bit-equal across calls and under a CUDA-graph replay —, grouped GEMM K8,
 its weight gradient K11, the multi-position verify K13 and its paged twin
 K14 — over shared pages, and chunk calls bit-equal to the whole-range
 call — and at world 2 and 4 with every rank on the one
@@ -133,6 +135,121 @@ def test_flash_decode_kernels_match_plain(cuda, dtype, name):
     for o, lse in (got, pgot):
         torch.testing.assert_close(o, want[0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(lse, want[1], rtol=1e-4, atol=1e-4)
+
+
+# K1's wgmma + TMA engine: the served shape families at reduced sizes
+# (M, K, N) and the edges of its tiles
+WGMMA_SHAPES = {
+    "wqkv": (256, 512, 768), "wo": (256, 512, 512), "gate_up": (256, 512, 3584),
+    "down": (256, 1792, 512), "lm_head": (256, 512, 16032), "decode_m8": (8, 512, 768),
+    "m1_n8": (1, 64, 8), "m127_n136": (127, 200, 136), "m129_n136": (129, 72, 136),
+    "m2049": (2049, 1000, 520),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_adds", [0, 1, tgemm.MAX_ADDS])
+@pytest.mark.parametrize("name", sorted(WGMMA_SHAPES))
+def test_wgmma_gemm_matches_plain(cuda, name, n_adds, out_dtype):
+    """K1's wgmma engine (every tile config: 64x64 at M <= 64, 128x128 and
+    128x256 above) against the plain version with 0, 1 and MAX_ADDS epilogue
+    adds: bf16 out within 2^-7 of the output scale (both round an f32 sum
+    once), f32 out within 1e-4 of it (the same products in another order)."""
+    m, k, n = WGMMA_SHAPES[name]
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = (torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5).bfloat16()
+    adds = [torch.randn((m, n), generator=gen, device=cuda).to(out_dtype) for _ in range(n_adds)]
+    before = tgemm.matmul.wgmma_launches
+    got = tgemm.matmul(a, b, out_dtype=out_dtype, adds=adds).float()
+    torch.cuda.synchronize()
+    assert tgemm.matmul.wgmma_launches == before + 1
+    want = tgemm._matmul_plain(a, b, out_dtype, adds).float()
+    tol = (2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-4) * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    for config in (0, 1, 2):  # every tile on the same product
+        other = tgemm.matmul(a, b, out_dtype=out_dtype, adds=adds, _config=config).float()
+        assert (other - want).abs().max().item() <= tol, config
+
+
+@pytest.mark.cuda
+def test_gemm_engines_routed_by_shape(cuda):
+    """The stated rule on the card: aligned bf16 runs the wgmma engine, a K or
+    N off a multiple of 8 (or a misaligned view) the mma.sync engine, f32 the
+    f32 engine; each counted on its own counter, each right."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cases = [((64, 72, 40), torch.bfloat16, "wgmma_launches"),
+             ((64, 71, 40), torch.bfloat16, "mma_launches"),
+             ((64, 72, 41), torch.bfloat16, "mma_launches"),
+             ((64, 72, 40), torch.float32, None)]
+    for (m, k, n), dtype, counter in cases:
+        a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+        counts = {c: getattr(tgemm.matmul, c) for c in ("wgmma_launches", "mma_launches")}
+        got = tgemm.matmul(a, b, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for c, v in counts.items():
+            assert getattr(tgemm.matmul, c) == v + (c == counter), (m, k, n, dtype, c)
+        want = tgemm._matmul_plain(a, b, torch.float32)
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+    # a view one element into its storage: A's base is not 16-byte aligned
+    a = torch.randn((64 * 72 + 1,), generator=gen, device=cuda).bfloat16()[1:].view(64, 72)
+    b = torch.randn((72, 40), generator=gen, device=cuda).bfloat16()
+    before = tgemm.matmul.mma_launches
+    tgemm.matmul(a, b)
+    assert tgemm.matmul.mma_launches == before + 1
+
+
+# K3's one-launch kernel: (b, hq, h_kv, d, page, pages a sequence, lens, soft cap)
+ONEPASS_CASES = {
+    "edges_g4_d128": (6, 32, 8, 128, 16, 64, [0, 1, 15, 16, 17, 1024], 0.0),
+    "skew_g4_cap": (4, 16, 4, 128, 16, 256, [4096, 3, 1, 2], 30.0),
+    "g1_d64": (3, 4, 4, 64, 16, 32, [512, 100, 7], 0.0),
+    "g8_d128_cap": (2, 64, 8, 128, 16, 128, [2048, 1500], 5.0),
+    "g8_d64_page8": (3, 16, 2, 64, 8, 40, [320, 0, 33], 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONEPASS_CASES))
+def test_paged_onepass_decode_matches_plain(cuda, name):
+    """K3's one-launch kernel on a bf16 pool with junk table entries past
+    every length: within DECODE_TOL of the plain version (f32 scores and
+    sums of the same bf16 inputs, another order), kv_len 0 gives out 0 and
+    lse -inf, two calls and a CUDA-graph replay give the same bits (the
+    spans merge in span order; each call zeroes its arrival counters in
+    its stream, and a replay repeats that memset)."""
+    b, hq, h_kv, d, page, pps, lens, cap = ONEPASS_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    n_pages = b * pps + 3
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).bfloat16()
+    kp = torch.randn((n_pages, h_kv, page, d), generator=gen, device=cuda).bfloat16()
+    vp = torch.randn((n_pages, h_kv, page, d), generator=gen, device=cuda).bfloat16()
+    tl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    table = torch.randperm(n_pages, generator=gen, device=cuda)[:b * pps].reshape(b, pps)
+    used = torch.arange(pps, device=cuda)[None, :] < ((tl + page - 1) // page)[:, None]
+    junk = torch.randint(0, n_pages, (b, pps), generator=gen, device=cuda)
+    table = torch.where(used, table, junk).to(torch.int32).contiguous()
+    run = lambda: tfd.paged_flash_decode(q, kp, vp, tl, table, soft_cap=cap,  # noqa: E731
+                                         return_lse=True)
+    before = tfd.paged_flash_decode.onepass_launches
+    out, lse = run()
+    again = run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tfd.paged_flash_decode.onepass_launches == before + 3
+    want_o, want_l = tfd._xla_paged_decode(q, kp, vp, tl, table, return_lse=True, soft_cap=cap)
+    live = tl > 0
+    assert (out - want_o).abs().max().item() <= 1e-3
+    assert (lse[live] - want_l[live]).abs().max().item() <= 1e-3
+    assert (out[~live] == 0).all() and torch.isneginf(lse[~live]).all()
+    for o, l_ in (again, captured):
+        assert torch.equal(o, out) and torch.equal(l_, lse)
 
 
 VERIFY_CASES = {

@@ -206,3 +206,44 @@ def test_sp_decode_distributed_matches_jax(world):
     for r, (c, p) in enumerate(ctx.run(rank)):
         np.testing.assert_allclose(c.numpy(), np.asarray(want_c)[r], rtol=TOL, atol=TOL)
         np.testing.assert_allclose(p.numpy(), np.asarray(want_p)[r], rtol=TOL, atol=TOL)
+
+
+# ------------------------------ K3's one-launch span plan (pure, on the host) ----
+
+@pytest.mark.parametrize("lens,page,max_pages,b_hkv,sms", [
+    ([1024, 0, 16, 17, 255, 600, 999, 1], 16, 64, (8, 8), 132),   # the served lengths
+    ([0, 1, 15, 16, 17, 64, 65, 4096], 16, 256, (8, 2), 132),      # edges and a full table
+    ([5, 3, 0], 4, 8, (3, 2), 4),                                  # small pages, few SMs
+    ([2000, 9], 64, 40, (2, 1), 132),                              # one page a tile
+])
+def test_onepass_span_plan_matches_brute_force(lens, page, max_pages, b_hkv, sms):
+    """The (sequence, span) rows the one-launch kernel computes equal a
+    brute-force grouping of every valid position by its span, each position
+    exactly once; spans are whole tiles; the grid's span count covers the
+    table; no span reaches a page at or past ceil(len / page) (junk)."""
+    b, h_kv = b_hkv
+    span_pages, splits = tfd._onepass_plan(b, h_kv, page, max_pages, sms)
+    assert span_pages % (tfd._TILE // page) == 0 and splits * span_pages >= max_pages
+    rows = tfd._onepass_rows(lens, page, max_pages, span_pages)
+    want = {}
+    for bi, n in enumerate(lens):
+        for pos in range(min(n, page * max_pages)):
+            lo, hi = want.get((bi, pos // (span_pages * page)), (pos, pos))
+            want[(bi, pos // (span_pages * page))] = (min(lo, pos), max(hi, pos + 1))
+    assert {(bi, sp): (p0, p1) for bi, sp, p0, p1 in rows} == want
+    assert len(rows) == len(want) and all(sp < splits for _, sp, _, _ in rows)
+    for bi, sp, p0, p1 in rows:
+        assert p0 < p1 <= lens[bi] and (p1 - 1) // page < -(-lens[bi] // page)
+
+
+@pytest.mark.parametrize("dtype,d,page,g,aligned,engine", [
+    (torch.bfloat16, 128, 16, 4, True, "onepass"),
+    (torch.bfloat16, 24, 4, 1, True, "onepass"),
+    (torch.bfloat16, 256, 64, 16, True, "onepass"),
+    (torch.float32, 128, 16, 4, True, "split"),     # f32 pools keep the split kernel
+    (torch.bfloat16, 20, 16, 4, True, "split"),     # rows not whole 16-byte chunks
+    (torch.bfloat16, 128, 48, 4, True, "split"),    # a page that does not divide 64
+    (torch.bfloat16, 128, 16, 4, False, "split"),
+])
+def test_paged_decode_engine_choice(dtype, d, page, g, aligned, engine):
+    assert tfd._decode_engine(dtype, d, page, g, aligned) == engine

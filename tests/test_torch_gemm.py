@@ -85,3 +85,48 @@ def test_matmul_bf16_out_and_shape_check():
     )
     with pytest.raises(ValueError, match="shapes"):
         tgemm.matmul(ta, tb.T)
+
+
+# ------------------------------------------- K1's engine choice (pure) ----
+
+@pytest.mark.parametrize("m,n,k,dtype,aligned,engine,config", [
+    (2048, 6144, 4096, torch.bfloat16, True, "wgmma", 0),     # prefill wqkv: 384 tiles
+    (2048, 128256, 4096, torch.bfloat16, True, "wgmma", 0),   # prefill LM head
+    (256, 4096, 4096, torch.bfloat16, True, "wgmma", 1),      # one wave either way
+    (1024, 6144, 4096, torch.bfloat16, True, "wgmma", 1),     # 2 wide waves against 3 narrow
+    (1024, 4096, 4096, torch.bfloat16, True, "wgmma", 0),     # 1 wide wave against 2 narrow
+    (512, 28672, 4096, torch.bfloat16, True, "wgmma", 0),     # 4 wide waves against 7 narrow
+    (8, 6144, 4096, torch.bfloat16, True, "wgmma", 2),        # M = batch x a short bucket
+    (64, 136, 72, torch.bfloat16, True, "wgmma", 2),
+    (65, 136, 72, torch.bfloat16, True, "wgmma", 1),
+    (100, 136, 41, torch.bfloat16, True, "mma_sync", -1),     # K % 8: TMA cannot stride
+    (100, 130, 40, torch.bfloat16, True, "mma_sync", -1),     # N % 8
+    (100, 136, 40, torch.bfloat16, False, "mma_sync", -1),    # a misaligned base
+    (300, 500, 700, torch.float32, True, "f32", -1),
+])
+def test_gemm_plan_engine_choice(m, n, k, dtype, aligned, engine, config):
+    """The engine and tile K1 runs on the card, by dtype, shape and
+    alignment only (csrc/gemm.cu's three engines)."""
+    p = tgemm.plan(m, n, k, dtype, aligned=aligned, sms=132)
+    assert (p.engine, p.config) == (engine, config)
+    assert tgemm.tma_ok(n, k, aligned) == (engine == "wgmma") or dtype == torch.float32
+
+
+@pytest.mark.parametrize("m,n,k,sms", [(2048, 4096, 14336, 132), (8, 128256, 4096, 132),
+                                       (129, 136, 200, 4), (1, 8, 8, 132)])
+def test_gemm_plan_tma_arguments(m, n, k, sms):
+    """The tensor maps of the wgmma engine: A [M, K] as {K, M} with a 2K-byte
+    row stride and a [BM rows][64 k] box, B [K, N] as {N, K} with a 2N-byte
+    stride and [64 k][64 n] boxes, both 16-byte strides; the persistent
+    grid covers min(tiles, SMs) and the boxes tile the product."""
+    p = tgemm.plan(m, n, k, torch.bfloat16, sms=sms)
+    bm, bn = tgemm.SM90_TILES[p.config]
+    assert p.map_a == (k, m, 2 * k, 64, bm)
+    assert p.map_b == (n, k, 2 * n, 64, 64)
+    assert p.map_a[2] % 16 == 0 and p.map_b[2] % 16 == 0
+    assert bn % p.map_b[3] == 0 and p.map_a[3] == p.map_b[4] == tgemm.SM90_BK
+    assert p.tiles == -(-m // bm) * -(-n // bn) and p.grid == min(p.tiles, sms)
+    # a forced engine: the mma.sync one always, wgmma only where TMA can load
+    assert tgemm.plan(m, n, k, torch.bfloat16, engine="mma_sync").engine == "mma_sync"
+    with pytest.raises(ValueError, match="wgmma"):
+        tgemm.plan(m, n, k + 1, torch.bfloat16, engine="wgmma")

@@ -34,6 +34,30 @@
 // touches only pages below ceil(kv_len / page). Rows are padded in shared
 // memory to the power-of-two head dim (_kernel_head_dim), zero past d.
 //
+// K3 on a bf16 page pool runs a second kernel, paged_onepass_kernel (one
+// launch a call): the split kernel's two launches, spans sized from the
+// table's length (most blocks of a short sequence exit, a few walk long
+// spans) and its row-by-row cp.async staging left it 2.8x off SDPA at the
+// served shapes. Each block owns one (sequence, kv head, span) where the
+// spans cut the sequence's OWN length, read from kv_lens on the device:
+// span_pages pages each (a multiple of the 64-position tile), so the
+// longest sequence has the most blocks and every block walks at most
+// span_pages pages; the grid's span count comes from max_pages, a bound the
+// host knows, so the step never reads the lengths on the host. A page of
+// one kv head is one contiguous [page, d] slab: thread 0 fetches each with
+// cp.async.bulk (K and V, completing on the tile's mbarrier), two tiles in
+// flight. Scores split each row over 8 threads (16-byte shared loads,
+// conflict-free on the unpadded slab rows); P.V gives each thread one or
+// two head-dim columns. A span writes its (out, lse) partial; the last
+// block of a (sequence, kv head) to arrive, found with an arrival counter
+// behind a fence, merges the partials in span order (the result does not
+// depend on arrival order). The wrapper zeroes the counters in the call's
+// stream, so a captured graph replays that memset with the launch. A sequence with one span writes the output
+// directly; kv_len == 0 writes out 0, lse -inf. The math contract above is
+// unchanged. Pools of another dtype, head dims not a multiple of 8 or over
+// 256, and pages that do not divide 64 stay on the split kernel
+// (ops/flash_decode.py::_decode_engine).
+//
 // K38/K39 replace :1231 _flash_decode_quant_kernel (body _flash_decode_body
 // :250 with row scales), :350 _flash_decode_fused_heads_quant_kernel (the
 // same function with the kv-head loop inside the TPU body: this grid reads
@@ -370,6 +394,327 @@ __global__ void __launch_bounds__(THREADS) decode_combine_kernel(
   if (threadIdx.x == 0) lse[row] = denom > 0.f ? m_safe + logf(denom) : -INFINITY;
 }
 
+// ------------------------------------------------ K3, one launch (bf16) ----
+namespace onepass {
+
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 64;   // positions per online-softmax step (64 / page pages)
+constexpr int MAX_BUF = 2; // tiles in flight
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared-memory carve-up (bytes): nbuf K/V tile pairs, q, the tile's
+// probabilities, the softmax statistics, the tiles' page ids, barriers
+struct Smem {
+  size_t q, p, stats, ids, bars, total;
+  __host__ __device__ Smem(int d, int g, int nbuf) {
+    q = static_cast<size_t>(nbuf) * 2 * TILE * d * 2;     // [g][d] bf16
+    p = (q + static_cast<size_t>(g) * d * 2 + 15) / 16 * 16;  // [g][TILE] f32
+    stats = p + static_cast<size_t>(g) * TILE * 4;          // m, l, alpha [3][g] f32
+    ids = stats + 3 * g * 4;                                // [nbuf][TILE] int
+    bars = (ids + MAX_BUF * TILE * 4 + 7) / 8 * 8;          // nbuf mbarriers, a flag
+    total = bars + MAX_BUF * 8 + 8;
+  }
+};
+
+// Warp 0: the page ids of tile pages [first, last) into `ids` (one load a
+// lane, all at once), then lane 0 fetches each page's K and V slab with one
+// bulk copy each, completing on `bar`.
+__device__ __forceinline__ void issue_tile(bf16* kbuf, bf16* vbuf, int* ids, uint64_t* bar,
+                                           const bf16* __restrict__ kp,
+                                           const bf16* __restrict__ vp,
+                                           const int* __restrict__ pages, int first, int last,
+                                           int h, int h_kv, int page, int d) {
+  const int lane = threadIdx.x % 32;
+  for (int l = lane; l < last - first; l += 32) ids[l] = pages[first + l];
+  __syncwarp();
+  if (lane == 0) {
+    const uint32_t slab = static_cast<uint32_t>(page) * d * 2;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_u32(bar)),
+                 "r"(slab * 2 * (last - first))
+                 : "memory");
+    for (int pg = 0; pg < last - first; ++pg) {
+      const int64_t off = (static_cast<int64_t>(ids[pg]) * h_kv + h) * page * d;
+      bulk_copy(kbuf + static_cast<int64_t>(pg) * page * d, kp + off, slab, bar);
+      bulk_copy(vbuf + static_cast<int64_t>(pg) * page * d, vp + off, slab, bar);
+    }
+  }
+  __syncwarp();
+}
+
+// grid (b * h_kv, splits); block (sequence bi, kv head h, span). G: the
+// query heads of a kv head at compile time (0: hq / h_kv at run time, up
+// to MAX_G).
+template <int G>
+__global__ void __launch_bounds__(THREADS) paged_onepass_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ kp, const bf16* __restrict__ vp,
+    const int* __restrict__ kv_lens, const int* __restrict__ table,
+    float* __restrict__ out_part, float* __restrict__ lse_part, int* __restrict__ arrivals,
+    float* __restrict__ out, float* __restrict__ lse, int hq, int h_kv, int d, int page,
+    int max_pages, int span_pages, int nbuf, float scale, float soft_cap) {
+  constexpr int GM = G > 0 ? G : MAX_G;  // the register arrays' extent
+  extern __shared__ __align__(128) unsigned char smem_op[];
+  const int g = G > 0 ? G : hq / h_kv, splits = gridDim.y;
+  const int bi = blockIdx.x / h_kv, h = blockIdx.x % h_kv, span = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kv_len = min(kv_lens[bi], page * max_pages);
+  const int n_pages = (max(kv_len, 0) + page - 1) / page;
+  const int n_spans = (n_pages + span_pages - 1) / span_pages;
+  const int64_t row0 = static_cast<int64_t>(bi) * hq + static_cast<int64_t>(h) * g;
+
+  if (n_spans == 0) {  // kv_len == 0: out 0, lse -inf, written by span 0
+    if (span == 0) {
+      for (int e = tid; e < g * d; e += THREADS) out[row0 * d + e] = 0.f;
+      if (tid < g) lse[row0 + tid] = -INFINITY;
+    }
+    return;
+  }
+  if (span >= n_spans) return;
+
+  const Smem lay(d, g, nbuf);
+  bf16* q_s = reinterpret_cast<bf16*>(smem_op + lay.q);
+  float* p_s = reinterpret_cast<float*>(smem_op + lay.p);
+  float* m_s = reinterpret_cast<float*>(smem_op + lay.stats);
+  float* l_s = m_s + g;
+  float* alpha_s = l_s + g;
+  int* ids = reinterpret_cast<int*>(smem_op + lay.ids);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_op + lay.bars);
+  int* last = reinterpret_cast<int*>(bars + MAX_BUF);
+  auto kbuf = [&](int b_) {
+    return reinterpret_cast<bf16*>(smem_op) + static_cast<size_t>(b_) * 2 * TILE * d;
+  };
+  auto vbuf = [&](int b_) { return kbuf(b_) + TILE * d; };
+
+  const int pg0 = span * span_pages, pg1 = min(pg0 + span_pages, n_pages);
+  const int pos1 = min(pg1 * page, kv_len);
+  const int ppt = TILE / page;
+  const int n_tiles = (pg1 - pg0 + ppt - 1) / ppt;
+  const int* pages = table + static_cast<int64_t>(bi) * max_pages;
+
+  if (tid == 0) {
+    for (int i = 0; i < nbuf; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bars + i)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    for (int t = 0; t < min(nbuf, n_tiles); ++t) {
+      const int first = pg0 + t * ppt;
+      issue_tile(kbuf(t), vbuf(t), ids + t * TILE, bars + t, kp, vp, pages, first,
+                 min(first + ppt, pg1), h, h_kv, page, d);
+    }
+  }
+  const bf16* qb = q + row0 * d;
+  for (int e = tid; e < g * d; e += THREADS) q_s[e] = qb[e];
+  if (tid < g) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  float acc[GM][2];
+#pragma unroll
+  for (int j = 0; j < GM; ++j) acc[j][0] = acc[j][1] = 0.f;
+  const int chunks = d / 8;  // 16-byte chunks of a row
+  const int sub = tid % 8;   // this thread's chunks: sub, sub + 8, ...
+  __syncthreads();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t % nbuf;
+    mbar_wait(bars + buf, (t / nbuf) & 1);
+    const bf16* ks = kbuf(buf);
+    const bf16* vs = vbuf(buf);
+    const int t0 = (pg0 + t * ppt) * page;
+    const int nt = min(TILE, pos1 - t0);
+    // (a) scores: 16 rows a pass, 8 threads a row, reduced across them
+#pragma unroll
+    for (int pass = 0; pass < TILE / 16; ++pass) {
+      const int row = pass * 16 + tid / 8;
+      float s[GM];
+#pragma unroll
+      for (int j = 0; j < GM; ++j) s[j] = 0.f;
+      if (row < nt) {
+        for (int c = sub; c < chunks; c += 8) {
+          float kf[8];
+          load_chunk_f32(ks + row * d + c * 8, kf);
+#pragma unroll
+          for (int j = 0; j < GM; ++j) {
+            if (G > 0 || j < g) {
+              float qf[8];
+              load_chunk_f32(q_s + j * d + c * 8, qf);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) s[j] = fmaf(qf[e], kf[e], s[j]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < GM; ++j) {
+        if (G > 0 || j < g) {
+#pragma unroll
+          for (int o = 4; o > 0; o >>= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < GM; ++j) {
+        if ((G > 0 || j < g) && j % 8 == sub) {
+          float sc = s[j] * scale;
+          if (soft_cap > 0.f) sc = soft_cap * tanhf(sc / soft_cap);
+          p_s[j * TILE + row] = row < nt ? sc : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+    // (b) online-softmax update of each head's (m, l); p_s becomes exp(s - m_safe)
+    for (int j = warp; j < g; j += WARPS) {
+      float* pj = p_s + j * TILE;
+      float mx = fmaxf(pj[lane], pj[lane + 32]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = m_s[j];
+      const float m_new = fmaxf(m_old, mx);
+      const float m_safe = fmaxf(m_new, -1e30f);
+      const float e0 = expf(pj[lane] - m_safe), e1 = expf(pj[lane + 32] - m_safe);
+      pj[lane] = e0;
+      pj[lane + 32] = e1;
+      float sum = e0 + e1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_safe);
+        alpha_s[j] = alpha;
+        l_s[j] = l_s[j] * alpha + sum;
+        m_s[j] = m_new;
+      }
+    }
+    __syncthreads();
+    // (c) acc = acc * alpha + P.V over this thread's columns tid, tid + 128;
+    // four rows a step, the probabilities read as float4
+#pragma unroll
+    for (int ci = 0; ci < 2; ++ci) {
+      const int c = tid + ci * THREADS;
+      if (c < d) {
+#pragma unroll
+        for (int j = 0; j < GM; ++j)
+          if (G > 0 || j < g) acc[j][ci] *= alpha_s[j];
+        for (int p = 0; p < nt; p += 4) {
+          float v[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            v[r] = p + r < nt ? __bfloat162float(vs[(p + r) * d + c]) : 0.f;
+#pragma unroll
+          for (int j = 0; j < GM; ++j) {
+            if (G > 0 || j < g) {
+              const float4 pr = *reinterpret_cast<const float4*>(p_s + j * TILE + p);
+              float a = acc[j][ci];
+              a = fmaf(pr.x, v[0], a);
+              a = fmaf(pr.y, v[1], a);
+              a = fmaf(pr.z, v[2], a);
+              a = fmaf(pr.w, v[3], a);
+              acc[j][ci] = a;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with this buffer and with p_s
+    if (warp == 0 && t + nbuf < n_tiles) {
+      if (lane == 0) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const int first = pg0 + (t + nbuf) * ppt;
+      issue_tile(kbuf(buf), vbuf(buf), ids + buf * TILE, bars + buf, kp, vp, pages, first,
+                 min(first + ppt, pg1), h, h_kv, page, d);
+    }
+  }
+
+  // this span's (out, lse), as _finalize_softmax; one span: the result
+  const bool whole = n_spans == 1;
+  const int64_t part = (static_cast<int64_t>(blockIdx.x) * splits + span) * g;
+  float* o_dst = whole ? out + row0 * d : out_part + part * d;
+  float* l_dst = whole ? lse + row0 : lse_part + part;
+#pragma unroll
+  for (int j = 0; j < GM; ++j) {
+    if (G > 0 || j < g) {
+      const float l = l_s[j];
+#pragma unroll
+      for (int ci = 0; ci < 2; ++ci) {
+        const int c = tid + ci * THREADS;
+        if (c < d) o_dst[j * d + c] = l > 0.f ? acc[j][ci] / l : 0.f;
+      }
+      if (tid == 0) l_dst[j] = l > 0.f ? m_s[j] + logf(l) : -INFINITY;
+    }
+  }
+  if (whole) return;
+
+  // the last span of (bi, h) to arrive merges them all, in span order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    *last = atomicAdd(arrivals + blockIdx.x, 1) == n_spans - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!*last) return;
+  const float* lp = lse_part + static_cast<int64_t>(blockIdx.x) * splits * g;
+  const float* op = out_part + static_cast<int64_t>(blockIdx.x) * splits * g * d;
+  // each head's max and weight sum, a warp a head, the spans across lanes
+  for (int j = warp; j < g; j += WARPS) {
+    float m = -INFINITY;
+    for (int sp = lane; sp < n_spans; sp += 32) m = fmaxf(m, __ldcg(lp + sp * g + j));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float m_safe = fmaxf(m, -1e30f);
+    float denom = 0.f;
+    for (int sp = lane; sp < n_spans; sp += 32) {
+      const float ls = __ldcg(lp + sp * g + j);
+      if (isfinite(ls)) denom += expf(ls - m_safe);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) denom += __shfl_xor_sync(0xffffffffu, denom, o);
+    if (lane == 0) {
+      m_s[j] = m_safe;
+      l_s[j] = denom;
+      lse[row0 + j] = denom > 0.f ? m_safe + logf(denom) : -INFINITY;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < g * d; e += THREADS) {
+    const int j = e / d, c = e % d;
+    const float m_safe = m_s[j];
+    float num = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < n_spans; ++sp) {
+      const float ls = __ldcg(lp + sp * g + j);
+      const float w = isfinite(ls) ? expf(ls - m_safe) : 0.f;
+      num += w * __ldcg(op + (static_cast<int64_t>(sp) * g + j) * d + c);
+    }
+    out[(row0 + j) * d + c] = num / fmaxf(l_s[j], 1e-30f);
+  }
+}
+
+}  // namespace onepass
+
 template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* kv_lens,
            const void* table, const void* k_scale, const void* v_scale, float* out_part,
@@ -464,6 +809,46 @@ extern "C" int tdt_paged_flash_decode(const void* q, const void* k, const void* 
   return dispatch<true>(dtype, q, k, v, kv_lens, table, k_scale, v_scale, out_part,
                         lse_part, out, lse, b, hq, h_kv, d, dp, page * max_pages, page,
                         max_pages, splits, chunk, scale, soft_cap, stream);
+}
+
+// K3 in one launch over a bf16 page pool (paged_onepass_kernel). arrivals:
+// b * h_kv int32 counters, zero at the launch; out_part / lse_part: [b * h_kv, splits, g] scratch; splits =
+// ceil(max_pages / span_pages); span_pages a multiple of 64 / page.
+extern "C" int tdt_paged_flash_decode_onepass(
+    const void* q, const void* k, const void* v, const void* kv_lens, const void* table,
+    void* out_part, void* lse_part, void* arrivals, void* out, void* lse, int b, int hq,
+    int h_kv, int d, int page, int max_pages, int span_pages, int splits, float scale,
+    float soft_cap, void* stream) {
+  const int g = h_kv > 0 ? hq / h_kv : 0, tile = onepass::TILE;
+  if (g < 1 || hq % h_kv || g > MAX_G || d % 8 || d > 2 * onepass::THREADS || page < 1 ||
+      tile % page || span_pages < 1 || span_pages % (tile / page) || splits < 1 ||
+      static_cast<long long>(splits) * span_pages < max_pages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // two tiles in flight where a span has two or more
+  const int nbuf = span_pages / (tile / page) >= 2 ? onepass::MAX_BUF : 1;
+  const size_t smem = onepass::Smem(d, g, nbuf).total;
+  auto go = [&](auto kernel) -> int {
+    if (smem > 48 * 1024) {
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<dim3(b * h_kv, splits), onepass::THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const int*>(kv_lens), static_cast<const int*>(table),
+        static_cast<float*>(out_part), static_cast<float*>(lse_part),
+        static_cast<int*>(arrivals), static_cast<float*>(out), static_cast<float*>(lse), hq,
+        h_kv, d, page, max_pages, span_pages, nbuf, scale, soft_cap);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (g) {  // the common group sizes unrolled exactly
+    case 1: return go(onepass::paged_onepass_kernel<1>);
+    case 2: return go(onepass::paged_onepass_kernel<2>);
+    case 4: return go(onepass::paged_onepass_kernel<4>);
+    case 8: return go(onepass::paged_onepass_kernel<8>);
+    default: return go(onepass::paged_onepass_kernel<0>);
+  }
 }
 
 extern "C" const char* tdt_error_string(int code) {

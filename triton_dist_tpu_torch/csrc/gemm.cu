@@ -12,20 +12,25 @@
 // rows of a few hundred to a few thousand, K and N in the thousands) the
 // product does about M FLOPs for every byte of the bf16 weight panel it
 // reads, above the card's ~295 FLOP/byte ridge, so it is bound by
-// tensor-core throughput.
+// tensor-core throughput; at decode (M = batch) by the bytes of B.
 //
-// What the design does about it: bf16 inputs run on the tensor cores as
-// m16n8k16 mma.sync with ldmatrix fragment loads, on a 128x256 block tile
-// with a 64-deep k step: 8 warps each own a 64x64 sub-tile (32 MMA tiles
-// fed by 8 fragment loads per 16-deep step), and a three-stage cp.async
-// ring keeps two k tiles streaming into shared memory while the current
-// one multiplies. f32 inputs run a shared-memory-tiled FMA kernel in full
-// f32 (no TF32), the reference precision. Ragged edges are zero-filled on
-// load and masked on store. The tile code lives in gemm_core.cuh, shared
-// with the fused AG-GEMM and GEMM-RS consumers of dist.cu. wgmma, TMA
-// multicast and a persistent tile scheduler are left to later work.
+// Three engines, chosen on the host by dtype, shape and alignment
+// (ops/gemm.py::plan):
+// - tdt_gemm_sm90, bf16 with K and N multiples of 8 and 16-byte aligned
+//   pointers: the warp-specialised persistent wgmma + TMA kernel of
+//   gemm_sm90.cuh (its source note says how it meets the bound), in one of
+//   three tile configs (128x256, 128x128, and 64x64 for small M).
+// - tdt_gemm, bf16 otherwise: the m16n8k16 mma.sync Bf16Engine of
+//   gemm_core.cuh (128x256x64 block tile, 8 warps, a three-stage cp.async
+//   ring, one block a tile), which loads unaligned rows element by element.
+// - tdt_gemm, f32: a shared-memory-tiled FMA kernel in full f32 (no TF32),
+//   the reference precision.
+// Ragged edges are zero-filled on load and masked on store in all three.
 
 #include "gemm_core.cuh"
+#include "gemm_sm90.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -73,6 +78,46 @@ extern "C" int tdt_gemm(const void* a, const void* b, void* c, int m, int n, int
     return n_adds > 0 ? launch<E, TOut, true>(a, b, c, m, n, k, vec, list, s)
                       : launch<E, TOut, false>(a, b, c, m, n, k, vec, list, s);
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma + TMA engine (bf16 in). map_a / map_b: the tensor-map arguments
+// of A and B, {dim0 (innermost), dim1, outer stride in bytes, box0, box1},
+// as ops/gemm.py::plan computes them; config picks the tile (0: 128x256, 1:
+// 128x128, 2: 64x64) and must agree with the boxes; grid is the persistent
+// block count (<= the SMs).
+extern "C" int tdt_gemm_sm90(const void* a, const void* b, void* c, int m, int n, int k,
+                             int out_dtype, const void* const* adds, int n_adds, int config,
+                             int grid, const long long* map_a, const long long* map_b,
+                             void* stream) {
+  if (n_adds < 0 || n_adds > MAX_ADDS || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static const int kBM[3] = {128, 128, 64};
+  if (config < 0 || config > 2 || map_a[3] != sm90::BK || map_a[4] != kBM[config] ||
+      map_b[3] != sm90::BOX_N || map_b[4] != sm90::BK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma, mb;
+  cudaError_t err = sm90::make_map(&ma, a, map_a, map_a[2], map_a + 3);
+  if (err == cudaSuccess) err = sm90::make_map(&mb, b, map_b, map_b[2], map_b + 3);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto t) -> cudaError_t {
+    using TOut = decltype(t);
+    const AddList<TOut> list = make_adds<TOut>(adds, n_adds);
+    TOut* out = static_cast<TOut*>(c);
+    auto run = [&](auto adds_on) -> cudaError_t {
+      constexpr bool ADDS = decltype(adds_on)::value;
+      switch (config) {
+        case 0: return sm90::launch<2, 256, 4, TOut, ADDS>(ma, mb, out, m, n, k, list, grid, s);
+        case 1: return sm90::launch<2, 128, 6, TOut, ADDS>(ma, mb, out, m, n, k, list, grid, s);
+        default: return sm90::launch<1, 64, 8, TOut, ADDS>(ma, mb, out, m, n, k, list, grid, s);
+      }
+    };
+    return n_adds > 0 ? run(std::true_type{}) : run(std::false_type{});
+  };
+  if (out_dtype == kBF16) err = go(bf16{});
+  else if (out_dtype == kF32) err = go(float{});
+  else err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

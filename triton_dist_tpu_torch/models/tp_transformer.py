@@ -22,10 +22,12 @@ inference mode) the projections go through the differentiable ops of
 ``ops/grads.py``, whose backward passes run the same kernels.
 
 :meth:`TPTransformer.loss` is the vocab-parallel cross-entropy and
-:func:`train_step` one SGD step (``:547``) with the JAX package's gradient
-accounting, over the data-parallel axis ``dp_axis`` of a 2-D runtime too
-(``:595-625``); call both per rank inside ``ctx.run(..., grad=True)``
-(world 1: directly). Optimizer transforms (``opt=``) are not ported.
+:func:`train_step` one optimizer step (``:547``) with the JAX package's
+gradient accounting, over the data-parallel axis ``dp_axis`` of a 2-D
+runtime too (``:595-625``): SGD at ``lr`` by default, or the transform
+``opt=`` (``optim.adam`` / ``optim.sgd``, optax's twins) with its
+``opt_state=``, returning ``(params, opt_state, loss)``. Call both per
+rank inside ``ctx.run(..., grad=True)`` (world 1: directly).
 
 On a 2-D runtime (``initialize_distributed(mesh_shape={"dp": 2, "tp":
 2})``) a model runs its tensor parallelism over the group of

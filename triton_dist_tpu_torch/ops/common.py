@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
@@ -25,7 +24,9 @@ from triton_dist_tpu_torch.ops.gemm import matmul
 from triton_dist_tpu_torch.parallel.topology import torus_factor
 from triton_dist_tpu_torch.resilience import watchdog
 from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, pick_block
+from triton_dist_tpu_torch.utils import (
+    axis_size, count_call, count_launch, pick_block, sm_count,
+)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _WAIT = [_P, _LL, _I, _P]  # diag, timeout ns, family code, stream
@@ -114,11 +115,6 @@ def dist_launch(ctx, family: str, wait_family: str | None = None) -> Launch:
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def max_consumer_blocks(ctx) -> int:
     """The grid cap of a persistent consumer that spins: the ranks sharing
     this card each get floor(SMs / ranks) - 2 one-block-per-SM blocks, so
@@ -129,7 +125,7 @@ def max_consumer_blocks(ctx) -> int:
     on the card at once."""
     dev = ctx.rank_device
     share = sum(1 for d in getattr(ctx, "runtime", ctx).devices if d == dev)
-    return max(1, _sm_count(dev.index) // share - 2)
+    return max(1, sm_count(dev.index) // share - 2)
 
 
 def stream_ptr(stream) -> ctypes.c_void_p:

@@ -8,8 +8,8 @@ h_kv, page, d]`` with ``block_table [b, max_pages]`` int32, valid prefix
 ``return_lse``, ``lse f32 [b, hq]``.
 
 :func:`flash_decode` and :func:`paged_flash_decode` launch
-``csrc/flash_decode.cu`` (split-KV, see its source note) for tensors on
-the card and run their plain twins :func:`_xla_decode` and
+``csrc/flash_decode.cu`` (split-KV; a bf16 page pool in one launch, see
+its source note) for tensors on the card and run their plain twins :func:`_xla_decode` and
 :func:`_xla_paged_decode` for tensors on the CPU. The SP entries
 (``*_distributed``) run the local partial decode on a rank's sequence
 shard, then gather every rank's ``(out, lse)`` payload with the full-mesh
@@ -45,14 +45,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import math
 
 import torch
 
 from triton_dist_tpu_torch import _build
 from triton_dist_tpu_torch.ops.allgather import all_gather
-from triton_dist_tpu_torch.utils import axis_index, axis_size, cdiv, count_call, count_launch
+from triton_dist_tpu_torch.utils import (
+    axis_index, axis_size, cdiv, count_call, count_launch, sm_count,
+)
 
 NEG_INF = float("-inf")
 
@@ -73,6 +74,7 @@ _F = ctypes.c_float
 _PROTOTYPES = {
     "tdt_flash_decode": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
     "tdt_paged_flash_decode": [_P] * 11 + [_I] * 10 + [_F, _F, _P],
+    "tdt_paged_flash_decode_onepass": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
 }
 _VERIFY_PROTOTYPES = {
     "tdt_flash_verify": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
@@ -281,18 +283,53 @@ def _plain_paged_decode_quant(q, k_pages, v_pages, k_scales, v_scales, kv_lens,
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _split_plan(device: torch.device, blocks: int, s_len: int) -> tuple[int, int]:
     """(splits, chunk): KV spans per (sequence, kv head) so the grid holds
     about four blocks per SM, each span a whole number of softmax tiles."""
-    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+    sms = sm_count(device.index if device.index is not None else torch.cuda.current_device())
     splits = max(1, min(cdiv(4 * sms, blocks), cdiv(s_len, _TILE)))
     chunk = cdiv(cdiv(s_len, splits), _TILE) * _TILE
     return cdiv(s_len, chunk), chunk
+
+
+def _decode_engine(dtype: torch.dtype, d: int, page: int, g: int, aligned: bool) -> str:
+    """Which kernel runs K3 (the paged decode over a float pool):
+    ``"onepass"`` (the one-launch kernel, ``paged_onepass_kernel``) for a
+    bf16 pool with d a multiple of 8 and at most 256, a page that divides
+    the 64-position tile, g <= 16 and 16-byte aligned pools; ``"split"``
+    (the split kernel and its merge) otherwise."""
+    ok = (dtype == torch.bfloat16 and d % 8 == 0 and d <= _MAX_D and page >= 1
+          and _TILE % page == 0 and g <= _MAX_G and aligned)
+    return "onepass" if ok else "split"
+
+
+def _onepass_plan(b: int, h_kv: int, page: int, max_pages: int, sms: int) -> tuple[int, int]:
+    """(span_pages, splits) of the one-launch paged decode: spans of
+    `span_pages` pages (a multiple of the tile's 64 / page) so that full-
+    length sequences give about eight blocks per SM (a block's chain of
+    latencies is short: lengths, page ids, copies, one or two tiles, the
+    merge); the grid's span count ``splits = ceil(max_pages / span_pages)``
+    needs only the table's width, never the lengths."""
+    ppt = _TILE // page
+    want = max(1, cdiv(8 * sms, b * h_kv))
+    span_pages = cdiv(cdiv(max_pages, want), ppt) * ppt
+    return span_pages, cdiv(max_pages, span_pages)
+
+
+def _onepass_rows(kv_lens, page: int, max_pages: int, span_pages: int) -> list:
+    """The ``(sequence, span, first position, end position)`` rows the
+    one-launch kernel computes for these lengths (one block each a kv
+    head), in the kernel's own arithmetic: each sequence's valid pages cut
+    into spans of `span_pages`; a sequence with no cache has none."""
+    rows = []
+    for bi, n in enumerate(kv_lens):
+        n = max(0, min(int(n), page * max_pages))
+        n_pages = cdiv(n, page)
+        for span in range(cdiv(n_pages, span_pages)):
+            pg0 = span * span_pages
+            pg1 = min(pg0 + span_pages, n_pages)
+            rows.append((bi, span, pg0 * page, min(pg1 * page, n)))
+    return rows
 
 
 def _check_operands(q, k, v, kv_lens, block_table=None, max_g=_MAX_G, scales=None):
@@ -338,13 +375,48 @@ def _scale_ptrs(scales):
     return (None, None) if scales is None else (scales[0].data_ptr(), scales[1].data_ptr())
 
 
-def _launch_decode(q, k, v, kv_lens, block_table, soft_cap, scales=None):
-    """Launch the split-KV kernel and its merge (K2/K3, or K38/K39 with
-    `scales`); returns (out, lse)."""
+def _launch_onepass(q, k, v, kv_lens, block_table, soft_cap):
+    """K3's one-launch kernel (see :func:`_decode_engine`); returns (out, lse)."""
+    b, hq, d = q.shape
+    h_kv, page = k.shape[1], k.shape[2]
+    max_pages = block_table.shape[1]
+    span_pages, splits = _onepass_plan(b, h_kv, page, max_pages, sm_count(q.get_device()))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out_part = torch.empty((b * splits * hq, d), **f32)   # [b * h_kv, splits, g] rows
+    lse_part = torch.empty((b * splits * hq,), **f32)
+    out = torch.empty((b, hq, d), **f32)
+    lse = torch.empty((b, hq), **f32)
+    # the arrival counters, zeroed in the call's stream (safe under capture:
+    # a graph replays the memset with the launch)
+    arrivals = torch.zeros((b * h_kv,), dtype=torch.int32, device=q.device)
+    lib = _build.library("flash_decode", _PROTOTYPES)
+    rc = lib.tdt_paged_flash_decode_onepass(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), block_table.data_ptr(),
+        out_part.data_ptr(), lse_part.data_ptr(),
+        arrivals.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, hq, h_kv, d, page, max_pages, span_pages, splits, 1.0 / math.sqrt(d),
+        float(soft_cap), _build.stream_of(q),
+    )
+    _build.check(lib, rc, "paged_flash_decode (one launch)")
+    return out, lse
+
+
+def _launch_decode(q, k, v, kv_lens, block_table, soft_cap, scales=None, engine=None):
+    """Launch the decode (K2/K3, or K38/K39 with `scales`); returns (out,
+    lse, engine). A paged float pool runs the engine :func:`_decode_engine`
+    picks by dtype, shape and alignment (`engine` forces ``"split"``, the
+    chip script's A/B): ``"onepass"``, one launch; ``"split"``, the
+    split-KV kernel and its merge, as every contiguous and one-byte cache
+    does."""
     b, hq, d = q.shape
     h_kv = k.shape[1]
     q = q.to(_compute_dtype(k)).contiguous()
     _check_operands(q, k, v, kv_lens, block_table, scales=scales)
+    if block_table is not None and scales is None and engine is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+        engine = _decode_engine(k.dtype, d, k.shape[2], hq // h_kv, aligned)
+        if engine == "onepass":
+            return (*_launch_onepass(q, k, v, kv_lens, block_table, soft_cap), engine)
     if block_table is None:
         s_len = k.shape[2]
     else:
@@ -376,7 +448,7 @@ def _launch_decode(q, k, v, kv_lens, block_table, soft_cap, scales=None):
             block_table.data_ptr(), *common, page, max_pages, *tail,
         )
         _build.check(lib, rc, "paged_flash_decode")
-    return out, lse
+    return out, lse, "split"
 
 
 def flash_decode(
@@ -394,7 +466,7 @@ def flash_decode(
     soft_cap = (config or FlashDecodeConfig()).soft_cap
     if q.device.type == "cpu":
         return _xla_decode(q, k, v, kv_lens, return_lse=return_lse, soft_cap=soft_cap)
-    out, lse = _launch_decode(q, k, v, kv_lens, None, soft_cap)
+    out, lse, _ = _launch_decode(q, k, v, kv_lens, None, soft_cap)
     count_launch(flash_decode)
     return (out, lse) if return_lse else out
 
@@ -431,8 +503,8 @@ def flash_decode_quant(
     if q.device.type == "cpu":
         return _plain_decode_quant(q, k_q, v_q, k_scale, v_scale, kv_lens,
                                    return_lse=return_lse, soft_cap=cfg.soft_cap)
-    out, lse = _launch_decode(q, k_q, v_q, kv_lens, None, cfg.soft_cap,
-                              scales=(k_scale, v_scale))
+    out, lse, _ = _launch_decode(q, k_q, v_q, kv_lens, None, cfg.soft_cap,
+                                 scales=(k_scale, v_scale))
     count_launch(flash_decode_quant)
     return (out, lse) if return_lse else out
 
@@ -461,6 +533,7 @@ def paged_flash_decode(
     pages_per_step: int | None = None,
     soft_cap: float = 0.0,
     return_lse: bool = False,
+    _engine: str | None = None,
 ):
     """Single-device GQA batch decode over a paged cache (K3): k_pages,
     v_pages ``[n_pages, h_kv, page, d]``; block_table ``[b, max_pages]``
@@ -472,8 +545,16 @@ def paged_flash_decode(
     ``k_scales``/``v_scales`` (f32 ``[n_pages, h_kv, 1, page]``, from
     :func:`quantize_kv_pages` / :func:`quantize_kv_pages_fp8`): one-byte
     pools, read by K39 — each scale row found through the block table like
-    its payload row. Its launches count on ``quant_launches``."""
+    its payload row. Its launches count on ``quant_launches``.
+
+    A float pool runs the engine :func:`_decode_engine` picks by dtype,
+    shape and alignment: a bf16 pool the one-launch kernel (counted on
+    ``onepass_launches`` as well as ``launches``), anything else the
+    split-KV kernel and its merge. ``_engine="split"`` forces the split
+    kernel (the chip script's A/B; never the main path)."""
     del fuse_heads, pages_per_step
+    if _engine not in (None, "split"):
+        raise ValueError(f"paged_flash_decode: _engine is None or 'split', not {_engine!r}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("paged_flash_decode: pass both k_scales and v_scales, or neither")
     scales = None if k_scales is None else (k_scales, v_scales)
@@ -486,14 +567,17 @@ def paged_flash_decode(
             q, k_pages, v_pages, kv_lens, block_table,
             return_lse=return_lse, soft_cap=soft_cap,
         )
-    out, lse = _launch_decode(q, k_pages, v_pages, kv_lens, block_table, soft_cap,
-                              scales=scales)
+    out, lse, engine = _launch_decode(q, k_pages, v_pages, kv_lens, block_table, soft_cap,
+                                      scales=scales, engine=_engine)
     count_launch(paged_flash_decode, "launches" if scales is None else "quant_launches")
+    if engine == "onepass":
+        count_launch(paged_flash_decode, "onepass_launches")
     return (out, lse) if return_lse else out
 
 
 paged_flash_decode.launches = 0
 paged_flash_decode.quant_launches = 0
+paged_flash_decode.onepass_launches = 0  # K3 on the one-launch kernel
 
 
 def paged_flash_decode_quant(q, k_pages_q, v_pages_q, k_scales, v_scales, kv_lens,

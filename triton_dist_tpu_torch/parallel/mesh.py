@@ -487,6 +487,13 @@ class DistContext(_Collectives):
             with torch.cuda.stream(s), _grad_mode(grad):
                 out = fn(*args)
                 s.wait_stream(comm)
+                if check:
+                    # every rank has issued its work before any rank blocks
+                    # on its diagnostic read: that blocking device-to-host
+                    # copy can hold the other ranks' CUDA calls (a launch,
+                    # an event record) until the card drains, so a late
+                    # peer would decide when they issue their waits
+                    self.rendezvous()
                 diag = self.diag[r].cpu().tolist() if check else None
             return out, diag
         except BaseException:

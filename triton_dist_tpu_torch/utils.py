@@ -3,6 +3,7 @@ queries the ops share, and the launch counter every kernel wrapper bumps."""
 
 from __future__ import annotations
 
+import functools
 import threading
 
 _count_lock = threading.Lock()
@@ -10,6 +11,15 @@ _count_lock = threading.Lock()
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (the persistent
+    grids' and the split plans' width)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pick_block(dim: int, block: int) -> int:
