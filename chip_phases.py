@@ -15,9 +15,13 @@ runs DIR's ``chip_smoke.py`` phases with DIR's package (an unpacked
 A, B, B, A, compare two versions on one card. Phases:
 ``gemm`` (K1, the wgmma engine beside the mma.sync one),
 ``gemm_small_m`` (K1's wgmma tiles against each other at M <= 64),
+``flash_decode`` (K2, the one-launch kernel beside the split one),
 ``paged_flash_decode`` (K3, the one-launch kernel beside the split one),
+``flash_verify`` (K13, the wgmma + TMA kernel beside the mma.sync one),
 ``paged_flash_decode_profile`` (torch.profiler over both K3 engines),
 ``serve_paged`` (the world-1 8B serve and its decode profile),
+``serve_contiguous`` (4 layers over the contiguous cache: K2),
+``serve_chunked_contiguous`` (chunked prefill over it: K13 and K2),
 ``serve_tp4``, ``layers_ring``, ``f32_parity_tp4``, ``train``
 (``train_adam``, ``train_moe_ep4``, ``train_moe_ep_hier``),
 ``usp_attention``, ``kv_stream``, ``f32_parity_ep``, ``f32_parity_train``.
@@ -134,9 +138,13 @@ def main(argv: list[str]) -> int:
     phases = {
         "gemm": lambda c: cs.emit({"kernels": [cs.phase_gemm()]}),
         "gemm_small_m": lambda c: gemm_small_m(cs),
+        "flash_decode": lambda c: cs.emit({"kernels": [cs.phase_flash_decode()]}),
         "paged_flash_decode": lambda c: cs.emit({"kernels": [cs.phase_paged_flash_decode()]}),
+        "flash_verify": lambda c: cs.emit({"kernels": [cs.phase_flash_verify()]}),
         "paged_flash_decode_profile": lambda c: paged_flash_decode_profile(cs),
         "serve_paged": lambda c: cs.phase_serve(c),
+        "serve_contiguous": lambda c: cs.phase_contiguous(c),
+        "serve_chunked_contiguous": lambda c: cs.phase_chunked_contiguous(c),
         "serve_tp4": lambda c: cs.phase_serve_tp4(c),
         "layers_ring": lambda c: cs.phase_layers_ring(c),
         "f32_parity_tp4": lambda c: cs.phase_f32_parity_tp4(),

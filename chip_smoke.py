@@ -357,8 +357,10 @@ class Counters:
             # K1's engines: wgmma + TMA, and mma.sync where TMA cannot load
             "gemm_wgmma": (gemm.matmul, "wgmma_launches"),
             "gemm_mma": (gemm.matmul, "mma_launches"),
-            # K3 on the one-launch kernel (bf16 pools)
+            # K3 and K2 on the one-launch kernel (bf16 caches), K13 on wgmma + TMA
             "paged_flash_decode_onepass": (fd.paged_flash_decode, "onepass_launches"),
+            "flash_decode_onepass": (fd.flash_decode, "onepass_launches"),
+            "flash_verify_wgmma": (fd.flash_verify, "wgmma_launches"),
             "flash_decode": fd.flash_decode,
             "paged_flash_decode": fd.paged_flash_decode,
             "barrier": common.barrier_all_op,
@@ -611,7 +613,8 @@ DECODE_TOL = 1e-3
 
 def phase_flash_decode() -> dict:
     """K2 at the served shapes: batch 8, 32 query / 8 kv heads (g = 4),
-    d = 128, s_max = 1024, ragged lengths including 0 and s_max."""
+    d = 128, s_max = 1024, ragged lengths including 0 and s_max; the bf16
+    cache on the one-launch kernel, the split engine beside it."""
     import torch
     import torch.nn.functional as F
     from triton_dist_tpu_torch.ops import flash_decode as fd
@@ -620,9 +623,17 @@ def phase_flash_decode() -> dict:
     lens = torch.tensor([0, 1, 17, 300, 513, 777, 1000, 1024], dtype=torch.int32,
                         device="cuda")
     q, k, v = _decode_inputs(b, hq, h_kv, d, s, torch.bfloat16, seed=2)
+    before = fd.flash_decode.onepass_launches
     got = fd.flash_decode(q, k, v, lens, return_lse=True)
+    if fd.flash_decode.onepass_launches != before + 1:
+        raise AssertionError("flash_decode: the bf16 cache did not take the one-launch kernel")
     ref = fd._xla_decode(q, k, v, lens, return_lse=True)
     err = _check_decode("flash_decode", got, ref, lens, DECODE_TOL)
+    prev = fd.flash_decode(q, k, v, lens, return_lse=True, _engine="split")
+    prev_err = _check_decode("flash_decode (split)", prev, ref, lens, DECODE_TOL)
+    again = fd.flash_decode(q, k, v, lens, return_lse=True)
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError("flash_decode: two calls differ (merge order or counters)")
     cfg_fh = fd.FlashDecodeConfig(fuse_heads=True)
     got_fh = fd.flash_decode(q, k, v, lens, config=cfg_fh, return_lse=True)
     err_fh = _check_decode("flash_decode fuse_heads", got_fh, ref, lens, DECODE_TOL)
@@ -650,6 +661,9 @@ def phase_flash_decode() -> dict:
         replaces="triton_dist_tpu/ops/flash_decode.py:284",
         max_abs_err=max(err, err_fh),
         ms=cuda_ms(lambda: fd.flash_decode(q, k, v, lens, return_lse=True), iters=50),
+        prev_ms=cuda_ms(lambda: fd.flash_decode(q, k, v, lens, return_lse=True,
+                                                _engine="split"), iters=50),
+        prev_max_abs_err=prev_err, engine="one launch (onepass_kernel, contiguous)",
         plain_ms=cuda_ms(lambda: fd._xla_decode(q, k, v, lens, return_lse=True), iters=20),
         bound_ms=b_ms, bound_by=by,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -657,8 +671,8 @@ def phase_flash_decode() -> dict:
         shapes=f"b={b} hq={hq} h_kv={h_kv} d={d} s_max={s} lens={lens.tolist()}",
     )
     emit({"phase": "kernel", "kernel": "flash_decode", "fuse_heads_err": err_fh,
-          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                      "library_ms", "shapes")}})
+          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "prev_ms", "prev_max_abs_err",
+                                      "plain_ms", "bound_ms", "library_ms", "shapes")}})
     return entry
 
 
@@ -892,7 +906,8 @@ def phase_contiguous(counters: Counters) -> dict:
     launches, plain = counts["launches"], counts["plain_calls"]
     if len(done) != len(reqs) or any(len(t) != 16 for t in done.values()):
         raise AssertionError("contiguous serve did not finish every request")
-    if launches["flash_decode"] <= 0 or launches["gemm"] <= 0 or any(plain.values()):
+    if (launches["flash_decode"] <= 0 or launches["flash_decode_onepass"] <= 0
+            or launches["gemm"] <= 0 or any(plain.values())):
         raise AssertionError(f"contiguous path: {counts}")
     emit({"phase": "serve_contiguous", "n_layers": 4, "wall_s": wall,
           "tokens": sum(len(t) for t in done.values()), **counts})
@@ -2732,33 +2747,53 @@ def _verify_inputs(S, dtype, seed, d=None):
 
 def phase_flash_verify() -> dict:
     """K13 at the served shapes: 8B widths (32 query / 8 kv heads, d 128),
-    batch 8, a 2048-position cache, S = 256 (a prefill chunk) and S = 8
-    (a speculative verify), parked-full, ragged and empty rows; a soft-cap
-    case and a d = 96 case; bf16 and f32."""
+    batch 8, a 2048-position cache, S = 256 (a prefill chunk), S = 8 (a
+    speculative verify) and S = 1 (a one-position chunk), parked-full,
+    ragged and empty rows; a soft-cap case and d = 96 and 64 cases; bf16
+    (the wgmma + TMA engine, each case also on the mma.sync engine) and
+    f32."""
     import torch
     from triton_dist_tpu_torch.ops import flash_decode as fd
 
-    worst = 0.0
+    worst = prev_worst = 0.0
     for S, dtype, cap, d in ((256, torch.bfloat16, 0.0, None), (8, torch.bfloat16, 0.0, None),
-                             (64, torch.bfloat16, 30.0, None), (64, torch.bfloat16, 0.0, 96),
+                             (1, torch.bfloat16, 0.0, None), (64, torch.bfloat16, 30.0, None),
+                             (64, torch.bfloat16, 0.0, 96), (8, torch.bfloat16, 5.0, 64),
                              (64, torch.float32, 0.0, None), (37, torch.float32, 5.0, 96)):
         q, k, v, lens = _verify_inputs(S, dtype, seed=11 + S, d=d)
         cfg = fd.FlashDecodeConfig(soft_cap=cap)
-        worst = max(worst, _check_verify(
-            f"flash_verify S={S} {dtype} cap={cap} d={q.shape[-1]}",
-            fd.flash_verify(q, k, v, lens, config=cfg, return_lse=True),
-            fd._xla_verify(q, k, v, lens, return_lse=True, soft_cap=cap), lens, dtype))
+        name = f"flash_verify S={S} {dtype} cap={cap} d={q.shape[-1]}"
+        before = fd.flash_verify.wgmma_launches
+        got = fd.flash_verify(q, k, v, lens, config=cfg, return_lse=True)
+        if fd.flash_verify.wgmma_launches != before + (dtype == torch.bfloat16):
+            raise AssertionError(f"{name}: the bf16 cache did not take the wgmma engine")
+        ref = fd._xla_verify(q, k, v, lens, return_lse=True, soft_cap=cap)
+        worst = max(worst, _check_verify(name, got, ref, lens, dtype))
+        if dtype == torch.bfloat16:
+            prev_worst = max(prev_worst, _check_verify(
+                f"{name} (mma.sync)", fd.flash_verify(q, k, v, lens, config=cfg,
+                                                      return_lse=True, _engine="mma"),
+                ref, lens, dtype))
     S = 256
     q, k, v, lens = _verify_inputs(S, torch.bfloat16, seed=11 + S)
     sh = VERIFY_SHAPE
     b_ms, by = _verify_bound(lens, S, sh["hq"], sh["h_kv"], sh["d"], 2)
+    got = fd.flash_verify(q, k, v, lens, return_lse=True)
+    again = fd.flash_verify(q, k, v, lens, return_lse=True)
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError("flash_verify: two calls differ")
+    ref = fd._xla_verify(q, k, v, lens, return_lse=True)
+    prev = fd.flash_verify(q, k, v, lens, return_lse=True, _engine="mma")
     entry = dict(
         name="flash_verify", route="cuda",
         source="triton_dist_tpu_torch/csrc/flash_verify.cu",
         replaces="triton_dist_tpu/ops/flash_decode.py:618",
-        max_abs_err=(fd.flash_verify(q, k, v, lens, return_lse=True)[0]
-                     - fd._xla_verify(q, k, v, lens, return_lse=True)[0]).abs().max().item(),
+        max_abs_err=(got[0] - ref[0]).abs().max().item(),
         ms=cuda_ms(lambda: fd.flash_verify(q, k, v, lens, return_lse=True), iters=10),
+        prev_ms=cuda_ms(lambda: fd.flash_verify(q, k, v, lens, return_lse=True, _engine="mma"),
+                        iters=10),
+        prev_max_abs_err=(prev[0] - ref[0]).abs().max().item(),
+        engine="wgmma + TMA (verify_sm90_kernel)",
         plain_ms=cuda_ms(lambda: fd._xla_verify(q, k, v, lens, return_lse=True), iters=3,
                          warmup=1),
         bound_ms=b_ms, bound_by=by,
@@ -2767,8 +2802,9 @@ def phase_flash_verify() -> dict:
                f"cache), bf16",
     )
     emit({"phase": "kernel", "kernel": "flash_verify", "worst_err_over_tol": worst,
-          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                      "library_ms", "shapes")}})
+          "prev_worst_err_over_tol": prev_worst,
+          **{k_: entry[k_] for k_ in ("max_abs_err", "ms", "prev_ms", "prev_max_abs_err",
+                                      "plain_ms", "bound_ms", "library_ms", "shapes")}})
     return entry
 
 
@@ -3024,7 +3060,8 @@ def phase_chunked_contiguous(counters: Counters) -> dict:
     launches, plain = counts["launches"], counts["plain_calls"]
     if len(done) != len(reqs) or any(len(t) != 16 for t in done.values()):
         raise AssertionError("chunked contiguous serve did not finish every request")
-    if launches["flash_verify"] <= 0 or launches["flash_decode"] <= 0 or any(plain.values()):
+    if (launches["flash_verify_wgmma"] <= 0 or launches["flash_decode_onepass"] <= 0
+            or any(plain.values())):
         raise AssertionError(f"chunked contiguous path: {counts}")
     emit({"phase": "serve_chunked_contiguous", "n_layers": 4, "wall_s": wall,
           "prefill_chunk_tokens": 128, "tokens": sum(len(t) for t in done.values()),
@@ -3049,6 +3086,7 @@ def _verify_composes(fd, dtype, paged) -> None:
                                                    return_lse=True)
     else:
         run = lambda qq, ll: fd.flash_verify(qq, k, v, ll, return_lse=True)  # noqa: E731
+    before = fd.flash_verify.wgmma_launches
     whole = run(q, fd._ranged_local_lens(pos0, S, 0, s))
     for lo, hi in ((0, 1), (1, 100), (100, 256)):
         part = run(q[:, lo:hi].contiguous(), fd._ranged_local_lens(pos0 + lo, hi - lo, 0, s))
@@ -3056,6 +3094,11 @@ def _verify_composes(fd, dtype, paged) -> None:
                 and torch.equal(part[1], whole[1][:, lo:hi])):
             raise AssertionError(f"{'paged_' if paged else ''}flash_verify {dtype}: chunk "
                                  f"[{lo}, {hi}) differs from the whole-range call")
+    # the contiguous bf16 calls ran K13's wgmma engine (one consumer
+    # warpgroup on the 1-position chunk, two on the others)
+    if fd.flash_verify.wgmma_launches != before + 4 * (not paged and dtype == torch.bfloat16):
+        raise AssertionError(f"flash_verify {dtype}: the composition calls missed the wgmma "
+                             f"engine")
 
 
 def phase_f32_parity_ranged() -> None:

@@ -1,10 +1,10 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions on
 the card (GEMM K1 — its wgmma + TMA engine at every tile and the engine
-routing by shape —, flash decode K2, paged flash decode K3 — its one-launch
-kernel bit-equal across calls and under a CUDA-graph replay —, grouped GEMM K8,
-its weight gradient K11, the multi-position verify K13 and its paged twin
-K14 — over shared pages, and chunk calls bit-equal to the whole-range
-call — and at world 2 and 4 with every rank on the one
+routing by shape —, flash decode K2 and paged flash decode K3 — their
+one-launch kernel bit-equal across calls and under a CUDA-graph replay —,
+grouped GEMM K8, its weight gradient K11, the multi-position verify K13 —
+its wgmma + TMA engine — and its paged twin K14 — over shared pages, and
+chunk calls bit-equal to the whole-range call — and at world 2 and 4 with every rank on the one
 card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
 AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, the scaled
 int8 / fp8 formats of the grouped GEMM K24, of K9 (K25) and of K10 (K26),
@@ -252,12 +252,64 @@ def test_paged_onepass_decode_matches_plain(cuda, name):
         assert torch.equal(o, out) and torch.equal(l_, lse)
 
 
+# K2's one-launch kernel over a contiguous cache: (b, hq, h_kv, d, s, lens, soft cap)
+CONTIGUOUS_ONEPASS_CASES = {
+    "served_g4_d128": (8, 32, 8, 128, 1024, [0, 1, 17, 300, 513, 777, 1000, 1024], 0.0),
+    "g1_d96_cap": (4, 8, 8, 96, 300, [300, 0, 100, 299], 30.0),
+    "g8_d128_cap": (3, 64, 8, 128, 1000, [1000, 1, 640], 5.0),
+    "g4_d96_long": (2, 16, 4, 96, 4096, [4096, 2500], 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONTIGUOUS_ONEPASS_CASES))
+def test_contiguous_onepass_decode_matches_plain(cuda, name):
+    """K2's one-launch kernel over a bf16 contiguous cache (lengths 0 and
+    s_max, caches off the 64-position tile): within DECODE_TOL of the plain
+    version, kv_len 0 gives out 0 and lse -inf, the one-launch counter moves
+    once a call, and two calls and a CUDA-graph replay give the same bits;
+    the split engine (``_engine="split"``) stays within the same tolerance."""
+    b, hq, h_kv, d, s, lens, cap = CONTIGUOUS_ONEPASS_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name) + s)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, h_kv, s, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, h_kv, s, d), generator=gen, device=cuda).bfloat16()
+    tl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    config = tfd.FlashDecodeConfig(soft_cap=cap)
+    run = lambda **kw: tfd.flash_decode(q, k, v, tl, config=config,  # noqa: E731
+                                        return_lse=True, **kw)
+    before = tfd.flash_decode.onepass_launches
+    out, lse = run()
+    again = run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    graph.replay()
+    split = run(_engine="split")
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.onepass_launches == before + 3
+    want_o, want_l = tfd._xla_decode(q, k, v, tl, return_lse=True, soft_cap=cap)
+    live = tl > 0
+    for o, l_ in ((out, lse), split):
+        assert (o - want_o).abs().max().item() <= 1e-3
+        assert (l_[live] - want_l[live]).abs().max().item() <= 1e-3
+        assert (o[~live] == 0).all() and torch.isneginf(l_[~live]).all()
+    for o, l_ in (again, captured):
+        assert torch.equal(o, out) and torch.equal(l_, lse)
+
+
 VERIFY_CASES = {
     # name: (b, S, hq, h_kv, s, d, soft_cap, page)
     "s5_g4_d128": (2, 5, 8, 2, 200, 128, 0.0, 8),
     "s37_g4_cap": (2, 37, 8, 2, 144, 64, 5.0, 16),
     "s3_g1_d96": (3, 3, 2, 2, 96, 96, 0.0, 8),
     "s70_g8_d8": (1, 70, 8, 1, 64, 8, 0.0, 4),
+    # the served widths of K13's wgmma engine: a prefill chunk, a speculative
+    # verify (one consumer warpgroup), a one-position chunk
+    "s256_g4_d128": (2, 256, 32, 8, 320, 128, 0.0, 16),
+    "s8_g4_d64_cap": (3, 8, 32, 8, 256, 64, 30.0, 16),
+    "s1_g4_d128": (4, 1, 32, 8, 192, 128, 0.0, 16),
 }
 
 
@@ -277,7 +329,10 @@ def _verify_tol(ref: torch.Tensor, dtype) -> float:
 def test_verify_kernels_match_plain(cuda, dtype, name):
     """K13/K14 against their plain versions: ragged per-row lengths with
     empty and full rows; the paged pool is shared — every sequence's first
-    page is one physical page, as under the prefix cache."""
+    page is one physical page, as under the prefix cache. A bf16 cache runs
+    K13's wgmma engine (its counter moves); the mma.sync engine
+    (``_engine="mma"``, the first port's) over the contiguous cache gives
+    K14's bits on the pool that holds it — the kernel both share, unchanged."""
     b, S, hq, h_kv, s, d, cap, page = VERIFY_CASES[name]
     assert s % page == 0
     rng = np.random.default_rng(9)
@@ -291,8 +346,11 @@ def test_verify_kernels_match_plain(cuda, dtype, name):
     lens = rng.integers(0, s + 1, (b, S)).astype(np.int32)
     lens[0, 0], lens[-1, -1] = 0, s
     tl = torch.from_numpy(lens).to(cuda)
-    got = tfd.flash_verify(q, t(kc), t(vc), tl, config=tfd.FlashDecodeConfig(soft_cap=cap),
-                           return_lse=True)
+    cfg = tfd.FlashDecodeConfig(soft_cap=cap)
+    before = tfd.flash_verify.wgmma_launches
+    got = tfd.flash_verify(q, t(kc), t(vc), tl, config=cfg, return_lse=True)
+    assert tfd.flash_verify.wgmma_launches == before + (dtype == torch.bfloat16)
+    mma = tfd.flash_verify(q, t(kc), t(vc), tl, config=cfg, return_lse=True, _engine="mma")
     want = tfd._xla_verify(q, t(kc), t(vc), tl, return_lse=True, soft_cap=cap)
     # pool: page 0 shared by every sequence, the rest private and shuffled
     pps = s // page
@@ -309,6 +367,7 @@ def test_verify_kernels_match_plain(cuda, dtype, name):
                                   soft_cap=cap, return_lse=True)
     torch.cuda.synchronize()
     empty = torch.from_numpy(lens == 0).to(cuda)
+    assert torch.equal(mma[0], pgot[0]) and torch.equal(mma[1], pgot[1])
     for o, lse in (got, pgot):
         assert (o - want[0]).abs().max().item() <= _verify_tol(want[0], dtype)
         live = ~empty[..., None].expand_as(lse)
@@ -322,7 +381,8 @@ def test_verify_kernels_match_plain(cuda, dtype, name):
 def test_verify_kernels_compose_bit_for_bit(cuda, dtype, paged):
     """A whole-range ranged-prefill call and the calls over its chunks give
     every row the same (out, lse) bits: a row's result depends on neither S
-    nor its neighbours."""
+    nor its neighbours. A bf16 contiguous cache runs K13's wgmma engine (two
+    consumer warpgroups on the whole range, one on the 1-position chunk)."""
     b, S, hq, h_kv, s, d, page = 3, 150, 32, 8, 512, 128, 16
     gen = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn((b, S, hq, d), generator=gen, device=cuda).to(dtype)
@@ -339,11 +399,15 @@ def test_verify_kernels_compose_bit_for_bit(cuda, dtype, paged):
         v = torch.randn((b, h_kv, s, d), generator=gen, device=cuda).to(dtype)
         run = lambda qq, lens: tfd.flash_verify(qq, k, v, lens, return_lse=True)  # noqa: E731
     pos0 = torch.tensor([0, 77, s], device=cuda)  # the last row parked past the cache
+    before = tfd.flash_verify.wgmma_launches
     whole = run(q, tfd._ranged_local_lens(pos0, S, 0, s).to(cuda))
+    wgmma = not paged and dtype == torch.bfloat16
+    assert tfd.flash_verify.wgmma_launches == before + wgmma
     for lo, hi in ((0, 1), (1, 64), (64, 150)):
         part = run(q[:, lo:hi].contiguous(), tfd._ranged_local_lens(pos0 + lo, hi - lo, 0, s))
         assert torch.equal(part[0], whole[0][:, lo:hi]), (lo, hi)
         assert torch.equal(part[1], whole[1][:, lo:hi]), (lo, hi)
+    assert tfd.flash_verify.wgmma_launches == before + 4 * wgmma
 
 
 def _moe_routing(gen, tokens, n_exp, topk, device):

@@ -208,32 +208,43 @@ def test_sp_decode_distributed_matches_jax(world):
         np.testing.assert_allclose(p.numpy(), np.asarray(want_p)[r], rtol=TOL, atol=TOL)
 
 
-# ------------------------------ K3's one-launch span plan (pure, on the host) ----
+# ------------------------- K2/K3's one-launch span plan (pure, on the host) ----
 
-@pytest.mark.parametrize("lens,page,max_pages,b_hkv,sms", [
+@pytest.mark.parametrize("lens,page,width,b_hkv,sms", [
     ([1024, 0, 16, 17, 255, 600, 999, 1], 16, 64, (8, 8), 132),   # the served lengths
     ([0, 1, 15, 16, 17, 64, 65, 4096], 16, 256, (8, 2), 132),      # edges and a full table
     ([5, 3, 0], 4, 8, (3, 2), 4),                                  # small pages, few SMs
     ([2000, 9], 64, 40, (2, 1), 132),                              # one page a tile
+    # contiguous caches (page None, width = s): K2's served lengths, and an s
+    # off the 64-position tile with lengths past it
+    ([0, 1, 17, 300, 513, 777, 1000, 1024], None, 1024, (8, 8), 132),
+    ([0, 64, 65, 299, 300, 5000], None, 300, (6, 2), 8),
 ])
-def test_onepass_span_plan_matches_brute_force(lens, page, max_pages, b_hkv, sms):
+def test_onepass_span_plan_matches_brute_force(lens, page, width, b_hkv, sms):
     """The (sequence, span) rows the one-launch kernel computes equal a
     brute-force grouping of every valid position by its span, each position
     exactly once; spans are whole tiles; the grid's span count covers the
-    table; no span reaches a page at or past ceil(len / page) (junk)."""
+    table; no span reaches a page at or past ceil(len / page) (junk). A page
+    pool has `width` pages; a contiguous cache of `width` positions is
+    ceil(width / 64) "pages" of one 64-position tile."""
     b, h_kv = b_hkv
+    if page is None:
+        s_len, page, max_pages = width, tfd._TILE, -(-width // tfd._TILE)
+    else:
+        s_len, max_pages = None, width
+    cap = page * max_pages if s_len is None else s_len
     span_pages, splits = tfd._onepass_plan(b, h_kv, page, max_pages, sms)
     assert span_pages % (tfd._TILE // page) == 0 and splits * span_pages >= max_pages
-    rows = tfd._onepass_rows(lens, page, max_pages, span_pages)
+    rows = tfd._onepass_rows(lens, page, max_pages, span_pages, s_len=s_len)
     want = {}
     for bi, n in enumerate(lens):
-        for pos in range(min(n, page * max_pages)):
+        for pos in range(min(n, cap)):
             lo, hi = want.get((bi, pos // (span_pages * page)), (pos, pos))
             want[(bi, pos // (span_pages * page))] = (min(lo, pos), max(hi, pos + 1))
     assert {(bi, sp): (p0, p1) for bi, sp, p0, p1 in rows} == want
     assert len(rows) == len(want) and all(sp < splits for _, sp, _, _ in rows)
     for bi, sp, p0, p1 in rows:
-        assert p0 < p1 <= lens[bi] and (p1 - 1) // page < -(-lens[bi] // page)
+        assert p0 < p1 <= min(lens[bi], cap) and (p1 - 1) // page < -(-lens[bi] // page)
 
 
 @pytest.mark.parametrize("dtype,d,page,g,aligned,engine", [
@@ -244,6 +255,18 @@ def test_onepass_span_plan_matches_brute_force(lens, page, max_pages, b_hkv, sms
     (torch.bfloat16, 20, 16, 4, True, "split"),     # rows not whole 16-byte chunks
     (torch.bfloat16, 128, 48, 4, True, "split"),    # a page that does not divide 64
     (torch.bfloat16, 128, 16, 4, False, "split"),
+    (torch.bfloat16, 96, None, 8, True, "onepass"),  # K2: a contiguous bf16 cache
 ])
 def test_paged_decode_engine_choice(dtype, d, page, g, aligned, engine):
     assert tfd._decode_engine(dtype, d, page, g, aligned) == engine
+
+
+@pytest.mark.parametrize("dtype,d,paged,aligned,engine", [
+    (torch.bfloat16, 128, False, True, "wgmma"),   # K13 on the wgmma + TMA kernel
+    (torch.bfloat16, 128, True, True, "mma"),      # K14's page pool keeps mma.sync
+    (torch.int8, 128, False, True, "mma"),         # K40: one-byte tiles raised to bf16
+    (torch.bfloat16, 20, False, False, "mma"),     # rows not whole 16-byte chunks, unaligned
+    (torch.float32, 64, False, True, "fma"),
+])
+def test_verify_engine_choice(dtype, d, paged, aligned, engine):
+    assert tfd._verify_engine(dtype, d, paged, aligned) == engine

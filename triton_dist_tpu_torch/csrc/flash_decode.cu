@@ -34,28 +34,31 @@
 // touches only pages below ceil(kv_len / page). Rows are padded in shared
 // memory to the power-of-two head dim (_kernel_head_dim), zero past d.
 //
-// K3 on a bf16 page pool runs a second kernel, paged_onepass_kernel (one
-// launch a call): the split kernel's two launches, spans sized from the
-// table's length (most blocks of a short sequence exit, a few walk long
-// spans) and its row-by-row cp.async staging left it 2.8x off SDPA at the
-// served shapes. Each block owns one (sequence, kv head, span) where the
-// spans cut the sequence's OWN length, read from kv_lens on the device:
-// span_pages pages each (a multiple of the 64-position tile), so the
-// longest sequence has the most blocks and every block walks at most
-// span_pages pages; the grid's span count comes from max_pages, a bound the
-// host knows, so the step never reads the lengths on the host. A page of
-// one kv head is one contiguous [page, d] slab: thread 0 fetches each with
-// cp.async.bulk (K and V, completing on the tile's mbarrier), two tiles in
-// flight. Scores split each row over 8 threads (16-byte shared loads,
-// conflict-free on the unpadded slab rows); P.V gives each thread one or
-// two head-dim columns. A span writes its (out, lse) partial; the last
-// block of a (sequence, kv head) to arrive, found with an arrival counter
-// behind a fence, merges the partials in span order (the result does not
-// depend on arrival order). The wrapper zeroes the counters in the call's
-// stream, so a captured graph replays that memset with the launch. A sequence with one span writes the output
-// directly; kv_len == 0 writes out 0, lse -inf. The math contract above is
-// unchanged. Pools of another dtype, head dims not a multiple of 8 or over
-// 256, and pages that do not divide 64 stay on the split kernel
+// K3 on a bf16 page pool and K2 on a bf16 contiguous cache run a second
+// kernel, onepass_kernel (one launch a call): the split kernel's two
+// launches, spans sized from the cache's width (most blocks of a short
+// sequence exit, a few walk long spans) and its row-by-row cp.async staging
+// with no overlap of loads and math left it 2.5-2.8x off SDPA at the served
+// shapes. Each block owns one (sequence, kv head, span) where the spans cut
+// the sequence's OWN length, read from kv_lens on the device: span_pages
+// pages each (a multiple of the 64-position tile), so the longest sequence
+// has the most blocks and every block walks at most span_pages pages; the
+// grid's span count comes from max_pages, a bound the host knows, so the
+// step never reads the lengths on the host. A page of one kv head is one
+// contiguous [page, d] slab, and a contiguous cache is read as "pages" of
+// one 64-position tile (its tile is one contiguous [nt, d] run, clipped at
+// the sequence's length): thread 0 fetches each with cp.async.bulk (K and
+// V, completing on the tile's mbarrier), two tiles in flight. Scores split
+// each row over 8 threads (16-byte shared loads, conflict-free on the
+// unpadded slab rows); P.V gives each thread one or two head-dim columns. A
+// span writes its (out, lse) partial; the last block of a (sequence, kv
+// head) to arrive, found with an arrival counter behind a fence, merges the
+// partials in span order (the result does not depend on arrival order).
+// The wrapper zeroes the counters in the call's stream, so a captured graph
+// replays that memset with the launch. A sequence with one span writes the
+// output directly; kv_len == 0 writes out 0, lse -inf. The math contract
+// above is unchanged. Caches of another dtype, head dims not a multiple of
+// 8 or over 256, and pages that do not divide 64 stay on the split kernel
 // (ops/flash_decode.py::_decode_engine).
 //
 // K38/K39 replace :1231 _flash_decode_quant_kernel (body _flash_decode_body
@@ -79,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -394,37 +399,20 @@ __global__ void __launch_bounds__(THREADS) decode_combine_kernel(
   if (threadIdx.x == 0) lse[row] = denom > 0.f ? m_safe + logf(denom) : -INFINITY;
 }
 
-// ------------------------------------------------ K3, one launch (bf16) ----
+// ------------------------------------------- K2 / K3, one launch (bf16) ----
 namespace onepass {
+
+using tdt::sm90::bulk_copy;
+using tdt::sm90::fence_proxy_async;
+using tdt::sm90::mbar_expect_tx;
+using tdt::sm90::mbar_init;
+using tdt::sm90::mbar_init_fence;
+using tdt::sm90::mbar_wait;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 64;   // positions per online-softmax step (64 / page pages)
 constexpr int MAX_BUF = 2; // tiles in flight
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // shared-memory carve-up (bytes): nbuf K/V tile pairs, q, the tile's
 // probabilities, the softmax statistics, the tiles' page ids, barriers
@@ -440,48 +428,61 @@ struct Smem {
   }
 };
 
-// Warp 0: the page ids of tile pages [first, last) into `ids` (one load a
-// lane, all at once), then lane 0 fetches each page's K and V slab with one
-// bulk copy each, completing on `bar`.
+// Warp 0 issues tile pages [first, last) of (sequence bi, kv head h).
+// Paged: the page ids into `ids` (one load a lane, all at once), then lane 0
+// fetches each page's K and V slab with one bulk copy each. Contiguous (a
+// "page" is the 64-position tile): lane 0 fetches the run of positions
+// [first * page, pos1) of the (bi, h) slab [s_len, d] with one bulk copy
+// for K and one for V. Both complete on `bar`.
+template <bool PAGED>
 __device__ __forceinline__ void issue_tile(bf16* kbuf, bf16* vbuf, int* ids, uint64_t* bar,
                                            const bf16* __restrict__ kp,
                                            const bf16* __restrict__ vp,
                                            const int* __restrict__ pages, int first, int last,
-                                           int h, int h_kv, int page, int d) {
+                                           int bi, int h, int h_kv, int page, int d, int s_len,
+                                           int pos1) {
   const int lane = threadIdx.x % 32;
-  for (int l = lane; l < last - first; l += 32) ids[l] = pages[first + l];
-  __syncwarp();
-  if (lane == 0) {
-    const uint32_t slab = static_cast<uint32_t>(page) * d * 2;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                     smem_u32(bar)),
-                 "r"(slab * 2 * (last - first))
-                 : "memory");
-    for (int pg = 0; pg < last - first; ++pg) {
-      const int64_t off = (static_cast<int64_t>(ids[pg]) * h_kv + h) * page * d;
-      bulk_copy(kbuf + static_cast<int64_t>(pg) * page * d, kp + off, slab, bar);
-      bulk_copy(vbuf + static_cast<int64_t>(pg) * page * d, vp + off, slab, bar);
+  if constexpr (PAGED) {
+    for (int l = lane; l < last - first; l += 32) ids[l] = pages[first + l];
+    __syncwarp();
+    if (lane == 0) {
+      const uint32_t slab = static_cast<uint32_t>(page) * d * 2;
+      mbar_expect_tx(bar, slab * 2 * (last - first));
+      for (int pg = 0; pg < last - first; ++pg) {
+        const int64_t off = (static_cast<int64_t>(ids[pg]) * h_kv + h) * page * d;
+        bulk_copy(kbuf + static_cast<int64_t>(pg) * page * d, kp + off, slab, bar);
+        bulk_copy(vbuf + static_cast<int64_t>(pg) * page * d, vp + off, slab, bar);
+      }
     }
+    __syncwarp();
+  } else if (lane == 0) {
+    const int t0 = first * page;
+    const uint32_t run = static_cast<uint32_t>(min(last * page, pos1) - t0) * d * 2;
+    const int64_t off = ((static_cast<int64_t>(bi) * h_kv + h) * s_len + t0) * d;
+    mbar_expect_tx(bar, 2 * run);
+    bulk_copy(kbuf, kp + off, run, bar);
+    bulk_copy(vbuf, vp + off, run, bar);
   }
-  __syncwarp();
 }
 
 // grid (b * h_kv, splits); block (sequence bi, kv head h, span). G: the
 // query heads of a kv head at compile time (0: hq / h_kv at run time, up
-// to MAX_G).
-template <int G>
-__global__ void __launch_bounds__(THREADS) paged_onepass_kernel(
+// to MAX_G). PAGED: a page pool behind `table` (s_len = page * max_pages);
+// else a contiguous cache [b, h_kv, s_len, d] cut into "pages" of one
+// 64-position tile (page = TILE, max_pages = ceil(s_len / TILE)).
+template <int G, bool PAGED>
+__global__ void __launch_bounds__(THREADS) onepass_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ kp, const bf16* __restrict__ vp,
     const int* __restrict__ kv_lens, const int* __restrict__ table,
     float* __restrict__ out_part, float* __restrict__ lse_part, int* __restrict__ arrivals,
     float* __restrict__ out, float* __restrict__ lse, int hq, int h_kv, int d, int page,
-    int max_pages, int span_pages, int nbuf, float scale, float soft_cap) {
+    int max_pages, int s_len, int span_pages, int nbuf, float scale, float soft_cap) {
   constexpr int GM = G > 0 ? G : MAX_G;  // the register arrays' extent
   extern __shared__ __align__(128) unsigned char smem_op[];
   const int g = G > 0 ? G : hq / h_kv, splits = gridDim.y;
   const int bi = blockIdx.x / h_kv, h = blockIdx.x % h_kv, span = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kv_len = min(kv_lens[bi], page * max_pages);
+  const int kv_len = min(kv_lens[bi], s_len);
   const int n_pages = (max(kv_len, 0) + page - 1) / page;
   const int n_spans = (n_pages + span_pages - 1) / span_pages;
   const int64_t row0 = static_cast<int64_t>(bi) * hq + static_cast<int64_t>(h) * g;
@@ -513,20 +514,20 @@ __global__ void __launch_bounds__(THREADS) paged_onepass_kernel(
   const int pos1 = min(pg1 * page, kv_len);
   const int ppt = TILE / page;
   const int n_tiles = (pg1 - pg0 + ppt - 1) / ppt;
-  const int* pages = table + static_cast<int64_t>(bi) * max_pages;
+  const int* pages = PAGED ? table + static_cast<int64_t>(bi) * max_pages : nullptr;
+  auto issue = [&](int t, int buf) {
+    const int first = pg0 + t * ppt;
+    issue_tile<PAGED>(kbuf(buf), vbuf(buf), ids + buf * TILE, bars + buf, kp, vp, pages, first,
+                      min(first + ppt, pg1), bi, h, h_kv, page, d, s_len, pos1);
+  };
 
   if (tid == 0) {
-    for (int i = 0; i < nbuf; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bars + i)));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < nbuf; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
   }
   __syncthreads();
   if (warp == 0) {
-    for (int t = 0; t < min(nbuf, n_tiles); ++t) {
-      const int first = pg0 + t * ppt;
-      issue_tile(kbuf(t), vbuf(t), ids + t * TILE, bars + t, kp, vp, pages, first,
-                 min(first + ppt, pg1), h, h_kv, page, d);
-    }
+    for (int t = 0; t < min(nbuf, n_tiles); ++t) issue(t, t);
   }
   const bf16* qb = q + row0 * d;
   for (int e = tid; e < g * d; e += THREADS) q_s[e] = qb[e];
@@ -641,10 +642,8 @@ __global__ void __launch_bounds__(THREADS) paged_onepass_kernel(
     }
     __syncthreads();  // every thread is done with this buffer and with p_s
     if (warp == 0 && t + nbuf < n_tiles) {
-      if (lane == 0) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      const int first = pg0 + (t + nbuf) * ppt;
-      issue_tile(kbuf(buf), vbuf(buf), ids + buf * TILE, bars + buf, kp, vp, pages, first,
-                 min(first + ppt, pg1), h, h_kv, page, d);
+      if (lane == 0) fence_proxy_async();
+      issue(t + nbuf, buf);
     }
   }
 
@@ -811,18 +810,23 @@ extern "C" int tdt_paged_flash_decode(const void* q, const void* k, const void* 
                         max_pages, splits, chunk, scale, soft_cap, stream);
 }
 
-// K3 in one launch over a bf16 page pool (paged_onepass_kernel). arrivals:
-// b * h_kv int32 counters, zero at the launch; out_part / lse_part: [b * h_kv, splits, g] scratch; splits =
-// ceil(max_pages / span_pages); span_pages a multiple of 64 / page.
-extern "C" int tdt_paged_flash_decode_onepass(
-    const void* q, const void* k, const void* v, const void* kv_lens, const void* table,
-    void* out_part, void* lse_part, void* arrivals, void* out, void* lse, int b, int hq,
-    int h_kv, int d, int page, int max_pages, int span_pages, int splits, float scale,
-    float soft_cap, void* stream) {
+namespace {
+
+// K2 / K3 in one launch over a bf16 cache (onepass_kernel). arrivals: b * h_kv
+// int32 counters, zero at the launch; out_part / lse_part: [b * h_kv, splits,
+// g] scratch; splits = ceil(max_pages / span_pages); span_pages a multiple
+// of 64 / page.
+template <bool PAGED>
+int launch_onepass(const void* q, const void* k, const void* v, const void* kv_lens,
+                   const void* table, void* out_part, void* lse_part, void* arrivals, void* out,
+                   void* lse, int b, int hq, int h_kv, int d, int page, int max_pages,
+                   int s_len, int span_pages, int splits, float scale, float soft_cap,
+                   void* stream) {
   const int g = h_kv > 0 ? hq / h_kv : 0, tile = onepass::TILE;
   if (g < 1 || hq % h_kv || g > MAX_G || d % 8 || d > 2 * onepass::THREADS || page < 1 ||
       tile % page || span_pages < 1 || span_pages % (tile / page) || splits < 1 ||
-      static_cast<long long>(splits) * span_pages < max_pages)
+      static_cast<long long>(splits) * span_pages < max_pages ||
+      static_cast<long long>(page) * max_pages < s_len)
     return static_cast<int>(cudaErrorInvalidValue);
   // two tiles in flight where a span has two or more
   const int nbuf = span_pages / (tile / page) >= 2 ? onepass::MAX_BUF : 1;
@@ -839,16 +843,42 @@ extern "C" int tdt_paged_flash_decode_onepass(
         static_cast<const int*>(kv_lens), static_cast<const int*>(table),
         static_cast<float*>(out_part), static_cast<float*>(lse_part),
         static_cast<int*>(arrivals), static_cast<float*>(out), static_cast<float*>(lse), hq,
-        h_kv, d, page, max_pages, span_pages, nbuf, scale, soft_cap);
+        h_kv, d, page, max_pages, s_len, span_pages, nbuf, scale, soft_cap);
     return static_cast<int>(cudaGetLastError());
   };
   switch (g) {  // the common group sizes unrolled exactly
-    case 1: return go(onepass::paged_onepass_kernel<1>);
-    case 2: return go(onepass::paged_onepass_kernel<2>);
-    case 4: return go(onepass::paged_onepass_kernel<4>);
-    case 8: return go(onepass::paged_onepass_kernel<8>);
-    default: return go(onepass::paged_onepass_kernel<0>);
+    case 1: return go(onepass::onepass_kernel<1, PAGED>);
+    case 2: return go(onepass::onepass_kernel<2, PAGED>);
+    case 4: return go(onepass::onepass_kernel<4, PAGED>);
+    case 8: return go(onepass::onepass_kernel<8, PAGED>);
+    default: return go(onepass::onepass_kernel<0, PAGED>);
   }
+}
+
+}  // namespace
+
+// K3 over a bf16 page pool [n_pages, h_kv, page, d] behind block_table.
+extern "C" int tdt_paged_flash_decode_onepass(
+    const void* q, const void* k, const void* v, const void* kv_lens, const void* table,
+    void* out_part, void* lse_part, void* arrivals, void* out, void* lse, int b, int hq,
+    int h_kv, int d, int page, int max_pages, int span_pages, int splits, float scale,
+    float soft_cap, void* stream) {
+  return launch_onepass<true>(q, k, v, kv_lens, table, out_part, lse_part, arrivals, out, lse,
+                              b, hq, h_kv, d, page, max_pages, page * max_pages, span_pages,
+                              splits, scale, soft_cap, stream);
+}
+
+// K2 over a contiguous bf16 cache [b, h_kv, s_len, d]: spans of span_tiles
+// 64-position tiles, splits = ceil(ceil(s_len / 64) / span_tiles).
+extern "C" int tdt_flash_decode_onepass(const void* q, const void* k, const void* v,
+                                        const void* kv_lens, void* out_part, void* lse_part,
+                                        void* arrivals, void* out, void* lse, int b, int hq,
+                                        int h_kv, int d, int s_len, int span_tiles, int splits,
+                                        float scale, float soft_cap, void* stream) {
+  const int tile = onepass::TILE;
+  return launch_onepass<false>(q, k, v, kv_lens, nullptr, out_part, lse_part, arrivals, out,
+                               lse, b, hq, h_kv, d, tile, (s_len + tile - 1) / tile, s_len,
+                               span_tiles, splits, scale, soft_cap, stream);
 }
 
 extern "C" const char* tdt_error_string(int code) {

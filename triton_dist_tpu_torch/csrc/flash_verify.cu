@@ -25,17 +25,37 @@
 // block owns a tile of rows and walks the whole KV range itself (no split
 // over KV, no merge pass), up to the largest prefix length among its rows
 // (the per-sequence chunk gate of the TPU kernel, per row tile here).
-// bf16 caches: 64 rows a block, 16 a warp; Q.K^T and P.V are m16n8k16
-// mma.sync products fed by ldmatrix from shared memory, K and V tiles of 64
-// positions double-buffered with 16-byte cp.async, the online-softmax
-// carry in registers (each row's max and sum reduced over the 4 threads
-// that hold it). f32 caches (the reference precision): 32 rows a block,
-// scores, softmax and P.V in f32 FMA from shared memory.
+//
+// K13 over a bf16 contiguous cache (d a multiple of 8 up to 256, 16-byte
+// aligned operands) runs verify_sm90_kernel: the mma.sync kernel below reached
+// 14 % of the operations bound at the served prefill chunk (every thread
+// computing cache-row addresses for 16-byte cp.async into two buffers, a
+// __syncthreads at every tile serialising the softmax with both products,
+// mma.sync short of Hopper's tensor-core rate). The Hopper design
+// (FlashAttention-3's arrangement): a producer warp streams K and V tiles by
+// TMA from a 2-D tensor map over the cache viewed as [b * h_kv * s_len, d] rows
+// into a 4-stage ring (2 at d > 128) of full and empty mbarriers; consumer
+// warpgroups of 64 query rows (two a block where a (sequence, kv head) has more
+// than 64 rows, one at 64 or fewer: a speculative verify, a one-position chunk)
+// run S = Q.K^T and O += P.V as wgmma products, P fed from registers, the
+// exponentials on the special-function unit (ex2). Head dims below the padded
+// one ride TMA's zero fill past the row's edge; the V rows of the last tile at
+// and past the block's extent are zeroed in shared memory (TMA fills past the
+// tensor's edge only).
+//
+// bf16 caches elsewhere (K14's page pool, K40's one-byte tiles raised to
+// bf16, unaligned or odd-d operands): 64 rows a block, 16 a warp; Q.K^T and
+// P.V are m16n8k16 mma.sync products fed by ldmatrix from shared memory, K
+// and V tiles of 64 positions double-buffered with 16-byte cp.async, the
+// online-softmax carry in registers (each row's max and sum reduced over
+// the 4 threads that hold it). f32 caches (the reference precision): 32
+// rows a block, scores, softmax and P.V in f32 FMA from shared memory.
 //
 // A row's result depends on nothing but its own q row, its own length and
 // the cache: the tiles are the same 64-position tiles from position 0 for
 // every row; skipping a tile that is masked for every row of a block is
-// exact (alpha = 1, p = 0); no choice depends on S or on the row count.
+// exact (alpha = 1, p = 0); no choice depends on S or on the row count (the
+// wgmma engine's one or two consumer warpgroups compute a row alike).
 // So a whole-range call and the calls over its chunks agree bit for bit
 // row by row, which the ranged prefill's composition rests on.
 //
@@ -60,6 +80,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -455,6 +479,273 @@ __global__ void __launch_bounds__(THREADS) verify_mma_kernel(
   }
 }
 
+// ------------------------------------------------ bf16 (wgmma + TMA, K13) --
+namespace wg {
+
+using tdt::sm90::fence_acc;
+using tdt::sm90::fence_proxy_async;
+using tdt::sm90::KMAJOR_LBO;
+using tdt::sm90::KMAJOR_SBO;
+using tdt::sm90::make_map;
+using tdt::sm90::mbar_arrive;
+using tdt::sm90::mbar_expect_tx;
+using tdt::sm90::mbar_init;
+using tdt::sm90::mbar_init_fence;
+using tdt::sm90::mbar_wait;
+using tdt::sm90::MNMAJOR_LBO;
+using tdt::sm90::MNMAJOR_SBO;
+using tdt::sm90::named_barrier;
+using tdt::sm90::reg_alloc;
+using tdt::sm90::reg_dealloc;
+using tdt::sm90::smem_desc;
+using tdt::sm90::smem_u32;
+using tdt::sm90::tma_load_2d;
+using tdt::sm90::wgmma_commit;
+using tdt::sm90::wgmma_fence;
+using tdt::sm90::wgmma_wait;
+
+constexpr int BOX = 64;  // positions a tile, columns a box: one 128-byte swizzle row of bf16
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (about 2 ulps; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// DP: the head dim padded to 64, 128 or 256 (zero past d); WGS consumer
+// warpgroups of 64 query rows each
+template <int DP, int WGS>
+struct Layout {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int THREADS = 128 * (WGS + 1);
+  static constexpr int STAGES = DP <= 128 ? 4 : 2;
+  static constexpr int Q_ELEMS = BM * DP;
+  static constexpr int TILE_ELEMS = BOX * DP;  // one K or V tile
+  static constexpr uint32_t STAGE_BYTES = 2 * TILE_ELEMS * 2;
+  // q, the stages, their full and empty barriers; +1024 to align the base
+  static constexpr size_t SMEM =
+      static_cast<size_t>(Q_ELEMS + STAGES * 2 * TILE_ELEMS) * 2 + 2 * STAGES * 8 + 1024;
+  static_assert(SMEM <= 232448, "fits a block's shared memory");
+};
+
+// Grid (row tiles of 64 * WGS, h_kv, b). Warpgroup 0 is the producer: one
+// thread streams the (sequence, kv head)'s 64-position K and V tiles by TMA
+// into a STAGES-deep ring (each tile NB boxes of [64 positions][64 columns],
+// 128-byte swizzled, zero past d) on "full" mbarriers. Warpgroups 1..WGS are
+// consumers of 64 rows each: S = Q . K^T by wgmma m64n64k16 (Q and the K
+// tile both K-major in shared memory), the scale, soft cap, per-row length
+// mask and online softmax on the score fragments in registers (a row's max
+// and sum reduced over the 4 threads that hold it), then O += P . V by
+// wgmma m64nDPk16 with P rounded to bf16 in registers (the accumulator
+// layout of two neighbouring 8-column blocks is the A fragment of one
+// 16-deep k step) and the V tile MN-major; then the stage goes back on its
+// "empty" mbarrier. (Issuing the next tile's S before this tile's softmax,
+// FlashAttention-3's intra-warpgroup overlap, timed within 1 % of this on
+// an H100 at the served prefill chunk, so it is not done.)
+template <int DP, int WGS>
+__global__ void __launch_bounds__(Layout<DP, WGS>::THREADS, 1) verify_sm90_kernel(
+    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+    const bf16* __restrict__ q, const int* __restrict__ lens, float* __restrict__ out,
+    float* __restrict__ lse, Geo G, float scale, float soft_cap) {
+  using L = Layout<DP, WGS>;
+  constexpr int NB = DP / BOX;  // boxes of a row
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles want 1024-byte aligned boxes
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* q_s = reinterpret_cast<bf16*>(base);       // [WGS][NB][64 rows][64]
+  bf16* kv_s = q_s + L::Q_ELEMS;                    // [STAGES][K, V][NB][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + L::STAGES * 2 * L::TILE_ELEMS);
+  uint64_t* empty = full + L::STAGES;
+  __shared__ int extent_s;
+
+  const int bi = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * L::BM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * WGS);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  const int extent = block_extent(G, lens, bi, row0, L::BM, &extent_s);
+  const int n_tiles = cdiv(extent, BOX);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer ----
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const int row_base = (bi * G.h_kv + h) * G.s_len;  // of the [b*h_kv*s_len, d] view
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % L::STAGES;
+        mbar_wait(empty + st, ((t / L::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + st, L::STAGE_BYTES);
+        bf16* kt = kv_s + st * 2 * L::TILE_ELEMS;
+#pragma unroll
+        for (int bx = 0; bx < NB; ++bx) {
+          tma_load_2d(kt + bx * BOX * BOX, &map_k, bx * BOX, row_base + t * BOX, full + st);
+          tma_load_2d(kt + L::TILE_ELEMS + bx * BOX * BOX, &map_v, bx * BOX, row_base + t * BOX,
+                      full + st);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers ----
+  reg_alloc<CONSUMER_REGS>();
+  const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int rows = G.S * G.g, wrow0 = row0 + cw * 64;
+  bf16* qw = q_s + cw * 64 * DP;
+  // this warpgroup's q rows, swizzled as TMA would (16-byte chunk c of row r
+  // at chunk c ^ (r % 8)), zero past S*g and past d
+  for (int e = tid; e < 64 * (DP / 8); e += 128) {
+    const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (wrow0 + r < rows && c < G.d)
+      val = *reinterpret_cast<const uint4*>(q + q_row(G, bi, h, wrow0 + r) * G.d + c);
+    *reinterpret_cast<uint4*>(qw + (c / BOX) * BOX * BOX + r * BOX +
+                              (((c % BOX) / 8) ^ (r % 8)) * 8) = val;
+  }
+  fence_proxy_async();
+  named_barrier(2 + cw, 128);
+
+  // this thread's two rows and their prefix lengths
+  const int r_lo = wrow0 + warp * 16 + gid, r_hi = r_lo + 8;
+  const int len_lo = row_len(G, lens, bi, r_lo), len_hi = row_len(G, lens, bi, r_hi);
+  float o[DP / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % L::STAGES;
+    mbar_wait(full + st, (t / L::STAGES) & 1);
+    const bf16* kt = kv_s + st * 2 * L::TILE_ELEMS;
+    bf16* vt = kv_s + st * 2 * L::TILE_ELEMS + L::TILE_ELEMS;
+    const int t0 = t * BOX;
+
+    // (a) S = Q . K^T over the tile's 64 positions
+    fence_acc<32>(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk / 4) * BOX * BOX + (kk % 4) * 16;
+      tdt::sm90::wgmma_m64n64k16<0>(s, smem_desc(qw + off, KMAJOR_LBO, KMAJOR_SBO),
+                                    smem_desc(kt + off, KMAJOR_LBO, KMAJOR_SBO), kk > 0);
+    }
+    wgmma_commit();
+    if (t0 + BOX > extent) {
+      // the last tile: TMA filled its rows at and past the block's extent
+      // with whatever the cache holds there; a masked p = 0 must meet a
+      // finite 0, so the consumers zero those V rows (whole 128-byte rows,
+      // so the swizzle does not matter) before either reads them
+      const int z0 = extent - t0;
+      for (int e = cw * 128 + tid; e < (BOX - z0) * NB * 8; e += 128 * WGS) {
+        const int r = z0 + e / (NB * 8), rest = e % (NB * 8);
+        *reinterpret_cast<uint4*>(vt + (rest / 8) * BOX * BOX + r * BOX + (rest % 8) * 8) =
+            make_uint4(0, 0, 0, 0);
+      }
+      fence_proxy_async();
+      named_barrier(1, 128 * WGS);
+    }
+    wgmma_wait<0>();
+    fence_acc<32>(s);
+
+    // (b) scale, soft cap, length mask; the online-softmax update of the
+    // thread's two rows (s[nb * 4 + e]: row lo for e < 2, hi else; column
+    // nb * 8 + 2 * tig + e % 2, kept where it is below the row's length).
+    // The exponentials are 2^((s - m) log2 e) on the special-function unit:
+    // the softmax's instructions weigh as much as the products in this loop
+    const int lim_lo = len_lo - t0 - 2 * tig, lim_hi = len_hi - t0 - 2 * tig;
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float sc = s[i] * scale;
+      if (soft_cap > 0.f) sc = soft_cap * tanhf(sc / soft_cap);
+      sc = (i / 4) * 8 + (i & 1) < ((i & 2) ? lim_hi : lim_lo) ? sc : -INFINITY;
+      s[i] = sc;
+      if (i & 2) mx_hi = fmaxf(mx_hi, sc); else mx_lo = fmaxf(mx_lo, sc);
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float ms_lo = fmaxf(mn_lo, -1e30f), ms_hi = fmaxf(mn_hi, -1e30f);
+    // alpha exactly 1 where the max did not move (a tile masked for the row
+    // leaves its carry bit for bit as it was: the chunk calls' composition)
+    const float al_lo = mn_lo == m_lo ? 1.f : ex2((m_lo - ms_lo) * LOG2E);
+    const float al_hi = mn_hi == m_hi ? 1.f : ex2((m_hi - ms_hi) * LOG2E);
+    const float mb_lo = ms_lo * LOG2E, mb_hi = ms_hi * LOG2E;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(fmaf(s[i], LOG2E, -((i & 2) ? mb_hi : mb_lo)));
+      if (i & 2) sum_hi += s[i]; else sum_lo += s[i];
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o_);
+      sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o_);
+    }
+    l_lo = l_lo * al_lo + sum_lo;
+    l_hi = l_hi * al_hi + sum_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= (i & 2) ? al_hi : al_lo;
+
+    // (c) O += P . V, P rounded to bf16 in registers
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+      pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+      pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+      pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+    }
+    fence_acc<DP / 2>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      tdt::sm90::wgmma_rs_step<DP>(o, pa[j], smem_desc(vt + j * 16 * BOX, MNMAJOR_LBO,
+                                                       MNMAJOR_SBO), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<DP / 2>(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+
+  // (out, lse) as _finalize_softmax
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r_hi : r_lo;
+    if (r >= rows) continue;
+    const float l = half ? l_hi : l_lo, m = half ? m_hi : m_lo;
+    const int64_t qr = q_row(G, bi, h, r);
+    float* orow = out + qr * G.d;
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const int c = nb * 8 + 2 * tig;
+      if (c < G.d)
+        *reinterpret_cast<float2*>(orow + c) =
+            make_float2(l > 0.f ? o[nb * 4 + 2 * half] / l : 0.f,
+                        l > 0.f ? o[nb * 4 + 2 * half + 1] / l : 0.f);
+    }
+    if (tig == 0) lse[qr] = l > 0.f ? m + logf(l) : -INFINITY;
+  }
+}
+
+}  // namespace wg
+
 // ------------------------------------------------------------- f32 (FMA) --
 
 // Grid (row tiles of 32, h_kv, b), 128 threads. Per 64-position tile:
@@ -655,6 +946,34 @@ int launch_mma_dp(const void* q, const void* k, const void* v, const void* lens,
   }
 }
 
+template <int DP, int WGS>
+int launch_sm90(const void* q, const void* k, const void* v, const void* lens, float* out,
+                float* lse, const Geo& G, float scale, float soft_cap, cudaStream_t st) {
+  using L = wg::Layout<DP, WGS>;
+  // the cache as [b * h_kv * s_len, d] rows, boxes of [64 rows][64 columns]
+  const long long dims[2] = {G.d, std::max(1LL, static_cast<long long>(G.b) * G.h_kv * G.s_len)};
+  const long long box[2] = {wg::BOX, wg::BOX};
+  CUtensorMap mk, mv;
+  cudaError_t err = wg::make_map(&mk, k, dims, 2LL * G.d, box);
+  if (err == cudaSuccess) err = wg::make_map(&mv, v, dims, 2LL * G.d, box);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = wg::verify_sm90_kernel<DP, WGS>;
+  if (int rc = set_smem(kernel, L::SMEM)) return rc;
+  const dim3 grid(cdiv(G.S * G.g, L::BM), G.h_kv, G.b);
+  kernel<<<grid, L::THREADS, L::SMEM, st>>>(mk, mv, static_cast<const bf16*>(q),
+                                             static_cast<const int*>(lens), out, lse, G, scale,
+                                             soft_cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_sm90_rows(const void* q, const void* k, const void* v, const void* lens, float* o,
+                     float* l, const Geo& G, float scale, float soft_cap, cudaStream_t st) {
+  // two consumer warpgroups where a (sequence, kv head) has more than 64 rows
+  return G.S * G.g > 64 ? launch_sm90<DP, 2>(q, k, v, lens, o, l, G, scale, soft_cap, st)
+                        : launch_sm90<DP, 1>(q, k, v, lens, o, l, G, scale, soft_cap, st);
+}
+
 template <bool PAGED>
 int launch_fma(const void* q, const void* k, const void* v, const void* lens,
                const void* table, float* out, float* lse, const Geo& G, float scale,
@@ -714,6 +1033,29 @@ extern "C" int tdt_flash_verify(const void* q, const void* k, const void* v,
   const Geo G{b, S, hq, h_kv, 1, d, s_len, 1, 1};
   return launch<false>(q, k, v, kv_lens, nullptr, k_scale, v_scale, out, lse, dtype, G, scale,
                        soft_cap, stream);
+}
+
+// K13 over a bf16 contiguous cache on the wgmma + TMA engine
+// (verify_sm90_kernel): d a multiple of 8 up to 256, q, k and v 16-byte
+// aligned (the host routes other operands to tdt_flash_verify).
+extern "C" int tdt_flash_verify_sm90(const void* q, const void* k, const void* v,
+                                     const void* kv_lens, void* out, void* lse, int b, int S,
+                                     int hq, int h_kv, int d, int s_len, float scale,
+                                     float soft_cap, void* stream) {
+  Geo G{b, S, hq, h_kv, 1, d, s_len, 1, 1};
+  const bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  if (h_kv <= 0 || hq % h_kv != 0 || d < 8 || d % 8 != 0 || d > 256 || b < 1 || S < 1 ||
+      s_len < 0 || !aligned || static_cast<long long>(b) * h_kv * s_len >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  G.g = hq / h_kv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float *o = static_cast<float*>(out), *l = static_cast<float*>(lse);
+  switch (pow2_at_least(d, 64)) {
+    case 64: return launch_sm90_rows<64>(q, k, v, kv_lens, o, l, G, scale, soft_cap, st);
+    case 128: return launch_sm90_rows<128>(q, k, v, kv_lens, o, l, G, scale, soft_cap, st);
+    default: return launch_sm90_rows<256>(q, k, v, kv_lens, o, l, G, scale, soft_cap, st);
+  }
 }
 
 extern "C" int tdt_paged_flash_verify(const void* q, const void* k, const void* v,

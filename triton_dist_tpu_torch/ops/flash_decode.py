@@ -8,9 +8,10 @@ h_kv, page, d]`` with ``block_table [b, max_pages]`` int32, valid prefix
 ``return_lse``, ``lse f32 [b, hq]``.
 
 :func:`flash_decode` and :func:`paged_flash_decode` launch
-``csrc/flash_decode.cu`` (split-KV; a bf16 page pool in one launch, see
-its source note) for tensors on the card and run their plain twins :func:`_xla_decode` and
-:func:`_xla_paged_decode` for tensors on the CPU. The SP entries
+``csrc/flash_decode.cu`` (a bf16 cache in one launch, other caches
+split-KV, see its source note) for tensors on the card and run their plain
+twins :func:`_xla_decode` and :func:`_xla_paged_decode` for tensors on the
+CPU. The SP entries
 (``*_distributed``) run the local partial decode on a rank's sequence
 shard, then gather every rank's ``(out, lse)`` payload with the full-mesh
 push allgather (K5, ``ops/allgather.py``) and merge them
@@ -20,7 +21,8 @@ The verify family scores S query positions of each sequence in one pass
 over the cache: q ``[b, S, hq, d]``, per-row prefix lengths ``kv_lens [b,
 S]``, results ``out f32 [b, S, hq, d]`` and ``lse f32 [b, S, hq]``.
 :func:`flash_verify` and :func:`paged_flash_verify` launch
-``csrc/flash_verify.cu`` (K13, K14) on the card and run
+``csrc/flash_verify.cu`` (K13, over a bf16 cache on a wgmma + TMA kernel;
+K14) on the card and run
 :func:`_xla_verify` / :func:`_xla_paged_verify` on the CPU. The ranged
 prefill entries derive each row's prefix in the rank's shard from the
 range's first position (:func:`_ranged_local_lens`), so composing
@@ -75,9 +77,11 @@ _PROTOTYPES = {
     "tdt_flash_decode": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
     "tdt_paged_flash_decode": [_P] * 11 + [_I] * 10 + [_F, _F, _P],
     "tdt_paged_flash_decode_onepass": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
+    "tdt_flash_decode_onepass": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
 }
 _VERIFY_PROTOTYPES = {
     "tdt_flash_verify": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    "tdt_flash_verify_sm90": [_P] * 6 + [_I] * 6 + [_F, _F, _P],
     "tdt_paged_flash_verify": [_P] * 9 + [_I] * 8 + [_F, _F, _P],
 }
 
@@ -292,19 +296,34 @@ def _split_plan(device: torch.device, blocks: int, s_len: int) -> tuple[int, int
     return cdiv(s_len, chunk), chunk
 
 
-def _decode_engine(dtype: torch.dtype, d: int, page: int, g: int, aligned: bool) -> str:
-    """Which kernel runs K3 (the paged decode over a float pool):
-    ``"onepass"`` (the one-launch kernel, ``paged_onepass_kernel``) for a
-    bf16 pool with d a multiple of 8 and at most 256, a page that divides
-    the 64-position tile, g <= 16 and 16-byte aligned pools; ``"split"``
-    (the split kernel and its merge) otherwise."""
-    ok = (dtype == torch.bfloat16 and d % 8 == 0 and d <= _MAX_D and page >= 1
-          and _TILE % page == 0 and g <= _MAX_G and aligned)
+def _decode_engine(dtype: torch.dtype, d: int, page: int | None, g: int,
+                   aligned: bool) -> str:
+    """Which kernel runs K2 (``page=None``: a contiguous cache) or K3 (a
+    page pool of `page` positions a page) over a float cache:
+    ``"onepass"`` (the one-launch kernel, ``onepass_kernel``) for a bf16
+    cache with d a multiple of 8 and at most 256, g <= 16, 16-byte aligned
+    q, k and v, and (paged) a page that divides the 64-position tile;
+    ``"split"`` (the split kernel and its merge) otherwise."""
+    ok = (dtype == torch.bfloat16 and d % 8 == 0 and d <= _MAX_D and g <= _MAX_G and aligned
+          and (page is None or (page >= 1 and _TILE % page == 0)))
     return "onepass" if ok else "split"
 
 
+def _verify_engine(dtype: torch.dtype, d: int, paged: bool, aligned: bool) -> str:
+    """Which kernel runs the multi-position verify: ``"wgmma"`` (K13's
+    wgmma + TMA kernel, ``verify_sm90_kernel``) for a bf16 contiguous cache
+    with d a multiple of 8 and at most 256 and 16-byte aligned q, k and v;
+    ``"mma"`` (``verify_mma_kernel``) for every other bf16 cache, a page
+    pool (K14) and a one-byte cache (K40); ``"fma"`` for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    ok = (dtype == torch.bfloat16 and not paged and d % 8 == 0 and d <= _MAX_D and aligned)
+    return "wgmma" if ok else "mma"
+
+
 def _onepass_plan(b: int, h_kv: int, page: int, max_pages: int, sms: int) -> tuple[int, int]:
-    """(span_pages, splits) of the one-launch paged decode: spans of
+    """(span_pages, splits) of the one-launch decode (a contiguous cache
+    is `max_pages` = ceil(s / 64) "pages" of one 64-position tile): spans of
     `span_pages` pages (a multiple of the tile's 64 / page) so that full-
     length sequences give about eight blocks per SM (a block's chain of
     latencies is short: lengths, page ids, copies, one or two tiles, the
@@ -316,14 +335,17 @@ def _onepass_plan(b: int, h_kv: int, page: int, max_pages: int, sms: int) -> tup
     return span_pages, cdiv(max_pages, span_pages)
 
 
-def _onepass_rows(kv_lens, page: int, max_pages: int, span_pages: int) -> list:
+def _onepass_rows(kv_lens, page: int, max_pages: int, span_pages: int,
+                  s_len: int | None = None) -> list:
     """The ``(sequence, span, first position, end position)`` rows the
     one-launch kernel computes for these lengths (one block each a kv
     head), in the kernel's own arithmetic: each sequence's valid pages cut
-    into spans of `span_pages`; a sequence with no cache has none."""
+    into spans of `span_pages`; a sequence with no cache has none. A
+    contiguous cache of `s_len` positions is ``page = 64`` and
+    ``max_pages = ceil(s_len / 64)``, its lengths clamped to `s_len`."""
     rows = []
     for bi, n in enumerate(kv_lens):
-        n = max(0, min(int(n), page * max_pages))
+        n = max(0, min(int(n), page * max_pages if s_len is None else s_len))
         n_pages = cdiv(n, page)
         for span in range(cdiv(n_pages, span_pages)):
             pg0 = span * span_pages
@@ -376,10 +398,15 @@ def _scale_ptrs(scales):
 
 
 def _launch_onepass(q, k, v, kv_lens, block_table, soft_cap):
-    """K3's one-launch kernel (see :func:`_decode_engine`); returns (out, lse)."""
+    """K2's (`block_table` None) or K3's one-launch kernel (see
+    :func:`_decode_engine`); returns (out, lse)."""
     b, hq, d = q.shape
-    h_kv, page = k.shape[1], k.shape[2]
-    max_pages = block_table.shape[1]
+    h_kv = k.shape[1]
+    if block_table is None:  # 64-position tiles as the "pages"
+        s_len = k.shape[2]
+        page, max_pages = _TILE, cdiv(s_len, _TILE)
+    else:
+        page, max_pages = k.shape[2], block_table.shape[1]
     span_pages, splits = _onepass_plan(b, h_kv, page, max_pages, sm_count(q.get_device()))
     f32 = dict(dtype=torch.float32, device=q.device)
     out_part = torch.empty((b * splits * hq, d), **f32)   # [b * h_kv, splits, g] rows
@@ -390,31 +417,38 @@ def _launch_onepass(q, k, v, kv_lens, block_table, soft_cap):
     # a graph replays the memset with the launch)
     arrivals = torch.zeros((b * h_kv,), dtype=torch.int32, device=q.device)
     lib = _build.library("flash_decode", _PROTOTYPES)
-    rc = lib.tdt_paged_flash_decode_onepass(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), block_table.data_ptr(),
-        out_part.data_ptr(), lse_part.data_ptr(),
-        arrivals.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, hq, h_kv, d, page, max_pages, span_pages, splits, 1.0 / math.sqrt(d),
-        float(soft_cap), _build.stream_of(q),
-    )
-    _build.check(lib, rc, "paged_flash_decode (one launch)")
+    ptrs = (out_part.data_ptr(), lse_part.data_ptr(), arrivals.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    tail = (1.0 / math.sqrt(d), float(soft_cap), _build.stream_of(q))
+    if block_table is None:
+        rc = lib.tdt_flash_decode_onepass(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), *ptrs,
+            b, hq, h_kv, d, s_len, span_pages, splits, *tail,
+        )
+        _build.check(lib, rc, "flash_decode (one launch)")
+    else:
+        rc = lib.tdt_paged_flash_decode_onepass(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), block_table.data_ptr(),
+            *ptrs, b, hq, h_kv, d, page, max_pages, span_pages, splits, *tail,
+        )
+        _build.check(lib, rc, "paged_flash_decode (one launch)")
     return out, lse
 
 
 def _launch_decode(q, k, v, kv_lens, block_table, soft_cap, scales=None, engine=None):
     """Launch the decode (K2/K3, or K38/K39 with `scales`); returns (out,
-    lse, engine). A paged float pool runs the engine :func:`_decode_engine`
+    lse, engine). A float cache runs the engine :func:`_decode_engine`
     picks by dtype, shape and alignment (`engine` forces ``"split"``, the
     chip script's A/B): ``"onepass"``, one launch; ``"split"``, the
-    split-KV kernel and its merge, as every contiguous and one-byte cache
-    does."""
+    split-KV kernel and its merge, as every one-byte cache does."""
     b, hq, d = q.shape
     h_kv = k.shape[1]
     q = q.to(_compute_dtype(k)).contiguous()
     _check_operands(q, k, v, kv_lens, block_table, scales=scales)
-    if block_table is not None and scales is None and engine is None:
+    if scales is None and engine is None:
         aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-        engine = _decode_engine(k.dtype, d, k.shape[2], hq // h_kv, aligned)
+        page = None if block_table is None else k.shape[2]
+        engine = _decode_engine(k.dtype, d, page, hq // h_kv, aligned)
         if engine == "onepass":
             return (*_launch_onepass(q, k, v, kv_lens, block_table, soft_cap), engine)
     if block_table is None:
@@ -459,19 +493,31 @@ def flash_decode(
     *,
     config: FlashDecodeConfig | None = None,
     return_lse: bool = False,
+    _engine: str | None = None,
 ):
     """Single-device GQA batch decode over a contiguous cache (K2).
     q ``[b, hq, d]``; k, v ``[b, h_kv, s, d]``; kv_lens ``[b]`` int32.
-    Returns f32 ``out [b, hq, d]`` (and ``lse [b, hq]`` if `return_lse`)."""
+    Returns f32 ``out [b, hq, d]`` (and ``lse [b, hq]`` if `return_lse`).
+
+    The engine :func:`_decode_engine` picks by dtype, shape and alignment
+    runs it: a bf16 cache the one-launch kernel (counted on
+    ``onepass_launches`` as well as ``launches``), an f32 one the split-KV
+    kernel and its merge. ``_engine="split"`` forces the split kernel (the
+    chip script's A/B; never the main path)."""
+    if _engine not in (None, "split"):
+        raise ValueError(f"flash_decode: _engine is None or 'split', not {_engine!r}")
     soft_cap = (config or FlashDecodeConfig()).soft_cap
     if q.device.type == "cpu":
         return _xla_decode(q, k, v, kv_lens, return_lse=return_lse, soft_cap=soft_cap)
-    out, lse, _ = _launch_decode(q, k, v, kv_lens, None, soft_cap)
+    out, lse, engine = _launch_decode(q, k, v, kv_lens, None, soft_cap, engine=_engine)
     count_launch(flash_decode)
+    if engine == "onepass":
+        count_launch(flash_decode, "onepass_launches")
     return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0
+flash_decode.onepass_launches = 0  # K2 on the one-launch kernel
 
 
 def _refuse_xla_native(cfg: FlashDecodeConfig, what: str) -> None:
@@ -789,9 +835,10 @@ def _plain_verify_quant(q, k, v, k_scale, v_scale, kv_lens, *, return_lse, soft_
 _plain_verify_quant.calls = 0
 
 
-def _launch_verify(q, k, v, kv_lens, block_table, soft_cap, scales=None):
+def _launch_verify(q, k, v, kv_lens, block_table, soft_cap, scales=None, engine=None):
     """Launch K13 (contiguous), K14 (paged) or, with `scales`, K40; returns
-    (out, lse)."""
+    (out, lse, engine): the engine :func:`_verify_engine` picks, or
+    ``engine="mma"`` (the chip script's A/B) for the mma.sync kernel."""
     b, S, hq, d = q.shape
     h_kv = k.shape[1]
     q = q.to(_compute_dtype(k)).contiguous()
@@ -806,7 +853,14 @@ def _launch_verify(q, k, v, kv_lens, block_table, soft_cap, scales=None):
               b, S, hq, h_kv, d)
     tail = (1.0 / math.sqrt(d), float(soft_cap), _build.stream_of(q))
     lib = _build.library("flash_verify", _VERIFY_PROTOTYPES)
-    if block_table is None:
+    if engine is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+        engine = _verify_engine(k.dtype, d, block_table is not None, aligned)
+    if engine == "wgmma":
+        rc = lib.tdt_flash_verify_sm90(*head, out.data_ptr(), lse.data_ptr(), b, S, hq, h_kv, d,
+                                       k.shape[2], *tail)
+        _build.check(lib, rc, "flash_verify (wgmma)")
+    elif block_table is None:
         rc = lib.tdt_flash_verify(*head, *common, k.shape[2], *tail)
         _build.check(lib, rc, "flash_verify")
     else:
@@ -815,7 +869,7 @@ def _launch_verify(q, k, v, kv_lens, block_table, soft_cap, scales=None):
             *tail,
         )
         _build.check(lib, rc, "paged_flash_verify")
-    return out, lse
+    return out, lse, engine
 
 
 def flash_verify(
@@ -827,6 +881,7 @@ def flash_verify(
     config: FlashDecodeConfig | None = None,
     return_lse: bool = False,
     scales=None,
+    _engine: str | None = None,
 ):
     """Multi-position GQA decode over a contiguous cache (K13, ≙
     ``flash_verify``, ``:662``): q ``[b, S, hq, d]`` (the S positions' own
@@ -837,7 +892,15 @@ def flash_verify(
     ``scales=(k_scale, v_scale)`` (f32 ``[b, h_kv, 1, s]``) reads an int8 or
     fp8 cache through K40, as the reference's ``_flash_verify_fused(scales=)``
     (``:703``) does; q rides bf16. Those launches count on
-    ``quant_launches``."""
+    ``quant_launches``.
+
+    The engine :func:`_verify_engine` picks by dtype, shape and alignment
+    runs it: a bf16 cache the wgmma + TMA kernel (counted on
+    ``wgmma_launches`` as well as ``launches``), else the mma.sync or f32
+    kernel. ``_engine="mma"`` forces the mma.sync kernel (the chip script's
+    A/B; never the main path)."""
+    if _engine not in (None, "mma"):
+        raise ValueError(f"flash_verify: _engine is None or 'mma', not {_engine!r}")
     cfg = config or FlashDecodeConfig()
     if scales is not None:
         _refuse_xla_native(cfg, "int8/fp8")
@@ -847,13 +910,17 @@ def flash_verify(
             return _plain_verify_quant(q, k, v, *scales, kv_lens, return_lse=return_lse,
                                        soft_cap=cfg.soft_cap)
         return _xla_verify(q, k, v, kv_lens, return_lse=return_lse, soft_cap=cfg.soft_cap)
-    out, lse = _launch_verify(q, k, v, kv_lens, None, cfg.soft_cap, scales=scales)
+    out, lse, engine = _launch_verify(q, k, v, kv_lens, None, cfg.soft_cap, scales=scales,
+                                      engine=_engine)
     count_launch(flash_verify, "launches" if scales is None else "quant_launches")
+    if engine == "wgmma":
+        count_launch(flash_verify, "wgmma_launches")
     return (out, lse) if return_lse else out
 
 
 flash_verify.launches = 0
 flash_verify.quant_launches = 0
+flash_verify.wgmma_launches = 0  # K13 on the wgmma + TMA kernel
 
 
 def flash_verify_fp8(q, k_q, v_q, k_scale, v_scale, kv_lens, *, config=None,
@@ -887,7 +954,7 @@ def paged_flash_verify(
             q, k_pages, v_pages, kv_lens, block_table,
             return_lse=return_lse, soft_cap=soft_cap,
         )
-    out, lse = _launch_verify(q, k_pages, v_pages, kv_lens, block_table, soft_cap)
+    out, lse, _ = _launch_verify(q, k_pages, v_pages, kv_lens, block_table, soft_cap)
     count_launch(paged_flash_verify)
     return (out, lse) if return_lse else out
 
