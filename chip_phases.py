@@ -24,7 +24,10 @@ A, B, B, A, compare two versions on one card. Phases:
 ``serve_chunked_contiguous`` (chunked prefill over it: K13 and K2),
 ``serve_tp4``, ``layers_ring``, ``f32_parity_tp4``, ``train``
 (``train_adam``, ``train_moe_ep4``, ``train_moe_ep_hier``),
-``usp_attention``, ``kv_stream``, ``f32_parity_ep``, ``f32_parity_train``.
+``usp_attention``, ``kv_stream``, ``f32_parity_ep``, ``f32_parity_train``,
+``ring_attention`` (K35 at world 4 and 1, the wgmma + TMA engine beside the
+mma.sync one), ``ag_gemm`` (K6 at world 4, the wgmma + TMA engine beside
+the mma.sync one), ``train_sp`` (the sequence-parallel train steps, K35).
 """
 
 from __future__ import annotations
@@ -135,6 +138,16 @@ def main(argv: list[str]) -> int:
         with cs.expandable_segments():
             cs.phase_f32_parity_train()
 
+    def at_world(phase):
+        """A kernel phase that takes a world-4 context on the one card."""
+        from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+        ctx = initialize_distributed(cs.WORLD)
+        try:
+            cs.emit({"kernels": [phase(ctx)]})
+        finally:
+            ctx.close()
+
     phases = {
         "gemm": lambda c: cs.emit({"kernels": [cs.phase_gemm()]}),
         "gemm_small_m": lambda c: gemm_small_m(cs),
@@ -153,6 +166,9 @@ def main(argv: list[str]) -> int:
         "kv_stream": lambda c: cs.emit({"kernels": cs.phase_kv_stream()}),
         "f32_parity_ep": lambda c: cs.phase_f32_parity_ep(),
         "f32_parity_train": lambda c: f32_parity_train(),
+        "ring_attention": lambda c: at_world(cs.phase_ring_attention),
+        "ag_gemm": lambda c: at_world(cs.phase_ag_gemm),
+        "train_sp": lambda c: cs.phase_train_sp(c),
     }
     unknown = [p for p in argv if p not in phases]
     if not argv or unknown:

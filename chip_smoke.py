@@ -23,14 +23,16 @@ Phases, each printed as a JSON line, each fatal on failure:
    the card identical to the plain path (the wrappers' CPU twins);
 7. world 4, every rank on the one card (the rank runtime of
    ``parallel/mesh.py``): the barrier K4 (1000 back to back under per-rank
-   skew), the full-mesh allgather K5 (bit-exact), AG-GEMM K6 and GEMM-RS K7
-   at the per-rank shapes of a 4-way Llama-3.1-70B, each against its plain
-   version and timed beside its bound; a stuck wait that must raise with
-   its record instead of hanging;
+   skew), the full-mesh allgather K5 (bit-exact), AG-GEMM K6 (its wgmma +
+   TMA engine beside the mma.sync one) and GEMM-RS K7 at the per-rank
+   shapes of a 4-way Llama-3.1-70B, each against its plain version and
+   timed beside its bound; a stuck wait that must raise with its record
+   instead of hanging;
 8. ``serve_tp4``: ``ServingEngine`` at world 4 serving a Llama-3.1-70B-wide
    model cut to 8 of its 80 layers (bf16, random seeded weights), paged
    cache, bulk prefill, 8 requests — with the launch counts that show K1,
-   K3-K7 carried it (plain versions: 0) — and its prefill logits against
+   K3-K7 carried it (plain versions: 0; every K6 on its wgmma engine) —
+   and its prefill logits against
    the world-1 plain-GEMM forward on the same weights;
 9. parity at world 4: f32, 2 layers at full 70B width, greedy tokens of the
    kernel path on the card identical to the world-4 plain path (the
@@ -176,13 +178,15 @@ Phases, each printed as a JSON line, each fatal on failure:
    real routing's ragged map (bit-equal to K11 on zeroed dead rows, NaN in
    G's dead rows changes nothing, timed beside K11); at world 4, ring
    attention K35 at Llama-3.1-8B attention widths, S 16384 (causal
-   contiguous, causal zigzag, non-causal; and one world-1 call), each
-   against its plain version and the SDPA golden; ``stuck_wait_ring_attention``
+   contiguous, causal zigzag, non-causal; and one world-1 call), its
+   wgmma + TMA engine beside the mma.sync one, each against its plain
+   version and the SDPA golden; ``stuck_wait_ring_attention``
    (a late rank: fixed records); ``train_moe_ragged``: ``train_moe``'s
    configuration under ``GroupGemmConfig(ragged=True)`` beside the padded
    run (K29, K34; no K8, no K11), then one world-4 step (K30, K31);
    ``train_sp``: ``SPTransformer`` at Llama-3.1-8B widths, 2 layers, world
-   4, S 8192, contiguous and zigzag (K35); ``f32_parity_sp`` (SP logits,
+   4, S 8192, contiguous and zigzag (K35, every launch on its wgmma
+   engine); ``f32_parity_sp`` (SP logits,
    loss, gradients and parameters against the plain path differentiated by
    PyTorch) and the ragged cases of ``f32_parity_train``.
 
@@ -399,6 +403,9 @@ class Counters:
             # the ragged-row form of K11 (K34) counts apart; ring attention (K35)
             "group_gemm_dw_ragged": (gg.group_gemm_dw, "ragged_launches"),
             "ring_attention": ra.ring_attention,
+            # K35 and K6 on their wgmma + TMA engines
+            "ring_attention_wgmma": (ra.ring_attention, "wgmma_launches"),
+            "ag_gemm_wgmma": (allgather_gemm.ag_gemm, "wgmma_launches"),
             # the 2-D rings over an axis pair (K36, K37)
             "all_gather_2d": allgather._all_gather_ring_2d,
             "ag_gemm_2d": allgather_gemm._ag_gemm_ring_2d,
@@ -981,6 +988,25 @@ def dist_ms(ctx, fn, iters: int, warmup: int = 2) -> float:
     return max(t0.elapsed_time(t1) for t0, t1 in spans) / iters
 
 
+def dist_kernel_ms(ctx, fn, match: str, iters: int = 3) -> float:
+    """Device time of one rank's kernels whose name holds `match`, a call
+    of `fn` on every rank at once: torch.profiler over `iters` calls, the
+    matching kernels' device time summed and divided by the calls and the
+    ranks (the ranks run at once, so this is a rank's kernel time a call,
+    without the host's rendezvous that ``dist_ms`` counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx.run(fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ctx.run(lambda: [fn() for _ in range(iters)])
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and match in e.key)
+    return us / 1e3 / iters / ctx.world
+
+
 def host_ms(ctx, fn, iters: int) -> float:
     """Host time of one call of `fn` on every rank (for the plain barrier,
     which is a host rendezvous)."""
@@ -1065,32 +1091,57 @@ def _check_bf16(name, got, ref, factor=1.0):
 def phase_ag_gemm(ctx) -> dict:
     """K6 at the per-rank shapes of a 4-way Llama-3.1-70B prefill (8
     sequences x 256 tokens = 2048 rows, 512 a rank): the column
-    projections wqkv (n_loc 2560), gate/up (14336) and the LM head (32064)."""
+    projections wqkv (n_loc 2560), gate/up (14336) and the LM head (32064),
+    on the routed wgmma + TMA engine (``ms``) and, forced, the mma.sync
+    consumer it replaces (``prev_ms``), each within one bf16 ulp of the
+    plain product and its gathered rows equal to torch.cat; ``kernel_ms``
+    / ``prev_kernel_ms`` are the consumer kernels' own device time a rank
+    and call (torch.profiler), without the entry barrier, the puts and the
+    host rendezvous that ``ms`` holds."""
     import torch
-    from triton_dist_tpu_torch.ops import allgather_gemm, gemm
+    from triton_dist_tpu_torch.ops import allgather_gemm, common, gemm
 
     g = torch.Generator(device="cuda").manual_seed(12)
     m_loc, k = 512, 8192
-    rows, worst, total = [], 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
-                                       bytes=0.0)
+    rows, worst, total = [], 0.0, dict(ms=0.0, prev_ms=0.0, kernel_ms=0.0, prev_kernel_ms=0.0,
+                                       plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    blocks = ctx.run(lambda: common.max_consumer_blocks(ctx))[0]
     for name, n_loc in (("wqkv", 2560), ("gate_up", 14336), ("lm_head", 32064)):
         a = [torch.randn((m_loc, k), generator=g, device="cuda").bfloat16()
              for _ in range(WORLD)]
         b = [(torch.randn((k, n_loc), generator=g, device="cuda") / k**0.5).bfloat16()
              for _ in range(WORLD)]
         a_full = torch.cat(a)
-        outs = ctx.run(lambda: allgather_gemm.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx))
-        errs = [_check_bf16(f"ag_gemm {name} rank {r}", out,
-                            gemm._matmul_plain(a_full, b[r], torch.bfloat16))
-                for r, out in enumerate(outs)]
-        err, tol = max(errs)
+        errs = {}
+        for engine in ("wgmma", "mma_sync"):
+            outs = ctx.run(lambda engine=engine: allgather_gemm.ag_gemm(
+                a[ctx.rank], b[ctx.rank], ctx=ctx, gather_output=True, _engine=engine))
+            for r, (_, ag) in enumerate(outs):
+                if not torch.equal(ag, a_full):
+                    raise AssertionError(f"ag_gemm {name} ({engine}) rank {r}: gathered rows "
+                                         f"differ from torch.cat")
+            errs[engine] = max(_check_bf16(f"ag_gemm {name} ({engine}) rank {r}", out,
+                                           gemm._matmul_plain(a_full, b[r], torch.bfloat16))
+                               for r, (out, _) in enumerate(outs))
+            del outs
+        (err, tol), prev_err = errs["wgmma"], errs["mma_sync"][0]
         worst = max(worst, err)
         flops = WORLD * 2.0 * WORLD * m_loc * k * n_loc
         nbytes = 2.0 * (WORLD * m_loc * k + WORLD * k * n_loc + WORLD * WORLD * m_loc * n_loc)
         row = dict(
-            shape=[m_loc, k, n_loc], max_abs_err=err, tol=tol,
+            shape=[m_loc, k, n_loc], max_abs_err=err, prev_max_abs_err=prev_err, tol=tol,
+            config=allgather_gemm.ag_gemm_plan(m_loc, n_loc, k, WORLD, torch.bfloat16,
+                                               blocks=blocks).config,
             ms=dist_ms(ctx, lambda: allgather_gemm.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx),
                        iters=5),
+            prev_ms=dist_ms(ctx, lambda: allgather_gemm.ag_gemm(a[ctx.rank], b[ctx.rank],
+                                                                ctx=ctx, _engine="mma_sync"),
+                            iters=5),
+            # the consumer kernel alone (torch.profiler), each engine
+            kernel_ms=dist_kernel_ms(ctx, lambda: allgather_gemm.ag_gemm(
+                a[ctx.rank], b[ctx.rank], ctx=ctx), "ag_gemm_sm90_kernel"),
+            prev_kernel_ms=dist_kernel_ms(ctx, lambda: allgather_gemm.ag_gemm(
+                a[ctx.rank], b[ctx.rank], ctx=ctx, _engine="mma_sync"), "ag_gemm_kernel"),
             plain_ms=dist_ms(ctx, lambda: gemm._matmul_plain(torch.cat(a), b[ctx.rank],
                                                              torch.bfloat16), iters=2),
             library_ms=cuda_ms(lambda: [torch.matmul(torch.cat(a), b[r]) for r in range(WORLD)],
@@ -1099,18 +1150,22 @@ def phase_ag_gemm(ctx) -> dict:
         )
         row["tflops"] = flops / row["ms"] / 1e9
         rows.append({name: row})
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "prev_ms", "kernel_ms", "prev_kernel_ms", "plain_ms", "library_ms"):
             total[key] += row[key]
         total["flops"] += flops
         total["bytes"] += nbytes
-        del a, b, a_full, outs
-    emit({"phase": "kernel", "kernel": "ag_gemm", "world": WORLD, "per_shape": rows})
+        del a, b, a_full
+    emit({"phase": "kernel", "kernel": "ag_gemm", "world": WORLD, "per_shape": rows,
+          "prev_engine": "mma.sync (ag_gemm_kernel<Bf16Engine>)",
+          "sums": {k_: total[k_] for k_ in ("ms", "prev_ms", "kernel_ms", "prev_kernel_ms",
+                                            "library_ms")}})
     b_ms, by = bound(total["flops"], total["bytes"])
     return dict(
         name="ag_gemm", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
         replaces="triton_dist_tpu/ops/allgather_gemm.py:69", max_abs_err=worst,
         ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
-        library_ms=total["library_ms"],
+        library_ms=total["library_ms"], prev_ms=total["prev_ms"],
+        engine="wgmma + TMA (gemm_sm90.cuh's mainloop, ag_gemm_sm90_kernel)",
         shapes=f"world {WORLD}: a [512, 8192] a rank; n_loc 2560, 14336, 32064 (summed)",
     )
 
@@ -1239,9 +1294,13 @@ def phase_serve_tp4(counters: Counters) -> dict:
         if len(res.tokens) != max_new or not all(0 <= t < cfg.vocab for t in res.tokens):
             raise AssertionError(f"{uid}: bad tokens {res.tokens}")
     launches, plain = counts["launches"], counts["plain_calls"]
-    used = ("gemm", "ag_gemm", "gemm_rs", "all_gather", "paged_flash_decode", "barrier")
+    used = ("gemm", "ag_gemm", "gemm_rs", "all_gather", "paged_flash_decode", "barrier",
+            "ag_gemm_wgmma")
     if any(launches[k] <= 0 for k in used):
         raise AssertionError(f"serve_tp4 skipped a kernel: {launches}")
+    # every column projection (k 8192, n_loc a multiple of 8) on K6's wgmma engine
+    if launches["ag_gemm_wgmma"] != launches["ag_gemm"]:
+        raise AssertionError(f"serve_tp4: K6 off its wgmma engine: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card path: {plain}")
     n_tok = sum(len(r.tokens) for r in done.values())
@@ -5877,14 +5936,16 @@ def phase_ring_attention(ctx) -> dict:
     """K35 at world 4 on the one card with Llama-3.1-8B attention widths
     (32 heads after the GQA repeat, head_dim 128), b 1, S 16384 (s_loc
     4096), bf16, in three cells: causal contiguous, causal zigzag (the
-    shards of the permuted sequence) and non-causal. Each cell is held to
-    the plain version on every rank and to F.scaled_dot_product_attention
-    over the gathered sequence (the golden, timed as library_ms: the port
-    never calls it), with its ms (CUDA events on the ranks' streams) and
-    bound (operations: 4 b h s_loc S d a rank, half under the causal mask,
-    summed over the ranks at one card's bf16 peak). Then one world-1 call
-    (S 4096, causal). The entry's columns are the causal contiguous cell's;
-    every cell is under ``cells``."""
+    shards of the permuted sequence) and non-causal. Each cell runs the
+    routed engine (wgmma + TMA) and, forced, the mma.sync engine it
+    replaces; each is held to the plain version on every rank and to
+    F.scaled_dot_product_attention over the gathered sequence (the golden,
+    timed as library_ms: the port never calls it), with its ms (CUDA
+    events on the ranks' streams: ``ms`` the wgmma engine, ``prev_ms`` the
+    mma.sync one) and bound (operations: 4 b h s_loc S d a rank, half under the causal
+    mask, summed over the ranks at one card's bf16 peak). Then one world-1
+    call (S 4096, causal), both engines. The entry's columns are the causal
+    contiguous cell's; every cell is under ``cells``."""
     import torch
     import torch.nn.functional as F
     from triton_dist_tpu_torch.ops import ring_attention as ra
@@ -5903,9 +5964,9 @@ def phase_ring_attention(ctx) -> dict:
         shards = [[x[:, :, perm[r * s_loc:(r + 1) * s_loc]].contiguous() for x in (q, k, v)]
                   for r in range(n)]
 
-        def call(causal=causal, layout=layout, shards=shards):
+        def call(causal=causal, layout=layout, shards=shards, engine=None):
             return ra.ring_attention(*shards[ctx.rank], ctx=ctx, causal=causal, layout=layout,
-                                     return_lse=True)
+                                     return_lse=True, _engine=engine)
 
         def plain(causal=causal, layout=layout, shards=shards):
             q3, k3, v3 = (x.reshape(h, s_loc, d) for x in shards[ctx.rank])
@@ -5916,32 +5977,44 @@ def phase_ring_attention(ctx) -> dict:
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
         golden = library()[:, :, perm]
-        got, want = ctx.run(call), ctx.run(plain)
-        errs = [_check_attention(f"ring_attention {name} rank {r}", o, lse, p, p_lse,
-                                 golden[:, :, r * s_loc:(r + 1) * s_loc])
-                for r, ((o, lse), (p, p_lse)) in enumerate(zip(got, want))]
-        del got, want, golden
+        want = ctx.run(plain)
+        errs = {}
+        for engine in ("wgmma", "mma"):
+            got = ctx.run(lambda engine=engine: call(engine=engine))
+            errs[engine] = [_check_attention(f"ring_attention {name} ({engine}) rank {r}", o, lse,
+                                             p, p_lse, golden[:, :, r * s_loc:(r + 1) * s_loc])
+                            for r, ((o, lse), (p, p_lse)) in enumerate(zip(got, want))]
+            del got
+        del want, golden
         flops = 4.0 * h * s_loc * S * d * n * (0.5 if causal else 1.0)
         nbytes = 2.0 * 4 * h * S * d + 4.0 * h * S
         b_ms, by = bound(flops, nbytes)
         cells[name] = dict(
-            max_abs_err=max(e["max_abs_err"] for e in errs),
-            lse_err=max(e["lse_err"] for e in errs),
-            max_abs_err_sdpa=max(e["max_abs_err_sdpa"] for e in errs),
-            ms=dist_ms(ctx, call, iters=3), plain_ms=dist_ms(ctx, plain, iters=1, warmup=1),
+            max_abs_err=max(e["max_abs_err"] for e in errs["wgmma"]),
+            lse_err=max(e["lse_err"] for e in errs["wgmma"]),
+            max_abs_err_sdpa=max(e["max_abs_err_sdpa"] for e in errs["wgmma"]),
+            prev_max_abs_err=max(e["max_abs_err"] for e in errs["mma"]),
+            ms=dist_ms(ctx, call, iters=3),
+            prev_ms=dist_ms(ctx, lambda: call(engine="mma"), iters=3),
+            plain_ms=dist_ms(ctx, plain, iters=1, warmup=1),
             library_ms=cuda_ms(library, iters=5), bound_ms=b_ms, bound_by=by)
         emit({"phase": "kernel", "kernel": "ring_attention", "cell": name, "world": n,
               **cells[name]})
         del shards
     q1, k1, v1 = (x[:, :, :s_loc].contiguous() for x in (q, k, v))
-    got, lse = ra.ring_attention(q1, k1, v1, return_lse=True)
     out, m, l_ = ra._ring_attention_plain(*(x.reshape(h, s_loc, d) for x in (q1, k1, v1)), None,
                                           True, "contig")
     golden = F.scaled_dot_product_attention(q1, k1, v1, is_causal=True)
-    one = _check_attention("ring_attention world 1", got, lse, out.reshape(got.shape),
-                           ra.lse_of(m, l_).reshape(lse.shape), golden)
+    checks = {}
+    for engine in ("wgmma", "mma"):
+        got, lse = ra.ring_attention(q1, k1, v1, return_lse=True, _engine=engine)
+        checks[engine] = _check_attention(f"ring_attention world 1 ({engine})", got, lse,
+                                          out.reshape(got.shape),
+                                          ra.lse_of(m, l_).reshape(lse.shape), golden)
+    one = dict(checks["wgmma"], prev_max_abs_err=checks["mma"]["max_abs_err"])
     b_ms, by = bound(2.0 * h * s_loc * s_loc * d, 2.0 * 4 * h * s_loc * d + 4.0 * h * s_loc)
     one.update(ms=cuda_ms(lambda: ra.ring_attention(q1, k1, v1), iters=5),
+               prev_ms=cuda_ms(lambda: ra.ring_attention(q1, k1, v1, _engine="mma"), iters=5),
                plain_ms=event_ms(lambda: ra._ring_attention_plain(
                    *(x.reshape(h, s_loc, d) for x in (q1, k1, v1)), None, True, "contig"),
                    iters=2),
@@ -5956,7 +6029,9 @@ def phase_ring_attention(ctx) -> dict:
         replaces="triton_dist_tpu/ops/ring_attention.py:145",
         max_abs_err=max(c["max_abs_err"] for c in cells.values()),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"], prev_ms=head["prev_ms"],
+        engine="wgmma + TMA, warp-specialised (ring_attention_sm90_kernel)",
+        prev_engine="mma.sync (ring_attention_kernel<Mma>)",
         library="F.scaled_dot_product_attention over the gathered sequence", cells=cells,
         shapes=f"world {n}: b 1, {h} heads, d {d}, S {S} (s_loc {s_loc}), bf16, causal "
                f"contiguous (the columns); zigzag, non-causal and world 1 under cells",
@@ -6145,7 +6220,10 @@ def phase_train_sp(counters: Counters) -> dict:
                             train_tokens_per_s=SP_S / wall, peak_mem_gb=peak, **counts)
         emit(runs[layout])
         _check_train(f"train_sp_{layout}", losses, counts["launches"], counts["plain_calls"],
-                     ("ring_attention",))
+                     ("ring_attention", "ring_attention_wgmma"))
+        # every bf16 ring attention (d 128) on K35's wgmma + TMA engine
+        if counts["launches"]["ring_attention_wgmma"] != counts["launches"]["ring_attention"]:
+            raise AssertionError(f"train_sp_{layout}: K35 off its wgmma engine: {counts}")
         for key, value in counts["launches"].items():
             launches[key] = launches.get(key, 0) + value
     ctx.close()

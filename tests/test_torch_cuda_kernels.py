@@ -5,14 +5,16 @@ one-launch kernel bit-equal across calls and under a CUDA-graph replay —,
 grouped GEMM K8, its weight gradient K11, the multi-position verify K13 —
 its wgmma + TMA engine — and its paged twin K14 — over shared pages, and
 chunk calls bit-equal to the whole-range call — and at world 2 and 4 with every rank on the one
-card: barrier K4, full-mesh allgather K5, AG-GEMM K6, GEMM-RS K7,
+card: barrier K4, full-mesh allgather K5, AG-GEMM K6 (its wgmma + TMA
+consumer and the mma.sync one, and a stuck wait on the new one), GEMM-RS K7,
 AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, the scaled
 int8 / fp8 formats of the grouped GEMM K24, of K9 (K25) and of K10 (K26),
 their ragged-row forms K29-K31 (bit-equal to the padded kernels on the
 live rows, dead rows zero, a rank whose blocks are all dead, a stuck
 wait, the EP layer), the ragged weight gradient K34 (bit-equal to K11 on
 zeroed dead rows, junk in them changes nothing), ring attention K35 at
-world 1, 2 and 4 (contiguous and zigzag, causal or not, a stuck wait),
+world 1, 2 and 4 (its wgmma + TMA engine and the mma.sync one,
+contiguous and zigzag, causal or not, a stuck wait),
 and on a ring
 context the ring AG-GEMM K15, the ring GEMM-RS K16/K17, the ring
 reduce-scatter K18 and its spans K23 (bit-equal to K18), and the ring
@@ -486,20 +488,65 @@ def test_all_gather_kernel_is_exact(cuda, world):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_ag_gemm_kernel_matches_plain(cuda, world, dtype):
+@pytest.mark.parametrize("dtype,engine", [(torch.bfloat16, None), (torch.bfloat16, "mma_sync"),
+                                          (torch.float32, None)],
+                         ids=["bf16", "bf16-mma_sync", "f32"])
+def test_ag_gemm_kernel_matches_plain(cuda, world, dtype, engine):
+    """K6 against the plain product over the gathered rows (one bf16 ulp
+    of the output scale; f32 1e-4 of it), the gathered A equal to
+    torch.cat bit for bit. bf16 as routed: n 96 and 296 on K1's wgmma +
+    TMA mainloop (shards of 100 rows are not whole 128-row tiles: the 3-D
+    map keeps a box inside its shard, the store masks the rest; n not whole
+    tiles), n 300 (N % 8: not TMA-loadable) on the mma.sync consumer; and
+    bf16 forced onto the mma.sync consumer. Shapes back to back: the
+    workspace grows, epochs rise, a call reuses what the one before left."""
     ctx = initialize_distributed(world)
     g = torch.Generator(device="cuda").manual_seed(7)
-    # two shapes back to back: the workspace grows, epochs rise, and the
-    # second call reuses what the first left
-    for m_loc, k, n_loc in ((64, 256, 300), (100, 512, 96)):
+    for m_loc, k, n_loc in ((64, 256, 300), (100, 512, 96), (100, 512, 296)):
         a = [torch.randn((m_loc, k), generator=g, device=cuda).to(dtype) for _ in range(world)]
         b = (torch.randn((k, n_loc), generator=g, device=cuda) / k**0.5).to(dtype)
         want = tgemm._matmul_plain(torch.cat(a), b, dtype)
-        outs = ctx.run(lambda: tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, gather_output=True))
+        before, before_wg = tagg.ag_gemm.launches, tagg.ag_gemm.wgmma_launches
+        outs = ctx.run(lambda: tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, gather_output=True,
+                                            _engine=engine))
+        wgmma = dtype == torch.bfloat16 and engine is None and n_loc % 8 == 0
+        assert tagg.ag_gemm.launches == before + world
+        assert tagg.ag_gemm.wgmma_launches == before_wg + (world if wgmma else 0)
         for out, ag in outs:
             assert torch.equal(ag, torch.cat(a))
             assert (out.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.cuda
+def test_ag_gemm_wgmma_stuck_wait_raises_with_its_record(cuda):
+    """bf16 K6 on the wgmma engine at world 2 with rank 1's stream held 2 s
+    and a 0.2 s timeout: rank 0's entry barrier (push_shards) or its
+    consumer's shard wait expires and the run raises with records of rank
+    0, the ag_gemm family, site 1 or world + 1, naming rank 1 — it does not
+    hang. After the first timeout the consumer's shard wait fails at once,
+    so its producer must release the consumer warpgroups for the kernel to
+    end."""
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    a = [torch.randn((100, 512), generator=g, device=cuda).bfloat16() for _ in range(2)]
+    b = (torch.randn((512, 296), generator=g, device=cuda) / 512**0.5).bfloat16()
+    before = tagg.ag_gemm.wgmma_launches
+    ctx.run(lambda: tagg.ag_gemm(a[ctx.rank], b, ctx=ctx))  # the workspace and flags exist
+    assert tagg.ag_gemm.wgmma_launches == before + 2
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return tagg.ag_gemm(a[ctx.rank], b, ctx=ctx)
+
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    recs = err.value.records
+    assert recs and all(r["pe"] == 0 and r["family"] == "ag_gemm" for r in recs)
+    # both sites wait for rank 1: its entry-barrier arrival, or its shard
+    assert {(r["site"], r["waits_for"]) for r in recs} <= {
+        (1, "entry barrier: arrival of rank 1"), (2 + 1, "shard 1 in the gather workspace")}
 
 
 @pytest.mark.cuda
@@ -1684,34 +1731,45 @@ def _ring_attention_inputs(g, world, b, h, s_loc, d, dtype, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("world", [1, 2, 4])
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
-                                     (torch.float32, 40)])
+@pytest.mark.parametrize("dtype,d,engine", [(torch.bfloat16, 128, "wgmma"),
+                                            (torch.bfloat16, 128, "mma"),
+                                            (torch.bfloat16, 64, "wgmma"),
+                                            (torch.bfloat16, 64, "mma"),
+                                            (torch.bfloat16, 96, "wgmma"),
+                                            (torch.float32, 40, "fma")])
 @pytest.mark.parametrize("layout,causal", [("contig", True), ("zigzag", True),
                                            ("contig", False)])
-def test_ring_attention_kernel_matches_plain(cuda, world, dtype, d, layout, causal):
-    """K35 against its plain version (the ring-order online softmax) on
-    the same shards: out within one bf16 ulp of its scale (f32: 1e-5 of
-    it), lse within 1e-5 x its scale; a shard of 200 rows (stripes of 100)
-    leaves partial query and key tiles, and 20 heads give a persistent
-    block several query tiles a step (a rank runs at most 31 blocks); two
-    calls back to back (the landing buffer and the epochs are reused)."""
+def test_ring_attention_kernel_matches_plain(cuda, world, dtype, d, engine, layout, causal):
+    """K35 on each engine (the wgmma + TMA one, the mma.sync one it
+    replaces, the f32 FMA one) against its plain version (the ring-order
+    online softmax) on the same shards: out within one bf16 ulp of its
+    scale (f32: 1e-5 of it), lse within 1e-5 x its scale; a shard of 200
+    rows (stripes of 100) leaves partial query and key tiles, and 20 heads
+    give a persistent block several query tiles a step (a rank runs at most
+    31 blocks); two calls back to back (the landing buffer and the epochs
+    are reused). The wgmma engine runs where the router sends bf16 with d
+    a multiple of 8, and is counted apart."""
     ctx = None if world == 1 else initialize_distributed(world)
     g = torch.Generator(device="cuda").manual_seed(world * 7 + d)
     h = 20
     for s_loc in (200, 64):
         xs = _ring_attention_inputs(g, world, 1, h, s_loc, d, dtype, cuda)
+        forced = "mma" if engine == "mma" else None
 
         def body():
             r = 0 if ctx is None else ctx.rank
             got = tra.ring_attention(*xs[r], ctx=ctx, causal=causal, layout=layout,
-                                     return_lse=True)
+                                     return_lse=True, _engine=forced)
             q3, k3, v3 = (x.reshape(h, s_loc, d) for x in xs[r])
             out, m, l = tra._ring_attention_plain(q3, k3, v3, ctx, causal, layout)
             return got, (out.reshape(xs[r][0].shape), tra.lse_of(m, l).reshape(1, h, s_loc))
 
         before = tra.ring_attention.launches
+        before_wg = tra.ring_attention.wgmma_launches
         outs = [body()] if ctx is None else ctx.run(body)
         assert tra.ring_attention.launches == before + world
+        assert tra.ring_attention.wgmma_launches == before_wg + (world if engine == "wgmma"
+                                                                 else 0)
         for (out, lse), (want, want_lse) in outs:
             scale = want.float().abs().max().item()
             tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * scale

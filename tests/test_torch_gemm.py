@@ -17,7 +17,7 @@ from triton_dist_tpu.ops.allgather_gemm import AGGemmConfig, ag_gemm_op
 from triton_dist_tpu.ops.gemm import matmul as jax_matmul
 from triton_dist_tpu.ops.gemm_reduce_scatter import GemmRSConfig, gemm_rs_op
 from triton_dist_tpu_torch.ops import gemm as tgemm
-from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
+from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm, ag_gemm_plan
 from triton_dist_tpu_torch.ops.common import gemm_only
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
 from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
@@ -110,6 +110,38 @@ def test_gemm_plan_engine_choice(m, n, k, dtype, aligned, engine, config):
     p = tgemm.plan(m, n, k, dtype, aligned=aligned, sms=132)
     assert (p.engine, p.config) == (engine, config)
     assert tgemm.tma_ok(n, k, aligned) == (engine == "wgmma") or dtype == torch.float32
+
+
+@pytest.mark.parametrize("m_loc,n,k,world,dtype,aligned,engine,config", [
+    # a 4-way Llama-3.1-70B prefill, 512 rows a rank, on 31 blocks a rank:
+    (512, 2560, 8192, 4, torch.bfloat16, True, "wgmma", 0),   # 6 wide waves against 11
+    (512, 14336, 8192, 4, torch.bfloat16, True, "wgmma", 0),  # 29 against 58
+    (512, 32064, 8192, 4, torch.bfloat16, True, "wgmma", 0),  # 66 against 131
+    (2, 2560, 8192, 4, torch.bfloat16, True, "wgmma", 1),     # decode: 2 wide waves against 3
+    (2, 32064, 8192, 4, torch.bfloat16, True, "wgmma", 0),
+    (100, 296, 512, 2, torch.bfloat16, True, "wgmma", 1),     # one wave either way
+    (100, 300, 512, 2, torch.bfloat16, True, "mma_sync", -1),  # N % 8: TMA cannot stride
+    (100, 296, 500, 2, torch.bfloat16, True, "mma_sync", -1),  # K % 8
+    (100, 296, 512, 2, torch.bfloat16, False, "mma_sync", -1),  # a misaligned operand
+    (100, 300, 512, 2, torch.float32, True, "f32", -1),
+])
+def test_ag_gemm_plan_engine_choice(m_loc, n, k, world, dtype, aligned, engine, config):
+    """K6's engine and tile on the card, by dtype, shape and alignment:
+    K1's wave rule counted over the consumer's grid (31 blocks a rank at
+    world 4 on one H100) and each shard's rows rounded to whole tiles; a
+    forced engine is taken where it can run and refused where not."""
+    p = ag_gemm_plan(m_loc, n, k, world, dtype, aligned=aligned, blocks=31)
+    assert (p.engine, p.config) == (engine, config)
+    if engine == "wgmma":
+        bm, bn = tgemm.SM90_TILES[config]
+        assert p.tiles == world * -(-m_loc // bm) * -(-n // bn)
+        assert p.grid == min(p.tiles, 31)
+    if dtype == torch.bfloat16:
+        assert ag_gemm_plan(m_loc, n, k, world, dtype, aligned=aligned,
+                            engine="mma_sync").engine == "mma_sync"
+    if engine != "wgmma":
+        with pytest.raises(ValueError, match="no wgmma engine"):
+            ag_gemm_plan(m_loc, n, k, world, dtype, aligned=aligned, engine="wgmma")
 
 
 @pytest.mark.parametrize("m,n,k,sms", [(2048, 4096, 14336, 132), (8, 128256, 4096, 132),

@@ -187,6 +187,28 @@ def test_zigzag_helpers_and_errors_match_jax():
     assert tops.ring_attention_grad is tgrads.ring_attention_grad
 
 
+@pytest.mark.parametrize("dtype,d,aligned,engine", [
+    (torch.bfloat16, 128, True, "wgmma"),   # Llama widths: the wgmma + TMA engine
+    (torch.bfloat16, 64, True, "wgmma"),
+    (torch.bfloat16, 96, True, "wgmma"),    # zero past d in 128-wide boxes
+    (torch.bfloat16, 8, True, "wgmma"),     # one 16-byte chunk a row
+    (torch.bfloat16, 40, False, "mma"),     # a misaligned operand: TMA cannot load it
+    (torch.bfloat16, 20, True, "mma"),      # rows not whole 16-byte chunks
+    (torch.float32, 128, True, "fma"),
+    (torch.float32, 40, True, "fma"),
+])
+def test_ring_attention_engine_choice(dtype, d, aligned, engine):
+    """The kernel K35 runs on the card, by dtype, head dim and alignment
+    only; a forced engine is taken where it can run and refused where not."""
+    assert tra._ring_attention_engine(dtype, d, aligned) == engine
+    assert tra._ring_attention_engine(dtype, d, aligned, forced=engine) == engine
+    if engine == "wgmma":  # the A/B's older engine runs every bf16 operand
+        assert tra._ring_attention_engine(dtype, d, aligned, forced="mma") == "mma"
+    for other in set(tra.ENGINES) - {engine, "mma" if engine == "wgmma" else engine}:
+        with pytest.raises(ValueError, match=f"no {other} engine"):
+            tra._ring_attention_engine(dtype, d, aligned, forced=other)
+
+
 @pytest.mark.parametrize("layout", ["contig", "zigzag"])
 def test_ring_attention_grad_matches_jax(layout):
     """World 4, causal: dq, dk, dv of ``ring_attention_grad`` against

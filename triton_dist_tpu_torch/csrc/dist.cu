@@ -5,7 +5,7 @@
 //                                         barrier_all_op._kernel
 //   K5 tdt_all_gather_{push,collect}    ≙ ops/allgather.py:258
 //                                         _full_mesh_push_kernel
-//   K6 tdt_ag_gemm_consumer             ≙ ops/allgather_gemm.py:69
+//   K6 tdt_ag_gemm_consumer(_sm90)      ≙ ops/allgather_gemm.py:69
 //                                         _ag_gemm_kernel
 //   K7 tdt_gemm_rs_reduce               ≙ ops/gemm_reduce_scatter.py:99
 //                                         _gemm_rs_scatter_kernel (its
@@ -90,7 +90,9 @@
 //   issue their producers, meet, then launch the consumer.
 //
 // K6 walks shards in arrival order (me, me-1, ...), as the TPU ring does,
-// and waits on a shard's flag before the first of its tiles; K9 is the same
+// and waits on a shard's flag before the first of its tiles (bf16 with TMA-
+// loadable operands on K1's wgmma + TMA mainloop, ag_gemm_sm90_kernel; the
+// mma.sync Bf16Engine, ag_gemm_kernel, otherwise); K9 is the same
 // consumer over a gathered workspace of expert-sorted slabs, each M tile
 // multiplying the expert bank its row block names. K30 is K9 with the
 // ragged map: a tile at or past its block's live count stores zeros and
@@ -121,6 +123,7 @@
 // unless the launch asks for it.
 
 #include "gemm_core.cuh"
+#include "gemm_sm90.cuh"
 #include "shmem.cuh"
 
 namespace {
@@ -235,6 +238,58 @@ __global__ void __launch_bounds__(E::THREADS, 1)
     E::mainloop(ws + (size_t)c * m_loc * k, b + b_off, m_loc, n, k, m0, n0, vec, acc);
     E::template store<false>(acc, out_c, m_loc, n, m0, n0, none, srow, live_end);
   }
+}
+
+// ------------------------------------------------- K6 on wgmma + TMA ----
+// bf16 K6 on K1's warp-specialised mainloop (gemm_sm90.cuh gemm_sm90_body):
+// the tiles of shard c are the grouped raster over its [m_loc, n] output,
+// shards in arrival order me, me-1, ... (as ag_gemm_kernel walks them). A
+// is read through a 3-D tensor map over the gather workspace [world, m_loc,
+// k], so a 128-row box never reads into the next shard (rows past m_loc land
+// as zeros and are masked on store, into out + c * m_loc * n). The producer
+// thread waits (bounded, one thread: a warp-specialised block cannot meet at
+// __syncthreads) on the shard's flag before its first load of the shard,
+// then issues the global proxy fence (the copy engine wrote the rows, TMA
+// reads them), then the loads. A wait that expired aborts the block (the
+// body's abort word), and the host raises with the record: family, site
+// world + c and kind as ag_gemm_kernel's.
+struct ShardWalk {
+  static constexpr bool SLABS = true;
+  static constexpr bool CAN_ABORT = true;
+  int mt, nt, world, me, epoch;
+  const int* flags;
+  WaitCtx w;
+  int waited;  // the shard whose flag this block's producer last met
+
+  __device__ __forceinline__ int tiles() const { return mt * nt * world; }
+  __device__ __forceinline__ sm90::Coord at(int t) const {
+    const int per = mt * nt, step = t / per;
+    sm90::Coord x;
+    sm90::tile_coords(t % per, mt, nt, x.tm, x.tn);
+    x.slab = (me - step + world) % world;
+    return x;
+  }
+  __device__ __forceinline__ bool ready(const sm90::Coord& x) {
+    if (x.slab == waited) return true;  // flags only rise: one wait a shard and block
+    waited = x.slab;
+    const bool ok =
+        shmem::wait_until_ge(flags + x.slab, epoch, w, world + x.slab, shmem::KIND_WAIT);
+    sm90::fence_proxy_async_global();
+    return ok;
+  }
+};
+
+template <int BN, int STAGES, typename TOut>
+__global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
+    ag_gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b, TOut* __restrict__ out,
+                        int m_loc, int n, int k, int world, int me, const int* flags, int epoch,
+                        WaitCtx w, int jitter) {
+  shmem::comm_jitter(me, 8, jitter, world);
+  const ShardWalk walk{cdiv(m_loc, sm90::Tile<2, BN, STAGES>::BM), cdiv(n, BN), world, me,
+                       epoch, flags, w, -1};
+  sm90::gemm_sm90_body<2, BN, STAGES, TOut, false>(map_a, map_b, out, m_loc, n, k,
+                                                   AddList<TOut>{}, walk);
 }
 
 // ------------------------------------------------------------------ K7 ----
@@ -560,6 +615,55 @@ extern "C" int tdt_ag_gemm_consumer(const void* ws, const void* b, void* out, in
       ws, b, nullptr, out, m_loc, n, k, in_dtype, in_dtype, out_dtype, world, me, flags, epoch,
       max_blocks, wait_ctx(diag, timeout_ns, me, family), none, one_span(m_loc), jitter,
       static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 on the wgmma + TMA engine (ag_gemm_sm90_kernel): bf16 ws [world *
+// m_loc, k] and b [k, n], out [world * m_loc, n] in out_dtype; k and n
+// multiples of 8, ws and b 16-byte aligned (the host routes other operands
+// to tdt_ag_gemm_consumer). config picks K1's tile (0: 128x256, 1: 128x128),
+// grid the persistent block count (<= the co-residency cap).
+extern "C" int tdt_ag_gemm_consumer_sm90(const void* ws, const void* b, void* out, int m_loc,
+                                         int n, int k, int out_dtype, int world, int me,
+                                         const void* flags, int epoch, int config, int grid,
+                                         int jitter, void* diag, long long timeout_ns,
+                                         int family, void* stream) {
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(ws) | reinterpret_cast<uintptr_t>(b)) % 16 == 0;
+  if (world < 2 || world > MAX_WORLD || me < 0 || me >= world || m_loc < 1 || n < 1 || k < 1 ||
+      n % 8 != 0 || k % 8 != 0 || !aligned || config < 0 || config > 1 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long dims_a[3] = {k, m_loc, world}, strides_a[2] = {2LL * k, 2LL * k * m_loc};
+  const long long box_a[3] = {sm90::BK, 128, 1};
+  const long long dims_b[2] = {n, k}, box_b[2] = {sm90::BOX_N, sm90::BK};
+  CUtensorMap ma, mb;
+  cudaError_t err = sm90::make_map_nd(&ma, ws, 3, dims_a, strides_a, box_a);
+  if (err == cudaSuccess) err = sm90::make_map(&mb, b, dims_b, 2LL * n, box_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
+  const int* f = static_cast<const int*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto t) -> cudaError_t {
+    using TOut = decltype(t);
+    TOut* o = static_cast<TOut*>(out);
+    auto run = [&](auto kernel, size_t smem, int threads) -> cudaError_t {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, threads, smem, s>>>(ma, mb, o, m_loc, n, k, world, me, f, epoch, w, jitter);
+      return cudaSuccess;
+    };
+    if (config == 0) {
+      using T = sm90::Tile<2, 256, 4>;
+      return run(ag_gemm_sm90_kernel<256, 4, TOut>, T::SMEM_BYTES, T::THREADS);
+    }
+    using T = sm90::Tile<2, 128, 6>;
+    return run(ag_gemm_sm90_kernel<128, 6, TOut>, T::SMEM_BYTES, T::THREADS);
+  };
+  if (out_dtype == kBF16) err = go(bf16{});
+  else if (out_dtype == kF32) err = go(float{});
+  else err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

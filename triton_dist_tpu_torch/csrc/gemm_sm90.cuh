@@ -1,5 +1,6 @@
 // K1's bf16 engine for Hopper (csrc/gemm.cu): a warp-specialised, persistent
-// wgmma + TMA GEMM. C[M,N] = A[M,K] . B[K,N] (+ the epilogue adds of
+// wgmma + TMA GEMM. Its mainloop (gemm_sm90_body) is K6's too (csrc/dist.cu
+// ag_gemm_sm90_kernel), over a walk that waits for each gathered shard. C[M,N] = A[M,K] . B[K,N] (+ the epilogue adds of
 // gemm_add_pipeline, triton_dist_tpu/ops/common.py:468), bf16 in, f32
 // accumulate, one cast to the output type.
 //
@@ -100,11 +101,45 @@ __device__ __forceinline__ void store_pair(TOut* __restrict__ c, int n, int rr, 
   }
 }
 
-template <int WGS, int BN, int STAGES, typename TOut, bool ADDS>
-__global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
-    gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_b, TOut* __restrict__ c, int m,
-                     int n, int k, AddList<TOut> adds) {
+// An output tile of the walk: row tile tm and column tile tn of slab
+// `slab` (K1 has one slab; K6's slabs are the gathered shards, slab c's rows
+// at out + c * m * n).
+struct Coord {
+  int tm, tn, slab;
+};
+
+// K1's walk: the grouped raster over one [m, n] output; A is a 2-D map.
+struct Raster {
+  static constexpr bool SLABS = false;     // A is a 3-D map over [slabs, m, k]
+  static constexpr bool CAN_ABORT = false; // the producer's waits can expire
+  int mt, nt;
+  __device__ __forceinline__ int tiles() const { return mt * nt; }
+  __device__ __forceinline__ Coord at(int t) const {
+    Coord c;
+    tile_coords(t, mt, nt, c.tm, c.tn);
+    c.slab = 0;
+    return c;
+  }
+  // the producer thread, before a tile's first load: false aborts the block
+  __device__ __forceinline__ bool ready(const Coord&) { return true; }
+};
+
+// The mainloop and epilogue a block runs over the tiles `walk` gives it
+// (blockIdx.x, + gridDim.x, ...): K1 with a Raster, K6 (csrc/dist.cu) with
+// its shard walk. m is the rows of one slab.
+//
+// A walk whose producer waits (K6's shard flags) can abort: a wait that
+// expired returns false from ready(); the producer then sets the abort word
+// and, for every stage it has left to fill, arrives on its "full" barrier
+// with no copy, so no consumer waits on a barrier that never fills. Every
+// consumer reads the word after each "full" wait and from then on skips the
+// products and the stores, still waiting on each stage in turn: the block
+// ends only once every copy it issued has landed, and soon (no loads, no
+// products); the host raises with the wait's record.
+template <int WGS, int BN, int STAGES, typename TOut, bool ADDS, class Walk>
+__device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                               TOut* __restrict__ c, int m, int n, int k,
+                                               const AddList<TOut>& adds, Walk walk) {
   using T = Tile<WGS, BN, STAGES>;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles want 1024-byte aligned stages
@@ -113,17 +148,23 @@ __global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
   bf16* sb = sa + STAGES * T::A_STAGE;
   uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * T::B_STAGE);
   uint64_t* empty = full + STAGES;
+  volatile int* abort_word = nullptr;
+  if constexpr (Walk::CAN_ABORT) {
+    __shared__ int abort_s;
+    abort_word = &abort_s;
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, 4 * WGS);  // one arrival per consumer warp
     }
+    if constexpr (Walk::CAN_ABORT) *abort_word = 0;
     mbar_init_fence();
   }
   __syncthreads();
 
-  const int mt = cdiv(m, T::BM), nt = cdiv(n, BN), tiles = mt * nt, nk = cdiv(k, BK);
+  const int tiles = walk.tiles(), nk = cdiv(k, BK);
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ------------------------------------------------------- producer ----
@@ -131,16 +172,36 @@ __global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
     if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t phase = 0;
+      [[maybe_unused]] bool live = true;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        int tm, tn;
-        tile_coords(t, mt, nt, tm, tn);
+        const Coord x = walk.at(t);
+        if constexpr (Walk::CAN_ABORT) {
+          if (live && !walk.ready(x)) {
+            live = false;
+            *abort_word = 1;  // released with the next "full" arrival
+          }
+        }
         for (int kt = 0; kt < nk; ++kt) {
           mbar_wait(empty + stage, phase ^ 1);
+          if constexpr (Walk::CAN_ABORT) {
+            if (!live) {
+              mbar_arrive(full + stage);
+              if (++stage == STAGES) {
+                stage = 0;
+                phase ^= 1;
+              }
+              continue;
+            }
+          }
           mbar_expect_tx(full + stage, T::STAGE_BYTES);
-          tma_load_2d(sa + stage * T::A_STAGE, &map_a, kt * BK, tm * T::BM, full + stage);
+          if constexpr (Walk::SLABS)
+            tma_load_3d(sa + stage * T::A_STAGE, &map_a, kt * BK, x.tm * T::BM, x.slab,
+                        full + stage);
+          else
+            tma_load_2d(sa + stage * T::A_STAGE, &map_a, kt * BK, x.tm * T::BM, full + stage);
 #pragma unroll
           for (int bx = 0; bx < BN / BOX_N; ++bx)
-            tma_load_2d(sb + stage * T::B_STAGE + bx * BK * BOX_N, &map_b, tn * BN + bx * BOX_N,
+            tma_load_2d(sb + stage * T::B_STAGE + bx * BK * BOX_N, &map_b, x.tn * BN + bx * BOX_N,
                         kt * BK, full + stage);
           if (++stage == STAGES) {
             stage = 0;
@@ -156,11 +217,22 @@ __global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
     float acc[BN / 2];
     int stage = 0;
     uint32_t phase = 0;
+    [[maybe_unused]] bool dead = false;  // the producer aborted: skip products and stores
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      int tm, tn;
-      tile_coords(t, mt, nt, tm, tn);
+      const Coord x = walk.at(t);
       for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(full + stage, phase);
+        if constexpr (Walk::CAN_ABORT) {
+          if (dead || *abort_word) {
+            dead = true;
+            if (lane == 0) mbar_arrive(empty + stage);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+            continue;
+          }
+        }
         const bf16* at = sa + stage * T::A_STAGE + cw * 64 * BK;
         const bf16* bt = sb + stage * T::B_STAGE;
         fence_acc<BN / 2>(acc);
@@ -180,10 +252,14 @@ __global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
           phase ^= 1;
         }
       }
+      if constexpr (Walk::CAN_ABORT) {
+        if (dead) continue;
+      }
       // epilogue: thread holds rows lane/4 and lane/4 + 8 of its warp's 16,
       // columns 2 * (lane % 4) and + 1 of every 8-wide block
-      const int r0 = tm * T::BM + cw * 64 + warp * 16 + lane / 4;
-      const int c0 = tn * BN + (lane % 4) * 2;
+      TOut* cs = c + static_cast<size_t>(x.slab) * m * n;
+      const int r0 = x.tm * T::BM + cw * 64 + warp * 16 + lane / 4;
+      const int c0 = x.tn * BN + (lane % 4) * 2;
 #pragma unroll
       for (int nb = 0; nb < BN / 8; ++nb) {
         const int cc = c0 + nb * 8;
@@ -191,11 +267,21 @@ __global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int rr = r0 + 8 * h;
           if (rr < m && cc < n)
-            store_pair<ADDS>(c, n, rr, cc, acc[nb * 4 + 2 * h], acc[nb * 4 + 2 * h + 1], adds);
+            store_pair<ADDS>(cs, n, rr, cc, acc[nb * 4 + 2 * h], acc[nb * 4 + 2 * h + 1], adds);
         }
       }
     }
   }
+}
+
+template <int WGS, int BN, int STAGES, typename TOut, bool ADDS>
+__global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, TOut* __restrict__ c, int m,
+                     int n, int k, AddList<TOut> adds) {
+  gemm_sm90_body<WGS, BN, STAGES, TOut, ADDS>(map_a, map_b, c, m, n, k, adds,
+                                             Raster{cdiv(m, Tile<WGS, BN, STAGES>::BM),
+                                                    cdiv(n, BN)});
 }
 
 template <int WGS, int BN, int STAGES, typename TOut, bool ADDS>

@@ -38,19 +38,35 @@
 // at a step skips it without touching its state. At world 1 there is no
 // put, no handshake and no state: one step writes out and lse.
 //
-// bf16: 128 query rows a block, 16 a warp; Q.K^T and P.V are m16n8k16
-// mma.sync products fed by ldmatrix from shared memory (P rounded to bf16
-// for P.V, its row sums kept in f32), KV tiles of 64 positions
-// double-buffered with 16-byte cp.async (csrc/flash_verify.cu's K13 tile,
-// on gemm_core.cuh's mma helpers).
+// bf16 with d a multiple of 8 up to 128 and 16-byte aligned operands
+// (tdt_ring_attention_sm90, the host's _ring_attention_engine): the Hopper
+// engine, wg::ring_attention_sm90_kernel below. The mma.sync step reached
+// 14 % of the operations bound at world 1 (0.999 ms at S 4096 against 0.251
+// for SDPA on an H100): every thread computing cp.async addresses, a
+// __syncthreads at every KV tile serialising the softmax with both products,
+// one block a tile in the natural order (the heaviest causal tiles last, a
+// tail). The Hopper step is K13's verify_sm90_kernel over the ring: one
+// producer thread streams Q and 128-position K/V tiles by TMA into a
+// double-buffered Q and a ring of stages; two consumer warpgroups of 64 query
+// rows run S = Q.K^T and O += P.V as wgmma products with P from registers and
+// the exponentials on ex2; the producer warpgroup's other three warps carry
+// the forward puts, so they overlap the products; a persistent grid, at world
+// 1 heaviest tiles first. Its cost beyond the products: at world > 1 a tile's
+// f32 (m, l, acc) state is read and written once a step (64 KB each way a
+// 128-row tile at d 128: ~0.4 GB a rank at S 16384 over 4 ranks).
+// bf16 otherwise: 128 query rows a block, 16 a warp; Q.K^T and P.V are
+// m16n8k16 mma.sync products fed by ldmatrix from shared memory (P rounded to
+// bf16 for P.V, its row sums kept in f32), KV tiles of 64 positions
+// double-buffered with 16-byte cp.async (csrc/flash_verify.cu's K13 tile, on
+// gemm_core.cuh's mma helpers).
 // f32 (the reference precision): 32 rows a block, scores, softmax and P.V
-// in FMA from shared memory. wgmma, TMA and warp specialisation are later
-// work.
+// in FMA from shared memory.
 
 #include <math.h>
 
 #include "gemm_core.cuh"
 #include "shmem.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -82,24 +98,26 @@ struct Geo {
 struct Tile {
   int bhi, row0, rows, pos0;  // row0: local row of the tile's first row
   int kps, kv_tiles;          // key tiles a segment, in the chunk
+  int kt_len;                 // key positions a key tile
 
-  __device__ __forceinline__ Tile(const Geo& G, int t, int tile_rows) {
+  __device__ __forceinline__ Tile(const Geo& G, int t, int tile_rows, int key_len = TILE) {
     const int sl = G.seg_len(), tps = cdiv(sl, tile_rows), n_qt = G.n_seg() * tps;
     bhi = t / n_qt;
     const int qt = t % n_qt, seg = qt / tps, q0 = (qt % tps) * tile_rows;
     rows = min(tile_rows, sl - q0);
     row0 = seg * sl + q0;
     pos0 = G.seg_pos(G.me, seg) + q0;
-    kps = cdiv(sl, TILE);
+    kt_len = key_len;
+    kps = cdiv(sl, key_len);
     kv_tiles = G.n_seg() * kps;
   }
   // key tile `it` of rank kv_rank's chunk: its first local row, its rows,
   // the global position of its first row
   __device__ __forceinline__ void key(const Geo& G, int kv_rank, int it, int& k_row0,
                                       int& k_rows, int& k_pos0) const {
-    const int sl = G.seg_len(), seg = it / kps, k0 = (it % kps) * TILE;
+    const int sl = G.seg_len(), seg = it / kps, k0 = (it % kps) * kt_len;
     k_row0 = seg * sl + k0;
-    k_rows = min(TILE, sl - k0);
+    k_rows = min(kt_len, sl - k0);
     k_pos0 = G.seg_pos(kv_rank, seg) + k0;
   }
   // the first key tile at or after `it` that is not masked for every row
@@ -580,6 +598,475 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
   return cudaSuccess;
 }
 
+// ------------------------------------------- bf16 (wgmma + TMA, Hopper) --
+namespace wg {
+
+using tdt::sm90::fence_acc;
+using tdt::sm90::fence_proxy_async_global;
+using tdt::sm90::KMAJOR_LBO;
+using tdt::sm90::KMAJOR_SBO;
+using tdt::sm90::make_map_nd;
+using tdt::sm90::mbar_arrive;
+using tdt::sm90::mbar_expect_tx;
+using tdt::sm90::mbar_init;
+using tdt::sm90::mbar_init_fence;
+using tdt::sm90::mbar_wait;
+using tdt::sm90::MNMAJOR_SBO;
+using tdt::sm90::named_barrier;
+using tdt::sm90::reg_alloc;
+using tdt::sm90::reg_dealloc;
+using tdt::sm90::smem_desc;
+using tdt::sm90::smem_u32;
+using tdt::sm90::tma_load_3d;
+using tdt::sm90::wgmma_commit;
+using tdt::sm90::wgmma_fence;
+using tdt::sm90::wgmma_wait;
+
+constexpr int BOX = 64;   // columns a box: one 128-byte swizzle row of bf16
+constexpr int BM = 128;   // query rows a tile: two consumer warpgroups of 64
+// key positions a KV tile: half the per-tile softmax work (max, sum,
+// rescale) of 64-position tiles, which timed 1.2-1.3x slower on an H100
+constexpr int BN = 128;
+constexpr int THREADS = 384;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int FWD_FIRST = 32, FWD_THREADS = 96, FWD_BAR = 1;  // warps 1..3: the forward
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (about 2 ulps; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// DP: the head dim padded to 64 or 128 (zero past d). Shared memory: two Q
+// buffers [NB][BM][64], STAGES K/V stages [K, V][NB][BN][64], their
+// barriers.
+template <int DP>
+struct Layout {
+  static constexpr int NB = DP / BOX;
+  static constexpr int STAGES = DP * BN <= 8192 ? 4 : 2;
+  static constexpr int Q_ELEMS = BM * DP;
+  static constexpr int KV_ELEMS = BN * DP;  // one K or V tile
+  static constexpr uint32_t Q_BYTES = Q_ELEMS * 2;
+  static constexpr uint32_t STAGE_BYTES = 2 * KV_ELEMS * 2;
+  // q, the stages, full / empty per stage and per Q buffer; +1024 to align
+  static constexpr size_t SMEM =
+      static_cast<size_t>(2 * Q_ELEMS + STAGES * 2 * KV_ELEMS) * 2 + (2 * STAGES + 4) * 8 + 1024;
+  static_assert(SMEM <= 232448, "fits a block's shared memory");
+};
+
+// The block's i-th query tile of a step, or -1 past its share. At world 1
+// the tiles go heaviest first (the query rows with the most visible keys:
+// the last rows of a head), snaking over the blocks round by round so each
+// block's sum of work is even; a ring rank keeps tile t on block t % grid,
+// where its state waits from step to step.
+__device__ __forceinline__ int tile_of(const Geo& G, int i, int tiles) {
+  const int grid = gridDim.x;
+  if (G.world > 1) {
+    const int t = blockIdx.x + i * grid;
+    return t < tiles ? t : -1;
+  }
+  const int j = i * grid + (i & 1 ? grid - 1 - blockIdx.x : blockIdx.x);
+  if (j >= tiles) return -1;
+  const int n_qt = tiles / G.bh;  // query tiles a head, in position order
+  return (j % G.bh) * n_qt + (n_qt - 1 - j / G.bh);
+}
+
+// the tiles a block may hold: every round but the last is whole
+__device__ __forceinline__ int rounds(int tiles) { return cdiv(tiles, (int)gridDim.x); }
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) by `nth` threads,
+// four 16-byte loads in flight a thread
+__device__ __forceinline__ void copy16(unsigned char* dst, const unsigned char* src,
+                                       long long bytes, int tid, int nth) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  const long long n16 = bytes / 16;
+  long long i = tid;
+  for (; i + 3LL * nth < n16; i += 4LL * nth) {
+    const uint4 a = s[i], b = s[i + nth], c = s[i + 2 * nth], e = s[i + 3 * nth];
+    d[i] = a;
+    d[i + nth] = b;
+    d[i + 2 * nth] = c;
+    d[i + 3 * nth] = e;
+  }
+  for (; i < n16; i += nth) d[i] = s[i];
+}
+
+// One rank's K35 on Hopper. The ring protocol is the mma.sync kernel's
+// (ring_attention_kernel): every block's entry handshake, the step order,
+// tile t on block t % grid, the f32 (m, l, acc) state in device memory
+// between steps, the same wait sites. What one query tile does at one step
+// is K13's verify_sm90_kernel (csrc/flash_verify.cu), in three roles:
+// - the producer (thread 0): per step, per query tile with a visible key
+//   tile: its Q (two boxes of [128 rows][64 columns] a 64 of the head dim)
+//   into one of two Q buffers, then the visible K/V tiles of the chunk held
+//   at the step (step 0: this rank's k and v; step s: landing slot s - 1)
+//   into a STAGES-deep ring, all by TMA over 3-D maps [bh, s_loc, d] (a box
+//   never reads across a head; rows past s_loc land as zeros). Before its
+//   first load of a landed chunk it waits (bounded, one thread) for the
+//   chunk's flag and issues the global proxy fence;
+// - the forward (warps 1..3 at world > 1): step s's pieces of the chunk,
+//   put into the right neighbour's landing slot s as the mma.sync kernel
+//   does (waiting, bounded, for a landed chunk first), the piece count
+//   raising the neighbour's flag; they run ahead of the tiles, so the
+//   puts overlap the products and never wait on them;
+// - two consumer warpgroups of 64 query rows: S = Q . K^T by wgmma (K
+//   K-major), the scale, the key tile's extent and the causal mask by
+//   global position (only where a tile straddles them), the online softmax
+//   with ex2 on the fragments, O += P . V by wgmma with P rounded to bf16
+//   in registers and V MN-major; the (m, l, acc) state read before the
+//   first KV tile of a step (step > 0) and written after the last (before
+//   the last step), out and lse at the last step.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) ring_attention_sm90_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_land,
+    const bf16* k, const bf16* v, bf16* __restrict__ out, float* __restrict__ lse,
+    float* __restrict__ m_st, float* __restrict__ l_st, float* __restrict__ acc_st,
+    const bf16* land_me, bf16* land_right, Geo G, Ring r) {
+  using L = Layout<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles want 1024-byte aligned boxes
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* q_s = reinterpret_cast<bf16*>(base);  // [2][NB][BM][64]
+  bf16* kv_s = q_s + 2 * L::Q_ELEMS;            // [STAGES][K, V][NB][BN][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + L::STAGES * 2 * L::KV_ELEMS);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* q_full = empty + L::STAGES;
+  uint64_t* q_empty = q_full + 2;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int n = G.world;
+  if (n > 1) {
+    shmem::comm_jitter(G.me, JITTER_SALT, r.jitter, n);
+    r.enter();
+  }
+  const int sl = G.seg_len();
+  const int tiles = G.bh * G.n_seg() * cdiv(sl, BM);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      // ---------------------------------------------------------- producer ----
+      int qi = 0, kv = 0, landed = 0;
+      for (int s = 0; s < n; ++s) {
+        const int kv_rank = (G.me - s + n) % n;
+        for (int i = 0; i < rounds(tiles); ++i) {
+          const int t = tile_of(G, i, tiles);
+          if (t < 0) continue;
+          const Tile tile(G, t, BM, BN);
+          int it = tile.next_live(G, kv_rank, 0);
+          if (it == tile.kv_tiles) continue;  // no load: skipped, or out from the state
+          if (s > landed) {
+            r.wait_landed_thread(s, 0);
+            fence_proxy_async_global();
+            landed = s;
+          }
+          const int qb = qi & 1;
+          mbar_wait(q_empty + qb, ((qi >> 1) & 1) ^ 1);
+          mbar_expect_tx(q_full + qb, L::Q_BYTES);
+#pragma unroll
+          for (int bx = 0; bx < L::NB; ++bx)
+            tma_load_3d(q_s + qb * L::Q_ELEMS + bx * BM * BOX, &map_q, bx * BOX, tile.row0,
+                        tile.bhi, q_full + qb);
+          ++qi;
+          // landing slot s - 1 holds [k | v], each bh heads
+          const int kh = s == 0 ? tile.bhi : (2 * (s - 1)) * G.bh + tile.bhi;
+          const CUtensorMap* mk = s == 0 ? &map_k : &map_land;
+          const CUtensorMap* mv = s == 0 ? &map_v : &map_land;
+          const int vh = s == 0 ? tile.bhi : kh + G.bh;
+          for (; it < tile.kv_tiles; it = tile.next_live(G, kv_rank, it + 1)) {
+            int k_row0, k_rows, k_pos0;
+            tile.key(G, kv_rank, it, k_row0, k_rows, k_pos0);
+            const int st = kv % L::STAGES;
+            mbar_wait(empty + st, ((kv / L::STAGES) & 1) ^ 1);
+            mbar_expect_tx(full + st, L::STAGE_BYTES);
+            bf16* kt = kv_s + st * 2 * L::KV_ELEMS;
+#pragma unroll
+            for (int bx = 0; bx < L::NB; ++bx) {
+              tma_load_3d(kt + bx * BN * BOX, mk, bx * BOX, k_row0, kh, full + st);
+              tma_load_3d(kt + L::KV_ELEMS + bx * BN * BOX, mv, bx * BOX, k_row0, vh, full + st);
+            }
+            ++kv;
+          }
+        }
+      }
+    } else if (threadIdx.x >= FWD_FIRST && n > 1) {
+      // ------------------------------------------------------------ forward ----
+      const int ft = threadIdx.x - FWD_FIRST;
+      const long long chunk_bytes = G.chunk * 2;
+      const int pieces = static_cast<int>((2 * chunk_bytes + PIECE_BYTES - 1) / PIECE_BYTES);
+      for (int s = 0; s < n - 1; ++s) {
+        const unsigned char* kc = reinterpret_cast<const unsigned char*>(
+            s == 0 ? k : land_me + (size_t)(s - 1) * 2 * G.chunk);
+        const unsigned char* vc = s == 0 ? reinterpret_cast<const unsigned char*>(v)
+                                         : kc + chunk_bytes;
+        unsigned char* dst = reinterpret_cast<unsigned char*>(land_right + (size_t)s * 2 * G.chunk);
+        bool met = s == 0;
+        for (int p = blockIdx.x; p < pieces; p += gridDim.x) {
+          if (!met) {
+            if (ft == 0) {
+              r.wait_landed_thread(s, 0);
+              __threadfence();
+            }
+            named_barrier(FWD_BAR, FWD_THREADS);
+            met = true;
+          }
+          const long long lo = p * PIECE_BYTES;
+          const long long hi = min(2 * chunk_bytes, lo + PIECE_BYTES);
+          if (lo < chunk_bytes)
+            copy16(dst + lo, kc + lo, min(hi, chunk_bytes) - lo, ft, FWD_THREADS);
+          if (hi > chunk_bytes) {
+            const long long a = max(lo, chunk_bytes);
+            copy16(dst + a, vc + (a - chunk_bytes), hi - a, ft, FWD_THREADS);
+          }
+          shmem::chunk_piece_done_group(r.f, s, 0, pieces, FWD_BAR, FWD_THREADS, ft == 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------------- consumers ----
+  reg_alloc<CONSUMER_REGS>();
+  const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int d = G.d;
+  const int r_lo = cw * 64 + warp * 16 + gid, r_hi = r_lo + 8;  // this thread's rows in the tile
+  float sc[BN / 2];  // a KV tile's scores, then its probabilities
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) sc[j] = 0.f;
+  int qi = 0, kv = 0;
+  for (int s = 0; s < n; ++s) {
+    const int kv_rank = (G.me - s + n) % n;
+    const bool last = s == n - 1;
+    for (int i = 0; i < rounds(tiles); ++i) {
+      const int t = tile_of(G, i, tiles);
+      if (t < 0) continue;
+      const Tile tile(G, t, BM, BN);
+      int it = tile.next_live(G, kv_rank, 0);
+      // nothing of this chunk is visible to the tile: its state stands
+      if (it == tile.kv_tiles && s > 0 && !last) continue;
+      const size_t head = (size_t)tile.bhi * G.s_loc;
+      const int pos_lo = tile.pos0 + r_lo, pos_hi = tile.pos0 + r_hi;
+      const int wpos = tile.pos0 + cw * 64 + warp * 16;  // the warp's first row
+      float o[DP / 2];
+      float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
+      if (s > 0) {  // the state this block left at the previous step
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int rr = half ? r_hi : r_lo;
+          if (rr >= tile.rows) continue;
+          const size_t gr = head + tile.row0 + rr;
+          (half ? m_hi : m_lo) = m_st[gr];
+          (half ? l_hi : l_lo) = l_st[gr];
+#pragma unroll
+          for (int nb = 0; nb < DP / 8; ++nb) {
+            const int c = nb * 8 + 2 * tig;
+            if (c < d) {
+              const float2 a = *reinterpret_cast<const float2*>(acc_st + gr * d + c);
+              o[nb * 4 + 2 * half] = a.x;
+              o[nb * 4 + 2 * half + 1] = a.y;
+            }
+          }
+        }
+      }
+      if (it < tile.kv_tiles) {
+        const int qb = qi & 1;
+        mbar_wait(q_full + qb, (qi >> 1) & 1);
+        const bf16* qw = q_s + qb * L::Q_ELEMS + cw * 64 * BOX;
+        for (; it < tile.kv_tiles; it = tile.next_live(G, kv_rank, it + 1)) {
+          int k_row0, k_rows, k_pos0;
+          tile.key(G, kv_rank, it, k_row0, k_rows, k_pos0);
+          const int st = kv % L::STAGES;
+          mbar_wait(full + st, (kv / L::STAGES) & 1);
+          const bf16* kt = kv_s + st * 2 * L::KV_ELEMS;
+          const bf16* vt = kt + L::KV_ELEMS;
+
+          // (a) S = Q . K^T over the tile's BN positions, K K-major (its rows
+          // are positions)
+          fence_acc<BN / 2>(sc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk)
+            tdt::sm90::wgmma_m64n128k16<0>(
+                sc, smem_desc(qw + (kk / 4) * BM * BOX + (kk % 4) * 16, KMAJOR_LBO, KMAJOR_SBO),
+                smem_desc(kt + (kk / 4) * BN * BOX + (kk % 4) * 16, KMAJOR_LBO, KMAJOR_SBO),
+                kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc<BN / 2>(sc);
+
+          // (b) the scale; the extent and causal mask only where the tile
+          // straddles them for this warp's rows (sc[nb * 4 + e]: row lo for
+          // e < 2, hi else; key nb * 8 + 2 * tig + e % 2); the online
+          // softmax of the thread's two rows, exponentials as 2^((s - m)
+          // log2 e) on the special-function unit
+          const bool masked = k_rows < BN || (G.causal && k_pos0 + BN - 1 > wpos);
+          float mx_lo = -INFINITY, mx_hi = -INFINITY;
+          if (masked) {
+            const int lim_lo = G.causal ? min(k_rows, pos_lo - k_pos0 + 1) : k_rows;
+            const int lim_hi = G.causal ? min(k_rows, pos_hi - k_pos0 + 1) : k_rows;
+#pragma unroll
+            for (int j = 0; j < BN / 2; ++j) {
+              const int key = (j / 4) * 8 + 2 * tig + (j & 1);
+              const float v_ = key < ((j & 2) ? lim_hi : lim_lo) ? sc[j] * G.scale : -INFINITY;
+              sc[j] = v_;
+              if (j & 2) mx_hi = fmaxf(mx_hi, v_); else mx_lo = fmaxf(mx_lo, v_);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < BN / 2; ++j) {
+              sc[j] *= G.scale;
+              if (j & 2) mx_hi = fmaxf(mx_hi, sc[j]); else mx_lo = fmaxf(mx_lo, sc[j]);
+            }
+          }
+#pragma unroll
+          for (int o_ = 1; o_ < 4; o_ <<= 1) {
+            mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+            mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+          }
+          const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+          // a row masked so far keeps m = -inf; its shift stays finite
+          const float ms_lo = fmaxf(mn_lo, -1e30f), ms_hi = fmaxf(mn_hi, -1e30f);
+          const float al_lo = mn_lo == m_lo ? 1.f : ex2((m_lo - ms_lo) * LOG2E);
+          const float al_hi = mn_hi == m_hi ? 1.f : ex2((m_hi - ms_hi) * LOG2E);
+          const float mb_lo = ms_lo * LOG2E, mb_hi = ms_hi * LOG2E;
+          float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+          for (int j = 0; j < BN / 2; ++j) {
+            sc[j] = ex2(fmaf(sc[j], LOG2E, -((j & 2) ? mb_hi : mb_lo)));
+            if (j & 2) sum_hi += sc[j]; else sum_lo += sc[j];
+          }
+#pragma unroll
+          for (int o_ = 1; o_ < 4; o_ <<= 1) {
+            sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o_);
+            sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o_);
+          }
+          l_lo = l_lo * al_lo + sum_lo;
+          l_hi = l_hi * al_hi + sum_hi;
+          m_lo = mn_lo;
+          m_hi = mn_hi;
+#pragma unroll
+          for (int j = 0; j < DP / 2; ++j) o[j] *= (j & 2) ? al_hi : al_lo;
+
+          // (c) O += P . V, P rounded to bf16 in registers (the accumulator
+          // of two neighbouring 8-key blocks is the A fragment of one
+          // 16-deep k step); V MN-major, its 64-column boxes BN rows apart
+          uint32_t pa[BN / 16][4];
+#pragma unroll
+          for (int j = 0; j < BN / 16; ++j) {
+            pa[j][0] = pack_bf16(sc[8 * j], sc[8 * j + 1]);
+            pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+            pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+            pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+          }
+          fence_acc<DP / 2>(o);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < BN / 16; ++j)
+            tdt::sm90::wgmma_rs_step<DP>(o, pa[j], smem_desc(vt + j * 16 * BOX, BN * BOX * 2,
+                                                             MNMAJOR_SBO), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc<DP / 2>(o);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + st);
+          ++kv;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty + qb);
+        ++qi;
+      }
+
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rr = half ? r_hi : r_lo;
+        if (rr >= tile.rows) continue;
+        const float l = half ? l_hi : l_lo, m = half ? m_hi : m_lo;
+        const size_t gr = head + tile.row0 + rr;
+        if (last) {
+          const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+          for (int nb = 0; nb < DP / 8; ++nb) {
+            const int c = nb * 8 + 2 * tig;
+            if (c < d)
+              *reinterpret_cast<__nv_bfloat162*>(out + gr * d + c) = __floats2bfloat162_rn(
+                  o[nb * 4 + 2 * half] * inv, o[nb * 4 + 2 * half + 1] * inv);
+          }
+          if (tig == 0) lse[gr] = m + logf(fmaxf(l, 1e-30f));
+        } else {
+#pragma unroll
+          for (int nb = 0; nb < DP / 8; ++nb) {
+            const int c = nb * 8 + 2 * tig;
+            if (c < d)
+              *reinterpret_cast<float2*>(acc_st + gr * d + c) =
+                  make_float2(o[nb * 4 + 2 * half], o[nb * 4 + 2 * half + 1]);
+          }
+          if (tig == 0) {
+            m_st[gr] = m;
+            l_st[gr] = l;
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
+// The Hopper engine's launch: tensor maps over [bh, s_loc, d] (q, k, v) and
+// over the landing slots [(world - 1) * 2 * bh, s_loc, d], a persistent grid.
+template <int DP>
+cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, void* lse,
+                        void* m_st, void* l_st, void* acc_st, const void* land_me,
+                        void* land_right, const Geo& G, const Ring& r, int grid,
+                        cudaStream_t s) {
+  using L = wg::Layout<DP>;
+  const long long dims[3] = {G.d, G.s_loc, G.bh};
+  const long long strides[2] = {2LL * G.d, 2LL * G.d * G.s_loc};
+  const long long box_q[3] = {wg::BOX, wg::BM, 1}, box_kv[3] = {wg::BOX, wg::BN, 1};
+  CUtensorMap mq, mk, mv, ml;
+  cudaError_t err = wg::make_map_nd(&mq, q, 3, dims, strides, box_q);
+  if (err == cudaSuccess) err = wg::make_map_nd(&mk, k, 3, dims, strides, box_kv);
+  if (err == cudaSuccess) err = wg::make_map_nd(&mv, v, 3, dims, strides, box_kv);
+  if (err == cudaSuccess) {
+    if (G.world > 1) {
+      const long long land_dims[3] = {G.d, G.s_loc, 2LL * (G.world - 1) * G.bh};
+      err = wg::make_map_nd(&ml, land_me, 3, land_dims, strides, box_kv);
+    } else {
+      ml = mk;  // no landing slot at world 1
+    }
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = wg::ring_attention_sm90_kernel<DP>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::SMEM));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, wg::THREADS, L::SMEM, s>>>(
+      mq, mk, mv, ml, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), static_cast<float*>(m_st),
+      static_cast<float*>(l_st), static_cast<float*>(acc_st), static_cast<const bf16*>(land_me),
+      static_cast<bf16*>(land_right), G, r);
+  return cudaSuccess;
+}
+
 int pow2_at_least(int d, int lo) {
   int p = lo;
   while (p < d) p <<= 1;
@@ -628,6 +1115,46 @@ extern "C" int tdt_ring_attention(const void* q, const void* k, const void* v, v
       err = launch<Mma<128>>(q, k, v, out, lse, m_state, l_state, acc_state, land_me,
                              land_right, G, r, max_blocks, vec, Mma<128>::SMEM, s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K35 on the Hopper engine (wg::ring_attention_sm90_kernel): bf16 q, k, v,
+// out [bh, s_loc, d] with d a multiple of 8 up to 128, q, k, v (and at world
+// > 1 the landing buffers) 16-byte aligned; the other arguments as
+// tdt_ring_attention's, max_blocks the persistent grid's cap at every world
+// (the SMs at world 1).
+extern "C" int tdt_ring_attention_sm90(const void* q, const void* k, const void* v, void* out,
+                                       void* lse, void* m_state, void* l_state,
+                                       void* acc_state, const void* land_me, void* land_right,
+                                       int bh, int s_loc, int d, int causal, int zigzag,
+                                       float scale, int world, int me, void* entry_wait,
+                                       void* entry_signal, void* flags_me, void* flags_right,
+                                       void* count, int epoch, int max_blocks, int jitter,
+                                       void* diag, long long timeout_ns, int family,
+                                       void* stream) {
+  uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v);
+  if (world > 1)
+    ptrs |= reinterpret_cast<uintptr_t>(land_me) | reinterpret_cast<uintptr_t>(land_right);
+  if (bh < 1 || s_loc < 1 || d < 8 || d % 8 != 0 || d > 128 || (zigzag && s_loc % 2) ||
+      world < 1 || world > shmem::RING_MAX_WORLD || me < 0 || me >= world || ptrs % 16 != 0 ||
+      max_blocks < 1 || 2LL * world * bh >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Ring r = {};
+  if (world > 1 && !shmem::make_ring(world, me, epoch, entry_wait, entry_signal, flags_me,
+                                     flags_right, count, jitter, diag, timeout_ns, family, r))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geo G{bh, s_loc, d, world, me, zigzag, causal, scale, (long long)bh * s_loc * d};
+  const long long tiles = (long long)bh * (zigzag ? 2 : 1) *
+                          cdiv(zigzag ? s_loc / 2 : s_loc, wg::BM);
+  const int grid = static_cast<int>(tiles < max_blocks ? tiles : max_blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      d <= 64 ? launch_sm90<64>(q, k, v, out, lse, m_state, l_state, acc_state, land_me,
+                                land_right, G, r, grid, s)
+              : launch_sm90<128>(q, k, v, out, lse, m_state, l_state, acc_state, land_me,
+                                 land_right, G, r, grid, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

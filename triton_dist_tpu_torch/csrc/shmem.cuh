@@ -275,6 +275,24 @@ __device__ __forceinline__ void chunk_piece_done(const ChunkFlags& f, int step, 
   }
 }
 
+// The same for a group of `threads` threads (whole warps) of a warp-
+// specialised block, which meets on named barrier `bar` (1..15) and not at
+// __syncthreads; `leader` is one thread of the group.
+__device__ __forceinline__ void chunk_piece_done_group(const ChunkFlags& f, int step, int chunk,
+                                                       int pieces, int bar, int threads,
+                                                       bool leader) {
+  quiet();
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(threads) : "memory");
+  if (leader) {
+    const int s = ChunkFlags::slot(step, chunk);
+    if (atomicAdd(f.count + s, 1) == pieces - 1) {
+      f.count[s] = 0;
+      __threadfence_system();
+      signal_set(f.peer + s, f.epoch);
+    }
+  }
+}
+
 // putmem_signal_chunked_a2a_nbi_block (shmem/device.py:373), the
 // all-to-all's chunked put (csrc/a2a.cu): the block puts its piece of
 // chunk `chunk` of the slab bound for rank `dst` into that rank's landing
@@ -341,6 +359,13 @@ struct Ring {
     if (step == 0 || key == waited) return;
     wait_chunk(f, step - 1, chunk, world, w);
     waited = key;
+  }
+
+  // the same wait (step > 0) by one thread of a warp-specialised block, at
+  // the same site: true once the chunk has landed, false on a timeout
+  __device__ __forceinline__ bool wait_landed_thread(int step, int chunk) const {
+    const int s = ChunkFlags::slot(step - 1, chunk);
+    return wait_until_ge(f.mine + s, f.epoch, w, world + s, KIND_SIGNAL);
   }
 };
 

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's sm_90a kernels: mbarriers,
-// bulk and 2-D TMA copies, wgmma shared-memory descriptors and products, and
-// setmaxnreg. K1's GEMM (gemm_sm90.cuh), K2/K3's one-launch decode
-// (flash_decode.cu) and K13's verify (flash_verify.cu) use them.
+// bulk, 2-D and 3-D TMA copies, the proxy fences, wgmma shared-memory
+// descriptors and products, and setmaxnreg. K1's GEMM and K6's consumer (gemm_sm90.cuh, dist.cu), K2/K3's
+// one-launch decode (flash_decode.cu), K13's verify (flash_verify.cu) and
+// K35's ring-attention step (ring_attention.cu) use them.
 //
 // wgmma products (d (+)= A . B, m64nNk16, bf16 in, f32 accumulate):
 // - wgmma_m64n{64,128,256}k16<TRANS_B>: A and B from shared-memory
@@ -77,10 +78,30 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// 3-D TMA load of the box at (c0 innermost, c1, c2) into shared memory
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // shared-memory writes of this thread made visible to the async proxy
 // (TMA, wgmma) before a barrier that hands them over
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Device-memory data that another agent wrote (a peer's stores, a copy
+// engine's put) and released on a flag, made visible to this thread's
+// async-proxy reads. A flag acquired with a generic load (shmem.cuh
+// wait_until_ge) orders the generic proxy only: TMA reads through the async
+// proxy and could still see lines from before the release. So the thread
+// that observed the flag issues this fence before its first TMA of that
+// data (K6's shard waits, K35's landing waits).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 // a barrier over `threads` threads (whole warps) of the block, id 1..15
 __device__ __forceinline__ void named_barrier(int id, int threads) {
@@ -288,21 +309,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-D bf16 tensor map: dims {inner, outer} elements, the outer stride in
-// bytes, box {inner, outer}, 128-byte swizzle, zero fill past the edges.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, const long long* dims,
-                            long long stride, const long long* box) {
+// A bf16 tensor map of `rank` (2 or 3) dims: dims innermost first in
+// elements, the rank - 1 outer strides in bytes, the box innermost first;
+// 128-byte swizzle, zero fill past the edges.
+inline cudaError_t make_map_nd(CUtensorMap* map, const void* base, int rank,
+                               const long long* dims, const long long* strides,
+                               const long long* box) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t gdim[2] = {static_cast<cuuint64_t>(dims[0]), static_cast<cuuint64_t>(dims[1])};
-  const cuuint64_t gstride[1] = {static_cast<cuuint64_t>(stride)};
-  const cuuint32_t bdim[2] = {static_cast<cuuint32_t>(box[0]), static_cast<cuuint32_t>(box[1])};
-  const cuuint32_t estride[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  if (rank < 2 || rank > 3) return cudaErrorInvalidValue;
+  cuuint64_t gdim[3], gstride[2];
+  cuuint32_t bdim[3], estride[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    bdim[i] = static_cast<cuuint32_t>(box[i]);
+    if (i + 1 < rank) gstride[i] = static_cast<cuuint64_t>(strides[i]);
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                             gdim, gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D bf16 tensor map: dims {inner, outer} elements, the outer stride in
+// bytes, box {inner, outer}, 128-byte swizzle, zero fill past the edges.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, const long long* dims,
+                            long long stride, const long long* box) {
+  return make_map_nd(map, base, 2, dims, &stride, box);
 }
 
 }  // namespace sm90

@@ -20,7 +20,11 @@ copy engines and a persistent consumer waits per shard:
   (``csrc/dist.cu``), a K1-derived persistent
   kernel of at most floor(SMs / ranks) - 2 blocks, walks the shards in
   arrival order ``me, me-1, ...`` and waits (bounded) for a shard's flag
-  before its first tile of it.
+  before its first tile of it. :func:`ag_gemm_plan` picks its engine: bf16
+  that TMA can load runs K1's warp-specialised ``wgmma`` + TMA mainloop
+  (``tdt_ag_gemm_consumer_sm90``, its producer thread waiting for each
+  shard), at a tile K1's wave rule weighs over the consumer's grid; other
+  bf16 and f32 the mma.sync / FMA consumer (``tdt_ag_gemm_consumer``).
 
 On a context whose ranks do not form a full mesh (``ctx.full_mesh``
 False), or with more than one span, the shards ride the ring as on the
@@ -67,9 +71,17 @@ from triton_dist_tpu_torch.ops.common import (
     stream_ptr,
     symmetric_flags,
 )
-from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, _matmul_plain, check_operands
+from triton_dist_tpu_torch.ops.gemm import (
+    DTYPE_CODE,
+    SM90_TILES,
+    WIDE_TILE_COST,
+    GemmPlan,
+    _matmul_plain,
+    check_operands,
+    tma_ok,
+)
 from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, group_of
+from triton_dist_tpu_torch.utils import axis_size, cdiv, count_call, count_launch, group_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +130,41 @@ def _ag_gemm_ring_plain(a, b, ctx, gather_output, out_dtype, spans):
 _ag_gemm_ring_plain.calls = 0
 
 
+def ag_gemm_plan(m_loc: int, n: int, k: int, world: int, dtype: torch.dtype, *,
+                 aligned: bool = True, blocks: int = 31,
+                 engine: str | None = None) -> GemmPlan:
+    """K6's engine and tile for ``world`` shards of ``[m_loc, k] @ [k, n]``
+    on a persistent grid of at most `blocks` blocks; `aligned` says whether
+    b and the output are 16-byte aligned (the gather workspace is an
+    allocator block, always aligned).
+
+    f32 runs the FMA consumer (``"f32"``). bf16 runs K1's ``wgmma`` + TMA
+    mainloop when :func:`~triton_dist_tpu_torch.ops.gemm.tma_ok`, else the
+    mma.sync consumer. The ``wgmma`` tile is K1's 128x256 unless 128x128
+    finishes in fewer waves of `blocks` tiles (each shard's rows rounded up
+    to whole tiles), a wide tile's wave weighing
+    :data:`~triton_dist_tpu_torch.ops.gemm.WIDE_TILE_COST` narrow ones.
+    `engine` forces one (the chip script's A/B); a forced engine that
+    cannot take the operands raises."""
+    if dtype == torch.float32:
+        if engine not in (None, "f32"):
+            raise ValueError(f"no {engine} engine for an f32 ag_gemm")
+        return GemmPlan("f32")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"ag_gemm takes bf16 or f32, not {dtype}")
+    ok = tma_ok(n, k, aligned)
+    engine = engine or ("wgmma" if ok else "mma_sync")
+    if engine == "mma_sync":
+        return GemmPlan("mma_sync")
+    if engine != "wgmma" or not ok:
+        raise ValueError(f"no {engine} engine for {world} x [{m_loc}, {k}] @ [{k}, {n}] "
+                         f"(aligned={aligned})")
+    tiles = [world * cdiv(m_loc, bm) * cdiv(n, bn) for bm, bn in (SM90_TILES[0], SM90_TILES[1])]
+    waves = [cdiv(t, blocks) for t in tiles]
+    config = 0 if WIDE_TILE_COST * waves[0] <= waves[1] else 1
+    return GemmPlan("wgmma", config, tiles[config], min(tiles[config], blocks))
+
+
 def ag_gemm(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -127,13 +174,19 @@ def ag_gemm(
     gather_output: bool = False,
     out_dtype: torch.dtype | None = None,
     axis=None,
+    _engine: str | None = None,
 ):
     """a ``[m_loc, K]`` token shard, b ``[K, n_loc]`` column shard →
     ``[world * m_loc, n_loc]`` (plus the gathered ``[world * m_loc, K]`` A
     if `gather_output`). Call inside ``ctx.run``; ``ctx=None`` is world 1,
     where the gather is the identity and this is :func:`gemm_only`.
     `axis` (a name or a pair) runs over ``ctx``'s group over it; over a
-    pair, K37."""
+    pair, K37.
+
+    K6 on the card counts on ``launches``, its ``wgmma`` engine also on
+    ``wgmma_launches``. ``_engine`` forces K6's engine (``"wgmma"`` or
+    ``"mma_sync"``, :func:`ag_gemm_plan`; the chip script's A/B, never the
+    main path)."""
     cfg = config or AGGemmConfig()
     out_dtype = out_dtype or a.dtype
     ctx = group_of(ctx, axis)
@@ -154,10 +207,11 @@ def ag_gemm(
         return _ag_gemm_xla(a, b, ctx, gather_output, out_dtype)
     if ring:
         return _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans)
-    return _ag_gemm_fused(a, b, ctx, gather_output, out_dtype)
+    return _ag_gemm_fused(a, b, ctx, gather_output, out_dtype, _engine)
 
 
 ag_gemm.launches = 0
+ag_gemm.wgmma_launches = 0  # K6 on K1's wgmma + TMA mainloop
 
 
 def push_shards(ctx, a: torch.Tensor, family: str, spans=None):
@@ -203,22 +257,34 @@ def push_shards(ctx, a: torch.Tensor, family: str, spans=None):
     return launch, gathered, flags.peer_addr(me)
 
 
-def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype):
+def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype, forced=None):
     check_operands(a, b, out_dtype, "ag_gemm")
     n, me = ctx.world, ctx.rank
     m_loc, k = a.shape
     n_loc = b.shape[1]
     out = torch.empty((n * m_loc, n_loc), dtype=out_dtype, device=a.device)
+    blocks = max_consumer_blocks(ctx)
+    p = ag_gemm_plan(m_loc, n_loc, k, n, a.dtype, blocks=blocks, engine=forced,
+                     aligned=all(t.data_ptr() % 16 == 0 for t in (b, out)))
     launch, gathered, flags = push_shards(ctx, a, "ag_gemm")
 
     # consumer: shards in arrival order, a bounded flag wait per shard
-    rc = launch.lib.tdt_ag_gemm_consumer(
-        gathered.data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_loc, k,
-        DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], n, me, flags,
-        launch.epoch, max_consumer_blocks(ctx), launch.jitter, *launch.wait,
-        stream_ptr(torch.cuda.current_stream()),
-    )
-    _build.check(launch.lib, rc, "ag_gemm")
+    stream = stream_ptr(torch.cuda.current_stream())
+    if p.engine == "wgmma":
+        rc = launch.lib.tdt_ag_gemm_consumer_sm90(
+            gathered.data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_loc, k,
+            DTYPE_CODE[out_dtype], n, me, flags, launch.epoch, p.config, p.grid,
+            launch.jitter, *launch.wait, stream,
+        )
+        _build.check(launch.lib, rc, "ag_gemm (wgmma)")
+        count_launch(ag_gemm, "wgmma_launches")
+    else:
+        rc = launch.lib.tdt_ag_gemm_consumer(
+            gathered.data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_loc, k,
+            DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], n, me, flags,
+            launch.epoch, blocks, launch.jitter, *launch.wait, stream,
+        )
+        _build.check(launch.lib, rc, "ag_gemm")
     count_launch(ag_gemm)
     if gather_output:
         # the workspace is reused by the next call: hand out a copy, taken

@@ -37,6 +37,7 @@ DIST_PROTOTYPES = {
     "tdt_all_gather_collect": [_P, _LL, _P, _P, _I, _I, _I] + _WAIT,
     "tdt_put_signal": [_I, ctypes.POINTER(_LL), _P, _LL, _I, ctypes.POINTER(_LL), _I, _P],
     "tdt_ag_gemm_consumer": [_P] * 3 + [_I] * 7 + [_P, _I, _I, _I] + _WAIT,
+    "tdt_ag_gemm_consumer_sm90": [_P] * 3 + [_I] * 6 + [_P] + [_I] * 4 + _WAIT,
     "tdt_gemm_rs_reduce": [_P] * 3 + [_I] * 6 + [ctypes.POINTER(_P), _I, _P, _I, _I, _I]
     + _WAIT,
     "tdt_ag_group_gemm_consumer": [_P] * 6 + [_I] * 8 + [ctypes.POINTER(_I), _I, _I, _I, _P,

@@ -16,10 +16,14 @@ s_loc)``, ``"zigzag"`` the stripes r and 2n-1-r of ``s_loc / 2`` rows each
 :func:`ring_attention` launches ``csrc/ring_attention.cu`` for tensors on
 the card and runs its plain twin :func:`_ring_attention_plain` (the
 ring-order blockwise online softmax, one chunk a step, after a host
-gather of every rank's (k, v)) for tensors on the CPU. There is no
-fallback: a kernel that does not build or launch raises. The TPU tile
-sizes of :class:`RingAttentionConfig` have no counterpart on the card
-(the kernel fixes its own tiles) and are carried for the mapping.
+gather of every rank's (k, v)) for tensors on the CPU. On the card
+:func:`_ring_attention_engine` picks the kernel: bf16 with a head dim
+TMA can load runs the warp-specialised ``wgmma`` + TMA engine
+(``tdt_ring_attention_sm90``), other bf16 the mma.sync one, f32 the FMA
+one. There is no fallback: a kernel that does not build or launch raises.
+The TPU tile sizes of :class:`RingAttentionConfig` have no counterpart on
+the card (the kernels fix their own tiles) and are carried for the
+mapping.
 
 On the card at world > 1 the wrapper follows the ring kernels' world-4
 rules (``ops/common.py`` ``ring_launch``): every allocation first, then
@@ -43,16 +47,25 @@ from triton_dist_tpu_torch.ops.common import (
     stream_ptr,
 )
 from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE
-from triton_dist_tpu_torch.utils import axis_index, axis_size, count_call, count_launch
+from triton_dist_tpu_torch.utils import (
+    axis_index,
+    axis_size,
+    count_call,
+    count_launch,
+    sm_count,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "tdt_ring_attention": [_P] * 10 + [_I] * 6 + [ctypes.c_float] + [_I, _I] + [_P] * 5
     + [_I] * 3 + _WAIT,
+    "tdt_ring_attention_sm90": [_P] * 10 + [_I] * 5 + [ctypes.c_float] + [_I, _I] + [_P] * 5
+    + [_I] * 3 + _WAIT,
 }
 LAYOUTS = ("contig", "zigzag")
 # the head dims the card takes: bf16 on the tensor cores, f32 on the FMA tile
 MAX_HEAD_DIM = {torch.bfloat16: 128, torch.float32: 256}
+ENGINES = ("wgmma", "mma", "fma")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +156,28 @@ def _ring_attention_plain(q3, k3, v3, ctx, causal: bool, layout: str):
 _ring_attention_plain.calls = 0
 
 
+def _ring_attention_engine(dtype: torch.dtype, d: int, aligned: bool,
+                           forced: str | None = None) -> str:
+    """Which kernel runs K35 on the card: ``"wgmma"`` (the warp-specialised
+    ``wgmma`` + TMA engine, ``ring_attention_sm90_kernel``) for bf16 with d
+    a multiple of 8 and at most 128 and 16-byte aligned q, k, v (and landing
+    buffers); ``"mma"`` (the mma.sync engine) for every other bf16 operand;
+    ``"fma"`` for f32. `forced` (one of :data:`ENGINES`) overrides the
+    choice and raises where that engine cannot take the operands."""
+    if dtype == torch.float32:
+        engine = "fma"
+    else:
+        ok = (dtype == torch.bfloat16 and d % 8 == 0 and d <= MAX_HEAD_DIM[torch.bfloat16]
+              and aligned)
+        engine = "wgmma" if ok else "mma"
+    if forced is None or forced == engine:
+        return engine
+    if forced != "mma" or engine != "wgmma":
+        raise ValueError(f"ring_attention: no {forced} engine for {dtype}, d {d} "
+                         f"(aligned={aligned})")
+    return forced
+
+
 def lse_of(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     """The per-row log-sum-exp the backward takes (``:321-324``)."""
     return m + torch.log(torch.clamp(l, min=1e-30))
@@ -158,13 +193,19 @@ def ring_attention(
     config: RingAttentionConfig | None = None,
     layout: str = "contig",
     return_lse: bool = False,
+    _engine: str | None = None,
 ):
     """Sequence-parallel attention over this rank's shard (call inside
     ``ctx.run``; ``ctx=None`` is world 1). q, k, v ``[b, h, s_loc, d]``
     (MHA: repeat GQA's kv heads first), bf16 or f32 → ``[b, h, s_loc, d]``
     in q's dtype, and with `return_lse` the per-row log-sum-exp ``[b, h,
     s_loc]`` f32 that the backward consumes. The golden is full (causal)
-    attention over the gathered sequence."""
+    attention over the gathered sequence.
+
+    On the card every launch counts on ``launches``, the ``wgmma`` engine's
+    also on ``wgmma_launches``. ``_engine`` (one of :data:`ENGINES`) forces
+    a kernel (the chip script's A/B; never the main path); a forced engine
+    that cannot take the operands raises."""
     del config
     b, h, s_loc, d = q.shape
     check_layout(layout, s_loc)
@@ -176,15 +217,16 @@ def ring_attention(
         out, m, l = _ring_attention_plain(q3, k3, v3, ctx, causal, layout)
         lse = lse_of(m, l)
     else:
-        out, lse = _ring_attention_cuda(q3, k3, v3, ctx, causal, layout)
+        out, lse = _ring_attention_cuda(q3, k3, v3, ctx, causal, layout, _engine)
     out = out.reshape(b, h, s_loc, d)
     return (out, lse.reshape(b, h, s_loc)) if return_lse else out
 
 
 ring_attention.launches = 0
+ring_attention.wgmma_launches = 0  # K35 on the wgmma + TMA engine
 
 
-def _ring_attention_cuda(q3, k3, v3, ctx, causal, layout):
+def _ring_attention_cuda(q3, k3, v3, ctx, causal, layout, forced=None):
     """K35 on this rank's stream: at world 1 one launch, no flags; at world
     > 1 every allocation (the landing buffer, the state, the flags), the
     ranks meet, the launch, the ranks meet again."""
@@ -203,32 +245,48 @@ def _ring_attention_cuda(q3, k3, v3, ctx, causal, layout):
     lib = _build.library("ring_attention", _PROTOTYPES)
     out = torch.empty_like(q3)
     lse = torch.empty((bh, s_loc), dtype=torch.float32, device=q3.device)
+    land = None
+    if n > 1:
+        chunk = bh * s_loc * d * q3.element_size()
+        land = ctx.symmetric("ring_attention.land", (n - 1) * 2 * chunk)
+    ptrs = [x.data_ptr() for x in (q3, k3, v3)]
+    if land is not None:
+        ptrs += [land.peer_addr(me), land.peer_addr((me + 1) % n)]
+    engine = _ring_attention_engine(dtype, d, all(p % 16 == 0 for p in ptrs), forced)
     geo = (bh, s_loc, d, DTYPE_CODE[dtype], int(causal), int(layout == "zigzag"),
            1.0 / math.sqrt(d))
-    if n == 1:
-        rc = lib.tdt_ring_attention(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            None, None, None, None, None, *geo, 1, 0, None, None, None, None, None, 0, 0, 0,
-            None, 0, 0, _build.stream_of(q3))
-        _build.check(lib, rc, "ring_attention")
+
+    def launch_kernel(state, land_ptrs, flags, epoch, blocks, jitter, wait, stream):
+        if engine == "wgmma":
+            rc = lib.tdt_ring_attention_sm90(
+                q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                *state, *land_ptrs, *geo[:3], *geo[4:], n, me, *flags, epoch, blocks, jitter,
+                *wait, stream)
+            _build.check(lib, rc, "ring_attention (wgmma)")
+            count_launch(ring_attention, "wgmma_launches")
+        else:
+            rc = lib.tdt_ring_attention(
+                q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                *state, *land_ptrs, *geo, n, me, *flags, epoch, blocks, jitter, *wait, stream)
+            _build.check(lib, rc, "ring_attention")
         count_launch(ring_attention)
+
+    if n == 1:
+        # the wgmma engine's grid is persistent (one block an SM); the others
+        # launch one block a tile at world 1
+        launch_kernel((None, None, None), (None, None), (None,) * 5, 0,
+                      sm_count(q3.get_device()), 0, (None, 0, 0), _build.stream_of(q3))
         return out, lse
-    chunk = bh * s_loc * d * q3.element_size()
-    land = ctx.symmetric("ring_attention.land", (n - 1) * 2 * chunk)
     m_st = torch.empty((bh, s_loc), dtype=torch.float32, device=q3.device)
     l_st = torch.empty_like(m_st)
     acc_st = torch.empty((bh, s_loc, d), dtype=torch.float32, device=q3.device)
     ring = ring_launch(ctx, "ring_attention", ((0, 1),))
     launch = ring.launch
     ctx.rendezvous()  # every rank's buffers and flags exist before any kernel stores
-    rc = lib.tdt_ring_attention(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        m_st.data_ptr(), l_st.data_ptr(), acc_st.data_ptr(), land.peer_addr(me),
-        land.peer_addr(ring.right), *geo, n, me, *ring.flags, launch.epoch,
-        max_consumer_blocks(ctx), launch.jitter, *launch.wait,
-        stream_ptr(torch.cuda.current_stream()))
-    _build.check(lib, rc, "ring_attention")
-    count_launch(ring_attention)
+    launch_kernel((m_st.data_ptr(), l_st.data_ptr(), acc_st.data_ptr()),
+                  (land.peer_addr(me), land.peer_addr(ring.right)), ring.flags, launch.epoch,
+                  max_consumer_blocks(ctx), launch.jitter, launch.wait,
+                  stream_ptr(torch.cuda.current_stream()))
     ctx.rendezvous()  # every rank's kernel is issued before any rank goes on
     return out, lse
 
