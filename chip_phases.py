@@ -27,7 +27,14 @@ A, B, B, A, compare two versions on one card. Phases:
 ``usp_attention``, ``kv_stream``, ``f32_parity_ep``, ``f32_parity_train``,
 ``ring_attention`` (K35 at world 4 and 1, the wgmma + TMA engine beside the
 mma.sync one), ``ag_gemm`` (K6 at world 4, the wgmma + TMA engine beside
-the mma.sync one), ``train_sp`` (the sequence-parallel train steps, K35).
+the mma.sync one), ``train_sp`` (the sequence-parallel train steps, K35),
+``group_gemm`` (K8), ``group_gemm_ragged`` (K29) and ``gemm_rs`` (K7 at
+world 4), each on its wgmma + TMA engine beside the mma.sync one,
+``stuck_wait`` (the barrier's and K7's stuck waits), ``moe_serves``
+(``serve_moe`` and ``serve_moe_tp4``, ``serve_moe_ep4`` and ``_q``, then
+their ragged twins ``serve_moe_ep4_ragged`` and ``serve_moe_tp4_ragged``,
+which read the padded serves' tokens), ``train_moe_ragged`` (``train_moe``
+and ``train_moe_tp4``, then the ragged steps, which read their readings).
 """
 
 from __future__ import annotations
@@ -148,8 +155,26 @@ def main(argv: list[str]) -> int:
         finally:
             ctx.close()
 
+    def moe_serves(c):
+        cs.phase_serve_moe(c)
+        torch.cuda.empty_cache()
+        cs.phase_serve_moe_ep(c)
+        torch.cuda.empty_cache()
+        cs.phase_serve_moe_ragged(c)
+
+    def train_moe_ragged(c):
+        cs.phase_train_moe(c)
+        torch.cuda.empty_cache()
+        cs.phase_train_moe_ragged(c)
+
     phases = {
         "gemm": lambda c: cs.emit({"kernels": [cs.phase_gemm()]}),
+        "group_gemm": lambda c: cs.emit({"kernels": [cs.phase_group_gemm()]}),
+        "group_gemm_ragged": lambda c: cs.emit({"kernels": [cs.phase_group_gemm_ragged()]}),
+        "gemm_rs": lambda c: at_world(cs.phase_gemm_rs),
+        "stuck_wait": lambda c: cs.phase_stuck_wait(),
+        "moe_serves": moe_serves,
+        "train_moe_ragged": train_moe_ragged,
         "gemm_small_m": lambda c: gemm_small_m(cs),
         "flash_decode": lambda c: cs.emit({"kernels": [cs.phase_flash_decode()]}),
         "paged_flash_decode": lambda c: cs.emit({"kernels": [cs.phase_paged_flash_decode()]}),

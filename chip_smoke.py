@@ -24,14 +24,16 @@ Phases, each printed as a JSON line, each fatal on failure:
 7. world 4, every rank on the one card (the rank runtime of
    ``parallel/mesh.py``): the barrier K4 (1000 back to back under per-rank
    skew), the full-mesh allgather K5 (bit-exact), AG-GEMM K6 (its wgmma +
-   TMA engine beside the mma.sync one) and GEMM-RS K7 at the per-rank
+   TMA engine beside the mma.sync one) and GEMM-RS K7 (its wgmma + TMA
+   producer and consumer beside the earlier schedule) at the per-rank
    shapes of a 4-way Llama-3.1-70B, each against its plain version and
-   timed beside its bound; a stuck wait that must raise with its record
-   instead of hanging;
+   timed beside its bound; stuck waits (the barrier, K7's new consumer)
+   that must raise with their records instead of hanging;
 8. ``serve_tp4``: ``ServingEngine`` at world 4 serving a Llama-3.1-70B-wide
    model cut to 8 of its 80 layers (bf16, random seeded weights), paged
-   cache, bulk prefill, 8 requests — with the launch counts that show K1,
-   K3-K7 carried it (plain versions: 0; every K6 on its wgmma engine) —
+   cache, bulk prefill, 8 requests — with the launch counts that show
+   K3-K7 carried it (plain versions: 0; every K6 and K7 on its wgmma
+   engine) —
    and its prefill logits against
    the world-1 plain-GEMM forward on the same weights;
 9. parity at world 4: f32, 2 layers at full 70B width, greedy tokens of the
@@ -40,7 +42,7 @@ Phases, each printed as a JSON line, each fatal on failure:
 10. the MoE kernels at the served Mixtral-8x7B shapes, each against its
    plain version: the grouped GEMM K8 (world-1 prefill of 2048 tokens,
    t_pad 5120: the up-projection and the down-projection with the GELU
-   fused), and at world 4 the AG-GroupGEMM K9 and the MoE-Reduce-RS K10
+   fused; its wgmma + TMA engine beside the mma.sync one), and at world 4 the AG-GroupGEMM K9 and the MoE-Reduce-RS K10
    (512 tokens a rank, F shard 3584), with a stuck K10 wait that must raise;
 11. ``serve_moe``: ``ServingEngine`` at world 1 serving Mixtral-8x7B widths
    (8 experts, top-2) cut to 8 of 32 layers, the same traffic as phase 4 —
@@ -140,8 +142,9 @@ Phases, each printed as a JSON line, each fatal on failure:
    the end, ``layers_ep``: ``EPMoEMLP`` at Mixtral widths with two and three
    spans (K28), bit-identical to the whole-slab layer.
 28. ragged expert rows (``GroupGemmConfig(ragged=True)``): the ragged
-   grouped GEMM K29 (bf16, int8, fp8) on ``serve_moe_ep4``'s received
-   prefill slab, and at world 4 the ragged AG-GroupGEMM K30 and
+   grouped GEMM K29 (bf16, int8, fp8; bf16 on its wgmma + TMA engine
+   beside the mma.sync one) on ``serve_moe_ep4``'s received prefill slab,
+   and at world 4 the ragged AG-GroupGEMM K30 and
    MoE-Reduce-RS K31 at ``serve_moe_tp4``'s shard shapes, each against its
    plain twin and its padded kernel on the same inputs (live rows
    bit-equal, dead rows zero; K31 bit-equal), timed beside the padded
@@ -406,6 +409,9 @@ class Counters:
             # K35 and K6 on their wgmma + TMA engines
             "ring_attention_wgmma": (ra.ring_attention, "wgmma_launches"),
             "ag_gemm_wgmma": (allgather_gemm.ag_gemm, "wgmma_launches"),
+            # K8/K29 and K7 on K1's wgmma + TMA mainloop
+            "group_gemm_wgmma": (gg.group_gemm, "wgmma_launches"),
+            "gemm_rs_wgmma": (grs.gemm_rs, "wgmma_launches"),
             # the 2-D rings over an axis pair (K36, K37)
             "all_gather_2d": allgather._all_gather_ring_2d,
             "ag_gemm_2d": allgather_gemm._ag_gemm_ring_2d,
@@ -988,12 +994,13 @@ def dist_ms(ctx, fn, iters: int, warmup: int = 2) -> float:
     return max(t0.elapsed_time(t1) for t0, t1 in spans) / iters
 
 
-def dist_kernel_ms(ctx, fn, match: str, iters: int = 3) -> float:
-    """Device time of one rank's kernels whose name holds `match`, a call
-    of `fn` on every rank at once: torch.profiler over `iters` calls, the
-    matching kernels' device time summed and divided by the calls and the
-    ranks (the ranks run at once, so this is a rank's kernel time a call,
-    without the host's rendezvous that ``dist_ms`` counts)."""
+def dist_kernel_ms(ctx, fn, match, iters: int = 3) -> float:
+    """Device time of one rank's kernels whose name holds `match` (a name,
+    or a tuple of names), a call of `fn` on every rank at once:
+    torch.profiler over `iters` calls, the matching kernels' device time
+    summed and divided by the calls and the ranks (the ranks run at once,
+    so this is a rank's kernel time a call, without the host's rendezvous
+    that ``dist_ms`` counts)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1002,8 +1009,9 @@ def dist_kernel_ms(ctx, fn, match: str, iters: int = 3) -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ctx.run(lambda: [fn() for _ in range(iters)])
         torch.cuda.synchronize()
+    names = (match,) if isinstance(match, str) else match
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type.name == "CUDA" and match in e.key)
+             if e.device_type.name == "CUDA" and any(m in e.key for m in names))
     return us / 1e3 / iters / ctx.world
 
 
@@ -1172,15 +1180,25 @@ def phase_ag_gemm(ctx) -> dict:
 
 def phase_gemm_rs(ctx) -> dict:
     """K7 at the per-rank shapes of a 4-way Llama-3.1-70B prefill (2048
-    rows): the row projections wo (k_loc 2048) and down (7168), N 8192."""
+    rows): the row projections wo (k_loc 2048) and down (7168), N 8192, on
+    the routed wgmma + TMA engine (``ms``: one producer launch and the
+    consumer) and, forced, the earlier schedule (``prev_ms``: K1 GEMMs, the
+    copy-engine puts and the mma.sync consumer), each within two bf16 ulps
+    of the plain version; ``kernel_ms`` / ``prev_kernel_ms`` are the
+    kernels' own device time a rank and call (torch.profiler: the producer
+    and the consumer, or the K1 GEMMs and the consumer), without the entry
+    barrier, the puts and the host rendezvous that ``ms`` holds."""
     import torch
+    from triton_dist_tpu_torch.ops import common
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
 
     g = torch.Generator(device="cuda").manual_seed(13)
     m_tot, n = 2048, 8192
     m_loc = m_tot // WORLD
-    rows, worst, total = [], 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
-                                       bytes=0.0)
+    rows, worst = [], 0.0
+    total = dict(ms=0.0, prev_ms=0.0, kernel_ms=0.0, prev_kernel_ms=0.0, plain_ms=0.0,
+                 library_ms=0.0, flops=0.0, bytes=0.0)
+    blocks = ctx.run(lambda: common.max_consumer_blocks(ctx))[0]
     for name, k_loc in (("wo", 2048), ("down", 7168)):
         a = [torch.randn((m_tot, k_loc), generator=g, device="cuda").bfloat16()
              for _ in range(WORLD)]
@@ -1191,18 +1209,34 @@ def phase_gemm_rs(ctx) -> dict:
             # f32 product per rank, summed over ranks, split
             return sum(a[r].float() @ b[r].float() for r in range(WORLD)).bfloat16()
 
+        def call(engine=None):
+            return lambda: grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, _engine=engine)
+
         full = plain()
-        outs = ctx.run(lambda: grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx))
-        errs = [_check_bf16(f"gemm_rs {name} rank {r}", out, full[r * m_loc:(r + 1) * m_loc],
-                            factor=2.0)
-                for r, out in enumerate(outs)]
-        err, tol = max(errs)
+        errs = {}
+        for engine in ("wgmma", "mma_sync"):
+            before = grs.gemm_rs.wgmma_launches
+            outs = ctx.run(lambda engine=engine: [call(engine)() for _ in range(2)])
+            if grs.gemm_rs.wgmma_launches != before + (2 * WORLD if engine == "wgmma" else 0):
+                raise AssertionError(f"gemm_rs {name}: the {engine} engine was not the one run")
+            errs[engine] = max(_check_bf16(f"gemm_rs {name} ({engine}) rank {r} call {i}",
+                                           out, full[r * m_loc:(r + 1) * m_loc], factor=2.0)
+                               for r, pair in enumerate(outs) for i, out in enumerate(pair))
+            del outs
+        (err, tol), prev_err = errs["wgmma"], errs["mma_sync"][0]
         worst = max(worst, err)
         flops = WORLD * 2.0 * m_tot * k_loc * n
         nbytes = 2.0 * (WORLD * m_tot * k_loc + WORLD * k_loc * n + m_tot * n)
         row = dict(
-            shape=[m_tot, k_loc, n], max_abs_err=err, tol=tol,
-            ms=dist_ms(ctx, lambda: grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx), iters=5),
+            shape=[m_tot, k_loc, n], max_abs_err=err, prev_max_abs_err=prev_err, tol=tol,
+            config=grs.gemm_rs_plan(m_loc, n, k_loc, WORLD, torch.bfloat16,
+                                    blocks=blocks).config,
+            ms=dist_ms(ctx, call(), iters=5),
+            prev_ms=dist_ms(ctx, call("mma_sync"), iters=5),
+            kernel_ms=dist_kernel_ms(ctx, call(), ("gemm_rs_producer_kernel",
+                                                   "gemm_rs_sm90_kernel")),
+            prev_kernel_ms=dist_kernel_ms(ctx, call("mma_sync"), ("gemm_sm90_kernel",
+                                                                  "gemm_rs_kernel")),
             plain_ms=cuda_ms(plain, iters=2),
             library_ms=cuda_ms(lambda: sum(torch.matmul(a[r], b[r]) for r in range(WORLD)),
                                iters=3),
@@ -1210,18 +1244,24 @@ def phase_gemm_rs(ctx) -> dict:
         )
         row["tflops"] = flops / row["ms"] / 1e9
         rows.append({name: row})
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "prev_ms", "kernel_ms", "prev_kernel_ms", "plain_ms", "library_ms"):
             total[key] += row[key]
         total["flops"] += flops
         total["bytes"] += nbytes
-        del a, b, full, outs
-    emit({"phase": "kernel", "kernel": "gemm_rs", "world": WORLD, "per_shape": rows})
+        del a, b, full
+    emit({"phase": "kernel", "kernel": "gemm_rs", "world": WORLD, "per_shape": rows,
+          "prev_engine": "K1 GEMMs + copy-engine puts + mma.sync consumer (gemm_rs_kernel)",
+          "sums": {k_: total[k_] for k_ in ("ms", "prev_ms", "kernel_ms", "prev_kernel_ms",
+                                            "library_ms")}})
     b_ms, by = bound(total["flops"], total["bytes"])
     return dict(
         name="gemm_rs", route="cuda", source="triton_dist_tpu_torch/csrc/dist.cu",
         replaces="triton_dist_tpu/ops/gemm_reduce_scatter.py:99", max_abs_err=worst,
         ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
-        library_ms=total["library_ms"],
+        library_ms=total["library_ms"], prev_ms=total["prev_ms"],
+        kernel_ms=total["kernel_ms"], prev_kernel_ms=total["prev_kernel_ms"],
+        engine="wgmma + TMA (gemm_sm90.cuh's mainloop: gemm_rs_producer_kernel, "
+               "gemm_rs_sm90_kernel)",
         shapes=f"world {WORLD}: a [2048, k_loc] a rank, k_loc 2048 and 7168, N 8192 (summed)",
     )
 
@@ -1253,9 +1293,64 @@ def phase_stuck_wait() -> None:
         raise AssertionError("a stuck wait did not raise")
     if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, "barrier", 1)]:
         raise AssertionError(f"stuck wait: unexpected records {recs}")
-    emit({"phase": "stuck_wait", "raised_after_s": time.perf_counter() - t0,
-          "records": recs})
+    raised_s = time.perf_counter() - t0
     ctx.close()
+    k7_recs, k7_s = _stuck_wait_gemm_rs()
+    emit({"phase": "stuck_wait", "raised_after_s": raised_s, "records": recs,
+          "gemm_rs_wgmma_records": k7_recs, "gemm_rs_wgmma_raised_after_s": k7_s})
+
+
+def _stuck_wait_gemm_rs():
+    """K7's wgmma consumer with a peer far too late: world 2, bf16, rank 1's
+    stream held 2 s just after its entry barrier (its barrier passes, its
+    producer is late), timeout 0.2 s. Rank 0's consumer wait for landing
+    slot 0 must expire and the run raise with its record (family gemm_rs,
+    site world + 0, the wait for rank 1's chunk) — not hang."""
+    import torch
+    from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import common
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+    from triton_dist_tpu_torch.resilience.records import DistTimeoutError
+
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    a = [torch.randn((256, 512), generator=g, device="cuda").bfloat16() for _ in range(2)]
+    b = [(torch.randn((512, 1024), generator=g, device="cuda") / 512**0.5).bfloat16()
+         for _ in range(2)]
+    barrier, stuck = grs.launch_barrier, False
+
+    def late(ctx_, launch, flags, stream):
+        barrier(ctx_, launch, flags, stream)
+        if ctx_.rank == 1 and stuck:
+            with torch.cuda.stream(stream):
+                common.sleep_on_stream(2_000_000_000)
+
+    def call():
+        return grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx)
+
+    grs.launch_barrier = late
+    before = grs.gemm_rs.wgmma_launches
+    t0 = time.perf_counter()
+    try:
+        ctx.run(call)
+        if grs.gemm_rs.wgmma_launches != before + 2:
+            raise AssertionError("stuck K7 wait: the bf16 call missed the wgmma engine")
+        stuck = True
+        t0 = time.perf_counter()
+        with config.wait_timeout(0.2):
+            ctx.run(call)
+    except DistTimeoutError as err:
+        recs = err.records
+    else:
+        raise AssertionError("a stuck K7 wait did not raise")
+    finally:
+        grs.launch_barrier = barrier
+    raised_s = time.perf_counter() - t0
+    if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, "gemm_rs", 2)]:
+        raise AssertionError(f"stuck K7 wait: unexpected records {recs}")
+    ctx.close()
+    return recs, raised_s
 
 
 def phase_serve_tp4(counters: Counters) -> dict:
@@ -1294,13 +1389,16 @@ def phase_serve_tp4(counters: Counters) -> dict:
         if len(res.tokens) != max_new or not all(0 <= t < cfg.vocab for t in res.tokens):
             raise AssertionError(f"{uid}: bad tokens {res.tokens}")
     launches, plain = counts["launches"], counts["plain_calls"]
-    used = ("gemm", "ag_gemm", "gemm_rs", "all_gather", "paged_flash_decode", "barrier",
-            "ag_gemm_wgmma")
+    used = ("ag_gemm", "gemm_rs", "all_gather", "paged_flash_decode", "barrier",
+            "ag_gemm_wgmma", "gemm_rs_wgmma")
     if any(launches[k] <= 0 for k in used):
         raise AssertionError(f"serve_tp4 skipped a kernel: {launches}")
-    # every column projection (k 8192, n_loc a multiple of 8) on K6's wgmma engine
+    # every column projection (k 8192, n_loc a multiple of 8) on K6's wgmma
+    # engine, every row projection on K7's
     if launches["ag_gemm_wgmma"] != launches["ag_gemm"]:
         raise AssertionError(f"serve_tp4: K6 off its wgmma engine: {launches}")
+    if launches["gemm_rs_wgmma"] != launches["gemm_rs"]:
+        raise AssertionError(f"serve_tp4: K7 off its wgmma engine: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card path: {plain}")
     n_tok = sum(len(r.tokens) for r in done.values())
@@ -1513,8 +1611,10 @@ def phase_group_gemm() -> dict:
     """K8 at the world-1 MoE prefill shapes: 2048 tokens (8 x 256) routed
     top-2 over 8 experts, t_pad 5120 rows: the up-projection [5120, 4096] x
     [8, 4096, 14336] and the down-projection with the GELU fused [5120,
-    14336] x [8, 14336, 4096] to f32; first a few ragged shapes and the f32
-    engine."""
+    14336] x [8, 14336, 4096] to f32, on the routed wgmma + TMA engine
+    (``ms``) and, forced, the mma.sync engine it replaces (``prev_ms``),
+    both within one bf16 ulp of the plain version; first a few ragged
+    shapes (each engine) and the f32 engine."""
     import torch
     from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import moe_utils as mu
@@ -1529,12 +1629,14 @@ def phase_group_gemm() -> dict:
         al = mu.moe_align_block_size(ids.reshape(-1), n_exp, bm)
         a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g, device="cuda").to(dtype)
         b = (torch.randn((n_exp, k, n), generator=g, device="cuda") / k**0.5).to(dtype)
-        got = gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype, act_fn=act)
         ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act)
-        if dtype == bf16:
-            _check_bf16(f"group_gemm {tokens}x{k}x{n}", got, ref)
-        elif not (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item():
-            raise AssertionError(f"group_gemm f32 {tokens}x{k}x{n}")
+        for engine in ((None, "mma_sync") if dtype == bf16 else (None,)):
+            got = gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype, act_fn=act,
+                                _engine=engine)
+            if dtype == bf16:
+                _check_bf16(f"group_gemm {tokens}x{k}x{n} ({engine or 'routed'})", got, ref)
+            elif not (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item():
+                raise AssertionError(f"group_gemm f32 {tokens}x{k}x{n}")
 
     tokens = 8 * 256
     _, ids = _moe_route(g, tokens, n_exp, topk)
@@ -1542,25 +1644,34 @@ def phase_group_gemm() -> dict:
     t_pad = al.sorted_token_ids.shape[0]
     used = int((torch.bincount(ids.reshape(-1).long(), minlength=n_exp) > 0).sum().item())
     rows, worst = [], 0.0
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    total = dict(ms=0.0, prev_ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
     libs = set()
     for name, (k, n, act, out_dtype) in {"up": (4096, 14336, None, bf16),
                                          "down_gelu": (14336, 4096, gg.gelu, f32)}.items():
         a = torch.randn((t_pad, k), generator=g, device="cuda").to(bf16)
         b = (torch.randn((n_exp, k, n), generator=g, device="cuda") / k**0.5).to(bf16)
-        got = gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype, act_fn=act)
         ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act)
-        err, tol = _check_bf16(f"group_gemm {name}", got, ref)
+        errs = {}
+        for engine in ("wgmma", "mma_sync"):
+            got = gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype, act_fn=act,
+                                _engine=engine)
+            errs[engine] = _check_bf16(f"group_gemm {name} ({engine})", got, ref)
+            del got
+        (err, tol), prev_err = errs["wgmma"], errs["mma_sync"][0]
         worst = max(worst, err)
-        del got, ref
+        del ref
         flops = 2.0 * t_pad * k * n
         nbytes = 2.0 * t_pad * k + 2.0 * used * k * n + t_pad * n * (4 if out_dtype == f32 else 2)
         lib_fn, lib_name = _grouped_mm_library(a, b, al.expert_ids, act, out_dtype)
         libs.add(lib_name)
         row = dict(
-            shape=[t_pad, k, n], gelu=act is not None, max_abs_err=err, tol=tol,
+            shape=[t_pad, k, n], gelu=act is not None, max_abs_err=err,
+            prev_max_abs_err=prev_err, tol=tol,
+            config=gg.group_gemm_plan(t_pad, n, k, bf16).config,
             ms=cuda_ms(lambda: gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype,
                                              act_fn=act), iters=10),
+            prev_ms=cuda_ms(lambda: gg.group_gemm(a, b, al.expert_ids, out_dtype=out_dtype,
+                                                  act_fn=act, _engine="mma_sync"), iters=10),
             plain_ms=event_ms(lambda: gg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype,
                                                            act), iters=2),
             library_ms=event_ms(lib_fn, iters=10), library=lib_name,
@@ -1568,19 +1679,20 @@ def phase_group_gemm() -> dict:
         )
         row["tflops"] = flops / row["ms"] / 1e9
         rows.append({name: row})
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "prev_ms", "plain_ms", "library_ms"):
             total[key] += row[key]
         total["flops"] += flops
         total["bytes"] += nbytes
         del a, b
     emit({"phase": "kernel", "kernel": "group_gemm", "t_pad": t_pad, "experts_used": used,
-          "per_shape": rows})
+          "per_shape": rows, "prev_engine": "mma.sync (group_gemm_kernel<Bf16Engine>)"})
     b_ms, by = bound(total["flops"], total["bytes"])
     return dict(
         name="group_gemm", route="cuda", source="triton_dist_tpu_torch/csrc/group_gemm.cu",
         replaces="triton_dist_tpu/ops/gg_pipeline.py:87", max_abs_err=worst,
         ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
         library_ms=total["library_ms"], library=" + ".join(sorted(libs)),
+        prev_ms=total["prev_ms"], engine="wgmma + TMA (group_gemm_sm90_kernel)",
         shapes=f"t_pad {t_pad} (2048 tokens, top-2 of 8): up 4096->14336, down 14336->4096 "
                f"with GELU, f32 out (summed)",
     )
@@ -2035,6 +2147,9 @@ def phase_serve_moe(counters: Counters) -> tuple[dict, dict]:
     launches = one["launches"]
     if any(launches[k] <= 0 for k in ("group_gemm", "gemm", "paged_flash_decode")):
         raise AssertionError(f"serve_moe skipped a kernel: {launches}")
+    # every expert GEMM (bf16, Mixtral widths: TMA-loadable) on K8's wgmma engine
+    if launches["group_gemm_wgmma"] != launches["group_gemm"]:
+        raise AssertionError(f"serve_moe: K8 off its wgmma engine: {launches}")
     emit({"phase": "serve_moe", "model": MOE_MODEL, "n_layers": n_layers, "world": 1,
           "batch": 8, "s_max": 1024, "page_size": 16, "prompt_lens": lengths,
           "max_new_tokens": 32, **one})
@@ -2058,10 +2173,13 @@ def phase_serve_moe(counters: Counters) -> tuple[dict, dict]:
     tp4["padding_row_share"] = 1 - tp_moe_mlp.assignments / tally(tp_moe_mlp.live_rows)
     SERVES["serve_moe_tp4"] = dict(tp4, outputs=_serve.outputs)
     launches4 = tp4["launches"]
-    used = ("ag_group_gemm", "moe_reduce_rs", "group_gemm", "ag_gemm", "gemm_rs", "gemm",
-            "all_gather", "paged_flash_decode", "barrier")
+    used = ("ag_group_gemm", "moe_reduce_rs", "group_gemm", "ag_gemm", "gemm_rs",
+            "gemm_rs_wgmma", "all_gather", "paged_flash_decode", "barrier")
     if any(launches4[k] <= 0 for k in used):
         raise AssertionError(f"serve_moe_tp4 skipped a kernel: {launches4}")
+    if (launches4["group_gemm_wgmma"] != launches4["group_gemm"]
+            or launches4["gemm_rs_wgmma"] != launches4["gemm_rs"]):
+        raise AssertionError(f"serve_moe_tp4: K8 or K7 off its wgmma engine: {launches4}")
     emit({"phase": "serve_moe_tp4", "model": MOE_MODEL, "n_layers": n_layers, "world": WORLD,
           "batch": 8, "s_max": 1024, "page_size": 16, "prompt_lens": lengths,
           "max_new_tokens": 32, **tp4})
@@ -4505,7 +4623,8 @@ def phase_serve_moe_quant(counters: Counters) -> tuple[dict, dict, dict]:
             tp4 = _serve(cfg, params, reqs, counters, ctx=ctx)
             launches4 = tp4["launches"]
             used = ("ag_group_gemm_scaled", "moe_reduce_rs_scaled", "group_gemm_scaled",
-                    "ag_gemm", "gemm_rs", "gemm", "all_gather", "paged_flash_decode", "barrier")
+                    "ag_gemm", "gemm_rs", "gemm_rs_wgmma", "all_gather", "paged_flash_decode",
+                    "barrier")
             if any(launches4[k] <= 0 for k in used) or any(
                     launches4[k] for k in ("ag_group_gemm", "moe_reduce_rs", "group_gemm")):
                 raise AssertionError(f"serve_moe_tp4_w8 took the wrong kernels: {launches4}")
@@ -4800,7 +4919,7 @@ def phase_serve_moe_ep(counters: Counters) -> tuple[dict, dict]:
         gemm_rows, assigned = EPMoEMLP.rows, EPMoEMLP.assignments
         launches = res["launches"]
         experts = "group_gemm" if quant is None else "group_gemm_scaled"
-        used = ("all_to_all", experts, "ag_gemm", "gemm_rs", "gemm", "all_gather",
+        used = ("all_to_all", experts, "ag_gemm", "gemm_rs", "gemm_rs_wgmma", "all_gather",
                 "paged_flash_decode", "barrier")
         unused = ("ag_group_gemm", "moe_reduce_rs", "ag_group_gemm_scaled",
                   "moe_reduce_rs_scaled", "all_to_all_chunked", "group_gemm_ragged",
@@ -5046,20 +5165,23 @@ def _packed_library(a, counts, b, scale, act, out_dtype):
 
 def _ragged_entry(name, source, replaces, per_fmt, shapes, library):
     """One kernels-line entry of a ragged kernel: the bf16 readings as its
-    columns, all three formats' under ``formats``, the worst error."""
+    columns (with the earlier engine's in the same call, where it has
+    one), all three formats' under ``formats``, the worst error."""
     head = per_fmt["bf16"]
+    prev = {k: head[k] for k in ("prev_ms", "padded_prev_ms", "engine") if k in head}
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, policy="ragged rows",
         max_abs_err=max(f["max_abs_err"] for f in per_fmt.values()),
         ms=head["ms"], padded_ms=head["padded_ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
-        library=library, formats=per_fmt, shapes=shapes,
+        library=library, formats=per_fmt, shapes=shapes, **prev,
     )
 
 
 def _sum_rows(rows):
     keys = ("ms", "padded_ms", "plain_ms", "library_ms", "flops", "bytes")
-    keys += ("all_dead_ms",) if "all_dead_ms" in rows[0] else ()
+    keys += tuple(k for k in ("all_dead_ms", "prev_ms", "padded_prev_ms", "all_dead_prev_ms")
+                  if k in rows[0])
     out = {k: sum(r[k] for r in rows) for k in keys}
     out["bound_ms"], out["bound_by"] = bound(out.pop("flops"), out.pop("bytes"))
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -5076,9 +5198,11 @@ def phase_group_gemm_ragged() -> dict:
     256-row blocks at small shapes. Each against its plain twin, against
     K8/K24 on the same inputs (live rows bit-equal, dead rows zero), timed
     beside K8/K24, the plain twin, the library over the packed live rows,
-    and itself with every tile dead (what the skipped tiles cost: one map
-    read each and their zero stores); the bound counts the live work
-    only."""
+    and itself with every tile dead (what the skipped tiles cost: their
+    zero stores); the bound counts the live work only. bf16 runs the
+    routed wgmma + TMA engine; ``prev_ms`` / ``padded_prev_ms`` /
+    ``all_dead_prev_ms`` are the mma.sync engine's readings of the same
+    calls, its outputs held to the same checks."""
     import torch
     from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import moe_utils as mu
@@ -5095,16 +5219,23 @@ def phase_group_gemm_ragged() -> dict:
             a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g,
                             device="cuda").to(dtype)
             b, sc = _ragged_bank(g, (4, k, n), fmt, dtype)
-            got = gg.group_gemm(a, b, al.expert_ids, valid_rows=al.valid_rows, scale=sc,
-                                config=gg.GroupGemmConfig(bm, ragged=True), act_fn=act)
-            pad = gg.group_gemm(a, b, al.expert_ids, scale=sc, config=gg.GroupGemmConfig(bm),
-                                act_fn=act)
             ref = gg._group_gemm_plain(a, b, al.expert_ids, bm, dtype, act, sc, al.valid_rows)
             live = _live_mask(al.valid_rows, bm)
             name = f"group_gemm_ragged {fmt} {tokens}x{k}x{n} bm {bm}"
             if dtype == bf16:
-                _check_ragged(name, got, pad, ref, live)
+                for engine in ((None, "mma_sync") if sc is None else (None,)):
+                    got = gg.group_gemm(a, b, al.expert_ids, valid_rows=al.valid_rows,
+                                        scale=sc, config=gg.GroupGemmConfig(bm, ragged=True),
+                                        act_fn=act, _engine=engine)
+                    pad = gg.group_gemm(a, b, al.expert_ids, scale=sc,
+                                        config=gg.GroupGemmConfig(bm), act_fn=act,
+                                        _engine=engine)
+                    _check_ragged(f"{name} ({engine or 'routed'})", got, pad, ref, live)
                 continue
+            got = gg.group_gemm(a, b, al.expert_ids, valid_rows=al.valid_rows, scale=sc,
+                                config=gg.GroupGemmConfig(bm, ragged=True), act_fn=act)
+            pad = gg.group_gemm(a, b, al.expert_ids, scale=sc, config=gg.GroupGemmConfig(bm),
+                                act_fn=act)
             rel = ((got - ref).abs().max() / ref.abs().max()).item()
             if not (rel <= (1e-4 if sc is None else 1e-5) and torch.equal(got[live], pad[live])
                     and not got[~live].any()):
@@ -5129,35 +5260,47 @@ def phase_group_gemm_ragged() -> dict:
             a = torch.randn((t_pad, k), generator=g, device="cuda").to(bf16)
             b, sc = _ragged_bank(g, (EP_EPR, k, n), fmt)
 
-            def kern():
-                return gg.group_gemm(a, b, al.expert_ids, valid_rows=valid, scale=sc,
-                                     config=cfg, act_fn=act)
+            def kern(engine=None, rows=valid):
+                return gg.group_gemm(a, b, al.expert_ids, valid_rows=rows, scale=sc,
+                                     config=cfg, act_fn=act, _engine=engine)
 
-            def padded():
-                return gg.group_gemm(a, b, al.expert_ids, scale=sc, config=pcfg, act_fn=act)
+            def padded(engine=None):
+                return gg.group_gemm(a, b, al.expert_ids, scale=sc, config=pcfg, act_fn=act,
+                                     _engine=engine)
 
             def plain():
                 return gg._group_gemm_plain(a, b, al.expert_ids, MOE_BLOCK, bf16, act, sc,
                                             valid)
 
-            chk = _check_ragged(f"group_gemm_ragged {fmt} {name}", kern(), padded(), plain(),
-                                live)
+            ref = plain()
+            chk = _check_ragged(f"group_gemm_ragged {fmt} {name}", kern(), padded(), ref, live)
+            prev = {}
+            if sc is None:  # bf16: the mma.sync engine of the same calls
+                pchk = _check_ragged(f"group_gemm_ragged {fmt} {name} (mma_sync)",
+                                     kern("mma_sync"), padded("mma_sync"), ref, live)
+                prev = dict(
+                    prev_max_abs_err=pchk["max_abs_err"],
+                    config=gg.group_gemm_plan(t_pad, n, k, bf16).config,
+                    prev_ms=cuda_ms(lambda: kern("mma_sync"), iters=10),
+                    padded_prev_ms=cuda_ms(lambda: padded("mma_sync"), iters=10),
+                    all_dead_prev_ms=cuda_ms(lambda: kern("mma_sync", dead), iters=10))
+            del ref
             lib_fn, lib_name = _packed_library(a[live_idx], counts, b, sc, act, bf16)
             flops = 2.0 * assigned * k * n
             nbytes = (2.0 * assigned * k + (2.0 if sc is None else 1.0) * used * k * n
                       + (0.0 if sc is None else 4.0 * used * n) + 2.0 * assigned * n)
             row = dict(format=fmt, gemm=name, shape=[t_pad, k, n], live_rows=assigned, **chk,
                        ms=cuda_ms(kern, iters=10), padded_ms=cuda_ms(padded, iters=10),
-                       all_dead_ms=cuda_ms(lambda: gg.group_gemm(
-                           a, b, al.expert_ids, valid_rows=dead, scale=sc, config=cfg,
-                           act_fn=act), iters=10),
+                       all_dead_ms=cuda_ms(lambda: kern(rows=dead), iters=10),
                        plain_ms=event_ms(plain, iters=2), library_ms=event_ms(lib_fn, iters=5),
-                       bound_ms=bound(flops, nbytes)[0], flops=flops, bytes=nbytes)
+                       bound_ms=bound(flops, nbytes)[0], flops=flops, bytes=nbytes, **prev)
             fmt_rows.append(row)
             rows.append({k_: v for k_, v in row.items() if k_ not in ("flops", "bytes")})
             del a, b, sc
         per_fmt[fmt] = _sum_rows(fmt_rows)
         per_fmt[fmt]["f32_engine_rel_err"] = small[fmt]
+        if fmt == "bf16":
+            per_fmt[fmt]["engine"] = "wgmma + TMA (group_gemm_sm90_kernel)"
     emit({"phase": "kernel", "kernel": "group_gemm_ragged", "t_pad": t_pad,
           "live_rows": assigned, "row_tiles": t_pad // MOE_BLOCK,
           "live_row_tiles": int((valid > 0).sum().item()), "per_shape": rows})
@@ -5632,8 +5775,8 @@ def phase_serve_moe_chunked(counters: Counters) -> dict:
     res = _serve(cfg, params, reqs, counters, ctx=ctx)
     launches = res["launches"]
     used = ("ag_group_gemm_chunked", "moe_reduce_rs_chunked", "ag_group_gemm", "moe_reduce_rs",
-            "group_gemm", "ag_gemm", "gemm_rs", "gemm", "all_gather", "paged_flash_decode",
-            "barrier")
+            "group_gemm", "ag_gemm", "gemm_rs", "gemm_rs_wgmma", "all_gather",
+            "paged_flash_decode", "barrier")
     if any(launches[k] <= 0 for k in used):
         raise AssertionError(f"serve_moe_tp4_chunked took the wrong kernels: {launches}")
     twin = SERVES["serve_moe_tp4"]
@@ -5738,10 +5881,12 @@ def phase_serve_moe_ragged(counters: Counters) -> tuple[dict, dict]:
         res = _serve(cfg, params, reqs, counters, ctx=ctx)
         share = 1 - counted.assignments / tally(counted.live_rows)
         launches = res["launches"]
-        used = used + ("ag_gemm", "gemm_rs", "gemm", "all_gather", "paged_flash_decode",
-                       "barrier")
+        used = used + ("ag_gemm", "gemm_rs", "gemm_rs_wgmma", "all_gather",
+                       "paged_flash_decode", "barrier")
         if any(launches[k] <= 0 for k in used) or any(launches[k] for k in unused):
             raise AssertionError(f"{name} took the wrong kernels: {launches}")
+        if launches["group_gemm_wgmma"] != launches["group_gemm_ragged"]:
+            raise AssertionError(f"{name}: K29 off its wgmma engine: {launches}")
         pad = SERVES[twin]
         emit({"phase": name, "model": model, "n_layers": n_layers, "world": WORLD,
               "gg_config": "GroupGemmConfig(128, ragged=True)", "batch": 8, "s_max": 1024,

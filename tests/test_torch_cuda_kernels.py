@@ -2,11 +2,14 @@
 the card (GEMM K1 — its wgmma + TMA engine at every tile and the engine
 routing by shape —, flash decode K2 and paged flash decode K3 — their
 one-launch kernel bit-equal across calls and under a CUDA-graph replay —,
-grouped GEMM K8, its weight gradient K11, the multi-position verify K13 —
+grouped GEMM K8 — its wgmma + TMA engine, padded and ragged (K29), beside
+the mma.sync one —, its weight gradient K11, the multi-position verify K13 —
 its wgmma + TMA engine — and its paged twin K14 — over shared pages, and
 chunk calls bit-equal to the whole-range call — and at world 2 and 4 with every rank on the one
 card: barrier K4, full-mesh allgather K5, AG-GEMM K6 (its wgmma + TMA
-consumer and the mma.sync one, and a stuck wait on the new one), GEMM-RS K7,
+consumer and the mma.sync one, and a stuck wait on the new one), GEMM-RS K7
+(its wgmma + TMA producer and consumer and the earlier schedule, and a stuck
+wait on the new consumer),
 AG-GroupGEMM K9, MoE-Reduce-RS K10, reduce-scatter K12, the scaled
 int8 / fp8 formats of the grouped GEMM K24, of K9 (K25) and of K10 (K26),
 their ragged-row forms K29-K31 (bit-equal to the padded kernels on the
@@ -567,6 +570,71 @@ def test_gemm_rs_kernel_matches_plain(cuda, world, dtype):
             # bf16: each partial rounds to bf16 before the epilogue adds it
             tol = _tol(dtype, want) * (2 if dtype == torch.bfloat16 else 1)
             assert (out.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_gemm_rs_wgmma_matches_plain(cuda, world):
+    """bf16 K7 on K1's wgmma + TMA mainloop (one producer launch storing
+    into the peers' landing slots, the consumer adding them) within two
+    bf16 ulps of the output scale of the plain version, as is the earlier
+    schedule forced in the same test; chunks of 40 and 100 rows (not whole
+    128-row tiles: the 3-D map keeps a box inside its chunk), n not whole
+    tiles; three calls back to back per shape (the per-peer tile counts go
+    back to zero, the epochs rise)."""
+    ctx = initialize_distributed(world)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    for m_loc, k_loc, n in ((40, 128, 520), (100, 512, 296), (128, 256, 1024)):
+        a = [torch.randn((world * m_loc, k_loc), generator=g, device=cuda).bfloat16()
+             for _ in range(world)]
+        b = [(torch.randn((k_loc, n), generator=g, device=cuda) / k_loc**0.5).bfloat16()
+             for _ in range(world)]
+        full = sum(a[r].float() @ b[r].float() for r in range(world))
+        for engine in (None, "mma_sync"):
+            before = (tgrs.gemm_rs.launches, tgrs.gemm_rs.wgmma_launches)
+            outs = ctx.run(lambda: [tgrs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx,
+                                                 _engine=engine) for _ in range(3)])
+            assert tgrs.gemm_rs.launches == before[0] + 3 * world
+            assert tgrs.gemm_rs.wgmma_launches == before[1] + (3 * world if engine is None else 0)
+            for r, per_call in enumerate(outs):
+                want = full[r * m_loc:(r + 1) * m_loc]
+                for out in per_call:
+                    assert (out.float() - want).abs().max().item() <= 2 * _tol(torch.bfloat16,
+                                                                             want)
+
+
+@pytest.mark.cuda
+def test_gemm_rs_wgmma_stuck_wait_raises_with_its_record(cuda, monkeypatch):
+    """bf16 K7 on the wgmma engine at world 2 with rank 1's stream held 2 s
+    just after its entry barrier (its producer is late), timeout 0.2 s:
+    rank 0's consumer wait for landing slot 0 expires and the run raises
+    with its record (rank 0, family gemm_rs, site world + 0, kind
+    signal_wait_until) — it does not hang: the consumers skip their stores
+    and drain the stages the producer thread still fills."""
+    ctx = initialize_distributed(2)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    a = [torch.randn((256, 512), generator=g, device=cuda).bfloat16() for _ in range(2)]
+    b = [(torch.randn((512, 1024), generator=g, device=cuda) / 512**0.5).bfloat16()
+         for _ in range(2)]
+    barrier, stuck = tgrs.launch_barrier, [False]
+
+    def late(ctx_, launch, flags, stream):
+        barrier(ctx_, launch, flags, stream)
+        if ctx_.rank == 1 and stuck[0]:
+            with torch.cuda.stream(stream):
+                tcommon.sleep_on_stream(2_000_000_000)
+
+    monkeypatch.setattr(tgrs, "launch_barrier", late)
+    before = tgrs.gemm_rs.wgmma_launches
+    ctx.run(lambda: tgrs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx))  # buffers and flags exist
+    assert tgrs.gemm_rs.wgmma_launches == before + 2
+    stuck[0] = True
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(lambda: tgrs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx))
+    (rec,) = err.value.records
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
+        0, "gemm_rs", 2, "signal_wait_until")
 
 
 @pytest.mark.cuda
@@ -1382,6 +1450,50 @@ def test_ragged_group_gemm_kernel_matches_plain(cuda, fmt, dtype, out_dtype, bm)
         assert torch.equal(got[~dead], padded[~dead])
         tol = _tol(dtype, want.float()) if fmt is None else _scaled_tol(dtype, want.float())
         assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True], ids=["padded", "ragged"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("act", [False, True], ids=["plain", "gelu"])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_group_gemm_wgmma_matches_plain_and_mma_sync(cuda, bm, act, out_dtype, ragged):
+    """bf16 K8/K29 on the wgmma + TMA engine (``group_gemm_plan`` routes
+    them there, ``wgmma_launches`` counts them) within one bf16 ulp of the
+    output scale of the plain twin and within two of the mma.sync engine on
+    the same inputs (each is within one of the plain twin); ragged: dead rows
+    exact zeros (a 256-row block's second tile may be dead, an expert with no
+    rows), live rows bit-equal to the padded wgmma kernel. n 304 and 272 are
+    not whole 256-wide tiles; 7 tokens make a single live tile."""
+    n_exp = 4
+    act_fn = tgg.gelu if act else None
+    for tokens, k, n in ((150, 256, 304), (7, 72, 40), (300, 192, 272)):
+        g = torch.Generator(device="cuda").manual_seed(bm + tokens)
+        ids, _ = _moe_routing(g, tokens, n_exp, 2, cuda)
+        ids[ids == 1] = 2  # expert 1 gets no rows
+        al = tmu.moe_align_block_size(ids.reshape(-1), n_exp, bm, ragged=True)
+        a = torch.randn((al.sorted_token_ids.shape[0], k), generator=g, device=cuda).bfloat16()
+        b = (torch.randn((n_exp, k, n), generator=g, device=cuda) / k**0.5).bfloat16()
+        valid = al.valid_rows if ragged else None
+        cfg = tgg.GroupGemmConfig(bm, ragged=ragged)
+        assert tgg.group_gemm_plan(a.shape[0], n, k, torch.bfloat16).engine == "wgmma"
+        before = tgg.group_gemm.wgmma_launches
+        got = tgg.group_gemm(a, b, al.expert_ids, valid_rows=valid, config=cfg,
+                             out_dtype=out_dtype, act_fn=act_fn)
+        prev = tgg.group_gemm(a, b, al.expert_ids, valid_rows=valid, config=cfg,
+                              out_dtype=out_dtype, act_fn=act_fn, _engine="mma_sync")
+        torch.cuda.synchronize()
+        assert tgg.group_gemm.wgmma_launches == before + 1
+        want = tgg._group_gemm_plain(a, b, al.expert_ids, bm, out_dtype, act_fn, None, valid)
+        tol = _tol(torch.bfloat16, want.float())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        assert (got.float() - prev.float()).abs().max().item() <= 2 * tol
+        if ragged:
+            padded = tgg.group_gemm(a, b, al.expert_ids, config=tgg.GroupGemmConfig(bm),
+                                    out_dtype=out_dtype, act_fn=act_fn)
+            dead = _dead_rows(al.valid_rows, bm)
+            assert not got[dead].any()
+            assert torch.equal(got[~dead], padded[~dead])
 
 
 def _all_dead(ral, rank):

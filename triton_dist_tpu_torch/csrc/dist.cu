@@ -7,10 +7,12 @@
 //                                         _full_mesh_push_kernel
 //   K6 tdt_ag_gemm_consumer(_sm90)      ≙ ops/allgather_gemm.py:69
 //                                         _ag_gemm_kernel
-//   K7 tdt_gemm_rs_reduce               ≙ ops/gemm_reduce_scatter.py:99
-//                                         _gemm_rs_scatter_kernel (its
-//                                         own-chunk GEMM with the n-1
-//                                         landed chunks in the epilogue)
+//   K7 tdt_gemm_rs_produce +            ≙ ops/gemm_reduce_scatter.py:99
+//      tdt_gemm_rs_reduce_sm90 (bf16      _gemm_rs_scatter_kernel (the peer
+//      on wgmma + TMA),                   chunks' GEMMs pushed to their
+//      tdt_gemm_rs_reduce (others)        owners, then the own chunk's GEMM
+//                                         with the n-1 landed chunks in
+//                                         the epilogue)
 //   K9 tdt_ag_group_gemm_consumer       ≙ ops/gg_pipeline.py:288
 //                                         make_ag_overlap_kernel, launched
 //                                         at ops/allgather_group_gemm.py:235
@@ -76,9 +78,16 @@
 // - A kernel that spins on a flag holds its SMs. The consumers K6/K7 run a
 //   persistent grid of at most floor(SMs / ranks) - 2 blocks, each walking
 //   output tiles, so every rank's spinning blocks fit on the card at once
-//   with SMs to spare for the small kernels and the producers. The
-//   producers move data on copy engines (cudaMemcpyAsync) and set flags
-//   with a one-warp kernel, holding no SM while data is in flight.
+//   with SMs to spare for the small kernels and the producers. K6's
+//   producer moves data on copy engines (cudaMemcpyAsync) and sets flags
+//   with a one-warp kernel, holding no SM while data is in flight. bf16
+//   K7's producer is a GEMM on the SMs that spins on nothing, on a grid of
+//   floor(SMs / ranks) blocks: a rank's consumer starts only after its own
+//   producer (one stream), so at most n - 1 ranks' consumers spin while a
+//   producer still runs, and they hold at most (n - 1) (floor(SMs / n) - 2)
+//   SMs; the floor(SMs / n) blocks of the last producer fit beside them (and
+//   every other producer's with them), so no producer ever waits for an SM
+//   that a spinning consumer holds.
 // - The runtime serialises streams at some calls (a device allocation, a
 //   copy within one card): work issued after such a call waits for work
 //   issued before it. A kernel that waits for a peer's work issued LATER
@@ -125,6 +134,8 @@
 #include "gemm_core.cuh"
 #include "gemm_sm90.cuh"
 #include "shmem.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -253,7 +264,7 @@ __global__ void __launch_bounds__(E::THREADS, 1)
 // reads them), then the loads. A wait that expired aborts the block (the
 // body's abort word), and the host raises with the record: family, site
 // world + c and kind as ag_gemm_kernel's.
-struct ShardWalk {
+struct ShardWalk : sm90::WalkBase {
   static constexpr bool SLABS = true;
   static constexpr bool CAN_ABORT = true;
   int mt, nt, world, me, epoch;
@@ -286,7 +297,7 @@ __global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
                         int m_loc, int n, int k, int world, int me, const int* flags, int epoch,
                         WaitCtx w, int jitter) {
   shmem::comm_jitter(me, 8, jitter, world);
-  const ShardWalk walk{cdiv(m_loc, sm90::Tile<2, BN, STAGES>::BM), cdiv(n, BN), world, me,
+  const ShardWalk walk{{}, cdiv(m_loc, sm90::Tile<2, BN, STAGES>::BM), cdiv(n, BN), world, me,
                        epoch, flags, w, -1};
   sm90::gemm_sm90_body<2, BN, STAGES, TOut, false>(map_a, map_b, out, m_loc, n, k,
                                                    AddList<TOut>{}, walk);
@@ -319,6 +330,112 @@ __global__ void __launch_bounds__(E::THREADS, 1)
     }
     E::template store<true>(acc, out, m_loc, n, m0, n0, adds);
   }
+}
+
+// --------------------------------------------------- K7 on wgmma + TMA ----
+// bf16 K7 in two launches on K1's warp-specialised mainloop (gemm_sm90.cuh
+// gemm_sm90_body), after the K4 entry barrier (every rank's landing slots
+// are free: its previous reduce has read them).
+//
+// The producer (gemm_rs_producer_kernel) walks (d = 1 .. n-1, then the
+// grouped raster of [m_loc, n]) over the chunks of rank me+d's rows, A a
+// 3-D map over [world, m_loc, k] so a box never reads into the next chunk.
+// Its epilogue rounds each tile to the output type and stores it straight
+// into rank me+d's landing slot d-1 through the peer-pointer table; the
+// block that stores chunk d's last tile (a per-peer tile count in this
+// rank's memory, put back to zero by that block, so no memset runs between
+// launches) raises rank me+d's flag d-1 to the launch's epoch, ordered after
+// every block's stores (each thread's system fence, the consumers' named
+// barrier, the count's atomic, a fence, the release store).
+struct PeerWalk : sm90::WalkBase {
+  static constexpr bool SLABS = true;
+  static constexpr bool SIGNALS = true;
+  int mt, nt, world, me, epoch;
+  const long long* recv;   // peer table of the landing slots [world - 1, m_loc, n]
+  const long long* flags;  // peer table of the int32[world] landing flags
+  int* count;              // this rank's int32[world] stored tiles a peer chunk
+
+  __device__ __forceinline__ int tiles() const { return (world - 1) * mt * nt; }
+  __device__ __forceinline__ int peer_step(const sm90::Coord& x) const {
+    return (x.slab - me + world) % world;
+  }
+  __device__ __forceinline__ sm90::Coord at(int t) const {
+    const int per = mt * nt;
+    sm90::Coord x;
+    sm90::tile_coords(t % per, mt, nt, x.tm, x.tn);
+    x.slab = (me + 1 + t / per) % world;
+    return x;
+  }
+  template <typename TOut>
+  __device__ __forceinline__ TOut* out(TOut*, const sm90::Coord& x, int m, int n) const {
+    return shmem::peer_ptr<TOut>(recv, x.slab) + static_cast<size_t>(peer_step(x) - 1) * m * n;
+  }
+  __device__ __forceinline__ void stored(const sm90::Coord& x) const {
+    shmem::quiet();
+    sm90::consumers_sync<2>();
+    if (threadIdx.x == 128) {
+      const int d = peer_step(x);
+      if (atomicAdd(count + d, 1) == mt * nt - 1) {
+        count[d] = 0;
+        __threadfence_system();
+        shmem::signal_set(shmem::peer_ptr<int>(flags, x.slab) + d - 1, epoch);
+      }
+    }
+  }
+};
+
+template <int BN, int STAGES, typename TOut>
+__global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
+    gemm_rs_producer_kernel(const __grid_constant__ CUtensorMap map_a,
+                            const __grid_constant__ CUtensorMap map_b, int m_loc, int n, int k,
+                            int world, int me, const long long* recv, const long long* flags,
+                            int* count, int epoch) {
+  const PeerWalk walk{{}, cdiv(m_loc, sm90::Tile<2, BN, STAGES>::BM), cdiv(n, BN), world, me,
+                      epoch, recv, flags, count};
+  sm90::gemm_sm90_body<2, BN, STAGES, TOut, false>(map_a, map_b, static_cast<TOut*>(nullptr),
+                                                   m_loc, n, k, AddList<TOut>{}, walk);
+}
+
+// The consumer (gemm_rs_sm90_kernel), after the host rendezvous: the own
+// chunk's k loop first, on the same mainloop over a persistent grid of at
+// most floor(SMs / ranks) - 2 blocks; before the block's first epilogue one
+// consumer thread waits (bounded, site world + d) for each landing flag d
+// in turn, and the consumer warpgroups meet on it; the epilogue adds the n-1
+// landed chunks in slot order in f32 and casts once (K1's adds). A wait that
+// expired makes the block skip every later product and store, draining the
+// stages its producer thread still fills, so no copy is in flight when it
+// ends; the host raises with the record.
+struct LandedWalk : sm90::Raster {
+  static constexpr bool CAN_ABORT = true;
+  static constexpr bool EPI_WAIT = true;
+  int world, epoch;
+  const int* flags;  // this rank's int32[world - 1] landing flags
+  WaitCtx w;
+
+  __device__ __forceinline__ bool landed() const {
+    __shared__ int ok_s;
+    if (threadIdx.x == 128) {
+      bool ok = true;
+      for (int d = 0; d < world - 1; ++d)
+        if (!shmem::wait_until_ge(flags + d, epoch, w, world + d, shmem::KIND_SIGNAL)) ok = false;
+      __threadfence();
+      ok_s = ok;
+    }
+    sm90::consumers_sync<2>();
+    return ok_s != 0;
+  }
+};
+
+template <int BN, int STAGES, typename TOut>
+__global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
+    gemm_rs_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b, TOut* __restrict__ out,
+                        int m_loc, int n, int k, int world, const int* flags, int epoch,
+                        AddList<TOut> adds, WaitCtx w, int jitter) {
+  shmem::comm_jitter(w.rank, 10, jitter, world);
+  const LandedWalk walk{{{}, cdiv(m_loc, sm90::Tile<2, BN, STAGES>::BM), cdiv(n, BN)}, world,
+                        epoch, flags, w};
+  sm90::gemm_sm90_body<2, BN, STAGES, TOut, true>(map_a, map_b, out, m_loc, n, k, adds, walk);
 }
 
 // ----------------------------------------------------------------- K10 ----
@@ -731,6 +848,109 @@ extern "C" int tdt_gemm_rs_reduce(const void* a, const void* b, void* out, int m
         static_cast<TOut*>(out), m_loc, n, k, vec, world, static_cast<const int*>(flags),
         epoch, make_adds<TOut>(recv, world - 1), w, jitter);
     return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// f(BN, STAGES) for K1's tile config 0 (128x256) or 1 (128x128)
+template <typename F>
+cudaError_t sm90_config(int config, F&& f) {
+  if (config == 0) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 4>{});
+  if (config == 1) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 6>{});
+  return cudaErrorInvalidValue;
+}
+
+// the shapes and operands either K7 kernel on wgmma + TMA takes (`out`: the
+// consumer's output, or the producer's landing slots' peer table)
+bool k7_sm90_ok(const void* a, const void* b, const void* out, int world, int me, int m_loc,
+                int n, int k, int grid) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  return world >= 2 && world <= MAX_WORLD && me >= 0 && me < world && m_loc >= 1 && n >= 1 &&
+         k >= 1 && n % 8 == 0 && k % 8 == 0 && aligned && grid >= 1;
+}
+
+}  // namespace
+
+// K7's producer on the wgmma + TMA engine: a [world * m_loc, k] (this rank's
+// rows of A, all chunks) and b [k, n] in bf16, k and n multiples of 8, a and
+// b 16-byte aligned; recv / flags the device peer tables of the landing
+// slots [world - 1, m_loc, n] in out_dtype and of the int32[world] landing
+// flags; count this rank's int32[world] tile counts (zero between
+// launches); config K1's tile (0: 128x256, 1: 128x128); grid the block
+// count (floor(SMs / ranks): with every other rank's spinning consumers on
+// the card, the SMs left still hold it).
+extern "C" int tdt_gemm_rs_produce(const void* a, const void* b, int m_loc, int n, int k,
+                                   int out_dtype, int world, int me, const void* recv,
+                                   const void* flags, void* count, int epoch, int config,
+                                   int grid, void* stream) {
+  if (!k7_sm90_ok(a, b, recv, world, me, m_loc, n, k, grid) || flags == nullptr ||
+      count == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long dims_a[3] = {k, m_loc, world}, strides_a[2] = {2LL * k, 2LL * k * m_loc};
+  const long long box_a[3] = {sm90::BK, 128, 1};
+  const long long dims_b[2] = {n, k}, box_b[2] = {sm90::BOX_N, sm90::BK};
+  CUtensorMap ma, mb;
+  cudaError_t err = sm90::make_map_nd(&ma, a, 3, dims_a, strides_a, box_a);
+  if (err == cudaSuccess) err = sm90::make_map(&mb, b, dims_b, 2LL * n, box_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = dispatch_out(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    return sm90_config(config, [&](auto bn, auto stages) -> cudaError_t {
+      constexpr int BN = decltype(bn)::value, STAGES = decltype(stages)::value;
+      using T = sm90::Tile<2, BN, STAGES>;
+      auto kernel = gemm_rs_producer_kernel<BN, STAGES, TOut>;
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(T::SMEM_BYTES));
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, T::THREADS, T::SMEM_BYTES, s>>>(
+          ma, mb, m_loc, n, k, world, me, static_cast<const long long*>(recv),
+          static_cast<const long long*>(flags), static_cast<int*>(count), epoch);
+      return cudaSuccess;
+    });
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's consumer on the wgmma + TMA engine: a [m_loc, k] (this rank's own
+// chunk of A) and b [k, n] in bf16 (the producer's rule), out [m_loc, n] in
+// out_dtype; recv the host array of the world-1 landing slots; flags this
+// rank's int32[world-1] landing flags; grid the persistent block count (<=
+// the co-residency cap).
+extern "C" int tdt_gemm_rs_reduce_sm90(const void* a, const void* b, void* out, int m_loc,
+                                       int n, int k, int out_dtype, int world,
+                                       const void* const* recv, int me, const void* flags,
+                                       int epoch, int config, int grid, int jitter, void* diag,
+                                       long long timeout_ns, int family, void* stream) {
+  if (!k7_sm90_ok(a, b, out, world, me, m_loc, n, k, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long dims_a[2] = {k, m_loc}, box_a[2] = {sm90::BK, 128};
+  const long long dims_b[2] = {n, k}, box_b[2] = {sm90::BOX_N, sm90::BK};
+  CUtensorMap ma, mb;
+  cudaError_t err = sm90::make_map(&ma, a, dims_a, 2LL * k, box_a);
+  if (err == cudaSuccess) err = sm90::make_map(&mb, b, dims_b, 2LL * n, box_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WaitCtx w = wait_ctx(diag, timeout_ns, me, family);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = dispatch_out(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    return sm90_config(config, [&](auto bn, auto stages) -> cudaError_t {
+      constexpr int BN = decltype(bn)::value, STAGES = decltype(stages)::value;
+      using T = sm90::Tile<2, BN, STAGES>;
+      auto kernel = gemm_rs_sm90_kernel<BN, STAGES, TOut>;
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(T::SMEM_BYTES));
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, T::THREADS, T::SMEM_BYTES, s>>>(
+          ma, mb, static_cast<TOut*>(out), m_loc, n, k, world, static_cast<const int*>(flags),
+          epoch, make_adds<TOut>(recv, world - 1), w, jitter);
+      return cudaSuccess;
+    });
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

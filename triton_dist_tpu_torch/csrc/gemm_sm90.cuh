@@ -1,8 +1,14 @@
 // K1's bf16 engine for Hopper (csrc/gemm.cu): a warp-specialised, persistent
-// wgmma + TMA GEMM. Its mainloop (gemm_sm90_body) is K6's too (csrc/dist.cu
-// ag_gemm_sm90_kernel), over a walk that waits for each gathered shard. C[M,N] = A[M,K] . B[K,N] (+ the epilogue adds of
+// wgmma + TMA GEMM. C[M,N] = A[M,K] . B[K,N] (+ the epilogue adds of
 // gemm_add_pipeline, triton_dist_tpu/ops/common.py:468), bf16 in, f32
-// accumulate, one cast to the output type.
+// accumulate, one cast to the output type. Its mainloop (gemm_sm90_body)
+// is also K6's (csrc/dist.cu ag_gemm_sm90_kernel, a walk that waits for
+// each gathered shard), K7's (dist.cu gemm_rs_producer_kernel, a walk over
+// the peers' chunks whose epilogue stores into their landing slots;
+// gemm_rs_sm90_kernel, the own chunk with a wait for the landed chunks
+// before its first epilogue) and K8/K29's (csrc/group_gemm.cu
+// group_gemm_sm90_kernel, a walk over the live row tiles of expert blocks,
+// B a 3-D map over the bank).
 //
 // What bounds K1 on the H100: at the prefill shapes (M in the thousands) the
 // product is above the ~295 FLOP/byte ridge, so tensor-core throughput; at
@@ -103,39 +109,71 @@ __device__ __forceinline__ void store_pair(TOut* __restrict__ c, int n, int rr, 
 
 // An output tile of the walk: row tile tm and column tile tn of slab
 // `slab` (K1 has one slab; K6's slabs are the gathered shards, slab c's rows
-// at out + c * m * n).
+// at out + c * m * n), B's slab `expert` (a grouped walk), and the row at
+// or past which the tile's rows are stored as zeros (a ragged walk; a tile
+// whose first row is at or past it is dead: no loads, zero stores).
 struct Coord {
-  int tm, tn, slab;
+  int tm, tn, slab = 0, expert = 0, rows_end = 0x7fffffff;
 };
 
+// What a walk may ask of the body, all off by default (a walk derives from
+// this and turns on what it needs):
+// - SLABS: A is a 3-D map over [slabs, m, k] (K6's shards, K7's chunks);
+// - B_SLABS: B is a 3-D map over [slabs, k, n], the tile's `expert` slab;
+// - CAN_ABORT: a wait of the walk can expire (the producer's ready(), or the
+//   consumers' landed()): from then on the block skips products and stores;
+// - RAGGED: rows_end bounds the live rows; a dead tile is neither loaded nor
+//   multiplied, its rows stored as zeros;
+// - SIGNALS: stored(x) runs on every consumer thread after a tile's stores;
+// - EPI_WAIT: landed() runs on every consumer thread before the block's
+//   first epilogue, after its first tile's k loop.
+struct WalkBase {
+  static constexpr bool SLABS = false, B_SLABS = false, CAN_ABORT = false, RAGGED = false,
+                        SIGNALS = false, EPI_WAIT = false;
+  // the producer thread, before a tile's first load: false aborts the block
+  __device__ __forceinline__ bool ready(const Coord&) { return true; }
+  // where tile x's output rows live: slab x.slab of [slabs, m, n]
+  template <typename TOut>
+  __device__ __forceinline__ TOut* out(TOut* c, const Coord& x, int m, int n) const {
+    return c + static_cast<size_t>(x.slab) * m * n;
+  }
+  __device__ __forceinline__ void stored(const Coord&) const {}
+  __device__ __forceinline__ bool landed() const { return true; }
+};
+
+// the consumer warpgroups' own named barrier (id 1: the body uses no other)
+template <int WGS> __device__ __forceinline__ void consumers_sync() {
+  named_barrier(1, 128 * WGS);
+}
+
 // K1's walk: the grouped raster over one [m, n] output; A is a 2-D map.
-struct Raster {
-  static constexpr bool SLABS = false;     // A is a 3-D map over [slabs, m, k]
-  static constexpr bool CAN_ABORT = false; // the producer's waits can expire
+struct Raster : WalkBase {
   int mt, nt;
   __device__ __forceinline__ int tiles() const { return mt * nt; }
   __device__ __forceinline__ Coord at(int t) const {
     Coord c;
     tile_coords(t, mt, nt, c.tm, c.tn);
-    c.slab = 0;
     return c;
   }
-  // the producer thread, before a tile's first load: false aborts the block
-  __device__ __forceinline__ bool ready(const Coord&) { return true; }
 };
 
 // The mainloop and epilogue a block runs over the tiles `walk` gives it
-// (blockIdx.x, + gridDim.x, ...): K1 with a Raster, K6 (csrc/dist.cu) with
-// its shard walk. m is the rows of one slab.
+// (blockIdx.x, + gridDim.x, ...): K1 with a Raster, K6 and K7 (csrc/dist.cu)
+// with their walks, K8/K29 (csrc/group_gemm.cu) with theirs. m is the rows
+// of one slab.
 //
-// A walk whose producer waits (K6's shard flags) can abort: a wait that
+// A walk whose waits can expire (CAN_ABORT) stops the block's work without
+// leaving a copy in flight. A producer-side wait (K6's shard flags) that
 // expired returns false from ready(); the producer then sets the abort word
 // and, for every stage it has left to fill, arrives on its "full" barrier
 // with no copy, so no consumer waits on a barrier that never fills. Every
 // consumer reads the word after each "full" wait and from then on skips the
 // products and the stores, still waiting on each stage in turn: the block
 // ends only once every copy it issued has landed, and soon (no loads, no
-// products); the host raises with the wait's record.
+// products). An epilogue-side wait (K7's landed chunks, landed()) that
+// expired makes the consumers skip that epilogue and every later product
+// and store in the same way, while the producer's loads still land and are
+// drained stage by stage. The host raises with the wait's record.
 template <int WGS, int BN, int STAGES, typename TOut, bool ADDS, class Walk>
 __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const CUtensorMap& map_b,
                                                TOut* __restrict__ c, int m, int n, int k,
@@ -175,6 +213,9 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
       [[maybe_unused]] bool live = true;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const Coord x = walk.at(t);
+        if constexpr (Walk::RAGGED) {
+          if (x.rows_end <= x.tm * T::BM) continue;  // a dead tile: nothing to load
+        }
         if constexpr (Walk::CAN_ABORT) {
           if (live && !walk.ready(x)) {
             live = false;
@@ -200,9 +241,14 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
           else
             tma_load_2d(sa + stage * T::A_STAGE, &map_a, kt * BK, x.tm * T::BM, full + stage);
 #pragma unroll
-          for (int bx = 0; bx < BN / BOX_N; ++bx)
-            tma_load_2d(sb + stage * T::B_STAGE + bx * BK * BOX_N, &map_b, x.tn * BN + bx * BOX_N,
-                        kt * BK, full + stage);
+          for (int bx = 0; bx < BN / BOX_N; ++bx) {
+            if constexpr (Walk::B_SLABS)
+              tma_load_3d(sb + stage * T::B_STAGE + bx * BK * BOX_N, &map_b,
+                          x.tn * BN + bx * BOX_N, kt * BK, x.expert, full + stage);
+            else
+              tma_load_2d(sb + stage * T::B_STAGE + bx * BK * BOX_N, &map_b,
+                          x.tn * BN + bx * BOX_N, kt * BK, full + stage);
+          }
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -217,9 +263,21 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
     float acc[BN / 2];
     int stage = 0;
     uint32_t phase = 0;
-    [[maybe_unused]] bool dead = false;  // the producer aborted: skip products and stores
+    [[maybe_unused]] bool dead = false;     // a wait expired: skip products and stores
+    [[maybe_unused]] bool waited = false;   // landed() has run (EPI_WAIT)
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const Coord x = walk.at(t);
+      TOut* cs = walk.out(c, x, m, n);
+      if constexpr (Walk::RAGGED) {
+        if (x.rows_end <= x.tm * T::BM) {
+          // a dead tile: its [BM, BN] rows as zeros, two columns a store
+          for (int i = threadIdx.x - 128; i < T::BM * BN / 2; i += 128 * WGS) {
+            const int rr = x.tm * T::BM + i / (BN / 2), cc = x.tn * BN + (i % (BN / 2)) * 2;
+            if (rr < m && cc < n) store_pair<false>(cs, n, rr, cc, 0.f, 0.f, adds);
+          }
+          continue;
+        }
+      }
       for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(full + stage, phase);
         if constexpr (Walk::CAN_ABORT) {
@@ -252,12 +310,19 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
           phase ^= 1;
         }
       }
+      if constexpr (Walk::EPI_WAIT) {
+        if (!waited) {  // every consumer thread meets here at its block's first tile
+          waited = true;
+          const bool ok = walk.landed();
+          if (!ok) dead = true;
+        }
+      }
       if constexpr (Walk::CAN_ABORT) {
         if (dead) continue;
       }
       // epilogue: thread holds rows lane/4 and lane/4 + 8 of its warp's 16,
-      // columns 2 * (lane % 4) and + 1 of every 8-wide block
-      TOut* cs = c + static_cast<size_t>(x.slab) * m * n;
+      // columns 2 * (lane % 4) and + 1 of every 8-wide block; a ragged
+      // walk's rows at or past rows_end are stored as zeros
       const int r0 = x.tm * T::BM + cw * 64 + warp * 16 + lane / 4;
       const int c0 = x.tn * BN + (lane % 4) * 2;
 #pragma unroll
@@ -266,10 +331,16 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int rr = r0 + 8 * h;
-          if (rr < m && cc < n)
-            store_pair<ADDS>(cs, n, rr, cc, acc[nb * 4 + 2 * h], acc[nb * 4 + 2 * h + 1], adds);
+          if (rr < m && cc < n) {
+            float v0 = acc[nb * 4 + 2 * h], v1 = acc[nb * 4 + 2 * h + 1];
+            if constexpr (Walk::RAGGED) {
+              if (rr >= x.rows_end) v0 = v1 = 0.f;
+            }
+            store_pair<ADDS>(cs, n, rr, cc, v0, v1, adds);
+          }
         }
       }
+      if constexpr (Walk::SIGNALS) walk.stored(x);
     }
   }
 }
@@ -280,7 +351,7 @@ __global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
                      const __grid_constant__ CUtensorMap map_b, TOut* __restrict__ c, int m,
                      int n, int k, AddList<TOut> adds) {
   gemm_sm90_body<WGS, BN, STAGES, TOut, ADDS>(map_a, map_b, c, m, n, k, adds,
-                                             Raster{cdiv(m, Tile<WGS, BN, STAGES>::BM),
+                                             Raster{{}, cdiv(m, Tile<WGS, BN, STAGES>::BM),
                                                     cdiv(n, BN)});
 }
 

@@ -17,16 +17,33 @@
 // thousands, k and n in the thousands) each expert's weight panel is read
 // once per M tile of that expert and multiplied by 128 rows, above the
 // card's ~295 FLOP/byte ridge: tensor-core throughput, plus the GELU's
-// CUDA-core work on the A tile when it is fused.
+// CUDA-core work on A when it is fused.
 //
-// What the design does about it: each M tile of 128 rows lies inside one
-// expert's block (block_m is a multiple of 128), so a block tile is a K1
-// tile (csrc/gemm_core.cuh: mma.sync m16n8k16, ldmatrix, three-stage
-// cp.async ring) whose B base pointer is picked by that block's expert id.
-// The GELU runs once per A element per N tile, in shared memory between
-// the tile's arrival and its MMA, which costs one extra __syncthreads per
-// k step; the A tile is re-read from L2 for each N tile. An expert-major
-// schedule that keeps B panels resident, wgmma and TMA are later work.
+// What the design does about it. bf16 A over a bf16 bank that TMA can load
+// (ops/group_gemm.py::group_gemm_plan) runs group_gemm_sm90_kernel on K1's
+// warp-specialised wgmma + TMA mainloop (gemm_sm90.cuh gemm_sm90_body, a
+// persistent grid of at most one block an SM):
+// - B is a 3-D tensor map over the bank [n_exp, k, n], so a box never
+//   leaves one expert; the producer thread reads the tile's block's expert
+//   id on the device (no host sync), clamped into the bank (Groups).
+// - The walk (GroupWalk): every block lists the layout's 128-row tiles in
+//   shared memory, live ones first in layout order, and walks K1's grouped
+//   raster over the live ones (tiles of one expert are adjacent in the
+//   expert-sorted layout, so concurrent tiles share its B panels in L2),
+//   then the dead ones. The tile rule weighs waves as K1's does, over every
+//   row tile of the layout (the live count is known only on the card).
+// - The GELU: one elementwise pass activates A's live rows once a call into
+//   a scratch copy (gelu_rows_kernel: the same f32 gelu_tanh, rounded to
+//   bf16, so bit-identical to activating the tile), and the mainloop reads
+//   that copy. Applying it per N tile to the landed, swizzled stage would
+//   cost ~0.2 MFLOP of CUDA-core work for each ~4 MFLOP wgmma k step, about
+//   the step's own time on the three idle producer warps, and recomputes it
+//   for every N tile (16 at the down projection); the pass reads and writes
+//   the live rows of A once (~0.09 ms at t_pad 5120, k 14336).
+// f32 A keeps the FMA tile, and operands TMA cannot load the mma.sync tile
+// (csrc/gemm_core.cuh: m16n8k16, ldmatrix, a three-stage cp.async ring; the
+// GELU in shared memory per N tile behind an extra __syncthreads), one
+// block a tile whose B base pointer is picked by its block's expert id.
 
 // K24 · K8 with int8 or fp8 e4m3 expert banks and their per-(expert,
 // out-column) f32 scales (tdt_group_gemm with b_dtype int8/fp8):
@@ -52,18 +69,26 @@
 // triton_dist_tpu/ops/group_gemm.py:299 with its valid_rows map.
 //
 // What bounds it: the live rows' products (operations, as K8) plus the
-// zeros of the dead rows written once (bytes); a dead tile's CTA reads one
-// int of the map and exits after its stores.
+// zeros of the dead rows written once (bytes).
 //
-// What the design does about it: the grid keeps every 128-row tile of the
-// padded layout (t_pad / 128 row tiles, no host sync to size it), and
-// each CTA reads its block's live count first. A tile at or past it
-// (gemm_core.cuh Groups::live_rows <= 0) writes zeros and returns without
-// reading A or B, which is the TPU kernel's skipped panel (its panel is 128
-// rows at bm >= 128, _panel_for). A live tile runs K8's mainloop unchanged,
-// so its live rows are bit-equal to K8/K24's; the store writes the rows
-// past the live count as zeros after the scale fold. The f32 engine's
-// 64-row tiles skip at 64 rows and give the same output.
+// What the design does about it. On the wgmma engine (bf16 over a bf16
+// bank) only live 128-row tiles (gemm_core.cuh Groups::live_rows > 0) go
+// through the mainloop: GroupWalk walks them first and the dead ones last,
+// and a dead tile, which is the TPU kernel's skipped panel (its panel is 128
+// rows at bm >= 128, _panel_for), reads neither A nor B: the block that
+// meets it stores its rows as zeros (two columns a store), so the skipped
+// tiles fill in behind the live work and cost only their bytes. A 256-row
+// block's second tile may be dead on its own. A live tile runs K8's
+// mainloop unchanged and stores the rows at or past the live count as
+// zeros, so its live rows are bit-equal to K8's on the same engine; the
+// GELU pass skips the dead rows (a live tile's dead rows multiply whatever
+// the scratch holds, row by row, and are stored as zeros). The mma.sync and
+// FMA engines (the one-byte banks, f32, operands TMA cannot load) keep
+// the grid of every 128-row tile, each CTA reading its block's live count
+// first: a dead tile writes zeros and returns without reading A or B, a
+// live one stores the rows past the live count as zeros after the scale
+// fold, bit-equal to K8/K24 on the same engine. The f32 engine's 64-row
+// tiles skip at 64 rows and give the same output.
 
 // K11 · the grouped-GEMM weight gradient (tdt_group_gemm_dw):
 //   dW[e] = sum over the row blocks i with expert_ids[i] == e of A_i^T . G_i
@@ -117,6 +142,7 @@
 // the only difference from K11 on zeroed dead rows, and that is exact.
 
 #include "gemm_core.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -154,6 +180,104 @@ cudaError_t launch(const void* a, const void* b, const float* scale, void* c, in
       static_cast<const typename E::TIn*>(a), static_cast<const TB*>(b), scale,
       static_cast<TOut*>(c), m, n, k, vec, g);
   return cudaSuccess;
+}
+
+// ------------------------------------------------- K8/K29 on wgmma + TMA ----
+constexpr int MAX_ROW_TILES = 2048;  // 128-row tiles of a layout the walk lists
+
+// Every block lists the layout's 128-row tiles in shared memory: the live
+// ones (Groups::live_rows > 0) in layout order first, then the dead ones;
+// returns the live count. Every thread of the block takes part.
+__device__ int order_row_tiles(const Groups& g, int mt, int* list, int* warp_counts) {
+  __shared__ int live_s;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  int placed = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int c0 = 0; c0 < mt; c0 += blockDim.x) {
+      const int i = c0 + threadIdx.x;
+      const bool in = i < mt && ((g.live_rows(i * 128) > 0) == (pass == 0));
+      const unsigned mask = __ballot_sync(0xffffffffu, in);
+      if (lane == 0) warp_counts[warp] = __popc(mask);
+      __syncthreads();
+      int before = placed, sum = 0;
+      for (int w = 0; w < warps; ++w) {
+        if (w < warp) before += warp_counts[w];
+        sum += warp_counts[w];
+      }
+      if (in) list[before + __popc(mask & ((1u << lane) - 1u))] = i;
+      __syncthreads();  // warp_counts is rewritten by the next round
+      placed += sum;
+    }
+    if (pass == 0 && threadIdx.x == 0) live_s = placed;
+  }
+  __syncthreads();
+  return live_s;
+}
+
+// The grouped walk: the live row tiles' grouped raster (GROUP_M of them a
+// group, so concurrent tiles are rows of one or two experts and share their
+// B panels in L2), then the dead ones row by row. A tile's B is its block's
+// (clamped) expert's slab of the 3-D bank map; its rows at or past the
+// block's live count are stored as zeros, and a dead tile is stored as
+// zeros by the block that meets it, with no load and no product.
+struct GroupWalk : sm90::WalkBase {
+  static constexpr bool B_SLABS = true;
+  static constexpr bool RAGGED = true;
+  Groups g;
+  int mt, nt, live;
+  const int* list;  // shared: live row tiles in layout order, then the dead ones
+
+  __device__ __forceinline__ int tiles() const { return mt * nt; }
+  __device__ __forceinline__ sm90::Coord at(int t) const {
+    sm90::Coord x;
+    int i;
+    if (t < live * nt) {
+      sm90::tile_coords(t, live, nt, i, x.tn);
+    } else {
+      const int r = t - live * nt;
+      i = live + r / nt;
+      x.tn = r % nt;
+    }
+    x.tm = list[i];
+    const int m0 = x.tm * 128;
+    x.expert = g.expert(m0);
+    x.rows_end = m0 + g.live_rows(m0);
+    return x;
+  }
+};
+
+template <int BN, int STAGES, typename TOut>
+__global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
+    group_gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b, TOut* __restrict__ c,
+                           int m, int n, int k, Groups g) {
+  __shared__ int list[MAX_ROW_TILES];
+  __shared__ int warp_counts[sm90::Tile<2, BN, STAGES>::THREADS / 32];
+  const int mt = m / 128;
+  const int live = order_row_tiles(g, mt, list, warp_counts);
+  const GroupWalk walk{{}, g, mt, cdiv(n, BN), live, list};
+  sm90::gemm_sm90_body<2, BN, STAGES, TOut, false>(map_a, map_b, c, m, n, k, AddList<TOut>{},
+                                                   walk);
+}
+
+// The fused activation, once a call: out = bf16(gelu_tanh(f32(a))) for every
+// live row (a row at or past its block's live count is skipped: only a live
+// tile's rows are loaded, and its dead rows are stored as zeros whatever
+// they multiply), 16 bytes a thread and step; k a multiple of 8.
+__global__ void gelu_rows_kernel(const bf16* __restrict__ a, bf16* __restrict__ out, int m,
+                                 int k, Groups g) {
+  const int vecs = k / 8;
+  const long long total = static_cast<long long>(m) * vecs;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int row = static_cast<int>(i / vecs);
+    if (g.live_rows(row - row % 128) <= row % 128) continue;
+    uint4 v = reinterpret_cast<const uint4*>(a)[i];
+    bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(gelu_tanh(__bfloat162float(e[j])));
+    reinterpret_cast<uint4*>(out)[i] = v;
+  }
 }
 
 // ------------------------------------------------------------------ K11 ----
@@ -483,6 +607,67 @@ extern "C" int tdt_group_gemm(const void* a, const void* b, const void* scale,
                  : launch<E, TB, TOut, false>(a, b, sc, c, m, n, k, vec, g, s);
     });
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8/K29 on the wgmma + TMA engine: a [m, k] and b [n_exp, k, n] in bf16
+// (k and n multiples of 8; a, b, c and scratch 16-byte aligned), c [m, n]
+// in out_dtype (bf16 or f32), expert_ids / valid_rows as tdt_group_gemm's;
+// block_m a multiple of 128 dividing m, m / 128 <= MAX_ROW_TILES. act 1:
+// the GELU runs first into scratch [m, k] (live rows only) and the GEMM
+// reads it. config K1's tile (0: 128x256, 1: 128x128); grid the persistent
+// block count (<= the SMs).
+extern "C" int tdt_group_gemm_sm90(const void* a, const void* b, const void* expert_ids,
+                                   const void* valid_rows, void* c, void* scratch, int m, int n,
+                                   int k, int n_exp, int block_m, int out_dtype, int act,
+                                   int config, int grid, void* stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(scratch)) %
+                           16 == 0;
+  if (block_m <= 0 || block_m % 128 != 0 || m < block_m || m % block_m != 0 ||
+      m / 128 > MAX_ROW_TILES || n_exp < 1 || n < 1 || k < 1 || n % 8 != 0 || k % 8 != 0 ||
+      !aligned || (act && scratch == nullptr) || config < 0 || config > 1 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Groups g = {static_cast<const int*>(expert_ids), block_m, n_exp,
+                    static_cast<const int*>(valid_rows)};
+  const void* a_in = a;
+  if (act) {
+    const long long vecs = static_cast<long long>(m) * (k / 8);
+    const long long want = (vecs + 255) / 256;
+    gelu_rows_kernel<<<want < 2112 ? static_cast<int>(want) : 2112, 256, 0, s>>>(
+        static_cast<const bf16*>(a), static_cast<bf16*>(scratch), m, k, g);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    a_in = scratch;
+  }
+  const long long dims_a[2] = {k, m}, box_a[2] = {sm90::BK, 128};
+  const long long dims_b[3] = {n, k, n_exp}, strides_b[2] = {2LL * n, 2LL * n * k};
+  const long long box_b[3] = {sm90::BOX_N, sm90::BK, 1};
+  CUtensorMap ma, mb;
+  cudaError_t err = sm90::make_map(&ma, a_in, dims_a, 2LL * k, box_a);
+  if (err == cudaSuccess) err = sm90::make_map_nd(&mb, b, 3, dims_b, strides_b, box_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto go = [&](auto t) -> cudaError_t {
+    using TOut = decltype(t);
+    auto run = [&](auto kernel, size_t smem, int threads) -> cudaError_t {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, threads, smem, s>>>(ma, mb, static_cast<TOut*>(c), m, n, k, g);
+      return cudaSuccess;
+    };
+    if (config == 0) {
+      using T = sm90::Tile<2, 256, 4>;
+      return run(group_gemm_sm90_kernel<256, 4, TOut>, T::SMEM_BYTES, T::THREADS);
+    }
+    using T = sm90::Tile<2, 128, 6>;
+    return run(group_gemm_sm90_kernel<128, 6, TOut>, T::SMEM_BYTES, T::THREADS);
+  };
+  if (out_dtype == kBF16) err = go(bf16{});
+  else if (out_dtype == kF32) err = go(float{});
+  else err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,9 @@ DIST_PROTOTYPES = {
     "tdt_ag_gemm_consumer_sm90": [_P] * 3 + [_I] * 6 + [_P] + [_I] * 4 + _WAIT,
     "tdt_gemm_rs_reduce": [_P] * 3 + [_I] * 6 + [ctypes.POINTER(_P), _I, _P, _I, _I, _I]
     + _WAIT,
+    "tdt_gemm_rs_produce": [_P, _P] + [_I] * 6 + [_P] * 3 + [_I] * 3 + [_P],
+    "tdt_gemm_rs_reduce_sm90": [_P] * 3 + [_I] * 5 + [ctypes.POINTER(_P), _I, _P] + [_I] * 4
+    + _WAIT,
     "tdt_ag_group_gemm_consumer": [_P] * 6 + [_I] * 8 + [ctypes.POINTER(_I), _I, _I, _I, _P,
                                                          _I, _I] + _WAIT,
     "tdt_moe_combine_push": [_P] * 4 + [_I] * 4 + [_P],

@@ -49,7 +49,8 @@ class GemmPlan:
     ``"wgmma"``: the tile ``config`` of :data:`SM90_TILES`, the output
     ``tiles``, the persistent ``grid`` and the two tensor maps' arguments
     ``map_a`` / ``map_b``: ``(dim0, dim1, outer stride in bytes, box0,
-    box1)``, innermost first, as ``cuTensorMapEncodeTiled`` takes them."""
+    box1)``, innermost first, as ``cuTensorMapEncodeTiled`` takes them.
+    A two-launch kernel (K7) also has its producer's ``producer_grid``."""
 
     engine: str
     config: int = -1
@@ -57,6 +58,7 @@ class GemmPlan:
     grid: int = 0
     map_a: tuple = ()
     map_b: tuple = ()
+    producer_grid: int = 0
 
 
 def tma_ok(n: int, k: int, aligned: bool) -> bool:

@@ -11,21 +11,31 @@ reference's DCN branches are left out.
 
 The TPU kernel GEMMs the chunk for peer ``me+d`` (d = 1 .. n-1, own chunk
 last) into a two-slot send buffer, pushes it into the peer's landing slot
-``d-1``, and fuses the n-way reduction into its own chunk's epilogue. The
-port keeps that schedule:
+``d-1``, and fuses the n-way reduction into its own chunk's epilogue.
+:func:`gemm_rs_plan` picks the port's engine. bf16 that TMA can load runs
+on K1's ``wgmma`` + TMA mainloop in two launches on the compute stream:
 
-- compute stream: K4 as the entry barrier (every rank's landing slots are
-  free: its previous reduce has read them), then for each d the K1 GEMM of
-  peer ``me+d``'s row chunk into send slot ``(d-1) % 2``; at d >= 3 the
-  stream first waits for the copy that last read that slot (the send-slot
-  reuse wait of ``:126-127``, which world 2 never reaches);
-- comm stream: each chunk's copy-engine put into the peer's landing slot
-  ``d-1`` and a one-warp flag kernel;
-- once every rank has issued its puts (a host rendezvous: no device wait
-  is issued before what it waits for), compute stream: the consumer
-  (``csrc/dist.cu``), a persistent K1-derived kernel that runs its own
-  chunk's k loop, waits (bounded) for the n-1 landing flags, and adds the
-  landed chunks in its f32 epilogue.
+- K4 as the entry barrier (every rank's landing slots are free: its
+  previous reduce has read them);
+- one producer launch (``tdt_gemm_rs_produce``) that walks the n-1 peer
+  chunks, rounds each output tile to the output type and stores it
+  straight into rank ``me+d``'s landing slot ``d-1``; the block that stores
+  a chunk's last tile raises that rank's flag ``d-1``. No send slots, no
+  copy-engine puts, no flag kernels;
+- once every rank has issued its producer (a host rendezvous: no device
+  wait is issued before what it waits for), the consumer
+  (``tdt_gemm_rs_reduce_sm90``): the own chunk's k loop, a bounded wait for
+  the n-1 landing flags before the first epilogue, the landed chunks added
+  in slot order in f32, one cast.
+
+Other bf16 and f32 keep the earlier schedule (the mma.sync / FMA
+consumer): K4, then for each d the K1 GEMM of peer ``me+d``'s row chunk
+into send slot ``(d-1) % 2`` (at d >= 3 the stream first waits for the copy
+that last read that slot, the send-slot reuse wait of ``:126-127``), each
+chunk's copy-engine put and one-warp flag kernel on the comm stream, the
+rendezvous, and ``tdt_gemm_rs_reduce``, a persistent K1-derived kernel that
+runs its own chunk's k loop, waits (bounded) for the n-1 landing flags, and
+adds the landed chunks in its f32 epilogue.
 
 The ring (``csrc/ring.cu``, chosen by ``auto`` off a full mesh): one
 persistent kernel a rank. At step s it GEMMs row chunk ``me-1-s``, adds the
@@ -57,9 +67,18 @@ from triton_dist_tpu_torch.ops.common import (
     stream_ptr,
     symmetric_flags,
 )
-from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, check_operands, matmul, pointer_array
+from triton_dist_tpu_torch.ops.gemm import (
+    DTYPE_CODE,
+    SM90_TILES,
+    WIDE_TILE_COST,
+    GemmPlan,
+    check_operands,
+    matmul,
+    pointer_array,
+    tma_ok,
+)
 from triton_dist_tpu_torch.ops.reduce_scatter import get_auto_reduce_scatter_method
-from triton_dist_tpu_torch.utils import axis_size, count_call, count_launch, group_of
+from triton_dist_tpu_torch.utils import axis_size, cdiv, count_call, count_launch, group_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +121,45 @@ def _gemm_rs_ring_plain(a, b, ctx, out_dtype, spans):
 _gemm_rs_ring_plain.calls = 0
 
 
+def gemm_rs_plan(m_loc: int, n: int, k: int, world: int, dtype: torch.dtype, *,
+                 aligned: bool = True, blocks: int = 31,
+                 engine: str | None = None) -> GemmPlan:
+    """K7's engine and tile for ``world`` row chunks of ``[m_loc, k] @ [k,
+    n]`` a rank, the consumer on a persistent grid of at most `blocks`
+    spinning blocks and the producer on ``blocks + 2`` (floor(SMs / ranks)
+    when `blocks` is :func:`~triton_dist_tpu_torch.ops.common.max_consumer_blocks`);
+    `aligned` says whether A, B and the output are 16-byte aligned.
+
+    f32 runs the FMA consumer (``"f32"``). bf16 runs the producer and the
+    consumer on K1's ``wgmma`` + TMA mainloop (``"wgmma"``) when
+    :func:`~triton_dist_tpu_torch.ops.gemm.tma_ok`, else K1's GEMMs, the puts
+    and the mma.sync consumer (``"mma_sync"``). The ``wgmma`` tile is K1's
+    128x256 unless 128x128 finishes the producer's n-1 chunks in fewer waves
+    of its grid, a wide tile's wave weighing
+    :data:`~triton_dist_tpu_torch.ops.gemm.WIDE_TILE_COST` narrow ones.
+    `engine` forces one (the chip script's A/B); a forced engine that cannot
+    take the operands raises."""
+    if dtype == torch.float32:
+        if engine not in (None, "f32"):
+            raise ValueError(f"no {engine} engine for an f32 gemm_rs")
+        return GemmPlan("f32")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"gemm_rs takes bf16 or f32, not {dtype}")
+    ok = k > 0 and tma_ok(n, k, aligned)
+    engine = engine or ("wgmma" if ok else "mma_sync")
+    if engine == "mma_sync":
+        return GemmPlan("mma_sync")
+    if engine != "wgmma" or not ok:
+        raise ValueError(f"no {engine} engine for {world} x [{m_loc}, {k}] @ [{k}, {n}] "
+                         f"(aligned={aligned})")
+    producers = blocks + 2
+    own = [cdiv(m_loc, bm) * cdiv(n, bn) for bm, bn in (SM90_TILES[0], SM90_TILES[1])]
+    waves = [cdiv((world - 1) * t, producers) for t in own]
+    config = 0 if WIDE_TILE_COST * waves[0] <= waves[1] else 1
+    return GemmPlan("wgmma", config, own[config], min(own[config], blocks),
+                    producer_grid=min((world - 1) * own[config], producers))
+
+
 def gemm_rs(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -111,12 +169,18 @@ def gemm_rs(
     config: GemmRSConfig | None = None,
     out_dtype: torch.dtype | None = None,
     axis=None,
+    _engine: str | None = None,
 ) -> torch.Tensor:
     """a ``[M, k_loc]``, b ``[k_loc, N]`` → this rank's ``[M / world, N]``
     slice of the reduced product (call inside ``ctx.run``). ``ctx=None``
     is world 1, where the reduce-scatter is the identity and this is
     :func:`gemm_only`. `axis` (a name or a pair) runs over ``ctx``'s group
-    over it; over a pair, the staged composition of ``_gemm_rs_2d``."""
+    over it; over a pair, the staged composition of ``_gemm_rs_2d``.
+
+    K7 on the card counts on ``launches``, its ``wgmma`` engine also on
+    ``wgmma_launches``. ``_engine`` forces K7's engine (``"wgmma"`` or
+    ``"mma_sync"``, :func:`gemm_rs_plan`; the chip script's A/B, never the
+    main path)."""
     out_dtype = out_dtype or a.dtype
     ctx = group_of(ctx, axis)
     if ctx is not None and len(ctx.axis_names) > 1:
@@ -141,7 +205,7 @@ def gemm_rs(
     if method == "scatter":
         if a.device.type == "cpu":
             return _gemm_rs_xla(a, b, ctx, out_dtype)
-        return _gemm_rs_scatter(a, b, ctx, out_dtype)
+        return _gemm_rs_scatter(a, b, ctx, out_dtype, _engine)
     cfg = config or GemmRSConfig()
     spans = ring_spans(a.shape[0] // n, cfg.chunks_per_shard, cfg.block_m)
     if a.device.type == "cpu":
@@ -152,6 +216,7 @@ def gemm_rs(
 
 
 gemm_rs.launches = 0
+gemm_rs.wgmma_launches = 0  # K7 on K1's wgmma + TMA mainloop (producer and consumer)
 
 
 def _gemm_rs_2d(a, b, pair, method, config, out_dtype):
@@ -180,17 +245,22 @@ def _gemm_rs_2d(a, b, pair, method, config, out_dtype):
     return reduce_scatter(part, ctx=pair.group(outer), method=rs_method)
 
 
-def _gemm_rs_scatter(a, b, ctx, out_dtype):
+def _gemm_rs_scatter(a, b, ctx, out_dtype, forced=None):
     check_operands(a, b, out_dtype, "gemm_rs")
     n, me = ctx.world, ctx.rank
     m_tot, k_loc = a.shape
     n_dim = b.shape[1]
     m_loc = m_tot // n
     chunk = m_loc * n_dim * torch.empty((), dtype=out_dtype).element_size()
+    out = torch.empty((m_loc, n_dim), dtype=out_dtype, device=a.device)
+    p = gemm_rs_plan(m_loc, n_dim, k_loc, n, a.dtype, blocks=max_consumer_blocks(ctx),
+                     aligned=all(t.data_ptr() % 16 == 0 for t in (a, b, out)), engine=forced)
     recv = ctx.symmetric("gemm_rs.recv", (n - 1) * chunk)
-    send = ctx.symmetric("gemm_rs.send", 2 * chunk)
     arrive = symmetric_flags(ctx, "gemm_rs.arrive")
     flags = symmetric_flags(ctx, "gemm_rs.flags")
+    if p.engine == "wgmma":
+        return _gemm_rs_sm90(a, b, ctx, out, p, recv, arrive, flags)
+    send = ctx.symmetric("gemm_rs.send", 2 * chunk)
     launch = dist_launch(ctx, "gemm_rs")
     comp, comm = torch.cuda.current_stream(), ctx.comm_stream
 
@@ -217,7 +287,6 @@ def _gemm_rs_scatter(a, b, ctx, out_dtype):
     ctx.rendezvous()
     landed = [recv.view(me, (m_loc, n_dim), out_dtype, offset=i * chunk) for i in range(n - 1)]
     own = a[me * m_loc:(me + 1) * m_loc]
-    out = torch.empty((m_loc, n_dim), dtype=out_dtype, device=a.device)
     ptrs = pointer_array(landed)
     rc = launch.lib.tdt_gemm_rs_reduce(
         own.data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_dim, k_loc,
@@ -229,6 +298,39 @@ def _gemm_rs_scatter(a, b, ctx, out_dtype):
     count_launch(gemm_rs)
     # the next call's GEMMs overwrite the send slots these puts read
     comp.wait_stream(comm)
+    return out
+
+
+def _gemm_rs_sm90(a, b, ctx, out, p, recv, arrive, flags):
+    """K7 on the ``wgmma`` + TMA engine, on the compute stream: K4, the one
+    producer launch, the host rendezvous, the consumer."""
+    n, me = ctx.world, ctx.rank
+    m_loc, n_dim = out.shape
+    k_loc = a.shape[1]
+    chunk = out.numel() * out.element_size()
+    count = ctx.symmetric("gemm_rs.count", 4 * n)  # tiles stored a peer chunk
+    launch = dist_launch(ctx, "gemm_rs")
+    comp = torch.cuda.current_stream()
+    code = DTYPE_CODE[out.dtype]
+
+    launch_barrier(ctx, launch, arrive, comp)
+    rc = launch.lib.tdt_gemm_rs_produce(
+        a.data_ptr(), b.data_ptr(), m_loc, n_dim, k_loc, code, n, me,
+        recv.table[me].data_ptr(), flags.table[me].data_ptr(), count.peer_addr(me),
+        launch.epoch, p.config, p.producer_grid, stream_ptr(comp),
+    )
+    _build.check(launch.lib, rc, "gemm_rs produce (wgmma)")
+    ctx.rendezvous()  # every rank's producer is issued before any consumer waits
+    landed = [recv.view(me, (m_loc, n_dim), out.dtype, offset=i * chunk) for i in range(n - 1)]
+    ptrs = pointer_array(landed)
+    rc = launch.lib.tdt_gemm_rs_reduce_sm90(
+        a[me * m_loc:(me + 1) * m_loc].data_ptr(), b.data_ptr(), out.data_ptr(), m_loc, n_dim,
+        k_loc, code, n, ptrs, me, flags.peer_addr(me), launch.epoch, p.config, p.grid,
+        launch.jitter, *launch.wait, stream_ptr(comp),
+    )
+    _build.check(launch.lib, rc, "gemm_rs (wgmma)")
+    count_launch(gemm_rs, "wgmma_launches")
+    count_launch(gemm_rs)
     return out
 
 

@@ -53,15 +53,26 @@ import dataclasses
 import torch
 
 from triton_dist_tpu_torch import _build
-from triton_dist_tpu_torch.ops.gemm import DTYPE_CODE, check_operands
-from triton_dist_tpu_torch.utils import count_call, count_launch
+from triton_dist_tpu_torch.ops.gemm import (
+    DTYPE_CODE,
+    SM90_TILES,
+    WIDE_TILE_COST,
+    GemmPlan,
+    check_operands,
+    tma_ok,
+)
+from triton_dist_tpu_torch.utils import cdiv, count_call, count_launch, sm_count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {"tdt_group_gemm": [_P] * 6 + [_I] * 9 + [_P],
+               "tdt_group_gemm_sm90": [_P] * 6 + [_I] * 9 + [_P],
                "tdt_group_gemm_dw": [_P] * 5 + [_I] * 6 + [_P]}
-# the M tile of the bf16 engine (csrc/gemm_core.cuh Bf16Engine::BM); the f32
-# engine's 64 divides it
+# the M tile of the bf16 engines (csrc/gemm_core.cuh Bf16Engine::BM, the
+# wgmma engine's 128-row tiles); the f32 engine's 64 divides it
 TILE_M = 128
+# the wgmma engine lists a layout's row tiles in shared memory
+# (csrc/group_gemm.cu MAX_ROW_TILES): longer layouts take the mma.sync one
+MAX_ROW_TILES = 2048
 
 # fp8_e4m3fn, the finite-max e4m3 variant (≙ ``FP8_DTYPE``/``_FP8_MAX``,
 # ``:138-139``): 448 is its largest normal, the absmax maps onto it as 127
@@ -222,6 +233,43 @@ def _group_gemm_plain(a_sorted, b, expert_ids, bm, out_dtype, act_fn, scale=None
 _group_gemm_plain.calls = 0
 
 
+def group_gemm_plan(t_pad: int, n: int, k: int, dtype: torch.dtype, *, scaled: bool = False,
+                    aligned: bool = True, sms: int = 132,
+                    engine: str | None = None) -> GemmPlan:
+    """K8/K24/K29's engine and tile for ``[t_pad, k]`` rows in `dtype` over
+    a bank ``[E, k, n]`` on a card of `sms` SMs; `scaled` marks a one-byte
+    bank, `aligned` whether A, the bank and the output are 16-byte aligned.
+
+    bf16 A over a bf16 bank runs the persistent ``wgmma`` + TMA kernel
+    (``"wgmma"``) when :func:`~triton_dist_tpu_torch.ops.gemm.tma_ok` and the
+    layout has at most :data:`MAX_ROW_TILES` row tiles, else the mma.sync
+    engine (``"mma_sync"``); a one-byte bank keeps its engine (``"mma_sync"``
+    under bf16 A), f32 A the FMA one (``"f32"``). The ``wgmma`` tile is K1's
+    128x256 unless 128x128 finishes in fewer waves of `sms` tiles, a wide
+    tile's wave weighing :data:`~triton_dist_tpu_torch.ops.gemm.WIDE_TILE_COST`
+    narrow ones, counted over every row tile of the layout (the live ones
+    are known only on the card). `engine` forces one (the chip script's A/B);
+    a forced engine that cannot take the operands raises."""
+    if dtype == torch.float32:
+        if engine not in (None, "f32"):
+            raise ValueError(f"no {engine} engine for an f32 group_gemm")
+        return GemmPlan("f32")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"group_gemm takes bf16 or f32 rows, not {dtype}")
+    ok = (not scaled and k > 0 and tma_ok(n, k, aligned)
+          and cdiv(t_pad, TILE_M) <= MAX_ROW_TILES)
+    engine = engine or ("wgmma" if ok else "mma_sync")
+    if engine == "mma_sync":
+        return GemmPlan("mma_sync")
+    if engine != "wgmma" or not ok:
+        raise ValueError(f"no {engine} engine for [{t_pad}, {k}] @ [E, {k}, {n}] "
+                         f"(scaled={scaled}, aligned={aligned})")
+    tiles = [cdiv(t_pad, bm) * cdiv(n, bn) for bm, bn in (SM90_TILES[0], SM90_TILES[1])]
+    waves = [cdiv(t, sms) for t in tiles]
+    config = 0 if WIDE_TILE_COST * waves[0] <= waves[1] else 1
+    return GemmPlan("wgmma", config, tiles[config], min(tiles[config], sms))
+
+
 def check_group_operands(a, b, expert_ids, out_dtype, act_fn, what, scale=None,
                          valid_rows=None) -> int:
     """What K8/K24/K29 and K9/K25/K30 take on the card; returns the row
@@ -265,6 +313,7 @@ def group_gemm(
     config: GroupGemmConfig | None = None,
     out_dtype: torch.dtype | None = None,
     act_fn=None,
+    _engine: str | None = None,
 ) -> torch.Tensor:
     """``out[i*bm:(i+1)*bm] = act?(a_sorted[i*bm:(i+1)*bm]) @ b[expert_ids[i]]``
     with f32 accumulation. a_sorted ``[t_pad, K]`` bf16 or f32, b ``[E, K,
@@ -284,6 +333,13 @@ def group_gemm(
     past it is not computed and comes back zero, and so do the dead rows
     of a live tile, after the scale fold. Live rows equal the padded
     kernel's bit for bit (the same tile, the same sum order).
+
+    On the card :func:`group_gemm_plan` picks the engine: bf16 over a bf16
+    bank that TMA can load runs the ``wgmma`` + TMA kernel
+    (``tdt_group_gemm_sm90``, also counted on ``wgmma_launches``; with the
+    GELU, a pass activates A's live rows once into a scratch copy first),
+    everything else the mma.sync / FMA kernel (``tdt_group_gemm``).
+    ``_engine`` forces one (the chip script's A/B, never the main path).
 
     With ``config.backend="ragged_dot"`` this is
     :func:`_group_gemm_plain`, plain PyTorch on any device, ``ragged``
@@ -328,15 +384,30 @@ def group_gemm(
     out = torch.empty((t_pad, n), dtype=out_dtype, device=a_sorted.device)
     if n == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a_sorted, b, out))
+    p = group_gemm_plan(t_pad, n, k, a_sorted.dtype, scaled=scale is not None, aligned=aligned,
+                        sms=sm_count(a_sorted.get_device()), engine=_engine)
     lib = _build.library("group_gemm", _PROTOTYPES)
-    rc = lib.tdt_group_gemm(
-        a_sorted.data_ptr(), b.data_ptr(), None if scale is None else scale.data_ptr(),
-        expert_ids.data_ptr(), None if valid_rows is None else valid_rows.data_ptr(),
-        out.data_ptr(), t_pad, n, k, n_exp, bm, DTYPE_CODE[a_sorted.dtype],
-        weight_code(a_sorted, b), DTYPE_CODE[out_dtype], int(act_fn is not None),
-        _build.stream_of(a_sorted),
-    )
-    _build.check(lib, rc, "group_gemm")
+    ids_ptr = expert_ids.data_ptr()
+    valid_ptr = None if valid_rows is None else valid_rows.data_ptr()
+    if p.engine == "wgmma":
+        scratch = torch.empty_like(a_sorted) if act_fn is not None else None
+        rc = lib.tdt_group_gemm_sm90(
+            a_sorted.data_ptr(), b.data_ptr(), ids_ptr, valid_ptr, out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), t_pad, n, k, n_exp, bm,
+            DTYPE_CODE[out_dtype], int(act_fn is not None), p.config, p.grid,
+            _build.stream_of(a_sorted),
+        )
+        _build.check(lib, rc, "group_gemm (wgmma)")
+        count_launch(group_gemm, "wgmma_launches")
+    else:
+        rc = lib.tdt_group_gemm(
+            a_sorted.data_ptr(), b.data_ptr(), None if scale is None else scale.data_ptr(),
+            ids_ptr, valid_ptr, out.data_ptr(), t_pad, n, k, n_exp, bm,
+            DTYPE_CODE[a_sorted.dtype], weight_code(a_sorted, b), DTYPE_CODE[out_dtype],
+            int(act_fn is not None), _build.stream_of(a_sorted),
+        )
+        _build.check(lib, rc, "group_gemm")
     count_launch(group_gemm, launch_key(scale, valid_rows))
     return out
 
@@ -344,6 +415,7 @@ def group_gemm(
 group_gemm.launches = 0         # K8
 group_gemm.scaled_launches = 0  # K24
 group_gemm.ragged_launches = 0  # K29, all three formats
+group_gemm.wgmma_launches = 0   # K8/K29 on the wgmma + TMA engine
 
 
 def launch_key(scale, valid_rows) -> str:
