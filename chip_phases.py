@@ -30,7 +30,12 @@ mma.sync one), ``ag_gemm`` (K6 at world 4, the wgmma + TMA engine beside
 the mma.sync one), ``train_sp`` (the sequence-parallel train steps, K35),
 ``group_gemm`` (K8), ``group_gemm_ragged`` (K29) and ``gemm_rs`` (K7 at
 world 4), each on its wgmma + TMA engine beside the mma.sync one,
-``stuck_wait`` (the barrier's and K7's stuck waits), ``moe_serves``
+``stuck_wait`` (the barrier's and K7's stuck waits), ``ag_gemm_ring``
+(K15 at world 4 on a ring, one span and two) and ``gemm_rs_ring`` (K16/K17,
+spans 1, 2, 3), each on its wgmma + TMA kernel beside the mma.sync one,
+``serve_tp4_ring`` (the 70B serve on a ring: K15, K17), ``stuck_wait_ring``
+(K16's FMA kernel and the K15/K16 wgmma kernels with a late neighbour),
+``ag_gemm_2d`` (K37, held to K15's mma.sync kernel), ``moe_serves``
 (``serve_moe`` and ``serve_moe_tp4``, ``serve_moe_ep4`` and ``_q``, then
 their ragged twins ``serve_moe_ep4_ragged`` and ``serve_moe_tp4_ragged``,
 which read the padded serves' tokens), ``train_moe_ragged`` (``train_moe``
@@ -155,6 +160,19 @@ def main(argv: list[str]) -> int:
         finally:
             ctx.close()
 
+    def at_ring(phase):
+        """A kernel phase that takes a world-4 ring context on the one card
+        (one entry, or a list of them)."""
+        from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
+
+        ctx = initialize_distributed(cs.WORLD)
+        ctx.full_mesh = False
+        try:
+            got = phase(ctx)
+            cs.emit({"kernels": got if isinstance(got, list) else [got]})
+        finally:
+            ctx.close()
+
     def moe_serves(c):
         cs.phase_serve_moe(c)
         torch.cuda.empty_cache()
@@ -193,6 +211,11 @@ def main(argv: list[str]) -> int:
         "f32_parity_train": lambda c: f32_parity_train(),
         "ring_attention": lambda c: at_world(cs.phase_ring_attention),
         "ag_gemm": lambda c: at_world(cs.phase_ag_gemm),
+        "ag_gemm_ring": lambda c: at_ring(cs.phase_ag_gemm_ring),
+        "gemm_rs_ring": lambda c: at_ring(lambda ctx: cs.phase_gemm_rs_ring(ctx)),
+        "serve_tp4_ring": lambda c: cs.phase_serve_tp4_ring(c),
+        "stuck_wait_ring": lambda c: cs.phase_stuck_wait_ring(),
+        "ag_gemm_2d": lambda c: cs.emit({"kernels": [cs.phase_ag_gemm_2d()]}),
         "train_sp": lambda c: cs.phase_train_sp(c),
     }
     unknown = [p for p in argv if p not in phases]

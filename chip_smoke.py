@@ -87,13 +87,15 @@ Phases, each printed as a JSON line, each fatal on failure:
 21. the rings (``csrc/ring.cu``), the world-4 context re-declared a ring
    (``ctx.full_mesh = False``): the ring AG-GEMM K15 at K6's shapes (one
    span and two), the ring GEMM-RS K16 and its spans K17 at K7's (chunks
-   1, 2, 3), the ring reduce-scatter K18 at K12's, each against its
-   ring-order plain version and the library golden; a stuck ring wait that
-   must raise with its record;
+   1, 2, 3), each on its wgmma + TMA kernel and, forced, the mma.sync one
+   (timed beside it, and each kernel alone), the ring reduce-scatter K18
+   at K12's, each against its ring-order plain version and the library
+   golden; stuck ring waits (K16's FMA kernel, the K16 and K15 wgmma
+   kernels) that must raise with their records;
 22. ``serve_tp4_ring``: ``serve_tp4``'s model, weights and traffic on a
-   ring context with two spans a shard (K15, K17; no K6/K7) and its bf16
-   logits; ``f32_parity_tp4_ring``: f32 greedy tokens on a ring against
-   the world-4 CPU twins on a ring;
+   ring context with two spans a shard (K15, K17, every launch on its
+   wgmma kernel; no K6/K7) and its bf16 logits; ``f32_parity_tp4_ring``:
+   f32 greedy tokens on a ring against the world-4 CPU twins on a ring;
 23. ``train_ring``: one f32 train step at world 4 on a ring, Mixtral widths
    cut to 2 layers (K15, K16, K18), loss, gradients and updated
    parameters against the plain path differentiated by PyTorch;
@@ -197,7 +199,8 @@ Phases, each printed as a JSON line, each fatal on failure:
    the hierarchical ring allgather K36 and the 2-D AG-GEMM K37
    (``csrc/ring.cu``) at 2 x 2, 2 x 4, 4 x 2 and over the swapped pair,
    K36 bit-exact and equal to K19 over the flattened ring, K37 bit-equal
-   to K15 and within one bf16 ulp of its plain version, a 3-axis gather,
+   to K15's mma.sync kernel and within one bf16 ulp of its plain version,
+   a 3-axis gather,
    each timed at 2 x 2 beside its 1-D twins (K19; K6 and K15);
    ``stuck_wait_2d`` (a late rank: the same entry-barrier site on every
    other rank); ``serve_moe_ep_hier``: ``preset("mixtral-8x7b:ep-hier",
@@ -384,6 +387,10 @@ class Counters:
             "ag_gemm_ring": allgather_gemm._ag_gemm_ring,
             "gemm_rs_ring": grs._gemm_rs_ring,
             "gemm_rs_ring_chunked": grs._gemm_rs_ring_chunked,
+            # K15, K16 and K17 on their wgmma + TMA kernels
+            "ag_gemm_ring_wgmma": (allgather_gemm._ag_gemm_ring, "wgmma_launches"),
+            "gemm_rs_ring_wgmma": (grs._gemm_rs_ring, "wgmma_launches"),
+            "gemm_rs_ring_chunked_wgmma": (grs._gemm_rs_ring_chunked, "wgmma_launches"),
             "reduce_scatter_ring": rs._ring_reduce_scatter,
             "reduce_scatter_ring_chunked": rs._ring_reduce_scatter_chunked,
             "all_gather_ring_1d": allgather._all_gather_ring_1d,
@@ -3449,19 +3456,40 @@ def _check_ring(name, got, plain, library, world):
     return err, err_lib
 
 
+def _ring_engines(name, dtype, outs_of, check):
+    """Run `outs_of(engine)` on each engine a dtype has (bf16: the routed
+    wgmma + TMA kernel, then the mma.sync one forced; f32: the FMA kernel)
+    and `check` each run's outputs; the worst error of each engine."""
+    import torch
+
+    engines = ((None, "mma_sync") if dtype == torch.bfloat16 else (None,))
+    errs = {}
+    for engine in engines:
+        errs[engine or "routed"] = check(f"{name} ({engine or 'routed'})", outs_of(engine))
+    return errs
+
+
 def phase_ag_gemm_ring(ctx) -> dict:
     """K15 on a ring context at K6's shapes (a 4-way Llama-3.1-70B prefill,
     512 rows a rank: wqkv, gate/up, LM head), one span and two a shard:
-    bf16 against the ring's plain version and the gathered A bit-exact; f32
-    at the wqkv shape. The bound is K6's: the same work and bytes."""
+    bf16 on the routed wgmma + TMA kernel and, forced, the mma.sync kernel
+    it replaces, each against the ring's plain version with the gathered A
+    bit-exact, every routed launch counted on ``wgmma_launches``; f32 (the
+    FMA kernel) at the wqkv shape. Timed at each span count: ``ms`` /
+    ``prev_ms`` each engine's call with the host's rendezvous,
+    ``kernel_ms`` / ``prev_kernel_ms`` each kernel alone (torch.profiler).
+    The bound is K6's: the same work and bytes."""
     import torch
     from triton_dist_tpu_torch.ops import allgather_gemm as agg
     from triton_dist_tpu_torch.ops.common import ring_spans
 
     g = torch.Generator(device="cuda").manual_seed(62)
     m_loc, k = 512, 8192
-    rows, worst = [], 0.0
-    total = dict(ms=0.0, ms_one_span=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    rows, worst, prev_worst = [], 0.0, 0.0
+    keys = [f"{t}_chunks{c}" for t in ("ms", "prev_ms", "kernel_ms", "prev_kernel_ms")
+            for c in (1, RING_CHUNKS)]
+    total = {key: 0.0 for key in keys}
+    total.update(plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
     for name, n_loc in (("wqkv", 2560), ("gate_up", 14336), ("lm_head", 32064)):
         # f32 first: the timings below read the last (bf16) operands
         dtypes = (torch.float32, torch.bfloat16) if name == "wqkv" else (torch.bfloat16,)
@@ -3471,27 +3499,51 @@ def phase_ag_gemm_ring(ctx) -> dict:
                  for _ in range(WORLD)]
             b = [(torch.randn((k, n_loc), generator=g, device="cuda") / k**0.5).to(dtype)
                  for _ in range(WORLD)]
+            a_full = torch.cat(a)
             for chunks in (1, RING_CHUNKS):
                 cfg = agg.AGGemmConfig(chunks_per_shard=chunks)
                 spans = ring_spans(m_loc, chunks, cfg.block_m)
-                outs = ctx.run(lambda: (
-                    agg.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg,
-                                gather_output=True),
-                    agg._ag_gemm_ring_plain(a[ctx.rank], b[ctx.rank], ctx, False, dtype, spans)))
-                a_full = torch.cat(a)
-                err = 0.0
-                for r, ((out, ag), plain) in enumerate(outs):
-                    if not torch.equal(ag, a_full):
-                        raise AssertionError(f"ag_gemm ring {name}: gathered A not bit-exact")
-                    err = max(err, _check_ring(f"ag_gemm ring {name} chunks {chunks} rank {r}",
-                                               out, plain, plain, WORLD)[0])
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
-                row[f"max_abs_err_{str(dtype)[6:]}_chunks{chunks}"] = err
-                del outs
-                if dtype == torch.bfloat16:
-                    row[f"ms_chunks{chunks}"] = dist_ms(ctx, lambda: agg.ag_gemm(
-                        a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg), iters=5)
+
+                def outs_of(engine):
+                    before = agg._ag_gemm_ring.wgmma_launches
+                    outs = ctx.run(lambda: (
+                        agg.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg,
+                                    gather_output=True, _engine=engine),
+                        agg._ag_gemm_ring_plain(a[ctx.rank], b[ctx.rank], ctx, False, dtype,
+                                                spans)))
+                    wgmma = dtype == torch.bfloat16 and engine is None
+                    if agg._ag_gemm_ring.wgmma_launches != before + (WORLD if wgmma else 0):
+                        raise AssertionError(f"ag_gemm ring {name}: the {engine or 'routed'} "
+                                             f"engine was not the one run")
+                    return outs
+
+                def check(what, outs):
+                    err = 0.0
+                    for r, ((out, ag), plain) in enumerate(outs):
+                        if not torch.equal(ag, a_full):
+                            raise AssertionError(f"ag_gemm ring {what}: gathered A not "
+                                                 f"bit-exact")
+                        err = max(err, _check_ring(f"ag_gemm ring {what} chunks {chunks} "
+                                                   f"rank {r}", out, plain, plain, WORLD)[0])
+                    return err
+
+                errs = _ring_engines(f"ag_gemm ring {name}", dtype, outs_of, check)
+                for engine, err in errs.items():
+                    row[f"max_abs_err_{str(dtype)[6:]}_{engine}_chunks{chunks}"] = err
+                if dtype != torch.bfloat16:
+                    continue
+                worst, prev_worst = max(worst, errs["routed"]), max(prev_worst, errs["mma_sync"])
+
+                def call(engine=None):
+                    return lambda: agg.ag_gemm(a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg,
+                                               _engine=engine)
+
+                row[f"ms_chunks{chunks}"] = dist_ms(ctx, call(), iters=5)
+                row[f"prev_ms_chunks{chunks}"] = dist_ms(ctx, call("mma_sync"), iters=5)
+                row[f"kernel_ms_chunks{chunks}"] = dist_kernel_ms(
+                    ctx, call(), "ring_ag_gemm_sm90_kernel", iters=2)
+                row[f"prev_kernel_ms_chunks{chunks}"] = dist_kernel_ms(
+                    ctx, call("mma_sync"), "ring_ag_gemm_kernel", iters=2)
         row["plain_ms"] = dist_ms(ctx, lambda: agg._ag_gemm_ring_plain(
             a[ctx.rank], b[ctx.rank], ctx, False, torch.bfloat16, spans), iters=2)
         row["library_ms"] = cuda_ms(lambda: [torch.matmul(torch.cat(a), b[r])
@@ -3500,22 +3552,25 @@ def phase_ag_gemm_ring(ctx) -> dict:
         nbytes = 2.0 * (WORLD * m_loc * k + WORLD * k * n_loc + WORLD * WORLD * m_loc * n_loc)
         row["bound_ms"] = bound(flops, nbytes)[0]
         rows.append({name: row})
-        total["ms"] += row[f"ms_chunks{RING_CHUNKS}"]
-        total["ms_one_span"] += row["ms_chunks1"]
-        for key in ("plain_ms", "library_ms"):
+        for key in (*keys, "plain_ms", "library_ms"):
             total[key] += row[key]
         total["flops"] += flops
         total["bytes"] += nbytes
-        del a, b
+        del a, b, a_full
     emit({"phase": "kernel", "kernel": "ag_gemm_ring", "world": WORLD, "per_shape": rows,
-          "ms_chunks1_summed": total["ms_one_span"],
-          f"ms_chunks{RING_CHUNKS}_summed": total["ms"]})
+          "prev_engine": "mma.sync (ring_ag_gemm_kernel<Bf16Engine>)",
+          "sums": {key: total[key] for key in (*keys, "plain_ms", "library_ms")}})
     b_ms, by = bound(total["flops"], total["bytes"])
+    two = f"_chunks{RING_CHUNKS}"
     return dict(
         name="ag_gemm_ring", route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
         replaces="triton_dist_tpu/ops/allgather_gemm.py:109", max_abs_err=worst,
-        ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
-        library_ms=total["library_ms"], ms_one_span=total["ms_one_span"],
+        prev_max_abs_err=prev_worst, ms=total["ms" + two], plain_ms=total["plain_ms"],
+        bound_ms=b_ms, bound_by=by, library_ms=total["library_ms"],
+        prev_ms=total["prev_ms" + two], kernel_ms=total["kernel_ms" + two],
+        prev_kernel_ms=total["prev_kernel_ms" + two], ms_one_span=total["ms_chunks1"],
+        prev_ms_one_span=total["prev_ms_chunks1"],
+        engine="wgmma + TMA (gemm_sm90.cuh's mainloop, ring_ag_gemm_sm90_kernel)",
         shapes=f"world {WORLD} ring: a [512, 8192] a rank; n_loc 2560, 14336, 32064 "
                f"(summed); ms at chunks_per_shard {RING_CHUNKS}, ms_one_span at 1",
     )
@@ -3523,9 +3578,12 @@ def phase_ag_gemm_ring(ctx) -> dict:
 
 def phase_gemm_rs_ring(ctx) -> list[dict]:
     """K16 (one span) and K17 (chunks 2 and 3; its one-span launch
-    bit-equal to K16) on a ring context at K7's shapes (2048 rows, wo and
-    down, N 8192): bf16 against the ring's plain version and the library
-    golden; f32 at the wo shape. The bound is K7's."""
+    bit-equal to K16 on each engine) on a ring context at K7's shapes (2048
+    rows, wo and down, N 8192): bf16 on the routed wgmma + TMA kernel and,
+    forced, the mma.sync kernel, each against the ring's plain version and
+    the library golden, every routed launch counted on ``wgmma_launches``;
+    f32 (the FMA kernel) at the wo shape. Timed at each span count as
+    ``phase_ag_gemm_ring`` times K15. The bound is K7's."""
     import torch
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
     from triton_dist_tpu_torch.ops.common import ring_spans
@@ -3534,8 +3592,11 @@ def phase_gemm_rs_ring(ctx) -> list[dict]:
     m_tot, n = 2048, 8192
     m_loc = m_tot // WORLD
     chunk_set = (1, RING_CHUNKS, 3)
-    rows, worst = [], {c: 0.0 for c in chunk_set}
-    total = {c: 0.0 for c in chunk_set}
+    rows = []
+    worst = {(c, e): 0.0 for c in chunk_set for e in ("routed", "mma_sync")}
+    keys = [f"{t}_chunks{c}" for t in ("ms", "prev_ms", "kernel_ms", "prev_kernel_ms")
+            for c in chunk_set]
+    total = {key: 0.0 for key in keys}
     total.update(plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
     for name, k_loc in (("wo", 2048), ("down", 7168)):
         # f32 first: the timings below read the last (bf16) operands
@@ -3550,27 +3611,53 @@ def phase_gemm_rs_ring(ctx) -> list[dict]:
             for chunks in chunk_set:
                 cfg = grs.GemmRSConfig(chunks_per_shard=chunks)
                 spans = ring_spans(m_loc, chunks, cfg.block_m)
-                outs = ctx.run(lambda: (
-                    grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, method="ring", config=cfg),
-                    grs._gemm_rs_ring_plain(a[ctx.rank], b[ctx.rank], ctx, dtype, spans)))
-                err = err_lib = 0.0
-                for r, (out, plain) in enumerate(outs):
-                    e = _check_ring(f"gemm_rs ring {name} chunks {chunks} rank {r}", out, plain,
-                                    library[r * m_loc:(r + 1) * m_loc], WORLD)
-                    err, err_lib = max(err, e[0]), max(err_lib, e[1])
-                if dtype == torch.bfloat16:
-                    worst[chunks] = max(worst[chunks], err)
-                row[f"max_abs_err_{str(dtype)[6:]}_chunks{chunks}"] = err
-                row[f"max_abs_err_library_{str(dtype)[6:]}_chunks{chunks}"] = err_lib
-                if chunks == 1:  # K17 with one span is K16, bit for bit
-                    one = ctx.run(lambda: grs._gemm_rs_ring_chunked(
-                        a[ctx.rank], b[ctx.rank], ctx, dtype, ((0, m_loc),)))
-                    if not all(torch.equal(x, o) for x, (o, _) in zip(one, outs)):
-                        raise AssertionError(f"gemm_rs ring {name}: one span not bit-equal")
-                del outs
-                if dtype == torch.bfloat16:
-                    row[f"ms_chunks{chunks}"] = dist_ms(ctx, lambda: grs.gemm_rs(
-                        a[ctx.rank], b[ctx.rank], ctx=ctx, method="ring", config=cfg), iters=5)
+                counter = grs._gemm_rs_ring if len(spans) == 1 else grs._gemm_rs_ring_chunked
+
+                def outs_of(engine):
+                    before = counter.wgmma_launches
+                    outs = ctx.run(lambda: (
+                        grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, method="ring",
+                                    config=cfg, _engine=engine),
+                        grs._gemm_rs_ring_plain(a[ctx.rank], b[ctx.rank], ctx, dtype, spans)))
+                    wgmma = dtype == torch.bfloat16 and engine is None
+                    if counter.wgmma_launches != before + (WORLD if wgmma else 0):
+                        raise AssertionError(f"gemm_rs ring {name}: the {engine or 'routed'} "
+                                             f"engine was not the one run")
+                    if chunks == 1:  # K17 with one span is K16, bit for bit
+                        one = ctx.run(lambda: grs._gemm_rs_ring_chunked(
+                            a[ctx.rank], b[ctx.rank], ctx, dtype, ((0, m_loc),), engine))
+                        if not all(torch.equal(x, o) for x, (o, _) in zip(one, outs)):
+                            raise AssertionError(f"gemm_rs ring {name} ({engine or 'routed'}):"
+                                                 f" one span not bit-equal")
+                    return outs
+
+                def check(what, outs):
+                    err = err_lib = 0.0
+                    for r, (out, plain) in enumerate(outs):
+                        e = _check_ring(f"gemm_rs ring {what} chunks {chunks} rank {r}", out,
+                                        plain, library[r * m_loc:(r + 1) * m_loc], WORLD)
+                        err, err_lib = max(err, e[0]), max(err_lib, e[1])
+                    return err, err_lib
+
+                errs = _ring_engines(f"gemm_rs ring {name}", dtype, outs_of, check)
+                for engine, (err, err_lib) in errs.items():
+                    row[f"max_abs_err_{str(dtype)[6:]}_{engine}_chunks{chunks}"] = err
+                    row[f"max_abs_err_library_{str(dtype)[6:]}_{engine}_chunks{chunks}"] = err_lib
+                if dtype != torch.bfloat16:
+                    continue
+                for engine, (err, _) in errs.items():
+                    worst[chunks, engine] = max(worst[chunks, engine], err)
+
+                def call(engine=None):
+                    return lambda: grs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, method="ring",
+                                               config=cfg, _engine=engine)
+
+                row[f"ms_chunks{chunks}"] = dist_ms(ctx, call(), iters=5)
+                row[f"prev_ms_chunks{chunks}"] = dist_ms(ctx, call("mma_sync"), iters=5)
+                row[f"kernel_ms_chunks{chunks}"] = dist_kernel_ms(
+                    ctx, call(), "ring_gemm_rs_sm90_kernel", iters=2)
+                row[f"prev_kernel_ms_chunks{chunks}"] = dist_kernel_ms(
+                    ctx, call("mma_sync"), "ring_gemm_rs_kernel", iters=2)
         row["plain_ms"] = dist_ms(ctx, lambda: grs._gemm_rs_ring_plain(
             a[ctx.rank], b[ctx.rank], ctx, torch.bfloat16, ((0, m_loc),)), iters=2)
         row["library_ms"] = cuda_ms(lambda: sum(torch.matmul(a[r], b[r])
@@ -3579,27 +3666,35 @@ def phase_gemm_rs_ring(ctx) -> list[dict]:
         nbytes = 2.0 * (WORLD * m_tot * k_loc + WORLD * k_loc * n + m_tot * n)
         row["bound_ms"] = bound(flops, nbytes)[0]
         rows.append({name: row})
-        for c in chunk_set:
-            total[c] += row[f"ms_chunks{c}"]
-        for key in ("plain_ms", "library_ms"):
+        for key in (*keys, "plain_ms", "library_ms"):
             total[key] += row[key]
         total["flops"] += flops
         total["bytes"] += nbytes
         del a, b, library
     emit({"phase": "kernel", "kernel": "gemm_rs_ring", "world": WORLD, "per_shape": rows,
-          **{f"ms_chunks{c}_summed": total[c] for c in chunk_set}})
+          "prev_engine": "mma.sync (ring_gemm_rs_kernel<Bf16Engine>)",
+          "sums": {key: total[key] for key in (*keys, "plain_ms", "library_ms")}})
     b_ms, by = bound(total["flops"], total["bytes"])
     common = dict(route="cuda", source="triton_dist_tpu_torch/csrc/ring.cu",
                   plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=by,
-                  library_ms=total["library_ms"])
+                  library_ms=total["library_ms"],
+                  engine="wgmma + TMA (gemm_sm90.cuh's mainloop, ring_gemm_rs_sm90_kernel)")
     shapes = f"world {WORLD} ring: a [2048, k_loc] a rank, k_loc 2048 and 7168, N 8192 (summed)"
+
+    def timed(c):
+        return {key: total[f"{key}_chunks{c}"]
+                for key in ("ms", "prev_ms", "kernel_ms", "prev_kernel_ms")}
+
     return [
         dict(name="gemm_rs_ring", replaces="triton_dist_tpu/ops/gemm_reduce_scatter.py:147",
-             max_abs_err=worst[1], ms=total[1], shapes=shapes, **common),
+             max_abs_err=worst[1, "routed"], prev_max_abs_err=worst[1, "mma_sync"],
+             shapes=shapes, **timed(1), **common),
         dict(name="gemm_rs_ring_chunked",
              replaces="triton_dist_tpu/ops/gemm_reduce_scatter.py:187",
-             max_abs_err=max(worst[RING_CHUNKS], worst[3]), ms=total[RING_CHUNKS],
-             ms_chunks3=total[3], shapes=f"{shapes}; ms at chunks_per_shard {RING_CHUNKS}",
+             max_abs_err=max(worst[RING_CHUNKS, "routed"], worst[3, "routed"]),
+             prev_max_abs_err=max(worst[RING_CHUNKS, "mma_sync"], worst[3, "mma_sync"]),
+             ms_chunks3=total["ms_chunks3"], prev_ms_chunks3=total["prev_ms_chunks3"],
+             shapes=f"{shapes}; ms at chunks_per_shard {RING_CHUNKS}", **timed(RING_CHUNKS),
              **common),
     ]
 
@@ -3654,42 +3749,59 @@ def phase_reduce_scatter_ring(ctx) -> dict:
 
 def phase_stuck_wait_ring() -> None:
     """A ring kernel whose neighbour never comes in time: rank 1's stream
-    is held 2 s before its ring GEMM-RS, the wait timeout is 0.2 s. Rank 0
-    must raise with its record (the gemm_rs_ring family, site 1: the
-    arrival of its right neighbour, rank 1), not hang."""
+    is held 2 s before its ring GEMM, the wait timeout is 0.2 s. Rank 0
+    must raise with its record (the family, site 1: the arrival of its right
+    neighbour, rank 1), not hang: K16 in f32 (the FMA kernel), then the
+    wgmma + TMA kernels of K16 and K15 in bf16."""
     import torch
     from triton_dist_tpu_torch import config
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
     from triton_dist_tpu_torch.ops import common
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
     from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
     from triton_dist_tpu_torch.resilience.records import DistTimeoutError
 
-    ctx = initialize_distributed(2)
-    ctx.full_mesh = False
     a = torch.randn((64, 128), device="cuda")
     b = torch.randn((128, 256), device="cuda")
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    cases = (("gemm_rs_ring", "f32", lambda: grs.gemm_rs(a, b, ctx=ctx), None),
+             ("gemm_rs_ring", "wgmma", lambda: grs.gemm_rs(a16, b16, ctx=ctx),
+              grs._gemm_rs_ring),
+             ("ag_gemm_ring", "wgmma", lambda: agg.ag_gemm(a16, b16, ctx=ctx),
+              agg._ag_gemm_ring))
+    out = {}
+    for family, engine, op, counter in cases:
+        # a context that raised refuses further runs: a new one a case
+        ctx = initialize_distributed(2)
+        ctx.full_mesh = False
+        stuck = False
 
-    def call():
-        if ctx.rank == 1 and stuck:
-            common.sleep_on_stream(2_000_000_000)
-        return grs.gemm_rs(a, b, ctx=ctx)
+        def call():
+            if ctx.rank == 1 and stuck:
+                common.sleep_on_stream(2_000_000_000)
+            return op()
 
-    stuck = False
-    ctx.run(call)  # the buffers and flags exist
-    stuck = True
-    t0 = time.perf_counter()
-    try:
-        with config.wait_timeout(0.2):
-            ctx.run(call)
-    except DistTimeoutError as err:
-        recs = err.records
-    else:
-        raise AssertionError("a stuck ring wait did not raise")
-    if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, "gemm_rs_ring", 1)]:
-        raise AssertionError(f"stuck ring wait: unexpected records {recs}")
-    emit({"phase": "stuck_wait_ring", "raised_after_s": time.perf_counter() - t0,
-          "records": recs})
-    ctx.close()
+        ctx.run(call)  # the buffers and flags exist
+        stuck = True
+        before = counter.wgmma_launches if counter else 0
+        t0 = time.perf_counter()
+        try:
+            with config.wait_timeout(0.2):
+                ctx.run(call)
+        except DistTimeoutError as err:
+            recs = err.records
+        else:
+            raise AssertionError(f"a stuck ring wait ({family}, {engine}) did not raise")
+        if counter and counter.wgmma_launches != before + 2:
+            raise AssertionError(f"stuck ring wait ({family}): the bf16 call missed the "
+                                 f"wgmma engine")
+        if [(r["pe"], r["family"], r["site"]) for r in recs] != [(0, family, 1)]:
+            raise AssertionError(f"stuck ring wait ({family}, {engine}): unexpected "
+                                 f"records {recs}")
+        out[f"{family}_{engine}"] = dict(raised_after_s=time.perf_counter() - t0,
+                                         records=recs)
+        ctx.close()
+    emit({"phase": "stuck_wait_ring", **out})
 
 
 def _ring_tp_cfg(cfg):
@@ -3698,6 +3810,14 @@ def _ring_tp_cfg(cfg):
 
     return dataclasses.replace(cfg, ag_config=AGGemmConfig(chunks_per_shard=RING_CHUNKS),
                                rs_config=GemmRSConfig(chunks_per_shard=RING_CHUNKS))
+
+
+def _check_ring_wgmma(name, launches) -> None:
+    """Every K15, K16 and K17 launch of a bf16 path ran its wgmma + TMA
+    kernel."""
+    for key in ("ag_gemm_ring", "gemm_rs_ring", "gemm_rs_ring_chunked"):
+        if launches[f"{key}_wgmma"] != launches[key]:
+            raise AssertionError(f"{name}: {key} off its wgmma engine: {launches}")
 
 
 def phase_serve_tp4_ring(counters: Counters) -> dict:
@@ -3725,6 +3845,8 @@ def phase_serve_tp4_ring(counters: Counters) -> dict:
     used = ("ag_gemm_ring", "gemm_rs_ring_chunked", "all_gather", "paged_flash_decode")
     if any(launches[k] <= 0 for k in used) or launches["ag_gemm"] or launches["gemm_rs"]:
         raise AssertionError(f"serve_tp4_ring did not run on the ring kernels: {launches}")
+    # every projection (bf16, k and n multiples of 8) on K15's / K17's wgmma engine
+    _check_ring_wgmma("serve_tp4_ring", launches)
     emit({"phase": "serve_tp4_ring", "model": TP_MODEL, "n_layers": n_layers, "world": WORLD,
           "full_mesh": False, "chunks_per_shard": RING_CHUNKS, "batch": 8, "s_max": 1024,
           "page_size": 16, "prompt_lens": lengths, "max_new_tokens": max_new, **res})
@@ -4196,6 +4318,8 @@ def phase_layers_ring(counters: Counters) -> dict:
             "reduce_scatter_ring_chunked")
     if any(launches[k] <= 0 for k in used):
         raise AssertionError(f"layers_ring did not run on the kernels: {launches}")
+    # K15 and K17 run only in the bf16 TPMLP here, so every launch on wgmma
+    _check_ring_wgmma("layers_ring", launches)
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the layers' path: {plain}")
 
@@ -6572,10 +6696,11 @@ def phase_all_gather_2d() -> dict:
 def phase_ag_gemm_2d() -> dict:
     """K37 over a (dp, tp) pair at K6's shapes (a 4-way Llama-3.1-70B
     prefill's column projections: a [512, 8192] a rank, n_loc 2560, 14336,
-    32064), bf16: every output bit-equal to K15's over the flattened ring
-    (one span: the same K loop over the same rows), within one bf16 ulp of
-    the output scale of its 2-D-order plain version, the gathered A
-    bit-exact; timed beside K6 (full mesh) and K15 in this call, the bound
+    32064), bf16: every output bit-equal to K15's mma.sync kernel over the
+    flattened ring (one span: the same K loop over the same rows), within
+    one bf16 ulp of the output scale of its 2-D-order plain version, the
+    gathered A bit-exact; timed beside K6 (full mesh) and K15 (as routed:
+    its wgmma + TMA kernel) in this call, the bound
     K6's (the same work), the library ``torch.cat`` + ``torch.matmul``.
     Then 2 x 4, 4 x 2 and (tp, dp) at the wqkv shape, f32 at 2 x 2."""
     import torch
@@ -6592,7 +6717,10 @@ def phase_ag_gemm_2d() -> dict:
                                   dtype)))
         order = _pair_order(ctx.mesh_shape, axes)
         a_full = torch.cat([a[r] for r in order])
-        k15 = None if axes else flat.run(lambda: agg.ag_gemm(a[flat.rank], b, ctx=flat))
+        # K37 runs K15's mma.sync tiles: held to K15 on that engine
+        forced = "mma_sync" if dtype == torch.bfloat16 else None
+        k15 = None if axes else flat.run(lambda: agg.ag_gemm(a[flat.rank], b, ctx=flat,
+                                                             _engine=forced))
         err = 0.0
         for r, ((out, ag), plain) in enumerate(outs):
             if not torch.equal(ag, a_full):

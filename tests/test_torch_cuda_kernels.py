@@ -1016,26 +1016,43 @@ def _ring_tol(dtype, ref):
     return (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * ref.float().abs().max().item()
 
 
+# the ring GEMMs' engine cells: bf16 as routed (TMA-loadable shapes: the
+# wgmma + TMA kernel), bf16 forced onto the mma.sync kernel, f32 (the FMA
+# kernel) -> (dtype, _engine, whether the wgmma counter rises)
+RING_ENGINES = {"routed": (torch.bfloat16, None, True),
+                "mma_sync": (torch.bfloat16, "mma_sync", False),
+                "f32": (torch.float32, None, False)}
+
+
+def _ring_n(n, engine):
+    """A first shape's n of 300 (no TMA: 600-byte rows) becomes 304 in the
+    routed cells, so every routed shape runs the wgmma kernel."""
+    return 304 if engine == "routed" and n == 300 else n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunks", [1, 2, 3])
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_ring_ag_gemm_kernel_matches_plain(cuda, world, dtype, chunks):
-    """K15 on a ring context (spans of ``chunks_per_shard``): two shapes
+@pytest.mark.parametrize("engine", sorted(RING_ENGINES))
+def test_ring_ag_gemm_kernel_matches_plain(cuda, world, engine, chunks):
+    """K15 on a ring context (spans of ``chunks_per_shard``): three shapes
     back to back (the workspace grows, epochs rise), against the ring's
-    plain version; the gathered A bit-exact."""
+    plain version; the gathered A bit-exact; on each engine."""
+    dtype, forced, wgmma = RING_ENGINES[engine]
     ctx = _ring_ctx(world)
     g = torch.Generator(device="cuda").manual_seed(60 + chunks)
-    for m_loc, k, n_loc in ((64, 256, 300), (100, 512, 96), (2, 128, 64)):
+    for m_loc, k, n_loc in ((64, 256, _ring_n(300, engine)), (100, 512, 96), (2, 128, 64)):
         cfg = tagg.AGGemmConfig(chunks_per_shard=chunks)
         spans = tcommon.ring_spans(m_loc, chunks, cfg.block_m)
         a = [torch.randn((m_loc, k), generator=g, device=cuda).to(dtype) for _ in range(world)]
         b = (torch.randn((k, n_loc), generator=g, device=cuda) / k**0.5).to(dtype)
-        before = tagg._ag_gemm_ring.launches
+        before = (tagg._ag_gemm_ring.launches, tagg._ag_gemm_ring.wgmma_launches)
         outs = ctx.run(lambda: (
-            tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, config=cfg, gather_output=True),
+            tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, config=cfg, gather_output=True,
+                         _engine=forced),
             tagg._ag_gemm_ring_plain(a[ctx.rank], b, ctx, False, dtype, spans)))
-        assert tagg._ag_gemm_ring.launches == before + world
+        assert tagg._ag_gemm_ring.launches == before[0] + world
+        assert tagg._ag_gemm_ring.wgmma_launches == before[1] + (world if wgmma else 0)
         for (out, ag), want in outs:
             assert torch.equal(ag, torch.cat(a))
             assert (out.float() - want.float()).abs().max().item() <= _ring_tol(dtype, want)
@@ -1044,13 +1061,15 @@ def test_ring_ag_gemm_kernel_matches_plain(cuda, world, dtype, chunks):
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunks", [1, 2, 3])
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_ring_gemm_rs_kernel_matches_plain(cuda, world, dtype, chunks):
+@pytest.mark.parametrize("engine", sorted(RING_ENGINES))
+def test_ring_gemm_rs_kernel_matches_plain(cuda, world, engine, chunks):
     """K16 (one span) and K17 (spans) on a ring context against the
-    ring's plain version; K17 launched with one span is K16 bit for bit."""
+    ring's plain version, on each engine; K17 launched with one span is K16
+    bit for bit on the same engine."""
+    dtype, forced, wgmma = RING_ENGINES[engine]
     ctx = _ring_ctx(world)
     g = torch.Generator(device="cuda").manual_seed(70 + chunks)
-    for m_loc, k_loc, n in ((64, 256, 300), (40, 128, 520), (2, 64, 128)):
+    for m_loc, k_loc, n in ((64, 256, _ring_n(300, engine)), (40, 128, 520), (2, 64, 128)):
         cfg = tgrs.GemmRSConfig(chunks_per_shard=chunks)
         spans = tcommon.ring_spans(m_loc, chunks, cfg.block_m)
         a = [torch.randn((world * m_loc, k_loc), generator=g, device=cuda).to(dtype)
@@ -1058,16 +1077,17 @@ def test_ring_gemm_rs_kernel_matches_plain(cuda, world, dtype, chunks):
         b = [(torch.randn((k_loc, n), generator=g, device=cuda) / k_loc**0.5).to(dtype)
              for _ in range(world)]
         counter = tgrs._gemm_rs_ring if len(spans) == 1 else tgrs._gemm_rs_ring_chunked
-        before = counter.launches
+        before = (counter.launches, counter.wgmma_launches)
         outs = ctx.run(lambda: (
-            tgrs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg),
+            tgrs.gemm_rs(a[ctx.rank], b[ctx.rank], ctx=ctx, config=cfg, _engine=forced),
             tgrs._gemm_rs_ring_plain(a[ctx.rank], b[ctx.rank], ctx, dtype, spans)))
-        assert counter.launches == before + world
+        assert counter.launches == before[0] + world
+        assert counter.wgmma_launches == before[1] + (world if wgmma else 0)
         for got, want in outs:
             assert (got.float() - want.float()).abs().max().item() <= _ring_tol(dtype, want)
         if len(spans) == 1:
             one = ctx.run(lambda: tgrs._gemm_rs_ring_chunked(a[ctx.rank], b[ctx.rank], ctx,
-                                                             dtype, spans))
+                                                             dtype, spans, forced))
             assert all(torch.equal(x, got) for x, (got, _) in zip(one, outs))
 
 
@@ -1221,6 +1241,37 @@ def test_ring_stuck_wait_raises_with_its_record(cuda):
     (rec,) = err.value.records
     assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
         0, "gemm_rs_ring", 1, "barrier_all")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ag_gemm_ring", "gemm_rs_ring"])
+def test_ring_wgmma_stuck_wait_raises_with_its_record(cuda, family):
+    """K15's and K16's wgmma + TMA kernels with a neighbour far too late:
+    world 2, bf16 that TMA loads, rank 1's stream held for 2 s. Rank 0's
+    wait for its right neighbour's arrival (0.2 s) expires and the run
+    raises with the mma.sync kernel's record: rank 0, the family, site 1."""
+    ctx = _ring_ctx(2)
+    a = torch.randn((64, 128), device=cuda).bfloat16()
+    b = torch.randn((128, 256), device=cuda).bfloat16()
+    if family == "ag_gemm_ring":
+        op, counter = (lambda: tagg.ag_gemm(a, b, ctx=ctx)), tagg._ag_gemm_ring
+    else:
+        op, counter = (lambda: tgrs.gemm_rs(a, b, ctx=ctx)), tgrs._gemm_rs_ring
+    ctx.run(op)  # the buffers and flags exist
+
+    def body():
+        if ctx.rank == 1:
+            tcommon.sleep_on_stream(2_000_000_000)
+        return op()
+
+    before = counter.wgmma_launches
+    with config.wait_timeout(0.2):
+        with pytest.raises(DistTimeoutError) as err:
+            ctx.run(body)
+    assert counter.wgmma_launches == before + 2
+    (rec,) = err.value.records
+    assert (rec["pe"], rec["family"], rec["site"], rec["kind"]) == (
+        0, family, 1, "barrier_all")
 
 
 @pytest.mark.cuda
@@ -1963,8 +2014,9 @@ def test_ring_2d_all_gather_over_three_axes(cuda):
 @pytest.mark.parametrize("grid", GRIDS_2D, ids=lambda g: f"{g[0]}x{g[1]}")
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_ring_2d_ag_gemm_kernel_matches_plain(cuda, grid, dtype):
-    """K37 over a (dp, tp) pair: every output tile bit-equal to K15's over
-    the flattened ring (the same K loop over the same rows), within one
+    """K37 over a (dp, tp) pair: every output tile bit-equal to K15's
+    mma.sync kernel over the flattened ring (the same K loop over the same
+    rows), within one
     bf16 ulp of the output scale (f32: 1e-5) of its 2-D-order plain
     version, and the gathered A bit-exact; two shapes back to back."""
     n_o, n_i = grid
@@ -1980,7 +2032,9 @@ def test_ring_2d_ag_gemm_kernel_matches_plain(cuda, grid, dtype):
             tagg.ag_gemm(a[ctx.rank], b, ctx=ctx, gather_output=True),
             tagg._ag_gemm_2d_plain(a[ctx.rank], b, ctx, False, dtype)))
         assert tagg._ag_gemm_ring_2d.launches == before + n
-        k15 = flat.run(lambda: tagg.ag_gemm(a[flat.rank], b, ctx=flat))
+        # K37 runs K15's mma.sync tiles: held to K15 on that engine
+        forced = "mma_sync" if dtype == torch.bfloat16 else None
+        k15 = flat.run(lambda: tagg.ag_gemm(a[flat.rank], b, ctx=flat, _engine=forced))
         for ((out, ag), want), ring in zip(outs, k15):
             assert torch.equal(ag, torch.cat(a))
             assert torch.equal(out, ring)

@@ -1,8 +1,8 @@
-"""The engine routes of the grouped GEMM (K8/K24/K29) and the full-mesh
-GEMM-RS (K7) on the card, decided on the host by ``group_gemm_plan`` and
-``gemm_rs_plan``: bf16 that TMA can load goes to K1's ``wgmma`` + TMA
-mainloop, f32, one-byte banks and operands TMA cannot load to the earlier
-engines; and the CPU paths of ``group_gemm`` and ``gemm_rs`` (the plain
+"""The engine routes of the grouped GEMM (K8/K24/K29), the full-mesh
+GEMM-RS (K7) and the ring GEMMs (K15, K16/K17) on the card, decided on the
+host by ``group_gemm_plan``, ``gemm_rs_plan`` and ``ring_gemm_plan``: bf16
+that TMA can load goes to K1's ``wgmma`` + TMA mainloop, f32, one-byte
+banks and operands TMA cannot load to the earlier engines; and the CPU paths of ``group_gemm`` and ``gemm_rs`` (the plain
 twins every engine is held to) against the JAX package's XLA goldens
 (``_group_gemm_xla``, ``_gemm_rs_xla``), with no interpreted kernel.
 """
@@ -19,6 +19,7 @@ from triton_dist_tpu.ops.group_gemm import _group_gemm_xla
 from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs
 from triton_dist_tpu_torch.ops import group_gemm as tgg
 from triton_dist_tpu_torch.ops import moe_utils as tmu
+from triton_dist_tpu_torch.ops.common import ring_gemm_plan, ring_spans
 from triton_dist_tpu_torch.parallel.mesh import initialize_distributed
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -88,6 +89,43 @@ def test_gemm_rs_plan_routes(name):
     else:
         with pytest.raises(ValueError):
             tgrs.gemm_rs_plan(m_loc, n, k, world, dtype, aligned=aligned, engine="wgmma")
+
+
+# (spans, n, k, world, dtype, aligned) -> (the routed engine, the wgmma tile
+# config): the 70B prefill's shards at two spans and one, a product of one
+# row tile a step where the 128x128 tile finishes in fewer weighted waves
+RING_ROUTES = {
+    "llama70b_wqkv_two_spans": ((ring_spans(512, 2, 512), 2560, 8192, 4, BF16, True),
+                                ("wgmma", 0)),
+    "llama70b_wo_one_span": ((((0, 512),), 8192, 2048, 4, BF16, True), ("wgmma", 0)),
+    "one_row_tile": ((((0, 40), (40, 24)), 384, 256, 2, BF16, True), ("wgmma", 1)),
+    "n_off_rule": ((((0, 64),), 300, 256, 2, BF16, True), ("mma_sync", -1)),
+    "k_off_rule": ((((0, 64),), 304, 100, 2, BF16, True), ("mma_sync", -1)),
+    "unaligned": ((((0, 64),), 304, 256, 4, BF16, False), ("mma_sync", -1)),
+    "f32": ((((0, 64),), 304, 256, 4, F32, True), ("f32", -1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RING_ROUTES))
+def test_ring_gemm_plan_routes(name):
+    """K15 and K16/K17 route as K6 and K7 do; the wgmma tile weighs waves of
+    the ring's tiles (world steps, each span's rows in whole 128-row tiles)
+    over the capped grid; a forced engine that cannot take the operands
+    raises."""
+    (spans, n, k, world, dtype, aligned), (engine, config) = RING_ROUTES[name]
+    p = ring_gemm_plan(spans, n, k, world, dtype, aligned=aligned, blocks=31)
+    assert (p.engine, p.config) == (engine, config)
+    if engine == "wgmma":
+        bn = tgrs.SM90_TILES[config][1]
+        assert p.tiles == world * sum(-(-rows // 128) for _, rows in spans) * -(-n // bn)
+        assert p.grid == min(p.tiles, 31)
+        assert ring_gemm_plan(spans, n, k, world, dtype, engine="mma_sync").engine == "mma_sync"
+    else:
+        with pytest.raises(ValueError):
+            ring_gemm_plan(spans, n, k, world, dtype, aligned=aligned, engine="wgmma")
+    if dtype == F32:
+        with pytest.raises(ValueError):
+            ring_gemm_plan(spans, n, k, world, dtype, engine="mma_sync")
 
 
 def _routing(rng, tokens, n_exp, topk):

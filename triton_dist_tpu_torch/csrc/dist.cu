@@ -135,8 +135,6 @@
 #include "gemm_sm90.cuh"
 #include "shmem.cuh"
 
-#include <type_traits>
-
 namespace {
 
 using namespace tdt;
@@ -411,8 +409,11 @@ struct LandedWalk : sm90::Raster {
   int world, epoch;
   const int* flags;  // this rank's int32[world - 1] landing flags
   WaitCtx w;
+  bool met;  // the block's first epilogue has waited
 
-  __device__ __forceinline__ bool landed() const {
+  __device__ __forceinline__ bool landed(const sm90::Coord&) {
+    if (met) return true;
+    met = true;
     __shared__ int ok_s;
     if (threadIdx.x == 128) {
       bool ok = true;
@@ -434,7 +435,7 @@ __global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
                         AddList<TOut> adds, WaitCtx w, int jitter) {
   shmem::comm_jitter(w.rank, 10, jitter, world);
   const LandedWalk walk{{{}, cdiv(m_loc, sm90::Tile<2, BN, STAGES>::BM), cdiv(n, BN)}, world,
-                        epoch, flags, w};
+                        epoch, flags, w, false};
   sm90::gemm_sm90_body<2, BN, STAGES, TOut, true>(map_a, map_b, out, m_loc, n, k, adds, walk);
 }
 
@@ -855,14 +856,6 @@ extern "C" int tdt_gemm_rs_reduce(const void* a, const void* b, void* out, int m
 
 namespace {
 
-// f(BN, STAGES) for K1's tile config 0 (128x256) or 1 (128x128)
-template <typename F>
-cudaError_t sm90_config(int config, F&& f) {
-  if (config == 0) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 4>{});
-  if (config == 1) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 6>{});
-  return cudaErrorInvalidValue;
-}
-
 // the shapes and operands either K7 kernel on wgmma + TMA takes (`out`: the
 // consumer's output, or the producer's landing slots' peer table)
 bool k7_sm90_ok(const void* a, const void* b, const void* out, int world, int me, int m_loc,
@@ -900,7 +893,7 @@ extern "C" int tdt_gemm_rs_produce(const void* a, const void* b, int m_loc, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = dispatch_out(out_dtype, [&](auto t) {
     using TOut = decltype(t);
-    return sm90_config(config, [&](auto bn, auto stages) -> cudaError_t {
+    return sm90::with_config(config, [&](auto bn, auto stages) -> cudaError_t {
       constexpr int BN = decltype(bn)::value, STAGES = decltype(stages)::value;
       using T = sm90::Tile<2, BN, STAGES>;
       auto kernel = gemm_rs_producer_kernel<BN, STAGES, TOut>;
@@ -939,7 +932,7 @@ extern "C" int tdt_gemm_rs_reduce_sm90(const void* a, const void* b, void* out, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = dispatch_out(out_dtype, [&](auto t) {
     using TOut = decltype(t);
-    return sm90_config(config, [&](auto bn, auto stages) -> cudaError_t {
+    return sm90::with_config(config, [&](auto bn, auto stages) -> cudaError_t {
       constexpr int BN = decltype(bn)::value, STAGES = decltype(stages)::value;
       using T = sm90::Tile<2, BN, STAGES>;
       auto kernel = gemm_rs_sm90_kernel<BN, STAGES, TOut>;

@@ -6,9 +6,13 @@
 // each gathered shard), K7's (dist.cu gemm_rs_producer_kernel, a walk over
 // the peers' chunks whose epilogue stores into their landing slots;
 // gemm_rs_sm90_kernel, the own chunk with a wait for the landed chunks
-// before its first epilogue) and K8/K29's (csrc/group_gemm.cu
+// before its first epilogue), K8/K29's (csrc/group_gemm.cu
 // group_gemm_sm90_kernel, a walk over the live row tiles of expert blocks,
-// B a 3-D map over the bank).
+// B a 3-D map over the bank) and the rings' K15 and K16/K17 (csrc/ring.cu
+// ring_ag_gemm_sm90_kernel, a step walk over two A maps whose producer
+// warpgroup's idle warps forward the shards; ring_gemm_rs_sm90_kernel, a
+// step walk that waits for the left neighbour's partial before each
+// (step, span)'s epilogue and stores into the right neighbour's slot).
 //
 // What bounds K1 on the H100: at the prefill shapes (M in the thousands) the
 // product is above the ~295 FLOP/byte ridge, so tensor-core throughput; at
@@ -52,6 +56,8 @@
 
 #include "gemm_core.cuh"
 #include "sm90.cuh"
+
+#include <type_traits>
 
 namespace tdt {
 namespace sm90 {
@@ -111,9 +117,13 @@ __device__ __forceinline__ void store_pair(TOut* __restrict__ c, int n, int rr, 
 // `slab` (K1 has one slab; K6's slabs are the gathered shards, slab c's rows
 // at out + c * m * n), B's slab `expert` (a grouped walk), and the row at
 // or past which the tile's rows are stored as zeros (a ragged walk; a tile
-// whose first row is at or past it is dead: no loads, zero stores).
+// whose first row is at or past it is dead: no loads, zero stores). A walk
+// over spans of a slab's rows (the rings) counts its row tiles from `off`
+// and stores no row at or past `end`; `step` and `span` name the ring step
+// and the span the tile belongs to.
 struct Coord {
   int tm, tn, slab = 0, expert = 0, rows_end = 0x7fffffff;
+  int off = 0, end = 0x7fffffff, step = 0, span = 0;
 };
 
 // What a walk may ask of the body, all off by default (a walk derives from
@@ -124,27 +134,44 @@ struct Coord {
 //   consumers' landed()): from then on the block skips products and stores;
 // - RAGGED: rows_end bounds the live rows; a dead tile is neither loaded nor
 //   multiplied, its rows stored as zeros;
-// - SIGNALS: stored(x) runs on every consumer thread after a tile's stores;
-// - EPI_WAIT: landed() runs on every consumer thread before the block's
-//   first epilogue, after its first tile's k loop.
+// - SIGNALS: stored(x) runs on every consumer thread after a tile's stores
+//   (and, once a wait has expired, in their place, so that a peer waiting
+//   on the tile's signal is released);
+// - EPI_WAIT: landed(x) runs on every consumer thread before each epilogue,
+//   after the tile's k loop (the walk decides which tiles wait);
+// - SIDE_WORK: side_work(tid, threads) runs on the producer warpgroup's
+//   three idle warps (tid 0 .. threads - 1), beside the producer thread.
 struct WalkBase {
   static constexpr bool SLABS = false, B_SLABS = false, CAN_ABORT = false, RAGGED = false,
-                        SIGNALS = false, EPI_WAIT = false;
+                        SIGNALS = false, EPI_WAIT = false, SIDE_WORK = false;
   // the producer thread, before a tile's first load: false aborts the block
   __device__ __forceinline__ bool ready(const Coord&) { return true; }
+  // the A map tile x is loaded from (a walk over two A operands picks one)
+  __device__ __forceinline__ const CUtensorMap* a_map(const Coord&,
+                                                      const CUtensorMap* map) const {
+    return map;
+  }
   // where tile x's output rows live: slab x.slab of [slabs, m, n]
   template <typename TOut>
   __device__ __forceinline__ TOut* out(TOut* c, const Coord& x, int m, int n) const {
     return c + static_cast<size_t>(x.slab) * m * n;
   }
+  // the f32 adds of tile x's epilogue, indexed as its output slab
+  template <typename TOut>
+  __device__ __forceinline__ AddList<TOut> adds(const Coord&, const AddList<TOut>& a) const {
+    return a;
+  }
   __device__ __forceinline__ void stored(const Coord&) const {}
-  __device__ __forceinline__ bool landed() const { return true; }
+  __device__ __forceinline__ bool landed(const Coord&) { return true; }
+  __device__ __forceinline__ void side_work(int, int) {}
 };
 
-// the consumer warpgroups' own named barrier (id 1: the body uses no other)
+// the consumer warpgroups' own named barrier (id 1), and the side work's
+// (id 2, its three warps): the body uses no other
 template <int WGS> __device__ __forceinline__ void consumers_sync() {
   named_barrier(1, 128 * WGS);
 }
+constexpr int SIDE_BAR = 2, SIDE_THREADS = 96;
 
 // K1's walk: the grouped raster over one [m, n] output; A is a 2-D map.
 struct Raster : WalkBase {
@@ -170,10 +197,11 @@ struct Raster : WalkBase {
 // consumer reads the word after each "full" wait and from then on skips the
 // products and the stores, still waiting on each stage in turn: the block
 // ends only once every copy it issued has landed, and soon (no loads, no
-// products). An epilogue-side wait (K7's landed chunks, landed()) that
-// expired makes the consumers skip that epilogue and every later product
-// and store in the same way, while the producer's loads still land and are
-// drained stage by stage. The host raises with the wait's record.
+// products). An epilogue-side wait (K7's landed chunks, K16/K17's left
+// partials: landed()) that expired makes the consumers skip that epilogue
+// and every later product and store in the same way, while the producer's
+// loads still land and are drained stage by stage; a SIGNALS walk still
+// raises each skipped tile's signal. The host raises with the wait's record.
 template <int WGS, int BN, int STAGES, typename TOut, bool ADDS, class Walk>
 __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const CUtensorMap& map_b,
                                                TOut* __restrict__ c, int m, int n, int k,
@@ -207,6 +235,9 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
   if (wg == 0) {
     // ------------------------------------------------------- producer ----
     reg_dealloc<PRODUCER_REGS>();
+    if constexpr (Walk::SIDE_WORK) {
+      if (threadIdx.x >= 32) walk.side_work(threadIdx.x - 32, SIDE_THREADS);
+    }
     if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t phase = 0;
@@ -236,10 +267,11 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
           }
           mbar_expect_tx(full + stage, T::STAGE_BYTES);
           if constexpr (Walk::SLABS)
-            tma_load_3d(sa + stage * T::A_STAGE, &map_a, kt * BK, x.tm * T::BM, x.slab,
-                        full + stage);
+            tma_load_3d(sa + stage * T::A_STAGE, walk.a_map(x, &map_a), kt * BK,
+                        x.off + x.tm * T::BM, x.slab, full + stage);
           else
-            tma_load_2d(sa + stage * T::A_STAGE, &map_a, kt * BK, x.tm * T::BM, full + stage);
+            tma_load_2d(sa + stage * T::A_STAGE, walk.a_map(x, &map_a), kt * BK,
+                        x.off + x.tm * T::BM, full + stage);
 #pragma unroll
           for (int bx = 0; bx < BN / BOX_N; ++bx) {
             if constexpr (Walk::B_SLABS)
@@ -263,8 +295,7 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
     float acc[BN / 2];
     int stage = 0;
     uint32_t phase = 0;
-    [[maybe_unused]] bool dead = false;     // a wait expired: skip products and stores
-    [[maybe_unused]] bool waited = false;   // landed() has run (EPI_WAIT)
+    [[maybe_unused]] bool dead = false;  // a wait expired: skip products and stores
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const Coord x = walk.at(t);
       TOut* cs = walk.out(c, x, m, n);
@@ -311,32 +342,35 @@ __device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a, const C
         }
       }
       if constexpr (Walk::EPI_WAIT) {
-        if (!waited) {  // every consumer thread meets here at its block's first tile
-          waited = true;
-          const bool ok = walk.landed();
-          if (!ok) dead = true;
-        }
+        // every consumer thread meets here at every tile (dead is the same on all)
+        if (!dead && !walk.landed(x)) dead = true;
       }
       if constexpr (Walk::CAN_ABORT) {
-        if (dead) continue;
+        if (dead) {
+          if constexpr (Walk::SIGNALS) walk.stored(x);
+          continue;
+        }
       }
       // epilogue: thread holds rows lane/4 and lane/4 + 8 of its warp's 16,
       // columns 2 * (lane % 4) and + 1 of every 8-wide block; a ragged
-      // walk's rows at or past rows_end are stored as zeros
-      const int r0 = x.tm * T::BM + cw * 64 + warp * 16 + lane / 4;
+      // walk's rows at or past rows_end are stored as zeros, a span walk's
+      // rows at or past end not at all
+      const int r0 = x.off + x.tm * T::BM + cw * 64 + warp * 16 + lane / 4;
       const int c0 = x.tn * BN + (lane % 4) * 2;
+      const int r_end = min(m, x.end);
+      const AddList<TOut> tile_adds = walk.adds(x, adds);
 #pragma unroll
       for (int nb = 0; nb < BN / 8; ++nb) {
         const int cc = c0 + nb * 8;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int rr = r0 + 8 * h;
-          if (rr < m && cc < n) {
+          if (rr < r_end && cc < n) {
             float v0 = acc[nb * 4 + 2 * h], v1 = acc[nb * 4 + 2 * h + 1];
             if constexpr (Walk::RAGGED) {
               if (rr >= x.rows_end) v0 = v1 = 0.f;
             }
-            store_pair<ADDS>(cs, n, rr, cc, v0, v1, adds);
+            store_pair<ADDS>(cs, n, rr, cc, v0, v1, tile_adds);
           }
         }
       }
@@ -353,6 +387,16 @@ __global__ void __launch_bounds__(Tile<WGS, BN, STAGES>::THREADS, 1)
   gemm_sm90_body<WGS, BN, STAGES, TOut, ADDS>(map_a, map_b, c, m, n, k, adds,
                                              Raster{{}, cdiv(m, Tile<WGS, BN, STAGES>::BM),
                                                     cdiv(n, BN)});
+}
+
+// f(BN, STAGES) for K1's two-warpgroup tile configs 0 (128x256) and 1
+// (128x128), the tiles of the walks on the persistent grids (K6, K7, K15,
+// K16/K17)
+template <typename F>
+cudaError_t with_config(int config, F&& f) {
+  if (config == 0) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 4>{});
+  if (config == 1) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 6>{});
+  return cudaErrorInvalidValue;
 }
 
 template <int WGS, int BN, int STAGES, typename TOut, bool ADDS>

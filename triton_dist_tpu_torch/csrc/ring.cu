@@ -1,13 +1,13 @@
 // The ring kernels of the tensor-parallel path: each rank talks to its two
 // neighbours only, as on a box whose ranks do not form a full mesh.
 //
-//   K15 tdt_ring_ag_gemm          ≙ ops/allgather_gemm.py:109
+//   K15 tdt_ring_ag_gemm(_sm90)   ≙ ops/allgather_gemm.py:109
 //                                   _ag_gemm_chunked_kernel (and, with one
 //                                   span, the ring schedule of :69
 //                                   _ag_gemm_kernel)
-//   K16 tdt_ring_gemm_rs          ≙ ops/gemm_reduce_scatter.py:147
+//   K16 tdt_ring_gemm_rs(_sm90)   ≙ ops/gemm_reduce_scatter.py:147
 //       (one span)                  _gemm_rs_ring_kernel
-//   K17 tdt_ring_gemm_rs          ≙ ops/gemm_reduce_scatter.py:187
+//   K17 tdt_ring_gemm_rs(_sm90)   ≙ ops/gemm_reduce_scatter.py:187
 //       (spans)                     _gemm_rs_ring_chunked_kernel
 //   K18 tdt_ring_reduce_scatter   ≙ ops/reduce_scatter.py:102 _ring_rs_kernel
 //       (one span)
@@ -55,9 +55,15 @@
 // K36's forwarding into the gather workspace with K15's GEMM tiles on each
 // chunk after its forwards, in that 2-D arrival order.
 //
-// What bounds them on the H100. K15-K17 are K1's tile loop (gemm_core.cuh)
-// with waits in front of a chunk's tiles: tensor-core throughput at prefill
-// shapes. K18/K23 stream bytes: each rank reads its n chunks once, the
+// What bounds them on the H100. K15-K17 are K1's product with waits between
+// a ring step's tiles: tensor-core throughput at prefill shapes, which
+// mma.sync tiles cannot reach. bf16 that TMA can load (k and n multiples of
+// 8, 16-byte aligned operands, outputs and landing buffers; the host's
+// ops/common.py ring_gemm_plan) therefore runs K1's warp-specialised wgmma
+// + TMA mainloop (gemm_sm90.cuh) over the ring's step walk:
+// ring_ag_gemm_sm90_kernel and ring_gemm_rs_sm90_kernel below. Other bf16
+// keeps K1's mma.sync tile loop (gemm_core.cuh Bf16Engine), f32 its FMA
+// loop, and K37 the mma.sync tiles too. K18/K23 stream bytes: each rank reads its n chunks once, the
 // landed partials once, and writes n-1 hops plus its own chunk. K19-K22
 // stream bytes too: each rank reads every shard once (its own from x, the
 // others from its workspace as they land) and writes it once into out and,
@@ -66,7 +72,11 @@
 // The design. A ring step waits on the left neighbour's previous step, so
 // the waits sit inside the kernel that issues the puts: one persistent
 // kernel per rank per call, of at most floor(SMs / ranks) - 2 blocks (the
-// caller's cap), so every rank's blocks are resident together. Its work is
+// caller's cap), so every rank's blocks are resident together. The wgmma
+// kernels hold one block an SM (384 threads, 197,696 bytes of dynamic
+// shared memory for the stages of either tile), so at world 4 the ranks' 4 x 31 blocks take 124 of the
+// 132 SMs and every block of every rank starts: none waits for an SM that
+// a spinning block holds. Its work is
 // one list of items in (step, chunk) order, dealt to the blocks
 // round-robin: K15 a chunk's forward pieces then its GEMM tiles, K16/K17 a
 // chunk's tiles, K18/K23 a span's element pieces, K19-K22 a span's byte
@@ -74,7 +84,14 @@
 // its left-moving ones). An item of step s > 0 first waits (bounded,
 // shmem.cuh wait_chunk) for the sending neighbour's chunk of step s-1,
 // which sits earlier in that neighbour's list, so by induction over the
-// steps every wait is met. Every store towards the
+// steps every wait is met. The wgmma kernels keep that order and those
+// waits but move them: K15's tiles are the list's GEMM items in the same
+// order, its forward pieces leave the list for the producer warpgroup's
+// three idle warps (so a block never stops its products to copy), and its
+// producer thread, not the whole block, waits before a landed span's first
+// load; K16/K17 wait for the left partial only before the epilogue that
+// adds it, after the tile's k loop, which reads only this rank's own a and
+// b (see the kernels' notes below). Every store towards the
 // right neighbour goes straight into its landing view through the peer
 // table (K16/K17's epilogue, K15's, K18's and the gathers' pieces): no send
 // buffer, no reuse wait. The block that finishes a chunk's last piece
@@ -99,7 +116,10 @@
 // launched.
 
 #include "gemm_core.cuh"
+#include "gemm_sm90.cuh"
 #include "shmem.cuh"
+
+#include <initializer_list>
 
 namespace {
 
@@ -235,6 +255,307 @@ __global__ void __launch_bounds__(E::THREADS, 1)
     }
     if (!last) shmem::chunk_piece_done(r.f, s, j, tiles[j]);
   }
+}
+
+// --------------------------------------------- K15, K16/K17 on wgmma + TMA ----
+// bf16 K15 and K16/K17 on K1's warp-specialised mainloop (gemm_sm90.cuh
+// gemm_sm90_body), on a persistent grid of at most floor(SMs / ranks) - 2
+// blocks (the host's plan). The ring protocol is the mma.sync kernels':
+// Ring::enter first on every block (before the role split, so no side warp
+// and no epilogue stores into the right neighbour before its arrival), the
+// same step order, one flag per (step, span), every landing slot written
+// once per call, and the same wait sites.
+//
+// The walks go step-major, steps s = 0 .. n-1. K16/K17 (ring_tile): then
+// the spans j in order, then K1's grouped raster over the span's [rows_j,
+// n] output. K15 (ring_step_tile): then K1's grouped raster over all of the
+// step's row tiles, the spans' tiles in order, so a B panel serves every
+// row tile of the step and not only a span's (with two 256-row spans a
+// shard the per-span raster re-read each B panel once per span: the 70B
+// column projections' kernel took 23.7 ms against 17.6 at one span, the
+// step raster 17.7 at two: chip_phases.py ag_gemm_ring on an H100 80GB
+// HBM3 at 700 W). A row
+// tile counts from its span's offset, and no row at or past the span's end
+// is stored. A 128-row A box at a span's last row tile may read rows of the
+// next span (K15: rows that may not have landed yet); those output rows are
+// masked on store, so what they held changes nothing.
+
+constexpr int RING_BM = 128;  // the row tile of both configs (two consumer warpgroups)
+
+__device__ __forceinline__ int span_tiles(const Spans& sp, int j) {
+  return cdiv(sp.rows[j], RING_BM);
+}
+
+// tile t of a step walk of `per_step` tiles a step, nt column tiles
+__device__ __forceinline__ sm90::Coord ring_tile(const Spans& sp, int nt, int per_step, int t) {
+  sm90::Coord x;
+  x.step = t / per_step;
+  int rest = t - x.step * per_step, j = 0;
+  for (; j < sp.n - 1; ++j) {
+    const int tj = span_tiles(sp, j) * nt;
+    if (rest < tj) break;
+    rest -= tj;
+  }
+  sm90::tile_coords(rest, span_tiles(sp, j), nt, x.tm, x.tn);
+  x.span = j;
+  x.off = sp.off[j];
+  x.end = sp.off[j] + sp.rows[j];
+  return x;
+}
+
+// row tile r of a step's row tiles (the spans' tiles in order) into x
+__device__ __forceinline__ void span_of(const Spans& sp, int r, sm90::Coord& x) {
+  int j = 0;
+  while (j < sp.n - 1 && r >= span_tiles(sp, j)) r -= span_tiles(sp, j++);
+  x.tm = r;
+  x.span = j;
+  x.off = sp.off[j];
+  x.end = sp.off[j] + sp.rows[j];
+}
+
+// tile t of K15's step walk: one grouped raster over the step's row tiles
+__device__ __forceinline__ sm90::Coord ring_step_tile(const Spans& sp, int nt, int per_step,
+                                                      int t) {
+  sm90::Coord x;
+  x.step = t / per_step;
+  int r;
+  sm90::tile_coords(t - x.step * per_step, per_step / nt, nt, r, x.tn);
+  span_of(sp, r, x);
+  return x;
+}
+
+__device__ __forceinline__ int ring_per_step(const Spans& sp, int nt) {
+  int per_step = 0;
+  for (int j = 0; j < sp.n; ++j) per_step += span_tiles(sp, j) * nt;
+  return per_step;
+}
+
+// `bytes` (a multiple of 16, every end 16-byte aligned) from src into d0
+// and, unless null, d1, by `nth` threads, four 16-byte loads in flight a
+// thread
+__device__ __forceinline__ void copy16_2(unsigned char* d0, unsigned char* d1,
+                                         const unsigned char* src, long long bytes, int tid,
+                                         int nth) {
+  uint4* a = reinterpret_cast<uint4*>(d0);
+  uint4* b = reinterpret_cast<uint4*>(d1);
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  const long long n16 = bytes / 16;
+  long long i = tid;
+  for (; i + 3LL * nth < n16; i += 4LL * nth) {
+    const uint4 v0 = s[i], v1 = s[i + nth], v2 = s[i + 2 * nth], v3 = s[i + 3 * nth];
+    a[i] = v0;
+    a[i + nth] = v1;
+    a[i + 2 * nth] = v2;
+    a[i + 3 * nth] = v3;
+    if (b) {
+      b[i] = v0;
+      b[i + nth] = v1;
+      b[i + 2 * nth] = v2;
+      b[i + 3 * nth] = v3;
+    }
+  }
+  for (; i < n16; i += nth) {
+    const uint4 v = s[i];
+    a[i] = v;
+    if (b) b[i] = v;
+  }
+}
+
+// K15. Tile (s, j) multiplies span j of shard c = me - s: step 0 from this
+// rank's a (a 3-D map [1, m_loc, k]), steps s >= 1 from slab c of the
+// gather workspace (a 3-D map [world, m_loc, k], so a box never reads into
+// the next shard), and stores into out + c * m_loc * n. Before its first
+// load of (s >= 1, j) the producer thread waits (bounded: Ring::
+// wait_landed_thread, the mma.sync kernel's site) for the left neighbour's
+// span, then issues the global proxy fence (its forwards were generic
+// stores, TMA reads them); a wait that expired aborts the block (the body's
+// abort word). The forwards (step s < n-1, span j: the span's bytes into
+// the right neighbour's workspace, and at step 0 into this rank's own) are
+// not tiles: the producer warpgroup's three idle warps carry them
+// (side_work), the (s, j) pieces dealt over the grid in step order, each
+// block its share; before a landed span's first piece they make the same
+// bounded wait, and the piece count raises the right neighbour's (s, j)
+// flag. They depend on no product, so they run ahead of the tiles and a
+// put never waits on a GEMM.
+struct RingAgWalk : sm90::WalkBase {
+  static constexpr bool SLABS = true, CAN_ABORT = true, SIDE_WORK = true;
+  int nt, per_step;
+  const Spans* sp;
+  Ring r;
+  const CUtensorMap* map_own;  // this rank's a as [1, m_loc, k]
+  const CUtensorMap* map_ws;   // the gather workspace as [world, m_loc, k]
+  const bf16* a;
+  bf16* ws_me;
+  bf16* ws_right;
+  int m_loc, k;
+  int waited;  // the (step, span) slot this block's producer last met
+
+  __device__ __forceinline__ int shard(int step) const {
+    return (r.me - step + r.world) % r.world;
+  }
+  __device__ __forceinline__ int tiles() const { return r.world * per_step; }
+  __device__ __forceinline__ sm90::Coord at(int t) const {
+    sm90::Coord x = ring_step_tile(*sp, nt, per_step, t);
+    x.slab = x.step == 0 ? 0 : shard(x.step);
+    return x;
+  }
+  __device__ __forceinline__ bool ready(const sm90::Coord& x) {
+    // a step's spans interleave in the raster: a flag already met is met
+    // again at once (flags only rise)
+    const int key = ChunkFlags::slot(x.step, x.span);
+    if (x.step == 0 || key == waited) return true;
+    waited = key;
+    const bool ok = r.wait_landed_thread(x.step, x.span);
+    sm90::fence_proxy_async_global();
+    return ok;
+  }
+  __device__ __forceinline__ const CUtensorMap* a_map(const sm90::Coord& x,
+                                                      const CUtensorMap*) const {
+    return x.step == 0 ? map_own : map_ws;
+  }
+  template <typename TOut>
+  __device__ __forceinline__ TOut* out(TOut* c, const sm90::Coord& x, int m, int n) const {
+    return c + static_cast<size_t>(shard(x.step)) * m * n;
+  }
+  __device__ __forceinline__ void side_work(int tid, int nth) const {
+    const Spans& s_ = *sp;
+    int first = 0;  // the (s, j) pieces' first index in the grid-wide deal
+    for (int s = 0; s < r.world - 1; ++s) {
+      const int c = shard(s);
+      for (int j = 0; j < s_.n; ++j) {
+        const long long bytes = static_cast<long long>(s_.rows[j]) * k * sizeof(bf16);
+        const int pieces = static_cast<int>((bytes + PIECE_BYTES - 1) / PIECE_BYTES);
+        const size_t at = (static_cast<size_t>(c) * m_loc + s_.off[j]) * k * sizeof(bf16);
+        const unsigned char* src =
+            s == 0 ? reinterpret_cast<const unsigned char*>(a + static_cast<size_t>(s_.off[j]) * k)
+                   : reinterpret_cast<const unsigned char*>(ws_me) + at;
+        unsigned char* own = s == 0 ? reinterpret_cast<unsigned char*>(ws_me) + at : nullptr;
+        unsigned char* right = reinterpret_cast<unsigned char*>(ws_right) + at;
+        const int grid = gridDim.x;
+        int p = first + ((static_cast<int>(blockIdx.x) - first) % grid + grid) % grid;
+        bool met = s == 0;
+        for (; p < first + pieces; p += grid) {
+          if (!met) {  // the left neighbour's span has landed here
+            if (tid == 0) {
+              r.wait_landed_thread(s, j);
+              __threadfence();
+            }
+            sm90::named_barrier(sm90::SIDE_BAR, nth);
+            met = true;
+          }
+          const long long lo = static_cast<long long>(p - first) * PIECE_BYTES;
+          const long long len = min(PIECE_BYTES, bytes - lo);
+          copy16_2(right + lo, own ? own + lo : nullptr, src + lo, len, tid, nth);
+          shmem::chunk_piece_done_group(r.f, s, j, pieces, sm90::SIDE_BAR, nth, tid == 0);
+        }
+        first += pieces;
+      }
+    }
+  }
+};
+
+template <int BN, int STAGES, typename TOut>
+__global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
+    ring_ag_gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_own,
+                             const __grid_constant__ CUtensorMap map_ws,
+                             const __grid_constant__ CUtensorMap map_b, const bf16* a,
+                             TOut* __restrict__ out, bf16* ws_me, bf16* ws_right, int m_loc,
+                             int n, int k, const __grid_constant__ Spans sp, Ring r) {
+  shmem::comm_jitter(r.me, 8, r.jitter, r.world);
+  r.enter();
+  const int nt = cdiv(n, BN);
+  const RingAgWalk walk{{},    nt,    ring_per_step(sp, nt), &sp,   r,     &map_own, &map_ws,
+                        a,     ws_me, ws_right,              m_loc, k,     -1};
+  sm90::gemm_sm90_body<2, BN, STAGES, TOut, false>(map_ws, map_b, out, m_loc, n, k,
+                                                   AddList<TOut>{}, walk);
+}
+
+// K16/K17. Tile (s, j) multiplies span j of this rank's row chunk c = me -
+// 1 - s (a 3-D map [world, m_loc, k] over a: no wait before any load, since
+// the k loop reads only this rank's own a and b). Its epilogue (s > 0)
+// first waits, once per (s, j) and block (one consumer thread's bounded
+// wait at the mma.sync kernel's site, then the consumers' named barrier),
+// for the left neighbour's partial of span j, step s-1; it then adds the
+// landed slot s-1 in f32 and rounds once to the output type (the hop's
+// rounding of gemm_add_pipeline), and stores into the right neighbour's
+// landing slot s through the peer pointer (the last step into out). The
+// stored tiles of (s, j) are counted as pieces; the block that stores the
+// last raises the right neighbour's (s, j) flag, ordered after every
+// block's stores (each thread's system fence, the consumers' barrier, the
+// count's atomic, a fence, the release store). So a step's products run
+// while its left partial is still in flight: the producer keeps loading
+// while the consumers wait in an epilogue, but no further than STAGES k
+// steps of the next tile ahead (it waits on the stages' "empty" barriers),
+// and the next tile's products start once the wait is met. An epilogue wait
+// that expired makes the block skip that store and every later product and
+// store, draining the stages; it still raises its tiles' flags, as the
+// mma.sync kernel goes on after an expired wait.
+template <typename TOut>
+struct RingRsWalk : sm90::WalkBase {
+  static constexpr bool SLABS = true, CAN_ABORT = true, SIGNALS = true, EPI_WAIT = true;
+  int nt, per_step;
+  const Spans* sp;
+  Ring r;
+  const TOut* recv_me;  // this rank's landing slots [world - 1, m_loc, n]
+  TOut* recv_right;     // the right neighbour's
+  int m_loc, n;
+  int waited;  // the (step, span) slot whose partial this block's consumers last met
+  int flip;    // which of the two result words the next wait writes
+
+  __device__ __forceinline__ int tiles() const { return r.world * per_step; }
+  __device__ __forceinline__ sm90::Coord at(int t) const {
+    sm90::Coord x = ring_tile(*sp, nt, per_step, t);
+    x.slab = (r.me - 1 - x.step + 2 * r.world) % r.world;
+    return x;
+  }
+  __device__ __forceinline__ TOut* out(TOut* c, const sm90::Coord& x, int m, int n_) const {
+    return x.step == r.world - 1 ? c : recv_right + static_cast<size_t>(x.step) * m * n_;
+  }
+  __device__ __forceinline__ AddList<TOut> adds(const sm90::Coord& x,
+                                                const AddList<TOut>&) const {
+    AddList<TOut> l = {};
+    if (x.step > 0) {
+      l.n = 1;
+      l.p[0] = recv_me + static_cast<size_t>(x.step - 1) * m_loc * n;
+    }
+    return l;
+  }
+  __device__ __forceinline__ bool landed(const sm90::Coord& x) {
+    const int key = ChunkFlags::slot(x.step, x.span);
+    if (x.step == 0 || key == waited) return true;  // flags only rise
+    waited = key;
+    // two words, used in turn: a thread still to read the last wait's word
+    // cannot be overtaken by the one after it (a barrier lies between)
+    __shared__ int ok_s[2];
+    flip ^= 1;
+    if (threadIdx.x == 128) {
+      const bool ok = r.wait_landed_thread(x.step, x.span);
+      __threadfence();
+      ok_s[flip] = ok;
+    }
+    sm90::consumers_sync<2>();
+    return ok_s[flip] != 0;
+  }
+  __device__ __forceinline__ void stored(const sm90::Coord& x) const {
+    if (x.step == r.world - 1) return;  // the last step stores into out: no signal
+    shmem::chunk_piece_done_group(r.f, x.step, x.span, span_tiles(*sp, x.span) * nt, 1, 256,
+                                  threadIdx.x == 128);
+  }
+};
+
+template <int BN, int STAGES, typename TOut>
+__global__ void __launch_bounds__(sm90::Tile<2, BN, STAGES>::THREADS, 1)
+    ring_gemm_rs_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                             const __grid_constant__ CUtensorMap map_b, TOut* __restrict__ out,
+                             const TOut* recv_me, TOut* recv_right, int m_loc, int n, int k,
+                             const __grid_constant__ Spans sp, Ring r) {
+  shmem::comm_jitter(r.me, 11, r.jitter, r.world);
+  r.enter();
+  const int nt = cdiv(n, BN);
+  const RingRsWalk<TOut> walk{{}, nt, ring_per_step(sp, nt), &sp, r, recv_me, recv_right,
+                              m_loc, n, -1, 0};
+  sm90::gemm_sm90_body<2, BN, STAGES, TOut, true>(map_a, map_b, out, m_loc, n, k,
+                                                  AddList<TOut>{}, walk);
 }
 
 // ------------------------------------------------------------- K18/K23 ----
@@ -745,6 +1066,120 @@ extern "C" int tdt_ring_gemm_rs(const void* a, const void* b, void* out, void* r
             static_cast<TOut*>(out), static_cast<const TOut*>(recv_me),
             static_cast<TOut*>(recv_right), m_loc, n, k, vec, sp, r);
     return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// the operands the wgmma + TMA ring kernels take: bf16 with 16-byte rows (k
+// and n multiples of 8) and 16-byte aligned bases (the host routes others
+// to tdt_ring_ag_gemm / tdt_ring_gemm_rs)
+bool ring_sm90_ok(std::initializer_list<const void*> ptrs, int n, int k, int config, int grid) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return bits % 16 == 0 && n >= 1 && k >= 1 && n % 8 == 0 && k % 8 == 0 && config >= 0 &&
+         config <= 1 && grid >= 1;
+}
+
+// a bf16 [slabs, m, k] row-major operand as a 3-D map of 128-row boxes
+cudaError_t slab_map(CUtensorMap* map, const void* base, int slabs, int m, int k) {
+  const long long dims[3] = {k, m, slabs}, strides[2] = {2LL * k, 2LL * k * m};
+  const long long box[3] = {sm90::BK, RING_BM, 1};
+  return sm90::make_map_nd(map, base, 3, dims, strides, box);
+}
+
+// b [k, n] row-major as a 2-D map of [64 k][64 n] boxes
+cudaError_t b_map(CUtensorMap* map, const void* b, int n, int k) {
+  const long long dims[2] = {n, k}, box[2] = {sm90::BOX_N, sm90::BK};
+  return sm90::make_map(map, b, dims, 2LL * n, box);
+}
+
+}  // namespace
+
+// K15 on the wgmma + TMA engine (ring_ag_gemm_sm90_kernel): bf16 a [m_loc,
+// k], b [k, n], out [world * m_loc, n] in out_dtype, the gather workspaces
+// as tdt_ring_ag_gemm's; k and n multiples of 8, every pointer 16-byte
+// aligned. config K1's tile (0: 128x256, 1: 128x128), grid the persistent
+// block count (<= the co-residency cap); the rest as tdt_ring_ag_gemm's.
+extern "C" int tdt_ring_ag_gemm_sm90(const void* a, const void* b, void* out, void* ws_me,
+                                     void* ws_right, int m_loc, int n, int k, int out_dtype,
+                                     const int* spans, int n_spans, int world, int me,
+                                     void* entry_wait, void* entry_signal, void* flags_me,
+                                     void* flags_right, void* count, int epoch, int config,
+                                     int grid, int jitter, void* diag, long long timeout_ns,
+                                     int family, void* stream) {
+  Ring r;
+  Spans sp;
+  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count,
+                 jitter, diag, timeout_ns, family, r) ||
+      !make_spans(spans, n_spans, m_loc, sp) ||
+      !ring_sm90_ok({a, b, out, ws_me, ws_right}, n, k, config, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m_own, m_ws, m_b;
+  cudaError_t err = slab_map(&m_own, a, 1, m_loc, k);
+  if (err == cudaSuccess) err = slab_map(&m_ws, ws_me, world, m_loc, k);
+  if (err == cudaSuccess) err = b_map(&m_b, b, n, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = dispatch_one(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    return sm90::with_config(config, [&](auto bn, auto stages) -> cudaError_t {
+      constexpr int BN = decltype(bn)::value, STAGES = decltype(stages)::value;
+      using T = sm90::Tile<2, BN, STAGES>;
+      auto kernel = ring_ag_gemm_sm90_kernel<BN, STAGES, TOut>;
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(T::SMEM_BYTES));
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, T::THREADS, T::SMEM_BYTES, s>>>(
+          m_own, m_ws, m_b, static_cast<const bf16*>(a), static_cast<TOut*>(out),
+          static_cast<bf16*>(ws_me), static_cast<bf16*>(ws_right), m_loc, n, k, sp, r);
+      return cudaSuccess;
+    });
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K16 (one span) and K17 on the wgmma + TMA engine
+// (ring_gemm_rs_sm90_kernel): bf16 a [world * m_loc, k], b [k, n], out
+// [m_loc, n] and the landing slots [world - 1, m_loc, n] in out_dtype; k
+// and n multiples of 8, every pointer 16-byte aligned; config and grid as
+// tdt_ring_ag_gemm_sm90's, the rest as tdt_ring_gemm_rs's.
+extern "C" int tdt_ring_gemm_rs_sm90(const void* a, const void* b, void* out, void* recv_me,
+                                     void* recv_right, int m_loc, int n, int k, int out_dtype,
+                                     const int* spans, int n_spans, int world, int me,
+                                     void* entry_wait, void* entry_signal, void* flags_me,
+                                     void* flags_right, void* count, int epoch, int config,
+                                     int grid, int jitter, void* diag, long long timeout_ns,
+                                     int family, void* stream) {
+  Ring r;
+  Spans sp;
+  if (!make_ring(world, me, epoch, entry_wait, entry_signal, flags_me, flags_right, count,
+                 jitter, diag, timeout_ns, family, r) ||
+      !make_spans(spans, n_spans, m_loc, sp) ||
+      !ring_sm90_ok({a, b, out, recv_me, recv_right}, n, k, config, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m_a, m_b;
+  cudaError_t err = slab_map(&m_a, a, world, m_loc, k);
+  if (err == cudaSuccess) err = b_map(&m_b, b, n, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = dispatch_one(out_dtype, [&](auto t) {
+    using TOut = decltype(t);
+    return sm90::with_config(config, [&](auto bn, auto stages) -> cudaError_t {
+      constexpr int BN = decltype(bn)::value, STAGES = decltype(stages)::value;
+      using T = sm90::Tile<2, BN, STAGES>;
+      auto kernel = ring_gemm_rs_sm90_kernel<BN, STAGES, TOut>;
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(T::SMEM_BYTES));
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, T::THREADS, T::SMEM_BYTES, s>>>(
+          m_a, m_b, static_cast<TOut*>(out), static_cast<const TOut*>(recv_me),
+          static_cast<TOut*>(recv_right), m_loc, n, k, sp, r);
+      return cudaSuccess;
+    });
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

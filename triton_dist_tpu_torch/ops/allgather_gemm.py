@@ -32,7 +32,12 @@ TPU: K15 (``csrc/ring.cu``), one persistent kernel a rank that walks steps
 s = 0 .. n-1 over shard ``me - s``, forwards each span to the right
 neighbour before its GEMM tiles and waits (bounded) for the left
 neighbour's span of the step before. With one span it is
-``_ag_gemm_kernel``'s own ring schedule. The spans are
+``_ag_gemm_kernel``'s own ring schedule.
+:func:`~triton_dist_tpu_torch.ops.common.ring_gemm_plan` picks its engine:
+bf16 that TMA can load runs K1's ``wgmma`` + TMA mainloop over the ring's
+step walk (``tdt_ring_ag_gemm_sm90``), the forwards carried by the producer
+warpgroup's idle warps beside the tiles; other bf16 the mma.sync kernel,
+f32 the FMA kernel (``tdt_ring_ag_gemm``). The spans are
 ``ops/common.py::ring_spans``, the JAX package's. On the CPU the ring runs
 its plain version over the rank threads, span by span in arrival order.
 
@@ -66,6 +71,7 @@ from triton_dist_tpu_torch.ops.common import (
     max_consumer_blocks,
     pair_dims,
     ring_2d_launch,
+    ring_gemm_plan,
     ring_launch,
     ring_spans,
     stream_ptr,
@@ -184,9 +190,11 @@ def ag_gemm(
     pair, K37.
 
     K6 on the card counts on ``launches``, its ``wgmma`` engine also on
-    ``wgmma_launches``. ``_engine`` forces K6's engine (``"wgmma"`` or
-    ``"mma_sync"``, :func:`ag_gemm_plan`; the chip script's A/B, never the
-    main path)."""
+    ``wgmma_launches``; K15 on ``_ag_gemm_ring.launches`` and
+    ``.wgmma_launches``. ``_engine`` forces K6's engine (``"wgmma"`` or
+    ``"mma_sync"``, :func:`ag_gemm_plan`), or K15's on a ring
+    (:func:`~triton_dist_tpu_torch.ops.common.ring_gemm_plan`): the chip
+    script's A/B, never the main path."""
     cfg = config or AGGemmConfig()
     out_dtype = out_dtype or a.dtype
     ctx = group_of(ctx, axis)
@@ -206,7 +214,7 @@ def ag_gemm(
             return _ag_gemm_ring_plain(a, b, ctx, gather_output, out_dtype, spans)
         return _ag_gemm_xla(a, b, ctx, gather_output, out_dtype)
     if ring:
-        return _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans)
+        return _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans, _engine)
     return _ag_gemm_fused(a, b, ctx, gather_output, out_dtype, _engine)
 
 
@@ -293,24 +301,42 @@ def _ag_gemm_fused(a, b, ctx, gather_output, out_dtype, forced=None):
     return out
 
 
-def _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans):
+def _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans, forced=None):
     """K15 (``csrc/ring.cu``): every allocation, then the ranks meet, then
-    only the launch, then they meet again."""
+    only the launch, then they meet again. bf16 that TMA can load runs the
+    ``wgmma`` + TMA kernel (``ring_gemm_plan``), other bf16 the mma.sync
+    kernel, f32 the FMA kernel."""
     check_operands(a, b, out_dtype, "ag_gemm")
     n, me = ctx.world, ctx.rank
     m_loc, k = a.shape
     n_loc = b.shape[1]
     ws = ctx.symmetric("ag_gemm_ring.ws", n * m_loc * k * a.element_size())
     out = torch.empty((n * m_loc, n_loc), dtype=out_dtype, device=a.device)
+    blocks = max_consumer_blocks(ctx)
+    ws_me, ws_right = ws.peer_addr(me), ws.peer_addr((me + 1) % n)
+    p = ring_gemm_plan(spans, n_loc, k, n, a.dtype, blocks=blocks, engine=forced,
+                       aligned=all(x % 16 == 0 for x in (a.data_ptr(), b.data_ptr(),
+                                                         out.data_ptr(), ws_me, ws_right)),
+                       what="ag_gemm ring")
     ring = ring_launch(ctx, "ag_gemm_ring", spans)
     ctx.rendezvous()
-    rc = ring.lib.tdt_ring_ag_gemm(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.peer_addr(me), ws.peer_addr(ring.right),
-        m_loc, n_loc, k, DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], ring.spans,
-        ring.n_spans, n, me, *ring.flags, ring.launch.epoch, max_consumer_blocks(ctx),
-        ring.launch.jitter, *ring.launch.wait, stream_ptr(torch.cuda.current_stream()),
-    )
-    _build.check(ring.lib, rc, "ag_gemm ring")
+    stream = stream_ptr(torch.cuda.current_stream())
+    if p.engine == "wgmma":
+        rc = ring.lib.tdt_ring_ag_gemm_sm90(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), ws_me, ws_right, m_loc, n_loc, k,
+            DTYPE_CODE[out_dtype], ring.spans, ring.n_spans, n, me, *ring.flags,
+            ring.launch.epoch, p.config, p.grid, ring.launch.jitter, *ring.launch.wait, stream,
+        )
+        _build.check(ring.lib, rc, "ag_gemm ring (wgmma)")
+        count_launch(_ag_gemm_ring, "wgmma_launches")
+    else:
+        rc = ring.lib.tdt_ring_ag_gemm(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), ws_me, ws_right, m_loc, n_loc, k,
+            DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], ring.spans, ring.n_spans, n, me,
+            *ring.flags, ring.launch.epoch, blocks, ring.launch.jitter, *ring.launch.wait,
+            stream,
+        )
+        _build.check(ring.lib, rc, "ag_gemm ring")
     count_launch(_ag_gemm_ring)
     ctx.rendezvous()  # every rank's kernel is issued before any rank goes on
     if gather_output:
@@ -320,6 +346,7 @@ def _ag_gemm_ring(a, b, ctx, gather_output, out_dtype, spans):
 
 
 _ag_gemm_ring.launches = 0
+_ag_gemm_ring.wgmma_launches = 0  # K15 on K1's wgmma + TMA mainloop
 
 
 def _ag_gemm_2d(a, b, pair, gather_output, out_dtype):

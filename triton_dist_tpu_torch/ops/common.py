@@ -20,12 +20,18 @@ import dataclasses
 import torch
 
 from triton_dist_tpu_torch import _build, config
-from triton_dist_tpu_torch.ops.gemm import matmul
+from triton_dist_tpu_torch.ops.gemm import (
+    SM90_TILES,
+    WIDE_TILE_COST,
+    GemmPlan,
+    matmul,
+    tma_ok,
+)
 from triton_dist_tpu_torch.parallel.topology import torus_factor
 from triton_dist_tpu_torch.resilience import watchdog
 from triton_dist_tpu_torch.resilience.sites import MAX_SPANS
 from triton_dist_tpu_torch.utils import (
-    axis_size, count_call, count_launch, pick_block, sm_count,
+    axis_size, cdiv, count_call, count_launch, pick_block, sm_count,
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -64,6 +70,9 @@ _LAUNCH = [_I, _I, _I]  # epoch, grid cap, jitter
 RING_PROTOTYPES = {
     "tdt_ring_ag_gemm": [_P] * 5 + [_I] * 5 + _SPANS + [_I, _I] + _RING + _LAUNCH + _WAIT,
     "tdt_ring_gemm_rs": [_P] * 5 + [_I] * 5 + _SPANS + [_I, _I] + _RING + _LAUNCH + _WAIT,
+    # the wgmma + TMA forms: out dtype only; epoch, tile config, grid, jitter
+    "tdt_ring_ag_gemm_sm90": [_P] * 5 + [_I] * 4 + _SPANS + [_I, _I] + _RING + [_I] * 4 + _WAIT,
+    "tdt_ring_gemm_rs_sm90": [_P] * 5 + [_I] * 4 + _SPANS + [_I, _I] + _RING + [_I] * 4 + _WAIT,
     "tdt_ring_reduce_scatter": [_P] * 4 + [_I, _LL, _I] + _SPANS + [_I, _I] + _RING
     + _LAUNCH + _WAIT,
     "tdt_ring_all_gather": [_P] * 5 + [_LL, _I] + _SPANS + [_I, _I, _I] + _RING + _RING
@@ -361,6 +370,44 @@ def ring_spans(m_loc: int, chunks_per_shard: int, block_m: int) -> tuple[tuple[i
         raise ValueError(f"chunks_per_shard={chunks_per_shard}: the ring kernels take at "
                          f"most {MAX_SPANS} spans a shard")
     return spans
+
+
+def ring_gemm_plan(spans, n: int, k: int, world: int, dtype: torch.dtype, *,
+                   aligned: bool = True, blocks: int = 31, engine: str | None = None,
+                   what: str = "ring GEMM") -> GemmPlan:
+    """The engine and tile of K15 or K16/K17: `world` ring steps, each over
+    the row `spans` (``(offset, rows)``) of a ``[rows, k] @ [k, n]``
+    product, on a persistent grid of at most `blocks` blocks; `aligned`
+    says whether every operand, the output and the landing buffers are
+    16-byte aligned.
+
+    f32 runs the FMA kernel (``"f32"``). bf16 runs K1's ``wgmma`` + TMA
+    mainloop over the ring's step walk when
+    :func:`~triton_dist_tpu_torch.ops.gemm.tma_ok`, else the mma.sync kernel
+    (``"mma_sync"``). The ``wgmma`` tile is K1's 128x256 unless 128x128
+    finishes in fewer waves of `blocks` tiles (each span's rows rounded up
+    to whole row tiles), a wide tile's wave weighing
+    :data:`~triton_dist_tpu_torch.ops.gemm.WIDE_TILE_COST` narrow ones.
+    `engine` forces one (the chip script's A/B); a forced engine that cannot
+    take the operands raises."""
+    if dtype == torch.float32:
+        if engine not in (None, "f32"):
+            raise ValueError(f"no {engine} engine for an f32 {what}")
+        return GemmPlan("f32")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{what} takes bf16 or f32, not {dtype}")
+    ok = tma_ok(n, k, aligned)
+    engine = engine or ("wgmma" if ok else "mma_sync")
+    if engine == "mma_sync":
+        return GemmPlan("mma_sync")
+    if engine != "wgmma" or not ok:
+        raise ValueError(f"no {engine} engine for the {what} of {world} steps x spans "
+                         f"{tuple(spans)} of [rows, {k}] @ [{k}, {n}] (aligned={aligned})")
+    row_tiles = sum(cdiv(rows, SM90_TILES[0][0]) for _, rows in spans)
+    tiles = [world * row_tiles * cdiv(n, bn) for _, bn in (SM90_TILES[0], SM90_TILES[1])]
+    waves = [cdiv(t, blocks) for t in tiles]
+    config = 0 if WIDE_TILE_COST * waves[0] <= waves[1] else 1
+    return GemmPlan("wgmma", config, tiles[config], min(tiles[config], blocks))
 
 
 def ring_order_sum(parts, me: int, world: int, out_dtype: torch.dtype) -> torch.Tensor:

@@ -45,7 +45,12 @@ the last step's chunk is its own, fully reduced. K17 does the same per
 span, with a flag per (step, span); one span is K16. So the ring rounds at
 every hop (n - 1 times) where ``scatter`` rounds once: the plain version
 :func:`_gemm_rs_ring_plain` follows the ring's hop order and rounding, and
-runs on the CPU.
+runs on the CPU. :func:`~triton_dist_tpu_torch.ops.common.ring_gemm_plan`
+picks the ring's engine: bf16 that TMA can load runs K1's ``wgmma`` + TMA
+mainloop over the ring's step walk (``tdt_ring_gemm_rs_sm90``), where the
+wait for the left partial of a (step, span) sits before its epilogue, not
+before its k loop; other bf16 the mma.sync kernel, f32 the FMA kernel
+(``tdt_ring_gemm_rs``).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from triton_dist_tpu_torch.ops.common import (
     gemm_only,
     launch_barrier,
     max_consumer_blocks,
+    ring_gemm_plan,
     ring_launch,
     ring_order_sum,
     ring_spans,
@@ -178,9 +184,12 @@ def gemm_rs(
     over it; over a pair, the staged composition of ``_gemm_rs_2d``.
 
     K7 on the card counts on ``launches``, its ``wgmma`` engine also on
+    ``wgmma_launches``; K16 on ``_gemm_rs_ring.launches`` and K17 on
+    ``_gemm_rs_ring_chunked.launches``, each ``wgmma`` engine also on its
     ``wgmma_launches``. ``_engine`` forces K7's engine (``"wgmma"`` or
-    ``"mma_sync"``, :func:`gemm_rs_plan`; the chip script's A/B, never the
-    main path)."""
+    ``"mma_sync"``, :func:`gemm_rs_plan`), or K16/K17's on a ring
+    (:func:`~triton_dist_tpu_torch.ops.common.ring_gemm_plan`): the chip
+    script's A/B, never the main path."""
     out_dtype = out_dtype or a.dtype
     ctx = group_of(ctx, axis)
     if ctx is not None and len(ctx.axis_names) > 1:
@@ -211,8 +220,8 @@ def gemm_rs(
     if a.device.type == "cpu":
         return _gemm_rs_ring_plain(a, b, ctx, out_dtype, spans)
     if len(spans) == 1:
-        return _gemm_rs_ring(a, b, ctx, out_dtype)
-    return _gemm_rs_ring_chunked(a, b, ctx, out_dtype, spans)
+        return _gemm_rs_ring(a, b, ctx, out_dtype, _engine)
+    return _gemm_rs_ring_chunked(a, b, ctx, out_dtype, spans, _engine)
 
 
 gemm_rs.launches = 0
@@ -334,9 +343,11 @@ def _gemm_rs_sm90(a, b, ctx, out, p, recv, arrive, flags):
     return out
 
 
-def _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans):
+def _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans, counter, forced=None):
     """K16/K17 (``csrc/ring.cu``): every allocation, then the ranks meet,
-    then only the launch, then they meet again."""
+    then only the launch (counted on `counter`), then they meet again. bf16
+    that TMA can load runs the ``wgmma`` + TMA kernel (``ring_gemm_plan``),
+    other bf16 the mma.sync kernel, f32 the FMA kernel."""
     check_operands(a, b, out_dtype, "gemm_rs")
     n, me = ctx.world, ctx.rank
     m_tot, k_loc = a.shape
@@ -345,36 +356,50 @@ def _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans):
     elt = torch.empty((), dtype=out_dtype).element_size()
     recv = ctx.symmetric("gemm_rs_ring.recv", (n - 1) * m_loc * n_dim * elt)
     out = torch.empty((m_loc, n_dim), dtype=out_dtype, device=a.device)
+    blocks = max_consumer_blocks(ctx)
+    recv_me, recv_right = recv.peer_addr(me), recv.peer_addr((me + 1) % n)
+    p = ring_gemm_plan(spans, n_dim, k_loc, n, a.dtype, blocks=blocks, engine=forced,
+                       aligned=all(x % 16 == 0 for x in (a.data_ptr(), b.data_ptr(),
+                                                         out.data_ptr(), recv_me, recv_right)),
+                       what="gemm_rs ring")
     ring = ring_launch(ctx, "gemm_rs_ring", spans)
     ctx.rendezvous()
-    rc = ring.lib.tdt_ring_gemm_rs(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), recv.peer_addr(me),
-        recv.peer_addr(ring.right), m_loc, n_dim, k_loc, DTYPE_CODE[a.dtype],
-        DTYPE_CODE[out_dtype], ring.spans, ring.n_spans, n, me, *ring.flags,
-        ring.launch.epoch, max_consumer_blocks(ctx), ring.launch.jitter, *ring.launch.wait,
-        stream_ptr(torch.cuda.current_stream()),
-    )
-    _build.check(ring.lib, rc, "gemm_rs ring")
-    return out
-
-
-def _gemm_rs_ring(a, b, ctx, out_dtype):
-    """K16: the ring with one span a hop."""
-    out = _ring_gemm_rs_launch(a, b, ctx, out_dtype, ((0, a.shape[0] // ctx.world),))
-    count_launch(_gemm_rs_ring)
+    stream = stream_ptr(torch.cuda.current_stream())
+    if p.engine == "wgmma":
+        rc = ring.lib.tdt_ring_gemm_rs_sm90(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), recv_me, recv_right, m_loc, n_dim,
+            k_loc, DTYPE_CODE[out_dtype], ring.spans, ring.n_spans, n, me, *ring.flags,
+            ring.launch.epoch, p.config, p.grid, ring.launch.jitter, *ring.launch.wait, stream,
+        )
+        _build.check(ring.lib, rc, "gemm_rs ring (wgmma)")
+        count_launch(counter, "wgmma_launches")
+    else:
+        rc = ring.lib.tdt_ring_gemm_rs(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), recv_me, recv_right, m_loc, n_dim,
+            k_loc, DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], ring.spans, ring.n_spans, n, me,
+            *ring.flags, ring.launch.epoch, blocks, ring.launch.jitter, *ring.launch.wait,
+            stream,
+        )
+        _build.check(ring.lib, rc, "gemm_rs ring")
+    count_launch(counter)
     ctx.rendezvous()  # every rank's kernel is issued before any rank goes on
     return out
 
 
+def _gemm_rs_ring(a, b, ctx, out_dtype, forced=None):
+    """K16: the ring with one span a hop."""
+    return _ring_gemm_rs_launch(a, b, ctx, out_dtype, ((0, a.shape[0] // ctx.world),),
+                                _gemm_rs_ring, forced)
+
+
 _gemm_rs_ring.launches = 0
+_gemm_rs_ring.wgmma_launches = 0  # K16 on K1's wgmma + TMA mainloop
 
 
-def _gemm_rs_ring_chunked(a, b, ctx, out_dtype, spans):
+def _gemm_rs_ring_chunked(a, b, ctx, out_dtype, spans, forced=None):
     """K17: the ring with a flag per (step, span)."""
-    out = _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans)
-    count_launch(_gemm_rs_ring_chunked)
-    ctx.rendezvous()
-    return out
+    return _ring_gemm_rs_launch(a, b, ctx, out_dtype, spans, _gemm_rs_ring_chunked, forced)
 
 
 _gemm_rs_ring_chunked.launches = 0
+_gemm_rs_ring_chunked.wgmma_launches = 0  # K17 on K1's wgmma + TMA mainloop
